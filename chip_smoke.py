@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the flat-scan CUDA kernel from ``colbert_tpu_torch/csrc`` and drives
-the port's exact flat serving path once, at full BERT-base width, with
-random weights from a seed:
+Builds the port's CUDA kernels from ``colbert_tpu_torch/csrc`` (one nvcc
+per source, all at once) and drives the port's two paths, exact flat
+serving and retriever training, at full BERT-base width with random
+weights from a seed:
 
 * phase 1: kernels K1 (fused scan + group max) and K2 (full score matrix)
   against their plain PyTorch versions on the card, at B=144 queries x 16
@@ -23,6 +24,23 @@ random weights from a seed:
   the plain version's top-100 over the same table and query encodings
   within 1e-4 (tie-insensitive), and each kernel must have launched in
   the run: K1 once per served batch.
+* phase 3: kernels K3 (all-pairs MaxSim, fp32) and K9 (dropout) against
+  their plain PyTorch versions on the card.  K3 at the trainer's eval
+  shape (34 queries x 16 views against 340 docs x 16 rows x 768), with
+  multiview off (32 query tokens, 384 doc tokens, token masks) and with a
+  ragged doc count; limit 1e-4 absolute.  K9 on the attention
+  probabilities of a training step, (68, 12, 384, 384) bf16, and on an
+  fp32 tensor with an odd element count: forward and backward bit-equal to
+  the plain version's Philox stream, the keep fraction within 5 sigma of
+  (256 - thr) / 256.
+* phase 4: the CLI's ``train`` at BERT-base width, batch 34, multiview
+  16/16, dropout 0.1 (the default byte impl): 7 steps over synthetic
+  Chinese questions with positives and hard negatives, an evaluation on a
+  dev set at steps 3 and 6 (two eval batches, the second padded), a
+  checkpoint at each, then ``train --resume`` from step 6 for one step.
+  Every loss must be finite, the resumed step's loss equal the straight
+  run's, K9 launch (1 + 3 layers) x 2 passes x 2 (forward, backward) times
+  per step and K3 once per eval batch.
 
 Prints the card's name and power limit, the measurements, one JSON line of
 kernels, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -55,6 +73,37 @@ def card_label() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+# ---- launch counters and bounds ----
+
+PEAK_BF16_FLOPS = 989e12   # H100 SXM dense tensor-core rate
+PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
+PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3
+
+
+def counters():
+    from colbert_tpu_torch.ops import dropout as dr, flat_scan as fs, maxsim as ms
+
+    return {"K1": fs.flat_scan_fused.launches, "K2": fs.flat_maxsim_scan.launches,
+            "K3": ms.maxsim.launches, "K9": dr.hw_dropout.launches}
+
+
+def reset_counts() -> None:
+    for c in counters().values():
+        c.reset()
+
+
+def read_counts() -> dict:
+    return {k: c.value for k, c in counters().items()}
+
+
+def bound(flops: float, nbytes: float, peak_flops: float):
+    """Least time on the card in ms, and what sets it: the larger of the
+    operations over the peak rate for their type and the bytes (each input
+    read once, each output written once) over the HBM rate."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 # ---- seeded inputs ----
@@ -223,16 +272,16 @@ def phase_slice(device, workdir: Path, label: str, num_docs=20_000, model_kw=Non
     import numpy as np
     import torch
 
-    from colbert_tpu.config import ColbertConfig, IndexConfig, ModelConfig, ServeConfig, TokenizerConfig
-    from colbert_tpu.tokenization.vocab import build_vocab, write_vocab
-    from colbert_tpu.utils.io import dump_json
     from colbert_tpu_torch import cli
+    from colbert_tpu_torch.config import ColbertConfig, IndexConfig, ModelConfig, ServeConfig, TokenizerConfig
     from colbert_tpu_torch.indexing.storage import IndexStorage
     from colbert_tpu_torch.models.colbert import ColbertModel
     from colbert_tpu_torch.models.convert import reference_state_dict
     from colbert_tpu_torch.ops import flat_scan as fs
     from colbert_tpu_torch.ranking.searcher import ColbertSearcher
     from colbert_tpu_torch.serving.server import RetrievalClient, RetrievalService
+    from colbert_tpu_torch.tokenization.vocab import build_vocab, write_vocab
+    from colbert_tpu_torch.utils.io import dump_json
 
     n_eval = 2 * B
     docs, questions, positives = synthetic_chinese(num_docs, n_requests * B + n_eval, seed=seed)
@@ -306,9 +355,8 @@ def phase_slice(device, workdir: Path, label: str, num_docs=20_000, model_kw=Non
     requests = [questions[i * B : (i + 1) * B] for i in range(n_requests)]
     k2_service.retrieve(requests[0][:1], topk=TOPK)  # warm-up outside the counted run
 
-    # ---- the counted main-path run ----
-    fs.flat_scan_fused.launches.reset()
-    fs.flat_maxsim_scan.launches.reset()
+    # ---- the counted serving-path run ----
+    reset_counts()
     answers, lat = [], []
     for qs in requests:
         t0 = time.perf_counter()
@@ -316,7 +364,7 @@ def phase_slice(device, workdir: Path, label: str, num_docs=20_000, model_kw=Non
         lat.append(time.perf_counter() - t0)
     cli.main(["evaluate", "--eval-data", str(eval_path), "--remote", "--topk", str(TOPK), *common])
     k2_answers = [k2_service.retrieve(qs, topk=TOPK) for qs in requests]
-    launches = {"K1": fs.flat_scan_fused.launches.value, "K2": fs.flat_maxsim_scan.launches.value}
+    launches = read_counts()
     # ----
 
     client.shutdown()
@@ -327,7 +375,7 @@ def phase_slice(device, workdir: Path, label: str, num_docs=20_000, model_kw=Non
         log(f"[phase2] request {i}: {B} questions top-{TOPK} in {dt * 1e3:.1f} ms = {B / dt:.1f} QPS "
             f"over the socket (first request includes warm-up) [{label}]")
     served_batches = n_requests + -(-n_eval // B)
-    log(f"[phase2] launches in the main-path run: {launches} (K1 expected {served_batches}, "
+    log(f"[phase2] launches in the serving-path run: {launches} (K1 expected {served_batches}, "
         f"K2 expected {n_requests})")
     if launches["K1"] != served_batches or launches["K2"] != n_requests:
         raise AssertionError(f"kernel launches {launches} do not match the served batches")
@@ -364,13 +412,219 @@ def phase_slice(device, workdir: Path, label: str, num_docs=20_000, model_kw=Non
     return launches, worst
 
 
+# ---- phase 3: the training kernels against their plain versions ----
+
+EVAL_Q, EVAL_D = 34, 340          # eval step at the reference batch: 34 questions x (2 + 8) docs
+K9_SHAPE = (68, 12, 384, 384)     # attention probabilities of a training step, bf16
+K9_THR = 26                       # round(0.1 * 256)
+
+
+def phase_train_kernels(device, eval_q=EVAL_Q, eval_d=EVAL_D, k9_shape=K9_SHAPE, seed=SEED):
+    """Compare K3 and K9 with their plain versions; returns per-kernel summaries."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from colbert_tpu_torch.ops import dropout as dr, maxsim as ms
+
+    rng = np.random.default_rng(seed)
+
+    def unit(*shape):
+        a = rng.normal(size=shape).astype(np.float32)
+        return torch.from_numpy(a / np.linalg.norm(a, axis=-1, keepdims=True)).to(device)
+
+    def lengths_mask(n_rows, width, lo):
+        lens = rng.integers(lo, width + 1, size=n_rows)
+        return torch.from_numpy((np.arange(width)[None, :] < lens[:, None]).astype(np.int32)).to(device)
+
+    worst = 0.0
+    cases = {
+        "multiview 16/16": (unit(eval_q, M, H), unit(eval_d, 16, H),
+                            torch.ones(eval_q, M, dtype=torch.int32, device=device),
+                            torch.ones(eval_d, 16, dtype=torch.int32, device=device)),
+        "multiview off, 32 x 384 tokens": (unit(eval_q, 32, H), unit(eval_d, 384, H),
+                                           lengths_mask(eval_q, 32, 8), lengths_mask(eval_d, 384, 40)),
+        "ragged nd": (unit(eval_q, M, H), unit(eval_d - 7, 16, H), None, None),
+    }
+    for label, (Q, D, qm, dm) in cases.items():
+        if qm is None:  # an all-negative doc: 0 from its masked rows wins the max
+            D[0] = -D[0].abs()
+            dm = lengths_mask(D.shape[0], D.shape[1], 1)
+            qm = torch.ones(Q.shape[:2], dtype=torch.int32, device=device)
+        got, want = ms.maxsim(Q, D, qm, dm), ms.maxsim_ref(Q, D, qm, dm)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        log(f"[phase3] K3 {label}: Q {tuple(Q.shape)} D {tuple(D.shape)} max|d|={err:.3e} (limit {SCORE_ATOL})")
+        if not err <= SCORE_ATOL:
+            raise AssertionError(f"K3 {label}: max |kernel - plain| = {err} > {SCORE_ATOL}")
+        worst = max(worst, err)
+    Q, D, qm, dm = cases["multiview 16/16"]
+    k3 = {"max_abs_err": worst,
+          "ms": time_ms(lambda: ms.maxsim(Q, D, qm, dm)),
+          "plain_ms": time_ms(lambda: ms.maxsim_ref(Q, D, qm, dm)),
+          "library_ms": None}
+    nq, m, h = Q.shape
+    nd, n, _ = D.shape
+    k3["bound_ms"], k3["bound_by"] = bound(2.0 * nq * m * nd * n * h,
+                                           4.0 * (Q.numel() + D.numel() + qm.numel() + dm.numel() + nq * nd),
+                                           PEAK_FP32_FLOPS)
+    log(f"[phase3] K3 at {nq} x {m} vs {nd} x {n} x {h} fp32: kernel {k3['ms']:.3f} ms, plain "
+        f"{k3['plain_ms']:.3f} ms, bound {k3['bound_ms']:.4f} ms ({k3['bound_by']}); no single "
+        f"PyTorch call computes MaxSim, so no library time")
+    del cases, Q, D
+
+    seed64 = int(rng.integers(0, 2**63)) * 2 + 1
+    scale = dr.keep_scale(K9_THR, torch.bfloat16)
+    x = torch.randn(k9_shape, device=device, dtype=torch.bfloat16).requires_grad_(True)
+    y = dr.hw_dropout(x, seed64, K9_THR)
+    g = torch.randn_like(y)
+    (dx,) = torch.autograd.grad(y, x, g)
+    xd = x.detach()
+    keep = dr.mask_bytes(xd.numel(), seed64, device).view(k9_shape) >= K9_THR
+    want_y = dr.hw_dropout_ref(xd, seed64, K9_THR)
+    want_dx = torch.where(keep, g * torch.tensor(scale, dtype=g.dtype, device=device), torch.zeros_like(g))
+    torch.cuda.synchronize()
+    if not torch.equal(y, want_y):
+        raise AssertionError(f"K9 forward differs from the plain version in {int((y != want_y).sum())} elements")
+    if not torch.equal(dx, want_dx):
+        raise AssertionError(f"K9 backward differs from grad * mask * scale in {int((dx != want_dx).sum())} elements")
+    nz = xd != 0
+    frac = float(((y != 0) & nz).sum()) / float(nz.sum())
+    p = (256 - K9_THR) / 256
+    sigma = (p * (1 - p) / float(nz.sum())) ** 0.5
+    log(f"[phase3] K9 {k9_shape} bf16 thr {K9_THR}: forward and backward bit-equal to the plain "
+        f"version; keep fraction {frac:.6f} vs {p:.6f} ({(frac - p) / sigma:+.2f} sigma)")
+    if abs(frac - p) > 5 * sigma:
+        raise AssertionError(f"K9 keep fraction {frac} is {abs(frac - p) / sigma:.1f} sigma from {p}")
+    odd = torch.randn(1_000_003, device=device)
+    if not torch.equal(dr.hw_dropout(odd, seed64 + 2, 51), dr.hw_dropout_ref(odd, seed64 + 2, 51)):
+        raise AssertionError("K9 fp32 (odd element count) differs from the plain version")
+    err9 = max(float((y.detach().float() - want_y.float()).abs().max()), float((dx.float() - want_dx.float()).abs().max()))
+    log(f"[phase3] K9 (1000003,) fp32 thr 51: bit-equal to the plain version")
+    del dx, want_dx, g, keep, want_y, y
+    xd = xd.contiguous()
+    k9 = {"max_abs_err": err9,
+          "ms": time_ms(lambda: dr.hw_dropout(xd, seed64, K9_THR)),
+          "plain_ms": time_ms(lambda: dr.hw_dropout_ref(xd, seed64, K9_THR), iters=5),
+          "library_ms": time_ms(lambda: F.dropout(xd, p=K9_THR / 256, training=True))}
+    k9["bound_ms"], k9["bound_by"] = bound(2.0 * xd.numel(), 2.0 * xd.numel() * xd.element_size(),
+                                           PEAK_FP32_FLOPS)
+    log(f"[phase3] K9 at {k9_shape} bf16: kernel {k9['ms']:.3f} ms, plain {k9['plain_ms']:.3f} ms, "
+        f"F.dropout {k9['library_ms']:.3f} ms, bound {k9['bound_ms']:.4f} ms ({k9['bound_by']})")
+    return {"K3": k3, "K9": k9}
+
+
+# ---- phase 4: training through the CLI ----
+
+def retrieval_examples(docs, questions, positives, n_neg, rng):
+    """Train/dev examples: the question, its positive passage, ``n_neg``
+    hard negatives drawn from the other passages."""
+    out = []
+    for q, p in zip(questions, positives):
+        negs = [docs[j] for j in rng.choice(len(docs), size=n_neg + 1, replace=False) if j != p][:n_neg]
+        out.append({"question": q, "positive_ctxs": [docs[p]], "hard_negative_ctxs": negs})
+    return out
+
+
+def phase_train(device, workdir: Path, label: str, model_kw=None, tok_kw=None, batch=34,
+                steps=7, n_dev=40, seed=SEED):
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.config import ColbertConfig, ModelConfig, TokenizerConfig, TrainConfig
+    from colbert_tpu_torch.tokenization.vocab import build_vocab, write_vocab
+    from colbert_tpu_torch.training.checkpoint import CheckpointManager
+    from colbert_tpu_torch.utils.io import dump_json, load_jsonl
+
+    rng = np.random.default_rng(seed + 7)
+    n_train = steps * batch
+    docs, questions, positives = synthetic_chinese(4 * (n_train + n_dev), n_train + n_dev, seed=seed + 3)
+    train = retrieval_examples(docs, questions[:n_train], positives[:n_train], 10, rng)
+    dev = retrieval_examples(docs, questions[n_train:], positives[n_train:], 8, rng)
+    train_path, dev_path = workdir / "train.json", workdir / "dev.json"
+    dump_json(train, train_path)
+    dump_json(dev, dev_path)
+    model_cfg = ModelConfig(**(model_kw or {}))
+    vocab_path = write_vocab(build_vocab(docs + questions, max_size=model_cfg.vocab_size), workdir / "vocab.txt")
+    cfg = ColbertConfig(
+        model=model_cfg,
+        tokenizer=TokenizerConfig(vocab_path=str(vocab_path), **(tok_kw or {})),
+        train=TrainConfig(per_device_batch_size=batch, num_epochs=1, evals_per_epoch=2, log_every=1,
+                          keep_checkpoints=2, checkpoint_dir=str(workdir / "ckpt"), seed=seed),
+    )
+    conf_path = workdir / "conf.yaml"
+    cfg.to_yaml(conf_path)
+    c = cfg.model
+    log(f"[phase4] model hidden={c.hidden_size} layers={c.num_layers} heads={c.num_heads} "
+        f"ffn={c.intermediate_size} vocab={c.vocab_size} dim={c.dim} {c.dtype}, dropout "
+        f"{c.hidden_dropout}/{c.attention_dropout} ({c.dropout_impl}), multiview "
+        f"{cfg.multiview.q_view}/{cfg.multiview.d_view}, query_maxlen {cfg.tokenizer.query_maxlen}, "
+        f"doc_maxlen {cfg.tokenizer.doc_maxlen}, batch {batch}; {n_train} train and {n_dev} dev examples")
+    common = ["--config", str(conf_path), "--train-data", str(train_path), "--dev-data", str(dev_path),
+              "--device", str(device)]
+    per_step_k9 = (1 + 3 * c.num_layers) * 2 * 2
+    eval_batches = -(-n_dev // batch)
+    eval_every = steps // 2  # evals_per_epoch=2
+    saved = [eval_every * i for i in range(1, steps // eval_every + 1)]
+    if saved[-1] == steps:
+        raise ValueError("steps must leave a step after the last checkpoint, for the resume")
+
+    # ---- the counted training-path run ----
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(["train", *common])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    # ----
+    train_s = time.perf_counter() - t0
+    rows = load_jsonl(workdir / "ckpt" / "train_log.jsonl")
+    step_rows = [r for r in rows if r["kind"] == "step"]
+    eval_rows = [r for r in rows if r["kind"] == "eval"]
+    losses = [r["step_loss"] for r in step_rows]
+    log(f"[phase4] train: {len(step_rows)} steps in {train_s:.1f} s (model init, evaluation and "
+        f"checkpoints included); losses {[round(x, 4) for x in losses]}; evals {eval_rows}")
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"expected {steps} finite losses, got {losses}")
+    want = {"K3": len(saved) * eval_batches, "K9": steps * per_step_k9}
+    log(f"[phase4] launches in the training-path run: {launches} (K9 expected {want['K9']} = {steps} "
+        f"steps x {per_step_k9}, K3 expected {want['K3']} = {len(saved)} evals x {eval_batches} batches)")
+    if launches["K3"] != want["K3"] or launches["K9"] != want["K9"]:
+        raise AssertionError(f"kernel launches {launches} do not match the training steps {want}")
+    ckpt = CheckpointManager(cfg.train.checkpoint_dir)
+    if ckpt.all_steps() != saved[-2:]:
+        raise AssertionError(f"checkpoints {ckpt.all_steps()}, expected {saved[-2:]}")
+    step_s = [r["step_s"] for r in step_rows[2:]]
+    ms_step = 1e3 * float(np.mean(step_s))
+    log(f"[phase4] {ms_step:.1f} ms/step = {batch / ms_step * 1e3:.1f} examples/s over steps 3-{steps} "
+        f"(min {1e3 * min(step_s):.1f}, max {1e3 * max(step_s):.1f} ms; first step "
+        f"{1e3 * step_rows[0]['step_s']:.1f} ms) [{label}]")
+
+    # the checkpoint read back: resume from the last one for the remaining steps
+    reset_counts()
+    cli.main(["train", *common, "--resume"])
+    torch.cuda.synchronize()
+    resumed = read_counts()
+    rows = [r for r in load_jsonl(workdir / "ckpt" / "train_log.jsonl") if r["kind"] == "step"]
+    log(f"[phase4] resume from checkpoint {saved[-1]}: steps {[r['step'] for r in rows]}, loss "
+        f"{[r['step_loss'] for r in rows]} vs the straight run's step {steps} {losses[-1]}; launches {resumed}")
+    if [r["step"] for r in rows] != list(range(saved[-1] + 1, steps + 1)) or resumed["K9"] != per_step_k9 * (steps - saved[-1]):
+        raise AssertionError(f"resume ran steps {[r['step'] for r in rows]}, K9 launches {resumed['K9']}")
+    if not abs(rows[0]["step_loss"] - losses[-1]) <= 1e-4:
+        raise AssertionError(f"resumed loss {rows[0]['step_loss']} differs from the straight run's {losses[-1]}")
+    sd = cli._retriever_state_dict(cfg, None, None)
+    if not all(torch.isfinite(v).all() for v in sd.values()):
+        raise AssertionError("checkpoint parameters are not finite")
+    return launches, {"ms_step": ms_step, "losses": losses}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from colbert_tpu_torch.ops import _build, flat_scan as fs
+    from colbert_tpu_torch.ops import _build, dropout as dr, flat_scan as fs, maxsim as ms
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -380,23 +634,44 @@ def main() -> int:
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    fs._kernel_lib()
-    log(f"[build] flat_scan.cu built and loaded in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_logs.get("flat_scan", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+    _build.load_libraries("flat_scan", "maxsim", "dropout")
+    fs._kernel_lib(), ms._kernel_lib(), dr._kernel_lib()
+    log(f"[build] flat_scan.cu, maxsim.cu, dropout.cu built in parallel and loaded in {time.perf_counter() - t0:.1f} s")
+    for name in ("flat_scan", "maxsim", "dropout"):
+        for line in _build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
 
     worst, times = phase_kernels(device)
+    train_kernels = phase_train_kernels(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        launches, _ = phase_slice(device, Path(tmp), label)
+        serve_launches, _ = phase_slice(device, Path(tmp), label)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        train_launches, _ = phase_train(device, Path(tmp), label)
 
+    num_docs, dv = 20_000, 16
+    k12_bound = bound(2.0 * B * M * num_docs * dv * H,
+                      num_docs * dv * H * 2 + B * M * H * 4 + num_docs * B * 4, PEAK_BF16_FLOPS)
     kernels = []
     for name, fn, line in (("K1 flat_scan_fused", "K1", 157), ("K2 flat_maxsim_scan", "K2", 59)):
         kernels.append({
             "name": name, "route": "cuda", "source": "colbert_tpu_torch/csrc/flat_scan.cu",
-            "replaces": f"colbert_tpu/ops/flat_scan.py:{line}", "launches": launches[fn],
+            "replaces": f"colbert_tpu/ops/flat_scan.py:{line}", "launches": serve_launches[fn],
             "max_abs_err": worst[fn], "ms": times[fn][0], "plain_ms": times[fn][1],
+            "bound_ms": k12_bound[0], "bound_by": k12_bound[1], "library_ms": None,
         })
+    for name, fn, src, replaces in (
+        ("K3 maxsim", "K3", "colbert_tpu_torch/csrc/maxsim.cu", "colbert_tpu/ops/maxsim.py:61"),
+        ("K9 hw_dropout", "K9", "colbert_tpu_torch/csrc/dropout.cu", "colbert_tpu/ops/dropout_pallas.py:36"),
+    ):
+        k = train_kernels[fn]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": train_launches[fn], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"],
+        })
+    log(label)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

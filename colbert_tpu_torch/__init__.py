@@ -4,24 +4,29 @@ A second package beside the JAX one, mirroring its module names so each
 counterpart is easy to find.  The JAX package stays the reference: every
 module here is tested against it on the CPU (``tests/test_torch_*.py``).
 
-This slice covers exact flat serving: tokenizer -> BERT + ColBERT head ->
-hand-written CUDA MaxSim scan (``csrc/flat_scan.cu``) -> two-stage top-k ->
-the reference's socket protocol, plus the corpus encoder that writes the
-part files flat mode serves from.
+Slices ported so far:
 
-The package imports ``torch`` and never ``jax``/``flax``.  It shares only
-the framework-free modules of ``colbert_tpu`` (config, vocab, punctuation,
-metrics, io, logging).
+* exact flat serving: tokenizer -> BERT + ColBERT head -> hand-written CUDA
+  MaxSim scan (``csrc/flat_scan.cu``) -> two-stage top-k -> the reference's
+  socket protocol, plus the corpus encoder that writes the part files;
+* single-device retriever training (``training/``): dropout by the
+  hand-written Philox kernel (``csrc/dropout.cu``, forward and backward),
+  the eval step's all-pairs MaxSim kernel (``csrc/maxsim.cu``), AdamW,
+  checkpoints in the reference ``pytorch.bin`` layout.
+
+The package imports ``torch`` and nothing of ``colbert_tpu``, ``jax`` or
+``flax``: it carries its own copies of the framework-free modules (config,
+vocab, punctuation, metrics, io, logging).
 """
 
-from colbert_tpu.version import __version__
+from colbert_tpu_torch.version import __version__
 
 
 def __getattr__(name):
     """Lazy top-level API (keeps ``import colbert_tpu_torch`` free of torch startup)."""
     api = {
-        "ColbertConfig": ("colbert_tpu.config", "ColbertConfig"),
-        "load_config": ("colbert_tpu.config", "load_config"),
+        "ColbertConfig": ("colbert_tpu_torch.config", "ColbertConfig"),
+        "load_config": ("colbert_tpu_torch.config", "load_config"),
         "ColbertTokenizer": ("colbert_tpu_torch.tokenization", "ColbertTokenizer"),
         "ColbertModel": ("colbert_tpu_torch.models.colbert", "ColbertModel"),
         "CollectionEncoder": ("colbert_tpu_torch.indexing.encoder", "CollectionEncoder"),
@@ -30,6 +35,8 @@ def __getattr__(name):
         "RetrievalService": ("colbert_tpu_torch.serving.server", "RetrievalService"),
         "RetrievalServer": ("colbert_tpu_torch.serving.server", "RetrievalServer"),
         "RetrievalClient": ("colbert_tpu_torch.serving.server", "RetrievalClient"),
+        "ColbertTrainer": ("colbert_tpu_torch.training.trainer", "ColbertTrainer"),
+        "RetrievalDataset": ("colbert_tpu_torch.training.dataset", "RetrievalDataset"),
     }
     if name in api:
         import importlib
@@ -43,4 +50,5 @@ __all__ = [
     "__version__", "ColbertConfig", "load_config", "ColbertTokenizer",
     "ColbertModel", "CollectionEncoder", "IndexStorage", "ColbertSearcher",
     "RetrievalService", "RetrievalServer", "RetrievalClient",
+    "ColbertTrainer", "RetrievalDataset",
 ]

@@ -17,13 +17,13 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from colbert_tpu.config import ColbertConfig
-from colbert_tpu.utils.logging import Timers, get_logger
+from colbert_tpu_torch.config import ColbertConfig
+from colbert_tpu_torch.utils.logging import Timers, get_logger
 from colbert_tpu_torch.indexing.storage import IndexStorage
 from colbert_tpu_torch.models.colbert import ColbertModel
 from colbert_tpu_torch.tokenization import ColbertTokenizer
 
-logger = get_logger("torch.encoder")
+logger = get_logger("encoder")
 
 
 class CollectionEncoder:

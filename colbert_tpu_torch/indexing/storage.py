@@ -19,7 +19,7 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
-from colbert_tpu.utils.io import dump_json, load_json
+from colbert_tpu_torch.utils.io import dump_json, load_json
 
 
 class IndexStorage:

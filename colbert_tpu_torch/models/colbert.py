@@ -3,15 +3,18 @@
 Counterpart of ``colbert_tpu/models/colbert.py``: optionally keep the first
 ``q_view``/``d_view`` positions (multiview), project with a bias-free
 ``Linear(hidden, dim)`` in the compute dtype, cast to fp32 and divide by
-``max(norm, 1e-12)``.
+``max(norm, 1e-12)``.  In ``train()`` mode the encoder's dropout sites draw
+their seeds from the ``generator`` passed to :meth:`query` / :meth:`doc`.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
-from colbert_tpu.config import ModelConfig, MultiviewConfig
+from colbert_tpu_torch.config import ModelConfig, MultiviewConfig
 from colbert_tpu_torch.models.bert import BertEncoder, Dense
 
 
@@ -31,11 +34,13 @@ class ColbertModel(nn.Module):
         norm = torch.linalg.vector_norm(t, dim=-1, keepdim=True)
         return t / norm.clamp_min(1e-12)
 
-    def query(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
-        return self._represent(self.bert(input_ids, attention_mask), is_query=True)
+    def query(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self._represent(self.bert(input_ids, attention_mask, generator=generator), is_query=True)
 
-    def doc(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
-        return self._represent(self.bert(input_ids, attention_mask), is_query=False)
+    def doc(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self._represent(self.bert(input_ids, attention_mask, generator=generator), is_query=False)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:

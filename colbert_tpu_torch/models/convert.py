@@ -10,7 +10,13 @@ Two sources:
 * the reference ``pytorch.bin`` layout (``model.*`` BERT keys +
   ``linear.weight``), which ``colbert_params_to_torch_state_dict`` writes
   from a JAX checkpoint: :func:`state_dict_from_reference`, and its inverse
-  :func:`reference_state_dict` for writing one.
+  :func:`reference_state_dict` for writing one.  A bare HF ``BertModel``
+  state dict (``bert.*`` or unprefixed keys, no ``linear.weight``) loads
+  too, with ``require_head=False``, as the JAX package's
+  ``colbert_params_from_torch`` accepts it.
+
+:func:`flax_paths` names every port parameter by its flax path, which the
+optimizer's weight-decay mask reads (``training/train_state.py``).
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from colbert_tpu.config import ModelConfig
+from colbert_tpu_torch.config import ModelConfig
 
 # (port module path, reference module path, kind) for one BERT layer
 _LAYER_MAP = (
@@ -68,6 +74,23 @@ def state_dict_from_jax_params(params: Mapping[str, Any], cfg: ModelConfig) -> D
     return out
 
 
+def flax_paths(cfg: ModelConfig) -> Dict[str, str]:
+    """Port parameter name -> its flax path, ``/``-joined
+    (``bert/layer_0/attention/query/kernel``, ``bert/embeddings/layernorm/scale``)."""
+    out = {f"bert.embeddings.{n}.weight": f"bert/embeddings/{n}/embedding"
+           for n in ("word_embeddings", "position_embeddings", "token_type_embeddings")}
+    leaf = {("dense", "weight"): "kernel", ("dense", "bias"): "bias",
+            ("ln", "weight"): "scale", ("ln", "bias"): "bias"}
+    out["bert.embeddings.layernorm.weight"] = "bert/embeddings/layernorm/scale"
+    out["bert.embeddings.layernorm.bias"] = "bert/embeddings/layernorm/bias"
+    for i in range(cfg.num_layers):
+        for port, _, kind in _LAYER_MAP:
+            for t in ("weight", "bias"):
+                out[f"bert.layers.{i}.{port}.{t}"] = f"bert/layer_{i}/{port.replace('.', '/')}/{leaf[kind, t]}"
+    out["linear.weight"] = "linear/kernel"
+    return out
+
+
 def _key_pairs(cfg: ModelConfig):
     """(port key, reference key) for every parameter."""
     pairs = [
@@ -88,24 +111,41 @@ def _key_pairs(cfg: ModelConfig):
     return pairs
 
 
-def state_dict_from_reference(path_or_sd, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+def _reference_keys(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """``bert.*`` or unprefixed HF BERT keys -> the reference's ``model.*``."""
+    out = {}
+    for k, v in sd.items():
+        for pre in ("model.", "bert."):
+            if k.startswith(pre):
+                k = "model." + k[len(pre):]
+                break
+        if k.startswith(("embeddings.", "encoder.", "pooler.")):
+            k = "model." + k
+        out[k] = v
+    return out
+
+
+def state_dict_from_reference(path_or_sd, cfg: ModelConfig, *,
+                              require_head: bool = True) -> Dict[str, torch.Tensor]:
     """Reference ``pytorch.bin`` (``model.*`` + ``linear.weight``) -> port state dict.
 
-    Both sides store torch's (out, in) layout, so only the keys change."""
+    Both sides store torch's (out, in) layout, so only the keys change.
+    With ``require_head=False`` a checkpoint without ``linear.weight`` (a
+    bare BERT) gives a state dict without it."""
     if isinstance(path_or_sd, (str, bytes)) or hasattr(path_or_sd, "__fspath__"):
         sd = torch.load(path_or_sd, map_location="cpu", weights_only=True)
     else:
         sd = path_or_sd
-    missing = [ref for _, ref in _key_pairs(cfg) if ref not in sd]
+    sd = _reference_keys(sd)
+    pairs = [(port, ref) for port, ref in _key_pairs(cfg)
+             if require_head or ref != "linear.weight" or ref in sd]
+    missing = [ref for _, ref in pairs if ref not in sd]
     if missing:
         raise KeyError(
             f"checkpoint lacks {len(missing)} reference keys (first: {missing[0]}); "
             "expected the layout colbert_params_to_torch_state_dict writes"
         )
-    return {
-        port: sd[ref].float() if torch.is_tensor(sd[ref]) else _t(sd[ref])
-        for port, ref in _key_pairs(cfg)
-    }
+    return {port: sd[ref].float() if torch.is_tensor(sd[ref]) else _t(sd[ref]) for port, ref in pairs}
 
 
 def reference_state_dict(state_dict: Mapping[str, torch.Tensor], cfg: ModelConfig) -> Dict[str, torch.Tensor]:

@@ -4,6 +4,7 @@ Each ``csrc/<name>.cu`` compiles, with a plain C interface, into
 ``colbert_tpu_torch/_build/<name>-<hash>.so`` at first use.  The hash covers
 the sources' contents and the flags, never their modification times: a
 checkout sets mtimes arbitrarily, so an mtime rule can load a stale library.
+:func:`load_libraries` starts one nvcc per missing library, all at once.
 A failed build raises with nvcc's stderr.
 """
 
@@ -16,7 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -30,6 +31,26 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: ptxas report (registers, shared memory, spills) of each library built here
 build_logs: Dict[str, str] = {}
+
+
+class LaunchCounter:
+    """Thread-safe count of one kernel's launches (the serve path is threaded)."""
+
+    def __init__(self) -> None:
+        self._n = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    @property
+    def value(self) -> int:
+        return self._n
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
 
 
 def _nvcc() -> str:
@@ -51,25 +72,38 @@ def _source_hash(src: Path) -> str:
     return h.hexdigest()[:16]
 
 
+def load_libraries(*names: str) -> List[ctypes.CDLL]:
+    """Compile each ``csrc/<name>.cu`` whose content hash has no library yet,
+    one nvcc process per source, all started together; then load them all."""
+    with _lock:
+        todo = {}
+        for name in names:
+            if name in _libs:
+                continue
+            src = CSRC / f"{name}.cu"
+            so = BUILD_DIR / f"{name}-{_source_hash(src)}.so"
+            if not so.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+                todo[name] = (src, so, tmp, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            else:
+                _libs[name] = ctypes.CDLL(str(so))
+        failed = []
+        for name, (src, so, tmp, proc) in todo.items():
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed with code {proc.returncode} building {src.name}:\n{err}")
+                continue
+            build_logs[name] = err
+            os.replace(tmp, so)  # atomic: a concurrent process sees all or nothing
+            _libs[name] = ctypes.CDLL(str(so))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        return [_libs[n] for n in names]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its content hash has no library yet, then load it."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        src = CSRC / f"{name}.cu"
-        so = BUILD_DIR / f"{name}-{_source_hash(src)}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed with code {proc.returncode} building {src.name}:\n{proc.stderr}"
-                )
-            build_logs[name] = proc.stderr
-            os.replace(tmp, so)  # atomic: a concurrent process sees all or nothing
-        lib = ctypes.CDLL(str(so))
-        _libs[name] = lib
-        return lib
+    return load_libraries(name)[0]

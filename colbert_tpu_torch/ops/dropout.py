@@ -1,0 +1,158 @@
+"""Byte-threshold dropout whose mask is regenerated in the backward pass (K9).
+
+Counterpart of ``colbert_tpu/ops/dropout_pallas.py`` (``hw_dropout``, a
+custom VJP around the Pallas ``_kernel``) and of the byte semantics of
+``FastDropout`` (``colbert_tpu/models/bert.py:32-73``):
+
+    thr   = round(rate * 256)                      (drop probability thr / 256)
+    y     = where(byte >= thr, x * scale, 0)       scale = 256 / (256 - thr), in x's dtype
+    dx    = where(byte >= thr, dy * scale, 0)      the same bytes, regenerated
+
+The mask bytes come from Philox4x32-10 keyed by a 64-bit per-call seed and
+counted by groups of 16 elements (``csrc/dropout.cu`` documents the
+stream).  The TPU kernel uses the TPU's hardware generator; the streams
+differ and need not agree, the semantics do.  Nothing is saved between the
+passes but the seed.
+
+:func:`hw_dropout` launches the CUDA kernel for CUDA tensors (forward and
+backward, each counted in ``hw_dropout.launches``) and runs
+:func:`hw_dropout_ref`, the plain PyTorch version of the same stream, for
+CPU tensors.  On the card the two are equal bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from colbert_tpu_torch.ops._build import LaunchCounter
+
+_MASK32 = 0xFFFFFFFF
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57  # Philox4x32 multipliers
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85  # Weyl key increments
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def threshold(rate: float) -> int:
+    """Drop threshold in 1/256 units: ``round(rate * 256)`` as the JAX package takes it."""
+    return int(round(rate * 256))
+
+
+def keep_scale(thr: int, dtype: torch.dtype) -> float:
+    """``256 / (256 - thr)`` rounded to ``dtype``, as a Python float."""
+    return float(torch.tensor(256.0 / (256.0 - thr), dtype=torch.float64).to(dtype))
+
+
+# ---- the Philox stream in torch integer ops (int64 lanes holding uint32) ----
+
+def _mulhilo(a: int, b: torch.Tensor):
+    """High and low 32 bits of ``a * b`` for a constant ``a < 2**32`` and
+    ``b`` in [0, 2**32), without leaving int64: ``b`` splits into 16-bit halves."""
+    p_lo = a * (b & 0xFFFF)                      # < 2**48
+    p_hi = a * (b >> 16)                         # < 2**48
+    mid = p_lo + ((p_hi & 0xFFFF) << 16)         # < 2**49
+    return (p_hi >> 16) + (mid >> 32), mid & _MASK32
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 on four int64 tensors holding uint32 words (``counter``)
+    and two Python ints (``key``).  Returns the four output words."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key[0] & _MASK32, key[1] & _MASK32
+    for r in range(10):
+        if r:
+            k0, k1 = (k0 + _W0) & _MASK32, (k1 + _W1) & _MASK32
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def mask_bytes(n: int, seed: int, device=None) -> torch.Tensor:
+    """The kernel's ``n`` mask bytes for ``seed`` (uint8): element ``16*i + j``
+    takes byte ``j % 4`` (low first) of word ``j // 4`` of the ``i``-th
+    Philox output."""
+    groups = -(-n // 16)
+    i = torch.arange(groups, dtype=torch.int64, device=device)
+    zero = torch.zeros_like(i)
+    words = torch.stack(philox4x32_10((i & _MASK32, i >> 32, zero, zero),
+                                      (seed & _MASK32, seed >> 32)), dim=1)       # (groups, 4)
+    shifts = torch.arange(0, 32, 8, dtype=torch.int64, device=device)
+    return ((words[:, :, None] >> shifts) & 0xFF).to(torch.uint8).reshape(-1)[:n]
+
+
+def hw_dropout_ref(x: torch.Tensor, seed: int, thr: int) -> torch.Tensor:
+    """Plain version of the kernel: the same bytes, the same arithmetic."""
+    keep = mask_bytes(x.numel(), seed, x.device).view(x.shape) >= thr
+    scale = torch.tensor(keep_scale(thr, x.dtype), dtype=x.dtype, device=x.device)
+    return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+# ---- the CUDA kernel ----
+
+_lib_lock = threading.Lock()
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    from colbert_tpu_torch.ops._build import load_library
+
+    lib = load_library("dropout")
+    with _lib_lock:
+        if lib.dropout_launch.argtypes is None:
+            lib.dropout_launch.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_ulonglong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+            ]
+            lib.dropout_launch.restype = ctypes.c_int
+    return lib
+
+
+def _launch(x: torch.Tensor, seed: int, thr: int) -> torch.Tensor:
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"dropout kernel takes float32, bfloat16 or float16, got {x.dtype}")
+    lib = _kernel_lib()
+    xc = x.contiguous()
+    y = torch.empty_like(xc)
+    vec_ok = int(xc.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
+    with torch.cuda.device(xc.device):
+        err = lib.dropout_launch(
+            xc.data_ptr(), y.data_ptr(), xc.numel(), _DTYPES[x.dtype], seed, thr,
+            keep_scale(thr, x.dtype), vec_ok, torch.cuda.current_stream(xc.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"dropout kernel launch failed: cudaError_t {err}")
+    hw_dropout.launches.add()
+    return y.view(x.shape)
+
+
+def _apply(x: torch.Tensor, seed: int, thr: int) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return hw_dropout_ref(x, seed, thr)
+    return _launch(x, seed, thr)
+
+
+class _HwDropout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seed, thr):
+        ctx.seed, ctx.thr = seed, thr
+        return _apply(x, seed, thr)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # same mask, same scale: regenerated from the seed, never stored
+        return _apply(grad, ctx.seed, ctx.thr), None, None
+
+
+def hw_dropout(x: torch.Tensor, seed: int, thr: int) -> torch.Tensor:
+    """Dropout with drop probability ``thr / 256``; ``seed`` is an int in
+    [0, 2**64) drawn once per call site.  Differentiable in ``x``."""
+    if not 1 <= thr <= 255:
+        raise ValueError(f"dropout threshold must be 1..255 (of 256), got {thr}")
+    if not 0 <= seed < 1 << 64:
+        raise ValueError(f"dropout seed must fit 64 bits unsigned, got {seed}")
+    return _HwDropout.apply(x, seed, thr)
+
+
+hw_dropout.launches = LaunchCounter()

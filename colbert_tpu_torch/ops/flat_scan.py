@@ -32,32 +32,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from colbert_tpu_torch.ops._build import LaunchCounter
+
 # kernel limits, mirrored by flat_scan_max_tokens()/flat_scan_max_group() in the .cu
 _MAX_TOKENS = 128
 _MAX_GROUP = 64
 _GROUP_ROWS = 1024
 _REF_ROWS_CHUNK = 1 << 15  # table rows per product in the plain version
 _SCORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-class LaunchCounter:
-    """Thread-safe count of one kernel's launches (the serve path is threaded)."""
-
-    def __init__(self) -> None:
-        self._n = 0
-        self._lock = threading.Lock()
-
-    def add(self) -> None:
-        with self._lock:
-            self._n += 1
-
-    @property
-    def value(self) -> int:
-        return self._n
-
-    def reset(self) -> None:
-        with self._lock:
-            self._n = 0
 
 
 def _ceil_to(x: int, m: int) -> int:

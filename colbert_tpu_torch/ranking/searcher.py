@@ -17,8 +17,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from colbert_tpu.config import ColbertConfig
-from colbert_tpu.utils.logging import Timers
+from colbert_tpu_torch.config import ColbertConfig
+from colbert_tpu_torch.utils.logging import Timers
 from colbert_tpu_torch.indexing.storage import IndexStorage
 from colbert_tpu_torch.models.colbert import ColbertModel
 from colbert_tpu_torch.ops.flat_scan import (

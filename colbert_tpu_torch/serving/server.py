@@ -23,13 +23,13 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from colbert_tpu.config import ColbertConfig
-from colbert_tpu.evaluation.metrics import eval_retrieval
-from colbert_tpu.utils.logging import get_logger
+from colbert_tpu_torch.config import ColbertConfig
+from colbert_tpu_torch.evaluation.metrics import eval_retrieval
+from colbert_tpu_torch.utils.logging import get_logger
 from colbert_tpu_torch.ranking.searcher import ColbertSearcher
 from colbert_tpu_torch.serving.serializer import TripleSerializer
 
-logger = get_logger("torch.serving")
+logger = get_logger("serving")
 
 Triple = Tuple[int, float, str]
 

@@ -30,8 +30,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from colbert_tpu.config import MultiviewConfig, TokenizerConfig
-from colbert_tpu.tokenization.punctuation import IGNORED_TOKENS
+from colbert_tpu_torch.config import MultiviewConfig, TokenizerConfig
+from colbert_tpu_torch.tokenization.punctuation import IGNORED_TOKENS
 
 # Unicode White_Space (what Rust's char::is_whitespace tests)
 _WHITESPACE = frozenset(

@@ -1,6 +1,8 @@
-"""The port's package boundary and command line: the serve path loads no
-jax/flax, and the CLI refuses what it cannot do with a clean message."""
+"""The port's package boundary and command line: no module of the port
+imports the JAX package (nor jax, flax or transformers), and the CLI
+refuses what it cannot do with a clean message."""
 
+import pkgutil
 import subprocess
 import sys
 from pathlib import Path
@@ -10,12 +12,23 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 
 
+def _port_modules():
+    import colbert_tpu_torch
+
+    return sorted(m.name for m in pkgutil.walk_packages(colbert_tpu_torch.__path__, "colbert_tpu_torch."))
+
+
 def test_serve_path_imports_no_jax():
+    """Every module of the port, training included, imports nothing of the
+    JAX package (nor jax, flax or transformers)."""
+    mods = _port_modules()
+    assert {"colbert_tpu_torch.training.trainer", "colbert_tpu_torch.ops.dropout",
+            "colbert_tpu_torch.ops.maxsim", "colbert_tpu_torch.cli"} <= set(mods)
     code = (
-        "import sys\n"
-        "import colbert_tpu_torch.cli, colbert_tpu_torch.ranking.searcher, "
-        "colbert_tpu_torch.serving.server, colbert_tpu_torch.indexing.encoder\n"
-        "bad = sorted(m for m in ('jax', 'flax', 'transformers') if m in sys.modules)\n"
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('colbert_tpu', 'jax', 'flax', 'transformers'))\n"
         "assert not bad, bad\n"
         "assert 'torch' in sys.modules\n"
     )
@@ -25,14 +38,16 @@ def test_serve_path_imports_no_jax():
 
 
 def test_package_source_never_imports_jax():
-    for path in (REPO / "colbert_tpu_torch").rglob("*.py"):
+    for path in [*(REPO / "colbert_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]:
         for line in path.read_text(encoding="utf-8").splitlines():
             s = line.strip()
             assert not s.startswith(("import jax", "from jax", "import flax", "from flax")), (path, line)
-            assert not s.startswith(("import colbert_tpu.native", "from colbert_tpu.native")), (path, line)
+            assert not s.startswith(("import colbert_tpu.", "from colbert_tpu.", "import colbert_tpu ",
+                                     "from colbert_tpu ")), (path, line)
+            assert s != "import colbert_tpu", (path, line)
 
 
-@pytest.mark.parametrize("cmd", ["train", "build-index"])
+@pytest.mark.parametrize("cmd", ["train-ce", "build-index"])
 def test_cli_names_unported_subcommands(cmd):
     from colbert_tpu_torch.cli import main
 
@@ -45,9 +60,10 @@ def test_cli_requires_pretrain(tmp_path):
 
     corpus = tmp_path / "c.json"
     corpus.write_text('["a"]')
-    with pytest.raises(SystemExit, match="colbert_params_to_torch_state_dict"):
+    with pytest.raises(SystemExit, match="no --pretrain <pytorch.bin> and no checkpoint under"):
         main(["encode", "--corpus", str(corpus), "--device", "cpu",
-              "--set", f"tokenizer.vocab_path={tmp_path / 'missing.txt'}"])
+              "--set", f"tokenizer.vocab_path={tmp_path / 'missing.txt'}",
+              "--set", f"train.checkpoint_dir={tmp_path / 'ckpt'}"])
 
 
 def test_cli_encode_then_evaluate(tmp_path, capsys):
@@ -56,11 +72,11 @@ def test_cli_encode_then_evaluate(tmp_path, capsys):
 
     import torch
 
-    from colbert_tpu.config import (
+    from colbert_tpu_torch.cli import main
+    from colbert_tpu_torch.config import (
         ColbertConfig, IndexConfig, ModelConfig, MultiviewConfig, ServeConfig, TokenizerConfig,
     )
-    from colbert_tpu.tokenization.vocab import build_vocab, write_vocab
-    from colbert_tpu_torch.cli import main
+    from colbert_tpu_torch.tokenization.vocab import build_vocab, write_vocab
     from colbert_tpu_torch.models.colbert import ColbertModel
     from colbert_tpu_torch.models.convert import reference_state_dict
 

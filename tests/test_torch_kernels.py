@@ -1,4 +1,5 @@
-"""The port's CUDA flat-scan kernel (K1, K2) against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+the flat scan (K1, K2), all-pairs MaxSim (K3) and dropout (K9).
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU and
 skips elsewhere.  This file imports no jax (the card's machine has none);
@@ -111,3 +112,73 @@ def test_kernel_rejects_unsupported_shapes(cuda_device):
     table = torch.zeros(64, 32, dtype=torch.float32, device=cuda_device)
     with pytest.raises(ValueError, match="bf16 or int8"):
         fs.flat_maxsim_scan(torch.zeros(2, 4, 32, device=cuda_device), table, dv=4)
+
+
+# ---- K3: all-pairs MaxSim (fp32), limit 1e-4: fp32 products, only the summation order differs ----
+
+@pytest.mark.parametrize("nq,m,nd,n,h", [
+    (34, 16, 340, 16, 768),   # the eval step at the reference batch (multiview)
+    (5, 32, 37, 384, 128),    # multiview off: token-wise doc masks, n = doc_maxlen
+    (3, 70, 11, 5, 33),       # more query rows than one 64-row chunk, odd h
+    (3, 1, 200, 1, 8),        # one-row queries and docs: 64 of each per block
+    (2, 1024, 50, 1, 32),     # one long query per block: room for the maxima of 48 docs, not 64
+])
+def test_maxsim_kernel_matches_plain(cuda_device, nq, m, nd, n, h):
+    from colbert_tpu_torch.ops import maxsim as ms
+
+    rng = np.random.default_rng(nq * nd)
+    Q = torch.from_numpy((rng.normal(size=(nq, m, h)) / np.sqrt(h)).astype(np.float32)).to(cuda_device)
+    D = torch.from_numpy((rng.normal(size=(nd, n, h)) / np.sqrt(h)).astype(np.float32)).to(cuda_device)
+    qm = torch.from_numpy((rng.random((nq, m)) < 0.8).astype(np.int32)).to(cuda_device)
+    dm = torch.from_numpy((rng.random((nd, n)) < 0.7).astype(np.int32)).to(cuda_device)
+    D[0] = -D[0].abs()  # all-negative doc: its masked rows (0) win the max
+    before = ms.maxsim.launches.value
+    got = ms.maxsim(Q, D, qm, dm)
+    torch.cuda.synchronize()
+    assert ms.maxsim.launches.value == before + 1
+    want = ms.maxsim_ref(Q, D, qm, dm)
+    assert got.shape == (nq, nd) and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def test_maxsim_kernel_refuses_a_query_beyond_a_block(cuda_device):
+    from colbert_tpu_torch.ops import maxsim as ms
+
+    Q, D = torch.zeros(1, 60000, 4, device=cuda_device), torch.zeros(2, 3, 4, device=cuda_device)
+    with pytest.raises(RuntimeError, match="exceed a block"):
+        ms.maxsim(Q, D)
+
+
+# ---- K9: dropout, bit-equal to the plain version's Philox stream ----
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((4, 12, 384, 384), torch.bfloat16),
+    ((1001, 3), torch.float32),   # odd element count: the scalar tail
+    ((7, 33), torch.float16),
+])
+def test_dropout_kernel_bit_equal(cuda_device, shape, dtype):
+    from colbert_tpu_torch.ops import dropout as dr
+
+    x = torch.randn(shape, device=cuda_device).to(dtype).requires_grad_(True)
+    seed, thr = 0x1234_5678_9ABC_DEF0, 26
+    before = dr.hw_dropout.launches.value
+    y = dr.hw_dropout(x, seed, thr)
+    g = torch.randn_like(y)
+    (dx,) = torch.autograd.grad(y, x, g)
+    torch.cuda.synchronize()
+    assert dr.hw_dropout.launches.value == before + 2  # forward and backward
+    assert torch.equal(y, dr.hw_dropout_ref(x.detach(), seed, thr))
+    assert torch.equal(dx, dr.hw_dropout_ref(g, seed, thr))
+    keep = dr.mask_bytes(x.numel(), seed, cuda_device).view(shape) >= thr
+    assert torch.equal(y == 0, ~keep | (x.detach() == 0))
+
+
+def test_dropout_kernel_unaligned_view(cuda_device):
+    """A view that starts off 16-byte alignment takes the scalar path and
+    still equals the plain version."""
+    from colbert_tpu_torch.ops import dropout as dr
+
+    flat = torch.randn(4097, device=cuda_device, dtype=torch.bfloat16)
+    view = flat[1:]
+    assert view.data_ptr() % 16
+    torch.testing.assert_close(dr.hw_dropout(view, 99, 51), dr.hw_dropout_ref(view, 99, 51), rtol=0, atol=0)

@@ -105,3 +105,71 @@ def test_seeded_init_is_reproducible():
     for (k, va), vb in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(va, vb), k
     assert float(a.bert.layers[0].attention.query.weight.detach().std()) == pytest.approx(0.02, rel=0.1)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("side,L", [("query", 16), ("doc", 24)])
+def test_compute_softmax_dtype_matches_flax(flax_params, dtype, side, L):
+    """``attention_softmax_dtype="compute"``: logits, scale, bias and softmax
+    in the compute dtype on both sides.  At bf16 the dense layers round at
+    different places (per-token cosine > 0.99, the bf16 limit above; the
+    softmax alone is held closer by the next test); at fp32 it is the fp32
+    path (max |delta| < 1e-4)."""
+    cfg = dataclasses.replace(CFG, dtype=dtype, attention_softmax_dtype="compute")
+    ids, attn = _inputs(6, 3, L)
+    fm = FlaxColbert(cfg, MV)
+    want = np.asarray(
+        fm.apply({"params": flax_params}, jnp.asarray(ids), jnp.asarray(attn), method=getattr(fm, side))
+    )
+    with torch.no_grad():
+        got = getattr(_port(flax_params, cfg), side)(torch.from_numpy(ids), torch.from_numpy(attn)).numpy()
+    if dtype == "float32":
+        assert np.abs(got - want).max() < 1e-4
+    else:
+        cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1) * np.linalg.norm(want, axis=-1))
+        assert cos.min() > 0.99
+        with torch.no_grad():  # and it is not the fp32-softmax computation
+            fp32 = _port(flax_params, dataclasses.replace(cfg, attention_softmax_dtype="fp32"))
+            assert not np.array_equal(getattr(fp32, side)(torch.from_numpy(ids), torch.from_numpy(attn)).numpy(), got)
+
+
+@pytest.mark.parametrize("softmax_dtype", ["compute", "fp32"])
+def test_attention_softmax_rounds_as_flax(softmax_dtype):
+    """One bf16 attention layer with identity projections and zero biases,
+    so its output is softmax(q k^T / sqrt(hd) + bias) v and the dense layers
+    add no rounding of their own: the port's softmax path must round where
+    flax's does.  Per element within one bf16 ulp of flax's same path, and
+    on average ten times closer to it than to flax's other path."""
+    from colbert_tpu.models.bert import BertSelfAttention as FlaxAttention
+    from colbert_tpu_torch.models.bert import BertSelfAttention
+
+    cfg = dataclasses.replace(CFG, dtype="bfloat16", attention_softmax_dtype=softmax_dtype)
+    other = dataclasses.replace(cfg, attention_softmax_dtype="fp32" if softmax_dtype == "compute" else "compute")
+    rng = np.random.default_rng(7)
+    _, attn = _inputs(8, 3, 24)
+    x = torch.from_numpy(rng.normal(0, 1.5, (3, 24, CFG.hidden_size)).astype(np.float32)).bfloat16()
+    bias = (1.0 - attn[:, None, None, :].astype(np.float32)) * -1e9
+    h = CFG.hidden_size
+    dense = {"kernel": np.eye(h, dtype=np.float32), "bias": np.zeros(h, np.float32)}
+    params = {name: dense for name in ("query", "key", "value", "out")}
+    xj = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+
+    def flax(c):
+        out = FlaxAttention(c).apply({"params": params}, xj, jnp.asarray(bias), jnp.asarray(attn), True)
+        return np.asarray(out.astype(jnp.float32))
+
+    want, want_other = flax(cfg), flax(other)
+    port = BertSelfAttention(cfg).eval()
+    port.load_state_dict({f"{n}.{k}": torch.eye(h) if k == "weight" else torch.zeros(h)
+                          for n in params for k in ("weight", "bias")})
+    with torch.no_grad():
+        got = port(x, torch.from_numpy(bias)).float().numpy()
+    err = np.abs(got - want)
+    assert (err <= np.abs(want) * 2.0**-8).all()
+    assert err.mean() < np.abs(got - want_other).mean() / 10
+
+
+@pytest.mark.parametrize("field,value", [("attention_impl", "flash"), ("remat", "dots"), ("remat", "attn")])
+def test_unported_model_options_raise(field, value):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 step 12"):
+        ColbertModel(dataclasses.replace(CFG, **{field: value}), MV)
