@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``colbert_tpu_torch/csrc`` (one nvcc
-per source, all at once) and drives the port's two paths, exact flat
-serving and retriever training, at full BERT-base width with random
-weights from a seed:
+per source, all at once) and drives the port's three paths, exact flat
+serving, retriever training and ANN serving with the sq codec, at full
+BERT-base width with random weights from a seed:
 
 * phase 1: kernels K1 (fused scan + group max) and K2 (full score matrix)
   against their plain PyTorch versions on the card, at B=144 queries x 16
@@ -41,6 +41,27 @@ weights from a seed:
   Every loss must be finite, the resumed step's loss equal the straight
   run's, K9 launch (1 + 3 layers) x 2 passes x 2 (forward, backward) times
   per step and K3 once per eval batch.
+* phase 5, ANN serving with the sq codec at the JAX package's sq cell
+  (nprobe 128, candidate depth 512, 8 rows per (token, list), 128 hot
+  lists, 4,096 candidates, top-100):
+  (c) at the end of phase 2, on its encoded corpus: ``build-index``
+  (K = 4,096 lists, sq_dim 64), ``serve`` with ``serve.mode=ann``, four
+  requests of 144 questions (the last repeats the first at the smallest
+  nprobe, doubling from 128, at which lists overflow their slots: K7's
+  work), ``evaluate --remote``, a local ``evaluate`` with
+  ``serve.rerank_dtype=int8``, and the first request through that int8
+  service.  Every answer (the socket's and the int8 service's) must hold
+  100 valid, descending triples whose scores equal the exact MaxSim of the
+  returned pids over the served table within 1e-4; (d) K4 must launch once
+  per bf16 batch, K5 once per int8 batch, K6 and K7 once per batch;
+  (b) ``build-index`` over the JAX bench's 20,000-doc generator
+  (``bench.py:51-65``, seed 0), recall@100 of ANN search from topic-drawn
+  query reps against the fp32 exact oracle (at least 0.98), and the
+  batch's time per stage (probe, dedup, rerank, top-k);
+  (a) on that batch's inputs: K6 (filled slots) and K7 (the batch's 128
+  most-probed lists x every token) against their plain versions, scores
+  within 1e-5 and rows equal except at near ties; K4 (bf16) and K5 (int8)
+  over the 144 x 4,096 candidates, within 1e-4.
 
 Prints the card's name and power limit, the measurements, one JSON line of
 kernels, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -49,6 +70,7 @@ result line, when CUDA is unavailable or any phase fails.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -84,9 +106,12 @@ PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3
 
 def counters():
     from colbert_tpu_torch.ops import dropout as dr, flat_scan as fs, maxsim as ms
+    from colbert_tpu_torch.ops import rerank as rr, sq_probe_batched as sp
 
     return {"K1": fs.flat_scan_fused.launches, "K2": fs.flat_maxsim_scan.launches,
-            "K3": ms.maxsim.launches, "K9": dr.hw_dropout.launches}
+            "K3": ms.maxsim.launches, "K9": dr.hw_dropout.launches,
+            "K4": rr.maxsim_rerank_uniform.launches, "K5": rr.maxsim_rerank_uniform_int8.launches,
+            "K6": sp.sq_batch_list_scan.launches, "K7": sp.sq_hot_list_scan.launches}
 
 
 def reset_counts() -> None:
@@ -409,7 +434,9 @@ def phase_slice(device, workdir: Path, label: str, num_docs=20_000, model_kw=Non
         f"random-init views are near ties)")
     if worst > SCORE_ATOL:
         raise AssertionError(f"served scores differ from the plain version by {worst}")
-    return launches, worst
+    ann_launches = phase_ann_cli(device, workdir, cfg, common, corpus_path, eval_path, docs,
+                                 requests, k2_searcher, n_eval)
+    return launches, worst, ann_launches
 
 
 # ---- phase 3: the training kernels against their plain versions ----
@@ -618,6 +645,350 @@ def phase_train(device, workdir: Path, label: str, model_kw=None, tok_kw=None, b
     return launches, {"ms_step": ms_step, "losses": losses}
 
 
+# ---- phase 5: ANN serving with the sq codec ----
+
+NPROBE, DEPTH, TOPR, MAX_CAND = 128, 512, 8, 4096  # the JAX package's sq cell (bench.py:367-377)
+SQ_DIM, KMEANS_ITERS = 64, 10
+PROBE_ATOL = 1e-5  # K6/K7 scores: int8 x bf16 (x fp32) products, summed in another order
+
+
+def ann_config(cfg, index_path, port):
+    """``cfg`` with the sq index and ANN serving at the operating point."""
+    from colbert_tpu_torch.config import ColbertConfig
+
+    out = ColbertConfig.from_dict(cfg.to_dict())
+    out.index.index_path, out.index.codec = str(index_path), "sq"
+    out.index.sq_dim, out.index.kmeans_iters, out.index.partitions = SQ_DIM, KMEANS_ITERS, 0
+    s = out.serve
+    s.mode, s.nprobe, s.candidate_depth, s.probe_list_topr = "ann", NPROBE, DEPTH, TOPR
+    s.max_candidates, s.topk, s.query_batch_size, s.port = MAX_CAND, TOPK, B, port
+    return out
+
+
+def phase_ann_cli(device, workdir: Path, cfg, common, corpus_path, eval_path, docs, requests,
+                  flat_searcher, n_eval):
+    """Phase 5c/5d: ``build-index`` on phase 2's encoded corpus, ``serve``
+    with ``serve.mode=ann`` over the socket, ``evaluate --remote``, a local
+    ``evaluate`` and one batch of the service ``evaluate`` builds, both with
+    the int8 rerank table; the launch counts of K4-K7 in that run."""
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.config import ColbertConfig
+    from colbert_tpu_torch.ops.rerank import maxsim_rerank_uniform_int8_ref, maxsim_rerank_uniform_ref
+    from colbert_tpu_torch.serving.server import RetrievalClient
+
+    acfg = ann_config(cfg, cfg.index.index_path, free_port())
+    conf = workdir / "conf_ann.yaml"
+    acfg.to_yaml(conf)
+    args = ["--config", str(conf), *common[2:]]
+    t0 = time.perf_counter()
+    cli.main(["build-index", *args])
+    log(f"[phase5c] build-index over phase 2's {len(docs)} encoded docs in {time.perf_counter() - t0:.1f} s")
+
+    serve_err = []
+
+    def serve():
+        try:
+            cli.main(["serve", "--corpus", str(corpus_path), *args])
+        except BaseException as e:  # noqa: BLE001 -- reported by the main thread
+            serve_err.append(e)
+
+    server = threading.Thread(target=serve, daemon=True, name="serve-ann")
+    server.start()
+    client = RetrievalClient(acfg.serve.host, acfg.serve.port, acfg.serve.authkey.encode())
+    from multiprocessing.connection import Client
+
+    deadline = time.time() + 600
+    while True:
+        if serve_err:
+            raise RuntimeError(f"ann serve failed: {serve_err[0]!r}")
+        try:
+            Client((acfg.serve.host, acfg.serve.port), authkey=acfg.serve.authkey.encode()).close()
+            break
+        except ConnectionRefusedError:
+            if time.time() > deadline:
+                raise
+            time.sleep(0.2)
+    client.retrieve(requests[0][:1], topk=TOPK, depth=DEPTH, nprobe=NPROBE)  # warm-up, not counted
+
+    from colbert_tpu_torch.indexing.storage import IndexStorage
+    from colbert_tpu_torch.ops.ivf import sq_probe_plan
+
+    ivf = {k: torch.from_numpy(v).to(device) for k, v in IndexStorage(acfg.index.index_path).read_ivf().items()}
+    enc = flat_searcher.tok.encode_queries(requests[0])
+    Q0 = flat_searcher.encode_queries(enc.input_ids, enc.attention_mask, enc.active_mask)
+
+    # and a deep-probe request (the protocol carries nprobe): the smallest
+    # nprobe, doubling from the serving point's, at which lists overflow
+    # their slots (K7's lists), so the served path gives K7 real lists
+    deep, over = NPROBE, {}
+    while True:
+        plan = sq_probe_plan(Q0.reshape(-1, Q0.shape[-1]), ivf["coarse_centroids"], ivf["sq_proj"],
+                             ivf["sq_scales"], nprobe=deep, hot_cap=max(64, deep))
+        over[deep] = int((plan.hot_ids >= 0).sum())
+        if over[deep]:
+            break
+        deep *= 2
+        if deep > ivf["coarse_centroids"].shape[0]:
+            raise AssertionError("no nprobe makes a list overflow its slots")
+    nprobes = [NPROBE] * len(requests) + [deep]
+    requests = [*requests, requests[0]]
+    # the int8 service, built as `evaluate` builds it, for one batch whose answers are checked
+    cfg8 = ColbertConfig.from_dict(acfg.to_dict())
+    cfg8.serve.rerank_dtype = "int8"
+    ns = argparse.Namespace(pretrain=common[common.index("--pretrain") + 1], checkpoint_step=None,
+                            device=str(device), corpus=str(corpus_path))
+
+    # ---- the counted ANN serving-path run ----
+    reset_counts()
+    answers, lat = [], []
+    for qs, nprobe in zip(requests, nprobes):
+        t0 = time.perf_counter()
+        answers.append(client.retrieve(qs, topk=TOPK, depth=DEPTH, nprobe=nprobe))
+        lat.append(time.perf_counter() - t0)
+    cli.main(["evaluate", "--eval-data", str(eval_path), "--remote", "--topk", str(TOPK), *args])
+    cli.main(["evaluate", "--eval-data", str(eval_path), "--corpus", str(corpus_path), "--topk", str(TOPK),
+              "--set", "serve.rerank_dtype=int8", *args])
+    service8 = cli.make_service(cfg8, ns)
+    answers8 = service8.retrieve(requests[0], topk=TOPK)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    # ----
+
+    client.shutdown()
+    server.join(timeout=60)
+    if server.is_alive() or serve_err:
+        raise RuntimeError(f"ann server did not stop cleanly: {serve_err}")
+    for i, (dt, nprobe) in enumerate(zip(lat, nprobes)):
+        log(f"[phase5c] ann request {i}: {B} questions top-{TOPK}, nprobe {nprobe}, in "
+            f"{dt * 1e3:.1f} ms over the socket")
+    log(f"[phase5c] lists over the slot capacity (scanned by K7) for request 0 by nprobe: {over}")
+    eval_batches = -(-n_eval // B)
+    want = {"K4": len(requests) + eval_batches, "K5": eval_batches + 1,
+            "K6": len(requests) + 2 * eval_batches + 1, "K7": len(requests) + 2 * eval_batches + 1}
+    log(f"[phase5d] launches in the ANN serving-path run: {launches} (expected {want}: the socket's "
+        f"{len(requests)} requests (the last at nprobe {deep}) and {eval_batches} evaluate "
+        f"--remote batches on the bf16 table, {eval_batches} local evaluate batches and one "
+        f"service batch on the int8 table)")
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"ANN kernel launches {launches} do not match the served batches {want}")
+
+    # every answer: 100 valid descending triples whose scores are the exact
+    # MaxSim of the returned pids over the served table: bf16 queries x bf16
+    # table, or fp32 descaled queries x int8 table, fp32 sums
+    s8, dv = service8.searcher, flat_searcher.flat_dv
+    worst = {"bf16": 0.0, "int8": 0.0}
+    for key, qs, ans in [*(("bf16", qs, ans) for qs, ans in zip(requests, answers)),
+                         ("int8", requests[0], answers8)]:
+        enc = flat_searcher.tok.encode_queries(qs)
+        Qm = flat_searcher.encode_queries(enc.input_ids, enc.attention_mask, enc.active_mask)
+        pids = torch.tensor([[p for p, _, _ in row] for row in ans], dtype=torch.int32, device=device)
+        got = torch.tensor([[s for _, s, _ in row] for row in ans], dtype=torch.float32, device=device)
+        if pids.shape != (len(qs), TOPK) or not ((pids >= 0) & (pids < len(docs))).all():
+            raise AssertionError("an ANN answer lacks 100 valid pids")
+        if any(t != docs[p] for row in ans for p, _, t in row):
+            raise AssertionError("an ANN triple's text is not its passage")
+        if (got[:, 1:] > got[:, :-1]).any():
+            raise AssertionError("ANN scores not descending")
+        if key == "bf16":
+            want_s = maxsim_rerank_uniform_ref(pids, Qm, flat_searcher.emb_table, dv=dv)
+        else:
+            want_s = maxsim_rerank_uniform_int8_ref(pids, Qm.float() * s8.emb_inv_scale, s8.emb_table, dv=dv)
+        worst[key] = max(worst[key], float((got - want_s).abs().max()))
+    log(f"[phase5c] served ANN scores vs the exact MaxSim of the returned pids: max|d| "
+        + ", ".join(f"{k} table {v:.3e}" for k, v in worst.items()) + f" (limit {SCORE_ATOL})")
+    if max(worst.values()) > SCORE_ATOL:
+        raise AssertionError(f"served ANN scores differ from exact MaxSim: {worst}")
+    return launches
+
+
+def phase_ann(device, workdir: Path, label: str, num_docs=20_000, n_batches=2, seed=0):
+    """Phase 5a/5b: ``build-index`` over the bench's synthetic corpus at the
+    operating point, recall@100 of ANN search against the fp32 exact
+    oracle, the batch's time per stage, and K4-K7 against their plain
+    versions on that batch's inputs."""
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.config import ColbertConfig, ModelConfig, TokenizerConfig
+    from colbert_tpu_torch.indexing.storage import IndexStorage
+    from colbert_tpu_torch.models.colbert import ColbertModel
+    from colbert_tpu_torch.ops import rerank as rr, sq_probe_batched as sp
+    from colbert_tpu_torch.ops.ivf import sq_probe_plan
+    from colbert_tpu_torch.ranking import searcher as srch
+    from colbert_tpu_torch.tokenization import ColbertTokenizer
+    from colbert_tpu_torch.tokenization.vocab import build_vocab, write_vocab
+
+    # the corpus of bench.py:51-65 (seed 0), four fp16 parts; queries around the same topics
+    docs, queries = topic_embeddings(num_docs, 16, n_batches * B, M, H, seed=seed)
+    storage = IndexStorage(workdir / "index")
+    per = num_docs // 4
+    for p in range(4):
+        lo, hi = p * per, (p + 1) * per if p < 3 else num_docs
+        storage.write_part(p, docs[lo * 16 : hi * 16], [16] * (hi - lo))
+    storage.write_meta({"dim": H, "num_docs": num_docs, "num_embeddings": num_docs * 16, "multiview": True,
+                        "d_view": 16, "num_parts": 4, "embedding_dtype": "float16"})
+    # the model only encodes text; this phase searches from query reps
+    vocab = write_vocab(build_vocab(["query"]), workdir / "vocab.txt")
+    base = ColbertConfig(model=ModelConfig(vocab_size=512, hidden_size=32, num_layers=1, num_heads=2,
+                                           intermediate_size=64, dim=H),
+                         tokenizer=TokenizerConfig(vocab_path=str(vocab)))
+    cfg = ann_config(base, workdir / "index", 0)
+    conf = workdir / "conf.yaml"
+    cfg.to_yaml(conf)
+    t0 = time.perf_counter()
+    cli.main(["build-index", "--config", str(conf), "--device", str(device)])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    searcher = srch.ColbertSearcher(cfg, ColbertTokenizer(cfg.tokenizer, cfg.multiview),
+                                    ColbertModel(cfg.model, cfg.multiview), storage, device=device)
+    K = int(searcher.coarse.shape[0])
+    lens = torch.diff(searcher.offsets).cpu()
+    log(f"[phase5b] build-index: {num_docs} docs x 16 rows x {H} (bench.py's generator, seed {seed}) in "
+        f"{build_s:.1f} s: K={K}, sq_dim {SQ_DIM}, kmeans_iters {KMEANS_ITERS}; list length max "
+        f"{int(lens.max())}, mean {float(lens.float().mean()):.1f}, empty {int((lens == 0).sum())}")
+
+    Q = torch.from_numpy(queries).to(device)
+    qm = torch.ones(B, M, device=device)
+
+    # ---- 5b: recall@100 against the fp32 exact oracle, and the stage times ----
+    recall, batch_ms = [], []
+    for i in range(n_batches):
+        Qb = Q[i * B : (i + 1) * B]
+        searcher.search_reps(Qb, qm)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, tp = searcher.search_reps(Qb, qm)
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+        _, op = searcher.exact_topk(Qb, TOPK)
+        tp, op = tp.cpu().numpy(), op.cpu().numpy()
+        if not np.isfinite(ts.cpu().numpy()).all() or ts.shape != (B, TOPK):
+            raise AssertionError("ANN search returned fewer than 100 finite results")
+        recall += [len(set(tp[b]) & set(op[b])) / TOPK for b in range(B)]
+    rec = float(np.mean(recall))
+    log(f"[phase5b] recall@{TOPK} vs the fp32 exact oracle over {n_batches} x {B} topic queries: {rec:.4f} "
+        f"(nprobe {NPROBE}, depth {DEPTH}, r {TOPR}, max_candidates {MAX_CAND}); batch "
+        f"{' / '.join(f'{t:.1f}' for t in batch_ms)} ms from query reps [{label}]")
+    if rec < 0.98:
+        raise AssertionError(f"ANN recall@{TOPK} {rec:.4f} is below 0.98")
+
+    Qb = Q[:B]
+    s = searcher.cfg.serve
+    probe = searcher.probe_fn()
+    stage = {}
+    pids, scores = srch.probe_pids(Qb, qm, probe, searcher.pid_by_row)
+    stage["probe"] = time_ms(lambda: srch.probe_pids(Qb, qm, probe, searcher.pid_by_row), iters=5)
+    cand = srch.dedup(pids, scores, q_view=M, depth=DEPTH, max_cand=MAX_CAND)
+    stage["dedup"] = time_ms(lambda: srch.dedup(pids, scores, q_view=M, depth=DEPTH, max_cand=MAX_CAND), iters=5)
+    sc = srch.rerank(cand, Qb, searcher.emb_table, None, dv=16)
+    stage["rerank"] = time_ms(lambda: srch.rerank(cand, Qb, searcher.emb_table, None, dv=16), iters=5)
+    stage["topk"] = time_ms(lambda: srch.select_topk(sc, cand, TOPK), iters=5)
+    log(f"[phase5b] batch of {B} x {M} query reps, ms per stage (CUDA events): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stage.items()) + f" [{label}]")
+
+    # ---- 5a: K6, K7, K4, K5 against their plain versions on this batch's inputs ----
+    out = {}
+    tokens = Qb.reshape(B * M, H)
+    plan = sq_probe_plan(tokens, searcher.coarse, searcher.sq_proj, searcher.sq_scales, nprobe=NPROBE,
+                         hot_cap=s.probe_hot_lists or max(64, NPROBE))
+    codes, offsets = searcher.codes, searcher.offsets
+    qidx = plan.sched.qidx
+    T = tokens.shape[0]
+    filled = qidx[:, 0] >= 0
+    lens_d = torch.diff(offsets).long()
+    slot_list = torch.arange(qidx.shape[0], device=device)[filled] % K
+    members = (qidx[filled] >= 0).sum(dim=1)
+    # K7 at its serving shape (hot_cap lists x every token) over this batch's
+    # most-probed lists, whether or not they overflow their slots
+    probed = torch.bincount(plan.lists.reshape(-1), minlength=K)
+    hot = torch.sort(probed, descending=True, stable=True)[1][: plan.hot_ids.numel()].int()
+    hot_l = hot.long()
+    log(f"[phase5a] probe plan: {int(filled.sum())} of {qidx.shape[0]} slots filled, "
+        f"{int((plan.hot_ids >= 0).sum())} lists over the slot capacity ({8 * 128} members); "
+        f"K7 held on the {hot.numel()} most-probed lists ({int(probed[hot_l].min())}-"
+        f"{int(probed[hot_l].max())} probing tokens, {int(lens_d[hot_l].sum())} rows)")
+
+    def ranked(name, got, want):
+        (gs, gr), (ws, wr) = got, want
+        flat = lambda t: t.transpose(1, 2).reshape(-1, t.shape[1])
+        err, bad = sp.ranked_mismatch(flat(ws), flat(wr), flat(gs), flat(gr), PROBE_ATOL)
+        log(f"[phase5a] {name}: max|d|={err:.3e} (limit {PROBE_ATOL}), rows mismatched outside near ties {bad}")
+        if err > PROBE_ATOL or bad:
+            raise AssertionError(f"{name} differs from its plain version: max|d| {err}, {bad} rows")
+        return err
+
+    got = sp.sq_batch_list_scan(qidx, offsets, plan.qs, codes, r=TOPR)
+    want = sp.sq_batch_list_scan_ref(qidx, offsets, plan.qs, codes, r=TOPR)
+    err = ranked("K6", tuple(t[filled] for t in got), tuple(t[filled] for t in want))
+    used = torch.unique(slot_list)
+    out["K6"] = {"max_abs_err": err,
+                 "ms": time_ms(lambda: sp.sq_batch_list_scan(qidx, offsets, plan.qs, codes, r=TOPR)),
+                 "plain_ms": time_ms(lambda: sp.sq_batch_list_scan_ref(qidx, offsets, plan.qs, codes, r=TOPR),
+                                     iters=2, warmup=1),
+                 "library_ms": None}
+    # bf16-rounded queries x int8 codes, both exact in bf16: the tensor-core
+    # rate; an empty slot's qidx row is read for its first int only
+    n_filled, tpl = int(filled.sum()), qidx.shape[1]
+    out["K6"]["bound_ms"], out["K6"]["bound_by"] = bound(
+        2.0 * SQ_DIM * float((lens_d[slot_list] * members).sum()),
+        float(lens_d[used].sum()) * SQ_DIM + (n_filled * tpl + qidx.shape[0] - n_filled) * 4
+        + T * SQ_DIM * 4 + offsets.numel() * 4 + n_filled * TOPR * tpl * 8, PEAK_BF16_FLOPS)
+
+    got = sp.sq_hot_list_scan(hot, offsets, plan.qs, codes, r=TOPR)
+    want = sp.sq_hot_list_scan_ref(hot, offsets, plan.qs, codes, r=TOPR)
+    err = ranked("K7", got, want)
+    out["K7"] = {"max_abs_err": err,
+                 "ms": time_ms(lambda: sp.sq_hot_list_scan(hot, offsets, plan.qs, codes, r=TOPR)),
+                 "plain_ms": time_ms(lambda: sp.sq_hot_list_scan_ref(hot, offsets, plan.qs, codes, r=TOPR),
+                                     iters=2, warmup=1),
+                 "library_ms": None}
+    # fp32 queries x int8 codes: three bf16 tensor-core terms, as K5
+    out["K7"]["bound_ms"], out["K7"]["bound_by"] = bound(
+        3 * 2.0 * SQ_DIM * T * float(lens_d[hot_l].sum()),
+        float(lens_d[hot_l].sum()) * SQ_DIM + T * SQ_DIM * 4 + hot.numel() * 4 + hot.numel() * TOPR * T * 8,
+        PEAK_BF16_FLOPS)
+
+    q8, scale = rr.quantize_emb_table(docs)
+    t8 = torch.from_numpy(q8).to(device)
+    Qs = Qb * torch.from_numpy(1.0 / scale).to(device)
+    nv = int((cand >= 0).sum())
+    n_unique = int(torch.unique(cand[cand >= 0]).numel())
+    C = cand.shape[1]
+    for name, fn, ref, table, q, itemsize, terms in (
+        ("K4", rr.maxsim_rerank_uniform, rr.maxsim_rerank_uniform_ref, searcher.emb_table, Qb, 2, 1),
+        ("K5", rr.maxsim_rerank_uniform_int8, rr.maxsim_rerank_uniform_int8_ref, t8, Qs, 1, 3),
+    ):
+        got, want = fn(cand, q, table, dv=16), ref(cand, q, table, dv=16)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(want)
+        if not torch.equal(fin, torch.isfinite(got)) or not torch.equal(fin, cand >= 0):
+            raise AssertionError(f"{name}: -inf pattern differs from the -1 candidates")
+        err = float((got[fin] - want[fin]).abs().max())
+        log(f"[phase5a] {name}: {B} x {C} candidates ({nv} valid, {n_unique} distinct docs) x 16 rows x {H}: "
+            f"max|d|={err:.3e} (limit {SCORE_ATOL})")
+        if err > SCORE_ATOL:
+            raise AssertionError(f"{name} differs from its plain version by {err}")
+        pair_bytes = nv * 16 * H * itemsize
+        out[name] = {"max_abs_err": err, "ms": time_ms(lambda: fn(cand, q, table, dv=16)),
+                     "plain_ms": time_ms(lambda: ref(cand, q, table, dv=16), iters=2, warmup=1),
+                     "library_ms": None}
+        # each input read once: every distinct candidate doc's rows once
+        out[name]["bound_ms"], out[name]["bound_by"] = bound(
+            terms * 2.0 * nv * 16 * H * M,
+            n_unique * 16 * H * itemsize + cand.numel() * 4 + q.numel() * 4 + cand.numel() * 4,
+            PEAK_BF16_FLOPS)
+        log(f"[phase5a] {name}: the kernel reads each (query, candidate) block: {pair_bytes / 1e9:.2f} GB, "
+            f"{pair_bytes / PEAK_HBM_BYTES * 1e3:.3f} ms at the HBM rate")
+    for k in ("K6", "K7", "K4", "K5"):
+        v = out[k]
+        log(f"[phase5a] {k}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, bound "
+            f"{v['bound_ms']:.4f} ms ({v['bound_by']}); no single PyTorch call computes it [{label}]")
+    return out, {"recall": rec, "stage_ms": stage, "batch_ms": batch_ms, "build_s": build_s}
+
+
 def main() -> int:
     import torch
 
@@ -625,6 +996,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from colbert_tpu_torch.ops import _build, dropout as dr, flat_scan as fs, maxsim as ms
+    from colbert_tpu_torch.ops import rerank as rr, sq_probe_batched as sp
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -634,10 +1006,12 @@ def main() -> int:
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    _build.load_libraries("flat_scan", "maxsim", "dropout")
-    fs._kernel_lib(), ms._kernel_lib(), dr._kernel_lib()
-    log(f"[build] flat_scan.cu, maxsim.cu, dropout.cu built in parallel and loaded in {time.perf_counter() - t0:.1f} s")
-    for name in ("flat_scan", "maxsim", "dropout"):
+    sources = ("flat_scan", "maxsim", "dropout", "sq_probe", "rerank")
+    _build.load_libraries(*sources)
+    fs._kernel_lib(), ms._kernel_lib(), dr._kernel_lib(), sp._kernel_lib(), rr._kernel_lib()
+    log(f"[build] {', '.join(n + '.cu' for n in sources)} built in parallel and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in sources:
         for line in _build.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
@@ -645,9 +1019,11 @@ def main() -> int:
     worst, times = phase_kernels(device)
     train_kernels = phase_train_kernels(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        serve_launches, _ = phase_slice(device, Path(tmp), label)
+        serve_launches, _, ann_launches = phase_slice(device, Path(tmp), label)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         train_launches, _ = phase_train(device, Path(tmp), label)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ann_") as tmp:
+        ann_kernels, _ = phase_ann(device, Path(tmp), label)
 
     num_docs, dv = 20_000, 16
     k12_bound = bound(2.0 * B * M * num_docs * dv * H,
@@ -668,6 +1044,19 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": train_launches[fn], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"],
+        })
+    for name, fn, src, replaces in (
+        ("K4 maxsim_rerank_uniform", "K4", "colbert_tpu_torch/csrc/rerank.cu", "colbert_tpu/ops/rerank_pallas.py:26"),
+        ("K5 maxsim_rerank_uniform_int8", "K5", "colbert_tpu_torch/csrc/rerank.cu", "colbert_tpu/ops/rerank_pallas.py:65"),
+        ("K6 sq_batch_list_scan", "K6", "colbert_tpu_torch/csrc/sq_probe.cu", "colbert_tpu/ops/sq_probe_batched.py:221"),
+        ("K7 sq_hot_list_scan", "K7", "colbert_tpu_torch/csrc/sq_probe.cu", "colbert_tpu/ops/sq_probe_batched.py:345"),
+    ):
+        k = ann_kernels[fn]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": ann_launches[fn], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
         })

@@ -12,7 +12,11 @@ Slices ported so far:
 * single-device retriever training (``training/``): dropout by the
   hand-written Philox kernel (``csrc/dropout.cu``, forward and backward),
   the eval step's all-pairs MaxSim kernel (``csrc/maxsim.cu``), AdamW,
-  checkpoints in the reference ``pytorch.bin`` layout.
+  checkpoints in the reference ``pytorch.bin`` layout;
+* the IVF index with the sq codec (``indexing/builder.py``) and ANN
+  serving: the list-major probe (``csrc/sq_probe.cu``), pid dedup and the
+  fused gather + MaxSim rerank over a bf16 or int8 table
+  (``csrc/rerank.cu``).
 
 The package imports ``torch`` and nothing of ``colbert_tpu``, ``jax`` or
 ``flax``: it carries its own copies of the framework-free modules (config,

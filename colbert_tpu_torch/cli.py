@@ -1,10 +1,15 @@
-"""Command line of the port: the ``train``, ``encode``, ``serve`` and
-``evaluate`` subcommands of ``colbert_tpu/cli.py``.
+"""Command line of the port: the ``train``, ``encode``, ``build-index``,
+``serve`` and ``evaluate`` subcommands of ``colbert_tpu/cli.py``.
 
-    python -m colbert_tpu_torch.cli train    --config conf.yaml --train-data t.json [--dev-data d.json] [--resume] [--pretrain pytorch.bin]
-    python -m colbert_tpu_torch.cli encode   --config conf.yaml --corpus corpus.json [--checkpoint-step N | --pretrain pytorch.bin]
-    python -m colbert_tpu_torch.cli serve    --config conf.yaml --corpus corpus.json
-    python -m colbert_tpu_torch.cli evaluate --config conf.yaml --eval-data dev.json --remote
+    python -m colbert_tpu_torch.cli train       --config conf.yaml --train-data t.json [--dev-data d.json] [--resume] [--pretrain pytorch.bin]
+    python -m colbert_tpu_torch.cli encode      --config conf.yaml --corpus corpus.json [--checkpoint-step N | --pretrain pytorch.bin]
+    python -m colbert_tpu_torch.cli build-index --config conf.yaml
+    python -m colbert_tpu_torch.cli serve       --config conf.yaml --corpus corpus.json
+    python -m colbert_tpu_torch.cli evaluate    --config conf.yaml --eval-data dev.json --remote
+
+``build-index`` writes the IVF index (``index.codec="sq"``) over the encoded
+parts; ``serve`` and ``evaluate`` serve it with ``serve.mode=ann`` (the
+config default) or serve the parts alone with ``serve.mode=flat``.
 
 Retriever parameters resolve as the JAX CLI's ``_retriever_params`` does:
 ``--pretrain`` (a ``pytorch.bin`` in the reference layout, ``model.*`` +
@@ -26,7 +31,7 @@ from typing import Any, Dict, List, Optional
 from colbert_tpu_torch.config import ColbertConfig, load_config
 from colbert_tpu_torch.utils.io import dump_json, load_json
 
-_NOT_PORTED = ("train-ce", "build-index", "mine")
+_NOT_PORTED = ("train-ce", "mine")
 
 
 def _parse_overrides(pairs: List[str]) -> Dict[str, Any]:
@@ -106,6 +111,14 @@ def cmd_encode(args) -> None:
     encoder.encode_corpus(_load_corpus(args.corpus), cfg.index.index_path)
 
 
+def cmd_build_index(args) -> None:
+    cfg = _load_cfg(args)
+    from colbert_tpu_torch.indexing.builder import IndexBuilder
+    from colbert_tpu_torch.indexing.storage import IndexStorage
+
+    IndexBuilder(cfg, IndexStorage(cfg.index.index_path), device=args.device).build()
+
+
 def make_service(cfg: ColbertConfig, args):
     from colbert_tpu_torch.indexing.storage import IndexStorage
     from colbert_tpu_torch.ranking.searcher import ColbertSearcher
@@ -171,6 +184,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     p.add_argument("--train-data", required=True); p.add_argument("--dev-data", default=None)
     p.add_argument("--resume", action="store_true"); p.set_defaults(fn=cmd_train)
     p = sub.add_parser("encode"); common(p, corpus=True); p.set_defaults(fn=cmd_encode)
+    p = sub.add_parser("build-index", help="IVF index (sq codec) over the encoded parts")
+    common(p); p.set_defaults(fn=cmd_build_index)
     p = sub.add_parser("serve"); common(p, corpus=True); p.set_defaults(fn=cmd_serve)
     p = sub.add_parser("evaluate"); common(p, data=True)
     p.add_argument("--corpus", default=None)

@@ -1,1 +1,1 @@
-"""On-disk index layout and the corpus encoder."""
+"""On-disk index layout, the corpus encoder and the IVF index builder."""

@@ -1,15 +1,22 @@
-"""On-disk index layout: the part and meta half of ``colbert_tpu/indexing/storage.py``.
+"""On-disk index layout: a copy of ``colbert_tpu/indexing/storage.py``.
 
-Same files and the same ``meta.json`` keys, so each package serves the
-other's parts::
+Same files, dtypes and ``meta.json`` keys, so each package serves the
+other's index::
 
     index_path/
-      meta.json               dims, counts, multiview flag, d_view
-      parts/{i}.npy           (sum_doclens_i, dim) fp16 token embeddings
-      parts/doclens.{i}.json  per-doc vector counts for part i
+      meta.json                 dims, counts, multiview flag, d_view, codec
+      parts/{i}.npy             (sum_doclens_i, dim) fp16 token embeddings
+      parts/doclens.{i}.json    per-doc vector counts for part i
+      ivf/coarse_centroids.npy  (K, dim) fp32
+      ivf/codes.npy             (N, sq_dim) int8   CSR-sorted by list
+      ivf/row_emb.npy           (N,) int32         sorted row -> embedding id
+      ivf/offsets.npy           (K+1,) int32
+      ivf/sq_proj.npy           (dim, sq_dim) fp32 (sq codec)
+      ivf/sq_scales.npy         (sq_dim,) fp32     (sq codec)
+      emb2pid.npy               (N,) int32         embedding id -> passage id
 
 A copy rather than an import: ``colbert_tpu.indexing``'s package
-``__init__`` imports jax.  The IVF half comes with the ANN slice.
+``__init__`` imports jax.
 """
 
 from __future__ import annotations
@@ -73,6 +80,45 @@ class IndexStorage:
     def load_all_embeddings(self, parts: Optional[List[int]] = None) -> np.ndarray:
         mats = [np.asarray(p) for p in self.iter_embeddings(parts)]
         return np.concatenate(mats, axis=0) if mats else np.zeros((0, 0), np.float16)
+
+    # ---- IVF arrays ----
+
+    def write_ivf(
+        self,
+        coarse_centroids: np.ndarray,
+        codes_sorted: np.ndarray,
+        row_emb: np.ndarray,
+        offsets: np.ndarray,
+        emb2pid: np.ndarray,
+        codebooks: Optional[np.ndarray] = None,   # PQ codec
+        sq_proj: Optional[np.ndarray] = None,     # SQ codec
+        sq_scales: Optional[np.ndarray] = None,
+    ) -> None:
+        np.save(self.path / "ivf" / "coarse_centroids.npy", coarse_centroids.astype(np.float32))
+        np.save(self.path / "ivf" / "codes.npy", codes_sorted)
+        np.save(self.path / "ivf" / "row_emb.npy", row_emb.astype(np.int32))
+        np.save(self.path / "ivf" / "offsets.npy", offsets.astype(np.int32))
+        np.save(self.path / "emb2pid.npy", emb2pid.astype(np.int32))
+        if codebooks is not None:
+            np.save(self.path / "ivf" / "codebooks.npy", codebooks.astype(np.float32))
+        if sq_proj is not None:
+            np.save(self.path / "ivf" / "sq_proj.npy", sq_proj.astype(np.float32))
+            np.save(self.path / "ivf" / "sq_scales.npy", sq_scales.astype(np.float32))
+
+    def read_ivf(self) -> Dict[str, np.ndarray]:
+        p = self.path
+        out = {
+            "coarse_centroids": np.load(p / "ivf" / "coarse_centroids.npy"),
+            "codes": np.load(p / "ivf" / "codes.npy"),
+            "row_emb": np.load(p / "ivf" / "row_emb.npy"),
+            "offsets": np.load(p / "ivf" / "offsets.npy"),
+            "emb2pid": np.load(p / "emb2pid.npy"),
+        }
+        for name in ("codebooks", "sq_proj", "sq_scales"):
+            f = p / "ivf" / f"{name}.npy"
+            if f.exists():
+                out[name] = np.load(f)
+        return out
 
     @staticmethod
     def emb2pid_from_doclens(doclens: List[int]) -> np.ndarray:

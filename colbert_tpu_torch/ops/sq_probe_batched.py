@@ -1,0 +1,316 @@
+"""List-major batched sq probe: scan each probed IVF list once per batch.
+
+Counterpart of ``colbert_tpu/ops/sq_probe_batched.py``:
+
+1. :func:`build_slot_schedule_dense` groups the batch's (token, list) probe
+   pairs into slots: list ``l`` owns slots ``g*K + l`` for ``g < groups``,
+   each holding up to ``tpl`` of its member tokens in ascending token order
+   (member = the list is among the token's exact top-``nprobe``).
+2. K6 (:func:`sq_batch_list_scan`) scans every filled slot's list once
+   against the slot's tokens and keeps a top-``r`` of (score, CSR row) per
+   token; K7 (:func:`sq_hot_list_scan`) scans the hottest lists -- those
+   with more members than a list's slots hold -- against every token.
+3. :func:`probe_batched_postprocess` maps the results back to (token,
+   probed list) pairs and takes each token's top-``depth`` over its
+   ``nprobe * r`` entries.
+
+Both kernels live in ``csrc/sq_probe.cu``.  The TPU kernels' 128-lane
+packing, block-diagonal query bands and 32-row aligned DMA windows are not
+carried over: a kernel reads exactly its list's rows ``[offsets[l],
+offsets[l+1])`` of the unpadded codes, so the JAX package's
+``pad_codes_for_scan`` has no counterpart.  The TPU kernel's 128-row
+blocks still decide ties (see the plain versions), so rows equal the JAX
+package's wherever scores are not tied across its blocks.
+
+Each wrapper runs its plain PyTorch version (``*_ref``) only for tensors
+on the CPU; for CUDA tensors it launches the kernel or raises, and counts
+the launch in its ``launches`` counter.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from colbert_tpu_torch.ops._build import LaunchCounter
+
+BLOCK_ROWS = 128  # the TPU kernel's block; it sets the tie rule
+ALIGN_ROWS = 32   # a list's first block starts at its offset rounded down to this
+_SQ_DIMS = (16, 32, 64, 128)
+_MAX_TOKENS = 128  # tokens per slot (tpl); mirrored by sq_scan_max_tokens() in the .cu
+_MAX_R = 16
+_REF_ELEMS = 1 << 24  # score elements per plain-version step
+
+
+class SlotSchedule(NamedTuple):
+    qidx: torch.Tensor          # (groups*K, tpl) int32 token per slot position, -1 empty
+    slot_of_pair: torch.Tensor  # (T*nprobe,) int64 slot of pair (t, j), t-major
+    pos_of_pair: torch.Tensor   # (T*nprobe,) int64 position within that slot
+
+
+def build_slot_schedule_dense(member: torch.Tensor, lists: torch.Tensor, *, tpl: int,
+                              groups: int = 8) -> Tuple[SlotSchedule, torch.Tensor]:
+    """Sort-free slot schedule from the membership matrix.
+
+    ``member`` (T, K) bool: list l is among token t's probed lists (and is
+    handled by the slots, i.e. not hot).  ``lists`` (T, nprobe): the probed
+    list ids.  The ``groups * tpl`` smallest member token ids of each list
+    fill its slots in order, so a pair's (slot, position) follows from the
+    member-count prefix ``cumsum(member, axis=0) - 1``.  A pair is valid
+    when it is a member and its rank is within the list's slots.
+
+    Returns (schedule with slot id ``g*K + l``, pair_valid (T*nprobe,) bool),
+    as ``colbert_tpu/ops/sq_probe_batched.py:148``."""
+    T, K = member.shape
+    cap = groups * tpl
+    dev = member.device
+    rank = torch.cumsum(member, dim=0, dtype=torch.int32) - 1                # (T, K)
+    keep = member & (rank < cap)
+    lidx = torch.arange(K, device=dev, dtype=torch.int64)
+    # token t goes to qidx[l, rank]; everything else to one discarded cell
+    dest = torch.where(keep, lidx[None, :] * cap + rank, K * cap)
+    tok = torch.arange(T, device=dev, dtype=torch.int32)[:, None].expand(T, K)
+    buf = torch.full((K * cap + 1,), -1, dtype=torch.int32, device=dev)
+    buf.scatter_(0, dest.reshape(-1), tok.reshape(-1))
+    qidx = buf[: K * cap].view(K, groups, tpl).transpose(0, 1).reshape(groups * K, tpl)
+
+    nprobe = lists.shape[1]
+    l_flat = lists.reshape(-1).long()
+    t_flat = torch.arange(T, device=dev).repeat_interleave(nprobe)
+    r = rank[t_flat, l_flat].long()
+    pair_valid = member[t_flat, l_flat] & (r < cap)
+    r = r.clamp(0, cap - 1)
+    return SlotSchedule(qidx.contiguous(), (r // tpl) * K + l_flat, r % tpl), pair_valid
+
+
+# ---- plain PyTorch version of both kernels ----
+
+def _scan_ref(lists: torch.Tensor, tokens: torch.Tensor, offsets: torch.Tensor,
+              qs: torch.Tensor, codes: torch.Tensor, r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per unit u: list ``lists[u]`` (-1 none) against tokens ``tokens[u]``
+    (-1 empty) -> top-``r`` (scores (U, r, P) fp32, CSR rows (U, r, P)).
+
+    Emulates the TPU kernel's merge: the list is cut into 128-row blocks
+    starting at its offset rounded down to 32 rows; a block's top-r is
+    taken with the lowest row first among ties (a stable sort over rows in
+    ascending order), then merged with the held top-r with the block's
+    entries first among ties (a stable sort of [block, held])."""
+    U, P = tokens.shape
+    dev = qs.device
+    out_s = torch.full((U, r, P), float("-inf"), dtype=torch.float32, device=dev)
+    out_r = torch.full((U, r, P), -1, dtype=torch.int32, device=dev)
+    units = torch.nonzero(lists >= 0).flatten()
+    if units.numel() == 0 or codes.shape[0] == 0:
+        return out_s, out_r
+    n_rows = codes.shape[0]
+    step = max(1, _REF_ELEMS // (BLOCK_ROWS * P))
+    for i in range(0, units.numel(), step):
+        u = units[i : i + step]
+        l = lists[u].long()
+        lo, hi = offsets[l].long(), offsets[l + 1].long()
+        start = lo - lo % ALIGN_ROWS
+        tok = tokens[u].long()                                             # (n, P)
+        q = qs[tok.clamp(min=0)] * (tok >= 0)[..., None]                   # (n, P, D)
+        st_s = torch.full((u.numel(), r, P), float("-inf"), dtype=torch.float32, device=dev)
+        st_r = torch.full((u.numel(), r, P), -1, dtype=torch.int64, device=dev)
+        n_blocks = int(((hi - start + BLOCK_ROWS - 1) // BLOCK_ROWS).max())
+        for b in range(n_blocks):
+            rows = start[:, None] + b * BLOCK_ROWS + torch.arange(BLOCK_ROWS, device=dev)
+            inwin = (rows >= lo[:, None]) & (rows < hi[:, None])           # (n, 128)
+            c = codes[rows.clamp(0, n_rows - 1)].float()                   # (n, 128, D)
+            s = torch.bmm(c, q.transpose(1, 2))                            # (n, 128, P)
+            s = s.masked_fill(~inwin[..., None], float("-inf"))
+            bs, bi = torch.sort(s, dim=1, descending=True, stable=True)
+            k = min(r, BLOCK_ROWS)
+            bs, br = bs[:, :k], rows[:, :, None].expand(-1, -1, P).gather(1, bi[:, :k])
+            ms, mi = torch.sort(torch.cat([bs, st_s], dim=1), dim=1, descending=True, stable=True)
+            st_s, st_r = ms[:, :r], torch.cat([br, st_r], dim=1).gather(1, mi[:, :r])
+        st_r = torch.where(torch.isfinite(st_s), st_r, -1)
+        empty = (tok < 0)[:, None, :]
+        out_s[u] = st_s.masked_fill(empty, float("-inf"))
+        out_r[u] = st_r.masked_fill(empty, -1).int()
+    return out_s, out_r
+
+
+def sq_batch_list_scan_ref(qidx: torch.Tensor, offsets: torch.Tensor, qs: torch.Tensor,
+                           codes: torch.Tensor, *, r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K6.  ``qs`` (T, D) fp32 is rounded to bf16 here, as
+    the TPU kernel rounds ``qsT``.  Empty slots (``qidx[s, 0] < 0``) get
+    -inf / -1 here; the kernel leaves them unwritten."""
+    K = offsets.shape[0] - 1
+    S = qidx.shape[0]
+    slots = torch.arange(S, device=qidx.device)
+    lists = torch.where(qidx[:, 0] >= 0, slots % K, -1)
+    return _scan_ref(lists, qidx, offsets, qs.to(torch.bfloat16).float(), codes, r)
+
+
+def sq_hot_list_scan_ref(hot_ids: torch.Tensor, offsets: torch.Tensor, qs: torch.Tensor,
+                         codes: torch.Tensor, *, r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K7: every token, fp32 ``qs`` (not rounded).  A -1
+    entry of ``hot_ids`` gets -inf / -1 here; the kernel leaves it unwritten."""
+    T = qs.shape[0]
+    tokens = torch.arange(T, device=qs.device, dtype=torch.int32).expand(hot_ids.shape[0], T)
+    return _scan_ref(hot_ids, tokens, offsets, qs.float(), codes, r)
+
+
+# ---- the CUDA kernels ----
+
+_lib_lock = threading.Lock()
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    from colbert_tpu_torch.ops._build import load_library
+
+    lib = load_library("sq_probe")
+    with _lib_lock:
+        if lib.sq_list_scan_launch.argtypes is None:
+            lib.sq_list_scan_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            lib.sq_list_scan_launch.restype = ctypes.c_int
+            for fn in (lib.sq_scan_max_tokens, lib.sq_scan_max_r):
+                fn.argtypes, fn.restype = [], ctypes.c_int
+            if (lib.sq_scan_max_tokens(), lib.sq_scan_max_r()) != (_MAX_TOKENS, _MAX_R):
+                raise RuntimeError("csrc/sq_probe.cu limits disagree with ops/sq_probe_batched.py")
+    return lib
+
+
+def _launch(units: torch.Tensor, offsets: torch.Tensor, qs: torch.Tensor, codes: torch.Tensor,
+            r: int, hot: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch.  K6 (``hot`` False): ``units`` is qidx (S, tpl).  K7:
+    ``units`` is hot_ids (H,)."""
+    dev = codes.device
+    if not all(t.is_cuda and t.device == dev for t in (units, offsets, qs)):
+        raise ValueError("sq list scan kernel needs every tensor on one CUDA device")
+    T, D = qs.shape
+    if codes.dtype != torch.int8 or codes.dim() != 2 or codes.shape[1] != D:
+        raise ValueError(f"codes must be (N, {D}) int8, got {tuple(codes.shape)} {codes.dtype}")
+    if D not in _SQ_DIMS:
+        raise ValueError(f"sq list scan kernel takes sq_dim in {_SQ_DIMS}, got {D}")
+    if not 1 <= r <= _MAX_R:
+        raise ValueError(f"sq list scan kernel keeps 1..{_MAX_R} rows per token, got r={r}")
+    if units.dtype != torch.int32 or offsets.dtype != torch.int32:
+        raise ValueError("qidx / hot_ids and offsets must be int32")
+    if not codes.is_contiguous() or codes.data_ptr() % 16:
+        raise ValueError("sq list scan kernel needs contiguous, 16-byte aligned codes")
+    K = offsets.shape[0] - 1
+    q = qs.float().contiguous()
+    if q.data_ptr() % 16:
+        q = q.clone()
+    units = units.contiguous()
+    offsets = offsets.contiguous()
+    if hot:
+        U, tpl, P = units.shape[0], 0, T
+    else:
+        (U, tpl), P = units.shape, units.shape[1]
+        if not 1 <= tpl <= _MAX_TOKENS:
+            raise ValueError(f"sq list scan kernel takes 1..{_MAX_TOKENS} tokens per slot, got {tpl}")
+    out_s = torch.empty((U, r, P), dtype=torch.float32, device=dev)
+    out_r = torch.empty((U, r, P), dtype=torch.int32, device=dev)
+    if U == 0 or T == 0:
+        return out_s.fill_(float("-inf")), out_r.fill_(-1)
+    lib = _kernel_lib()
+    with torch.cuda.device(dev):
+        err = lib.sq_list_scan_launch(
+            None if hot else units.data_ptr(), units.data_ptr() if hot else None,
+            offsets.data_ptr(), q.data_ptr(), codes.data_ptr(), out_s.data_ptr(), out_r.data_ptr(),
+            U, K, T, D, tpl, r, int(hot), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"sq list scan kernel launch failed: cudaError_t {err}")
+    return out_s, out_r
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def sq_batch_list_scan(qidx: torch.Tensor, offsets: torch.Tensor, qs: torch.Tensor,
+                       codes: torch.Tensor, *, r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6: per filled slot (``qidx[s, 0] >= 0``), list ``s % K`` against the
+    slot's tokens, ``qs`` rounded to bf16.  Returns (scores (S, r, tpl)
+    fp32, CSR rows (S, r, tpl) int32), -inf / -1 at unfilled entries.  The
+    kernel leaves empty slots unwritten: no pair reads them."""
+    if _on_cpu(qidx, offsets, qs, codes):
+        return sq_batch_list_scan_ref(qidx, offsets, qs, codes, r=r)
+    out = _launch(qidx, offsets, qs.to(torch.bfloat16).float(), codes, r, hot=False)
+    sq_batch_list_scan.launches.add()
+    return out
+
+
+def sq_hot_list_scan(hot_ids: torch.Tensor, offsets: torch.Tensor, qs: torch.Tensor,
+                     codes: torch.Tensor, *, r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7: each hot list (``hot_ids`` (H,), -1 none) against every token,
+    fp32 ``qs``.  Returns (scores (H, r, T) fp32, CSR rows (H, r, T) int32).
+    The kernel leaves the entries of a -1 ``hot_ids`` unwritten: no pair
+    reads them."""
+    if _on_cpu(hot_ids, offsets, qs, codes):
+        return sq_hot_list_scan_ref(hot_ids, offsets, qs, codes, r=r)
+    out = _launch(hot_ids, offsets, qs, codes, r, hot=True)
+    sq_hot_list_scan.launches.add()
+    return out
+
+
+sq_batch_list_scan.launches = LaunchCounter()
+sq_hot_list_scan.launches = LaunchCounter()
+
+
+# ---- back to tokens ----
+
+def probe_batched_postprocess(sched: SlotSchedule, out_s: torch.Tensor, out_r: torch.Tensor,
+                              lists: torch.Tensor, depth: int, pair_valid: torch.Tensor,
+                              hot: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each (token, probed list) pair's ``r`` entries, from its slot or, for
+    a hot list, from K7's output; then each token's top-``depth`` over its
+    ``nprobe * r`` entries (ties: the earlier entry first, as ``top_k``).
+    ``hot`` = (hot_pos (K,) -1 for cold lists, hot_s (H, r, T), hot_r).
+    Returns (scores (T, depth) fp32, rows (T, depth) int32), -inf / -1 padded."""
+    T, nprobe = lists.shape
+    r = out_s.shape[1]
+    ps = out_s[sched.slot_of_pair, :, sched.pos_of_pair]                 # (P, r)
+    pr = out_r[sched.slot_of_pair, :, sched.pos_of_pair]
+    valid = pair_valid
+    if hot is not None:
+        hot_pos, hot_s, hot_r = hot
+        hp = hot_pos[lists.reshape(-1).long()].long()
+        is_hot = hp >= 0
+        t_flat = torch.arange(T, device=lists.device).repeat_interleave(nprobe)
+        hi = hp.clamp(min=0)
+        ps = torch.where(is_hot[:, None], hot_s[hi, :, t_flat], ps)
+        pr = torch.where(is_hot[:, None], hot_r[hi, :, t_flat], pr)
+        valid = valid | is_hot
+    ps = ps.masked_fill(~valid[:, None], float("-inf")).view(T, nprobe * r)
+    pr = pr.masked_fill(~valid[:, None], -1).view(T, nprobe * r)
+    if nprobe * r <= depth:  # nothing to select: pass everything through
+        pad = depth - nprobe * r
+        return (torch.nn.functional.pad(ps, (0, pad), value=float("-inf")),
+                torch.nn.functional.pad(pr, (0, pad), value=-1).int())
+    s, i = torch.sort(ps, dim=1, descending=True, stable=True)
+    s = s[:, :depth]
+    rows = pr.gather(1, i[:, :depth])
+    return s, torch.where(torch.isfinite(s), rows, -1).int()
+
+
+def ranked_mismatch(s_want: torch.Tensor, r_want: torch.Tensor, s_got: torch.Tensor,
+                    r_got: torch.Tensor, tol: float) -> Tuple[float, int]:
+    """Compare two ranked outputs ``(n, k)``, best first along dim 1 (a
+    kernel against its plain version, or the port against the JAX package):
+    returns (max |score difference| over finite scores, ids that differ
+    away from near ties).  A near tie is a score within ``tol`` of a
+    different neighbouring score, whose order a summation-order difference
+    may flip; exact ties must resolve alike.  Raises when the -inf pattern
+    differs."""
+    fin = torch.isfinite(s_want)
+    if not torch.equal(fin, torch.isfinite(s_got)):
+        raise AssertionError("the -inf pattern differs")
+    err = float((s_got[fin] - s_want[fin]).abs().max()) if fin.any() else 0.0
+    w = torch.where(fin, s_want, torch.full_like(s_want, -1e30))
+    d = (w[:, 1:] - w[:, :-1]).abs()
+    near = (d > 0) & (d <= tol)
+    amb = torch.zeros_like(fin)
+    amb[:, :-1] |= near
+    amb[:, 1:] |= near
+    return err, int((r_got != r_want)[~amb].sum())
+

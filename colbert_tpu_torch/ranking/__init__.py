@@ -1,1 +1,1 @@
-"""Searcher: query encode -> flat MaxSim scan -> top-k."""
+"""Searcher: query encode -> flat MaxSim scan, or IVF probe -> dedup -> rerank -> top-k."""

@@ -1,18 +1,26 @@
-"""Flat serving searcher: counterpart of the flat branch of
-``colbert_tpu/ranking/searcher.py`` (``:361-426, 575-619, 682-734``).
+"""Searcher: counterpart of ``colbert_tpu/ranking/searcher.py``.
 
-    query tokens -> BERT + ColBERT head -> mask (+ int8 descale)
-                 -> flat scan kernel -> exact top-k
+Two serving modes, as ``serve.mode`` selects:
 
-The doc-major table is built once from the encoded parts and held on the
-device; nothing of the serve path runs anywhere else.  ANN serving and the
-host-RAM rerank table are later slices of the port.
+* flat (``:361-426, 575-619``): query tokens -> BERT + ColBERT head ->
+  mask (+ int8 descale) -> flat scan kernel (K1/K2) -> exact top-k, over a
+  doc-major table built from the encoded parts;
+* ann (``:89-357, 428-571``): query tokens -> BERT + ColBERT head -> the
+  sq IVF probe (K6 slots, K7 hot lists) -> CSR row -> pid -> dedup ->
+  fused gather + exact MaxSim rerank (K4 over a bf16 table, K5 over int8)
+  -> top-k, over the IVF index that ``build-index`` writes.
+
+The index and the tables are built once and held on the device; nothing of
+the serve path runs anywhere else.  On the card the rerank always runs K4
+or K5: the JAX package's ``serve.rerank_kernel`` gate and its XLA fallback
+are TPU-side choices, so ``rerank_kernel`` and ``rerank_dtype="float32"``
+(a bf16 table, as the JAX fused kernel reads it) change nothing here.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,7 +32,16 @@ from colbert_tpu_torch.models.colbert import ColbertModel
 from colbert_tpu_torch.ops.flat_scan import (
     build_flat_table, flat_maxsim_scan, flat_scan_topk, flat_topk,
 )
+from colbert_tpu_torch.ops.ivf import (
+    dedup_pids_by_approx_maxsim, dedup_pids_by_score, ivf_probe_sq_batched,
+)
+from colbert_tpu_torch.ops.rerank import (
+    maxsim_rerank_uniform, maxsim_rerank_uniform_int8, quantize_emb_table,
+)
 from colbert_tpu_torch.tokenization import ColbertTokenizer
+
+ProbeFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+_ORACLE_DOCS = 4096  # docs per step of the exact oracle
 
 
 @dataclass
@@ -70,6 +87,86 @@ def _meta_d_view(meta: dict, cfg: ColbertConfig) -> int:
     return int(stored)
 
 
+def select_topk(scores: torch.Tensor, cand: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per row, the ``k`` best scores (ties: the earlier column first, as
+    ``top_k``) and their candidates, -1 where the score is not finite."""
+    ts, ti = torch.sort(scores, dim=1, descending=True, stable=True)
+    ts = ts[:, :k]
+    tp = cand.gather(1, ti[:, :k])
+    return ts, torch.where(torch.isfinite(ts), tp, -1).int()
+
+
+# ---- the ANN pipeline after query encode ----
+
+def make_probe_fn(coarse, proj, scales, codes, offsets, *, nprobe: int, depth: int,
+                  probe_impl: str = "auto", list_topr: int = 8, hot_cap: int = 64) -> ProbeFn:
+    """The sq candidate generator for :func:`retrieval_core`
+    (``colbert_tpu/ranking/searcher.py:89``)."""
+    if probe_impl == "token":
+        raise NotImplementedError(
+            "serve.probe_impl='token' (TPU kernel K10) is not ported: ROADMAP Queue 1 step 8"
+        )
+    if probe_impl not in ("auto", "batched"):
+        raise ValueError(f"unknown serve.probe_impl {probe_impl!r}")
+    return lambda tokens: ivf_probe_sq_batched(
+        tokens, coarse, proj, scales, codes, offsets,
+        nprobe=nprobe, depth=depth, r=list_topr, hot_cap=hot_cap,
+    )
+
+
+def probe_pids(Qm: torch.Tensor, qm: torch.Tensor, probe_fn: ProbeFn, pid_by_row: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Probe every query token; map CSR rows to pids; dead (masked) tokens
+    contribute nothing.  Returns (pids, codec scores), each (B, qv*depth)."""
+    B, q_view, dim = Qm.shape
+    scores, rows = probe_fn(Qm.reshape(B * q_view, dim))
+    pids = torch.where(rows >= 0, pid_by_row[rows.clamp(min=0).long()], -1)
+    live = (qm.reshape(B * q_view) > 0)[:, None]
+    pids = torch.where(live, pids, -1)
+    scores = torch.where(live, scores, float("-inf"))
+    return pids.view(B, -1), scores.view(B, -1)
+
+
+def dedup(pids: torch.Tensor, scores: torch.Tensor, *, q_view: int, depth: int, max_cand: int,
+          candidate_ranking: str = "approx_maxsim", dedup_impl: str = "auto") -> torch.Tensor:
+    """Each query's ``max_cand`` candidate pids (B, max_cand) int32, -1 padded."""
+    if dedup_impl == "packed":
+        raise NotImplementedError(
+            "serve.dedup_impl='packed' is not ported: ROADMAP Queue 1 step 8 (packed dedup); "
+            "'auto' is the exact form off the TPU, as in the JAX package"
+        )
+    if dedup_impl not in ("auto", "exact"):
+        raise ValueError(f"unknown serve.dedup_impl {dedup_impl!r}")
+    if candidate_ranking == "approx_maxsim":
+        token_ids = torch.arange(q_view, device=pids.device).repeat_interleave(depth)
+        cand, _ = dedup_pids_by_approx_maxsim(pids, token_ids, scores, q_view, max_cand)
+    else:
+        cand, _ = dedup_pids_by_score(pids, scores, max_cand)
+    return cand
+
+
+def rerank(cand: torch.Tensor, Qm: torch.Tensor, table: torch.Tensor,
+           inv_scale: Optional[torch.Tensor], *, dv: int) -> torch.Tensor:
+    """Exact MaxSim (B, C) of each candidate: K5 over an int8 table (the
+    descale folded into the fp32 queries), else K4."""
+    if table.dtype == torch.int8:
+        return maxsim_rerank_uniform_int8(cand, Qm.float() * inv_scale, table, dv=dv)
+    return maxsim_rerank_uniform(cand, Qm, table, dv=dv)
+
+
+def retrieval_core(Qm: torch.Tensor, qm: torch.Tensor, probe_fn: ProbeFn, pid_by_row: torch.Tensor,
+                   table: torch.Tensor, inv_scale: Optional[torch.Tensor], *, dv: int, depth: int,
+                   max_cand: int, topk: int, candidate_ranking: str = "approx_maxsim",
+                   dedup_impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Everything after query encode (``colbert_tpu/ranking/searcher.py:126``)
+    for a uniform-doclen corpus: probe -> dedup -> rerank -> top-k.
+    Returns (scores (B, k) fp32, pids (B, k) int32), k = min(topk, max_cand)."""
+    pids, scores = probe_pids(Qm, qm, probe_fn, pid_by_row)
+    cand = dedup(pids, scores, q_view=Qm.shape[1], depth=depth, max_cand=max_cand,
+                 candidate_ranking=candidate_ranking, dedup_impl=dedup_impl)
+    return select_topk(rerank(cand, Qm, table, inv_scale, dv=dv), cand, min(topk, max_cand))
+
+
 class ColbertSearcher:
     def __init__(
         self,
@@ -79,11 +176,8 @@ class ColbertSearcher:
         storage: IndexStorage,
         device: str | torch.device = "cuda",
     ):
-        if cfg.serve.mode != "flat":
-            raise NotImplementedError(
-                f"serve.mode={cfg.serve.mode!r}: the port serves flat mode only; "
-                "ANN serving is ROADMAP Queue 1 step 8 (ANN serve)"
-            )
+        if cfg.serve.mode not in ("flat", "ann"):
+            raise ValueError(f"unknown serve.mode {cfg.serve.mode!r}")
         if cfg.serve.rerank_table != "hbm":
             raise NotImplementedError(
                 "serve.rerank_table='host' is not ported: ROADMAP Queue 1 step 8 "
@@ -104,11 +198,15 @@ class ColbertSearcher:
         doclens = np.asarray(storage.read_doclens(), np.int32)
         self.num_docs = len(doclens)
         self.dim = int(meta["dim"])
+        self.flat_dv = None
         dv = (
             _meta_d_view(meta, cfg)
             if meta.get("multiview", True)
             else (int(doclens.max()) if len(doclens) else 1)
         )
+        if cfg.serve.mode == "ann":
+            self._init_ann(storage, meta, doclens, dv)
+            return
         dtype = "int8" if cfg.serve.rerank_dtype == "int8" else "bfloat16"
         table, inv, dv = build_flat_table(
             storage.load_all_embeddings(), doclens, dv=dv, dtype=dtype,
@@ -123,15 +221,52 @@ class ColbertSearcher:
             # bf16 above (halves the score matrix)
             self.score_dtype = "float32" if self.num_docs <= (1 << 18) else "bfloat16"
 
+    def _init_ann(self, storage: IndexStorage, meta: dict, doclens: np.ndarray, dv: int) -> None:
+        """Device-resident IVF state and the rerank table
+        (``colbert_tpu/ranking/searcher.py:428-476, 551-571``)."""
+        s = self.cfg.serve
+        dev = self.device
+        ivf = storage.read_ivf()
+        codec = meta.get("codec", "pq" if "codebooks" in ivf else "sq")
+        if codec in ("pq", "pq4"):
+            raise NotImplementedError(
+                f"index.codec={codec!r} is not ported: ROADMAP Queue 1 step 9 (pq4, then pq)"
+            )
+        self.coarse = torch.from_numpy(np.asarray(ivf["coarse_centroids"], np.float32)).to(dev)
+        self.sq_proj = torch.from_numpy(np.asarray(ivf["sq_proj"], np.float32)).to(dev)
+        self.sq_scales = torch.from_numpy(np.asarray(ivf["sq_scales"], np.float32)).to(dev)
+        self.codes = torch.from_numpy(np.ascontiguousarray(ivf["codes"], np.int8)).to(dev)
+        self.offsets = torch.from_numpy(np.asarray(ivf["offsets"], np.int32)).to(dev)
+        # fused CSR-row -> pid map (one gather on the hot path instead of two)
+        self.pid_by_row = torch.from_numpy(
+            np.asarray(ivf["emb2pid"], np.int32)[np.asarray(ivf["row_emb"], np.int64)]
+        ).to(dev)
+        self.rerank_cap = dv
+        self.probe_fn()  # refuses an unported probe before the tables are built
+        if not (len(doclens) and (doclens == dv).all()):
+            raise NotImplementedError(
+                "ANN serving of a ragged corpus (the stride-bucket rerank) is not ported: "
+                "ROADMAP Queue 1 step 8 (ragged stride-bucket rerank)"
+            )
+        emb = storage.load_all_embeddings()[: self.num_docs * self.rerank_cap]
+        if s.rerank_dtype == "int8":
+            q8, scale = quantize_emb_table(emb)
+            self.emb_table = torch.from_numpy(q8).to(dev)
+            self.emb_inv_scale = torch.from_numpy((1.0 / scale).astype(np.float32)).to(dev)
+        else:
+            self.emb_table = torch.from_numpy(np.ascontiguousarray(emb)).to(dev).to(torch.bfloat16)
+            self.emb_inv_scale = None
+
     # ---- device pipeline ----
 
     @torch.inference_mode()
     def encode_queries(self, q_ids, q_attn, q_active) -> torch.Tensor:
-        """Masked query reps ``(B, q_view, dim)`` fp32, descaled for an int8 table."""
+        """Masked query reps ``(B, q_view, dim)`` fp32; descaled for an int8
+        flat table (the ANN path descales inside :func:`rerank`)."""
         dev = self.device
         Q = self.model.query(torch.as_tensor(q_ids).to(dev), torch.as_tensor(q_attn).to(dev))
         Qm = Q * torch.as_tensor(q_active).to(dev, Q.dtype)[..., None]
-        if self.emb_inv_scale is not None:
+        if self.flat_dv is not None and self.emb_inv_scale is not None:
             Qm = Qm * self.emb_inv_scale
         return Qm
 
@@ -147,19 +282,53 @@ class ColbertSearcher:
         scores = flat_maxsim_scan(Qm, self.emb_table, dv=self.flat_dv)
         return flat_topk(scores, self.num_docs, topk, segment=s.flat_segment_docs)
 
+    def probe_fn(self, nprobe: Optional[int] = None, depth: Optional[int] = None) -> ProbeFn:
+        s = self.cfg.serve
+        nprobe = min(nprobe or s.nprobe, int(self.coarse.shape[0]))
+        return make_probe_fn(
+            self.coarse, self.sq_proj, self.sq_scales, self.codes, self.offsets,
+            nprobe=nprobe, depth=depth or s.candidate_depth, probe_impl=s.probe_impl,
+            list_topr=s.probe_list_topr, hot_cap=s.probe_hot_lists or max(64, nprobe),
+        )
+
+    @torch.inference_mode()
+    def search_reps(self, Qm: torch.Tensor, qm: torch.Tensor, topk: Optional[int] = None,
+                    nprobe: Optional[int] = None, depth: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """ANN search from masked query reps ``Qm`` (B, qv, dim) and their
+        active mask ``qm`` (B, qv) on the device -> (scores, pids) tensors."""
+        s = self.cfg.serve
+        depth = depth or s.candidate_depth
+        return retrieval_core(
+            Qm, qm, self.probe_fn(nprobe, depth), self.pid_by_row, self.emb_table,
+            self.emb_inv_scale, dv=self.rerank_cap, depth=depth,
+            max_cand=min(s.max_candidates, self.num_docs), topk=topk or s.topk,
+            candidate_ranking=s.candidate_ranking, dedup_impl=s.dedup_impl,
+        )
+
+    def _search(self, q_ids, q_attn, q_active, topk: int, nprobe: Optional[int],
+                depth: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.flat_dv is not None:
+            return self._search_flat(q_ids, q_attn, q_active, topk)
+        Qm = self.encode_queries(q_ids, q_attn, q_active)
+        qm = torch.as_tensor(q_active).to(self.device, torch.float32)
+        return self.search_reps(Qm, qm, topk, nprobe, depth)
+
     # ---- public API ----
 
     def search(self, questions: Sequence[str], topk: Optional[int] = None,
                nprobe: Optional[int] = None, depth: Optional[int] = None) -> SearchResult:
         enc = self.tok.encode_queries(list(questions))
-        return self.search_tokens(enc.input_ids, enc.attention_mask, enc.active_mask, topk=topk)
+        return self.search_tokens(enc.input_ids, enc.attention_mask, enc.active_mask,
+                                  topk=topk, nprobe=nprobe, depth=depth)
 
     def search_tokens(self, q_ids, q_attn, q_active, topk: Optional[int] = None,
                       nprobe: Optional[int] = None, depth: Optional[int] = None) -> SearchResult:
         """Search from pre-tokenized queries; ``nprobe``/``depth`` are ANN
         knobs that flat mode ignores, as the JAX searcher does."""
         with self.timers.span("search"):
-            ts, tp = self.search_tokens_device(q_ids, q_attn, q_active, topk=topk)
+            ts, tp = self.search_tokens_device(q_ids, q_attn, q_active, topk=topk,
+                                               nprobe=nprobe, depth=depth)
         return SearchResult(tp, ts)
 
     def search_tokens_device(self, q_ids, q_attn, q_active, topk: Optional[int] = None,
@@ -168,5 +337,34 @@ class ColbertSearcher:
         """Dispatch a batch and return a handle that synchronises only when
         unpacked: submitting the next batch before fetching this one overlaps
         host work with the device."""
-        ts, tp = self._search_flat(q_ids, q_attn, q_active, topk or self.cfg.serve.topk)
+        ts, tp = self._search(q_ids, q_attn, q_active, topk or self.cfg.serve.topk, nprobe, depth)
         return PendingResult(ts, tp)
+
+    @torch.inference_mode()
+    def exact_topk(self, Qm: torch.Tensor, topk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """fp32 MaxSim of masked query reps ``Qm`` (not descaled) against
+        every doc of the served table (int8 dequantized) -> top-k (scores,
+        pids): the recall oracle."""
+        dv = self.flat_dv or self.rerank_cap
+        table = self.emb_table[: self.num_docs * dv]
+        q = Qm.float()
+        scores = torch.empty((q.shape[0], self.num_docs), dtype=torch.float32, device=q.device)
+        for lo in range(0, self.num_docs, _ORACLE_DOCS):
+            D = table[lo * dv : (lo + _ORACLE_DOCS) * dv].float()
+            if self.emb_inv_scale is not None:
+                D = D * self.emb_inv_scale
+            sim = torch.einsum("bqh,ndh->bnqd", q, D.view(-1, dv, D.shape[-1]))
+            scores[:, lo : lo + _ORACLE_DOCS] = sim.amax(dim=-1).sum(dim=-1)
+        return torch.topk(scores, min(topk, self.num_docs), dim=1)
+
+    def search_brute_force(self, questions: Sequence[str], topk: int) -> SearchResult:
+        """Exact fp32 MaxSim over the whole corpus (no ANN): the recall oracle
+        (``colbert_tpu/ranking/searcher.py:880``)."""
+        enc = self.tok.encode_queries(list(questions))
+        with torch.inference_mode():
+            dev = self.device
+            Q = self.model.query(torch.as_tensor(enc.input_ids).to(dev),
+                                 torch.as_tensor(enc.attention_mask).to(dev))
+            Qm = Q * torch.as_tensor(enc.active_mask).to(dev, Q.dtype)[..., None]
+        ts, tp = self.exact_topk(Qm, topk)
+        return SearchResult(tp.int().cpu().numpy(), ts.cpu().numpy())

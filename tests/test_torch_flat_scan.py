@@ -20,6 +20,17 @@ from colbert_tpu.ops import flat_scan as jfs
 from colbert_tpu_torch.ops import flat_scan as tfs
 
 
+@pytest.fixture(autouse=True)
+def jax_native_off(monkeypatch):
+    """The JAX package takes its numpy fallbacks, which compute the same
+    functions: its tracked native library is compiled with -march=native
+    for another CPU and can stop the test process with an illegal
+    instruction."""
+    import colbert_tpu.native.lib as native
+
+    monkeypatch.setattr(native, "_load", lambda: None)
+
+
 def _corpus(seed, num_docs, h, uniform, dv=6):
     rng = np.random.default_rng(seed)
     doclens = np.full(num_docs, dv) if uniform else rng.integers(1, dv + 1, size=num_docs)

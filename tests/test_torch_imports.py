@@ -23,7 +23,10 @@ def test_serve_path_imports_no_jax():
     JAX package (nor jax, flax or transformers)."""
     mods = _port_modules()
     assert {"colbert_tpu_torch.training.trainer", "colbert_tpu_torch.ops.dropout",
-            "colbert_tpu_torch.ops.maxsim", "colbert_tpu_torch.cli"} <= set(mods)
+            "colbert_tpu_torch.ops.maxsim", "colbert_tpu_torch.cli",
+            "colbert_tpu_torch.ops.kmeans", "colbert_tpu_torch.ops.sq", "colbert_tpu_torch.ops.ivf",
+            "colbert_tpu_torch.ops.sq_probe_batched", "colbert_tpu_torch.ops.rerank",
+            "colbert_tpu_torch.indexing.builder"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -47,12 +50,21 @@ def test_package_source_never_imports_jax():
             assert s != "import colbert_tpu", (path, line)
 
 
-@pytest.mark.parametrize("cmd", ["train-ce", "build-index"])
+@pytest.mark.parametrize("cmd", ["train-ce", "mine"])
 def test_cli_names_unported_subcommands(cmd):
     from colbert_tpu_torch.cli import main
 
     with pytest.raises(SystemExit, match="not yet ported"):
         main([cmd])
+
+
+def test_cli_help_names_build_index(capsys):
+    from colbert_tpu_torch.cli import main
+
+    with pytest.raises(SystemExit):
+        main(["--help"])
+    out = capsys.readouterr().out
+    assert "build-index" in out and "IVF index" in out
 
 
 def test_cli_requires_pretrain(tmp_path):

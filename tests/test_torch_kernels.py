@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the flat scan (K1, K2), all-pairs MaxSim (K3) and dropout (K9).
+the flat scan (K1, K2), all-pairs MaxSim (K3), dropout (K9), the rerank
+(K4 bf16, K5 int8) and the sq list scans (K6 slots, K7 hot lists).
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU and
 skips elsewhere.  This file imports no jax (the card's machine has none);
@@ -182,3 +183,110 @@ def test_dropout_kernel_unaligned_view(cuda_device):
     view = flat[1:]
     assert view.data_ptr() % 16
     torch.testing.assert_close(dr.hw_dropout(view, 99, 51), dr.hw_dropout_ref(view, 99, 51), rtol=0, atol=0)
+
+
+# ---- K4/K5: fused gather + MaxSim rerank, limit 1e-4 (only the summation order differs) ----
+
+@pytest.mark.parametrize("num_docs,dv,dim,B,qv,C", [
+    (3000, 16, 768, 144, 16, 4096),  # the serving point's shapes, fewer docs
+    (500, 37, 128, 5, 32, 130),      # three 16-row doc tiles, two 16-row query tiles
+    (90, 5, 32, 3, 3, 77),           # short everything, C not a multiple of the block's 64
+])
+def test_rerank_kernels_match_plain(cuda_device, num_docs, dv, dim, B, qv, C):
+    from colbert_tpu_torch.ops import rerank as rr
+
+    rng = np.random.default_rng(num_docs + C)
+    emb = rng.normal(size=(num_docs * dv, dim)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    Qm = rng.normal(size=(B, qv, dim)).astype(np.float32)
+    Qm /= np.linalg.norm(Qm, axis=-1, keepdims=True)
+    Qm[0, qv // 2 :] = 0.0
+    cand = rng.integers(0, num_docs, size=(B, C)).astype(np.int32)
+    cand[rng.random((B, C)) < 0.2] = -1
+    cand = torch.from_numpy(cand).to(cuda_device)
+    Q = torch.from_numpy(Qm).to(cuda_device)
+    table = torch.from_numpy(emb).to(cuda_device).to(torch.bfloat16)
+    before = rr.maxsim_rerank_uniform.launches.value
+    got = rr.maxsim_rerank_uniform(cand, Q, table, dv=dv)
+    torch.cuda.synchronize()
+    assert rr.maxsim_rerank_uniform.launches.value == before + 1
+    want = rr.maxsim_rerank_uniform_ref(cand, Q, table, dv=dv)
+    assert torch.equal(torch.isfinite(got), cand >= 0)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+    q8, scale = rr.quantize_emb_table(emb)
+    t8 = torch.from_numpy(q8).to(cuda_device)
+    Qs = Q * torch.from_numpy(1.0 / scale).to(cuda_device)
+    before = rr.maxsim_rerank_uniform_int8.launches.value
+    got = rr.maxsim_rerank_uniform_int8(cand, Qs, t8, dv=dv)
+    torch.cuda.synchronize()
+    assert rr.maxsim_rerank_uniform_int8.launches.value == before + 1
+    torch.testing.assert_close(got, rr.maxsim_rerank_uniform_int8_ref(cand, Qs, t8, dv=dv), rtol=0, atol=1e-4)
+
+
+# ---- K6/K7: sq list scans; scores within 1e-5, rows equal except at near ties ----
+
+def _assert_ranked(s_want, r_want, s_got, r_got, tol=1e-5):
+    """Scores within ``tol``; rows equal except at near ties."""
+    from colbert_tpu_torch.ops.sq_probe_batched import ranked_mismatch
+
+    err, bad = ranked_mismatch(s_want, r_want, s_got, r_got, tol)
+    assert err <= tol and bad == 0, (err, bad)
+
+
+def _sq_case(device, seed, K, D, max_len, T):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, max_len + 1, size=K)
+    lens[0] = 0
+    offsets = np.zeros(K + 1, np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    codes = rng.integers(-127, 128, size=(int(offsets[-1]), D)).astype(np.int8)
+    b = offsets[1]
+    if lens[1] > 140:
+        codes[b + 5] = codes[b + 140]  # an exact tie across blocks
+    qs = (rng.normal(size=(T, D)) / (127.0 * np.sqrt(D))).astype(np.float32)
+    to = lambda a: torch.from_numpy(a).to(device)
+    return to(codes), to(offsets), to(qs)
+
+
+@pytest.mark.parametrize("K,D,max_len,T,nprobe,tpl,r", [
+    (4096, 64, 160, 2304, 128, 128, 8),  # the serving point's slot schedule
+    (64, 16, 700, 300, 8, 32, 2),
+    (33, 128, 300, 90, 5, 7, 16),
+])
+def test_slot_scan_kernel_matches_plain(cuda_device, K, D, max_len, T, nprobe, tpl, r):
+    from colbert_tpu_torch.ops import sq_probe_batched as sp
+
+    codes, offsets, qs = _sq_case(cuda_device, K + D, K, D, max_len, T)
+    coarse = torch.randn(T, K, device=cuda_device, generator=torch.Generator(cuda_device).manual_seed(K))
+    vals, lists = torch.topk(coarse, nprobe, dim=1)
+    sched, _ = sp.build_slot_schedule_dense(coarse >= vals[:, -1:], lists, tpl=tpl, groups=8)
+    before = sp.sq_batch_list_scan.launches.value
+    gs, gr = sp.sq_batch_list_scan(sched.qidx, offsets, qs, codes, r=r)
+    torch.cuda.synchronize()
+    assert sp.sq_batch_list_scan.launches.value == before + 1
+    ws, wr = sp.sq_batch_list_scan_ref(sched.qidx, offsets, qs, codes, r=r)
+    filled = sched.qidx[:, 0] >= 0  # the kernel leaves empty slots unwritten
+    assert int(filled.sum()) > 0
+    _assert_ranked(ws[filled].transpose(1, 2).reshape(-1, r), wr[filled].transpose(1, 2).reshape(-1, r),
+                   gs[filled].transpose(1, 2).reshape(-1, r), gr[filled].transpose(1, 2).reshape(-1, r))
+
+
+@pytest.mark.parametrize("K,D,max_len,T,H,r", [
+    (200, 64, 1500, 2304, 128, 8),  # the serving point's hot scan: 128 lists x every token
+    (20, 32, 400, 130, 7, 3),
+])
+def test_hot_scan_kernel_matches_plain(cuda_device, K, D, max_len, T, H, r):
+    from colbert_tpu_torch.ops import sq_probe_batched as sp
+
+    codes, offsets, qs = _sq_case(cuda_device, K * 3 + D, K, D, max_len, T)
+    hot = torch.arange(H, dtype=torch.int32, device=cuda_device) % K
+    hot[-1] = -1
+    before = sp.sq_hot_list_scan.launches.value
+    gs, gr = sp.sq_hot_list_scan(hot, offsets, qs, codes, r=r)
+    torch.cuda.synchronize()
+    assert sp.sq_hot_list_scan.launches.value == before + 1
+    ws, wr = sp.sq_hot_list_scan_ref(hot, offsets, qs, codes, r=r)
+    real = hot >= 0  # the kernel leaves a -1 entry unwritten
+    _assert_ranked(ws[real].transpose(1, 2).reshape(-1, r), wr[real].transpose(1, 2).reshape(-1, r),
+                   gs[real].transpose(1, 2).reshape(-1, r), gr[real].transpose(1, 2).reshape(-1, r))

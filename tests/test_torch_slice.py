@@ -31,6 +31,17 @@ from tests.test_flat_serving import QUERIES, _encode_only
 QUESTIONS = QUERIES + ["apple", "forest tree marble", "doc7 dragon", "", "silver wave"]
 
 
+@pytest.fixture(autouse=True)
+def jax_native_off(monkeypatch):
+    """The JAX package takes its numpy fallbacks, which compute the same
+    functions: its tracked native library is compiled with -march=native
+    for another CPU and can stop the test process with an illegal
+    instruction."""
+    import colbert_tpu.native.lib as native
+
+    monkeypatch.setattr(native, "_load", lambda: None)
+
+
 @pytest.fixture(scope="module")
 def slice_setup(tmp_path_factory, mesh8):
     tmp = tmp_path_factory.mktemp("slice")
@@ -118,14 +129,17 @@ def test_socket_round_trip_equals_in_process(slice_setup):
 
 
 def test_searcher_refuses_unported_modes(slice_setup):
+    """The host-RAM rerank table is not ported; ANN mode needs the IVF
+    index that ``build-index`` writes (``tests/test_torch_ann_slice.py``)."""
     import dataclasses
 
     cfg, texts, _, _, jstorage, model, tok, _ = slice_setup
-    for serve in (dataclasses.replace(cfg.serve, mode="ann"),
-                  dataclasses.replace(cfg.serve, rerank_table="host")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ColbertSearcher(dataclasses.replace(cfg, serve=serve), tok, model,
-                            IndexStorage(jstorage.path), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ColbertSearcher(dataclasses.replace(cfg, serve=dataclasses.replace(cfg.serve, rerank_table="host")),
+                        tok, model, IndexStorage(jstorage.path), device="cpu")
+    with pytest.raises(FileNotFoundError):
+        ColbertSearcher(dataclasses.replace(cfg, serve=dataclasses.replace(cfg.serve, mode="ann")),
+                        tok, model, IndexStorage(jstorage.path), device="cpu")
 
 
 def test_unfused_route_matches_fused(slice_setup):

@@ -1,0 +1,219 @@
+"""The port's sq probe against the JAX package on the CPU: the dense slot
+schedule, the plain versions of K6 (slot list scan) and K7 (hot-list scan)
+against the TPU kernels in interpret mode, the whole
+``ivf_probe_sq_batched`` with and without hot lists, and both dedups.
+
+Inputs come from numpy seeds.  Limits: scores within 1e-5 (the int8 x
+bf16 or x fp32 products are summed in another order); rows and pids equal
+wherever the scores are not within that limit of a neighbour.  Exact ties
+(duplicate code rows, planted here) must resolve alike: both sides apply
+the TPU kernel's tie rule.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from colbert_tpu.ops import ivf as jivf
+from colbert_tpu.ops import sq_probe_batched as jsp
+from colbert_tpu.ops.sq_probe_pallas import pad_codes_for_scan
+from colbert_tpu_torch.ops import ivf as pivf
+from colbert_tpu_torch.ops import sq_probe_batched as psp
+
+# The tests run in several workers at once beside JAX's own thread pools:
+# two intra-op threads per worker keep the CPU from being oversubscribed.
+torch.set_num_threads(2)
+
+TOL = 1e-5
+
+
+def assert_ranked_match(s_want, r_want, s_got, r_got, axis, tol=TOL):
+    """Scores within ``tol``; ids equal except where a score lies within
+    ``tol`` of a different neighbouring score along ``axis`` (a near tie
+    that the summation order may flip)."""
+    def rows(a):
+        a = np.moveaxis(np.asarray(a), axis, -1)
+        return torch.from_numpy(np.ascontiguousarray(a.reshape(-1, a.shape[-1])))
+
+    err, bad = psp.ranked_mismatch(rows(s_want), rows(r_want), rows(s_got), rows(r_got), tol)
+    assert err <= tol and bad == 0, (err, bad)
+
+
+def random_csr(rng, K, D, max_len, dup=True):
+    """Codes (N, D) int8 sorted by list, offsets (K+1,); some lists empty,
+    some longer than one 128-row block, with duplicate rows planted inside
+    a block and across blocks."""
+    lens = rng.integers(0, max_len + 1, size=K)
+    lens[1] = 0
+    lens[2] = max_len
+    offsets = np.zeros(K + 1, np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    codes = rng.integers(-127, 128, size=(int(offsets[-1]), D)).astype(np.int8)
+    if dup:
+        b = offsets[2]
+        codes[b + 5] = codes[b + 140]   # tie across blocks: the later block wins
+        codes[b + 7] = codes[b + 9]     # tie within a block: the lower row wins
+    return codes, offsets
+
+
+def scaled_queries(rng, T, D):
+    """Projected queries at the scale ``sq_query`` gives (scores ~ 1)."""
+    return (rng.normal(size=(T, D)) / (127.0 * np.sqrt(D))).astype(np.float32)
+
+
+def jax_schedule(coarse, nprobe, offsets, tpl, groups, D, list_mask=None):
+    vals, lists = jax.lax.top_k(jnp.asarray(coarse), nprobe)
+    sched, pv = jsp.build_slot_schedule_dense(
+        jnp.asarray(coarse), vals[:, -1], lists, jnp.asarray(offsets), tpl=tpl, pack=128 // D,
+        groups=groups, list_mask=None if list_mask is None else jnp.asarray(list_mask),
+    )
+    return sched, pv, np.asarray(vals), np.asarray(lists)
+
+
+@pytest.mark.parametrize("T,K,nprobe,tpl,groups,masked", [
+    (40, 12, 4, 8, 2, False),
+    (70, 16, 5, 4, 3, True),
+])
+def test_slot_schedule_matches_jax(T, K, nprobe, tpl, groups, masked):
+    rng = np.random.default_rng(T)
+    coarse = rng.normal(size=(T, K)).astype(np.float32)
+    mask = rng.random(K) < 0.7 if masked else None
+    offsets = np.arange(K + 1, dtype=np.int32) * 9
+    sched, pv, vals, lists = jax_schedule(coarse, nprobe, offsets, tpl, groups, 16, mask)
+    member = torch.from_numpy(coarse >= vals[:, -1:])
+    if masked:
+        member &= torch.from_numpy(mask)[None, :]
+    got, got_pv = psp.build_slot_schedule_dense(member, torch.from_numpy(lists), tpl=tpl, groups=groups)
+    np.testing.assert_array_equal(got.qidx.numpy(), np.asarray(sched.qidx))
+    v = np.asarray(pv)
+    np.testing.assert_array_equal(got_pv.numpy(), v)
+    assert v.any() and not v.all()  # some pairs overflow their list's slots
+    np.testing.assert_array_equal(got.slot_of_pair.numpy()[v], np.asarray(sched.slot_of_pair)[v])
+    np.testing.assert_array_equal(got.pos_of_pair.numpy()[v], np.asarray(sched.pos_of_pair)[v])
+
+
+@pytest.mark.parametrize("D", [16, 64])
+@pytest.mark.parametrize("r", [2, 8])
+def test_k6_plain_matches_jax_kernel(D, r):
+    rng = np.random.default_rng(D + r)
+    T, K, nprobe, tpl, groups = 40, 12, 4, 8, 2
+    codes, offsets = random_csr(rng, K, D, 300)
+    qs = scaled_queries(rng, T, D)
+    coarse = rng.normal(size=(T, K)).astype(np.float32)
+    sched, _, vals, lists = jax_schedule(coarse, nprobe, offsets, tpl, groups, D)
+    maxb = (int(np.diff(offsets).max()) + 31 + 127) // 128
+    t_pad = -(-T // 128) * 128
+    qsT = jnp.pad(jnp.asarray(qs), ((0, t_pad - T), (0, 0))).T
+    js, jr = jsp.sq_batch_list_scan(sched.qidx, sched.meta, qsT, pad_codes_for_scan(jnp.asarray(codes), maxb * 128),
+                                    tpl=tpl, r=r, interpret=True)
+    qidx = torch.from_numpy(np.asarray(sched.qidx))
+    ps, pr = psp.sq_batch_list_scan(qidx, torch.from_numpy(offsets), torch.from_numpy(qs),
+                                    torch.from_numpy(codes), r=r)
+    # compare the slots the TPU kernel ran, at filled positions
+    ran = np.asarray(sched.meta)[:, 0, 1] > 0
+    js, jr = np.asarray(js)[ran], np.asarray(jr)[ran]
+    ps, pr = ps.numpy()[ran], pr.numpy()[ran]
+    filled = np.broadcast_to((qidx.numpy()[ran] >= 0)[:, None, :], js.shape)
+    js = np.where(filled, js, -np.inf)
+    jr = np.where(filled, jr, -1)
+    assert_ranked_match(js, jr, ps, pr, axis=1)
+    assert np.isfinite(ps).sum() > 100
+
+
+@pytest.mark.parametrize("r", [2, 8])
+def test_k7_plain_matches_jax_kernel(r):
+    rng = np.random.default_rng(7 + r)
+    T, K, D = 150, 10, 64  # two token tiles of 128
+    codes, offsets = random_csr(rng, K, D, 290)
+    qs = scaled_queries(rng, T, D)
+    hot = np.array([2, 5, -1, 0], np.int32)
+    maxb = (int(np.diff(offsets).max()) + 31 + 127) // 128
+    t_pad = -(-T // 128) * 128
+    qsT = jnp.pad(jnp.asarray(qs), ((0, t_pad - T), (0, 0))).T
+    js, jr = jsp.sq_hot_list_scan(jnp.asarray(hot), jnp.asarray(offsets), qsT,
+                                  pad_codes_for_scan(jnp.asarray(codes), maxb * 128),
+                                  hot_cap=len(hot), maxb=maxb, r=r, interpret=True)
+    ps, pr = psp.sq_hot_list_scan(torch.from_numpy(hot), torch.from_numpy(offsets), torch.from_numpy(qs),
+                                  torch.from_numpy(codes), r=r)
+    assert ps.shape == (len(hot), r, T)
+    assert_ranked_match(np.asarray(js)[:, :, :T], np.asarray(jr)[:, :, :T], ps.numpy(), pr.numpy(), axis=1)
+    assert not np.isfinite(ps.numpy()[2]).any()  # hot id -1: nothing
+
+
+def _probe_inputs(seed, T, K, D, dim=32, n_per_list=60):
+    """A clustered corpus: codes, offsets and the projection of a real sq index."""
+    from colbert_tpu.ops.sq import sq_encode, sq_train
+
+    rng = np.random.default_rng(seed)
+    cent = rng.normal(size=(K, dim)).astype(np.float32)
+    sizes = rng.integers(1, 2 * n_per_list, size=K)
+    sizes[0] = 5 * n_per_list  # a hot, multi-block list
+    x = np.concatenate([c + 0.3 * rng.normal(size=(n, dim)) for c, n in zip(cent, sizes)]).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)  # unit rows, as the encoder writes
+    assign = np.repeat(np.arange(K), sizes).astype(np.int32)
+    proj, scales = sq_train(jnp.asarray(x), D)
+    codes = np.asarray(sq_encode(jnp.asarray(x), proj, scales))
+    perm, offsets = jivf.sort_by_list(assign, K)
+    q = (cent[rng.integers(0, K, size=T)] + 0.5 * rng.normal(size=(T, dim))).astype(np.float32)
+    q[:, :] += 0.8 * cent[0]  # pull many tokens towards list 0
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return q, cent, np.asarray(proj), np.asarray(scales), codes[perm], offsets
+
+
+@pytest.mark.parametrize("hot_cap", [0, 3])
+@pytest.mark.parametrize("D", [16, 64])
+def test_ivf_probe_sq_batched_matches_jax(hot_cap, D):
+    T, K, nprobe, depth, r = 96, 24, 6, 20, 2
+    q, cent, proj, scales, codes, offsets = _probe_inputs(hot_cap + D, T, K, D)
+    kw = dict(nprobe=nprobe, depth=depth, r=r, hot_cap=hot_cap, tpl=8, groups=1)
+    maxb = (int(np.diff(offsets).max()) + 31 + 127) // 128
+    js, jr = jivf.ivf_probe_sq_batched(
+        jnp.asarray(q), jnp.asarray(cent), jnp.asarray(proj), jnp.asarray(scales), jnp.asarray(codes),
+        jnp.asarray(offsets), maxb=maxb, interpret=True, **kw)
+    ps, pr = pivf.ivf_probe_sq_batched(
+        torch.from_numpy(q), torch.from_numpy(cent), torch.from_numpy(proj), torch.from_numpy(scales),
+        torch.from_numpy(codes), torch.from_numpy(offsets), **kw)
+    assert ps.shape == (T, depth) and pr.dtype == torch.int32
+    assert_ranked_match(np.asarray(js), np.asarray(jr), ps.numpy(), pr.numpy(), axis=1)
+    # the slot capacity (8) is far below list 0's members: with hot lists
+    # every token keeps it, without them most tokens lose it
+    head = (pr.numpy() >= offsets[0]) & (pr.numpy() < offsets[1])
+    if hot_cap:
+        assert head.any(axis=1).mean() > 0.9
+    else:
+        assert head.any(axis=1).mean() < 0.5
+
+
+def _dedup_inputs(seed, B, qv, depth, num_docs):
+    rng = np.random.default_rng(seed)
+    pids = rng.integers(-1, num_docs, size=(B, qv * depth)).astype(np.int32)
+    scores = rng.normal(size=(B, qv * depth)).astype(np.float32)
+    scores[pids < 0] = -np.inf
+    pids[1] = -1  # a query with no candidate at all
+    scores[1] = -np.inf
+    return pids, scores
+
+
+@pytest.mark.parametrize("max_out", [16, 300])
+def test_dedup_approx_maxsim_matches_jax(max_out):
+    B, qv, depth = 5, 4, 30
+    pids, scores = _dedup_inputs(max_out, B, qv, depth, num_docs=50)
+    token_ids = np.repeat(np.arange(qv, dtype=np.int32), depth)
+    jp, js = jax.vmap(lambda p, s: jivf.dedup_pids_by_approx_maxsim(p, jnp.asarray(token_ids), s, qv, max_out))(
+        jnp.asarray(pids), jnp.asarray(scores))
+    pp, ps = pivf.dedup_pids_by_approx_maxsim(torch.from_numpy(pids), torch.from_numpy(token_ids),
+                                              torch.from_numpy(scores), qv, max_out)
+    assert pp.shape == (B, max_out) and pp.dtype == torch.int32
+    assert_ranked_match(js, jp, ps.numpy(), pp.numpy(), axis=1)
+    assert (pp.numpy()[1] == -1).all()
+
+
+@pytest.mark.parametrize("max_out", [16, 300])
+def test_dedup_by_score_matches_jax(max_out):
+    B, qv, depth = 5, 4, 30
+    pids, scores = _dedup_inputs(max_out + 1, B, qv, depth, num_docs=50)
+    jp, js = jax.vmap(lambda p, s: jivf.dedup_pids_by_score(p, s, max_out))(jnp.asarray(pids), jnp.asarray(scores))
+    pp, ps = pivf.dedup_pids_by_score(torch.from_numpy(pids), torch.from_numpy(scores), max_out)
+    assert_ranked_match(js, jp, ps.numpy(), pp.numpy(), axis=1)
