@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``colbert_tpu_torch/csrc`` (one nvcc
-per source, all at once) and drives the port's three paths, exact flat
-serving, retriever training and ANN serving with the sq codec, at full
-BERT-base width with random weights from a seed:
+per source, all at once) and drives the port's paths, exact flat serving,
+retriever training and ANN serving with the sq, pq4 and pq codecs (sq also
+by the token-major probe), at full BERT-base width with random weights
+from a seed:
 
 * phase 1: kernels K1 (fused scan + group max) and K2 (full score matrix)
   against their plain PyTorch versions on the card, at B=144 queries x 16
@@ -62,6 +63,28 @@ BERT-base width with random weights from a seed:
   most-probed lists x every token) against their plain versions, scores
   within 1e-5 and rows equal except at near ties; K4 (bf16) and K5 (int8)
   over the 144 x 4,096 candidates, within 1e-4.
+* phase 6, the pq4 and pq codecs and the token-major sq probe at the same
+  operating point (pq4: m 128 x 4 bits; pq: m 64 x 8 bits; 10 PQ k-means
+  iterations):
+  (c) at the end of phase 5c, on phase 2's encoded corpus: ``build-index``
+  with the pq4 codec, ``serve`` over the socket, two requests of 144
+  questions and ``evaluate --remote``, then one request through a service
+  of phase 5c's sq index with ``serve.probe_impl=token``.  Every answer
+  must hold 100 valid, descending triples whose scores equal the exact
+  MaxSim of the returned pids within 1e-4; K8 must launch once per pq4
+  batch, K10 once for the token-probe batch, K4 once per batch;
+  (a) on phase 5b's corpus, ``build-index`` with the pq4 and the pq codec
+  and phase 5b's sq index served with the token-major probe (and the
+  batched one, for reference): recall@100 against the fp32 oracle over
+  2 x 144 queries about two topics each (8 tokens around each; at least
+  0.95 each; with one topic per query, as phase 5b's, an exact top-512 per
+  token falls on a few docs, so the token-major probes keep fewer than 100
+  candidates for some queries: reported as information), build seconds
+  and the batch's time per stage;
+  (b) on the first batch's inputs: K8 (2,304 tokens x 128 probed lists)
+  and K10 (2,304 tokens x 128 windows) against their plain versions,
+  scores within 1e-5 and rows (K10: the top-512 slots) equal except at
+  near ties.
 
 Prints the card's name and power limit, the measurements, one JSON line of
 kernels, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -106,12 +129,13 @@ PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3
 
 def counters():
     from colbert_tpu_torch.ops import dropout as dr, flat_scan as fs, maxsim as ms
-    from colbert_tpu_torch.ops import rerank as rr, sq_probe_batched as sp
+    from colbert_tpu_torch.ops import pq4, rerank as rr, sq_probe, sq_probe_batched as sp
 
     return {"K1": fs.flat_scan_fused.launches, "K2": fs.flat_maxsim_scan.launches,
             "K3": ms.maxsim.launches, "K9": dr.hw_dropout.launches,
             "K4": rr.maxsim_rerank_uniform.launches, "K5": rr.maxsim_rerank_uniform_int8.launches,
-            "K6": sp.sq_batch_list_scan.launches, "K7": sp.sq_hot_list_scan.launches}
+            "K6": sp.sq_batch_list_scan.launches, "K7": sp.sq_hot_list_scan.launches,
+            "K8": pq4.pq4_list_scan.launches, "K10": sq_probe.sq_list_scan.launches}
 
 
 def reset_counts() -> None:
@@ -133,28 +157,51 @@ def bound(flops: float, nbytes: float, peak_flops: float):
 
 # ---- seeded inputs ----
 
-def topic_embeddings(num_docs, d_view, num_queries, q_view, dim, seed=0, n_topics=256):
-    """Clustered, anisotropic unit vectors (``bench.py``'s synthetic corpus),
-    plus queries drawn around the same topics.  Returns fp16 doc rows
-    (num_docs * d_view, dim) and fp32 queries (num_queries, q_view, dim)."""
+def _topics(rng, dim, n_topics):
     import numpy as np
 
-    rng = np.random.default_rng(seed)
     spectrum = (1.0 / np.sqrt(1.0 + np.arange(dim))).astype(np.float32)
     topics = rng.normal(size=(n_topics, dim)).astype(np.float32) * spectrum
     topics /= np.linalg.norm(topics, axis=1, keepdims=True)
+    return topics, spectrum
+
+
+def _around(rng, topics, spectrum, t):
+    """One unit vector around each topic of ``t``."""
+    import numpy as np
+
+    e = topics[t] + 0.3 * (rng.normal(size=(len(t), topics.shape[1])).astype(np.float32) * spectrum)
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    return e
+
+
+def topic_embeddings(num_docs, d_view, num_queries, q_view, dim, seed=0, n_topics=256):
+    """Clustered, anisotropic unit vectors (``bench.py``'s synthetic corpus),
+    plus queries drawn around the same topics, one topic per doc and per
+    query.  Returns fp16 doc rows (num_docs * d_view, dim) and fp32 queries
+    (num_queries, q_view, dim)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    topics, spectrum = _topics(rng, dim, n_topics)
 
     def draw(n, views):
-        t = rng.integers(0, n_topics, size=n)
-        e = topics[np.repeat(t, views)] + 0.3 * (
-            rng.normal(size=(n * views, dim)).astype(np.float32) * spectrum
-        )
-        e /= np.linalg.norm(e, axis=1, keepdims=True)
-        return e
+        return _around(rng, topics, spectrum, np.repeat(rng.integers(0, n_topics, size=n), views))
 
     docs = draw(num_docs, d_view).astype(np.float16)
     queries = draw(num_queries, q_view).reshape(num_queries, q_view, dim)
     return docs, queries
+
+
+def two_topic_queries(num_queries, q_view, dim, seed=0, n_topics=256):
+    """Queries over :func:`topic_embeddings`' topics (same ``seed``), each
+    about two topics: half its tokens around one, half around the other."""
+    import numpy as np
+
+    topics, spectrum = _topics(np.random.default_rng(seed), dim, n_topics)
+    rng = np.random.default_rng([seed, 6])
+    t = np.repeat(rng.integers(0, n_topics, size=(num_queries, 2)), q_view // 2, axis=1).reshape(-1)
+    return _around(rng, topics, spectrum, t).reshape(num_queries, q_view, dim)
 
 
 def synthetic_chinese(num_docs, num_questions, seed=0, n_topics=64):
@@ -436,7 +483,9 @@ def phase_slice(device, workdir: Path, label: str, num_docs=20_000, model_kw=Non
         raise AssertionError(f"served scores differ from the plain version by {worst}")
     ann_launches = phase_ann_cli(device, workdir, cfg, common, corpus_path, eval_path, docs,
                                  requests, k2_searcher, n_eval)
-    return launches, worst, ann_launches
+    codec_launches = phase_codecs_cli(device, workdir, cfg, common, corpus_path, eval_path, docs,
+                                      requests, k2_searcher, n_eval)
+    return launches, worst, ann_launches, codec_launches
 
 
 # ---- phase 3: the training kernels against their plain versions ----
@@ -665,6 +714,29 @@ def ann_config(cfg, index_path, port):
     return out
 
 
+def check_answers(tag, questions, answers, searcher, docs, device, exact=None):
+    """Every answer holds 100 valid, descending triples; returns the largest
+    difference of their scores from ``exact(pids, Qm)``, by default the
+    exact MaxSim of the returned pids over ``searcher``'s bf16 flat table."""
+    import torch
+
+    from colbert_tpu_torch.ops.rerank import maxsim_rerank_uniform_ref
+
+    if exact is None:
+        exact = lambda pids, Qm: maxsim_rerank_uniform_ref(pids, Qm, searcher.emb_table, dv=searcher.flat_dv)
+    enc = searcher.tok.encode_queries(questions)
+    Qm = searcher.encode_queries(enc.input_ids, enc.attention_mask, enc.active_mask)
+    pids = torch.tensor([[p for p, _, _ in row] for row in answers], dtype=torch.int32, device=device)
+    got = torch.tensor([[s for _, s, _ in row] for row in answers], dtype=torch.float32, device=device)
+    if pids.shape != (len(questions), TOPK) or not ((pids >= 0) & (pids < len(docs))).all():
+        raise AssertionError(f"{tag}: an answer lacks 100 valid pids")
+    if any(t != docs[p] for row in answers for p, _, t in row):
+        raise AssertionError(f"{tag}: a triple's text is not its passage")
+    if (got[:, 1:] > got[:, :-1]).any():
+        raise AssertionError(f"{tag}: scores not descending")
+    return float((got - exact(pids, Qm)).abs().max())
+
+
 def phase_ann_cli(device, workdir: Path, cfg, common, corpus_path, eval_path, docs, requests,
                   flat_searcher, n_eval):
     """Phase 5c/5d: ``build-index`` on phase 2's encoded corpus, ``serve``
@@ -675,7 +747,7 @@ def phase_ann_cli(device, workdir: Path, cfg, common, corpus_path, eval_path, do
 
     from colbert_tpu_torch import cli
     from colbert_tpu_torch.config import ColbertConfig
-    from colbert_tpu_torch.ops.rerank import maxsim_rerank_uniform_int8_ref, maxsim_rerank_uniform_ref
+    from colbert_tpu_torch.ops.rerank import maxsim_rerank_uniform_int8_ref
     from colbert_tpu_torch.serving.server import RetrievalClient
 
     acfg = ann_config(cfg, cfg.index.index_path, free_port())
@@ -766,7 +838,8 @@ def phase_ann_cli(device, workdir: Path, cfg, common, corpus_path, eval_path, do
     log(f"[phase5c] lists over the slot capacity (scanned by K7) for request 0 by nprobe: {over}")
     eval_batches = -(-n_eval // B)
     want = {"K4": len(requests) + eval_batches, "K5": eval_batches + 1,
-            "K6": len(requests) + 2 * eval_batches + 1, "K7": len(requests) + 2 * eval_batches + 1}
+            "K6": len(requests) + 2 * eval_batches + 1, "K7": len(requests) + 2 * eval_batches + 1,
+            "K8": 0, "K10": 0}
     log(f"[phase5d] launches in the ANN serving-path run: {launches} (expected {want}: the socket's "
         f"{len(requests)} requests (the last at nprobe {deep}) and {eval_batches} evaluate "
         f"--remote batches on the bf16 table, {eval_batches} local evaluate batches and one "
@@ -777,25 +850,12 @@ def phase_ann_cli(device, workdir: Path, cfg, common, corpus_path, eval_path, do
     # every answer: 100 valid descending triples whose scores are the exact
     # MaxSim of the returned pids over the served table: bf16 queries x bf16
     # table, or fp32 descaled queries x int8 table, fp32 sums
-    s8, dv = service8.searcher, flat_searcher.flat_dv
-    worst = {"bf16": 0.0, "int8": 0.0}
-    for key, qs, ans in [*(("bf16", qs, ans) for qs, ans in zip(requests, answers)),
-                         ("int8", requests[0], answers8)]:
-        enc = flat_searcher.tok.encode_queries(qs)
-        Qm = flat_searcher.encode_queries(enc.input_ids, enc.attention_mask, enc.active_mask)
-        pids = torch.tensor([[p for p, _, _ in row] for row in ans], dtype=torch.int32, device=device)
-        got = torch.tensor([[s for _, s, _ in row] for row in ans], dtype=torch.float32, device=device)
-        if pids.shape != (len(qs), TOPK) or not ((pids >= 0) & (pids < len(docs))).all():
-            raise AssertionError("an ANN answer lacks 100 valid pids")
-        if any(t != docs[p] for row in ans for p, _, t in row):
-            raise AssertionError("an ANN triple's text is not its passage")
-        if (got[:, 1:] > got[:, :-1]).any():
-            raise AssertionError("ANN scores not descending")
-        if key == "bf16":
-            want_s = maxsim_rerank_uniform_ref(pids, Qm, flat_searcher.emb_table, dv=dv)
-        else:
-            want_s = maxsim_rerank_uniform_int8_ref(pids, Qm.float() * s8.emb_inv_scale, s8.emb_table, dv=dv)
-        worst[key] = max(worst[key], float((got - want_s).abs().max()))
+    s8 = service8.searcher
+    int8_maxsim = lambda pids, Qm: maxsim_rerank_uniform_int8_ref(pids, Qm.float() * s8.emb_inv_scale,
+                                                                   s8.emb_table, dv=16)
+    worst = {"bf16": max(check_answers("ANN bf16", qs, ans, flat_searcher, docs, device)
+                         for qs, ans in zip(requests, answers)),
+             "int8": check_answers("ANN int8", requests[0], answers8, flat_searcher, docs, device, int8_maxsim)}
     log(f"[phase5c] served ANN scores vs the exact MaxSim of the returned pids: max|d| "
         + ", ".join(f"{k} table {v:.3e}" for k, v in worst.items()) + f" (limit {SCORE_ATOL})")
     if max(worst.values()) > SCORE_ATOL:
@@ -854,7 +914,7 @@ def phase_ann(device, workdir: Path, label: str, num_docs=20_000, n_batches=2, s
     qm = torch.ones(B, M, device=device)
 
     # ---- 5b: recall@100 against the fp32 exact oracle, and the stage times ----
-    recall, batch_ms = [], []
+    recall, batch_ms, oracle = [], [], []
     for i in range(n_batches):
         Qb = Q[i * B : (i + 1) * B]
         searcher.search_reps(Qb, qm)  # warm-up
@@ -865,6 +925,7 @@ def phase_ann(device, workdir: Path, label: str, num_docs=20_000, n_batches=2, s
         batch_ms.append((time.perf_counter() - t0) * 1e3)
         _, op = searcher.exact_topk(Qb, TOPK)
         tp, op = tp.cpu().numpy(), op.cpu().numpy()
+        oracle.append(op)
         if not np.isfinite(ts.cpu().numpy()).all() or ts.shape != (B, TOPK):
             raise AssertionError("ANN search returned fewer than 100 finite results")
         recall += [len(set(tp[b]) & set(op[b])) / TOPK for b in range(B)]
@@ -892,7 +953,7 @@ def phase_ann(device, workdir: Path, label: str, num_docs=20_000, n_batches=2, s
     # ---- 5a: K6, K7, K4, K5 against their plain versions on this batch's inputs ----
     out = {}
     tokens = Qb.reshape(B * M, H)
-    plan = sq_probe_plan(tokens, searcher.coarse, searcher.sq_proj, searcher.sq_scales, nprobe=NPROBE,
+    plan = sq_probe_plan(tokens, searcher.coarse, *searcher.quant, nprobe=NPROBE,
                          hot_cap=s.probe_hot_lists or max(64, NPROBE))
     codes, offsets = searcher.codes, searcher.offsets
     qidx = plan.sched.qidx
@@ -986,7 +1047,310 @@ def phase_ann(device, workdir: Path, label: str, num_docs=20_000, n_batches=2, s
         v = out[k]
         log(f"[phase5a] {k}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, bound "
             f"{v['bound_ms']:.4f} ms ({v['bound_by']}); no single PyTorch call computes it [{label}]")
-    return out, {"recall": rec, "stage_ms": stage, "batch_ms": batch_ms, "build_s": build_s}
+    return out, {"recall": rec, "stage_ms": stage, "batch_ms": batch_ms, "build_s": build_s,
+                 "queries": Q, "oracle": oracle, "config": cfg}
+
+
+# ---- phase 6: the pq4 and pq codecs and the token-major sq probe ----
+
+PQ4_M, PQ_M, PQ_NBITS, PQ_KMEANS_ITERS = 128, 64, 8, 10
+CODEC_RECALL = 0.95  # recall@100 each phase-6 path must reach
+SMEM_LOADS_PER_CLOCK = 132 * 32  # 4-byte shared-memory loads per clock on the card's 132 SMs
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def codec_config(cfg, index_path, port, codec, probe_impl="auto"):
+    """``ann_config`` with another codec (pq4: m 128 x 4 bits; pq: m 64 x 8
+    bits) or the token-major sq probe."""
+    out = ann_config(cfg, index_path, port)
+    out.index.codec, out.index.pq4_m, out.index.pq_m, out.index.pq_nbits = codec, PQ4_M, PQ_M, PQ_NBITS
+    out.index.pq_kmeans_iters = PQ_KMEANS_ITERS
+    out.serve.probe_impl = probe_impl
+    return out
+
+
+def share_parts(src: Path, dst: Path) -> None:
+    """A new index directory over ``src``'s encoded parts (linked, not copied)."""
+    import shutil
+
+    (dst / "ivf").mkdir(parents=True)
+    (dst / "parts").symlink_to((src / "parts").resolve(), target_is_directory=True)
+    shutil.copy(src / "meta.json", dst / "meta.json")
+
+
+def phase_codecs_cli(device, workdir: Path, cfg, common, corpus_path, eval_path, docs, requests,
+                     flat_searcher, n_eval):
+    """Phase 6c: on phase 2's encoded corpus, ``build-index`` with the pq4
+    codec, ``serve`` it with ``serve.mode=ann`` over the socket (two
+    requests, ``evaluate --remote``), and one request through a service of
+    phase 5c's sq index with ``serve.probe_impl=token``; the launch counts
+    of that run."""
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.serving.server import RetrievalClient
+
+    index = workdir / "index_pq4"
+    share_parts(workdir / "index", index)
+    pcfg = codec_config(cfg, index, free_port(), "pq4")
+    conf = workdir / "conf_pq4.yaml"
+    pcfg.to_yaml(conf)
+    args = ["--config", str(conf), *common[2:]]
+    t0 = time.perf_counter()
+    cli.main(["build-index", *args])
+    log(f"[phase6c] build-index (pq4, m {PQ4_M}) over phase 2's {len(docs)} encoded docs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    serve_err = []
+
+    def serve():
+        try:
+            cli.main(["serve", "--corpus", str(corpus_path), *args])
+        except BaseException as e:  # noqa: BLE001 -- reported by the main thread
+            serve_err.append(e)
+
+    server = threading.Thread(target=serve, daemon=True, name="serve-pq4")
+    server.start()
+    tcfg = codec_config(cfg, cfg.index.index_path, 0, "sq", "token")
+    ns = argparse.Namespace(pretrain=common[common.index("--pretrain") + 1], checkpoint_step=None,
+                            device=str(device), corpus=str(corpus_path))
+    service_tok = cli.make_service(tcfg, ns)
+    client = RetrievalClient(pcfg.serve.host, pcfg.serve.port, pcfg.serve.authkey.encode())
+    from multiprocessing.connection import Client
+
+    deadline = time.time() + 600
+    while True:
+        if serve_err:
+            raise RuntimeError(f"pq4 serve failed: {serve_err[0]!r}")
+        try:
+            Client((pcfg.serve.host, pcfg.serve.port), authkey=pcfg.serve.authkey.encode()).close()
+            break
+        except ConnectionRefusedError:
+            if time.time() > deadline:
+                raise
+            time.sleep(0.2)
+    client.retrieve(requests[0][:1], topk=TOPK, depth=DEPTH, nprobe=NPROBE)  # warm-ups, not counted
+    service_tok.retrieve(requests[0][:1], topk=TOPK)
+
+    # ---- the counted run of the pq4 and token-probe serving paths ----
+    reset_counts()
+    answers, lat = [], []
+    for qs in requests[:2]:
+        t0 = time.perf_counter()
+        answers.append(client.retrieve(qs, topk=TOPK, depth=DEPTH, nprobe=NPROBE))
+        lat.append(time.perf_counter() - t0)
+    cli.main(["evaluate", "--eval-data", str(eval_path), "--remote", "--topk", str(TOPK), *args])
+    t0 = time.perf_counter()
+    answers_tok = service_tok.retrieve(requests[0], topk=TOPK)
+    lat_tok = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = read_counts()
+    # ----
+
+    client.shutdown()
+    server.join(timeout=60)
+    if server.is_alive() or serve_err:
+        raise RuntimeError(f"pq4 server did not stop cleanly: {serve_err}")
+    for i, dt in enumerate(lat):
+        log(f"[phase6c] pq4 request {i}: {B} questions top-{TOPK} in {dt * 1e3:.1f} ms over the socket")
+    log(f"[phase6c] sq token-probe service: {B} questions top-{TOPK} in {lat_tok * 1e3:.1f} ms in process")
+    eval_batches = -(-n_eval // B)
+    want = {"K8": 2 + eval_batches, "K10": 1, "K4": 3 + eval_batches, "K5": 0, "K6": 0, "K7": 0}
+    log(f"[phase6c] launches in the pq4 / token-probe serving-path run: {launches} (expected {want}: "
+        f"2 socket requests and {eval_batches} evaluate --remote batches on the pq4 index, one "
+        f"token-probe batch on the sq index)")
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"kernel launches {launches} do not match the served batches {want}")
+    worst = {
+        "pq4": max(check_answers("pq4", qs, ans, flat_searcher, docs, device)
+                   for qs, ans in zip(requests, answers)),
+        "sq token": check_answers("sq token", requests[0], answers_tok, flat_searcher, docs, device),
+    }
+    log(f"[phase6c] served scores vs the exact MaxSim of the returned pids: max|d| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + f" (limit {SCORE_ATOL})")
+    if max(worst.values()) > SCORE_ATOL:
+        raise AssertionError(f"served scores differ from exact MaxSim: {worst}")
+    return launches
+
+
+def phase_codecs(device, workdir: Path, label: str, info: dict):
+    """Phase 6a/6b: on phase 5b's corpus, ``build-index`` with the pq4 and
+    the pq codec (separate index directories over the same parts), and
+    phase 5b's sq index served by the token-major probe (and, for
+    reference, the batched one): recall@100 against the fp32 oracle over
+    2 x 144 two-topic queries (at least ``CODEC_RECALL``), the fewest
+    candidates a query kept, build seconds and the batch's time per stage,
+    and, as information, recall over phase 5b's one-topic queries; then K8
+    and K10 against their plain versions on the first batch's inputs."""
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.indexing.storage import IndexStorage
+    from colbert_tpu_torch.models.colbert import ColbertModel
+    from colbert_tpu_torch.ops import ivf, pq4, sq_probe, sq_probe_batched as sp
+    from colbert_tpu_torch.ops.pq import adc_lut
+    from colbert_tpu_torch.ops.sq import sq_query
+    from colbert_tpu_torch.ranking import searcher as srch
+    from colbert_tpu_torch.tokenization import ColbertTokenizer
+
+    base = info["config"]
+    # one topic per query (phase 5b's queries) makes an exact token-major
+    # top-512 fall on fewer than 100 docs; the recall here is over queries
+    # about two topics each
+    Q = torch.from_numpy(two_topic_queries(2 * B, M, H)).to(device)
+    qm = torch.ones(B, M, device=device)
+    batches = [Q[i * B : (i + 1) * B] for i in range(Q.shape[0] // B)]
+    oracle, state, summary = None, {}, {}
+    for name, codec, probe_impl in (("sq batched", "sq", "auto"), ("sq token", "sq", "token"),
+                                    ("pq4", "pq4", "auto"), ("pq", "pq", "auto")):
+        index = workdir / ("index" if codec == "sq" else f"index_{codec}")
+        cfg = codec_config(base, index, 0, codec, probe_impl)
+        build_s = None
+        if codec != "sq":
+            share_parts(workdir / "index", index)
+            conf = workdir / f"conf_{codec}.yaml"
+            cfg.to_yaml(conf)
+            t0 = time.perf_counter()
+            cli.main(["build-index", "--config", str(conf), "--device", str(device)])
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+        s = srch.ColbertSearcher(cfg, ColbertTokenizer(cfg.tokenizer, cfg.multiview),
+                                 ColbertModel(cfg.model, cfg.multiview), IndexStorage(index), device=device)
+        if oracle is None:
+            oracle = [s.exact_topk(Qb, TOPK)[1].cpu().numpy() for Qb in batches]
+        probe = s.probe_fn()
+
+        def recall_of(qs, want):
+            """recall@100 over the batches, the fewest candidates of a query, and batch ms."""
+            recall, fewest, ms = [], MAX_CAND, []
+            for Qb, op in zip(qs, want):
+                s.search_reps(Qb, qm)  # warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ts, tp = s.search_reps(Qb, qm)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                cand = srch.dedup(*srch.probe_pids(Qb, qm, probe, s.pid_by_row), q_view=M, depth=DEPTH,
+                                  max_cand=MAX_CAND)
+                fewest = min(fewest, int((cand >= 0).sum(dim=1).min()))
+                tp = tp.cpu().numpy()
+                recall += [len(set(tp[b][tp[b] >= 0]) & set(op[b])) / TOPK for b in range(B)]
+            return float(np.mean(recall)), fewest, ms
+
+        rec, fewest, batch_ms = recall_of(batches, oracle)
+        one_topic = recall_of([info["queries"][i * B : (i + 1) * B] for i in range(len(info["oracle"]))],
+                              info["oracle"])
+        Qb = batches[0]
+        n_time = 2 if codec == "pq" else 5  # the pq gather probe takes ~0.1 s a batch
+        stage = {"probe": time_ms(lambda: srch.probe_pids(Qb, qm, probe, s.pid_by_row), iters=n_time, warmup=1)}
+        pids, scores = srch.probe_pids(Qb, qm, probe, s.pid_by_row)
+        cand = srch.dedup(pids, scores, q_view=M, depth=DEPTH, max_cand=MAX_CAND)
+        stage["dedup"] = time_ms(lambda: srch.dedup(pids, scores, q_view=M, depth=DEPTH, max_cand=MAX_CAND),
+                                 iters=5)
+        sc = srch.rerank(cand, Qb, s.emb_table, None, dv=16)
+        stage["rerank"] = time_ms(lambda: srch.rerank(cand, Qb, s.emb_table, None, dv=16), iters=5)
+        stage["topk"] = time_ms(lambda: srch.select_topk(sc, cand, TOPK), iters=5)
+        built = f"built in {build_s:.1f} s, " if build_s is not None else "phase 5b's index, "
+        log(f"[phase6a] {name}: {built}recall@{TOPK} vs the fp32 exact oracle over {len(batches)} x {B} "
+            f"two-topic queries {rec:.4f} (fewest candidates of a query {fewest}); batch "
+            f"{' / '.join(f'{t:.1f}' for t in batch_ms)} ms from query reps; ms per stage (CUDA events): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in stage.items()) + f" [{label}]")
+        log(f"[phase6a] {name}: on phase 5b's one-topic queries (information only) recall@{TOPK} "
+            f"{one_topic[0]:.4f}, fewest candidates of a query {one_topic[1]}")
+        summary[name] = {"recall": rec, "build_s": build_s, "stage_ms": stage, "batch_ms": batch_ms}
+        state[name] = (s.coarse, s.quant, s.codes, s.offsets, s.max_list_len)
+        del s, cand, sc, pids, scores
+
+    # ---- 6b: K8 and K10 against their plain versions on the first batch's inputs ----
+    tokens = batches[0].reshape(B * M, H)
+    T = tokens.shape[0]
+    out = {}
+
+    def ranked(name, want, got, got_at_want=None):
+        err, bad = sp.ranked_mismatch(*want, *got, PROBE_ATOL, got_at_want)
+        log(f"[phase6b] {name}: max|d|={err:.3e} (limit {PROBE_ATOL}), rows mismatched outside near ties {bad}")
+        if err > PROBE_ATOL or bad:
+            raise AssertionError(f"{name} differs from its plain version: max|d| {err}, {bad} rows")
+        return err
+
+    coarse, codebooks, codes, offsets, _ = state["pq4"]
+    lists = torch.topk(tokens @ coarse.T, NPROBE, dim=1)[1].int()
+    lut = adc_lut(tokens, codebooks)
+    lens = torch.diff(offsets).long()
+    gs, gr = pq4.pq4_list_scan(lists, offsets, lut, codes, r=TOPR)
+    ws, wr = pq4.pq4_list_scan_ref(lists, offsets, lut, codes, r=TOPR)
+    flat = lambda t: t.reshape(-1, TOPR)
+    err = ranked("K8", (flat(ws), flat(wr)), (flat(gs), flat(gr)))
+    rows = float(lens[lists.long()].sum())
+    distinct = float(lens[torch.unique(lists).long()].sum())
+    out["K8"] = {"max_abs_err": err,
+                 "ms": time_ms(lambda: pq4.pq4_list_scan(lists, offsets, lut, codes, r=TOPR)),
+                 "plain_ms": time_ms(lambda: pq4.pq4_list_scan_ref(lists, offsets, lut, codes, r=TOPR),
+                                     iters=1, warmup=1),
+                 "library_ms": None}
+    # one shared-memory LUT load per (token, row, subspace); bytes: each
+    # distinct probed list's codes once, the fp32 LUT, lists, offsets, output
+    clock = max_sm_clock_hz()
+    out["K8"]["bound_ms"], out["K8"]["bound_by"] = bound(
+        PQ4_M * rows, distinct * PQ4_M // 2 + lut.numel() * 4 + lists.numel() * 4 + offsets.numel() * 4
+        + T * NPROBE * TOPR * 8, SMEM_LOADS_PER_CLOCK * clock)
+    log(f"[phase6b] K8 at {T} tokens x {NPROBE} lists ({rows:.0f} (token, row) pairs, {distinct:.0f} distinct "
+        f"rows), m {PQ4_M}, r {TOPR}: bound by {PQ4_M * rows / 1e9:.2f} G shared-memory lookups at "
+        f"{SMEM_LOADS_PER_CLOCK} a clock x {clock / 1e6:.0f} MHz")
+    del gs, gr, ws, wr
+
+    coarse, (proj, scales), codes, offsets, cap = state["sq token"]
+    lists = torch.topk(tokens @ coarse.T, NPROBE, dim=1)[1]
+    starts = offsets[lists]
+    wlens = (offsets[lists + 1] - starts).clamp(max=cap)
+    qs = sq_query(tokens, proj, scales)
+    got = sq_probe.sq_list_scan(starts, wlens, qs, codes, cap=cap)
+    want = sq_probe.sq_list_scan_ref(starts, wlens, qs, codes, cap=cap)
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)):
+        raise AssertionError("K10: the -inf pattern differs from the plain version")
+    err = float((got[fin] - want[fin]).abs().max())
+    log(f"[phase6b] K10: {int(fin.sum())} scored slots of {fin.numel()}: max|d|={err:.3e} (limit {PROBE_ATOL})")
+    if err > PROBE_ATOL:
+        raise AssertionError(f"K10 differs from its plain version by {err}")
+    # the slot at rank DEPTH + 1 can make the last rank a near tie: select
+    # DEPTH + 1 slots on both sides and count only the first DEPTH rows.
+    # Among ~10^4 scores a token, different rows often sum to one fp32 value
+    # on one side and not the other: such ties count as near ties
+    ws, wi = ivf.topk_first(want, DEPTH + 1)
+    gs, gi = ivf.topk_first(got, DEPTH + 1)
+    gi[:, DEPTH] = wi[:, DEPTH]
+    ranked(f"K10 top-{DEPTH} slots", (ws, wi), (gs, gi), got.gather(1, wi))
+    del got, want, fin, ws, wi, gs, gi
+    rows = float(wlens.sum())
+    distinct = float(torch.diff(offsets).long()[torch.unique(lists)].sum())
+    out["K10"] = {"max_abs_err": err,
+                  "ms": time_ms(lambda: sq_probe.sq_list_scan(starts, wlens, qs, codes, cap=cap)),
+                  "plain_ms": time_ms(lambda: sq_probe.sq_list_scan_ref(starts, wlens, qs, codes, cap=cap),
+                                      iters=1, warmup=1),
+                  "library_ms": None}
+    # fp32 queries x int8 codes on the CUDA cores; bytes: each distinct
+    # probed list's codes once, qs, the windows, the (T, nprobe*cap) output
+    out["K10"]["bound_ms"], out["K10"]["bound_by"] = bound(
+        2.0 * SQ_DIM * rows, distinct * SQ_DIM + qs.numel() * 4 + starts.numel() * 8 + T * NPROBE * cap * 4,
+        PEAK_FP32_FLOPS)
+    log(f"[phase6b] K10 at {T} tokens x {NPROBE} windows, cap {cap} ({rows:.0f} scored rows): output "
+        f"{T * NPROBE * cap * 4 / 1e9:.3f} GB")
+    for k in ("K8", "K10"):
+        v = out[k]
+        log(f"[phase6b] {k}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, bound "
+            f"{v['bound_ms']:.4f} ms ({v['bound_by']}); no single PyTorch call computes it [{label}]")
+    low = {k: v["recall"] for k, v in summary.items() if v["recall"] < CODEC_RECALL}
+    if low:  # checked last, so that one run reports every path and kernel
+        raise AssertionError(f"recall@{TOPK} below {CODEC_RECALL}: {low}")
+    return out, summary
 
 
 def main() -> int:
@@ -996,7 +1360,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from colbert_tpu_torch.ops import _build, dropout as dr, flat_scan as fs, maxsim as ms
-    from colbert_tpu_torch.ops import rerank as rr, sq_probe_batched as sp
+    from colbert_tpu_torch.ops import pq4, rerank as rr, sq_probe, sq_probe_batched as sp
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -1006,9 +1370,10 @@ def main() -> int:
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    sources = ("flat_scan", "maxsim", "dropout", "sq_probe", "rerank")
+    sources = ("flat_scan", "maxsim", "dropout", "sq_probe", "rerank", "pq4_scan", "sq_token_scan")
     _build.load_libraries(*sources)
-    fs._kernel_lib(), ms._kernel_lib(), dr._kernel_lib(), sp._kernel_lib(), rr._kernel_lib()
+    for mod in (fs, ms, dr, sp, rr, pq4, sq_probe):
+        mod._kernel_lib()
     log(f"[build] {', '.join(n + '.cu' for n in sources)} built in parallel and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
     for name in sources:
@@ -1019,11 +1384,12 @@ def main() -> int:
     worst, times = phase_kernels(device)
     train_kernels = phase_train_kernels(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        serve_launches, _, ann_launches = phase_slice(device, Path(tmp), label)
+        serve_launches, _, ann_launches, codec_launches = phase_slice(device, Path(tmp), label)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         train_launches, _ = phase_train(device, Path(tmp), label)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ann_") as tmp:
-        ann_kernels, _ = phase_ann(device, Path(tmp), label)
+        ann_kernels, ann_info = phase_ann(device, Path(tmp), label)
+        codec_kernels, _ = phase_codecs(device, Path(tmp), label, ann_info)
 
     num_docs, dv = 20_000, 16
     k12_bound = bound(2.0 * B * M * num_docs * dv * H,
@@ -1057,6 +1423,18 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": ann_launches[fn], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"],
+        })
+    for name, fn, src, replaces in (
+        ("K8 pq4_list_scan", "K8", "colbert_tpu_torch/csrc/pq4_scan.cu", "colbert_tpu/ops/pq4.py:125"),
+        ("K10 sq_list_scan", "K10", "colbert_tpu_torch/csrc/sq_token_scan.cu",
+         "colbert_tpu/ops/sq_probe_pallas.py:40"),
+    ):
+        k = codec_kernels[fn]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": codec_launches[fn], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
         })

@@ -7,9 +7,10 @@
     python -m colbert_tpu_torch.cli serve       --config conf.yaml --corpus corpus.json
     python -m colbert_tpu_torch.cli evaluate    --config conf.yaml --eval-data dev.json --remote
 
-``build-index`` writes the IVF index (``index.codec="sq"``) over the encoded
-parts; ``serve`` and ``evaluate`` serve it with ``serve.mode=ann`` (the
-config default) or serve the parts alone with ``serve.mode=flat``.
+``build-index`` writes the IVF index (``index.codec`` "pq", the default,
+"pq4" or "sq") over the encoded parts; ``serve`` and ``evaluate`` serve it
+with ``serve.mode=ann`` (the config default) or serve the parts alone with
+``serve.mode=flat``.
 
 Retriever parameters resolve as the JAX CLI's ``_retriever_params`` does:
 ``--pretrain`` (a ``pytorch.bin`` in the reference layout, ``model.*`` +
@@ -184,7 +185,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     p.add_argument("--train-data", required=True); p.add_argument("--dev-data", default=None)
     p.add_argument("--resume", action="store_true"); p.set_defaults(fn=cmd_train)
     p = sub.add_parser("encode"); common(p, corpus=True); p.set_defaults(fn=cmd_encode)
-    p = sub.add_parser("build-index", help="IVF index (sq codec) over the encoded parts")
+    p = sub.add_parser("build-index", help="IVF index (pq, pq4 or sq codec) over the encoded parts")
     common(p); p.set_defaults(fn=cmd_build_index)
     p = sub.add_parser("serve"); common(p, corpus=True); p.set_defaults(fn=cmd_serve)
     p = sub.add_parser("evaluate"); common(p, data=True)

@@ -1,15 +1,18 @@
-"""IVF layout, the sq probe and the candidate dedups.
+"""IVF layout, the sq and pq probes and the candidate dedups.
 
 Counterpart of ``colbert_tpu/ops/ivf.py`` (and the numpy paths of
 ``colbert_tpu/native/lib.py``'s ``ivf_pack`` / ``balanced_assign``).
 Embeddings are stored flat, sorted by IVF list (CSR):
 
-    codes_sorted : (N, sq_dim) int8   rows grouped by list
+    codes_sorted : (N, width)  codes  rows grouped by list
     row_emb      : (N,)        int32  sorted row -> embedding id
     offsets      : (K+1,)      int32  list l holds rows [offsets[l], offsets[l+1])
 
-The dedups take a whole query batch at once, ``(B, n)``, where the JAX
-package maps one query at a time; each query's result is the same.
+Every probe takes each token's exact coarse top-``nprobe`` lists (the JAX
+package takes ``approx_max_k`` on a TPU where it is asked to) and returns
+each token's top-``depth`` (scores, CSR rows), -inf / -1 padded.  The
+dedups take a whole query batch at once, ``(B, n)``, where the JAX package
+maps one query at a time; each query's result is the same.
 """
 
 from __future__ import annotations
@@ -19,11 +22,16 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from colbert_tpu_torch.ops.pq import adc_lut
 from colbert_tpu_torch.ops.sq import sq_query
+from colbert_tpu_torch.ops.sq_probe import sq_list_scan
 from colbert_tpu_torch.ops.sq_probe_batched import (
     SlotSchedule, build_slot_schedule_dense, probe_batched_postprocess, sq_batch_list_scan,
     sq_hot_list_scan,
 )
+
+_SCAN_ELEMS = 1 << 28  # K10 score slots per launch (1 GiB of fp32)
+_ADC_ELEMS = 1 << 26   # LUT gathers per token chunk of the pq probe
 
 # ---- index build (host) ----
 
@@ -138,6 +146,114 @@ def ivf_probe_sq_batched(
     if plan.hot_ids is not None:
         hot = (plan.hot_pos, *sq_hot_list_scan(plan.hot_ids, offsets, plan.qs, codes, r=r))
     return probe_batched_postprocess(plan.sched, out_s, out_r, plan.lists, depth, plan.pair_valid, hot=hot)
+
+
+# ---- the token-major probes ----
+
+
+def topk_first(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per row of ``scores`` (n, c) fp32, the ``k <= c`` best (scores,
+    columns int64), best first, equal scores in ascending column order:
+    ``jax.lax.top_k``'s rule, which ``torch.topk`` does not promise.  One
+    ``topk`` over unique int64 keys: the score's bits mapped to an order-
+    preserving int32 (-0.0 below +0.0, as XLA's ``top_k`` orders them)
+    above the complemented column."""
+    s = scores.float()
+    bits = s.view(torch.int32)
+    hi = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
+    col = torch.arange(s.shape[1], device=s.device)
+    _, idx = torch.topk(hi * (1 << 32) + (0xFFFFFFFF - col), k, dim=1)
+    return s.gather(1, idx), idx
+
+
+def coarse_lists(q_tokens: torch.Tensor, coarse_centroids: torch.Tensor, nprobe: int) -> torch.Tensor:
+    """Each token's ``nprobe`` best lists, best first, as ``sq_probe_plan``
+    takes them."""
+    return torch.topk(q_tokens.float() @ coarse_centroids.float().T, nprobe, dim=1)[1]
+
+
+def _window_topk(scores: torch.Tensor, starts: torch.Tensor, cap: int, depth: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-``depth`` of window scores (n, nprobe*cap), slot j*cap + i being
+    row ``starts[:, j] + i`` -> (scores, rows int32), -inf / -1 padded."""
+    k = min(depth, scores.shape[1])
+    s, i = topk_first(scores, k)
+    rows = torch.where(torch.isfinite(s), starts.long().gather(1, i // cap) + i % cap, -1).int()
+    if k < depth:
+        s = torch.nn.functional.pad(s, (0, depth - k), value=float("-inf"))
+        rows = torch.nn.functional.pad(rows, (0, depth - k), value=-1)
+    return s, rows
+
+
+def ivf_probe_sq(
+    q_tokens: torch.Tensor,          # (T, d) query token embeddings
+    coarse_centroids: torch.Tensor,  # (K, d)
+    proj: torch.Tensor,              # (d, sq_dim)
+    scales: torch.Tensor,            # (sq_dim,)
+    codes: torch.Tensor,             # (N, sq_dim) int8, CSR-sorted by list
+    offsets: torch.Tensor,           # (K+1,) int32
+    *,
+    nprobe: int,
+    cap: int,
+    depth: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-major sq probe (``colbert_tpu/ops/ivf.py:137``, its Pallas
+    path): K10 scores up to ``cap`` rows of each probed list against the
+    token's fp32 projected query, then each token's exact top-``depth``
+    over all its probed rows (ties: the lower (probe rank, row) first, as
+    ``top_k``).  One K10 launch per batch unless its (T, nprobe * cap)
+    scores pass ``_SCAN_ELEMS``; then one per token chunk."""
+    T = q_tokens.shape[0]
+    lists = coarse_lists(q_tokens, coarse_centroids, nprobe)
+    qs = sq_query(q_tokens, proj, scales)
+    starts = offsets[lists]
+    lens = (offsets[lists + 1] - starts).clamp(max=cap)
+    tc = max(1, _SCAN_ELEMS // (nprobe * cap))
+    out = [
+        _window_topk(sq_list_scan(starts[lo : lo + tc], lens[lo : lo + tc], qs[lo : lo + tc], codes, cap=cap),
+                     starts[lo : lo + tc], cap, depth)
+        for lo in range(0, T, tc)
+    ]
+    return torch.cat([s for s, _ in out]), torch.cat([r for _, r in out])
+
+
+def ivf_probe_adc(
+    q_tokens: torch.Tensor,          # (T, d) query token embeddings
+    coarse_centroids: torch.Tensor,  # (K, d)
+    codebooks: torch.Tensor,         # (m, ksub, dsub)
+    codes: torch.Tensor,             # (N, m) uint8, CSR-sorted by list
+    offsets: torch.Tensor,           # (K+1,) int32
+    *,
+    nprobe: int,
+    cap: int,
+    depth: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """pq probe (``colbert_tpu/ops/ivf.py:66``) by the JAX package's rule
+    for a GPU, ``adc_method="gather"``: ADC-score up to ``cap`` rows of each
+    probed list with an fp32 LUT gather summed over the ``m`` subspaces,
+    then each token's exact top-``depth`` (ties as ``top_k``).  Torch ops,
+    no kernel; tokens go in chunks that bound the (tokens, nprobe*cap, m)
+    gather index to ``_ADC_ELEMS``."""
+    T = q_tokens.shape[0]
+    m, ksub, _ = codebooks.shape
+    dev = q_tokens.device
+    lists = coarse_lists(q_tokens, coarse_centroids, nprobe)
+    lut = adc_lut(q_tokens, codebooks).reshape(T, m * ksub)
+    starts = offsets[lists]
+    lens = offsets[lists + 1] - starts
+    i = torch.arange(cap, device=dev)
+    sub = torch.arange(m, device=dev) * ksub
+    n_rows = codes.shape[0]
+    tc = max(1, _ADC_ELEMS // (nprobe * cap * m))
+    out = []
+    for lo in range(0, T, tc):
+        idx = starts[lo : lo + tc].long()[..., None] + i                    # (n, nprobe, cap)
+        n = idx.shape[0]
+        c = codes[idx.clamp(0, n_rows - 1).view(-1)].long() + sub          # (n*nprobe*cap, m)
+        s = lut[lo : lo + tc].gather(1, c.view(n, -1)).view(n, nprobe * cap, m).sum(dim=-1)
+        s = s.masked_fill(~(i < lens[lo : lo + tc].long()[..., None]).view(n, -1), float("-inf"))
+        out.append(_window_topk(s, starts[lo : lo + tc], cap, depth))
+    return torch.cat([s for s, _ in out]), torch.cat([r for _, r in out])
 
 
 # ---- candidate dedup ----

@@ -294,13 +294,17 @@ def probe_batched_postprocess(sched: SlotSchedule, out_s: torch.Tensor, out_r: t
 
 
 def ranked_mismatch(s_want: torch.Tensor, r_want: torch.Tensor, s_got: torch.Tensor,
-                    r_got: torch.Tensor, tol: float) -> Tuple[float, int]:
+                    r_got: torch.Tensor, tol: float,
+                    got_at_want: Optional[torch.Tensor] = None) -> Tuple[float, int]:
     """Compare two ranked outputs ``(n, k)``, best first along dim 1 (a
     kernel against its plain version, or the port against the JAX package):
     returns (max |score difference| over finite scores, ids that differ
     away from near ties).  A near tie is a score within ``tol`` of a
     different neighbouring score, whose order a summation-order difference
-    may flip; exact ties must resolve alike.  Raises when the -inf pattern
+    may flip; exact ties must resolve alike.  ``got_at_want``, the got
+    side's scores of ``r_want``'s ids, where given, also makes an exact tie
+    of ``s_want`` a near tie when those two scores differ: two different
+    rows whose sums agree only by rounding.  Raises when the -inf pattern
     differs."""
     fin = torch.isfinite(s_want)
     if not torch.equal(fin, torch.isfinite(s_got)):
@@ -309,6 +313,9 @@ def ranked_mismatch(s_want: torch.Tensor, r_want: torch.Tensor, s_got: torch.Ten
     w = torch.where(fin, s_want, torch.full_like(s_want, -1e30))
     d = (w[:, 1:] - w[:, :-1]).abs()
     near = (d > 0) & (d <= tol)
+    if got_at_want is not None:
+        g = torch.where(fin, got_at_want, torch.full_like(got_at_want, -1e30))
+        near |= (d == 0) & (g[:, 1:] != g[:, :-1])
     amb = torch.zeros_like(fin)
     amb[:, :-1] |= near
     amb[:, 1:] |= near

@@ -6,9 +6,11 @@ Two serving modes, as ``serve.mode`` selects:
   mask (+ int8 descale) -> flat scan kernel (K1/K2) -> exact top-k, over a
   doc-major table built from the encoded parts;
 * ann (``:89-357, 428-571``): query tokens -> BERT + ColBERT head -> the
-  sq IVF probe (K6 slots, K7 hot lists) -> CSR row -> pid -> dedup ->
-  fused gather + exact MaxSim rerank (K4 over a bf16 table, K5 over int8)
-  -> top-k, over the IVF index that ``build-index`` writes.
+  codec's IVF probe (sq: K6 slots and K7 hot lists, or K10 per token with
+  ``serve.probe_impl="token"``; pq4: K8; pq: an fp32 LUT gather in torch
+  ops) -> CSR row -> pid -> dedup -> fused gather + exact MaxSim rerank
+  (K4 over a bf16 table, K5 over int8) -> top-k, over the IVF index that
+  ``build-index`` writes.
 
 The index and the tables are built once and held on the device; nothing of
 the serve path runs anywhere else.  On the card the rerank always runs K4
@@ -33,8 +35,9 @@ from colbert_tpu_torch.ops.flat_scan import (
     build_flat_table, flat_maxsim_scan, flat_scan_topk, flat_topk,
 )
 from colbert_tpu_torch.ops.ivf import (
-    dedup_pids_by_approx_maxsim, dedup_pids_by_score, ivf_probe_sq_batched,
+    dedup_pids_by_approx_maxsim, dedup_pids_by_score, ivf_probe_adc, ivf_probe_sq, ivf_probe_sq_batched,
 )
+from colbert_tpu_torch.ops.pq4 import ivf_probe_pq4
 from colbert_tpu_torch.ops.rerank import (
     maxsim_rerank_uniform, maxsim_rerank_uniform_int8, quantize_emb_table,
 )
@@ -98,14 +101,26 @@ def select_topk(scores: torch.Tensor, cand: torch.Tensor, k: int) -> Tuple[torch
 
 # ---- the ANN pipeline after query encode ----
 
-def make_probe_fn(coarse, proj, scales, codes, offsets, *, nprobe: int, depth: int,
+def make_probe_fn(codec: str, coarse, quant, codes, offsets, *, nprobe: int, cap: int, depth: int,
                   probe_impl: str = "auto", list_topr: int = 8, hot_cap: int = 64) -> ProbeFn:
-    """The sq candidate generator for :func:`retrieval_core`
-    (``colbert_tpu/ranking/searcher.py:89``)."""
+    """The codec's candidate generator for :func:`retrieval_core`
+    (``colbert_tpu/ranking/searcher.py:89``).  ``quant``: the codebooks
+    (pq, pq4) or ``(sq_proj, sq_scales)`` (sq); ``cap``: the longest list.
+    pq ignores ``probe_impl``; pq4 keeps ``list_topr`` rows per (token,
+    list); sq scans list-major (K6/K7) for "auto"/"batched" and per token
+    (K10) for "token"."""
+    if codec == "pq":
+        return lambda tokens: ivf_probe_adc(tokens, coarse, quant, codes, offsets,
+                                            nprobe=nprobe, cap=cap, depth=depth)
+    if codec == "pq4":
+        return lambda tokens: ivf_probe_pq4(tokens, coarse, quant, codes, offsets,
+                                            nprobe=nprobe, depth=depth, r=list_topr)
+    if codec != "sq":
+        raise ValueError(f"unknown index codec {codec!r}")
+    proj, scales = quant
     if probe_impl == "token":
-        raise NotImplementedError(
-            "serve.probe_impl='token' (TPU kernel K10) is not ported: ROADMAP Queue 1 step 8"
-        )
+        return lambda tokens: ivf_probe_sq(tokens, coarse, proj, scales, codes, offsets,
+                                           nprobe=nprobe, cap=cap, depth=depth)
     if probe_impl not in ("auto", "batched"):
         raise ValueError(f"unknown serve.probe_impl {probe_impl!r}")
     return lambda tokens: ivf_probe_sq_batched(
@@ -227,22 +242,24 @@ class ColbertSearcher:
         s = self.cfg.serve
         dev = self.device
         ivf = storage.read_ivf()
-        codec = meta.get("codec", "pq" if "codebooks" in ivf else "sq")
-        if codec in ("pq", "pq4"):
-            raise NotImplementedError(
-                f"index.codec={codec!r} is not ported: ROADMAP Queue 1 step 9 (pq4, then pq)"
-            )
-        self.coarse = torch.from_numpy(np.asarray(ivf["coarse_centroids"], np.float32)).to(dev)
-        self.sq_proj = torch.from_numpy(np.asarray(ivf["sq_proj"], np.float32)).to(dev)
-        self.sq_scales = torch.from_numpy(np.asarray(ivf["sq_scales"], np.float32)).to(dev)
-        self.codes = torch.from_numpy(np.ascontiguousarray(ivf["codes"], np.int8)).to(dev)
-        self.offsets = torch.from_numpy(np.asarray(ivf["offsets"], np.int32)).to(dev)
+        self.codec = meta.get("codec", "pq" if "codebooks" in ivf else "sq")
+        as_dev = lambda name, dtype: torch.from_numpy(np.ascontiguousarray(ivf[name], dtype)).to(dev)
+        self.coarse = as_dev("coarse_centroids", np.float32)
+        if self.codec in ("pq", "pq4"):
+            self.quant = as_dev("codebooks", np.float32)
+        else:
+            self.quant = (as_dev("sq_proj", np.float32), as_dev("sq_scales", np.float32))
+        # pq codes are uint8 sub-quantizer ids; pq4 packs two nibbles per int8, sq is int8
+        self.codes = as_dev("codes", np.uint8 if self.codec == "pq" else np.int8)
+        self.offsets = as_dev("offsets", np.int32)
+        lens = np.diff(np.asarray(ivf["offsets"]))
+        self.max_list_len = int(lens.max()) if lens.size else 1
         # fused CSR-row -> pid map (one gather on the hot path instead of two)
         self.pid_by_row = torch.from_numpy(
             np.asarray(ivf["emb2pid"], np.int32)[np.asarray(ivf["row_emb"], np.int64)]
         ).to(dev)
         self.rerank_cap = dv
-        self.probe_fn()  # refuses an unported probe before the tables are built
+        self.probe_fn()  # refuses an unknown codec or probe before the tables are built
         if not (len(doclens) and (doclens == dv).all()):
             raise NotImplementedError(
                 "ANN serving of a ragged corpus (the stride-bucket rerank) is not ported: "
@@ -286,8 +303,8 @@ class ColbertSearcher:
         s = self.cfg.serve
         nprobe = min(nprobe or s.nprobe, int(self.coarse.shape[0]))
         return make_probe_fn(
-            self.coarse, self.sq_proj, self.sq_scales, self.codes, self.offsets,
-            nprobe=nprobe, depth=depth or s.candidate_depth, probe_impl=s.probe_impl,
+            self.codec, self.coarse, self.quant, self.codes, self.offsets, nprobe=nprobe,
+            cap=self.max_list_len, depth=depth or s.candidate_depth, probe_impl=s.probe_impl,
             list_topr=s.probe_list_topr, hot_cap=s.probe_hot_lists or max(64, nprobe),
         )
 

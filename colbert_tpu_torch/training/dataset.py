@@ -30,6 +30,12 @@ from colbert_tpu_torch.tokenization import ColbertTokenizer
 from colbert_tpu_torch.utils.io import load_json
 
 
+@dataclass
+class _ProducerError:
+    """An exception of the sampler's producer thread, passed to the consumer."""
+    error: BaseException
+
+
 class RetrievalDataset:
     """Examples: {question, positive_ctxs: [str], hard_negative_ctxs: [str]}."""
 
@@ -153,7 +159,10 @@ class RetrievalSampler:
     def epoch(self, epoch_idx: int = 0, prefetch: int = 2) -> Iterator[TrainBatch]:
         """Yield tokenized batches; tokenization overlaps the device step via
         a producer thread (replaces the reference's Pool(4)+Queue machinery,
-        ``encoder.py:69-84``, with one bounded queue)."""
+        ``encoder.py:69-84``, with one bounded queue).  An exception in the
+        producer goes through the queue and is raised here, in the caller
+        (the JAX package's producer dies without its sentinel and leaves the
+        consumer waiting)."""
         order = np.arange(len(self.ds))
         if not self.is_eval:
             shuffle_rng = np.random.default_rng(self.cfg.seed + epoch_idx)
@@ -172,11 +181,15 @@ class RetrievalSampler:
         sentinel = object()
 
         def produce():
-            for s in range(n_steps):
-                idxs = order[s * self.batch_size : (s + 1) * self.batch_size]
-                if len(idxs) < self.batch_size and self.drop_last:
-                    break
-                q.put(self._make_batch(idxs))
+            try:
+                for s in range(n_steps):
+                    idxs = order[s * self.batch_size : (s + 1) * self.batch_size]
+                    if len(idxs) < self.batch_size and self.drop_last:
+                        break
+                    q.put(self._make_batch(idxs))
+            except BaseException as e:  # noqa: BLE001 -- re-raised by the consumer
+                q.put(_ProducerError(e))
+                return
             q.put(sentinel)
 
         t = threading.Thread(target=produce, daemon=True)
@@ -185,5 +198,8 @@ class RetrievalSampler:
             item = q.get()
             if item is sentinel:
                 break
+            if isinstance(item, _ProducerError):
+                t.join()
+                raise item.error
             yield item
         t.join()

@@ -1,9 +1,10 @@
-"""The port's ANN slice (IVF build + sq probe + dedup + rerank) against the
+"""The port's ANN slice (IVF build + probe + dedup + rerank) against the
 JAX package, end to end on the CPU.
 
 One corpus of 256 docs is encoded by the JAX package (fp32, hidden 32, two
-layers, dim 256, multiview 4/16), and each package builds an sq index over
-those parts.  The JAX searcher runs its TPU kernels in interpret mode
+layers, dim 256, multiview 4/16), and each package builds an sq, a pq4
+and a pq index over those parts; the sq index is also served by the
+token-major probe.  The JAX searcher runs its TPU kernels in interpret mode
 (``serve.rerank_kernel="pallas_interpret"``; the probe kernels interpret on
 the CPU by default); ``max_candidates`` 128 keeps its fused-rerank gate
 open and dim 256 with 16 rows per doc meets its int8 table's packing.  The
@@ -145,35 +146,80 @@ def test_best_row_ranking_matches(ann_setup, mesh8, native_off):
     _assert_same_results(js.search(QUESTIONS, topk=5), ps.search(QUESTIONS, topk=5), 5)
 
 
+@pytest.fixture(scope="module")
+def pq_indexes(ann_setup):
+    """pq (m 64 x 8 bits) and pq4 (m 128 x 4 bits) indexes over the same
+    parts, each built by both packages: ``{jax,port}_{pq,pq4}``."""
+    cfg, pcfg, _, _, _, _, _, tmp = ann_setup
+    for codec in ("pq", "pq4"):
+        index = dict(codec=codec, pq_kmeans_iters=4)
+        for pkg in ("jax", "port"):
+            name = tmp / f"{pkg}_{codec}"
+            shutil.copytree(tmp / "jax_idx" / "parts", name / "parts")
+            shutil.copy(tmp / "jax_idx" / "meta.json", name / "meta.json")
+            if pkg == "jax":
+                JaxBuilder(dataclasses.replace(cfg, index=dataclasses.replace(
+                    cfg.index, index_path=str(name), **index)), JaxStorage(name)).build()
+            else:
+                c = PortConfig.from_dict(pcfg.to_dict())
+                c.index.index_path, c.index.codec, c.index.pq_kmeans_iters = str(name), codec, 4
+                IndexBuilder(c, IndexStorage(name), device="cpu").build()
+    return tmp
+
+
+@pytest.mark.parametrize("index", ["jax_pq4", "port_pq4", "jax_pq", "port_pq"])
+def test_searchers_agree_on_pq_indexes(ann_setup, pq_indexes, mesh8, native_off, index):
+    """Each package serves the other's pq4 and pq index (the JAX searcher's
+    K8 runs interpreted, its pq probe takes the CPU's gather ADC)."""
+    js, ps = _searchers(ann_setup, mesh8, index, "bfloat16")
+    assert ps.codec == js.codec == index.split("_")[1]
+    _assert_same_results(js.search(QUESTIONS, topk=5), ps.search(QUESTIONS, topk=5), 5)
+
+
+def test_token_probe_matches_the_jax_pallas_path(ann_setup, mesh8, native_off, monkeypatch):
+    """``serve.probe_impl="token"`` on the sq index: the JAX searcher takes
+    its Pallas path (K10 interpreted) only when ``COLBERT_TPU_SQ_PROBE`` is
+    set as it traces, so its caches are cleared before and after."""
+    import jax
+
+    cfg = ann_setup[0]
+    monkeypatch.setenv("COLBERT_TPU_SQ_PROBE", "pallas")
+    jax.clear_caches()
+    try:
+        token = dataclasses.replace(cfg, serve=dataclasses.replace(cfg.serve, probe_impl="token"))
+        js, ps = _searchers((token, *ann_setup[1:]), mesh8, "port_idx", "bfloat16")
+        _assert_same_results(js.search(QUESTIONS, topk=5), ps.search(QUESTIONS, topk=5), 5)
+    finally:
+        monkeypatch.delenv("COLBERT_TPU_SQ_PROBE")
+        jax.clear_caches()
+
+
 def test_searcher_refuses_unported_ann_modes(ann_setup, tmp_path):
     _, pcfg, _, _, model, tok, _, tmp = ann_setup
     storage = IndexStorage(tmp / "port_idx")
-    for field, value in (("probe_impl", "token"), ("rerank_table", "host")):
-        cfg = PortConfig.from_dict(pcfg.to_dict())
-        setattr(cfg.serve, field, value)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ColbertSearcher(cfg, tok, model, storage, device="cpu")
+    cfg = PortConfig.from_dict(pcfg.to_dict())
+    cfg.serve.rerank_table = "host"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ColbertSearcher(cfg, tok, model, storage, device="cpu")
     cfg = PortConfig.from_dict(pcfg.to_dict())
     cfg.serve.dedup_impl = "packed"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ColbertSearcher(cfg, tok, model, storage, device="cpu").search(["apple"])
-    # a pq index, and a ragged corpus
-    for name, edit in (("pq", lambda m: m.update(codec="pq")),
-                       ("ragged", lambda m: m.update(multiview=False))):
-        shutil.copytree(tmp / "port_idx", tmp_path / name)
-        st = IndexStorage(tmp_path / name)
-        meta = st.read_meta()
-        edit(meta)
-        st.write_meta(meta)
-        if name == "ragged":
-            (tmp_path / name / "parts" / "doclens.0.json").write_text("[1" + ", 16" * 127 + "]")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ColbertSearcher(PortConfig.from_dict(pcfg.to_dict()), tok, model, st, device="cpu")
+    # a ragged corpus
+    shutil.copytree(tmp / "port_idx", tmp_path / "ragged")
+    st = IndexStorage(tmp_path / "ragged")
+    meta = st.read_meta()
+    meta.update(multiview=False)
+    st.write_meta(meta)
+    (tmp_path / "ragged" / "parts" / "doclens.0.json").write_text("[1" + ", 16" * 127 + "]")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ColbertSearcher(PortConfig.from_dict(pcfg.to_dict()), tok, model, st, device="cpu")
 
 
-def test_cli_encode_build_serve_evaluate(tmp_path, capsys):
+def _drive_cli(tmp_path, capsys, index_kw, serve_kw):
     """encode -> build-index -> serve (ann) -> evaluate --remote through the
-    port's CLI on the CPU, at a tiny size."""
+    port's CLI on the CPU, at a tiny size; the socket's answers must equal
+    the in-process searcher's."""
     import json
     import socket
 
@@ -200,9 +246,10 @@ def test_cli_encode_build_serve_evaluate(tmp_path, capsys):
         multiview=PMultiview(enabled=True, q_view=4, d_view=4),
         tokenizer=PTok(vocab_path=write_vocab(build_vocab(docs), tmp_path / "vocab.txt"),
                        query_maxlen=16, doc_maxlen=32),
-        index=PIndex(index_path=str(tmp_path / "index"), num_parts=2, codec="sq", sq_dim=16,
-                     partitions=8, kmeans_iters=4),
-        serve=PServe(mode="ann", topk=5, nprobe=4, candidate_depth=16, query_batch_size=4, port=port),
+        index=PIndex(index_path=str(tmp_path / "index"), num_parts=2, partitions=8, kmeans_iters=4,
+                     pq_kmeans_iters=4, **index_kw),
+        serve=PServe(mode="ann", topk=5, nprobe=4, candidate_depth=16, query_batch_size=4, port=port,
+                     **serve_kw),
     )
     conf = tmp_path / "conf.yaml"
     cfg.to_yaml(conf)
@@ -252,3 +299,16 @@ def test_cli_encode_build_serve_evaluate(tmp_path, capsys):
         client.shutdown()
         thread.join(timeout=30)
     assert not thread.is_alive() and not errors
+
+
+def test_cli_encode_build_serve_evaluate(tmp_path, capsys):
+    _drive_cli(tmp_path, capsys, dict(codec="sq", sq_dim=16), {})
+
+
+@pytest.mark.parametrize("index_kw,serve_kw", [
+    ({}, {}),                                    # the default IndexConfig: codec pq (pq_m 16 divides dim 64)
+    (dict(codec="pq4", pq4_m=16), {}),           # pq4: m/2 = 8 bytes a row, a divisor of 128
+    (dict(codec="sq", sq_dim=16), dict(probe_impl="token")),
+], ids=["pq", "pq4", "sq-token"])
+def test_cli_build_serve_each_codec(tmp_path, capsys, index_kw, serve_kw):
+    _drive_cli(tmp_path, capsys, dict(pq_m=16, **index_kw), serve_kw)

@@ -26,7 +26,8 @@ def test_serve_path_imports_no_jax():
             "colbert_tpu_torch.ops.maxsim", "colbert_tpu_torch.cli",
             "colbert_tpu_torch.ops.kmeans", "colbert_tpu_torch.ops.sq", "colbert_tpu_torch.ops.ivf",
             "colbert_tpu_torch.ops.sq_probe_batched", "colbert_tpu_torch.ops.rerank",
-            "colbert_tpu_torch.indexing.builder"} <= set(mods)
+            "colbert_tpu_torch.indexing.builder", "colbert_tpu_torch.ops.pq", "colbert_tpu_torch.ops.pq4",
+            "colbert_tpu_torch.ops.sq_probe"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

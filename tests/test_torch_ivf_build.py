@@ -160,25 +160,24 @@ def _write_parts(path, storage_cls, rng, dims=(64,), n_docs=(40, 35, 30), dv=8):
     return st
 
 
-@pytest.mark.parametrize("balance", [0.0, 1.3])
-def test_build_index_writes_the_same_files(tmp_path, jax_native_off, balance):
-    """Same files, dtypes, shapes and meta keys as the JAX builder over one
-    set of parts (values differ: the k-means initial points are drawn from
-    different generators)."""
-    from colbert_tpu.config import ColbertConfig as JaxConfig, IndexConfig as JaxIndexConfig
-
-    rng = np.random.default_rng(0)
-    index = dict(codec="sq", sq_dim=16, partitions=12, kmeans_iters=4, train_sample_parts=2,
-                 max_train_points=500, balance_factor=balance)
-    _write_parts(tmp_path / "jax", JaxStorage, rng)
+def _build_both(tmp_path, index, patch=None):
+    """Build the JAX and the port index over one set of parts (``patch``
+    runs on the port's builder module first); returns both storages."""
     import shutil
 
+    from colbert_tpu.config import ColbertConfig as JaxConfig, IndexConfig as JaxIndexConfig
+
+    _write_parts(tmp_path / "jax", JaxStorage, np.random.default_rng(0))
     shutil.copytree(tmp_path / "jax", tmp_path / "port")
     JaxBuilder(JaxConfig(index=JaxIndexConfig(index_path=str(tmp_path / "jax"), **index)),
                JaxStorage(tmp_path / "jax")).build(chunk=256)
     IndexBuilder(ColbertConfig(index=IndexConfig(index_path=str(tmp_path / "port"), **index)),
                  IndexStorage(tmp_path / "port"), device="cpu").build(chunk=256)
-    jst, pst = JaxStorage(tmp_path / "jax"), IndexStorage(tmp_path / "port")
+    return JaxStorage(tmp_path / "jax"), IndexStorage(tmp_path / "port")
+
+
+def _assert_same_layout(tmp_path, jst, pst):
+    """Same files, dtypes, shapes and meta keys; a consistent CSR layout."""
     jivf, pivf_ = jst.read_ivf(), pst.read_ivf()
     assert sorted(jivf) == sorted(pivf_)
     for name in jivf:
@@ -189,6 +188,7 @@ def test_build_index_writes_the_same_files(tmp_path, jax_native_off, balance):
     assert sorted(jm) == sorted(pm)
     drop = lambda m: {k: v for k, v in m.items() if k != "build_timers"}
     assert drop(jm) == drop(pm)
+    assert sorted(jm["build_timers"]) == sorted(pm["build_timers"])
     # the CSR layout is consistent: each list's rows carry codes of its members
     off = pivf_["offsets"]
     assert off[0] == 0 and off[-1] == pivf_["codes"].shape[0] and (np.diff(off) >= 0).all()
@@ -196,9 +196,65 @@ def test_build_index_writes_the_same_files(tmp_path, jax_native_off, balance):
     np.testing.assert_array_equal(pivf_["emb2pid"], jivf["emb2pid"])
 
 
-def test_build_index_refuses_unported_codecs(tmp_path):
-    _write_parts(tmp_path, IndexStorage, np.random.default_rng(1), n_docs=(5,))
-    for codec in ("pq", "pq4"):
-        cfg = ColbertConfig(index=IndexConfig(index_path=str(tmp_path), codec=codec))
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 step 9"):
-            IndexBuilder(cfg, IndexStorage(tmp_path), device="cpu").build()
+@pytest.mark.parametrize("balance", [0.0, 1.3])
+def test_build_index_writes_the_same_files(tmp_path, jax_native_off, balance):
+    """Same files, dtypes, shapes and meta keys as the JAX builder over one
+    set of parts (values differ: the k-means initial points are drawn from
+    different generators)."""
+    index = dict(codec="sq", sq_dim=16, partitions=12, kmeans_iters=4, train_sample_parts=2,
+                 max_train_points=500, balance_factor=balance)
+    _assert_same_layout(tmp_path, *_build_both(tmp_path, index))
+
+
+PQ_INDEX = {"pq": dict(pq_m=16, pq_nbits=8), "pq4": dict(pq4_m=32)}
+
+
+@pytest.mark.parametrize("codec", ["pq", "pq4"])
+def test_build_index_pq_codecs_write_the_same_files(tmp_path, jax_native_off, codec):
+    """The pq codecs: uint8 (pq) or packed int8 (pq4) codes, codebooks.npy,
+    bytes_per_vector, and the same keys as the JAX builder."""
+    index = dict(codec=codec, partitions=12, kmeans_iters=3, pq_kmeans_iters=3, train_sample_parts=2,
+                 max_train_points=500, **PQ_INDEX[codec])
+    jst, pst = _build_both(tmp_path, index)
+    _assert_same_layout(tmp_path, jst, pst)
+    codes = pst.read_ivf()["codes"]
+    assert codes.dtype == (np.uint8 if codec == "pq" else np.int8)
+    assert pst.read_meta()["bytes_per_vector"] == {"pq": 16, "pq4": 16}[codec] == codes.shape[1]
+
+
+@pytest.mark.parametrize("codec", ["pq", "pq4"])
+def test_build_index_pq_codecs_from_jax_initial_points(tmp_path, jax_native_off, monkeypatch, codec):
+    """Given JAX's own initial points for the coarse k-means and the PQ
+    codebooks, the port's builder writes the JAX builder's index: centroids
+    and codebooks within 1e-4, assignments and codes of each embedding equal
+    but for a few points within rounding of a tie."""
+    from colbert_tpu_torch.indexing import builder as pbuild
+    from colbert_tpu_torch.ops import pq as ppq
+
+    key = jax.random.PRNGKey(ColbertConfig().train.seed)  # the JAX builder's key for both
+
+    def jax_kmeans(x, k, *, iters, generator, chunk):
+        xs = jnp.asarray(x.numpy())
+        c0 = (jkm.kmeans_plusplus_init(xs, k, key) if k <= 1024
+              else xs[jax.random.choice(key, xs.shape[0], shape=(k,), replace=xs.shape[0] < k)])
+        c = pkm.lloyd(x, torch.from_numpy(np.array(c0)), iters, chunk=chunk)
+        return c, pkm.assign_clusters(x, c, chunk=chunk)
+
+    def jax_pq(x, m, ksub=16, *, iters, generator, chunk):
+        n, d = x.shape
+        idx = np.asarray(jax.random.choice(key, n, shape=(ksub,), replace=n < ksub))  # pq.py:56
+        cb0 = x.numpy()[idx].reshape(ksub, m, d // m).transpose(1, 0, 2).copy()
+        return ppq.pq_lloyd(x, torch.from_numpy(cb0), iters, chunk=chunk)
+
+    monkeypatch.setattr(pbuild, "kmeans", jax_kmeans)
+    monkeypatch.setattr(pbuild, "pq_train" if codec == "pq" else "pq4_train", jax_pq)
+    index = dict(codec=codec, partitions=12, kmeans_iters=3, pq_kmeans_iters=3, train_sample_parts=2,
+                 max_train_points=500, **PQ_INDEX[codec])
+    jst, pst = _build_both(tmp_path, index)
+    j, p = jst.read_ivf(), pst.read_ivf()
+    for name in ("coarse_centroids", "codebooks"):
+        np.testing.assert_allclose(p[name], j[name], rtol=0, atol=1e-4, err_msg=name)
+    by_emb = lambda ivf, a: a[np.argsort(ivf["row_emb"], kind="stable")]
+    list_of = lambda ivf: by_emb(ivf, np.repeat(np.arange(len(ivf["offsets"]) - 1), np.diff(ivf["offsets"])))
+    assert (list_of(p) == list_of(j)).mean() >= 0.99
+    assert (by_emb(p, p["codes"]) == by_emb(j, j["codes"])).all(axis=1).mean() >= 0.97

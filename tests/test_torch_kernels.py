@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the flat scan (K1, K2), all-pairs MaxSim (K3), dropout (K9), the rerank
-(K4 bf16, K5 int8) and the sq list scans (K6 slots, K7 hot lists).
+(K4 bf16, K5 int8), the sq list scans (K6 slots, K7 hot lists), the pq4
+list scan (K8) and the token-major sq window scan (K10).
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU and
 skips elsewhere.  This file imports no jax (the card's machine has none);
@@ -290,3 +291,66 @@ def test_hot_scan_kernel_matches_plain(cuda_device, K, D, max_len, T, H, r):
     real = hot >= 0  # the kernel leaves a -1 entry unwritten
     _assert_ranked(ws[real].transpose(1, 2).reshape(-1, r), wr[real].transpose(1, 2).reshape(-1, r),
                    gs[real].transpose(1, 2).reshape(-1, r), gr[real].transpose(1, 2).reshape(-1, r))
+
+
+# ---- K8: pq4 list scan; K10: sq window scan (scores within 1e-5, rows equal except at near ties) ----
+
+def _pq4_case(device, seed, K, m, max_len, T, nprobe):
+    """Packed pq4 codes with an empty list, a list of more than two 128-row
+    blocks drawn from five distinct rows (exact ties), and a random LUT."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, max_len + 1, size=K)
+    lens[0], lens[1] = 0, 300
+    offsets = np.zeros(K + 1, np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    codes = rng.integers(-128, 128, size=(int(offsets[-1]), m // 2)).astype(np.int8)
+    pool = codes[offsets[1] : offsets[1] + 5].copy()
+    codes[offsets[1] : offsets[2]] = pool[rng.integers(0, 5, size=300)]
+    first = rng.integers(0, 2, size=T)  # every token probes list 0 or 1 first
+    lists = np.array([[f] + [l for l in rng.permutation(K) if l != f][: nprobe - 1] for f in first], np.int32)
+    lut = rng.normal(scale=0.05, size=(T, m, 16)).astype(np.float32)
+    to = lambda a: torch.from_numpy(a).to(device)
+    return to(lists), to(offsets), to(lut), to(codes)
+
+
+@pytest.mark.parametrize("K,m,max_len,T,nprobe,r", [
+    (4096, 128, 160, 2304, 128, 8),  # the serving point: 2,304 tokens x 128 lists, m 128, r 8
+    (40, 16, 400, 70, 6, 2),
+    (17, 256, 300, 33, 5, 16),
+])
+def test_pq4_scan_kernel_matches_plain(cuda_device, K, m, max_len, T, nprobe, r):
+    from colbert_tpu_torch.ops import pq4
+
+    lists, offsets, lut, codes = _pq4_case(cuda_device, K + m, K, m, max_len, T, nprobe)
+    before = pq4.pq4_list_scan.launches.value
+    gs, gr = pq4.pq4_list_scan(lists, offsets, lut, codes, r=r)
+    torch.cuda.synchronize()
+    assert pq4.pq4_list_scan.launches.value == before + 1
+    ws, wr = pq4.pq4_list_scan_ref(lists, offsets, lut, codes, r=r)
+    _assert_ranked(ws.reshape(-1, r), wr.reshape(-1, r), gs.reshape(-1, r), gr.reshape(-1, r))
+
+
+@pytest.mark.parametrize("D,N,T,nprobe,cap", [
+    (64, 320_000, 2304, 128, 463),  # the serving point's windows
+    (16, 5000, 50, 7, 300),
+    (128, 3000, 9, 3, 129),
+])
+def test_sq_window_scan_kernel_matches_plain(cuda_device, D, N, T, nprobe, cap):
+    from colbert_tpu_torch.ops import sq_probe
+
+    rng = np.random.default_rng(D + T)
+    codes = torch.from_numpy(rng.integers(-128, 128, size=(N, D)).astype(np.int8)).to(cuda_device)
+    starts = rng.integers(0, N - cap, size=(T, nprobe)).astype(np.int32)
+    lens = rng.integers(0, cap + 1, size=(T, nprobe)).astype(np.int32)
+    lens[0, :2] = 0, cap + 5  # an empty window, and one clipped to cap
+    qs = (rng.normal(size=(T, D)) / (127.0 * np.sqrt(D))).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (starts, lens, qs)]
+    before = sq_probe.sq_list_scan.launches.value
+    got = sq_probe.sq_list_scan(*args, codes, cap=cap)
+    torch.cuda.synchronize()
+    assert sq_probe.sq_list_scan.launches.value == before + 1
+    want = sq_probe.sq_list_scan_ref(*args, codes, cap=cap)
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got))
+    assert int(fin.sum()) == int(np.minimum(lens, cap).sum())
+    torch.testing.assert_close(got[fin], want[fin], rtol=0, atol=1e-5)

@@ -134,6 +134,65 @@ def test_sampler_batches_equal_jax(tmp_path, multiview):
         assert is_eval or len(lengths) > 1  # the buckets cut some batches
 
 
+def _raises_within(fn, timeout=30.0):
+    """Run ``fn`` in a thread, joined with a timeout so a hang cannot stall
+    the suite; returns the exception it raised (None if none)."""
+    import threading
+
+    out = {}
+
+    def run():
+        try:
+            fn()
+        except BaseException as e:  # noqa: BLE001 -- returned to the test
+            out["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout)
+    assert not t.is_alive(), f"still blocked after {timeout} s"
+    return out.get("error")
+
+
+def _failing_make_batch(orig, fail_at=2):
+    calls = []
+
+    def make_batch(self, idxs):
+        calls.append(1)
+        if len(calls) == fail_at:
+            raise ValueError("a batch that cannot be built")
+        return orig(self, idxs)
+
+    return make_batch
+
+
+def test_sampler_producer_error_reaches_the_caller(tmp_path, monkeypatch):
+    """An exception while building a batch in the producer thread is raised
+    by the iteration, instead of leaving the consumer waiting on the queue."""
+    from colbert_tpu_torch.tokenization import ColbertTokenizer
+    from colbert_tpu_torch.training import RetrievalDataset, RetrievalSampler
+
+    cfg = make_cfg(tmp_path)
+    monkeypatch.setattr(RetrievalSampler, "_make_batch", _failing_make_batch(RetrievalSampler._make_batch))
+    sampler = RetrievalSampler(RetrievalDataset(make_examples(8)), ColbertTokenizer(cfg.tokenizer, cfg.multiview),
+                               cfg.train, 2)
+    got = []
+    err = _raises_within(lambda: got.extend(sampler.epoch(0)))
+    assert isinstance(err, ValueError) and "cannot be built" in str(err)
+    assert len(got) == 1  # the batch before the failure was delivered
+
+
+def test_trainer_raises_a_sampler_error(tmp_path, monkeypatch):
+    from colbert_tpu_torch.tokenization import ColbertTokenizer
+    from colbert_tpu_torch.training import ColbertTrainer, RetrievalDataset, RetrievalSampler
+
+    cfg = make_cfg(tmp_path)
+    monkeypatch.setattr(RetrievalSampler, "_make_batch", _failing_make_batch(RetrievalSampler._make_batch))
+    trainer = ColbertTrainer(cfg, ColbertTokenizer(cfg.tokenizer, cfg.multiview), device="cpu")
+    err = _raises_within(lambda: trainer.train(RetrievalDataset(make_examples(8))))
+    assert isinstance(err, ValueError) and "cannot be built" in str(err)
+
+
 # ---- optimizer ----
 
 def test_optimizer_equals_optax():
