@@ -12,11 +12,18 @@ from a seed:
 * phase 1: kernels K1 (fused scan + group max) and K2 (full score matrix)
   against their plain PyTorch versions on the card, at B=144 queries x 16
   views x 768 dims: 20,000 docs x 16 rows (bf16 table, fp32 and bf16
-  stored scores; int8 table), and 1,001 docs x 37 rows (a ragged last
-  group).  Limits: fp32 scores within 1e-4; bf16 stored scores within one
-  bf16 ulp of the value (a last-bit fp32 difference can flip the rounding),
-  or within the fp32 limit near zero, where the fp32 summation-order error
-  (~3e-5 at these widths) exceeds a bf16 ulp.
+  stored scores; int8 table), 200,000 docs x 16 rows bf16 (4.9 GB, bf16
+  stored scores) and 1,001 docs x 37 rows (a ragged last group), each on
+  the kernel route ``flat_scan_plan`` picks ("wgmma" for 16 rows a doc
+  and 16 views, else "staged"; the route's launch counter is checked).
+  Times K1 and K2 at 20,000 docs, K1 over the int8 table and over the
+  200,000 docs, each with its share of the 989 TFLOP/s bf16 peak, and, as
+  information, cuBLAS's bf16 product + amax + sum over the same table (a
+  yardstick the port never calls).  Limits: fp32 scores within 1e-4; bf16
+  stored scores within one bf16 ulp of the value (a last-bit fp32
+  difference can flip the rounding), or within the fp32 limit near zero,
+  where the fp32 summation-order error (~3e-5 at these widths) exceeds a
+  bf16 ulp.
 * phase 2: the CLI's ``encode`` over a 20,000-doc synthetic Chinese corpus,
   ``serve`` in a background thread, three requests of 144 questions at
   top-100 through ``RetrievalClient``, ``evaluate --remote``, and the same
@@ -24,7 +31,7 @@ from a seed:
   Every answer must hold 100 valid, descending triples whose scores equal
   the plain version's top-100 over the same table and query encodings
   within 1e-4 (tie-insensitive), and each kernel must have launched in
-  the run: K1 once per served batch.
+  the run: K1 once per served batch, every launch on the "wgmma" route.
 * phase 3: kernels K3 (all-pairs MaxSim, fp32) and K9 (dropout) against
   their plain PyTorch versions on the card.  K3 at the trainer's eval
   shape (34 queries x 16 views against 340 docs x 16 rows x 768), with
@@ -135,7 +142,8 @@ def counters():
             "K3": ms.maxsim.launches, "K9": dr.hw_dropout.launches,
             "K4": rr.maxsim_rerank_uniform.launches, "K5": rr.maxsim_rerank_uniform_int8.launches,
             "K6": sp.sq_batch_list_scan.launches, "K7": sp.sq_hot_list_scan.launches,
-            "K8": pq4.pq4_list_scan.launches, "K10": sq_probe.sq_list_scan.launches}
+            "K8": pq4.pq4_list_scan.launches, "K10": sq_probe.sq_list_scan.launches,
+            "K1/K2 wgmma route": fs.route_launches["wgmma"], "K1/K2 staged route": fs.route_launches["staged"]}
 
 
 def reset_counts() -> None:
@@ -257,8 +265,22 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_kernels(device, num_docs=20_000, ragged_docs=1_001, seed=SEED):
-    """Compare K1/K2 with their plain versions; returns per-kernel summaries."""
+def unit_rows_bf16(n_rows, dim, device, seed, chunk=1 << 18):
+    """``n_rows`` random unit rows in bf16, drawn on ``device`` in chunks."""
+    import torch
+
+    g = torch.Generator(device).manual_seed(seed)
+    out = torch.empty((n_rows, dim), dtype=torch.bfloat16, device=device)
+    for lo in range(0, n_rows, chunk):
+        x = torch.randn((min(chunk, n_rows - lo), dim), generator=g, device=device)
+        out[lo : lo + x.shape[0]] = x / x.norm(dim=1, keepdim=True)
+    return out
+
+
+def phase_kernels(device, num_docs=20_000, ragged_docs=1_001, big_docs=200_000, seed=SEED):
+    """Compare K1/K2 with their plain versions on every route and table
+    type; time them, K1 over the int8 table and over ``big_docs`` docs, and
+    the cuBLAS product + reduction yardstick.  Returns per-kernel summaries."""
     import numpy as np
     import torch
 
@@ -284,7 +306,26 @@ def phase_kernels(device, num_docs=20_000, ragged_docs=1_001, seed=SEED):
             raise AssertionError(f"{name}: {bad} values beyond the limit, e.g. (got, want) {pairs}")
         return float(err.max())
 
+    def routed(label, q, dv):
+        """Log the route the plan picks and check that it, and only it, served."""
+        route = fs.flat_scan_plan(dv, q.shape[1])
+        before = {k: c.value for k, c in fs.route_launches.items()}
+        log(f"[phase1] {label}: route {route}")
+        return route, before
+
+    def served_by(label, route, before, n):
+        got = {k: c.value - before[k] for k, c in fs.route_launches.items()}
+        if got != {k: n * (k == route) for k in got}:
+            raise AssertionError(f"{label}: route launches {got}, expected {n} on {route}")
+
+    def check_bf16(label, table, q, dv, n_docs):
+        s, g = fs.flat_scan_fused(q, table, dv=dv, num_docs=n_docs, score_dtype="bfloat16")
+        rs, rg = fs.flat_scan_fused_ref(q, table, dv=dv, num_docs=n_docs, score_dtype="bfloat16")
+        e = check(f"{label} K1 stored bf16 (1 ulp, >= 1e-4)", s, rs, bf16_limit(s, rs))
+        return max(e, check(f"{label} K1 group max bf16 (1 ulp, >= 1e-4)", g, rg, bf16_limit(g, rg)))
+
     def run_case(label, table, q, dv, n_docs):
+        route, before = routed(label, q, dv)
         k2 = fs.flat_maxsim_scan(q, table, dv=dv)
         k2_ref = fs.flat_maxsim_scan_ref(q, table, dv=dv)
         worst["K2"] = max(worst["K2"], check(f"{label} K2 scores fp32", k2, k2_ref, SCORE_ATOL))
@@ -297,36 +338,78 @@ def phase_kernels(device, num_docs=20_000, ragged_docs=1_001, seed=SEED):
         e1 = max(e1, check(f"{label} K1 top-{TOPK} scores", ts, want_s, SCORE_ATOL))
         if not ((tp >= 0) & (tp < n_docs)).all():
             raise AssertionError(f"{label}: top-k returned a pad doc")
+        check_bf16(label, table, q, dv, n_docs)
+        served_by(label, route, before, 3)
         worst["K1"] = max(worst["K1"], e1)
+        return route
+
+    def timed(fn, ref, ref_iters=5):
+        return time_ms(fn), time_ms(ref, iters=ref_iters)
 
     table, _, dv = fs.build_flat_table(docs, doclens, dtype="bfloat16")
     table = table.to(device)
-    run_case(f"{num_docs} docs bf16", table, Qm, dv, num_docs)
-    s, g = fs.flat_scan_fused(Qm, table, dv=dv, num_docs=num_docs, score_dtype="bfloat16")
-    rs, rg = fs.flat_scan_fused_ref(Qm, table, dv=dv, num_docs=num_docs, score_dtype="bfloat16")
-    check(f"{num_docs} docs K1 stored bf16 (1 ulp, >= 1e-4)", s, rs, bf16_limit(s, rs))
-    check(f"{num_docs} docs K1 group max bf16 (1 ulp, >= 1e-4)", g, rg, bf16_limit(g, rg))
-
+    label = f"{num_docs} docs bf16"
+    routes = {"K1": run_case(label, table, Qm, dv, num_docs)}
+    routes["K2"] = routes["K1"]
     times = {
-        "K1": (time_ms(lambda: fs.flat_scan_fused(Qm, table, dv=dv, num_docs=num_docs, score_dtype="float32")),
-               time_ms(lambda: fs.flat_scan_fused_ref(Qm, table, dv=dv, num_docs=num_docs, score_dtype="float32"), iters=5)),
-        "K2": (time_ms(lambda: fs.flat_maxsim_scan(Qm, table, dv=dv)),
-               time_ms(lambda: fs.flat_maxsim_scan_ref(Qm, table, dv=dv), iters=5)),
+        "K1": timed(lambda: fs.flat_scan_fused(Qm, table, dv=dv, num_docs=num_docs, score_dtype="float32"),
+                    lambda: fs.flat_scan_fused_ref(Qm, table, dv=dv, num_docs=num_docs, score_dtype="float32")),
+        "K2": timed(lambda: fs.flat_maxsim_scan(Qm, table, dv=dv),
+                    lambda: fs.flat_maxsim_scan_ref(Qm, table, dv=dv)),
     }
+    # yardstick, never called by the port: cuBLAS's bf16 product, then the view reduction
+    qb = Qm.reshape(B * M, H).to(torch.bfloat16)
+
+    def cublas_maxsim():
+        return (table @ qb.T).view(-1, dv, B, M).amax(dim=1).float().sum(dim=-1)
+
+    err = float((cublas_maxsim() - fs.flat_maxsim_scan_ref(Qm, table, dv=dv)).abs().max())
+    times["cuBLAS"] = (time_ms(cublas_maxsim), None)
+    log(f"[phase1] yardstick (not in the port): torch.matmul bf16 ({table.shape[0]} x {H}) @ ({H} x {B * M}) "
+        f"-> bf16, amax over 16 rows, sum over 16 views: {times['cuBLAS'][0]:.3f} ms; max|d| vs the plain "
+        f"version {err:.3e} (its product is rounded to bf16)")
     del table
 
     t8, inv, dv = fs.build_flat_table(docs, doclens, dtype="int8")
-    run_case(f"{num_docs} docs int8", t8.to(device), Qm * inv.to(device), dv, num_docs)
-    del t8
+    t8, Q8 = t8.to(device), Qm * inv.to(device)
+    routes["K1 int8"] = run_case(f"{num_docs} docs int8", t8, Q8, dv, num_docs)
+    times["K1 int8"] = timed(
+        lambda: fs.flat_scan_fused(Q8, t8, dv=dv, num_docs=num_docs, score_dtype="float32"),
+        lambda: fs.flat_scan_fused_ref(Q8, t8, dv=dv, num_docs=num_docs, score_dtype="float32"))
+    del t8, Q8
+
+    # ROADMAP's second flat operating point: 200,000 docs x 16 rows bf16, bf16 stored scores
+    docs_pad = -(-big_docs * 16 // fs.pick_rows_block(16, 2)) * fs.pick_rows_block(16, 2) // 16
+    tb = unit_rows_bf16(docs_pad * 16, H, device, seed)
+    tb[big_docs * 16 :] = 0
+    label = f"{big_docs} docs bf16"
+    route, before = routed(label, Qm, 16)
+    check_bf16(label, tb, Qm, 16, big_docs)
+    served_by(label, route, before, 1)
+    routes["K1 200k bf16"] = route
+    times["K1 200k bf16"] = timed(
+        lambda: fs.flat_scan_fused(Qm, tb, dv=16, num_docs=big_docs, score_dtype="bfloat16"),
+        lambda: fs.flat_scan_fused_ref(Qm, tb, dv=16, num_docs=big_docs, score_dtype="bfloat16"),
+        ref_iters=2)
+    del tb
 
     rdocs, rq = topic_embeddings(ragged_docs, 37, B, M, H, seed=seed + 1)
     tr, _, dv = fs.build_flat_table(rdocs, np.full(ragged_docs, 37), dtype="bfloat16")
     if (tr.shape[0] // dv) % fs.group_docs(dv) == 0:
         raise AssertionError("ragged case does not end inside a group")
     run_case(f"{ragged_docs} docs dv=37", tr.to(device), torch.from_numpy(rq).to(device), dv, ragged_docs)
+
+    flops = {k: 2.0 * B * M * n * 16 * H for k, n in
+             (("K1", num_docs), ("K2", num_docs), ("K1 int8", num_docs), ("K1 200k bf16", big_docs),
+              ("cuBLAS", num_docs))}
+    share = {k: flops[k] / PEAK_BF16_FLOPS * 1e3 / ms for k, (ms, _) in times.items()}
     for k, (ms, plain) in times.items():
-        log(f"[phase1] {k} at {num_docs} docs x 16 rows bf16, B={B}: kernel {ms:.3f} ms, plain {plain:.3f} ms")
-    return worst, times
+        n = big_docs if k == "K1 200k bf16" else num_docs
+        plain_txt = f", plain {plain:.3f} ms" if plain is not None else ""
+        log(f"[phase1] {k} at {n} docs x 16 rows, B={B}: {ms:.3f} ms = {flops[k] / ms / 1e9:.1f} TFLOP/s, "
+            f"{100 * share[k]:.1f}% of the 989 TFLOP/s bf16 peak{plain_txt}"
+            f"{'' if k == 'cuBLAS' else ' [route ' + routes[k] + ']'}")
+    return worst, times, share, routes
 
 
 # ---- phase 2: the slice through the CLI ----
@@ -451,6 +534,10 @@ def phase_slice(device, workdir: Path, label: str, num_docs=20_000, model_kw=Non
         f"K2 expected {n_requests})")
     if launches["K1"] != served_batches or launches["K2"] != n_requests:
         raise AssertionError(f"kernel launches {launches} do not match the served batches")
+    want_route = fs.flat_scan_plan(k2_searcher.flat_dv, M)
+    if launches[f"K1/K2 {want_route} route"] != served_batches + n_requests or \
+            launches["K1/K2 staged route" if want_route == "wgmma" else "K1/K2 wgmma route"]:
+        raise AssertionError(f"route launches {launches} do not all take the {want_route} route")
 
     # ---- answers against the plain version on the same table and encodings ----
     worst, recall = 0.0, []
@@ -1381,7 +1468,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    worst, times = phase_kernels(device)
+    worst, times, share, routes = phase_kernels(device)
     train_kernels = phase_train_kernels(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         serve_launches, _, ann_launches, codec_launches = phase_slice(device, Path(tmp), label)
@@ -1401,7 +1488,11 @@ def main() -> int:
             "replaces": f"colbert_tpu/ops/flat_scan.py:{line}", "launches": serve_launches[fn],
             "max_abs_err": worst[fn], "ms": times[fn][0], "plain_ms": times[fn][1],
             "bound_ms": k12_bound[0], "bound_by": k12_bound[1], "library_ms": None,
+            "kernel_route": routes[fn], "peak_share": share[fn], "yardstick_cublas_ms": times["cuBLAS"][0],
         })
+    kernels[0].update({"int8_ms": times["K1 int8"][0], "int8_peak_share": share["K1 int8"],
+                       "docs_200k_bf16_ms": times["K1 200k bf16"][0],
+                       "docs_200k_peak_share": share["K1 200k bf16"]})
     for name, fn, src, replaces in (
         ("K3 maxsim", "K3", "colbert_tpu_torch/csrc/maxsim.cu", "colbert_tpu/ops/maxsim.py:61"),
         ("K9 hw_dropout", "K9", "colbert_tpu_torch/csrc/dropout.cu", "colbert_tpu/ops/dropout_pallas.py:36"),

@@ -10,13 +10,18 @@ per-dim descale folded into the queries) is scored against every query:
 Queries are rounded to bf16 before the product even when the caller passes
 fp32, as the TPU kernels do; products accumulate in fp32; zero rows score 0.
 
-Two kernel entries share one CUDA kernel (``csrc/flat_scan.cu``):
+Two kernel entries share one CUDA source (``csrc/flat_scan.cu``):
 
 * :func:`flat_maxsim_scan` (K2): the full ``(docs_pad, B)`` fp32 score matrix,
   selected with :func:`flat_topk`;
 * :func:`flat_scan_fused` (K1): scores rounded to the stored dtype, docs
   ``>= num_docs`` set to -inf, plus one fp32 max per (doc group, query).
   :func:`flat_scan_topk` adds the exact stage-2 selection in torch.
+
+The source has two routes, chosen by shape in :func:`flat_scan_plan`:
+"wgmma" (TMA ring, wgmma, MaxSim in registers) for 16 rows a doc and 16
+views a query, the multiview main path; "staged" (the first, wmma kernel)
+for every other shape.  Each counts its launches in :data:`route_launches`.
 
 Each wrapper runs its plain PyTorch version (``*_ref``) only for tensors on
 the CPU; for CUDA tensors it launches the kernel or raises, and counts the
@@ -34,9 +39,13 @@ import torch
 
 from colbert_tpu_torch.ops._build import LaunchCounter
 
-# kernel limits, mirrored by flat_scan_max_tokens()/flat_scan_max_group() in the .cu
+# kernel limits, mirrored by flat_scan_max_tokens()/flat_scan_max_group() (route
+# "staged") and flat_scan_wgmma_dv()/flat_scan_wgmma_m() (route "wgmma") in the .cu
 _MAX_TOKENS = 128
 _MAX_GROUP = 64
+_WGMMA_DV = 16
+_WGMMA_M = 16
+_ROUTES = {"staged": 0, "wgmma": 1}
 _GROUP_ROWS = 1024
 _REF_ROWS_CHUNK = 1 << 15  # table rows per product in the plain version
 _SCORE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -58,9 +67,17 @@ def pick_rows_block(dv: int, itemsize: int, target_rows: int = 1024) -> int:
 
 
 def group_docs(dv: int) -> int:
-    """Docs per kernel block, which is also the stage-2 group: about 1,024
-    table rows per block, at most 64 docs.  Stage 2 is exact for any size."""
+    """Docs per stage-2 group, and per block on the "staged" route: about
+    1,024 table rows, at most 64 docs.  Stage 2 is exact for any size."""
     return max(1, min(_MAX_GROUP, _GROUP_ROWS // dv))
+
+
+def flat_scan_plan(dv: int, m: int) -> str:
+    """The kernel route for a table of ``dv`` rows a doc and queries of ``m``
+    views: "wgmma" where a warp's 16 accumulator rows are one doc and a
+    256-token tile is 16 whole queries, else "staged".  Both take bf16 and
+    int8 tables and any hidden dim the input check accepts."""
+    return "wgmma" if (dv, m) == (_WGMMA_DV, _WGMMA_M) else "staged"
 
 
 # ---- the CUDA kernel ----
@@ -76,12 +93,14 @@ def _kernel_lib() -> ctypes.CDLL:
         if lib.flat_scan_launch.argtypes is None:
             lib.flat_scan_launch.argtypes = (
                 [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-                + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+                + [ctypes.c_int] * 9 + [ctypes.c_void_p]
             )
             lib.flat_scan_launch.restype = ctypes.c_int
-            for fn in (lib.flat_scan_max_tokens, lib.flat_scan_max_group):
+            limits = (lib.flat_scan_max_tokens, lib.flat_scan_max_group,
+                      lib.flat_scan_wgmma_dv, lib.flat_scan_wgmma_m)
+            for fn in limits:
                 fn.argtypes, fn.restype = [], ctypes.c_int
-            if (lib.flat_scan_max_tokens(), lib.flat_scan_max_group()) != (_MAX_TOKENS, _MAX_GROUP):
+            if tuple(fn() for fn in limits) != (_MAX_TOKENS, _MAX_GROUP, _WGMMA_DV, _WGMMA_M):
                 raise RuntimeError("csrc/flat_scan.cu limits disagree with ops/flat_scan.py")
     return lib
 
@@ -110,12 +129,14 @@ def _check_kernel_inputs(Qm: torch.Tensor, table: torch.Tensor, dv: int) -> None
 
 def _launch(Qm: torch.Tensor, table: torch.Tensor, dv: int, num_docs: int,
             score_dtype: Optional[str]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One kernel launch.  ``score_dtype=None`` is K2 (full fp32 matrix, no
-    group max); ``"float32"``/``"bfloat16"`` is K1."""
+    """One kernel launch on the route :func:`flat_scan_plan` picks.
+    ``score_dtype=None`` is K2 (full fp32 matrix, no group max);
+    ``"float32"``/``"bfloat16"`` is K1."""
     _check_kernel_inputs(Qm, table, dv)
     lib = _kernel_lib()
     B, m, h = Qm.shape
     dev = table.device
+    route = flat_scan_plan(dv, m)
     q = Qm.reshape(B * m, h).to(torch.bfloat16).contiguous()
     if q.data_ptr() % 16:  # the kernel reads queries 16 bytes at a time
         q = q.clone()
@@ -126,19 +147,22 @@ def _launch(Qm: torch.Tensor, table: torch.Tensor, dv: int, num_docs: int,
     else:
         mode, sdt = (1 if score_dtype == "float32" else 2), _SCORE_DTYPES[score_dtype]
     scores = torch.empty((docs_pad, B), dtype=sdt, device=dev)
-    gmax = (
-        torch.empty((-(-docs_pad // group), B), dtype=torch.float32, device=dev)
-        if mode else None
-    )
+    gmax = None
+    if mode:
+        shape = (-(-docs_pad // group), B)
+        # route "wgmma" folds its tiles into the group max with atomics, from -inf
+        gmax = (torch.full(shape, float("-inf"), dtype=torch.float32, device=dev) if route == "wgmma"
+                else torch.empty(shape, dtype=torch.float32, device=dev))
     with torch.cuda.device(dev):
         err = lib.flat_scan_launch(
             q.data_ptr(), table.data_ptr(), int(table.dtype == torch.int8),
             scores.data_ptr(), gmax.data_ptr() if gmax is not None else None,
-            B, m, h, dv, docs_pad, num_docs, group, mode,
+            B, m, h, dv, docs_pad, num_docs, group, mode, _ROUTES[route],
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"flat_scan kernel launch failed: cudaError_t {err}")
+        raise RuntimeError(f"flat_scan kernel launch failed ({route} route): cudaError_t {err}")
+    route_launches[route].add()
     return scores, gmax
 
 
@@ -206,6 +230,8 @@ def flat_scan_fused(Qm: torch.Tensor, table: torch.Tensor, *, dv: int, num_docs:
 
 flat_maxsim_scan.launches = LaunchCounter()
 flat_scan_fused.launches = LaunchCounter()
+#: launches of each kernel route, K1 and K2 together
+route_launches = {route: LaunchCounter() for route in _ROUTES}
 
 
 # ---- selection ----

@@ -149,3 +149,37 @@ def test_cuda_wrapper_refuses_mixed_devices():
         tfs.flat_scan_fused(Qm, table, dv=4, num_docs=1, score_dtype="float32")
     assert (tfs.flat_maxsim_scan.launches.value, tfs.flat_scan_fused.launches.value) == before
 
+
+
+@pytest.mark.parametrize("group", [1, 8, 64, 1000])
+def test_select_topk_equals_a_full_topk(group):
+    """Stage 2 is exact for any group size: 300 docs end inside a group of
+    8 and of 64 (and 1,000 is one group past docs_pad); scores on a 1/8
+    grid tie often; docs past num_docs hold -inf as K1 writes them."""
+    rng = np.random.default_rng(group)
+    docs_pad, B, num_docs, k = 300, 5, 291, 20
+    s = torch.from_numpy(rng.integers(-40, 40, size=(docs_pad, B)).astype(np.float32) / 8)
+    s[num_docs:] = float("-inf")
+    n_groups = -(-docs_pad // group)
+    padded = torch.full((n_groups * group, B), float("-inf"))
+    padded[:docs_pad] = s
+    gmax = padded.view(n_groups, group, B).amax(dim=1)
+    ts, tp = tfs.select_topk(s, gmax, group=group, num_docs=num_docs, topk=k)
+    want, _ = torch.topk(s[:num_docs].T, k, dim=1)
+    assert torch.equal(ts, want)
+    assert ((tp >= 0) & (tp < num_docs)).all()
+    assert torch.equal(s[tp.long(), torch.arange(B)[:, None]], ts)
+    assert all(len(set(row)) == k for row in tp.tolist())
+
+
+@pytest.mark.parametrize("dv,m,route", [
+    (16, 16, "wgmma"),    # multiview: a warp's 16 accumulator rows are one doc
+    (1, 16, "staged"),
+    (37, 16, "staged"),   # ragged corpora padded to their longest doc
+    (64, 16, "staged"),
+    (384, 16, "staged"),  # a doc over several row tiles
+    (16, 32, "staged"),
+    (5, 32, "staged"),
+])
+def test_flat_scan_plan_routes(dv, m, route):
+    assert tfs.flat_scan_plan(dv, m) == route

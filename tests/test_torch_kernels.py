@@ -51,37 +51,82 @@ def _bf16_limit(a, b):
     return torch.ldexp(torch.ones_like(ax), e - 8).clamp_min(1e-4)
 
 
-# (num_docs, dv, h, B, m, table dtype): multiview shapes, a ragged last group,
-# an int8 table, a partial query tile and a short hidden dim
+# (num_docs, dv, h, B, m, table dtype).  Route "wgmma" (dv 16, m 16): the
+# main shape; partial last query tiles (B 33, B 1; 16 queries a tile) and
+# row tiles (num_docs - 3 ends inside an 8-doc tile); h 128 and 80 (K not a
+# multiple of the 64-dim stage); int8 tables.  Route "staged": dv 1, 5, 37,
+# 64 and 384 (a doc over several 64-row tiles), m 32.
 CASES = [
     (2000, 16, 768, 144, 16, "bfloat16"),
-    (301, 37, 768, 20, 16, "bfloat16"),
+    (1001, 16, 768, 33, 16, "bfloat16"),
+    (500, 16, 768, 1, 16, "bfloat16"),
     (997, 16, 768, 33, 16, "int8"),
+    (800, 16, 128, 40, 16, "bfloat16"),
+    (600, 16, 80, 20, 16, "bfloat16"),
+    (500, 16, 80, 17, 16, "int8"),
+    (300, 16, 256, 10, 32, "bfloat16"),
+    (3000, 1, 128, 9, 16, "bfloat16"),
+    (301, 37, 768, 20, 16, "bfloat16"),
+    (120, 64, 256, 12, 16, "int8"),
+    (40, 384, 128, 5, 16, "bfloat16"),
     (150, 5, 128, 7, 32, "bfloat16"),
 ]
 
 
-@pytest.mark.parametrize("num_docs,dv,h,B,m,dtype", CASES)
-def test_kernels_match_plain(cuda_device, num_docs, dv, h, B, m, dtype):
-    table, Qm, dv = _case(cuda_device, num_docs, dv, h, B, m, dtype, seed=num_docs)
+def _assert_kernels_match_plain(Qm, table, dv, num_docs):
+    """K2, K1 fp32 and K1 bf16 against their plain versions, each on the
+    route :func:`flat_scan_plan` names and no other."""
+    route = fs.flat_scan_plan(dv, Qm.shape[1])
+    before = {k: c.value for k, c in fs.route_launches.items()}
     want = fs.flat_maxsim_scan_ref(Qm, table, dv=dv)
     got = fs.flat_maxsim_scan(Qm, table, dv=dv)
     torch.cuda.synchronize()
     assert got.shape == want.shape and got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
-    s, g = fs.flat_scan_fused(Qm, table, dv=dv, num_docs=num_docs - 3, score_dtype="float32")
-    rs, rg = fs.flat_scan_fused_ref(Qm, table, dv=dv, num_docs=num_docs - 3, score_dtype="float32")
+    s, g = fs.flat_scan_fused(Qm, table, dv=dv, num_docs=num_docs, score_dtype="float32")
+    rs, rg = fs.flat_scan_fused_ref(Qm, table, dv=dv, num_docs=num_docs, score_dtype="float32")
     torch.testing.assert_close(s, rs, rtol=0, atol=1e-4)
     torch.testing.assert_close(g, rg, rtol=0, atol=1e-4)
 
-    s, g = fs.flat_scan_fused(Qm, table, dv=dv, num_docs=num_docs - 3, score_dtype="bfloat16")
-    rs, rg = fs.flat_scan_fused_ref(Qm, table, dv=dv, num_docs=num_docs - 3, score_dtype="bfloat16")
+    s, g = fs.flat_scan_fused(Qm, table, dv=dv, num_docs=num_docs, score_dtype="bfloat16")
+    rs, rg = fs.flat_scan_fused_ref(Qm, table, dv=dv, num_docs=num_docs, score_dtype="bfloat16")
     assert s.dtype == torch.bfloat16
     fin = torch.isfinite(rs)
     assert torch.equal(fin, torch.isfinite(s))
     assert ((s.float() - rs.float())[fin].abs() <= _bf16_limit(s, rs)[fin]).all()
-    assert ((g - rg).abs() <= _bf16_limit(g, rg)).all()
+    gfin = torch.isfinite(rg)  # a group wholly past num_docs holds -inf
+    assert torch.equal(gfin, torch.isfinite(g))
+    assert ((g - rg)[gfin].abs() <= _bf16_limit(g, rg)[gfin]).all()
+    after = {k: c.value for k, c in fs.route_launches.items()}
+    assert after == {k: v + 3 * (k == route) for k, v in before.items()}
+
+
+@pytest.mark.parametrize("num_docs,dv,h,B,m,dtype", CASES)
+def test_kernels_match_plain(cuda_device, num_docs, dv, h, B, m, dtype):
+    table, Qm, dv = _case(cuda_device, num_docs, dv, h, B, m, dtype, seed=num_docs)
+    _assert_kernels_match_plain(Qm, table, dv, num_docs - 3)
+
+
+def test_main_shape_takes_the_register_epilogue_route(cuda_device):
+    table, Qm, dv = _case(cuda_device, 2000, 16, 768, 144, 16, "bfloat16", seed=11)
+    before = {k: c.value for k, c in fs.route_launches.items()}
+    fs.flat_scan_fused(Qm, table, dv=dv, num_docs=2000, score_dtype="bfloat16")
+    torch.cuda.synchronize()
+    assert {k: c.value - before[k] for k, c in fs.route_launches.items()} == {"wgmma": 1, "staged": 0}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_table_view_at_an_aligned_offset(cuda_device, dtype):
+    """A table that starts 16 bytes past 128-byte alignment, inside a larger
+    allocation (the tensor maps need only 16-byte aligned bases)."""
+    table, Qm, dv = _case(cuda_device, 700, 16, 256, 20, 16, dtype, seed=5)
+    off = 16 // table.element_size()
+    flat = torch.zeros(table.numel() + off, dtype=table.dtype, device=cuda_device)
+    view = flat[off:].view(table.shape)
+    view.copy_(table)
+    assert view.data_ptr() % 16 == 0 and view.data_ptr() % 128 and view.is_contiguous()
+    _assert_kernels_match_plain(Qm, view, dv, 697)
 
 
 def test_topk_on_card_matches_plain(cuda_device):
