@@ -61,15 +61,22 @@ from a seed:
   service.  Every answer (the socket's and the int8 service's) must hold
   100 valid, descending triples whose scores equal the exact MaxSim of the
   returned pids over the served table within 1e-4; (d) K4 must launch once
-  per bf16 batch, K5 once per int8 batch, K6 and K7 once per batch;
+  per bf16 batch, K5 once per int8 batch, every launch on the rerank's
+  "wgmma" route, K6 and K7 once per batch;
   (b) ``build-index`` over the JAX bench's 20,000-doc generator
   (``bench.py:51-65``, seed 0), recall@100 of ANN search from topic-drawn
-  query reps against the fp32 exact oracle (at least 0.98), and the
-  batch's time per stage (probe, dedup, rerank, top-k);
+  query reps against the fp32 exact oracle (at least 0.98), the batch's
+  time per stage (probe, dedup, rerank, top-k), and one batch served with
+  ``serve.rerank_dtype=float32`` (an fp32 table, no K4/K5 launch): its
+  scores within 1e-4 of an fp32 MaxSim of its pids, recall@100 >= 0.98;
   (a) on that batch's inputs: K6 (filled slots) and K7 (the batch's 128
   most-probed lists x every token) against their plain versions, scores
   within 1e-5 and rows equal except at near ties; K4 (bf16) and K5 (int8)
-  over the 144 x 4,096 candidates, within 1e-4.
+  on route "wgmma" over the 144 x 4,096 candidates and in a low-reuse case
+  (the same candidates over a 200,000-doc table, p -> 10p + b mod 10),
+  within 1e-4 with -inf exactly at the -1 candidates, each timed with its
+  schedule, the schedule alone, and the first design (route "staged") on
+  the same inputs, with the device-memory and L2 bytes each design moves.
 * phase 6, the pq4 and pq codecs and the token-major sq probe at the same
   operating point (pq4: m 128 x 4 bits; pq: m 64 x 8 bits; 10 PQ k-means
   iterations):
@@ -143,7 +150,8 @@ def counters():
             "K4": rr.maxsim_rerank_uniform.launches, "K5": rr.maxsim_rerank_uniform_int8.launches,
             "K6": sp.sq_batch_list_scan.launches, "K7": sp.sq_hot_list_scan.launches,
             "K8": pq4.pq4_list_scan.launches, "K10": sq_probe.sq_list_scan.launches,
-            "K1/K2 wgmma route": fs.route_launches["wgmma"], "K1/K2 staged route": fs.route_launches["staged"]}
+            "K1/K2 wgmma route": fs.route_launches["wgmma"], "K1/K2 staged route": fs.route_launches["staged"],
+            "K4/K5 wgmma route": rr.route_launches["wgmma"], "K4/K5 staged route": rr.route_launches["staged"]}
 
 
 def reset_counts() -> None:
@@ -931,6 +939,7 @@ def phase_ann_cli(device, workdir: Path, cfg, common, corpus_path, eval_path, do
         f"{len(requests)} requests (the last at nprobe {deep}) and {eval_batches} evaluate "
         f"--remote batches on the bf16 table, {eval_batches} local evaluate batches and one "
         f"service batch on the int8 table)")
+    want["K4/K5 wgmma route"], want["K4/K5 staged route"] = want["K4"] + want["K5"], 0
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"ANN kernel launches {launches} do not match the served batches {want}")
 
@@ -1037,6 +1046,36 @@ def phase_ann(device, workdir: Path, label: str, num_docs=20_000, n_batches=2, s
     log(f"[phase5b] batch of {B} x {M} query reps, ms per stage (CUDA events): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stage.items()) + f" [{label}]")
 
+    # ---- 5b: one batch served with serve.rerank_dtype="float32": an fp32 table, reranked in torch ops ----
+    cfg32 = ColbertConfig.from_dict(cfg.to_dict())
+    cfg32.serve.rerank_dtype = "float32"
+    s32 = srch.ColbertSearcher(cfg32, ColbertTokenizer(cfg32.tokenizer, cfg32.multiview),
+                               ColbertModel(cfg32.model, cfg32.multiview), storage, device=device)
+    if s32.emb_table.dtype != torch.float32:
+        raise AssertionError(f"rerank_dtype=float32 served a {s32.emb_table.dtype} table")
+    launched = rr.maxsim_rerank_uniform.launches.value + rr.maxsim_rerank_uniform_int8.launches.value
+    s32.search_reps(Qb, qm)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ts32, tp32 = s32.search_reps(Qb, qm)
+    torch.cuda.synchronize()
+    ms32 = (time.perf_counter() - t0) * 1e3
+    if rr.maxsim_rerank_uniform.launches.value + rr.maxsim_rerank_uniform_int8.launches.value != launched:
+        raise AssertionError("the float32 table's rerank launched K4 or K5")
+    if ts32.shape != (B, TOPK) or not torch.isfinite(ts32).all():
+        raise AssertionError("the float32 batch returned fewer than 100 finite results")
+    # its scores against an independent fp32 MaxSim of the returned pids (K4's plain core over the fp32 table)
+    err32 = float((ts32 - rr._rerank_ref(tp32, Qb, s32.emb_table, 16)).abs().max())
+    op32 = s32.exact_topk(Qb, TOPK)[1].cpu().numpy()
+    tp32 = tp32.cpu().numpy()
+    rec32 = float(np.mean([len(set(tp32[b]) & set(op32[b])) / TOPK for b in range(B)]))
+    log(f"[phase5b] rerank_dtype=float32 ({s32.emb_table.numel() * 4 / 1e9:.3f} GB fp32 table): batch "
+        f"{ms32:.1f} ms from query reps; scores vs fp32 MaxSim of the returned pids max|d|={err32:.3e} "
+        f"(limit {SCORE_ATOL}); recall@{TOPK} vs the fp32 oracle {rec32:.4f} [{label}]")
+    if err32 > SCORE_ATOL or rec32 < 0.98:
+        raise AssertionError(f"float32 batch: max|d| {err32}, recall {rec32}")
+    del s32, ts32
+
     # ---- 5a: K6, K7, K4, K5 against their plain versions on this batch's inputs ----
     out = {}
     tokens = Qb.reshape(B * M, H)
@@ -1099,43 +1138,97 @@ def phase_ann(device, workdir: Path, label: str, num_docs=20_000, n_batches=2, s
         float(lens_d[hot_l].sum()) * SQ_DIM + T * SQ_DIM * 4 + hot.numel() * 4 + hot.numel() * TOPR * T * 8,
         PEAK_BF16_FLOPS)
 
-    q8, scale = rr.quantize_emb_table(docs)
-    t8 = torch.from_numpy(q8).to(device)
-    Qs = Qb * torch.from_numpy(1.0 / scale).to(device)
-    nv = int((cand >= 0).sum())
-    n_unique = int(torch.unique(cand[cand >= 0]).numel())
-    C = cand.shape[1]
-    for name, fn, ref, table, q, itemsize, terms in (
-        ("K4", rr.maxsim_rerank_uniform, rr.maxsim_rerank_uniform_ref, searcher.emb_table, Qb, 2, 1),
-        ("K5", rr.maxsim_rerank_uniform_int8, rr.maxsim_rerank_uniform_int8_ref, t8, Qs, 1, 3),
-    ):
-        got, want = fn(cand, q, table, dv=16), ref(cand, q, table, dv=16)
-        torch.cuda.synchronize()
-        fin = torch.isfinite(want)
-        if not torch.equal(fin, torch.isfinite(got)) or not torch.equal(fin, cand >= 0):
-            raise AssertionError(f"{name}: -inf pattern differs from the -1 candidates")
-        err = float((got[fin] - want[fin]).abs().max())
-        log(f"[phase5a] {name}: {B} x {C} candidates ({nv} valid, {n_unique} distinct docs) x 16 rows x {H}: "
-            f"max|d|={err:.3e} (limit {SCORE_ATOL})")
-        if err > SCORE_ATOL:
-            raise AssertionError(f"{name} differs from its plain version by {err}")
-        pair_bytes = nv * 16 * H * itemsize
-        out[name] = {"max_abs_err": err, "ms": time_ms(lambda: fn(cand, q, table, dv=16)),
-                     "plain_ms": time_ms(lambda: ref(cand, q, table, dv=16), iters=2, warmup=1),
-                     "library_ms": None}
-        # each input read once: every distinct candidate doc's rows once
-        out[name]["bound_ms"], out[name]["bound_by"] = bound(
-            terms * 2.0 * nv * 16 * H * M,
-            n_unique * 16 * H * itemsize + cand.numel() * 4 + q.numel() * 4 + cand.numel() * 4,
-            PEAK_BF16_FLOPS)
-        log(f"[phase5a] {name}: the kernel reads each (query, candidate) block: {pair_bytes / 1e9:.2f} GB, "
-            f"{pair_bytes / PEAK_HBM_BYTES * 1e3:.3f} ms at the HBM rate")
-    for k in ("K6", "K7", "K4", "K5"):
+    out.update(phase_rerank(device, cand, Qb, searcher.emb_table, docs, label))
+    for k in ("K6", "K7"):
         v = out[k]
         log(f"[phase5a] {k}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, bound "
             f"{v['bound_ms']:.4f} ms ({v['bound_by']}); no single PyTorch call computes it [{label}]")
     return out, {"recall": rec, "stage_ms": stage, "batch_ms": batch_ms, "build_s": build_s,
-                 "queries": Q, "oracle": oracle, "config": cfg}
+                 "queries": Q, "oracle": oracle, "config": cfg, "fp32": {"ms": ms32, "err": err32, "recall": rec32}}
+
+
+LOW_REUSE_DOCS = 200_000  # the low-reuse table: the serving batch's pids spread over 10x the docs
+
+
+def phase_rerank(device, cand, Qb, table, docs, label, seed=SEED):
+    """Phase 5a for K4/K5: on the serving batch's candidates (144 x 4,096
+    over the 20,000-doc bf16 table and its int8 quantization) and in the
+    low-reuse case (the same candidates mapped onto a 200,000-doc table, p
+    -> 10p + b mod 10, about two readers a doc), each kernel against its
+    plain version on route "wgmma" (scores within ``SCORE_ATOL``, -inf
+    exactly where cand < 0), its wrapper's time (schedule included), the
+    schedule's alone, the first design's (route "staged") on the same
+    inputs, its bound, and the bytes each design moves."""
+    import torch
+
+    from colbert_tpu_torch.ops import rerank as rr
+
+    q8, scale = rr.quantize_emb_table(docs)
+    t8 = torch.from_numpy(q8).to(device)
+    Qs = Qb * torch.from_numpy(1.0 / scale).to(device)
+    del q8
+    g = torch.Generator(device).manual_seed(seed + 5)
+    low = {"K4": unit_rows_bf16(LOW_REUSE_DOCS * 16, H, device, seed + 5),
+           "K5": torch.randint(-127, 128, (LOW_REUSE_DOCS * 16, H), dtype=torch.int8, device=device, generator=g)}
+    low_q = {"K4": Qb, "K5": Qb / 127.0}  # a descale for int8 values drawn from +-127
+    b_mod = (torch.arange(B, device=device, dtype=torch.int32) % 10)[:, None]
+    cand_low = torch.where(cand >= 0, cand * 10 + b_mod, cand)
+    out = {}
+    for name, fn, ref, tdt, tab, q, terms in (
+        ("K4", rr.maxsim_rerank_uniform, rr.maxsim_rerank_uniform_ref, torch.bfloat16, table, Qb, 1),
+        ("K5", rr.maxsim_rerank_uniform_int8, rr.maxsim_rerank_uniform_int8_ref, torch.int8, t8, Qs, 3),
+    ):
+        res = {}
+        for case, c, tb, qq in (("serving", cand, tab, q), ("low-reuse", cand_low, low[name], low_q[name])):
+            route = rr.rerank_plan(16, M, H)
+            before = rr.route_launches[route].value
+            got, want = fn(c, qq, tb, dv=16), ref(c, qq, tb, dv=16)
+            torch.cuda.synchronize()
+            live = c >= 0
+            if route != "wgmma" or rr.route_launches[route].value != before + 1:
+                raise AssertionError(f"{name} {case}: not one launch on route wgmma ({route})")
+            if not torch.equal(torch.isfinite(got), live) or not torch.isneginf(got[~live]).all() \
+                    or not torch.equal(torch.isfinite(want), live):
+                raise AssertionError(f"{name} {case}: -inf pattern differs from the -1 candidates")
+            err = float((got[live] - want[live]).abs().max())
+            nv, n_unique = int(live.sum()), int(torch.unique(c[live]).numel())
+            num_docs = tb.shape[0] // 16
+            doc_bytes = 16 * H * tb.element_size()
+            window = rr.window_docs(num_docs, c.shape[1], doc_bytes)
+            _, _, wstart = rr.rerank_schedule(c, num_docs, window)
+            items = int((wstart[:, 1:] > wstart[:, :-1]).sum())
+            log(f"[phase5a] {name} {case}: {B} x {c.shape[1]} candidates ({nv} valid, {n_unique} distinct docs "
+                f"of {num_docs}) x 16 rows x {H}: max|d|={err:.3e} (limit {SCORE_ATOL}) [route {route}]")
+            if not err <= SCORE_ATOL:
+                raise AssertionError(f"{name} {case} differs from its plain version by {err}")
+            t = {"max_abs_err": err,
+                 "ms": time_ms(lambda: fn(c, qq, tb, dv=16)),
+                 "schedule_ms": time_ms(lambda: (rr.rerank_schedule(c, num_docs, window),
+                                                 rr.query_operand(qq, tdt == torch.int8))),
+                 "staged_ms": time_ms(lambda: rr._launch(c, qq, tb, 16, tdt, route="staged"), iters=5),
+                 "plain_ms": time_ms(lambda: ref(c, qq, tb, dv=16), iters=2, warmup=1)}
+            # each input read once: every distinct candidate doc's rows once
+            t["bound_ms"], t["bound_by"] = bound(
+                terms * 2.0 * nv * 16 * H * M,
+                n_unique * doc_bytes + c.numel() * 4 + qq.numel() * 4 + c.numel() * 4, PEAK_BF16_FLOPS)
+            # what each design moves, by construction: "wgmma" reads each distinct
+            # doc from device memory once if a window's blocks stay in L2, and
+            # streams every pair's block plus each item's query into the SMs;
+            # "staged" reads every pair's block from device memory (its readers of
+            # one doc are spread over the launch)
+            q_item = (48 if tdt == torch.int8 else 16) * H * 2
+            t["hbm_gb"] = {"wgmma": n_unique * doc_bytes / 1e9, "staged": nv * doc_bytes / 1e9}
+            t["l2_gb"] = {"wgmma": (nv * doc_bytes + items * q_item) / 1e9, "staged": nv * doc_bytes / 1e9}
+            log(f"[phase5a] {name} {case}: kernel {t['ms']:.3f} ms (schedule {t['schedule_ms']:.3f} ms of it; "
+                f"{window}-doc windows, {items} non-empty (window, query) items), first design (route staged) "
+                f"{t['staged_ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}); bytes moved: device memory wgmma {t['hbm_gb']['wgmma']:.3f} GB vs staged "
+                f"{t['hbm_gb']['staged']:.3f} GB, L2 -> SMs wgmma {t['l2_gb']['wgmma']:.3f} GB vs staged "
+                f"{t['l2_gb']['staged']:.3f} GB; no single PyTorch call computes it [{label}]")
+            res[case] = t
+        out[name] = {**res["serving"], "kernel_route": "wgmma", "low_reuse": res["low-reuse"]}
+        del got, want
+    return out
 
 
 # ---- phase 6: the pq4 and pq codecs and the token-major sq probe ----
@@ -1248,7 +1341,8 @@ def phase_codecs_cli(device, workdir: Path, cfg, common, corpus_path, eval_path,
         log(f"[phase6c] pq4 request {i}: {B} questions top-{TOPK} in {dt * 1e3:.1f} ms over the socket")
     log(f"[phase6c] sq token-probe service: {B} questions top-{TOPK} in {lat_tok * 1e3:.1f} ms in process")
     eval_batches = -(-n_eval // B)
-    want = {"K8": 2 + eval_batches, "K10": 1, "K4": 3 + eval_batches, "K5": 0, "K6": 0, "K7": 0}
+    want = {"K8": 2 + eval_batches, "K10": 1, "K4": 3 + eval_batches, "K5": 0, "K6": 0, "K7": 0,
+            "K4/K5 wgmma route": 3 + eval_batches, "K4/K5 staged route": 0}
     log(f"[phase6c] launches in the pq4 / token-probe serving-path run: {launches} (expected {want}: "
         f"2 socket requests and {eval_batches} evaluate --remote batches on the pq4 index, one "
         f"token-probe batch on the sq index)")
@@ -1515,8 +1609,16 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": ann_launches[fn], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": k["library_ms"],
+            "library_ms": None,
         })
+        if fn in ("K4", "K5"):
+            lr = k["low_reuse"]
+            kernels[-1].update({
+                "kernel_route": k["kernel_route"], "route_launches": {
+                    r: ann_launches[f"K4/K5 {r} route"] for r in ("wgmma", "staged")},
+                "schedule_ms": k["schedule_ms"], "staged_design_ms": k["staged_ms"],
+                "low_reuse_ms": lr["ms"], "low_reuse_bound_ms": lr["bound_ms"],
+                "low_reuse_staged_design_ms": lr["staged_ms"], "low_reuse_max_abs_err": lr["max_abs_err"]})
     for name, fn, src, replaces in (
         ("K8 pq4_list_scan", "K8", "colbert_tpu_torch/csrc/pq4_scan.cu", "colbert_tpu/ops/pq4.py:125"),
         ("K10 sq_list_scan", "K10", "colbert_tpu_torch/csrc/sq_token_scan.cu",

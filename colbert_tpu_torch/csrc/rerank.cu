@@ -1,12 +1,12 @@
 // Fused candidate gather + exact MaxSim rerank for Hopper (sm_90a), bound with ctypes.
 //
 // Replaces two TPU kernels of colbert_tpu/ops/rerank_pallas.py:
-//   K4  _kernel         (rerank_pallas.py:26, reached through maxsim_rerank_uniform):
-//       bf16 table, queries rounded to bf16;
-//   K5  _kernel_packed  (rerank_pallas.py:65, reached through
+//   K4  _kernel         (rerank_pallas.py:26, pallas_call :294, reached through
+//       maxsim_rerank_uniform): bf16 table, queries rounded to bf16;
+//   K5  _kernel_packed  (rerank_pallas.py:65, pallas_call :157, reached through
 //       maxsim_rerank_uniform_packed): int8 table, fp32 queries with the
 //       per-dim descale folded in by the caller.
-// One kernel, templated on the table type.
+// Each route below serves both, templated on the table type.
 //
 // What it computes, for candidates cand (B, C) int32 (-1 = none), queries
 // Q (B, qv, dim) fp32 and a doc-major table (num_docs * dv, dim) whose doc p
@@ -20,22 +20,64 @@
 // precision, and each int8 value is an exact bf16 integer, so three bf16
 // products accumulated in fp32 give the fp32 dot.
 //
-// What bounds it: every candidate's dv x dim block is read once per
-// (query, candidate) -- at the serving point (144 x 4,096 candidates x 16 x
-// 768 bf16) 14.5 GB per batch, against 232 GFLOP, i.e. 16 FLOP per byte:
-// far below the card's ~295 FLOP/B ridge, so the bytes bound it.  The design
-// keeps the similarity tile out of device memory: one warp owns one
-// candidate at a time, stages 16 doc rows x 128 dims in shared memory
-// (16-byte loads; int8 widened to bf16 there), multiplies them against the
-// query, held in shared memory for the whole block, with bf16 16x16x16 wmma
-// fragments, and folds max-over-rows and sum-over-views in registers.
-// cp.async/TMA pipelining, wgmma and candidate sorting are left for later
-// work.
+// What bounds it: at the serving point (144 queries x 4,096 candidates, 16 x
+// 768) the pairs name ~20,000 distinct docs, each ~19 times: 0.49 GB of
+// distinct bf16 doc blocks against 9.26 GB if every (query, candidate) pair
+// fetched its block from device memory.  The operations (16 FLOP a byte of
+// pair blocks, 3x that for K5's three terms) sit below the ridge, so bytes
+// bound it: the distinct docs from device memory once, and the pair blocks
+// streamed from L2 into the SMs.
+//
+// Route "wgmma" (dv = 16 rows a doc, qv = 16 views, dim a multiple of 64: the
+// serving shape), query-stationary blocks over pid-windowed candidates:
+// * The wrapper (ops/rerank.py) sorts each query's candidates by pid (-1
+//   last, the permutation kept), cuts the pid space into windows of W docs
+//   and finds each query's first sorted candidate in each window: all on the
+//   device, no host synchronisation.  A work item is (window w, query b).
+// * A persistent grid walks the items window-major, so the ~144 queries'
+//   candidates in one window are in flight together and each doc block of
+//   the window comes from device memory about once a batch; W is chosen so
+//   that about two windows of blocks fit in half the L2.  Empty items exit
+//   at once.
+// * The item's query sits in shared memory as the wgmma B operand (n = 16:
+//   bf16(Q); n = 48 for K5: its three bf16 terms side by side), loaded once
+//   an item by TMA (two buffers for K4, so the next item's query loads while
+//   this one's docs stream).
+// * The item's candidates stream in groups of 8 docs through a ring of
+//   stages fed by TMA from a 3-D tensor map over the table (128-byte column
+//   chunk x row x chunk index, the chunk index outermost): one box a doc a
+//   stage, its 16 rows x 3 chunks (192 dims) of bf16 or 2 chunks (256 dims)
+//   of int8, landing chunk-major in the 128-byte swizzle.  The TMA path
+//   takes about the same time a box whatever its bytes, so boxes are large:
+//   with one 16 x 64 box a doc a 64-dim stage K4 took 1.8-2.3 ms, with these
+//   1.4 (NVIDIA H100 80GB HBM3, 700.00 W).  Four producer threads, one a
+//   warp, issue the boxes.
+// * A doc a consumer warp: with m64 a warp owns 16 accumulator rows, so each
+//   warp loads its own doc's A fragments from its box into registers
+//   (ldmatrix on the swizzled bf16 rows; for int8, 32-bit loads widened
+//   exactly to bf16 in registers: no widened copy in shared memory), frees
+//   the stage, and the two consumer warpgroups issue wgmma m64n16k16 (K4) or
+//   m64n48k16 (K5) with A from registers; setmaxnreg moves registers from
+//   the producers to them.  The int8 widening puts bytes 4q..4q+3 of a
+//   k16 step in fragment columns 2q, 2q+1, 2q+8, 2q+9; the wrapper permutes
+//   the query's dims the same way.
+// * The epilogue in registers: the doc never leaves its warp, so K5's three
+//   term columns (j, j+16, j+32) are added, the max over the doc's rows is a
+//   shuffle over lane bits 2-4 and the sum over views one over bits 0-1;
+//   lane 0 writes out[b, perm[b, j]].  Each pair is written once, no
+//   atomics; the wrapper fills out with -inf, which -1 pairs keep.
+//
+// Route "staged" (every other shape: dv != 16, qv != 16, other dims): the
+// first design, one warp per candidate at a time, 16 doc rows x 128 dims
+// staged synchronously in shared memory, bf16 16x16x16 wmma, every pair's
+// block read from device memory.  ops/rerank.py::rerank_plan picks the route.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"  // TMA, mbarriers, wgmma descriptors, int8 widening, tensor maps
 
 using namespace nvcuda;
 
@@ -197,14 +239,345 @@ cudaError_t launch(const int* cand, const float* q, const T* table, float* out, 
   return cudaGetLastError();
 }
 
+// ---- route "wgmma": query-stationary items over pid windows ----
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int DV = 16;          // rows a doc: one warp's 16 accumulator rows
+constexpr int QV = 16;          // views a query
+constexpr int CONS = 2;         // consumer warpgroups
+constexpr int GD = 4 * CONS;    // docs a stage: one a consumer warp
+constexpr int PROD = 4;         // producer threads: lane 0 of each producer warp
+constexpr int THREADS = 128 * (CONS + 1);  // warpgroups 0..CONS-1 consume; the last produces
+constexpr int MAX_DIM = 1024;
+constexpr int ROW = 128;        // bytes a box row: one 128-byte swizzle row
+constexpr uint32_t CHUNK = DV * ROW;  // a doc's 16 rows of one 128-byte column chunk
+
+// A doc's TMA box a stage is 16 rows x `chunks` 128-byte column chunks (3-D:
+// chunk-major, each chunk 16 swizzled rows): 192 dims of bf16, 256 of int8.
+// The boxes, not their bytes, set the streaming rate, so they are large.
+template <bool I8> struct Cfg {
+  static constexpr int NQ = I8 ? 3 * QV : QV;   // B operand rows (wgmma n): bf16 terms x views
+  static constexpr int QBUF = I8 ? 1 : 2;       // query buffers
+  static constexpr int chunks = I8 ? 2 : 3;     // 128-byte column chunks a box
+  static constexpr int ks = chunks * ROW / (I8 ? 1 : 2);  // dims a stage
+  static constexpr int steps = ks / 16;         // k16 steps a stage
+  static constexpr int stages = I8 ? 4 : 3;
+  static constexpr uint32_t box = chunks * CHUNK;
+  static constexpr uint32_t stage = GD * box;
+  static constexpr uint32_t ring = stages * stage;
+  static constexpr uint32_t q_chunk = NQ * 128; // 64 dims of the B operand
+  static constexpr size_t smem(int nq) { return ring + size_t(QBUF) * nq * q_chunk + 1024; }  // + alignment
+};
+static_assert(Cfg<false>::smem(MAX_DIM / 64) <= 232448 - 1024 && Cfg<true>::smem(MAX_DIM / 64) <= 232448 - 1024,
+              "the ring and the query buffers must fit a block's shared memory");
+static_assert(CHUNK % 1024 == 0 && Cfg<true>::q_chunk % 1024 == 0 && Cfg<false>::q_chunk % 1024 == 0,
+              "128-byte swizzle atoms are 1024-byte aligned");
+static_assert(PROD <= 4 && GD % PROD == 0, "the producer warpgroup has 4 warps");
+
+// One box of a 3-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// d (+)= A[64 x 16] . B[16 x 16]^T: A from registers (each warp its 16 rows),
+// B K-major in shared memory; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A[64 x 16] . B[48 x 16]^T.
+__device__ __forceinline__ void wgmma_rs(float (&d)[24], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// This warp's A fragment of k16 step `st` of a stage, from its doc's box at
+// `doc` (chunk-major, 16 rows of 128 swizzled bytes a chunk): registers a0..a3
+// hold rows g, g + 8 (g = lane/4) at fragment columns 2q + {0, 1} and
+// 2q + 8 + {0, 1} (q = lane%4), the m16n8k16 layout.
+//   bf16: one ldmatrix.x4 (lane l addresses row l%8 + 8*((l/8)%2), columns
+//   8*(l/16) + {0..7} of the step), the fragment columns are the step's dims.
+//   int8: rows g and g + 8, bytes 4q..4q+3 of the step's 16, widened exactly;
+//   fragment columns 2q + {0, 1} hold dims 4q + {0, 1} and 2q + 8 + {0, 1} dims
+//   4q + {2, 3}: the wrapper permutes the query's dims to match
+//   (ops/rerank.py::query_operand).
+template <bool I8>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], uint32_t doc, int st, int lane) {
+  if constexpr (I8) {
+    const uint32_t tile = doc + (st / 8) * CHUNK;
+    const int g = lane / 4, q = lane % 4, unit = ((st % 8) ^ g) * 16 + 4 * q;  // rows g, g + 8: same swizzle
+    widen4(lds32(tile + g * ROW + unit), a[0], a[2]);
+    widen4(lds32(tile + (g + 8) * ROW + unit), a[1], a[3]);
+  } else {
+    const int r = lane % 8 + 8 * ((lane / 8) % 2), u = (st % 4) * 2 + lane / 16;
+    ldmatrix_x4(a, doc + (st / 4) * CHUNK + r * ROW + ((u ^ (r & 7)) * 16));
+  }
+}
+
+// The doc score of this warp's 16 accumulator rows, in every lane.  A thread
+// holds rows lane/4 and lane/4 + 8 at columns 8j + 2*(lane%4) + {0, 1} in
+// d[4j + {0, 1}] and d[4j + {2, 3}], R / 8 column blocks of 8 in its R
+// registers; for K5 (R = 24) the term t of view column c is column c + 16t,
+// so d[4(j + 2t) + e] are added first.
+template <int R>
+__device__ __forceinline__ float doc_score(const float (&d)[R]) {
+  constexpr int TERMS = R / 8;
+  float s = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[e] = d[4 * j + e];
+#pragma unroll
+      for (int t = 1; t < TERMS; ++t) v[e] += d[4 * (j + 2 * t) + e];
+    }
+    // max over the doc's 16 rows: rows lane/4 and lane/4 + 8 here, the rest over lane bits 2-4
+    float x = fmaxf(v[0], v[2]), y = fmaxf(v[1], v[3]);
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+      y = fmaxf(y, __shfl_xor_sync(0xffffffffu, y, o));
+    }
+    s += x + y;
+  }
+  // the 16 views: 4 in the thread, the rest over lane bits 0-1
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  return s;
+}
+
+}  // namespace wg
+
+template <bool I8>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+rerank_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_table,  // 3-D over the table, box 16 rows x chunks
+                    const __grid_constant__ CUtensorMap tmap_q,      // (B*NQ, dim) bf16, box 64 x NQ
+                    const int* __restrict__ spid,      // (B, C) pids sorted ascending, -1 last
+                    const int64_t* __restrict__ perm,  // (B, C) column of each sorted pid
+                    const int* __restrict__ wstart,    // (B, n_win + 1) first sorted index of each window
+                    float* __restrict__ out,           // (B, C), filled with -inf
+                    int B, int C, int n_win, int dim) {
+  using namespace wg;
+  using K = Cfg<I8>;
+  constexpr int N = K::NQ, STAGES = K::stages;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], qfull[K::QBUF], qempty[K::QBUF];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the ring, then the query buffers
+  const uint32_t qbase = base + K::ring;
+  const int nq = dim / 64;                        // 64-dim chunks of the query
+  const int nks = (dim + K::ks - 1) / K::ks;      // stages a group (a last partial one: zero fill)
+  const uint32_t qsize = uint32_t(nq) * K::q_chunk;  // one query's B operand
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], PROD);       // each producer thread's expect_tx
+      mbar_init(&empty[s], CONS * 4);  // one arrival per consumer warp
+    }
+#pragma unroll
+    for (int s = 0; s < K::QBUF; ++s) {
+      mbar_init(&qfull[s], 1);
+      mbar_init(&qempty[s], CONS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int n_items = n_win * B;
+  const int wgi = threadIdx.x / 128;
+  if (wgi == CONS) {
+    // ---- producers: PROD threads load each item's docs (doc d by thread d % PROD: one
+    // thread's TMA issue alone holds the stream back), the first also its query ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int pi = (threadIdx.x - CONS * 128) / 32;
+    if (threadIdx.x % 32 == 0 && pi < PROD) {
+      int stage = 0, it = 0;
+      uint32_t phase = 0;
+      for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+        const int w = i / B, b = i % B;
+        const int* ws = wstart + int64_t(b) * (n_win + 1) + w;
+        const int lo = ws[0], hi = ws[1];
+        if (lo >= hi) continue;
+        const int qb = it % K::QBUF;
+        const uint32_t qph = (it / K::QBUF) & 1;
+        ++it;
+        if (pi == 0) {
+          mbar_wait(&qempty[qb], qph ^ 1);
+          mbar_expect_tx(&qfull[qb], qsize);
+          for (int c = 0; c < nq; ++c)
+            tma_load(qbase + qb * qsize + c * K::q_chunk, &tmap_q, c * 64, b * N, &qfull[qb]);
+        }
+        const int* row = spid + int64_t(b) * C;
+        for (int g0 = lo; g0 < hi; g0 += GD) {
+          const int nd = min(GD, hi - g0);
+          int pid[GD];
+#pragma unroll
+          for (int d = 0; d < GD; ++d) pid[d] = d < nd ? row[g0 + d] : 0;
+          for (int kb = 0; kb < nks; ++kb) {
+            mbar_wait(&empty[stage], phase ^ 1);
+            const uint32_t st = base + stage * K::stage;
+            mbar_expect_tx(&full[stage], ((nd - pi + PROD - 1) / PROD) * K::box);
+#pragma unroll
+            for (int d = 0; d < GD; ++d)
+              if (d < nd && d % PROD == pi)
+                tma_load_3d(st + d * K::box, &tmap_table, 0, pid[d] * DV, kb * K::chunks, &full[stage]);
+            if (++stage == STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: a doc a warp of every group, the MaxSim epilogue, the write ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    float d[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) d[i] = 0.0f;
+    int stage = 0, it = 0;
+    uint32_t phase = 0;
+    for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+      const int w = i / B, b = i % B;
+      const int* ws = wstart + int64_t(b) * (n_win + 1) + w;
+      const int lo = ws[0], hi = ws[1];
+      if (lo >= hi) continue;
+      const int qb = it % K::QBUF;
+      const uint32_t qph = (it / K::QBUF) & 1;
+      ++it;
+      mbar_wait(&qfull[qb], qph);
+      const uint32_t q0 = qbase + qb * qsize;
+      const int64_t row0 = int64_t(b) * C;
+      for (int g0 = lo; g0 < hi; g0 += GD) {
+        for (int kb = 0; kb < nks; ++kb) {
+          mbar_wait(&full[stage], phase);
+          // the whole stage of this warp's doc into registers, then the stage is free
+          uint32_t a[K::steps][4];
+          const uint32_t doc = base + stage * K::stage + (wgi * 4 + warp) * K::box;
+#pragma unroll
+          for (int st = 0; st < K::steps; ++st) load_a<I8>(a[st], doc, st, lane);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[stage]);
+          fence_acc(d);
+          wgmma_fence();
+#pragma unroll
+          for (int st = 0; st < K::steps; ++st) {
+            const int k = kb * K::ks + st * 16;
+            if (k < dim)  // a last partial stage: the box's zero fill past dim has no query
+              wgmma_rs(d, a[st], sw128_desc(q0 + (k / 64) * K::q_chunk + ((k % 64) / 16) * 32), k != 0);
+          }
+          wgmma_commit();
+          fence_acc(d);
+          wgmma_wait<0>();  // the registers of a[] are read
+          fence_acc(d);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        const float s = doc_score(d);
+        const int j = g0 + wgi * 4 + warp;  // this warp's doc in the sorted row
+        if (lane == 0 && j < hi) out[row0 + perm[row0 + j]] = s;
+      }
+      if (lane == 0) mbar_arrive(&qempty[qb]);  // every product on this query is done
+    }
+  }
+}
+
+// The table as a 3-D map for one box a doc a stage: dims (128-byte column
+// chunk, row, chunk index), box (128 bytes, 16 rows, chunks), 128-byte swizzle;
+// column chunks past dim fill with zeros.
+template <bool I8>
+bool make_table_map(CUtensorMap* map, const void* table, int num_docs, int dim) {
+  hopper::EncodeTiledFn enc = hopper::encode_tiled();
+  if (enc == nullptr) return false;
+  constexpr int esz = I8 ? 1 : 2, inner = wg::ROW / esz;
+  const cuuint64_t dims[3] = {cuuint64_t(inner), cuuint64_t(num_docs) * wg::DV, cuuint64_t((dim + inner - 1) / inner)};
+  const cuuint64_t strides[2] = {cuuint64_t(dim) * esz, cuuint64_t(wg::ROW)};
+  const cuuint32_t box[3] = {uint32_t(inner), uint32_t(wg::DV), uint32_t(wg::Cfg<I8>::chunks)};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, I8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<void*>(table), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool I8>
+cudaError_t launch_wgmma(const void* q, const void* table, const int* spid, const int64_t* perm,
+                         const int* wstart, float* out, int B, int C, int dim, int num_docs, int n_win,
+                         cudaStream_t stream) {
+  using K = wg::Cfg<I8>;
+  CUtensorMap map_table, map_q;
+  if (!make_table_map<I8>(&map_table, table, num_docs, dim) ||
+      !hopper::make_map(&map_q, q, false, uint64_t(B) * K::NQ, dim, K::NQ))
+    return cudaErrorInvalidValue;
+  const int64_t n_items = int64_t(n_win) * B;
+  if (n_items > INT32_MAX) return cudaErrorInvalidValue;
+  const size_t smem = K::smem(dim / 64);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(rerank_wgmma_kernel<I8>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const int grid = int(n_items < sms ? n_items : sms);
+  rerank_wgmma_kernel<I8><<<grid, wg::THREADS, smem, stream>>>(map_table, map_q, spid, perm, wstart, out,
+                                                                 B, C, n_win, dim);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shape limits the kernel takes; the Python wrapper checks them first.
-int rerank_max_views() { return MAX_QV; }
+// Shape limits the kernels take; the Python wrapper checks them first.
+int rerank_max_views() { return MAX_QV; }            // route "staged": query rows
+int rerank_wgmma_dv() { return wg::DV; }             // route "wgmma": rows a doc
+int rerank_wgmma_views() { return wg::QV; }          // route "wgmma": views a query
+int rerank_wgmma_max_dim() { return wg::MAX_DIM; }   // route "wgmma": largest dim (a multiple of 64)
+int rerank_wgmma_group() { return wg::GD; }          // route "wgmma": docs a stage
 
-// Returns a cudaError_t: 0 when the launch was accepted.
+// Route "staged".  Returns a cudaError_t: 0 when the launch was accepted.
 int rerank_launch(const void* cand, const void* q, const void* table, int table_int8,
                   void* out, int B, int C, int qv, int dim, int dv, void* stream) {
   if (B < 1 || B > 65535 || C < 1 || qv < 1 || qv > MAX_QV || dim < 16 || dim % 16 != 0 || dv < 1)
@@ -216,6 +589,27 @@ int rerank_launch(const void* cand, const void* q, const void* table, int table_
   cudaError_t err = table_int8
       ? launch<int8_t>(c, qq, static_cast<const int8_t*>(table), o, B, C, qv, dim, dv, s)
       : launch<__nv_bfloat16>(c, qq, static_cast<const __nv_bfloat16*>(table), o, B, C, qv, dim, dv, s);
+  return int(err);
+}
+
+// Route "wgmma".  q: the bf16 B operand, (B*16, dim) for a bf16 table or
+// (B*48, dim) (three terms a query) for int8; spid/perm/wstart: the pid-window
+// schedule (ops/rerank.py::rerank_schedule); out (B, C) filled with -inf.
+// Returns a cudaError_t: 0 when the launch was accepted.
+int rerank_wgmma_launch(const void* q, const void* table, int table_int8, const void* spid,
+                        const void* perm, const void* wstart, void* out, int B, int C, int dim,
+                        int num_docs, int n_win, void* stream) {
+  if (B < 1 || C < 1 || dim < 64 || dim > wg::MAX_DIM || dim % 64 != 0 || num_docs < 1 ||
+      n_win < 1 || (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(table)) % 16)
+    return int(cudaErrorInvalidValue);
+  const int* sp = static_cast<const int*>(spid);
+  const int64_t* pm = static_cast<const int64_t*>(perm);
+  const int* ws = static_cast<const int*>(wstart);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = table_int8
+      ? launch_wgmma<true>(q, table, sp, pm, ws, o, B, C, dim, num_docs, n_win, s)
+      : launch_wgmma<false>(q, table, sp, pm, ws, o, B, C, dim, num_docs, n_win, s);
   return int(err);
 }
 

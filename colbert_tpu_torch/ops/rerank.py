@@ -13,25 +13,49 @@ Counterpart of ``colbert_tpu/ops/rerank_pallas.py`` for uniform-doclen
   port keeps it unpacked), queries in fp32 with the per-dim descale
   ``1/scale`` already multiplied in, as the TPU kernel takes them.
 
-Both run one CUDA kernel (``csrc/rerank.cu``) for CUDA tensors, counted in
+Both run one CUDA source (``csrc/rerank.cu``) for CUDA tensors, counted in
 their ``launches`` counters, and their plain PyTorch versions (``*_ref``)
 for CPU tensors.  Any candidate count works; the JAX kernels need a
 multiple of 128.
+
+The source has two routes, chosen by shape in :func:`rerank_plan`:
+"wgmma" for the serving shape (16 rows a doc, 16 views, dim a multiple of
+64): each query's candidates sorted by pid and cut into pid windows
+(:func:`rerank_schedule`, on the device without a host sync), a persistent
+grid over the (window, query) items window-major, so a window's doc blocks
+come from device memory about once a batch, one TMA box a doc a stage,
+wgmma with each warp's doc in registers and the MaxSim there too; "staged" (the first, wmma kernel, one warp per candidate) for
+every other shape.  Each counts its launches in :data:`route_launches`.
+:func:`rerank_windowed_ref` walks the same items in plain torch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from colbert_tpu_torch.ops._build import LaunchCounter
 
-_MAX_VIEWS = 32  # query rows; mirrored by rerank_max_views() in the .cu
+# kernel limits, mirrored by rerank_max_views() (route "staged") and
+# rerank_wgmma_dv/views/max_dim/group() (route "wgmma") in the .cu
+_MAX_VIEWS = 32
+_WGMMA_DV = 16
+_WGMMA_VIEWS = 16
+_WGMMA_MAX_DIM = 1024
+_WGMMA_GROUP = 8  # docs a stage: one a consumer warp
+_ROUTES = ("staged", "wgmma")
 _REF_BYTES = 1 << 30  # gathered fp32 doc rows per plain-version step
+_WINDOW_BYTES = 12 << 20  # doc blocks a pid window: two windows in half the card's 50 MB L2
+_MIN_ITEM_CANDS = 32  # fewest candidates an item should average (windows per query <= C / 32)
+_NO_PID = torch.iinfo(torch.int32).max  # the sort key of a -1 candidate: after every pid
+#: the dim each column of a 16-dim k-step holds in the int8 kernel's A
+#: fragment: a thread widens bytes 4q..4q+3 of its rows into fragment columns
+#: 2q, 2q+1 and 2q+8, 2q+9 (csrc/rerank.cu::load_a)
+INT8_K_ORDER = (0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15)
 
 
 def quantize_emb_table(emb, chunk: int = 1 << 18) -> Tuple[np.ndarray, np.ndarray]:
@@ -85,6 +109,88 @@ def maxsim_rerank_uniform_int8_ref(cand: torch.Tensor, Qm: torch.Tensor, table: 
     return _rerank_ref(cand, Qm.float(), table, dv)
 
 
+def rerank_plan(dv: int, qv: int, dim: int) -> str:
+    """The kernel route for ``dv`` rows a doc, ``qv`` query views and width
+    ``dim``: "wgmma" where a warp's 16 accumulator rows are one doc, the 16
+    views one wgmma n = 16 operand and ``dim`` whole 128-byte bf16 column
+    chunks (a multiple of 64, up to 1,024), else "staged".  Both take bf16
+    and int8 tables."""
+    wgmma = (dv, qv) == (_WGMMA_DV, _WGMMA_VIEWS) and dim % 64 == 0 and 64 <= dim <= _WGMMA_MAX_DIM
+    return "wgmma" if wgmma else "staged"
+
+
+def window_docs(num_docs: int, C: int, doc_bytes: int) -> int:
+    """Docs a pid window of the "wgmma" route: about two windows of doc
+    blocks (``doc_bytes`` each) in half the L2, so a window's blocks stay
+    there while its queries read them; but no more windows than ``C / 32``,
+    so an item keeps ~32 candidates where docs are barely shared (a large
+    corpus).  Fixed by the shapes: no host synchronisation."""
+    per_l2 = max(1, _WINDOW_BYTES // max(1, doc_bytes))
+    n_win = max(1, min(-(-num_docs // per_l2), C // _MIN_ITEM_CANDS))
+    return -(-max(num_docs, 1) // n_win)
+
+
+def rerank_schedule(cand: torch.Tensor, num_docs: int, window: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The pid-window schedule of the "wgmma" route, on ``cand``'s device
+    with no host synchronisation (sizes fixed by (B, C, num_docs)):
+
+    * ``spid`` (B, C) int32: each row's pids sorted ascending, -1 last (as
+      ``int32`` max);
+    * ``perm`` (B, C) int64: the column of ``cand`` each sorted entry came from;
+    * ``wstart`` (B, n_win + 1) int32: the first sorted index of each window
+      of ``window`` pids, ``wstart[:, -1]`` the count of real candidates.
+
+    Item (w, b) holds ``spid[b, wstart[b, w]:wstart[b, w + 1]]``."""
+    B = cand.shape[0]
+    spid, perm = torch.sort(cand.masked_fill(cand < 0, _NO_PID), dim=1)
+    n_win = -(-max(num_docs, 1) // window)
+    edges = torch.arange(n_win + 1, dtype=torch.int32, device=cand.device) * window
+    wstart = torch.searchsorted(spid, edges.expand(B, n_win + 1).contiguous(), out_int32=True)
+    return spid, perm, wstart
+
+
+def rerank_windowed_ref(cand: torch.Tensor, q: torch.Tensor, table: torch.Tensor, dv: int,
+                        window: int) -> torch.Tensor:
+    """Plain walk over the "wgmma" route's items: window-major, each query's
+    candidates of the window in groups of 8 docs, fp32 MaxSim of ``q``
+    (B, qv, dim; rounded by the caller as the kernel's operand) against
+    their blocks, each score written to its original column (-inf where
+    nothing is).  For holding the schedule to :func:`_rerank_ref`."""
+    B, C = cand.shape
+    num_docs = table.shape[0] // dv
+    spid, perm, wstart = rerank_schedule(cand, num_docs, window)
+    docs = table[: num_docs * dv].view(num_docs, dv, -1)
+    out = torch.full((B, C), float("-inf"), dtype=torch.float32, device=q.device)
+    for w in range(wstart.shape[1] - 1):
+        for b in range(B):
+            lo, hi = int(wstart[b, w]), int(wstart[b, w + 1])
+            for g0 in range(lo, hi, _WGMMA_GROUP):
+                g = slice(g0, min(g0 + _WGMMA_GROUP, hi))
+                D = docs[spid[b, g].long()].float()                      # (group, dv, dim)
+                out[b, perm[b, g]] = torch.einsum("qh,gdh->gqd", q[b].float(), D).amax(-1).sum(-1)
+    return out
+
+
+def query_operand(Qm: torch.Tensor, int8_table: bool) -> torch.Tensor:
+    """The "wgmma" route's bf16 B operand: ``bf16(Qm)`` (B, qv, dim) for a
+    bf16 table; for int8, ``Qm``'s three bf16 terms side by side (B, 3*qv,
+    dim), whose sum is ``Qm`` to fp32 precision (each remainder is exact in
+    fp32), with each 16-dim block's dims in :data:`INT8_K_ORDER`: the order
+    in which the kernel widens a thread's int8 words into its A fragment."""
+    if not int8_table:
+        return Qm.to(torch.bfloat16).contiguous()
+    q = Qm.float()
+    t0 = q.to(torch.bfloat16)
+    r = q - t0.float()
+    t1 = r.to(torch.bfloat16)
+    t2 = (r - t1.float()).to(torch.bfloat16)
+    terms = torch.cat([t0, t1, t2], dim=1)
+    B, n, dim = terms.shape
+    # dim 4q + 2h + e of a block goes to column 8h + 2q + e: a view, no index tensor to copy
+    return terms.view(B, n, dim // 16, 4, 2, 2).transpose(3, 4).reshape(B, n, dim).contiguous()
+
+
 # ---- the CUDA kernel ----
 
 _lib_lock = threading.Lock()
@@ -100,14 +206,26 @@ def _kernel_lib() -> ctypes.CDLL:
                 [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
             )
             lib.rerank_launch.restype = ctypes.c_int
-            lib.rerank_max_views.argtypes, lib.rerank_max_views.restype = [], ctypes.c_int
-            if lib.rerank_max_views() != _MAX_VIEWS:
+            lib.rerank_wgmma_launch.argtypes = (
+                [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                + [ctypes.c_void_p]
+            )
+            lib.rerank_wgmma_launch.restype = ctypes.c_int
+            limits = (lib.rerank_max_views, lib.rerank_wgmma_dv, lib.rerank_wgmma_views,
+                      lib.rerank_wgmma_max_dim, lib.rerank_wgmma_group)
+            for fn in limits:
+                fn.argtypes, fn.restype = [], ctypes.c_int
+            if tuple(fn() for fn in limits) != (_MAX_VIEWS, _WGMMA_DV, _WGMMA_VIEWS, _WGMMA_MAX_DIM,
+                                                _WGMMA_GROUP):
                 raise RuntimeError("csrc/rerank.cu limits disagree with ops/rerank.py")
     return lib
 
 
 def _launch(cand: torch.Tensor, Qm: torch.Tensor, table: torch.Tensor, dv: int,
-            table_dtype: torch.dtype) -> torch.Tensor:
+            table_dtype: torch.dtype, route: Optional[str] = None) -> torch.Tensor:
+    """One kernel launch on the route :func:`rerank_plan` picks; ``route``
+    "staged" forces the first design on any shape (``chip_smoke.py`` times
+    it beside the "wgmma" route)."""
     dev = table.device
     if not (cand.is_cuda and Qm.is_cuda and cand.device == Qm.device == dev):
         raise ValueError("rerank kernel needs cand, Qm and table on one CUDA device")
@@ -123,18 +241,38 @@ def _launch(cand: torch.Tensor, Qm: torch.Tensor, table: torch.Tensor, dv: int,
     if not table.is_contiguous() or table.data_ptr() % 16:
         raise ValueError("rerank kernel needs a contiguous, 16-byte aligned table")
     C = cand.shape[1]
-    out = torch.empty((B, C), dtype=torch.float32, device=dev)
+    plan = rerank_plan(dv, qv, dim)
+    route = route or plan
+    if route not in _ROUTES or (route == "wgmma" and plan != "wgmma"):
+        raise ValueError(f"rerank route {route!r} does not take dv {dv}, {qv} views, dim {dim}")
     if B == 0 or C == 0:
-        return out
+        return torch.empty((B, C), dtype=torch.float32, device=dev)
     lib = _kernel_lib()
-    cand, q = cand.contiguous(), Qm.float().contiguous()
-    with torch.cuda.device(dev):
-        err = lib.rerank_launch(cand.data_ptr(), q.data_ptr(), table.data_ptr(),
-                                int(table_dtype == torch.int8), out.data_ptr(), B, C, qv, dim, dv,
-                                torch.cuda.current_stream(dev).cuda_stream)
+    int8 = table_dtype == torch.int8
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cand = cand.contiguous()
+    if route == "wgmma":
+        num_docs = table.shape[0] // dv
+        window = window_docs(num_docs, C, dv * dim * table.element_size())
+        spid, perm, wstart = rerank_schedule(cand, num_docs, window)
+        q = query_operand(Qm, int8)
+        if q.data_ptr() % 16:  # the tensor map needs a 16-byte aligned base
+            q = q.clone()
+        out = torch.full((B, C), float("-inf"), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.rerank_wgmma_launch(q.data_ptr(), table.data_ptr(), int(int8), spid.data_ptr(),
+                                          perm.data_ptr(), wstart.data_ptr(), out.data_ptr(), B, C, dim,
+                                          num_docs, wstart.shape[1] - 1, stream)
+    else:
+        q = Qm.float().contiguous()
+        out = torch.empty((B, C), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            err = lib.rerank_launch(cand.data_ptr(), q.data_ptr(), table.data_ptr(), int(int8),
+                                    out.data_ptr(), B, C, qv, dim, dv, stream)
     if err != 0:
-        raise RuntimeError(f"rerank kernel launch failed: cudaError_t {err} "
+        raise RuntimeError(f"rerank kernel launch failed ({route} route): cudaError_t {err} "
                            f"(Q {tuple(Qm.shape)}, table {tuple(table.shape)}, dv {dv})")
+    route_launches[route].add()
     return out
 
 
@@ -167,3 +305,5 @@ def maxsim_rerank_uniform_int8(cand: torch.Tensor, Qm: torch.Tensor, table: torc
 
 maxsim_rerank_uniform.launches = LaunchCounter()
 maxsim_rerank_uniform_int8.launches = LaunchCounter()
+#: launches of each kernel route, K4 and K5 together
+route_launches = {route: LaunchCounter() for route in _ROUTES}

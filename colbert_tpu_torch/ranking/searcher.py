@@ -8,15 +8,18 @@ Two serving modes, as ``serve.mode`` selects:
 * ann (``:89-357, 428-571``): query tokens -> BERT + ColBERT head -> the
   codec's IVF probe (sq: K6 slots and K7 hot lists, or K10 per token with
   ``serve.probe_impl="token"``; pq4: K8; pq: an fp32 LUT gather in torch
-  ops) -> CSR row -> pid -> dedup -> fused gather + exact MaxSim rerank
-  (K4 over a bf16 table, K5 over int8) -> top-k, over the IVF index that
-  ``build-index`` writes.
+  ops) -> CSR row -> pid -> dedup -> exact MaxSim rerank -> top-k, over the
+  IVF index that ``build-index`` writes.  ``serve.rerank_dtype`` picks the
+  rerank table: "bfloat16" (K4, the fused gather + MaxSim kernel), "int8"
+  (K5) or "float32": an fp32 table reranked by a gather and an fp32 einsum
+  in torch ops (:func:`rerank_fp32`), as the JAX package reranks an fp32
+  table off the TPU (its XLA branch, ``:310-328``).
 
 The index and the tables are built once and held on the device; nothing of
-the serve path runs anywhere else.  On the card the rerank always runs K4
-or K5: the JAX package's ``serve.rerank_kernel`` gate and its XLA fallback
-are TPU-side choices, so ``rerank_kernel`` and ``rerank_dtype="float32"``
-(a bf16 table, as the JAX fused kernel reads it) change nothing here.
+the serve path runs anywhere else.  The JAX package's ``serve.rerank_kernel``
+gate (Pallas kernel or XLA gather for a bf16 table) is a TPU-side choice and
+changes nothing here.  Flat mode serves "float32" from a bf16 table, as the
+JAX flat path does.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from colbert_tpu_torch.tokenization import ColbertTokenizer
 
 ProbeFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 _ORACLE_DOCS = 4096  # docs per step of the exact oracle
+_FP32_QUERY_CHUNK = 8  # queries per step of the fp32 rerank (the JAX searcher's query_chunk)
 
 
 @dataclass
@@ -160,12 +164,46 @@ def dedup(pids: torch.Tensor, scores: torch.Tensor, *, q_view: int, depth: int, 
     return cand
 
 
+def rerank_fp32(cand: torch.Tensor, Qm: torch.Tensor, table: torch.Tensor, *, dv: int) -> torch.Tensor:
+    """Exact fp32 MaxSim (B, C) of each candidate over an fp32 table, -inf
+    where ``cand < 0``: the JAX searcher's XLA branch for a uniform corpus
+    (``colbert_tpu/ranking/searcher.py:310-328``, ``maxsim_qd``) in torch
+    ops -- gather the candidates' blocks, einsum, max over rows, sum over
+    views -- in its chunks (8 queries, candidate slices halved while a
+    chunk's gather would pass 2^30 two-byte values), with TF32 off."""
+    B, C = cand.shape
+    dim = table.shape[1]
+    docs = table[: (table.shape[0] // dv) * dv].view(-1, dv, dim)
+    qc = _FP32_QUERY_CHUNK
+    cc = C
+    while qc * cc * dv * dim * 2 > (1 << 30) and cc > 256:
+        cc //= 2
+    if C % cc:
+        cc = C
+    out = torch.empty((B, C), dtype=torch.float32, device=Qm.device)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for q0 in range(0, B, qc):
+            q = Qm[q0 : q0 + qc].float()
+            for c0 in range(0, C, cc):
+                c = cand[q0 : q0 + qc, c0 : c0 + cc].long()
+                sim = torch.einsum("bqh,bcdh->bcqd", q, docs[c.clamp(min=0)])
+                out[q0 : q0 + qc, c0 : c0 + cc] = sim.amax(dim=-1).sum(dim=-1).masked_fill(c < 0, float("-inf"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
 def rerank(cand: torch.Tensor, Qm: torch.Tensor, table: torch.Tensor,
            inv_scale: Optional[torch.Tensor], *, dv: int) -> torch.Tensor:
-    """Exact MaxSim (B, C) of each candidate: K5 over an int8 table (the
-    descale folded into the fp32 queries), else K4."""
+    """Exact MaxSim (B, C) of each candidate, by the table's dtype: K5 over
+    int8 (the descale folded into the fp32 queries), K4 over bf16,
+    :func:`rerank_fp32` over fp32."""
     if table.dtype == torch.int8:
         return maxsim_rerank_uniform_int8(cand, Qm.float() * inv_scale, table, dv=dv)
+    if table.dtype == torch.float32:
+        return rerank_fp32(cand, Qm, table, dv=dv)
     return maxsim_rerank_uniform(cand, Qm, table, dv=dv)
 
 
@@ -271,7 +309,8 @@ class ColbertSearcher:
             self.emb_table = torch.from_numpy(q8).to(dev)
             self.emb_inv_scale = torch.from_numpy((1.0 / scale).astype(np.float32)).to(dev)
         else:
-            self.emb_table = torch.from_numpy(np.ascontiguousarray(emb)).to(dev).to(torch.bfloat16)
+            tdt = torch.float32 if s.rerank_dtype == "float32" else torch.bfloat16
+            self.emb_table = torch.from_numpy(np.ascontiguousarray(emb)).to(dev).to(tdt)
             self.emb_inv_scale = None
 
     # ---- device pipeline ----

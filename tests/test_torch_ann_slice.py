@@ -101,9 +101,10 @@ def ann_setup(tmp_path_factory, mesh8, native_off):
     return cfg, pcfg, jtok, params, model, tok, texts, tmp
 
 
-def _searchers(ann_setup, mesh8, index, rerank_dtype):
+def _searchers(ann_setup, mesh8, index, rerank_dtype, rerank_kernel=None):
     cfg, pcfg, jtok, params, model, tok, _, tmp = ann_setup
-    jcfg = dataclasses.replace(cfg, serve=dataclasses.replace(cfg.serve, rerank_dtype=rerank_dtype))
+    jcfg = dataclasses.replace(cfg, serve=dataclasses.replace(
+        cfg.serve, rerank_dtype=rerank_dtype, rerank_kernel=rerank_kernel or cfg.serve.rerank_kernel))
     js = JaxSearcher(jcfg, jtok, params, JaxStorage(tmp / index), mesh=mesh8)
     pc = PortConfig.from_dict(jcfg.to_dict())
     ps = ColbertSearcher(pc, tok, model, IndexStorage(tmp / index), device="cpu")
@@ -120,10 +121,13 @@ def _assert_same_results(want, got, k):
     assert (got.pids[fin] >= 0).all()
 
 
-@pytest.mark.parametrize("rerank_dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("rerank_dtype", ["bfloat16", "int8", "float32"])
 def test_searchers_agree_on_the_jax_index(ann_setup, mesh8, native_off, rerank_dtype):
-    js, ps = _searchers(ann_setup, mesh8, "jax_idx", rerank_dtype)
-    assert ps.emb_table.dtype == (torch.int8 if rerank_dtype == "int8" else torch.bfloat16)
+    """float32: the port's fp32 table and torch-op rerank against the JAX
+    searcher's XLA branch (``serve.rerank_kernel="xla"``) over its fp32 table."""
+    js, ps = _searchers(ann_setup, mesh8, "jax_idx", rerank_dtype,
+                        rerank_kernel="xla" if rerank_dtype == "float32" else None)
+    assert ps.emb_table.dtype == getattr(torch, rerank_dtype)
     assert ps.rerank_cap == js.rerank_cap == 16
     want, got = js.search(QUESTIONS, topk=5), ps.search(QUESTIONS, topk=5)
     _assert_same_results(want, got, 5)

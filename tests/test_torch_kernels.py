@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the flat scan (K1, K2), all-pairs MaxSim (K3), dropout (K9), the rerank
-(K4 bf16, K5 int8), the sq list scans (K6 slots, K7 hot lists), the pq4
-list scan (K8) and the token-major sq window scan (K10).
+(K4 bf16, K5 int8, on both routes, its pid-window schedule's edges and its
+freedom from host synchronisation), the sq list scans (K6 slots, K7 hot
+lists), the pq4 list scan (K8) and the token-major sq window scan (K10).
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU and
 skips elsewhere.  This file imports no jax (the card's machine has none);
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from colbert_tpu_torch.ops import flat_scan as fs
+from rerank_edges import EDGES, edge_cand  # tests/rerank_edges.py: pytest puts tests/ on the path
 
 pytestmark = pytest.mark.cuda
 
@@ -233,41 +235,91 @@ def test_dropout_kernel_unaligned_view(cuda_device):
 
 # ---- K4/K5: fused gather + MaxSim rerank, limit 1e-4 (only the summation order differs) ----
 
-@pytest.mark.parametrize("num_docs,dv,dim,B,qv,C", [
-    (3000, 16, 768, 144, 16, 4096),  # the serving point's shapes, fewer docs
-    (500, 37, 128, 5, 32, 130),      # three 16-row doc tiles, two 16-row query tiles
-    (90, 5, 32, 3, 3, 77),           # short everything, C not a multiple of the block's 64
-])
-def test_rerank_kernels_match_plain(cuda_device, num_docs, dv, dim, B, qv, C):
+def _rerank_inputs(device, seed, num_docs, dv, dim, B, qv, cand):
+    """bf16 and int8 tables over one set of unit rows, queries (the first
+    with masked views) and their descaled copy for int8, on the card."""
     from colbert_tpu_torch.ops import rerank as rr
 
-    rng = np.random.default_rng(num_docs + C)
+    rng = np.random.default_rng(seed)
     emb = rng.normal(size=(num_docs * dv, dim)).astype(np.float32)
     emb /= np.linalg.norm(emb, axis=1, keepdims=True)
     Qm = rng.normal(size=(B, qv, dim)).astype(np.float32)
     Qm /= np.linalg.norm(Qm, axis=-1, keepdims=True)
     Qm[0, qv // 2 :] = 0.0
+    q8, scale = rr.quantize_emb_table(emb)
+    Q = torch.from_numpy(Qm).to(device)
+    return (torch.from_numpy(cand).to(device), Q, torch.from_numpy(emb).to(device).to(torch.bfloat16),
+            torch.from_numpy(q8).to(device), Q * torch.from_numpy(1.0 / scale).to(device))
+
+
+def _assert_rerank_kernels_match_plain(cand, Q, table, t8, Qs, dv):
+    """K4 and K5 against their plain versions, each launched once on the
+    route :func:`rerank_plan` names and no other."""
+    from colbert_tpu_torch.ops import rerank as rr
+
+    route = rr.rerank_plan(dv, Q.shape[1], Q.shape[2])
+    before = {k: c.value for k, c in rr.route_launches.items()}
+    k4, k5 = rr.maxsim_rerank_uniform.launches.value, rr.maxsim_rerank_uniform_int8.launches.value
+    got = rr.maxsim_rerank_uniform(cand, Q, table, dv=dv)
+    got8 = rr.maxsim_rerank_uniform_int8(cand, Qs, t8, dv=dv)
+    torch.cuda.synchronize()
+    assert (rr.maxsim_rerank_uniform.launches.value, rr.maxsim_rerank_uniform_int8.launches.value) == (k4 + 1, k5 + 1)
+    assert {k: c.value - before[k] for k, c in rr.route_launches.items()} == {k: 2 * (k == route) for k in before}
+    for g, want in ((got, rr.maxsim_rerank_uniform_ref(cand, Q, table, dv=dv)),
+                    (got8, rr.maxsim_rerank_uniform_int8_ref(cand, Qs, t8, dv=dv))):
+        assert g.shape == cand.shape and g.dtype == torch.float32
+        assert torch.equal(torch.isfinite(g), cand >= 0) and torch.isneginf(g[cand < 0]).all()
+        torch.testing.assert_close(g, want, rtol=0, atol=1e-4)
+    return route
+
+
+@pytest.mark.parametrize("num_docs,dv,dim,B,qv,C,route", [
+    (3000, 16, 768, 144, 16, 4096, "wgmma"),  # the serving point's shapes, fewer docs
+    (700, 16, 128, 9, 16, 300, "wgmma"),      # two 64-dim stages
+    (500, 37, 128, 5, 32, 130, "staged"),     # three 16-row doc tiles, two 16-row query tiles
+    (90, 5, 32, 3, 3, 77, "staged"),          # short everything, C not a multiple of the block's 64
+    (400, 16, 80, 6, 16, 50, "staged"),       # dim not whole 64-dim stages
+])
+def test_rerank_kernels_match_plain(cuda_device, num_docs, dv, dim, B, qv, C, route):
+    rng = np.random.default_rng(num_docs + C)
     cand = rng.integers(0, num_docs, size=(B, C)).astype(np.int32)
     cand[rng.random((B, C)) < 0.2] = -1
-    cand = torch.from_numpy(cand).to(cuda_device)
-    Q = torch.from_numpy(Qm).to(cuda_device)
-    table = torch.from_numpy(emb).to(cuda_device).to(torch.bfloat16)
-    before = rr.maxsim_rerank_uniform.launches.value
-    got = rr.maxsim_rerank_uniform(cand, Q, table, dv=dv)
-    torch.cuda.synchronize()
-    assert rr.maxsim_rerank_uniform.launches.value == before + 1
-    want = rr.maxsim_rerank_uniform_ref(cand, Q, table, dv=dv)
-    assert torch.equal(torch.isfinite(got), cand >= 0)
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    args = _rerank_inputs(cuda_device, num_docs + C, num_docs, dv, dim, B, qv, cand)
+    assert _assert_rerank_kernels_match_plain(*args, dv) == route
 
-    q8, scale = rr.quantize_emb_table(emb)
-    t8 = torch.from_numpy(q8).to(cuda_device)
-    Qs = Q * torch.from_numpy(1.0 / scale).to(cuda_device)
-    before = rr.maxsim_rerank_uniform_int8.launches.value
-    got = rr.maxsim_rerank_uniform_int8(cand, Qs, t8, dv=dv)
+
+@pytest.mark.parametrize("kind", EDGES)
+def test_rerank_schedule_edges_on_the_card(cuda_device, kind):
+    """The "wgmma" route at the serving shape (16 rows, 16 views, 768 dims)
+    on the schedule's edges: duplicate pids in a row, a row of -1s, one doc
+    named by every query, every pair a distinct doc, C = 77, empty windows."""
+    B, C = 24, (77 if kind == "C = 77" else 300)
+    num_docs = B * C + 5 if kind == "all distinct" else 2500
+    cand = edge_cand(kind, np.random.default_rng(EDGES.index(kind)), num_docs, B, C)
+    args = _rerank_inputs(cuda_device, EDGES.index(kind), num_docs, 16, 768, B, 16, cand)
+    assert _assert_rerank_kernels_match_plain(*args, 16) == "wgmma"
+
+
+def test_rerank_never_synchronises(cuda_device):
+    """K4 and K5 on route "wgmma", schedule included, with torch's sync debug
+    mode raising on any host synchronisation."""
+    from colbert_tpu_torch.ops import rerank as rr
+
+    rng = np.random.default_rng(7)
+    cand = rng.integers(-1, 2000, size=(32, 512)).astype(np.int32)
+    cand, Q, table, t8, Qs = _rerank_inputs(cuda_device, 7, 2000, 16, 768, 32, 16, cand)
+    rr.maxsim_rerank_uniform(cand, Q, table, dv=16)  # the library is built and loaded outside the check
     torch.cuda.synchronize()
-    assert rr.maxsim_rerank_uniform_int8.launches.value == before + 1
-    torch.testing.assert_close(got, rr.maxsim_rerank_uniform_int8_ref(cand, Qs, t8, dv=dv), rtol=0, atol=1e-4)
+    before = rr.route_launches["wgmma"].value
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = rr.maxsim_rerank_uniform(cand, Q, table, dv=16)
+        got8 = rr.maxsim_rerank_uniform_int8(cand, Qs, t8, dv=16)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert rr.route_launches["wgmma"].value == before + 2
+    torch.testing.assert_close(got, rr.maxsim_rerank_uniform_ref(cand, Q, table, dv=16), rtol=0, atol=1e-4)
+    torch.testing.assert_close(got8, rr.maxsim_rerank_uniform_int8_ref(cand, Qs, t8, dv=16), rtol=0, atol=1e-4)
 
 
 # ---- K6/K7: sq list scans; scores within 1e-5, rows equal except at near ties ----

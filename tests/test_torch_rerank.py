@@ -15,6 +15,7 @@ import torch
 
 from colbert_tpu.ops import rerank_pallas as jrp
 from colbert_tpu_torch.ops import rerank as prr
+from rerank_edges import EDGES, edge_cand  # tests/rerank_edges.py: pytest puts tests/ on the path
 
 # The tests run in several workers at once beside JAX's own thread pools:
 # two intra-op threads per worker keep the CPU from being oversubscribed.
@@ -93,3 +94,94 @@ def test_quantize_matches_jax_numpy_path(monkeypatch, chunk):
     assert got_q.dtype == np.int8 and got_s.dtype == np.float32
     np.testing.assert_array_equal(got_q, want_q)
     np.testing.assert_array_equal(got_s, want_s)
+
+
+# ---- the "wgmma" route's pid-window schedule (kernel-free: its plain walker) ----
+
+@pytest.mark.parametrize("table_dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("kind", EDGES)
+def test_windowed_walk_matches_plain_and_jax_kernel(kind, table_dtype):
+    """The "wgmma" route's schedule walked in plain torch (windows of 7 docs,
+    groups of 8) against ``_rerank_ref`` and the TPU kernel in interpret
+    mode, on the route's shape (16 rows a doc, 16 views), within 1e-4."""
+    B, C, dv, qv, dim = 4, (77 if kind == "C = 77" else 40), 16, 16, 256
+    num_docs = B * C + 3 if kind == "all distinct" else 50
+    rng = np.random.default_rng(EDGES.index(kind))
+    emb, Qm, _ = _case(EDGES.index(kind) + 100, num_docs, dv, dim, B, qv, C)
+    cand = edge_cand(kind, rng, num_docs, B, C)
+    assert prr.rerank_plan(dv, qv, dim) == "wgmma"
+    if table_dtype == "int8":
+        q8, scale = prr.quantize_emb_table(emb)
+        Qm = Qm * (1.0 / scale).astype(np.float32)
+        table, q = torch.from_numpy(q8), torch.from_numpy(Qm)
+        want = np.asarray(jrp.maxsim_rerank_uniform_packed(
+            jnp.asarray(_pad128(cand)), jnp.asarray(Qm), jnp.asarray(jrp.pack_int8_table(q8, dv)),
+            dv=dv, nk=dim // 128, interpret=True))[:, :C]
+    else:
+        table = torch.from_numpy(emb).to(torch.bfloat16)
+        q = torch.from_numpy(Qm).to(torch.bfloat16).float()   # the kernel's bf16 operand
+        want = np.asarray(jrp.maxsim_rerank_uniform(
+            jnp.asarray(_pad128(cand)), jnp.asarray(Qm), jnp.asarray(emb.astype(np.float32), jnp.bfloat16),
+            dv=dv, interpret=True))[:, :C]
+    c = torch.from_numpy(cand)
+    got = prr.rerank_windowed_ref(c, q, table, dv, window=7).numpy()
+    plain = prr._rerank_ref(c, q, table, dv).numpy()
+    live = cand >= 0
+    np.testing.assert_array_equal(np.isfinite(got), live)
+    assert np.isneginf(got[~live]).all() and np.isneginf(want[~live]).all()
+    np.testing.assert_allclose(got[live], plain[live], rtol=0, atol=TOL)
+    np.testing.assert_allclose(got[live], want[live], rtol=0, atol=TOL)
+
+
+def test_schedule_covers_each_candidate_once():
+    """Every real candidate lies in exactly one item, in the window of its
+    pid; -1s in none; ``perm`` is a permutation of each row."""
+    rng = np.random.default_rng(3)
+    cand = edge_cand("duplicate pids", rng, 60, 5, 33)
+    cand[2] = -1
+    spid, perm, wstart = prr.rerank_schedule(torch.from_numpy(cand), 60, 8)
+    assert spid.dtype == wstart.dtype == torch.int32 and wstart.shape == (5, 9)
+    for b in range(5):
+        assert sorted(perm[b].tolist()) == list(range(33))
+        np.testing.assert_array_equal(spid[b].numpy(), np.where(cand[b] < 0, 2**31 - 1, cand[b])[perm[b].numpy()])
+        assert int(wstart[b, 0]) == 0 and int(wstart[b, -1]) == int((cand[b] >= 0).sum())
+        for w in range(8):
+            items = spid[b, wstart[b, w] : wstart[b, w + 1]]
+            assert ((items >= 8 * w) & (items < 8 * (w + 1))).all()
+
+
+@pytest.mark.parametrize("dv,qv,dim,route", [
+    (16, 16, 768, "wgmma"),    # the serving point (and the first card case)
+    (37, 32, 128, "staged"),   # the card cases of test_torch_kernels.py
+    (5, 3, 32, "staged"),
+    (16, 16, 80, "staged"),    # dim not whole 64-dim stages
+    (16, 16, 2048, "staged"),  # dim past the route's shared-memory budget
+    (16, 32, 768, "staged"),
+])
+def test_rerank_plan_routes(dv, qv, dim, route):
+    assert prr.rerank_plan(dv, qv, dim) == route
+
+
+def test_window_sizes():
+    """About two windows of doc blocks in half the 50 MB L2 at the 20k-doc
+    serving point (bf16 24 KB a doc, int8 12 KB); at 200k docs no more than
+    C / 32 windows."""
+    assert prr.window_docs(20_000, 4096, 16 * 768 * 2) == 500
+    assert prr.window_docs(20_000, 4096, 16 * 768) == 1000
+    assert prr.window_docs(200_000, 4096, 16 * 768 * 2) == 1563
+    assert prr.window_docs(10, 77, 16 * 768 * 2) == 10
+
+
+def test_query_operand_terms_sum_to_the_query():
+    """The int8 operand's three bf16 terms sum to the fp32 query once each
+    16-dim block's kernel order is undone; the bf16 operand is bf16(Q)."""
+    rng = np.random.default_rng(0)
+    Qm = torch.from_numpy(rng.normal(size=(3, 16, 64)).astype(np.float32) * 37.0)
+    ops = prr.query_operand(Qm, int8_table=True)
+    assert ops.shape == (3, 48, 64) and ops.dtype == torch.bfloat16
+    assert sorted(prr.INT8_K_ORDER) == list(range(16))
+    undo = torch.from_numpy(np.argsort(prr.INT8_K_ORDER))
+    terms = ops.float().view(3, 3, 16, 4, 16).index_select(4, undo).view(3, 3, 16, 64)
+    torch.testing.assert_close(terms[:, 0] + terms[:, 1] + terms[:, 2], Qm, rtol=2 ** -23, atol=0)
+    assert torch.equal(terms[:, 0], Qm.to(torch.bfloat16).float())
+    assert torch.equal(prr.query_operand(Qm, int8_table=False), Qm.to(torch.bfloat16))
