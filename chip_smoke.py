@@ -62,16 +62,19 @@ from a seed:
   100 valid, descending triples whose scores equal the exact MaxSim of the
   returned pids over the served table within 1e-4; (d) K4 must launch once
   per bf16 batch, K5 once per int8 batch, every launch on the rerank's
-  "wgmma" route, K6 and K7 once per batch;
+  "wgmma" route, K6 and K7 once per batch, every K6 launch on route "mma";
   (b) ``build-index`` over the JAX bench's 20,000-doc generator
   (``bench.py:51-65``, seed 0), recall@100 of ANN search from topic-drawn
   query reps against the fp32 exact oracle (at least 0.98), the batch's
   time per stage (probe, dedup, rerank, top-k), and one batch served with
   ``serve.rerank_dtype=float32`` (an fp32 table, no K4/K5 launch): its
   scores within 1e-4 of an fp32 MaxSim of its pids, recall@100 >= 0.98;
-  (a) on that batch's inputs: K6 (filled slots) and K7 (the batch's 128
-  most-probed lists x every token) against their plain versions, scores
-  within 1e-5 and rows equal except at near ties; K4 (bf16) and K5 (int8)
+  every K6 launch of the served batches on route "mma";
+  (a) on that batch's inputs: the histogram of K6's filled slots (list
+  rows and members a slot: median, p99, max), K6 on route "mma" and on
+  route "staged" (the first design; also the longest slot alone on both)
+  and K7 (the batch's 128 most-probed lists x every token) against their
+  plain versions, scores within 1e-5 and rows equal except at near ties; K4 (bf16) and K5 (int8)
   on route "wgmma" over the 144 x 4,096 candidates and in a low-reuse case
   (the same candidates over a 200,000-doc table, p -> 10p + b mod 10),
   within 1e-4 with -inf exactly at the -1 candidates, each timed with its
@@ -94,8 +97,8 @@ from a seed:
   0.95 each; with one topic per query, as phase 5b's, an exact top-512 per
   token falls on a few docs, so the token-major probes keep fewer than 100
   candidates for some queries: reported as information), build seconds
-  and the batch's time per stage;
-  (b) on the first batch's inputs: K8 (2,304 tokens x 128 probed lists)
+  and the batch's time per stage, every K6 launch on route "mma";
+  (b) on the first batch's inputs: K6 on both routes as in 5a, K8 (2,304 tokens x 128 probed lists)
   and K10 (2,304 tokens x 128 windows) against their plain versions,
   scores within 1e-5 and rows (K10: the top-512 slots) equal except at
   near ties.
@@ -151,7 +154,8 @@ def counters():
             "K6": sp.sq_batch_list_scan.launches, "K7": sp.sq_hot_list_scan.launches,
             "K8": pq4.pq4_list_scan.launches, "K10": sq_probe.sq_list_scan.launches,
             "K1/K2 wgmma route": fs.route_launches["wgmma"], "K1/K2 staged route": fs.route_launches["staged"],
-            "K4/K5 wgmma route": rr.route_launches["wgmma"], "K4/K5 staged route": rr.route_launches["staged"]}
+            "K4/K5 wgmma route": rr.route_launches["wgmma"], "K4/K5 staged route": rr.route_launches["staged"],
+            "K6 mma route": sp.route_launches["mma"], "K6 staged route": sp.route_launches["staged"]}
 
 
 def reset_counts() -> None:
@@ -940,6 +944,7 @@ def phase_ann_cli(device, workdir: Path, cfg, common, corpus_path, eval_path, do
         f"--remote batches on the bf16 table, {eval_batches} local evaluate batches and one "
         f"service batch on the int8 table)")
     want["K4/K5 wgmma route"], want["K4/K5 staged route"] = want["K4"] + want["K5"], 0
+    want["K6 mma route"], want["K6 staged route"] = want["K6"], 0
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"ANN kernel launches {launches} do not match the served batches {want}")
 
@@ -1010,6 +1015,7 @@ def phase_ann(device, workdir: Path, label: str, num_docs=20_000, n_batches=2, s
     qm = torch.ones(B, M, device=device)
 
     # ---- 5b: recall@100 against the fp32 exact oracle, and the stage times ----
+    k6_before = k6_routes()
     recall, batch_ms, oracle = [], [], []
     for i in range(n_batches):
         Qb = Q[i * B : (i + 1) * B]
@@ -1045,6 +1051,7 @@ def phase_ann(device, workdir: Path, label: str, num_docs=20_000, n_batches=2, s
     stage["topk"] = time_ms(lambda: srch.select_topk(sc, cand, TOPK), iters=5)
     log(f"[phase5b] batch of {B} x {M} query reps, ms per stage (CUDA events): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stage.items()) + f" [{label}]")
+    assert_k6_on_mma("phase5b", k6_before)
 
     # ---- 5b: one batch served with serve.rerank_dtype="float32": an fp32 table, reranked in torch ops ----
     cfg32 = ColbertConfig.from_dict(cfg.to_dict())
@@ -1086,8 +1093,6 @@ def phase_ann(device, workdir: Path, label: str, num_docs=20_000, n_batches=2, s
     T = tokens.shape[0]
     filled = qidx[:, 0] >= 0
     lens_d = torch.diff(offsets).long()
-    slot_list = torch.arange(qidx.shape[0], device=device)[filled] % K
-    members = (qidx[filled] >= 0).sum(dim=1)
     # K7 at its serving shape (hot_cap lists x every token) over this batch's
     # most-probed lists, whether or not they overflow their slots
     probed = torch.bincount(plan.lists.reshape(-1), minlength=K)
@@ -1098,31 +1103,8 @@ def phase_ann(device, workdir: Path, label: str, num_docs=20_000, n_batches=2, s
         f"K7 held on the {hot.numel()} most-probed lists ({int(probed[hot_l].min())}-"
         f"{int(probed[hot_l].max())} probing tokens, {int(lens_d[hot_l].sum())} rows)")
 
-    def ranked(name, got, want):
-        (gs, gr), (ws, wr) = got, want
-        flat = lambda t: t.transpose(1, 2).reshape(-1, t.shape[1])
-        err, bad = sp.ranked_mismatch(flat(ws), flat(wr), flat(gs), flat(gr), PROBE_ATOL)
-        log(f"[phase5a] {name}: max|d|={err:.3e} (limit {PROBE_ATOL}), rows mismatched outside near ties {bad}")
-        if err > PROBE_ATOL or bad:
-            raise AssertionError(f"{name} differs from its plain version: max|d| {err}, {bad} rows")
-        return err
-
-    got = sp.sq_batch_list_scan(qidx, offsets, plan.qs, codes, r=TOPR)
-    want = sp.sq_batch_list_scan_ref(qidx, offsets, plan.qs, codes, r=TOPR)
-    err = ranked("K6", tuple(t[filled] for t in got), tuple(t[filled] for t in want))
-    used = torch.unique(slot_list)
-    out["K6"] = {"max_abs_err": err,
-                 "ms": time_ms(lambda: sp.sq_batch_list_scan(qidx, offsets, plan.qs, codes, r=TOPR)),
-                 "plain_ms": time_ms(lambda: sp.sq_batch_list_scan_ref(qidx, offsets, plan.qs, codes, r=TOPR),
-                                     iters=2, warmup=1),
-                 "library_ms": None}
-    # bf16-rounded queries x int8 codes, both exact in bf16: the tensor-core
-    # rate; an empty slot's qidx row is read for its first int only
-    n_filled, tpl = int(filled.sum()), qidx.shape[1]
-    out["K6"]["bound_ms"], out["K6"]["bound_by"] = bound(
-        2.0 * SQ_DIM * float((lens_d[slot_list] * members).sum()),
-        float(lens_d[used].sum()) * SQ_DIM + (n_filled * tpl + qidx.shape[0] - n_filled) * 4
-        + T * SQ_DIM * 4 + offsets.numel() * 4 + n_filled * TOPR * tpl * 8, PEAK_BF16_FLOPS)
+    ranked = lambda name, got, want: ranked_units("phase5a", name, got, want)
+    out["K6"] = k6_both_routes("phase5a", "one-topic", plan, offsets, codes, label)
 
     got = sp.sq_hot_list_scan(hot, offsets, plan.qs, codes, r=TOPR)
     want = sp.sq_hot_list_scan_ref(hot, offsets, plan.qs, codes, r=TOPR)
@@ -1139,12 +1121,132 @@ def phase_ann(device, workdir: Path, label: str, num_docs=20_000, n_batches=2, s
         PEAK_BF16_FLOPS)
 
     out.update(phase_rerank(device, cand, Qb, searcher.emb_table, docs, label))
-    for k in ("K6", "K7"):
+    for k in ("K7",):
         v = out[k]
         log(f"[phase5a] {k}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, bound "
             f"{v['bound_ms']:.4f} ms ({v['bound_by']}); no single PyTorch call computes it [{label}]")
     return out, {"recall": rec, "stage_ms": stage, "batch_ms": batch_ms, "build_s": build_s,
                  "queries": Q, "oracle": oracle, "config": cfg, "fp32": {"ms": ms32, "err": err32, "recall": rec32}}
+
+
+def ranked_units(tag, name, got, want, got_at_want=None):
+    """A list scan's (units, r, tokens) output against its plain version:
+    scores within ``PROBE_ATOL``, rows equal outside near ties."""
+    from colbert_tpu_torch.ops import sq_probe_batched as sp
+
+    (gs, gr), (ws, wr) = got, want
+    flat = lambda t: t.transpose(1, 2).reshape(-1, t.shape[1])
+    if got_at_want is not None:
+        got_at_want = flat(got_at_want)
+    err, bad = sp.ranked_mismatch(flat(ws), flat(wr), flat(gs), flat(gr), PROBE_ATOL, got_at_want)
+    log(f"[{tag}] {name}: max|d|={err:.3e} (limit {PROBE_ATOL}), rows mismatched outside near ties {bad}")
+    if err > PROBE_ATOL or bad:
+        raise AssertionError(f"{name} differs from its plain version: max|d| {err}, {bad} rows")
+    return err
+
+
+def k6_routes() -> dict:
+    from colbert_tpu_torch.ops import sq_probe_batched as sp
+
+    return {k: c.value for k, c in sp.route_launches.items()}
+
+
+def assert_k6_on_mma(tag, before):
+    """Every K6 launch since ``before`` (``k6_routes()``) took route "mma", and there was one."""
+    got = {k: v - before[k] for k, v in k6_routes().items()}
+    log(f"[{tag}] K6 launches by route in the served batches: {got}")
+    if got["staged"] or not got["mma"]:
+        raise AssertionError(f"{tag}: K6 launches by route {got}, expected all on route mma")
+
+
+def k6_both_routes(tag, queries, plan, offsets, codes, label):
+    """K6 on one batch's slot schedule: the filled slots' histogram (list
+    rows, members), route "mma" (through the wrapper) and route "staged" (the
+    first design) each against the plain version and timed, the longest
+    slot alone on both routes, and the bound."""
+    import torch
+
+    from colbert_tpu_torch.ops import sq_probe_batched as sp
+
+    qidx, qs = plan.sched.qidx, plan.qs
+    (S, tpl), K, T = qidx.shape, offsets.numel() - 1, qs.shape[0]
+    filled = qidx[:, 0] >= 0
+    slots = torch.nonzero(filled).flatten()
+    lens_d = torch.diff(offsets).long()
+    rows = lens_d[slots % K]
+    members = (qidx[filled] >= 0).sum(dim=1)
+    pct = lambda t, p: float(torch.quantile(t.double(), p))
+    hist = {"filled": int(slots.numel()), "slots": S,
+            "rows": {"median": pct(rows, 0.5), "p99": pct(rows, 0.99), "max": int(rows.max())},
+            "members": {"median": pct(members, 0.5), "p99": pct(members, 0.99), "max": int(members.max())},
+            "pairs": int((rows * members).sum())}
+    log(f"[{tag}] K6 histogram ({queries} batch): {hist['filled']} of {S} slots filled; list rows of a filled "
+        f"slot median {hist['rows']['median']:.0f}, p99 {hist['rows']['p99']:.0f}, max {hist['rows']['max']}; "
+        f"members a slot median {hist['members']['median']:.0f}, p99 {hist['members']['p99']:.0f}, max "
+        f"{hist['members']['max']}; {hist['pairs']} (row, token) pairs")
+
+    mma = lambda: sp.sq_batch_list_scan(qidx, offsets, qs, codes, r=TOPR)
+    staged = lambda: sp._launch(qidx, offsets, qs, codes, TOPR, hot=False, route="staged")
+    plain = lambda: sp.sq_batch_list_scan_ref(qidx, offsets, qs, codes, r=TOPR)
+    # The plain version's top-(r+1): a kernel's r-th row may be the plain
+    # version's (r+1)-th where the two tie.  Route "mma" sums on the tensor
+    # cores in another order than the plain version's fp32 products, so two
+    # different rows may round to one fp32 score on one side only: an exact
+    # tie of the plain version counts as a near tie where the rows' exact
+    # sums (fp64; bf16 x int8 products) differ.
+    ws, wr = (t[filled] for t in sp.sq_batch_list_scan_ref(qidx, offsets, qs, codes, r=TOPR + 1))
+    fin = torch.isfinite(ws)
+    tie = torch.zeros_like(fin)
+    same = (ws[:, 1:] == ws[:, :-1]) & fin[:, 1:]
+    tie[:, 1:] |= same
+    tie[:, :-1] |= same
+    exact = ws.double()
+    u, k, p = torch.nonzero(tie, as_tuple=True)
+    tok = qidx[filled][u, p].long()
+    exact[u, k, p] = (codes[wr[u, k, p].long()].double() * qs[tok].to(torch.bfloat16).double()).sum(dim=1)
+
+    def check(name, got):
+        gs, gr = (torch.cat([t[filled], w[:, TOPR:]], dim=1) for t, w in zip(got, (ws, wr)))
+        return ranked_units(tag, f"{name} ({queries}; {len(u)} entries in exact ties of the plain version)",
+                            (gs, gr), (ws, wr), exact)
+
+    before = k6_routes()
+    got = mma()
+    if k6_routes()["mma"] != before["mma"] + 1:
+        raise AssertionError(f"{tag}: K6's wrapper did not launch route mma")
+    res = {"max_abs_err": check("K6 route mma", got), "staged_max_abs_err": check("K6 route staged", staged())}
+    del got, ws, wr, exact
+    res.update(ms=time_ms(mma), staged_ms=time_ms(staged), plain_ms=time_ms(plain, iters=2, warmup=1),
+               library_ms=None, kernel_route="mma", histogram=hist)
+    # route "mma"'s first kernel, the work list, alone: the plain version's slots in its order
+    items, count = sp.work_list_kernel(qidx, offsets)
+    want_items, want_count = sp.slot_work_list(qidx, offsets)
+    if int(count) != int(want_count) or not torch.equal(items[: int(count)], want_items[: int(count)]):
+        raise AssertionError(f"{tag}: K6's work list differs from its plain version")
+    res["work_list_ms"] = time_ms(lambda: sp.work_list_kernel(qidx, offsets))
+    # the longest slot alone: its list's slot filled in a K-slot schedule
+    s_long = int(slots[int(torch.argmax(rows))])
+    one = torch.full((K, tpl), -1, dtype=torch.int32, device=qidx.device)
+    one[s_long % K] = qidx[s_long]
+    res["longest_slot_ms"] = {
+        route: time_ms(lambda: sp._launch(one, offsets, qs, codes, TOPR, hot=False, route=route))
+        for route in ("mma", "staged")}
+    # bf16-rounded queries x int8 codes, both exact in bf16: the tensor-core
+    # rate; bytes: each distinct filled list's codes once, the filled slots'
+    # qidx rows (an empty slot's first int), qs, offsets, the filled outputs
+    used = torch.unique(slots % K)
+    n_filled = hist["filled"]
+    res["bound_ms"], res["bound_by"] = bound(
+        2.0 * SQ_DIM * hist["pairs"],
+        float(lens_d[used].sum()) * SQ_DIM + (n_filled * tpl + S - n_filled) * 4
+        + T * SQ_DIM * 4 + offsets.numel() * 4 + n_filled * TOPR * tpl * 8, PEAK_BF16_FLOPS)
+    log(f"[{tag}] K6 ({queries} batch): route mma {res['ms']:.4f} ms (its work-list kernel alone "
+        f"{res['work_list_ms']:.4f} ms), route staged (first design) "
+        f"{res['staged_ms']:.4f} ms ({res['staged_ms'] / res['ms']:.2f}x), plain {res['plain_ms']:.3f} ms, bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']}); longest slot alone ({hist['rows']['max']} rows) "
+        f"mma {res['longest_slot_ms']['mma']:.4f} ms, staged {res['longest_slot_ms']['staged']:.4f} ms; "
+        f"no single PyTorch call computes it [{label}]")
+    return res
 
 
 LOW_REUSE_DOCS = 200_000  # the low-reuse table: the serving batch's pids spread over 10x the docs
@@ -1342,7 +1444,8 @@ def phase_codecs_cli(device, workdir: Path, cfg, common, corpus_path, eval_path,
     log(f"[phase6c] sq token-probe service: {B} questions top-{TOPK} in {lat_tok * 1e3:.1f} ms in process")
     eval_batches = -(-n_eval // B)
     want = {"K8": 2 + eval_batches, "K10": 1, "K4": 3 + eval_batches, "K5": 0, "K6": 0, "K7": 0,
-            "K4/K5 wgmma route": 3 + eval_batches, "K4/K5 staged route": 0}
+            "K4/K5 wgmma route": 3 + eval_batches, "K4/K5 staged route": 0,
+            "K6 mma route": 0, "K6 staged route": 0}
     log(f"[phase6c] launches in the pq4 / token-probe serving-path run: {launches} (expected {want}: "
         f"2 socket requests and {eval_batches} evaluate --remote batches on the pq4 index, one "
         f"token-probe batch on the sq index)")
@@ -1364,11 +1467,12 @@ def phase_codecs(device, workdir: Path, label: str, info: dict):
     """Phase 6a/6b: on phase 5b's corpus, ``build-index`` with the pq4 and
     the pq codec (separate index directories over the same parts), and
     phase 5b's sq index served by the token-major probe (and, for
-    reference, the batched one): recall@100 against the fp32 oracle over
-    2 x 144 two-topic queries (at least ``CODEC_RECALL``), the fewest
-    candidates a query kept, build seconds and the batch's time per stage,
-    and, as information, recall over phase 5b's one-topic queries; then K8
-    and K10 against their plain versions on the first batch's inputs."""
+    reference, the batched one, every K6 launch on route "mma"): recall@100
+    against the fp32 oracle over 2 x 144 two-topic queries (at least
+    ``CODEC_RECALL``), the fewest candidates a query kept, build seconds and
+    the batch's time per stage, and, as information, recall over phase 5b's
+    one-topic queries; then K6 (both routes), K8 and K10 against their plain
+    versions on the first batch's inputs."""
     import numpy as np
     import torch
 
@@ -1389,6 +1493,7 @@ def phase_codecs(device, workdir: Path, label: str, info: dict):
     qm = torch.ones(B, M, device=device)
     batches = [Q[i * B : (i + 1) * B] for i in range(Q.shape[0] // B)]
     oracle, state, summary = None, {}, {}
+    k6_before = k6_routes()
     for name, codec, probe_impl in (("sq batched", "sq", "auto"), ("sq token", "sq", "token"),
                                     ("pq4", "pq4", "auto"), ("pq", "pq", "auto")):
         index = workdir / ("index" if codec == "sq" else f"index_{codec}")
@@ -1448,11 +1553,16 @@ def phase_codecs(device, workdir: Path, label: str, info: dict):
         summary[name] = {"recall": rec, "build_s": build_s, "stage_ms": stage, "batch_ms": batch_ms}
         state[name] = (s.coarse, s.quant, s.codes, s.offsets, s.max_list_len)
         del s, cand, sc, pids, scores
+    assert_k6_on_mma("phase6a", k6_before)
 
-    # ---- 6b: K8 and K10 against their plain versions on the first batch's inputs ----
+    # ---- 6b: K6, K8 and K10 against their plain versions on the first batch's inputs ----
     tokens = batches[0].reshape(B * M, H)
     T = tokens.shape[0]
-    out = {}
+    coarse, quant, codes, offsets, _ = state["sq batched"]
+    plan = ivf.sq_probe_plan(tokens, coarse, *quant, nprobe=NPROBE,
+                             hot_cap=base.serve.probe_hot_lists or max(64, NPROBE))
+    out = {"K6": k6_both_routes("phase6b", "two-topic", plan, offsets, codes, label)}
+    del plan
 
     def ranked(name, want, got, got_at_want=None):
         err, bad = sp.ranked_mismatch(*want, *got, PROBE_ATOL, got_at_want)
@@ -1611,6 +1721,16 @@ def main() -> int:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": None,
         })
+        if fn == "K6":
+            two = codec_kernels["K6"]
+            kernels[-1].update({
+                "kernel_route": k["kernel_route"], "route_launches": {
+                    r: ann_launches[f"K6 {r} route"] for r in ("mma", "staged")},
+                "staged_design_ms": k["staged_ms"], "staged_max_abs_err": k["staged_max_abs_err"],
+                "longest_slot_ms": k["longest_slot_ms"], "histogram": k["histogram"],
+                "work_list_ms": k["work_list_ms"],
+                "two_topic": {key: two[key] for key in ("ms", "staged_ms", "max_abs_err", "staged_max_abs_err",
+                                                         "plain_ms", "bound_ms", "histogram")}})
         if fn in ("K4", "K5"):
             lr = k["low_reuse"]
             kernels[-1].update({

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the TMA + wgmma kernel routes
-// (csrc/flat_scan.cu, csrc/rerank.cu): mbarriers, 2-D tensor-map TMA loads,
-// wgmma shared-memory descriptors and fences, the exact int8 -> bf16 widening of
-// a word, and the host-side tensor-map encoder.
+// Hopper (sm_90a) building blocks shared by the kernel routes of csrc/flat_scan.cu,
+// csrc/rerank.cu and csrc/sq_probe.cu: mbarriers, 2-D tensor-map TMA loads,
+// wgmma shared-memory descriptors and fences, 16-byte cp.async copies, the
+// m16n8k16 bf16 mma.sync, the exact int8 -> bf16 widening of a word, and the
+// host-side tensor-map encoder.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
@@ -71,6 +72,30 @@ __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.a
 __device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 template <int N> __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// 16 bytes from global into shared memory, asynchronously; the bytes past
+// `src_bytes` (0 or 16) are zero-filled.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// d += a * b for one m16n8k16 tile, bf16 operands, fp32 accumulation.  With
+// g = lane / 4, q = lane % 4: a[0] holds (row g, k 2q, 2q+1), a[1] row g+8,
+// a[2] (row g, k 2q+8, 2q+9), a[3] row g+8; b0 (k 2q, 2q+1; n g), b1 k+8;
+// d (row g, n 2q, 2q+1), then row g+8.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7},"
+      " {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Four int8 (one word) -> four exact bf16 (two words).  |x| <= 128 goes into

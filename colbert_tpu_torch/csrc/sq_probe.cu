@@ -3,9 +3,8 @@
 // Replaces two TPU kernels of colbert_tpu/ops/sq_probe_batched.py:
 //   K6  _kernel      (sq_probe_batched.py:221, reached through sq_batch_list_scan)
 //   K7  _hot_kernel  (sq_probe_batched.py:345, reached through sq_hot_list_scan)
-// One kernel template; `HOT` switches where the tokens and the list come from.
 //
-// What it computes.  A work unit is one IVF list and up to 128 query tokens:
+// What they compute.  A work unit is one IVF list and up to 128 query tokens:
 //   K6: one slot of the dense schedule (slot s scans list s % K for the
 //       tokens qidx[s, :], -1 empty); qs holds the projected queries
 //       already rounded to bf16, as the TPU kernel rounds qsT;
@@ -14,32 +13,46 @@
 // Every row of the list, [offsets[l], offsets[l+1]) of the CSR codes
 // (N, D) int8, is scored against every token of the unit,
 //   score = sum_d float(code[row, d]) * qs[token, d]      fp32 accumulation,
-// and each token keeps a running top-r of (score, global CSR row).
+// and each token keeps its top-r of (score, global CSR row).
 //
 // Tie rule, as the TPU kernel merges (sq_probe_batched.py:298-336): the list
 // is cut into 128-row blocks that start at offsets[l] rounded down to a
-// multiple of 32 (the TPU's DMA windows); within a block the lowest row wins
-// a tie, a block row beats an equal score held from an earlier block, and
-// every entry taken removes one row, so duplicate scores all survive.  Rows
-// are visited in ascending order, so inserting each row before the first
-// held entry it beats reproduces that merge exactly.  Unfilled entries are
-// (-inf, -1).
+// multiple of 32 (the TPU's DMA windows).  Rows order by score descending,
+// then block index descending, then row ascending: a total order, so the
+// top-r does not depend on the order rows are visited in.  Both designs
+// visit a list's rows in ascending order and insert each row before the
+// first held entry it beats (`beats`).  Unfilled entries are (-inf, -1).
 //
 // Outputs: K6 (S, r, tpl) for slots whose qidx[s, 0] >= 0 (an empty slot
 // is skipped and its output left unwritten: no pair ever reads it; empty
 // positions of a filled slot get -inf / -1); K7 (H, r, T) for hot_ids[h]
 // >= 0 (a -1 entry is skipped and left unwritten: no pair reads it).
 //
-// What bounds it: the codes are small (D bytes a row) and each row is
-// multiplied against up to 128 tokens, so the work is D FMAs per (row,
-// token) on the CUDA cores.  The design converts each 32-row chunk of codes
-// to fp32 in shared memory once per block (int8->fp32 conversion runs at a
-// quarter of the FMA rate, so no thread converts rows it shares), keeps its
-// token's query in registers, and keeps the top-r in registers.  Most of
-// K6's 8*K dense slots are empty: their blocks read one int and exit.
+// Two designs:
+//   "staged" (list_scan_kernel; K7's kernel, and K6's first design): one
+//     block a unit, one thread a token, the query in registers, each
+//     32-row chunk widened to fp32 in shared memory and every row scored by
+//     a chain of D dependent FMAs.  For K6 the grid is every dense slot,
+//     most of them empty.  What bounds it: the FMA chain's latency per row
+//     (the longest list sets the tail) and the launch-and-exit of the
+//     empty slots' blocks; not bytes (K6's bound, 0.019 ms, is bytes).
+//   "mma" (slot_scan_mma_kernel; K6): a persistent grid walks a work list
+//     of the filled slots only (built on the device, longest list first),
+//     block b taking items b, b + grid, b + 2 grid, ...: the longest lists
+//     start first, on distinct blocks.  A slot's tokens are gathered once into
+//     shared memory as the bf16 B operand; the list's rows stream through a
+//     double-buffered cp.async ring, 64 rows a stage; each warp widens its
+//     16 rows to bf16 (exact) in registers and runs mma.sync m16n8k16 over
+//     the n-tiles that hold members; the score tile goes to shared memory,
+//     and each token's thread walks its column in row order, one load and
+//     one compare a row unless the row enters its top-r.  The slot's work
+//     is then bound by the selection walk, a few instructions a row.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -200,6 +213,287 @@ cudaError_t launch_r(const int* qidx, const int* hot_ids, const int* offsets, co
   return launch<D, 16>(qidx, hot_ids, offsets, qs, codes, out_s, out_r, units, K, T, tpl, r, hot, stream);
 }
 
+// ---- route "mma" (K6) ----
+
+constexpr int MMA_ROWS = 64;            // list rows a stage: 16 a warp
+constexpr int SC_STRIDE = THREADS + 8;  // floats a score-tile row (padded against bank conflicts)
+constexpr int WL_THREADS = 1024;        // the work-list kernel: one block
+constexpr int WL_BUCKETS = 256;         // work-list order: 64-row stages a list, longer lists share the last
+constexpr int WL_BATCH = 8;             // slot keys a lane loads at once
+
+template <int D>
+struct MmaSmem {
+  static constexpr int A_STRIDE = D + 16;  // bytes a staged code row (padded, 16-byte aligned)
+  static constexpr int B_STRIDE = D + 16;  // bf16 a staged token row (padded, 16-byte aligned)
+  static constexpr int SC_BYTES = MMA_ROWS * SC_STRIDE * 4;
+  static constexpr int B_BYTES = THREADS * B_STRIDE * 2;
+  static constexpr int A_BYTES = 2 * MMA_ROWS * A_STRIDE;
+  static constexpr int TOTAL = SC_BYTES + B_BYTES + A_BYTES;
+};
+
+// A slot's place in the work list: -1 empty, else its list's 64-row stages
+// (the kernel's work), capped at the last bucket.
+__device__ __forceinline__ int slot_key(const int* __restrict__ qidx, const int* __restrict__ offsets,
+                                        int s, int K, int tpl) {
+  const int l = s % K;
+  const int stages = (__ldg(offsets + l + 1) - __ldg(offsets + l) + MMA_ROWS - 1) / MMA_ROWS;
+  return __ldg(qidx + int64_t(s) * tpl) < 0 ? -1 : min(stages, WL_BUCKETS - 1);
+}
+
+// The work list: the filled slots, most stages first, equal keys in slot
+// order (a stable counting sort); n_items = how many.  One block: warp w
+// owns slots [w*per, (w+1)*per); pass 1 counts each warp's slots a bucket,
+// pass 2 places them.  Plain version: ops/sq_probe_batched.py::slot_work_list.
+__global__ void __launch_bounds__(WL_THREADS)
+slot_work_list_kernel(const int* __restrict__ qidx, const int* __restrict__ offsets, int S, int K, int tpl,
+                      int* __restrict__ items, int* __restrict__ n_items) {
+  __shared__ int cnt[32][WL_BUCKETS];  // a warp's slots in a bucket, then where the next one goes
+  __shared__ int start[WL_BUCKETS];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const unsigned below = (1u << lane) - 1;
+  for (int i = tid; i < 32 * WL_BUCKETS; i += WL_THREADS) (&cnt[0][0])[i] = 0;
+  __syncthreads();
+  const int per = (S + 31) / 32;
+  const int lo = min(S, warp * per), hi = min(S, lo + per);
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int s0 = lo; s0 < hi; s0 += 32 * WL_BATCH) {
+      int key[WL_BATCH];
+#pragma unroll
+      for (int u = 0; u < WL_BATCH; ++u) {  // loads of a batch in flight together
+        const int s = s0 + u * 32 + lane;
+        key[u] = s < hi ? slot_key(qidx, offsets, s, K, tpl) : -1;
+      }
+#pragma unroll
+      for (int u = 0; u < WL_BATCH; ++u) {
+        const unsigned peers = __match_any_sync(0xffffffffu, key[u]);
+        const bool leader = key[u] >= 0 && (peers & below) == 0;
+        if (pass == 1 && key[u] >= 0) items[cnt[warp][key[u]] + __popc(peers & below)] = s0 + u * 32 + lane;
+        __syncwarp();
+        if (leader) cnt[warp][key[u]] += __popc(peers);
+        __syncwarp();
+      }
+    }
+    if (pass == 1) break;
+    __syncthreads();
+    // bucket b starts after every bucket with more stages; warp w's part after warps < w
+    if (tid < WL_BUCKETS) {
+      int total = 0;
+      for (int w = 0; w < 32; ++w) total += cnt[w][tid];
+      start[tid] = total;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int run = 0;
+      for (int b = WL_BUCKETS - 1; b >= 0; --b) {
+        const int c = start[b];
+        start[b] = run;
+        run += c;
+      }
+      *n_items = run;
+    }
+    __syncthreads();
+    if (tid < WL_BUCKETS) {
+      int run = start[tid];
+      for (int w = 0; w < 32; ++w) {
+        const int c = cnt[w][tid];
+        cnt[w][tid] = run;
+        run += c;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// One 64-row stage of a token's top-r walk over the score tile column `col`
+// (rows r0 .. r0+n-1).  tau, the least of R group maxima (groups of 64/R
+// rows), has at least R rows of the stage at or above it, so a row below
+// tau never enters the top-r; nor does a row that does not beat the held
+// r-th entry now.  The rest are marked in a 64-bit mask and inserted in
+// row order, so a warp runs as many inserts as its busiest token needs,
+// not one a row.
+template <int R>
+__device__ __forceinline__ void walk_stage(float (&ss)[R], int (&sr)[R], const float* col, int r0, int n,
+                                           int astart) {
+  constexpr int GROUP = MMA_ROWS / R;
+  float tau = __int_as_float(0x7f800000);
+#pragma unroll
+  for (int g = 0; g < R; ++g) {
+    float m = neg_inf();
+#pragma unroll
+    for (int i = 0; i < GROUP; ++i)
+      if (g * GROUP + i < n) m = fmaxf(m, col[(g * GROUP + i) * SC_STRIDE]);
+    tau = fminf(tau, m);
+  }
+  const float hs = ss[R - 1];
+  const int hr = sr[R - 1];
+  uint64_t mask = 0;
+#pragma unroll
+  for (int j = 0; j < MMA_ROWS; ++j) {
+    if (j < n) {
+      const float v = col[j * SC_STRIDE];
+      const int row = r0 + j;
+      if (v >= tau && beats(v, row - ((row - astart) & (BLOCK_ROWS - 1)), hs, hr)) mask |= uint64_t(1) << j;
+    }
+  }
+  while (mask) {
+    const int j = __ffsll((long long)mask) - 1;
+    mask &= mask - 1;
+    const int row = r0 + j;
+    insert<R>(ss, sr, col[j * SC_STRIDE], row, row - ((row - astart) & (BLOCK_ROWS - 1)));
+  }
+}
+
+template <int D, int R>
+__global__ void __launch_bounds__(THREADS)
+slot_scan_mma_kernel(const int* __restrict__ qidx,       // (S, tpl)
+                     const int* __restrict__ items,      // the filled slots, most stages first
+                     const int* __restrict__ n_items,    // how many
+                     const int* __restrict__ offsets,    // (K+1,)
+                     const float* __restrict__ qs,       // (T, D) fp32, rounded to bf16 here
+                     const int8_t* __restrict__ codes,   // (N, D)
+                     float* __restrict__ out_s, int* __restrict__ out_r, int K, int tpl, int r) {
+  using SM = MmaSmem<D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sc = reinterpret_cast<float*>(smem);
+  __nv_bfloat16* bsh = reinterpret_cast<__nv_bfloat16*>(smem + SM::SC_BYTES);
+  int8_t* ash = reinterpret_cast<int8_t*>(smem + SM::SC_BYTES + SM::B_BYTES);
+  __shared__ int tok_sh[THREADS];
+  __shared__ int last_sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, q = lane & 3;
+  const int count = *n_items;
+  constexpr int QVEC = D / 4;   // float4s a fp32 token row
+  constexpr int AVEC = D / 16;  // 16-byte vectors a code row
+
+  for (int item = blockIdx.x; item < count; item += gridDim.x) {
+    if (tid == 0) last_sh = -1;
+    __syncthreads();
+    const int64_t s = items[item];
+    const int list = int(s % K);
+    const int t = tid < tpl ? qidx[s * tpl + tid] : -1;
+    tok_sh[tid] = t;
+    if (t >= 0) atomicMax(&last_sh, tid);
+    __syncthreads();
+    const int n_tiles = (last_sh + 8) / 8;  // n-tiles up to the last member (a filled slot has one)
+
+    // the slot's tokens, rounded to bf16: the B operand, token-major (n x k), zero where empty
+    for (int i = tid; i < n_tiles * 8 * QVEC; i += THREADS) {
+      const int p = i / QVEC, v = i % QVEC;
+      const int tk = tok_sh[p];
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (tk >= 0) x = __ldg(reinterpret_cast<const float4*>(qs + int64_t(tk) * D) + v);
+      const __nv_bfloat162 lo2 = __floats2bfloat162_rn(x.x, x.y), hi2 = __floats2bfloat162_rn(x.z, x.w);
+      *reinterpret_cast<uint2*>(bsh + p * SM::B_STRIDE + v * 4) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo2), *reinterpret_cast<const uint32_t*>(&hi2));
+    }
+
+    float ss[R];
+    int sr[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      ss[i] = neg_inf();
+      sr[i] = -1;
+    }
+    const int lo = offsets[list], hi = offsets[list + 1];
+    const int astart = lo - lo % ALIGN_ROWS;
+    const int n_chunks = (hi - lo + MMA_ROWS - 1) / MMA_ROWS;
+    // rows lo + c*64 .. of chunk c into ring slot c & 1; rows past the list are zero
+    auto stage = [&](int c) {
+      const int r0 = lo + c * MMA_ROWS;
+      int8_t* dst = ash + (c & 1) * MMA_ROWS * SM::A_STRIDE;
+      for (int i = tid; i < MMA_ROWS * AVEC; i += THREADS) {
+        const int row = i / AVEC, v = i % AVEC;
+        const bool in = r0 + row < hi;
+        const int8_t* src = in ? codes + int64_t(r0 + row) * D + v * 16 : codes;
+        hopper::cp_async16(hopper::smem_u32(dst + row * SM::A_STRIDE + v * 16), src, in ? 16 : 0);
+      }
+      hopper::cp_async_commit();
+    };
+    if (n_chunks > 0) stage(0);
+    for (int c = 0; c < n_chunks; ++c) {
+      if (c + 1 < n_chunks) {
+        stage(c + 1);
+        hopper::cp_async_wait<1>();
+      } else {
+        hopper::cp_async_wait<0>();
+      }
+      __syncthreads();  // chunk c and the tokens are in; the last chunk's walk is done
+      const int r0 = lo + c * MMA_ROWS, n = min(MMA_ROWS, hi - r0);
+      if (warp * 16 < n) {
+        // A: this warp's 16 rows, widened in registers.  A thread widens bytes
+        // 4q..4q+3 of a 16-dim step into fragment columns 2q, 2q+1 (a[0]) and
+        // 2q+8, 2q+9 (a[2]); B's fragment takes the same dims, so the k order
+        // is permuted alike on both sides and the sum is unchanged.
+        const int8_t* ab = ash + (c & 1) * MMA_ROWS * SM::A_STRIDE + (warp * 16 + g) * SM::A_STRIDE + 4 * q;
+        uint32_t a[AVEC][4];
+#pragma unroll
+        for (int ks = 0; ks < AVEC; ++ks) {
+          hopper::widen4(*reinterpret_cast<const uint32_t*>(ab + ks * 16), a[ks][0], a[ks][2]);
+          hopper::widen4(*reinterpret_cast<const uint32_t*>(ab + 8 * SM::A_STRIDE + ks * 16), a[ks][1],
+                         a[ks][3]);
+        }
+        float* o = sc + (warp * 16 + g) * SC_STRIDE + 2 * q;
+        for (int nt = 0; nt < n_tiles; ++nt) {
+          const __nv_bfloat16* bb = bsh + (nt * 8 + g) * SM::B_STRIDE + 4 * q;
+          float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+          for (int ks = 0; ks < AVEC; ++ks) {
+            const uint2 b = *reinterpret_cast<const uint2*>(bb + ks * 16);
+            hopper::mma_bf16_16816(d, a[ks], b.x, b.y);
+          }
+          *reinterpret_cast<float2*>(o + nt * 8) = make_float2(d[0], d[1]);
+          *reinterpret_cast<float2*>(o + 8 * SC_STRIDE + nt * 8) = make_float2(d[2], d[3]);
+        }
+      }
+      __syncthreads();  // the score tile is complete
+      if (t >= 0) walk_stage<R>(ss, sr, sc + tid, r0, n, astart);
+    }
+
+    if (tid < tpl) {
+      const int64_t o = s * r * tpl + tid;
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        if (i < r) {
+          out_s[o + int64_t(i) * tpl] = ss[i];
+          out_r[o + int64_t(i) * tpl] = sr[i];
+        }
+    }
+    __syncthreads();  // every thread has read this item's shared state
+  }
+}
+
+template <int D, int R>
+cudaError_t launch_mma(const int* qidx, int* work, const int* offsets, const float* qs, const int8_t* codes,
+                       float* out_s, int* out_r, int S, int K, int tpl, int r, cudaStream_t stream) {
+  auto kernel = slot_scan_mma_kernel<D, R>;
+  constexpr int smem = MmaSmem<D>::TOTAL;
+  // the blocks that fit on the card at once, found once a device (host calls, no sync)
+  constexpr int MAX_DEVICES = 64;
+  static int resident[MAX_DEVICES] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= MAX_DEVICES) return err != cudaSuccess ? err : cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+    if (err != cudaSuccess) return err;
+    resident[dev] = (per_sm > 0 ? per_sm : 1) * sms;
+  }
+  slot_work_list_kernel<<<1, WL_THREADS, 0, stream>>>(qidx, offsets, S, K, tpl, work, work + S);
+  const int grid = S < resident[dev] ? S : resident[dev];
+  kernel<<<grid, THREADS, smem, stream>>>(qidx, work, work + S, offsets, qs, codes, out_s, out_r, K, tpl, r);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_mma_r(const int* qidx, int* work, const int* offsets, const float* qs, const int8_t* codes,
+                         float* out_s, int* out_r, int S, int K, int tpl, int r, cudaStream_t stream) {
+  if (r <= 2) return launch_mma<D, 2>(qidx, work, offsets, qs, codes, out_s, out_r, S, K, tpl, r, stream);
+  if (r <= 8) return launch_mma<D, 8>(qidx, work, offsets, qs, codes, out_s, out_r, S, K, tpl, r, stream);
+  return launch_mma<D, 16>(qidx, work, offsets, qs, codes, out_s, out_r, S, K, tpl, r, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -231,6 +525,43 @@ int sq_list_scan_launch(const void* qidx, const void* hot_ids, const void* offse
     case 32: return int(launch_r<32>(qi, hi, of, q, c, os, orow, units, K, T, tpl, r, hot, s));
     case 64: return int(launch_r<64>(qi, hi, of, q, c, os, orow, units, K, T, tpl, r, hot, s));
     case 128: return int(launch_r<128>(qi, hi, of, q, c, os, orow, units, K, T, tpl, r, hot, s));
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// K6's work list alone (the first kernel of route "mma"): work (S + 1,)
+// int32, the filled slots in work[0 .. n) and n in work[S].
+int sq_slot_work_list_launch(const void* qidx, const void* offsets, void* work, int S, int K, int tpl,
+                             void* stream) {
+  if (S < 1 || K < 1 || tpl < 1 || qidx == nullptr || work == nullptr) return int(cudaErrorInvalidValue);
+  int* w = static_cast<int*>(work);
+  slot_work_list_kernel<<<1, WL_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(qidx), static_cast<const int*>(offsets), S, K, tpl, w, w + S);
+  return int(cudaGetLastError());
+}
+
+// K6 on route "mma": S slots, qidx (S, tpl); work (S + 1,) int32 scratch
+// for the work list; qs (T, D) fp32 (rounded to bf16 in the kernel).  Two
+// launches on `stream`: the work list, then the scan.  Returns a
+// cudaError_t: 0 when both launches were accepted.
+int sq_slot_scan_mma_launch(const void* qidx, void* work, const void* offsets, const void* qs,
+                            const void* codes, void* out_s, void* out_r, int S, int K, int D, int tpl, int r,
+                            void* stream) {
+  if (S < 1 || K < 1 || r < 1 || r > 16 || tpl < 1 || tpl > THREADS || qidx == nullptr || work == nullptr)
+    return int(cudaErrorInvalidValue);
+  const int* qi = static_cast<const int*>(qidx);
+  int* w = static_cast<int*>(work);
+  const int* of = static_cast<const int*>(offsets);
+  const float* q = static_cast<const float*>(qs);
+  const int8_t* c = static_cast<const int8_t*>(codes);
+  float* os = static_cast<float*>(out_s);
+  int* orow = static_cast<int*>(out_r);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return int(launch_mma_r<16>(qi, w, of, q, c, os, orow, S, K, tpl, r, st));
+    case 32: return int(launch_mma_r<32>(qi, w, of, q, c, os, orow, S, K, tpl, r, st));
+    case 64: return int(launch_mma_r<64>(qi, w, of, q, c, os, orow, S, K, tpl, r, st));
+    case 128: return int(launch_mma_r<128>(qi, w, of, q, c, os, orow, S, K, tpl, r, st));
     default: return int(cudaErrorInvalidValue);
   }
 }

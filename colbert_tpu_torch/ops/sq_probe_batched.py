@@ -14,9 +14,22 @@ Counterpart of ``colbert_tpu/ops/sq_probe_batched.py``:
    probed list) pairs and takes each token's top-``depth`` over its
    ``nprobe * r`` entries.
 
-Both kernels live in ``csrc/sq_probe.cu``.  The TPU kernels' 128-lane
-packing, block-diagonal query bands and 32-row aligned DMA windows are not
-carried over: a kernel reads exactly its list's rows ``[offsets[l],
+Both kernels live in ``csrc/sq_probe.cu``.  K6 has two routes, chosen in
+:func:`scan_plan` and counted in :data:`route_launches`:
+
+* "mma", every shape K6 takes: a work list of the filled slots, most
+  work first, built on the device by a kernel of its own (plain version:
+  :func:`slot_work_list`; no host sync); a persistent grid walks it,
+  products on the tensor cores (bf16 query tokens x int8 codes widened
+  exactly to bf16, ``mma.sync`` with fp32 accumulation), each token's
+  top-``r`` taken from the score tile;
+* "staged", K6's first design (one block per dense slot, one thread per
+  token, fp32 FMA chains), reached only when asked for
+  (``_launch(..., route="staged")``), so that a run can check and time both
+  on one input.  K7 always runs this kernel.
+
+The TPU kernels' 128-lane packing, block-diagonal query bands and 32-row
+aligned DMA windows are not carried over: a kernel reads exactly its list's rows ``[offsets[l],
 offsets[l+1])`` of the unpadded codes, so the JAX package's
 ``pad_codes_for_scan`` has no counterpart.  The TPU kernel's 128-row
 blocks still decide ties (see the plain versions), so rows equal the JAX
@@ -42,6 +55,7 @@ ALIGN_ROWS = 32   # a list's first block starts at its offset rounded down to th
 _SQ_DIMS = (16, 32, 64, 128)
 _MAX_TOKENS = 128  # tokens per slot (tpl); mirrored by sq_scan_max_tokens() in the .cu
 _MAX_R = 16
+_ROUTES = ("mma", "staged")
 _REF_ELEMS = 1 << 24  # score elements per plain-version step
 
 
@@ -84,6 +98,38 @@ def build_slot_schedule_dense(member: torch.Tensor, lists: torch.Tensor, *, tpl:
     pair_valid = member[t_flat, l_flat] & (r < cap)
     r = r.clamp(0, cap - 1)
     return SlotSchedule(qidx.contiguous(), (r // tpl) * K + l_flat, r % tpl), pair_valid
+
+
+WORK_STAGE_ROWS = 64  # rows a stage of route "mma"; the work list orders slots by stages
+WORK_BUCKETS = 256    # stage counts the work list tells apart (longer lists share the last)
+
+
+def slot_work_list(qidx: torch.Tensor, offsets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K6's work list on route "mma" (the CUDA source
+    builds it on the device): (items (S,) int32, count () int32).
+    ``items[:count]`` are the filled slots (``qidx[s, 0] >= 0``, a slot on
+    an empty list included), the most 64-row stages of work first (stage
+    counts above 255 tie), equal counts in slot order; the empty slots
+    follow."""
+    S, K = qidx.shape[0], offsets.shape[0] - 1
+    filled = qidx[:, 0] >= 0
+    lens = (offsets[1:] - offsets[:-1]).long().repeat(-(-S // K))[:S]  # slot s scans list s % K
+    stages = ((lens + WORK_STAGE_ROWS - 1) // WORK_STAGE_ROWS).clamp(max=WORK_BUCKETS - 1)
+    items = torch.sort(torch.where(filled, stages, -1), descending=True, stable=True)[1].int()
+    return items, filled.sum(dtype=torch.int32)
+
+
+def scan_plan(D: int, tpl: int, r: int) -> str:
+    """K6's kernel route for sq_dim ``D``, ``tpl`` tokens a slot and ``r``
+    rows a token: "mma" for every shape K6 takes (``D`` in 16, 32, 64, 128;
+    ``tpl`` 1..128; ``r`` 1..16); raises on any other."""
+    if D not in _SQ_DIMS:
+        raise ValueError(f"sq list scan kernel takes sq_dim in {_SQ_DIMS}, got {D}")
+    if not 1 <= tpl <= _MAX_TOKENS:
+        raise ValueError(f"sq list scan kernel takes 1..{_MAX_TOKENS} tokens per slot, got {tpl}")
+    if not 1 <= r <= _MAX_R:
+        raise ValueError(f"sq list scan kernel keeps 1..{_MAX_R} rows per token, got r={r}")
+    return "mma"
 
 
 # ---- plain PyTorch version of both kernels ----
@@ -169,6 +215,10 @@ def _kernel_lib() -> ctypes.CDLL:
         if lib.sq_list_scan_launch.argtypes is None:
             lib.sq_list_scan_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
             lib.sq_list_scan_launch.restype = ctypes.c_int
+            lib.sq_slot_scan_mma_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            lib.sq_slot_scan_mma_launch.restype = ctypes.c_int
+            lib.sq_slot_work_list_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            lib.sq_slot_work_list_launch.restype = ctypes.c_int
             for fn in (lib.sq_scan_max_tokens, lib.sq_scan_max_r):
                 fn.argtypes, fn.restype = [], ctypes.c_int
             if (lib.sq_scan_max_tokens(), lib.sq_scan_max_r()) != (_MAX_TOKENS, _MAX_R):
@@ -176,49 +226,81 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
+def work_list_kernel(qidx: torch.Tensor, offsets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Route "mma"'s work list from its CUDA kernel alone (the scan builds
+    its own): (items (S,) int32, count () int32), ``items[:count]`` as
+    :func:`slot_work_list` orders them, the rest unwritten.  For the card
+    tests and ``chip_smoke.py``."""
+    if not (qidx.is_cuda and offsets.device == qidx.device):
+        raise ValueError("the work-list kernel needs qidx and offsets on one CUDA device")
+    qidx, offsets = qidx.contiguous(), offsets.contiguous()
+    (S, tpl), K = qidx.shape, offsets.shape[0] - 1
+    work = torch.empty(S + 1, dtype=torch.int32, device=qidx.device)
+    with torch.cuda.device(qidx.device):
+        err = _kernel_lib().sq_slot_work_list_launch(qidx.data_ptr(), offsets.data_ptr(), work.data_ptr(), S, K,
+                                                     tpl, torch.cuda.current_stream(qidx.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sq slot work-list kernel launch failed: cudaError_t {err}")
+    return work[:S], work[S]
+
+
 def _launch(units: torch.Tensor, offsets: torch.Tensor, qs: torch.Tensor, codes: torch.Tensor,
-            r: int, hot: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch.  K6 (``hot`` False): ``units`` is qidx (S, tpl).  K7:
-    ``units`` is hot_ids (H,)."""
+            r: int, hot: bool, route: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch.  K6 (``hot`` False): ``units`` is qidx (S, tpl), ``qs``
+    rounded to bf16 (in the kernel on route "mma"), on the route
+    :func:`scan_plan` picks or ``route`` names ("staged" runs the first
+    design beside it).  K7: ``units`` is hot_ids (H,), fp32 ``qs``, the one
+    kernel it has."""
     dev = codes.device
     if not all(t.is_cuda and t.device == dev for t in (units, offsets, qs)):
         raise ValueError("sq list scan kernel needs every tensor on one CUDA device")
     T, D = qs.shape
     if codes.dtype != torch.int8 or codes.dim() != 2 or codes.shape[1] != D:
         raise ValueError(f"codes must be (N, {D}) int8, got {tuple(codes.shape)} {codes.dtype}")
-    if D not in _SQ_DIMS:
-        raise ValueError(f"sq list scan kernel takes sq_dim in {_SQ_DIMS}, got {D}")
-    if not 1 <= r <= _MAX_R:
-        raise ValueError(f"sq list scan kernel keeps 1..{_MAX_R} rows per token, got r={r}")
     if units.dtype != torch.int32 or offsets.dtype != torch.int32:
         raise ValueError("qidx / hot_ids and offsets must be int32")
     if not codes.is_contiguous() or codes.data_ptr() % 16:
         raise ValueError("sq list scan kernel needs contiguous, 16-byte aligned codes")
-    K = offsets.shape[0] - 1
-    q = qs.float().contiguous()
-    if q.data_ptr() % 16:
-        q = q.clone()
-    units = units.contiguous()
-    offsets = offsets.contiguous()
     if hot:
+        if route is not None:
+            raise ValueError("K7 has one kernel; it takes no route")
         U, tpl, P = units.shape[0], 0, T
+        scan_plan(D, 1, r)
     else:
         (U, tpl), P = units.shape, units.shape[1]
-        if not 1 <= tpl <= _MAX_TOKENS:
-            raise ValueError(f"sq list scan kernel takes 1..{_MAX_TOKENS} tokens per slot, got {tpl}")
+        plan = scan_plan(D, tpl, r)
+        route = route or plan
+        if route not in _ROUTES:
+            raise ValueError(f"sq slot scan route {route!r} is not one of {_ROUTES}")
+    K = offsets.shape[0] - 1
+    units = units.contiguous()
+    offsets = offsets.contiguous()
     out_s = torch.empty((U, r, P), dtype=torch.float32, device=dev)
     out_r = torch.empty((U, r, P), dtype=torch.int32, device=dev)
     if U == 0 or T == 0:
         return out_s.fill_(float("-inf")), out_r.fill_(-1)
+    # K6 rounds qs to bf16, as the TPU kernel rounds qsT (route "mma" as it
+    # stages them); K7 keeps fp32
+    q = (qs.to(torch.bfloat16).float() if route == "staged" else qs.float()).contiguous()
+    if q.data_ptr() % 16:
+        q = q.clone()
     lib = _kernel_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.sq_list_scan_launch(
-            None if hot else units.data_ptr(), units.data_ptr() if hot else None,
-            offsets.data_ptr(), q.data_ptr(), codes.data_ptr(), out_s.data_ptr(), out_r.data_ptr(),
-            U, K, T, D, tpl, r, int(hot), torch.cuda.current_stream(dev).cuda_stream,
-        )
+        if route == "mma":  # two launches: the work list into `work`, then the scan
+            work = torch.empty(U + 1, dtype=torch.int32, device=dev)
+            err = lib.sq_slot_scan_mma_launch(
+                units.data_ptr(), work.data_ptr(), offsets.data_ptr(), q.data_ptr(), codes.data_ptr(),
+                out_s.data_ptr(), out_r.data_ptr(), U, K, D, tpl, r, stream)
+        else:
+            err = lib.sq_list_scan_launch(
+                None if hot else units.data_ptr(), units.data_ptr() if hot else None,
+                offsets.data_ptr(), q.data_ptr(), codes.data_ptr(), out_s.data_ptr(), out_r.data_ptr(),
+                U, K, T, D, tpl, r, int(hot), stream)
     if err != 0:
-        raise RuntimeError(f"sq list scan kernel launch failed: cudaError_t {err}")
+        raise RuntimeError(f"sq list scan kernel launch failed ({route or 'hot'}): cudaError_t {err}")
+    if not hot:
+        route_launches[route].add()
     return out_s, out_r
 
 
@@ -234,7 +316,7 @@ def sq_batch_list_scan(qidx: torch.Tensor, offsets: torch.Tensor, qs: torch.Tens
     kernel leaves empty slots unwritten: no pair reads them."""
     if _on_cpu(qidx, offsets, qs, codes):
         return sq_batch_list_scan_ref(qidx, offsets, qs, codes, r=r)
-    out = _launch(qidx, offsets, qs.to(torch.bfloat16).float(), codes, r, hot=False)
+    out = _launch(qidx, offsets, qs, codes, r, hot=False)
     sq_batch_list_scan.launches.add()
     return out
 
@@ -254,6 +336,8 @@ def sq_hot_list_scan(hot_ids: torch.Tensor, offsets: torch.Tensor, qs: torch.Ten
 
 sq_batch_list_scan.launches = LaunchCounter()
 sq_hot_list_scan.launches = LaunchCounter()
+#: K6's launches by kernel route
+route_launches = {route: LaunchCounter() for route in _ROUTES}
 
 
 # ---- back to tokens ----
@@ -302,9 +386,9 @@ def ranked_mismatch(s_want: torch.Tensor, r_want: torch.Tensor, s_got: torch.Ten
     away from near ties).  A near tie is a score within ``tol`` of a
     different neighbouring score, whose order a summation-order difference
     may flip; exact ties must resolve alike.  ``got_at_want``, the got
-    side's scores of ``r_want``'s ids, where given, also makes an exact tie
-    of ``s_want`` a near tie when those two scores differ: two different
-    rows whose sums agree only by rounding.  Raises when the -inf pattern
+    side's scores of ``r_want``'s ids (or their exact sums, in fp64), where
+    given, also makes an exact tie of ``s_want`` a near tie when those two
+    scores differ: two different rows whose sums agree only by rounding.  Raises when the -inf pattern
     differs."""
     fin = torch.isfinite(s_want)
     if not torch.equal(fin, torch.isfinite(s_got)):

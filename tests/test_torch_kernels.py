@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the flat scan (K1, K2), all-pairs MaxSim (K3), dropout (K9), the rerank
 (K4 bf16, K5 int8, on both routes, its pid-window schedule's edges and its
-freedom from host synchronisation), the sq list scans (K6 slots, K7 hot
-lists), the pq4 list scan (K8) and the token-major sq window scan (K10).
+freedom from host synchronisation), the sq list scans (K6 slots on both
+routes, its work list's edges and its freedom from host synchronisation;
+K7 hot lists), the pq4 list scan (K8) and the token-major sq window scan (K10).
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU and
 skips elsewhere.  This file imports no jax (the card's machine has none);
@@ -359,15 +360,129 @@ def test_slot_scan_kernel_matches_plain(cuda_device, K, D, max_len, T, nprobe, t
     coarse = torch.randn(T, K, device=cuda_device, generator=torch.Generator(cuda_device).manual_seed(K))
     vals, lists = torch.topk(coarse, nprobe, dim=1)
     sched, _ = sp.build_slot_schedule_dense(coarse >= vals[:, -1:], lists, tpl=tpl, groups=8)
-    before = sp.sq_batch_list_scan.launches.value
-    gs, gr = sp.sq_batch_list_scan(sched.qidx, offsets, qs, codes, r=r)
-    torch.cuda.synchronize()
-    assert sp.sq_batch_list_scan.launches.value == before + 1
-    ws, wr = sp.sq_batch_list_scan_ref(sched.qidx, offsets, qs, codes, r=r)
     filled = sched.qidx[:, 0] >= 0  # the kernel leaves empty slots unwritten
     assert int(filled.sum()) > 0
-    _assert_ranked(ws[filled].transpose(1, 2).reshape(-1, r), wr[filled].transpose(1, 2).reshape(-1, r),
-                   gs[filled].transpose(1, 2).reshape(-1, r), gr[filled].transpose(1, 2).reshape(-1, r))
+    _assert_slot_scan_matches_plain(sched.qidx, offsets, qs, codes, r)
+
+
+def _slot_rows(t, filled):
+    """(S, r, tpl) -> the filled slots' (positions, r) rows."""
+    return t[filled].transpose(1, 2).reshape(-1, t.shape[1])
+
+
+def _assert_slot_scan_matches_plain(qidx, offsets, qs, codes, r):
+    """K6 through its wrapper (route "mma", one launch counted on it), then
+    on route "staged" on the same input: both against the plain version at
+    the filled slots, and against each other."""
+    from colbert_tpu_torch.ops import sq_probe_batched as sp
+
+    assert sp.scan_plan(qs.shape[1], qidx.shape[1], r) == "mma"
+    before = {k: c.value for k, c in sp.route_launches.items()}
+    n = sp.sq_batch_list_scan.launches.value
+    gs, gr = sp.sq_batch_list_scan(qidx, offsets, qs, codes, r=r)
+    ss, sr = sp._launch(qidx, offsets, qs, codes, r, hot=False, route="staged")
+    torch.cuda.synchronize()
+    assert sp.sq_batch_list_scan.launches.value == n + 1
+    assert {k: c.value - before[k] for k, c in sp.route_launches.items()} == {"mma": 1, "staged": 1}
+    ws, wr = sp.sq_batch_list_scan_ref(qidx, offsets, qs, codes, r=r)
+    f = qidx[:, 0] >= 0
+    _assert_ranked(_slot_rows(ws, f), _slot_rows(wr, f), _slot_rows(gs, f), _slot_rows(gr, f))
+    _assert_ranked(_slot_rows(ws, f), _slot_rows(wr, f), _slot_rows(ss, f), _slot_rows(sr, f))
+    _assert_ranked(_slot_rows(ss, f), _slot_rows(sr, f), _slot_rows(gs, f), _slot_rows(gr, f))
+    return gs, gr
+
+
+@pytest.mark.parametrize("D,tpl,r", [(16, 1, 1), (16, 7, 16), (32, 7, 1), (32, 1, 16), (128, 7, 16), (128, 1, 1)])
+def test_slot_scan_mma_route_shapes(cuda_device, D, tpl, r):
+    """Route "mma" at every sq_dim but the serving one, one token a slot and
+    a member count that is not a multiple of the 8-token n-tile, r at 1 and 16."""
+    from colbert_tpu_torch.ops import sq_probe_batched as sp
+
+    K, T, nprobe = 40, 60, 6
+    codes, offsets, qs = _sq_case(cuda_device, D * 10 + tpl + r, K, D, 400, T)
+    coarse = torch.randn(T, K, device=cuda_device, generator=torch.Generator(cuda_device).manual_seed(D + r))
+    vals, lists = torch.topk(coarse, nprobe, dim=1)
+    sched, _ = sp.build_slot_schedule_dense(coarse >= vals[:, -1:], lists, tpl=tpl, groups=8)
+    assert int((sched.qidx[:, 0] >= 0).sum()) > 0
+    _assert_slot_scan_matches_plain(sched.qidx, offsets, qs, codes, r)
+
+
+@pytest.mark.parametrize("kind", ["empty_list", "long_list_ties", "nothing_filled"])
+def test_slot_scan_work_list_edges(cuda_device, kind):
+    """A filled slot on an empty list (-inf / -1 for its members); one list
+    of 3,000 rows at an unaligned offset whose rows tie exactly within and
+    across 128-row blocks (codes in -1..1, queries on a 1/64 grid: every sum
+    exact on both sides); a schedule with no filled slot (nothing written)."""
+    from colbert_tpu_torch.ops import sq_probe_batched as sp
+
+    rng = np.random.default_rng(len(kind))
+    K, D, tpl, r, T = 8, 16, 16, 8, 40
+    lens = np.array([37, 3000, 0, 150, 0, 64, 1, 200])
+    offsets = np.zeros(K + 1, np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    codes = rng.integers(-1, 2, size=(int(offsets[-1]), D)).astype(np.int8)
+    b = offsets[1]
+    codes[b + 300] = codes[b + 5]                    # across blocks
+    codes[b + 2000] = codes[b + 5]
+    codes[b + 9] = codes[b + 3]                      # within a block
+    qs = (rng.integers(-8, 9, size=(T, D)) / 64.0).astype(np.float32)
+    qidx = np.full((2 * K, tpl), -1, np.int32)
+    if kind != "nothing_filled":
+        for s, m in ((1, 16), (2, 7), (3, 5), (K + 1, 9), (4, 1), (7, 3)):
+            qidx[s, :m] = rng.choice(T, size=m, replace=False)
+    to = lambda a: torch.from_numpy(a).to(cuda_device)
+    qidx, offsets, codes, qs = to(qidx), to(offsets), to(codes), to(qs)
+    items, count = sp.work_list_kernel(qidx, offsets)
+    want_items, want_count = sp.slot_work_list(qidx, offsets)
+    filled = qidx[:, 0] >= 0
+    assert int(count) == int(want_count) == int(filled.sum())
+    assert torch.equal(items[: int(count)], want_items[: int(count)])  # the plain version's slots and order
+    if kind == "nothing_filled":
+        before = sp.route_launches["mma"].value
+        sp.sq_batch_list_scan(qidx, offsets, qs, codes, r=r)
+        torch.cuda.synchronize()
+        assert sp.route_launches["mma"].value == before + 1
+        return
+    gs, gr = _assert_slot_scan_matches_plain(qidx, offsets, qs, codes, r)
+    if kind == "empty_list":  # slots 2 and 4 scan lists 2 and 4, which hold no rows
+        for s, m in ((2, 7), (4, 1)):
+            assert torch.isinf(gs[s, :, :m]).all() and (gs[s, :, :m] < 0).all() and (gr[s, :, :m] == -1).all()
+    else:  # the long list's top-r holds tied rows from several blocks
+        top = gr[1].flatten()
+        assert ((top >= b) & (top < b + 3000)).all()
+
+
+def test_slot_scan_never_synchronises(cuda_device):
+    """The whole sq-batched probe (plan, work list, K6 on route "mma", K7,
+    postprocess) with torch's sync debug mode raising on any host
+    synchronisation; then against the same probe built from the plain
+    versions on the same plan."""
+    from colbert_tpu_torch.ops import ivf, sq_probe_batched as sp
+
+    K, D, T, d = 256, 64, 512, 32
+    codes, offsets, _ = _sq_case(cuda_device, 11, K, D, 200, T)
+    g = torch.Generator(cuda_device).manual_seed(11)
+    q = torch.randn(T, d, device=cuda_device, generator=g)
+    cent = torch.randn(K, d, device=cuda_device, generator=g)
+    proj = torch.randn(d, D, device=cuda_device, generator=g) / d ** 0.5
+    scales = torch.full((D,), 127.0 * 8, device=cuda_device)  # scores ~ 1
+    args = (q, cent, proj, scales, codes, offsets)
+    kw = dict(nprobe=16, depth=32, r=4, hot_cap=8)
+    ivf.ivf_probe_sq_batched(*args, **kw)  # the library is built and loaded outside the check
+    torch.cuda.synchronize()
+    before = sp.route_launches["mma"].value
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s, rows = ivf.ivf_probe_sq_batched(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert sp.route_launches["mma"].value == before + 1
+    plan = ivf.sq_probe_plan(q, cent, proj, scales, nprobe=16, hot_cap=8)
+    out = sp.sq_batch_list_scan_ref(plan.sched.qidx, offsets, plan.qs, codes, r=4)
+    hot = (plan.hot_pos, *sp.sq_hot_list_scan_ref(plan.hot_ids, offsets, plan.qs, codes, r=4))
+    ws, wr = sp.probe_batched_postprocess(plan.sched, *out, plan.lists, 32, plan.pair_valid, hot=hot)
+    assert torch.isfinite(ws).sum() > T * 16
+    _assert_ranked(ws, wr, s, rows)
 
 
 @pytest.mark.parametrize("K,D,max_len,T,H,r", [

@@ -1,5 +1,7 @@
 """The port's sq probe against the JAX package on the CPU: the dense slot
-schedule, the plain versions of K6 (slot list scan) and K7 (hot-list scan)
+schedule, K6's work list (route "mma") against the JAX schedule's filled
+slots, K6's tie rule as a total order (a plain sort under it against the
+TPU kernel), the plain versions of K6 (slot list scan) and K7 (hot-list scan)
 against the TPU kernels in interpret mode, the whole
 ``ivf_probe_sq_batched`` with and without hot lists, and both dedups.
 
@@ -120,6 +122,97 @@ def test_k6_plain_matches_jax_kernel(D, r):
     jr = np.where(filled, jr, -1)
     assert_ranked_match(js, jr, ps, pr, axis=1)
     assert np.isfinite(ps).sum() > 100
+
+
+def total_order_topr(qidx, offsets, qs, codes, r):
+    """K6 by sorting each filled slot's list rows under the key (score
+    desc, 128-row block desc, row asc), blocks from the list offset rounded
+    down to 32 rows: the order of visits plays no part."""
+    S, tpl = qidx.shape
+    K = len(offsets) - 1
+    out_s = np.full((S, r, tpl), -np.inf, np.float32)
+    out_r = np.full((S, r, tpl), -1, np.int32)
+    qb = torch.from_numpy(qs).to(torch.bfloat16).float().numpy()
+    for s in np.flatnonzero(qidx[:, 0] >= 0):
+        lo, hi = offsets[s % K], offsets[s % K + 1]
+        rows = np.arange(lo, hi)
+        block = (rows - (lo - lo % 32)) // 128
+        for p in np.flatnonzero(qidx[s] >= 0):
+            score = codes[lo:hi].astype(np.float32) @ qb[qidx[s, p]]
+            top = np.lexsort((rows, -block, -score))[:r]
+            out_s[s, : len(top), p] = score[top]
+            out_r[s, : len(top), p] = rows[top]
+    return out_s, out_r
+
+
+@pytest.mark.parametrize("D", [16, 64])
+@pytest.mark.parametrize("r", [2, 8])
+def test_k6_total_order_matches_jax_kernel(D, r):
+    """The TPU kernel's merge of 128-row blocks is a top-r under one total
+    order, so K6 may visit rows in any order; duplicates planted within
+    and across blocks resolve alike."""
+    rng = np.random.default_rng(10 * D + r)
+    T, K, nprobe, tpl, groups = 40, 12, 4, 8, 2
+    codes, offsets = random_csr(rng, K, D, 300)
+    qs = scaled_queries(rng, T, D)
+    coarse = rng.normal(size=(T, K)).astype(np.float32)
+    sched, _, _, _ = jax_schedule(coarse, nprobe, offsets, tpl, groups, D)
+    qidx = np.asarray(sched.qidx)
+    # list 2's planted cross-block duplicate (rows b+5, b+140) made the best
+    # rows of a member token: both enter its top-r, the later block first
+    b = offsets[2]
+    t = qidx[2, 0]
+    assert t >= 0
+    codes[b + 5] = codes[b + 140] = np.where(qs[t] >= 0, 127, -127)
+    maxb = (int(np.diff(offsets).max()) + 31 + 127) // 128
+    t_pad = -(-T // 128) * 128
+    qsT = jnp.pad(jnp.asarray(qs), ((0, t_pad - T), (0, 0))).T
+    js, jr = jsp.sq_batch_list_scan(sched.qidx, sched.meta, qsT, pad_codes_for_scan(jnp.asarray(codes), maxb * 128),
+                                    tpl=tpl, r=r, interpret=True)
+    ts, tr = total_order_topr(qidx, offsets, qs, codes, r)
+    ran = np.asarray(sched.meta)[:, 0, 1] > 0
+    assert ran[2]
+    np.testing.assert_array_equal(tr[2, :2, 0], [b + 140, b + 5])
+    np.testing.assert_array_equal(np.asarray(jr)[2, :2, 0], [b + 140, b + 5])
+    filled = np.broadcast_to((qidx[ran] >= 0)[:, None, :], ts[ran].shape)
+    js = np.where(filled, np.asarray(js)[ran], -np.inf)
+    jr = np.where(filled, np.asarray(jr)[ran], -1)
+    assert_ranked_match(js, jr, ts[ran], tr[ran], axis=1)
+
+
+@pytest.mark.parametrize("kind", ["serving", "nothing_filled", "every_list_over_capacity"])
+def test_slot_work_list_matches_jax_schedule(kind):
+    """K6's work list (route "mma", plain version): the filled slots of the
+    JAX schedule's qidx, their count, the most 64-row stages first (equal
+    counts in slot order), then the empty slots."""
+    T, K, nprobe, tpl, groups = {"serving": (2304, 4096, 128, 128, 8), "nothing_filled": (40, 12, 4, 8, 2),
+                                 "every_list_over_capacity": (40, 6, 6, 4, 2)}[kind]
+    rng = np.random.default_rng(T + K)
+    coarse = rng.normal(size=(T, K)).astype(np.float32)
+    lens = rng.integers(0, 160, size=K)
+    offsets = np.zeros(K + 1, np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    mask = np.zeros(K, bool) if kind == "nothing_filled" else None
+    sched, _, vals, lists = jax_schedule(coarse, nprobe, offsets, tpl, groups, 64, mask)
+    member = torch.from_numpy(coarse >= vals[:, -1:])
+    if mask is not None:
+        member &= torch.from_numpy(mask)[None, :]
+    got, _ = psp.build_slot_schedule_dense(member, torch.from_numpy(lists), tpl=tpl, groups=groups)
+    items, count = psp.slot_work_list(got.qidx, torch.from_numpy(offsets))
+    jq = np.asarray(sched.qidx)
+    want = np.flatnonzero(jq[:, 0] >= 0)
+    n = int(count)
+    items = items.numpy()
+    assert count.dtype == torch.int32 and count.dim() == 0 and items.dtype == np.int32
+    assert items.shape == (groups * K,)
+    assert n == len(want) == {"serving": n, "nothing_filled": 0, "every_list_over_capacity": groups * K}[kind]
+    np.testing.assert_array_equal(np.sort(items[:n]), want)
+    np.testing.assert_array_equal(np.sort(items), np.arange(groups * K))
+    key = np.minimum(-(-lens[items[:n] % K] // 64), 255)  # 64-row stages of work
+    assert (np.diff(key) <= 0).all()
+    assert all(items[i] < items[i + 1] for i in range(n - 1) if key[i] == key[i + 1])
+    if kind == "serving":
+        assert 0 < n < groups * K
 
 
 @pytest.mark.parametrize("r", [2, 8])
