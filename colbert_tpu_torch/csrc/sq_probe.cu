@@ -19,9 +19,8 @@
 // is cut into 128-row blocks that start at offsets[l] rounded down to a
 // multiple of 32 (the TPU's DMA windows).  Rows order by score descending,
 // then block index descending, then row ascending: a total order, so the
-// top-r does not depend on the order rows are visited in.  Both designs
-// visit a list's rows in ascending order and insert each row before the
-// first held entry it beats (`beats`).  Unfilled entries are (-inf, -1).
+// top-r does not depend on the order rows are visited in.  Unfilled
+// entries are (-inf, -1).
 //
 // Outputs: K6 (S, r, tpl) for slots whose qidx[s, 0] >= 0 (an empty slot
 // is skipped and its output left unwritten: no pair ever reads it; empty
@@ -32,21 +31,29 @@
 //   "staged" (list_scan_kernel; K7's kernel, and K6's first design): one
 //     block a unit, one thread a token, the query in registers, each
 //     32-row chunk widened to fp32 in shared memory and every row scored by
-//     a chain of D dependent FMAs.  For K6 the grid is every dense slot,
-//     most of them empty.  What bounds it: the FMA chain's latency per row
-//     (the longest list sets the tail) and the launch-and-exit of the
-//     empty slots' blocks; not bytes (K6's bound, 0.019 ms, is bytes).
-//   "mma" (slot_scan_mma_kernel; K6): a persistent grid walks a work list
-//     of the filled slots only (built on the device, longest list first),
-//     block b taking items b, b + grid, b + 2 grid, ...: the longest lists
-//     start first, on distinct blocks.  A slot's tokens are gathered once into
-//     shared memory as the bf16 B operand; the list's rows stream through a
-//     double-buffered cp.async ring, 64 rows a stage; each warp widens its
-//     16 rows to bf16 (exact) in registers and runs mma.sync m16n8k16 over
-//     the n-tiles that hold members; the score tile goes to shared memory,
-//     and each token's thread walks its column in row order, one load and
-//     one compare a row unless the row enters its top-r.  The slot's work
-//     is then bound by the selection walk, a few instructions a row.
+//     a chain of D dependent FMAs, then inserted into the token's sorted
+//     top-r in row order (`beats`: a row beats an equal score held from an
+//     earlier block).  For K6 the grid is every dense slot, most of them
+//     empty.
+//   "mma" (K6): a work list of the filled slots only, most 64-row stages
+//     first (work_count_kernel, work_place_kernel: one thread a list, no
+//     host sync), then a persistent grid (slot_scan_mma_kernel) whose
+//     blocks take items through a counter zeroed on the launching stream.
+//     A slot's tokens are gathered once into shared memory as the bf16 B
+//     operand; the list's rows stream through a double-buffered 16-byte
+//     cp.async ring, 64 rows a stage; each warp widens its 16 rows to bf16
+//     (exact) in registers and runs mma.sync m16n8k16 over the n-tiles that
+//     hold members; the fp32 score tile goes to shared memory and each
+//     token's thread merges its column into its top-r 8 rows at a time,
+//     with the order above packed into one 64-bit key (row_key) and
+//     branch-free sorting networks.
+//
+// What bounds them: not bytes (K6 reads ~20 MB, 0.019 ms at 3.35 TB/s) and
+// not the products (0.11 GMAC a batch on the tensor cores) but the top-r
+// selection: ~28 M (row, token) pairs a serving batch, each compared and
+// merged by the token's thread.  In "staged" a warp runs the insertion
+// whenever one of its 32 tokens needs it, nearly every row, as a chain of
+// dependent compares; "mma" merges without branches, with short chains.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -217,9 +224,8 @@ cudaError_t launch_r(const int* qidx, const int* hot_ids, const int* offsets, co
 
 constexpr int MMA_ROWS = 64;            // list rows a stage: 16 a warp
 constexpr int SC_STRIDE = THREADS + 8;  // floats a score-tile row (padded against bank conflicts)
-constexpr int WL_THREADS = 1024;        // the work-list kernel: one block
-constexpr int WL_BUCKETS = 256;         // work-list order: 64-row stages a list, longer lists share the last
-constexpr int WL_BATCH = 8;             // slot keys a lane loads at once
+constexpr int WL_THREADS = 128;         // work-list kernels: one thread a list
+constexpr int WL_BUCKETS = 16;          // work-list order: 64-row stages a list, longer lists share the last
 
 template <int D>
 struct MmaSmem {
@@ -231,115 +237,126 @@ struct MmaSmem {
   static constexpr int TOTAL = SC_BYTES + B_BYTES + A_BYTES;
 };
 
-// A slot's place in the work list: -1 empty, else its list's 64-row stages
-// (the kernel's work), capped at the last bucket.
-__device__ __forceinline__ int slot_key(const int* __restrict__ qidx, const int* __restrict__ offsets,
-                                        int s, int K, int tpl) {
-  const int l = s % K;
-  const int stages = (__ldg(offsets + l + 1) - __ldg(offsets + l) + MMA_ROWS - 1) / MMA_ROWS;
-  return __ldg(qidx + int64_t(s) * tpl) < 0 ? -1 : min(stages, WL_BUCKETS - 1);
+// The work list's bucket of list l: its 64-row stages (the scan's work),
+// capped at the last bucket.
+__device__ __forceinline__ int list_bucket(const int* __restrict__ offsets, int l) {
+  return min((__ldg(offsets + l + 1) - __ldg(offsets + l) + MMA_ROWS - 1) / MMA_ROWS, WL_BUCKETS - 1);
 }
 
-// The work list: the filled slots, most stages first, equal keys in slot
-// order (a stable counting sort); n_items = how many.  One block: warp w
-// owns slots [w*per, (w+1)*per); pass 1 counts each warp's slots a bucket,
-// pass 2 places them.  Plain version: ops/sq_probe_batched.py::slot_work_list.
+// The work list, in two kernels over the lists (one thread a list; list l
+// owns slots l, l + K, l + 2K, ... < S; a filled one has qidx[s, 0] >= 0):
+// the work buffer holds items[S], then n_items, then per bucket the filled
+// slots (totals) and a cursor, both zero at the first launch.  Count: each
+// bucket's filled slots.  Place: bucket b's slots go after every bucket with
+// more stages; a block reserves its range in a bucket with one atomic, and
+// within it each list its own, so the order inside a bucket follows the
+// atomics.  Plain version: ops/sq_probe_batched.py::slot_work_list.
 __global__ void __launch_bounds__(WL_THREADS)
-slot_work_list_kernel(const int* __restrict__ qidx, const int* __restrict__ offsets, int S, int K, int tpl,
-                      int* __restrict__ items, int* __restrict__ n_items) {
-  __shared__ int cnt[32][WL_BUCKETS];  // a warp's slots in a bucket, then where the next one goes
-  __shared__ int start[WL_BUCKETS];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const unsigned below = (1u << lane) - 1;
-  for (int i = tid; i < 32 * WL_BUCKETS; i += WL_THREADS) (&cnt[0][0])[i] = 0;
+work_count_kernel(const int* __restrict__ qidx, const int* __restrict__ offsets, int S, int K, int tpl,
+                  int* __restrict__ work) {
+  __shared__ int tot[WL_BUCKETS];
+  const int tid = threadIdx.x, l = blockIdx.x * WL_THREADS + tid;
+  if (tid < WL_BUCKETS) tot[tid] = 0;
   __syncthreads();
-  const int per = (S + 31) / 32;
-  const int lo = min(S, warp * per), hi = min(S, lo + per);
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int s0 = lo; s0 < hi; s0 += 32 * WL_BATCH) {
-      int key[WL_BATCH];
-#pragma unroll
-      for (int u = 0; u < WL_BATCH; ++u) {  // loads of a batch in flight together
-        const int s = s0 + u * 32 + lane;
-        key[u] = s < hi ? slot_key(qidx, offsets, s, K, tpl) : -1;
-      }
-#pragma unroll
-      for (int u = 0; u < WL_BATCH; ++u) {
-        const unsigned peers = __match_any_sync(0xffffffffu, key[u]);
-        const bool leader = key[u] >= 0 && (peers & below) == 0;
-        if (pass == 1 && key[u] >= 0) items[cnt[warp][key[u]] + __popc(peers & below)] = s0 + u * 32 + lane;
-        __syncwarp();
-        if (leader) cnt[warp][key[u]] += __popc(peers);
-        __syncwarp();
-      }
+  if (l < K) {
+    int filled = 0;
+    for (int s = l; s < S; s += K) filled += __ldg(qidx + int64_t(s) * tpl) >= 0;
+    if (filled) atomicAdd(&tot[list_bucket(offsets, l)], filled);
+  }
+  __syncthreads();
+  if (tid < WL_BUCKETS && tot[tid]) atomicAdd(work + S + 1 + tid, tot[tid]);
+}
+
+__global__ void __launch_bounds__(WL_THREADS)
+work_place_kernel(const int* __restrict__ qidx, const int* __restrict__ offsets, int S, int K, int tpl,
+                  int* __restrict__ work) {
+  __shared__ int start[WL_BUCKETS], tot[WL_BUCKETS], base[WL_BUCKETS];
+  const int tid = threadIdx.x, l = blockIdx.x * WL_THREADS + tid;
+  const int* totals = work + S + 1;
+  int* cursor = work + S + 1 + WL_BUCKETS;
+  if (tid < WL_BUCKETS) tot[tid] = 0;
+  if (tid == 0) {
+    int run = 0;
+    for (int b = WL_BUCKETS - 1; b >= 0; --b) {
+      start[b] = run;
+      run += totals[b];
     }
-    if (pass == 1) break;
-    __syncthreads();
-    // bucket b starts after every bucket with more stages; warp w's part after warps < w
-    if (tid < WL_BUCKETS) {
-      int total = 0;
-      for (int w = 0; w < 32; ++w) total += cnt[w][tid];
-      start[tid] = total;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      int run = 0;
-      for (int b = WL_BUCKETS - 1; b >= 0; --b) {
-        const int c = start[b];
-        start[b] = run;
-        run += c;
-      }
-      *n_items = run;
-    }
-    __syncthreads();
-    if (tid < WL_BUCKETS) {
-      int run = start[tid];
-      for (int w = 0; w < 32; ++w) {
-        const int c = cnt[w][tid];
-        cnt[w][tid] = run;
-        run += c;
-      }
-    }
-    __syncthreads();
+    if (blockIdx.x == 0) work[S] = run;
+  }
+  __syncthreads();
+  int filled = 0, bucket = 0, at = 0;
+  if (l < K) {
+    for (int s = l; s < S; s += K) filled += __ldg(qidx + int64_t(s) * tpl) >= 0;
+    bucket = list_bucket(offsets, l);
+    if (filled) at = atomicAdd(&tot[bucket], filled);
+  }
+  __syncthreads();
+  if (tid < WL_BUCKETS && tot[tid]) base[tid] = start[tid] + atomicAdd(cursor + tid, tot[tid]);
+  __syncthreads();
+  if (filled) {
+    int* out = work + base[bucket] + at;
+    for (int s = l; s < S; s += K)
+      if (__ldg(qidx + int64_t(s) * tpl) >= 0) *out++ = s;
   }
 }
+
+// A row's key in the top-r order: score descending, then 128-row block
+// descending, then row ascending, as one 64-bit integer that is larger for
+// the better row.  rel = row - the list's first block start.  -0.0 keys as
+// +0.0 (they compare equal as scores).
+__device__ __forceinline__ uint64_t row_key(float v, int rel) {
+  const uint32_t u = __float_as_uint(v + 0.0f);
+  const uint32_t hi = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  const uint32_t lo = uint32_t(rel) ^ uint32_t(BLOCK_ROWS - 1);  // in-block offset x -> 127 - x
+  return (uint64_t(hi) << 32) | lo;
+}
+
+// Compare-exchange: the larger key to a (descending order).
+__device__ __forceinline__ void cas(uint64_t& a, uint64_t& b) {
+  const uint64_t x = a, y = b;
+  a = x > y ? x : y;
+  b = x > y ? y : x;
+}
+
+// Sorts 8 keys descending: the 19-comparator network of depth 6.
+__device__ __forceinline__ void sort8_desc(uint64_t (&k)[8]) {
+  constexpr int P[19][2] = {{0, 2}, {1, 3}, {4, 6}, {5, 7}, {0, 4}, {1, 5}, {2, 6}, {3, 7}, {0, 1}, {2, 3},
+                            {4, 5}, {6, 7}, {2, 4}, {3, 5}, {1, 4}, {3, 6}, {1, 2}, {3, 4}, {5, 6}};
+#pragma unroll
+  for (int i = 0; i < 19; ++i) cas(k[P[i][0]], k[P[i][1]]);
+}
+
+constexpr int WALK_BATCH = 8;  // rows a token's walk sorts and merges at once
 
 // One 64-row stage of a token's top-r walk over the score tile column `col`
-// (rows r0 .. r0+n-1).  tau, the least of R group maxima (groups of 64/R
-// rows), has at least R rows of the stage at or above it, so a row below
-// tau never enters the top-r; nor does a row that does not beat the held
-// r-th entry now.  The rest are marked in a 64-bit mask and inserted in
-// row order, so a warp runs as many inserts as its busiest token needs,
-// not one a row.
+// (rows whose rel are rel0 .. rel0+n-1), 8 rows at a time: their keys
+// sorted by a network, then merged with the held keys (descending): h
+// against the batch reversed is bitonic, and a bitonic merge sorts it,
+// keeping the best R.  Branch-free, so a warp's 32 tokens never wait on one
+// another's inserts.
 template <int R>
-__device__ __forceinline__ void walk_stage(float (&ss)[R], int (&sr)[R], const float* col, int r0, int n,
-                                           int astart) {
-  constexpr int GROUP = MMA_ROWS / R;
-  float tau = __int_as_float(0x7f800000);
+__device__ __forceinline__ void walk_stage(uint64_t (&h)[R], const float* col, int rel0, int n) {
+  constexpr int M = R > WALK_BATCH ? R : WALK_BATCH;  // the merge width
+  for (int j0 = 0; j0 < n; j0 += WALK_BATCH) {
+    uint64_t k[WALK_BATCH];
 #pragma unroll
-  for (int g = 0; g < R; ++g) {
-    float m = neg_inf();
+    for (int i = 0; i < WALK_BATCH; ++i)
+      k[i] = j0 + i < n ? row_key(col[(j0 + i) * SC_STRIDE], rel0 + j0 + i) : 0;
+    sort8_desc(k);
+    uint64_t c[M];
 #pragma unroll
-    for (int i = 0; i < GROUP; ++i)
-      if (g * GROUP + i < n) m = fmaxf(m, col[(g * GROUP + i) * SC_STRIDE]);
-    tau = fminf(tau, m);
-  }
-  const float hs = ss[R - 1];
-  const int hr = sr[R - 1];
-  uint64_t mask = 0;
-#pragma unroll
-  for (int j = 0; j < MMA_ROWS; ++j) {
-    if (j < n) {
-      const float v = col[j * SC_STRIDE];
-      const int row = r0 + j;
-      if (v >= tau && beats(v, row - ((row - astart) & (BLOCK_ROWS - 1)), hs, hr)) mask |= uint64_t(1) << j;
+    for (int i = 0; i < M; ++i) {
+      const uint64_t hv = i < R ? h[i] : 0;
+      const uint64_t kv = M - 1 - i < WALK_BATCH ? k[M - 1 - i] : 0;
+      c[i] = hv > kv ? hv : kv;
     }
-  }
-  while (mask) {
-    const int j = __ffsll((long long)mask) - 1;
-    mask &= mask - 1;
-    const int row = r0 + j;
-    insert<R>(ss, sr, col[j * SC_STRIDE], row, row - ((row - astart) & (BLOCK_ROWS - 1)));
+#pragma unroll
+    for (int stride = M / 2; stride > 0; stride /= 2)
+#pragma unroll
+      for (int i = 0; i < M; ++i)
+        if ((i ^ stride) > i) cas(c[i], c[i ^ stride]);
+#pragma unroll
+    for (int i = 0; i < R; ++i) h[i] = c[i];
   }
 }
 
@@ -348,6 +365,7 @@ __global__ void __launch_bounds__(THREADS)
 slot_scan_mma_kernel(const int* __restrict__ qidx,       // (S, tpl)
                      const int* __restrict__ items,      // the filled slots, most stages first
                      const int* __restrict__ n_items,    // how many
+                     int* __restrict__ next_item,        // the next item to take, 0 at launch
                      const int* __restrict__ offsets,    // (K+1,)
                      const float* __restrict__ qs,       // (T, D) fp32, rounded to bf16 here
                      const int8_t* __restrict__ codes,   // (N, D)
@@ -358,16 +376,20 @@ slot_scan_mma_kernel(const int* __restrict__ qidx,       // (S, tpl)
   __nv_bfloat16* bsh = reinterpret_cast<__nv_bfloat16*>(smem + SM::SC_BYTES);
   int8_t* ash = reinterpret_cast<int8_t*>(smem + SM::SC_BYTES + SM::B_BYTES);
   __shared__ int tok_sh[THREADS];
-  __shared__ int last_sh;
+  __shared__ int item_sh, last_sh;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, q = lane & 3;
   const int count = *n_items;
   constexpr int QVEC = D / 4;   // float4s a fp32 token row
   constexpr int AVEC = D / 16;  // 16-byte vectors a code row
 
-  for (int item = blockIdx.x; item < count; item += gridDim.x) {
-    if (tid == 0) last_sh = -1;
+  for (;;) {
+    if (tid == 0) {
+      item_sh = atomicAdd(next_item, 1);
+      last_sh = -1;
+    }
     __syncthreads();
-    const int64_t s = items[item];
+    if (item_sh >= count) break;  // uniform across the block
+    const int64_t s = items[item_sh];
     const int list = int(s % K);
     const int t = tid < tpl ? qidx[s * tpl + tid] : -1;
     tok_sh[tid] = t;
@@ -375,24 +397,9 @@ slot_scan_mma_kernel(const int* __restrict__ qidx,       // (S, tpl)
     __syncthreads();
     const int n_tiles = (last_sh + 8) / 8;  // n-tiles up to the last member (a filled slot has one)
 
-    // the slot's tokens, rounded to bf16: the B operand, token-major (n x k), zero where empty
-    for (int i = tid; i < n_tiles * 8 * QVEC; i += THREADS) {
-      const int p = i / QVEC, v = i % QVEC;
-      const int tk = tok_sh[p];
-      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (tk >= 0) x = __ldg(reinterpret_cast<const float4*>(qs + int64_t(tk) * D) + v);
-      const __nv_bfloat162 lo2 = __floats2bfloat162_rn(x.x, x.y), hi2 = __floats2bfloat162_rn(x.z, x.w);
-      *reinterpret_cast<uint2*>(bsh + p * SM::B_STRIDE + v * 4) =
-          make_uint2(*reinterpret_cast<const uint32_t*>(&lo2), *reinterpret_cast<const uint32_t*>(&hi2));
-    }
-
-    float ss[R];
-    int sr[R];
+    uint64_t h[R];  // the held top-r keys, best first; 0: none (below every row's key)
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      ss[i] = neg_inf();
-      sr[i] = -1;
-    }
+    for (int i = 0; i < R; ++i) h[i] = 0;
     const int lo = offsets[list], hi = offsets[list + 1];
     const int astart = lo - lo % ALIGN_ROWS;
     const int n_chunks = (hi - lo + MMA_ROWS - 1) / MMA_ROWS;
@@ -409,6 +416,17 @@ slot_scan_mma_kernel(const int* __restrict__ qidx,       // (S, tpl)
       hopper::cp_async_commit();
     };
     if (n_chunks > 0) stage(0);
+    // the slot's tokens, rounded to bf16: the B operand, token-major (n x k), zero where empty
+    for (int i = tid; i < n_tiles * 8 * QVEC; i += THREADS) {
+      const int p = i / QVEC, v = i % QVEC;
+      const int tk = tok_sh[p];
+      float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (tk >= 0) x = __ldg(reinterpret_cast<const float4*>(qs + int64_t(tk) * D) + v);
+      const __nv_bfloat162 lo2 = __floats2bfloat162_rn(x.x, x.y), hi2 = __floats2bfloat162_rn(x.z, x.w);
+      *reinterpret_cast<uint2*>(bsh + p * SM::B_STRIDE + v * 4) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo2), *reinterpret_cast<const uint32_t*>(&hi2));
+    }
+
     for (int c = 0; c < n_chunks; ++c) {
       if (c + 1 < n_chunks) {
         stage(c + 1);
@@ -445,7 +463,7 @@ slot_scan_mma_kernel(const int* __restrict__ qidx,       // (S, tpl)
         }
       }
       __syncthreads();  // the score tile is complete
-      if (t >= 0) walk_stage<R>(ss, sr, sc + tid, r0, n, astart);
+      if (t >= 0) walk_stage<R>(h, sc + tid, r0 - astart, n);
     }
 
     if (tid < tpl) {
@@ -453,12 +471,25 @@ slot_scan_mma_kernel(const int* __restrict__ qidx,       // (S, tpl)
 #pragma unroll
       for (int i = 0; i < R; ++i)
         if (i < r) {
-          out_s[o + int64_t(i) * tpl] = ss[i];
-          out_r[o + int64_t(i) * tpl] = sr[i];
+          const uint32_t kh = uint32_t(h[i] >> 32), kl = uint32_t(h[i]);
+          const uint32_t rel = kl ^ uint32_t(BLOCK_ROWS - 1);
+          out_s[o + int64_t(i) * tpl] = h[i] ? __uint_as_float((kh & 0x80000000u) ? (kh & 0x7fffffffu) : ~kh)
+                                             : neg_inf();
+          out_r[o + int64_t(i) * tpl] = h[i] ? astart + int(rel) : -1;
         }
     }
     __syncthreads();  // every thread has read this item's shared state
   }
+}
+
+cudaError_t launch_work_list(const int* qidx, const int* offsets, int* work, int S, int K, int tpl,
+                             cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(work + S, 0, (2 + 2 * WL_BUCKETS) * sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  const int blocks = (K + WL_THREADS - 1) / WL_THREADS;
+  work_count_kernel<<<blocks, WL_THREADS, 0, stream>>>(qidx, offsets, S, K, tpl, work);
+  work_place_kernel<<<blocks, WL_THREADS, 0, stream>>>(qidx, offsets, S, K, tpl, work);
+  return cudaGetLastError();
 }
 
 template <int D, int R>
@@ -480,9 +511,11 @@ cudaError_t launch_mma(const int* qidx, int* work, const int* offsets, const flo
     if (err != cudaSuccess) return err;
     resident[dev] = (per_sm > 0 ? per_sm : 1) * sms;
   }
-  slot_work_list_kernel<<<1, WL_THREADS, 0, stream>>>(qidx, offsets, S, K, tpl, work, work + S);
+  err = launch_work_list(qidx, offsets, work, S, K, tpl, stream);
+  if (err != cudaSuccess) return err;
   const int grid = S < resident[dev] ? S : resident[dev];
-  kernel<<<grid, THREADS, smem, stream>>>(qidx, work, work + S, offsets, qs, codes, out_s, out_r, K, tpl, r);
+  kernel<<<grid, THREADS, smem, stream>>>(qidx, work, work + S, work + S + 1 + 2 * WL_BUCKETS, offsets, qs, codes,
+                                          out_s, out_r, K, tpl, r);
   return cudaGetLastError();
 }
 
@@ -529,20 +562,24 @@ int sq_list_scan_launch(const void* qidx, const void* hot_ids, const void* offse
   }
 }
 
-// K6's work list alone (the first kernel of route "mma"): work (S + 1,)
-// int32, the filled slots in work[0 .. n) and n in work[S].
+// Words of route "mma"'s work buffer for S slots (items, count, per-bucket
+// totals and cursors, the scan's item counter).
+int sq_slot_work_words(int S) { return S + 2 + 2 * WL_BUCKETS; }
+
+// K6's work list alone (the first launches of route "mma"): work
+// (sq_slot_work_words(S),) int32, the filled slots in work[0 .. n) and n in
+// work[S].
 int sq_slot_work_list_launch(const void* qidx, const void* offsets, void* work, int S, int K, int tpl,
                              void* stream) {
   if (S < 1 || K < 1 || tpl < 1 || qidx == nullptr || work == nullptr) return int(cudaErrorInvalidValue);
-  int* w = static_cast<int*>(work);
-  slot_work_list_kernel<<<1, WL_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(qidx), static_cast<const int*>(offsets), S, K, tpl, w, w + S);
-  return int(cudaGetLastError());
+  return int(launch_work_list(static_cast<const int*>(qidx), static_cast<const int*>(offsets),
+                              static_cast<int*>(work), S, K, tpl, static_cast<cudaStream_t>(stream)));
 }
 
-// K6 on route "mma": S slots, qidx (S, tpl); work (S + 1,) int32 scratch
-// for the work list; qs (T, D) fp32 (rounded to bf16 in the kernel).  Two
-// launches on `stream`: the work list, then the scan.  Returns a
+// K6 on route "mma": S slots, qidx (S, tpl); work (sq_slot_work_words(S),)
+// int32 scratch for the work list; qs (T, D) fp32 (rounded to bf16 in the
+// kernel).  On `stream`: a memset and two launches for the work list, then
+// the scan.  Returns a
 // cudaError_t: 0 when both launches were accepted.
 int sq_slot_scan_mma_launch(const void* qidx, void* work, const void* offsets, const void* qs,
                             const void* codes, void* out_s, void* out_r, int S, int K, int D, int tpl, int r,

@@ -101,7 +101,8 @@ def build_slot_schedule_dense(member: torch.Tensor, lists: torch.Tensor, *, tpl:
 
 
 WORK_STAGE_ROWS = 64  # rows a stage of route "mma"; the work list orders slots by stages
-WORK_BUCKETS = 256    # stage counts the work list tells apart (longer lists share the last)
+WORK_BUCKETS = 16     # stage counts the work list tells apart (longer lists share the last)
+WORK_EXTRA = 2 + 2 * WORK_BUCKETS  # work-buffer words past the S items (csrc: sq_slot_work_words)
 
 
 def slot_work_list(qidx: torch.Tensor, offsets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -109,7 +110,8 @@ def slot_work_list(qidx: torch.Tensor, offsets: torch.Tensor) -> Tuple[torch.Ten
     builds it on the device): (items (S,) int32, count () int32).
     ``items[:count]`` are the filled slots (``qidx[s, 0] >= 0``, a slot on
     an empty list included), the most 64-row stages of work first (stage
-    counts above 255 tie), equal counts in slot order; the empty slots
+    counts above 15 tie), equal counts in slot order here (the kernel's
+    order within equal counts follows its atomics); the empty slots
     follow."""
     S, K = qidx.shape[0], offsets.shape[0] - 1
     filled = qidx[:, 0] >= 0
@@ -219,6 +221,9 @@ def _kernel_lib() -> ctypes.CDLL:
             lib.sq_slot_scan_mma_launch.restype = ctypes.c_int
             lib.sq_slot_work_list_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             lib.sq_slot_work_list_launch.restype = ctypes.c_int
+            lib.sq_slot_work_words.argtypes, lib.sq_slot_work_words.restype = [ctypes.c_int], ctypes.c_int
+            if lib.sq_slot_work_words(0) != WORK_EXTRA:
+                raise RuntimeError("csrc/sq_probe.cu work-list buckets disagree with ops/sq_probe_batched.py")
             for fn in (lib.sq_scan_max_tokens, lib.sq_scan_max_r):
                 fn.argtypes, fn.restype = [], ctypes.c_int
             if (lib.sq_scan_max_tokens(), lib.sq_scan_max_r()) != (_MAX_TOKENS, _MAX_R):
@@ -227,15 +232,15 @@ def _kernel_lib() -> ctypes.CDLL:
 
 
 def work_list_kernel(qidx: torch.Tensor, offsets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Route "mma"'s work list from its CUDA kernel alone (the scan builds
-    its own): (items (S,) int32, count () int32), ``items[:count]`` as
-    :func:`slot_work_list` orders them, the rest unwritten.  For the card
-    tests and ``chip_smoke.py``."""
+    """Route "mma"'s work list from its CUDA kernels alone (the scan builds
+    its own): (items (S,) int32, count () int32), ``items[:count]`` the
+    slots :func:`slot_work_list` lists, by its stage counts, the rest
+    unwritten.  For the card tests and ``chip_smoke.py``."""
     if not (qidx.is_cuda and offsets.device == qidx.device):
         raise ValueError("the work-list kernel needs qidx and offsets on one CUDA device")
     qidx, offsets = qidx.contiguous(), offsets.contiguous()
     (S, tpl), K = qidx.shape, offsets.shape[0] - 1
-    work = torch.empty(S + 1, dtype=torch.int32, device=qidx.device)
+    work = torch.empty(S + WORK_EXTRA, dtype=torch.int32, device=qidx.device)
     with torch.cuda.device(qidx.device):
         err = _kernel_lib().sq_slot_work_list_launch(qidx.data_ptr(), offsets.data_ptr(), work.data_ptr(), S, K,
                                                      tpl, torch.cuda.current_stream(qidx.device).cuda_stream)
@@ -288,7 +293,7 @@ def _launch(units: torch.Tensor, offsets: torch.Tensor, qs: torch.Tensor, codes:
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         if route == "mma":  # two launches: the work list into `work`, then the scan
-            work = torch.empty(U + 1, dtype=torch.int32, device=dev)
+            work = torch.empty(U + WORK_EXTRA, dtype=torch.int32, device=dev)
             err = lib.sq_slot_scan_mma_launch(
                 units.data_ptr(), work.data_ptr(), offsets.data_ptr(), q.data_ptr(), codes.data_ptr(),
                 out_s.data_ptr(), out_r.data_ptr(), U, K, D, tpl, r, stream)

@@ -13,8 +13,6 @@ median 50): K 4,096 lists, 2,304 tokens x nprobe 128 with a skewed list
 popularity, tpl 128 x 8 groups, r 8, sq_dim 64.  Variants:
 
 * design: the source as it is;
-* first walk: the first design's walk, every row of the stage inserted in
-  turn by each token's thread (a warp inserts whenever one token does);
 * no walk: the products and the score tile, no top-r walk;
 * no products: the walk over pseudo-random scores (integer hashes of the
   operands in place of each mma.sync), no tensor-core work;
@@ -40,9 +38,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-WALK = "if (t >= 0) walk_stage<R>(ss, sr, sc + tid, r0, n, astart);"
-FIRST_WALK = ("if (t >= 0) for (int j = 0; j < n; ++j) { const int row = r0 + j; "
-              "insert<R>(ss, sr, sc[j * SC_STRIDE + tid], row, row - ((row - astart) & (BLOCK_ROWS - 1))); }")
+WALK = "if (t >= 0) walk_stage<R>(h, sc + tid, r0 - astart, n);"
 MMA = "hopper::mma_bf16_16816(d, a[ks], b.x, b.y);"
 HASH = ("d[0] += float((a[ks][0] ^ b.x) & 0xffffu); d[1] += float((a[ks][1] ^ b.y) & 0xffffu); "
         "d[2] += float((a[ks][2] ^ b.x) & 0xffffu); d[3] += float((a[ks][3] ^ b.y) & 0xffffu);")
@@ -50,9 +46,9 @@ PROF = "if (tid == 0) { const long long tn = clock64(); atomicAdd(&g_prof[%d], (
 PHASES = ("item set-up", "rows wait", "products", "walk", "item end")
 TIMED = [
     ('#include "hopper.cuh"\n', '#include "hopper.cuh"\n__device__ unsigned long long g_prof[8];\n'),
-    ("for (int item = blockIdx.x; item < count; item += gridDim.x) {",
-     "for (int item = blockIdx.x; item < count; item += gridDim.x) { long long tp = clock64();"),
-    ("    float ss[R];\n    int sr[R];", PROF % 0 + "\n    float ss[R];\n    int sr[R];"),
+    ("if (item_sh >= count) break;  // uniform across the block",
+     "if (item_sh >= count) break;\n    long long tp = clock64();"),
+    ("    uint64_t h[R];", PROF % 0 + "\n    uint64_t h[R];"),
     ("__syncthreads();  // chunk c and the tokens are in; the last chunk's walk is done",
      "__syncthreads(); " + PROF % 1),
     ("__syncthreads();  // the score tile is complete", "__syncthreads(); " + PROF % 2),
@@ -65,7 +61,6 @@ TIMED = [
 ]
 VARIANTS = {
     "design": [],
-    "first walk": [(WALK, FIRST_WALK)],
     "no walk": [(WALK, ";")],
     "no products": [(MMA, HASH)],
     "timed": TIMED,

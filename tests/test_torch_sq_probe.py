@@ -183,8 +183,8 @@ def test_k6_total_order_matches_jax_kernel(D, r):
 @pytest.mark.parametrize("kind", ["serving", "nothing_filled", "every_list_over_capacity"])
 def test_slot_work_list_matches_jax_schedule(kind):
     """K6's work list (route "mma", plain version): the filled slots of the
-    JAX schedule's qidx, their count, the most 64-row stages first (equal
-    counts in slot order), then the empty slots."""
+    JAX schedule's qidx, their count, the most 64-row stages first (counts
+    above 15 tie; equal counts in slot order), then the empty slots."""
     T, K, nprobe, tpl, groups = {"serving": (2304, 4096, 128, 128, 8), "nothing_filled": (40, 12, 4, 8, 2),
                                  "every_list_over_capacity": (40, 6, 6, 4, 2)}[kind]
     rng = np.random.default_rng(T + K)
@@ -208,7 +208,7 @@ def test_slot_work_list_matches_jax_schedule(kind):
     assert n == len(want) == {"serving": n, "nothing_filled": 0, "every_list_over_capacity": groups * K}[kind]
     np.testing.assert_array_equal(np.sort(items[:n]), want)
     np.testing.assert_array_equal(np.sort(items), np.arange(groups * K))
-    key = np.minimum(-(-lens[items[:n] % K] // 64), 255)  # 64-row stages of work
+    key = np.minimum(-(-lens[items[:n] % K] // 64), psp.WORK_BUCKETS - 1)  # 64-row stages of work
     assert (np.diff(key) <= 0).all()
     assert all(items[i] < items[i + 1] for i in range(n - 1) if key[i] == key[i + 1])
     if kind == "serving":
