@@ -29,9 +29,9 @@ Both kernels live in ``csrc/sq_probe.cu``.  K6 has two routes, chosen in
   on one input.  K7 always runs this kernel.
 
 The TPU kernels' 128-lane packing, block-diagonal query bands and 32-row
-aligned DMA windows are not carried over: a kernel reads exactly its list's rows ``[offsets[l],
-offsets[l+1])`` of the unpadded codes, so the JAX package's
-``pad_codes_for_scan`` has no counterpart.  The TPU kernel's 128-row
+aligned DMA windows are not carried over: a kernel reads exactly its
+list's rows ``[offsets[l], offsets[l+1])`` of the unpadded codes, so the
+JAX package's ``pad_codes_for_scan`` has no counterpart.  The TPU kernel's 128-row
 blocks still decide ties (see the plain versions), so rows equal the JAX
 package's wherever scores are not tied across its blocks.
 
@@ -266,15 +266,17 @@ def _launch(units: torch.Tensor, offsets: torch.Tensor, qs: torch.Tensor, codes:
         raise ValueError("qidx / hot_ids and offsets must be int32")
     if not codes.is_contiguous() or codes.data_ptr() % 16:
         raise ValueError("sq list scan kernel needs contiguous, 16-byte aligned codes")
+    if D not in _SQ_DIMS:
+        raise ValueError(f"sq list scan kernel takes sq_dim in {_SQ_DIMS}, got {D}")
+    if not 1 <= r <= _MAX_R:
+        raise ValueError(f"sq list scan kernel keeps 1..{_MAX_R} rows per token, got r={r}")
     if hot:
         if route is not None:
             raise ValueError("K7 has one kernel; it takes no route")
         U, tpl, P = units.shape[0], 0, T
-        scan_plan(D, 1, r)
     else:
         (U, tpl), P = units.shape, units.shape[1]
-        plan = scan_plan(D, tpl, r)
-        route = route or plan
+        route = route or scan_plan(D, tpl, r)
         if route not in _ROUTES:
             raise ValueError(f"sq slot scan route {route!r} is not one of {_ROUTES}")
     K = offsets.shape[0] - 1

@@ -215,6 +215,18 @@ def test_slot_work_list_matches_jax_schedule(kind):
         assert 0 < n < groups * K
 
 
+@pytest.mark.parametrize("D,tpl,r,ok", [(16, 1, 1, True), (64, 128, 8, True), (128, 7, 16, True),
+                                        (48, 8, 2, False), (64, 129, 8, False), (64, 8, 17, False)])
+def test_scan_plan_routes_every_k6_shape(D, tpl, r, ok):
+    """Route "mma" takes every shape K6 takes (sq_dim 16/32/64/128, tpl
+    1..128, r 1..16); any other shape raises before a launch."""
+    if ok:
+        assert psp.scan_plan(D, tpl, r) == "mma"
+    else:
+        with pytest.raises(ValueError):
+            psp.scan_plan(D, tpl, r)
+
+
 @pytest.mark.parametrize("r", [2, 8])
 def test_k7_plain_matches_jax_kernel(r):
     rng = np.random.default_rng(7 + r)
