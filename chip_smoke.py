@@ -89,7 +89,8 @@ from a seed:
   of phase 5c's sq index with ``serve.probe_impl=token``.  Every answer
   must hold 100 valid, descending triples whose scores equal the exact
   MaxSim of the returned pids within 1e-4; K8 must launch once per pq4
-  batch, K10 once for the token-probe batch, K4 once per batch;
+  batch, every launch on route "onehot", K10 once for the token-probe
+  batch, K4 once per batch;
   (a) on phase 5b's corpus, ``build-index`` with the pq4 and the pq codec
   and phase 5b's sq index served with the token-major probe (and the
   batched one, for reference): recall@100 against the fp32 oracle over
@@ -97,11 +98,19 @@ from a seed:
   0.95 each; with one topic per query, as phase 5b's, an exact top-512 per
   token falls on a few docs, so the token-major probes keep fewer than 100
   candidates for some queries: reported as information), build seconds
-  and the batch's time per stage, every K6 launch on route "mma";
-  (b) on the first batch's inputs: K6 on both routes as in 5a, K8 (2,304 tokens x 128 probed lists)
-  and K10 (2,304 tokens x 128 windows) against their plain versions,
-  scores within 1e-5 and rows (K10: the top-512 slots) equal except at
-  near ties.
+  and the batch's time per stage, every K6 launch on route "mma", every
+  K8 launch on route "onehot";
+  (b) on the first batch's inputs: K6 on both routes as in 5a; K8 (2,304
+  tokens x 128 probed lists) on route "onehot" and on route "lookup" (the
+  first design), with the histogram of its probed lists (members, rows),
+  route "onehot"'s work list against its plain version, the bound (the
+  one-hot product on the tensor cores; route "lookup"'s own, its
+  shared-memory lookups, beside it) and route "lookup"'s clock64 phase
+  split (``scripts/pq4_scan_variants.py``, one more nvcc); and K10
+  (2,304 tokens x 128 windows): each against its plain version, scores
+  within 1e-5 and rows (K8: against the plain version's top-(r+1), an exact
+  tie of it excused only where the rows' fp64 sums differ; K10: the
+  top-512 slots) equal except at near ties.
 
 Prints the card's name and power limit, the measurements, one JSON line of
 kernels, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -155,7 +164,8 @@ def counters():
             "K8": pq4.pq4_list_scan.launches, "K10": sq_probe.sq_list_scan.launches,
             "K1/K2 wgmma route": fs.route_launches["wgmma"], "K1/K2 staged route": fs.route_launches["staged"],
             "K4/K5 wgmma route": rr.route_launches["wgmma"], "K4/K5 staged route": rr.route_launches["staged"],
-            "K6 mma route": sp.route_launches["mma"], "K6 staged route": sp.route_launches["staged"]}
+            "K6 mma route": sp.route_launches["mma"], "K6 staged route": sp.route_launches["staged"],
+            "K8 onehot route": pq4.route_launches["onehot"], "K8 lookup route": pq4.route_launches["lookup"]}
 
 
 def reset_counts() -> None:
@@ -1151,6 +1161,20 @@ def k6_routes() -> dict:
     return {k: c.value for k, c in sp.route_launches.items()}
 
 
+def k8_routes() -> dict:
+    from colbert_tpu_torch.ops import pq4
+
+    return {k: c.value for k, c in pq4.route_launches.items()}
+
+
+def assert_k8_on_onehot(tag, before):
+    """Every K8 launch since ``before`` (``k8_routes()``) took route "onehot", and there was one."""
+    got = {k: v - before[k] for k, v in k8_routes().items()}
+    log(f"[{tag}] K8 launches by route in the served batches: {got}")
+    if got["lookup"] or not got["onehot"]:
+        raise AssertionError(f"{tag}: K8 launches by route {got}, expected all on route onehot")
+
+
 def assert_k6_on_mma(tag, before):
     """Every K6 launch since ``before`` (``k6_routes()``) took route "mma", and there was one."""
     got = {k: v - before[k] for k, v in k6_routes().items()}
@@ -1341,6 +1365,7 @@ def phase_rerank(device, cand, Qb, table, docs, label, seed=SEED):
 PQ4_M, PQ_M, PQ_NBITS, PQ_KMEANS_ITERS = 128, 64, 8, 10
 CODEC_RECALL = 0.95  # recall@100 each phase-6 path must reach
 SMEM_LOADS_PER_CLOCK = 132 * 32  # 4-byte shared-memory loads per clock on the card's 132 SMs
+KSUB_PQ4 = 16  # codewords a pq4 subspace: the one-hot product's k a subspace
 
 
 def max_sm_clock_hz() -> float:
@@ -1448,7 +1473,7 @@ def phase_codecs_cli(device, workdir: Path, cfg, common, corpus_path, eval_path,
     eval_batches = -(-n_eval // B)
     want = {"K8": 2 + eval_batches, "K10": 1, "K4": 3 + eval_batches, "K5": 0, "K6": 0, "K7": 0,
             "K4/K5 wgmma route": 3 + eval_batches, "K4/K5 staged route": 0,
-            "K6 mma route": 0, "K6 staged route": 0}
+            "K6 mma route": 0, "K6 staged route": 0, "K8 onehot route": 2 + eval_batches, "K8 lookup route": 0}
     log(f"[phase6c] launches in the pq4 / token-probe serving-path run: {launches} (expected {want}: "
         f"2 socket requests and {eval_batches} evaluate --remote batches on the pq4 index, one "
         f"token-probe batch on the sq index)")
@@ -1464,6 +1489,134 @@ def phase_codecs_cli(device, workdir: Path, cfg, common, corpus_path, eval_path,
     if max(worst.values()) > SCORE_ATOL:
         raise AssertionError(f"served scores differ from exact MaxSim: {worst}")
     return launches
+
+
+def k8_both_routes(tag, lists, offsets, lut, codes, label):
+    """K8 on one batch's probes: the histogram (members and rows of a probed
+    list), route "onehot" (through the wrapper, one launch counted on it) and
+    route "lookup" (the first design) each against the plain version and
+    timed, route "onehot"'s work list alone against its plain version, the
+    bounds, and route "lookup"'s clock64 phase split (Step 0,
+    ``scripts/pq4_scan_variants.py``)."""
+    import importlib.util
+
+    import torch
+
+    from colbert_tpu_torch.ops import pq4, sq_probe_batched as sp
+
+    T, m = lut.shape[0], lut.shape[1]
+    K = offsets.numel() - 1
+    lens = torch.diff(offsets).long()
+    members = torch.zeros(K, dtype=torch.long, device=lists.device).scatter_add_(
+        0, lists.reshape(-1).long(), torch.ones(lists.numel(), dtype=torch.long, device=lists.device))
+    probed = members > 0
+    pct = lambda t, q: float(torch.quantile(t.double(), q))
+    rows = float(lens[lists.long()].sum())
+    hist = {"probed": int(probed.sum()), "lists": K, "pairs": int(lists.numel()), "rows_scored": rows,
+            "members": {"median": pct(members[probed], 0.5), "p99": pct(members[probed], 0.99),
+                        "max": int(members.max())},
+            "rows": {"median": pct(lens[probed], 0.5), "p99": pct(lens[probed], 0.99), "max": int(lens[probed].max())}}
+    # The query-major item, the other way to group K8's work: a query's M
+    # tokens against the union of their probed lists (non-members masked).
+    # A wgmma's cost does not depend on its width (scripts/pq4_scan_variants.py),
+    # so the products' cost follows the count of (64-row tile, subspace)
+    # wgmmas: list-major, a tile of each item (up to 64 members); query-major,
+    # a tile of each list of each query's union.
+    tiles = (lens + 63) // 64
+    per_query = lists.reshape(T // M, M * lists.shape[1]).long()
+    union = torch.zeros(T // M, K, dtype=torch.bool, device=lists.device).scatter_(1, per_query, True)
+    items = (members + pq4.ONEHOT_GROUP - 1) // pq4.ONEHOT_GROUP
+    hist["query_union_lists"] = {"median": pct(union.sum(dim=1), 0.5), "max": int(union.sum(dim=1).max())}
+    hist["wgmmas"] = {"list_major": int((items * tiles).sum()) * m, "query_major": int((union * tiles).sum()) * m}
+    log(f"[{tag}] K8 histogram: {hist['probed']} of {K} lists probed by {T} tokens x {lists.shape[1]}; members a "
+        f"probed list median {hist['members']['median']:.0f}, p99 {hist['members']['p99']:.0f}, max "
+        f"{hist['members']['max']}; rows a probed list median {hist['rows']['median']:.0f}, p99 "
+        f"{hist['rows']['p99']:.0f}, max {hist['rows']['max']}; {rows:.0f} (token, row) pairs scored; the union "
+        f"of a query's {M} tokens' lists median {hist['query_union_lists']['median']:.0f}, max "
+        f"{hist['query_union_lists']['max']}; (64-row tile, subspace) wgmmas list-major "
+        f"{hist['wgmmas']['list_major']}, query-major {hist['wgmmas']['query_major']}")
+
+    onehot = lambda: pq4.pq4_list_scan(lists, offsets, lut, codes, r=TOPR)
+    lookup = lambda: pq4._launch(lists, offsets, lut, codes, TOPR, route="lookup")
+    plain = lambda: pq4.pq4_list_scan_ref(lists, offsets, lut, codes, r=TOPR)
+    # The plain version's top-(r+1): a kernel's r-th row may be its (r+1)-th
+    # where they tie.  Route "onehot" sums on the tensor cores in another
+    # order, so two different rows may round to one fp32 score on one side
+    # only: an exact tie of the plain version counts as a near tie where the
+    # rows' exact sums (fp64 over the bf16 LUT entries) differ.
+    ws, wr = (t.reshape(T * lists.shape[1], TOPR + 1) for t in
+              pq4.pq4_list_scan_ref(lists, offsets, lut, codes, r=TOPR + 1))
+    fin = torch.isfinite(ws)
+    tie = torch.zeros_like(fin)
+    same = (ws[:, 1:] == ws[:, :-1]) & fin[:, 1:]
+    tie[:, 1:] |= same
+    tie[:, :-1] |= same
+    exact = ws.double()
+    u, k = torch.nonzero(tie, as_tuple=True)
+    nib = pq4.pq4_unpack(codes[wr[u, k].long()]).long()                         # (n, m)
+    lutb = lut.to(torch.bfloat16).double()[u // lists.shape[1]]                  # (n, m, 16)
+    exact[u, k] = lutb.gather(2, nib[..., None]).sum(dim=(1, 2))
+
+    def check(name, got):
+        gs, gr = (torch.cat([t.reshape(-1, TOPR), w[:, TOPR:]], dim=1) for t, w in zip(got, (ws, wr)))
+        err, bad = sp.ranked_mismatch(ws, wr, gs, gr, PROBE_ATOL, exact)
+        log(f"[{tag}] K8 {name} ({len(u)} entries in exact ties of the plain version): max|d|={err:.3e} "
+            f"(limit {PROBE_ATOL}), rows mismatched outside near ties {bad}")
+        if err > PROBE_ATOL or bad:
+            raise AssertionError(f"K8 {name} differs from its plain version: max|d| {err}, {bad} rows")
+        return err
+
+    before = k8_routes()
+    got = onehot()
+    if k8_routes()["onehot"] != before["onehot"] + 1:
+        raise AssertionError(f"{tag}: K8's wrapper did not launch route onehot")
+    res = {"max_abs_err": check("route onehot", got), "lookup_max_abs_err": check("route lookup", lookup())}
+    del got, ws, wr, exact, lutb, nib
+    res.update(ms=time_ms(onehot), lookup_design_ms=time_ms(lookup), plain_ms=time_ms(plain, iters=1, warmup=1),
+               library_ms=None, kernel_route="onehot", histogram=hist)
+    # route "onehot"'s work list alone: the plain version's items, most work first
+    got_wl, want_wl = pq4.work_list_kernel(lists, offsets), pq4.pq4_work_list(lists, offsets)
+    n = int(want_wl.count)
+    l_flat = lists.reshape(-1).long()
+
+    def items(wl):
+        it = wl.items[:n].long()
+        li = l_flat[wl.pairs.long()[it]]
+        mem = torch.clamp(wl.cnt.long()[li] + wl.lstart.long()[li] - it, max=pq4.ONEHOT_GROUP)
+        return li, mem, pq4.item_buckets(offsets, li, mem)
+
+    (gl, gm, gb), (wl_, wm, wb) = items(got_wl), items(want_wl)
+    if (int(got_wl.count) != n or not torch.equal(gb, wb) or not torch.equal(
+            torch.sort(gl * 1000 + gm)[0], torch.sort(wl_ * 1000 + wm)[0])):
+        raise AssertionError(f"{tag}: K8's work list differs from its plain version")
+    hist["items"] = n
+    res["work_list_ms"] = time_ms(lambda: pq4.work_list_kernel(lists, offsets))
+    # The function's bound, both routes: the one-hot product on the tensor
+    # cores, 2 x 16 x m FLOP a (token, row) pair at the bf16 rate; bytes: each
+    # distinct probed list's codes once, the bf16 LUT, lists, offsets, the
+    # output.  Route "lookup"'s own: one shared-memory load a (token, row,
+    # subspace), 32 a clock on each of the 132 SMs.
+    clock = max_sm_clock_hz()
+    distinct = float(lens[torch.unique(lists).long()].sum())
+    res["bound_ms"], res["bound_by"] = bound(
+        2.0 * KSUB_PQ4 * m * rows, distinct * m // 2 + lut.numel() * 2 + lists.numel() * 4 + offsets.numel() * 4
+        + lists.numel() * TOPR * 8, PEAK_BF16_FLOPS)
+    res["lookup_bound_ms"] = bound(m * rows, 0.0, SMEM_LOADS_PER_CLOCK * clock)[0]
+    spec = importlib.util.spec_from_file_location(
+        "pq4_scan_variants", Path(__file__).resolve().parent / "scripts" / "pq4_scan_variants.py")
+    variants = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(variants)
+    split, cycles = variants.lookup_phase_split(lists, offsets, lut, codes, TOPR)
+    res["lookup_phase_split"] = split
+    log(f"[{tag}] K8: route onehot {res['ms']:.4f} ms (its work-list kernels alone {res['work_list_ms']:.4f} ms, "
+        f"{n} items), route lookup (first design) {res['lookup_design_ms']:.4f} ms "
+        f"({res['lookup_design_ms'] / res['ms']:.2f}x), plain {res['plain_ms']:.3f} ms; bound {res['bound_ms']:.4f} "
+        f"ms ({res['bound_by']}: {2.0 * KSUB_PQ4 * m * rows / 1e9:.1f} GFLOP of one-hot products), route lookup's "
+        f"own bound {res['lookup_bound_ms']:.4f} ms ({m * rows / 1e9:.2f} G shared-memory lookups at "
+        f"{SMEM_LOADS_PER_CLOCK} a clock x {clock / 1e6:.0f} MHz); route lookup's clock64 split "
+        + ", ".join(f"{ph} {v:.3f}" for ph, v in split.items()) + f" of {cycles:.0f} cycles a warp; "
+        f"no single PyTorch call computes it [{label}]")
+    return res
 
 
 def phase_codecs(device, workdir: Path, label: str, info: dict):
@@ -1496,7 +1649,7 @@ def phase_codecs(device, workdir: Path, label: str, info: dict):
     qm = torch.ones(B, M, device=device)
     batches = [Q[i * B : (i + 1) * B] for i in range(Q.shape[0] // B)]
     oracle, state, summary = None, {}, {}
-    k6_before = k6_routes()
+    k6_before, k8_before = k6_routes(), k8_routes()
     for name, codec, probe_impl in (("sq batched", "sq", "auto"), ("sq token", "sq", "token"),
                                     ("pq4", "pq4", "auto"), ("pq", "pq", "auto")):
         index = workdir / ("index" if codec == "sq" else f"index_{codec}")
@@ -1557,6 +1710,7 @@ def phase_codecs(device, workdir: Path, label: str, info: dict):
         state[name] = (s.coarse, s.quant, s.codes, s.offsets, s.max_list_len)
         del s, cand, sc, pids, scores
     assert_k6_on_mma("phase6a", k6_before)
+    assert_k8_on_onehot("phase6a", k8_before)
 
     # ---- 6b: K6, K8 and K10 against their plain versions on the first batch's inputs ----
     tokens = batches[0].reshape(B * M, H)
@@ -1577,28 +1731,7 @@ def phase_codecs(device, workdir: Path, label: str, info: dict):
     coarse, codebooks, codes, offsets, _ = state["pq4"]
     lists = torch.topk(tokens @ coarse.T, NPROBE, dim=1)[1].int()
     lut = adc_lut(tokens, codebooks)
-    lens = torch.diff(offsets).long()
-    gs, gr = pq4.pq4_list_scan(lists, offsets, lut, codes, r=TOPR)
-    ws, wr = pq4.pq4_list_scan_ref(lists, offsets, lut, codes, r=TOPR)
-    flat = lambda t: t.reshape(-1, TOPR)
-    err = ranked("K8", (flat(ws), flat(wr)), (flat(gs), flat(gr)))
-    rows = float(lens[lists.long()].sum())
-    distinct = float(lens[torch.unique(lists).long()].sum())
-    out["K8"] = {"max_abs_err": err,
-                 "ms": time_ms(lambda: pq4.pq4_list_scan(lists, offsets, lut, codes, r=TOPR)),
-                 "plain_ms": time_ms(lambda: pq4.pq4_list_scan_ref(lists, offsets, lut, codes, r=TOPR),
-                                     iters=1, warmup=1),
-                 "library_ms": None}
-    # one shared-memory LUT load per (token, row, subspace); bytes: each
-    # distinct probed list's codes once, the fp32 LUT, lists, offsets, output
-    clock = max_sm_clock_hz()
-    out["K8"]["bound_ms"], out["K8"]["bound_by"] = bound(
-        PQ4_M * rows, distinct * PQ4_M // 2 + lut.numel() * 4 + lists.numel() * 4 + offsets.numel() * 4
-        + T * NPROBE * TOPR * 8, SMEM_LOADS_PER_CLOCK * clock)
-    log(f"[phase6b] K8 at {T} tokens x {NPROBE} lists ({rows:.0f} (token, row) pairs, {distinct:.0f} distinct "
-        f"rows), m {PQ4_M}, r {TOPR}: bound by {PQ4_M * rows / 1e9:.2f} G shared-memory lookups at "
-        f"{SMEM_LOADS_PER_CLOCK} a clock x {clock / 1e6:.0f} MHz")
-    del gs, gr, ws, wr
+    out["K8"] = k8_both_routes("phase6b", lists, offsets, lut, codes, label)
 
     coarse, (proj, scales), codes, offsets, cap = state["sq token"]
     lists = torch.topk(tokens @ coarse.T, NPROBE, dim=1)[1]
@@ -1637,10 +1770,9 @@ def phase_codecs(device, workdir: Path, label: str, info: dict):
         PEAK_FP32_FLOPS)
     log(f"[phase6b] K10 at {T} tokens x {NPROBE} windows, cap {cap} ({rows:.0f} scored rows): output "
         f"{T * NPROBE * cap * 4 / 1e9:.3f} GB")
-    for k in ("K8", "K10"):
-        v = out[k]
-        log(f"[phase6b] {k}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, bound "
-            f"{v['bound_ms']:.4f} ms ({v['bound_by']}); no single PyTorch call computes it [{label}]")
+    v = out["K10"]
+    log(f"[phase6b] K10: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, bound "
+        f"{v['bound_ms']:.4f} ms ({v['bound_by']}); no single PyTorch call computes it [{label}]")
     low = {k: v["recall"] for k, v in summary.items() if v["recall"] < CODEC_RECALL}
     if low:  # checked last, so that one run reports every path and kernel
         raise AssertionError(f"recall@{TOPK} below {CODEC_RECALL}: {low}")
@@ -1754,6 +1886,13 @@ def main() -> int:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
         })
+        if fn == "K8":
+            kernels[-1].update({
+                "kernel_route": k["kernel_route"], "route_launches": {
+                    r: codec_launches[f"K8 {r} route"] for r in ("onehot", "lookup")},
+                "lookup_design_ms": k["lookup_design_ms"], "lookup_max_abs_err": k["lookup_max_abs_err"],
+                "lookup_bound_ms": k["lookup_bound_ms"], "lookup_phase_split": k["lookup_phase_split"],
+                "work_list_ms": k["work_list_ms"], "histogram": k["histogram"]})
     log(label)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

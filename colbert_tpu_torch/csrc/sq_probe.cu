@@ -60,6 +60,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "topr.cuh"  // row_key, walk_stage: the top-r under the TPU tie order
 
 namespace {
 
@@ -300,66 +301,6 @@ work_place_kernel(const int* __restrict__ qidx, const int* __restrict__ offsets,
   }
 }
 
-// A row's key in the top-r order: score descending, then 128-row block
-// descending, then row ascending, as one 64-bit integer that is larger for
-// the better row.  rel = row - the list's first block start.  -0.0 keys as
-// +0.0 (they compare equal as scores).
-__device__ __forceinline__ uint64_t row_key(float v, int rel) {
-  const uint32_t u = __float_as_uint(v + 0.0f);
-  const uint32_t hi = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  const uint32_t lo = uint32_t(rel) ^ uint32_t(BLOCK_ROWS - 1);  // in-block offset x -> 127 - x
-  return (uint64_t(hi) << 32) | lo;
-}
-
-// Compare-exchange: the larger key to a (descending order).
-__device__ __forceinline__ void cas(uint64_t& a, uint64_t& b) {
-  const uint64_t x = a, y = b;
-  a = x > y ? x : y;
-  b = x > y ? y : x;
-}
-
-// Sorts 8 keys descending: the 19-comparator network of depth 6.
-__device__ __forceinline__ void sort8_desc(uint64_t (&k)[8]) {
-  constexpr int P[19][2] = {{0, 2}, {1, 3}, {4, 6}, {5, 7}, {0, 4}, {1, 5}, {2, 6}, {3, 7}, {0, 1}, {2, 3},
-                            {4, 5}, {6, 7}, {2, 4}, {3, 5}, {1, 4}, {3, 6}, {1, 2}, {3, 4}, {5, 6}};
-#pragma unroll
-  for (int i = 0; i < 19; ++i) cas(k[P[i][0]], k[P[i][1]]);
-}
-
-constexpr int WALK_BATCH = 8;  // rows a token's walk sorts and merges at once
-
-// One 64-row stage of a token's top-r walk over the score tile column `col`
-// (rows whose rel are rel0 .. rel0+n-1), 8 rows at a time: their keys
-// sorted by a network, then merged with the held keys (descending): h
-// against the batch reversed is bitonic, and a bitonic merge sorts it,
-// keeping the best R.  Branch-free, so a warp's 32 tokens never wait on one
-// another's inserts.
-template <int R>
-__device__ __forceinline__ void walk_stage(uint64_t (&h)[R], const float* col, int rel0, int n) {
-  constexpr int M = R > WALK_BATCH ? R : WALK_BATCH;  // the merge width
-  for (int j0 = 0; j0 < n; j0 += WALK_BATCH) {
-    uint64_t k[WALK_BATCH];
-#pragma unroll
-    for (int i = 0; i < WALK_BATCH; ++i)
-      k[i] = j0 + i < n ? row_key(col[(j0 + i) * SC_STRIDE], rel0 + j0 + i) : 0;
-    sort8_desc(k);
-    uint64_t c[M];
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      const uint64_t hv = i < R ? h[i] : 0;
-      const uint64_t kv = M - 1 - i < WALK_BATCH ? k[M - 1 - i] : 0;
-      c[i] = hv > kv ? hv : kv;
-    }
-#pragma unroll
-    for (int stride = M / 2; stride > 0; stride /= 2)
-#pragma unroll
-      for (int i = 0; i < M; ++i)
-        if ((i ^ stride) > i) cas(c[i], c[i ^ stride]);
-#pragma unroll
-    for (int i = 0; i < R; ++i) h[i] = c[i];
-  }
-}
-
 template <int D, int R>
 __global__ void __launch_bounds__(THREADS)
 slot_scan_mma_kernel(const int* __restrict__ qidx,       // (S, tpl)
@@ -463,7 +404,7 @@ slot_scan_mma_kernel(const int* __restrict__ qidx,       // (S, tpl)
         }
       }
       __syncthreads();  // the score tile is complete
-      if (t >= 0) walk_stage<R>(h, sc + tid, r0 - astart, n);
+      if (t >= 0) topr::walk_stage<R, SC_STRIDE>(h, sc + tid, r0 - astart, n);
     }
 
     if (tid < tpl) {
@@ -471,11 +412,8 @@ slot_scan_mma_kernel(const int* __restrict__ qidx,       // (S, tpl)
 #pragma unroll
       for (int i = 0; i < R; ++i)
         if (i < r) {
-          const uint32_t kh = uint32_t(h[i] >> 32), kl = uint32_t(h[i]);
-          const uint32_t rel = kl ^ uint32_t(BLOCK_ROWS - 1);
-          out_s[o + int64_t(i) * tpl] = h[i] ? __uint_as_float((kh & 0x80000000u) ? (kh & 0x7fffffffu) : ~kh)
-                                             : neg_inf();
-          out_r[o + int64_t(i) * tpl] = h[i] ? astart + int(rel) : -1;
+          out_s[o + int64_t(i) * tpl] = topr::key_score(h[i]);
+          out_r[o + int64_t(i) * tpl] = h[i] ? astart + topr::key_rel(h[i]) : -1;
         }
     }
     __syncthreads();  // every thread has read this item's shared state

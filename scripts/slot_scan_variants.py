@@ -38,7 +38,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-WALK = "if (t >= 0) walk_stage<R>(h, sc + tid, r0 - astart, n);"
+WALK = "if (t >= 0) topr::walk_stage<R, SC_STRIDE>(h, sc + tid, r0 - astart, n);"
 MMA = "hopper::mma_bf16_16816(d, a[ks], b.x, b.y);"
 HASH = ("d[0] += float((a[ks][0] ^ b.x) & 0xffffu); d[1] += float((a[ks][1] ^ b.y) & 0xffffu); "
         "d[2] += float((a[ks][2] ^ b.x) & 0xffffu); d[3] += float((a[ks][3] ^ b.y) & 0xffffu);")
@@ -73,7 +73,8 @@ def build(out: Path):
 
     src = (ROOT / "colbert_tpu_torch/csrc/sq_probe.cu").read_text()
     out.mkdir(parents=True, exist_ok=True)
-    (out / "hopper.cuh").write_text((ROOT / "colbert_tpu_torch/csrc/hopper.cuh").read_text())
+    for header in (ROOT / "colbert_tpu_torch/csrc").glob("*.cuh"):
+        (out / header.name).write_text(header.read_text())
     procs = {}
     for i, (name, edits) in enumerate(VARIANTS.items()):
         s = src

@@ -3,7 +3,8 @@ the flat scan (K1, K2), all-pairs MaxSim (K3), dropout (K9), the rerank
 (K4 bf16, K5 int8, on both routes, its pid-window schedule's edges and its
 freedom from host synchronisation), the sq list scans (K6 slots on both
 routes, its work list's edges and its freedom from host synchronisation;
-K7 hot lists), the pq4 list scan (K8) and the token-major sq window scan (K10).
+K7 hot lists), the pq4 list scan (K8 on both routes, its work list and its
+freedom from host synchronisation) and the token-major sq window scan (K10).
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU and
 skips elsewhere.  This file imports no jax (the card's machine has none);
@@ -511,9 +512,11 @@ def test_hot_scan_kernel_matches_plain(cuda_device, K, D, max_len, T, H, r):
 
 # ---- K8: pq4 list scan; K10: sq window scan (scores within 1e-5, rows equal except at near ties) ----
 
-def _pq4_case(device, seed, K, m, max_len, T, nprobe):
-    """Packed pq4 codes with an empty list, a list of more than two 128-row
-    blocks drawn from five distinct rows (exact ties), and a random LUT."""
+def _pq4_case(device, seed, K, m, max_len, T, nprobe, every=False):
+    """Packed pq4 codes with an empty list, a list of 300 rows (more than
+    two 128-row blocks, and three 128-row passes of route "onehot") drawn from five
+    distinct rows (exact ties), and a random LUT.  Every token probes list 0
+    or 1 first, or with ``every`` list 1."""
     rng = np.random.default_rng(seed)
     lens = rng.integers(0, max_len + 1, size=K)
     lens[0], lens[1] = 0, 300
@@ -522,11 +525,33 @@ def _pq4_case(device, seed, K, m, max_len, T, nprobe):
     codes = rng.integers(-128, 128, size=(int(offsets[-1]), m // 2)).astype(np.int8)
     pool = codes[offsets[1] : offsets[1] + 5].copy()
     codes[offsets[1] : offsets[2]] = pool[rng.integers(0, 5, size=300)]
-    first = rng.integers(0, 2, size=T)  # every token probes list 0 or 1 first
+    first = np.ones(T, np.int64) if every else rng.integers(0, 2, size=T)
     lists = np.array([[f] + [l for l in rng.permutation(K) if l != f][: nprobe - 1] for f in first], np.int32)
     lut = rng.normal(scale=0.05, size=(T, m, 16)).astype(np.float32)
     to = lambda a: torch.from_numpy(a).to(device)
     return to(lists), to(offsets), to(lut), to(codes)
+
+
+def _assert_pq4_routes_match_plain(lists, offsets, lut, codes, r):
+    """K8 through its wrapper (route "onehot", one launch counted on it),
+    then on route "lookup" on the same input: both against the plain
+    version, and against each other."""
+    from colbert_tpu_torch.ops import pq4
+
+    assert pq4.pq4_scan_plan(lut.shape[1], r) == "onehot"
+    before = {k: c.value for k, c in pq4.route_launches.items()}
+    n = pq4.pq4_list_scan.launches.value
+    gs, gr = pq4.pq4_list_scan(lists, offsets, lut, codes, r=r)
+    ls, lr = pq4._launch(lists, offsets, lut, codes, r, route="lookup")
+    torch.cuda.synchronize()
+    assert pq4.pq4_list_scan.launches.value == n + 1
+    assert {k: c.value - before[k] for k, c in pq4.route_launches.items()} == {"onehot": 1, "lookup": 1}
+    ws, wr = pq4.pq4_list_scan_ref(lists, offsets, lut, codes, r=r)
+    flat = lambda t: t.reshape(-1, r)
+    _assert_ranked(flat(ws), flat(wr), flat(gs), flat(gr))
+    _assert_ranked(flat(ws), flat(wr), flat(ls), flat(lr))
+    _assert_ranked(flat(ls), flat(lr), flat(gs), flat(gr))
+    return gs, gr
 
 
 @pytest.mark.parametrize("K,m,max_len,T,nprobe,r", [
@@ -535,15 +560,87 @@ def _pq4_case(device, seed, K, m, max_len, T, nprobe):
     (17, 256, 300, 33, 5, 16),
 ])
 def test_pq4_scan_kernel_matches_plain(cuda_device, K, m, max_len, T, nprobe, r):
+    lists, offsets, lut, codes = _pq4_case(cuda_device, K + m, K, m, max_len, T, nprobe)
+    gs, gr = _assert_pq4_routes_match_plain(lists, offsets, lut, codes, r)
+    empty = lists == 0  # the empty list yields -inf / -1 only
+    assert torch.isinf(gs[empty]).all() and (gr[empty] == -1).all()
+
+
+@pytest.mark.parametrize("m,r", [(8, 1), (32, 16), (64, 3), (128, 8)])
+def test_pq4_onehot_list_probed_by_every_token(cuda_device, m, r):
+    """The tied 300-row list probed by all 2,304 tokens (36 items of 64
+    members, three 128-row passes each), beside short lists and the empty
+    one, at code widths of 4 to 64 bytes, r 1..16."""
+    lists, offsets, lut, codes = _pq4_case(cuda_device, m + r, 300, m, 90, 2304, 8, every=True)
+    gs, gr = _assert_pq4_routes_match_plain(lists, offsets, lut, codes, r)
+    top = gr[:, 0]  # list 1, probed first: its rows only
+    assert ((top >= offsets[1]) & (top < offsets[2])).all()
+
+
+def test_pq4_work_list_kernel_matches_plain(cuda_device):
+    """Route "onehot"'s work list from its kernels against the plain version
+    at the serving shape with one list probed by every token: per list the
+    same pairs and items, the same count, most work first; list ranges,
+    pair order within a list and item order within a bucket follow atomics."""
     from colbert_tpu_torch.ops import pq4
 
-    lists, offsets, lut, codes = _pq4_case(cuda_device, K + m, K, m, max_len, T, nprobe)
-    before = pq4.pq4_list_scan.launches.value
-    gs, gr = pq4.pq4_list_scan(lists, offsets, lut, codes, r=r)
+    lists, offsets, _, _ = _pq4_case(cuda_device, 5, 4096, 128, 160, 2304, 128, every=True)
+    got, want = pq4.work_list_kernel(lists, offsets), pq4.pq4_work_list(lists, offsets)
+    n = int(want.count)
+    assert int(got.count) == n and torch.equal(got.cnt, want.cnt)
+    l_flat = lists.reshape(-1).long()
+    pos = torch.arange(l_flat.numel(), device=cuda_device)
+    for wl in (got, want):  # every pair once, each in its list's range
+        assert torch.equal(torch.sort(wl.pairs.long())[0], pos)
+        at = l_flat[wl.pairs.long()]
+        assert ((pos >= wl.lstart.long()[at]) & (pos < wl.lstart.long()[at] + wl.cnt.long()[at])).all()
+
+    def item_sets(wl):
+        items = wl.items[:n].long()
+        l = l_flat[wl.pairs.long()[items]]
+        members = torch.clamp(wl.cnt.long()[l] + wl.lstart.long()[l] - items, max=pq4.ONEHOT_GROUP)
+        return l, members, pq4.item_buckets(offsets, l, members)
+    gl, gm, gb = item_sets(got)
+    wl_, wm, wb = item_sets(want)
+    assert (gb[1:] <= gb[:-1]).all() and torch.equal(gb, wb)
+    key = lambda l, m: torch.sort(l * 1000 + m)[0]
+    assert torch.equal(key(gl, gm), key(wl_, wm))  # the same items: each list's count of each size
+
+
+def test_pq4_probe_never_synchronises(cuda_device):
+    """The whole pq4 probe (coarse lists, LUT, K8 on route "onehot" with its
+    work list, top-depth) with torch's sync debug mode raising on any host
+    synchronisation; then against the same probe on the plain K8."""
+    from colbert_tpu_torch.ops import pq4
+
+    g = torch.Generator(cuda_device).manual_seed(3)
+    K, d, m, T = 256, 64, 32, 512
+    lens = torch.randint(0, 200, (K,), device=cuda_device, generator=g)
+    offsets = torch.zeros(K + 1, dtype=torch.int32, device=cuda_device)
+    offsets[1:] = torch.cumsum(lens, 0)
+    n_rows = int(offsets[-1])
+    codes = torch.randint(-128, 128, (n_rows, m // 2), device=cuda_device, generator=g).to(torch.int8)
+    q = torch.randn(T, d, device=cuda_device, generator=g)
+    cent = torch.randn(K, d, device=cuda_device, generator=g)
+    cb = torch.randn(m, 16, d // m, device=cuda_device, generator=g) / d ** 0.5
+    kw = dict(nprobe=16, depth=32, r=4)
+    pq4.ivf_probe_pq4(q, cent, cb, codes, offsets, **kw)  # the library is built and loaded outside the check
     torch.cuda.synchronize()
-    assert pq4.pq4_list_scan.launches.value == before + 1
-    ws, wr = pq4.pq4_list_scan_ref(lists, offsets, lut, codes, r=r)
-    _assert_ranked(ws.reshape(-1, r), wr.reshape(-1, r), gs.reshape(-1, r), gr.reshape(-1, r))
+    before = pq4.route_launches["onehot"].value
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s, rows = pq4.ivf_probe_pq4(q, cent, cb, codes, offsets, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert pq4.route_launches["onehot"].value == before + 1
+    from colbert_tpu_torch.ops.ivf import coarse_lists, topk_first
+    from colbert_tpu_torch.ops.pq import adc_lut
+
+    ws, wr = pq4.pq4_list_scan_ref(coarse_lists(q, cent, 16).int(), offsets, adc_lut(q, cb), codes, r=4)
+    ws, i = topk_first(ws.view(T, -1), 32)
+    wr = torch.where(torch.isfinite(ws), wr.view(T, -1).gather(1, i), -1).int()
+    assert torch.isfinite(ws).sum() > T * 16
+    _assert_ranked(ws, wr, s, rows)
 
 
 @pytest.mark.parametrize("D,N,T,nprobe,cap", [

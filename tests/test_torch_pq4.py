@@ -156,3 +156,122 @@ def test_ivf_probe_pq4_matches_jax(depth):
     assert err <= TOL and bad == 0, (err, bad)
     tied = (pr.numpy() >= offsets[2]) & (pr.numpy() < offsets[3])
     assert tied.any(axis=1).sum() >= 4  # the tied list reached several tokens' candidates
+
+
+# ---- route "onehot": its work list and its arithmetic, on the CPU ----
+
+def _probes(rng, T, K, nprobe, every=None):
+    """(T, nprobe) distinct lists a token; list ``every`` probed by every token."""
+    rows = []
+    for _ in range(T):
+        p = [int(l) for l in rng.permutation(K)]
+        if every is not None:
+            p.remove(every)
+            p.insert(int(rng.integers(0, nprobe)), every)
+        rows.append(p[:nprobe])
+    return np.array(rows, np.int32)
+
+
+@pytest.mark.parametrize("kind", ["serving", "every_token_one_list", "small"])
+def test_pq4_work_list_matches_numpy(kind):
+    """Every (token, probe) pair in exactly one item, an item's members in
+    ascending token order and at most 64, a list's items in its pair order,
+    an empty list probed by a token still an item, a list no token probes
+    none, and the items ordered most work first (64-row tiles x 16-token
+    tiles, capped at the last bucket)."""
+    T, K, nprobe = {"serving": (2304, 4096, 128), "every_token_one_list": (300, 40, 6), "small": (9, 30, 2)}[kind]
+    rng = np.random.default_rng(T + K)
+    lens = rng.integers(0, 400, size=K)
+    lens[1] = 0
+    lists = _probes(rng, T, K, nprobe, every=1 if kind != "small" else None)
+    offsets = np.zeros(K + 1, np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    wl = ppq4.pq4_work_list(torch.from_numpy(lists), torch.from_numpy(offsets))
+    n = int(wl.count)
+    items, pairs = wl.items.numpy(), wl.pairs.numpy()
+    assert items.shape == (ppq4.max_items(T * nprobe, K),) and (items[n:] == -1).all()
+    # the numpy loop: each list's pairs in (token, probe) order, cut into 64s
+    want = {}
+    for p, l in enumerate(lists.reshape(-1)):
+        want.setdefault(int(l), []).append(p)
+    got = {}
+    for ps in items[:n]:
+        l = int(lists.reshape(-1)[pairs[ps]])
+        cnt, start = int(wl.cnt[l]), int(wl.lstart[l])
+        assert start <= ps < start + cnt and (ps - start) % ppq4.ONEHOT_GROUP == 0
+        got.setdefault(l, []).append(pairs[ps : min(ps + ppq4.ONEHOT_GROUP, start + cnt)].tolist())
+    assert sorted(got) == sorted(want)
+    for l, chunks in got.items():
+        chunks.sort()
+        assert sum(chunks, []) == want[l]  # every pair once, ascending token within the list
+        assert all(len(c) <= ppq4.ONEHOT_GROUP for c in chunks)
+    if kind != "small":
+        assert len(got[1]) == -(-T // ppq4.ONEHOT_GROUP) and lens[1] == 0  # the empty list, every token
+    l_of = lists.reshape(-1)[pairs[items[:n]]]
+    members = np.minimum(wl.cnt.numpy()[l_of] + wl.lstart.numpy()[l_of] - items[:n], ppq4.ONEHOT_GROUP)
+    key = np.minimum(-(-lens[l_of] // 64) * -(-members // 16), ppq4.WORK_BUCKETS - 1)
+    assert (np.diff(key) <= 0).all()
+
+
+@pytest.mark.parametrize("m,r,ok", [(8, 1, True), (128, 8, True), (256, 16, True),
+                                    (12, 8, False), (512, 8, False), (128, 0, False), (128, 17, False)])
+def test_pq4_scan_plan_routes_every_k8_shape(m, r, ok):
+    """Route "onehot" takes every shape K8 takes (m/2 in 4..128 bytes, a
+    power of two; r 1..16); any other shape raises before a launch."""
+    if ok:
+        assert ppq4.pq4_scan_plan(m, r) == "onehot"
+    else:
+        with pytest.raises(ValueError):
+            ppq4.pq4_scan_plan(m, r)
+
+
+def onehot_items_scan(lists, offsets, lut, codes, r):
+    """Route "onehot"'s arithmetic in numpy, item by item of the plain work
+    list: each list's rows scored for the item's members as one product of
+    the rows' one-hot nibbles (m x 16 columns) and the members' bf16 LUT,
+    then each member's top r under the key (score desc, 128-row block
+    counted from the list start desc, row asc)."""
+    T, nprobe = lists.shape
+    m = lut.shape[1]
+    wl = ppq4.pq4_work_list(torch.from_numpy(lists), torch.from_numpy(offsets))
+    lutb = torch.from_numpy(lut).to(torch.bfloat16).float().numpy().reshape(T, m * 16)
+    nib = ppq4.pq4_unpack(torch.from_numpy(codes)).numpy().astype(np.int64)
+    out_s = np.full((T * nprobe, r), -np.inf, np.float32)
+    out_r = np.full((T * nprobe, r), -1, np.int32)
+    cnt, lstart, pairs = wl.cnt.numpy(), wl.lstart.numpy(), wl.pairs.numpy()
+    for ps in wl.items.numpy()[: int(wl.count)]:
+        l = lists.reshape(-1)[pairs[ps]]
+        mem = pairs[ps : min(ps + ppq4.ONEHOT_GROUP, lstart[l] + cnt[l])]
+        lo, hi = offsets[l], offsets[l + 1]
+        onehot = np.zeros((hi - lo, m * 16), np.float32)
+        onehot[np.arange(hi - lo)[:, None], np.arange(m) * 16 + nib[lo:hi]] = 1.0
+        scores = onehot @ lutb[mem // nprobe].T                        # (rows, members)
+        rel = np.arange(hi - lo)
+        for c, p in enumerate(mem):
+            top = np.lexsort((rel, -(rel // 128), -scores[:, c]))[:r]
+            out_s[p, : len(top)] = scores[top, c]
+            out_r[p, : len(top)] = lo + rel[top]
+    return out_s.reshape(T, nprobe, r), out_r.reshape(T, nprobe, r)
+
+
+@pytest.mark.parametrize("m,r", [(16, 2), (128, 8)])
+def test_k8_onehot_items_match_jax_kernel(m, r):
+    """The one-hot product over the work list's items, with the total-order
+    top r, equals the TPU kernel in interpret mode: scores within 1e-5, rows
+    equal outside near ties, the planted exact ties within and across
+    128-row blocks resolved alike; the tied list is probed by every token
+    (more than one item) and the empty list by some."""
+    rng = np.random.default_rng(7 * m + r)
+    T, K, nprobe = 140, 9, 4
+    assert T > ppq4.ONEHOT_GROUP  # the list every token probes makes two items
+    codes, offsets = tied_csr(rng, K, m // 2, 140)
+    lists = _probes(rng, T, K, nprobe, every=2)
+    assert (lists == 1).any()  # the empty list is probed
+    lut = rng.normal(scale=0.05, size=(T, m, 16)).astype(np.float32)
+    ws, wr = jax_block_scan(lists, offsets, lut, codes, r)
+    gs, gr = onehot_items_scan(lists, offsets, lut, codes, r)
+    flat = lambda a: torch.as_tensor(np.ascontiguousarray(a)).reshape(T * nprobe, r)
+    err, bad = ranked_mismatch(flat(ws), flat(wr), flat(gs), flat(gr), TOL)
+    assert err <= TOL and bad == 0, (err, bad)
+    tied = gs[lists == 2]
+    assert (tied[:, 1:] == tied[:, :-1]).any()  # exact ties were compared
