@@ -56,25 +56,33 @@ from a seed:
   (K = 4,096 lists, sq_dim 64), ``serve`` with ``serve.mode=ann``, four
   requests of 144 questions (the last repeats the first at the smallest
   nprobe, doubling from 128, at which lists overflow their slots: K7's
-  work), ``evaluate --remote``, a local ``evaluate`` with
+  work; K7 on both routes over that request's plan, as in 5a, after the
+  counted run), ``evaluate --remote``, a local ``evaluate`` with
   ``serve.rerank_dtype=int8``, and the first request through that int8
   service.  Every answer (the socket's and the int8 service's) must hold
   100 valid, descending triples whose scores equal the exact MaxSim of the
   returned pids over the served table within 1e-4; (d) K4 must launch once
   per bf16 batch, K5 once per int8 batch, every launch on the rerank's
-  "wgmma" route, K6 and K7 once per batch, every K6 launch on route "mma";
+  "wgmma" route, K6 and K7 once per batch, every K6 and K7 launch on route
+  "mma";
   (b) ``build-index`` over the JAX bench's 20,000-doc generator
   (``bench.py:51-65``, seed 0), recall@100 of ANN search from topic-drawn
   query reps against the fp32 exact oracle (at least 0.98), the batch's
   time per stage (probe, dedup, rerank, top-k), and one batch served with
   ``serve.rerank_dtype=float32`` (an fp32 table, no K4/K5 launch): its
   scores within 1e-4 of an fp32 MaxSim of its pids, recall@100 >= 0.98;
-  every K6 launch of the served batches on route "mma";
+  every K6 and K7 launch of the served batches on route "mma";
   (a) on that batch's inputs: the histogram of K6's filled slots (list
   rows and members a slot: median, p99, max), K6 on route "mma" and on
   route "staged" (the first design; also the longest slot alone on both)
-  and K7 (the batch's 128 most-probed lists x every token) against their
-  plain versions, scores within 1e-5 and rows equal except at near ties; K4 (bf16) and K5 (int8)
+  and K7 (the batch's 128 most-probed lists, their probing tokens as
+  members) on route "mma" over the members and over every token and on
+  route "staged" (every token), each against its plain version, scores
+  within 1e-5 and rows equal except at near ties (K6/K7: at the entries a
+  probe reads, against the plain version's top-(r+1), an exact tie of it
+  excused only where the rows' fp64 sums differ), with both of K7's bounds
+  (member pairs, every token's pairs); K7 on the served plan (no hot list
+  at nprobe 128) on both routes, timed; K4 (bf16) and K5 (int8)
   on route "wgmma" over the 144 x 4,096 candidates and in a low-reuse case
   (the same candidates over a 200,000-doc table, p -> 10p + b mod 10),
   within 1e-4 with -inf exactly at the -1 candidates, each timed with its
@@ -165,6 +173,7 @@ def counters():
             "K1/K2 wgmma route": fs.route_launches["wgmma"], "K1/K2 staged route": fs.route_launches["staged"],
             "K4/K5 wgmma route": rr.route_launches["wgmma"], "K4/K5 staged route": rr.route_launches["staged"],
             "K6 mma route": sp.route_launches["mma"], "K6 staged route": sp.route_launches["staged"],
+            "K7 mma route": sp.hot_route_launches["mma"], "K7 staged route": sp.hot_route_launches["staged"],
             "K8 onehot route": pq4.route_launches["onehot"], "K8 lookup route": pq4.route_launches["lookup"]}
 
 
@@ -590,11 +599,11 @@ def phase_slice(device, workdir: Path, label: str, num_docs=20_000, model_kw=Non
         f"random-init views are near ties)")
     if worst > SCORE_ATOL:
         raise AssertionError(f"served scores differ from the plain version by {worst}")
-    ann_launches = phase_ann_cli(device, workdir, cfg, common, corpus_path, eval_path, docs,
-                                 requests, k2_searcher, n_eval)
+    ann_launches, k7_deep = phase_ann_cli(device, workdir, cfg, common, corpus_path, eval_path, docs,
+                                          requests, k2_searcher, n_eval, label)
     codec_launches = phase_codecs_cli(device, workdir, cfg, common, corpus_path, eval_path, docs,
                                       requests, k2_searcher, n_eval)
-    return launches, worst, ann_launches, codec_launches
+    return launches, worst, ann_launches, codec_launches, k7_deep
 
 
 # ---- phase 3: the training kernels against their plain versions ----
@@ -847,11 +856,12 @@ def check_answers(tag, questions, answers, searcher, docs, device, exact=None):
 
 
 def phase_ann_cli(device, workdir: Path, cfg, common, corpus_path, eval_path, docs, requests,
-                  flat_searcher, n_eval):
+                  flat_searcher, n_eval, label):
     """Phase 5c/5d: ``build-index`` on phase 2's encoded corpus, ``serve``
     with ``serve.mode=ann`` over the socket, ``evaluate --remote``, a local
     ``evaluate`` and one batch of the service ``evaluate`` builds, both with
-    the int8 rerank table; the launch counts of K4-K7 in that run."""
+    the int8 rerank table; the launch counts of K4-K7 in that run, and K7
+    on both routes over the deep request's plan (its real hot lists)."""
     import torch
 
     from colbert_tpu_torch import cli
@@ -955,8 +965,12 @@ def phase_ann_cli(device, workdir: Path, cfg, common, corpus_path, eval_path, do
         f"service batch on the int8 table)")
     want["K4/K5 wgmma route"], want["K4/K5 staged route"] = want["K4"] + want["K5"], 0
     want["K6 mma route"], want["K6 staged route"] = want["K6"], 0
+    want["K7 mma route"], want["K7 staged route"] = want["K7"], 0
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"ANN kernel launches {launches} do not match the served batches {want}")
+    # K7 on the deep request's plan: the one served shape with real hot lists
+    k7_deep = k7_both_routes("phase5c", f"request 0 at nprobe {deep}", plan.hot_ids, plan.hot_members,
+                             ivf["offsets"], ivf["codes"], plan.qs, label)
 
     # every answer: 100 valid descending triples whose scores are the exact
     # MaxSim of the returned pids over the served table: bf16 queries x bf16
@@ -971,7 +985,7 @@ def phase_ann_cli(device, workdir: Path, cfg, common, corpus_path, eval_path, do
         + ", ".join(f"{k} table {v:.3e}" for k, v in worst.items()) + f" (limit {SCORE_ATOL})")
     if max(worst.values()) > SCORE_ATOL:
         raise AssertionError(f"served ANN scores differ from exact MaxSim: {worst}")
-    return launches
+    return launches, k7_deep
 
 
 def phase_ann(device, workdir: Path, label: str, num_docs=20_000, n_batches=2, seed=0):
@@ -1025,7 +1039,7 @@ def phase_ann(device, workdir: Path, label: str, num_docs=20_000, n_batches=2, s
     qm = torch.ones(B, M, device=device)
 
     # ---- 5b: recall@100 against the fp32 exact oracle, and the stage times ----
-    k6_before = k6_routes()
+    k6_before, k7_before = k6_routes(), k7_routes()
     recall, batch_ms, oracle = [], [], []
     for i in range(n_batches):
         Qb = Q[i * B : (i + 1) * B]
@@ -1062,6 +1076,7 @@ def phase_ann(device, workdir: Path, label: str, num_docs=20_000, n_batches=2, s
     log(f"[phase5b] batch of {B} x {M} query reps, ms per stage (CUDA events): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stage.items()) + f" [{label}]")
     assert_k6_on_mma("phase5b", k6_before)
+    assert_k7_on_mma("phase5b", k7_before)
 
     # ---- 5b: one batch served with serve.rerank_dtype="float32": an fp32 table, reranked in torch ops ----
     cfg32 = ColbertConfig.from_dict(cfg.to_dict())
@@ -1103,56 +1118,166 @@ def phase_ann(device, workdir: Path, label: str, num_docs=20_000, n_batches=2, s
     T = tokens.shape[0]
     filled = qidx[:, 0] >= 0
     lens_d = torch.diff(offsets).long()
-    # K7 at its serving shape (hot_cap lists x every token) over this batch's
-    # most-probed lists, whether or not they overflow their slots
+    # K7 at its serving shape (hot_cap lists) over this batch's most-probed
+    # lists, whether or not they overflow their slots, with their probing
+    # tokens as members
     probed = torch.bincount(plan.lists.reshape(-1), minlength=K)
     hot = torch.sort(probed, descending=True, stable=True)[1][: plan.hot_ids.numel()].int()
     hot_l = hot.long()
+    members = probe_members(plan.lists, hot, K)
     log(f"[phase5a] probe plan: {int(filled.sum())} of {qidx.shape[0]} slots filled, "
         f"{int((plan.hot_ids >= 0).sum())} lists over the slot capacity ({8 * 128} members); "
         f"K7 held on the {hot.numel()} most-probed lists ({int(probed[hot_l].min())}-"
         f"{int(probed[hot_l].max())} probing tokens, {int(lens_d[hot_l].sum())} rows)")
 
-    ranked = lambda name, got, want: ranked_units("phase5a", name, got, want)
     out["K6"] = k6_both_routes("phase5a", "one-topic", plan, offsets, codes, label)
 
-    got = sp.sq_hot_list_scan(hot, offsets, plan.qs, codes, r=TOPR)
-    want = sp.sq_hot_list_scan_ref(hot, offsets, plan.qs, codes, r=TOPR)
-    err = ranked("K7", got, want)
-    out["K7"] = {"max_abs_err": err,
-                 "ms": time_ms(lambda: sp.sq_hot_list_scan(hot, offsets, plan.qs, codes, r=TOPR)),
-                 "plain_ms": time_ms(lambda: sp.sq_hot_list_scan_ref(hot, offsets, plan.qs, codes, r=TOPR),
-                                     iters=2, warmup=1),
-                 "library_ms": None}
-    # fp32 queries x int8 codes: three bf16 tensor-core terms, as K5
-    out["K7"]["bound_ms"], out["K7"]["bound_by"] = bound(
-        3 * 2.0 * SQ_DIM * T * float(lens_d[hot_l].sum()),
-        float(lens_d[hot_l].sum()) * SQ_DIM + T * SQ_DIM * 4 + hot.numel() * 4 + hot.numel() * TOPR * T * 8,
-        PEAK_BF16_FLOPS)
+    out["K7"] = k7_both_routes("phase5a", "one-topic batch, forced", hot, members, offsets, codes, plan.qs, label)
+    # the served plan: no list over its slots at nprobe 128, every hot entry -1
+    out["K7"]["served_no_hot"] = k7_no_hot("phase5a", plan, offsets, codes, label)
 
     out.update(phase_rerank(device, cand, Qb, searcher.emb_table, docs, label))
-    for k in ("K7",):
-        v = out[k]
-        log(f"[phase5a] {k}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, bound "
-            f"{v['bound_ms']:.4f} ms ({v['bound_by']}); no single PyTorch call computes it [{label}]")
     return out, {"recall": rec, "stage_ms": stage, "batch_ms": batch_ms, "build_s": build_s,
                  "queries": Q, "oracle": oracle, "config": cfg, "fp32": {"ms": ms32, "err": err32, "recall": rec32}}
 
 
-def ranked_units(tag, name, got, want, got_at_want=None):
-    """A list scan's (units, r, tokens) output against its plain version:
-    scores within ``PROBE_ATOL``, rows equal outside near ties."""
+def ranked_rows(tag, name, got, want, got_at_want=None):
+    """Ranked (n, r) scores and rows against the plain version's: scores
+    within ``PROBE_ATOL``, rows equal outside near ties."""
     from colbert_tpu_torch.ops import sq_probe_batched as sp
 
-    (gs, gr), (ws, wr) = got, want
-    flat = lambda t: t.transpose(1, 2).reshape(-1, t.shape[1])
-    if got_at_want is not None:
-        got_at_want = flat(got_at_want)
-    err, bad = sp.ranked_mismatch(flat(ws), flat(wr), flat(gs), flat(gr), PROBE_ATOL, got_at_want)
+    err, bad = sp.ranked_mismatch(*want, *got, PROBE_ATOL, got_at_want)
     log(f"[{tag}] {name}: max|d|={err:.3e} (limit {PROBE_ATOL}), rows mismatched outside near ties {bad}")
     if err > PROBE_ATOL or bad:
         raise AssertionError(f"{name} differs from its plain version: max|d| {err}, {bad} rows")
     return err
+
+
+def exact_at_ties(ws, wr, codes, qs, tok):
+    """The plain version's ranked (n, r) scores with, where two neighbours
+    tie exactly, the rows' exact sums (fp64, against ``qs[tok[i]]``, entry
+    i's query) in their place: ``ranked_mismatch``'s ``got_at_want``.  A
+    tensor-core route sums in another order than the plain version, so two
+    different rows may round to one fp32 score on one side only; such a tie
+    counts as a near tie where the exact sums differ.  Returns it and the
+    count of tied entries."""
+    import torch
+
+    fin = torch.isfinite(ws)
+    same = (ws[:, 1:] == ws[:, :-1]) & fin[:, 1:]
+    tie = torch.zeros_like(fin)
+    tie[:, 1:] |= same
+    tie[:, :-1] |= same
+    exact = ws.double()
+    i, k = torch.nonzero(tie, as_tuple=True)
+    exact[i, k] = (codes[wr[i, k].long()].double() * qs[tok[i]].double()).sum(dim=1)
+    return exact, len(i)
+
+
+def k7_routes() -> dict:
+    from colbert_tpu_torch.ops import sq_probe_batched as sp
+
+    return {k: c.value for k, c in sp.hot_route_launches.items()}
+
+
+def assert_k7_on_mma(tag, before):
+    """Every K7 launch since ``before`` (``k7_routes()``) took route "mma", and there was one."""
+    got = {k: v - before[k] for k, v in k7_routes().items()}
+    log(f"[{tag}] K7 launches by route in the served batches: {got}")
+    if got["staged"] or not got["mma"]:
+        raise AssertionError(f"{tag}: K7 launches by route {got}, expected all on route mma")
+
+
+def probe_members(lists, hot, K):
+    """(T, H) bool: token t probes hot list ``hot[h]`` (``lists`` (T, nprobe))."""
+    import torch
+
+    H = hot.numel()
+    pos = torch.full((K + 1,), H, dtype=torch.int64, device=lists.device)
+    pos[torch.where(hot >= 0, hot.long(), K)] = torch.arange(H, device=lists.device)
+    pos[K] = H
+    m = torch.zeros((lists.shape[0], H + 1), dtype=torch.bool, device=lists.device)
+    m.scatter_(1, pos[lists.long()], True)
+    return m[:, :H].contiguous()
+
+
+def k7_both_routes(tag, what, hot, members, offsets, codes, qs, label):
+    """K7 on one hot-list set: route "mma" over the member tokens (through
+    the wrapper, one launch counted on it), route "mma" over every token,
+    route "staged" (the first design, every token), each against the plain
+    version at the member entries of real hot lists (the entries a probe
+    reads) and timed; route "mma"'s schedule and work list alone; both
+    bounds (the member pairs the probe needs, and every token's pairs)."""
+    import torch
+
+    from colbert_tpu_torch.ops import sq_probe_batched as sp
+
+    T, D = qs.shape
+    H = hot.numel()
+    real = hot >= 0
+    read = real[:, None] & members.T                                     # (H, T)
+    lens_d = torch.diff(offsets).long()
+    rows_h = torch.where(real, lens_d[hot.clamp(min=0).long()], 0)
+    entries = int(read.sum())
+    pairs, all_pairs, rows = int((read.sum(dim=1) * rows_h).sum()), int(rows_h.sum()) * T, int(rows_h.sum())
+    mma = lambda: sp.sq_hot_list_scan(hot, offsets, qs, codes, r=TOPR, members=members)
+    every = lambda: sp.sq_hot_list_scan(hot, offsets, qs, codes, r=TOPR)
+    staged = lambda: sp._launch(hot, offsets, qs, codes, TOPR, hot=True, route="staged")
+    plain = lambda: sp.sq_hot_list_scan_ref(hot, offsets, qs, codes, r=TOPR, members=members)
+    # the plain version's top-(r+1): a kernel's r-th row may be its (r+1)-th where the two tie
+    flat = lambda t: t.transpose(1, 2)[read]
+    ws, wr = (flat(t) for t in sp.sq_hot_list_scan_ref(hot, offsets, qs, codes, r=TOPR + 1, members=members))
+    exact, n_ties = exact_at_ties(ws, wr, codes, qs, torch.arange(T, device=qs.device).expand(H, T)[read])
+
+    def check(name, got):
+        gs, gr = (torch.cat([flat(t), w[:, TOPR:]], dim=1) for t, w in zip(got, (ws, wr)))
+        return ranked_rows(tag, f"K7 {name} ({what}; {n_ties} entries in exact ties of the plain version)",
+                           (gs, gr), (ws, wr), exact)
+
+    before = k7_routes()
+    got = mma()
+    if k7_routes()["mma"] != before["mma"] + 1:
+        raise AssertionError(f"{tag}: K7's wrapper did not launch route mma")
+    res = {"max_abs_err": check("route mma, members", got),
+           "all_tokens_max_abs_err": check("route mma, every token", every()),
+           "staged_max_abs_err": check("route staged", staged())}
+    del got, ws, wr, exact
+    res.update(ms=time_ms(mma), all_tokens_ms=time_ms(every), staged_ms=time_ms(staged),
+               schedule_ms=time_ms(lambda: sp.hot_schedule_kernel(hot, offsets, T, members)),
+               plain_ms=time_ms(plain, iters=2, warmup=1), library_ms=None, kernel_route="mma",
+               hot_lists=int(real.sum()), member_entries=entries, member_pairs=pairs, all_token_pairs=all_pairs)
+    # fp32 queries x int8 codes as three bf16 tensor-core terms (as K5);
+    # bytes: each hot list's codes once, qs, hot_ids, the members, and the
+    # outputs the function writes (member entries, or every token's)
+    common = rows * D + T * D * 4 + H * 4
+    res["bound_ms"], res["bound_by"] = bound(3 * 2.0 * D * pairs, common + T * H + entries * TOPR * 8,
+                                             PEAK_BF16_FLOPS)
+    res["all_tokens_bound_ms"], res["all_tokens_bound_by"] = bound(
+        3 * 2.0 * D * all_pairs, common + int(real.sum()) * T * TOPR * 8, PEAK_BF16_FLOPS)
+    log(f"[{tag}] K7 ({what}): {res['hot_lists']} hot lists of {H}, {rows} rows, {entries} member entries; "
+        f"(row, token) pairs: members {pairs}, every token {all_pairs}")
+    log(f"[{tag}] K7 ({what}): route mma, members {res['ms']:.4f} ms (its schedule and work list alone "
+        f"{res['schedule_ms']:.4f} ms); route mma, every token {res['all_tokens_ms']:.4f} ms; route staged "
+        f"(first design) {res['staged_ms']:.4f} ms ({res['staged_ms'] / res['ms']:.2f}x); plain "
+        f"{res['plain_ms']:.3f} ms; bound, member pairs {res['bound_ms']:.4f} ms ({res['bound_by']}), every "
+        f"token {res['all_tokens_bound_ms']:.4f} ms ({res['all_tokens_bound_by']}); no single PyTorch call "
+        f"computes it [{label}]")
+    return res
+
+
+def k7_no_hot(tag, plan, offsets, codes, label):
+    """K7 on a served plan with no hot list (every entry -1): both routes
+    timed; neither writes anything."""
+    from colbert_tpu_torch.ops import sq_probe_batched as sp
+
+    if int((plan.hot_ids >= 0).sum()):
+        raise AssertionError(f"{tag}: the served plan has hot lists; expected none at nprobe {NPROBE}")
+    args = (plan.hot_ids, offsets, plan.qs, codes)
+    res = {"ms": time_ms(lambda: sp.sq_hot_list_scan(*args, r=TOPR, members=plan.hot_members)),
+           "staged_ms": time_ms(lambda: sp._launch(*args, TOPR, hot=True, route="staged"))}
+    log(f"[{tag}] K7 on the served plan ({plan.hot_ids.numel()} hot entries, all -1): route mma "
+        f"{res['ms']:.4f} ms, route staged {res['staged_ms']:.4f} ms (+{res['ms'] - res['staged_ms']:.4f}) [{label}]")
+    return res
 
 
 def k6_routes() -> dict:
@@ -1212,27 +1337,17 @@ def k6_both_routes(tag, queries, plan, offsets, codes, label):
     mma = lambda: sp.sq_batch_list_scan(qidx, offsets, qs, codes, r=TOPR)
     staged = lambda: sp._launch(qidx, offsets, qs, codes, TOPR, hot=False, route="staged")
     plain = lambda: sp.sq_batch_list_scan_ref(qidx, offsets, qs, codes, r=TOPR)
-    # The plain version's top-(r+1): a kernel's r-th row may be the plain
-    # version's (r+1)-th where the two tie.  Route "mma" sums on the tensor
-    # cores in another order than the plain version's fp32 products, so two
-    # different rows may round to one fp32 score on one side only: an exact
-    # tie of the plain version counts as a near tie where the rows' exact
-    # sums (fp64; bf16 x int8 products) differ.
-    ws, wr = (t[filled] for t in sp.sq_batch_list_scan_ref(qidx, offsets, qs, codes, r=TOPR + 1))
-    fin = torch.isfinite(ws)
-    tie = torch.zeros_like(fin)
-    same = (ws[:, 1:] == ws[:, :-1]) & fin[:, 1:]
-    tie[:, 1:] |= same
-    tie[:, :-1] |= same
-    exact = ws.double()
-    u, k, p = torch.nonzero(tie, as_tuple=True)
-    tok = qidx[filled][u, p].long()
-    exact[u, k, p] = (codes[wr[u, k, p].long()].double() * qs[tok].to(torch.bfloat16).double()).sum(dim=1)
+    # the plain version's top-(r+1): a kernel's r-th row may be its (r+1)-th where the two tie
+    # (route "mma" sums on the tensor cores: exact ties as in exact_at_ties;
+    # the products are bf16 queries x int8 codes)
+    flat = lambda t: t[filled].transpose(1, 2).reshape(-1, t.shape[1])
+    ws, wr = (flat(t) for t in sp.sq_batch_list_scan_ref(qidx, offsets, qs, codes, r=TOPR + 1))
+    exact, n_ties = exact_at_ties(ws, wr, codes, qs.to(torch.bfloat16), qidx[filled].reshape(-1).long())
 
     def check(name, got):
-        gs, gr = (torch.cat([t[filled], w[:, TOPR:]], dim=1) for t, w in zip(got, (ws, wr)))
-        return ranked_units(tag, f"{name} ({queries}; {len(u)} entries in exact ties of the plain version)",
-                            (gs, gr), (ws, wr), exact)
+        gs, gr = (torch.cat([flat(t), w[:, TOPR:]], dim=1) for t, w in zip(got, (ws, wr)))
+        return ranked_rows(tag, f"{name} ({queries}; {n_ties} entries in exact ties of the plain version)",
+                           (gs, gr), (ws, wr), exact)
 
     before = k6_routes()
     got = mma()
@@ -1473,7 +1588,8 @@ def phase_codecs_cli(device, workdir: Path, cfg, common, corpus_path, eval_path,
     eval_batches = -(-n_eval // B)
     want = {"K8": 2 + eval_batches, "K10": 1, "K4": 3 + eval_batches, "K5": 0, "K6": 0, "K7": 0,
             "K4/K5 wgmma route": 3 + eval_batches, "K4/K5 staged route": 0,
-            "K6 mma route": 0, "K6 staged route": 0, "K8 onehot route": 2 + eval_batches, "K8 lookup route": 0}
+            "K6 mma route": 0, "K6 staged route": 0, "K7 mma route": 0, "K7 staged route": 0,
+            "K8 onehot route": 2 + eval_batches, "K8 lookup route": 0}
     log(f"[phase6c] launches in the pq4 / token-probe serving-path run: {launches} (expected {want}: "
         f"2 socket requests and {eval_batches} evaluate --remote batches on the pq4 index, one "
         f"token-probe batch on the sq index)")
@@ -1810,7 +1926,7 @@ def main() -> int:
     worst, times, share, routes = phase_kernels(device)
     train_kernels = phase_train_kernels(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        serve_launches, _, ann_launches, codec_launches = phase_slice(device, Path(tmp), label)
+        serve_launches, _, ann_launches, codec_launches, k7_deep = phase_slice(device, Path(tmp), label)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         train_launches, _ = phase_train(device, Path(tmp), label)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ann_") as tmp:
@@ -1866,6 +1982,20 @@ def main() -> int:
                 "work_list_ms": k["work_list_ms"],
                 "two_topic": {key: two[key] for key in ("ms", "staged_ms", "max_abs_err", "staged_max_abs_err",
                                                          "plain_ms", "bound_ms", "histogram")}})
+        if fn == "K7":
+            kernels[-1].update({
+                "kernel_route": k["kernel_route"], "route_launches": {
+                    r: ann_launches[f"K7 {r} route"] for r in ("mma", "staged")},
+                "launches_note": "one per ANN batch; only batches whose lists overflow their slots "
+                                 "(the nprobe-1,024 request here) have hot lists",
+                **{key: k[key] for key in ("staged_ms", "staged_max_abs_err", "all_tokens_ms",
+                                           "all_tokens_max_abs_err", "schedule_ms", "all_tokens_bound_ms",
+                                           "hot_lists", "member_entries", "member_pairs", "all_token_pairs",
+                                           "served_no_hot")},
+                "deep_plan": {key: k7_deep[key] for key in (
+                    "ms", "staged_ms", "all_tokens_ms", "schedule_ms", "plain_ms", "max_abs_err",
+                    "staged_max_abs_err", "bound_ms", "all_tokens_bound_ms", "hot_lists", "member_pairs",
+                    "all_token_pairs")}})
         if fn in ("K4", "K5"):
             lr = k["low_reuse"]
             kernels[-1].update({

@@ -35,7 +35,7 @@
 //     top-r in row order (`beats`: a row beats an equal score held from an
 //     earlier block).  For K6 the grid is every dense slot, most of them
 //     empty.
-//   "mma" (K6): a work list of the filled slots only, most 64-row stages
+//   "mma" (K6 and K7): a work list of the filled slots only, most 64-row stages
 //     first (work_count_kernel, work_place_kernel: one thread a list, no
 //     host sync), then a persistent grid (slot_scan_mma_kernel) whose
 //     blocks take items through a counter zeroed on the launching stream.
@@ -47,6 +47,20 @@
 //     token's thread merges its column into its top-r 8 rows at a time,
 //     with the order above packed into one 64-bit key (row_key) and
 //     branch-free sorting networks.
+//     K7 on this route scans member tokens only: its schedule
+//     (hot_member_kernel, one block a hot list, no host sync) lays each hot
+//     list's member tokens (those that probe it; every token when no
+//     membership is given), ascending, into slots of 128, slot g*H + h for
+//     the g-th 128 of hot list h; a work list in K6's order
+//     (hot_place_kernel, one block, no memset: with no hot list, the served
+//     case, the route costs three launches that do nothing) and the same
+//     scan then take those slots, the list of slot s being hot_ids[s % H].  The fp32 query
+//     goes in as three bf16 terms (hi, mid, lo: their sum is qs exactly for
+//     normal floats, and an int8 code widens exactly to bf16), three
+//     mma.sync a (k-step, n-tile) with fp32 accumulation (hi into one
+//     accumulator, mid and lo into another, added at the end), so the
+//     scores differ from an fp32 FMA chain only in summation order.  Results go to
+//     (H, r, T) at [h, :, token]; non-member entries stay unwritten.
 //
 // What bounds them: not bytes (K6 reads ~20 MB, 0.019 ms at 3.35 TB/s) and
 // not the products (0.11 GMAC a batch on the tensor cores) but the top-r
@@ -54,6 +68,10 @@
 // merged by the token's thread.  In "staged" a warp runs the insertion
 // whenever one of its 32 tokens needs it, nearly every row, as a chain of
 // dependent compares; "mma" merges without branches, with short chains.
+// K7 "staged" scores every row of a hot list against every token, though
+// only the tokens that probe the list are read back: route "mma" selects
+// over the member pairs alone (at the smoke run's forced shape ~5 M of
+// 36.9 M).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -228,12 +246,13 @@ constexpr int SC_STRIDE = THREADS + 8;  // floats a score-tile row (padded again
 constexpr int WL_THREADS = 128;         // work-list kernels: one thread a list
 constexpr int WL_BUCKETS = 16;          // work-list order: 64-row stages a list, longer lists share the last
 
-template <int D>
+template <int D, int TERMS>
 struct MmaSmem {
   static constexpr int A_STRIDE = D + 16;  // bytes a staged code row (padded, 16-byte aligned)
   static constexpr int B_STRIDE = D + 16;  // bf16 a staged token row (padded, 16-byte aligned)
+  static constexpr int B_TERM = THREADS * B_STRIDE;  // bf16 a query term's tile
   static constexpr int SC_BYTES = MMA_ROWS * SC_STRIDE * 4;
-  static constexpr int B_BYTES = THREADS * B_STRIDE * 2;
+  static constexpr int B_BYTES = TERMS * B_TERM * 2;
   static constexpr int A_BYTES = 2 * MMA_ROWS * A_STRIDE;
   static constexpr int TOTAL = SC_BYTES + B_BYTES + A_BYTES;
 };
@@ -301,17 +320,99 @@ work_place_kernel(const int* __restrict__ qidx, const int* __restrict__ offsets,
   }
 }
 
-template <int D, int R>
+// K7's schedule on route "mma": block h lays out hot list h's member tokens
+// (members[t, h] of the (T, H) bool mask, or every token when members is
+// null), ascending, into its slots s = g*H + h of qidx (G*H, 128), G =
+// ceil(T / 128), -1 past the last, and writes its count of filled slots to
+// n_slots[h].  A -1 hot entry writes 0 and returns: its slots are never
+// read.  Plain version: ops/sq_probe_batched.py::hot_member_schedule.
+__global__ void __launch_bounds__(THREADS)
+hot_member_kernel(const int* __restrict__ hot_ids, const uint8_t* __restrict__ members, int H, int T,
+                  int* __restrict__ qidx, int* __restrict__ n_slots) {
+  __shared__ int warp_n[THREADS / 32];
+  const int h = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (hot_ids[h] < 0) {  // uniform across the block
+    if (tid == 0) n_slots[h] = 0;
+    return;
+  }
+  const int G = (T + THREADS - 1) / THREADS;
+  auto at = [&](int rank) { return (int64_t(rank / THREADS) * H + h) * THREADS + rank % THREADS; };
+  int base = 0;  // members before this tile of tokens
+  for (int t0 = 0; t0 < T; t0 += THREADS) {
+    const int t = t0 + tid;
+    const bool m = t < T && (members == nullptr || members[int64_t(t) * H + h]);
+    const unsigned ballot = __ballot_sync(0xffffffffu, m);
+    if (lane == 0) warp_n[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < THREADS / 32; ++w) {
+      before += w < warp ? warp_n[w] : 0;
+      total += warp_n[w];
+    }
+    if (m) qidx[at(base + before + __popc(ballot & ((1u << lane) - 1u)))] = t;
+    base += total;
+    __syncthreads();  // warp_n is rewritten for the next tile
+  }
+  for (int rank = base + tid; rank < G * THREADS; rank += THREADS) qidx[at(rank)] = -1;
+  if (tid == 0) n_slots[h] = (base + THREADS - 1) / THREADS;
+}
+
+constexpr int HOT_PLACE_THREADS = 256;
+
+// K7's work list, in the order of K6's (most 64-row stages first, the same
+// buckets): one block over the H hot entries, from their counts of filled
+// slots (hot entry h's are g*H + h, g < n_slots[h]).  It writes the item
+// count and zeroes the scan's item counter, so the route needs no memset.
+// Order within a bucket follows its atomics.  Plain version:
+// ops/sq_probe_batched.py::slot_work_list with lmap = hot_ids.
+__global__ void __launch_bounds__(HOT_PLACE_THREADS)
+hot_place_kernel(const int* __restrict__ hot_ids, const int* __restrict__ offsets,
+                 const int* __restrict__ n_slots, int H, int S, int* __restrict__ work) {
+  __shared__ int tot[WL_BUCKETS], cursor[WL_BUCKETS];
+  const int tid = threadIdx.x;
+  if (tid < WL_BUCKETS) tot[tid] = 0;
+  __syncthreads();
+  for (int h = tid; h < H; h += HOT_PLACE_THREADS) {
+    const int n = n_slots[h];
+    if (n) atomicAdd(&tot[list_bucket(offsets, hot_ids[h])], n);
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int run = 0;
+    for (int b = WL_BUCKETS - 1; b >= 0; --b) {
+      cursor[b] = run;
+      run += tot[b];
+    }
+    work[S] = run;                       // n_items
+    work[S + 1 + 2 * WL_BUCKETS] = 0;    // the scan's next item
+  }
+  __syncthreads();
+  for (int h = tid; h < H; h += HOT_PLACE_THREADS) {
+    const int n = n_slots[h];
+    if (n) {
+      const int at = atomicAdd(&cursor[list_bucket(offsets, hot_ids[h])], n);
+      for (int g = 0; g < n; ++g) work[at + g] = g * H + h;
+    }
+  }
+}
+
+// K6 (HOT false, TERMS 1): slot s scans list s % K for its tokens, qs
+// rounded to bf16, output (S, r, tpl).  K7 (HOT true, TERMS 3): slot s
+// scans list lmap[s % K] (K = H hot entries), qs as three bf16 terms, output
+// (H, r, T) at [s % K, :, token] for member tokens only.
+template <int D, int R, int TERMS, bool HOT>
 __global__ void __launch_bounds__(THREADS)
 slot_scan_mma_kernel(const int* __restrict__ qidx,       // (S, tpl)
                      const int* __restrict__ items,      // the filled slots, most stages first
                      const int* __restrict__ n_items,    // how many
                      int* __restrict__ next_item,        // the next item to take, 0 at launch
-                     const int* __restrict__ offsets,    // (K+1,)
-                     const float* __restrict__ qs,       // (T, D) fp32, rounded to bf16 here
+                     const int* __restrict__ offsets,    // (K_lists+1,)
+                     const int* __restrict__ lmap,       // K7: hot_ids (K,)
+                     const float* __restrict__ qs,       // (T, D) fp32, split into bf16 terms here
                      const int8_t* __restrict__ codes,   // (N, D)
-                     float* __restrict__ out_s, int* __restrict__ out_r, int K, int tpl, int r) {
-  using SM = MmaSmem<D>;
+                     float* __restrict__ out_s, int* __restrict__ out_r, int K, int tpl, int r, int T) {
+  using SM = MmaSmem<D, TERMS>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sc = reinterpret_cast<float*>(smem);
   __nv_bfloat16* bsh = reinterpret_cast<__nv_bfloat16*>(smem + SM::SC_BYTES);
@@ -331,7 +432,7 @@ slot_scan_mma_kernel(const int* __restrict__ qidx,       // (S, tpl)
     __syncthreads();
     if (item_sh >= count) break;  // uniform across the block
     const int64_t s = items[item_sh];
-    const int list = int(s % K);
+    const int list = HOT ? lmap[s % K] : int(s % K);
     const int t = tid < tpl ? qidx[s * tpl + tid] : -1;
     tok_sh[tid] = t;
     if (t >= 0) atomicMax(&last_sh, tid);
@@ -357,15 +458,25 @@ slot_scan_mma_kernel(const int* __restrict__ qidx,       // (S, tpl)
       hopper::cp_async_commit();
     };
     if (n_chunks > 0) stage(0);
-    // the slot's tokens, rounded to bf16: the B operand, token-major (n x k), zero where empty
+    // the slot's tokens: the B operand, token-major (n x k), zero where
+    // empty; term j is the bf16 rounding of what terms 0..j-1 leave of qs
+    // (each remainder exact in fp32), so one term rounds qs to bf16 and
+    // three sum to qs exactly
     for (int i = tid; i < n_tiles * 8 * QVEC; i += THREADS) {
       const int p = i / QVEC, v = i % QVEC;
       const int tk = tok_sh[p];
       float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (tk >= 0) x = __ldg(reinterpret_cast<const float4*>(qs + int64_t(tk) * D) + v);
-      const __nv_bfloat162 lo2 = __floats2bfloat162_rn(x.x, x.y), hi2 = __floats2bfloat162_rn(x.z, x.w);
-      *reinterpret_cast<uint2*>(bsh + p * SM::B_STRIDE + v * 4) =
-          make_uint2(*reinterpret_cast<const uint32_t*>(&lo2), *reinterpret_cast<const uint32_t*>(&hi2));
+#pragma unroll
+      for (int j = 0; j < TERMS; ++j) {
+        const __nv_bfloat162 lo2 = __floats2bfloat162_rn(x.x, x.y), hi2 = __floats2bfloat162_rn(x.z, x.w);
+        *reinterpret_cast<uint2*>(bsh + j * SM::B_TERM + p * SM::B_STRIDE + v * 4) =
+            make_uint2(*reinterpret_cast<const uint32_t*>(&lo2), *reinterpret_cast<const uint32_t*>(&hi2));
+        if (j + 1 < TERMS) {
+          const float2 a = __bfloat1622float2(lo2), b = __bfloat1622float2(hi2);
+          x = make_float4(x.x - a.x, x.y - a.y, x.z - b.x, x.w - b.y);
+        }
+      }
     }
 
     for (int c = 0; c < n_chunks; ++c) {
@@ -393,12 +504,18 @@ slot_scan_mma_kernel(const int* __restrict__ qidx,       // (S, tpl)
         float* o = sc + (warp * 16 + g) * SC_STRIDE + 2 * q;
         for (int nt = 0; nt < n_tiles; ++nt) {
           const __nv_bfloat16* bb = bsh + (nt * 8 + g) * SM::B_STRIDE + 4 * q;
-          float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          // the small terms sum apart (e), so that the tensor cores' sums
+          // of the large ones (d) do not truncate them
+          float d[4] = {0.0f, 0.0f, 0.0f, 0.0f}, e[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-          for (int ks = 0; ks < AVEC; ++ks) {
-            const uint2 b = *reinterpret_cast<const uint2*>(bb + ks * 16);
-            hopper::mma_bf16_16816(d, a[ks], b.x, b.y);
-          }
+          for (int ks = 0; ks < AVEC; ++ks)
+#pragma unroll
+            for (int j = 0; j < TERMS; ++j) {
+              const uint2 b = *reinterpret_cast<const uint2*>(bb + j * SM::B_TERM + ks * 16);
+              hopper::mma_bf16_16816(j ? e : d, a[ks], b.x, b.y);
+            }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) d[i] += e[i];
           *reinterpret_cast<float2*>(o + nt * 8) = make_float2(d[0], d[1]);
           *reinterpret_cast<float2*>(o + 8 * SC_STRIDE + nt * 8) = make_float2(d[2], d[3]);
         }
@@ -407,13 +524,14 @@ slot_scan_mma_kernel(const int* __restrict__ qidx,       // (S, tpl)
       if (t >= 0) topr::walk_stage<R, SC_STRIDE>(h, sc + tid, r0 - astart, n);
     }
 
-    if (tid < tpl) {
-      const int64_t o = s * r * tpl + tid;
+    if (HOT ? t >= 0 : tid < tpl) {
+      const int64_t o = HOT ? (s % K) * r * T + t : s * r * tpl + tid;
+      const int64_t step = HOT ? T : tpl;
 #pragma unroll
       for (int i = 0; i < R; ++i)
         if (i < r) {
-          out_s[o + int64_t(i) * tpl] = topr::key_score(h[i]);
-          out_r[o + int64_t(i) * tpl] = h[i] ? astart + topr::key_rel(h[i]) : -1;
+          out_s[o + i * step] = topr::key_score(h[i]);
+          out_r[o + i * step] = h[i] ? astart + topr::key_rel(h[i]) : -1;
         }
     }
     __syncthreads();  // every thread has read this item's shared state
@@ -430,11 +548,26 @@ cudaError_t launch_work_list(const int* qidx, const int* offsets, int* work, int
   return cudaGetLastError();
 }
 
-template <int D, int R>
-cudaError_t launch_mma(const int* qidx, int* work, const int* offsets, const float* qs, const int8_t* codes,
-                       float* out_s, int* out_r, int S, int K, int tpl, int r, cudaStream_t stream) {
-  auto kernel = slot_scan_mma_kernel<D, R>;
-  constexpr int smem = MmaSmem<D>::TOTAL;
+// K7's schedule and work list: scratch holds qidx (G*H, 128), the work
+// buffer of its G*H slots, then n_slots (H,).  Two launches, no memset.
+cudaError_t launch_hot_schedule(const int* hot_ids, const int* offsets, const uint8_t* members, int* scratch,
+                                int H, int T, cudaStream_t stream) {
+  const int S = (T + THREADS - 1) / THREADS * H;
+  int* work = scratch + int64_t(S) * THREADS;
+  int* n_slots = work + S + 2 + 2 * WL_BUCKETS;
+  hot_member_kernel<<<H, THREADS, 0, stream>>>(hot_ids, members, H, T, scratch, n_slots);
+  hot_place_kernel<<<1, HOT_PLACE_THREADS, 0, stream>>>(hot_ids, offsets, n_slots, H, S, work);
+  return cudaGetLastError();
+}
+
+// The scan over a built work list (work: items[S], n_items, totals, cursors,
+// the item counter).
+template <int D, int R, int TERMS, bool HOT>
+cudaError_t launch_scan(const int* qidx, int* work, const int* offsets, const int* lmap, const float* qs,
+                        const int8_t* codes, float* out_s, int* out_r, int S, int K, int tpl, int r, int T,
+                        cudaStream_t stream) {
+  auto kernel = slot_scan_mma_kernel<D, R, TERMS, HOT>;
+  constexpr int smem = MmaSmem<D, TERMS>::TOTAL;
   // the blocks that fit on the card at once, found once a device (host calls, no sync)
   constexpr int MAX_DEVICES = 64;
   static int resident[MAX_DEVICES] = {0};
@@ -449,12 +582,19 @@ cudaError_t launch_mma(const int* qidx, int* work, const int* offsets, const flo
     if (err != cudaSuccess) return err;
     resident[dev] = (per_sm > 0 ? per_sm : 1) * sms;
   }
-  err = launch_work_list(qidx, offsets, work, S, K, tpl, stream);
-  if (err != cudaSuccess) return err;
   const int grid = S < resident[dev] ? S : resident[dev];
-  kernel<<<grid, THREADS, smem, stream>>>(qidx, work, work + S, work + S + 1 + 2 * WL_BUCKETS, offsets, qs, codes,
-                                          out_s, out_r, K, tpl, r);
+  kernel<<<grid, THREADS, smem, stream>>>(qidx, work, work + S, work + S + 1 + 2 * WL_BUCKETS, offsets, lmap, qs,
+                                          codes, out_s, out_r, K, tpl, r, T);
   return cudaGetLastError();
+}
+
+template <int D, int R>
+cudaError_t launch_mma(const int* qidx, int* work, const int* offsets, const float* qs, const int8_t* codes,
+                       float* out_s, int* out_r, int S, int K, int tpl, int r, cudaStream_t stream) {
+  cudaError_t err = launch_work_list(qidx, offsets, work, S, K, tpl, stream);
+  if (err != cudaSuccess) return err;
+  return launch_scan<D, R, 1, false>(qidx, work, offsets, nullptr, qs, codes, out_s, out_r, S, K, tpl, r, 0,
+                                     stream);
 }
 
 template <int D>
@@ -463,6 +603,26 @@ cudaError_t launch_mma_r(const int* qidx, int* work, const int* offsets, const f
   if (r <= 2) return launch_mma<D, 2>(qidx, work, offsets, qs, codes, out_s, out_r, S, K, tpl, r, stream);
   if (r <= 8) return launch_mma<D, 8>(qidx, work, offsets, qs, codes, out_s, out_r, S, K, tpl, r, stream);
   return launch_mma<D, 16>(qidx, work, offsets, qs, codes, out_s, out_r, S, K, tpl, r, stream);
+}
+
+template <int D, int R>
+cudaError_t launch_hot_mma(const int* hot_ids, const uint8_t* members, int* scratch, const int* offsets,
+                           const float* qs, const int8_t* codes, float* out_s, int* out_r, int H, int T, int r,
+                           cudaStream_t stream) {
+  cudaError_t err = launch_hot_schedule(hot_ids, offsets, members, scratch, H, T, stream);
+  if (err != cudaSuccess) return err;
+  const int S = (T + THREADS - 1) / THREADS * H;
+  return launch_scan<D, R, 3, true>(scratch, scratch + int64_t(S) * THREADS, offsets, hot_ids, qs, codes, out_s,
+                                    out_r, S, H, THREADS, r, T, stream);
+}
+
+template <int D>
+cudaError_t launch_hot_mma_r(const int* hot_ids, const uint8_t* members, int* scratch, const int* offsets,
+                             const float* qs, const int8_t* codes, float* out_s, int* out_r, int H, int T, int r,
+                             cudaStream_t stream) {
+  if (r <= 2) return launch_hot_mma<D, 2>(hot_ids, members, scratch, offsets, qs, codes, out_s, out_r, H, T, r, stream);
+  if (r <= 8) return launch_hot_mma<D, 8>(hot_ids, members, scratch, offsets, qs, codes, out_s, out_r, H, T, r, stream);
+  return launch_hot_mma<D, 16>(hot_ids, members, scratch, offsets, qs, codes, out_s, out_r, H, T, r, stream);
 }
 
 }  // namespace
@@ -537,6 +697,55 @@ int sq_slot_scan_mma_launch(const void* qidx, void* work, const void* offsets, c
     case 32: return int(launch_mma_r<32>(qi, w, of, q, c, os, orow, S, K, tpl, r, st));
     case 64: return int(launch_mma_r<64>(qi, w, of, q, c, os, orow, S, K, tpl, r, st));
     case 128: return int(launch_mma_r<128>(qi, w, of, q, c, os, orow, S, K, tpl, r, st));
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// Words of K7's route "mma" scratch for H hot entries and T tokens: qidx
+// (G*H, 128), G = ceil(T / 128), the work buffer of its G*H slots, then
+// each hot entry's count of filled slots.
+int sq_hot_scratch_words(int H, int T) {
+  const int S = (T + THREADS - 1) / THREADS * H;
+  return S * THREADS + sq_slot_work_words(S) + H;
+}
+
+// K7's schedule and work list alone (the first launches of its route
+// "mma"): members (T, H) bool or null (every token); scratch
+// (sq_hot_scratch_words(H, T),) int32.  qidx rows of a -1 hot entry are
+// left unwritten.
+int sq_hot_schedule_launch(const void* hot_ids, const void* members, const void* offsets, void* scratch, int H,
+                           int T, void* stream) {
+  if (H < 1 || T < 1 || hot_ids == nullptr || scratch == nullptr) return int(cudaErrorInvalidValue);
+  return int(launch_hot_schedule(static_cast<const int*>(hot_ids), static_cast<const int*>(offsets),
+                                 static_cast<const uint8_t*>(members), static_cast<int*>(scratch), H, T,
+                                 static_cast<cudaStream_t>(stream)));
+}
+
+// K7 on route "mma": H hot entries hot_ids (H,) (-1 none), members (T, H)
+// bool or null (every token), scratch (sq_hot_scratch_words(H, T),) int32,
+// qs (T, D) fp32 (three bf16 terms in the kernel), out (H, r, T), written
+// at member entries of real hot lists only.  On `stream`: two launches for
+// the schedule and work list, then the scan.  Returns a cudaError_t: 0 when
+// every launch was accepted.
+int sq_hot_scan_mma_launch(const void* hot_ids, const void* members, void* scratch, const void* offsets,
+                           const void* qs, const void* codes, void* out_s, void* out_r, int H, int T, int D, int r,
+                           void* stream) {
+  if (H < 1 || T < 1 || r < 1 || r > 16 || hot_ids == nullptr || scratch == nullptr)
+    return int(cudaErrorInvalidValue);
+  const int* hi = static_cast<const int*>(hot_ids);
+  const uint8_t* m = static_cast<const uint8_t*>(members);
+  int* w = static_cast<int*>(scratch);
+  const int* of = static_cast<const int*>(offsets);
+  const float* q = static_cast<const float*>(qs);
+  const int8_t* c = static_cast<const int8_t*>(codes);
+  float* os = static_cast<float*>(out_s);
+  int* orow = static_cast<int*>(out_r);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return int(launch_hot_mma_r<16>(hi, m, w, of, q, c, os, orow, H, T, r, st));
+    case 32: return int(launch_hot_mma_r<32>(hi, m, w, of, q, c, os, orow, H, T, r, st));
+    case 64: return int(launch_hot_mma_r<64>(hi, m, w, of, q, c, os, orow, H, T, r, st));
+    case 128: return int(launch_hot_mma_r<128>(hi, m, w, of, q, c, os, orow, H, T, r, st));
     default: return int(cudaErrorInvalidValue);
   }
 }

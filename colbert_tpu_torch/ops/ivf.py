@@ -89,6 +89,7 @@ class ProbePlan(NamedTuple):
     hot_ids: Optional[torch.Tensor]  # (hot_cap,) K7's lists, -1 none; None when hot_cap == 0
     hot_pos: Optional[torch.Tensor]  # (K,) position of a list in hot_ids, -1 cold
     qs: torch.Tensor           # (T, sq_dim) projected queries, fp32
+    hot_members: Optional[torch.Tensor] = None  # (T, hot_cap) bool: token t probes hot list h
 
 
 def sq_probe_plan(q_tokens: torch.Tensor, coarse_centroids: torch.Tensor, proj: torch.Tensor,
@@ -98,14 +99,16 @@ def sq_probe_plan(q_tokens: torch.Tensor, coarse_centroids: torch.Tensor, proj: 
 
     Membership is ``coarse >= thr`` over an exact coarse top-``nprobe``.
     The ``hot_cap`` most-probed lists with more members than their
-    ``groups * tpl`` slots hold go to K7; the rest fill the slots."""
+    ``groups * tpl`` slots hold go to K7, with their member tokens (a
+    superset of the pairs the postprocess reads: membership counts a tie
+    at a token's threshold); the rest fill the slots."""
     K = coarse_centroids.shape[0]
     hot_cap = min(hot_cap, K)
     dev = q_tokens.device
     coarse = q_tokens.float() @ coarse_centroids.float().T                 # (T, K)
     vals, lists = torch.topk(coarse, nprobe, dim=1)
     member = coarse >= vals[:, -1:]
-    hot_ids = hot_pos = None
+    hot_ids = hot_pos = hot_members = None
     if hot_cap > 0:
         hot_vals, hot_raw = torch.sort(member.sum(dim=0), descending=True, stable=True)
         hot_ids = torch.where(hot_vals[:hot_cap] > groups * tpl, hot_raw[:hot_cap], -1).int()
@@ -113,9 +116,10 @@ def sq_probe_plan(q_tokens: torch.Tensor, coarse_centroids: torch.Tensor, proj: 
         hot_pos.scatter_(0, torch.where(hot_ids >= 0, hot_ids, K).long(),
                          torch.arange(hot_cap, dtype=torch.int32, device=dev))
         hot_pos = hot_pos[:K]
+        hot_members = member[:, hot_ids.clamp(min=0).long()]  # a -1 entry's column is never read
         member = member & (hot_pos < 0)[None, :]  # the slots handle the cold tail
     sched, pair_valid = build_slot_schedule_dense(member, lists, tpl=tpl, groups=groups)
-    return ProbePlan(lists, sched, pair_valid, hot_ids, hot_pos, sq_query(q_tokens, proj, scales))
+    return ProbePlan(lists, sched, pair_valid, hot_ids, hot_pos, sq_query(q_tokens, proj, scales), hot_members)
 
 
 def ivf_probe_sq_batched(
@@ -136,15 +140,16 @@ def ivf_probe_sq_batched(
     """List-major sq probe (``colbert_tpu/ops/ivf.py:232``): each token's
     top-``depth`` (scores (T, depth) fp32, CSR rows (T, depth) int32, -inf /
     -1 padded) over the top-``r`` rows of each of its ``nprobe`` lists,
-    from K6 (slots) and K7 (hot lists); pairs past a cold list's slots are
-    dropped.  The final selection is an exact top-k: the JAX package takes
+    from K6 (slots) and K7 (hot lists, over their member tokens); pairs
+    past a cold list's slots are dropped.  The final selection is an exact top-k: the JAX package takes
     ``approx_max_k`` on a TPU and ``top_k`` on the CPU."""
     plan = sq_probe_plan(q_tokens, coarse_centroids, proj, scales, nprobe=nprobe, tpl=tpl,
                          hot_cap=hot_cap, groups=groups)
     out_s, out_r = sq_batch_list_scan(plan.sched.qidx, offsets, plan.qs, codes, r=r)
     hot = None
     if plan.hot_ids is not None:
-        hot = (plan.hot_pos, *sq_hot_list_scan(plan.hot_ids, offsets, plan.qs, codes, r=r))
+        hot = (plan.hot_pos, *sq_hot_list_scan(plan.hot_ids, offsets, plan.qs, codes, r=r,
+                                               members=plan.hot_members))
     return probe_batched_postprocess(plan.sched, out_s, out_r, plan.lists, depth, plan.pair_valid, hot=hot)
 
 

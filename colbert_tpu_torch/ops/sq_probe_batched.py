@@ -9,24 +9,28 @@ Counterpart of ``colbert_tpu/ops/sq_probe_batched.py``:
 2. K6 (:func:`sq_batch_list_scan`) scans every filled slot's list once
    against the slot's tokens and keeps a top-``r`` of (score, CSR row) per
    token; K7 (:func:`sq_hot_list_scan`) scans the hottest lists -- those
-   with more members than a list's slots hold -- against every token.
+   with more members than a list's slots hold -- against their member
+   tokens (every token, as the TPU kernel, when no membership is given).
 3. :func:`probe_batched_postprocess` maps the results back to (token,
    probed list) pairs and takes each token's top-``depth`` over its
    ``nprobe * r`` entries.
 
-Both kernels live in ``csrc/sq_probe.cu``.  K6 has two routes, chosen in
-:func:`scan_plan` and counted in :data:`route_launches`:
+Both kernels live in ``csrc/sq_probe.cu``, each with two routes, counted
+in :data:`route_launches` (K6) and :data:`hot_route_launches` (K7):
 
-* "mma", every shape K6 takes: a work list of the filled slots, most
-  work first, built on the device by a kernel of its own (plain version:
-  :func:`slot_work_list`; no host sync); a persistent grid walks it,
-  products on the tensor cores (bf16 query tokens x int8 codes widened
-  exactly to bf16, ``mma.sync`` with fp32 accumulation), each token's
-  top-``r`` taken from the score tile;
-* "staged", K6's first design (one block per dense slot, one thread per
-  token, fp32 FMA chains), reached only when asked for
-  (``_launch(..., route="staged")``), so that a run can check and time both
-  on one input.  K7 always runs this kernel.
+* "mma", every shape each takes (:func:`scan_plan`): a work list of the
+  filled slots, most work first, built on the device by kernels of its own
+  (plain version: :func:`slot_work_list`; no host sync); a persistent grid
+  walks it, products on the tensor cores (int8 codes widened exactly to
+  bf16, ``mma.sync`` with fp32 accumulation), each token's top-``r`` taken
+  from the score tile.  K6's B operand is its tokens rounded to bf16.
+  K7's slots are each hot list's member tokens, 128 a slot, laid out on
+  the device (plain version: :func:`hot_member_schedule`), and its B
+  operand the fp32 query as three bf16 terms (:func:`query_terms`);
+* "staged", the first design of both (one block per dense slot or per
+  (hot list, 128 tokens), one thread per token, fp32 FMA chains; K7 over
+  every token), reached only when asked for (``_launch(..., route=
+  "staged")``), so that a run can check and time both on one input.
 
 The TPU kernels' 128-lane packing, block-diagonal query bands and 32-row
 aligned DMA windows are not carried over: a kernel reads exactly its
@@ -105,26 +109,68 @@ WORK_BUCKETS = 16     # stage counts the work list tells apart (longer lists sha
 WORK_EXTRA = 2 + 2 * WORK_BUCKETS  # work-buffer words past the S items (csrc: sq_slot_work_words)
 
 
-def slot_work_list(qidx: torch.Tensor, offsets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K6's work list on route "mma" (the CUDA source
-    builds it on the device): (items (S,) int32, count () int32).
-    ``items[:count]`` are the filled slots (``qidx[s, 0] >= 0``, a slot on
-    an empty list included), the most 64-row stages of work first (stage
-    counts above 15 tie), equal counts in slot order here (the kernel's
-    order within equal counts follows its atomics); the empty slots
-    follow."""
-    S, K = qidx.shape[0], offsets.shape[0] - 1
+def slot_work_list(qidx: torch.Tensor, offsets: torch.Tensor, lmap: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of route "mma"'s work list (the CUDA source builds it
+    on the device): (items (S,) int32, count () int32).  Slot s scans list
+    ``s % K`` (K6), or ``lmap[s % H]`` (K7: ``lmap`` = hot_ids (H,), a -1
+    entry's slots never filled).  ``items[:count]`` are the filled slots
+    (``qidx[s, 0] >= 0``, a slot on an empty list included), the most 64-row
+    stages of work first (stage counts above 15 tie), equal counts in slot
+    order here (the kernel's order within equal counts follows its
+    atomics); the empty slots follow."""
+    S = qidx.shape[0]
+    lens = (offsets[1:] - offsets[:-1]).long()
     filled = qidx[:, 0] >= 0
-    lens = (offsets[1:] - offsets[:-1]).long().repeat(-(-S // K))[:S]  # slot s scans list s % K
+    if lmap is not None:
+        lens = torch.where(lmap >= 0, lens[lmap.clamp(min=0).long()], 0)
+        filled &= (lmap >= 0).repeat(-(-S // lmap.shape[0]))[:S]
+    lens = lens.repeat(-(-S // lens.shape[0]))[:S]  # slot s scans list s % K
     stages = ((lens + WORK_STAGE_ROWS - 1) // WORK_STAGE_ROWS).clamp(max=WORK_BUCKETS - 1)
     items = torch.sort(torch.where(filled, stages, -1), descending=True, stable=True)[1].int()
     return items, filled.sum(dtype=torch.int32)
 
 
+def hot_member_schedule(hot_ids: torch.Tensor, T: int, members: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of K7's slots on route "mma" (the CUDA source lays
+    them out on the device): qidx (G*H, 128) int32, G = ceil(T / 128).  Hot
+    entry h's member tokens (``members[:, h]`` of the (T, H) bool mask, or
+    every token), ascending, fill its slots ``g*H + h`` in order, -1 past
+    the last: the member-count prefix of :func:`build_slot_schedule_dense`
+    with capacity for every token.  A -1 entry's slots are all -1 here; the
+    kernel leaves them unwritten."""
+    H = hot_ids.shape[0]
+    G = -(-T // _MAX_TOKENS)
+    dev = hot_ids.device
+    m = torch.ones((T, H), dtype=torch.bool, device=dev) if members is None else members.bool()
+    m = m & (hot_ids >= 0)[None, :]
+    rank = torch.cumsum(m, dim=0, dtype=torch.int64) - 1                     # (T, H)
+    hidx = torch.arange(H, device=dev)
+    dest = torch.where(m, ((rank // _MAX_TOKENS) * H + hidx) * _MAX_TOKENS + rank % _MAX_TOKENS,
+                       G * H * _MAX_TOKENS)
+    tok = torch.arange(T, device=dev, dtype=torch.int32)[:, None].expand(T, H)
+    buf = torch.full((G * H * _MAX_TOKENS + 1,), -1, dtype=torch.int32, device=dev)
+    buf.scatter_(0, dest.reshape(-1), tok.reshape(-1))
+    return buf[:-1].view(G * H, _MAX_TOKENS)
+
+
+def query_terms(qs: torch.Tensor, terms: int = 3) -> torch.Tensor:
+    """The B operand of route "mma" as the kernel builds it: (terms, T, D)
+    bf16, term j the bf16 rounding of what terms 0..j-1 leave of fp32 ``qs``
+    (each remainder exact in fp32).  One term is K6's bf16 query; K7's three
+    sum to ``qs`` exactly (for normal floats), so its products are fp32's."""
+    rest = qs.float()
+    out = []
+    for _ in range(terms):
+        out.append(rest.to(torch.bfloat16))
+        rest = rest - out[-1].float()
+    return torch.stack(out)
+
+
 def scan_plan(D: int, tpl: int, r: int) -> str:
-    """K6's kernel route for sq_dim ``D``, ``tpl`` tokens a slot and ``r``
-    rows a token: "mma" for every shape K6 takes (``D`` in 16, 32, 64, 128;
-    ``tpl`` 1..128; ``r`` 1..16); raises on any other."""
+    """The kernel route of K6 and K7 for sq_dim ``D``, ``tpl`` tokens a slot
+    (K7: 128) and ``r`` rows a token: "mma" for every shape they take (``D``
+    in 16, 32, 64, 128; ``tpl`` 1..128; ``r`` 1..16); raises on any other."""
     if D not in _SQ_DIMS:
         raise ValueError(f"sq list scan kernel takes sq_dim in {_SQ_DIMS}, got {D}")
     if not 1 <= tpl <= _MAX_TOKENS:
@@ -196,11 +242,15 @@ def sq_batch_list_scan_ref(qidx: torch.Tensor, offsets: torch.Tensor, qs: torch.
 
 
 def sq_hot_list_scan_ref(hot_ids: torch.Tensor, offsets: torch.Tensor, qs: torch.Tensor,
-                         codes: torch.Tensor, *, r: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K7: every token, fp32 ``qs`` (not rounded).  A -1
-    entry of ``hot_ids`` gets -inf / -1 here; the kernel leaves it unwritten."""
+                         codes: torch.Tensor, *, r: int, members: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K7: the member tokens (``members`` (T, H) bool, or
+    every token), fp32 ``qs`` (not rounded).  A -1 entry of ``hot_ids`` and
+    a non-member entry get -inf / -1 here; the kernel leaves them unwritten."""
     T = qs.shape[0]
     tokens = torch.arange(T, device=qs.device, dtype=torch.int32).expand(hot_ids.shape[0], T)
+    if members is not None:
+        tokens = torch.where(members.T.bool(), tokens, -1)
     return _scan_ref(hot_ids, tokens, offsets, qs.float(), codes, r)
 
 
@@ -221,8 +271,13 @@ def _kernel_lib() -> ctypes.CDLL:
             lib.sq_slot_scan_mma_launch.restype = ctypes.c_int
             lib.sq_slot_work_list_launch.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             lib.sq_slot_work_list_launch.restype = ctypes.c_int
+            lib.sq_hot_scan_mma_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            lib.sq_hot_scan_mma_launch.restype = ctypes.c_int
+            lib.sq_hot_schedule_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            lib.sq_hot_schedule_launch.restype = ctypes.c_int
+            lib.sq_hot_scratch_words.argtypes, lib.sq_hot_scratch_words.restype = [ctypes.c_int] * 2, ctypes.c_int
             lib.sq_slot_work_words.argtypes, lib.sq_slot_work_words.restype = [ctypes.c_int], ctypes.c_int
-            if lib.sq_slot_work_words(0) != WORK_EXTRA:
+            if lib.sq_slot_work_words(0) != WORK_EXTRA or lib.sq_hot_scratch_words(3, 129) != _hot_scratch(3, 129):
                 raise RuntimeError("csrc/sq_probe.cu work-list buckets disagree with ops/sq_probe_batched.py")
             for fn in (lib.sq_scan_max_tokens, lib.sq_scan_max_r):
                 fn.argtypes, fn.restype = [], ctypes.c_int
@@ -249,13 +304,54 @@ def work_list_kernel(qidx: torch.Tensor, offsets: torch.Tensor) -> Tuple[torch.T
     return work[:S], work[S]
 
 
+def _hot_scratch(H: int, T: int) -> int:
+    """int32 words of K7's route "mma" scratch: its slots' qidx, their work
+    buffer, each hot entry's count of filled slots."""
+    S = -(-T // _MAX_TOKENS) * H
+    return S * _MAX_TOKENS + S + WORK_EXTRA + H
+
+
+def _check_members(members: Optional[torch.Tensor], T: int, H: int, dev: torch.device) -> None:
+    if members is not None and (members.dtype != torch.bool or members.shape != (T, H)
+                                or not members.is_contiguous() or members.device != dev):
+        raise ValueError(f"members must be a contiguous ({T}, {H}) bool tensor on {dev}")
+
+
+def hot_schedule_kernel(hot_ids: torch.Tensor, offsets: torch.Tensor, T: int,
+                        members: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K7's slots and work list on route "mma" from its CUDA kernels alone
+    (the scan builds its own): (qidx (G*H, 128), items (G*H,), count ())
+    int32; qidx as :func:`hot_member_schedule` (rows of a -1 entry
+    unwritten), ``items[:count]`` the slots :func:`slot_work_list` lists
+    with ``lmap=hot_ids``, the rest unwritten.  For the card tests and
+    ``chip_smoke.py``."""
+    if not (hot_ids.is_cuda and offsets.device == hot_ids.device):
+        raise ValueError("K7's schedule kernel needs hot_ids and offsets on one CUDA device")
+    H = hot_ids.shape[0]
+    _check_members(members, T, H, hot_ids.device)
+    scratch = torch.empty(_hot_scratch(H, T), dtype=torch.int32, device=hot_ids.device)
+    with torch.cuda.device(hot_ids.device):
+        err = _kernel_lib().sq_hot_schedule_launch(
+            hot_ids.contiguous().data_ptr(), None if members is None else members.data_ptr(),
+            offsets.contiguous().data_ptr(), scratch.data_ptr(), H, T,
+            torch.cuda.current_stream(hot_ids.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K7 schedule kernel launch failed: cudaError_t {err}")
+    S = -(-T // _MAX_TOKENS) * H
+    return scratch[: S * _MAX_TOKENS].view(S, _MAX_TOKENS), scratch[S * _MAX_TOKENS : S * (_MAX_TOKENS + 1)], \
+        scratch[S * (_MAX_TOKENS + 1)]
+
+
 def _launch(units: torch.Tensor, offsets: torch.Tensor, qs: torch.Tensor, codes: torch.Tensor,
-            r: int, hot: bool, route: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch.  K6 (``hot`` False): ``units`` is qidx (S, tpl), ``qs``
-    rounded to bf16 (in the kernel on route "mma"), on the route
-    :func:`scan_plan` picks or ``route`` names ("staged" runs the first
-    design beside it).  K7: ``units`` is hot_ids (H,), fp32 ``qs``, the one
-    kernel it has."""
+            r: int, hot: bool, route: Optional[str] = None, members: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch, on the route :func:`scan_plan` picks or ``route`` names
+    ("staged" runs the first design beside it).  K6 (``hot`` False):
+    ``units`` is qidx (S, tpl), ``qs`` rounded to bf16 (in the kernel on
+    route "mma").  K7: ``units`` is hot_ids (H,), fp32 ``qs``, ``members``
+    (T, H) bool or None (every token); route "staged" scans every token
+    whatever the members."""
     dev = codes.device
     if not all(t.is_cuda and t.device == dev for t in (units, offsets, qs)):
         raise ValueError("sq list scan kernel needs every tensor on one CUDA device")
@@ -271,14 +367,13 @@ def _launch(units: torch.Tensor, offsets: torch.Tensor, qs: torch.Tensor, codes:
     if not 1 <= r <= _MAX_R:
         raise ValueError(f"sq list scan kernel keeps 1..{_MAX_R} rows per token, got r={r}")
     if hot:
-        if route is not None:
-            raise ValueError("K7 has one kernel; it takes no route")
         U, tpl, P = units.shape[0], 0, T
+        _check_members(members, T, U, dev)
     else:
         (U, tpl), P = units.shape, units.shape[1]
-        route = route or scan_plan(D, tpl, r)
-        if route not in _ROUTES:
-            raise ValueError(f"sq slot scan route {route!r} is not one of {_ROUTES}")
+    route = route or scan_plan(D, tpl or _MAX_TOKENS, r)
+    if route not in _ROUTES:
+        raise ValueError(f"sq list scan route {route!r} is not one of {_ROUTES}")
     K = offsets.shape[0] - 1
     units = units.contiguous()
     offsets = offsets.contiguous()
@@ -287,14 +382,20 @@ def _launch(units: torch.Tensor, offsets: torch.Tensor, qs: torch.Tensor, codes:
     if U == 0 or T == 0:
         return out_s.fill_(float("-inf")), out_r.fill_(-1)
     # K6 rounds qs to bf16, as the TPU kernel rounds qsT (route "mma" as it
-    # stages them); K7 keeps fp32
-    q = (qs.to(torch.bfloat16).float() if route == "staged" else qs.float()).contiguous()
+    # stages them); K7 keeps fp32 (route "mma" as three bf16 terms)
+    q = (qs.to(torch.bfloat16).float() if route == "staged" and not hot else qs.float()).contiguous()
     if q.data_ptr() % 16:
         q = q.clone()
     lib = _kernel_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        if route == "mma":  # two launches: the work list into `work`, then the scan
+        if route == "mma" and hot:  # the slots and work list into `scratch`, then the scan
+            scratch = torch.empty(_hot_scratch(U, T), dtype=torch.int32, device=dev)
+            err = lib.sq_hot_scan_mma_launch(
+                units.data_ptr(), None if members is None else members.data_ptr(), scratch.data_ptr(),
+                offsets.data_ptr(), q.data_ptr(), codes.data_ptr(), out_s.data_ptr(), out_r.data_ptr(),
+                U, T, D, r, stream)
+        elif route == "mma":  # the work list into `work`, then the scan
             work = torch.empty(U + WORK_EXTRA, dtype=torch.int32, device=dev)
             err = lib.sq_slot_scan_mma_launch(
                 units.data_ptr(), work.data_ptr(), offsets.data_ptr(), q.data_ptr(), codes.data_ptr(),
@@ -305,9 +406,9 @@ def _launch(units: torch.Tensor, offsets: torch.Tensor, qs: torch.Tensor, codes:
                 offsets.data_ptr(), q.data_ptr(), codes.data_ptr(), out_s.data_ptr(), out_r.data_ptr(),
                 U, K, T, D, tpl, r, int(hot), stream)
     if err != 0:
-        raise RuntimeError(f"sq list scan kernel launch failed ({route or 'hot'}): cudaError_t {err}")
-    if not hot:
-        route_launches[route].add()
+        raise RuntimeError(f"sq list scan kernel launch failed ({'K7' if hot else 'K6'} route {route}): "
+                           f"cudaError_t {err}")
+    (hot_route_launches if hot else route_launches)[route].add()
     return out_s, out_r
 
 
@@ -329,14 +430,16 @@ def sq_batch_list_scan(qidx: torch.Tensor, offsets: torch.Tensor, qs: torch.Tens
 
 
 def sq_hot_list_scan(hot_ids: torch.Tensor, offsets: torch.Tensor, qs: torch.Tensor,
-                     codes: torch.Tensor, *, r: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K7: each hot list (``hot_ids`` (H,), -1 none) against every token,
-    fp32 ``qs``.  Returns (scores (H, r, T) fp32, CSR rows (H, r, T) int32).
-    The kernel leaves the entries of a -1 ``hot_ids`` unwritten: no pair
-    reads them."""
+                     codes: torch.Tensor, *, r: int, members: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7: each hot list (``hot_ids`` (H,), -1 none) against its member
+    tokens (``members`` (T, H) bool: token t probes hot list h; None: every
+    token), fp32 ``qs``.  Returns (scores (H, r, T) fp32, CSR rows (H, r, T)
+    int32).  The kernel leaves the entries of a -1 ``hot_ids`` and of
+    non-members unwritten: no pair reads them."""
     if _on_cpu(hot_ids, offsets, qs, codes):
-        return sq_hot_list_scan_ref(hot_ids, offsets, qs, codes, r=r)
-    out = _launch(hot_ids, offsets, qs, codes, r, hot=True)
+        return sq_hot_list_scan_ref(hot_ids, offsets, qs, codes, r=r, members=members)
+    out = _launch(hot_ids, offsets, qs, codes, r, hot=True, members=members)
     sq_hot_list_scan.launches.add()
     return out
 
@@ -345,6 +448,8 @@ sq_batch_list_scan.launches = LaunchCounter()
 sq_hot_list_scan.launches = LaunchCounter()
 #: K6's launches by kernel route
 route_launches = {route: LaunchCounter() for route in _ROUTES}
+#: K7's launches by kernel route
+hot_route_launches = {route: LaunchCounter() for route in _ROUTES}
 
 
 # ---- back to tokens ----

@@ -39,7 +39,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 WALK = "if (t >= 0) topr::walk_stage<R, SC_STRIDE>(h, sc + tid, r0 - astart, n);"
-MMA = "hopper::mma_bf16_16816(d, a[ks], b.x, b.y);"
+MMA = "hopper::mma_bf16_16816(j ? e : d, a[ks], b.x, b.y);"
 HASH = ("d[0] += float((a[ks][0] ^ b.x) & 0xffffu); d[1] += float((a[ks][1] ^ b.y) & 0xffffu); "
         "d[2] += float((a[ks][2] ^ b.x) & 0xffffu); d[3] += float((a[ks][3] ^ b.y) & 0xffffu);")
 PROF = "if (tid == 0) { const long long tn = clock64(); atomicAdd(&g_prof[%d], (unsigned long long)(tn - tp)); tp = tn; }"
@@ -57,7 +57,7 @@ TIMED = [
     ('}  // extern "C"', 'int sq_prof_read(void* out) { return int(cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof))); }\n'
      'int sq_prof_reset() { unsigned long long z[8] = {0}; return int(cudaMemcpyToSymbol(g_prof, z, sizeof(z))); }\n'
      'int sq_mma_blocks_per_sm() { int n = 0; cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, '
-     'slot_scan_mma_kernel<64, 8>, THREADS, MmaSmem<64>::TOTAL); return n; }\n}  // extern "C"'),
+     'slot_scan_mma_kernel<64, 8, 1, false>, THREADS, MmaSmem<64, 1>::TOTAL); return n; }\n}  // extern "C"'),
 ]
 VARIANTS = {
     "design": [],

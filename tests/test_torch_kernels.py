@@ -1,9 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the flat scan (K1, K2), all-pairs MaxSim (K3), dropout (K9), the rerank
+the flat scan (K1, K2), all-pairs MaxSim (K3, both routes), dropout (K9), the rerank
 (K4 bf16, K5 int8, on both routes, its pid-window schedule's edges and its
-freedom from host synchronisation), the sq list scans (K6 slots on both
-routes, its work list's edges and its freedom from host synchronisation;
-K7 hot lists), the pq4 list scan (K8 on both routes, its work list and its
+freedom from host synchronisation), the sq list scans (K6 slots and K7 hot
+lists, each on both routes; K6's work list's edges, K7's member-token
+slots, and the probe's freedom from host synchronisation), the pq4 list scan (K8 on both routes, its work list and its
 freedom from host synchronisation) and the token-major sq window scan (K10).
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU and
@@ -326,12 +326,33 @@ def test_rerank_never_synchronises(cuda_device):
 
 # ---- K6/K7: sq list scans; scores within 1e-5, rows equal except at near ties ----
 
-def _assert_ranked(s_want, r_want, s_got, r_got, tol=1e-5):
+def _assert_ranked(s_want, r_want, s_got, r_got, tol=1e-5, got_at_want=None):
     """Scores within ``tol``; rows equal except at near ties."""
     from colbert_tpu_torch.ops.sq_probe_batched import ranked_mismatch
 
-    err, bad = ranked_mismatch(s_want, r_want, s_got, r_got, tol)
+    err, bad = ranked_mismatch(s_want, r_want, s_got, r_got, tol, got_at_want)
     assert err <= tol and bad == 0, (err, bad)
+
+
+def _assert_ranked_beyond_ties(want, got, codes, q):
+    """``got`` (n, r) scores and rows against the plain version's top-(r+1)
+    ``want`` (a kernel's r-th row may be its (r+1)-th where the two tie):
+    scores within 1e-5, rows equal except at near ties.  The tensor cores
+    sum in another order than the plain version, so two different rows may
+    round to one fp32 score on one side only: an exact tie of ``want``
+    counts as a near tie where the two rows' exact sums (fp64, against
+    ``q`` (n, D), each row's query) differ."""
+    (ws, wr), (gs, gr) = want, got
+    r = gs.shape[1]
+    fin = torch.isfinite(ws)
+    same = (ws[:, 1:] == ws[:, :-1]) & fin[:, 1:]
+    tie = torch.zeros_like(fin)
+    tie[:, 1:] |= same
+    tie[:, :-1] |= same
+    exact = ws.double()
+    i, k = torch.nonzero(tie, as_tuple=True)
+    exact[i, k] = (codes[wr[i, k].long()].double() * q[i].double()).sum(dim=1)
+    _assert_ranked(ws, wr, torch.cat([gs, ws[:, r:]], 1), torch.cat([gr, wr[:, r:]], 1), got_at_want=exact)
 
 
 def _sq_case(device, seed, K, D, max_len, T):
@@ -472,17 +493,18 @@ def test_slot_scan_never_synchronises(cuda_device):
     proj = torch.randn(d, D, device=cuda_device, generator=g) / d ** 0.5
     scales = torch.full((D,), 127.0 * 8, device=cuda_device)  # scores ~ 1
     args = (q, cent, proj, scales, codes, offsets)
-    kw = dict(nprobe=16, depth=32, r=4, hot_cap=8)
+    kw = dict(nprobe=16, depth=32, r=4, hot_cap=8, tpl=16, groups=1)  # lists over 16 members go to K7
     ivf.ivf_probe_sq_batched(*args, **kw)  # the library is built and loaded outside the check
     torch.cuda.synchronize()
-    before = sp.route_launches["mma"].value
+    before = sp.route_launches["mma"].value, sp.hot_route_launches["mma"].value
     torch.cuda.set_sync_debug_mode("error")
     try:
         s, rows = ivf.ivf_probe_sq_batched(*args, **kw)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert sp.route_launches["mma"].value == before + 1
-    plan = ivf.sq_probe_plan(q, cent, proj, scales, nprobe=16, hot_cap=8)
+    assert (sp.route_launches["mma"].value, sp.hot_route_launches["mma"].value) == (before[0] + 1, before[1] + 1)
+    plan = ivf.sq_probe_plan(q, cent, proj, scales, nprobe=16, hot_cap=8, tpl=16, groups=1)
+    assert int((plan.hot_ids >= 0).sum()) > 0
     out = sp.sq_batch_list_scan_ref(plan.sched.qidx, offsets, plan.qs, codes, r=4)
     hot = (plan.hot_pos, *sp.sq_hot_list_scan_ref(plan.hot_ids, offsets, plan.qs, codes, r=4))
     ws, wr = sp.probe_batched_postprocess(plan.sched, *out, plan.lists, 32, plan.pair_valid, hot=hot)
@@ -490,24 +512,98 @@ def test_slot_scan_never_synchronises(cuda_device):
     _assert_ranked(ws, wr, s, rows)
 
 
-@pytest.mark.parametrize("K,D,max_len,T,H,r", [
-    (200, 64, 1500, 2304, 128, 8),  # the serving point's hot scan: 128 lists x every token
-    (20, 32, 400, 130, 7, 3),
-])
-def test_hot_scan_kernel_matches_plain(cuda_device, K, D, max_len, T, H, r):
+def _hot_members(device, seed, T, H, p):
+    """(T, H) bool: each token probes each hot entry with probability p;
+    entry 1 is probed by every token, entry 2 by none."""
+    m = torch.from_numpy(np.random.default_rng(seed).random((T, H)) < p)
+    m[:, 1], m[:, 2] = True, False
+    return m.to(device)
+
+
+def _assert_hot_scan_matches_plain(hot, offsets, qs, codes, r, members):
+    """K7 through its wrapper (route "mma", one launch counted on it), then
+    on route "staged" (every token) on the same input: both against the
+    plain version at the entries a probe reads (real hot lists; member
+    tokens when ``members`` is given), exact ties of the plain version
+    excused where the rows' exact sums differ."""
     from colbert_tpu_torch.ops import sq_probe_batched as sp
 
-    codes, offsets, qs = _sq_case(cuda_device, K * 3 + D, K, D, max_len, T)
-    hot = torch.arange(H, dtype=torch.int32, device=cuda_device) % K
-    hot[-1] = -1
-    before = sp.sq_hot_list_scan.launches.value
-    gs, gr = sp.sq_hot_list_scan(hot, offsets, qs, codes, r=r)
+    before = {k: c.value for k, c in sp.hot_route_launches.items()}
+    n = sp.sq_hot_list_scan.launches.value
+    gs, gr = sp.sq_hot_list_scan(hot, offsets, qs, codes, r=r, members=members)
+    ss, sr = sp._launch(hot, offsets, qs, codes, r, hot=True, route="staged", members=members)
     torch.cuda.synchronize()
-    assert sp.sq_hot_list_scan.launches.value == before + 1
-    ws, wr = sp.sq_hot_list_scan_ref(hot, offsets, qs, codes, r=r)
-    real = hot >= 0  # the kernel leaves a -1 entry unwritten
-    _assert_ranked(ws[real].transpose(1, 2).reshape(-1, r), wr[real].transpose(1, 2).reshape(-1, r),
-                   gs[real].transpose(1, 2).reshape(-1, r), gr[real].transpose(1, 2).reshape(-1, r))
+    assert sp.sq_hot_list_scan.launches.value == n + 1
+    assert {k: c.value - before[k] for k, c in sp.hot_route_launches.items()} == {"mma": 1, "staged": 1}
+    ws, wr = sp.sq_hot_list_scan_ref(hot, offsets, qs, codes, r=r + 1, members=members)
+    T = qs.shape[0]
+    read = (hot >= 0)[:, None].expand(-1, T)
+    if members is not None:
+        read = read & members.T
+    rows = lambda t: t.transpose(1, 2)[read]  # (read entries, r)
+    q = qs[torch.arange(T, device=qs.device).expand(hot.shape[0], T)[read]]
+    _assert_ranked_beyond_ties((rows(ws), rows(wr)), (rows(gs), rows(gr)), codes, q)
+    _assert_ranked_beyond_ties((rows(ws), rows(wr)), (rows(ss), rows(sr)), codes, q)
+    return gs, gr, read
+
+
+@pytest.mark.parametrize("members", [None, 0.15])
+@pytest.mark.parametrize("K,D,max_len,T,H,r", [
+    (200, 64, 1500, 2304, 128, 8),  # the serving point's hot scan: 128 lists x 2,304 tokens
+    (20, 32, 400, 130, 7, 3),
+    (12, 128, 300, 300, 5, 16),
+    (12, 16, 300, 257, 6, 1),
+])
+def test_hot_scan_kernel_matches_plain(cuda_device, K, D, max_len, T, H, r, members):
+    """K7 on both routes, over every token and over member tokens (entry 1
+    probed by every token, entry 2 by none); one entry is -1 and one scans
+    the empty list 0."""
+    codes, offsets, qs = _sq_case(cuda_device, K * 3 + D, K, D, max_len, T)
+    hot = torch.arange(1, H + 1, dtype=torch.int32, device=cuda_device) % K
+    hot[-1] = -1
+    hot[3 % (H - 1)] = 0
+    m = None if members is None else _hot_members(cuda_device, T + H, T, H, members)
+    gs, gr, read = _assert_hot_scan_matches_plain(hot, offsets, qs, codes, r, m)
+    empty = read & (hot == 0)[:, None]  # list 0 holds no rows
+    assert torch.isinf(gs.transpose(1, 2)[empty]).all() and (gr.transpose(1, 2)[empty] == -1).all()
+    assert torch.isfinite(gs.transpose(1, 2)[read]).any()
+
+
+@pytest.mark.parametrize("kind", ["no_hot_list", "every_token", "members"])
+def test_hot_schedule_kernel_matches_plain(cuda_device, kind):
+    """K7's slots and work list on route "mma" from its kernels: the slots
+    of real hot entries equal the plain layout (member tokens ascending,
+    128 a slot, -1 past the last), the work list the plain version's filled
+    slots (order within a bucket follows atomics), most stages first.  With
+    no hot list (the served plan at nprobe 128) nothing is filled, and the
+    scan writes nothing."""
+    from colbert_tpu_torch.ops import sq_probe_batched as sp
+
+    K, D, T, H = 300, 64, 2304, 128
+    codes, offsets, qs = _sq_case(cuda_device, 5, K, D, 700, T)
+    hot = torch.arange(H, dtype=torch.int32, device=cuda_device) * 2 + 1
+    hot[::7] = -1
+    if kind == "no_hot_list":
+        hot[:] = -1
+    m = _hot_members(cuda_device, 9, T, H, 0.1) if kind == "members" else None
+    qidx, items, count = sp.hot_schedule_kernel(hot, offsets, T, m)
+    want = sp.hot_member_schedule(hot, T, m)
+    want_items, want_count = sp.slot_work_list(want, offsets, lmap=hot)
+    real = (hot >= 0).repeat(qidx.shape[0] // H)
+    assert torch.equal(qidx[real], want[real])
+    n = int(count)
+    assert n == int(want_count) == (0 if kind == "no_hot_list" else n) and (n > 0) == (kind != "no_hot_list")
+    got = items[:n].long()
+    assert torch.equal(torch.sort(got)[0], torch.sort(want_items[:n].long())[0])
+    stages = ((torch.diff(offsets).long()[hot.long()[got % H]] + 63) // 64).clamp(max=sp.WORK_BUCKETS - 1)
+    assert (stages[1:] <= stages[:-1]).all()
+    if kind == "no_hot_list":
+        before = sp.hot_route_launches["mma"].value
+        sp.sq_hot_list_scan(hot, offsets, qs, codes, r=8)
+        torch.cuda.synchronize()
+        assert sp.hot_route_launches["mma"].value == before + 1
+    else:
+        _assert_hot_scan_matches_plain(hot, offsets, qs, codes, 8, m)
 
 
 # ---- K8: pq4 list scan; K10: sq window scan (scores within 1e-5, rows equal except at near ties) ----

@@ -1,9 +1,12 @@
 """The port's sq probe against the JAX package on the CPU: the dense slot
 schedule, K6's work list (route "mma") against the JAX schedule's filled
 slots, K6's tie rule as a total order (a plain sort under it against the
-TPU kernel), the plain versions of K6 (slot list scan) and K7 (hot-list scan)
-against the TPU kernels in interpret mode, the whole
-``ivf_probe_sq_batched`` with and without hot lists, and both dedups.
+TPU kernel), the plain versions of K6 (slot list scan) and K7 (hot-list scan,
+over every token and over member tokens) against the TPU kernels in
+interpret mode, K7's member-token slots (route "mma") against a numpy
+layout of the JAX probe's membership, the three bf16 terms of K7's query
+operand, the whole ``ivf_probe_sq_batched`` with and without hot lists (and
+with hot lists over members or every token), and both dedups.
 
 Inputs come from numpy seeds.  Limits: scores within 1e-5 (the int8 x
 bf16 or x fp32 products are summed in another order); rows and pids equal
@@ -247,6 +250,105 @@ def test_k7_plain_matches_jax_kernel(r):
     assert not np.isfinite(ps.numpy()[2]).any()  # hot id -1: nothing
 
 
+def jax_hot_k7(hot, offsets, qs, codes, r):
+    """The TPU kernel ``_hot_kernel`` in interpret mode: (H, r, T) numpy."""
+    T = qs.shape[0]
+    maxb = (int(np.diff(offsets).max()) + 31 + 127) // 128
+    t_pad = -(-T // 128) * 128
+    qsT = jnp.pad(jnp.asarray(qs), ((0, t_pad - T), (0, 0))).T
+    js, jr = jsp.sq_hot_list_scan(jnp.asarray(hot), jnp.asarray(offsets), qsT,
+                                  pad_codes_for_scan(jnp.asarray(codes), maxb * 128),
+                                  hot_cap=len(hot), maxb=maxb, r=r, interpret=True)
+    return np.asarray(js)[:, :, :T], np.asarray(jr)[:, :, :T]
+
+
+@pytest.mark.parametrize("r", [2, 8])
+def test_k7_plain_with_members_matches_jax_kernel(r):
+    """K7's plain version over member tokens: equal to the TPU kernel (every
+    token) on every member entry, -inf / -1 on every other.  Hot entry 0
+    is probed by every token, entry 3 by none, entry 2 is -1."""
+    rng = np.random.default_rng(70 + r)
+    T, K, D = 150, 10, 64
+    codes, offsets = random_csr(rng, K, D, 290)
+    qs = scaled_queries(rng, T, D)
+    hot = np.array([2, 5, -1, 0, 1], np.int32)  # list 1 is empty
+    members = rng.random((T, len(hot))) < 0.4
+    members[:, 0], members[:, 3] = True, False
+    js, jr = jax_hot_k7(hot, offsets, qs, codes, r)
+    ps, pr = psp.sq_hot_list_scan(torch.from_numpy(hot), torch.from_numpy(offsets), torch.from_numpy(qs),
+                                  torch.from_numpy(codes), r=r, members=torch.from_numpy(members))
+    ps, pr = ps.numpy(), pr.numpy()
+    read = np.broadcast_to((members.T & (hot >= 0)[:, None])[:, None, :], ps.shape)
+    assert_ranked_match(np.where(read, js, -np.inf), np.where(read, jr, -1), ps, pr, axis=1)
+    assert np.isfinite(ps[read]).sum() > 100 * r
+    assert not np.isfinite(ps[~read]).any() and (pr[~read] == -1).all()
+
+
+def jax_membership(coarse, nprobe, hot_cap, tpl, groups):
+    """The JAX probe's membership and hot lists (``colbert_tpu/ops/ivf.py``
+    ``ivf_probe_sq_batched``): (member (T, K), hot_ids (hot_cap,)) numpy."""
+    c = jnp.asarray(coarse)
+    vals, _ = jax.lax.top_k(c, nprobe)
+    member = c >= vals[:, -1:]
+    hot_vals, hot_raw = jax.lax.top_k(member.sum(axis=0), hot_cap)
+    return np.asarray(member), np.asarray(jnp.where(hot_vals > groups * tpl, hot_raw, -1)).astype(np.int32)
+
+
+@pytest.mark.parametrize("T,K,nprobe,hot_cap,cap", [(300, 12, 5, 6, 8), (129, 9, 9, 4, 8), (40, 30, 3, 5, 64)])
+def test_hot_member_schedule_matches_jax_membership(T, K, nprobe, hot_cap, cap):
+    """K7's slots on route "mma" (plain version): each hot list's member
+    tokens of the JAX probe, ascending, 128 a slot, slot g*H + h, -1 past
+    the last; and the work list over them (``lmap`` = hot_ids) lists
+    exactly the filled slots of real hot lists, most 64-row stages first.
+    Cases: hot lists over 128 members (two slots), every list a member of
+    every token (129 tokens: a second, one-token slot), no list hot."""
+    rng = np.random.default_rng(T + K)
+    coarse = rng.normal(size=(T, K)).astype(np.float32)
+    member, hot = jax_membership(coarse, nprobe, hot_cap, tpl=cap, groups=1)
+    lens = rng.integers(0, 300, size=K)
+    offsets = np.zeros(K + 1, np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    H, G = len(hot), -(-T // 128)
+    want = np.full((G * H, 128), -1, np.int32)
+    for h in np.flatnonzero(hot >= 0):
+        toks = np.flatnonzero(member[:, hot[h]])
+        for i, t in enumerate(toks):
+            want[(i // 128) * H + h, i % 128] = t
+    members = torch.from_numpy(member[:, np.maximum(hot, 0)])
+    hot_t = torch.from_numpy(hot)
+    got = psp.hot_member_schedule(hot_t, T, members)
+    np.testing.assert_array_equal(got.numpy(), want)
+    items, count = psp.slot_work_list(got, torch.from_numpy(offsets), lmap=hot_t)
+    filled = np.flatnonzero((want[:, 0] >= 0) & np.tile(hot >= 0, G))
+    n = int(count)
+    assert n == len(filled) == {300: n, 129: 2 * H, 40: 0}[T]
+    np.testing.assert_array_equal(np.sort(items.numpy()[:n]), filled)
+    stages = np.minimum(-(-lens[hot[items.numpy()[:n] % H]] // 64), psp.WORK_BUCKETS - 1)
+    assert (np.diff(stages) <= 0).all()
+    if T == 300:
+        assert (want[H:, 0] >= 0).any()  # a hot list with a second slot
+    # every token a member: the default schedule
+    every = psp.hot_member_schedule(hot_t, T)
+    for h in np.flatnonzero(hot >= 0):
+        np.testing.assert_array_equal(every.numpy()[h::H].reshape(-1)[:T], np.arange(T))
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-3, 1e6])
+def test_query_terms_sum_back_exactly(scale):
+    """K7's B operand: three bf16 terms of fp32 ``qs`` whose fp32 sum is
+    ``qs`` exactly (each remainder is exact in fp32); the first is K6's
+    bf16 rounding, and each term is at most half a bf16 ulp of the last."""
+    rng = np.random.default_rng(int(np.log10(scale)) + 5)
+    qs = torch.from_numpy((rng.normal(size=(300, 64)) * scale).astype(np.float32))
+    t = psp.query_terms(qs)
+    assert t.shape == (3, 300, 64) and t.dtype == torch.bfloat16
+    f = t.float()
+    assert torch.equal((f[0] + f[1]) + f[2], qs)
+    assert torch.equal(t[0], qs.to(torch.bfloat16))
+    assert torch.equal(psp.query_terms(qs, terms=1)[0], t[0])
+    assert (f[1].abs() <= f[0].abs() * 2.0 ** -8).all() and (f[2].abs() <= f[1].abs() * 2.0 ** -8).all()
+
+
 def _probe_inputs(seed, T, K, D, dim=32, n_per_list=60):
     """A clustered corpus: codes, offsets and the projection of a real sq index."""
     from colbert_tpu.ops.sq import sq_encode, sq_train
@@ -289,6 +391,24 @@ def test_ivf_probe_sq_batched_matches_jax(hot_cap, D):
         assert head.any(axis=1).mean() > 0.9
     else:
         assert head.any(axis=1).mean() < 0.5
+
+
+@pytest.mark.parametrize("D", [16, 64])
+def test_ivf_probe_sq_batched_members_change_nothing(D):
+    """K7 over its member tokens (what ``ivf_probe_sq_batched`` passes)
+    gives the probe the same (T, depth) output as K7 over every token: the
+    postprocess reads member entries only."""
+    T, K, nprobe, depth, r = 96, 24, 6, 20, 2
+    q, cent, proj, scales, codes, offsets = (torch.from_numpy(np.array(a)) for a in _probe_inputs(3 + D, T, K, D))
+    kw = dict(nprobe=nprobe, tpl=8, hot_cap=3, groups=1)
+    ps, pr = pivf.ivf_probe_sq_batched(q, cent, proj, scales, codes, offsets, depth=depth, r=r, **kw)
+    plan = pivf.sq_probe_plan(q, cent, proj, scales, **kw)
+    assert (plan.hot_ids >= 0).sum() >= 2 and plan.hot_members.shape == (T, 3)
+    assert 0 < plan.hot_members.sum() < plan.hot_members.numel()
+    out = psp.sq_batch_list_scan(plan.sched.qidx, offsets, plan.qs, codes, r=r)
+    every = (plan.hot_pos, *psp.sq_hot_list_scan(plan.hot_ids, offsets, plan.qs, codes, r=r))
+    ws, wr = psp.probe_batched_postprocess(plan.sched, *out, plan.lists, depth, plan.pair_valid, hot=every)
+    assert torch.equal(ps, ws) and torch.equal(pr, wr)
 
 
 def _dedup_inputs(seed, B, qv, depth, num_docs):
