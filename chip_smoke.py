@@ -36,7 +36,10 @@ from a seed:
   their plain PyTorch versions on the card.  K3 at the trainer's eval
   shape (34 queries x 16 views against 340 docs x 16 rows x 768), with
   multiview off (32 query tokens, 384 doc tokens, token masks) and with a
-  ragged doc count; limit 1e-4 absolute.  K9 on the attention
+  ragged doc count, each on the route ``maxsim_plan`` picks ("tf32" for
+  16 x 16 rows: three TF32 tensor-core products; else "staged") and on
+  route "staged" (the first design); limit 1e-4 absolute; both timed at
+  the eval shape, with the TF32 bound and the fp32 CUDA-core bound.  K9 on the attention
   probabilities of a training step, (68, 12, 384, 384) bf16, and on an
   fp32 tensor with an odd element count: forward and backward bit-equal to
   the plain version's Philox stream, the keep fraction within 5 sigma of
@@ -48,7 +51,7 @@ from a seed:
   checkpoint at each, then ``train --resume`` from step 6 for one step.
   Every loss must be finite, the resumed step's loss equal the straight
   run's, K9 launch (1 + 3 layers) x 2 passes x 2 (forward, backward) times
-  per step and K3 once per eval batch.
+  per step and K3 once per eval batch, every K3 launch on route "tf32".
 * phase 5, ANN serving with the sq codec at the JAX package's sq cell
   (nprobe 128, candidate depth 512, 8 rows per (token, list), 128 hot
   lists, 4,096 candidates, top-100):
@@ -157,6 +160,7 @@ def card_label() -> str:
 # ---- launch counters and bounds ----
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense tensor-core rate
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense tensor-core rate, TF32
 PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3
 
@@ -174,7 +178,8 @@ def counters():
             "K4/K5 wgmma route": rr.route_launches["wgmma"], "K4/K5 staged route": rr.route_launches["staged"],
             "K6 mma route": sp.route_launches["mma"], "K6 staged route": sp.route_launches["staged"],
             "K7 mma route": sp.hot_route_launches["mma"], "K7 staged route": sp.hot_route_launches["staged"],
-            "K8 onehot route": pq4.route_launches["onehot"], "K8 lookup route": pq4.route_launches["lookup"]}
+            "K8 onehot route": pq4.route_launches["onehot"], "K8 lookup route": pq4.route_launches["lookup"],
+            "K3 tf32 route": ms.route_launches["tf32"], "K3 staged route": ms.route_launches["staged"]}
 
 
 def reset_counts() -> None:
@@ -640,31 +645,43 @@ def phase_train_kernels(device, eval_q=EVAL_Q, eval_d=EVAL_D, k9_shape=K9_SHAPE,
                                            lengths_mask(eval_q, 32, 8), lengths_mask(eval_d, 384, 40)),
         "ragged nd": (unit(eval_q, M, H), unit(eval_d - 7, 16, H), None, None),
     }
-    for label, (Q, D, qm, dm) in cases.items():
+    worst_staged = 0.0
+    for case, (Q, D, qm, dm) in cases.items():
         if qm is None:  # an all-negative doc: 0 from its masked rows wins the max
             D[0] = -D[0].abs()
             dm = lengths_mask(D.shape[0], D.shape[1], 1)
             qm = torch.ones(Q.shape[:2], dtype=torch.int32, device=device)
+            cases[case] = (Q, D, qm, dm)
+        route = ms.maxsim_plan(Q.shape[1], D.shape[1], Q.shape[2])
+        before = ms.route_launches[route].value
         got, want = ms.maxsim(Q, D, qm, dm), ms.maxsim_ref(Q, D, qm, dm)
+        if ms.route_launches[route].value != before + 1:
+            raise AssertionError(f"K3 {case}: the wrapper did not launch route {route}")
+        staged = ms._launch(*ms._apply_masks(Q, D, qm, dm), route="staged")
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        log(f"[phase3] K3 {label}: Q {tuple(Q.shape)} D {tuple(D.shape)} max|d|={err:.3e} (limit {SCORE_ATOL})")
-        if not err <= SCORE_ATOL:
-            raise AssertionError(f"K3 {label}: max |kernel - plain| = {err} > {SCORE_ATOL}")
-        worst = max(worst, err)
+        err, err_staged = float((got - want).abs().max()), float((staged - want).abs().max())
+        log(f"[phase3] K3 {case}: Q {tuple(Q.shape)} D {tuple(D.shape)} route {route} max|d|={err:.3e}; route "
+            f"staged max|d|={err_staged:.3e} (limit {SCORE_ATOL})")
+        if not (err <= SCORE_ATOL and err_staged <= SCORE_ATOL):
+            raise AssertionError(f"K3 {case}: max |kernel - plain| = {err} (staged {err_staged}) > {SCORE_ATOL}")
+        worst, worst_staged = max(worst, err), max(worst_staged, err_staged)
     Q, D, qm, dm = cases["multiview 16/16"]
-    k3 = {"max_abs_err": worst,
+    k3 = {"max_abs_err": worst, "staged_max_abs_err": worst_staged, "kernel_route": ms.maxsim_plan(M, 16, H),
           "ms": time_ms(lambda: ms.maxsim(Q, D, qm, dm)),
+          "staged_ms": time_ms(lambda: ms._launch(*ms._apply_masks(Q, D, qm, dm), route="staged")),
           "plain_ms": time_ms(lambda: ms.maxsim_ref(Q, D, qm, dm)),
           "library_ms": None}
     nq, m, h = Q.shape
     nd, n, _ = D.shape
-    k3["bound_ms"], k3["bound_by"] = bound(2.0 * nq * m * nd * n * h,
-                                           4.0 * (Q.numel() + D.numel() + qm.numel() + dm.numel() + nq * nd),
-                                           PEAK_FP32_FLOPS)
-    log(f"[phase3] K3 at {nq} x {m} vs {nd} x {n} x {h} fp32: kernel {k3['ms']:.3f} ms, plain "
-        f"{k3['plain_ms']:.3f} ms, bound {k3['bound_ms']:.4f} ms ({k3['bound_by']}); no single "
-        f"PyTorch call computes MaxSim, so no library time")
+    flops, nbytes = 2.0 * nq * m * nd * n * h, 4.0 * (Q.numel() + D.numel() + qm.numel() + dm.numel() + nq * nd)
+    # route "tf32": three TF32 products a dot on the tensor cores; fp32 on the CUDA cores beside it
+    k3["bound_ms"], k3["bound_by"] = bound(3 * flops, nbytes, PEAK_TF32_FLOPS)
+    k3["fp32_bound_ms"], _ = bound(flops, nbytes, PEAK_FP32_FLOPS)
+    log(f"[phase3] K3 at {nq} x {m} vs {nd} x {n} x {h} fp32: route {k3['kernel_route']} {k3['ms']:.4f} ms, route "
+        f"staged (first design) {k3['staged_ms']:.4f} ms ({k3['staged_ms'] / k3['ms']:.2f}x), plain "
+        f"{k3['plain_ms']:.3f} ms; bound {k3['bound_ms']:.4f} ms ({k3['bound_by']}: {3 * flops / 1e9:.1f} GFLOP "
+        f"of TF32 products at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s), fp32 CUDA-core bound {k3['fp32_bound_ms']:.4f} "
+        f"ms; no single PyTorch call computes MaxSim, so no library time")
     del cases, Q, D
 
     seed64 = int(rng.integers(0, 2**63)) * 2 + 1
@@ -785,6 +802,9 @@ def phase_train(device, workdir: Path, label: str, model_kw=None, tok_kw=None, b
         f"steps x {per_step_k9}, K3 expected {want['K3']} = {len(saved)} evals x {eval_batches} batches)")
     if launches["K3"] != want["K3"] or launches["K9"] != want["K9"]:
         raise AssertionError(f"kernel launches {launches} do not match the training steps {want}")
+    if launches["K3 tf32 route"] != want["K3"] or launches["K3 staged route"]:
+        raise AssertionError(f"K3 launches by route: tf32 {launches['K3 tf32 route']}, staged "
+                             f"{launches['K3 staged route']}; expected every eval batch on route tf32")
     ckpt = CheckpointManager(cfg.train.checkpoint_dir)
     if ckpt.all_steps() != saved[-2:]:
         raise AssertionError(f"checkpoints {ckpt.all_steps()}, expected {saved[-2:]}")
@@ -1267,16 +1287,20 @@ def k7_both_routes(tag, what, hot, members, offsets, codes, qs, label):
 
 def k7_no_hot(tag, plan, offsets, codes, label):
     """K7 on a served plan with no hot list (every entry -1): both routes
-    timed; neither writes anything."""
+    timed in turns (staged, mma, mma, staged: the host's time bounds both);
+    neither writes anything."""
     from colbert_tpu_torch.ops import sq_probe_batched as sp
 
     if int((plan.hot_ids >= 0).sum()):
         raise AssertionError(f"{tag}: the served plan has hot lists; expected none at nprobe {NPROBE}")
     args = (plan.hot_ids, offsets, plan.qs, codes)
-    res = {"ms": time_ms(lambda: sp.sq_hot_list_scan(*args, r=TOPR, members=plan.hot_members)),
-           "staged_ms": time_ms(lambda: sp._launch(*args, TOPR, hot=True, route="staged"))}
-    log(f"[{tag}] K7 on the served plan ({plan.hot_ids.numel()} hot entries, all -1): route mma "
-        f"{res['ms']:.4f} ms, route staged {res['staged_ms']:.4f} ms (+{res['ms'] - res['staged_ms']:.4f}) [{label}]")
+    mma = lambda: sp.sq_hot_list_scan(*args, r=TOPR, members=plan.hot_members)
+    staged = lambda: sp._launch(*args, TOPR, hot=True, route="staged")
+    turns = [time_ms(f, iters=50) for f in (staged, mma, mma, staged)]
+    res = {"ms": (turns[1] + turns[2]) / 2, "staged_ms": (turns[0] + turns[3]) / 2, "turns_ms": turns}
+    log(f"[{tag}] K7 on the served plan ({plan.hot_ids.numel()} hot entries, all -1), in turns staged / mma / "
+        f"mma / staged: {' / '.join(f'{t:.4f}' for t in turns)} ms; route mma {res['ms']:.4f} ms, route staged "
+        f"{res['staged_ms']:.4f} ms (+{res['ms'] - res['staged_ms']:.4f}) [{label}]")
     return res
 
 
@@ -1959,6 +1983,11 @@ def main() -> int:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
         })
+        if fn == "K3":
+            kernels[-1].update({
+                "kernel_route": k["kernel_route"], "route_launches": {
+                    r: train_launches[f"K3 {r} route"] for r in ("tf32", "staged")},
+                **{key: k[key] for key in ("staged_ms", "staged_max_abs_err", "fp32_bound_ms")}})
     for name, fn, src, replaces in (
         ("K4 maxsim_rerank_uniform", "K4", "colbert_tpu_torch/csrc/rerank.cu", "colbert_tpu/ops/rerank_pallas.py:26"),
         ("K5 maxsim_rerank_uniform_int8", "K5", "colbert_tpu_torch/csrc/rerank.cu", "colbert_tpu/ops/rerank_pallas.py:65"),

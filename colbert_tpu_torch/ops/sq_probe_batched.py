@@ -377,8 +377,12 @@ def _launch(units: torch.Tensor, offsets: torch.Tensor, qs: torch.Tensor, codes:
     K = offsets.shape[0] - 1
     units = units.contiguous()
     offsets = offsets.contiguous()
-    out_s = torch.empty((U, r, P), dtype=torch.float32, device=dev)
-    out_r = torch.empty((U, r, P), dtype=torch.int32, device=dev)
+    # one allocation a launch (the host's time bounds a launch with little
+    # work): the rows, the scores as int32 words, then route "mma"'s scratch
+    n = U * r * P
+    scratch_words = (_hot_scratch(U, T) if hot else U + WORK_EXTRA) if route == "mma" else 0
+    buf = torch.empty(2 * n + scratch_words, dtype=torch.int32, device=dev)
+    out_r, out_s = buf[:n].view(U, r, P), buf[n : 2 * n].view(torch.float32).view(U, r, P)
     if U == 0 or T == 0:
         return out_s.fill_(float("-inf")), out_r.fill_(-1)
     # K6 rounds qs to bf16, as the TPU kernel rounds qsT (route "mma" as it
@@ -389,16 +393,14 @@ def _launch(units: torch.Tensor, offsets: torch.Tensor, qs: torch.Tensor, codes:
     lib = _kernel_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        if route == "mma" and hot:  # the slots and work list into `scratch`, then the scan
-            scratch = torch.empty(_hot_scratch(U, T), dtype=torch.int32, device=dev)
+        if route == "mma" and hot:  # the slots and work list into the scratch, then the scan
             err = lib.sq_hot_scan_mma_launch(
-                units.data_ptr(), None if members is None else members.data_ptr(), scratch.data_ptr(),
+                units.data_ptr(), None if members is None else members.data_ptr(), buf[2 * n :].data_ptr(),
                 offsets.data_ptr(), q.data_ptr(), codes.data_ptr(), out_s.data_ptr(), out_r.data_ptr(),
                 U, T, D, r, stream)
-        elif route == "mma":  # the work list into `work`, then the scan
-            work = torch.empty(U + WORK_EXTRA, dtype=torch.int32, device=dev)
+        elif route == "mma":  # the work list into the scratch, then the scan
             err = lib.sq_slot_scan_mma_launch(
-                units.data_ptr(), work.data_ptr(), offsets.data_ptr(), q.data_ptr(), codes.data_ptr(),
+                units.data_ptr(), buf[2 * n :].data_ptr(), offsets.data_ptr(), q.data_ptr(), codes.data_ptr(),
                 out_s.data_ptr(), out_r.data_ptr(), U, K, D, tpl, r, stream)
         else:
             err = lib.sq_list_scan_launch(

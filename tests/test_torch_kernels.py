@@ -168,28 +168,57 @@ def test_kernel_rejects_unsupported_shapes(cuda_device):
 # ---- K3: all-pairs MaxSim (fp32), limit 1e-4: fp32 products, only the summation order differs ----
 
 @pytest.mark.parametrize("nq,m,nd,n,h", [
-    (34, 16, 340, 16, 768),   # the eval step at the reference batch (multiview)
-    (5, 32, 37, 384, 128),    # multiview off: token-wise doc masks, n = doc_maxlen
+    (34, 16, 340, 16, 768),   # the eval step at the reference batch (multiview): route tf32
+    (34, 16, 333, 16, 768),   # a ragged doc count (the last 8-doc tile partial)
+    (13, 16, 9, 16, 100),     # h not a multiple of the 32-wide k-tile, one doc tile, two query tiles
+    (1, 16, 1, 16, 4),        # one pair, one k-step
+    (5, 32, 37, 384, 128),    # multiview off: token-wise doc masks, n = doc_maxlen: route staged
     (3, 70, 11, 5, 33),       # more query rows than one 64-row chunk, odd h
     (3, 1, 200, 1, 8),        # one-row queries and docs: 64 of each per block
     (2, 1024, 50, 1, 32),     # one long query per block: room for the maxima of 48 docs, not 64
+    (4, 16, 6, 16, 30),       # m = n = 16 with h not a multiple of 4: route staged
 ])
 def test_maxsim_kernel_matches_plain(cuda_device, nq, m, nd, n, h):
+    """The wrapper on the route maxsim_plan picks (one launch counted on
+    it, "tf32" for m = n = 16 and h a multiple of 4), and route "staged" on
+    the same input, each against the fp32 plain version within 1e-4."""
     from colbert_tpu_torch.ops import maxsim as ms
 
-    rng = np.random.default_rng(nq * nd)
+    rng = np.random.default_rng(nq * nd + h)
     Q = torch.from_numpy((rng.normal(size=(nq, m, h)) / np.sqrt(h)).astype(np.float32)).to(cuda_device)
     D = torch.from_numpy((rng.normal(size=(nd, n, h)) / np.sqrt(h)).astype(np.float32)).to(cuda_device)
     qm = torch.from_numpy((rng.random((nq, m)) < 0.8).astype(np.int32)).to(cuda_device)
     dm = torch.from_numpy((rng.random((nd, n)) < 0.7).astype(np.int32)).to(cuda_device)
     D[0] = -D[0].abs()  # all-negative doc: its masked rows (0) win the max
-    before = ms.maxsim.launches.value
+    route = ms.maxsim_plan(m, n, h)
+    assert route == ("tf32" if m == n == 16 and h % 4 == 0 else "staged")
+    before = ms.maxsim.launches.value, {k: c.value for k, c in ms.route_launches.items()}
     got = ms.maxsim(Q, D, qm, dm)
+    staged = ms._launch(*ms._apply_masks(Q, D, qm, dm), route="staged")
     torch.cuda.synchronize()
-    assert ms.maxsim.launches.value == before + 1
+    assert ms.maxsim.launches.value == before[0] + 1
+    assert {k: c.value - before[1][k] for k, c in ms.route_launches.items()} == (
+        {"tf32": 1, "staged": 1} if route == "tf32" else {"tf32": 0, "staged": 2})
     want = ms.maxsim_ref(Q, D, qm, dm)
     assert got.shape == (nq, nd) and got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    torch.testing.assert_close(staged, want, rtol=0, atol=1e-4)
+
+
+def test_maxsim_tf32_route_agrees_to_fp32_rounding(cuda_device):
+    """Route "tf32" at the eval shape, unmasked unit rows: three TF32
+    products keep fp32 agreement (within 1e-5 over 16 summed maxima; one
+    TF32 product would be ~1e-3 off), and it refuses a shape it does not
+    take."""
+    from colbert_tpu_torch.ops import maxsim as ms
+
+    g = torch.Generator(cuda_device).manual_seed(3)
+    Q = torch.nn.functional.normalize(torch.randn(34, 16, 768, device=cuda_device, generator=g), dim=-1)
+    D = torch.nn.functional.normalize(torch.randn(340, 16, 768, device=cuda_device, generator=g), dim=-1)
+    got = ms._launch(Q, D, route="tf32")
+    torch.testing.assert_close(got, ms.maxsim_ref(Q, D), rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="does not take"):
+        ms._launch(Q[:, :8], D, route="tf32")
 
 
 def test_maxsim_kernel_refuses_a_query_beyond_a_block(cuda_device):

@@ -5,7 +5,10 @@ version; it is held to ``maxsim_xla`` and to the Pallas kernel
 ``maxsim_pallas`` in interpret mode, on the same seeded fp32 inputs (unit
 rows), within 1e-5: both sides compute fp32 products and differ only in
 summation order (``tests/conftest.py`` sets XLA's matmuls to full fp32).
-The CUDA kernel itself is tested on the card (``tests/test_torch_kernels.py``).
+So is a plain emulation of the CUDA kernel's route "tf32" (each fp32 input
+split into two TF32 terms, three products, fp32 sums), within 1e-5: the
+terms it drops are ~2^-22 of a product.  The CUDA kernel itself is tested
+on the card (``tests/test_torch_kernels.py``).
 """
 
 import jax.numpy as jnp
@@ -55,6 +58,42 @@ def test_maxsim_matches_pallas_interpret(nq, m, nd, n, h):
                                     interpret=True))
     got = ms.maxsim(*map(torch.from_numpy, (Q, D, qm, dm)))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+
+
+def maxsim_tf32x3(Q, D, q_mask, d_mask):
+    """Route "tf32"'s arithmetic in plain torch: the masked inputs split
+    into TF32 (hi, lo) as the kernel splits them, hi.hi + hi.lo + lo.hi
+    (each product exact in fp32, sums in fp32), max over doc rows, sum over
+    query rows."""
+    Q, D = ms._apply_masks(Q, D, q_mask, d_mask)
+    (qh, ql), (dh, dl) = ms.tf32_split(Q), ms.tf32_split(D)
+    sim = sum(torch.einsum("qmh,dnh->qdmn", a, b) for a, b in ((qh, dh), (qh, dl), (ql, dh)))
+    return sim.amax(dim=-1).sum(dim=-1)
+
+
+@pytest.mark.parametrize("nq,m,nd,n,h", CASES)
+def test_tf32x3_emulation_matches_pallas_interpret(nq, m, nd, n, h):
+    Q, D, qm, dm = _inputs(2 * nq + nd, nq, m, nd, n, h, negative_docs=3 if nq == 2 else 0)
+    want = np.asarray(maxsim_pallas(jnp.asarray(Q), jnp.asarray(D), jnp.asarray(qm), jnp.asarray(dm),
+                                    interpret=True))
+    got = maxsim_tf32x3(*map(torch.from_numpy, (Q, D, qm, dm)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("scale", [1.0, 3e-5, 7e4])
+def test_tf32_split_rounds_to_nearest(scale):
+    """``tf32_split``: hi keeps 10 mantissa bits, rounded to nearest with
+    ties away from zero (``cvt.rna``: 1 + 2^-11 goes up, where ties to even
+    would go down); lo is the rounded remainder; a single TF32 term is off
+    by up to 2^-11 of |x|, hi + lo by up to 2^-21."""
+    rng = np.random.default_rng(int(np.log2(scale)) + 40)
+    x = torch.from_numpy((rng.normal(size=4096) * scale).astype(np.float32))
+    hi, lo = ms.tf32_split(x)
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all() and ((lo.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((hi - x).abs() <= x.abs() * 2.0 ** -11).all()
+    assert ((hi.double() + lo.double() - x.double()).abs() <= x.abs().double() * 2.0 ** -21).all()
+    ties = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 3 * 2.0 ** -11)])
+    assert torch.equal(ms.tf32_split(ties)[0], torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -9)]))
 
 
 def test_all_negative_doc_scores_zero():
