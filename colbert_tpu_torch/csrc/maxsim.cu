@@ -14,9 +14,11 @@
 // rate.  fp32 agreement from TF32 products: each fp32 x splits at the
 // fragment into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna: round to
 // nearest, ties away), and a dot is hi.hi + hi.lo + lo.hi on
-// mma.sync.m16n8k8 TF32 with fp32 accumulation; the dropped lo.lo and lo's
-// own rounding are ~2^-22 of a product, so a score agrees with fp32 to
-// summation order (~1e-6).  13.6 GFLOP at the eval shape, 0.0275 ms at 495
+// mma.sync.m16n8k8 TF32 with fp32 accumulation, each 32-wide k-tile's sum
+// in a fresh accumulator added to the running sum with round-to-nearest
+// (the tensor cores truncate each mma's sum: one accumulator over a 768-dim
+// dot put scores ~7e-6 off); the dropped lo.lo and lo's own rounding are
+// ~2^-22 of a product, so a score agrees with fp32 to summation order.  13.6 GFLOP at the eval shape, 0.0275 ms at 495
 // TFLOP/s.  Each block owns 12 queries x 8 docs (192 + 128 rows) and walks
 // h in 32-wide k-tiles through a 4-stage cp.async ring (rows padded to 36
 // floats: ldmatrix reads without bank conflicts); each of its 16 warps
@@ -26,7 +28,7 @@
 // over the quad and the groups.  No similarity reaches shared or device
 // memory.
 //
-// Route "staged" (every other shape; the PR 2 design): products and sums in
+// Route "staged" (every other shape; the first design): products and sums in
 // fp32 (FMA on the CUDA cores, no TF32), agreeing with the fp32 plain
 // version to summation order.  Bound: operations (4.5 GFLOP at the eval
 // shape, 0.07 ms at the card's 67 TFLOP/s fp32 rate).  Each block owns `tq`
@@ -237,6 +239,18 @@ maxsim_tf32_kernel(const float* __restrict__ Q, const float* __restrict__ D, flo
     hopper::cp_async_commit();
     const float* qt = tiles + (kt % STAGES) * ROWS * LDK + wq * VIEWS * LDK;
     const float* dt = tiles + (kt % STAGES) * ROWS * LDK + (Q_ROWS + wd * VIEWS) * LDK;
+    // this k-tile's products sum apart and join acc with one rounded add:
+    // the tensor cores truncate each mma's sum, and 288 of them into one
+    // accumulator a dot cost ~7e-6 a score, 12 a k-tile ~4e-7
+    float part[WQ][WD][2][4];
+#pragma unroll
+    for (int i = 0; i < WQ; ++i)
+#pragma unroll
+      for (int j = 0; j < WD; ++j)
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[i][j][t][e] = 0.0f;
 #pragma unroll
     for (int ks = 0; ks < KT / 8; ++ks) {
       uint32_t bh[WD][4], bl[WD][4];
@@ -265,9 +279,17 @@ maxsim_tf32_kernel(const float* __restrict__ Q, const float* __restrict__ D, flo
             for (int t = 0; t < 2; ++t) {
               const uint32_t(&a)[4] = term == 0 ? al[i] : ah[i];
               const uint32_t(&b)[4] = term == 1 ? bl[j] : bh[j];
-              mma_tf32(acc[i][j][t], a, b[2 * t], b[2 * t + 1]);
+              mma_tf32(part[i][j][t], a, b[2 * t], b[2 * t + 1]);
             }
     }
+#pragma unroll
+    for (int i = 0; i < WQ; ++i)
+#pragma unroll
+      for (int j = 0; j < WD; ++j)
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][t][e] += part[i][j][t][e];
   }
 
   // MaxSim in registers: a thread holds rows g and g+8 of each pair's tile,

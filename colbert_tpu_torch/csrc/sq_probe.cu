@@ -8,8 +8,9 @@
 //   K6: one slot of the dense schedule (slot s scans list s % K for the
 //       tokens qidx[s, :], -1 empty); qs holds the projected queries
 //       already rounded to bf16, as the TPU kernel rounds qsT;
-//   K7: one hot list (hot_ids[h], -1 none) for a tile of 128 consecutive
-//       tokens; qs in fp32, as the TPU kernel's bands are fp32.
+//   K7: one hot list (hot_ids[h], -1 none) for up to 128 tokens (route
+//       "staged": 128 consecutive tokens; "mma": 128 of its member tokens);
+//       qs in fp32, as the TPU kernel's bands are fp32.
 // Every row of the list, [offsets[l], offsets[l+1]) of the CSR codes
 // (N, D) int8, is scored against every token of the unit,
 //   score = sum_d float(code[row, d]) * qs[token, d]      fp32 accumulation,
@@ -25,19 +26,20 @@
 // Outputs: K6 (S, r, tpl) for slots whose qidx[s, 0] >= 0 (an empty slot
 // is skipped and its output left unwritten: no pair ever reads it; empty
 // positions of a filled slot get -inf / -1); K7 (H, r, T) for hot_ids[h]
-// >= 0 (a -1 entry is skipped and left unwritten: no pair reads it).
+// >= 0 (a -1 entry is skipped and left unwritten: no pair reads it; route
+// "mma" writes member entries only).
 //
 // Two designs:
-//   "staged" (list_scan_kernel; K7's kernel, and K6's first design): one
+//   "staged" (list_scan_kernel; the first design of both): one
 //     block a unit, one thread a token, the query in registers, each
 //     32-row chunk widened to fp32 in shared memory and every row scored by
 //     a chain of D dependent FMAs, then inserted into the token's sorted
 //     top-r in row order (`beats`: a row beats an equal score held from an
 //     earlier block).  For K6 the grid is every dense slot, most of them
 //     empty.
-//   "mma" (K6 and K7): a work list of the filled slots only, most 64-row stages
-//     first (work_count_kernel, work_place_kernel: one thread a list, no
-//     host sync), then a persistent grid (slot_scan_mma_kernel) whose
+//   "mma" (K6 and K7): a work list of the filled slots only, most 64-row
+//     stages first (work_count_kernel, work_place_kernel: one thread a
+//     list, no host sync), then a persistent grid (slot_scan_mma_kernel) whose
 //     blocks take items through a counter zeroed on the launching stream.
 //     A slot's tokens are gathered once into shared memory as the bf16 B
 //     operand; the list's rows stream through a double-buffered 16-byte
@@ -54,13 +56,13 @@
 //     the g-th 128 of hot list h; a work list in K6's order
 //     (hot_place_kernel, one block, no memset: with no hot list, the served
 //     case, the route costs three launches that do nothing) and the same
-//     scan then take those slots, the list of slot s being hot_ids[s % H].  The fp32 query
-//     goes in as three bf16 terms (hi, mid, lo: their sum is qs exactly for
-//     normal floats, and an int8 code widens exactly to bf16), three
-//     mma.sync a (k-step, n-tile) with fp32 accumulation (hi into one
-//     accumulator, mid and lo into another, added at the end), so the
-//     scores differ from an fp32 FMA chain only in summation order.  Results go to
-//     (H, r, T) at [h, :, token]; non-member entries stay unwritten.
+//     scan then take those slots, the list of slot s being hot_ids[s % H].
+//     The fp32 query goes in as three bf16 terms (hi, mid, lo: their sum is
+//     qs exactly for normal floats, and an int8 code widens exactly to
+//     bf16), three mma.sync a (k-step, n-tile) with fp32 accumulation (hi
+//     into one accumulator, mid and lo into another, added at the end), so
+//     the scores differ from an fp32 FMA chain only in summation order.
+//     Results go to (H, r, T) at [h, :, token].
 //
 // What bounds them: not bytes (K6 reads ~20 MB, 0.019 ms at 3.35 TB/s) and
 // not the products (0.11 GMAC a batch on the tensor cores) but the top-r
@@ -70,8 +72,8 @@
 // dependent compares; "mma" merges without branches, with short chains.
 // K7 "staged" scores every row of a hot list against every token, though
 // only the tokens that probe the list are read back: route "mma" selects
-// over the member pairs alone (at the smoke run's forced shape ~5 M of
-// 36.9 M).
+// over the member pairs alone (at chip_smoke.py's forced 128-list shape
+// 5.1 M of 36.9 M).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -141,8 +141,9 @@ def ivf_probe_sq_batched(
     top-``depth`` (scores (T, depth) fp32, CSR rows (T, depth) int32, -inf /
     -1 padded) over the top-``r`` rows of each of its ``nprobe`` lists,
     from K6 (slots) and K7 (hot lists, over their member tokens); pairs
-    past a cold list's slots are dropped.  The final selection is an exact top-k: the JAX package takes
-    ``approx_max_k`` on a TPU and ``top_k`` on the CPU."""
+    past a cold list's slots are dropped.  The final selection is an exact
+    top-k: the JAX package takes ``approx_max_k`` on a TPU and ``top_k`` on
+    the CPU."""
     plan = sq_probe_plan(q_tokens, coarse_centroids, proj, scales, nprobe=nprobe, tpl=tpl,
                          hot_cap=hot_cap, groups=groups)
     out_s, out_r = sq_batch_list_scan(plan.sched.qidx, offsets, plan.qs, codes, r=r)

@@ -326,8 +326,8 @@ def hot_schedule_kernel(hot_ids: torch.Tensor, offsets: torch.Tensor, T: int,
     unwritten), ``items[:count]`` the slots :func:`slot_work_list` lists
     with ``lmap=hot_ids``, the rest unwritten.  For the card tests and
     ``chip_smoke.py``."""
-    if not (hot_ids.is_cuda and offsets.device == hot_ids.device):
-        raise ValueError("K7's schedule kernel needs hot_ids and offsets on one CUDA device")
+    if not (hot_ids.is_cuda and offsets.device == hot_ids.device and hot_ids.dtype == offsets.dtype == torch.int32):
+        raise ValueError("K7's schedule kernel needs int32 hot_ids and offsets on one CUDA device")
     H = hot_ids.shape[0]
     _check_members(members, T, H, hot_ids.device)
     scratch = torch.empty(_hot_scratch(H, T), dtype=torch.int32, device=hot_ids.device)

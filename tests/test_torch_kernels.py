@@ -184,7 +184,7 @@ def test_maxsim_kernel_matches_plain(cuda_device, nq, m, nd, n, h):
     the same input, each against the fp32 plain version within 1e-4."""
     from colbert_tpu_torch.ops import maxsim as ms
 
-    rng = np.random.default_rng(nq * nd + h)
+    rng = np.random.default_rng(nq * nd)
     Q = torch.from_numpy((rng.normal(size=(nq, m, h)) / np.sqrt(h)).astype(np.float32)).to(cuda_device)
     D = torch.from_numpy((rng.normal(size=(nd, n, h)) / np.sqrt(h)).astype(np.float32)).to(cuda_device)
     qm = torch.from_numpy((rng.random((nq, m)) < 0.8).astype(np.int32)).to(cuda_device)
@@ -207,16 +207,17 @@ def test_maxsim_kernel_matches_plain(cuda_device, nq, m, nd, n, h):
 
 def test_maxsim_tf32_route_agrees_to_fp32_rounding(cuda_device):
     """Route "tf32" at the eval shape, unmasked unit rows: three TF32
-    products keep fp32 agreement (within 1e-5 over 16 summed maxima; one
-    TF32 product would be ~1e-3 off), and it refuses a shape it does not
-    take."""
+    products, each k-tile summed apart, keep fp32 agreement (within 2e-6
+    over 16 summed maxima; one TF32 product would be ~2e-4 off, one
+    accumulator over the whole dot ~7e-6), and it refuses a shape it does
+    not take."""
     from colbert_tpu_torch.ops import maxsim as ms
 
     g = torch.Generator(cuda_device).manual_seed(3)
     Q = torch.nn.functional.normalize(torch.randn(34, 16, 768, device=cuda_device, generator=g), dim=-1)
     D = torch.nn.functional.normalize(torch.randn(340, 16, 768, device=cuda_device, generator=g), dim=-1)
     got = ms._launch(Q, D, route="tf32")
-    torch.testing.assert_close(got, ms.maxsim_ref(Q, D), rtol=0, atol=1e-5)
+    torch.testing.assert_close(got, ms.maxsim_ref(Q, D), rtol=0, atol=2e-6)
     with pytest.raises(ValueError, match="does not take"):
         ms._launch(Q[:, :8], D, route="tf32")
 
@@ -553,8 +554,9 @@ def _assert_hot_scan_matches_plain(hot, offsets, qs, codes, r, members):
     """K7 through its wrapper (route "mma", one launch counted on it), then
     on route "staged" (every token) on the same input: both against the
     plain version at the entries a probe reads (real hot lists; member
-    tokens when ``members`` is given), exact ties of the plain version
-    excused where the rows' exact sums differ."""
+    tokens when ``members`` is given); for route "mma", whose tensor cores
+    sum in another order, an exact tie of the plain version is excused
+    where the rows' exact sums differ."""
     from colbert_tpu_torch.ops import sq_probe_batched as sp
 
     before = {k: c.value for k, c in sp.hot_route_launches.items()}
@@ -572,7 +574,7 @@ def _assert_hot_scan_matches_plain(hot, offsets, qs, codes, r, members):
     rows = lambda t: t.transpose(1, 2)[read]  # (read entries, r)
     q = qs[torch.arange(T, device=qs.device).expand(hot.shape[0], T)[read]]
     _assert_ranked_beyond_ties((rows(ws), rows(wr)), (rows(gs), rows(gr)), codes, q)
-    _assert_ranked_beyond_ties((rows(ws), rows(wr)), (rows(ss), rows(sr)), codes, q)
+    _assert_ranked(rows(ws)[:, :r], rows(wr)[:, :r], rows(ss), rows(sr))
     return gs, gr, read
 
 
