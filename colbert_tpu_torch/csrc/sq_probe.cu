@@ -49,14 +49,15 @@
 //     token's thread merges its column into its top-r 8 rows at a time,
 //     with the order above packed into one 64-bit key (row_key) and
 //     branch-free sorting networks.
-//     K7 on this route scans member tokens only: its schedule
-//     (hot_member_kernel, one block a hot list, no host sync) lays each hot
-//     list's member tokens (those that probe it; every token when no
-//     membership is given), ascending, into slots of 128, slot g*H + h for
-//     the g-th 128 of hot list h; a work list in K6's order
-//     (hot_place_kernel, one block, no memset: with no hot list, the served
-//     case, the route costs three launches that do nothing) and the same
-//     scan then take those slots, the list of slot s being hot_ids[s % H].
+//     K7 on this route scans member tokens only, in one cooperative launch
+//     (hot_scan_mma_kernel, no host sync, no memset) of three phases with a
+//     grid-wide barrier between them: each hot list's member tokens (those
+//     that probe it; every token when no membership is given), ascending,
+//     laid out into slots of 128, slot g*H + h for the g-th 128 of hot list
+//     h; a work list of those slots in K6's order (one block); the same
+//     scan, the list of slot s being hot_ids[s % H].  With no hot list, the
+//     served case at nprobe 128, it is one launch that does nothing, as
+//     "staged"'s is.
 //     The fp32 query goes in as three bf16 terms (hi, mid, lo: their sum is
 //     qs exactly for normal floats, and an int8 code widens exactly to
 //     bf16), three mma.sync a (k-step, n-tile) with fp32 accumulation (hi
@@ -75,6 +76,7 @@
 // over the member pairs alone (at chip_smoke.py's forced 128-list shape
 // 5.1 M of 36.9 M).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,6 +85,8 @@
 #include "topr.cuh"  // row_key, walk_stage: the top-r under the TPU tie order
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int THREADS = 128;     // one thread per token of the unit
 constexpr int BLOCK_ROWS = 128;  // the TPU kernel's block: sets the tie rule
@@ -322,17 +326,17 @@ work_place_kernel(const int* __restrict__ qidx, const int* __restrict__ offsets,
   }
 }
 
-// K7's schedule on route "mma": block h lays out hot list h's member tokens
-// (members[t, h] of the (T, H) bool mask, or every token when members is
-// null), ascending, into its slots s = g*H + h of qidx (G*H, 128), G =
-// ceil(T / 128), -1 past the last, and writes its count of filled slots to
-// n_slots[h].  A -1 hot entry writes 0 and returns: its slots are never
-// read.  Plain version: ops/sq_probe_batched.py::hot_member_schedule.
-__global__ void __launch_bounds__(THREADS)
-hot_member_kernel(const int* __restrict__ hot_ids, const uint8_t* __restrict__ members, int H, int T,
-                  int* __restrict__ qidx, int* __restrict__ n_slots) {
+// K7's schedule on route "mma", phase 1 for one hot entry h (a block):
+// lays out hot list h's member tokens (members[t, h] of the (T, H) bool
+// mask, or every token when members is null), ascending, into its slots
+// s = g*H + h of qidx (G*H, 128), G = ceil(T / 128), -1 past the last, and
+// writes its count of filled slots to n_slots[h].  A -1 hot entry writes 0:
+// its slots are never read.  Plain version:
+// ops/sq_probe_batched.py::hot_member_schedule.
+__device__ void lay_out_members(int h, const int* __restrict__ hot_ids, const uint8_t* __restrict__ members,
+                                int H, int T, int* qidx, int* n_slots) {
   __shared__ int warp_n[THREADS / 32];
-  const int h = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (hot_ids[h] < 0) {  // uniform across the block
     if (tid == 0) n_slots[h] = 0;
     return;
@@ -360,23 +364,21 @@ hot_member_kernel(const int* __restrict__ hot_ids, const uint8_t* __restrict__ m
   if (tid == 0) n_slots[h] = (base + THREADS - 1) / THREADS;
 }
 
-constexpr int HOT_PLACE_THREADS = 256;
-
-// K7's work list, in the order of K6's (most 64-row stages first, the same
-// buckets): one block over the H hot entries, from their counts of filled
-// slots (hot entry h's are g*H + h, g < n_slots[h]).  It writes the item
-// count and zeroes the scan's item counter, so the route needs no memset.
-// Order within a bucket follows its atomics.  Plain version:
-// ops/sq_probe_batched.py::slot_work_list with lmap = hot_ids.
-__global__ void __launch_bounds__(HOT_PLACE_THREADS)
-hot_place_kernel(const int* __restrict__ hot_ids, const int* __restrict__ offsets,
-                 const int* __restrict__ n_slots, int H, int S, int* __restrict__ work) {
+// K7's work list, phase 2 (one block, after every n_slots is written): the
+// filled slots in the order of K6's (most 64-row stages first, the same
+// buckets; hot entry h's are g*H + h, g < n_slots[h]), the item count, and
+// the scan's item counter zeroed.  Order within a bucket follows its
+// atomics.  Plain version: ops/sq_probe_batched.py::slot_work_list with
+// lmap = hot_ids.  n_slots was written by other blocks of this launch: read
+// past L1.
+__device__ void place_hot_items(const int* __restrict__ hot_ids, const int* __restrict__ offsets,
+                                const int* n_slots, int H, int S, int* work) {
   __shared__ int tot[WL_BUCKETS], cursor[WL_BUCKETS];
   const int tid = threadIdx.x;
   if (tid < WL_BUCKETS) tot[tid] = 0;
   __syncthreads();
-  for (int h = tid; h < H; h += HOT_PLACE_THREADS) {
-    const int n = n_slots[h];
+  for (int h = tid; h < H; h += blockDim.x) {
+    const int n = __ldcg(n_slots + h);
     if (n) atomicAdd(&tot[list_bucket(offsets, hot_ids[h])], n);
   }
   __syncthreads();
@@ -390,8 +392,8 @@ hot_place_kernel(const int* __restrict__ hot_ids, const int* __restrict__ offset
     work[S + 1 + 2 * WL_BUCKETS] = 0;    // the scan's next item
   }
   __syncthreads();
-  for (int h = tid; h < H; h += HOT_PLACE_THREADS) {
-    const int n = n_slots[h];
+  for (int h = tid; h < H; h += blockDim.x) {
+    const int n = __ldcg(n_slots + h);
     if (n) {
       const int at = atomicAdd(&cursor[list_bucket(offsets, hot_ids[h])], n);
       for (int g = 0; g < n; ++g) work[at + g] = g * H + h;
@@ -403,17 +405,20 @@ hot_place_kernel(const int* __restrict__ hot_ids, const int* __restrict__ offset
 // rounded to bf16, output (S, r, tpl).  K7 (HOT true, TERMS 3): slot s
 // scans list lmap[s % K] (K = H hot entries), qs as three bf16 terms, output
 // (H, r, T) at [s % K, :, token] for member tokens only.
+//
+// qidx, items and n_items are read past L1 (__ldcg): K7 writes them earlier
+// in the same launch, from other blocks.
 template <int D, int R, int TERMS, bool HOT>
-__global__ void __launch_bounds__(THREADS)
-slot_scan_mma_kernel(const int* __restrict__ qidx,       // (S, tpl)
-                     const int* __restrict__ items,      // the filled slots, most stages first
-                     const int* __restrict__ n_items,    // how many
-                     int* __restrict__ next_item,        // the next item to take, 0 at launch
-                     const int* __restrict__ offsets,    // (K_lists+1,)
-                     const int* __restrict__ lmap,       // K7: hot_ids (K,)
-                     const float* __restrict__ qs,       // (T, D) fp32, split into bf16 terms here
-                     const int8_t* __restrict__ codes,   // (N, D)
-                     float* __restrict__ out_s, int* __restrict__ out_r, int K, int tpl, int r, int T) {
+__device__ __forceinline__ void
+scan_items(const int* qidx,                      // (S, tpl)
+           const int* items,                     // the filled slots, most stages first
+           const int* n_items,                   // how many
+           int* next_item,                       // the next item to take, 0 at the start
+           const int* __restrict__ offsets,      // (K_lists+1,)
+           const int* __restrict__ lmap,         // K7: hot_ids (K,)
+           const float* __restrict__ qs,         // (T, D) fp32, split into bf16 terms here
+           const int8_t* __restrict__ codes,     // (N, D)
+           float* __restrict__ out_s, int* __restrict__ out_r, int K, int tpl, int r, int T) {
   using SM = MmaSmem<D, TERMS>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sc = reinterpret_cast<float*>(smem);
@@ -422,7 +427,7 @@ slot_scan_mma_kernel(const int* __restrict__ qidx,       // (S, tpl)
   __shared__ int tok_sh[THREADS];
   __shared__ int item_sh, last_sh;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, q = lane & 3;
-  const int count = *n_items;
+  const int count = __ldcg(n_items);
   constexpr int QVEC = D / 4;   // float4s a fp32 token row
   constexpr int AVEC = D / 16;  // 16-byte vectors a code row
 
@@ -433,9 +438,9 @@ slot_scan_mma_kernel(const int* __restrict__ qidx,       // (S, tpl)
     }
     __syncthreads();
     if (item_sh >= count) break;  // uniform across the block
-    const int64_t s = items[item_sh];
+    const int64_t s = __ldcg(items + item_sh);
     const int list = HOT ? lmap[s % K] : int(s % K);
-    const int t = tid < tpl ? qidx[s * tpl + tid] : -1;
+    const int t = tid < tpl ? __ldcg(qidx + s * tpl + tid) : -1;
     tok_sh[tid] = t;
     if (t >= 0) atomicMax(&last_sh, tid);
     __syncthreads();
@@ -540,6 +545,43 @@ slot_scan_mma_kernel(const int* __restrict__ qidx,       // (S, tpl)
   }
 }
 
+// K6 on route "mma": the scan over the work list built by the list kernels.
+template <int D, int R>
+__global__ void __launch_bounds__(THREADS)
+slot_scan_mma_kernel(const int* __restrict__ qidx, const int* __restrict__ items, const int* __restrict__ n_items,
+                     int* __restrict__ next_item, const int* __restrict__ offsets, const float* __restrict__ qs,
+                     const int8_t* __restrict__ codes, float* __restrict__ out_s, int* __restrict__ out_r, int K,
+                     int tpl, int r) {
+  scan_items<D, R, 1, false>(qidx, items, n_items, next_item, offsets, nullptr, qs, codes, out_s, out_r, K, tpl,
+                             r, 0);
+}
+
+// K7 on route "mma", one cooperative launch (every block resident): phase 1
+// lays out each hot entry's members (blocks take entries in turn), phase 2
+// (block 0) places the work list, phase 3 scans it, a grid-wide barrier
+// between phases.  With no hot list (the served case at nprobe 128) it is
+// one launch that does nothing, as "staged"'s.  scratch: qidx (G*H, 128),
+// the work buffer of its S = G*H slots, n_slots (H,).  schedule_only stops
+// after phase 2 (the card tests' and chip_smoke.py's view of the schedule).
+template <int D, int R>
+__global__ void __launch_bounds__(THREADS)
+hot_scan_mma_kernel(const int* __restrict__ hot_ids, const uint8_t* __restrict__ members,
+                    const int* __restrict__ offsets, const float* __restrict__ qs, const int8_t* __restrict__ codes,
+                    float* __restrict__ out_s, int* __restrict__ out_r, int* scratch, int H, int T, int r,
+                    int schedule_only) {
+  cg::grid_group grid = cg::this_grid();
+  const int S = (T + THREADS - 1) / THREADS * H;
+  int* work = scratch + int64_t(S) * THREADS;
+  int* n_slots = work + S + 2 + 2 * WL_BUCKETS;
+  for (int h = blockIdx.x; h < H; h += gridDim.x) lay_out_members(h, hot_ids, members, H, T, scratch, n_slots);
+  grid.sync();
+  if (blockIdx.x == 0) place_hot_items(hot_ids, offsets, n_slots, H, S, work);
+  grid.sync();
+  if (schedule_only) return;
+  scan_items<D, R, 3, true>(scratch, work, work + S, work + S + 1 + 2 * WL_BUCKETS, offsets, hot_ids, qs, codes,
+                            out_s, out_r, H, THREADS, r, T);
+}
+
 cudaError_t launch_work_list(const int* qidx, const int* offsets, int* work, int S, int K, int tpl,
                              cudaStream_t stream) {
   cudaError_t err = cudaMemsetAsync(work + S, 0, (2 + 2 * WL_BUCKETS) * sizeof(int), stream);
@@ -550,53 +592,39 @@ cudaError_t launch_work_list(const int* qidx, const int* offsets, int* work, int
   return cudaGetLastError();
 }
 
-// K7's schedule and work list: scratch holds qidx (G*H, 128), the work
-// buffer of its G*H slots, then n_slots (H,).  Two launches, no memset.
-cudaError_t launch_hot_schedule(const int* hot_ids, const int* offsets, const uint8_t* members, int* scratch,
-                                int H, int T, cudaStream_t stream) {
-  const int S = (T + THREADS - 1) / THREADS * H;
-  int* work = scratch + int64_t(S) * THREADS;
-  int* n_slots = work + S + 2 + 2 * WL_BUCKETS;
-  hot_member_kernel<<<H, THREADS, 0, stream>>>(hot_ids, members, H, T, scratch, n_slots);
-  hot_place_kernel<<<1, HOT_PLACE_THREADS, 0, stream>>>(hot_ids, offsets, n_slots, H, S, work);
-  return cudaGetLastError();
-}
-
-// The scan over a built work list (work: items[S], n_items, totals, cursors,
-// the item counter).
-template <int D, int R, int TERMS, bool HOT>
-cudaError_t launch_scan(const int* qidx, int* work, const int* offsets, const int* lmap, const float* qs,
-                        const int8_t* codes, float* out_s, int* out_r, int S, int K, int tpl, int r, int T,
-                        cudaStream_t stream) {
-  auto kernel = slot_scan_mma_kernel<D, R, TERMS, HOT>;
-  constexpr int smem = MmaSmem<D, TERMS>::TOTAL;
-  // the blocks that fit on the card at once, found once a device (host calls, no sync)
-  constexpr int MAX_DEVICES = 64;
-  static int resident[MAX_DEVICES] = {0};
+// The blocks of `kernel` that fit on the card at once with `smem` bytes of
+// dynamic shared memory, found once a device (host calls, no sync).
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int smem, int (&resident)[64], int& out) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || dev >= MAX_DEVICES) return err != cudaSuccess ? err : cudaErrorInvalidDevice;
+  if (err != cudaSuccess || dev >= 64) return err != cudaSuccess ? err : cudaErrorInvalidDevice;
   if (resident[dev] == 0) {
     int sms = 0, per_sm = 0;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
     if (err != cudaSuccess) return err;
-    resident[dev] = (per_sm > 0 ? per_sm : 1) * sms;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    resident[dev] = per_sm * sms;
   }
-  const int grid = S < resident[dev] ? S : resident[dev];
-  kernel<<<grid, THREADS, smem, stream>>>(qidx, work, work + S, work + S + 1 + 2 * WL_BUCKETS, offsets, lmap, qs,
-                                          codes, out_s, out_r, K, tpl, r, T);
-  return cudaGetLastError();
+  out = resident[dev];
+  return cudaSuccess;
 }
 
 template <int D, int R>
 cudaError_t launch_mma(const int* qidx, int* work, const int* offsets, const float* qs, const int8_t* codes,
                        float* out_s, int* out_r, int S, int K, int tpl, int r, cudaStream_t stream) {
-  cudaError_t err = launch_work_list(qidx, offsets, work, S, K, tpl, stream);
+  auto kernel = slot_scan_mma_kernel<D, R>;
+  constexpr int smem = MmaSmem<D, 1>::TOTAL;
+  static int resident[64] = {0};
+  int blocks = 0;
+  cudaError_t err = resident_blocks(kernel, smem, resident, blocks);
+  if (err == cudaSuccess) err = launch_work_list(qidx, offsets, work, S, K, tpl, stream);
   if (err != cudaSuccess) return err;
-  return launch_scan<D, R, 1, false>(qidx, work, offsets, nullptr, qs, codes, out_s, out_r, S, K, tpl, r, 0,
-                                     stream);
+  kernel<<<S < blocks ? S : blocks, THREADS, smem, stream>>>(qidx, work, work + S, work + S + 1 + 2 * WL_BUCKETS,
+                                                              offsets, qs, codes, out_s, out_r, K, tpl, r);
+  return cudaGetLastError();
 }
 
 template <int D>
@@ -607,24 +635,31 @@ cudaError_t launch_mma_r(const int* qidx, int* work, const int* offsets, const f
   return launch_mma<D, 16>(qidx, work, offsets, qs, codes, out_s, out_r, S, K, tpl, r, stream);
 }
 
+// K7 on route "mma": one cooperative launch of every resident block.
 template <int D, int R>
 cudaError_t launch_hot_mma(const int* hot_ids, const uint8_t* members, int* scratch, const int* offsets,
                            const float* qs, const int8_t* codes, float* out_s, int* out_r, int H, int T, int r,
-                           cudaStream_t stream) {
-  cudaError_t err = launch_hot_schedule(hot_ids, offsets, members, scratch, H, T, stream);
+                           int schedule_only, cudaStream_t stream) {
+  auto kernel = hot_scan_mma_kernel<D, R>;
+  constexpr int smem = MmaSmem<D, 3>::TOTAL;
+  static int resident[64] = {0};
+  int blocks = 0;
+  cudaError_t err = resident_blocks(kernel, smem, resident, blocks);
   if (err != cudaSuccess) return err;
-  const int S = (T + THREADS - 1) / THREADS * H;
-  return launch_scan<D, R, 3, true>(scratch, scratch + int64_t(S) * THREADS, offsets, hot_ids, qs, codes, out_s,
-                                    out_r, S, H, THREADS, r, T, stream);
+  void* args[] = {&hot_ids, &members, &offsets, &qs, &codes, &out_s, &out_r, &scratch, &H, &T, &r, &schedule_only};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(blocks), dim3(THREADS), args, smem,
+                                     stream);
 }
 
 template <int D>
 cudaError_t launch_hot_mma_r(const int* hot_ids, const uint8_t* members, int* scratch, const int* offsets,
                              const float* qs, const int8_t* codes, float* out_s, int* out_r, int H, int T, int r,
                              cudaStream_t stream) {
-  if (r <= 2) return launch_hot_mma<D, 2>(hot_ids, members, scratch, offsets, qs, codes, out_s, out_r, H, T, r, stream);
-  if (r <= 8) return launch_hot_mma<D, 8>(hot_ids, members, scratch, offsets, qs, codes, out_s, out_r, H, T, r, stream);
-  return launch_hot_mma<D, 16>(hot_ids, members, scratch, offsets, qs, codes, out_s, out_r, H, T, r, stream);
+  if (r <= 2)
+    return launch_hot_mma<D, 2>(hot_ids, members, scratch, offsets, qs, codes, out_s, out_r, H, T, r, 0, stream);
+  if (r <= 8)
+    return launch_hot_mma<D, 8>(hot_ids, members, scratch, offsets, qs, codes, out_s, out_r, H, T, r, 0, stream);
+  return launch_hot_mma<D, 16>(hot_ids, members, scratch, offsets, qs, codes, out_s, out_r, H, T, r, 0, stream);
 }
 
 }  // namespace
@@ -711,24 +746,24 @@ int sq_hot_scratch_words(int H, int T) {
   return S * THREADS + sq_slot_work_words(S) + H;
 }
 
-// K7's schedule and work list alone (the first launches of its route
-// "mma"): members (T, H) bool or null (every token); scratch
+// K7's schedule and work list alone (phases 1 and 2 of its route "mma"):
+// members (T, H) bool or null (every token); scratch
 // (sq_hot_scratch_words(H, T),) int32.  qidx rows of a -1 hot entry are
 // left unwritten.
 int sq_hot_schedule_launch(const void* hot_ids, const void* members, const void* offsets, void* scratch, int H,
                            int T, void* stream) {
   if (H < 1 || T < 1 || hot_ids == nullptr || scratch == nullptr) return int(cudaErrorInvalidValue);
-  return int(launch_hot_schedule(static_cast<const int*>(hot_ids), static_cast<const int*>(offsets),
-                                 static_cast<const uint8_t*>(members), static_cast<int*>(scratch), H, T,
-                                 static_cast<cudaStream_t>(stream)));
+  return int(launch_hot_mma<16, 2>(static_cast<const int*>(hot_ids), static_cast<const uint8_t*>(members),
+                                   static_cast<int*>(scratch), static_cast<const int*>(offsets), nullptr, nullptr,
+                                   nullptr, nullptr, H, T, 1, 1, static_cast<cudaStream_t>(stream)));
 }
 
 // K7 on route "mma": H hot entries hot_ids (H,) (-1 none), members (T, H)
 // bool or null (every token), scratch (sq_hot_scratch_words(H, T),) int32,
 // qs (T, D) fp32 (three bf16 terms in the kernel), out (H, r, T), written
-// at member entries of real hot lists only.  On `stream`: two launches for
-// the schedule and work list, then the scan.  Returns a cudaError_t: 0 when
-// every launch was accepted.
+// at member entries of real hot lists only.  On `stream`: one cooperative
+// launch (schedule, work list and scan).  Returns a cudaError_t: 0 when the
+// launch was accepted.
 int sq_hot_scan_mma_launch(const void* hot_ids, const void* members, void* scratch, const void* offsets,
                            const void* qs, const void* codes, void* out_s, void* out_r, int H, int T, int D, int r,
                            void* stream) {

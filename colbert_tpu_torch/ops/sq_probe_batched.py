@@ -25,8 +25,8 @@ in :data:`route_launches` (K6) and :data:`hot_route_launches` (K7):
   bf16, ``mma.sync`` with fp32 accumulation), each token's top-``r`` taken
   from the score tile.  K6's B operand is its tokens rounded to bf16.
   K7's slots are each hot list's member tokens, 128 a slot, laid out on
-  the device (plain version: :func:`hot_member_schedule`), and its B
-  operand the fp32 query as three bf16 terms (:func:`query_terms`);
+  the device in the same launch (plain version: :func:`hot_member_schedule`),
+  and its B operand the fp32 query as three bf16 terms (:func:`query_terms`);
 * "staged", the first design of both (one block per dense slot or per
   (hot list, 128 tokens), one thread per token, fp32 FMA chains; K7 over
   every token), reached only when asked for (``_launch(..., route=
@@ -320,11 +320,11 @@ def _check_members(members: Optional[torch.Tensor], T: int, H: int, dev: torch.d
 def hot_schedule_kernel(hot_ids: torch.Tensor, offsets: torch.Tensor, T: int,
                         members: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K7's slots and work list on route "mma" from its CUDA kernels alone
-    (the scan builds its own): (qidx (G*H, 128), items (G*H,), count ())
-    int32; qidx as :func:`hot_member_schedule` (rows of a -1 entry
-    unwritten), ``items[:count]`` the slots :func:`slot_work_list` lists
-    with ``lmap=hot_ids``, the rest unwritten.  For the card tests and
+    """K7's slots and work list on route "mma", its launch stopped before
+    the scan: (qidx (G*H, 128), items (G*H,), count ()) int32; qidx as
+    :func:`hot_member_schedule` (rows of a -1 entry unwritten),
+    ``items[:count]`` the slots :func:`slot_work_list` lists with
+    ``lmap=hot_ids``, the rest unwritten.  For the card tests and
     ``chip_smoke.py``."""
     if not (hot_ids.is_cuda and offsets.device == hot_ids.device and hot_ids.dtype == offsets.dtype == torch.int32):
         raise ValueError("K7's schedule kernel needs int32 hot_ids and offsets on one CUDA device")
@@ -393,14 +393,14 @@ def _launch(units: torch.Tensor, offsets: torch.Tensor, qs: torch.Tensor, codes:
     lib = _kernel_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        if route == "mma" and hot:  # the slots and work list into the scratch, then the scan
+        if route == "mma" and hot:  # one launch: the slots and work list into the scratch, then the scan
             err = lib.sq_hot_scan_mma_launch(
-                units.data_ptr(), None if members is None else members.data_ptr(), buf[2 * n :].data_ptr(),
+                units.data_ptr(), None if members is None else members.data_ptr(), buf.data_ptr() + 8 * n,
                 offsets.data_ptr(), q.data_ptr(), codes.data_ptr(), out_s.data_ptr(), out_r.data_ptr(),
                 U, T, D, r, stream)
         elif route == "mma":  # the work list into the scratch, then the scan
             err = lib.sq_slot_scan_mma_launch(
-                units.data_ptr(), buf[2 * n :].data_ptr(), offsets.data_ptr(), q.data_ptr(), codes.data_ptr(),
+                units.data_ptr(), buf.data_ptr() + 8 * n, offsets.data_ptr(), q.data_ptr(), codes.data_ptr(),
                 out_s.data_ptr(), out_r.data_ptr(), U, K, D, tpl, r, stream)
         else:
             err = lib.sq_list_scan_launch(

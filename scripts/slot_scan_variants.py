@@ -57,7 +57,7 @@ TIMED = [
     ('}  // extern "C"', 'int sq_prof_read(void* out) { return int(cudaMemcpyFromSymbol(out, g_prof, sizeof(g_prof))); }\n'
      'int sq_prof_reset() { unsigned long long z[8] = {0}; return int(cudaMemcpyToSymbol(g_prof, z, sizeof(z))); }\n'
      'int sq_mma_blocks_per_sm() { int n = 0; cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, '
-     'slot_scan_mma_kernel<64, 8, 1, false>, THREADS, MmaSmem<64, 1>::TOTAL); return n; }\n}  // extern "C"'),
+     'slot_scan_mma_kernel<64, 8>, THREADS, MmaSmem<64, 1>::TOTAL); return n; }\n}  // extern "C"'),
 ]
 VARIANTS = {
     "design": [],
