@@ -103,7 +103,7 @@ from a seed:
   must hold 100 valid, descending triples whose scores equal the exact
   MaxSim of the returned pids within 1e-4; K8 must launch once per pq4
   batch, every launch on route "onehot", K10 once for the token-probe
-  batch, K4 once per batch;
+  batch, on route "fused", K4 once per batch;
   (a) on phase 5b's corpus, ``build-index`` with the pq4 and the pq codec
   and phase 5b's sq index served with the token-major probe (and the
   batched one, for reference): recall@100 against the fp32 oracle over
@@ -112,7 +112,7 @@ from a seed:
   token falls on a few docs, so the token-major probes keep fewer than 100
   candidates for some queries: reported as information), build seconds
   and the batch's time per stage, every K6 launch on route "mma", every
-  K8 launch on route "onehot";
+  K8 launch on route "onehot", every K10 launch on route "fused";
   (b) on the first batch's inputs: K6 on both routes as in 5a; K8 (2,304
   tokens x 128 probed lists) on route "onehot" and on route "lookup" (the
   first design), with the histogram of its probed lists (members, rows),
@@ -120,10 +120,15 @@ from a seed:
   one-hot product on the tensor cores; route "lookup"'s own, its
   shared-memory lookups, beside it) and route "lookup"'s clock64 phase
   split (``scripts/pq4_scan_variants.py``, one more nvcc); and K10
-  (2,304 tokens x 128 windows): each against its plain version, scores
-  within 1e-5 and rows (K8: against the plain version's top-(r+1), an exact
-  tie of it excused only where the rows' fp64 sums differ; K10: the
-  top-512 slots) equal except at near ties.
+  (2,304 tokens x 128 windows, top-512): route "fused" bit-equal to route
+  "staged" + ``_window_topk``, the rows a token scores, the token probe's
+  parts timed apart on both routes (coarse GEMM + top-nprobe, windows,
+  ``sq_query``, the staged scan, ``_window_topk``, route "fused") and both
+  routes' bounds; each kernel against its plain version, scores within
+  1e-5 and rows (K8: against the plain version's top-(r+1), an exact tie
+  of it excused only where the rows' fp64 sums differ; K10: against the
+  plain version's top-513, an exact tie of it excused where the kernel's
+  scores of the two rows differ) equal except at near ties.
 
 Prints the card's name and power limit, the measurements, one JSON line of
 kernels, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -181,7 +186,9 @@ def counters():
             "K6 mma route": sp.route_launches["mma"], "K6 staged route": sp.route_launches["staged"],
             "K7 mma route": sp.hot_route_launches["mma"], "K7 staged route": sp.hot_route_launches["staged"],
             "K8 onehot route": pq4.route_launches["onehot"], "K8 lookup route": pq4.route_launches["lookup"],
-            "K3 tf32 route": ms.route_launches["tf32"], "K3 staged route": ms.route_launches["staged"]}
+            "K3 tf32 route": ms.route_launches["tf32"], "K3 staged route": ms.route_launches["staged"],
+            "K10 fused route": sq_probe.route_launches["fused"],
+            "K10 staged route": sq_probe.route_launches["staged"]}
 
 
 def reset_counts() -> None:
@@ -1328,6 +1335,20 @@ def k8_routes() -> dict:
     return {k: c.value for k, c in pq4.route_launches.items()}
 
 
+def k10_routes() -> dict:
+    from colbert_tpu_torch.ops import sq_probe
+
+    return {k: c.value for k, c in sq_probe.route_launches.items()}
+
+
+def assert_k10_on_fused(tag, before):
+    """Every K10 launch since ``before`` (``k10_routes()``) took route "fused", and there was one."""
+    got = {k: v - before[k] for k, v in k10_routes().items()}
+    log(f"[{tag}] K10 launches by route in the served batches: {got}")
+    if got["staged"] or not got["fused"]:
+        raise AssertionError(f"{tag}: K10 launches by route {got}, expected all on route fused")
+
+
 def assert_k8_on_onehot(tag, before):
     """Every K8 launch since ``before`` (``k8_routes()``) took route "onehot", and there was one."""
     got = {k: v - before[k] for k, v in k8_routes().items()}
@@ -1622,7 +1643,8 @@ def phase_codecs_cli(device, workdir: Path, cfg, common, corpus_path, eval_path,
         log(f"[phase6c] pq4 request {i}: {B} questions top-{TOPK} in {dt * 1e3:.1f} ms over the socket")
     log(f"[phase6c] sq token-probe service: {B} questions top-{TOPK} in {lat_tok * 1e3:.1f} ms in process")
     eval_batches = -(-n_eval // B)
-    want = {"K8": 2 + eval_batches, "K10": 1, "K4": 3 + eval_batches, "K5": 0, "K6": 0, "K7": 0,
+    want = {"K8": 2 + eval_batches, "K10": 1, "K10 fused route": 1, "K10 staged route": 0,
+            "K4": 3 + eval_batches, "K5": 0, "K6": 0, "K7": 0,
             "K4/K5 wgmma route": 3 + eval_batches, "K4/K5 staged route": 0,
             "K6 mma route": 0, "K6 staged route": 0, "K7 mma route": 0, "K7 staged route": 0,
             "K8 onehot route": 2 + eval_batches, "K8 lookup route": 0}
@@ -1771,6 +1793,114 @@ def k8_both_routes(tag, lists, offsets, lut, codes, label):
     return res
 
 
+def k10_both_routes(tag, tokens, coarse, quant, codes, offsets, cap, label):
+    """K10 on one token batch (``NPROBE`` windows a token, top-``DEPTH``):
+    the rows a token scores (median, p99, max, and the tokens past the keys
+    route "fused" keeps in shared memory); route "fused" (through the
+    wrapper, one launch counted on it) against route "staged" +
+    ``_window_topk`` bit for bit, and against the plain version's
+    top-(DEPTH+1) within near ties; route "staged"'s scan against the
+    plain scan; the token probe's parts timed apart on both routes (coarse
+    GEMM + top-nprobe, windows, ``sq_query``, the staged scan,
+    ``_window_topk``, route "fused"); both routes' bounds."""
+    import torch
+
+    from colbert_tpu_torch.ops import ivf, sq_probe, sq_probe_batched as sp
+    from colbert_tpu_torch.ops.sq import sq_query
+
+    proj, scales = quant
+    T = tokens.shape[0]
+    lists = ivf.coarse_lists(tokens, coarse, NPROBE)
+    starts = offsets[lists]
+    wlens = (offsets[lists + 1] - starts).clamp(max=cap)
+    qs = sq_query(tokens, proj, scales)
+    per_token = wlens.sum(dim=1)
+    keys_cap = min(NPROBE * cap, sq_probe._kernel_lib().sq_window_topk_keys_room(NPROBE, DEPTH))
+    pct = lambda q: float(torch.quantile(per_token.double(), q))
+    hist = {"median": pct(0.5), "p99": pct(0.99), "max": int(per_token.max()), "keys_cap": keys_cap,
+            "tokens_past_keys_cap": int((per_token > keys_cap).sum())}
+    log(f"[{tag}] K10 rows a token: median {hist['median']:.0f}, p99 {hist['p99']:.0f}, max {hist['max']}; "
+        f"{hist['tokens_past_keys_cap']} of {T} tokens past the {keys_cap} keys route fused keeps in shared memory")
+
+    fused = lambda: sq_probe.sq_window_topk(starts, wlens, qs, codes, cap=cap, depth=DEPTH)
+    staged = lambda: sq_probe.sq_window_topk(starts, wlens, qs, codes, cap=cap, depth=DEPTH, route="staged")
+    before = k10_routes()
+    gs, gr = fused()
+    if k10_routes()["fused"] != before["fused"] + 1:
+        raise AssertionError(f"{tag}: K10's wrapper did not launch route fused")
+    ss, sr = staged()
+    same = torch.equal(gs.view(torch.int32), ss.view(torch.int32)) and torch.equal(gr, sr)
+    log(f"[{tag}] K10 route fused against route staged + _window_topk: "
+        f"{'bit-equal' if same else 'DIFFERENT'} scores and rows")
+    if not same:
+        raise AssertionError(f"{tag}: K10 route fused differs from route staged + _window_topk")
+    dense = sq_probe.sq_list_scan(starts, wlens, qs, codes, cap=cap)
+    plain = sq_probe.sq_list_scan_ref(starts, wlens, qs, codes, cap=cap)
+    fin = torch.isfinite(plain)
+    if not torch.equal(fin, torch.isfinite(dense)):
+        raise AssertionError("K10: the -inf pattern differs from the plain version")
+    scan_err = float((dense[fin] - plain[fin]).abs().max())
+    log(f"[{tag}] K10 staged scan: {int(fin.sum())} scored slots of {fin.numel()}: max|d|={scan_err:.3e} "
+        f"(limit {PROBE_ATOL})")
+    if scan_err > PROBE_ATOL:
+        raise AssertionError(f"K10's scan differs from its plain version by {scan_err}")
+    # Among ~10^4 scores a token, different rows often sum to one fp32 value
+    # on one side and not the other: an exact tie of the plain version counts
+    # as near where the kernel's scores of its rows differ, and two rows at
+    # one rank do where each scores within PROBE_ATOL of the other side's
+    # score there, on the other side
+    ws, wi = sq_probe.topk_first(plain, DEPTH)
+    wr = torch.where(torch.isfinite(ws), starts.long().gather(1, wi // cap) + wi % cap, -1).int()
+    want_at_got = torch.einsum("tkd,td->tk", codes[gr.clamp(min=0).long()].float(), qs).masked_fill(
+        gr < 0, float("-inf"))
+    err, bad = sp.ranked_mismatch(ws, wr, gs, gr, PROBE_ATOL, dense.gather(1, wi), want_at_got)
+    log(f"[{tag}] K10 route fused top-{DEPTH} vs the plain version: max|d|={err:.3e} (limit {PROBE_ATOL}), "
+        f"rows mismatched outside near ties {bad}")
+    if err > PROBE_ATOL or bad:
+        raise AssertionError(f"K10 route fused differs from its plain version: max|d| {err}, {bad} rows")
+    del plain, fin, ws, wi, wr, want_at_got, ss, sr, gs, gr
+
+    windows = lambda: (offsets[lists], (offsets[lists + 1] - offsets[lists]).clamp(max=cap))
+    parts = {"coarse_topk": time_ms(lambda: ivf.coarse_lists(tokens, coarse, NPROBE)),
+             "windows": time_ms(windows), "sq_query": time_ms(lambda: sq_query(tokens, proj, scales)),
+             "staged_scan": time_ms(lambda: sq_probe.sq_list_scan(starts, wlens, qs, codes, cap=cap)),
+             "window_topk": time_ms(lambda: sq_probe._window_topk(dense, starts, cap, DEPTH)),
+             "fused": time_ms(fused)}
+
+    def stage(route):
+        ls = ivf.coarse_lists(tokens, coarse, NPROBE)
+        st, ln = offsets[ls], (offsets[ls + 1] - offsets[ls]).clamp(max=cap)
+        return sq_probe.sq_window_topk(st, ln, sq_query(tokens, proj, scales), codes, cap=cap, depth=DEPTH,
+                                       route=route)
+
+    res = {"max_abs_err": err, "scan_max_abs_err": scan_err, "kernel_route": "fused", "histogram": hist,
+           "ms": parts["fused"], "staged_design_ms": time_ms(staged), "staged_scan_ms": parts["staged_scan"],
+           "stage_ms": {"fused": time_ms(lambda: stage("fused")), "staged": time_ms(lambda: stage("staged"))},
+           "stage_parts_ms": parts, "library_ms": None,
+           "yardstick_staged_torch_topk_ms": time_ms(lambda: torch.topk(dense, DEPTH, dim=1)) + parts["staged_scan"],
+           "plain_ms": time_ms(lambda: sq_probe.sq_window_topk_ref(starts, wlens, qs, codes, cap=cap, depth=DEPTH),
+                               iters=1, warmup=1)}
+    del dense
+    # Route "fused": fp32 queries x int8 codes on the CUDA cores, 2 x D FLOP a
+    # real row; bytes: each distinct probed list's codes once, qs, the
+    # windows, the (T, DEPTH) scores and rows.  Route "staged"'s bound (the
+    # scan alone) writes the dense (T, nprobe * cap) scores instead.
+    rows = float(wlens.sum())
+    distinct = float(torch.diff(offsets).long()[torch.unique(lists)].sum())
+    inputs = distinct * SQ_DIM + qs.numel() * 4 + starts.numel() * 8
+    res["bound_ms"], res["bound_by"] = bound(2.0 * SQ_DIM * rows, inputs + T * DEPTH * 8, PEAK_FP32_FLOPS)
+    res["staged_scan_bound_ms"] = bound(2.0 * SQ_DIM * rows, inputs + T * NPROBE * cap * 4, PEAK_FP32_FLOPS)[0]
+    log(f"[{tag}] K10 at {T} tokens x {NPROBE} windows, cap {cap}, depth {DEPTH} ({rows:.0f} real rows, "
+        f"{distinct:.0f} distinct): route fused {res['ms']:.4f} ms (bound {res['bound_ms']:.4f}, "
+        f"{res['bound_by']}), route staged + _window_topk {res['staged_design_ms']:.4f} ms (its scan alone "
+        f"{res['staged_scan_ms']:.4f}, bound {res['staged_scan_bound_ms']:.4f}), plain {res['plain_ms']:.3f} ms; "
+        f"yardstick (not in the port) staged scan + torch.topk {res['yardstick_staged_torch_topk_ms']:.4f} ms; "
+        f"no single PyTorch call computes it [{label}]")
+    log(f"[{tag}] token probe stage (CUDA events): route fused {res['stage_ms']['fused']:.4f} ms, route staged "
+        f"{res['stage_ms']['staged']:.4f} ms; parts " + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
+    return res
+
+
 def phase_codecs(device, workdir: Path, label: str, info: dict):
     """Phase 6a/6b: on phase 5b's corpus, ``build-index`` with the pq4 and
     the pq codec (separate index directories over the same parts), and
@@ -1801,7 +1931,7 @@ def phase_codecs(device, workdir: Path, label: str, info: dict):
     qm = torch.ones(B, M, device=device)
     batches = [Q[i * B : (i + 1) * B] for i in range(Q.shape[0] // B)]
     oracle, state, summary = None, {}, {}
-    k6_before, k8_before = k6_routes(), k8_routes()
+    k6_before, k8_before, k10_before = k6_routes(), k8_routes(), k10_routes()
     for name, codec, probe_impl in (("sq batched", "sq", "auto"), ("sq token", "sq", "token"),
                                     ("pq4", "pq4", "auto"), ("pq", "pq", "auto")):
         index = workdir / ("index" if codec == "sq" else f"index_{codec}")
@@ -1863,6 +1993,7 @@ def phase_codecs(device, workdir: Path, label: str, info: dict):
         del s, cand, sc, pids, scores
     assert_k6_on_mma("phase6a", k6_before)
     assert_k8_on_onehot("phase6a", k8_before)
+    assert_k10_on_fused("phase6a", k10_before)
 
     # ---- 6b: K6, K8 and K10 against their plain versions on the first batch's inputs ----
     tokens = batches[0].reshape(B * M, H)
@@ -1885,46 +2016,7 @@ def phase_codecs(device, workdir: Path, label: str, info: dict):
     lut = adc_lut(tokens, codebooks)
     out["K8"] = k8_both_routes("phase6b", lists, offsets, lut, codes, label)
 
-    coarse, (proj, scales), codes, offsets, cap = state["sq token"]
-    lists = torch.topk(tokens @ coarse.T, NPROBE, dim=1)[1]
-    starts = offsets[lists]
-    wlens = (offsets[lists + 1] - starts).clamp(max=cap)
-    qs = sq_query(tokens, proj, scales)
-    got = sq_probe.sq_list_scan(starts, wlens, qs, codes, cap=cap)
-    want = sq_probe.sq_list_scan_ref(starts, wlens, qs, codes, cap=cap)
-    fin = torch.isfinite(want)
-    if not torch.equal(fin, torch.isfinite(got)):
-        raise AssertionError("K10: the -inf pattern differs from the plain version")
-    err = float((got[fin] - want[fin]).abs().max())
-    log(f"[phase6b] K10: {int(fin.sum())} scored slots of {fin.numel()}: max|d|={err:.3e} (limit {PROBE_ATOL})")
-    if err > PROBE_ATOL:
-        raise AssertionError(f"K10 differs from its plain version by {err}")
-    # the slot at rank DEPTH + 1 can make the last rank a near tie: select
-    # DEPTH + 1 slots on both sides and count only the first DEPTH rows.
-    # Among ~10^4 scores a token, different rows often sum to one fp32 value
-    # on one side and not the other: such ties count as near ties
-    ws, wi = ivf.topk_first(want, DEPTH + 1)
-    gs, gi = ivf.topk_first(got, DEPTH + 1)
-    gi[:, DEPTH] = wi[:, DEPTH]
-    ranked(f"K10 top-{DEPTH} slots", (ws, wi), (gs, gi), got.gather(1, wi))
-    del got, want, fin, ws, wi, gs, gi
-    rows = float(wlens.sum())
-    distinct = float(torch.diff(offsets).long()[torch.unique(lists)].sum())
-    out["K10"] = {"max_abs_err": err,
-                  "ms": time_ms(lambda: sq_probe.sq_list_scan(starts, wlens, qs, codes, cap=cap)),
-                  "plain_ms": time_ms(lambda: sq_probe.sq_list_scan_ref(starts, wlens, qs, codes, cap=cap),
-                                      iters=1, warmup=1),
-                  "library_ms": None}
-    # fp32 queries x int8 codes on the CUDA cores; bytes: each distinct
-    # probed list's codes once, qs, the windows, the (T, nprobe*cap) output
-    out["K10"]["bound_ms"], out["K10"]["bound_by"] = bound(
-        2.0 * SQ_DIM * rows, distinct * SQ_DIM + qs.numel() * 4 + starts.numel() * 8 + T * NPROBE * cap * 4,
-        PEAK_FP32_FLOPS)
-    log(f"[phase6b] K10 at {T} tokens x {NPROBE} windows, cap {cap} ({rows:.0f} scored rows): output "
-        f"{T * NPROBE * cap * 4 / 1e9:.3f} GB")
-    v = out["K10"]
-    log(f"[phase6b] K10: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, bound "
-        f"{v['bound_ms']:.4f} ms ({v['bound_by']}); no single PyTorch call computes it [{label}]")
+    out["K10"] = k10_both_routes("phase6b", tokens, *state["sq token"], label)
     low = {k: v["recall"] for k, v in summary.items() if v["recall"] < CODEC_RECALL}
     if low:  # checked last, so that one run reports every path and kernel
         raise AssertionError(f"recall@{TOPK} below {CODEC_RECALL}: {low}")
@@ -2047,7 +2139,7 @@ def main() -> int:
                 "low_reuse_staged_design_ms": lr["staged_ms"], "low_reuse_max_abs_err": lr["max_abs_err"]})
     for name, fn, src, replaces in (
         ("K8 pq4_list_scan", "K8", "colbert_tpu_torch/csrc/pq4_scan.cu", "colbert_tpu/ops/pq4.py:125"),
-        ("K10 sq_list_scan", "K10", "colbert_tpu_torch/csrc/sq_token_scan.cu",
+        ("K10 sq_window_topk", "K10", "colbert_tpu_torch/csrc/sq_token_scan.cu",
          "colbert_tpu/ops/sq_probe_pallas.py:40"),
     ):
         k = codec_kernels[fn]
@@ -2064,6 +2156,13 @@ def main() -> int:
                 "lookup_design_ms": k["lookup_design_ms"], "lookup_max_abs_err": k["lookup_max_abs_err"],
                 "lookup_bound_ms": k["lookup_bound_ms"], "lookup_phase_split": k["lookup_phase_split"],
                 "work_list_ms": k["work_list_ms"], "histogram": k["histogram"]})
+        if fn == "K10":
+            kernels[-1].update({
+                "kernel_route": k["kernel_route"], "route_launches": {
+                    r: codec_launches[f"K10 {r} route"] for r in ("fused", "staged")},
+                **{key: k[key] for key in ("staged_design_ms", "staged_scan_ms", "staged_scan_bound_ms",
+                                           "scan_max_abs_err", "stage_ms", "stage_parts_ms",
+                                           "yardstick_staged_torch_topk_ms", "histogram")}})
     log(label)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

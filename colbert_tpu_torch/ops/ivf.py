@@ -24,13 +24,12 @@ import torch
 
 from colbert_tpu_torch.ops.pq import adc_lut
 from colbert_tpu_torch.ops.sq import sq_query
-from colbert_tpu_torch.ops.sq_probe import sq_list_scan
+from colbert_tpu_torch.ops.sq_probe import _window_topk, sq_window_topk, topk_first  # noqa: F401 (re-exported)
 from colbert_tpu_torch.ops.sq_probe_batched import (
     SlotSchedule, build_slot_schedule_dense, probe_batched_postprocess, sq_batch_list_scan,
     sq_hot_list_scan,
 )
 
-_SCAN_ELEMS = 1 << 28  # K10 score slots per launch (1 GiB of fp32)
 _ADC_ELEMS = 1 << 26   # LUT gathers per token chunk of the pq probe
 
 # ---- index build (host) ----
@@ -157,38 +156,10 @@ def ivf_probe_sq_batched(
 # ---- the token-major probes ----
 
 
-def topk_first(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per row of ``scores`` (n, c) fp32, the ``k <= c`` best (scores,
-    columns int64), best first, equal scores in ascending column order:
-    ``jax.lax.top_k``'s rule, which ``torch.topk`` does not promise.  One
-    ``topk`` over unique int64 keys: the score's bits mapped to an order-
-    preserving int32 (-0.0 below +0.0, as XLA's ``top_k`` orders them)
-    above the complemented column."""
-    s = scores.float()
-    bits = s.view(torch.int32)
-    hi = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
-    col = torch.arange(s.shape[1], device=s.device)
-    _, idx = torch.topk(hi * (1 << 32) + (0xFFFFFFFF - col), k, dim=1)
-    return s.gather(1, idx), idx
-
-
 def coarse_lists(q_tokens: torch.Tensor, coarse_centroids: torch.Tensor, nprobe: int) -> torch.Tensor:
     """Each token's ``nprobe`` best lists, best first, as ``sq_probe_plan``
     takes them."""
     return torch.topk(q_tokens.float() @ coarse_centroids.float().T, nprobe, dim=1)[1]
-
-
-def _window_topk(scores: torch.Tensor, starts: torch.Tensor, cap: int, depth: int
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-``depth`` of window scores (n, nprobe*cap), slot j*cap + i being
-    row ``starts[:, j] + i`` -> (scores, rows int32), -inf / -1 padded."""
-    k = min(depth, scores.shape[1])
-    s, i = topk_first(scores, k)
-    rows = torch.where(torch.isfinite(s), starts.long().gather(1, i // cap) + i % cap, -1).int()
-    if k < depth:
-        s = torch.nn.functional.pad(s, (0, depth - k), value=float("-inf"))
-        rows = torch.nn.functional.pad(rows, (0, depth - k), value=-1)
-    return s, rows
 
 
 def ivf_probe_sq(
@@ -204,23 +175,18 @@ def ivf_probe_sq(
     depth: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token-major sq probe (``colbert_tpu/ops/ivf.py:137``, its Pallas
-    path): K10 scores up to ``cap`` rows of each probed list against the
-    token's fp32 projected query, then each token's exact top-``depth``
-    over all its probed rows (ties: the lower (probe rank, row) first, as
-    ``top_k``).  One K10 launch per batch unless its (T, nprobe * cap)
-    scores pass ``_SCAN_ELEMS``; then one per token chunk."""
-    T = q_tokens.shape[0]
+    path): each token's exact coarse top-``nprobe`` lists, then
+    :func:`~colbert_tpu_torch.ops.sq_probe.sq_window_topk` scores up to
+    ``cap`` rows of each against the token's fp32 projected query and keeps
+    its exact top-``depth`` over all its probed rows (ties: the lower
+    (probe rank, row) first, as ``top_k``).  On the card that is one launch
+    of route "fused" for the batch, or, past its depth, route "staged": the
+    dense scores and a torch top-k, a launch per token chunk."""
     lists = coarse_lists(q_tokens, coarse_centroids, nprobe)
     qs = sq_query(q_tokens, proj, scales)
     starts = offsets[lists]
     lens = (offsets[lists + 1] - starts).clamp(max=cap)
-    tc = max(1, _SCAN_ELEMS // (nprobe * cap))
-    out = [
-        _window_topk(sq_list_scan(starts[lo : lo + tc], lens[lo : lo + tc], qs[lo : lo + tc], codes, cap=cap),
-                     starts[lo : lo + tc], cap, depth)
-        for lo in range(0, T, tc)
-    ]
-    return torch.cat([s for s, _ in out]), torch.cat([r for _, r in out])
+    return sq_window_topk(starts, lens, qs, codes, cap=cap, depth=depth)
 
 
 def ivf_probe_adc(

@@ -493,7 +493,8 @@ def probe_batched_postprocess(sched: SlotSchedule, out_s: torch.Tensor, out_r: t
 
 def ranked_mismatch(s_want: torch.Tensor, r_want: torch.Tensor, s_got: torch.Tensor,
                     r_got: torch.Tensor, tol: float,
-                    got_at_want: Optional[torch.Tensor] = None) -> Tuple[float, int]:
+                    got_at_want: Optional[torch.Tensor] = None,
+                    want_at_got: Optional[torch.Tensor] = None) -> Tuple[float, int]:
     """Compare two ranked outputs ``(n, k)``, best first along dim 1 (a
     kernel against its plain version, or the port against the JAX package):
     returns (max |score difference| over finite scores, ids that differ
@@ -502,8 +503,12 @@ def ranked_mismatch(s_want: torch.Tensor, r_want: torch.Tensor, s_got: torch.Ten
     may flip; exact ties must resolve alike.  ``got_at_want``, the got
     side's scores of ``r_want``'s ids (or their exact sums, in fp64), where
     given, also makes an exact tie of ``s_want`` a near tie when those two
-    scores differ: two different rows whose sums agree only by rounding.  Raises when the -inf pattern
-    differs."""
+    scores differ: two different rows whose sums agree only by rounding.
+    ``want_at_got``, the want side's scores of ``r_got``'s ids, where given
+    with ``got_at_want``, also excuses an entry whose two ids each score
+    within ``tol`` of the other side's score at that rank, on the other
+    side: a near tie that a run of exact ties on one side carries past its
+    neighbours.  Raises when the -inf pattern differs."""
     fin = torch.isfinite(s_want)
     if not torch.equal(fin, torch.isfinite(s_got)):
         raise AssertionError("the -inf pattern differs")
@@ -517,5 +522,7 @@ def ranked_mismatch(s_want: torch.Tensor, r_want: torch.Tensor, s_got: torch.Ten
     amb = torch.zeros_like(fin)
     amb[:, :-1] |= near
     amb[:, 1:] |= near
+    if want_at_got is not None:
+        amb |= ((want_at_got - s_want).abs() <= tol) & ((got_at_want - s_got).abs() <= tol)
     return err, int((r_got != r_want)[~amb].sum())
 

@@ -794,3 +794,131 @@ def test_sq_window_scan_kernel_matches_plain(cuda_device, D, N, T, nprobe, cap):
     assert torch.equal(fin, torch.isfinite(got))
     assert int(fin.sum()) == int(np.minimum(lens, cap).sum())
     torch.testing.assert_close(got[fin], want[fin], rtol=0, atol=1e-5)
+
+
+# ---- K10 route "fused": each token's top-depth in one launch (bit-equal to route "staged") ----
+
+def _token_case(device, seed, D, N, T, nprobe, cap):
+    """Random windows over N code rows, with: an empty window and one
+    clipped to cap (token 0); every window over rows [0, cap), which hold
+    one code row, so all its scores are exact ties, within and across lists
+    (token 1, with nprobe * cap real rows, past the shared-memory budget
+    when nprobe * cap is); two windows over the same rows (token 2); fewer
+    real rows than a depth of 4 (token 3); a zero query, every score +0.0
+    (token 4)."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-128, 128, size=(N, D)).astype(np.int8)
+    codes[:cap] = codes[0]
+    starts = rng.integers(0, N - cap, size=(T, nprobe)).astype(np.int32)
+    lens = rng.integers(0, cap + 1, size=(T, nprobe)).astype(np.int32)
+    lens[0, :2] = 0, cap + 5
+    starts[1], lens[1] = 0, cap
+    starts[2, 1], lens[2, :2] = starts[2, 0], cap
+    lens[3] = 0
+    lens[3, -1] = min(3, cap)
+    qs = (rng.normal(size=(T, D)) / (127.0 * np.sqrt(D))).astype(np.float32)
+    qs[4] = 0.0
+    to = lambda a: torch.from_numpy(a).to(device)
+    return to(starts), to(lens), to(qs), to(codes)
+
+
+def _assert_token_routes(starts, lens, qs, codes, cap, depth, keys_cap=None):
+    """Route "fused" (through ``sq_window_topk``, one K10 launch counted on
+    it; or, with ``keys_cap``, launched alone) against route "staged" +
+    ``_window_topk`` on the same input, bit for bit, and against the plain
+    version's top-depth within near ties (scores within 1e-5; an exact tie
+    of the plain version counts as near where the kernels' scores of the
+    two rows differ, and two rows at one rank do where each scores within
+    1e-5 of the other side's score there, on the other side)."""
+    from colbert_tpu_torch.ops import sq_probe
+    from colbert_tpu_torch.ops.sq_probe_batched import ranked_mismatch
+
+    before = {k: c.value for k, c in sq_probe.route_launches.items()}
+    n = sq_probe.sq_list_scan.launches.value
+    if keys_cap is None:
+        gs, gr = sq_probe.sq_window_topk(starts, lens, qs, codes, cap=cap, depth=depth)
+    else:
+        gs, gr = sq_probe._launch_fused(starts, lens, qs, codes, cap, depth, keys_cap)
+    ss, sr = sq_probe.sq_window_topk(starts, lens, qs, codes, cap=cap, depth=depth, route="staged")
+    torch.cuda.synchronize()
+    fused = int(keys_cap is None)
+    assert {k: c.value - before[k] for k, c in sq_probe.route_launches.items()} == {"fused": fused, "staged": 1}
+    assert sq_probe.sq_list_scan.launches.value == n + fused + 1
+    assert gs.shape == (starts.shape[0], depth) and gr.dtype == torch.int32
+    assert torch.equal(gs.view(torch.int32), ss.view(torch.int32)) and torch.equal(gr, sr)
+    dense = sq_probe.sq_list_scan(starts, lens, qs, codes, cap=cap)
+    plain = sq_probe.sq_list_scan_ref(starts, lens, qs, codes, cap=cap)
+    ws, wr = sq_probe._window_topk(plain, starts, cap, depth)
+    _, wi = sq_probe.topk_first(plain, min(depth, plain.shape[1]))
+    k = wi.shape[1]
+    err, bad = ranked_mismatch(ws[:, :k], wr[:, :k], gs[:, :k], gr[:, :k], 1e-5, dense.gather(1, wi),
+                               _plain_scores(qs, codes, gr[:, :k]))
+    assert err <= 1e-5 and bad == 0, (err, bad)
+    assert torch.isinf(gs[:, k:]).all() and (gr[:, k:] == -1).all()
+    return gs, gr
+
+
+def _plain_scores(qs, codes, rows):
+    """fp32 scores of CSR ``rows`` (T, k) against each token's query, -inf at -1."""
+    s = torch.einsum("tkd,td->tk", codes[rows.clamp(min=0).long()].float(), qs.float())
+    return s.masked_fill(rows < 0, float("-inf"))
+
+
+@pytest.mark.parametrize("D,N,T,nprobe,cap,depth", [
+    (64, 320_000, 2304, 128, 463, 512),  # the serving point's windows
+    (16, 5000, 50, 7, 300, 40),
+    (32, 20_000, 40, 256, 400, 512),     # up to 102,400 rows a token: past the shared-memory budget
+    (128, 3000, 9, 3, 129, 1000),        # depth past nprobe * cap
+    (16, 8000, 40, 16, 300, 2048),       # the deepest top-depth route "fused" takes: four survivors a thread
+])
+def test_sq_window_topk_fused_matches_staged_and_plain(cuda_device, D, N, T, nprobe, cap, depth):
+    from colbert_tpu_torch.ops import sq_probe
+
+    assert sq_probe.sq_window_topk_plan(D, depth) == "fused"
+    starts, lens, qs, codes = _token_case(cuda_device, D + T, D, N, T, nprobe, cap)
+    gs, gr = _assert_token_routes(starts, lens, qs, codes, cap, depth)
+    assert (gr[1, : min(depth, nprobe * cap)] >= 0).all() and (gr[1] < cap).all()  # all ties: rows of [0, cap)
+    assert torch.isinf(gs[3, 3:]).all() and (gr[3, 3:] == -1).all() and (gr[3, :3] >= 0).all()
+    assert (gs[4, : min(depth, int(lens[4].clamp(max=cap).sum()))].view(torch.int32) == 0).all()  # +0.0
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_sq_window_topk_fused_rescoring_path(cuda_device, D):
+    """Route "fused" with no keys kept in shared memory (every pass scores
+    the rows again) and with room for some tokens' keys only."""
+    starts, lens, qs, codes = _token_case(cuda_device, D, D, 6000, 30, 9, 300)
+    for keys_cap in (0, 1500):
+        _assert_token_routes(starts, lens, qs, codes, 300, 64, keys_cap=keys_cap)
+
+
+def test_token_probe_never_synchronises(cuda_device):
+    """The whole token probe (coarse lists, sq_query, K10 on route "fused")
+    with torch's sync debug mode raising on any host synchronisation; then
+    against the same probe on route "staged"."""
+    from colbert_tpu_torch.ops import ivf, sq_probe
+
+    K, D, T, d = 256, 64, 512, 32
+    codes, offsets, _ = _sq_case(cuda_device, 12, K, D, 200, T)
+    g = torch.Generator(cuda_device).manual_seed(12)
+    q = torch.randn(T, d, device=cuda_device, generator=g)
+    cent = torch.randn(K, d, device=cuda_device, generator=g)
+    proj = torch.randn(d, D, device=cuda_device, generator=g) / d ** 0.5
+    scales = torch.full((D,), 127.0 * 8, device=cuda_device)
+    cap = int(torch.diff(offsets).max())
+    kw = dict(nprobe=16, cap=cap, depth=128)
+    ivf.ivf_probe_sq(q, cent, proj, scales, codes, offsets, **kw)  # the library is built and loaded outside the check
+    torch.cuda.synchronize()
+    before = sq_probe.route_launches["fused"].value
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s, rows = ivf.ivf_probe_sq(q, cent, proj, scales, codes, offsets, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert sq_probe.route_launches["fused"].value == before + 1
+    lists = ivf.coarse_lists(q, cent, 16)
+    starts = offsets[lists]
+    lens = (offsets[lists + 1] - starts).clamp(max=cap)
+    ws, wr = sq_probe.sq_window_topk(starts, lens, ivf.sq_query(q, proj, scales), codes, cap=cap, depth=128,
+                                     route="staged")
+    assert torch.isfinite(ws).sum() > T * 64
+    assert torch.equal(s, ws) and torch.equal(rows, wr)
