@@ -6,8 +6,9 @@
 Builds the port's CUDA kernels from ``colbert_tpu_torch/csrc`` (one nvcc
 per source, all at once) and drives the port's paths, exact flat serving,
 retriever training and ANN serving with the sq, pq4 and pq codecs (sq also
-by the token-major probe), at full BERT-base width with random weights
-from a seed:
+by the token-major probe), at full BERT-base width, and the second stage
+(mining, the cross-encoder's training and reranking) at macbert-large
+width, with random weights from a seed:
 
 * phase 1: kernels K1 (fused scan + group max) and K2 (full score matrix)
   against their plain PyTorch versions on the card, at B=144 queries x 16
@@ -41,10 +42,13 @@ from a seed:
   route "staged" (the first design); limit 1e-4 absolute; both timed at
   the eval shape through the wrapper and as a launch alone on the masked
   inputs, with the TF32 bound and the fp32 CUDA-core bound.  K9 on the attention
-  probabilities of a training step, (68, 12, 384, 384) bf16, and on an
-  fp32 tensor with an odd element count: forward and backward bit-equal to
-  the plain version's Philox stream, the keep fraction within 5 sigma of
-  (256 - thr) / 256.
+  probabilities of a training step, (68, 12, 384, 384) bf16, at the
+  cross-encoder's two sites, its attention probabilities (20, 16, 384,
+  384) bf16 and its hidden states (20, 384, 1024) bf16, and on an fp32
+  tensor with an odd element count: forward and backward bit-equal to the
+  plain version's Philox stream, the keep fraction within 5 sigma of
+  (256 - thr) / 256; the three shapes timed beside the plain version,
+  ``F.dropout`` and the bound (bytes read and written over 3.35 TB/s).
 * phase 4: the CLI's ``train`` at BERT-base width, batch 34, multiview
   16/16, dropout 0.1 (the default byte impl): 7 steps over synthetic
   Chinese questions with positives and hard negatives, an evaluation on a
@@ -129,6 +133,31 @@ from a seed:
   of it excused only where the rows' fp64 sums differ; K10: against the
   plain version's top-513, an exact tie of it excused where the kernel's
   scores of the two rows differ) equal except at near ties.
+
+* phase 7, the second stage, at the end of phase 2 on its encoded corpus
+  served flat in process (its retriever, ``serve.mode=flat``), with the
+  cross-encoder at macbert-large width (``configs/dureader.yaml:11-17``:
+  24 layers, hidden 1,024, 16 heads, FFN 4,096, bf16, ``ce_maxlen`` 384)
+  and ``ce_train`` at the reference's batch (4 questions x (1 + 4
+  negatives)): ``mine --topk 50 --keep-old 10 --distill-out`` over 128
+  questions (64 of phase 2's topic-word questions and 64 passages asked
+  as questions, 15 old negatives each); its files must equal
+  ``gen_iter_train_dev`` and ``gen_distill_data`` over the same service's
+  results (teacher scores within 1e-4), every question keep its 10 old
+  negatives first and no old negative be a positive (the fresh ones may
+  hold it: the reference's generator does not filter them; counted).
+  ``train-ce`` for 7 steps on the mined file (an evaluation on 16 dev
+  questions and a checkpoint at steps 3 and 6, the final save at 7), then
+  ``train-ce --resume`` from step 6: its loss and every parameter after
+  step 7 bit-equal to the straight run's, and the (shape, dtype) of every
+  dropout site's input in that step exactly the two phase 3 held K9 at; ``train-ce`` with
+  ``ce_train.distill_weight=0.5`` on the ``--distill-out`` file; then
+  ``evaluate --rerank-ce`` over 16 questions (top-100 retrieved, reranked
+  by the last checkpoint), and one question through the same two stages
+  against the argsort of its CE scores computed again.  Every loss must be
+  finite, K9 launch 2 x (1 + 3 x 24) = 146 times a CE step and K1 once per
+  retrieval batch; prints the CE's ms/step over steps 3-6 on the host
+  clock, its peak device memory and the rerank's ms a question.
 
 Prints the card's name and power limit, the measurements, one JSON line of
 kernels, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -302,6 +331,24 @@ def time_ms(fn, iters=20, warmup=3) -> float:
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, warmup=3) -> float:
+    """``fn``'s time on the card alone: the stream waits behind a spin kernel
+    while the host queues every call, so the events see no host gaps."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~50 ms of clock cycles, longer than the host takes to queue the calls
     start.record()
     for _ in range(iters):
         fn()
@@ -617,7 +664,9 @@ def phase_slice(device, workdir: Path, label: str, num_docs=20_000, model_kw=Non
                                           requests, k2_searcher, n_eval, label)
     codec_launches = phase_codecs_cli(device, workdir, cfg, common, corpus_path, eval_path, docs,
                                       requests, k2_searcher, n_eval)
-    return launches, worst, ann_launches, codec_launches, k7_deep
+    ctx = {"cfg": cfg, "common": common, "corpus_path": corpus_path, "docs": docs, "questions": questions,
+           "positives": positives, "free": list(range(n_requests * B, len(questions)))}
+    return launches, worst, ann_launches, codec_launches, k7_deep, ctx
 
 
 # ---- phase 3: the training kernels against their plain versions ----
@@ -625,13 +674,77 @@ def phase_slice(device, workdir: Path, label: str, num_docs=20_000, model_kw=Non
 EVAL_Q, EVAL_D = 34, 340          # eval step at the reference batch: 34 questions x (2 + 8) docs
 K9_SHAPE = (68, 12, 384, 384)     # attention probabilities of a training step, bf16
 K9_THR = 26                       # round(0.1 * 256)
+CE_MODEL = dict(hidden_size=1024, num_layers=24, num_heads=16, intermediate_size=4096)  # configs/dureader.yaml:11-17
+CE_BATCH, CE_NEG = 4, 4           # ce_train: 4 questions x (1 + 4 negatives) = 20 sequences a step
+# where K9 runs in a CE step: the attention probabilities (the fp32 softmax is
+# cast to the bf16 model dtype before its dropout) and the hidden states;
+# phase 7 records the inputs of every dropout site and holds them to these
+K9_CE_SITES = {"probabilities": ((CE_BATCH * (1 + CE_NEG), 16, 384, 384), "bfloat16"),
+               "hidden states": ((CE_BATCH * (1 + CE_NEG), 384, 1024), "bfloat16")}
 
 
-def phase_train_kernels(device, eval_q=EVAL_Q, eval_d=EVAL_D, k9_shape=K9_SHAPE, seed=SEED):
-    """Compare K3 and K9 with their plain versions; returns per-kernel summaries."""
-    import numpy as np
+K9_KEYS = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
+           "library_device_ms")
+
+
+def k9_check(device, shape, dtype, seed64, what):
+    """K9 forward and backward against the plain version's Philox stream (bit-equal),
+    its keep fraction, and its time beside the plain version's, ``F.dropout``'s
+    and the bound (each element read once and written once); the kernel and
+    ``F.dropout`` are also timed on the card alone (``device_ms``)."""
     import torch
     import torch.nn.functional as F
+
+    from colbert_tpu_torch.ops import dropout as dr
+
+    scale = dr.keep_scale(K9_THR, dtype)
+    x = torch.randn(shape, device=device, dtype=dtype).requires_grad_(True)
+    y = dr.hw_dropout(x, seed64, K9_THR)
+    g = torch.randn_like(y)
+    (dx,) = torch.autograd.grad(y, x, g)
+    xd = x.detach()
+    keep = dr.mask_bytes(xd.numel(), seed64, device).view(shape) >= K9_THR
+    want_y = dr.hw_dropout_ref(xd, seed64, K9_THR)
+    want_dx = torch.where(keep, g * torch.tensor(scale, dtype=g.dtype, device=device), torch.zeros_like(g))
+    torch.cuda.synchronize()
+    if not torch.equal(y, want_y):
+        raise AssertionError(f"K9 {shape} forward differs from the plain version in {int((y != want_y).sum())} elements")
+    if not torch.equal(dx, want_dx):
+        raise AssertionError(f"K9 {shape} backward differs from grad * mask * scale in {int((dx != want_dx).sum())} elements")
+    nz = xd != 0
+    frac = float(((y != 0) & nz).sum()) / float(nz.sum())
+    p = (256 - K9_THR) / 256
+    sigma = (p * (1 - p) / float(nz.sum())) ** 0.5
+    name = str(dtype).replace("torch.", "")
+    log(f"[phase3] K9 {shape} {name} thr {K9_THR} ({what}): forward and backward bit-equal to the plain "
+        f"version; keep fraction {frac:.6f} vs {p:.6f} ({(frac - p) / sigma:+.2f} sigma)")
+    if abs(frac - p) > 5 * sigma:
+        raise AssertionError(f"K9 keep fraction {frac} is {abs(frac - p) / sigma:.1f} sigma from {p}")
+    err = max(float((y.detach().float() - want_y.float()).abs().max()), float((dx.float() - want_dx.float()).abs().max()))
+    del dx, want_dx, g, keep, want_y, y, x
+    xd = xd.contiguous()
+    out = {"shape": list(shape), "dtype": name, "max_abs_err": err,
+           "ms": time_ms(lambda: dr.hw_dropout(xd, seed64, K9_THR)),
+           "plain_ms": time_ms(lambda: dr.hw_dropout_ref(xd, seed64, K9_THR), iters=5),
+           "library_ms": time_ms(lambda: F.dropout(xd, p=K9_THR / 256, training=True)),
+           "device_ms": device_ms(lambda: dr.hw_dropout(xd, seed64, K9_THR)),
+           "library_device_ms": device_ms(lambda: F.dropout(xd, p=K9_THR / 256, training=True))}
+    out["bound_ms"], out["bound_by"] = bound(2.0 * xd.numel(), 2.0 * xd.numel() * xd.element_size(),
+                                             PEAK_FP32_FLOPS)
+    log(f"[phase3] K9 at {shape} {name}: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
+        f"F.dropout {out['library_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']}: "
+        f"{2.0 * xd.numel() * xd.element_size() / 1e6:.1f} MB read and written at "
+        f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s); on the card alone, the host's issue time hidden: kernel "
+        f"{out['device_ms']:.4f} ms, F.dropout {out['library_device_ms']:.4f} ms")
+    return out
+
+
+def phase_train_kernels(device, eval_q=EVAL_Q, eval_d=EVAL_D, k9_shape=K9_SHAPE, k9_ce_sites=K9_CE_SITES,
+                        seed=SEED):
+    """Compare K3 and K9 (at the retriever's and the cross-encoder's shapes) with
+    their plain versions; returns per-kernel summaries."""
+    import numpy as np
+    import torch
 
     from colbert_tpu_torch.ops import dropout as dr, maxsim as ms
 
@@ -701,43 +814,15 @@ def phase_train_kernels(device, eval_q=EVAL_Q, eval_d=EVAL_D, k9_shape=K9_SHAPE,
     del cases, Q, D
 
     seed64 = int(rng.integers(0, 2**63)) * 2 + 1
-    scale = dr.keep_scale(K9_THR, torch.bfloat16)
-    x = torch.randn(k9_shape, device=device, dtype=torch.bfloat16).requires_grad_(True)
-    y = dr.hw_dropout(x, seed64, K9_THR)
-    g = torch.randn_like(y)
-    (dx,) = torch.autograd.grad(y, x, g)
-    xd = x.detach()
-    keep = dr.mask_bytes(xd.numel(), seed64, device).view(k9_shape) >= K9_THR
-    want_y = dr.hw_dropout_ref(xd, seed64, K9_THR)
-    want_dx = torch.where(keep, g * torch.tensor(scale, dtype=g.dtype, device=device), torch.zeros_like(g))
-    torch.cuda.synchronize()
-    if not torch.equal(y, want_y):
-        raise AssertionError(f"K9 forward differs from the plain version in {int((y != want_y).sum())} elements")
-    if not torch.equal(dx, want_dx):
-        raise AssertionError(f"K9 backward differs from grad * mask * scale in {int((dx != want_dx).sum())} elements")
-    nz = xd != 0
-    frac = float(((y != 0) & nz).sum()) / float(nz.sum())
-    p = (256 - K9_THR) / 256
-    sigma = (p * (1 - p) / float(nz.sum())) ** 0.5
-    log(f"[phase3] K9 {k9_shape} bf16 thr {K9_THR}: forward and backward bit-equal to the plain "
-        f"version; keep fraction {frac:.6f} vs {p:.6f} ({(frac - p) / sigma:+.2f} sigma)")
-    if abs(frac - p) > 5 * sigma:
-        raise AssertionError(f"K9 keep fraction {frac} is {abs(frac - p) / sigma:.1f} sigma from {p}")
+    k9 = k9_check(device, k9_shape, torch.bfloat16, seed64, "the retriever's attention probabilities")
     odd = torch.randn(1_000_003, device=device)
     if not torch.equal(dr.hw_dropout(odd, seed64 + 2, 51), dr.hw_dropout_ref(odd, seed64 + 2, 51)):
         raise AssertionError("K9 fp32 (odd element count) differs from the plain version")
-    err9 = max(float((y.detach().float() - want_y.float()).abs().max()), float((dx.float() - want_dx.float()).abs().max()))
     log(f"[phase3] K9 (1000003,) fp32 thr 51: bit-equal to the plain version")
-    del dx, want_dx, g, keep, want_y, y
-    xd = xd.contiguous()
-    k9 = {"max_abs_err": err9,
-          "ms": time_ms(lambda: dr.hw_dropout(xd, seed64, K9_THR)),
-          "plain_ms": time_ms(lambda: dr.hw_dropout_ref(xd, seed64, K9_THR), iters=5),
-          "library_ms": time_ms(lambda: F.dropout(xd, p=K9_THR / 256, training=True))}
-    k9["bound_ms"], k9["bound_by"] = bound(2.0 * xd.numel(), 2.0 * xd.numel() * xd.element_size(),
-                                           PEAK_FP32_FLOPS)
-    log(f"[phase3] K9 at {k9_shape} bf16: kernel {k9['ms']:.3f} ms, plain {k9['plain_ms']:.3f} ms, "
-        f"F.dropout {k9['library_ms']:.3f} ms, bound {k9['bound_ms']:.4f} ms ({k9['bound_by']})")
+    del odd
+    for i, (site, (shape, dtype)) in enumerate(k9_ce_sites.items()):
+        k9["ce" if i == 0 else "ce_hidden"] = k9_check(device, shape, getattr(torch, dtype), seed64 + 4 + 2 * i,
+                                                        f"the cross-encoder's {site} (phase 7)")
     return {"K3": k3, "K9": k9}
 
 
@@ -2023,6 +2108,254 @@ def phase_codecs(device, workdir: Path, label: str, info: dict):
     return out, summary
 
 
+# ---- phase 7: the second stage (mine, train-ce, evaluate --rerank-ce) ----
+
+MINE_TOPK, KEEP_OLD, OLD_NEGS = 50, 10, 15
+
+
+def ce_config(cfg, workdir: Path, model_kw=None):
+    """Phase 2's config (its flat service, its tokenizer) with the cross-encoder
+    at macbert-large width and ``ce_train`` at the reference's batch."""
+    from colbert_tpu_torch.config import CETrainConfig, ColbertConfig, ModelConfig
+
+    c = ColbertConfig.from_dict(cfg.to_dict())
+    c.ce_model = ModelConfig(**{**CE_MODEL, **(model_kw or {}), "vocab_size": cfg.model.vocab_size})
+    c.ce_train = CETrainConfig(per_device_batch_size=CE_BATCH, neg_num=CE_NEG, num_epochs=1, evals_per_epoch=2,
+                               log_every=1, keep_checkpoints=2, eval_topk=TOPK,
+                               checkpoint_dir=str(workdir / "ce"), seed=SEED)
+    return c
+
+
+def phase_second_stage(device, workdir: Path, label: str, ctx: dict, model_kw=None, n_mine=128, n_dev=16,
+                       n_rerank=16, ce_steps=7, seed=SEED):
+    """Phase 7 on phase 2's encoded corpus, served flat in process: ``mine``,
+    ``train-ce`` (straight, resumed, distilled) and ``evaluate --rerank-ce``.
+    Returns the launch counts of each counted run and the measurements."""
+    import argparse
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.evaluation import gen_distill_data, gen_iter_train_dev
+    from colbert_tpu_torch.models.bert import Dropout
+    from colbert_tpu_torch.training import CETrainer
+    from colbert_tpu_torch.training.checkpoint import CheckpointManager
+    from colbert_tpu_torch.utils.io import dump_json, load_json, load_jsonl
+
+    docs, questions, positives = ctx["docs"], ctx["questions"], ctx["positives"]
+    rng = np.random.default_rng([seed, 7])
+    cfg = ce_config(ctx["cfg"], workdir, model_kw)
+    conf = workdir / "conf_ce.yaml"
+    cfg.to_yaml(conf)
+    # ``--pretrain`` is the retriever's (mine, evaluate); train-ce starts the CE from its seeded init
+    ce_common = ["--config", str(conf), "--device", str(device)]
+    common = [*ce_common, "--pretrain", ctx["common"][3]]
+    corpus = ["--corpus", str(ctx["corpus_path"])]
+    c = cfg.ce_model
+    log(f"[phase7] cross-encoder hidden={c.hidden_size} layers={c.num_layers} heads={c.num_heads} "
+        f"ffn={c.intermediate_size} vocab={c.vocab_size} {c.dtype}, dropout {c.hidden_dropout}/"
+        f"{c.attention_dropout} ({c.dropout_impl}), attention softmax {c.attention_softmax_dtype}, ce_maxlen "
+        f"{cfg.tokenizer.ce_maxlen}, batch {CE_BATCH} x (1 + {CE_NEG}); retriever: phase 2's, flat, "
+        f"{len(docs)} docs")
+    per_step_k9 = 2 * (1 + 3 * c.num_layers)  # every dropout site, forward and backward
+
+    # ---- mine: questions with known positives and 15 old negatives each ----
+    # half of them phase 2's topic-word questions, half passages asked as
+    # questions: the random retriever seldom ranks a topic-word question's
+    # positive in its top 8 and a passage's own text far more often (the
+    # log line below counts both), and --distill-out keeps only the
+    # questions whose window holds the positive
+    picks = ctx["free"][: n_mine // 2 + n_rerank]
+    asked = [(questions[i], positives[i]) for i in picks[: n_mine // 2]]
+    own = rng.choice(len(docs), n_mine - len(asked), replace=False)
+    asked = [x for pair in zip(asked, [(docs[p], p) for p in own]) for x in pair]
+    mine_in = [{"question": q, "positive_ctxs": [docs[p]],
+                "hard_negative_ctxs": [docs[j] for j in rng.choice(len(docs), OLD_NEGS + 1, replace=False)
+                                       if j != p][:OLD_NEGS]} for q, p in asked]
+    mine_path, mined_path, distill_path = workdir / "mine_in.json", workdir / "mined.json", workdir / "distill.json"
+    dump_json(mine_in, mine_path)
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(["mine", *corpus, "--eval-data", str(mine_path), "--out", str(mined_path), "--topk", str(MINE_TOPK),
+              "--keep-old", str(KEEP_OLD), "--distill-out", str(distill_path), *common])
+    mine_s = time.perf_counter() - t0
+    mine_launches = read_counts()
+    mined, distill = load_json(mined_path), load_json(distill_path)
+    # the same retrieval in process, through the service ``mine`` builds:
+    # mine's files are the generators over its results
+    base = cli.make_service(cfg, argparse.Namespace(checkpoint_step=None, pretrain=ctx["common"][3],
+                                                    device=str(device), corpus=str(ctx["corpus_path"])))
+    res = base.retrieve([t["question"] for t in mine_in], topk=MINE_TOPK)
+    merged = [{**t, "res": r} for t, r in zip(mine_in, res)]
+    want_mined = gen_iter_train_dev(merged, keep_old=KEEP_OLD, top=MINE_TOPK)
+    want_distill = gen_distill_data(merged, group=cfg.ce_train.distill_group)
+    if [m["hard_negative_ctxs"] for m in mined] != [m["hard_negative_ctxs"] for m in want_mined] or \
+            [m["question"] for m in mined] != [t["question"] for t in mine_in]:
+        raise AssertionError("mine's negatives differ from gen_iter_train_dev over the service's own results")
+    for m, t in zip(mined, mine_in):
+        old = t["hard_negative_ctxs"][:KEEP_OLD]
+        if m["hard_negative_ctxs"][:KEEP_OLD] != old or len(m["hard_negative_ctxs"]) > KEEP_OLD + MINE_TOPK:
+            raise AssertionError(f"--keep-old {KEEP_OLD} not honored for {t['question']!r}")
+        if any(x in t["positive_ctxs"] for x in old):
+            raise AssertionError(f"an old negative of {t['question']!r} is its positive")
+    own_text = {docs[p] for p in own}
+    pos_in_fresh = sum(any(x in t["positive_ctxs"] for x in m["hard_negative_ctxs"][KEEP_OLD:])
+                       for m, t in zip(mined, mine_in))
+    d_err = max([abs(s - w) for d, wd in zip(distill, want_distill)
+                 for (s, _), (w, _) in zip(d["res_scored"], wd["res_scored"])] or [0.0])
+    if [[x for _, x in d["res_scored"]] for d in distill] != [[x for _, x in d["res_scored"]] for d in want_distill] \
+            or d_err > SCORE_ATOL:
+        raise AssertionError(f"--distill-out differs from gen_distill_data over the service's results ({d_err})")
+    log(f"[phase7] mine --topk {MINE_TOPK} --keep-old {KEEP_OLD} --distill-out: {n_mine} questions in "
+        f"{mine_s:.2f} s (service start included); every question keeps its {KEEP_OLD} old negatives first, "
+        f"then {np.mean([len(m['hard_negative_ctxs']) - KEEP_OLD for m in mined]):.1f} fresh ones on average; "
+        f"negatives equal gen_iter_train_dev over the in-process service's results, distill windows equal "
+        f"gen_distill_data (teacher scores within {d_err:.2e}); {len(distill)}/{n_mine} questions have their "
+        f"positive in the top-{cfg.ce_train.distill_group} window ({sum(d['question'] in own_text for d in distill)} "
+        f"of them passages asked as questions); {pos_in_fresh} have it among the fresh "
+        f"negatives (gen_iter_train_dev does not filter positives, as the reference's gen_iter does not); "
+        f"launches {mine_launches}")
+    if mine_launches["K1"] != -(-n_mine // B):
+        raise AssertionError(f"mine: K1 launched {mine_launches['K1']} times for {n_mine} questions")
+
+    # ---- train-ce: ce_steps steps, an evaluation and a checkpoint every ce_steps // 2 ----
+    train_path, dev_path = workdir / "ce_train.json", workdir / "ce_dev.json"
+    dump_json(mined[: ce_steps * CE_BATCH], train_path)
+    dump_json(mined[ce_steps * CE_BATCH :][:n_dev], dev_path)
+    if len(mined) < ce_steps * CE_BATCH + n_dev:
+        raise ValueError(f"{len(mined)} mined questions for {ce_steps} steps and {n_dev} dev questions")
+    ce_args = ["train-ce", "--train-data", str(train_path), *ce_common]
+    held_gb = torch.cuda.memory_allocated(device) / 1e9  # phase 2's table and searchers
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main([*ce_args, "--dev-data", str(dev_path)])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    ckpt = CheckpointManager(cfg.ce_train.checkpoint_dir)
+    steps = load_jsonl(ckpt.dir / "ce_train_steps.jsonl")
+    evals = load_jsonl(ckpt.dir / "ce_train_log.jsonl")
+    losses = [r["loss"] for r in steps]
+    log(f"[phase7] train-ce: {len(steps)} steps in {train_s:.1f} s (model init, evaluation and checkpoints "
+        f"included); losses {[round(x, 4) for x in losses]}; evaluations {evals} (dev MRR over {n_dev} questions "
+        f"x (1 + {2 * CE_NEG}), information only: a random order gives H(9)/9 = 0.314)")
+    if len(losses) != ce_steps or not np.isfinite(losses).all():
+        raise AssertionError(f"expected {ce_steps} finite CE losses, got {losses}")
+    eval_every = ce_steps // 2
+    saved = [eval_every * i for i in range(1, ce_steps // eval_every + 1)]
+    want_ckpts = sorted(set(saved + [ce_steps]))[-2:]
+    if [r["step"] for r in evals] != saved or ckpt.all_steps() != want_ckpts:
+        raise AssertionError(f"evaluations at {[r['step'] for r in evals]}, checkpoints {ckpt.all_steps()}; "
+                             f"expected {saved} and {want_ckpts}")
+    log(f"[phase7] launches in the train-ce run: {launches} (K9 expected {ce_steps} steps x {per_step_k9} = "
+        f"{ce_steps * per_step_k9}: 1 + 3 x {c.num_layers} dropout sites, forward and backward)")
+    if launches["K9"] != ce_steps * per_step_k9:
+        raise AssertionError(f"K9 launched {launches['K9']} times, expected {ce_steps * per_step_k9}")
+    step_s = [r["step_s"] for r in steps[2:6]]
+    ms_step = 1e3 * float(np.mean(step_s))
+    log(f"[phase7] {ms_step:.1f} ms/step = {CE_BATCH / ms_step * 1e3:.2f} questions/s over steps 3-6 on the host "
+        f"clock (min {1e3 * min(step_s):.1f}, max {1e3 * max(step_s):.1f} ms; first step "
+        f"{1e3 * steps[0]['step_s']:.1f} ms); peak device memory {peak_gb:.2f} GB, of which {held_gb:.2f} GB "
+        f"held before the run (phase 2's tables and searchers) [{label}]")
+
+    # ---- resume from the checkpoint before the last step: bit-exact ----
+    last, before_last = ckpt.all_steps()[-1], ckpt.all_steps()[-2]
+    straight = torch.load(ckpt.params_path(last), map_location="cpu", weights_only=True)
+    shutil.rmtree(ckpt.path(last))
+    sites = set()
+
+    def record(mod, args):
+        if isinstance(mod, Dropout) and mod.training:
+            sites.add((tuple(args[0].shape), str(args[0].dtype).replace("torch.", "")))
+
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(record)
+    reset_counts()
+    try:
+        cli.main([*ce_args, "--resume"])
+    finally:
+        hook.remove()
+    torch.cuda.synchronize()
+    resumed_launches = read_counts()
+    log(f"[phase7] K9's inputs in the resumed step (shape, dtype): {sorted(sites)}; phase 3 held K9 at "
+        f"{sorted(K9_CE_SITES.values())}")
+    if sites != set(K9_CE_SITES.values()):
+        raise AssertionError(f"K9 ran at {sorted(sites)} in a CE step; phase 3 holds it at {K9_CE_SITES}")
+    rsteps = load_jsonl(ckpt.dir / "ce_train_steps.jsonl")
+    resumed = torch.load(ckpt.params_path(last), map_location="cpu", weights_only=True)
+    differ = [k for k in straight if not torch.equal(straight[k], resumed[k])]
+    log(f"[phase7] resume from checkpoint {before_last}: steps {[r['step'] for r in rsteps]}, loss "
+        f"{[r['loss'] for r in rsteps]} vs the straight run's {losses[before_last:]}; parameters after step "
+        f"{last}: {len(straight) - len(differ)}/{len(straight)} tensors bit-equal to the straight run's; "
+        f"K9 launches {resumed_launches['K9']}")
+    if [r["step"] for r in rsteps] != list(range(before_last + 1, last + 1)) or \
+            [r["loss"] for r in rsteps] != losses[before_last:] or differ or \
+            resumed_launches["K9"] != per_step_k9 * (last - before_last):
+        raise AssertionError(f"the resumed run differs from the straight one (tensors {differ[:3]})")
+    del straight, resumed
+
+    # ---- train-ce with distillation, on mine's --distill-out file ----
+    dcfg = ["--set", "ce_train.distill_weight=0.5", "--set", f"ce_train.checkpoint_dir={workdir / 'ce_distill'}"]
+    n_distill_steps = len(distill) // CE_BATCH
+    if n_distill_steps < 1:
+        raise AssertionError(f"{len(distill)} distillation questions, fewer than a batch of {CE_BATCH}")
+    reset_counts()
+    cli.main(["train-ce", "--train-data", str(distill_path), *ce_common, *dcfg])
+    torch.cuda.synchronize()
+    distill_launches = read_counts()
+    dsteps = load_jsonl(workdir / "ce_distill" / "ce_train_steps.jsonl")
+    log(f"[phase7] train-ce with ce_train.distill_weight=0.5 over {len(distill)} distillation questions: "
+        f"{len(dsteps)} steps, losses {[r['loss'] for r in dsteps]}; K9 launches {distill_launches['K9']}")
+    if len(dsteps) != n_distill_steps or not np.isfinite([r["loss"] for r in dsteps]).all() or \
+            distill_launches["K9"] != per_step_k9 * n_distill_steps:
+        raise AssertionError("the distillation run did not take finite steps through K9")
+
+    # ---- evaluate --rerank-ce: retrieve top-100, rerank with the CE checkpoint ----
+    eval_path, metrics_path = workdir / "rerank_eval.json", workdir / "rerank_metrics.json"
+    dump_json([{"question": questions[i], "positive_ctxs": [docs[positives[i]]]} for i in picks[n_mine // 2 :]],
+              eval_path)
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(["evaluate", "--eval-data", str(eval_path), *corpus, "--topk", str(TOPK), "--rerank-ce",
+              "--out", str(metrics_path), *common])
+    torch.cuda.synchronize()
+    rerank_s = time.perf_counter() - t0
+    rerank_launches = read_counts()
+    metrics = load_json(metrics_path)
+    # one question again through the same two-stage closure, against the
+    # argsort of its CE scores computed anew by the model
+    q = questions[picks[n_mine // 2]]
+    row = base.retrieve([q], topk=TOPK)[0]
+    two_stage = cli._reranked(cfg, device, lambda qs, k: base.retrieve(qs, topk=k))
+    t1 = time.perf_counter()
+    reranked = two_stage([q], TOPK)[0]
+    torch.cuda.synchronize()
+    one_q_ms = 1e3 * (time.perf_counter() - t1)
+    ce = CETrainer(cfg, cli._tokenizer(cfg), device=device)
+    ce.load_for_inference()
+    enc = ce.tok.encode_ce_pairs([(q, t) for _, _, t in row])
+    pad = 128 - len(row)
+    scores = ce._score(np.pad(enc.input_ids, ((0, pad), (0, 0))), np.pad(enc.attention_mask, ((0, pad), (0, 0))))
+    want = [row[i] for i in np.argsort(-scores[: len(row)])]
+    log(f"[phase7] evaluate --rerank-ce over {n_rerank} questions, top-{TOPK} retrieved and reranked "
+        f"(ce_train.eval_topk {cfg.ce_train.eval_topk}, CE batches of 128): {rerank_s:.2f} s = "
+        f"{1e3 * rerank_s / n_rerank:.1f} ms a question (CE init and checkpoint load included); one question "
+        f"through the same two stages {one_q_ms:.1f} ms; metrics {metrics} (information: random weights); "
+        f"distinct CE scores among the 100: {len(set(scores[: len(row)].tolist()))}; launches {rerank_launches}")
+    if [p for p, _, _ in reranked] != [p for p, _, _ in want]:
+        raise AssertionError("the reranked order differs from the argsort of the question's CE scores")
+    if rerank_launches["K1"] != -(-n_rerank // B) or not np.isfinite(list(metrics.values())).all():
+        raise AssertionError(f"evaluate --rerank-ce: launches {rerank_launches}, metrics {metrics}")
+    return {"mine": mine_launches, "train": launches, "resume": resumed_launches, "distill": distill_launches,
+            "rerank": rerank_launches}, {
+        "ms_step": ms_step, "peak_gb": peak_gb, "held_gb": held_gb, "per_step_k9": per_step_k9, "losses": losses,
+        "rerank_ms_per_question": 1e3 * rerank_s / n_rerank, "one_question_ms": one_q_ms,
+        "dev_mrr": [r.get("dev_mrr") for r in evals], "metrics": metrics, "distill_questions": len(distill)}
+
+
 def main() -> int:
     import torch
 
@@ -2054,7 +2387,9 @@ def main() -> int:
     worst, times, share, routes = phase_kernels(device)
     train_kernels = phase_train_kernels(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        serve_launches, _, ann_launches, codec_launches, k7_deep = phase_slice(device, Path(tmp), label)
+        serve_launches, _, ann_launches, codec_launches, k7_deep, ctx = phase_slice(device, Path(tmp), label)
+        ce_launches, ce_info = phase_second_stage(device, Path(tmp), label, ctx)
+        del ctx
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         train_launches, _ = phase_train(device, Path(tmp), label)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ann_") as tmp:
@@ -2073,6 +2408,8 @@ def main() -> int:
             "bound_ms": k12_bound[0], "bound_by": k12_bound[1], "library_ms": None,
             "kernel_route": routes[fn], "peak_share": share[fn], "yardstick_cublas_ms": times["cuBLAS"][0],
         })
+    kernels[0]["second_stage_launches"] = {"mine": ce_launches["mine"]["K1"],
+                                           "evaluate_rerank_ce": ce_launches["rerank"]["K1"]}
     kernels[0].update({"int8_ms": times["K1 int8"][0], "int8_peak_share": share["K1 int8"],
                        "docs_200k_bf16_ms": times["K1 200k bf16"][0],
                        "docs_200k_peak_share": share["K1 200k bf16"]})
@@ -2087,6 +2424,14 @@ def main() -> int:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
         })
+        if fn == "K9":
+            ce, ce_hidden = k["ce"], k["ce_hidden"]
+            kernels[-1].update({
+                "ce_launches": ce_launches["train"]["K9"], "ce_launches_per_step": ce_info["per_step_k9"],
+                "ce_resume_launches": ce_launches["resume"]["K9"], "ce_distill_launches": ce_launches["distill"]["K9"],
+                "device_ms": k["device_ms"], "library_device_ms": k["library_device_ms"],
+                **{f"ce_{key}": ce[key] for key in K9_KEYS},
+                **{f"ce_hidden_{key}": ce_hidden[key] for key in K9_KEYS}})
         if fn == "K3":
             kernels[-1].update({
                 "kernel_route": k["kernel_route"], "route_launches": {

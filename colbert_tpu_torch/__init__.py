@@ -16,7 +16,11 @@ Slices ported so far:
 * the IVF index with the sq codec (``indexing/builder.py``) and ANN
   serving: the list-major probe (``csrc/sq_probe.cu``), pid dedup and the
   fused gather + MaxSim rerank over a bf16 or int8 table
-  (``csrc/rerank.cu``).
+  (``csrc/rerank.cu``), and the pq4 and pq codecs and the token-major sq
+  probe;
+* the second stage: hard-negative mining (``evaluation/dureader.py``), the
+  cross-encoder reranker (``models/ce.py``) and its trainer
+  (``training/ce_trainer.py``, dropout by the same Philox kernel).
 
 The package imports ``torch`` and nothing of ``colbert_tpu``, ``jax`` or
 ``flax``: it carries its own copies of the framework-free modules (config,
@@ -33,6 +37,7 @@ def __getattr__(name):
         "load_config": ("colbert_tpu_torch.config", "load_config"),
         "ColbertTokenizer": ("colbert_tpu_torch.tokenization", "ColbertTokenizer"),
         "ColbertModel": ("colbert_tpu_torch.models.colbert", "ColbertModel"),
+        "CrossEncoderModel": ("colbert_tpu_torch.models.ce", "CrossEncoderModel"),
         "CollectionEncoder": ("colbert_tpu_torch.indexing.encoder", "CollectionEncoder"),
         "IndexStorage": ("colbert_tpu_torch.indexing.storage", "IndexStorage"),
         "ColbertSearcher": ("colbert_tpu_torch.ranking.searcher", "ColbertSearcher"),
@@ -41,6 +46,7 @@ def __getattr__(name):
         "RetrievalClient": ("colbert_tpu_torch.serving.server", "RetrievalClient"),
         "ColbertTrainer": ("colbert_tpu_torch.training.trainer", "ColbertTrainer"),
         "RetrievalDataset": ("colbert_tpu_torch.training.dataset", "RetrievalDataset"),
+        "CETrainer": ("colbert_tpu_torch.training.ce_trainer", "CETrainer"),
     }
     if name in api:
         import importlib
@@ -52,7 +58,7 @@ def __getattr__(name):
 
 __all__ = [
     "__version__", "ColbertConfig", "load_config", "ColbertTokenizer",
-    "ColbertModel", "CollectionEncoder", "IndexStorage", "ColbertSearcher",
+    "ColbertModel", "CrossEncoderModel", "CollectionEncoder", "IndexStorage", "ColbertSearcher",
     "RetrievalService", "RetrievalServer", "RetrievalClient",
-    "ColbertTrainer", "RetrievalDataset",
+    "ColbertTrainer", "RetrievalDataset", "CETrainer",
 ]

@@ -1,25 +1,36 @@
-"""Command line of the port: the ``train``, ``encode``, ``build-index``,
-``serve`` and ``evaluate`` subcommands of ``colbert_tpu/cli.py``.
+"""Command line of the port: every subcommand of ``colbert_tpu/cli.py``.
 
     python -m colbert_tpu_torch.cli train       --config conf.yaml --train-data t.json [--dev-data d.json] [--resume] [--pretrain pytorch.bin]
+    python -m colbert_tpu_torch.cli train-ce    --config conf.yaml --train-data t.json [--dev-data d.json] [--resume] [--pretrain ce.bin]
     python -m colbert_tpu_torch.cli encode      --config conf.yaml --corpus corpus.json [--checkpoint-step N | --pretrain pytorch.bin]
     python -m colbert_tpu_torch.cli build-index --config conf.yaml
     python -m colbert_tpu_torch.cli serve       --config conf.yaml --corpus corpus.json
-    python -m colbert_tpu_torch.cli evaluate    --config conf.yaml --eval-data dev.json --remote
+    python -m colbert_tpu_torch.cli evaluate    --config conf.yaml --eval-data dev.json --remote [--rerank-ce]
+    python -m colbert_tpu_torch.cli mine        --config conf.yaml --corpus corpus.json --eval-data train.json --out out.json [--distill-out d.json]
 
 ``build-index`` writes the IVF index (``index.codec`` "pq", the default,
 "pq4" or "sq") over the encoded parts; ``serve`` and ``evaluate`` serve it
 with ``serve.mode=ann`` (the config default) or serve the parts alone with
-``serve.mode=flat``.
+``serve.mode=flat``.  ``mine`` retrieves the top ``--topk`` passages of
+each question and writes ``--keep-old`` old negatives plus the fresh ones
+(``gen_iter_train_dev``), and with ``--distill-out`` the retriever's scored
+top windows (``gen_distill_data``); ``train-ce`` trains the cross-encoder
+on such a file; ``evaluate --rerank-ce`` reranks the top
+``ce_train.eval_topk`` of every question with the latest CE checkpoint.
 
 Retriever parameters resolve as the JAX CLI's ``_retriever_params`` does:
 ``--pretrain`` (a ``pytorch.bin`` in the reference layout, ``model.*`` +
 ``linear.weight``, as ``colbert_params_to_torch_state_dict`` exports a JAX
 checkpoint), else checkpoint ``--checkpoint-step`` (default: the latest)
 under ``train.checkpoint_dir``, else a clean error.  ``train --pretrain``
-also takes a bare BERT and starts the projection head fresh.  Overrides:
-repeated ``--set key=value`` with dotted keys.  Everything runs on
-``--device`` (default ``cuda``; the CPU only when asked for).
+also takes a bare BERT and starts the projection head fresh; so does
+``train-ce --pretrain`` (a CE ``pytorch.bin`` adds ``linear.bias``), and
+without it ``ce_train.init_from_retriever`` grafts the latest retriever
+checkpoint's BERT into the CE.  Overrides: repeated ``--set key=value``
+with dotted keys.  Everything runs on ``--device`` (default ``cuda``; the
+CPU only when asked for).  The multi-host flags (``--coordinator``,
+``--num-processes``, ``--process-id``) are refused: multi-GPU is ROADMAP
+Queue 1 step 10.
 """
 
 from __future__ import annotations
@@ -31,8 +42,9 @@ from typing import Any, Dict, List, Optional
 
 from colbert_tpu_torch.config import ColbertConfig, load_config
 from colbert_tpu_torch.utils.io import dump_json, load_json
+from colbert_tpu_torch.utils.logging import get_logger
 
-_NOT_PORTED = ("train-ce", "mine")
+logger = get_logger("cli")
 
 
 def _parse_overrides(pairs: List[str]) -> Dict[str, Any]:
@@ -103,6 +115,33 @@ def cmd_train(args) -> None:
     trainer.train(train_ds, dev_ds=dev_ds, resume=args.resume)
 
 
+def _ce_init_state_dict(cfg: ColbertConfig, pretrain: Optional[str]):
+    """The CE's starting parameters: ``--pretrain`` (a CE ``pytorch.bin`` or a
+    bare BERT), else with ``ce_train.init_from_retriever`` the latest
+    retriever checkpoint's BERT (the no-pretraining analogue of the
+    reference's macbert backbone), else None (a fresh init).  What it lacks
+    keeps the fresh init."""
+    from colbert_tpu_torch.models.convert import state_dict_from_reference
+
+    if pretrain:
+        return state_dict_from_reference(pretrain, cfg.ce_model, require_head=False, head_bias=True)
+    if cfg.ce_train.init_from_retriever:
+        retr = _retriever_state_dict(cfg, None, None)
+        return {k: v for k, v in retr.items() if k.startswith("bert.")}
+    return None
+
+
+def cmd_train_ce(args) -> None:
+    cfg = _load_cfg(args)
+    from colbert_tpu_torch.training import CETrainer, RetrievalDataset
+
+    trainer = CETrainer(cfg, _tokenizer(cfg), device=args.device,
+                        init_state_dict=_ce_init_state_dict(cfg, args.pretrain))
+    train_ds = RetrievalDataset.from_json(args.train_data)
+    dev_ds = RetrievalDataset.from_json(args.dev_data) if args.dev_data else None
+    trainer.train(train_ds, dev_ds=dev_ds, resume=args.resume)
+
+
 def cmd_encode(args) -> None:
     cfg = _load_cfg(args)
     from colbert_tpu_torch.indexing.encoder import CollectionEncoder
@@ -159,10 +198,55 @@ def cmd_evaluate(args) -> None:
     else:
         service = make_service(cfg, args)
         retrieve = lambda qs, k: service.retrieve(qs, topk=k)
+    if args.rerank_ce:
+        retrieve = _reranked(cfg, args.device, retrieve)
     metrics = evaluate_retrieval(retrieve, eval_data, topk=args.topk)
     print(json.dumps(metrics, indent=2))
     if args.out:
         dump_json(metrics, args.out, indent=2)
+
+
+def _reranked(cfg: ColbertConfig, device, base_retrieve):
+    """Two stages: retrieve, then the cross-encoder reorders each question's
+    top ``ce_train.eval_topk`` (reference stage 6, ``ce_trainer.py:97-123``)."""
+    from colbert_tpu_torch.training import CETrainer
+
+    ce = CETrainer(cfg, _tokenizer(cfg), device=device)
+    ce.load_for_inference()
+    top = cfg.ce_train.eval_topk
+
+    def retrieve(qs, k):
+        rows = base_retrieve(qs, max(k, top))
+        out = []
+        for q, row in zip(qs, rows):
+            order = ce.rerank(q, [t for _, _, t in row][:top])
+            out.append(([row[i] for i in order] + row[top:])[:k])
+        return out
+
+    return retrieve
+
+
+def cmd_mine(args) -> None:
+    """Iterative hard-negative mining (``gen_iter_colbert_train_dev`` parity).
+    ``--distill-out`` also writes the CE distillation data of the same
+    retrieval pass (``gen_distill_data``)."""
+    cfg = _load_cfg(args)
+    from colbert_tpu_torch.evaluation import gen_distill_data, gen_iter_train_dev
+
+    service = make_service(cfg, args)
+    data = load_json(args.eval_data)
+    res = service.retrieve([t["question"] for t in data], topk=args.topk)
+    for t, r in zip(data, res):
+        t["res"] = r
+    dump_json(gen_iter_train_dev(data, keep_old=args.keep_old, top=args.topk), args.out)
+    logger.info("wrote %s", args.out)
+    if args.distill_out:
+        dist = gen_distill_data(data, group=cfg.ce_train.distill_group)
+        dump_json(dist, args.distill_out)
+        logger.info(
+            "wrote %s (%d/%d questions kept: positive inside the top-%d window)",
+            args.distill_out, len(dist), len(data), cfg.ce_train.distill_group,
+        )
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -173,9 +257,13 @@ def main(argv: Optional[List[str]] = None) -> None:
         p.add_argument("--config", default=None)
         p.add_argument("--set", action="append", metavar="KEY=VALUE")
         p.add_argument("--pretrain", default=None,
-                       help="reference-layout pytorch.bin (model.* + linear.weight)")
+                       help="reference-layout pytorch.bin (model.* + linear.*): the retriever's; train-ce's own CE")
         p.add_argument("--checkpoint-step", type=int, default=None)
         p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+        # the JAX CLI's multi-host launch flags: refused (multi-GPU is ROADMAP step 10)
+        p.add_argument("--coordinator", default=None, help="not ported (multi-host launch)")
+        p.add_argument("--num-processes", type=int, default=None, help="not ported (multi-host launch)")
+        p.add_argument("--process-id", type=int, default=None, help="not ported (multi-host launch)")
         if corpus:
             p.add_argument("--corpus", required=True)
         if data:
@@ -184,6 +272,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     p = sub.add_parser("train"); common(p)
     p.add_argument("--train-data", required=True); p.add_argument("--dev-data", default=None)
     p.add_argument("--resume", action="store_true"); p.set_defaults(fn=cmd_train)
+    p = sub.add_parser("train-ce", help="the cross-encoder reranker"); common(p)
+    p.add_argument("--train-data", required=True); p.add_argument("--dev-data", default=None)
+    p.add_argument("--resume", action="store_true"); p.set_defaults(fn=cmd_train_ce)
     p = sub.add_parser("encode"); common(p, corpus=True); p.set_defaults(fn=cmd_encode)
     p = sub.add_parser("build-index", help="IVF index (pq, pq4 or sq codec) over the encoded parts")
     common(p); p.set_defaults(fn=cmd_build_index)
@@ -191,21 +282,25 @@ def main(argv: Optional[List[str]] = None) -> None:
     p = sub.add_parser("evaluate"); common(p, data=True)
     p.add_argument("--corpus", default=None)
     p.add_argument("--remote", action="store_true")
+    p.add_argument("--rerank-ce", action="store_true", help="apply the cross-encoder second stage")
     p.add_argument("--topk", type=int, default=100)
     p.add_argument("--out", default=None)
     p.set_defaults(fn=cmd_evaluate)
-    for name in _NOT_PORTED:
-        p = sub.add_parser(name, help="not yet ported (use python -m colbert_tpu.cli)")
-        p.set_defaults(fn=None)
+    p = sub.add_parser("mine", help="hard-negative mining"); common(p, corpus=True, data=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--topk", type=int, default=50)
+    p.add_argument("--keep-old", type=int, default=10)
+    p.add_argument("--distill-out", default=None,
+                   help="also write CE distillation data (teacher-scored windows)")
+    p.set_defaults(fn=cmd_mine)
 
-    args, rest = ap.parse_known_args(argv)
-    if args.fn is None:
+    args = ap.parse_args(argv)
+    if any(getattr(args, f) is not None for f in ("coordinator", "num_processes", "process_id")):
         raise SystemExit(
-            f"{args.cmd}: not yet ported to colbert_tpu_torch (see ROADMAP.md); "
+            f"{args.cmd}: the multi-host flags (--coordinator, --num-processes, --process-id) are not "
+            "yet ported to colbert_tpu_torch (ROADMAP.md Queue 1 step 10: multi-GPU and multi-host); "
             "use python -m colbert_tpu.cli"
         )
-    if rest:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
     args.fn(args)
 
 

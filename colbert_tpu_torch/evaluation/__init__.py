@@ -1,4 +1,19 @@
-from colbert_tpu_torch.evaluation.dureader import load_tsv_corpus
-from colbert_tpu_torch.evaluation.metrics import eval_retrieval
+from colbert_tpu_torch.evaluation.metrics import eval_retrieval, mrr_at_k, recall_at_k
+from colbert_tpu_torch.evaluation.dureader import (
+    load_tsv_corpus,
+    gen_ce_data,
+    gen_distill_data,
+    gen_iter_train_dev,
+    gen_dev_for_ce_test,
+)
 
-__all__ = ["eval_retrieval", "load_tsv_corpus"]
+__all__ = [
+    "eval_retrieval",
+    "mrr_at_k",
+    "recall_at_k",
+    "load_tsv_corpus",
+    "gen_ce_data",
+    "gen_distill_data",
+    "gen_iter_train_dev",
+    "gen_dev_for_ce_test",
+]

@@ -1,4 +1,5 @@
-"""Checkpoint conversion into the port's ``ColbertModel`` state dict.
+"""Checkpoint conversion into the port's ``ColbertModel`` and
+``CrossEncoderModel`` state dicts.
 
 Two sources:
 
@@ -14,6 +15,14 @@ Two sources:
   state dict (``bert.*`` or unprefixed keys, no ``linear.weight``) loads
   too, with ``require_head=False``, as the JAX package's
   ``colbert_params_from_torch`` accepts it.
+
+The cross-encoder's head carries a bias (``linear.bias``; the ColBERT
+projection has none): pass ``head_bias=True`` to
+:func:`state_dict_from_reference` and :func:`reference_state_dict` for its
+reference ``pytorch.bin`` (``model.*`` + ``linear.weight`` +
+``linear.bias``), the layout ``colbert_tpu/models/convert.py::
+ce_params_from_torch`` reads.  :func:`state_dict_from_jax_params` carries
+the bias whenever the JAX tree has one.
 
 :func:`flax_paths` names every port parameter by its flax path, which the
 optimizer's weight-decay mask reads (``training/train_state.py``).
@@ -46,7 +55,7 @@ def _t(a) -> torch.Tensor:
 
 
 def state_dict_from_jax_params(params: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """JAX ``{'bert': ..., 'linear': {'kernel'}}`` tree -> port state dict."""
+    """JAX ``{'bert': ..., 'linear': {'kernel'[, 'bias']}}`` tree -> port state dict."""
     out: Dict[str, torch.Tensor] = {}
 
     def dense(prefix: str, node) -> None:
@@ -88,10 +97,11 @@ def flax_paths(cfg: ModelConfig) -> Dict[str, str]:
             for t in ("weight", "bias"):
                 out[f"bert.layers.{i}.{port}.{t}"] = f"bert/layer_{i}/{port.replace('.', '/')}/{leaf[kind, t]}"
     out["linear.weight"] = "linear/kernel"
+    out["linear.bias"] = "linear/bias"  # the cross-encoder's head
     return out
 
 
-def _key_pairs(cfg: ModelConfig):
+def _key_pairs(cfg: ModelConfig, head_bias: bool = False):
     """(port key, reference key) for every parameter."""
     pairs = [
         (f"bert.embeddings.{n}.weight", f"model.embeddings.{n}.weight")
@@ -108,6 +118,8 @@ def _key_pairs(cfg: ModelConfig):
                     (f"bert.layers.{i}.{port}.{leaf}", f"model.encoder.layer.{i}.{ref}.{leaf}")
                 )
     pairs.append(("linear.weight", "linear.weight"))
+    if head_bias:
+        pairs.append(("linear.bias", "linear.bias"))
     return pairs
 
 
@@ -125,20 +137,21 @@ def _reference_keys(sd: Mapping[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def state_dict_from_reference(path_or_sd, cfg: ModelConfig, *,
-                              require_head: bool = True) -> Dict[str, torch.Tensor]:
-    """Reference ``pytorch.bin`` (``model.*`` + ``linear.weight``) -> port state dict.
+def state_dict_from_reference(path_or_sd, cfg: ModelConfig, *, require_head: bool = True,
+                              head_bias: bool = False) -> Dict[str, torch.Tensor]:
+    """Reference ``pytorch.bin`` (``model.*`` + ``linear.weight``, and
+    ``linear.bias`` with ``head_bias``) -> port state dict.
 
     Both sides store torch's (out, in) layout, so only the keys change.
-    With ``require_head=False`` a checkpoint without ``linear.weight`` (a
-    bare BERT) gives a state dict without it."""
+    With ``require_head=False`` a checkpoint without the ``linear.*`` head
+    (a bare BERT) gives a state dict without it."""
     if isinstance(path_or_sd, (str, bytes)) or hasattr(path_or_sd, "__fspath__"):
         sd = torch.load(path_or_sd, map_location="cpu", weights_only=True)
     else:
         sd = path_or_sd
     sd = _reference_keys(sd)
-    pairs = [(port, ref) for port, ref in _key_pairs(cfg)
-             if require_head or ref != "linear.weight" or ref in sd]
+    pairs = [(port, ref) for port, ref in _key_pairs(cfg, head_bias)
+             if require_head or not ref.startswith("linear.") or "linear.weight" in sd]
     missing = [ref for _, ref in pairs if ref not in sd]
     if missing:
         raise KeyError(
@@ -148,6 +161,7 @@ def state_dict_from_reference(path_or_sd, cfg: ModelConfig, *,
     return {port: sd[ref].float() if torch.is_tensor(sd[ref]) else _t(sd[ref]) for port, ref in pairs}
 
 
-def reference_state_dict(state_dict: Mapping[str, torch.Tensor], cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+def reference_state_dict(state_dict: Mapping[str, torch.Tensor], cfg: ModelConfig, *,
+                         head_bias: bool = False) -> Dict[str, torch.Tensor]:
     """Port state dict -> reference ``pytorch.bin`` key layout."""
-    return {ref: state_dict[port].detach().cpu().float() for port, ref in _key_pairs(cfg)}
+    return {ref: state_dict[port].detach().cpu().float() for port, ref in _key_pairs(cfg, head_bias)}

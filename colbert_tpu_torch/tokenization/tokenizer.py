@@ -223,8 +223,8 @@ class TokenBatch:
 
 
 class ColbertTokenizer:
-    """Same API and outputs as ``colbert_tpu.tokenization.ColbertTokenizer``
-    (queries and docs; the cross-encoder pairs come with that slice)."""
+    """Same API and outputs as ``colbert_tpu.tokenization.ColbertTokenizer``:
+    queries, docs and the cross-encoder's (question, passage) pairs."""
 
     def __init__(self, cfg: TokenizerConfig, multiview: MultiviewConfig):
         if not cfg.vocab_path:
@@ -255,6 +255,13 @@ class ColbertTokenizer:
         if self.multiview.enabled:
             return self._encode_multiview(texts, self.cfg.doc_maxlen, is_query=False)
         return self._encode_marked(texts, self.cfg.doc_maxlen, is_query=False)
+
+    def encode_ce_pairs(self, pairs: Sequence[Tuple[str, str]]) -> TokenBatch:
+        """``[CLS]q[SEP]p[SEP]`` cut at ``ce_maxlen`` tokens from the tail (a
+        long passage loses its last ``[SEP]``, as the JAX output does) and
+        padded to it; no active mask."""
+        texts = [f"[CLS]{q}[SEP]{p}[SEP]" for q, p in pairs]
+        return TokenBatch(*self.tok.encode_batch(texts, self.cfg.ce_maxlen))
 
     def _encode_marked(self, texts: Sequence[str], maxlen: int, is_query: bool) -> TokenBatch:
         """Non-multiview: ``[CLS]<marker>text[SEP]``, punctuation and [SEP] inactive."""

@@ -1,4 +1,5 @@
+from colbert_tpu_torch.training.ce_trainer import CETrainer
 from colbert_tpu_torch.training.dataset import RetrievalDataset, RetrievalSampler, TrainBatch
 from colbert_tpu_torch.training.trainer import ColbertTrainer
 
-__all__ = ["ColbertTrainer", "RetrievalDataset", "RetrievalSampler", "TrainBatch"]
+__all__ = ["CETrainer", "ColbertTrainer", "RetrievalDataset", "RetrievalSampler", "TrainBatch"]

@@ -1,5 +1,6 @@
-"""Training loss and in-batch ranking metrics: counterpart of
-``colbert_tpu/training/losses.py:16-58``.
+"""Training losses and in-batch ranking metrics: counterpart of
+``colbert_tpu/training/losses.py:16-58``.  ``listnet_loss`` and ``kl_loss``
+are the cross-encoder's distillation losses (``ce_trainer.py``).
 
 Sorts are stable (``jnp.argsort`` is), so tied scores -- the -inf pad
 columns of a partial eval batch among them -- rank by column index.
@@ -16,6 +17,21 @@ def biencoder_nll_loss(scores: torch.Tensor, positive_idx: torch.Tensor) -> torc
     positive_idx: (Q,) int -- column of the positive doc per query."""
     logprobs = F.log_softmax(scores, dim=1)
     return -logprobs.gather(1, positive_idx[:, None].long()).mean()
+
+
+def listnet_loss(y_pred: torch.Tensor, y_true: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
+    p_true = F.softmax(y_true, dim=-1)
+    p_pred = F.softmax(y_pred, dim=-1) + eps
+    return torch.mean(-torch.sum(p_true * torch.log(p_pred), dim=-1))
+
+
+def kl_loss(y_pred: torch.Tensor, y_true: torch.Tensor) -> torch.Tensor:
+    """KL(softmax(y_true) || softmax(y_pred)) summed over every element and
+    divided by the row count (not by the elements)."""
+    logp = F.log_softmax(y_pred, dim=-1)
+    q = F.softmax(y_true, dim=-1)
+    logq = F.log_softmax(y_true, dim=-1)
+    return torch.sum(q * (logq - logp)) / y_pred.shape[0]
 
 
 def _positives_in_order(scores: torch.Tensor, group_size: int, num_pos: int) -> torch.Tensor:

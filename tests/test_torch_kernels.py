@@ -234,6 +234,8 @@ def test_maxsim_kernel_refuses_a_query_beyond_a_block(cuda_device):
 
 @pytest.mark.parametrize("shape,dtype", [
     ((4, 12, 384, 384), torch.bfloat16),
+    ((20, 16, 384, 384), torch.bfloat16),  # the cross-encoder's attention probabilities (macbert-large, batch 4 x 5)
+    ((20, 384, 1024), torch.bfloat16),     # the cross-encoder's hidden states
     ((1001, 3), torch.float32),   # odd element count: the scalar tail
     ((7, 33), torch.float16),
 ])
@@ -252,6 +254,35 @@ def test_dropout_kernel_bit_equal(cuda_device, shape, dtype):
     assert torch.equal(dx, dr.hw_dropout_ref(g, seed, thr))
     keep = dr.mask_bytes(x.numel(), seed, cuda_device).view(shape) >= thr
     assert torch.equal(y == 0, ~keep | (x.detach() == 0))
+
+
+def test_dropout_launches_per_ce_step(cuda_device, tmp_path):
+    """A cross-encoder train step launches K9 at every dropout site, forward
+    and backward: 2 x (1 + 3 x layers), and never falls back to the plain version."""
+    from colbert_tpu_torch.config import CETrainConfig, ColbertConfig, ModelConfig, TokenizerConfig
+    from colbert_tpu_torch.ops import dropout as dr
+    from colbert_tpu_torch.tokenization import ColbertTokenizer, build_vocab, write_vocab
+    from colbert_tpu_torch.training import CETrainer
+
+    words = ["apple", "river", "piano", "ocean", "forest"]
+    vp = write_vocab(build_vocab([" ".join(words)]), tmp_path / "vocab.txt")
+    cfg = ColbertConfig(
+        ce_model=ModelConfig(vocab_size=128, hidden_size=64, num_layers=3, num_heads=4, intermediate_size=128,
+                             max_position_embeddings=64, dtype="bfloat16"),
+        tokenizer=TokenizerConfig(vocab_path=vp, ce_maxlen=32),
+        ce_train=CETrainConfig(per_device_batch_size=2, neg_num=2, neg_pool_lo=0, neg_pool_hi=4,
+                               checkpoint_dir=str(tmp_path / "ce")),
+    )
+    exs = [{"question": w, "positive_ctxs": [w + " " + w], "hard_negative_ctxs": [o for o in words if o != w]}
+           for w in words[:2]]
+    t = CETrainer(cfg, ColbertTokenizer(cfg.tokenizer, cfg.multiview), device=cuda_device)
+    t._init_state(2)
+    ids, attn, group, teacher = t._build_pairs(exs, "train")
+    before = dr.hw_dropout.launches.value
+    loss = t.train_step(ids, attn, group, teacher, 0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert dr.hw_dropout.launches.value - before == 2 * (1 + 3 * cfg.ce_model.num_layers)
 
 
 def test_dropout_kernel_unaligned_view(cuda_device):

@@ -11,6 +11,9 @@
   largest entry, parameters within 1e-6 after each of three updates, at
   ``grad_accum_steps`` 1 and 2.  Both sides compute in fp32 and differ
   only in operation order;
+* the train loop, dropout off, two epochs: every step's loss within 1e-5
+  and every evaluation's metrics within 1e-6 of the JAX trainer's
+  ``train``, the same checkpoints;
 * resume: N steps straight equal k steps, a checkpoint, and a resume,
   bit for bit;
 * checkpoints: the JAX package reads a port checkpoint's ``pytorch.bin``
@@ -494,3 +497,40 @@ def test_cli_trains_then_encodes_and_evaluates_from_checkpoint(tmp_path, capsys)
     assert set(metrics) == {"mrr@10", "recall@50", "recall@100"}
     with pytest.raises(SystemExit, match="no checkpoint 9"):
         main(["encode", "--corpus", str(tmp_path / "corpus.json"), *common, "--checkpoint-step", "9"])
+
+
+def test_train_loop_equals_jax_trainer(tmp_path):
+    """``train`` end to end against the JAX ``ColbertTrainer.train`` (dropout
+    off, the same parameters, two epochs): the losses of every step, the
+    evaluation cadence and its metrics, and the checkpoints saved."""
+    from colbert_tpu.models import ColbertModel as FlaxColbert
+    from colbert_tpu.tokenization import ColbertTokenizer as JaxTokenizer
+    from colbert_tpu.training import RetrievalDataset as JDataset
+    from colbert_tpu_torch.tokenization import ColbertTokenizer
+    from colbert_tpu_torch.training import RetrievalDataset
+
+    cfg = make_cfg(tmp_path, learning_rate=1e-4, evals_per_epoch=2, num_epochs=2, adam_eps=1e-6)
+    cfg.model.hidden_dropout = cfg.model.attention_dropout = 0.0
+    jc = to_jax_cfg(dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, checkpoint_dir=str(tmp_path / "j"))))
+    z = jnp.zeros((1, 8), jnp.int32)
+    params = FlaxColbert(jc.model, jc.multiview).init(jax.random.PRNGKey(7), z, jnp.ones_like(z), z,
+                                                      jnp.ones_like(z))["params"]
+    params = jax.tree.map(np.asarray, params)
+    exs, dev = make_examples(9), make_examples(5, seed=9)  # 4 steps an epoch: evaluations at 2 and 4
+    from colbert_tpu.parallel import make_mesh
+    from colbert_tpu.training import ColbertTrainer as JaxTrainer
+    from colbert_tpu_torch.training import ColbertTrainer
+
+    jt = JaxTrainer(jc, JaxTokenizer(jc.tokenizer, jc.multiview), init_params=params,
+                    mesh=make_mesh(data=1, model=1, devices=jax.devices()[:1]))
+    want = jt.train(JDataset(exs), dev_ds=JDataset(dev))
+    pt = ColbertTrainer(cfg, ColbertTokenizer(cfg.tokenizer, cfg.multiview), device="cpu",
+                        init_state_dict=state_dict_from_jax_params(params, cfg.model))
+    got = pt.train(RetrievalDataset(exs), dev_ds=RetrievalDataset(dev))
+    assert [s["step"] for s in got.steps] == [s["step"] for s in want.steps] == list(range(1, 9))
+    np.testing.assert_allclose([s["loss"] for s in got.steps], [s["loss"] for s in want.steps], rtol=0, atol=1e-5)
+    assert len(got.evals) == len(want.evals) == 4
+    for g, w in zip(got.evals, want.evals):
+        assert g.keys() == w.keys()
+        np.testing.assert_allclose(list(g.values()), list(w.values()), rtol=0, atol=1e-6)
+    assert pt.ckpt.all_steps() == jt.ckpt.all_steps() == [2, 4, 6, 8]
