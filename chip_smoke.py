@@ -41,14 +41,20 @@ width, with random weights from a seed:
   16 x 16 rows: three TF32 tensor-core products; else "staged") and on
   route "staged" (the first design); limit 1e-4 absolute; both timed at
   the eval shape through the wrapper and as a launch alone on the masked
-  inputs, with the TF32 bound and the fp32 CUDA-core bound.  K9 on the attention
-  probabilities of a training step, (68, 12, 384, 384) bf16, at the
-  cross-encoder's two sites, its attention probabilities (20, 16, 384,
-  384) bf16 and its hidden states (20, 384, 1024) bf16, and on an fp32
-  tensor with an odd element count: forward and backward bit-equal to the
-  plain version's Philox stream, the keep fraction within 5 sigma of
-  (256 - thr) / 256; the three shapes timed beside the plain version,
-  ``F.dropout`` and the bound (bytes read and written over 3.35 TB/s).
+  inputs, with the TF32 bound and the fp32 CUDA-core bound.  K9 on both
+  routes ("packed", the default, and the first design, "simple") on the
+  attention probabilities of a training step, (68, 12, 384, 384) bf16, at
+  the cross-encoder's two sites, its attention probabilities (20, 16, 384,
+  384) bf16 and its hidden states (20, 384, 1024) bf16, at that last shape
+  in fp32 and fp16, on an fp32 tensor with an odd element count, and on
+  subnormals, +-0, +-inf and NaN in each dtype: forward and backward
+  bit-equal to the plain version's Philox stream (NaN by position), the
+  keep fraction within 5 sigma of (256 - thr) / 256; the three bf16 shapes
+  timed on the host clock and on the card alone, both routes in turns,
+  beside the plain version, ``F.dropout``, the ``copy_`` of the same bytes
+  and the bound: the larger of the bytes read and written over 3.35 TB/s
+  and route "packed"'s instructions (counted in its loop's SASS,
+  ``cuobjdump -sass``) over the INT32 pipe's and the schedulers' rates.
 * phase 4: the CLI's ``train`` at BERT-base width, batch 34, multiview
   16/16, dropout 0.1 (the default byte impl): 7 steps over synthetic
   Chinese questions with positives and hard negatives, an evaluation on a
@@ -56,7 +62,8 @@ width, with random weights from a seed:
   checkpoint at each, then ``train --resume`` from step 6 for one step.
   Every loss must be finite, the resumed step's loss equal the straight
   run's, K9 launch (1 + 3 layers) x 2 passes x 2 (forward, backward) times
-  per step and K3 once per eval batch, every K3 launch on route "tf32".
+  per step, every launch on route "packed", and K3 once per eval batch,
+  every K3 launch on route "tf32".
 * phase 5, ANN serving with the sq codec at the JAX package's sq cell
   (nprobe 128, candidate depth 512, 8 rows per (token, list), 128 hot
   lists, 4,096 candidates, top-100):
@@ -155,9 +162,11 @@ width, with random weights from a seed:
   ``evaluate --rerank-ce`` over 16 questions (top-100 retrieved, reranked
   by the last checkpoint), and one question through the same two stages
   against the argsort of its CE scores computed again.  Every loss must be
-  finite, K9 launch 2 x (1 + 3 x 24) = 146 times a CE step and K1 once per
-  retrieval batch; prints the CE's ms/step over steps 3-6 on the host
-  clock, its peak device memory and the rerank's ms a question.
+  finite, K9 launch 2 x (1 + 3 x 24) = 146 times a CE step, every launch
+  on route "packed", and K1 once per retrieval batch; prints the CE's
+  ms/step over steps 3-6 on the host clock, the host's time inside K9's
+  calls in the resumed step, its peak device memory and the rerank's ms a
+  question.
 
 Prints the card's name and power limit, the measurements, one JSON line of
 kernels, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -167,7 +176,9 @@ result line, when CUDA is unavailable or any phase fails.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -217,7 +228,8 @@ def counters():
             "K8 onehot route": pq4.route_launches["onehot"], "K8 lookup route": pq4.route_launches["lookup"],
             "K3 tf32 route": ms.route_launches["tf32"], "K3 staged route": ms.route_launches["staged"],
             "K10 fused route": sq_probe.route_launches["fused"],
-            "K10 staged route": sq_probe.route_launches["staged"]}
+            "K10 staged route": sq_probe.route_launches["staged"],
+            "K9 packed route": dr.route_launches["packed"], "K9 simple route": dr.route_launches["simple"]}
 
 
 def reset_counts() -> None:
@@ -683,60 +695,187 @@ K9_CE_SITES = {"probabilities": ((CE_BATCH * (1 + CE_NEG), 16, 384, 384), "bfloa
                "hidden states": ((CE_BATCH * (1 + CE_NEG), 384, 1024), "bfloat16")}
 
 
-K9_KEYS = ("shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms",
-           "library_device_ms")
+K9_KEYS = ("shape", "dtype", "max_abs_err", "ms", "simple_ms", "plain_ms", "bound_ms", "bound_by", "byte_bound_ms",
+           "int_bound_ms", "issue_bound_ms", "library_ms", "device_ms", "simple_device_ms", "library_device_ms",
+           "copy_device_ms")
+INT32_LANES_PER_SM = 64    # Hopper's INT32 units an SM: the pipe of LOP3, IADD3, PRMT, SHF, ISETP, ...
+ISSUE_LANES_PER_SM = 128   # 4 warp schedulers an SM, one warp instruction a clock each
+# opcodes of the INT32 pipe (IMAD issues to the FMA pipe, the compiler's way to relieve this one)
+SASS_INT_OPS = {"LOP3", "LOP", "IADD3", "IADD", "PRMT", "SHF", "SHL", "SHR", "ISETP", "ICMP", "SEL", "LEA", "MOV",
+                "IABS", "IMNMX", "VIMNMX", "BMSK", "SGXT", "FLO", "POPC", "BREV", "PLOP3", "P2R", "R2P", "BFE", "BFI"}
 
 
-def k9_check(device, shape, dtype, seed64, what):
-    """K9 forward and backward against the plain version's Philox stream (bit-equal),
-    its keep fraction, and its time beside the plain version's, ``F.dropout``'s
-    and the bound (each element read once and written once); the kernel and
-    ``F.dropout`` are also timed on the card alone (``device_ms``)."""
+def sass_loop_mix(so_path, name_parts, elems_per_vector):
+    """Static instruction mix of a kernel's vector loop in a built library
+    (``cuobjdump -sass``): of the kernel whose mangled name holds every one
+    of ``name_parts``, the backward branch's range with the most 16-byte
+    global loads, per element (``elems_per_vector`` elements a load).
+    Returns the instructions of the INT32 pipe, the IMADs and all
+    instructions per element, and the loop's opcodes."""
+    from collections import Counter
+
+    from colbert_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(so_path)], capture_output=True, text=True, timeout=300,
+                         check=True).stdout
+    funcs = [f for f in re.split(r"\n\s*Function : ", out)[1:] if all(p in f.split("\n", 1)[0] for p in name_parts)]
+    if len(funcs) != 1:
+        raise RuntimeError(f"{len(funcs)} kernels in {so_path} match {name_parts}")
+    insts = [(int(a, 16), op, args) for a, op, args in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);", funcs[0])]
+    loops = []
+    for addr, op, args in insts:
+        target = re.search(r"0x([0-9a-f]+)", args) if op.startswith("BRA") else None
+        if target and int(target.group(1), 16) <= addr:
+            body = [o for a, o, _ in insts if int(target.group(1), 16) <= a <= addr and o != "NOP"]
+            loops.append((sum(o.startswith("LDG") and ".128" in o for o in body), -len(body), body))
+    if not loops or max(loops)[0] == 0:
+        raise RuntimeError(f"no loop of 16-byte loads in {funcs[0].split(chr(10), 1)[0].strip()}")
+    vectors, _, body = max(loops)
+    elems = vectors * elems_per_vector
+    ops = Counter(o.split(".")[0] for o in body)
+    n_int = sum(c for o, c in ops.items() if o in SASS_INT_OPS)
+    return {"function": funcs[0].split("\n", 1)[0].strip(), "loop_instructions": len(body), "loop_elements": elems,
+            "int_per_element": n_int / elems, "imad_per_element": ops["IMAD"] / elems,
+            "all_per_element": len(body) / elems, "opcodes": dict(ops.most_common())}
+
+
+@functools.lru_cache(maxsize=None)
+def k9_mix(dtype, thr=K9_THR):
+    """:func:`sass_loop_mix` of route "packed"'s kernel for ``dtype`` and
+    ``thr``, its way for tensors that fit in L2 (the other way's loop differs
+    only in its loads' and stores' cache hints)."""
+    import torch
+
+    from colbert_tpu_torch.ops import dropout as dr
+
+    name = {torch.float32: "If", torch.bfloat16: "I13__nv_bfloat16", torch.float16: "I6__half"}[dtype]
+    return sass_loop_mix(dr._kernel_lib()._name, ("packed_kernel", f"{name}Lb{int(thr >= 128)}ELb0E"),
+                         16 // torch.empty((), dtype=dtype).element_size())
+
+
+def same_bits(a, b) -> bool:
+    """``a`` and ``b`` hold the same bits, NaNs compared by position only."""
+    import torch
+
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    na, nb = a.isnan(), b.isnan()
+    return a.shape == b.shape and torch.equal(na, nb) and torch.equal(
+        torch.where(na, 0, a.view(ints)), torch.where(nb, 0, b.view(ints)))
+
+
+def k9_routes_equal(x, seed64, thr, what):
+    """Route "packed" through ``hw_dropout`` (forward and backward, both
+    launches on that route) and route "simple" through ``_launch`` against
+    the plain version, bit for bit; returns the largest |difference|."""
+    import torch
+
+    from colbert_tpu_torch.ops import dropout as dr
+
+    xg = x.detach().requires_grad_(True)
+    packed = dr.route_launches["packed"].value
+    y = dr.hw_dropout(xg, seed64, thr)
+    g = torch.randn_like(y)
+    (dx,) = torch.autograd.grad(y, xg, g)
+    y = y.detach()
+    want_y, want_dx = dr.hw_dropout_ref(x, seed64, thr), dr.hw_dropout_ref(g, seed64, thr)
+    simple_y, simple_dx = dr._launch(x, seed64, thr, route="simple"), dr._launch(g, seed64, thr, route="simple")
+    torch.cuda.synchronize()
+    if dr.route_launches["packed"].value != packed + 2:
+        raise AssertionError(f"K9 {what}: the forward and backward did not both launch route packed")
+    for name, got, want in (("packed forward", y, want_y), ("packed backward", dx, want_dx),
+                            ("simple forward", simple_y, want_y), ("simple backward", simple_dx, want_dx)):
+        if not same_bits(got, want):
+            raise AssertionError(f"K9 {what}: route {name} differs from the plain version in "
+                                 f"{int((got.view(-1) != want.view(-1)).sum())} elements")
+    fin = want_y.isfinite() & y.isfinite()
+    return max(float((y - want_y)[fin].abs().max()), float((dx - want_dx)[want_dx.isfinite()].abs().max()))
+
+
+def k9_special_values(device, seed64):
+    """Both routes on subnormals, +-0, +-inf and NaN in each dtype, bit-equal to
+    the plain version (NaN by position): the packed multiply neither flushes
+    subnormals nor rounds otherwise than to nearest."""
+    import torch
+
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        fi = torch.finfo(dtype)
+        special = torch.tensor([fi.tiny / 2, -fi.tiny / 3, fi.tiny / 64, fi.tiny, -fi.tiny, 0.0, -0.0, float("inf"),
+                                -float("inf"), float("nan"), fi.max, -fi.max], dtype=torch.float64)
+        x = torch.randn(4099, dtype=torch.float64)
+        x[::7] = special.repeat(-(-x[::7].numel() // special.numel()))[: x[::7].numel()]
+        for thr in (26, 200):
+            k9_routes_equal(x.to(dtype).to(device), seed64, thr, f"special values {dtype} thr {thr}")
+    log("[phase3] K9 special values (subnormals, +-0, +-inf, NaN, +-max) in bf16, fp16, fp32, thr 26 and 200: "
+        "both routes bit-equal to the plain version, forward and backward")
+
+
+def k9_check(device, shape, dtype, seed64, what, mix, clock_hz):
+    """K9 on both routes, forward and backward, against the plain version's
+    Philox stream (bit-equal), its keep fraction, and its times on the host
+    clock and on the card alone (``device_ms``, route "packed" and route
+    "simple" in turns) beside the plain version's, ``F.dropout``'s, the
+    ``copy_`` of the same bytes (the ceiling of a read-once, write-once pass)
+    and the bound: the larger of the bytes (each element read once, written
+    once) over the HBM rate, route "packed"'s INT32-pipe instructions (``mix``,
+    from its SASS) over the INT32 lanes, and all its instructions over the
+    schedulers' issue rate, at ``clock_hz``."""
     import torch
     import torch.nn.functional as F
 
     from colbert_tpu_torch.ops import dropout as dr
 
-    scale = dr.keep_scale(K9_THR, dtype)
-    x = torch.randn(shape, device=device, dtype=dtype).requires_grad_(True)
+    x = torch.randn(shape, device=device, dtype=dtype)
+    err = k9_routes_equal(x, seed64, K9_THR, f"{shape}")
     y = dr.hw_dropout(x, seed64, K9_THR)
-    g = torch.randn_like(y)
-    (dx,) = torch.autograd.grad(y, x, g)
-    xd = x.detach()
-    keep = dr.mask_bytes(xd.numel(), seed64, device).view(shape) >= K9_THR
-    want_y = dr.hw_dropout_ref(xd, seed64, K9_THR)
-    want_dx = torch.where(keep, g * torch.tensor(scale, dtype=g.dtype, device=device), torch.zeros_like(g))
-    torch.cuda.synchronize()
-    if not torch.equal(y, want_y):
-        raise AssertionError(f"K9 {shape} forward differs from the plain version in {int((y != want_y).sum())} elements")
-    if not torch.equal(dx, want_dx):
-        raise AssertionError(f"K9 {shape} backward differs from grad * mask * scale in {int((dx != want_dx).sum())} elements")
-    nz = xd != 0
+    nz = x != 0
     frac = float(((y != 0) & nz).sum()) / float(nz.sum())
     p = (256 - K9_THR) / 256
     sigma = (p * (1 - p) / float(nz.sum())) ** 0.5
     name = str(dtype).replace("torch.", "")
-    log(f"[phase3] K9 {shape} {name} thr {K9_THR} ({what}): forward and backward bit-equal to the plain "
-        f"version; keep fraction {frac:.6f} vs {p:.6f} ({(frac - p) / sigma:+.2f} sigma)")
+    log(f"[phase3] K9 {shape} {name} thr {K9_THR} ({what}): routes packed and simple, forward and backward, "
+        f"bit-equal to the plain version; keep fraction {frac:.6f} vs {p:.6f} ({(frac - p) / sigma:+.2f} sigma)")
     if abs(frac - p) > 5 * sigma:
         raise AssertionError(f"K9 keep fraction {frac} is {abs(frac - p) / sigma:.1f} sigma from {p}")
-    err = max(float((y.detach().float() - want_y.float()).abs().max()), float((dx.float() - want_dx.float()).abs().max()))
-    del dx, want_dx, g, keep, want_y, y, x
-    xd = xd.contiguous()
+    del y, nz
+    out_copy = torch.empty_like(x)
+    packed = lambda: dr.hw_dropout(x, seed64, K9_THR)
+    simple = lambda: dr._launch(x, seed64, K9_THR, route="simple")
+    turns = [(r, device_ms(fn)) for r, fn in (("packed", packed), ("simple", simple), ("simple", simple),
+                                              ("packed", packed))]
     out = {"shape": list(shape), "dtype": name, "max_abs_err": err,
-           "ms": time_ms(lambda: dr.hw_dropout(xd, seed64, K9_THR)),
-           "plain_ms": time_ms(lambda: dr.hw_dropout_ref(xd, seed64, K9_THR), iters=5),
-           "library_ms": time_ms(lambda: F.dropout(xd, p=K9_THR / 256, training=True)),
-           "device_ms": device_ms(lambda: dr.hw_dropout(xd, seed64, K9_THR)),
-           "library_device_ms": device_ms(lambda: F.dropout(xd, p=K9_THR / 256, training=True))}
-    out["bound_ms"], out["bound_by"] = bound(2.0 * xd.numel(), 2.0 * xd.numel() * xd.element_size(),
-                                             PEAK_FP32_FLOPS)
-    log(f"[phase3] K9 at {shape} {name}: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
-        f"F.dropout {out['library_ms']:.3f} ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']}: "
-        f"{2.0 * xd.numel() * xd.element_size() / 1e6:.1f} MB read and written at "
-        f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s); on the card alone, the host's issue time hidden: kernel "
-        f"{out['device_ms']:.4f} ms, F.dropout {out['library_device_ms']:.4f} ms")
+           "ms": time_ms(packed), "simple_ms": time_ms(simple),
+           "plain_ms": time_ms(lambda: dr.hw_dropout_ref(x, seed64, K9_THR), iters=5),
+           "library_ms": time_ms(lambda: F.dropout(x, p=K9_THR / 256, training=True)),
+           "device_ms": sum(t for r, t in turns if r == "packed") / 2,
+           "simple_device_ms": sum(t for r, t in turns if r == "simple") / 2,
+           "library_device_ms": device_ms(lambda: F.dropout(x, p=K9_THR / 256, training=True)),
+           "copy_device_ms": device_ms(lambda: out_copy.copy_(x))}
+    n, nbytes = x.numel(), 2.0 * x.numel() * x.element_size()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out["byte_bound_ms"] = nbytes / PEAK_HBM_BYTES * 1e3
+    out["int_bound_ms"] = n * mix["int_per_element"] / (INT32_LANES_PER_SM * sms * clock_hz) * 1e3
+    out["issue_bound_ms"] = n * mix["all_per_element"] / (ISSUE_LANES_PER_SM * sms * clock_hz) * 1e3
+    out["bound_ms"] = max(out["byte_bound_ms"], out["int_bound_ms"], out["issue_bound_ms"])
+    out["bound_by"] = "bytes" if out["bound_ms"] == out["byte_bound_ms"] else "operations"
+    log(f"[phase3] K9 at {shape} {name}: route packed {out['ms']:.4f} ms, route simple {out['simple_ms']:.4f} ms, "
+        f"plain {out['plain_ms']:.3f} ms, F.dropout {out['library_ms']:.4f} ms (host clock); on the card alone, "
+        f"the host's issue time hidden: route packed {out['device_ms']:.4f} ms, route simple "
+        f"{out['simple_device_ms']:.4f} ms, F.dropout {out['library_device_ms']:.4f} ms, copy_ of the same bytes "
+        f"{out['copy_device_ms']:.4f} ms; bound {out['bound_ms']:.4f} ms ({out['bound_by']}: {nbytes / 1e6:.1f} MB "
+        f"read and written at {PEAK_HBM_BYTES / 1e12:.2f} TB/s {out['byte_bound_ms']:.4f} ms; "
+        f"{mix['int_per_element']:.3f} INT32-pipe instructions an element at {INT32_LANES_PER_SM} lanes x {sms} SMs x "
+        f"{clock_hz / 1e9:.2f} GHz {out['int_bound_ms']:.4f} ms; {mix['all_per_element']:.3f} instructions an "
+        f"element at {ISSUE_LANES_PER_SM} issue lanes an SM {out['issue_bound_ms']:.4f} ms); route packed at "
+        f"{out['bound_ms'] / out['device_ms']:.1%} of it on the card alone")
     return out
+
+
+def k9_on_packed(launches, what):
+    if launches["K9 packed route"] != launches["K9"] or launches["K9 simple route"]:
+        raise AssertionError(f"K9 in {what}: {launches['K9']} launches, {launches['K9 packed route']} on route "
+                             f"packed, {launches['K9 simple route']} on route simple; expected all on packed")
 
 
 def phase_train_kernels(device, eval_q=EVAL_Q, eval_d=EVAL_D, k9_shape=K9_SHAPE, k9_ce_sites=K9_CE_SITES,
@@ -814,15 +953,29 @@ def phase_train_kernels(device, eval_q=EVAL_Q, eval_d=EVAL_D, k9_shape=K9_SHAPE,
     del cases, Q, D
 
     seed64 = int(rng.integers(0, 2**63)) * 2 + 1
-    k9 = k9_check(device, k9_shape, torch.bfloat16, seed64, "the retriever's attention probabilities")
+    mix, clock = k9_mix(torch.bfloat16), max_sm_clock_hz()  # the three shapes K9 is timed at are bf16
+    log(f"[phase3] K9 route packed, {mix['function']}: its vector loop {mix['loop_instructions']} SASS "
+        f"instructions for {mix['loop_elements']} elements (cuobjdump -sass of the built library): "
+        f"{mix['int_per_element']:.3f} INT32-pipe, {mix['imad_per_element']:.3f} IMAD, {mix['all_per_element']:.3f} "
+        f"in all an element; opcodes {mix['opcodes']}")
+    k9 = k9_check(device, k9_shape, torch.bfloat16, seed64, "the retriever's attention probabilities", mix, clock)
+    k9["sass"] = {key: mix[key] for key in ("function", "loop_instructions", "loop_elements", "int_per_element",
+                                            "imad_per_element", "all_per_element")}
+    k9["clock_hz"] = clock
+    k9_special_values(device, seed64)
     odd = torch.randn(1_000_003, device=device)
-    if not torch.equal(dr.hw_dropout(odd, seed64 + 2, 51), dr.hw_dropout_ref(odd, seed64 + 2, 51)):
-        raise AssertionError("K9 fp32 (odd element count) differs from the plain version")
-    log(f"[phase3] K9 (1000003,) fp32 thr 51: bit-equal to the plain version")
+    k9_routes_equal(odd, seed64 + 2, 51, "(1000003,) fp32 thr 51")
+    log(f"[phase3] K9 (1000003,) fp32 thr 51: both routes, forward and backward, bit-equal to the plain version")
     del odd
+    for dtype in (torch.float32, torch.float16):
+        k9_routes_equal(torch.randn(k9_ce_sites["hidden states"][0], device=device, dtype=dtype), seed64 + 3,
+                        K9_THR, f"hidden-state shape {dtype}")
+        log(f"[phase3] K9 {k9_ce_sites['hidden states'][0]} {dtype} thr {K9_THR}: both routes, forward and "
+            f"backward, bit-equal to the plain version")
     for i, (site, (shape, dtype)) in enumerate(k9_ce_sites.items()):
         k9["ce" if i == 0 else "ce_hidden"] = k9_check(device, shape, getattr(torch, dtype), seed64 + 4 + 2 * i,
-                                                        f"the cross-encoder's {site} (phase 7)")
+                                                        f"the cross-encoder's {site} (phase 7)",
+                                                        k9_mix(getattr(torch, dtype)), clock)
     return {"K3": k3, "K9": k9}
 
 
@@ -906,6 +1059,7 @@ def phase_train(device, workdir: Path, label: str, model_kw=None, tok_kw=None, b
     if launches["K3 tf32 route"] != want["K3"] or launches["K3 staged route"]:
         raise AssertionError(f"K3 launches by route: tf32 {launches['K3 tf32 route']}, staged "
                              f"{launches['K3 staged route']}; expected every eval batch on route tf32")
+    k9_on_packed(launches, "the training-path run")
     ckpt = CheckpointManager(cfg.train.checkpoint_dir)
     if ckpt.all_steps() != saved[-2:]:
         raise AssertionError(f"checkpoints {ckpt.all_steps()}, expected {saved[-2:]}")
@@ -2140,6 +2294,7 @@ def phase_second_stage(device, workdir: Path, label: str, ctx: dict, model_kw=No
     from colbert_tpu_torch import cli
     from colbert_tpu_torch.evaluation import gen_distill_data, gen_iter_train_dev
     from colbert_tpu_torch.models.bert import Dropout
+    from colbert_tpu_torch.ops import dropout as dr
     from colbert_tpu_torch.training import CETrainer
     from colbert_tpu_torch.training.checkpoint import CheckpointManager
     from colbert_tpu_torch.utils.io import dump_json, load_json, load_jsonl
@@ -2255,6 +2410,7 @@ def phase_second_stage(device, workdir: Path, label: str, ctx: dict, model_kw=No
         f"{ce_steps * per_step_k9}: 1 + 3 x {c.num_layers} dropout sites, forward and backward)")
     if launches["K9"] != ce_steps * per_step_k9:
         raise AssertionError(f"K9 launched {launches['K9']} times, expected {ce_steps * per_step_k9}")
+    k9_on_packed(launches, "the train-ce run")
     step_s = [r["step_s"] for r in steps[2:6]]
     ms_step = 1e3 * float(np.mean(step_s))
     log(f"[phase7] {ms_step:.1f} ms/step = {CE_BATCH / ms_step * 1e3:.2f} questions/s over steps 3-6 on the host "
@@ -2272,16 +2428,32 @@ def phase_second_stage(device, workdir: Path, label: str, ctx: dict, model_kw=No
         if isinstance(mod, Dropout) and mod.training:
             sites.add((tuple(args[0].shape), str(args[0].dtype).replace("torch.", "")))
 
+    # and the host's time inside K9's calls (forward and backward), which sets
+    # their pace at the hidden states: the card takes ~0.01 ms for each
+    k9_host_s = []
+    apply = dr._apply
+
+    def timed_apply(x, seed, thr):
+        t = time.perf_counter()
+        out = apply(x, seed, thr)
+        k9_host_s.append(time.perf_counter() - t)
+        return out
+
     hook = torch.nn.modules.module.register_module_forward_pre_hook(record)
+    dr._apply = timed_apply
     reset_counts()
     try:
         cli.main([*ce_args, "--resume"])
     finally:
         hook.remove()
+        dr._apply = apply
     torch.cuda.synchronize()
     resumed_launches = read_counts()
+    k9_host_ms = 1e3 * sum(k9_host_s) / (last - before_last)
     log(f"[phase7] K9's inputs in the resumed step (shape, dtype): {sorted(sites)}; phase 3 held K9 at "
-        f"{sorted(K9_CE_SITES.values())}")
+        f"{sorted(K9_CE_SITES.values())}; the host's time inside K9's {len(k9_host_s)} calls: {k9_host_ms:.3f} ms "
+        f"a CE step (a call: least {1e6 * min(k9_host_s):.1f}, median {1e6 * float(np.median(k9_host_s)):.1f}, mean "
+        f"{1e6 * float(np.mean(k9_host_s)):.1f} us) [{label}]")
     if sites != set(K9_CE_SITES.values()):
         raise AssertionError(f"K9 ran at {sorted(sites)} in a CE step; phase 3 holds it at {K9_CE_SITES}")
     rsteps = load_jsonl(ckpt.dir / "ce_train_steps.jsonl")
@@ -2352,6 +2524,7 @@ def phase_second_stage(device, workdir: Path, label: str, ctx: dict, model_kw=No
     return {"mine": mine_launches, "train": launches, "resume": resumed_launches, "distill": distill_launches,
             "rerank": rerank_launches}, {
         "ms_step": ms_step, "peak_gb": peak_gb, "held_gb": held_gb, "per_step_k9": per_step_k9, "losses": losses,
+        "k9_host_ms_per_step": k9_host_ms,
         "rerank_ms_per_question": 1e3 * rerank_s / n_rerank, "one_question_ms": one_q_ms,
         "dev_mrr": [r.get("dev_mrr") for r in evals], "metrics": metrics, "distill_questions": len(distill)}
 
@@ -2427,9 +2600,13 @@ def main() -> int:
         if fn == "K9":
             ce, ce_hidden = k["ce"], k["ce_hidden"]
             kernels[-1].update({
+                "kernel_route": "packed", "route_launches": {
+                    r: train_launches[f"K9 {r} route"] for r in ("packed", "simple")},
                 "ce_launches": ce_launches["train"]["K9"], "ce_launches_per_step": ce_info["per_step_k9"],
                 "ce_resume_launches": ce_launches["resume"]["K9"], "ce_distill_launches": ce_launches["distill"]["K9"],
-                "device_ms": k["device_ms"], "library_device_ms": k["library_device_ms"],
+                "ce_host_ms_per_step": ce_info["k9_host_ms_per_step"], "sass": k["sass"], "clock_hz": k["clock_hz"],
+                **{key: k[key] for key in K9_KEYS if key not in ("shape", "dtype", "max_abs_err", "ms", "plain_ms",
+                                                                  "bound_ms", "bound_by", "library_ms")},
                 **{f"ce_{key}": ce[key] for key in K9_KEYS},
                 **{f"ce_hidden_{key}": ce_hidden[key] for key in K9_KEYS}})
         if fn == "K3":

@@ -15,9 +15,16 @@ differ and need not agree, the semantics do.  Nothing is saved between the
 passes but the seed.
 
 :func:`hw_dropout` launches the CUDA kernel for CUDA tensors (forward and
-backward, each counted in ``hw_dropout.launches``) and runs
-:func:`hw_dropout_ref`, the plain PyTorch version of the same stream, for
-CPU tensors.  On the card the two are equal bit for bit.
+backward, each counted in ``hw_dropout.launches`` and, by route, in
+``route_launches``) and runs :func:`hw_dropout_ref`, the plain PyTorch
+version of the same stream, for CPU tensors.  On the card the two are equal
+bit for bit.  The kernel has two routes (``csrc/dropout.cu``): "packed",
+the default, and the first design, "simple", only through
+``_launch(..., route="simple")``.  A call's host path is short because
+the hidden states' launch takes ~0.01 ms on the card: the scale is cached
+per ``(thr, dtype)``, the C function and its argtypes are resolved once,
+the stream is read raw, the C function switches the device only when it
+must, and a call that records no graph skips the autograd node.
 """
 
 from __future__ import annotations
@@ -92,6 +99,11 @@ def hw_dropout_ref(x: torch.Tensor, seed: int, thr: int) -> torch.Tensor:
 
 # ---- the CUDA kernel ----
 
+#: the kernel's routes: "packed" (the default) and the first design, "simple", on request only
+ROUTES = ("packed", "simple")
+_ROUTE_CODES = {r: i for i, r in enumerate(ROUTES)}
+_scales = {}  # (thr, dtype) -> keep_scale(thr, dtype)
+_fn = None  # dropout_launch with its argtypes, resolved at first use
 _lib_lock = threading.Lock()
 
 
@@ -102,33 +114,43 @@ def _kernel_lib() -> ctypes.CDLL:
     with _lib_lock:
         if lib.dropout_launch.argtypes is None:
             lib.dropout_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                ctypes.c_ulonglong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_ulonglong,
+                ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
             lib.dropout_launch.restype = ctypes.c_int
     return lib
 
 
-def _launch(x: torch.Tensor, seed: int, thr: int) -> torch.Tensor:
-    if x.dtype not in _DTYPES:
+def _scale(thr: int, dtype: torch.dtype) -> float:
+    """:func:`keep_scale`, computed once for each ``(thr, dtype)``."""
+    s = _scales.get((thr, dtype))
+    if s is None:
+        s = _scales[(thr, dtype)] = keep_scale(thr, dtype)
+    return s
+
+
+def _launch(x: torch.Tensor, seed: int, thr: int, route: str = "packed") -> torch.Tensor:
+    global _fn
+    code = _DTYPES.get(x.dtype)
+    if code is None:
         raise ValueError(f"dropout kernel takes float32, bfloat16 or float16, got {x.dtype}")
-    lib = _kernel_lib()
-    xc = x.contiguous()
-    y = torch.empty_like(xc)
-    vec_ok = int(xc.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
-    with torch.cuda.device(xc.device):
-        err = lib.dropout_launch(
-            xc.data_ptr(), y.data_ptr(), xc.numel(), _DTYPES[x.dtype], seed, thr,
-            keep_scale(thr, x.dtype), vec_ok, torch.cuda.current_stream(xc.device).cuda_stream,
-        )
+    if _fn is None:
+        _fn = _kernel_lib().dropout_launch
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    dev = x.get_device()
+    # the C function makes `dev` current for the launch if it is not
+    err = _fn(x.data_ptr(), y.data_ptr(), x.numel(), code, seed, thr, _scale(thr, x.dtype), _ROUTE_CODES[route],
+              dev, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"dropout kernel launch failed: cudaError_t {err}")
     hw_dropout.launches.add()
-    return y.view(x.shape)
+    route_launches[route].add()
+    return y
 
 
 def _apply(x: torch.Tensor, seed: int, thr: int) -> torch.Tensor:
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return hw_dropout_ref(x, seed, thr)
     return _launch(x, seed, thr)
 
@@ -147,12 +169,17 @@ class _HwDropout(torch.autograd.Function):
 
 def hw_dropout(x: torch.Tensor, seed: int, thr: int) -> torch.Tensor:
     """Dropout with drop probability ``thr / 256``; ``seed`` is an int in
-    [0, 2**64) drawn once per call site.  Differentiable in ``x``."""
+    [0, 2**64) drawn once per call site.  Differentiable in ``x``; a call
+    that records no graph skips the autograd node."""
     if not 1 <= thr <= 255:
         raise ValueError(f"dropout threshold must be 1..255 (of 256), got {thr}")
     if not 0 <= seed < 1 << 64:
         raise ValueError(f"dropout seed must fit 64 bits unsigned, got {seed}")
-    return _HwDropout.apply(x, seed, thr)
+    if x.requires_grad and torch.is_grad_enabled():
+        return _HwDropout.apply(x, seed, thr)
+    return _apply(x, seed, thr)
 
 
 hw_dropout.launches = LaunchCounter()
+#: K9's launches by route (forward and backward each count once)
+route_launches = {r: LaunchCounter() for r in ROUTES}

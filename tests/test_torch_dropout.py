@@ -185,3 +185,177 @@ def test_exact_impl_is_seeded_dropout():
         c = model.doc(ids, attn, generator=torch.Generator().manual_seed(12))
     assert torch.equal(a, b) and not torch.equal(a, c)
     assert torch.equal(torch.random.get_rng_state(), state)  # the global stream is left alone
+
+
+# ---- route "packed" of the CUDA kernel, emulated word by word in numpy ----
+#
+# The card's route "packed" (csrc/dropout.cu) compares each 32-bit Philox
+# word with thr four bytes at once (SWAR), spreads each byte's keep bit to a
+# 16- or 32-bit lane mask (PRMT with sign replication), multiplies two bf16 /
+# fp16 elements at once (HMUL2, one rounding to nearest) or one fp32
+# element, and ANDs the product with its mask.  These tests run that
+# arithmetic on numpy integers and hold it bit-equal to the plain version
+# (NaN compared by position): the card tests hold the kernel to the same.
+
+_UINT = {torch.float32: np.uint32, torch.bfloat16: np.uint16, torch.float16: np.uint16}
+_INT = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.float16: torch.int16}
+
+
+def _keep_bits(w, thr):
+    """The SWAR compare: bit 7 of each byte set where that byte of ``w`` is >= thr."""
+    bias = np.uint32((0x80 - (thr & 0x7F)) * 0x01010101)
+    d = (w & np.uint32(0x7F7F7F7F)) + bias  # no carry between bytes
+    return (w & d) if thr >= 128 else (w | d)
+
+
+def _prmt_sign(a, sel):
+    """PRMT with every selector nibble's sign bit set: byte k of the result is
+    0xFF where bit 7 of byte (nibble k & 3) of ``a`` is set, else 0."""
+    out = np.zeros_like(a)
+    for k in range(4):
+        src = (sel >> (4 * k)) & 3
+        out |= ((a >> np.uint32(8 * src + 7)) & np.uint32(1)) * np.uint32(0xFF << (8 * k))
+    return out
+
+
+def _bf16_round(f32):
+    """fp32 -> bf16 bits, round to nearest even (quiet NaN for NaN)."""
+    u = f32.view(np.uint32)
+    rounded = ((u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1))) >> np.uint32(16)).astype(np.uint16)
+    return np.where(np.isnan(f32), ((u >> np.uint32(16)) | np.uint32(0x40)).astype(np.uint16), rounded)
+
+
+def _packed_emulation(x: torch.Tensor, seed: int, thr: int) -> np.ndarray:
+    """Route "packed" on ``x`` (CPU), chunk by chunk as a lane takes them,
+    returned as the output's raw bits.  A 16-byte chunk is part ``c % parts``
+    of group ``c // parts`` (parts = 2 for bf16/fp16, 4 for fp32) and takes
+    that part's mask words of its group's Philox output."""
+    n = x.numel()
+    uint = _UINT[x.dtype]
+    parts = x.element_size()
+    pad = -n % 16
+    words = np.ascontiguousarray(dr.mask_bytes(n + pad, seed).numpy()).view("<u4").reshape(-1, 4)
+    raw = np.concatenate([x.reshape(-1).view(_INT[x.dtype]).numpy().view(uint), np.zeros(pad, uint)])
+    chunks = raw.view("<u4").reshape(-1, 4)  # four 32-bit words of data a chunk
+    c = np.arange(len(chunks))
+    r, part = words[c // parts], c % parts
+    if parts == 2:  # words 2 part, 2 part + 1; a data word holds elements 2p, 2p + 1
+        ka = _keep_bits(np.where(part == 1, r[:, 2], r[:, 0]), thr)
+        kb = _keep_bits(np.where(part == 1, r[:, 3], r[:, 1]), thr)
+        masks = np.stack([_prmt_sign(ka, 0x9988), _prmt_sign(ka, 0xBBAA), _prmt_sign(kb, 0x9988),
+                          _prmt_sign(kb, 0xBBAA)], axis=1)
+    else:  # word `part`; a data word holds one element
+        k = _keep_bits(r[c, part], thr)
+        masks = np.stack([_prmt_sign(k, 0x8888 + 0x1111 * e) for e in range(4)], axis=1)
+    scale = dr._scale(thr, x.dtype)
+    with np.errstate(over="ignore", invalid="ignore"):  # inf and NaN products, as on the card
+        prod = _packed_product(chunks, scale, x.dtype)
+    return (prod & masks).reshape(-1).view(uint)[:n]
+
+
+def _packed_product(chunks, scale, dtype):
+    """HMUL2 on each 32-bit word (two bf16/fp16 elements, each rounded once to
+    nearest from the exact fp32 product) or FMUL (one fp32 element)."""
+    if dtype == torch.float32:
+        return (chunks.view(np.float32) * np.float32(scale)).view(np.uint32)
+    halves = chunks.view(np.uint16)
+    if dtype == torch.bfloat16:
+        prod = _bf16_round((halves.astype(np.uint32) << np.uint32(16)).view(np.float32) * np.float32(scale))
+    else:
+        prod = (halves.view(np.float16).astype(np.float32) * np.float32(scale)).astype(np.float16).view(np.uint16)
+    return np.ascontiguousarray(prod).view("<u4")
+
+
+def _assert_same_bits(got_bits: np.ndarray, want: torch.Tensor):
+    want_bits = want.reshape(-1).view(_INT[want.dtype]).numpy().view(_UINT[want.dtype])
+    if want.dtype == torch.bfloat16:
+        nan_got = (got_bits & 0x7FFF) > 0x7F80
+    else:
+        nan_got = np.isnan(got_bits.view(np.float32 if want.dtype == torch.float32 else np.float16))
+    nan_want = torch.isnan(want.reshape(-1)).numpy()
+    np.testing.assert_array_equal(nan_got, nan_want)
+    np.testing.assert_array_equal(np.where(nan_got, 0, got_bits), np.where(nan_want, 0, want_bits))
+
+
+def _special_input(dtype, n, seed):
+    fi = torch.finfo(dtype)
+    special = torch.tensor([fi.tiny / 2, -fi.tiny / 3, fi.tiny / 64, fi.tiny, -fi.tiny, 0.0, -0.0, float("inf"),
+                            -float("inf"), float("nan"), fi.max, -fi.max], dtype=torch.float64)
+    x = torch.from_numpy(np.random.default_rng(seed).normal(size=n))
+    x[::5] = special.repeat(-(-x[::5].numel() // special.numel()))[: x[::5].numel()]
+    return x.to(dtype)
+
+
+def test_swar_compare_every_byte_and_threshold():
+    b = np.arange(256, dtype=np.uint8)
+    words = b.view("<u4")  # bytes 0..255, four to a word
+    for thr in range(1, 256):
+        keep = (_keep_bits(words, thr)[:, None] >> np.arange(7, 32, 8, dtype=np.uint32)) & 1
+        np.testing.assert_array_equal(keep.reshape(-1).astype(bool), b >= thr, err_msg=f"thr {thr}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_packed_word_path_every_threshold(dtype):
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=48)).to(dtype)
+    for thr in range(1, 256):
+        seed = 0x0123_4567_89AB_CDEF + thr
+        _assert_same_bits(_packed_emulation(x, seed, thr), dr.hw_dropout_ref(x, seed, thr))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_packed_word_path_special_values(dtype):
+    """Subnormals, +-0, +-inf, NaN and +-max: the packed product rounds once
+    to nearest and keeps subnormals; a dropped element is +0.0, a kept -0.0
+    stays -0.0."""
+    x = _special_input(dtype, 4000, 5)
+    for thr in (1, 26, 128, 200, 255):
+        _assert_same_bits(_packed_emulation(x, 77 + thr, thr), dr.hw_dropout_ref(x, 77 + thr, thr))
+
+
+@pytest.mark.parametrize("n", [1, 15, 17, 31, 33, 1001])
+def test_packed_word_path_odd_counts(n):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        x = _special_input(dtype, n, n)
+        _assert_same_bits(_packed_emulation(x, 2**64 - 1 - n, 51), dr.hw_dropout_ref(x, 2**64 - 1 - n, 51))
+
+
+def test_cached_scale_equals_keep_scale():
+    for dtype in (torch.float32, torch.bfloat16, torch.float16, torch.float64):
+        for thr in range(1, 256):
+            assert dr._scale(thr, dtype) == dr.keep_scale(thr, dtype)
+            assert dr._scale(thr, dtype) == dr.keep_scale(thr, dtype)  # the cached value, the second time
+
+
+def test_cpu_tensors_take_the_plain_version():
+    counters = [dr.hw_dropout.launches, *dr.route_launches.values()]
+    before = [c.value for c in counters]
+    x = torch.randn(3, 50, requires_grad=True)
+    y = dr.hw_dropout(x, 5, 26)
+    y.sum().backward()
+    assert torch.equal(y, dr.hw_dropout_ref(x.detach(), 5, 26))
+    with torch.no_grad():
+        assert torch.equal(dr.hw_dropout(x, 6, 26), dr.hw_dropout_ref(x.detach(), 6, 26))
+    assert [c.value for c in counters] == before
+
+
+def test_high_seed_reaches_the_launch_unchanged(monkeypatch):
+    """A seed in [2**63, 2**64) passes the guard, reaches ``_launch`` (a
+    tensor off the CPU) and the C function's argument as the same int."""
+    seed = (1 << 64) - 3
+    seen = []
+    monkeypatch.setattr(dr, "_launch", lambda x, s, t: seen.append((s, t)) or torch.empty_like(x))
+    dr.hw_dropout(torch.empty(4, 5, device="meta"), seed, 26)
+    dr.hw_dropout(torch.empty(4, 5, device="meta", requires_grad=True), 1 << 63, 26)
+    assert seen == [(seed, 26), ((1 << 63), 26)]
+    monkeypatch.undo()
+
+    args = []
+    monkeypatch.setattr(dr, "_fn", lambda *a: args.append(a) or 0)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda dev: 1234, raising=False)
+    before = dr.route_launches["simple"].value
+    x = torch.ones(40, dtype=torch.bfloat16)
+    y = dr._launch(x, seed, 200, route="simple")
+    assert y.shape == x.shape and y.dtype == x.dtype and y.data_ptr() != x.data_ptr()
+    (a,) = args
+    assert a[2:] == (40, 1, seed, 200, dr.keep_scale(200, torch.bfloat16), dr.ROUTES.index("simple"), -1, 1234)
+    assert dr.route_launches["simple"].value == before + 1

@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the flat scan (K1, K2), all-pairs MaxSim (K3, both routes), dropout (K9), the rerank
+the flat scan (K1, K2), all-pairs MaxSim (K3, both routes), dropout (K9, both routes), the rerank
 (K4 bf16, K5 int8, on both routes, its pid-window schedule's edges and its
 freedom from host synchronisation), the sq list scans (K6 slots and K7 hot
 lists, each on both routes; K6's work list's edges, K7's member-token
@@ -294,6 +294,138 @@ def test_dropout_kernel_unaligned_view(cuda_device):
     view = flat[1:]
     assert view.data_ptr() % 16
     torch.testing.assert_close(dr.hw_dropout(view, 99, 51), dr.hw_dropout_ref(view, 99, 51), rtol=0, atol=0)
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, NaNs compared by position only."""
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    na, nb = a.isnan(), b.isnan()
+    return a.shape == b.shape and torch.equal(na, nb) and torch.equal(
+        torch.where(na, 0, a.view(ints)), torch.where(nb, 0, b.view(ints)))
+
+
+def _dropout_route(x, seed, thr, route):
+    """Forward and backward of K9 on ``route``: "packed" through
+    ``hw_dropout`` and autograd, "simple" through ``_launch`` on the input and
+    on the gradient (the backward is the same kernel)."""
+    from colbert_tpu_torch.ops import dropout as dr
+
+    g = torch.randn(x.shape, device=x.device).to(x.dtype)
+    before = dr.route_launches[route].value
+    if route == "simple":
+        y, dx = dr._launch(x, seed, thr, route="simple"), dr._launch(g, seed, thr, route="simple")
+    else:
+        xg = x.detach().requires_grad_(True)  # x's storage, offset and strides
+        y = dr.hw_dropout(xg, seed, thr)
+        (dx,) = torch.autograd.grad(y, xg, g)
+        y = y.detach()
+    torch.cuda.synchronize()
+    assert dr.route_launches[route].value == before + 2
+    return y, dx, g
+
+
+def _special(dtype, n, device):
+    fi = torch.finfo(dtype)
+    special = torch.tensor([fi.tiny / 2, -fi.tiny / 3, fi.tiny / 64, fi.tiny, -fi.tiny, 0.0, -0.0, float("inf"),
+                            -float("inf"), float("nan"), fi.max, -fi.max], dtype=torch.float64)
+    x = torch.from_numpy(np.random.default_rng(n).normal(size=n))
+    x[::5] = special.repeat(-(-x[::5].numel() // special.numel()))[: x[::5].numel()]
+    return x.to(dtype).to(device)
+
+
+@pytest.mark.parametrize("route", ["packed", "simple"])
+@pytest.mark.parametrize("shape,dtype", [
+    ((68, 12, 384, 384), torch.bfloat16),  # the retriever's attention probabilities (batch 34 x 2)
+    ((20, 16, 384, 384), torch.bfloat16),  # the cross-encoder's attention probabilities
+    ((20, 384, 1024), torch.bfloat16),     # the cross-encoder's hidden states
+    ((20, 384, 1024), torch.float32),
+    ((20, 384, 1024), torch.float16),
+    ((1001, 3), torch.float32),            # odd element count: the scalar tail
+    ((33,), torch.float16),
+])
+def test_dropout_routes_bit_equal(cuda_device, route, shape, dtype):
+    """Both routes, forward and backward, bit-equal to the plain version and
+    to each other."""
+    from colbert_tpu_torch.ops import dropout as dr
+
+    seed, thr = 0x1234_5678_9ABC_DEF0, 26
+    x = torch.randn(shape, device=cuda_device).to(dtype)
+    y, dx, g = _dropout_route(x, seed, thr, route)
+    assert _same_bits(y, dr.hw_dropout_ref(x, seed, thr))
+    assert _same_bits(dx, dr.hw_dropout_ref(g, seed, thr))
+    if route == "simple":
+        assert _same_bits(y, dr.hw_dropout(x, seed, thr))
+
+
+@pytest.mark.parametrize("route", ["packed", "simple"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_dropout_routes_special_values(cuda_device, route, dtype):
+    """Subnormals, +-0, +-inf, NaN and +-max: HMUL2 (bf16, fp16) and FMUL
+    round to nearest and keep subnormals, as the plain version does."""
+    from colbert_tpu_torch.ops import dropout as dr
+
+    x = _special(dtype, 40_003, cuda_device)
+    for thr in (1, 26, 128, 200, 255):
+        y, dx, g = _dropout_route(x, 91 + thr, thr, route)
+        assert _same_bits(y, dr.hw_dropout_ref(x, 91 + thr, thr)), thr
+        assert _same_bits(dx, dr.hw_dropout_ref(g, 91 + thr, thr)), thr
+
+
+@pytest.mark.parametrize("route", ["packed", "simple"])
+@pytest.mark.parametrize("seed", [0, 1 << 62, (1 << 64) - 1])
+def test_dropout_routes_seed_edges(cuda_device, route, seed):
+    from colbert_tpu_torch.ops import dropout as dr
+
+    x = torch.randn(5, 4099, device=cuda_device, dtype=torch.bfloat16)
+    y, dx, g = _dropout_route(x, seed, 51, route)
+    assert _same_bits(y, dr.hw_dropout_ref(x, seed, 51)) and _same_bits(dx, dr.hw_dropout_ref(g, seed, 51))
+
+
+@pytest.mark.parametrize("route", ["packed", "simple"])
+def test_dropout_routes_unaligned_and_strided(cuda_device, route):
+    """A view off 16-byte alignment (the element-by-element path) and a
+    non-contiguous input (copied first) equal the plain version."""
+    from colbert_tpu_torch.ops import dropout as dr
+
+    flat = torch.randn(40_961, device=cuda_device, dtype=torch.bfloat16)
+    view = flat[3:]
+    assert view.data_ptr() % 16
+    strided = torch.randn(64, 513, device=cuda_device, dtype=torch.float16).t()
+    assert not strided.is_contiguous()
+    for x in (view, strided):
+        y, dx, g = _dropout_route(x, 7, 26, route)
+        assert _same_bits(y, dr.hw_dropout_ref(x.contiguous(), 7, 26))
+        assert _same_bits(dx, dr.hw_dropout_ref(g, 7, 26))
+
+
+def test_dropout_launches_per_macbert_large_ce_step(cuda_device, tmp_path):
+    """At the cross-encoder's 24 layers (narrow widths), a train step launches
+    K9 146 times, all on route "packed"."""
+    from colbert_tpu_torch.config import CETrainConfig, ColbertConfig, ModelConfig, TokenizerConfig
+    from colbert_tpu_torch.ops import dropout as dr
+    from colbert_tpu_torch.tokenization import ColbertTokenizer, build_vocab, write_vocab
+    from colbert_tpu_torch.training import CETrainer
+
+    words = ["apple", "river", "piano", "ocean", "forest"]
+    vp = write_vocab(build_vocab([" ".join(words)]), tmp_path / "vocab.txt")
+    cfg = ColbertConfig(
+        ce_model=ModelConfig(vocab_size=128, hidden_size=64, num_layers=24, num_heads=4, intermediate_size=128,
+                             max_position_embeddings=64, dtype="bfloat16"),
+        tokenizer=TokenizerConfig(vocab_path=vp, ce_maxlen=32),
+        ce_train=CETrainConfig(per_device_batch_size=2, neg_num=2, neg_pool_lo=0, neg_pool_hi=4,
+                               checkpoint_dir=str(tmp_path / "ce")),
+    )
+    exs = [{"question": w, "positive_ctxs": [w + " " + w], "hard_negative_ctxs": [o for o in words if o != w]}
+           for w in words[:2]]
+    t = CETrainer(cfg, ColbertTokenizer(cfg.tokenizer, cfg.multiview), device=cuda_device)
+    t._init_state(2)
+    ids, attn, group, teacher = t._build_pairs(exs, "train")
+    before = dr.hw_dropout.launches.value, dr.route_launches["packed"].value, dr.route_launches["simple"].value
+    loss = t.train_step(ids, attn, group, teacher, 0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    after = dr.hw_dropout.launches.value, dr.route_launches["packed"].value, dr.route_launches["simple"].value
+    assert (after[0] - before[0], after[1] - before[1], after[2] - before[2]) == (146, 146, 0)
 
 
 # ---- K4/K5: fused gather + MaxSim rerank, limit 1e-4 (only the summation order differs) ----
