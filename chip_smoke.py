@@ -50,10 +50,13 @@ width, with random weights from a seed:
   subnormals, +-0, +-inf and NaN in each dtype: forward and backward
   bit-equal to the plain version's Philox stream (NaN by position), the
   keep fraction within 5 sigma of (256 - thr) / 256; the three bf16 shapes
-  timed on the host clock and on the card alone, both routes in turns,
-  beside the plain version, ``F.dropout``, the ``copy_`` of the same bytes
-  and the bound: the larger of the bytes read and written over 3.35 TB/s
-  and route "packed"'s instructions (counted in its loop's SASS,
+  timed on the host clock a call, K9 and ``F.dropout`` on an input that
+  records a graph as the models call them (without one as an aside), and
+  on the card alone, both routes in turns, beside ``F.dropout`` and the
+  ``copy_`` of the same bytes, cold (inputs and outputs rotated over twice
+  the L2 and more) and hot (the same input each call, an aside); the cold
+  time against the bound: the larger of the bytes read and written over
+  3.35 TB/s and route "packed"'s instructions (counted in its loop's SASS,
   ``cuobjdump -sass``) over the INT32 pipe's and the schedulers' rates.
 * phase 4: the CLI's ``train`` at BERT-base width, batch 34, multiview
   16/16, dropout 0.1 (the default byte impl): 7 steps over synthetic
@@ -177,6 +180,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import itertools
 import json
 import re
 import subprocess
@@ -696,8 +700,9 @@ K9_CE_SITES = {"probabilities": ((CE_BATCH * (1 + CE_NEG), 16, 384, 384), "bfloa
 
 
 K9_KEYS = ("shape", "dtype", "max_abs_err", "ms", "simple_ms", "plain_ms", "bound_ms", "bound_by", "byte_bound_ms",
-           "int_bound_ms", "issue_bound_ms", "library_ms", "device_ms", "simple_device_ms", "library_device_ms",
-           "copy_device_ms")
+           "int_bound_ms", "issue_bound_ms", "library_ms", "no_graph_ms", "library_no_graph_ms", "device_ms",
+           "simple_device_ms", "library_device_ms", "copy_device_ms", "cold_buffers", "hot_device_ms",
+           "hot_simple_device_ms", "hot_library_device_ms", "hot_copy_device_ms")
 INT32_LANES_PER_SM = 64    # Hopper's INT32 units an SM: the pipe of LOP3, IADD3, PRMT, SHF, ISETP, ...
 ISSUE_LANES_PER_SM = 128   # 4 warp schedulers an SM, one warp instruction a clock each
 # opcodes of the INT32 pipe (IMAD issues to the FMA pipe, the compiler's way to relieve this one)
@@ -755,16 +760,6 @@ def k9_mix(dtype, thr=K9_THR):
                          16 // torch.empty((), dtype=dtype).element_size())
 
 
-def same_bits(a, b) -> bool:
-    """``a`` and ``b`` hold the same bits, NaNs compared by position only."""
-    import torch
-
-    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
-    na, nb = a.isnan(), b.isnan()
-    return a.shape == b.shape and torch.equal(na, nb) and torch.equal(
-        torch.where(na, 0, a.view(ints)), torch.where(nb, 0, b.view(ints)))
-
-
 def k9_routes_equal(x, seed64, thr, what):
     """Route "packed" through ``hw_dropout`` (forward and backward, both
     launches on that route) and route "simple" through ``_launch`` against
@@ -786,7 +781,7 @@ def k9_routes_equal(x, seed64, thr, what):
         raise AssertionError(f"K9 {what}: the forward and backward did not both launch route packed")
     for name, got, want in (("packed forward", y, want_y), ("packed backward", dx, want_dx),
                             ("simple forward", simple_y, want_y), ("simple backward", simple_dx, want_dx)):
-        if not same_bits(got, want):
+        if not dr.same_bits(got, want):
             raise AssertionError(f"K9 {what}: route {name} differs from the plain version in "
                                  f"{int((got.view(-1) != want.view(-1)).sum())} elements")
     fin = want_y.isfinite() & y.isfinite()
@@ -811,16 +806,34 @@ def k9_special_values(device, seed64):
         "both routes bit-equal to the plain version, forward and backward")
 
 
+def in_turn(fn, xs):
+    """A call of ``fn(x, i)`` on each ``x = xs[i]`` in turn, each output held
+    until its input comes round again: with inputs and outputs well past the
+    card's L2, no call finds its input or its output there."""
+    outs, turn = [None] * len(xs), itertools.count()
+
+    def call():
+        i = next(turn) % len(xs)
+        outs[i] = fn(xs[i], i)
+    return call
+
+
 def k9_check(device, shape, dtype, seed64, what, mix, clock_hz):
     """K9 on both routes, forward and backward, against the plain version's
-    Philox stream (bit-equal), its keep fraction, and its times on the host
-    clock and on the card alone (``device_ms``, route "packed" and route
-    "simple" in turns) beside the plain version's, ``F.dropout``'s, the
-    ``copy_`` of the same bytes (the ceiling of a read-once, write-once pass)
-    and the bound: the larger of the bytes (each element read once, written
-    once) over the HBM rate, route "packed"'s INT32-pipe instructions (``mix``,
-    from its SASS) over the INT32 lanes, and all its instructions over the
-    schedulers' issue rate, at ``clock_hz``."""
+    Philox stream (bit-equal), its keep fraction, and its times.  On the host
+    clock (``time_ms``, a call): route "packed" through ``hw_dropout`` and
+    ``F.dropout`` on an input that records a graph, as the models call them
+    (in turns), beside each without a graph, route "simple"'s launch and the
+    plain version.  On the card alone (``device_ms``): route "packed" and
+    route "simple" in turns, ``F.dropout`` and the ``copy_`` of the same
+    bytes (the ceiling of a read-once, write-once pass), each cold (over
+    copies of the input and outputs held ``in_turn``, twice the L2 and more,
+    so every byte comes from and goes to device memory) and hot (the same
+    input each call, as a tensor just written may sit in L2); and the bound
+    of the cold time: the larger of the bytes (each element read once,
+    written once) over the HBM rate, route "packed"'s INT32-pipe
+    instructions (``mix``, from its SASS) over the INT32 lanes, and all its
+    instructions over the schedulers' issue rate, at ``clock_hz``."""
     import torch
     import torch.nn.functional as F
 
@@ -839,19 +852,31 @@ def k9_check(device, shape, dtype, seed64, what, mix, clock_hz):
     if abs(frac - p) > 5 * sigma:
         raise AssertionError(f"K9 keep fraction {frac} is {abs(frac - p) / sigma:.1f} sigma from {p}")
     del y, nz
-    out_copy = torch.empty_like(x)
-    packed = lambda: dr.hw_dropout(x, seed64, K9_THR)
-    simple = lambda: dr._launch(x, seed64, K9_THR, route="simple")
-    turns = [(r, device_ms(fn)) for r, fn in (("packed", packed), ("simple", simple), ("simple", simple),
-                                              ("packed", packed))]
+    xg = x.detach().requires_grad_(True)
+    host = [(r, time_ms(fn)) for r, fn in (
+        ("packed", lambda: dr.hw_dropout(xg, seed64, K9_THR)), ("library", lambda: F.dropout(xg, K9_THR / 256, True)),
+        ("library", lambda: F.dropout(xg, K9_THR / 256, True)), ("packed", lambda: dr.hw_dropout(xg, seed64, K9_THR)))]
     out = {"shape": list(shape), "dtype": name, "max_abs_err": err,
-           "ms": time_ms(packed), "simple_ms": time_ms(simple),
-           "plain_ms": time_ms(lambda: dr.hw_dropout_ref(x, seed64, K9_THR), iters=5),
-           "library_ms": time_ms(lambda: F.dropout(x, p=K9_THR / 256, training=True)),
-           "device_ms": sum(t for r, t in turns if r == "packed") / 2,
-           "simple_device_ms": sum(t for r, t in turns if r == "simple") / 2,
-           "library_device_ms": device_ms(lambda: F.dropout(x, p=K9_THR / 256, training=True)),
-           "copy_device_ms": device_ms(lambda: out_copy.copy_(x))}
+           "ms": sum(t for r, t in host if r == "packed") / 2,
+           "library_ms": sum(t for r, t in host if r == "library") / 2,
+           "no_graph_ms": time_ms(lambda: dr.hw_dropout(x, seed64, K9_THR)),
+           "library_no_graph_ms": time_ms(lambda: F.dropout(x, K9_THR / 256, True)),
+           "simple_ms": time_ms(lambda: dr._launch(x, seed64, K9_THR, route="simple")),
+           "plain_ms": time_ms(lambda: dr.hw_dropout_ref(x, seed64, K9_THR), iters=5)}
+    l2 = torch.cuda.get_device_properties(device).L2_cache_size
+    xs = [x] + [x.clone() for _ in range(-(-2 * l2 // (x.numel() * x.element_size())))]
+    copies = [torch.empty_like(x) for _ in xs]
+    calls = {"packed": lambda t, i: dr.hw_dropout(t, seed64, K9_THR),
+             "simple": lambda t, i: dr._launch(t, seed64, K9_THR, route="simple"),
+             "library": lambda t, i: F.dropout(t, K9_THR / 256, True), "copy": lambda t, i: copies[i].copy_(t)}
+    turns = [(r, device_ms(in_turn(calls[r], xs))) for r in ("packed", "simple", "simple", "packed")]
+    out.update({"device_ms": sum(t for r, t in turns if r == "packed") / 2,
+                "simple_device_ms": sum(t for r, t in turns if r == "simple") / 2,
+                "library_device_ms": device_ms(in_turn(calls["library"], xs)),
+                "copy_device_ms": device_ms(in_turn(calls["copy"], xs)), "cold_buffers": len(xs)})
+    out.update({f"hot_{'' if r == 'packed' else r + '_'}device_ms": device_ms(lambda f=f: f(x, 0))
+                for r, f in calls.items()})
+    del xs, copies
     n, nbytes = x.numel(), 2.0 * x.numel() * x.element_size()
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     out["byte_bound_ms"] = nbytes / PEAK_HBM_BYTES * 1e3
@@ -859,16 +884,22 @@ def k9_check(device, shape, dtype, seed64, what, mix, clock_hz):
     out["issue_bound_ms"] = n * mix["all_per_element"] / (ISSUE_LANES_PER_SM * sms * clock_hz) * 1e3
     out["bound_ms"] = max(out["byte_bound_ms"], out["int_bound_ms"], out["issue_bound_ms"])
     out["bound_by"] = "bytes" if out["bound_ms"] == out["byte_bound_ms"] else "operations"
-    log(f"[phase3] K9 at {shape} {name}: route packed {out['ms']:.4f} ms, route simple {out['simple_ms']:.4f} ms, "
-        f"plain {out['plain_ms']:.3f} ms, F.dropout {out['library_ms']:.4f} ms (host clock); on the card alone, "
-        f"the host's issue time hidden: route packed {out['device_ms']:.4f} ms, route simple "
-        f"{out['simple_device_ms']:.4f} ms, F.dropout {out['library_device_ms']:.4f} ms, copy_ of the same bytes "
-        f"{out['copy_device_ms']:.4f} ms; bound {out['bound_ms']:.4f} ms ({out['bound_by']}: {nbytes / 1e6:.1f} MB "
-        f"read and written at {PEAK_HBM_BYTES / 1e12:.2f} TB/s {out['byte_bound_ms']:.4f} ms; "
-        f"{mix['int_per_element']:.3f} INT32-pipe instructions an element at {INT32_LANES_PER_SM} lanes x {sms} SMs x "
-        f"{clock_hz / 1e9:.2f} GHz {out['int_bound_ms']:.4f} ms; {mix['all_per_element']:.3f} instructions an "
-        f"element at {ISSUE_LANES_PER_SM} issue lanes an SM {out['issue_bound_ms']:.4f} ms); route packed at "
-        f"{out['bound_ms'] / out['device_ms']:.1%} of it on the card alone")
+    log(f"[phase3] K9 at {shape} {name}, host clock a call, input recording a graph as the models call it: "
+        f"route packed {out['ms']:.4f} ms, F.dropout {out['library_ms']:.4f} ms (K9 "
+        f"{'at or below' if out['ms'] <= out['library_ms'] else 'above'} it); without a graph, an aside: route "
+        f"packed {out['no_graph_ms']:.4f}, F.dropout {out['library_no_graph_ms']:.4f}; route simple's launch "
+        f"{out['simple_ms']:.4f}, plain {out['plain_ms']:.3f} ms")
+    log(f"[phase3] K9 at {shape} {name}, on the card alone, cold (every call on the next of "
+        f"{out['cold_buffers']} copies, {out['cold_buffers'] * nbytes / 1e6:.0f} MB against {l2 / 1e6:.0f} MB of L2): route packed "
+        f"{out['device_ms']:.4f} ms, route simple {out['simple_device_ms']:.4f} ms, F.dropout "
+        f"{out['library_device_ms']:.4f} ms, copy_ of the same bytes {out['copy_device_ms']:.4f} ms; hot (the same "
+        f"input each call, an aside): {out['hot_device_ms']:.4f}, {out['hot_simple_device_ms']:.4f}, "
+        f"{out['hot_library_device_ms']:.4f}, {out['hot_copy_device_ms']:.4f}; bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}: {nbytes / 1e6:.1f} MB read and written at {PEAK_HBM_BYTES / 1e12:.2f} TB/s "
+        f"{out['byte_bound_ms']:.4f} ms; {mix['int_per_element']:.3f} INT32-pipe instructions an element at "
+        f"{INT32_LANES_PER_SM} lanes x {sms} SMs x {clock_hz / 1e9:.2f} GHz {out['int_bound_ms']:.4f} ms; "
+        f"{mix['all_per_element']:.3f} instructions an element at {ISSUE_LANES_PER_SM} issue lanes an SM "
+        f"{out['issue_bound_ms']:.4f} ms); route packed cold at {out['bound_ms'] / out['device_ms']:.1%} of it")
     return out
 
 

@@ -23,8 +23,8 @@ the default, and the first design, "simple", only through
 ``_launch(..., route="simple")``.  A call's host path is short because
 the hidden states' launch takes ~0.01 ms on the card: the scale is cached
 per ``(thr, dtype)``, the C function and its argtypes are resolved once,
-the stream is read raw, the C function switches the device only when it
-must, and a call that records no graph skips the autograd node.
+the stream is read raw and the C function switches the device only when it
+must.  :func:`same_bits` is how the kernel is held to the plain version.
 """
 
 from __future__ import annotations
@@ -95,6 +95,14 @@ def hw_dropout_ref(x: torch.Tensor, seed: int, thr: int) -> torch.Tensor:
     keep = mask_bytes(x.numel(), seed, x.device).view(x.shape) >= thr
     scale = torch.tensor(keep_scale(thr, x.dtype), dtype=x.dtype, device=x.device)
     return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``a`` and ``b`` hold the same bits, NaNs compared by position only."""
+    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    na, nb = a.isnan(), b.isnan()
+    return a.shape == b.shape and torch.equal(na, nb) and torch.equal(
+        torch.where(na, 0, a.view(ints)), torch.where(nb, 0, b.view(ints)))
 
 
 # ---- the CUDA kernel ----
@@ -169,15 +177,12 @@ class _HwDropout(torch.autograd.Function):
 
 def hw_dropout(x: torch.Tensor, seed: int, thr: int) -> torch.Tensor:
     """Dropout with drop probability ``thr / 256``; ``seed`` is an int in
-    [0, 2**64) drawn once per call site.  Differentiable in ``x``; a call
-    that records no graph skips the autograd node."""
+    [0, 2**64) drawn once per call site.  Differentiable in ``x``."""
     if not 1 <= thr <= 255:
         raise ValueError(f"dropout threshold must be 1..255 (of 256), got {thr}")
     if not 0 <= seed < 1 << 64:
         raise ValueError(f"dropout seed must fit 64 bits unsigned, got {seed}")
-    if x.requires_grad and torch.is_grad_enabled():
-        return _HwDropout.apply(x, seed, thr)
-    return _apply(x, seed, thr)
+    return _HwDropout.apply(x, seed, thr)
 
 
 hw_dropout.launches = LaunchCounter()

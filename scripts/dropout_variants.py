@@ -22,8 +22,10 @@ context (none: the C function switches the device if it must),
 no launch), the ``LaunchCounter``'s lock (none) and
 ``_HwDropout.apply`` (none); then every part replaced, the current
 ``hw_dropout`` on both routes, a bare ctypes call that launches nothing,
-and ``F.dropout`` with and without ``requires_grad`` (and ``hw_dropout``
-with it).
+and ``F.dropout`` with and without ``requires_grad``; last
+``hw_dropout`` with it, as the models call it, and its parts: ``_launch``
+alone (no autograd node), an autograd node whose forward only allocates,
+and ``_launch`` without its two counters.
 
 Device, at the three bf16 shapes K9 runs at, (68, 12, 384, 384), (20, 16,
 384, 384) and (20, 384, 1024): each variant's time on the card alone (the
@@ -60,7 +62,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import card_label, device_ms, same_bits, sass_loop_mix, time_ms  # noqa: E402
+from chip_smoke import card_label, device_ms, sass_loop_mix, time_ms  # noqa: E402
 
 SHAPES = ((68, 12, 384, 384), (20, 16, 384, 384), (20, 384, 1024))
 HIDDEN = (20, 384, 1024)
@@ -225,20 +227,41 @@ def host_split():
     fn = dr._kernel_lib().dropout_launch
     y = torch.empty_like(x)
     stream = torch._C._cuda_getCurrentRawStream(0)
+    scale = dr._scale(THR, x.dtype)
+
+    class Alloc(torch.autograd.Function):
+        """A node whose forward only allocates: an autograd node's host cost with one allocation."""
+
+        @staticmethod
+        def forward(ctx, t):
+            return torch.empty_like(t)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g
+
+    def launch_uncounted(t):
+        out = torch.empty_like(t)
+        fn(t.data_ptr(), out.data_ptr(), t.numel(), 1, SEED, THR, scale, 0, 0, torch._C._cuda_getCurrentRawStream(0))
+        return out
+
     cases = [("first design's wrapper", lambda f=pr2_wrapper(): f(x, SEED, THR))]
     cases += [(f"  without {part}", lambda f=pr2_wrapper(frozenset([part])): f(x, SEED, THR)) for part in PARTS
               if part != "ctypes call"]
     cases += [("  without the ctypes call (no launch)", lambda f=pr2_wrapper(frozenset(["ctypes call"])): f(x, SEED, THR)),
               ("  every part replaced but the allocation and the launch",
                lambda f=pr2_wrapper(frozenset(PARTS) - {"ctypes call", "empty_like"}): f(x, SEED, THR)),
-              ("hw_dropout (route packed)", lambda: dr.hw_dropout(x, SEED, THR)),
+              ("hw_dropout (route packed), no graph", lambda: dr.hw_dropout(x, SEED, THR)),
               ("_launch(route='simple')", lambda: dr._launch(x, SEED, THR, route="simple")),
               ("a bare ctypes call, n = 0 (launches nothing)",
                lambda: fn(x.data_ptr(), y.data_ptr(), 0, 1, SEED, THR, 1.0, 0, 0, stream)),
               ("torch.empty_like alone", lambda: torch.empty_like(x)),
               ("F.dropout", lambda: F.dropout(x, p=THR / 256, training=True)),
               ("F.dropout, requires_grad", lambda: F.dropout(xg, p=THR / 256, training=True)),
-              ("hw_dropout, requires_grad", lambda: dr.hw_dropout(xg, SEED, THR))]
+              ("hw_dropout, requires_grad", lambda: dr.hw_dropout(xg, SEED, THR)),
+              ("  _launch alone (route packed: no autograd node)", lambda: dr._launch(x, SEED, THR)),
+              ("  an autograd node around torch.empty_like, requires_grad", lambda: Alloc.apply(xg)),
+              ("  _launch without its two counters", lambda: launch_uncounted(x))]
     runs = {name: [] for name, _ in cases}
     events = {name: [] for name, _ in cases}
     for turn in (cases, cases[::-1]):
@@ -280,7 +303,7 @@ def device_split():
         runs["copy_ (no kernel of the port)"] = lambda: y.copy_(x)
         want = dr.hw_dropout_ref(x, SEED, THR)
         for name in ("simple", "packed", "packed, the in-L2 way at every size", "packed, the streaming way at every size"):
-            same = same_bits(runs[name](), want)
+            same = dr.same_bits(runs[name](), want)
             ok &= same
             if not same:
                 print(f"  {shape} {name}: DIFFERS from the plain version")

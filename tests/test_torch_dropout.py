@@ -267,14 +267,9 @@ def _packed_product(chunks, scale, dtype):
 
 
 def _assert_same_bits(got_bits: np.ndarray, want: torch.Tensor):
-    want_bits = want.reshape(-1).view(_INT[want.dtype]).numpy().view(_UINT[want.dtype])
-    if want.dtype == torch.bfloat16:
-        nan_got = (got_bits & 0x7FFF) > 0x7F80
-    else:
-        nan_got = np.isnan(got_bits.view(np.float32 if want.dtype == torch.float32 else np.float16))
-    nan_want = torch.isnan(want.reshape(-1)).numpy()
-    np.testing.assert_array_equal(nan_got, nan_want)
-    np.testing.assert_array_equal(np.where(nan_got, 0, got_bits), np.where(nan_want, 0, want_bits))
+    ints = np.int32 if want.element_size() == 4 else np.int16
+    got = torch.from_numpy(np.ascontiguousarray(got_bits).view(ints)).view(want.dtype)
+    assert dr.same_bits(got, want.reshape(-1))
 
 
 def _special_input(dtype, n, seed):
@@ -331,8 +326,11 @@ def test_cpu_tensors_take_the_plain_version():
     before = [c.value for c in counters]
     x = torch.randn(3, 50, requires_grad=True)
     y = dr.hw_dropout(x, 5, 26)
-    y.sum().backward()
+    g = torch.randn(3, 50)
+    y.backward(g)
+    assert y.grad_fn is not None
     assert torch.equal(y, dr.hw_dropout_ref(x.detach(), 5, 26))
+    assert torch.equal(x.grad, dr.hw_dropout_ref(g, 5, 26))  # the same mask, regenerated
     with torch.no_grad():
         assert torch.equal(dr.hw_dropout(x, 6, 26), dr.hw_dropout_ref(x.detach(), 6, 26))
     assert [c.value for c in counters] == before

@@ -232,78 +232,6 @@ def test_maxsim_kernel_refuses_a_query_beyond_a_block(cuda_device):
 
 # ---- K9: dropout, bit-equal to the plain version's Philox stream ----
 
-@pytest.mark.parametrize("shape,dtype", [
-    ((4, 12, 384, 384), torch.bfloat16),
-    ((20, 16, 384, 384), torch.bfloat16),  # the cross-encoder's attention probabilities (macbert-large, batch 4 x 5)
-    ((20, 384, 1024), torch.bfloat16),     # the cross-encoder's hidden states
-    ((1001, 3), torch.float32),   # odd element count: the scalar tail
-    ((7, 33), torch.float16),
-])
-def test_dropout_kernel_bit_equal(cuda_device, shape, dtype):
-    from colbert_tpu_torch.ops import dropout as dr
-
-    x = torch.randn(shape, device=cuda_device).to(dtype).requires_grad_(True)
-    seed, thr = 0x1234_5678_9ABC_DEF0, 26
-    before = dr.hw_dropout.launches.value
-    y = dr.hw_dropout(x, seed, thr)
-    g = torch.randn_like(y)
-    (dx,) = torch.autograd.grad(y, x, g)
-    torch.cuda.synchronize()
-    assert dr.hw_dropout.launches.value == before + 2  # forward and backward
-    assert torch.equal(y, dr.hw_dropout_ref(x.detach(), seed, thr))
-    assert torch.equal(dx, dr.hw_dropout_ref(g, seed, thr))
-    keep = dr.mask_bytes(x.numel(), seed, cuda_device).view(shape) >= thr
-    assert torch.equal(y == 0, ~keep | (x.detach() == 0))
-
-
-def test_dropout_launches_per_ce_step(cuda_device, tmp_path):
-    """A cross-encoder train step launches K9 at every dropout site, forward
-    and backward: 2 x (1 + 3 x layers), and never falls back to the plain version."""
-    from colbert_tpu_torch.config import CETrainConfig, ColbertConfig, ModelConfig, TokenizerConfig
-    from colbert_tpu_torch.ops import dropout as dr
-    from colbert_tpu_torch.tokenization import ColbertTokenizer, build_vocab, write_vocab
-    from colbert_tpu_torch.training import CETrainer
-
-    words = ["apple", "river", "piano", "ocean", "forest"]
-    vp = write_vocab(build_vocab([" ".join(words)]), tmp_path / "vocab.txt")
-    cfg = ColbertConfig(
-        ce_model=ModelConfig(vocab_size=128, hidden_size=64, num_layers=3, num_heads=4, intermediate_size=128,
-                             max_position_embeddings=64, dtype="bfloat16"),
-        tokenizer=TokenizerConfig(vocab_path=vp, ce_maxlen=32),
-        ce_train=CETrainConfig(per_device_batch_size=2, neg_num=2, neg_pool_lo=0, neg_pool_hi=4,
-                               checkpoint_dir=str(tmp_path / "ce")),
-    )
-    exs = [{"question": w, "positive_ctxs": [w + " " + w], "hard_negative_ctxs": [o for o in words if o != w]}
-           for w in words[:2]]
-    t = CETrainer(cfg, ColbertTokenizer(cfg.tokenizer, cfg.multiview), device=cuda_device)
-    t._init_state(2)
-    ids, attn, group, teacher = t._build_pairs(exs, "train")
-    before = dr.hw_dropout.launches.value
-    loss = t.train_step(ids, attn, group, teacher, 0)
-    torch.cuda.synchronize()
-    assert torch.isfinite(loss)
-    assert dr.hw_dropout.launches.value - before == 2 * (1 + 3 * cfg.ce_model.num_layers)
-
-
-def test_dropout_kernel_unaligned_view(cuda_device):
-    """A view that starts off 16-byte alignment takes the scalar path and
-    still equals the plain version."""
-    from colbert_tpu_torch.ops import dropout as dr
-
-    flat = torch.randn(4097, device=cuda_device, dtype=torch.bfloat16)
-    view = flat[1:]
-    assert view.data_ptr() % 16
-    torch.testing.assert_close(dr.hw_dropout(view, 99, 51), dr.hw_dropout_ref(view, 99, 51), rtol=0, atol=0)
-
-
-def _same_bits(a, b):
-    """Equal bit for bit, NaNs compared by position only."""
-    ints = {2: torch.int16, 4: torch.int32}[a.element_size()]
-    na, nb = a.isnan(), b.isnan()
-    return a.shape == b.shape and torch.equal(na, nb) and torch.equal(
-        torch.where(na, 0, a.view(ints)), torch.where(nb, 0, b.view(ints)))
-
-
 def _dropout_route(x, seed, thr, route):
     """Forward and backward of K9 on ``route``: "packed" through
     ``hw_dropout`` and autograd, "simple" through ``_launch`` on the input and
@@ -311,7 +239,7 @@ def _dropout_route(x, seed, thr, route):
     from colbert_tpu_torch.ops import dropout as dr
 
     g = torch.randn(x.shape, device=x.device).to(x.dtype)
-    before = dr.route_launches[route].value
+    before = dr.hw_dropout.launches.value, dr.route_launches[route].value
     if route == "simple":
         y, dx = dr._launch(x, seed, thr, route="simple"), dr._launch(g, seed, thr, route="simple")
     else:
@@ -320,7 +248,7 @@ def _dropout_route(x, seed, thr, route):
         (dx,) = torch.autograd.grad(y, xg, g)
         y = y.detach()
     torch.cuda.synchronize()
-    assert dr.route_launches[route].value == before + 2
+    assert (dr.hw_dropout.launches.value, dr.route_launches[route].value) == (before[0] + 2, before[1] + 2)
     return y, dx, g
 
 
@@ -333,74 +261,46 @@ def _special(dtype, n, device):
     return x.to(dtype).to(device)
 
 
+_SEED = 0x1234_5678_9ABC_DEF0
+_K9_CASES = [  # shape, dtype, seed, thr, special values (subnormals, +-0, +-inf, NaN, +-max) at every 5th element
+    ((4, 12, 384, 384), torch.bfloat16, _SEED, 26, False),
+    ((68, 12, 384, 384), torch.bfloat16, _SEED, 26, False),  # the retriever's attention probabilities (34 x 2)
+    ((20, 16, 384, 384), torch.bfloat16, _SEED, 26, False),  # the cross-encoder's attention probabilities (4 x 5)
+    ((20, 384, 1024), torch.bfloat16, _SEED, 26, False),     # the cross-encoder's hidden states
+    ((20, 384, 1024), torch.float32, _SEED, 26, False),
+    ((20, 384, 1024), torch.float16, _SEED, 26, False),
+    ((1001, 3), torch.float32, _SEED, 26, False),   # odd element count: the scalar tail
+    ((7, 33), torch.float16, _SEED, 26, False),
+    ((33,), torch.float16, _SEED, 26, False),
+    ((5, 4099), torch.bfloat16, 0, 51, False),      # the seed's edges
+    ((5, 4099), torch.bfloat16, 1 << 62, 51, False),
+    ((5, 4099), torch.bfloat16, (1 << 64) - 1, 51, False),
+] + [((40_003,), dtype, 91 + thr, thr, True)       # HMUL2 and FMUL round to nearest and keep subnormals
+     for dtype in (torch.bfloat16, torch.float16, torch.float32) for thr in (1, 26, 128, 200, 255)]
+
+
 @pytest.mark.parametrize("route", ["packed", "simple"])
-@pytest.mark.parametrize("shape,dtype", [
-    ((68, 12, 384, 384), torch.bfloat16),  # the retriever's attention probabilities (batch 34 x 2)
-    ((20, 16, 384, 384), torch.bfloat16),  # the cross-encoder's attention probabilities
-    ((20, 384, 1024), torch.bfloat16),     # the cross-encoder's hidden states
-    ((20, 384, 1024), torch.float32),
-    ((20, 384, 1024), torch.float16),
-    ((1001, 3), torch.float32),            # odd element count: the scalar tail
-    ((33,), torch.float16),
-])
-def test_dropout_routes_bit_equal(cuda_device, route, shape, dtype):
-    """Both routes, forward and backward, bit-equal to the plain version and
-    to each other."""
+@pytest.mark.parametrize("shape,dtype,seed,thr,special", _K9_CASES)
+def test_dropout_kernel_bit_equal(cuda_device, route, shape, dtype, seed, thr, special):
+    """Both routes, forward and backward, bit-equal to the plain version (NaN
+    by position), dropping exactly where the mask says, and equal to each other."""
     from colbert_tpu_torch.ops import dropout as dr
 
-    seed, thr = 0x1234_5678_9ABC_DEF0, 26
-    x = torch.randn(shape, device=cuda_device).to(dtype)
+    x = (_special(dtype, shape[0], cuda_device) if special else torch.randn(shape, device=cuda_device).to(dtype))
     y, dx, g = _dropout_route(x, seed, thr, route)
-    assert _same_bits(y, dr.hw_dropout_ref(x, seed, thr))
-    assert _same_bits(dx, dr.hw_dropout_ref(g, seed, thr))
+    assert dr.same_bits(y, dr.hw_dropout_ref(x, seed, thr))
+    assert dr.same_bits(dx, dr.hw_dropout_ref(g, seed, thr))
+    keep = dr.mask_bytes(x.numel(), seed, cuda_device).view(shape) >= thr
+    assert torch.equal(y == 0, ~keep | (x == 0))
     if route == "simple":
-        assert _same_bits(y, dr.hw_dropout(x, seed, thr))
+        assert dr.same_bits(y, dr.hw_dropout(x, seed, thr))
 
 
-@pytest.mark.parametrize("route", ["packed", "simple"])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
-def test_dropout_routes_special_values(cuda_device, route, dtype):
-    """Subnormals, +-0, +-inf, NaN and +-max: HMUL2 (bf16, fp16) and FMUL
-    round to nearest and keep subnormals, as the plain version does."""
-    from colbert_tpu_torch.ops import dropout as dr
-
-    x = _special(dtype, 40_003, cuda_device)
-    for thr in (1, 26, 128, 200, 255):
-        y, dx, g = _dropout_route(x, 91 + thr, thr, route)
-        assert _same_bits(y, dr.hw_dropout_ref(x, 91 + thr, thr)), thr
-        assert _same_bits(dx, dr.hw_dropout_ref(g, 91 + thr, thr)), thr
-
-
-@pytest.mark.parametrize("route", ["packed", "simple"])
-@pytest.mark.parametrize("seed", [0, 1 << 62, (1 << 64) - 1])
-def test_dropout_routes_seed_edges(cuda_device, route, seed):
-    from colbert_tpu_torch.ops import dropout as dr
-
-    x = torch.randn(5, 4099, device=cuda_device, dtype=torch.bfloat16)
-    y, dx, g = _dropout_route(x, seed, 51, route)
-    assert _same_bits(y, dr.hw_dropout_ref(x, seed, 51)) and _same_bits(dx, dr.hw_dropout_ref(g, seed, 51))
-
-
-@pytest.mark.parametrize("route", ["packed", "simple"])
-def test_dropout_routes_unaligned_and_strided(cuda_device, route):
-    """A view off 16-byte alignment (the element-by-element path) and a
-    non-contiguous input (copied first) equal the plain version."""
-    from colbert_tpu_torch.ops import dropout as dr
-
-    flat = torch.randn(40_961, device=cuda_device, dtype=torch.bfloat16)
-    view = flat[3:]
-    assert view.data_ptr() % 16
-    strided = torch.randn(64, 513, device=cuda_device, dtype=torch.float16).t()
-    assert not strided.is_contiguous()
-    for x in (view, strided):
-        y, dx, g = _dropout_route(x, 7, 26, route)
-        assert _same_bits(y, dr.hw_dropout_ref(x.contiguous(), 7, 26))
-        assert _same_bits(dx, dr.hw_dropout_ref(g, 7, 26))
-
-
-def test_dropout_launches_per_macbert_large_ce_step(cuda_device, tmp_path):
-    """At the cross-encoder's 24 layers (narrow widths), a train step launches
-    K9 146 times, all on route "packed"."""
+@pytest.mark.parametrize("num_layers", [3, 24])  # 24: the cross-encoder's depth (macbert-large), at narrow widths
+def test_dropout_launches_per_ce_step(cuda_device, tmp_path, num_layers):
+    """A cross-encoder train step launches K9 at every dropout site, forward
+    and backward: 2 x (1 + 3 x layers), 146 at 24 layers, all on route
+    "packed", and never falls back to the plain version."""
     from colbert_tpu_torch.config import CETrainConfig, ColbertConfig, ModelConfig, TokenizerConfig
     from colbert_tpu_torch.ops import dropout as dr
     from colbert_tpu_torch.tokenization import ColbertTokenizer, build_vocab, write_vocab
@@ -409,8 +309,8 @@ def test_dropout_launches_per_macbert_large_ce_step(cuda_device, tmp_path):
     words = ["apple", "river", "piano", "ocean", "forest"]
     vp = write_vocab(build_vocab([" ".join(words)]), tmp_path / "vocab.txt")
     cfg = ColbertConfig(
-        ce_model=ModelConfig(vocab_size=128, hidden_size=64, num_layers=24, num_heads=4, intermediate_size=128,
-                             max_position_embeddings=64, dtype="bfloat16"),
+        ce_model=ModelConfig(vocab_size=128, hidden_size=64, num_layers=num_layers, num_heads=4,
+                             intermediate_size=128, max_position_embeddings=64, dtype="bfloat16"),
         tokenizer=TokenizerConfig(vocab_path=vp, ce_maxlen=32),
         ce_train=CETrainConfig(per_device_batch_size=2, neg_num=2, neg_pool_lo=0, neg_pool_hi=4,
                                checkpoint_dir=str(tmp_path / "ce")),
@@ -420,12 +320,34 @@ def test_dropout_launches_per_macbert_large_ce_step(cuda_device, tmp_path):
     t = CETrainer(cfg, ColbertTokenizer(cfg.tokenizer, cfg.multiview), device=cuda_device)
     t._init_state(2)
     ids, attn, group, teacher = t._build_pairs(exs, "train")
-    before = dr.hw_dropout.launches.value, dr.route_launches["packed"].value, dr.route_launches["simple"].value
+    counters = dr.hw_dropout.launches, dr.route_launches["packed"], dr.route_launches["simple"]
+    before = [c.value for c in counters]
     loss = t.train_step(ids, attn, group, teacher, 0)
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
-    after = dr.hw_dropout.launches.value, dr.route_launches["packed"].value, dr.route_launches["simple"].value
-    assert (after[0] - before[0], after[1] - before[1], after[2] - before[2]) == (146, 146, 0)
+    n = 2 * (1 + 3 * num_layers)
+    assert [c.value - b for c, b in zip(counters, before)] == [n, n, 0]
+    assert num_layers != 24 or n == 146
+
+
+@pytest.mark.parametrize("route", ["packed", "simple"])
+def test_dropout_kernel_unaligned_view(cuda_device, route):
+    """A view that starts off 16-byte alignment takes the scalar path, and a
+    non-contiguous input is copied first; both still equal the plain version,
+    forward and backward."""
+    from colbert_tpu_torch.ops import dropout as dr
+
+    for flat, off in ((torch.randn(4097, device=cuda_device, dtype=torch.bfloat16), 1),
+                      (torch.randn(40_961, device=cuda_device, dtype=torch.bfloat16), 3)):
+        view = flat[off:]
+        assert view.data_ptr() % 16
+        y, dx, g = _dropout_route(view, 99, 51, route)
+        assert dr.same_bits(y, dr.hw_dropout_ref(view, 99, 51)) and dr.same_bits(dx, dr.hw_dropout_ref(g, 99, 51))
+    strided = torch.randn(64, 513, device=cuda_device, dtype=torch.float16).t()
+    assert not strided.is_contiguous()
+    y, dx, g = _dropout_route(strided, 7, 26, route)
+    assert dr.same_bits(y, dr.hw_dropout_ref(strided.contiguous(), 7, 26))
+    assert dr.same_bits(dx, dr.hw_dropout_ref(g, 7, 26))
 
 
 # ---- K4/K5: fused gather + MaxSim rerank, limit 1e-4 (only the summation order differs) ----
