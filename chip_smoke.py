@@ -6,9 +6,10 @@
 Builds the port's CUDA kernels from ``colbert_tpu_torch/csrc`` (one nvcc
 per source, all at once) and drives the port's paths, exact flat serving,
 retriever training and ANN serving with the sq, pq4 and pq codecs (sq also
-by the token-major probe), at full BERT-base width, and the second stage
+by the token-major probe), at full BERT-base width, the second stage
 (mining, the cross-encoder's training and reranking) at macbert-large
-width, with random weights from a seed:
+width, and the flash-attention path and remat, with random weights from a
+seed:
 
 * phase 1: kernels K1 (fused scan + group max) and K2 (full score matrix)
   against their plain PyTorch versions on the card, at B=144 queries x 16
@@ -171,6 +172,42 @@ width, with random weights from a seed:
   calls in the resumed step, its peak device memory and the rerank's ms a
   question.
 
+* phase 8, the flash-attention path (``model.attention_impl="flash"``:
+  kernels K11 forward, K12 dK/dV and K13 dQ, ``csrc/flash_attention.cu``)
+  and ``model.remat``:
+  (a) after phase 3: K11-K13 against their plain versions (the JAX
+  kernels' order) at the retriever's doc pass (68, 12, 384, 64) bf16 with
+  the synthetic corpus's doc lengths, the CE's (20, 16, 384, 64), the
+  encode batch (384, 12, 384, 64), a batch with no padding and one padded
+  at 129 and 257, in the models' layout (heads-major views of (B, L, nh,
+  hd)): o, dq, dk and dv within 2 bf16 ulps of each element's head vector
+  (its row's largest magnitude, floored at 2^-10 of the tensor's largest
+  entry) and at most 1e-3 of the elements beyond 2 ulps of their own
+  magnitude (a p or ds that rounds the other way at a bf16 boundary moves
+  its row by ~2^-8 of one term); two runs bit-equal.  At the first three
+  shapes each kernel timed cold (input sets in turn past the L2) and hot,
+  beside its bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s),
+  and the forward and forward + backward beside the plain version, the
+  port's explicit attention (fp32 logits, softmax, K9 at the
+  probabilities) and ``F.scaled_dot_product_attention`` with the boolean
+  segment mask (a yardstick the port never calls);
+  (b) after phase 4: ``train`` with flash at phase 4's configuration, 5
+  steps, evaluations at steps 2 and 4, then ``--resume`` from step 4: the
+  resumed loss bit-equal, K11 12 launches a step and 12 a layer per eval
+  batch, K12 and K13 12 a step, K9 as phase 4, K3 on "tf32"; ms/step and
+  peak memory beside phase 4's;
+  (c) after phase 7: ``encode`` with flash over phase 2's corpus (K11 once
+  a layer an encode batch), one ``serve`` request of 144 questions at
+  top-100 over that table, checked as phase 2's answers; docs/s beside
+  phase 2's, the largest difference of the two tables (information);
+  (d) ``train-ce`` with flash at macbert-large width, 3 steps on phase 7's
+  mined file: finite losses, K11-K13 24 launches a step, K9 146; ms/step
+  and peak memory beside phase 7's;
+  (e) 3 train steps (the library's ``train_step``, phase 8b's data and
+  config) with remat "full", "dots" and "attn" on the explicit path and
+  "full" with flash: losses bit-equal to the same steps without remat (the
+  flash ones also to phase 8b's first three); the peak memory of each.
+
 Prints the card's name and power limit, the measurements, one JSON line of
 kernels, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, when CUDA is unavailable or any phase fails.
@@ -217,7 +254,7 @@ PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3
 
 
 def counters():
-    from colbert_tpu_torch.ops import dropout as dr, flat_scan as fs, maxsim as ms
+    from colbert_tpu_torch.ops import dropout as dr, flash_attention as fa, flat_scan as fs, maxsim as ms
     from colbert_tpu_torch.ops import pq4, rerank as rr, sq_probe, sq_probe_batched as sp
 
     return {"K1": fs.flat_scan_fused.launches, "K2": fs.flat_maxsim_scan.launches,
@@ -225,6 +262,7 @@ def counters():
             "K4": rr.maxsim_rerank_uniform.launches, "K5": rr.maxsim_rerank_uniform_int8.launches,
             "K6": sp.sq_batch_list_scan.launches, "K7": sp.sq_hot_list_scan.launches,
             "K8": pq4.pq4_list_scan.launches, "K10": sq_probe.sq_list_scan.launches,
+            "K11": fa.fwd_launches, "K12": fa.dkv_launches, "K13": fa.dq_launches,
             "K1/K2 wgmma route": fs.route_launches["wgmma"], "K1/K2 staged route": fs.route_launches["staged"],
             "K4/K5 wgmma route": rr.route_launches["wgmma"], "K4/K5 staged route": rr.route_launches["staged"],
             "K6 mma route": sp.route_launches["mma"], "K6 staged route": sp.route_launches["staged"],
@@ -530,9 +568,63 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def wait_for_server(cfg, serve_err, timeout_s=600) -> None:
+    """Until ``serve`` accepts connections; raises if its thread failed."""
+    from multiprocessing.connection import Client
+
+    deadline = time.time() + timeout_s
+    while True:
+        if serve_err:
+            raise RuntimeError(f"serve failed: {serve_err[0]!r}")
+        try:
+            Client((cfg.serve.host, cfg.serve.port), authkey=cfg.serve.authkey.encode()).close()
+            return
+        except ConnectionRefusedError:
+            if time.time() > deadline:
+                raise
+            time.sleep(0.2)
+
+
+def check_flat_answers(requests, answer_sets, searcher, docs):
+    """Each served answer of each request (``answer_sets[i]``: the answers to
+    ``requests[i]``): TOPK valid, descending triples whose texts are their
+    passages and whose scores equal the plain version's top-TOPK over the
+    searcher's table and query encodings.  Returns the largest score
+    difference and the mean pid recall (information: near ties)."""
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch.ops import flat_scan as fs
+
+    num_docs = len(docs)
+    worst, recall = 0.0, []
+    table, dv = searcher.emb_table, searcher.flat_dv
+    for qs, ans_sets in zip(requests, answer_sets):
+        enc = searcher.tok.encode_queries(qs)
+        Qm = searcher.encode_queries(enc.input_ids, enc.attention_mask, enc.active_mask)
+        full = fs.flat_maxsim_scan_ref(Qm, table, dv=dv)[:num_docs].T    # (B, num_docs)
+        want_s, want_p = torch.topk(full, TOPK, dim=1)
+        full, want_s, want_p = full.cpu().numpy(), want_s.cpu().numpy(), want_p.cpu().numpy()
+        for ans in ans_sets:
+            if len(ans) != len(qs):
+                raise AssertionError(f"{len(ans)} answers for {len(qs)} questions")
+            for b, row in enumerate(ans):
+                pids = np.array([p for p, _, _ in row])
+                scores = np.array([s for _, s, _ in row], np.float32)
+                if len(row) != TOPK or not ((pids >= 0) & (pids < num_docs)).all():
+                    raise AssertionError(f"question {b}: {len(row)} triples or invalid pids")
+                if any(t != docs[p] for p, _, t in row):
+                    raise AssertionError(f"question {b}: a triple's text is not its passage")
+                if (np.diff(scores) > 0).any():
+                    raise AssertionError(f"question {b}: scores not descending")
+                err = max(np.abs(scores - want_s[b]).max(), np.abs(scores - full[b, pids]).max())
+                worst = max(worst, float(err))
+                recall.append(len(set(pids.tolist()) & set(want_p[b].tolist())) / TOPK)
+    return worst, float(np.mean(recall))
+
+
 def phase_slice(device, workdir: Path, label: str, num_docs=20_000, model_kw=None,
                 tok_kw=None, n_requests=3, seed=SEED):
-    import numpy as np
     import torch
 
     from colbert_tpu_torch import cli
@@ -593,19 +685,7 @@ def phase_slice(device, workdir: Path, label: str, num_docs=20_000, model_kw=Non
     server = threading.Thread(target=serve, daemon=True, name="serve")
     server.start()
     client = RetrievalClient(cfg.serve.host, cfg.serve.port, cfg.serve.authkey.encode())
-    from multiprocessing.connection import Client
-
-    deadline = time.time() + 600
-    while True:
-        if serve_err:
-            raise RuntimeError(f"serve failed: {serve_err[0]!r}")
-        try:
-            Client((cfg.serve.host, cfg.serve.port), authkey=cfg.serve.authkey.encode()).close()
-            break
-        except ConnectionRefusedError:
-            if time.time() > deadline:
-                raise
-            time.sleep(0.2)
+    wait_for_server(cfg, serve_err)
 
     # the oracle side: the same table and model, the unfused (K2) route
     cfg_k2 = ColbertConfig.from_dict(cfg.to_dict())
@@ -648,31 +728,9 @@ def phase_slice(device, workdir: Path, label: str, num_docs=20_000, model_kw=Non
         raise AssertionError(f"route launches {launches} do not all take the {want_route} route")
 
     # ---- answers against the plain version on the same table and encodings ----
-    worst, recall = 0.0, []
-    table, dv = k2_searcher.emb_table, k2_searcher.flat_dv
-    for qs, ans_sets in zip(requests, zip(answers, k2_answers)):
-        enc = k2_searcher.tok.encode_queries(qs)
-        Qm = k2_searcher.encode_queries(enc.input_ids, enc.attention_mask, enc.active_mask)
-        full = fs.flat_maxsim_scan_ref(Qm, table, dv=dv)[:num_docs].T    # (B, num_docs)
-        want_s, want_p = torch.topk(full, TOPK, dim=1)
-        full, want_s, want_p = full.cpu().numpy(), want_s.cpu().numpy(), want_p.cpu().numpy()
-        for ans in ans_sets:
-            if len(ans) != len(qs):
-                raise AssertionError(f"{len(ans)} answers for {len(qs)} questions")
-            for b, row in enumerate(ans):
-                pids = np.array([p for p, _, _ in row])
-                scores = np.array([s for _, s, _ in row], np.float32)
-                if len(row) != TOPK or not ((pids >= 0) & (pids < num_docs)).all():
-                    raise AssertionError(f"question {b}: {len(row)} triples or invalid pids")
-                if any(t != docs[p] for p, _, t in row):
-                    raise AssertionError(f"question {b}: a triple's text is not its passage")
-                if (np.diff(scores) > 0).any():
-                    raise AssertionError(f"question {b}: scores not descending")
-                err = max(np.abs(scores - want_s[b]).max(), np.abs(scores - full[b, pids]).max())
-                worst = max(worst, float(err))
-                recall.append(len(set(pids.tolist()) & set(want_p[b].tolist())) / TOPK)
+    worst, recall = check_flat_answers(requests, list(zip(answers, k2_answers)), k2_searcher, docs)
     log(f"[phase2] served top-{TOPK} scores vs the plain version: max|d|={worst:.3e} "
-        f"(limit {SCORE_ATOL}); pid recall@{TOPK} {np.mean(recall):.4f} (information only: "
+        f"(limit {SCORE_ATOL}); pid recall@{TOPK} {recall:.4f} (information only: "
         f"random-init views are near ties)")
     if worst > SCORE_ATOL:
         raise AssertionError(f"served scores differ from the plain version by {worst}")
@@ -681,7 +739,8 @@ def phase_slice(device, workdir: Path, label: str, num_docs=20_000, model_kw=Non
     codec_launches = phase_codecs_cli(device, workdir, cfg, common, corpus_path, eval_path, docs,
                                       requests, k2_searcher, n_eval)
     ctx = {"cfg": cfg, "common": common, "corpus_path": corpus_path, "docs": docs, "questions": questions,
-           "positives": positives, "free": list(range(n_requests * B, len(questions)))}
+           "positives": positives, "free": list(range(n_requests * B, len(questions))),
+           "encode_docs_s": num_docs / enc_s}
     return launches, worst, ann_launches, codec_launches, k7_deep, ctx
 
 
@@ -1023,7 +1082,10 @@ def retrieval_examples(docs, questions, positives, n_neg, rng):
 
 
 def phase_train(device, workdir: Path, label: str, model_kw=None, tok_kw=None, batch=34,
-                steps=7, n_dev=40, seed=SEED):
+                steps=7, n_dev=40, seed=SEED, attention_impl="auto", tag="phase4"):
+    """The CLI's ``train`` (phase 4; with ``attention_impl="flash"``, phase 8b:
+    K11-K13 at the doc pass), its launches, then ``--resume`` from the last
+    checkpoint.  Returns the counted run's launches and its measurements."""
     import numpy as np
     import torch
 
@@ -1041,7 +1103,7 @@ def phase_train(device, workdir: Path, label: str, model_kw=None, tok_kw=None, b
     train_path, dev_path = workdir / "train.json", workdir / "dev.json"
     dump_json(train, train_path)
     dump_json(dev, dev_path)
-    model_cfg = ModelConfig(**(model_kw or {}))
+    model_cfg = ModelConfig(**{**(model_kw or {}), "attention_impl": attention_impl})
     vocab_path = write_vocab(build_vocab(docs + questions, max_size=model_cfg.vocab_size), workdir / "vocab.txt")
     cfg = ColbertConfig(
         model=model_cfg,
@@ -1052,8 +1114,8 @@ def phase_train(device, workdir: Path, label: str, model_kw=None, tok_kw=None, b
     conf_path = workdir / "conf.yaml"
     cfg.to_yaml(conf_path)
     c = cfg.model
-    log(f"[phase4] model hidden={c.hidden_size} layers={c.num_layers} heads={c.num_heads} "
-        f"ffn={c.intermediate_size} vocab={c.vocab_size} dim={c.dim} {c.dtype}, dropout "
+    log(f"[{tag}] attention {c.attention_impl}; model hidden={c.hidden_size} layers={c.num_layers} "
+        f"heads={c.num_heads} ffn={c.intermediate_size} vocab={c.vocab_size} dim={c.dim} {c.dtype}, dropout "
         f"{c.hidden_dropout}/{c.attention_dropout} ({c.dropout_impl}), multiview "
         f"{cfg.multiview.q_view}/{cfg.multiview.d_view}, query_maxlen {cfg.tokenizer.query_maxlen}, "
         f"doc_maxlen {cfg.tokenizer.doc_maxlen}, batch {batch}; {n_train} train and {n_dev} dev examples")
@@ -1067,23 +1129,25 @@ def phase_train(device, workdir: Path, label: str, model_kw=None, tok_kw=None, b
         raise ValueError("steps must leave a step after the last checkpoint, for the resume")
 
     # ---- the counted training-path run ----
+    torch.cuda.reset_peak_memory_stats(device)
     reset_counts()
     t0 = time.perf_counter()
     cli.main(["train", *common])
     torch.cuda.synchronize()
     launches = read_counts()
     # ----
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     train_s = time.perf_counter() - t0
     rows = load_jsonl(workdir / "ckpt" / "train_log.jsonl")
     step_rows = [r for r in rows if r["kind"] == "step"]
     eval_rows = [r for r in rows if r["kind"] == "eval"]
     losses = [r["step_loss"] for r in step_rows]
-    log(f"[phase4] train: {len(step_rows)} steps in {train_s:.1f} s (model init, evaluation and "
+    log(f"[{tag}] train: {len(step_rows)} steps in {train_s:.1f} s (model init, evaluation and "
         f"checkpoints included); losses {[round(x, 4) for x in losses]}; evals {eval_rows}")
     if len(losses) != steps or not np.isfinite(losses).all():
         raise AssertionError(f"expected {steps} finite losses, got {losses}")
     want = {"K3": len(saved) * eval_batches, "K9": steps * per_step_k9}
-    log(f"[phase4] launches in the training-path run: {launches} (K9 expected {want['K9']} = {steps} "
+    log(f"[{tag}] launches in the training-path run: {launches} (K9 expected {want['K9']} = {steps} "
         f"steps x {per_step_k9}, K3 expected {want['K3']} = {len(saved)} evals x {eval_batches} batches)")
     if launches["K3"] != want["K3"] or launches["K9"] != want["K9"]:
         raise AssertionError(f"kernel launches {launches} do not match the training steps {want}")
@@ -1091,14 +1155,18 @@ def phase_train(device, workdir: Path, label: str, model_kw=None, tok_kw=None, b
         raise AssertionError(f"K3 launches by route: tf32 {launches['K3 tf32 route']}, staged "
                              f"{launches['K3 staged route']}; expected every eval batch on route tf32")
     k9_on_packed(launches, "the training-path run")
+    flash_layers = c.num_layers if attention_impl == "flash" else 0  # flash at the doc pass only (384; queries 32)
+    flash_launches_ok(launches, {"K11": flash_layers * (steps + len(saved) * eval_batches),
+                                 "K12": flash_layers * steps, "K13": flash_layers * steps}, "the training-path run")
     ckpt = CheckpointManager(cfg.train.checkpoint_dir)
     if ckpt.all_steps() != saved[-2:]:
         raise AssertionError(f"checkpoints {ckpt.all_steps()}, expected {saved[-2:]}")
-    step_s = [r["step_s"] for r in step_rows[2:]]
+    skip = 2 if steps > 5 else 1
+    step_s = [r["step_s"] for r in step_rows[skip:]]
     ms_step = 1e3 * float(np.mean(step_s))
-    log(f"[phase4] {ms_step:.1f} ms/step = {batch / ms_step * 1e3:.1f} examples/s over steps 3-{steps} "
+    log(f"[{tag}] {ms_step:.1f} ms/step = {batch / ms_step * 1e3:.1f} examples/s over steps {skip + 1}-{steps} "
         f"(min {1e3 * min(step_s):.1f}, max {1e3 * max(step_s):.1f} ms; first step "
-        f"{1e3 * step_rows[0]['step_s']:.1f} ms) [{label}]")
+        f"{1e3 * step_rows[0]['step_s']:.1f} ms); peak device memory {peak_gb:.2f} GB [{label}]")
 
     # the checkpoint read back: resume from the last one for the remaining steps
     reset_counts()
@@ -1106,16 +1174,20 @@ def phase_train(device, workdir: Path, label: str, model_kw=None, tok_kw=None, b
     torch.cuda.synchronize()
     resumed = read_counts()
     rows = [r for r in load_jsonl(workdir / "ckpt" / "train_log.jsonl") if r["kind"] == "step"]
-    log(f"[phase4] resume from checkpoint {saved[-1]}: steps {[r['step'] for r in rows]}, loss "
+    log(f"[{tag}] resume from checkpoint {saved[-1]}: steps {[r['step'] for r in rows]}, loss "
         f"{[r['step_loss'] for r in rows]} vs the straight run's step {steps} {losses[-1]}; launches {resumed}")
     if [r["step"] for r in rows] != list(range(saved[-1] + 1, steps + 1)) or resumed["K9"] != per_step_k9 * (steps - saved[-1]):
         raise AssertionError(f"resume ran steps {[r['step'] for r in rows]}, K9 launches {resumed['K9']}")
-    if not abs(rows[0]["step_loss"] - losses[-1]) <= 1e-4:
+    if attention_impl == "flash":
+        n = c.num_layers * (steps - saved[-1])
+        flash_launches_ok(resumed, {"K11": n, "K12": n, "K13": n}, "the resumed run")
+    # phase 8b holds the resumed loss bit-equal; phase 4 keeps its first limit
+    if not abs(rows[0]["step_loss"] - losses[-1]) <= (0.0 if attention_impl == "flash" else 1e-4):
         raise AssertionError(f"resumed loss {rows[0]['step_loss']} differs from the straight run's {losses[-1]}")
     sd = cli._retriever_state_dict(cfg, None, None)
     if not all(torch.isfinite(v).all() for v in sd.values()):
         raise AssertionError("checkpoint parameters are not finite")
-    return launches, {"ms_step": ms_step, "losses": losses}
+    return launches, {"ms_step": ms_step, "losses": losses, "peak_gb": peak_gb, "cfg": cfg, "train_path": train_path}
 
 
 # ---- phase 5: ANN serving with the sq codec ----
@@ -2557,7 +2629,346 @@ def phase_second_stage(device, workdir: Path, label: str, ctx: dict, model_kw=No
         "ms_step": ms_step, "peak_gb": peak_gb, "held_gb": held_gb, "per_step_k9": per_step_k9, "losses": losses,
         "k9_host_ms_per_step": k9_host_ms,
         "rerank_ms_per_question": 1e3 * rerank_s / n_rerank, "one_question_ms": one_q_ms,
-        "dev_mrr": [r.get("dev_mrr") for r in evals], "metrics": metrics, "distill_questions": len(distill)}
+        "dev_mrr": [r.get("dev_mrr") for r in evals], "metrics": metrics, "distill_questions": len(distill),
+        "mined_path": mined_path, "conf": conf, "layers": c.num_layers}
+
+
+# ---- phase 8: the flash-attention path (K11-K13) and remat ----
+
+FLASH_SCALE = 0.125               # 1 / sqrt(64): the models' head dim
+FLASH_HEAD_ULPS = 2               # bf16 ulps of an element's head vector (its row of 64)
+FLASH_ELEMENT_SHARE = 1e-3        # elements allowed beyond 2 ulps of their own magnitude
+L2_BYTES = 50 * 2**20             # the card's L2
+
+
+def synthetic_doc_lengths(n, seed, workdir: Path):
+    """The token counts of ``n`` of the synthetic Chinese passages phases 2 and
+    4 encode, through the port's tokenizer at ``doc_maxlen`` 384."""
+    import numpy as np
+
+    from colbert_tpu_torch.config import MultiviewConfig, TokenizerConfig
+    from colbert_tpu_torch.tokenization import ColbertTokenizer
+    from colbert_tpu_torch.tokenization.vocab import build_vocab, write_vocab
+
+    docs, _, _ = synthetic_chinese(n, 1, seed=seed)
+    vocab = write_vocab(build_vocab(docs), workdir / f"vocab_lengths_{seed}.txt")
+    tok = ColbertTokenizer(TokenizerConfig(vocab_path=str(vocab)), MultiviewConfig())
+    return np.asarray(tok.encode_docs(docs).attention_mask).sum(1)
+
+
+def flash_close(got, want):
+    """(the largest error in bf16 ulps of its head vector's magnitude, floored
+    at 2^-10 of the tensor's largest entry; the share of elements beyond 2
+    ulps of their own magnitude; the largest absolute error)."""
+    import torch
+
+    a, b = got.float(), want.float()
+    err = (a - b).abs()
+    mag = torch.maximum(a.abs(), b.abs())
+
+    def ulp(x):
+        _, e = torch.frexp(x.clamp_min(torch.finfo(torch.float32).tiny))
+        return torch.ldexp(torch.ones_like(x), e - 8)
+    row = mag.amax(-1, keepdim=True).clamp_min(2.0**-10 * float(mag.max()))
+    return (float((err / ulp(row)).max()), float((err > 2 * ulp(mag)).float().mean()), float(err.max()))
+
+
+def flash_bounds(B, nh, L, hd=64):
+    """(bound ms, by) of K11, K12 and K13 at (B, nh, L, hd) bf16: each input read
+    once, each output written once; K11 4 L^2 hd flops a head, K12 8, K13 6."""
+    t = B * nh * L * hd * 2          # one (B, nh, L, hd) bf16 tensor
+    rows, seg = B * nh * L * 4, 2 * B * L * 4
+    per_head = B * nh * L * L * hd
+    return {"K11": bound(4 * per_head, 4 * t + 2 * rows + seg, PEAK_BF16_FLOPS),
+            "K12": bound(8 * per_head, 6 * t + 3 * rows + seg, PEAK_BF16_FLOPS),
+            "K13": bound(6 * per_head, 5 * t + 3 * rows + seg, PEAK_BF16_FLOPS)}
+
+
+def flash_case(device, name, B, nh, lengths, seed, timed, label):
+    """K11, K12 and K13 at (B, nh, 384, 64) bf16 in the model's layout (heads-major
+    views of (B, L, nh, hd)) against their plain versions, twice each (bit-equal);
+    with ``timed`` their times cold and hot, beside the bound, the plain
+    versions, the port's explicit attention and ``F.scaled_dot_product_attention``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from colbert_tpu_torch.config import ModelConfig
+    from colbert_tpu_torch.models.bert import BertSelfAttention, draw_seed
+    from colbert_tpu_torch.ops import flash_attention as fa
+
+    L = 384
+    g = torch.Generator(device).manual_seed(seed)
+
+    def heads():
+        x = torch.randn((B, L, nh, 64), generator=g, device=device, dtype=torch.float32).to(torch.bfloat16)
+        return x.transpose(1, 2)
+    q, k, v, do = heads(), heads(), heads(), heads()
+    seg = (torch.arange(L, device=device)[None, :] < torch.as_tensor(lengths, device=device)[:, None]).to(torch.int32)
+    args = (q, k, v, seg, seg, FLASH_SCALE)
+    o, l, m = fa._launch_forward(*args)
+    o2, l2, m2 = fa._launch_forward(*args)
+    ro, rl, rm = fa.flash_forward_ref(*args)
+    di = fa.flash_di(ro, do)
+    bargs = (*args, rl, rm, do, di)
+    dk, dv = fa._launch_dkv(*bargs)
+    dq = fa._launch_dq(*bargs)
+    dk2, dv2 = fa._launch_dkv(*bargs)
+    dq2 = fa._launch_dq(*bargs)
+    want = fa.flash_backward_ref(*bargs)
+    torch.cuda.synchronize()
+    stable = all(torch.equal(a, b) for a, b in ((o, o2), (l, l2), (m, m2), (dq, dq2), (dk, dk2), (dv, dv2)))
+    res = {"shape": [B, nh, L, 64], "lengths": [int(np.min(lengths)), int(np.max(lengths))], "bit_stable": stable}
+    for what, got, ref in (("o", o, ro), ("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
+        res[what] = dict(zip(("head_ulps", "element_share", "max_abs_err"), flash_close(got, ref)))
+    res["l_max_rel_err"] = float(((l - rl).abs() / rl).max())
+    res["m_max_abs_err"] = float((m - rm).abs().max())
+    log(f"[phase8a] {name} ({B}, {nh}, {L}, 64) bf16, lengths {res['lengths'][0]}-{res['lengths'][1]}: bit-stable "
+        f"{stable}; " + "; ".join(f"{w} {res[w]['head_ulps']:.2f} ulps of its head vector, "
+                                   f"{res[w]['element_share']:.2e} of elements past 2 own ulps, max|d| "
+                                   f"{res[w]['max_abs_err']:.3e}" for w in ("o", "dq", "dk", "dv"))
+        + f"; l rel {res['l_max_rel_err']:.2e}, m {res['m_max_abs_err']:.2e}")
+    bad = [w for w in ("o", "dq", "dk", "dv") if res[w]["head_ulps"] > FLASH_HEAD_ULPS
+           or res[w]["element_share"] > FLASH_ELEMENT_SHARE]
+    if not stable or bad or not (torch.isfinite(o.float()).all() and torch.isfinite(dq.float()).all()):
+        raise AssertionError(f"K11-K13 at {name}: bit-stable {stable}, beyond the limits: {bad} ({res})")
+    if not timed:
+        return res
+
+    # ---- times: CUDA events, hot (the same inputs) and cold (copies in turn past twice the L2) ----
+    set_bytes = 4 * q.numel() * 2
+    n_copies = max(1, -(-4 * L2_BYTES // set_bytes))
+    copies = [tuple(t.clone() for t in (q, k, v, do)) for _ in range(n_copies)]
+    hot, cold = {}, {}
+    hot["K11"] = time_ms(lambda: fa._launch_forward(*args))
+    cold["K11"] = time_ms(in_turn(lambda x, i: fa._launch_forward(x[0], x[1], x[2], seg, seg, FLASH_SCALE), copies))
+    hot["K12"] = time_ms(lambda: fa._launch_dkv(*bargs))
+    cold["K12"] = time_ms(in_turn(lambda x, i: fa._launch_dkv(x[0], x[1], x[2], seg, seg, FLASH_SCALE, rl, rm,
+                                                              x[3], di), copies))
+    hot["K13"] = time_ms(lambda: fa._launch_dq(*bargs))
+    cold["K13"] = time_ms(in_turn(lambda x, i: fa._launch_dq(x[0], x[1], x[2], seg, seg, FLASH_SCALE, rl, rm,
+                                                             x[3], di), copies))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def fwd_bwd(fn):
+        def run():
+            for t in leaves:
+                t.grad = None
+            fn(*leaves).backward(do)
+        return run
+    flash = lambda a, b, c: fa.flash_attention(a, b, c, seg, seg, FLASH_SCALE)
+    mask = (seg[:, :, None] == seg[:, None, :])[:, None]          # (B, 1, L, L) segment equality
+    sdpa = lambda a, b, c: F.scaled_dot_product_attention(a, b, c, attn_mask=mask, scale=FLASH_SCALE)
+    att = BertSelfAttention(ModelConfig(hidden_size=64 * nh, num_heads=nh, attention_dropout=0.1)).to(device).train()
+    bias = ((1.0 - seg[:, None, None, :].float()) * -1e9)
+    seed64 = draw_seed(torch.Generator().manual_seed(seed))
+    explicit = lambda a, b, c: att._explicit(a, b, c, bias, seed64)   # fp32 logits, softmax, K9, P.V
+    with torch.no_grad():
+        t_plain = time_ms(lambda: fa.flash_forward_ref(*args), iters=5, warmup=1)
+        t_plain_bwd = time_ms(lambda: fa.flash_backward_ref(*bargs), iters=3, warmup=1)
+        t_flash = time_ms(lambda: flash(q, k, v))
+        t_sdpa = time_ms(lambda: sdpa(q, k, v))
+        t_explicit = time_ms(lambda: explicit(q, k, v), iters=5, warmup=1)
+    t_flash_fb = time_ms(fwd_bwd(flash), iters=10, warmup=2)
+    t_sdpa_fb = time_ms(fwd_bwd(sdpa), iters=10, warmup=2)
+    t_explicit_fb = time_ms(fwd_bwd(explicit), iters=5, warmup=1)
+    bounds = flash_bounds(B, nh, L)
+    res.update({"ms": cold, "hot_ms": hot, "bound": bounds, "plain_ms": t_plain, "plain_backward_ms": t_plain_bwd,
+                "flash_ms": t_flash, "flash_fwd_bwd_ms": t_flash_fb, "sdpa_ms": t_sdpa, "sdpa_fwd_bwd_ms": t_sdpa_fb,
+                "explicit_ms": t_explicit, "explicit_fwd_bwd_ms": t_explicit_fb, "cold_copies": n_copies})
+    for kname in ("K11", "K12", "K13"):
+        log(f"[phase8a] {name} {kname}: {cold[kname]:.4f} ms cold ({n_copies} input sets in turn), "
+            f"{hot[kname]:.4f} hot; bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]}) [{label}]")
+    log(f"[phase8a] {name} forward: flash (K11 through the autograd function) {t_flash:.4f} ms, plain version "
+        f"{t_plain:.3f}, the port's explicit attention (fp32 logits, softmax, K9 at the probabilities, P.V) "
+        f"{t_explicit:.3f}, F.scaled_dot_product_attention with the segment mask {t_sdpa:.4f} (a yardstick the "
+        f"port never calls); forward + backward: flash {t_flash_fb:.4f}, explicit {t_explicit_fb:.3f}, SDPA "
+        f"{t_sdpa_fb:.4f}; plain backward {t_plain_bwd:.3f} [{label}]")
+    return res
+
+
+def phase_flash_kernels(device, workdir: Path, label, seed=SEED, shapes=None):
+    """Phase 8a: K11-K13 at the retriever's doc pass, the CE's pairs, the encode
+    batch (timed), a batch with no padding and one padded just past 128."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, 8])
+    shapes = shapes or {"retriever": (68, 12), "ce": (20, 16), "encode": (384, 12), "unpadded": (16, 12),
+                        "past_128": (16, 12)}
+    lengths = {
+        "retriever": synthetic_doc_lengths(shapes["retriever"][0], seed + 3, workdir),
+        "ce": rng.integers(64, 385, size=shapes["ce"][0]),
+        "encode": synthetic_doc_lengths(shapes["encode"][0], seed, workdir),
+        "unpadded": np.full(shapes["unpadded"][0], 384),
+        "past_128": np.where(np.arange(shapes["past_128"][0]) % 2, 129, 257),
+    }
+    t0 = time.perf_counter()
+    out = {name: flash_case(device, name, *shapes[name], lengths[name], seed + i, name in ("retriever", "ce", "encode"),
+                            label)
+           for i, name in enumerate(shapes)}
+    log(f"[phase8a] K11-K13 checked at {len(shapes)} shapes and timed at 3 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def flash_launches_ok(launches, want, what):
+    got = {kname: launches[kname] for kname in want}
+    if got != want:
+        raise AssertionError(f"{what}: flash launches {got}, expected {want}")
+
+
+def phase_flash_encode(device, workdir: Path, label, ctx):
+    """Phase 8c: ``encode`` with flash over phase 2's corpus, then one ``serve``
+    request over that table, its answers against the plain top-100."""
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.config import ColbertConfig
+    from colbert_tpu_torch.indexing.storage import IndexStorage
+    from colbert_tpu_torch.ranking.searcher import ColbertSearcher
+    from colbert_tpu_torch.serving.server import RetrievalClient
+
+    cfg = ColbertConfig.from_dict(ctx["cfg"].to_dict())
+    cfg.model.attention_impl = "flash"
+    cfg.index.index_path = str(workdir / "index_flash")
+    cfg.serve.port = free_port()
+    conf = workdir / "conf_flash.yaml"
+    cfg.to_yaml(conf)
+    common = ["--config", str(conf), *ctx["common"][2:]]
+    docs, n = ctx["docs"], len(ctx["docs"])
+    batches = sum(-(-((p + 1) * n // cfg.index.num_parts - p * n // cfg.index.num_parts) // cfg.index.encode_batch_size)
+                  for p in range(cfg.index.num_parts))
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(["encode", "--corpus", str(ctx["corpus_path"]), *common])
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    launches = read_counts()
+    log(f"[phase8c] encode with flash: {n} docs in {enc_s:.2f} s = {n / enc_s:.1f} docs/s (phase 2, explicit "
+        f"attention: {ctx['encode_docs_s']:.1f}); launches {launches} [{label}]")
+    flash_launches_ok(launches, {"K11": cfg.model.num_layers * batches, "K12": 0, "K13": 0}, "encode")
+    flash_parts, base_parts = IndexStorage(cfg.index.index_path), IndexStorage(ctx["cfg"].index.index_path)
+    diff = max(float(np.abs(flash_parts.read_part(p).astype(np.float32) - base_parts.read_part(p).astype(np.float32)).max())
+               for p in range(cfg.index.num_parts))
+    log(f"[phase8c] the flash table against phase 2's, row by row: max|d| {diff:.3e} (information: bf16 "
+        f"encoders that round p differently)")
+
+    serve_err = []
+
+    def serve():
+        try:
+            cli.main(["serve", "--corpus", str(ctx["corpus_path"]), *common])
+        except BaseException as e:  # noqa: BLE001 -- reported by the main thread
+            serve_err.append(e)
+    server = threading.Thread(target=serve, daemon=True, name="serve-flash")
+    server.start()
+    wait_for_server(cfg, serve_err)
+    client = RetrievalClient(cfg.serve.host, cfg.serve.port, cfg.serve.authkey.encode())
+    qs = [ctx["questions"][i] for i in ctx["free"][-B:]]
+    reset_counts()
+    t0 = time.perf_counter()
+    answers = client.retrieve(qs, topk=TOPK)
+    req_ms = 1e3 * (time.perf_counter() - t0)
+    served = read_counts()
+    client.shutdown()
+    server.join(timeout=60)
+    if server.is_alive() or serve_err:
+        raise RuntimeError(f"server did not stop cleanly: {serve_err}")
+    model = cli._model(cfg, argparse.Namespace(checkpoint_step=None, pretrain=ctx["common"][3]))
+    searcher = ColbertSearcher(cfg, cli._tokenizer(cfg), model, IndexStorage(cfg.index.index_path), device=device)
+    worst, recall = check_flat_answers([qs], [[answers]], searcher, docs)
+    log(f"[phase8c] one serve request over the flash table: {B} questions top-{TOPK} in {req_ms:.1f} ms; scores "
+        f"vs the plain version's top-{TOPK} over the same table max|d| {worst:.3e} (limit {SCORE_ATOL}); pid "
+        f"recall {recall:.4f} (information); launches {served} [{label}]")
+    if worst > SCORE_ATOL or served["K1"] != 1:
+        raise AssertionError(f"flash serve: scores off by {worst}, K1 launches {served['K1']}")
+    return {"docs_s": n / enc_s, "launches": launches, "table_max_diff": diff, "request_ms": req_ms}
+
+
+def phase_flash_ce(device, workdir: Path, label, ce_ctx, steps=3):
+    """Phase 8d: ``train-ce`` with flash at macbert-large width, on phase 7's mined file."""
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.utils.io import dump_json, load_json, load_jsonl
+
+    mined = load_json(ce_ctx["mined_path"])
+    train_path = workdir / "ce_flash_train.json"
+    dump_json(mined[: steps * CE_BATCH], train_path)
+    ckpt_dir = workdir / "ce_flash"
+    args = ["train-ce", "--train-data", str(train_path), "--config", str(ce_ctx["conf"]), "--device", str(device),
+            "--set", "ce_model.attention_impl=flash", "--set", f"ce_train.checkpoint_dir={ckpt_dir}",
+            "--set", "ce_train.evals_per_epoch=1"]
+    layers = ce_ctx["layers"]
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    cli.main(args)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    rows = load_jsonl(ckpt_dir / "ce_train_steps.jsonl")
+    losses = [r["loss"] for r in rows]
+    ms_step = 1e3 * float(np.mean([r["step_s"] for r in rows[1:]]))
+    log(f"[phase8d] train-ce with flash: {len(rows)} steps, losses {[round(x, 4) for x in losses]}; "
+        f"{ms_step:.1f} ms/step over steps 2-{steps} (phase 7, explicit attention: {ce_ctx['ms_step']:.1f} over "
+        f"steps 3-6); peak device memory {peak_gb:.2f} GB (phase 7: {ce_ctx['peak_gb']:.2f}); launches {launches} "
+        f"[{label}]")
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"expected {steps} finite CE losses with flash, got {losses}")
+    flash_launches_ok(launches, {"K11": steps * layers, "K12": steps * layers, "K13": steps * layers,
+                                 "K9": steps * ce_ctx["per_step_k9"]}, "train-ce")
+    k9_on_packed(launches, "the flash train-ce run")
+    return {"ms_step": ms_step, "peak_gb": peak_gb, "launches": launches, "losses": losses}
+
+
+def phase_remat(device, label, train_ctx, steps=3):
+    """Phase 8e: 3 train steps with ``model.remat`` "full", "dots" and "attn"
+    (explicit attention) and "full" with flash, each against the same 3
+    steps without remat: losses bit-equal; the peak memory of each."""
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.config import ColbertConfig
+    from colbert_tpu_torch.training import ColbertTrainer, RetrievalDataset
+    from colbert_tpu_torch.training.dataset import RetrievalSampler
+
+    base = train_ctx["cfg"]
+    train_ds = RetrievalDataset.from_json(train_ctx["train_path"])
+
+    def run(impl, remat):
+        cfg = ColbertConfig.from_dict(base.to_dict())
+        cfg.model.attention_impl, cfg.model.remat = impl, remat
+        tok = cli._tokenizer(cfg)
+        trainer = ColbertTrainer(cfg, tok, device=device)
+        sampler = RetrievalSampler(train_ds, tok, cfg.train, cfg.train.per_device_batch_size, is_eval=False)
+        trainer._init_state(sampler.steps_per_epoch())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        losses, t0 = [], time.perf_counter()
+        for gstep, batch in zip(range(steps), sampler.epoch(0)):
+            losses.append(float(trainer.train_step(batch, gstep)))
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device) / 1e9
+        del trainer
+        torch.cuda.empty_cache()
+        return losses, peak, run_s
+
+    out = {}
+    for impl, remat in (("auto", "none"), ("auto", "full"), ("auto", "dots"), ("auto", "attn"), ("flash", "none"),
+                        ("flash", "full")):
+        losses, peak, run_s = run(impl, remat)
+        ref = out.get((impl, "none"), {}).get("losses", losses)
+        out[impl, remat] = {"losses": losses, "peak_gb": peak, "s": run_s, "bit_equal": losses == ref}
+        log(f"[phase8e] attention {impl}, remat {remat}: losses {losses}, bit-equal to no remat "
+            f"{losses == ref}; peak device memory {peak:.2f} GB; {steps} steps in {run_s:.2f} s [{label}]")
+    if out["flash", "none"]["losses"] != train_ctx["losses"][:steps]:
+        raise AssertionError(f"phase 8e's flash steps {out['flash', 'none']['losses']} differ from phase 8b's "
+                             f"first {steps} {train_ctx['losses'][:steps]}")
+    bad = [k for k, r in out.items() if not r["bit_equal"]]
+    if bad:
+        raise AssertionError(f"remat losses differ from no remat's for {bad}: {out}")
+    return {f"{impl}/{remat}": r for (impl, remat), r in out.items()}
 
 
 def main() -> int:
@@ -2566,7 +2977,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from colbert_tpu_torch.ops import _build, dropout as dr, flat_scan as fs, maxsim as ms
+    from colbert_tpu_torch.ops import _build, dropout as dr, flash_attention as fa, flat_scan as fs, maxsim as ms
     from colbert_tpu_torch.ops import pq4, rerank as rr, sq_probe, sq_probe_batched as sp
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full fp32
@@ -2577,9 +2988,9 @@ def main() -> int:
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    sources = ("flat_scan", "maxsim", "dropout", "sq_probe", "rerank", "pq4_scan", "sq_token_scan")
+    sources = ("flat_scan", "maxsim", "dropout", "sq_probe", "rerank", "pq4_scan", "sq_token_scan", "flash_attention")
     _build.load_libraries(*sources)
-    for mod in (fs, ms, dr, sp, rr, pq4, sq_probe):
+    for mod in (fs, ms, dr, sp, rr, pq4, sq_probe, fa):
         mod._kernel_lib()
     log(f"[build] {', '.join(n + '.cu' for n in sources)} built in parallel and loaded in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -2590,12 +3001,30 @@ def main() -> int:
 
     worst, times, share, routes = phase_kernels(device)
     train_kernels = phase_train_kernels(device)
+    t8 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_flash_") as tmp:
+        flash_kernels = phase_flash_kernels(device, Path(tmp), label)
+    t8 = time.perf_counter() - t8
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         serve_launches, _, ann_launches, codec_launches, k7_deep, ctx = phase_slice(device, Path(tmp), label)
         ce_launches, ce_info = phase_second_stage(device, Path(tmp), label, ctx)
+        t0 = time.perf_counter()
+        flash_encode = phase_flash_encode(device, Path(tmp), label, ctx)
+        flash_ce = phase_flash_ce(device, Path(tmp), label, ce_info)
+        t8 += time.perf_counter() - t0
         del ctx
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        train_launches, _ = phase_train(device, Path(tmp), label)
+        train_launches, train_info = phase_train(device, Path(tmp), label)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_flash_train_") as tmp:
+        t0 = time.perf_counter()
+        flash_launches, flash_train = phase_train(device, Path(tmp), label, steps=5, attention_impl="flash",
+                                                  tag="phase8b")
+        log(f"[phase8b] flash train {flash_train['ms_step']:.1f} ms/step, peak {flash_train['peak_gb']:.2f} GB; "
+            f"phase 4 (explicit attention) {train_info['ms_step']:.1f} ms/step, peak {train_info['peak_gb']:.2f} GB "
+            f"[{label}]")
+        remat = phase_remat(device, label, flash_train)
+        t8 += time.perf_counter() - t0
+    log(f"[phase8] the flash path and remat took {t8:.1f} s")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ann_") as tmp:
         ann_kernels, ann_info = phase_ann(device, Path(tmp), label)
         codec_kernels, _ = phase_codecs(device, Path(tmp), label, ann_info)
@@ -2716,6 +3145,38 @@ def main() -> int:
                 **{key: k[key] for key in ("staged_design_ms", "staged_scan_ms", "staged_scan_bound_ms",
                                            "scan_max_abs_err", "stage_ms", "stage_parts_ms",
                                            "yardstick_staged_torch_topk_ms", "histogram")}})
+    fk = flash_kernels["retriever"]
+    for name, kname, line, what in (("K11 flash_attention forward", "K11", 758, "o"),
+                                    ("K12 flash_attention dK/dV", "K12", 1121, "dk"),
+                                    ("K13 flash_attention dQ", "K13", 1456, "dq")):
+        errs = {s: max(r[w]["max_abs_err"] for w in ((what, "dv") if kname == "K12" else (what,)))
+                for s, r in flash_kernels.items()}
+        kernels.append({
+            "name": name, "route": "cuda", "source": "colbert_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line} (jax 0.9.0; reached from "
+                        "colbert_tpu/models/bert.py:185-193)",
+            "launches": flash_launches[kname], "max_abs_err": errs["retriever"], "ms": fk["ms"][kname],
+            "plain_ms": fk["plain_ms"] if kname == "K11" else fk["plain_backward_ms"],
+            "bound_ms": fk["bound"][kname][0], "bound_by": fk["bound"][kname][1],
+            "library_ms": fk["sdpa_ms"] if kname == "K11" else None,
+            "shape": fk["shape"], "hot_ms": fk["hot_ms"][kname], "max_abs_err_by_shape": errs,
+            "head_ulps_by_shape": {s: r[what]["head_ulps"] for s, r in flash_kernels.items()},
+            "ce": {key: flash_kernels["ce"][key][kname] for key in ("ms", "hot_ms")} | {
+                "bound_ms": flash_kernels["ce"]["bound"][kname][0]},
+            "encode": {key: flash_kernels["encode"][key][kname] for key in ("ms", "hot_ms")} | {
+                "bound_ms": flash_kernels["encode"]["bound"][kname][0]},
+            "ce_launches": flash_ce["launches"][kname], "encode_launches": flash_encode["launches"][kname],
+        })
+        if kname == "K11":
+            kernels[-1].update({f"{key}_by_shape": {s: flash_kernels[s][key] for s in ("retriever", "ce", "encode")}
+                                for key in ("flash_fwd_bwd_ms", "sdpa_fwd_bwd_ms", "explicit_ms",
+                                            "explicit_fwd_bwd_ms", "plain_ms", "plain_backward_ms")})
+        else:  # no single library call computes dK/dV or dQ alone: SDPA's backward computes all three
+            kernels[-1]["yardstick_sdpa_fwd_bwd_ms"] = fk["sdpa_fwd_bwd_ms"]
+    kernels[-3]["flash_train"] = {key: flash_train[key] for key in ("ms_step", "peak_gb", "losses")}
+    kernels[-3]["flash_encode_docs_s"] = flash_encode["docs_s"]
+    kernels[-3]["flash_ce"] = {key: flash_ce[key] for key in ("ms_step", "peak_gb")}
+    kernels[-3]["remat_peak_gb"] = {k: r["peak_gb"] for k, r in remat.items()}
     log(label)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,7 @@ config file drives both packages (``tests/test_torch_config.py`` holds the
 two equal).  A copy, not an import: the port imports nothing of
 ``colbert_tpu``.  The comments on the fields describe the JAX package's
 options; the port computes the same results and refuses the options it has
-not ported (``models/bert.py``).
+not ported (``ranking/searcher.py``, ``cli.py``).
 
 Replaces the reference's two-headed OmegaConf YAML + HF ``TrainingArguments``
 spine (reference: ``proj_conf/dense.yaml``, ``colbert/utils/dense_conf.py:26-29``,

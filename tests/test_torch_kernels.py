@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
-the flat scan (K1, K2), all-pairs MaxSim (K3, both routes), dropout (K9, both routes), the rerank
+the flat scan (K1, K2), all-pairs MaxSim (K3, both routes), dropout (K9, both routes), flash
+attention (K11 forward, K12 dK/dV, K13 dQ, and their launches a train and a CE step), the rerank
 (K4 bf16, K5 int8, on both routes, its pid-window schedule's edges and its
 freedom from host synchronisation), the sq list scans (K6 slots and K7 hot
 lists, each on both routes; K6's work list's edges, K7's member-token
@@ -1007,3 +1008,149 @@ def test_token_probe_never_synchronises(cuda_device):
                                      route="staged")
     assert torch.isfinite(ws).sum() > T * 64
     assert torch.equal(s, ws) and torch.equal(rows, wr)
+
+
+# ---- K11-K13: flash attention ----
+
+def _flash_close(got, want):
+    """(the largest error in bf16 ulps of its head vector's magnitude, floored
+    at 2^-10 of the tensor's largest entry; the share of elements beyond 2
+    ulps of their own magnitude): the limits of ``chip_smoke.py`` phase 8a."""
+    a, b = got.float(), want.float()
+    err = (a - b).abs()
+    mag = torch.maximum(a.abs(), b.abs())
+
+    def ulp(x):
+        _, e = torch.frexp(x.clamp_min(torch.finfo(torch.float32).tiny))
+        return torch.ldexp(torch.ones_like(x), e - 8)
+    row = mag.amax(-1, keepdim=True).clamp_min(2.0**-10 * float(mag.max()))
+    return float((err / ulp(row)).max()), float((err > 2 * ulp(mag)).float().mean())
+
+
+# (B, nh, L, dtype, layout): the retriever's doc pass, the CE's pairs and the
+# encode batch in the models' layout (heads-major views of (B, L, nh, hd));
+# small contiguous cases at L 128 (the JAX kernel's single block) and 256, fp16
+@pytest.mark.parametrize("B,nh,L,dtype,layout", [
+    (68, 12, 384, torch.bfloat16, "heads"),
+    (20, 16, 384, torch.bfloat16, "heads"),
+    (384, 12, 384, torch.bfloat16, "heads"),
+    (3, 2, 128, torch.bfloat16, "contiguous"),
+    (5, 4, 256, torch.float16, "contiguous"),
+])
+def test_flash_kernels_match_plain(cuda_device, B, nh, L, dtype, layout):
+    """K11, K12 and K13 against the plain versions on the same inputs (the
+    backward on the plain forward's l, m and di), within 2 bf16 ulps of each
+    element's head vector and at most 1e-3 of the elements past 2 ulps of
+    their own magnitude; two runs bit-equal; the autograd function equal to
+    the launches."""
+    from colbert_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(cuda_device).manual_seed(B * L + nh)
+
+    def t():
+        if layout == "heads":
+            return torch.randn((B, L, nh, 64), generator=g, device=cuda_device).to(dtype).transpose(1, 2)
+        return torch.randn((B, nh, L, 64), generator=g, device=cuda_device).to(dtype)
+    q, k, v, do = t(), t(), t(), t()
+    lengths = torch.randint(1, L + 1, (B,), generator=g, device=cuda_device)
+    lengths[0] = L
+    seg = (torch.arange(L, device=cuda_device)[None, :] < lengths[:, None]).to(torch.int32)
+    args = (q, k, v, seg, seg, 0.125)
+    o, l, m = fa._launch_forward(*args)
+    ro, rl, rm = fa.flash_forward_ref(*args)
+    di = fa.flash_di(ro, do)
+    bargs = (*args, rl, rm, do, di)
+    dk, dv = fa._launch_dkv(*bargs)
+    dq = fa._launch_dq(*bargs)
+    want = fa.flash_backward_ref(*bargs)
+    torch.cuda.synchronize()
+    for what, got, ref in (("o", o, ro), ("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
+        head_ulps, share = _flash_close(got, ref)
+        assert head_ulps <= 2 and share <= 1e-3, (what, head_ulps, share)
+    torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
+    torch.testing.assert_close(m, rm, rtol=0, atol=1e-5)
+    o2, l2, m2 = fa._launch_forward(*args)
+    dk2, dv2 = fa._launch_dkv(*bargs)
+    assert torch.equal(o, o2) and torch.equal(l, l2) and torch.equal(m, m2)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2) and torch.equal(dq, fa._launch_dq(*bargs))
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, seg, seg, 0.125)
+    out.backward(do)
+    dkf, dvf = fa._launch_dkv(q, k, v, seg, seg, 0.125, l, m, do, fa.flash_di(o, do))
+    assert torch.equal(out, o)
+    assert torch.equal(leaves[1].grad, dkf) and torch.equal(leaves[2].grad, dvf)
+
+
+def test_flash_refuses_what_it_does_not_take(cuda_device):
+    """On a CUDA tensor the wrapper launches or raises, never the plain version."""
+    from colbert_tpu_torch.ops import flash_attention as fa
+
+    seg = torch.ones((2, 384), dtype=torch.int32, device=cuda_device)
+    for shape, dtype in (((2, 2, 384, 32), torch.bfloat16), ((2, 2, 384, 64), torch.float32)):
+        x = torch.zeros(shape, dtype=dtype, device=cuda_device)
+        with pytest.raises(NotImplementedError, match="step 12"):
+            fa.flash_attention(x, x, x, seg, seg, 0.125)
+    x = torch.zeros((2, 2, 200, 64), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="step 12"):
+        fa.flash_attention(x, x, x, seg[:, :200], seg[:, :200], 0.125)
+
+
+@pytest.mark.parametrize("num_layers,remat", [(2, "none"), (2, "full"), (12, "none")])
+def test_flash_launches_per_train_step(cuda_device, num_layers, remat):
+    """A retriever step with flash: docs at 128 launch K11, K12 and K13 once a
+    layer each (K11 twice under remat "full": the recompute), queries at 32
+    none; K9 at every dropout site, forward and backward."""
+    from colbert_tpu_torch.config import ModelConfig, MultiviewConfig
+    from colbert_tpu_torch.models.colbert import ColbertModel
+    from colbert_tpu_torch.ops import dropout as dr, flash_attention as fa
+
+    cfg = ModelConfig(vocab_size=128, hidden_size=128, num_layers=num_layers, num_heads=2, intermediate_size=256,
+                      max_position_embeddings=128, dim=32, attention_impl="flash", remat=remat)
+    m = ColbertModel(cfg, MultiviewConfig())
+    m.init_weights(torch.Generator().manual_seed(0))
+    m = m.to(cuda_device).train()
+    g = torch.Generator().manual_seed(1)
+    d_ids, q_ids = torch.randint(1, 128, (6, 128), generator=g), torch.randint(1, 128, (2, 32), generator=g)
+    d_attn = (torch.arange(128)[None, :] < torch.tensor([128, 100, 60, 129 - 1, 33, 5])[:, None]).long()
+    counters = (fa.fwd_launches, fa.dkv_launches, fa.dq_launches, dr.hw_dropout.launches)
+    before = [c.value for c in counters]
+    D = m.doc(d_ids.to(cuda_device), d_attn.to(cuda_device), generator=torch.Generator().manual_seed(2))
+    Q = m.query(q_ids.to(cuda_device), torch.ones_like(q_ids).to(cuda_device), generator=torch.Generator().manual_seed(3))
+    (torch.einsum("qmh,dnh->qd", Q, D).sum()).backward()
+    torch.cuda.synchronize()
+    got = [c.value - b for c, b in zip(counters, before)]
+    # K9: two passes, forward and backward, at 1 + 3 sites a layer; "full"
+    # runs each layer's three sites again in the recompute
+    k9 = 2 * 2 * (1 + 3 * num_layers) + (2 * 3 * num_layers if remat == "full" else 0)
+    assert got == [num_layers * (2 if remat == "full" else 1), num_layers, num_layers, k9]
+
+
+def test_flash_launches_per_ce_step(cuda_device, tmp_path):
+    """A macbert-large-deep (24 layers) CE step with flash at ce_maxlen 128:
+    K11, K12 and K13 24 launches each, K9 146, all on route "packed"."""
+    from colbert_tpu_torch.config import CETrainConfig, ColbertConfig, ModelConfig, TokenizerConfig
+    from colbert_tpu_torch.ops import dropout as dr, flash_attention as fa
+    from colbert_tpu_torch.tokenization import ColbertTokenizer, build_vocab, write_vocab
+    from colbert_tpu_torch.training import CETrainer
+
+    words = ["apple", "river", "piano", "ocean", "forest"]
+    vp = write_vocab(build_vocab([" ".join(words)]), tmp_path / "vocab.txt")
+    cfg = ColbertConfig(
+        ce_model=ModelConfig(vocab_size=128, hidden_size=128, num_layers=24, num_heads=2, intermediate_size=256,
+                             max_position_embeddings=128, dtype="bfloat16", attention_impl="flash"),
+        tokenizer=TokenizerConfig(vocab_path=vp, ce_maxlen=128),
+        ce_train=CETrainConfig(per_device_batch_size=2, neg_num=2, neg_pool_lo=0, neg_pool_hi=4,
+                               checkpoint_dir=str(tmp_path / "ce")),
+    )
+    exs = [{"question": w, "positive_ctxs": [w + " " + w], "hard_negative_ctxs": [o for o in words if o != w]}
+           for w in words[:2]]
+    t = CETrainer(cfg, ColbertTokenizer(cfg.tokenizer, cfg.multiview), device=cuda_device)
+    t._init_state(2)
+    ids, attn, group, teacher = t._build_pairs(exs, "train")
+    counters = (fa.fwd_launches, fa.dkv_launches, fa.dq_launches, dr.hw_dropout.launches,
+                dr.route_launches["packed"])
+    before = [c.value for c in counters]
+    loss = t.train_step(ids, attn, group, teacher, 0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert [c.value - b for c, b in zip(counters, before)] == [24, 24, 24, 146, 146]

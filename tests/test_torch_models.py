@@ -167,9 +167,3 @@ def test_attention_softmax_rounds_as_flax(softmax_dtype):
     err = np.abs(got - want)
     assert (err <= np.abs(want) * 2.0**-8).all()
     assert err.mean() < np.abs(got - want_other).mean() / 10
-
-
-@pytest.mark.parametrize("field,value", [("attention_impl", "flash"), ("remat", "dots"), ("remat", "attn")])
-def test_unported_model_options_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 step 12"):
-        ColbertModel(dataclasses.replace(CFG, **{field: value}), MV)
