@@ -2656,23 +2656,6 @@ def synthetic_doc_lengths(n, seed, workdir: Path):
     return np.asarray(tok.encode_docs(docs).attention_mask).sum(1)
 
 
-def flash_close(got, want):
-    """(the largest error in bf16 ulps of its head vector's magnitude, floored
-    at 2^-10 of the tensor's largest entry; the share of elements beyond 2
-    ulps of their own magnitude; the largest absolute error)."""
-    import torch
-
-    a, b = got.float(), want.float()
-    err = (a - b).abs()
-    mag = torch.maximum(a.abs(), b.abs())
-
-    def ulp(x):
-        _, e = torch.frexp(x.clamp_min(torch.finfo(torch.float32).tiny))
-        return torch.ldexp(torch.ones_like(x), e - 8)
-    row = mag.amax(-1, keepdim=True).clamp_min(2.0**-10 * float(mag.max()))
-    return (float((err / ulp(row)).max()), float((err > 2 * ulp(mag)).float().mean()), float(err.max()))
-
-
 def flash_bounds(B, nh, L, hd=64):
     """(bound ms, by) of K11, K12 and K13 at (B, nh, L, hd) bf16: each input read
     once, each output written once; K11 4 L^2 hd flops a head, K12 8, K13 6."""
@@ -2685,10 +2668,13 @@ def flash_bounds(B, nh, L, hd=64):
 
 
 def flash_case(device, name, B, nh, lengths, seed, timed, label):
-    """K11, K12 and K13 at (B, nh, 384, 64) bf16 in the model's layout (heads-major
-    views of (B, L, nh, hd)) against their plain versions, twice each (bit-equal);
-    with ``timed`` their times cold and hot, beside the bound, the plain
-    versions, the port's explicit attention and ``F.scaled_dot_product_attention``."""
+    """The path the model runs at (B, nh, 384, 64) bf16 in its layout (heads-major
+    views of (B, L, nh, hd)): the public wrapper's forward (K11), then its
+    backward (di from K11's own o, K12 and K13 on K11's own l and m), and the
+    autograd function over them, against the plain forward and backward run the
+    same way; twice (bit-equal).  With ``timed``, each kernel's time cold and hot
+    beside its bound, and the plain versions, the port's explicit attention
+    and ``F.scaled_dot_product_attention``."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2706,36 +2692,42 @@ def flash_case(device, name, B, nh, lengths, seed, timed, label):
     q, k, v, do = heads(), heads(), heads(), heads()
     seg = (torch.arange(L, device=device)[None, :] < torch.as_tensor(lengths, device=device)[:, None]).to(torch.int32)
     args = (q, k, v, seg, seg, FLASH_SCALE)
-    o, l, m = fa._launch_forward(*args)
-    o2, l2, m2 = fa._launch_forward(*args)
+    o, l, m = fa.flash_forward(*args)
+    dq, dk, dv = fa.flash_backward(*args, o, l, m, do)
+    o2, l2, m2 = fa.flash_forward(*args)
+    dq2, dk2, dv2 = fa.flash_backward(*args, o2, l2, m2, do)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, seg, seg, FLASH_SCALE)
+    out.backward(do)
     ro, rl, rm = fa.flash_forward_ref(*args)
-    di = fa.flash_di(ro, do)
-    bargs = (*args, rl, rm, do, di)
-    dk, dv = fa._launch_dkv(*bargs)
-    dq = fa._launch_dq(*bargs)
-    dk2, dv2 = fa._launch_dkv(*bargs)
-    dq2 = fa._launch_dq(*bargs)
-    want = fa.flash_backward_ref(*bargs)
+    want = fa.flash_backward_ref(*args, rl, rm, do, fa.flash_di(ro, do))
     torch.cuda.synchronize()
     stable = all(torch.equal(a, b) for a, b in ((o, o2), (l, l2), (m, m2), (dq, dq2), (dk, dk2), (dv, dv2)))
-    res = {"shape": [B, nh, L, 64], "lengths": [int(np.min(lengths)), int(np.max(lengths))], "bit_stable": stable}
+    autograd_same = torch.equal(out, o) and all(torch.equal(t.grad, g) for t, g in zip(leaves, (dq, dk, dv)))
+    res = {"shape": [B, nh, L, 64], "lengths": [int(np.min(lengths)), int(np.max(lengths))], "bit_stable": stable,
+           "autograd_same": autograd_same}
     for what, got, ref in (("o", o, ro), ("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
-        res[what] = dict(zip(("head_ulps", "element_share", "max_abs_err"), flash_close(got, ref)))
+        res[what] = dict(zip(("head_ulps", "element_share", "max_abs_err"), fa.close_in_head_ulps(got, ref)))
     res["l_max_rel_err"] = float(((l - rl).abs() / rl).max())
     res["m_max_abs_err"] = float((m - rm).abs().max())
     log(f"[phase8a] {name} ({B}, {nh}, {L}, 64) bf16, lengths {res['lengths'][0]}-{res['lengths'][1]}: bit-stable "
-        f"{stable}; " + "; ".join(f"{w} {res[w]['head_ulps']:.2f} ulps of its head vector, "
-                                   f"{res[w]['element_share']:.2e} of elements past 2 own ulps, max|d| "
-                                   f"{res[w]['max_abs_err']:.3e}" for w in ("o", "dq", "dk", "dv"))
+        f"{stable}, autograd function equal {autograd_same}; wrapper path against the plain path: "
+        + "; ".join(f"{w} {res[w]['head_ulps']:.2f} ulps of its head vector, "
+                    f"{res[w]['element_share']:.2e} of elements past 2 own ulps, max|d| "
+                    f"{res[w]['max_abs_err']:.3e}" for w in ("o", "dq", "dk", "dv"))
         + f"; l rel {res['l_max_rel_err']:.2e}, m {res['m_max_abs_err']:.2e}")
     bad = [w for w in ("o", "dq", "dk", "dv") if res[w]["head_ulps"] > FLASH_HEAD_ULPS
            or res[w]["element_share"] > FLASH_ELEMENT_SHARE]
-    if not stable or bad or not (torch.isfinite(o.float()).all() and torch.isfinite(dq.float()).all()):
-        raise AssertionError(f"K11-K13 at {name}: bit-stable {stable}, beyond the limits: {bad} ({res})")
+    if not (stable and autograd_same) or bad or not (torch.isfinite(o.float()).all()
+                                                     and torch.isfinite(dq.float()).all()):
+        raise AssertionError(f"K11-K13 at {name}: bit-stable {stable}, autograd function equal {autograd_same}, "
+                             f"beyond the limits: {bad} ({res})")
     if not timed:
         return res
 
     # ---- times: CUDA events, hot (the same inputs) and cold (copies in turn past twice the L2) ----
+    di = fa.flash_di(o, do)
+    bargs = (*args, l, m, do, di)
     set_bytes = 4 * q.numel() * 2
     n_copies = max(1, -(-4 * L2_BYTES // set_bytes))
     copies = [tuple(t.clone() for t in (q, k, v, do)) for _ in range(n_copies)]
@@ -2743,12 +2735,11 @@ def flash_case(device, name, B, nh, lengths, seed, timed, label):
     hot["K11"] = time_ms(lambda: fa._launch_forward(*args))
     cold["K11"] = time_ms(in_turn(lambda x, i: fa._launch_forward(x[0], x[1], x[2], seg, seg, FLASH_SCALE), copies))
     hot["K12"] = time_ms(lambda: fa._launch_dkv(*bargs))
-    cold["K12"] = time_ms(in_turn(lambda x, i: fa._launch_dkv(x[0], x[1], x[2], seg, seg, FLASH_SCALE, rl, rm,
+    cold["K12"] = time_ms(in_turn(lambda x, i: fa._launch_dkv(x[0], x[1], x[2], seg, seg, FLASH_SCALE, l, m,
                                                               x[3], di), copies))
     hot["K13"] = time_ms(lambda: fa._launch_dq(*bargs))
-    cold["K13"] = time_ms(in_turn(lambda x, i: fa._launch_dq(x[0], x[1], x[2], seg, seg, FLASH_SCALE, rl, rm,
+    cold["K13"] = time_ms(in_turn(lambda x, i: fa._launch_dq(x[0], x[1], x[2], seg, seg, FLASH_SCALE, l, m,
                                                              x[3], di), copies))
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
 
     def fwd_bwd(fn):
         def run():
@@ -2765,7 +2756,8 @@ def flash_case(device, name, B, nh, lengths, seed, timed, label):
     explicit = lambda a, b, c: att._explicit(a, b, c, bias, seed64)   # fp32 logits, softmax, K9, P.V
     with torch.no_grad():
         t_plain = time_ms(lambda: fa.flash_forward_ref(*args), iters=5, warmup=1)
-        t_plain_bwd = time_ms(lambda: fa.flash_backward_ref(*bargs), iters=3, warmup=1)
+        t_plain_bwd = time_ms(lambda: fa.flash_backward_ref(*args, rl, rm, do, fa.flash_di(ro, do)), iters=3,
+                              warmup=1)
         t_flash = time_ms(lambda: flash(q, k, v))
         t_sdpa = time_ms(lambda: sdpa(q, k, v))
         t_explicit = time_ms(lambda: explicit(q, k, v), iters=5, warmup=1)

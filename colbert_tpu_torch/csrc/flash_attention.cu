@@ -54,6 +54,8 @@
 // v, do, dq (200 MB, 0.060 ms): bytes.  The K/V (K12: Q/dO) tiles are re-read
 // by every block of a head, from L2.
 
+#include <atomic>
+
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -70,6 +72,7 @@ constexpr int ROWS = 64;          // rows a block owns (queries in K11/K13, keys
 constexpr int FWD_TILE = 128;     // keys a K11 tile: the JAX kernel's block
 constexpr int BWD_TILE = 64;      // keys (K13) or queries (K12) a backward tile
 constexpr float MASK_VALUE = (float)(-0.7 * 3.4028234663852886e38);  // DEFAULT_MASK_VALUE
+constexpr int kMaxDevices = 64;
 
 struct View {
   long long sb, sh, sl;  // batch, head and row strides in elements
@@ -569,9 +572,34 @@ bool aligned(const void* p, const long long* s) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s[0] % 8 == 0 && s[1] % 8 == 0 && s[2] % 8 == 0;
 }
 
+// `kernel`'s dynamic shared memory raised to `bytes`, once per device
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes, int device, std::atomic<bool>* done) {
+  if (done[device].load(std::memory_order_relaxed)) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done[device].store(true, std::memory_order_relaxed);
+  return err;
+}
+
+// `launch()` with `device` current: made so if it is not, the caller's restored after
+template <typename F>
+int on_device(int device, F launch) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return (int)err;
+  if (current != device && (err = cudaSetDevice(device)) != cudaSuccess) return (int)err;
+  int e = launch();
+  if (current != device) {
+    const cudaError_t back = cudaSetDevice(current);
+    if (e == 0) e = (int)back;
+  }
+  return e;
+}
+
 // 0 if the shape is one the kernels take, else cudaErrorInvalidValue.
-int check_shape(int B, int nh, int Lq, int Lk, int dtype) {
-  if (B < 1 || nh < 1 || B > 65535 || nh > 65535 || dtype < 0 || dtype > 1) return (int)cudaErrorInvalidValue;
+int check_shape(int B, int nh, int Lq, int Lk, int dtype, int device) {
+  if (B < 1 || nh < 1 || B > 65535 || nh > 65535 || dtype < 0 || dtype > 1 || device < 0 || device >= kMaxDevices)
+    return (int)cudaErrorInvalidValue;
   if (Lq < FWD_TILE || Lk < FWD_TILE || Lq % FWD_TILE || Lk % FWD_TILE) return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -579,8 +607,9 @@ int check_shape(int B, int nh, int Lq, int Lk, int dtype) {
 template <typename T>
 int fwd(const void* q, const void* k, const void* v, void* o, const int* qseg, const int* kvseg, float* l, float* m,
         const long long* vq, const long long* vk, const long long* vv, const long long* vo, int B, int nh, int Lq,
-        int Lk, float scale, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, FWD_SMEM);
+        int Lk, float scale, int device, cudaStream_t stream) {
+  static std::atomic<bool> smem_set[kMaxDevices];
+  const cudaError_t err = allow_smem(flash_fwd_kernel<T>, FWD_SMEM, device, smem_set);
   if (err != cudaSuccess) return (int)err;
   flash_fwd_kernel<T><<<dim3(Lq / ROWS, nh, B), THREADS, FWD_SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), qseg, kvseg,
@@ -592,8 +621,9 @@ template <typename T>
 int dkv(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg, const float* l,
         const float* m, const void* dout, const float* di, void* dk, void* dv, const long long* vq,
         const long long* vk, const long long* vv, const long long* vdo, const long long* vdk, const long long* vdv,
-        int B, int nh, int Lq, int Lk, float scale, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, DKV_SMEM);
+        int B, int nh, int Lq, int Lk, float scale, int device, cudaStream_t stream) {
+  static std::atomic<bool> smem_set[kMaxDevices];
+  const cudaError_t err = allow_smem(flash_dkv_kernel<T>, DKV_SMEM, device, smem_set);
   if (err != cudaSuccess) return (int)err;
   flash_dkv_kernel<T><<<dim3(Lk / ROWS, nh, B), THREADS, DKV_SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), qseg, kvseg, l, m,
@@ -606,8 +636,9 @@ template <typename T>
 int dq(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg, const float* l,
        const float* m, const void* dout, const float* di, void* dq_, const long long* vq, const long long* vk,
        const long long* vv, const long long* vdo, const long long* vdq, int B, int nh, int Lq, int Lk, float scale,
-       cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, DQ_SMEM);
+       int device, cudaStream_t stream) {
+  static std::atomic<bool> smem_set[kMaxDevices];
+  const cudaError_t err = allow_smem(flash_dq_kernel<T>, DQ_SMEM, device, smem_set);
   if (err != cudaSuccess) return (int)err;
   flash_dq_kernel<T><<<dim3(Lq / ROWS, nh, B), THREADS, DQ_SMEM, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), qseg, kvseg, l, m,
@@ -625,17 +656,22 @@ extern "C" int flash_head_dim() { return HD; }
 // (batch, head, row) strides in elements (`vq`..`vo`, three each), unit
 // stride along the head dim, rows 16-byte aligned; segment ids (B, Lq) and
 // (B, Lk) int32, l and m (B, nh, Lq) fp32, all contiguous; Lq and Lk
-// multiples of 128; dtype 0 bf16, 1 fp16.  Returns a cudaError_t (0 on
-// success, cudaErrorInvalidValue for a shape or layout it does not take).
+// multiples of 128; dtype 0 bf16, 1 fp16.  `device` is the tensors' card:
+// made current for the launch if it is not, and the caller's restored after.
+// Returns a cudaError_t (0 on success, cudaErrorInvalidValue for a shape or
+// layout it does not take).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o, const int* qseg,
                                 const int* kvseg, float* l, float* m, const long long* vq, const long long* vk,
                                 const long long* vv, const long long* vo, int B, int nh, int Lq, int Lk,
-                                float scale, int dtype, void* stream) {
-  if (int e = check_shape(B, nh, Lq, Lk, dtype)) return e;
+                                float scale, int dtype, int device, void* stream) {
+  if (int e = check_shape(B, nh, Lq, Lk, dtype, device)) return e;
   if (!aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) || !aligned(o, vo)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? fwd<__nv_bfloat16>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk, scale, s)
-                    : fwd<__half>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk, scale, s);
+  return on_device(device, [&] {
+    return dtype == 0 ? fwd<__nv_bfloat16>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk, scale,
+                                           device, s)
+                      : fwd<__half>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk, scale, device, s);
+  });
 }
 
 // K12: dk and dv (like k and v) from q, k, v, do (like q), l, m and di (B, nh, Lq) fp32.
@@ -643,16 +679,18 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     const float* l, const float* m, const void* dout, const float* di, void* dk,
                                     void* dv, const long long* vq, const long long* vk, const long long* vv,
                                     const long long* vdo, const long long* vdk, const long long* vdv, int B, int nh,
-                                    int Lq, int Lk, float scale, int dtype, void* stream) {
-  if (int e = check_shape(B, nh, Lq, Lk, dtype)) return e;
+                                    int Lq, int Lk, float scale, int dtype, int device, void* stream) {
+  if (int e = check_shape(B, nh, Lq, Lk, dtype, device)) return e;
   if (!aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) || !aligned(dout, vdo) || !aligned(dk, vdk) ||
       !aligned(dv, vdv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? dkv<__nv_bfloat16>(q, k, v, qseg, kvseg, l, m, dout, di, dk, dv, vq, vk, vv, vdo, vdk, vdv, B,
-                                         nh, Lq, Lk, scale, s)
-                    : dkv<__half>(q, k, v, qseg, kvseg, l, m, dout, di, dk, dv, vq, vk, vv, vdo, vdk, vdv, B, nh, Lq,
-                                  Lk, scale, s);
+  return on_device(device, [&] {
+    return dtype == 0 ? dkv<__nv_bfloat16>(q, k, v, qseg, kvseg, l, m, dout, di, dk, dv, vq, vk, vv, vdo, vdk, vdv,
+                                           B, nh, Lq, Lk, scale, device, s)
+                      : dkv<__half>(q, k, v, qseg, kvseg, l, m, dout, di, dk, dv, vq, vk, vv, vdo, vdk, vdv, B, nh,
+                                    Lq, Lk, scale, device, s);
+  });
 }
 
 // K13: dq (like q) from the same inputs.
@@ -660,13 +698,15 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, 
                                    const float* l, const float* m, const void* dout, const float* di, void* dq_,
                                    const long long* vq, const long long* vk, const long long* vv,
                                    const long long* vdo, const long long* vdq, int B, int nh, int Lq, int Lk,
-                                   float scale, int dtype, void* stream) {
-  if (int e = check_shape(B, nh, Lq, Lk, dtype)) return e;
+                                   float scale, int dtype, int device, void* stream) {
+  if (int e = check_shape(B, nh, Lq, Lk, dtype, device)) return e;
   if (!aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) || !aligned(dout, vdo) || !aligned(dq_, vdq))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? dq<__nv_bfloat16>(q, k, v, qseg, kvseg, l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B, nh, Lq,
-                                        Lk, scale, s)
-                    : dq<__half>(q, k, v, qseg, kvseg, l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B, nh, Lq, Lk,
-                                 scale, s);
+  return on_device(device, [&] {
+    return dtype == 0 ? dq<__nv_bfloat16>(q, k, v, qseg, kvseg, l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B, nh,
+                                          Lq, Lk, scale, device, s)
+                      : dq<__half>(q, k, v, qseg, kvseg, l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B, nh, Lq, Lk,
+                                   scale, device, s);
+  });
 }

@@ -118,10 +118,32 @@ def flash_backward_ref(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp (8 significant bits) at ``|x|``."""
+    _, e = torch.frexp(x.abs().clamp_min(torch.finfo(torch.float32).tiny))
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def close_in_head_ulps(got: torch.Tensor, want: torch.Tensor) -> Tuple[float, float, float]:
+    """How the kernels are held to the plain versions: (the largest error in
+    bf16 ulps of its head vector's magnitude, floored at 2^-10 of the
+    tensor's largest entry; the share of elements beyond 2 ulps of their own
+    magnitude; the largest absolute error)."""
+    a, b = got.float(), want.float()
+    if a.shape != b.shape:
+        raise ValueError(f"shapes {tuple(a.shape)} and {tuple(b.shape)} differ")
+    err = (a - b).abs()
+    mag = torch.maximum(a.abs(), b.abs())
+    row = mag.amax(-1, keepdim=True).clamp_min(2.0**-10 * float(mag.max()))
+    return (float((err / bf16_ulp(row)).max()), float((err > 2 * bf16_ulp(mag)).float().mean()),
+            float(err.max()))
+
+
 # ---- the CUDA kernels ----
 
 _lib_lock = threading.Lock()
 _VIEW = ctypes.c_longlong * 3
+_resolved = None  # (forward, dK/dV, dQ) C functions, see _fns
 
 
 def kernel_refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Optional[str]:
@@ -147,13 +169,22 @@ def _kernel_lib() -> ctypes.CDLL:
             lib.flash_head_dim.argtypes, lib.flash_head_dim.restype = [], i
             if lib.flash_head_dim() != HEAD_DIM:
                 raise RuntimeError("csrc/flash_attention.cu disagrees with ops/flash_attention.py")
-            tail = [i, i, i, i, f, i, ptr]  # B, nh, Lq, Lk, sm_scale, dtype, stream
+            tail = [i, i, i, i, f, i, i, ptr]  # B, nh, Lq, Lk, sm_scale, dtype, device, stream
             lib.flash_fwd_launch.argtypes = [ptr] * 8 + [_VIEW] * 4 + tail
             lib.flash_bwd_dkv_launch.argtypes = [ptr] * 11 + [_VIEW] * 6 + tail
             lib.flash_bwd_dq_launch.argtypes = [ptr] * 10 + [_VIEW] * 5 + tail
             for fn in (lib.flash_fwd_launch, lib.flash_bwd_dkv_launch, lib.flash_bwd_dq_launch):
                 fn.restype = i
     return lib
+
+
+def _fns():
+    """The three C entry points with their argtypes, resolved at first use."""
+    global _resolved
+    if _resolved is None:
+        lib = _kernel_lib()
+        _resolved = (lib.flash_fwd_launch, lib.flash_bwd_dkv_launch, lib.flash_bwd_dq_launch)
+    return _resolved
 
 
 def _view(t: torch.Tensor):
@@ -188,13 +219,16 @@ def _segments(q_seg: torch.Tensor, kv_seg: torch.Tensor, device) -> Tuple[torch.
     return one(q_seg), one(kv_seg)
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _device_stream(t: torch.Tensor) -> Tuple[int, int]:
+    """``t``'s card and its current stream, raw: the C entry makes the card
+    current for the launch only if it is not."""
+    dev = t.get_device()
+    return dev, torch._C._cuda_getCurrentRawStream(dev)
 
 
 def _launch_forward(q, k, v, q_seg, kv_seg, sm_scale: float):
     """K11: (o, l, m), o a (B, nh, Lq, hd) view of a (B, Lq, nh, hd) buffer."""
-    lib = _kernel_lib()
+    launch = _fns()[0]
     q, k, v = (_kernel_input(t) for t in (q, k, v))
     q_seg, kv_seg = _segments(q_seg, kv_seg, q.device)
     B, nh, Lq, hd = q.shape
@@ -202,10 +236,9 @@ def _launch_forward(q, k, v, q_seg, kv_seg, sm_scale: float):
     o = _heads_major(B, nh, Lq, hd, q)
     l = torch.empty((B, nh, Lq), dtype=torch.float32, device=q.device)
     m = torch.empty_like(l)
-    with torch.cuda.device(q.device):
-        err = lib.flash_fwd_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), q_seg.data_ptr(),
-                                   kv_seg.data_ptr(), l.data_ptr(), m.data_ptr(), _view(q), _view(k), _view(v),
-                                   _view(o), B, nh, Lq, Lk, sm_scale, _DTYPES[q.dtype], _stream(q))
+    err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(),
+                 l.data_ptr(), m.data_ptr(), _view(q), _view(k), _view(v), _view(o), B, nh, Lq, Lk, sm_scale,
+                 _DTYPES[q.dtype], *_device_stream(q))
     _check(err, "forward", q)
     fwd_launches.add()
     return o, l, m
@@ -220,16 +253,15 @@ def _backward_inputs(q, k, v, q_seg, kv_seg, l, m, do, di):
 
 def _launch_dkv(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di):
     """K12: (dk, dv), (B, nh, Lk, hd) views of (B, Lk, nh, hd) buffers."""
-    lib = _kernel_lib()
+    launch = _fns()[1]
     q, k, v, q_seg, kv_seg, l, m, do, di = _backward_inputs(q, k, v, q_seg, kv_seg, l, m, do, di)
     B, nh, Lq, hd = q.shape
     Lk = k.shape[2]
     dk, dv = _heads_major(B, nh, Lk, hd, k), _heads_major(B, nh, Lk, hd, v)
-    with torch.cuda.device(q.device):
-        err = lib.flash_bwd_dkv_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(),
-                                       l.data_ptr(), m.data_ptr(), do.data_ptr(), di.data_ptr(), dk.data_ptr(),
-                                       dv.data_ptr(), _view(q), _view(k), _view(v), _view(do), _view(dk), _view(dv),
-                                       B, nh, Lq, Lk, sm_scale, _DTYPES[q.dtype], _stream(q))
+    err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(), l.data_ptr(),
+                 m.data_ptr(), do.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), _view(q), _view(k),
+                 _view(v), _view(do), _view(dk), _view(dv), B, nh, Lq, Lk, sm_scale, _DTYPES[q.dtype],
+                 *_device_stream(q))
     _check(err, "dK/dV", q)
     dkv_launches.add()
     return dk, dv
@@ -237,16 +269,14 @@ def _launch_dkv(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di):
 
 def _launch_dq(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di):
     """K13: dq, a (B, nh, Lq, hd) view of a (B, Lq, nh, hd) buffer."""
-    lib = _kernel_lib()
+    launch = _fns()[2]
     q, k, v, q_seg, kv_seg, l, m, do, di = _backward_inputs(q, k, v, q_seg, kv_seg, l, m, do, di)
     B, nh, Lq, hd = q.shape
     Lk = k.shape[2]
     dq = _heads_major(B, nh, Lq, hd, q)
-    with torch.cuda.device(q.device):
-        err = lib.flash_bwd_dq_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(),
-                                      l.data_ptr(), m.data_ptr(), do.data_ptr(), di.data_ptr(), dq.data_ptr(),
-                                      _view(q), _view(k), _view(v), _view(do), _view(dq),
-                                      B, nh, Lq, Lk, sm_scale, _DTYPES[q.dtype], _stream(q))
+    err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(), l.data_ptr(),
+                 m.data_ptr(), do.data_ptr(), di.data_ptr(), dq.data_ptr(), _view(q), _view(k), _view(v),
+                 _view(do), _view(dq), B, nh, Lq, Lk, sm_scale, _DTYPES[q.dtype], *_device_stream(q))
     _check(err, "dQ", q)
     dq_launches.add()
     return dq

@@ -3,10 +3,11 @@
 package, on the CPU.
 
 The JAX side runs ``jax.experimental.pallas.ops.tpu.flash_attention`` (the
-Pallas TPU kernels the JAX encoder reaches under flash) in TPU interpret
-mode; the JAX encoder's ``_use_flash`` refuses a CPU backend, so the model
-tests patch it, in the test alone, to its TPU rule (flash at lengths that
-are multiples of 128).  Inputs come from numpy seeds.
+Pallas TPU kernels the JAX encoder reaches under flash) in Pallas's
+interpret mode, as with ``interpret=True`` (:func:`interpret_pallas`); the
+JAX encoder's ``_use_flash`` refuses a CPU backend, so the model tests
+patch it, in the test alone, to its TPU rule (flash at lengths that are
+multiples of 128).  Inputs come from numpy seeds.
 
 Limits:
 
@@ -44,7 +45,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental.pallas import tpu as pltpu
+from jax._src import config as jax_config
 from jax.experimental.pallas.ops.tpu.flash_attention import SegmentIds
 from jax.experimental.pallas.ops.tpu.flash_attention import flash_attention as jax_flash
 
@@ -61,28 +62,37 @@ from colbert_tpu_torch.ops import flash_attention as fa
 
 # two intra-op threads a worker: the suite runs in several workers beside JAX's thread pools
 torch.set_num_threads(2)
+# torch's first CPU exp, made after JAX had run in the process, came out up to 1e-4 off now and
+# then (7 of 60 fresh processes; none of 60 that made these calls first): the fp32 limits catch it
+torch.exp(torch.zeros(8))
+torch.exp(torch.zeros(1 << 16))
 
 SCALE = 0.125  # 1 / sqrt(64)
 
 
-def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
-    """One bf16 ulp (8 significant bits) at |x|."""
-    _, e = torch.frexp(x.abs().clamp_min(torch.finfo(torch.float32).tiny))
-    return torch.ldexp(torch.ones_like(x), e - 8)
+@contextlib.contextmanager
+def interpret_pallas():
+    """Every ``pallas_call`` under it runs as with ``interpret=True``:
+    Pallas's HLO interpreter, as the JAX package's and the port's other tests
+    run TPU kernels on the CPU.  TPU interpret mode
+    (``force_tpu_interpret_mode``) simulates the TPU's memory in state that
+    the whole process shares, served from callback threads; a run of this
+    file under it hung once, every worker idle.  The switch has no public
+    form: this does what ``force_tpu_interpret_mode`` does, with ``True``
+    for its parameters."""
+    prev = jax_config.pallas_tpu_interpret_mode_context_manager.swap_local(True)
+    try:
+        yield
+    finally:
+        jax_config.pallas_tpu_interpret_mode_context_manager.set_local(prev)
 
 
 def assert_bf16_close(got: torch.Tensor, want: torch.Tensor, what: str) -> None:
     """Within 2 bf16 ulps of each element's head-vector magnitude (floored at
     2^-10 of the tensor's largest entry), and all but 1e-3 of the elements
-    within 2 ulps of their own magnitude."""
-    a, b = got.float(), want.float()
-    assert a.shape == b.shape, what
-    err = (a - b).abs()
-    mag = torch.maximum(a.abs(), b.abs())
-    row = mag.amax(-1, keepdim=True).clamp_min(2.0**-10 * float(mag.max()))
-    worst = float((err / bf16_ulp(row)).max())
+    within 2 ulps of their own magnitude (``fa.close_in_head_ulps``)."""
+    worst, share, _ = fa.close_in_head_ulps(got, want)
     assert worst <= 2.0, f"{what}: {worst} ulps of its head vector"
-    share = float((err > 2 * bf16_ulp(mag)).float().mean())
     assert share <= 1e-3, f"{what}: {share} of the elements beyond 2 ulps of their own magnitude"
 
 
@@ -114,7 +124,7 @@ CASES = [(128, 100), (128, None), (256, 129), (256, 200), (384, 200), (384, 257)
 @pytest.mark.parametrize("L,pad", CASES)
 def test_plain_forward_matches_jax_kernel(L, pad, dtype):
     q, k, v, _, seg = _inputs(L + (pad or 0), L, pad, dtype)
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_pallas():
         want = jax_flash(*_jax(dtype, q, k, v), segment_ids=SegmentIds(jnp.asarray(seg), jnp.asarray(seg)),
                          sm_scale=SCALE)
     want = torch.from_numpy(np.asarray(want.astype(jnp.float32)))
@@ -137,7 +147,7 @@ def test_plain_backward_matches_jax_grad(L, pad, dtype):
         o = jax_flash(q, k, v, segment_ids=SegmentIds(sj, sj), sm_scale=SCALE)
         return jnp.sum(o.astype(jnp.float32) * jnp.asarray(w))
 
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_pallas():
         want = jax.grad(f, argnums=(0, 1, 2))(*_jax(dtype, q, k, v))
     qt, kt, vt = _torch(dtype, q, k, v)
     s = torch.from_numpy(seg)
@@ -207,7 +217,7 @@ def jax_flash_on_cpu():
     """The JAX encoder's flash path on the CPU: its TPU dispatch rule, the kernels interpreted."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jbert, "_use_flash", _tpu_rule)
-        with pltpu.force_tpu_interpret_mode():
+        with interpret_pallas():
             yield
 
 

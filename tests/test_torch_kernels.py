@@ -1012,21 +1012,6 @@ def test_token_probe_never_synchronises(cuda_device):
 
 # ---- K11-K13: flash attention ----
 
-def _flash_close(got, want):
-    """(the largest error in bf16 ulps of its head vector's magnitude, floored
-    at 2^-10 of the tensor's largest entry; the share of elements beyond 2
-    ulps of their own magnitude): the limits of ``chip_smoke.py`` phase 8a."""
-    a, b = got.float(), want.float()
-    err = (a - b).abs()
-    mag = torch.maximum(a.abs(), b.abs())
-
-    def ulp(x):
-        _, e = torch.frexp(x.clamp_min(torch.finfo(torch.float32).tiny))
-        return torch.ldexp(torch.ones_like(x), e - 8)
-    row = mag.amax(-1, keepdim=True).clamp_min(2.0**-10 * float(mag.max()))
-    return float((err / ulp(row)).max()), float((err > 2 * ulp(mag)).float().mean())
-
-
 # (B, nh, L, dtype, layout): the retriever's doc pass, the CE's pairs and the
 # encode batch in the models' layout (heads-major views of (B, L, nh, hd));
 # small contiguous cases at L 128 (the JAX kernel's single block) and 256, fp16
@@ -1065,7 +1050,7 @@ def test_flash_kernels_match_plain(cuda_device, B, nh, L, dtype, layout):
     want = fa.flash_backward_ref(*bargs)
     torch.cuda.synchronize()
     for what, got, ref in (("o", o, ro), ("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
-        head_ulps, share = _flash_close(got, ref)
+        head_ulps, share, _ = fa.close_in_head_ulps(got, ref)
         assert head_ulps <= 2 and share <= 1e-3, (what, head_ulps, share)
     torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
     torch.testing.assert_close(m, rm, rtol=0, atol=1e-5)
@@ -1076,8 +1061,10 @@ def test_flash_kernels_match_plain(cuda_device, B, nh, L, dtype, layout):
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
     out = fa.flash_attention(*leaves, seg, seg, 0.125)
     out.backward(do)
-    dkf, dvf = fa._launch_dkv(q, k, v, seg, seg, 0.125, l, m, do, fa.flash_di(o, do))
+    own = (q, k, v, seg, seg, 0.125, l, m, do, fa.flash_di(o, do))
+    dkf, dvf = fa._launch_dkv(*own)
     assert torch.equal(out, o)
+    assert torch.equal(leaves[0].grad, fa._launch_dq(*own))
     assert torch.equal(leaves[1].grad, dkf) and torch.equal(leaves[2].grad, dvf)
 
 
