@@ -184,18 +184,29 @@ seed:
   (its row's largest magnitude, floored at 2^-10 of the tensor's largest
   entry) and at most 1e-3 of the elements beyond 2 ulps of their own
   magnitude (a p or ds that rounds the other way at a bf16 boundary moves
-  its row by ~2^-8 of one term); two runs bit-equal.  At the first three
-  shapes each kernel timed cold (input sets in turn past the L2) and hot,
-  beside its bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s),
-  and the forward and forward + backward beside the plain version, the
-  port's explicit attention (fp32 logits, softmax, K9 at the
-  probabilities) and ``F.scaled_dot_product_attention`` with the boolean
-  segment mask (a yardstick the port never calls);
+  its row by ~2^-8 of one term); two runs bit-equal; the same of K11 and
+  K12 on each route ("wgmma", every call's; "simple", the first design, on
+  request), and the backward's rows kernel: di bit-equal to its order in
+  torch and within fp32 rounding of ``flash_di``, 1 / l bit-equal.  At the
+  first three shapes each kernel (each route) timed cold (input sets in
+  turn past the L2) and hot, three times in turn (the medians kept), beside
+  its bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s), the rows
+  kernel beside ``flash_di``, and the forward and forward + backward
+  beside the plain version, the port's explicit attention (fp32 logits,
+  softmax, K9 at the probabilities), the first design's path (route
+  "simple" with ``flash_di``, through an autograd function of the same
+  form; by route also the forward, the backward and di, each on the host
+  clock with the card kept busy, on the card alone and as issued) and
+  ``F.scaled_dot_product_attention`` with the boolean segment mask (a
+  yardstick the port never calls; also its backward alone, dq, dk and dv
+  from one call, on the fastest of the cuDNN and memory-efficient
+  backends, named);
   (b) after phase 4: ``train`` with flash at phase 4's configuration, 5
   steps, evaluations at steps 2 and 4, then ``--resume`` from step 4: the
   resumed loss bit-equal, K11 12 launches a step and 12 a layer per eval
   batch, K12 and K13 12 a step, K9 as phase 4, K3 on "tf32"; ms/step and
-  peak memory beside phase 4's;
+  peak memory beside phase 4's.  Here and in (c)-(e) every K11 and K12
+  launch on route "wgmma" and the rows kernel once a K12 launch;
   (c) after phase 7: ``encode`` with flash over phase 2's corpus (K11 once
   a layer an encode batch), one ``serve`` request of 144 questions at
   top-100 over that table, checked as phase 2's answers; docs/s beside
@@ -271,7 +282,10 @@ def counters():
             "K3 tf32 route": ms.route_launches["tf32"], "K3 staged route": ms.route_launches["staged"],
             "K10 fused route": sq_probe.route_launches["fused"],
             "K10 staged route": sq_probe.route_launches["staged"],
-            "K9 packed route": dr.route_launches["packed"], "K9 simple route": dr.route_launches["simple"]}
+            "K9 packed route": dr.route_launches["packed"], "K9 simple route": dr.route_launches["simple"],
+            "K11 wgmma route": fa.fwd_route_launches["wgmma"], "K11 simple route": fa.fwd_route_launches["simple"],
+            "K12 wgmma route": fa.dkv_route_launches["wgmma"], "K12 simple route": fa.dkv_route_launches["simple"],
+            "flash rows": fa.rows_launches}
 
 
 def reset_counts() -> None:
@@ -409,6 +423,26 @@ def device_ms(fn, iters=20, warmup=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters=20, warmup=3, reps=5) -> float:
+    """``fn``'s time on the host clock a call while the card is kept busy
+    behind a spin kernel, so the host never waits for it: the host's own cost
+    of issuing ``fn`` (the median of ``reps`` runs of ``iters`` calls)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        torch.cuda._sleep(100_000_000)  # ~50 ms of clock cycles, longer than the host takes to queue the calls
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        runs.append((time.perf_counter() - t0) * 1e3 / iters)
+        torch.cuda.synchronize()
+    return sorted(runs)[reps // 2]
 
 
 def unit_rows_bf16(n_rows, dim, device, seed, chunk=1 << 18):
@@ -2667,14 +2701,122 @@ def flash_bounds(B, nh, L, hd=64):
             "K13": bound(6 * per_head, 5 * t + 3 * rows + seg, PEAK_BF16_FLOPS)}
 
 
+def di_within_fp32(got, o, do):
+    """The largest error of the card's di against :func:`flash_di` in units of
+    the two fp32 sums' joint rounding bound, 2 * 64 * 2^-24 * sum |o * do| a
+    row (<= 1: within fp32 rounding)."""
+    import torch
+
+    from colbert_tpu_torch.ops import flash_attention as fa
+
+    x = o.float() * do.float()
+    limit = 2 * x.shape[-1] * 2.0**-24 * x.abs().sum(-1)
+    return float(((got - fa.flash_di(o, do)).abs() / limit.clamp_min(torch.finfo(torch.float32).tiny)).max())
+
+
+def sdpa_backward_alone(q, k, v, mask, do):
+    """SDPA's backward alone (dq, dk and dv from one call), the yardstick of
+    K12 + K13 with the rows kernel: for each of the backends that take a
+    boolean mask, its forward once and its backward timed on that graph; the
+    fastest as (ms, backend name), with every backend's time or why it did not run."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    tried = {}
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel([backend]):
+                out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=FLASH_SCALE)
+            tried[backend.name] = time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+                                          iters=10, warmup=2)
+        except RuntimeError as e:
+            tried[backend.name] = f"not run: {str(e).splitlines()[0][:120]}"
+    timed = {n: t for n, t in tried.items() if isinstance(t, float)}
+    if not timed:
+        raise AssertionError(f"no SDPA backend ran the masked backward: {tried}")
+    best = min(timed, key=timed.get)
+    return timed[best], best, tried
+
+
+def first_design_flash(seg):
+    """The attention as the first design ran it, through an autograd function
+    of the same form as ``flash_attention``: K11 and K12 on route "simple",
+    di by ``flash_di`` (fp32 copies), K13; the yardstick of the autograd
+    function's forward + backward.  Takes (q, k, v); ``seg`` both sides' ids."""
+    import torch
+
+    from colbert_tpu_torch.ops import flash_attention as fa
+
+    class FirstDesign(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            o, l, m = fa._launch_forward(q, k, v, seg, seg, FLASH_SCALE, route="simple")
+            ctx.save_for_backward(q, k, v, o, l, m)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o, l, m = ctx.saved_tensors
+            di = fa.flash_di(o, do)
+            dk, dv = fa._launch_dkv(q, k, v, seg, seg, FLASH_SCALE, l, m, do, di, route="simple")
+            return fa._launch_dq(q, k, v, seg, seg, FLASH_SCALE, l, m, do, di), dk, dv
+    return FirstDesign.apply
+
+
+def flash_route_parts(args, o, l, m, do, paths, fwd_bwd):
+    """Each route's parts of the flash path timed three ways, the routes in
+    turn (forward order, then reverse; the means kept): on the host clock a
+    call with the card kept busy (:func:`host_ms`, the host's own cost), on
+    the card alone (:func:`device_ms`, hot) and as issued (:func:`time_ms`,
+    host gaps included).  Parts: the forward (``_launch_forward``), the
+    backward (route "wgmma": the rows kernel, K12, K13; "simple": ``flash_di``,
+    K12, K13), di (the rows kernel; ``flash_di``) and the forward + backward
+    through ``paths``' autograd functions."""
+    from colbert_tpu_torch.ops import flash_attention as fa
+
+    def backward(route):
+        def run():
+            if route == "wgmma":
+                di, inv_l = fa._launch_rows(o, do, l)
+            else:
+                di, inv_l = fa.flash_di(o, do), None
+            fa._launch_dkv(*args, l, m, do, di, route=route, inv_l=inv_l)
+            fa._launch_dq(*args, l, m, do, di)
+        return run
+    parts = {"forward": {r: (lambda r=r: fa._launch_forward(*args, route=r)) for r in fa.ROUTES},
+             "backward": {r: backward(r) for r in fa.ROUTES},
+             "di": {"wgmma": lambda: fa._launch_rows(o, do, l), "simple": lambda: fa.flash_di(o, do)},
+             "fwd_bwd": {r: fwd_bwd(paths[r]) for r in fa.ROUTES}}
+    out = {}
+    for clock, measure in (("host", host_ms), ("card", device_ms), ("issued", time_ms)):
+        got = {p: {r: [] for r in fa.ROUTES} for p in parts}
+        for order in (fa.ROUTES, fa.ROUTES[::-1]):
+            for p, fns in parts.items():
+                for r in order:
+                    got[p][r].append(measure(fns[r]))
+        out[clock] = {p: {r: sum(t) / len(t) for r, t in rs.items()} for p, rs in got.items()}
+    return out
+
+
 def flash_case(device, name, B, nh, lengths, seed, timed, label):
     """The path the model runs at (B, nh, 384, 64) bf16 in its layout (heads-major
     views of (B, L, nh, hd)): the public wrapper's forward (K11), then its
-    backward (di from K11's own o, K12 and K13 on K11's own l and m), and the
-    autograd function over them, against the plain forward and backward run the
-    same way; twice (bit-equal).  With ``timed``, each kernel's time cold and hot
-    beside its bound, and the plain versions, the port's explicit attention
-    and ``F.scaled_dot_product_attention``."""
+    backward (the rows kernel's di and 1 / l from K11's own o and l, K12 and
+    K13 on K11's own l and m), and the autograd function over them, against
+    the plain forward and backward run the same way; twice (bit-equal).  Then
+    K11 and K12 on each route ("wgmma", the wrapper's; "simple", the first
+    design) against the plain versions (K12 on the plain forward's l, m and
+    di), each twice (bit-equal), and the card's di against ``flash_di``
+    (within fp32 rounding) and its order emulated in torch (bit-equal).  With
+    ``timed``, each kernel's time on each route cold and hot beside its
+    bound; the rows kernel beside ``flash_di``; the plain versions, the port's
+    explicit attention, ``F.scaled_dot_product_attention`` (forward, forward
+    + backward, and its backward alone) and, by route, the forward, the
+    backward, di and the forward + backward through an autograd function
+    (route "simple": :func:`first_design_flash`) on the host clock, on the
+    card alone and as issued (:func:`flash_route_parts`)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2700,7 +2842,8 @@ def flash_case(device, name, B, nh, lengths, seed, timed, label):
     out = fa.flash_attention(*leaves, seg, seg, FLASH_SCALE)
     out.backward(do)
     ro, rl, rm = fa.flash_forward_ref(*args)
-    want = fa.flash_backward_ref(*args, rl, rm, do, fa.flash_di(ro, do))
+    rdi = fa.flash_di(ro, do)
+    want = fa.flash_backward_ref(*args, rl, rm, do, rdi)
     torch.cuda.synchronize()
     stable = all(torch.equal(a, b) for a, b in ((o, o2), (l, l2), (m, m2), (dq, dq2), (dk, dk2), (dv, dv2)))
     autograd_same = torch.equal(out, o) and all(torch.equal(t.grad, g) for t, g in zip(leaves, (dq, dk, dv)))
@@ -2722,24 +2865,69 @@ def flash_case(device, name, B, nh, lengths, seed, timed, label):
                                                      and torch.isfinite(dq.float()).all()):
         raise AssertionError(f"K11-K13 at {name}: bit-stable {stable}, autograd function equal {autograd_same}, "
                              f"beyond the limits: {bad} ({res})")
+
+    # ---- each route of K11 and K12 against the plain versions, twice ----
+    bargs = (*args, rl, rm, do, rdi)
+    res["routes"] = {}
+    for route in fa.ROUTES:
+        ro1, ro2 = fa._launch_forward(*args, route=route), fa._launch_forward(*args, route=route)
+        rk1, rk2 = fa._launch_dkv(*bargs, route=route), fa._launch_dkv(*bargs, route=route)
+        torch.cuda.synchronize()
+        r = {"bit_stable": all(torch.equal(a, b) for a, b in zip((*ro1, *rk1), (*ro2, *rk2)))}
+        for what, got, ref in (("o", ro1[0], ro), ("dk", rk1[0], want[1]), ("dv", rk1[1], want[2])):
+            r[what] = dict(zip(("head_ulps", "element_share", "max_abs_err"), fa.close_in_head_ulps(got, ref)))
+        r["l_max_rel_err"] = float(((ro1[1] - rl).abs() / rl).max())
+        r["m_max_abs_err"] = float((ro1[2] - rm).abs().max())
+        res["routes"][route] = r
+        log(f"[phase8a] {name} route {route}: K11, K12 bit-stable {r['bit_stable']}; against the plain versions "
+            + "; ".join(f"{w} {r[w]['head_ulps']:.2f} ulps of its head vector, {r[w]['element_share']:.2e} past 2 "
+                        f"own ulps, max|d| {r[w]['max_abs_err']:.3e}" for w in ("o", "dk", "dv"))
+            + f"; l rel {r['l_max_rel_err']:.2e}, m {r['m_max_abs_err']:.2e}")
+        off = [w for w in ("o", "dk", "dv") if r[w]["head_ulps"] > FLASH_HEAD_ULPS
+               or r[w]["element_share"] > FLASH_ELEMENT_SHARE]
+        if off or not r["bit_stable"] or r["l_max_rel_err"] > 1e-5 or r["m_max_abs_err"] > 1e-5:
+            raise AssertionError(f"K11/K12 route {route} at {name}: beyond the limits {off} ({r})")
+
+    # ---- the card's di and 1 / l ----
+    di_card, inv_l = fa._launch_rows(o, do, l)
+    torch.cuda.synchronize()
+    res["di"] = {"fp32_bound_share": di_within_fp32(di_card, o, do),
+                 "card_order_equal": bool(torch.equal(di_card, fa.flash_di_card_order(o, do))),
+                 "inv_l_equal": bool(torch.equal(inv_l, torch.ones_like(l) / l)),
+                 "max_abs_err": float((di_card - fa.flash_di(o, do)).abs().max())}
+    log(f"[phase8a] {name} the card's di: {res['di']['fp32_bound_share']:.3f} of the fp32 rounding bound from "
+        f"flash_di (max|d| {res['di']['max_abs_err']:.3e}), bit-equal to its order in torch "
+        f"{res['di']['card_order_equal']}; 1 / l bit-equal {res['di']['inv_l_equal']}")
+    if not (res["di"]["fp32_bound_share"] <= 1.0 and res["di"]["card_order_equal"] and res["di"]["inv_l_equal"]):
+        raise AssertionError(f"the rows kernel at {name}: {res['di']}")
     if not timed:
         return res
 
     # ---- times: CUDA events, hot (the same inputs) and cold (copies in turn past twice the L2) ----
-    di = fa.flash_di(o, do)
-    bargs = (*args, l, m, do, di)
+    bargs = (*args, l, m, do, di_card)
     set_bytes = 4 * q.numel() * 2
     n_copies = max(1, -(-4 * L2_BYTES // set_bytes))
     copies = [tuple(t.clone() for t in (q, k, v, do)) for _ in range(n_copies)]
-    hot, cold = {}, {}
-    hot["K11"] = time_ms(lambda: fa._launch_forward(*args))
-    cold["K11"] = time_ms(in_turn(lambda x, i: fa._launch_forward(x[0], x[1], x[2], seg, seg, FLASH_SCALE), copies))
-    hot["K12"] = time_ms(lambda: fa._launch_dkv(*bargs))
-    cold["K12"] = time_ms(in_turn(lambda x, i: fa._launch_dkv(x[0], x[1], x[2], seg, seg, FLASH_SCALE, l, m,
-                                                              x[3], di), copies))
-    hot["K13"] = time_ms(lambda: fa._launch_dq(*bargs))
-    cold["K13"] = time_ms(in_turn(lambda x, i: fa._launch_dq(x[0], x[1], x[2], seg, seg, FLASH_SCALE, l, m,
-                                                             x[3], di), copies))
+    outs = [tuple(t.clone() for t in (o, do)) for _ in range(n_copies)]
+    runs = {"hot": {}, "cold": {}}  # each time taken three times, the routes in turn; the medians kept
+
+    def timed(key, hot_fn, cold_fn, xs):
+        runs["hot"].setdefault(key, []).append(time_ms(hot_fn))
+        # every input set's outputs allocated before the clock starts
+        runs["cold"].setdefault(key, []).append(time_ms(in_turn(cold_fn, xs), warmup=len(xs) + 2))
+    for _ in range(3):
+        for route in fa.ROUTES:
+            tag = "" if route == "wgmma" else " simple"
+            timed("K11" + tag, lambda: fa._launch_forward(*args, route=route),
+                  lambda x, i: fa._launch_forward(x[0], x[1], x[2], seg, seg, FLASH_SCALE, route=route), copies)
+            timed("K12" + tag, lambda: fa._launch_dkv(*bargs, route=route, inv_l=inv_l),
+                  lambda x, i: fa._launch_dkv(x[0], x[1], x[2], seg, seg, FLASH_SCALE, l, m, x[3], di_card,
+                                              route=route, inv_l=inv_l), copies)
+        timed("K13", lambda: fa._launch_dq(*bargs),
+              lambda x, i: fa._launch_dq(x[0], x[1], x[2], seg, seg, FLASH_SCALE, l, m, x[3], di_card), copies)
+        timed("rows", lambda: fa._launch_rows(o, do, l), lambda x, i: fa._launch_rows(x[0], x[1], l), outs)
+        timed("flash_di", lambda: fa.flash_di(o, do), lambda x, i: fa.flash_di(x[0], x[1]), outs)
+    hot, cold = ({k: float(np.median(v)) for k, v in runs[kind].items()} for kind in ("hot", "cold"))
 
     def fwd_bwd(fn):
         def run():
@@ -2761,21 +2949,38 @@ def flash_case(device, name, B, nh, lengths, seed, timed, label):
         t_flash = time_ms(lambda: flash(q, k, v))
         t_sdpa = time_ms(lambda: sdpa(q, k, v))
         t_explicit = time_ms(lambda: explicit(q, k, v), iters=5, warmup=1)
-    t_flash_fb = time_ms(fwd_bwd(flash), iters=10, warmup=2)
+    first = first_design_flash(seg)
+    parts = flash_route_parts(args, o, l, m, do, {"wgmma": flash, "simple": first}, fwd_bwd)
+    t_flash_fb, t_flash_fb_simple = (parts["issued"]["fwd_bwd"][r] for r in ("wgmma", "simple"))
     t_sdpa_fb = time_ms(fwd_bwd(sdpa), iters=10, warmup=2)
+    t_sdpa_bwd, sdpa_backend, sdpa_tried = sdpa_backward_alone(q, k, v, mask, do)
     t_explicit_fb = time_ms(fwd_bwd(explicit), iters=5, warmup=1)
     bounds = flash_bounds(B, nh, L)
     res.update({"ms": cold, "hot_ms": hot, "bound": bounds, "plain_ms": t_plain, "plain_backward_ms": t_plain_bwd,
-                "flash_ms": t_flash, "flash_fwd_bwd_ms": t_flash_fb, "sdpa_ms": t_sdpa, "sdpa_fwd_bwd_ms": t_sdpa_fb,
-                "explicit_ms": t_explicit, "explicit_fwd_bwd_ms": t_explicit_fb, "cold_copies": n_copies})
+                "flash_ms": t_flash, "flash_fwd_bwd_ms": t_flash_fb, "flash_fwd_bwd_simple_ms": t_flash_fb_simple,
+                "route_parts_ms": parts,
+                "sdpa_ms": t_sdpa, "sdpa_fwd_bwd_ms": t_sdpa_fb, "sdpa_backward_ms": t_sdpa_bwd,
+                "sdpa_backward_backend": sdpa_backend, "sdpa_backward_tried": sdpa_tried,
+                "explicit_ms": t_explicit, "explicit_fwd_bwd_ms": t_explicit_fb, "cold_copies": n_copies,
+                "cold_runs_ms": runs["cold"]})
     for kname in ("K11", "K12", "K13"):
+        simple = (f"; route simple {cold[kname + ' simple']:.4f} cold, {hot[kname + ' simple']:.4f} hot"
+                  if kname + " simple" in cold else "")
         log(f"[phase8a] {name} {kname}: {cold[kname]:.4f} ms cold ({n_copies} input sets in turn), "
-            f"{hot[kname]:.4f} hot; bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]}) [{label}]")
+            f"{hot[kname]:.4f} hot{simple}; bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]}) [{label}]")
+    log(f"[phase8a] {name} di and 1 / l: rows kernel {cold['rows']:.4f} ms cold, {hot['rows']:.4f} hot; flash_di "
+        f"(fp32 copies) {cold['flash_di']:.4f} cold, {hot['flash_di']:.4f} hot [{label}]")
+    for clock, what in (("host", "on the host clock a call, the card kept busy"), ("card", "on the card alone, hot"),
+                        ("issued", "as issued, host gaps included")):
+        log(f"[phase8a] {name} by route, {what}: " + "; ".join(
+            f"{p} wgmma {parts[clock][p]['wgmma']:.4f} ms, simple {parts[clock][p]['simple']:.4f}"
+            for p in ("forward", "backward", "di", "fwd_bwd")) + f" [{label}]")
     log(f"[phase8a] {name} forward: flash (K11 through the autograd function) {t_flash:.4f} ms, plain version "
         f"{t_plain:.3f}, the port's explicit attention (fp32 logits, softmax, K9 at the probabilities, P.V) "
         f"{t_explicit:.3f}, F.scaled_dot_product_attention with the segment mask {t_sdpa:.4f} (a yardstick the "
-        f"port never calls); forward + backward: flash {t_flash_fb:.4f}, explicit {t_explicit_fb:.3f}, SDPA "
-        f"{t_sdpa_fb:.4f}; plain backward {t_plain_bwd:.3f} [{label}]")
+        f"port never calls); forward + backward: flash {t_flash_fb:.4f} (the first design's path, route simple "
+        f"and flash_di: {t_flash_fb_simple:.4f}), explicit {t_explicit_fb:.3f}, SDPA {t_sdpa_fb:.4f}; SDPA's backward alone "
+        f"{t_sdpa_bwd:.4f} ({sdpa_backend}; tried {sdpa_tried}); plain backward {t_plain_bwd:.3f} [{label}]")
     return res
 
 
@@ -2803,6 +3008,14 @@ def phase_flash_kernels(device, workdir: Path, label, seed=SEED, shapes=None):
 
 
 def flash_launches_ok(launches, want, what):
+    """K11-K13's launches as ``want`` says, K11 and K12 all on route "wgmma",
+    and the backward's rows kernel (di, 1 / l) once a K12 launch."""
+    want = dict(want)
+    for kname in ("K11", "K12"):
+        if kname in want:
+            want[f"{kname} wgmma route"], want[f"{kname} simple route"] = want[kname], 0
+    if "K12" in want:
+        want["flash rows"] = want["K12"]
     got = {kname: launches[kname] for kname in want}
     if got != want:
         raise AssertionError(f"{what}: flash launches {got}, expected {want}")
@@ -2937,13 +3150,19 @@ def phase_remat(device, label, train_ctx, steps=3):
         trainer._init_state(sampler.steps_per_epoch())
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
         losses, t0 = [], time.perf_counter()
         for gstep, batch in zip(range(steps), sampler.epoch(0)):
             losses.append(float(trainer.train_step(batch, gstep)))
         run_s = time.perf_counter() - t0
+        launches = read_counts()
         peak = torch.cuda.max_memory_allocated(device) / 1e9
         del trainer
         torch.cuda.empty_cache()
+        if impl == "flash":  # the doc pass: K11 once a layer and step, twice under "full" (the recompute)
+            n = base.model.num_layers * steps
+            flash_launches_ok(launches, {"K11": n * (2 if remat == "full" else 1), "K12": n, "K13": n},
+                              f"phase 8e's flash run with remat {remat}")
         return losses, peak, run_s
 
     out = {}
@@ -3150,7 +3369,7 @@ def main() -> int:
             "launches": flash_launches[kname], "max_abs_err": errs["retriever"], "ms": fk["ms"][kname],
             "plain_ms": fk["plain_ms"] if kname == "K11" else fk["plain_backward_ms"],
             "bound_ms": fk["bound"][kname][0], "bound_by": fk["bound"][kname][1],
-            "library_ms": fk["sdpa_ms"] if kname == "K11" else None,
+            "library_ms": fk["sdpa_ms"] if kname == "K11" else fk["sdpa_backward_ms"],
             "shape": fk["shape"], "hot_ms": fk["hot_ms"][kname], "max_abs_err_by_shape": errs,
             "head_ulps_by_shape": {s: r[what]["head_ulps"] for s, r in flash_kernels.items()},
             "ce": {key: flash_kernels["ce"][key][kname] for key in ("ms", "hot_ms")} | {
@@ -3159,12 +3378,37 @@ def main() -> int:
                 "bound_ms": flash_kernels["encode"]["bound"][kname][0]},
             "ce_launches": flash_ce["launches"][kname], "encode_launches": flash_encode["launches"][kname],
         })
+        timed_shapes = ("retriever", "ce", "encode")
+        if kname in ("K11", "K12"):
+            simple = f"{kname} simple"
+            kernels[-1].update({
+                "kernel_route": "wgmma", "route_launches": {
+                    r: flash_launches[f"{kname} {r} route"] for r in ("wgmma", "simple")},
+                "simple_design_ms": fk["ms"][simple], "simple_design_hot_ms": fk["hot_ms"][simple],
+                "route_head_ulps_by_shape": {s: {r: v[what]["head_ulps"] for r, v in flash_kernels[s]["routes"].items()}
+                                             for s in flash_kernels},
+                "simple_design_by_shape": {s: flash_kernels[s]["ms"][simple] for s in timed_shapes}})
+            kernels[-1]["ce"]["simple_design_ms"] = flash_kernels["ce"]["ms"][simple]
+            kernels[-1]["encode"]["simple_design_ms"] = flash_kernels["encode"]["ms"][simple]
         if kname == "K11":
-            kernels[-1].update({f"{key}_by_shape": {s: flash_kernels[s][key] for s in ("retriever", "ce", "encode")}
-                                for key in ("flash_fwd_bwd_ms", "sdpa_fwd_bwd_ms", "explicit_ms",
-                                            "explicit_fwd_bwd_ms", "plain_ms", "plain_backward_ms")})
-        else:  # no single library call computes dK/dV or dQ alone: SDPA's backward computes all three
-            kernels[-1]["yardstick_sdpa_fwd_bwd_ms"] = fk["sdpa_fwd_bwd_ms"]
+            kernels[-1].update({f"{key}_by_shape": {s: flash_kernels[s][key] for s in timed_shapes}
+                                for key in ("flash_fwd_bwd_ms", "flash_fwd_bwd_simple_ms", "route_parts_ms",
+                                            "sdpa_fwd_bwd_ms",
+                                            "sdpa_backward_ms", "explicit_ms", "explicit_fwd_bwd_ms", "plain_ms",
+                                            "plain_backward_ms")})
+        else:  # SDPA's backward alone computes dq, dk and dv together: the pair's yardstick
+            kernels[-1].update({"library_call": f"SDPA backward alone ({fk['sdpa_backward_backend']})",
+                                "library_ms_by_shape": {s: flash_kernels[s]["sdpa_backward_ms"] for s in timed_shapes},
+                                "yardstick_sdpa_fwd_bwd_ms": fk["sdpa_fwd_bwd_ms"]})
+        if kname == "K12":
+            kernels[-1]["di"] = {
+                "launches": flash_launches["flash rows"], "ms": fk["ms"]["rows"], "hot_ms": fk["hot_ms"]["rows"],
+                "flash_di_ms": fk["ms"]["flash_di"], "flash_di_hot_ms": fk["hot_ms"]["flash_di"],
+                "bound_ms": bound(0, 2 * fk["shape"][0] * fk["shape"][1] * 384 * 64 * 2
+                                  + 3 * fk["shape"][0] * fk["shape"][1] * 384 * 4, PEAK_BF16_FLOPS)[0],
+                "fp32_bound_share_by_shape": {s: r["di"]["fp32_bound_share"] for s, r in flash_kernels.items()},
+                "by_shape": {s: {"ms": flash_kernels[s]["ms"]["rows"], "flash_di_ms": flash_kernels[s]["ms"]["flash_di"]}
+                             for s in timed_shapes}}
     kernels[-3]["flash_train"] = {key: flash_train[key] for key in ("ms_step", "peak_gb", "losses")}
     kernels[-3]["flash_encode_docs_s"] = flash_encode["docs_s"]
     kernels[-3]["flash_ce"] = {key: flash_ce[key] for key in ("ms_step", "peak_gb")}

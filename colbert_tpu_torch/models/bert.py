@@ -122,6 +122,36 @@ class LayerNorm(nn.Module):
         return y.to(dtype)
 
 
+class _Lookup(torch.autograd.Function):
+    """``F.embedding(ids, weight)`` whose backward on the card runs under
+    deterministic algorithms: there the lookup's own backward sums the rows
+    of an id that a batch repeats in an order that varies from run to run
+    when the batch has few distinct ids (a token type, a small vocabulary),
+    so two steps on the same inputs could give two gradients."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.rows = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        if not grad.is_cuda or torch.are_deterministic_algorithms_enabled():
+            return None, torch.ops.aten.embedding_dense_backward(grad, ids, ctx.rows, -1, False)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            return None, torch.ops.aten.embedding_dense_backward(grad, ids, ctx.rows, -1, False)
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+
+def lookup(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(ids, weight)`` with a backward that gives the same bits every run."""
+    return _Lookup.apply(ids, weight)
+
+
 class BertEmbeddings(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -134,9 +164,9 @@ class BertEmbeddings(nn.Module):
     def forward(self, input_ids, token_type_ids, dtype: torch.dtype, generator=None) -> torch.Tensor:
         positions = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
         x = (
-            F.embedding(input_ids, self.word_embeddings.weight.to(dtype))
-            + F.embedding(positions, self.position_embeddings.weight.to(dtype))
-            + F.embedding(token_type_ids, self.token_type_embeddings.weight.to(dtype))
+            lookup(input_ids, self.word_embeddings.weight.to(dtype))
+            + F.embedding(positions, self.position_embeddings.weight.to(dtype))  # each row once: no repeats to sum
+            + lookup(token_type_ids, self.token_type_embeddings.weight.to(dtype))
         )
         return self.dropout(self.layernorm(x, dtype), self.dropout.seed(generator))
 

@@ -27,15 +27,21 @@ module keeps:
   dtype before the product), ``dq += ds . k``; dq, dk, dv rounded at the end.
 
 :func:`flash_attention` is a ``torch.autograd.Function``: for CPU tensors
-the plain versions (:func:`flash_forward_ref`, :func:`flash_backward_ref`,
-which keep the JAX kernels' order: 128-key blocks, running ``m`` and ``l``);
-for CUDA tensors the kernels of ``csrc/flash_attention.cu`` (forward K11,
-backward K12 then K13; no atomics, so every run gives the same bits), each
-counted in its ``LaunchCounter`` (:data:`fwd_launches`, :data:`dkv_launches`,
-:data:`dq_launches`), or ``NotImplementedError`` for a shape or
-dtype they do not take (:func:`kernel_refusal`).  Outputs and gradients
-are (B, nh, L, hd) views of (B, L, nh, hd) buffers, the layout the model's
-heads come from, so its reshapes copy nothing.
+the plain versions (:func:`flash_forward_ref`, :func:`flash_backward_ref`
+on :func:`flash_di`, which keep the JAX kernels' order: 128-key blocks,
+running ``m`` and ``l``); for CUDA tensors the kernels of
+``csrc/flash_attention.cu``: forward K11; backward the rows kernel (di read
+once from o and do in their dtype, summed in fp32 in
+:func:`flash_di_card_order`'s order, and 1 / l), then K12, then K13 (no
+atomics, so every run gives the same bits).  K11 and K12 have two routes
+(:data:`ROUTES`): "wgmma", the default for every input they take, and the
+first design, "simple", only when a caller asks for it; K13 has one.  Each launch is counted in its ``LaunchCounter``
+(:data:`fwd_launches`, :data:`dkv_launches`, :data:`dq_launches`,
+:data:`rows_launches`, and by route :data:`fwd_route_launches`,
+:data:`dkv_route_launches`); a shape or dtype they do not take raises
+``NotImplementedError`` (:func:`kernel_refusal`), and a failed launch raises.
+Outputs and gradients are (B, nh, L, hd) views of (B, L, nh, hd) buffers,
+the layout the model's heads come from, so its reshapes copy nothing.
 """
 
 from __future__ import annotations
@@ -96,6 +102,20 @@ def flash_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (o.float() * do.float()).sum(-1)
 
 
+def flash_di_card_order(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """:func:`flash_di` in the order the card's rows kernel sums it: each
+    16-byte chunk (8 elements) of a row in order from 0, then the 8 chunk sums
+    pairwise at distance 4, 2, 1 (its lanes' shuffles).  The products of two
+    bf16 or fp16 values are exact in fp32, so only the order rounds."""
+    x = (o.float() * do.float()).unflatten(-1, (-1, 8))
+    c = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    for e in range(8):
+        c = c + x[..., e]
+    a = c[..., :4] + c[..., 4:]
+    b = a[..., :2] + a[..., 2:]
+    return b[..., 0] + b[..., 1]
+
+
 def flash_backward_ref(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di):
     """(dq, dk, dv) like q, k, v: the JAX dK/dV and dQ kernels' arithmetic,
     the products summed by 128 x 128 blocks as they sum them."""
@@ -143,7 +163,11 @@ def close_in_head_ulps(got: torch.Tensor, want: torch.Tensor) -> Tuple[float, fl
 
 _lib_lock = threading.Lock()
 _VIEW = ctypes.c_longlong * 3
-_resolved = None  # (forward, dK/dV, dQ) C functions, see _fns
+_resolved = None  # (forward, dK/dV, dQ, rows) C functions, see _fns
+#: K11's and K12's routes: "wgmma" (every shape the kernels take) and the
+#: first design, "simple", on request only; K13 has one
+ROUTES = ("wgmma", "simple")
+_ROUTE_CODES = {"simple": 0, "wgmma": 1}
 
 
 def kernel_refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Optional[str]:
@@ -165,25 +189,33 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = load_library("flash_attention")
     with _lib_lock:
         if lib.flash_fwd_launch.argtypes is None:
-            ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.flash_head_dim.argtypes, lib.flash_head_dim.restype = [], i
-            if lib.flash_head_dim() != HEAD_DIM:
-                raise RuntimeError("csrc/flash_attention.cu disagrees with ops/flash_attention.py")
-            tail = [i, i, i, i, f, i, i, ptr]  # B, nh, Lq, Lk, sm_scale, dtype, device, stream
-            lib.flash_fwd_launch.argtypes = [ptr] * 8 + [_VIEW] * 4 + tail
-            lib.flash_bwd_dkv_launch.argtypes = [ptr] * 11 + [_VIEW] * 6 + tail
-            lib.flash_bwd_dq_launch.argtypes = [ptr] * 10 + [_VIEW] * 5 + tail
-            for fn in (lib.flash_fwd_launch, lib.flash_bwd_dkv_launch, lib.flash_bwd_dq_launch):
-                fn.restype = i
+            bind(lib)
     return lib
 
 
+def bind(lib: ctypes.CDLL) -> None:
+    """Set the C entry points' argtypes on a library built from ``csrc/flash_attention.cu``."""
+    ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_head_dim.argtypes, lib.flash_head_dim.restype = [], i
+    if lib.flash_head_dim() != HEAD_DIM:
+        raise RuntimeError("csrc/flash_attention.cu disagrees with ops/flash_attention.py")
+    tail = [i, i, i, i, f, i, i, ptr]  # B, nh, Lq, Lk, sm_scale, dtype, device, stream
+    routed = tail[:6] + [i] + tail[6:]  # ..., dtype, route, device, stream
+    lib.flash_fwd_launch.argtypes = [ptr] * 8 + [_VIEW] * 4 + routed
+    lib.flash_bwd_dkv_launch.argtypes = [ptr] * 12 + [_VIEW] * 6 + routed
+    lib.flash_bwd_dq_launch.argtypes = [ptr] * 10 + [_VIEW] * 5 + tail
+    lib.flash_bwd_rows_launch.argtypes = [ptr] * 5 + [_VIEW] * 2 + [i, i, i, i, i, ptr]
+    for fn in (lib.flash_fwd_launch, lib.flash_bwd_dkv_launch, lib.flash_bwd_dq_launch, lib.flash_bwd_rows_launch):
+        fn.restype = i
+
+
 def _fns():
-    """The three C entry points with their argtypes, resolved at first use."""
+    """The four C entry points with their argtypes, resolved at first use."""
     global _resolved
     if _resolved is None:
         lib = _kernel_lib()
-        _resolved = (lib.flash_fwd_launch, lib.flash_bwd_dkv_launch, lib.flash_bwd_dq_launch)
+        _resolved = (lib.flash_fwd_launch, lib.flash_bwd_dkv_launch, lib.flash_bwd_dq_launch,
+                     lib.flash_bwd_rows_launch)
     return _resolved
 
 
@@ -226,7 +258,7 @@ def _device_stream(t: torch.Tensor) -> Tuple[int, int]:
     return dev, torch._C._cuda_getCurrentRawStream(dev)
 
 
-def _launch_forward(q, k, v, q_seg, kv_seg, sm_scale: float):
+def _launch_forward(q, k, v, q_seg, kv_seg, sm_scale: float, route: str = "wgmma"):
     """K11: (o, l, m), o a (B, nh, Lq, hd) view of a (B, Lq, nh, hd) buffer."""
     launch = _fns()[0]
     q, k, v = (_kernel_input(t) for t in (q, k, v))
@@ -238,32 +270,60 @@ def _launch_forward(q, k, v, q_seg, kv_seg, sm_scale: float):
     m = torch.empty_like(l)
     err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(),
                  l.data_ptr(), m.data_ptr(), _view(q), _view(k), _view(v), _view(o), B, nh, Lq, Lk, sm_scale,
-                 _DTYPES[q.dtype], *_device_stream(q))
+                 _DTYPES[q.dtype], _ROUTE_CODES[route], *_device_stream(q))
     _check(err, "forward", q)
     fwd_launches.add()
+    fwd_route_launches[route].add()
     return o, l, m
+
+
+def _rows_input(t: torch.Tensor) -> torch.Tensor:
+    """A (B, nh, L) fp32 row input (l, m, di, 1 / l) contiguous and 16-byte aligned."""
+    t = t.float().contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _backward_inputs(q, k, v, q_seg, kv_seg, l, m, do, di):
     q, k, v, do = (_kernel_input(t) for t in (q, k, v, do))
     q_seg, kv_seg = _segments(q_seg, kv_seg, q.device)
-    l, m, di = (t.float().contiguous() for t in (l, m, di))
+    l, m, di = (_rows_input(t) for t in (l, m, di))
     return q, k, v, q_seg, kv_seg, l, m, do, di
 
 
-def _launch_dkv(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di):
-    """K12: (dk, dv), (B, nh, Lk, hd) views of (B, Lk, nh, hd) buffers."""
+def _launch_rows(o, do, l):
+    """(di, 1 / l), (B, nh, L) fp32, on the card: di from o and do read once
+    in their dtype (:func:`flash_di_card_order`'s order), 1 / l once a row."""
+    launch = _fns()[3]
+    o, do = _kernel_input(o), _kernel_input(do)
+    l = _rows_input(l)
+    B, nh, L, _ = o.shape
+    di, inv_l = torch.empty_like(l), torch.empty_like(l)
+    err = launch(o.data_ptr(), do.data_ptr(), l.data_ptr(), di.data_ptr(), inv_l.data_ptr(), _view(o), _view(do),
+                 B, nh, L, _DTYPES[o.dtype], *_device_stream(o))
+    _check(err, "di", o)
+    rows_launches.add()
+    return di, inv_l
+
+
+def _launch_dkv(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di, route: str = "wgmma",
+                inv_l: Optional[torch.Tensor] = None):
+    """K12: (dk, dv), (B, nh, Lk, hd) views of (B, Lk, nh, hd) buffers.
+    Route "wgmma" reads ``inv_l`` (1 / l, as :func:`_launch_rows` gives it;
+    None: ``1 / l`` here)."""
     launch = _fns()[1]
     q, k, v, q_seg, kv_seg, l, m, do, di = _backward_inputs(q, k, v, q_seg, kv_seg, l, m, do, di)
+    if route == "wgmma":
+        inv_l = _rows_input(torch.ones_like(l) / l if inv_l is None else inv_l)
     B, nh, Lq, hd = q.shape
     Lk = k.shape[2]
     dk, dv = _heads_major(B, nh, Lk, hd, k), _heads_major(B, nh, Lk, hd, v)
     err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(), l.data_ptr(),
-                 m.data_ptr(), do.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), _view(q), _view(k),
-                 _view(v), _view(do), _view(dk), _view(dv), B, nh, Lq, Lk, sm_scale, _DTYPES[q.dtype],
-                 *_device_stream(q))
+                 inv_l.data_ptr() if route == "wgmma" else None, m.data_ptr(), do.data_ptr(), di.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), _view(q), _view(k), _view(v), _view(do), _view(dk), _view(dv), B, nh,
+                 Lq, Lk, sm_scale, _DTYPES[q.dtype], _ROUTE_CODES[route], *_device_stream(q))
     _check(err, "dK/dV", q)
     dkv_launches.add()
+    dkv_route_launches[route].add()
     return dk, dv
 
 
@@ -304,12 +364,13 @@ def flash_forward(q, k, v, q_seg, kv_seg, sm_scale: float):
 
 
 def flash_backward(q, k, v, q_seg, kv_seg, sm_scale: float, o, l, m, do):
-    """(dq, dk, dv): K12 and K13 for CUDA tensors, :func:`flash_backward_ref` for CPU tensors."""
-    di = flash_di(o, do)
+    """(dq, dk, dv): di and 1 / l, K12 and K13 for CUDA tensors;
+    :func:`flash_di` and :func:`flash_backward_ref` for CPU tensors."""
     if _on_cpu(q, k, v):
-        return flash_backward_ref(q, k, v, q_seg, kv_seg, sm_scale, l, m, do, di)
+        return flash_backward_ref(q, k, v, q_seg, kv_seg, sm_scale, l, m, do, flash_di(o, do))
     _refuse(q, k, v)
-    dk, dv = _launch_dkv(q, k, v, q_seg, kv_seg, sm_scale, l, m, do, di)
+    di, inv_l = _launch_rows(o, do, l)
+    dk, dv = _launch_dkv(q, k, v, q_seg, kv_seg, sm_scale, l, m, do, di, inv_l=inv_l)
     return _launch_dq(q, k, v, q_seg, kv_seg, sm_scale, l, m, do, di), dk, dv
 
 
@@ -341,3 +402,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_segment
 fwd_launches = LaunchCounter()
 dkv_launches = LaunchCounter()
 dq_launches = LaunchCounter()
+#: K11's and K12's launches by route
+fwd_route_launches = {r: LaunchCounter() for r in ROUTES}
+dkv_route_launches = {r: LaunchCounter() for r in ROUTES}
+#: launches of the backward's rows kernel (di and 1 / l)
+rows_launches = LaunchCounter()

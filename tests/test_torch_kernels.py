@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the flat scan (K1, K2), all-pairs MaxSim (K3, both routes), dropout (K9, both routes), flash
-attention (K11 forward, K12 dK/dV, K13 dQ, and their launches a train and a CE step), the rerank
+attention (K11 forward and K12 dK/dV on both routes, K13 dQ, the backward's rows kernel, and their
+launches a train and a CE step), the rerank
 (K4 bf16, K5 int8, on both routes, its pid-window schedule's edges and its
 freedom from host synchronisation), the sq list scans (K6 slots and K7 hot
 lists, each on both routes; K6's work list's edges, K7's member-token
@@ -1014,38 +1015,46 @@ def test_token_probe_never_synchronises(cuda_device):
 
 # (B, nh, L, dtype, layout): the retriever's doc pass, the CE's pairs and the
 # encode batch in the models' layout (heads-major views of (B, L, nh, hd));
-# small contiguous cases at L 128 (the JAX kernel's single block) and 256, fp16
+# small contiguous cases at L 128 (the JAX kernel's single block) and 256, fp16;
+# "unseen": the models' layout with query segment ids that no key has (those
+# rows attend to no key: the JAX result, a mean over the masked keys)
+@pytest.mark.parametrize("route", ["wgmma", "simple"])
 @pytest.mark.parametrize("B,nh,L,dtype,layout", [
     (68, 12, 384, torch.bfloat16, "heads"),
     (20, 16, 384, torch.bfloat16, "heads"),
     (384, 12, 384, torch.bfloat16, "heads"),
     (3, 2, 128, torch.bfloat16, "contiguous"),
     (5, 4, 256, torch.float16, "contiguous"),
+    (6, 4, 384, torch.bfloat16, "unseen"),
 ])
-def test_flash_kernels_match_plain(cuda_device, B, nh, L, dtype, layout):
-    """K11, K12 and K13 against the plain versions on the same inputs (the
-    backward on the plain forward's l, m and di), within 2 bf16 ulps of each
-    element's head vector and at most 1e-3 of the elements past 2 ulps of
-    their own magnitude; two runs bit-equal; the autograd function equal to
-    the launches."""
+def test_flash_kernels_match_plain(cuda_device, B, nh, L, dtype, layout, route):
+    """K11 and K12 on ``route``, and K13, against the plain versions on the
+    same inputs (the backward on the plain forward's l, m and di), within 2
+    bf16 ulps of each element's head vector and at most 1e-3 of the elements
+    past 2 ulps of their own magnitude; two runs bit-equal; on the route the
+    wrapper takes, the autograd function equal to the launches (its backward
+    on the rows kernel's di and 1 / l)."""
     from colbert_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(cuda_device).manual_seed(B * L + nh)
 
     def t():
-        if layout == "heads":
+        if layout in ("heads", "unseen"):
             return torch.randn((B, L, nh, 64), generator=g, device=cuda_device).to(dtype).transpose(1, 2)
         return torch.randn((B, nh, L, 64), generator=g, device=cuda_device).to(dtype)
     q, k, v, do = t(), t(), t(), t()
     lengths = torch.randint(1, L + 1, (B,), generator=g, device=cuda_device)
     lengths[0] = L
     seg = (torch.arange(L, device=cuda_device)[None, :] < lengths[:, None]).to(torch.int32)
-    args = (q, k, v, seg, seg, 0.125)
-    o, l, m = fa._launch_forward(*args)
+    q_seg, kv_seg = seg, seg
+    if layout == "unseen":  # every third query of each row in segment 2, which no key has
+        q_seg = torch.where(torch.arange(L, device=cuda_device)[None, :] % 3 == 1, 2, seg).to(torch.int32)
+    args = (q, k, v, q_seg, kv_seg, 0.125)
+    o, l, m = fa._launch_forward(*args, route=route)
     ro, rl, rm = fa.flash_forward_ref(*args)
     di = fa.flash_di(ro, do)
     bargs = (*args, rl, rm, do, di)
-    dk, dv = fa._launch_dkv(*bargs)
+    dk, dv = fa._launch_dkv(*bargs, route=route)
     dq = fa._launch_dq(*bargs)
     want = fa.flash_backward_ref(*bargs)
     torch.cuda.synchronize()
@@ -1054,18 +1063,43 @@ def test_flash_kernels_match_plain(cuda_device, B, nh, L, dtype, layout):
         assert head_ulps <= 2 and share <= 1e-3, (what, head_ulps, share)
     torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
     torch.testing.assert_close(m, rm, rtol=0, atol=1e-5)
-    o2, l2, m2 = fa._launch_forward(*args)
-    dk2, dv2 = fa._launch_dkv(*bargs)
+    o2, l2, m2 = fa._launch_forward(*args, route=route)
+    dk2, dv2 = fa._launch_dkv(*bargs, route=route)
     assert torch.equal(o, o2) and torch.equal(l, l2) and torch.equal(m, m2)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2) and torch.equal(dq, fa._launch_dq(*bargs))
+    if route != "wgmma":  # the autograd function runs the default route
+        return
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-    out = fa.flash_attention(*leaves, seg, seg, 0.125)
+    out = fa.flash_attention(*leaves, q_seg, kv_seg, 0.125)
     out.backward(do)
-    own = (q, k, v, seg, seg, 0.125, l, m, do, fa.flash_di(o, do))
-    dkf, dvf = fa._launch_dkv(*own)
+    di_card, inv_l = fa._launch_rows(o, do, l)
+    own = (q, k, v, q_seg, kv_seg, 0.125, l, m, do, di_card)
+    dkf, dvf = fa._launch_dkv(*own, inv_l=inv_l)
     assert torch.equal(out, o)
     assert torch.equal(leaves[0].grad, fa._launch_dq(*own))
     assert torch.equal(leaves[1].grad, dkf) and torch.equal(leaves[2].grad, dvf)
+
+
+@pytest.mark.parametrize("B,nh,L,dtype", [(68, 12, 384, torch.bfloat16), (5, 4, 256, torch.float16)])
+def test_flash_rows_kernel(cuda_device, B, nh, L, dtype):
+    """The backward's rows kernel: di bit-equal to its order emulated in
+    torch and within fp32 rounding of ``flash_di`` (2 * 64 * 2^-24 * sum |o *
+    do| a row), 1 / l bit-equal to the division in torch; read in the models'
+    layout."""
+    from colbert_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(cuda_device).manual_seed(L + B)
+    o, do = (torch.randn((B, L, nh, 64), generator=g, device=cuda_device).to(dtype).transpose(1, 2)
+             for _ in range(2))
+    l = torch.rand((B, nh, L), generator=g, device=cuda_device) * 100 + 1
+    before = fa.rows_launches.value
+    di, inv_l = fa._launch_rows(o, do, l)
+    torch.cuda.synchronize()
+    assert fa.rows_launches.value == before + 1
+    assert torch.equal(di, fa.flash_di_card_order(o, do))
+    bound = 2 * 64 * 2.0**-24 * (o.float() * do.float()).abs().sum(-1)
+    assert bool(((di - fa.flash_di(o, do)).abs() <= bound).all())
+    assert torch.equal(inv_l, torch.ones_like(l) / l)
 
 
 def test_flash_refuses_what_it_does_not_take(cuda_device):
@@ -1099,7 +1133,8 @@ def test_flash_launches_per_train_step(cuda_device, num_layers, remat):
     g = torch.Generator().manual_seed(1)
     d_ids, q_ids = torch.randint(1, 128, (6, 128), generator=g), torch.randint(1, 128, (2, 32), generator=g)
     d_attn = (torch.arange(128)[None, :] < torch.tensor([128, 100, 60, 129 - 1, 33, 5])[:, None]).long()
-    counters = (fa.fwd_launches, fa.dkv_launches, fa.dq_launches, dr.hw_dropout.launches)
+    counters = (fa.fwd_launches, fa.dkv_launches, fa.dq_launches, dr.hw_dropout.launches,
+                fa.fwd_route_launches["wgmma"], fa.dkv_route_launches["wgmma"], fa.rows_launches)
     before = [c.value for c in counters]
     D = m.doc(d_ids.to(cuda_device), d_attn.to(cuda_device), generator=torch.Generator().manual_seed(2))
     Q = m.query(q_ids.to(cuda_device), torch.ones_like(q_ids).to(cuda_device), generator=torch.Generator().manual_seed(3))
@@ -1109,7 +1144,46 @@ def test_flash_launches_per_train_step(cuda_device, num_layers, remat):
     # K9: two passes, forward and backward, at 1 + 3 sites a layer; "full"
     # runs each layer's three sites again in the recompute
     k9 = 2 * 2 * (1 + 3 * num_layers) + (2 * 3 * num_layers if remat == "full" else 0)
-    assert got == [num_layers * (2 if remat == "full" else 1), num_layers, num_layers, k9]
+    k11 = num_layers * (2 if remat == "full" else 1)
+    assert got == [k11, num_layers, num_layers, k9, k11, num_layers, num_layers]  # K11, K12 on "wgmma"
+
+
+@pytest.mark.parametrize("attention_impl", ["xla", "flash"])
+def test_train_step_gradients_bit_equal(cuda_device, attention_impl):
+    """A retriever step's forward and backward three times on the same inputs
+    gives every gradient the same bits (what resume and remat rely on): one
+    layer at BERT-base width, docs of 384 tokens at a batch of 68 (26,112
+    ids, every token type 0) from a 128-word vocabulary, so every id repeats;
+    queries of 32 padded with one id; explicit and flash attention.  With
+    ``F.embedding`` in place of the model's ``lookup`` this failed: its
+    backward on the card summed the ~200 rows of each word id in an order
+    that varied from run to run."""
+    from colbert_tpu_torch.config import ModelConfig, MultiviewConfig
+    from colbert_tpu_torch.models.colbert import ColbertModel
+    from colbert_tpu_torch.ops.dropout import same_bits
+
+    cfg = ModelConfig(vocab_size=128, hidden_size=768, num_layers=1, num_heads=12, intermediate_size=3072,
+                      max_position_embeddings=384, dim=128, dtype="bfloat16", attention_impl=attention_impl)
+    m = ColbertModel(cfg, MultiviewConfig())
+    m.init_weights(torch.Generator().manual_seed(0))
+    m = m.to(cuda_device).train()
+    g = torch.Generator().manual_seed(1)
+    d_ids, q_ids = torch.randint(1, 128, (68, 384), generator=g), torch.randint(1, 128, (34, 32), generator=g)
+    d_attn = (torch.arange(384)[None, :] < torch.randint(16, 385, (68, 1), generator=g)).long()
+    q_ids[:, 12:] = 4  # the padding id
+    d_ids, q_ids, d_attn = d_ids.to(cuda_device), q_ids.to(cuda_device), d_attn.to(cuda_device)
+
+    def grads():
+        m.zero_grad(set_to_none=True)
+        D = m.doc(d_ids, d_attn, generator=torch.Generator().manual_seed(2))
+        Q = m.query(q_ids, torch.ones_like(q_ids), generator=torch.Generator().manual_seed(3))
+        torch.einsum("qmh,dnh->qd", Q.float(), D.float()).logsumexp(-1).sum().backward()
+        return {k: p.grad.clone() for k, p in m.named_parameters() if p.grad is not None}
+    first = grads()
+    assert len(first) == len(list(m.parameters()))
+    for _ in range(2):
+        again = grads()
+        assert [k for k in first if not same_bits(first[k], again[k])] == []
 
 
 def test_flash_launches_per_ce_step(cuda_device, tmp_path):

@@ -167,3 +167,25 @@ def test_attention_softmax_rounds_as_flax(softmax_dtype):
     err = np.abs(got - want)
     assert (err <= np.abs(want) * 2.0**-8).all()
     assert err.mean() < np.abs(got - want_other).mean() / 10
+
+
+@pytest.mark.parametrize("rows,dtype", [(2, torch.bfloat16), (300, torch.float32)])
+def test_lookup_is_the_embedding(rows, dtype):
+    """``models.bert.lookup``, which the embeddings take for word ids and
+    token types: ``F.embedding``'s values and, on CPU tensors, its gradient
+    bit for bit, ids repeated many times; the deterministic-algorithms
+    setting left as it was."""
+    from colbert_tpu_torch.models.bert import lookup
+
+    g = torch.Generator().manual_seed(rows)
+    ids = torch.randint(0, min(rows, 7), (6, 40), generator=g)
+    w = torch.randn((rows, 16), generator=g).to(dtype)
+    up = torch.randn((6, 40, 16), generator=g).to(dtype)
+    a, b = w.clone().requires_grad_(), w.clone().requires_grad_()
+    before = torch.are_deterministic_algorithms_enabled()
+    out = lookup(ids, a)
+    out.backward(up)
+    want = torch.nn.functional.embedding(ids, b)
+    want.backward(up)
+    assert torch.equal(out, want) and torch.equal(a.grad, b.grad)
+    assert torch.are_deterministic_algorithms_enabled() == before
