@@ -67,7 +67,11 @@ seed:
   Every loss must be finite, the resumed step's loss equal the straight
   run's, K9 launch (1 + 3 layers) x 2 passes x 2 (forward, backward) times
   per step, every launch on route "packed", and K3 once per eval batch,
-  every K3 launch on route "tf32".
+  every K3 launch on route "tf32".  Then the full-depth repeat check: one
+  train step's forward and backward at phase 4's configuration (12 layers,
+  explicit attention) three times on the same batch and parameters, every
+  gradient and the loss bit-equal (the lookup's backward included: no
+  process-wide deterministic flag).
 * phase 5, ANN serving with the sq codec at the JAX package's sq cell
   (nprobe 128, candidate depth 512, 8 rows per (token, list), 128 hot
   lists, 4,096 candidates, top-100):
@@ -184,9 +188,9 @@ seed:
   (its row's largest magnitude, floored at 2^-10 of the tensor's largest
   entry) and at most 1e-3 of the elements beyond 2 ulps of their own
   magnitude (a p or ds that rounds the other way at a bf16 boundary moves
-  its row by ~2^-8 of one term); two runs bit-equal; the same of K11 and
-  K12 on each route ("wgmma", every call's; "simple", the first design, on
-  request), and the backward's rows kernel: di bit-equal to its order in
+  its row by ~2^-8 of one term); two runs bit-equal; the same of K11, K12
+  and K13 on each route ("wgmma", every call's; "simple", the first design,
+  on request), and the backward's rows kernel: di bit-equal to its order in
   torch and within fp32 rounding of ``flash_di``, 1 / l bit-equal.  At the
   first three shapes each kernel (each route) timed cold (input sets in
   turn past the L2) and hot, three times in turn (the medians kept), beside
@@ -205,8 +209,8 @@ seed:
   steps, evaluations at steps 2 and 4, then ``--resume`` from step 4: the
   resumed loss bit-equal, K11 12 launches a step and 12 a layer per eval
   batch, K12 and K13 12 a step, K9 as phase 4, K3 on "tf32"; ms/step and
-  peak memory beside phase 4's.  Here and in (c)-(e) every K11 and K12
-  launch on route "wgmma" and the rows kernel once a K12 launch;
+  peak memory beside phase 4's.  Here and in (c)-(e) every K11, K12 and
+  K13 launch on route "wgmma" and the rows kernel once a K12 launch;
   (c) after phase 7: ``encode`` with flash over phase 2's corpus (K11 once
   a layer an encode batch), one ``serve`` request of 144 questions at
   top-100 over that table, checked as phase 2's answers; docs/s beside
@@ -285,6 +289,7 @@ def counters():
             "K9 packed route": dr.route_launches["packed"], "K9 simple route": dr.route_launches["simple"],
             "K11 wgmma route": fa.fwd_route_launches["wgmma"], "K11 simple route": fa.fwd_route_launches["simple"],
             "K12 wgmma route": fa.dkv_route_launches["wgmma"], "K12 simple route": fa.dkv_route_launches["simple"],
+            "K13 wgmma route": fa.dq_route_launches["wgmma"], "K13 simple route": fa.dq_route_launches["simple"],
             "flash rows": fa.rows_launches}
 
 
@@ -1222,6 +1227,48 @@ def phase_train(device, workdir: Path, label: str, model_kw=None, tok_kw=None, b
     if not all(torch.isfinite(v).all() for v in sd.values()):
         raise AssertionError("checkpoint parameters are not finite")
     return launches, {"ms_step": ms_step, "losses": losses, "peak_gb": peak_gb, "cfg": cfg, "train_path": train_path}
+
+
+def phase_repeat(device, label, train_ctx, repeats=3):
+    """Phase 4's full-depth repeat check: one train step's forward and backward
+    (the library's ``compute_grads``, phase 4's configuration and first batch,
+    explicit attention, no remat) ``repeats`` times on the same batch and
+    parameters: the loss and every gradient bit-equal to the first run's."""
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.config import ColbertConfig
+    from colbert_tpu_torch.ops.dropout import same_bits
+    from colbert_tpu_torch.training import ColbertTrainer, RetrievalDataset
+    from colbert_tpu_torch.training.dataset import RetrievalSampler
+
+    cfg = ColbertConfig.from_dict(train_ctx["cfg"].to_dict())
+    tok = cli._tokenizer(cfg)
+    trainer = ColbertTrainer(cfg, tok, device=device)
+    sampler = RetrievalSampler(RetrievalDataset.from_json(train_ctx["train_path"]), tok, cfg.train,
+                               cfg.train.per_device_batch_size, is_eval=False)
+    trainer._init_state(sampler.steps_per_epoch())
+    batch = next(iter(sampler.epoch(0)))
+    runs = []
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        loss = float(trainer.compute_grads(batch, 0))
+        runs.append((loss, {k: p.grad.clone() for k, p in trainer.model.named_parameters() if p.grad is not None}))
+    run_s = time.perf_counter() - t0
+    losses = [r[0] for r in runs]
+    grads = runs[0][1]
+    differ = sorted({k for _, g in runs[1:] for k in grads if not same_bits(grads[k], g[k])})
+    n_params = sum(1 for _ in trainer.model.parameters())
+    log(f"[phase4] full-depth repeat check: {cfg.model.num_layers} layers, attention {cfg.model.attention_impl}, "
+        f"{repeats} runs of one step's forward and backward on one batch in {run_s:.2f} s: losses {losses}; "
+        f"{len(grads)} of {n_params} parameters with a gradient, {len(differ)} not bit-equal to the first run's "
+        f"{differ[:12]} [{label}]")
+    del trainer
+    torch.cuda.empty_cache()
+    if len(set(losses)) != 1 or differ or len(grads) != n_params:
+        raise AssertionError(f"full-depth repeat check: losses {losses}, gradients that differ {differ}, "
+                             f"{len(grads)} of {n_params} with a gradient")
+    return {"losses": losses, "differ": differ, "parameters": len(grads), "s": run_s}
 
 
 # ---- phase 5: ANN serving with the sq codec ----
@@ -2742,8 +2789,8 @@ def sdpa_backward_alone(q, k, v, mask, do):
 
 def first_design_flash(seg):
     """The attention as the first design ran it, through an autograd function
-    of the same form as ``flash_attention``: K11 and K12 on route "simple",
-    di by ``flash_di`` (fp32 copies), K13; the yardstick of the autograd
+    of the same form as ``flash_attention``: K11, K12 and K13 on route
+    "simple", di by ``flash_di`` (fp32 copies); the yardstick of the autograd
     function's forward + backward.  Takes (q, k, v); ``seg`` both sides' ids."""
     import torch
 
@@ -2761,7 +2808,7 @@ def first_design_flash(seg):
             q, k, v, o, l, m = ctx.saved_tensors
             di = fa.flash_di(o, do)
             dk, dv = fa._launch_dkv(q, k, v, seg, seg, FLASH_SCALE, l, m, do, di, route="simple")
-            return fa._launch_dq(q, k, v, seg, seg, FLASH_SCALE, l, m, do, di), dk, dv
+            return fa._launch_dq(q, k, v, seg, seg, FLASH_SCALE, l, m, do, di, route="simple"), dk, dv
     return FirstDesign.apply
 
 
@@ -2772,7 +2819,7 @@ def flash_route_parts(args, o, l, m, do, paths, fwd_bwd):
     the card alone (:func:`device_ms`, hot) and as issued (:func:`time_ms`,
     host gaps included).  Parts: the forward (``_launch_forward``), the
     backward (route "wgmma": the rows kernel, K12, K13; "simple": ``flash_di``,
-    K12, K13), di (the rows kernel; ``flash_di``) and the forward + backward
+    K12, K13 on "simple"), di (the rows kernel; ``flash_di``) and the forward + backward
     through ``paths``' autograd functions."""
     from colbert_tpu_torch.ops import flash_attention as fa
 
@@ -2783,7 +2830,7 @@ def flash_route_parts(args, o, l, m, do, paths, fwd_bwd):
             else:
                 di, inv_l = fa.flash_di(o, do), None
             fa._launch_dkv(*args, l, m, do, di, route=route, inv_l=inv_l)
-            fa._launch_dq(*args, l, m, do, di)
+            fa._launch_dq(*args, l, m, do, di, route=route, inv_l=inv_l)
         return run
     parts = {"forward": {r: (lambda r=r: fa._launch_forward(*args, route=r)) for r in fa.ROUTES},
              "backward": {r: backward(r) for r in fa.ROUTES},
@@ -2806,9 +2853,9 @@ def flash_case(device, name, B, nh, lengths, seed, timed, label):
     backward (the rows kernel's di and 1 / l from K11's own o and l, K12 and
     K13 on K11's own l and m), and the autograd function over them, against
     the plain forward and backward run the same way; twice (bit-equal).  Then
-    K11 and K12 on each route ("wgmma", the wrapper's; "simple", the first
-    design) against the plain versions (K12 on the plain forward's l, m and
-    di), each twice (bit-equal), and the card's di against ``flash_di``
+    K11, K12 and K13 on each route ("wgmma", the wrapper's; "simple", the
+    first design) against the plain versions (K12 and K13 on the plain
+    forward's l, m and di), each twice (bit-equal), and the card's di against ``flash_di``
     (within fp32 rounding) and its order emulated in torch (bit-equal).  With
     ``timed``, each kernel's time on each route cold and hot beside its
     bound; the rows kernel beside ``flash_di``; the plain versions, the port's
@@ -2866,27 +2913,29 @@ def flash_case(device, name, B, nh, lengths, seed, timed, label):
         raise AssertionError(f"K11-K13 at {name}: bit-stable {stable}, autograd function equal {autograd_same}, "
                              f"beyond the limits: {bad} ({res})")
 
-    # ---- each route of K11 and K12 against the plain versions, twice ----
+    # ---- each route of K11, K12 and K13 against the plain versions, twice ----
     bargs = (*args, rl, rm, do, rdi)
     res["routes"] = {}
     for route in fa.ROUTES:
         ro1, ro2 = fa._launch_forward(*args, route=route), fa._launch_forward(*args, route=route)
         rk1, rk2 = fa._launch_dkv(*bargs, route=route), fa._launch_dkv(*bargs, route=route)
+        rq1, rq2 = fa._launch_dq(*bargs, route=route), fa._launch_dq(*bargs, route=route)
         torch.cuda.synchronize()
-        r = {"bit_stable": all(torch.equal(a, b) for a, b in zip((*ro1, *rk1), (*ro2, *rk2)))}
-        for what, got, ref in (("o", ro1[0], ro), ("dk", rk1[0], want[1]), ("dv", rk1[1], want[2])):
+        r = {"bit_stable": all(torch.equal(a, b) for a, b in zip((*ro1, *rk1, rq1), (*ro2, *rk2, rq2)))}
+        for what, got, ref in (("o", ro1[0], ro), ("dk", rk1[0], want[1]), ("dv", rk1[1], want[2]),
+                               ("dq", rq1, want[0])):
             r[what] = dict(zip(("head_ulps", "element_share", "max_abs_err"), fa.close_in_head_ulps(got, ref)))
         r["l_max_rel_err"] = float(((ro1[1] - rl).abs() / rl).max())
         r["m_max_abs_err"] = float((ro1[2] - rm).abs().max())
         res["routes"][route] = r
-        log(f"[phase8a] {name} route {route}: K11, K12 bit-stable {r['bit_stable']}; against the plain versions "
-            + "; ".join(f"{w} {r[w]['head_ulps']:.2f} ulps of its head vector, {r[w]['element_share']:.2e} past 2 "
-                        f"own ulps, max|d| {r[w]['max_abs_err']:.3e}" for w in ("o", "dk", "dv"))
+        log(f"[phase8a] {name} route {route}: K11, K12, K13 bit-stable {r['bit_stable']}; against the plain "
+            "versions " + "; ".join(f"{w} {r[w]['head_ulps']:.2f} ulps of its head vector, {r[w]['element_share']:.2e} "
+                                    f"past 2 own ulps, max|d| {r[w]['max_abs_err']:.3e}" for w in ("o", "dk", "dv", "dq"))
             + f"; l rel {r['l_max_rel_err']:.2e}, m {r['m_max_abs_err']:.2e}")
-        off = [w for w in ("o", "dk", "dv") if r[w]["head_ulps"] > FLASH_HEAD_ULPS
+        off = [w for w in ("o", "dk", "dv", "dq") if r[w]["head_ulps"] > FLASH_HEAD_ULPS
                or r[w]["element_share"] > FLASH_ELEMENT_SHARE]
         if off or not r["bit_stable"] or r["l_max_rel_err"] > 1e-5 or r["m_max_abs_err"] > 1e-5:
-            raise AssertionError(f"K11/K12 route {route} at {name}: beyond the limits {off} ({r})")
+            raise AssertionError(f"K11-K13 route {route} at {name}: beyond the limits {off} ({r})")
 
     # ---- the card's di and 1 / l ----
     di_card, inv_l = fa._launch_rows(o, do, l)
@@ -2923,8 +2972,9 @@ def flash_case(device, name, B, nh, lengths, seed, timed, label):
             timed("K12" + tag, lambda: fa._launch_dkv(*bargs, route=route, inv_l=inv_l),
                   lambda x, i: fa._launch_dkv(x[0], x[1], x[2], seg, seg, FLASH_SCALE, l, m, x[3], di_card,
                                               route=route, inv_l=inv_l), copies)
-        timed("K13", lambda: fa._launch_dq(*bargs),
-              lambda x, i: fa._launch_dq(x[0], x[1], x[2], seg, seg, FLASH_SCALE, l, m, x[3], di_card), copies)
+            timed("K13" + tag, lambda: fa._launch_dq(*bargs, route=route, inv_l=inv_l),
+                  lambda x, i: fa._launch_dq(x[0], x[1], x[2], seg, seg, FLASH_SCALE, l, m, x[3], di_card,
+                                             route=route, inv_l=inv_l), copies)
         timed("rows", lambda: fa._launch_rows(o, do, l), lambda x, i: fa._launch_rows(x[0], x[1], l), outs)
         timed("flash_di", lambda: fa.flash_di(o, do), lambda x, i: fa.flash_di(x[0], x[1]), outs)
     hot, cold = ({k: float(np.median(v)) for k, v in runs[kind].items()} for kind in ("hot", "cold"))
@@ -3008,10 +3058,10 @@ def phase_flash_kernels(device, workdir: Path, label, seed=SEED, shapes=None):
 
 
 def flash_launches_ok(launches, want, what):
-    """K11-K13's launches as ``want`` says, K11 and K12 all on route "wgmma",
-    and the backward's rows kernel (di, 1 / l) once a K12 launch."""
+    """K11-K13's launches as ``want`` says, each all on route "wgmma", and
+    the backward's rows kernel (di, 1 / l) once a K12 launch."""
     want = dict(want)
-    for kname in ("K11", "K12"):
+    for kname in ("K11", "K12", "K13"):
         if kname in want:
             want[f"{kname} wgmma route"], want[f"{kname} simple route"] = want[kname], 0
     if "K12" in want:
@@ -3226,6 +3276,7 @@ def main() -> int:
         del ctx
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         train_launches, train_info = phase_train(device, Path(tmp), label)
+        repeat = phase_repeat(device, label, train_info)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_flash_train_") as tmp:
         t0 = time.perf_counter()
         flash_launches, flash_train = phase_train(device, Path(tmp), label, steps=5, attention_impl="flash",
@@ -3378,18 +3429,16 @@ def main() -> int:
                 "bound_ms": flash_kernels["encode"]["bound"][kname][0]},
             "ce_launches": flash_ce["launches"][kname], "encode_launches": flash_encode["launches"][kname],
         })
-        timed_shapes = ("retriever", "ce", "encode")
-        if kname in ("K11", "K12"):
-            simple = f"{kname} simple"
-            kernels[-1].update({
-                "kernel_route": "wgmma", "route_launches": {
-                    r: flash_launches[f"{kname} {r} route"] for r in ("wgmma", "simple")},
-                "simple_design_ms": fk["ms"][simple], "simple_design_hot_ms": fk["hot_ms"][simple],
-                "route_head_ulps_by_shape": {s: {r: v[what]["head_ulps"] for r, v in flash_kernels[s]["routes"].items()}
-                                             for s in flash_kernels},
-                "simple_design_by_shape": {s: flash_kernels[s]["ms"][simple] for s in timed_shapes}})
-            kernels[-1]["ce"]["simple_design_ms"] = flash_kernels["ce"]["ms"][simple]
-            kernels[-1]["encode"]["simple_design_ms"] = flash_kernels["encode"]["ms"][simple]
+        timed_shapes, simple = ("retriever", "ce", "encode"), f"{kname} simple"
+        kernels[-1].update({
+            "kernel_route": "wgmma", "route_launches": {
+                r: flash_launches[f"{kname} {r} route"] for r in ("wgmma", "simple")},
+            "simple_design_ms": fk["ms"][simple], "simple_design_hot_ms": fk["hot_ms"][simple],
+            "route_head_ulps_by_shape": {s: {r: v[what]["head_ulps"] for r, v in flash_kernels[s]["routes"].items()}
+                                         for s in flash_kernels},
+            "simple_design_by_shape": {s: flash_kernels[s]["ms"][simple] for s in timed_shapes}})
+        kernels[-1]["ce"]["simple_design_ms"] = flash_kernels["ce"]["ms"][simple]
+        kernels[-1]["encode"]["simple_design_ms"] = flash_kernels["encode"]["ms"][simple]
         if kname == "K11":
             kernels[-1].update({f"{key}_by_shape": {s: flash_kernels[s][key] for s in timed_shapes}
                                 for key in ("flash_fwd_bwd_ms", "flash_fwd_bwd_simple_ms", "route_parts_ms",
@@ -3413,6 +3462,7 @@ def main() -> int:
     kernels[-3]["flash_encode_docs_s"] = flash_encode["docs_s"]
     kernels[-3]["flash_ce"] = {key: flash_ce[key] for key in ("ms_step", "peak_gb")}
     kernels[-3]["remat_peak_gb"] = {k: r["peak_gb"] for k, r in remat.items()}
+    kernels[-3]["explicit_repeat"] = {key: repeat[key] for key in ("losses", "parameters", "s")}
     log(label)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

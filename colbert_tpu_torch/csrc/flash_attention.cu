@@ -25,8 +25,8 @@
 // Route "wgmma" takes exp(x) as 2^(x log2 e) by the MUFU (ex2.approx, 2 ulps,
 // where the first design's expf has 1), from the same x = s - m.
 //
-// Route "simple" (the first design; K11 and K12 on request, K13's only
-// design): mma.sync m16n8k16 (bf16 or fp16, fp32 accumulators) on tiles in
+// Route "simple" (the first design, on request only): mma.sync m16n8k16
+// (bf16 or fp16, fp32 accumulators) on tiles in
 // shared memory with the 16-byte chunks of each 128-byte row XOR-swizzled by
 // the row (ldmatrix without bank conflicts), filled by cp.async two tiles
 // deep.  A block is four warps of 16 rows.  A product's accumulators become
@@ -43,14 +43,14 @@
 //        walks the keys in 64-key tiles: S = Q K^T, dP = dO V^T, dQ += dS K.
 // di = rowsum(o * do) comes from the caller (outside the JAX kernels too).
 //
-// Route "wgmma" (K11 and K12, every shape they take): persistent blocks of
+// Route "wgmma" (every shape the kernels take): persistent blocks of
 // consumer warpgroups and one producer warpgroup whose one thread feeds a
 // ring of tiles by TMA (4-D tensor maps over the heads-major views,
 // 128-byte swizzle) on mbarriers; setmaxnreg moves the producer's registers
 // to the consumers; the products are wgmma with the B operand in shared
-// memory (K-major, or MN-major with the transpose bit for P V, P^T dO and
-// dS^T Q) and the A operand in registers; outputs leave through a warp's
-// 2 KB of shared memory as whole 128-byte rows.
+// memory (K-major, or MN-major with the transpose bit for P V, P^T dO,
+// dS^T Q and dS K) and the A operand in registers; outputs leave through a
+// warp's 2 KB of shared memory as whole 128-byte rows.
 //   K11: 192 query rows a block where they tile Lq (three consumer
 //        warpgroups), else 128; Q loaded once a tile into A fragments; K, V
 //        and key segment ids 128 keys a stage, three stages.
@@ -58,6 +58,10 @@
 //        once a tile; Q, dO and the rows' m, 1 / l, di and segment ids 64
 //        queries a stage, eight stages; dV's and dK's products left running
 //        under the next stage's S^T and dP^T.
+//   K13: 128 query rows a block (two consumer warpgroups); Q and dO in A
+//        fragments and the rows' m, 1 / l, di and segment ids in registers
+//        once a tile; K, V and key segment ids 64 keys a stage, eight
+//        stages; dQ's product left running under the next stage's S and dP.
 // The rows kernel (flash_bwd_rows_launch) gives route "wgmma" its inputs
 // once a row: di from o and do read once in their type, and 1 / l.
 // The backward is the JAX split: dK/dV over key blocks, dQ over query
@@ -75,7 +79,7 @@
 // v, do, dq (200 MB, 0.060 ms): bytes.  Route "simple" re-reads K/V (K12:
 // Q/dO) once for every 64-row block of a head, from L2, issues one ldmatrix
 // a B fragment and stores outputs 4 bytes a lane (half sectors).  Route
-// "wgmma" re-reads them once for every 192 (K12: 128) rows, feeds the tensor
+// "wgmma" re-reads them once for every 192 (K12, K13: 128) rows, feeds the tensor
 // cores from shared memory without ldmatrix, and stores whole rows; what
 // stays is the exponentials' and the mask's issue slots and, in K12, the
 // dK/dV stores (PERF.md §6).
@@ -595,7 +599,7 @@ flash_dq_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __res
   store_rows(dQ + b * vdq.sb + h * vdq.sh + (long long)(q0 + row) * vdq.sl, vdq.sl, dq, lane);
 }
 
-// ---- route "wgmma": K11 and K12 fed by TMA, warp-specialised wgmma ----
+// ---- route "wgmma": K11-K13 fed by TMA, warp-specialised wgmma ----
 
 namespace wg {
 
@@ -610,11 +614,14 @@ constexpr int KT = 128;                       // keys a K11 tile (the JAX block)
 constexpr int QT = 64;                        // queries a K12 tile
 constexpr int FWD_STAGES = 3;                 // K/V tiles in flight in K11
 constexpr int DKV_STAGES = 8;                 // Q/dO tiles in flight in K12
+constexpr int DQ_KT = 64;                     // keys a K13 tile
+constexpr int DQ_STAGES = 8;                  // K/V tiles in flight in K13
 constexpr uint32_t ROW = HD * 2;         // a row of 64 elements: one 128-byte swizzle row
 constexpr uint32_t WG_ROWS = 64 * ROW;   // a warpgroup's 64 rows
 constexpr uint32_t KV_BYTES = KT * ROW;  // a 128-row tile
 constexpr uint32_t QT_BYTES = QT * ROW;  // a 64-row tile
-static_assert(WG_ROWS % 1024 == 0 && KV_BYTES % 1024 == 0 && QT_BYTES % 1024 == 0,
+constexpr uint32_t DQ_KV_BYTES = DQ_KT * ROW;  // a K13 key tile
+static_assert(WG_ROWS % 1024 == 0 && KV_BYTES % 1024 == 0 && QT_BYTES % 1024 == 0 && DQ_KV_BYTES % 1024 == 0,
               "128-byte swizzle atoms are 1024-byte aligned");
 
 // A tile read as an MN-major B (V in O += P V, dO in dV += P^T dO, Q in dK
@@ -1187,6 +1194,206 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
   }
 }
 
+// ---- K13, route "wgmma" ----
+//
+// A block is two consumer warpgroups of 64 query rows and one producer
+// warpgroup, persistent over (query block, head, batch) tiles, the query
+// blocks of a head adjacent (so its K and V are read from device memory
+// once and then from L2).  The
+// producer's one thread loads each tile's Q and dO rows with their m, 1 / l
+// (from the rows kernel), di and segment ids once, and keeps 64-key K and V
+// tiles with their segment ids in a ring of DQ_STAGES.  Each consumer takes
+// its Q and dO rows into A fragments and its rows' m, 1 / l, di and segment
+// ids into registers (freeing the tile's buffer for the next tile at once),
+// then per key tile: S = Q K^T and dP = dO V^T by wgmma m64n64k16 (K and V
+// as K-major B), committed apart; p from S while dP runs; ds from dP and p,
+// rounded into A fragments; dQ += dS K (K as MN-major B, the transpose bit
+// set) issued and left running under the next tile's S and dP.  dQ stays in
+// registers over the keys (no atomics) and leaves through shared memory as
+// whole rows.  Key tiles of 64, not the JAX block's 128: at 128 keys S and
+// dP hold 128 fp32 accumulators a thread and dS 32 A registers, with dQ and
+// the Q and dO fragments 224 live, past the 232 setmaxnreg leaves a consumer
+// once addresses and loop state are counted.  Two consumer warpgroups, not
+// K11's three (192 rows where they tile Lq): at three, setmaxnreg leaves 160
+// registers, ptxas serialised the wgmmas for want of them, and the kernel
+// ran 6% slower (PERF.md §6).
+
+struct Dq {
+  static constexpr int NWG = 2;                             // consumer warpgroups
+  static constexpr int ROWS_BLK = NWG * 64;
+  static constexpr uint32_t ROWS_BYTES = 4 * ROWS_BLK * 4;  // a tile's m, 1 / l, di, segment ids
+  static constexpr uint32_t smem = 1024 + 2 * NWG * WG_ROWS + DQ_STAGES * (2 * DQ_KV_BYTES + DQ_KT * 4) +
+                                   ROWS_BYTES + NWG * 4 * 2048;
+};
+static_assert(Dq::smem <= 232448 - 128, "K13's ring must fit a block's shared memory");
+
+template <typename T>
+__global__ void __launch_bounds__((Dq::NWG + 1) * 128, 1)
+flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+                      int heads_inner, const int* __restrict__ qseg, const int* __restrict__ kvseg,
+                      const float* __restrict__ inv_l, const float* __restrict__ m_in,
+                      const float* __restrict__ di_in, T* __restrict__ dQ, View vdq, int nh, int Lq, int Lk,
+                      int n_tiles, float scale) {
+  constexpr int NWG = Dq::NWG, ROWS_BLK = Dq::ROWS_BLK;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[DQ_STAGES], empty[DQ_STAGES], q_full, q_empty;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sq = (raw + 1023u) & ~1023u;                      // Q, then dO: NWG x 64 rows each
+  const uint32_t skv = sq + 2 * NWG * WG_ROWS;                     // [stage][K, V]
+  const uint32_t sseg = skv + DQ_STAGES * 2 * DQ_KV_BYTES;         // [stage][64] key segment ids
+  const uint32_t srows = sseg + DQ_STAGES * DQ_KT * 4;             // [m, 1 / l, di, seg][ROWS_BLK]
+  const int* const seg_base = reinterpret_cast<const int*>(smem_raw + (sseg - raw));
+  const float* const rows_base = reinterpret_cast<const float*>(smem_raw + (srows - raw));
+  uint32_t* const out_stage = reinterpret_cast<uint32_t*>(smem_raw + (srows + Dq::ROWS_BYTES - raw));
+  const int n_qb = Lq / ROWS_BLK, n_kt = Lk / DQ_KT;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG * 4);
+    }
+    mbar_init(&q_full, 1);
+    mbar_init(&q_empty, NWG * 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= NWG * 128) {
+    // ---- producer: one thread keeps Q, dO and their rows and the K/V ring full, tile after tile ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == NWG * 128) {
+      int stage = 0;
+      uint32_t phase = 0, q_phase = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        const int qb = t % n_qb, h = (t / n_qb) % nh, b = t / (n_qb * nh);
+        const long long rows0 = ((long long)b * nh + h) * Lq + qb * ROWS_BLK;
+        mbar_wait(&q_empty, q_phase ^ 1);
+        q_phase ^= 1;
+        mbar_expect_tx(&q_full, 2 * NWG * WG_ROWS + Dq::ROWS_BYTES);
+        load_rows(sq, &map_q, heads_inner & 1, h, qb * ROWS_BLK, b, &q_full);
+        load_rows(sq + NWG * WG_ROWS, &map_do, heads_inner & 8, h, qb * ROWS_BLK, b, &q_full);
+        bulk_load(srows, m_in + rows0, ROWS_BLK * 4, &q_full);
+        bulk_load(srows + ROWS_BLK * 4, inv_l + rows0, ROWS_BLK * 4, &q_full);
+        bulk_load(srows + 2 * ROWS_BLK * 4, di_in + rows0, ROWS_BLK * 4, &q_full);
+        bulk_load(srows + 3 * ROWS_BLK * 4, qseg + (long long)b * Lq + qb * ROWS_BLK, ROWS_BLK * 4, &q_full);
+        for (int kt = 0; kt < n_kt; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], 2 * DQ_KV_BYTES + DQ_KT * 4);
+          const uint32_t st = skv + stage * 2 * DQ_KV_BYTES;
+          load_rows(st, &map_k, heads_inner & 2, h, kt * DQ_KT, b, &full[stage]);
+          load_rows(st + DQ_KV_BYTES, &map_v, heads_inner & 4, h, kt * DQ_KT, b, &full[stage]);
+          bulk_load(sseg + stage * DQ_KT * 4, kvseg + (long long)b * Lk + kt * DQ_KT, DQ_KT * 4, &full[stage]);
+          if (++stage == DQ_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wgi = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32, qd = lane & 3;
+    const int row = wgi * 64 + warp * 16 + (lane >> 2);  // rows row and row + 8 of the block
+    const T* const q_rows = reinterpret_cast<const T*>(smem_raw + (sq - raw)) + wgi * 64 * HD;  // its Q rows
+    const T* const o_rows = q_rows + NWG * 64 * HD;                                               // its dO rows
+    int stage = 0;
+    uint32_t phase = 0, q_phase = 0;
+    for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const int qb = t % n_qb, h = (t / n_qb) % nh, b = t / (n_qb * nh);
+      float dq[HD / 8][4], s[DQ_KT / 8][4], dp[DQ_KT / 8][4];  // s: S, then P; dp: dP, then dS
+      uint32_t qf[HD / 16][4], of[HD / 16][4], as[DQ_KT / 16][4] = {};
+      zero(dq);
+      zero(s);
+      zero(dp);
+      mbar_wait(&q_full, q_phase);
+      q_phase ^= 1;
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        load_a(qf[ks], q_rows, warp * 16, ks, lane);
+        load_a(of[ks], o_rows, warp * 16, ks, lane);
+      }
+      float m_row[2], il[2], di[2];
+      int seg[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m_row[r] = rows_base[row + 8 * r];
+        il[r] = rows_base[ROWS_BLK + row + 8 * r];
+        di[r] = rows_base[2 * ROWS_BLK + row + 8 * r];
+        seg[r] = reinterpret_cast<const int*>(rows_base)[3 * ROWS_BLK + row + 8 * r];
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&q_empty);  // this warp is done with the Q, dO and rows buffer
+      int prev = -1;
+      for (int kt = 0; kt < n_kt; ++kt) {
+        mbar_wait(&full[stage], phase);
+        const uint32_t ka = skv + stage * 2 * DQ_KV_BYTES;
+        // B operands' descriptors; a k-step advances one by 32 bytes (K-major, + 2) or 16 rows (MN-major, + 128)
+        const uint64_t kdesc = sw128_desc(ka), vdesc = sw128_desc(ka + DQ_KV_BYTES);
+        const int* st = seg_base + stage * DQ_KT;
+
+        fence_acc(s);
+        fence_acc(dp);
+        fence_a(qf);
+        fence_a(of);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) wgmma_rs64<T>(s, qf[kk], kdesc + 2 * kk, kk);
+        hopper::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) wgmma_rs64<T>(dp, of[kk], vdesc + 2 * kk, kk);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // S, and the last tile's dQ
+        fence_acc(s);
+        fence_acc(dq);
+        fence_a(as);
+        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);  // this warp is done with the last tile
+
+#pragma unroll
+        for (int j = 0; j < DQ_KT / 8; ++j) {
+          const int2 ks = *reinterpret_cast<const int2*>(st + j * 8 + 2 * qd);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const float x = masked_sel(s[j][e], scale, seg[r] == ((e & 1) ? ks.y : ks.x));
+            s[j][e] = __fmul_rn(exp_p(x - m_row[r]), il[r]);
+          }
+        }
+        hopper::wgmma_wait<0>();  // dP
+        fence_acc(dp);
+        fence_a(qf);
+        fence_a(of);
+#pragma unroll
+        for (int j = 0; j < DQ_KT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[j][e] = __fmul_rn(__fmul_rn(__fsub_rn(dp[j][e], di[e >> 1]), s[j][e]), scale);
+#pragma unroll
+        for (int kk = 0; kk < DQ_KT / 16; ++kk) acc_to_a<T>(as[kk], dp, kk);
+        fence_a(as);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DQ_KT / 16; ++kk) wgmma_rs64t<T>(dq, as[kk], kdesc + 128 * kk, 1);
+        hopper::wgmma_commit();
+        prev = stage;
+        if (++stage == DQ_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      hopper::wgmma_wait<0>();
+      fence_acc(dq);
+      fence_a(as);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      const int row0 = qb * ROWS_BLK + row - (lane >> 2);  // this warp's first row
+      store_rows_staged<T>(dQ + b * vdq.sb + h * vdq.sh + (long long)row0 * vdq.sl, vdq.sl, dq,
+                           out_stage + threadIdx.x / 32 * 512, lane);
+    }
+  }
+}
+
 // ---- the backward's per-row inputs: di and 1 / l ----
 //
 // di = sum(o * do) over the head dim in fp32, read once in the input type:
@@ -1397,6 +1604,33 @@ int dkv_wgmma(const void* q, const void* k, const void* v, const int* qseg, cons
 }
 
 template <typename T>
+int dq_wgmma(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg, const float* inv_l,
+             const float* m, const void* dout, const float* di, void* dq_, const long long* vq, const long long* vk,
+             const long long* vv, const long long* vdo, const long long* vdq, int B, int nh, int Lq, int Lk,
+             float scale, int dtype, int device, cudaStream_t stream) {
+  static std::atomic<bool> smem_set[kMaxDevices];
+  constexpr int rows_blk = wg::Dq::ROWS_BLK;
+  CUtensorMap mq, mk, mv, mo;
+  bool hq, hk, hv, ho;
+  if (!make_rows_map(&mq, q, dtype, B, nh, Lq, vq, rows_blk, &hq) ||
+      !make_rows_map(&mk, k, dtype, B, nh, Lk, vk, wg::DQ_KT, &hk) ||
+      !make_rows_map(&mv, v, dtype, B, nh, Lk, vv, wg::DQ_KT, &hv) ||
+      !make_rows_map(&mo, dout, dtype, B, nh, Lq, vdo, rows_blk, &ho))
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  if (int e = sm_count(device, &sms)) return e;
+  const cudaError_t err = allow_smem(wg::flash_dq_wgmma_kernel<T>, (int)wg::Dq::smem, device, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)(Lq / rows_blk) * nh * B;
+  if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const int grid = int(tiles < sms ? tiles : sms);
+  wg::flash_dq_wgmma_kernel<T><<<grid, (wg::Dq::NWG + 1) * 128, wg::Dq::smem, stream>>>(
+      mq, mk, mv, mo, int(hq) | int(hk) << 1 | int(hv) << 2 | int(ho) << 3, qseg, kvseg, inv_l, m, di,
+      static_cast<T*>(dq_), view(vdq), nh, Lq, Lk, int(tiles), scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int rows(const void* o, const void* dout, const float* l, float* di, float* inv_l, const long long* vo,
          const long long* vdo, int B, int nh, int L, cudaStream_t stream) {
   const long long n = (long long)B * nh * L;  // a multiple of 128: L is
@@ -1489,20 +1723,28 @@ extern "C" int flash_bwd_rows_launch(const void* o, const void* dout, const floa
   });
 }
 
-// K13: dq (like q) from the same inputs.
+// K13: dq (like q) from the same inputs: l (route "simple") or 1 / l (route
+// "wgmma", from flash_bwd_rows_launch), as K12 takes them; the one the route
+// does not read may be null.
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg,
-                                   const float* l, const float* m, const void* dout, const float* di, void* dq_,
-                                   const long long* vq, const long long* vk, const long long* vv,
-                                   const long long* vdo, const long long* vdq, int B, int nh, int Lq, int Lk,
-                                   float scale, int dtype, int device, void* stream) {
+                                   const float* l, const float* inv_l, const float* m, const void* dout,
+                                   const float* di, void* dq_, const long long* vq, const long long* vk,
+                                   const long long* vv, const long long* vdo, const long long* vdq, int B, int nh,
+                                   int Lq, int Lk, float scale, int dtype, int route, int device, void* stream) {
   if (int e = check_shape(B, nh, Lq, Lk, dtype, device)) return e;
-  if (!aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) || !aligned(dout, vdo) || !aligned(dq_, vdq))
+  if (!aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) || !aligned(dout, vdo) || !aligned(dq_, vdq) ||
+      route < 0 || route > 1 || (route == 1 && inv_l == nullptr) || (route == 0 && l == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
-    return dtype == 0 ? dq<__nv_bfloat16>(q, k, v, qseg, kvseg, l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B, nh,
-                                          Lq, Lk, scale, device, s)
-                      : dq<__half>(q, k, v, qseg, kvseg, l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B, nh, Lq, Lk,
-                                   scale, device, s);
+    if (route == 0)
+      return dtype == 0 ? dq<__nv_bfloat16>(q, k, v, qseg, kvseg, l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B, nh,
+                                            Lq, Lk, scale, device, s)
+                        : dq<__half>(q, k, v, qseg, kvseg, l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B, nh, Lq, Lk,
+                                     scale, device, s);
+    return dtype == 0 ? dq_wgmma<__nv_bfloat16>(q, k, v, qseg, kvseg, inv_l, m, dout, di, dq_, vq, vk, vv, vdo, vdq,
+                                                B, nh, Lq, Lk, scale, dtype, device, s)
+                      : dq_wgmma<__half>(q, k, v, qseg, kvseg, inv_l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B, nh, Lq,
+                                         Lk, scale, dtype, device, s);
   });
 }

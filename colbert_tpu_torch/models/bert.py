@@ -122,12 +122,58 @@ class LayerNorm(nn.Module):
         return y.to(dtype)
 
 
+ONE_HOT_ROWS = 16  # tables up to this many rows (token types) take their gradient as a one-hot product
+RUN_ROWS = 128     # rows a first-level segment of the sorted sum adds serially
+
+
+def one_hot_sum(ids: torch.Tensor, grad: torch.Tensor, rows: int) -> torch.Tensor:
+    """(rows, H) fp32: the rows of ``grad`` (N, H) summed by id (``ids`` (N,)),
+    as the product ``one_hot(ids, rows)^T @ grad`` in fp32.  The one-hot factor
+    is exact, so each sum is the GEMM's fp32 sum, in the fixed order a
+    matrix product on the card takes every run."""
+    return F.one_hot(ids, rows).float().t() @ grad.float()
+
+
+def sorted_sum(ids: torch.Tensor, grad: torch.Tensor, rows: int) -> torch.Tensor:
+    """(rows, H) fp32: the rows of ``grad`` (N, H) summed by id (``ids`` (N,)),
+    in one fixed order and with no atomics.  The ids are sorted stably and
+    the sorted rows cut where an id starts and at every :data:`RUN_ROWS`-th
+    row; each piece (one id, at most ``RUN_ROWS`` rows) is summed serially in
+    fp32, then each id's pieces serially (``torch.segment_reduce``), so no
+    serial sum is longer than ``RUN_ROWS`` + N / ``RUN_ROWS`` + 1.  Every
+    shape is fixed by N and ``rows`` (no host sync): an id the batch lacks
+    starts at N, so its cut sorts past the at most min(rows, N) + N /
+    ``RUN_ROWS`` cuts that start pieces and is dropped, and it gets an empty
+    sum."""
+    n, d = ids.numel(), ids.device
+    sorted_ids, order = torch.sort(ids.int(), stable=True)  # 32-bit keys: half the radix passes of 64
+    first = torch.searchsorted(sorted_ids, torch.arange(rows + 1, dtype=torch.int32, device=d), out_int32=True)
+    starts = first[:-1].masked_fill(first[1:] == first[:-1], n)
+    cuts = torch.cat([starts, torch.arange(0, n, RUN_ROWS, dtype=torch.int32, device=d)]).sort().values
+    cuts = cuts[:min(rows, n) + -(-n // RUN_ROWS)]
+    partial = torch.segment_reduce(grad.index_select(0, order).float(), "sum",
+                                   lengths=torch.diff(cuts, append=first[-1:]), unsafe=True)
+    return torch.segment_reduce(partial, "sum", lengths=torch.searchsorted(cuts, first).diff(), unsafe=True)
+
+
+def lookup_backward(ids: torch.Tensor, grad: torch.Tensor, rows: int) -> torch.Tensor:
+    """The (rows, H) gradient of ``F.embedding(ids, weight)`` for the output's
+    gradient ``grad``, in ``grad``'s dtype, the same bits every run: the sum
+    of each id's rows in fp32, rounded once (as ``F.embedding``'s backward
+    rounds it), by :func:`one_hot_sum` for tables of at most
+    :data:`ONE_HOT_ROWS` rows, else :func:`sorted_sum`."""
+    ids, grad = ids.reshape(-1), grad.reshape(-1, grad.shape[-1])
+    total = one_hot_sum(ids, grad, rows) if rows <= ONE_HOT_ROWS else sorted_sum(ids, grad, rows)
+    return total.to(grad.dtype)
+
+
 class _Lookup(torch.autograd.Function):
-    """``F.embedding(ids, weight)`` whose backward on the card runs under
-    deterministic algorithms: there the lookup's own backward sums the rows
-    of an id that a batch repeats in an order that varies from run to run
-    when the batch has few distinct ids (a token type, a small vocabulary),
-    so two steps on the same inputs could give two gradients."""
+    """``F.embedding(ids, weight)`` whose backward on the card is
+    :func:`lookup_backward`: there the lookup's own backward sums the rows of
+    an id that a batch repeats in an order that varies from run to run when
+    the batch has few distinct ids (a token type, a small vocabulary), so two
+    steps on the same inputs could give two gradients.  On CPU tensors the
+    lookup's own backward, whose order is fixed."""
 
     @staticmethod
     def forward(ctx, ids, weight):
@@ -138,13 +184,9 @@ class _Lookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         (ids,) = ctx.saved_tensors
-        if not grad.is_cuda or torch.are_deterministic_algorithms_enabled():
+        if not grad.is_cuda:
             return None, torch.ops.aten.embedding_dense_backward(grad, ids, ctx.rows, -1, False)
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            return None, torch.ops.aten.embedding_dense_backward(grad, ids, ctx.rows, -1, False)
-        finally:
-            torch.use_deterministic_algorithms(False)
+        return None, lookup_backward(ids, grad, ctx.rows)
 
 
 def lookup(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:

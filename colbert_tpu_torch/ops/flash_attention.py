@@ -33,12 +33,14 @@ running ``m`` and ``l``); for CUDA tensors the kernels of
 ``csrc/flash_attention.cu``: forward K11; backward the rows kernel (di read
 once from o and do in their dtype, summed in fp32 in
 :func:`flash_di_card_order`'s order, and 1 / l), then K12, then K13 (no
-atomics, so every run gives the same bits).  K11 and K12 have two routes
-(:data:`ROUTES`): "wgmma", the default for every input they take, and the
-first design, "simple", only when a caller asks for it; K13 has one.  Each launch is counted in its ``LaunchCounter``
-(:data:`fwd_launches`, :data:`dkv_launches`, :data:`dq_launches`,
-:data:`rows_launches`, and by route :data:`fwd_route_launches`,
-:data:`dkv_route_launches`); a shape or dtype they do not take raises
+atomics, so every run gives the same bits).  K11, K12 and K13 have two
+routes (:data:`ROUTES`): "wgmma", the default for every input they take, and
+the first design, "simple", only when a caller asks for it; K12 and K13 on
+route "wgmma" read the rows kernel's 1 / l.  Each launch is counted in its
+``LaunchCounter`` (:data:`fwd_launches`, :data:`dkv_launches`,
+:data:`dq_launches`, :data:`rows_launches`, and by route
+:data:`fwd_route_launches`, :data:`dkv_route_launches`,
+:data:`dq_route_launches`); a shape or dtype they do not take raises
 ``NotImplementedError`` (:func:`kernel_refusal`), and a failed launch raises.
 Outputs and gradients are (B, nh, L, hd) views of (B, L, nh, hd) buffers,
 the layout the model's heads come from, so its reshapes copy nothing.
@@ -164,8 +166,8 @@ def close_in_head_ulps(got: torch.Tensor, want: torch.Tensor) -> Tuple[float, fl
 _lib_lock = threading.Lock()
 _VIEW = ctypes.c_longlong * 3
 _resolved = None  # (forward, dK/dV, dQ, rows) C functions, see _fns
-#: K11's and K12's routes: "wgmma" (every shape the kernels take) and the
-#: first design, "simple", on request only; K13 has one
+#: K11's, K12's and K13's routes: "wgmma" (every shape the kernels take) and
+#: the first design, "simple", on request only
 ROUTES = ("wgmma", "simple")
 _ROUTE_CODES = {"simple": 0, "wgmma": 1}
 
@@ -203,7 +205,7 @@ def bind(lib: ctypes.CDLL) -> None:
     routed = tail[:6] + [i] + tail[6:]  # ..., dtype, route, device, stream
     lib.flash_fwd_launch.argtypes = [ptr] * 8 + [_VIEW] * 4 + routed
     lib.flash_bwd_dkv_launch.argtypes = [ptr] * 12 + [_VIEW] * 6 + routed
-    lib.flash_bwd_dq_launch.argtypes = [ptr] * 10 + [_VIEW] * 5 + tail
+    lib.flash_bwd_dq_launch.argtypes = [ptr] * 11 + [_VIEW] * 5 + routed
     lib.flash_bwd_rows_launch.argtypes = [ptr] * 5 + [_VIEW] * 2 + [i, i, i, i, i, ptr]
     for fn in (lib.flash_fwd_launch, lib.flash_bwd_dkv_launch, lib.flash_bwd_dq_launch, lib.flash_bwd_rows_launch):
         fn.restype = i
@@ -305,20 +307,27 @@ def _launch_rows(o, do, l):
     return di, inv_l
 
 
+def _route_inv_l(route: str, l: torch.Tensor, inv_l: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """What K12's and K13's route "wgmma" reads in place of l: ``inv_l`` (1 / l,
+    as :func:`_launch_rows` gives it; None: ``1 / l`` here); None for route
+    "simple", which reads l."""
+    if route != "wgmma":
+        return None
+    return _rows_input(torch.ones_like(l) / l if inv_l is None else inv_l)
+
+
 def _launch_dkv(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di, route: str = "wgmma",
                 inv_l: Optional[torch.Tensor] = None):
     """K12: (dk, dv), (B, nh, Lk, hd) views of (B, Lk, nh, hd) buffers.
-    Route "wgmma" reads ``inv_l`` (1 / l, as :func:`_launch_rows` gives it;
-    None: ``1 / l`` here)."""
+    Route "wgmma" reads 1 / l (:func:`_route_inv_l`)."""
     launch = _fns()[1]
     q, k, v, q_seg, kv_seg, l, m, do, di = _backward_inputs(q, k, v, q_seg, kv_seg, l, m, do, di)
-    if route == "wgmma":
-        inv_l = _rows_input(torch.ones_like(l) / l if inv_l is None else inv_l)
+    inv_l = _route_inv_l(route, l, inv_l)
     B, nh, Lq, hd = q.shape
     Lk = k.shape[2]
     dk, dv = _heads_major(B, nh, Lk, hd, k), _heads_major(B, nh, Lk, hd, v)
     err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(), l.data_ptr(),
-                 inv_l.data_ptr() if route == "wgmma" else None, m.data_ptr(), do.data_ptr(), di.data_ptr(),
+                 None if inv_l is None else inv_l.data_ptr(), m.data_ptr(), do.data_ptr(), di.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), _view(q), _view(k), _view(v), _view(do), _view(dk), _view(dv), B, nh,
                  Lq, Lk, sm_scale, _DTYPES[q.dtype], _ROUTE_CODES[route], *_device_stream(q))
     _check(err, "dK/dV", q)
@@ -327,18 +336,23 @@ def _launch_dkv(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di, route: st
     return dk, dv
 
 
-def _launch_dq(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di):
-    """K13: dq, a (B, nh, Lq, hd) view of a (B, Lq, nh, hd) buffer."""
+def _launch_dq(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di, route: str = "wgmma",
+               inv_l: Optional[torch.Tensor] = None):
+    """K13: dq, a (B, nh, Lq, hd) view of a (B, Lq, nh, hd) buffer.  Route
+    "wgmma" reads 1 / l (:func:`_route_inv_l`), as K12's does."""
     launch = _fns()[2]
     q, k, v, q_seg, kv_seg, l, m, do, di = _backward_inputs(q, k, v, q_seg, kv_seg, l, m, do, di)
+    inv_l = _route_inv_l(route, l, inv_l)
     B, nh, Lq, hd = q.shape
     Lk = k.shape[2]
     dq = _heads_major(B, nh, Lq, hd, q)
     err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(), l.data_ptr(),
-                 m.data_ptr(), do.data_ptr(), di.data_ptr(), dq.data_ptr(), _view(q), _view(k), _view(v),
-                 _view(do), _view(dq), B, nh, Lq, Lk, sm_scale, _DTYPES[q.dtype], *_device_stream(q))
+                 None if inv_l is None else inv_l.data_ptr(), m.data_ptr(), do.data_ptr(), di.data_ptr(),
+                 dq.data_ptr(), _view(q), _view(k), _view(v), _view(do), _view(dq), B, nh, Lq, Lk, sm_scale,
+                 _DTYPES[q.dtype], _ROUTE_CODES[route], *_device_stream(q))
     _check(err, "dQ", q)
     dq_launches.add()
+    dq_route_launches[route].add()
     return dq
 
 
@@ -364,14 +378,14 @@ def flash_forward(q, k, v, q_seg, kv_seg, sm_scale: float):
 
 
 def flash_backward(q, k, v, q_seg, kv_seg, sm_scale: float, o, l, m, do):
-    """(dq, dk, dv): di and 1 / l, K12 and K13 for CUDA tensors;
+    """(dq, dk, dv): di and 1 / l, then K12 and K13 on both, for CUDA tensors;
     :func:`flash_di` and :func:`flash_backward_ref` for CPU tensors."""
     if _on_cpu(q, k, v):
         return flash_backward_ref(q, k, v, q_seg, kv_seg, sm_scale, l, m, do, flash_di(o, do))
     _refuse(q, k, v)
     di, inv_l = _launch_rows(o, do, l)
     dk, dv = _launch_dkv(q, k, v, q_seg, kv_seg, sm_scale, l, m, do, di, inv_l=inv_l)
-    return _launch_dq(q, k, v, q_seg, kv_seg, sm_scale, l, m, do, di), dk, dv
+    return _launch_dq(q, k, v, q_seg, kv_seg, sm_scale, l, m, do, di, inv_l=inv_l), dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -402,8 +416,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_segment
 fwd_launches = LaunchCounter()
 dkv_launches = LaunchCounter()
 dq_launches = LaunchCounter()
-#: K11's and K12's launches by route
+#: K11's, K12's and K13's launches by route
 fwd_route_launches = {r: LaunchCounter() for r in ROUTES}
 dkv_route_launches = {r: LaunchCounter() for r in ROUTES}
+dq_route_launches = {r: LaunchCounter() for r in ROUTES}
 #: launches of the backward's rows kernel (di and 1 / l)
 rows_launches = LaunchCounter()

@@ -7,6 +7,7 @@ NVIDIA GPU, alone: ``chip_smoke.py``'s phase 8a without the rest of the script.
     python3 scripts/flash_variants.py --blocks   # then K11 with 192-row blocks against 128-row blocks
     python3 scripts/flash_variants.py --variant expf   # then phase 8a on a variant of the source
     python3 scripts/flash_variants.py --quick --probe k12_no_elementwise   # then times alone, no checks
+    python3 scripts/flash_variants.py --quick --probe dq_stages4   # K13's ring
     python3 scripts/flash_variants.py --quick --stress 50   # the wrapper's path 50 times over garbage, bit-equal?
     python3 scripts/flash_variants.py --quick --train 4     # phase 8b, then phase 8e 4 times
     python3 scripts/flash_variants.py --quick --embedding 20 --trace 6 --lookup   # the embeddings' backward
@@ -15,12 +16,14 @@ First the build of ``csrc/flash_attention.cu``: ptxas's registers, shared
 memory, spills and any warning for each kernel (a wgmma that ptxas
 serialises says so here), and from ``cuobjdump -sass`` of the built library
 the count of each kernel's wgmma instructions (HGMMA) and warpgroup
-barriers (WARPGROUP.ARRIVE / WARPGROUP.DEPBAR).  Then phase 8a
+barriers (WARPGROUP.ARRIVE / WARPGROUP.DEPBAR); the check, printed and in
+the exit code: no kernel of route "wgmma" spills and ptxas serialises no
+wgmma.  Then phase 8a
 (``chip_smoke.flash_case`` at the retriever's, the CE's and the encode
 batch's shapes, one with no padding and one padded just past 128): the
 public wrapper's forward and backward and the autograd function against the
-plain versions, K11 and K12 on each route ("wgmma" and "simple") against
-them, each twice bit-equal, the card's di against ``flash_di``; with times
+plain versions, K11, K12 and K13 on each route ("wgmma" and "simple")
+against them, each twice bit-equal, the card's di against ``flash_di``; with times
 (without ``--quick``) each route cold and hot beside its bound, the rows
 kernel beside ``flash_di``, SDPA's forward, forward + backward and backward
 alone, and the autograd function on each route.  With ``--blocks``, K11's
@@ -32,11 +35,12 @@ kernel's source with lines swapped, built with nvcc into
 8a again: its errors against the plain versions at the five shapes and its
 times at three (``expf``: the "wgmma" routes' softmax exponential by
 ``expf`` in place of ``ex2.approx`` of x * log2(e)).  With ``--probe
-NAME``, a variant's K11 and K12 (route "wgmma") timed alone at the
+NAME``, a variant's K11, K12 and K13 (route "wgmma") timed alone at the
 retriever's shape, cold, in turns with the source as it is, and not
 checked: the ``k12_no_*`` variants take from K12 its elementwise work, its
 products, its dK/dV stores or its row inputs' loads, giving wrong numbers
-by design to split its time; ``stages4`` halves its ring.  With
+by design to split its time; ``stages4`` halves K12's ring and
+``dq_stages4`` K13's (8 64-key tiles).  With
 ``--stress N``, the wrapper's forward and backward (K11, the rows kernel,
 K12, K13) at the retriever's and the CE's shapes N times, each after the
 allocator's blocks were filled with NaN, every output held bit-equal to the
@@ -51,11 +55,14 @@ the gradient reaching the sum of the three lookups, which is then replayed
 N times for each table (word ids, token types; and the doc pass's
 gradient over ids of a 128-word vocabulary) in each way of
 :func:`embedding_ways`, each run's bits against the first's, with its
-time; then the lookup's backward by table size, and one whole step under
+time (the model's ``lookup_backward``, ``F.embedding``'s own backward and
+the same under deterministic algorithms among them; each as issued, on the
+card alone and on the host clock); then ``F.embedding``'s
+backward by table size, and one whole step under
 ``torch.use_deterministic_algorithms(True, warn_only=True)``, with the ops
 it warns of.  ``--lookup`` puts ``F.embedding`` back into the model for the
 word ids and token types, in place of ``models/bert.py``'s ``lookup``
-(whose backward runs under deterministic algorithms), for ``--trace`` and
+(whose backward is ``lookup_backward``: a fixed order, no atomics), for ``--trace`` and
 ``--train``; ``--deterministic`` runs ``--trace`` under
 ``torch.use_deterministic_algorithms(True, warn_only=True)``.  Prints the
 card's name and power limit first and last.
@@ -138,7 +145,44 @@ VARIANTS = {
     "k12_no_stores": ("K12 without its dK/dV stores (no output)", [(K12_STORES, "")]),
     "k12_no_row_loads": ("K12 without its row inputs' loads (wrong dK/dV)",
                          [("2 * QT_BYTES + DKV_ROWS_BYTES);", "2 * QT_BYTES);"), (K12_ROW_LOADS, "")]),
+    "dq_stages4": ("K13's ring 4 key tiles deep", [("constexpr int DQ_STAGES = 8;", "constexpr int DQ_STAGES = 4;")]),
 }
+
+
+def ptxas_check(build_log: str) -> dict:
+    """From nvcc's ``-Xptxas=-v`` output: each kernel's registers and spill
+    bytes, and ptxas's warnings that it serialised wgmma instructions; "ok"
+    when no kernel of route "wgmma" spills and no wgmma is serialised."""
+    kernels, name = {}, None
+    for line in build_log.splitlines():
+        got = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if got:
+            name = got.group(1)
+            kernels.setdefault(name, {})
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill and name:
+            kernels[name]["spill_bytes"] = int(spill.group(1)) + int(spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            kernels[name]["registers"] = int(regs.group(1))
+    serialised = [line.strip() for line in build_log.splitlines() if "serializ" in line or "serialis" in line]
+    spills = {k: v["spill_bytes"] for k, v in kernels.items() if "wgmma" in k and v.get("spill_bytes")}
+    return {"kernels": kernels, "wgmma_spills": spills, "serialised": serialised,
+            "ok": not spills and not serialised and any("wgmma" in k for k in kernels)}
+
+
+def ptxas_log() -> str:
+    """nvcc's ``-Xptxas=-v`` report of ``csrc/flash_attention.cu`` as it is:
+    this process's build's, or, where the library came from the build
+    directory, a build into ``.runs/flash_variants/``."""
+    from colbert_tpu_torch.ops import _build
+
+    if "flash_attention" in _build.build_logs:
+        return _build.build_logs["flash_attention"]
+    out = ROOT / ".runs" / "flash_variants"
+    out.mkdir(parents=True, exist_ok=True)
+    return subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / "as_is.so"),
+                           str(_build.CSRC / "flash_attention.cu")], check=True, capture_output=True, text=True).stderr
 
 
 def variant_fns(name: str):
@@ -187,8 +231,8 @@ def block_heights(device, label, shapes) -> None:
 
 
 def probe_times(device, label, names) -> None:
-    """K11 and K12 route "wgmma" of the source as it is and of each variant,
-    cold at the retriever's shape, in turns (forward order, then reverse)."""
+    """K11, K12 and K13 route "wgmma" of the source as it is and of each
+    variant, cold at the retriever's shape, in turns (forward order, then reverse)."""
     import torch
 
     from colbert_tpu_torch.ops import flash_attention as fa
@@ -203,17 +247,21 @@ def probe_times(device, label, names) -> None:
     copies = [(heads(), heads(), heads(), heads()) for _ in range(2)]
     o, l, m = fa._launch_forward(*copies[0][:3], seg, seg, chip_smoke.FLASH_SCALE)
     di, inv_l = fa._launch_rows(o, copies[0][3], l)
-    got = {name: {"K11": [], "K12": []} for name in fns}
+    got = {name: {"K11": [], "K12": [], "K13": []} for name in fns}
     for name in [*fns, *reversed(fns)]:
         fa._resolved = fns[name]
         k11 = chip_smoke.in_turn(lambda x, i: fa._launch_forward(*x[:3], seg, seg, chip_smoke.FLASH_SCALE), copies)
         k12 = chip_smoke.in_turn(lambda x, i: fa._launch_dkv(*x[:3], seg, seg, chip_smoke.FLASH_SCALE, l, m, x[3], di,
                                                              inv_l=inv_l), copies)
+        k13 = chip_smoke.in_turn(lambda x, i: fa._launch_dq(*x[:3], seg, seg, chip_smoke.FLASH_SCALE, l, m, x[3], di,
+                                                            inv_l=inv_l), copies)
         got[name]["K11"].append(chip_smoke.time_ms(k11, warmup=4))
         got[name]["K12"].append(chip_smoke.time_ms(k12, warmup=4))
+        got[name]["K13"].append(chip_smoke.time_ms(k13, warmup=4))
     fa._resolved = fns["default"]
     for name, t in got.items():
-        chip_smoke.log(f"[probe] {name}: K11 {t['K11']} ms, K12 {t['K12']} ms cold at ({B}, {nh}, {L}, 64) [{label}]")
+        chip_smoke.log(f"[probe] {name}: K11 {t['K11']} ms, K12 {t['K12']} ms, K13 {t['K13']} ms cold at ({B}, {nh}, "
+                       f"{L}, 64) [{label}]")
 
 
 def stress(device, label, n) -> None:
@@ -320,12 +368,15 @@ def flash_trainer(device, ctx):
 def embedding_ways():
     """Ways to compute an embedding table's gradient from (ids (N,), the
     output's gradient (N, H) bf16, rows V), each giving the (V, H) bf16
-    gradient the lookup's backward gives: the lookup's own backward, the same
-    under deterministic algorithms, ``index_put_`` accumulating in fp32 (a
-    stable sort, then each id's rows summed in order), and for small tables
-    the one-hot product.  The model's ``lookup`` is the second."""
+    gradient the lookup's backward gives: the model's (``models/bert.py::
+    lookup_backward``: the one-hot product up to 16 rows, else the sorted
+    two-level sum), ``F.embedding``'s own backward, the same under
+    deterministic algorithms, ``index_put_`` accumulating in fp32, and for
+    small tables the one-hot product in the gradient's dtype."""
     import torch
     import torch.nn.functional as F
+
+    from colbert_tpu_torch.models.bert import lookup_backward
 
     def lookup(ids, g, V):
         return torch.ops.aten.embedding_dense_backward(g, ids, V, -1, False)
@@ -343,8 +394,14 @@ def embedding_ways():
 
     def one_hot(ids, g, V):
         return (F.one_hot(ids, V).to(g.dtype).t() @ g) if V <= 512 else None
-    return {"lookup": lookup, "lookup_deterministic": lookup_deterministic, "index_put": index_put,
-            "one_hot": one_hot}
+
+    def csr(ids, g, V):  # the one-hot product as a sparse CSR matrix times the gradient in fp32 (cuSPARSE)
+        sorted_ids, order = torch.sort(ids, stable=True)
+        first = torch.searchsorted(sorted_ids, torch.arange(V + 1, device=ids.device))
+        a = torch.sparse_csr_tensor(first, order, torch.ones(ids.numel(), device=ids.device), size=(V, ids.numel()))
+        return (a @ g.float()).to(g.dtype)
+    return {"model": lookup_backward, "lookup": lookup, "lookup_deterministic": lookup_deterministic,
+            "index_put": index_put, "one_hot": one_hot, "csr": csr}
 
 
 def embedding_repeats(device, label, n, ctx) -> None:
@@ -384,9 +441,12 @@ def embedding_repeats(device, label, n, ctx) -> None:
             differ = sum(not torch.equal(fn(ids, g, rows).view(torch.int16), first.view(torch.int16))
                          for _ in range(n))
             ms = chip_smoke.time_ms(lambda: fn(ids, g, rows))
+            card = chip_smoke.device_ms(lambda: fn(ids, g, rows))
+            host = chip_smoke.host_ms(lambda: fn(ids, g, rows))
             err = float((first.float() - first_way.float()).abs().max())
             chip_smoke.log(f"[embedding] {desc}; {way}: {differ} of {n} replays not bit-equal to the first, "
-                           f"{ms:.4f} ms a call, max|d| from the lookup's first {err:.3e} [{label}]")
+                           f"{ms:.4f} ms a call as issued, {card:.4f} on the card alone, {host:.4f} on the host "
+                           f"clock; max|d| from the model's first {err:.3e} [{label}]")
     # the lookup's backward by table size: the doc pass's gradient, ids over the first min(rows, 128) rows or all
     for rows in (2, 16, 128, 512, 1024, 2048, 4096, 8192, 21128):
         for span in sorted({min(rows, 128), rows}):
@@ -486,7 +546,7 @@ def main() -> int:
     ap.add_argument("--variant", action="append", default=[], choices=VARIANTS,
                     help="phase 8a on this variant of the source")
     ap.add_argument("--probe", action="append", default=[], choices=VARIANTS,
-                    help="K11 and K12 times alone, unchecked, on this variant of the source")
+                    help="K11, K12 and K13 times alone, unchecked, on this variant of the source")
     ap.add_argument("--train", type=int, default=0, metavar="N",
                     help="phase 8b once, then phase 8e N times")
     ap.add_argument("--trace", type=int, default=0, metavar="N",
@@ -503,7 +563,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("flash_variants: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from colbert_tpu_torch.ops import _build, flash_attention as fa
+    from colbert_tpu_torch.ops import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full fp32
     device = torch.device("cuda", 0)
@@ -512,11 +572,16 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = fa._kernel_lib()
     chip_smoke.log(f"[build] flash_attention.cu in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_logs.get("flash_attention", "").splitlines():
+    log = ptxas_log()
+    for line in log.splitlines():
         if any(w in line for w in ("registers", "spill", "arning", "wgmma", "Function properties", "Compiling")):
             chip_smoke.log(f"[build] {line.strip()}")
     for name, c in sass_counts(lib._name).items():
         chip_smoke.log(f"[sass] {name}: {c}")
+    check = ptxas_check(log)
+    chip_smoke.log(f"[check] route \"wgmma\" kernels: no spills and no serialised wgmma {check['ok']} (spills "
+                   f"{check['wgmma_spills']}, serialised {check['serialised']}); registers "
+                   f"{ {k: v.get('registers') for k, v in check['kernels'].items()} }")
     shapes = {"retriever": (68, 12), "ce": (20, 16), "encode": (384, 12), "unpadded": (16, 12), "past_128": (16, 12)}
     with tempfile.TemporaryDirectory(prefix="flash_variants_") as tmp:
         if args.quick:
@@ -558,7 +623,7 @@ def main() -> int:
                     chip_smoke.log(f"[trace] word ids and token types by {'F.embedding' if args.lookup else 'the model lookup'}")
                     train_trace(device, label, args.trace, ctx, args.deterministic)
     chip_smoke.log(label)
-    return 0
+    return 0 if check["ok"] else 1
 
 
 if __name__ == "__main__":

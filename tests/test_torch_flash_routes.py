@@ -1,6 +1,7 @@
-"""The routes of the port's flash kernels K11 and K12 and the backward's
+"""The routes of the port's flash kernels K11, K12 and K13 and the backward's
 rows kernel (di and 1 / l) as far as the CPU can check them: the route rule,
-the card path's wiring, and the order in which the rows kernel sums di,
+the card path's wiring (the launches' arguments by route, with the C entry
+points stood in), and the order in which the rows kernel sums di,
 emulated in torch, against ``flash_di`` and the di of JAX's flash backward
 (the Pallas TPU kernels run as with ``interpret=True``).  The kernels
 themselves run only on the card (``tests/test_torch_kernels.py``).
@@ -82,21 +83,24 @@ def _lanes_numpy(o, do):
 ])
 def test_every_shape_the_kernels_take_goes_to_wgmma(shape, dtype):
     """Route "wgmma" for every input the kernels take, bf16 and fp16 alike:
-    the launches' default; "simple" only on request.  What they refuse, both
-    routes refuse: ``kernel_refusal`` runs before either launch
-    (``tests/test_torch_flash_attention.py::test_kernel_refusal_rule``)."""
+    the launches' default, K11's, K12's and K13's; "simple" only on request.
+    What they refuse, both routes refuse: ``kernel_refusal`` runs before any
+    launch (``tests/test_torch_flash_attention.py::test_kernel_refusal_rule``)."""
     q = torch.zeros(shape, dtype=dtype)
     assert fa.kernel_refusal(q, q, q) is None
-    for launch in (fa._launch_forward, fa._launch_dkv):
+    for launch in (fa._launch_forward, fa._launch_dkv, fa._launch_dq):
         assert inspect.signature(launch).parameters["route"].default == "wgmma"
+    for launch in (fa._launch_dkv, fa._launch_dq):
+        assert inspect.signature(launch).parameters["inv_l"].default is None
     assert fa.ROUTES == ("wgmma", "simple")
-    assert set(fa.fwd_route_launches) == set(fa.dkv_route_launches) == set(fa.ROUTES)
+    assert set(fa.fwd_route_launches) == set(fa.dkv_route_launches) == set(fa.dq_route_launches) == set(fa.ROUTES)
 
 
 def test_card_path_wires_di_and_inv_l(monkeypatch):
     """``flash_backward`` on the card path: di and 1 / l from the rows kernel
-    (once), K12 on the default route (none passed) with both, K13 with the same di; the
-    launches stood in by the plain versions (the kernels run only on the card)."""
+    (once), K12 and K13 on the default route (none passed), each with both;
+    the launches stood in by the plain versions (the kernels run only on the
+    card)."""
     q, k, v, w, seg = _inputs(5, 256, 129)
     qt, kt, vt = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
     s = torch.from_numpy(seg)
@@ -112,8 +116,8 @@ def test_card_path_wires_di_and_inv_l(monkeypatch):
         seen["dkv"] = (route, di, inv_l)
         return fa.flash_backward_ref(q_, k_, v_, qs, ks, sc, l_, m_, do_, di)[1:]
 
-    def dq(q_, k_, v_, qs, ks, sc, l_, m_, do_, di):
-        seen["dq"] = di
+    def dq(q_, k_, v_, qs, ks, sc, l_, m_, do_, di, route=None, inv_l=None):
+        seen["dq"] = (route, di, inv_l)
         return fa.flash_backward_ref(q_, k_, v_, qs, ks, sc, l_, m_, do_, di)[0]
 
     monkeypatch.setattr(fa, "_on_cpu", lambda *ts: False)
@@ -124,10 +128,56 @@ def test_card_path_wires_di_and_inv_l(monkeypatch):
     got = fa.flash_backward(qt, kt, vt, s, s, SCALE, o, l, m, do)
     di = fa.flash_di_card_order(o, do)
     route, di_dkv, inv_l = seen["dkv"]
-    assert seen["rows"] == 1 and route is None
-    assert torch.equal(di_dkv, di) and torch.equal(seen["dq"], di) and torch.equal(inv_l, torch.ones_like(l) / l)
+    route_dq, di_dq, inv_l_dq = seen["dq"]
+    assert seen["rows"] == 1 and route is None and route_dq is None
+    assert torch.equal(di_dkv, di) and torch.equal(di_dq, di)
+    assert torch.equal(inv_l, torch.ones_like(l) / l) and inv_l_dq is inv_l  # the rows kernel's one 1 / l
     want = fa.flash_backward_ref(qt, kt, vt, s, s, SCALE, l, m, do, di)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("route", ["wgmma", "simple"])
+@pytest.mark.parametrize("given_inv_l", [True, False])
+def test_dq_launch_arguments_by_route(monkeypatch, route, given_inv_l):
+    """``_launch_dq`` hands the C entry point what K13's route reads, as
+    ``_launch_dkv`` hands K12's: route code 1 with 1 / l (the caller's, or
+    ``1 / l`` computed when none is given) and route code 0 with l and a null
+    1 / l; q's (batch, head, row) strides in the models' layout; dq a
+    heads-major view; one launch counted in all and one by route.  The C
+    entry point is stood in (it exists only where nvcc built it)."""
+    B, nh, L = 2, 3, 256
+    g = torch.Generator().manual_seed(3)
+    q, k, v, do = (torch.randn((B, L, nh, 64), generator=g).bfloat16().transpose(1, 2) for _ in range(4))
+    seg = torch.ones((B, L), dtype=torch.int32)
+    l = torch.rand((B, nh, L), generator=g) + 1
+    m, di = torch.randn((B, nh, L), generator=g), torch.randn((B, nh, L), generator=g)
+    inv_l = torch.ones_like(l) / l
+    got = {}
+
+    def launch(*a):
+        got["args"] = a
+        return 0
+
+    monkeypatch.setattr(fa, "_fns", lambda: (None, None, launch, None))
+    monkeypatch.setattr(fa, "_device_stream", lambda t: (0, 0))
+    before = (fa.dq_launches.value, {r: c.value for r, c in fa.dq_route_launches.items()})
+    dq = fa._launch_dq(q, k, v, seg, seg, SCALE, l, m, do, di, route=route,
+                       inv_l=inv_l if given_inv_l else None)
+    a = got["args"]
+    assert len(a) == 25 and a[21] == 0 and a[22] == {"simple": 0, "wgmma": 1}[route]
+    assert a[5] == l.data_ptr() and a[7] == m.data_ptr() and a[9] == di.data_ptr() and a[10] == dq.data_ptr()
+    if route == "simple":
+        assert a[6] is None
+    elif given_inv_l:
+        assert a[6] == inv_l.data_ptr()
+    else:
+        assert a[6] not in (None, l.data_ptr(), inv_l.data_ptr())
+    assert list(a[11]) == [L * nh * 64, 64, nh * 64] and list(a[15]) == list(a[11])  # q's and dq's strides
+    assert a[16:20] == (B, nh, L, L) and a[20] == SCALE
+    assert dq.shape == q.shape and dq.transpose(1, 2).is_contiguous()
+    assert fa.dq_launches.value == before[0] + 1
+    assert {r: c.value - before[1][r] for r, c in fa.dq_route_launches.items()} == {
+        r: int(r == route) for r in fa.ROUTES}
 
 
 def test_cpu_path_keeps_flash_di():
@@ -138,7 +188,8 @@ def test_cpu_path_keeps_flash_di():
     s = torch.from_numpy(seg)
     o, l, m = fa.flash_forward_ref(qt, kt, vt, s, s, SCALE)
     do = torch.from_numpy(w).bfloat16()
-    counters = [fa.rows_launches, *fa.fwd_route_launches.values(), *fa.dkv_route_launches.values()]
+    counters = [fa.rows_launches, *fa.fwd_route_launches.values(), *fa.dkv_route_launches.values(),
+                *fa.dq_route_launches.values()]
     before = [c.value for c in counters]
     got = fa.flash_backward(qt, kt, vt, s, s, SCALE, o, l, m, do)
     want = fa.flash_backward_ref(qt, kt, vt, s, s, SCALE, l, m, do, fa.flash_di(o, do))

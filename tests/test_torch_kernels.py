@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the flat scan (K1, K2), all-pairs MaxSim (K3, both routes), dropout (K9, both routes), flash
-attention (K11 forward and K12 dK/dV on both routes, K13 dQ, the backward's rows kernel, and their
-launches a train and a CE step), the rerank
+attention (K11 forward, K12 dK/dV and K13 dQ on both routes, the backward's rows kernel, and their
+launches a train and a CE step), the embeddings' backward (the same bits every run, the
+process-wide deterministic-algorithms flag untouched), the rerank
 (K4 bf16, K5 int8, on both routes, its pid-window schedule's edges and its
 freedom from host synchronisation), the sq list scans (K6 slots and K7 hot
 lists, each on both routes; K6's work list's edges, K7's member-token
@@ -1028,12 +1029,12 @@ def test_token_probe_never_synchronises(cuda_device):
     (6, 4, 384, torch.bfloat16, "unseen"),
 ])
 def test_flash_kernels_match_plain(cuda_device, B, nh, L, dtype, layout, route):
-    """K11 and K12 on ``route``, and K13, against the plain versions on the
+    """K11, K12 and K13 on ``route`` against the plain versions on the
     same inputs (the backward on the plain forward's l, m and di), within 2
     bf16 ulps of each element's head vector and at most 1e-3 of the elements
     past 2 ulps of their own magnitude; two runs bit-equal; on the route the
     wrapper takes, the autograd function equal to the launches (its backward
-    on the rows kernel's di and 1 / l)."""
+    on the rows kernel's di and 1 / l, which K12 and K13 both read)."""
     from colbert_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(cuda_device).manual_seed(B * L + nh)
@@ -1055,7 +1056,7 @@ def test_flash_kernels_match_plain(cuda_device, B, nh, L, dtype, layout, route):
     di = fa.flash_di(ro, do)
     bargs = (*args, rl, rm, do, di)
     dk, dv = fa._launch_dkv(*bargs, route=route)
-    dq = fa._launch_dq(*bargs)
+    dq = fa._launch_dq(*bargs, route=route)
     want = fa.flash_backward_ref(*bargs)
     torch.cuda.synchronize()
     for what, got, ref in (("o", o, ro), ("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
@@ -1066,7 +1067,7 @@ def test_flash_kernels_match_plain(cuda_device, B, nh, L, dtype, layout, route):
     o2, l2, m2 = fa._launch_forward(*args, route=route)
     dk2, dv2 = fa._launch_dkv(*bargs, route=route)
     assert torch.equal(o, o2) and torch.equal(l, l2) and torch.equal(m, m2)
-    assert torch.equal(dk, dk2) and torch.equal(dv, dv2) and torch.equal(dq, fa._launch_dq(*bargs))
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2) and torch.equal(dq, fa._launch_dq(*bargs, route=route))
     if route != "wgmma":  # the autograd function runs the default route
         return
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
@@ -1076,7 +1077,7 @@ def test_flash_kernels_match_plain(cuda_device, B, nh, L, dtype, layout, route):
     own = (q, k, v, q_seg, kv_seg, 0.125, l, m, do, di_card)
     dkf, dvf = fa._launch_dkv(*own, inv_l=inv_l)
     assert torch.equal(out, o)
-    assert torch.equal(leaves[0].grad, fa._launch_dq(*own))
+    assert torch.equal(leaves[0].grad, fa._launch_dq(*own, inv_l=inv_l))
     assert torch.equal(leaves[1].grad, dkf) and torch.equal(leaves[2].grad, dvf)
 
 
@@ -1134,7 +1135,8 @@ def test_flash_launches_per_train_step(cuda_device, num_layers, remat):
     d_ids, q_ids = torch.randint(1, 128, (6, 128), generator=g), torch.randint(1, 128, (2, 32), generator=g)
     d_attn = (torch.arange(128)[None, :] < torch.tensor([128, 100, 60, 129 - 1, 33, 5])[:, None]).long()
     counters = (fa.fwd_launches, fa.dkv_launches, fa.dq_launches, dr.hw_dropout.launches,
-                fa.fwd_route_launches["wgmma"], fa.dkv_route_launches["wgmma"], fa.rows_launches)
+                fa.fwd_route_launches["wgmma"], fa.dkv_route_launches["wgmma"], fa.dq_route_launches["wgmma"],
+                fa.rows_launches)
     before = [c.value for c in counters]
     D = m.doc(d_ids.to(cuda_device), d_attn.to(cuda_device), generator=torch.Generator().manual_seed(2))
     Q = m.query(q_ids.to(cuda_device), torch.ones_like(q_ids).to(cuda_device), generator=torch.Generator().manual_seed(3))
@@ -1145,7 +1147,7 @@ def test_flash_launches_per_train_step(cuda_device, num_layers, remat):
     # runs each layer's three sites again in the recompute
     k9 = 2 * 2 * (1 + 3 * num_layers) + (2 * 3 * num_layers if remat == "full" else 0)
     k11 = num_layers * (2 if remat == "full" else 1)
-    assert got == [k11, num_layers, num_layers, k9, k11, num_layers, num_layers]  # K11, K12 on "wgmma"
+    assert got == [k11, num_layers, num_layers, k9, k11, num_layers, num_layers, num_layers]  # all on "wgmma"
 
 
 @pytest.mark.parametrize("attention_impl", ["xla", "flash"])
@@ -1157,7 +1159,8 @@ def test_train_step_gradients_bit_equal(cuda_device, attention_impl):
     queries of 32 padded with one id; explicit and flash attention.  With
     ``F.embedding`` in place of the model's ``lookup`` this failed: its
     backward on the card summed the ~200 rows of each word id in an order
-    that varied from run to run."""
+    that varied from run to run.  The lookup's backward is
+    ``models.bert.lookup_backward``, which sets no process-wide flag."""
     from colbert_tpu_torch.config import ModelConfig, MultiviewConfig
     from colbert_tpu_torch.models.colbert import ColbertModel
     from colbert_tpu_torch.ops.dropout import same_bits
@@ -1184,6 +1187,49 @@ def test_train_step_gradients_bit_equal(cuda_device, attention_impl):
     for _ in range(2):
         again = grads()
         assert [k for k in first if not same_bits(first[k], again[k])] == []
+
+
+@pytest.mark.parametrize("rows,n,span", [(2, 26_112, 1), (21_128, 26_112, 2_001), (128, 26_112, 128)])
+def test_lookup_backward_on_the_card(cuda_device, monkeypatch, rows, n, span):
+    """The embeddings' backward on the card (``models.bert.lookup_backward``:
+    the one-hot product for the 2-row token types, the sorted two-level sum
+    for the doc pass's words and a 128-word vocabulary): three runs bit-equal;
+    ``F.embedding``'s gradient bit for bit where every fp32 sum is exact
+    (quarter integers), and within fp32 rounding of the float64 sums on random
+    values; and through ``lookup``'s autograd, with
+    ``torch.use_deterministic_algorithms`` patched to raise, the global flag
+    never set (read in a hook on the lookup's output gradient and after)."""
+    import torch.nn.functional as F
+
+    from colbert_tpu_torch.models import bert
+
+    g = torch.Generator().manual_seed(rows)
+    ids = torch.randint(0, span, (n,), generator=g)
+    ids[torch.rand(n, generator=g) < 0.7] = 0  # one id on most rows, as padding is at the doc pass
+    ids = ids.to(cuda_device)
+    exact = (torch.randint(-8, 9, (n, 768), generator=g).float() / 4).to(cuda_device)
+    w = torch.zeros((rows, 768), device=cuda_device, requires_grad=True)
+    F.embedding(ids, w).backward(exact)
+    up = torch.randn((n, 768), generator=g).to(cuda_device).bfloat16()
+    runs = [bert.lookup_backward(ids, up, rows) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(r.view(torch.int16), runs[0].view(torch.int16)) for r in runs[1:])
+    assert torch.equal(bert.lookup_backward(ids, exact.bfloat16(), rows), w.grad.bfloat16())
+    want = torch.zeros((rows, 768), dtype=torch.float64, device=cuda_device).index_add_(0, ids, up.double())
+    mags = torch.zeros_like(want).index_add_(0, ids, up.double().abs())
+    assert bool(((runs[0].double() - want).abs() <= n * 2.0**-24 * mags + 2.0**-7 * want.abs()).all())
+
+    def refuse(*a, **kw):
+        raise AssertionError("torch.use_deterministic_algorithms called")
+    monkeypatch.setattr(torch, "use_deterministic_algorithms", refuse)
+    seen = []
+    weight = torch.zeros((rows, 768), device=cuda_device, dtype=torch.bfloat16, requires_grad=True)
+    out = bert.lookup(ids, weight)
+    out.register_hook(lambda gr: seen.append(torch.are_deterministic_algorithms_enabled()))
+    out.backward(up)
+    torch.cuda.synchronize()
+    seen.append(torch.are_deterministic_algorithms_enabled())
+    assert seen == [False, False] and torch.equal(weight.grad, runs[0])
 
 
 def test_flash_launches_per_ce_step(cuda_device, tmp_path):

@@ -189,3 +189,58 @@ def test_lookup_is_the_embedding(rows, dtype):
     want.backward(up)
     assert torch.equal(out, want) and torch.equal(a.grad, b.grad)
     assert torch.are_deterministic_algorithms_enabled() == before
+
+
+@pytest.mark.parametrize("rows,n,span,dtype", [
+    (2, 26_112, 1, torch.bfloat16),      # token types at the doc pass: one id, every row
+    (2, 600, 2, torch.float32),
+    (300, 240, 7, torch.float32),        # a few ids repeated many times
+    (21_128, 6_000, 2_001, torch.bfloat16),  # the word table, a padding id on half the rows
+])
+def test_lookup_backward_sums_like_the_embedding(rows, n, span, dtype):
+    """``models.bert.lookup_backward``, the lookup's backward on the card (the
+    one-hot product up to ``ONE_HOT_ROWS`` rows, the sorted two-level sum
+    above), run on CPU tensors: ``F.embedding``'s gradient in fp32 rounded
+    once to the dtype (its CUDA backward's accumulation; the CPU one sums
+    bf16 in bf16) bit for bit where every fp32 sum is exact (quarter
+    integers), and within fp32 rounding of the float64 sums (N * 2^-24 of
+    the sum of magnitudes, then one rounding to the dtype) on random values."""
+    from colbert_tpu_torch.models import bert
+
+    g = torch.Generator().manual_seed(rows + n)
+    ids = torch.randint(0, span, (n,), generator=g)
+    ids[: n // 2] = 0
+    exact = (torch.randint(-8, 9, (n, 16), generator=g).float() / 4).to(dtype)
+    w = torch.zeros((rows, 16), requires_grad=True)
+    torch.nn.functional.embedding(ids, w).backward(exact.float())
+    assert torch.equal(bert.lookup_backward(ids, exact, rows), w.grad.to(dtype))
+    up = torch.randn((n, 16), generator=g).to(dtype)
+    want = torch.zeros((rows, 16), dtype=torch.float64).index_add_(0, ids, up.double())
+    mags = torch.zeros((rows, 16), dtype=torch.float64).index_add_(0, ids, up.double().abs())
+    got = bert.lookup_backward(ids.view(2, -1), up.view(2, -1, 16), rows)  # batch-shaped, as the model's (B, L)
+    assert got.dtype == dtype and got.shape == (rows, 16)
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -23
+    assert bool(((got.double() - want).abs() <= n * 2.0 ** -24 * mags + ulp * want.abs()).all())
+    for form in (bert.one_hot_sum, bert.sorted_sum):  # both forms, the same exact sums
+        if form is bert.sorted_sum or rows <= 512:
+            assert torch.equal(form(ids, exact, rows), w.grad)
+
+
+def test_lookup_backward_leaves_the_deterministic_flag_alone(monkeypatch):
+    """No backward through the embeddings calls ``torch.use_deterministic_algorithms``
+    (a process-wide flag: other threads' ops would run under it): the lookup's
+    backward on CPU tensors and its card form run on CPU tensors, with the
+    flag's setter patched to raise."""
+    from colbert_tpu_torch.models import bert
+
+    def refuse(*a, **kw):
+        raise AssertionError("torch.use_deterministic_algorithms called")
+    monkeypatch.setattr(torch, "use_deterministic_algorithms", refuse)
+    emb = bert.BertEmbeddings(CFG).train()
+    g = torch.Generator().manual_seed(5)
+    ids = torch.randint(0, CFG.vocab_size, (3, 24), generator=g)
+    emb(ids, torch.zeros_like(ids), torch.float32, generator=torch.Generator().manual_seed(1)).sum().backward()
+    assert emb.word_embeddings.weight.grad is not None and emb.token_type_embeddings.weight.grad is not None
+    up = torch.randn((72, 8), generator=g)
+    for rows in (2, 300):
+        bert.lookup_backward(ids.reshape(-1) % rows, up, rows)
