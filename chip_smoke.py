@@ -6,7 +6,8 @@
 Builds the port's CUDA kernels from ``colbert_tpu_torch/csrc`` (one nvcc
 per source, all at once) and drives the port's paths, exact flat serving,
 retriever training and ANN serving with the sq, pq4 and pq codecs (sq also
-by the token-major probe), at full BERT-base width, the second stage
+by the token-major probe; ragged corpora over stride buckets, the host-RAM
+table, the packed dedup), at full BERT-base width, the second stage
 (mining, the cross-encoder's training and reranking) at macbert-large
 width, and the flash-attention path and remat, with random weights from a
 seed:
@@ -222,6 +223,43 @@ seed:
   config) with remat "full", "dots" and "attn" on the explicit path and
   "full" with flash: losses bit-equal to the same steps without remat (the
   flash ones also to phase 8b's first three); the peak memory of each.
+
+* phase 9, ANN over a ragged corpus (multiview off: each doc its own
+  count of rows, 32 query rows) at the sq cell's operating point, the
+  host-RAM rerank table and the packed dedup:
+  (c) at the end of phase 6c: the first 10,000 passages of phase 2's
+  corpus encoded with ``multiview.enabled=false``, ``build-index`` (sq),
+  ``serve`` (bf16 stride buckets) over the socket, two requests of 144
+  questions, one request each through an int8 (int8 buckets), a
+  ``serve.rerank_table=host`` and a ``serve.dedup_impl=packed`` service,
+  ``evaluate --remote``.  Every answer must hold 100 valid, descending
+  triples whose scores equal the exact MaxSim of the returned pids over
+  the served table within 1e-4 (the host table: its int8 blocks against
+  ``bf16(Qm * inv_scale)``); K4 (bf16) or K5 (int8) must launch once a
+  bucket a batch and K5 once a host-table batch, every launch on route
+  "staged", K6 and K7 once a batch on route "mma";
+  (b) after phase 6: a synthetic ragged corpus, 10,000 docs of 40-124
+  rows drawn around ``topic_embeddings``' topics (~0.82 M rows),
+  ``build-index`` with sq (K = 4,096, sq_dim 64) and pq4; one batch of 144
+  two-topic queries of 32 rows from query reps with each of: bf16, int8
+  and fp32 rerank tables (stride buckets; the fp32 table ragged, gathered
+  with a doclen mask), the host table with funnels of 256 and 4,096, the
+  packed dedup, and the pq4 index: recall@100 against the fp32 exact
+  oracle over the stored rows (at least 0.98 for bf16, int8, fp32, packed
+  and the 4,096 funnel; the 256 funnel and pq4 reported), the batch's time,
+  its launches (as in 9c; the host table: K5 once a query chunk of at most
+  4 GB of blocks), and the bf16 batch's time per stage with the packed
+  against the exact dedup (information);
+  (a) on that batch's candidates (144 x 4,096): K4 over the bf16 and K5
+  over the int8 stride buckets on route "staged", each bucket's launch and
+  the bucketed entry against their plain versions (within 1e-4, -inf
+  exactly at the -1 candidates), each timed (CUDA events; the pair blocks
+  pass the L2 many times over: cold) beside the byte bound of the distinct
+  doc blocks, that of the pair blocks route "staged" reads, and the
+  operation bound (bf16; three terms for K5); and K5 over host-gathered
+  blocks, a uniform host table (16 rows, 16 views: route "wgmma") and the
+  ragged corpus's at its default funnel (route "staged"), each against its
+  plain version, timed with the host gather and the copy to the card.
 
 Prints the card's name and power limit, the measurements, one JSON line of
 kernels, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -777,7 +815,9 @@ def phase_slice(device, workdir: Path, label: str, num_docs=20_000, model_kw=Non
                                           requests, k2_searcher, n_eval, label)
     codec_launches = phase_codecs_cli(device, workdir, cfg, common, corpus_path, eval_path, docs,
                                       requests, k2_searcher, n_eval)
-    ctx = {"cfg": cfg, "common": common, "corpus_path": corpus_path, "docs": docs, "questions": questions,
+    ragged_cli = phase_ragged_cli(device, workdir, cfg, common, eval_path, docs, requests, n_eval, label)
+    ctx = {"ragged_cli": ragged_cli, "cfg": cfg, "common": common, "corpus_path": corpus_path, "docs": docs,
+           "questions": questions,
            "positives": positives, "free": list(range(n_requests * B, len(questions))),
            "encode_docs_s": num_docs / enc_s}
     return launches, worst, ann_launches, codec_launches, k7_deep, ctx
@@ -3232,6 +3272,480 @@ def phase_remat(device, label, train_ctx, steps=3):
     return {f"{impl}/{remat}": r for (impl, remat), r in out.items()}
 
 
+# ---- phase 9: ANN over a ragged corpus, the host-RAM table, the packed dedup ----
+
+RAGGED_DOCS, RAGGED_ROWS = 10_000, (40, 125)  # docs and their row counts (rng.integers' bounds)
+RAGGED_QV = 32                                # query rows with multiview off: query_maxlen
+RAGGED_K = 4096                               # IVF lists of phase 9b's indexes
+RAGGED_RECALL = 0.98                          # recall@100 each required phase-9b path must reach
+HOST_FUNNELS = (256, 4096)                    # serve.host_rerank_candidates: the default and the whole budget
+HOST_UNIFORM_DOCS = 20_000                    # phase 9a's uniform host table (16 rows a doc)
+
+
+def ragged_topic_embeddings(num_docs, rows, dim, seed=0, n_topics=256):
+    """Ragged docs around :func:`topic_embeddings`' topics (same ``seed``):
+    doc i holds ``rng.integers(*rows)`` unit rows around its topic.  Returns
+    fp16 rows (sum of doclens, dim) and the doclens."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    topics, spectrum = _topics(rng, dim, n_topics)
+    doclens = rng.integers(*rows, size=num_docs)
+    t = np.repeat(rng.integers(0, n_topics, size=num_docs), doclens)
+    out = np.empty((len(t), dim), np.float16)
+    for lo in range(0, len(t), 1 << 16):
+        tc = t[lo : lo + (1 << 16)]
+        e = topics[tc] + 0.3 * (rng.standard_normal((len(tc), dim), dtype=np.float32) * spectrum)
+        out[lo : lo + len(tc)] = e / np.linalg.norm(e, axis=1, keepdims=True)
+    return out, doclens
+
+
+def ragged_config(cfg, index_path, port, codec="sq"):
+    """``codec_config`` with multiview off (32 query rows, ragged docs)."""
+    out = codec_config(cfg, index_path, port, codec)
+    out.multiview.enabled = False
+    return out
+
+
+def host_chunks(searcher, topk=TOPK, batch=None):
+    """K5 launches of one host-table batch: its query chunks."""
+    from colbert_tpu_torch.ranking import searcher as srch
+
+    h = searcher.host_table
+    per_query = searcher.host_funnel(topk) * h.cap * searcher.dim
+    nq = max(1, min(batch or B, srch._HOST_BLOCK_BYTES // per_query))
+    return -(-(batch or B) // nq)
+
+
+def host_exact(searcher):
+    """The exact MaxSim of pids over ``searcher``'s host table, as its rerank
+    computes it: each doc's int8 block, rows past its doclen zeroed, against
+    ``bf16(Qm * inv_scale)``, in K5's plain version."""
+    import torch
+
+    from colbert_tpu_torch.ops import rerank as rr
+
+    h, dev = searcher.host_table, searcher.device
+
+    def exact(pids, Qm):
+        n, k = pids.shape
+        c = pids.long().cpu()
+        blocks = h.gather(c, torch.empty((n * k * h.cap, searcher.dim), dtype=torch.int8)).to(dev)
+        if h.doc_offsets is not None:
+            past = torch.arange(h.cap, device=dev) >= h.doclens[c.clamp(min=0)].to(dev)[..., None]
+            blocks.view(n, k, h.cap, -1).masked_fill_(past[..., None], 0)
+        local = torch.arange(n * k, dtype=torch.int32, device=dev).view(n, k)
+        q = (Qm.float() * searcher.emb_inv_scale).to(torch.bfloat16).float()
+        return rr.maxsim_rerank_uniform_int8_ref(torch.where(pids >= 0, local, -1), q, blocks, dv=h.cap)
+
+    return exact
+
+
+def bucket_exact(searcher):
+    """The exact MaxSim of pids over ``searcher``'s stride buckets (bf16 or
+    int8), in the bucketed rerank's plain version."""
+    from colbert_tpu_torch.ops import rerank as rr
+
+    return lambda pids, Qm: rr.maxsim_rerank_buckets_ref(pids, Qm, *searcher.emb_table,
+                                                        inv_scale=searcher.emb_inv_scale)
+
+
+def rerank_launches() -> dict:
+    return {k: v for k, v in read_counts().items() if k.startswith(("K4", "K5", "K6", "K7"))}
+
+
+def phase_ragged_cli(device, workdir: Path, cfg, common, eval_path, docs, requests, n_eval, label,
+                     num_docs=RAGGED_DOCS):
+    """Phase 9c: the first ``num_docs`` passages of phase 2's corpus encoded
+    with multiview off, ``build-index`` (sq), ``serve`` (ann, bf16 stride
+    buckets) over the socket, two requests; one request each through an
+    int8, a host-table and a packed-dedup service; ``evaluate --remote``.
+    The launch counts of that run: K4/K5 once a bucket a batch (the host
+    table: K5 once a batch), all on route "staged", K6 and K7 once a batch
+    on "mma"; every answer's scores the exact MaxSim of its pids over the
+    served table."""
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.config import ColbertConfig
+    from colbert_tpu_torch.indexing.storage import IndexStorage
+    from colbert_tpu_torch.ops.rerank import stride_buckets
+    from colbert_tpu_torch.serving.server import RetrievalClient
+    from colbert_tpu_torch.utils.io import dump_json
+
+    rdocs = docs[:num_docs]
+    corpus = workdir / "corpus_ragged.json"
+    dump_json(rdocs, corpus)
+    rcfg = ragged_config(cfg, workdir / "index_ragged", free_port())
+    rcfg.index.partitions = 0  # auto, as phase 5c's
+    conf = workdir / "conf_ragged.yaml"
+    rcfg.to_yaml(conf)
+    args = ["--config", str(conf), *common[2:]]
+    t0 = time.perf_counter()
+    cli.main(["encode", "--corpus", str(corpus), *args])
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli.main(["build-index", *args])
+    build_s = time.perf_counter() - t0
+    doclens = np.asarray(IndexStorage(rcfg.index.index_path).read_doclens())
+    strides = stride_buckets(doclens, row_multiple=16)  # int8 at dim 768 takes 16 rows too (JAX's rule)
+    log(f"[phase9c] encode (multiview off) of phase 2's first {num_docs} passages in {enc_s:.1f} s, build-index "
+        f"(sq) in {build_s:.1f} s: {int(doclens.sum())} rows, doclens {int(doclens.min())}-{int(doclens.max())}, "
+        f"strides {strides}")
+    serve_err = []
+
+    def serve():
+        try:
+            cli.main(["serve", "--corpus", str(corpus), *args])
+        except BaseException as e:  # noqa: BLE001 -- reported by the main thread
+            serve_err.append(e)
+
+    server = threading.Thread(target=serve, daemon=True, name="serve-ragged")
+    server.start()
+    ns = argparse.Namespace(pretrain=common[common.index("--pretrain") + 1], checkpoint_step=None,
+                            device=str(device), corpus=str(corpus))
+    services = {}
+    for name, key, value in (("int8", "rerank_dtype", "int8"), ("host", "rerank_table", "host"),
+                             ("packed", "dedup_impl", "packed")):
+        c = ColbertConfig.from_dict(rcfg.to_dict())
+        setattr(c.serve, key, value)
+        services[name] = cli.make_service(c, ns)
+        services[name].retrieve(requests[0][:1], topk=TOPK)  # warm-up, not counted
+    client = RetrievalClient(rcfg.serve.host, rcfg.serve.port, rcfg.serve.authkey.encode())
+    wait_for_server(rcfg, serve_err)
+    client.retrieve(requests[0][:1], topk=TOPK, depth=DEPTH, nprobe=NPROBE)  # warm-up, not counted
+
+    # ---- the counted ragged ANN serving-path run ----
+    reset_counts()
+    answers, lat = {"bf16": []}, {}
+    for i, qs in enumerate(requests[:2]):
+        t0 = time.perf_counter()
+        answers["bf16"].append(client.retrieve(qs, topk=TOPK, depth=DEPTH, nprobe=NPROBE))
+        lat[f"socket {i}"] = time.perf_counter() - t0
+    for name, service in services.items():
+        t0 = time.perf_counter()
+        answers[name] = [service.retrieve(requests[0], topk=TOPK)]
+        lat[name] = time.perf_counter() - t0
+    cli.main(["evaluate", "--eval-data", str(eval_path), "--remote", "--topk", str(TOPK), *args])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    # ----
+
+    client.shutdown()
+    server.join(timeout=60)
+    if server.is_alive() or serve_err:
+        raise RuntimeError(f"ragged ann server did not stop cleanly: {serve_err}")
+    log(f"[phase9c] {B} questions top-{TOPK} in ms: "
+        + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in lat.items()) + f" (socket, or in process) [{label}]")
+    nb, eval_batches = len(strides), -(-n_eval // B)
+    host_k5 = host_chunks(services["host"].searcher)
+    bf16_batches = 2 + eval_batches + 1  # the socket's, evaluate --remote's, the packed service's
+    batches = bf16_batches + 2
+    want = {"K4": nb * bf16_batches, "K5": nb + host_k5, "K6": batches, "K7": batches,
+            "K4/K5 staged route": nb * (bf16_batches + 1) + host_k5, "K4/K5 wgmma route": 0,
+            "K6 mma route": batches, "K6 staged route": 0, "K7 mma route": batches, "K7 staged route": 0}
+    log(f"[phase9c] launches in the ragged serving-path run: {rerank_launches()} (expected {want}: {nb} buckets; "
+        f"{bf16_batches} bf16-bucket batches (2 socket requests, {eval_batches} evaluate --remote, 1 packed), one "
+        f"int8-bucket batch, one host-table batch of {host_k5} K5 launch(es))")
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"ragged ANN launches {launches} do not match the served batches {want}")
+    ref = services["packed"].searcher  # bf16 buckets of the served index, the server's tables
+    worst = {"bf16": max(check_answers("ragged bf16", qs, ans, ref, rdocs, device, bucket_exact(ref))
+                         for qs, ans in zip(requests, answers["bf16"]))}
+    for name, exact in (("int8", bucket_exact), ("host", host_exact), ("packed", bucket_exact)):
+        s = services[name].searcher
+        worst[name] = check_answers(f"ragged {name}", requests[0], answers[name][0], s, rdocs, device, exact(s))
+    log(f"[phase9c] served scores vs the exact MaxSim of the returned pids over the served table: max|d| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + f" (limit {SCORE_ATOL})")
+    if max(worst.values()) > SCORE_ATOL:
+        raise AssertionError(f"ragged ANN scores differ from exact MaxSim: {worst}")
+    for service in services.values():
+        service.searcher.close()
+    return {"launches": launches, "strides": strides, "latency_ms": {k: v * 1e3 for k, v in lat.items()},
+            "max_abs_err": worst, "encode_s": enc_s, "build_s": build_s}
+
+
+def ragged_bucket_kernels(cand, Qb, searchers, label):
+    """Phase 9a: K4 (bf16 buckets) and K5 (int8 buckets) on route "staged"
+    at the ragged shape, each bucket's launch and the bucketed entry against
+    their plain versions (within ``SCORE_ATOL``, -inf exactly at the -1
+    candidates), timed (CUDA events; the pair blocks pass the L2 many times
+    over, so every launch reads cold), beside both byte bounds (distinct doc
+    blocks; the pair blocks route "staged" reads) and the operation bound."""
+    import torch
+
+    from colbert_tpu_torch.ops import rerank as rr
+
+    out = {}
+    for name, s, fn, ref, terms in (("K4", searchers["bfloat16"], rr.maxsim_rerank_uniform,
+                                     rr.maxsim_rerank_uniform_ref, 1),
+                                    ("K5", searchers["int8"], rr.maxsim_rerank_uniform_int8,
+                                     rr.maxsim_rerank_uniform_int8_ref, 3)):
+        t = s.emb_table
+        q = Qb.float() * s.emb_inv_scale if name == "K5" else Qb
+        safe = cand.clamp(min=0).long()
+        b_of = torch.where(cand >= 0, t.bucket_of_pid[safe], -1)
+        s_of = t.slot_of_pid[safe]
+        qv, dim, elt = Qb.shape[1], Qb.shape[2], t.tables[0].element_size()
+        buckets, tot = [], {"distinct_gb": 0.0, "pair_gb": 0.0, "flops": 0.0}
+        for b, (table, stride) in enumerate(zip(t.tables, t.strides)):
+            cb = torch.where(b_of == b, s_of, -1)
+            before = rr.route_launches["staged"].value
+            got, want = fn(cb, q, table, dv=stride), ref(cb, q, table, dv=stride)
+            torch.cuda.synchronize()
+            if rr.route_launches["staged"].value != before + 1:
+                raise AssertionError(f"{name} bucket {stride}: not one launch on route staged")
+            live = cb >= 0
+            if not torch.equal(torch.isfinite(got), live) or not torch.isneginf(got[~live]).all():
+                raise AssertionError(f"{name} bucket {stride}: -inf pattern differs from the -1 candidates")
+            err = float((got[live] - want[live]).abs().max()) if live.any() else 0.0
+            if not err <= SCORE_ATOL:
+                raise AssertionError(f"{name} bucket {stride} differs from its plain version by {err}")
+            nv, n_unique = int(live.sum()), int(torch.unique(cb[live]).numel())
+            block = stride * dim * elt
+            r = {"stride": stride, "valid": nv, "distinct_docs": n_unique, "max_abs_err": err,
+                 "ms": time_ms(lambda: fn(cb, q, table, dv=stride), iters=3, warmup=1),
+                 "distinct_gb": n_unique * block / 1e9, "pair_gb": nv * block / 1e9,
+                 "flops": terms * 2.0 * nv * stride * dim * qv}
+            io = cb.numel() * 8 + q.numel() * 4
+            r["bound_ms"], r["bound_by"] = bound(r["flops"], n_unique * block + io, PEAK_BF16_FLOPS)
+            r["pair_bound_ms"] = (nv * block + io) / PEAK_HBM_BYTES * 1e3
+            for k in tot:
+                tot[k] += r[k]
+            log(f"[phase9a] {name} bucket stride {stride}: {nv} pairs ({n_unique} distinct docs) x {qv} query rows x "
+                f"{dim}: max|d|={err:.3e}; {r['ms']:.3f} ms [route staged]; bounds: distinct docs "
+                f"{r['distinct_gb']:.3f} GB {r['bound_ms']:.3f} ms ({r['bound_by']}), pair blocks {r['pair_gb']:.2f} "
+                f"GB {r['pair_bound_ms']:.3f} ms, operations {r['flops'] / PEAK_BF16_FLOPS * 1e3:.3f} ms [{label}]")
+            buckets.append(r)
+        before = {k: c.value for k, c in rr.route_launches.items()}
+        got = rr.maxsim_rerank_buckets(cand, Qb, *t, inv_scale=s.emb_inv_scale)
+        torch.cuda.synchronize()
+        if rr.route_launches["staged"].value - before["staged"] != len(t.tables) or \
+                rr.route_launches["wgmma"].value != before["wgmma"]:
+            raise AssertionError(f"{name} bucketed entry: not one staged launch a bucket")
+        t0 = time.perf_counter()
+        want = rr.maxsim_rerank_buckets_ref(cand, Qb, *t, inv_scale=s.emb_inv_scale)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        live = cand >= 0
+        if not torch.equal(torch.isfinite(got), live) or not torch.isneginf(got[~live]).all():
+            raise AssertionError(f"{name} bucketed entry: -inf pattern differs from the -1 candidates")
+        err = float((got[live] - want[live]).abs().max())
+        if not err <= SCORE_ATOL:
+            raise AssertionError(f"{name} bucketed entry differs from its plain version by {err}")
+        io = cand.numel() * 8 + Qb.numel() * 4
+        res = {"max_abs_err": err, "plain_ms": plain_ms, "buckets": buckets, "strides": list(t.strides),
+               "ms": time_ms(lambda: rr.maxsim_rerank_buckets(cand, Qb, *t, inv_scale=s.emb_inv_scale),
+                             iters=3, warmup=1),
+               "bucket_ms_sum": sum(r["ms"] for r in buckets), "distinct_gb": tot["distinct_gb"],
+               "pair_gb": tot["pair_gb"], "pair_bound_ms": (tot["pair_gb"] * 1e9 + io) / PEAK_HBM_BYTES * 1e3}
+        res["bound_ms"], res["bound_by"] = bound(tot["flops"], tot["distinct_gb"] * 1e9 + io, PEAK_BF16_FLOPS)
+        log(f"[phase9a] {name} bucketed entry: {B} x {cand.shape[1]} candidates over {len(buckets)} buckets "
+            f"{list(t.strides)}: max|d|={err:.3e} (limit {SCORE_ATOL}); {res['ms']:.3f} ms (buckets alone "
+            f"{res['bucket_ms_sum']:.3f}), plain {plain_ms:.1f} ms; bounds: distinct docs {res['distinct_gb']:.3f} GB "
+            f"{res['bound_ms']:.3f} ms ({res['bound_by']}), pair blocks {res['pair_gb']:.2f} GB "
+            f"{res['pair_bound_ms']:.3f} ms, operations {tot['flops'] / PEAK_BF16_FLOPS * 1e3:.3f} ms; no single "
+            f"PyTorch call computes it [{label}]")
+        out[name] = res
+    return out
+
+
+def host_block_kernels(device, host_searcher, Qb, qm, label, num_docs=HOST_UNIFORM_DOCS, seed=SEED):
+    """Phase 9a: K5 over host-gathered block sets, timed: a uniform host
+    table (16 rows a doc, 16 query views: route "wgmma") and the ragged
+    corpus's host table at its default funnel (route "staged"); each launch
+    against its plain version, and the host gather's and the copy's time."""
+    import torch
+
+    from colbert_tpu_torch.ops import rerank as rr
+    from colbert_tpu_torch.ranking.searcher import HostTable
+
+    g = torch.Generator().manual_seed(seed)
+    uniform = HostTable(torch.randint(-127, 128, (num_docs, 16 * H), dtype=torch.int8, generator=g).pin_memory(),
+                        None, torch.full((num_docs,), 16), 16)
+    hc = host_searcher.host_funnel(TOPK)
+    cases = {
+        "uniform": (uniform, torch.stack([torch.randperm(num_docs, generator=g)[:hc] for _ in range(B)]),
+                    Qb[:, :M] / 127.0),
+        "ragged": (host_searcher.host_table,
+                   host_searcher.candidates(Qb, qm)[:, :hc].cpu().long(), Qb.float() * host_searcher.emb_inv_scale),
+    }
+    out = {}
+    for kind, (host, cand, q) in cases.items():
+        cand = torch.sort(cand, dim=1).values
+        n, cap = cand.numel(), host.cap
+        buf = torch.empty((n * cap, H), dtype=torch.int8, pin_memory=True)
+        t0 = time.perf_counter()
+        host.gather(cand, buf)
+        gather_ms = (time.perf_counter() - t0) * 1e3
+        copy_ms = time_ms(lambda: buf.to(device, non_blocking=True), iters=3, warmup=1)
+        blocks = buf.to(device)
+        if host.doc_offsets is not None:
+            past = torch.arange(cap, device=device) >= host.doclens[cand.clamp(min=0)].to(device)[..., None]
+            blocks.view(B, hc, cap, H).masked_fill_(past[..., None], 0)
+        local = torch.arange(n, dtype=torch.int32, device=device).view(B, hc)
+        local = torch.where(cand.to(device) >= 0, local, -1)
+        qb = q.to(torch.bfloat16).float()
+        route = rr.rerank_plan(cap, qb.shape[1], H)
+        got = rr.maxsim_rerank_uniform_int8(local, qb, blocks, dv=cap)
+        err = float((got - rr.maxsim_rerank_uniform_int8_ref(local, qb, blocks, dv=cap)).abs().max())
+        if not err <= SCORE_ATOL:
+            raise AssertionError(f"K5 over {kind} host blocks differs from its plain version by {err}")
+        ms = time_ms(lambda: rr.maxsim_rerank_uniform_int8(local, qb, blocks, dv=cap), iters=3, warmup=1)
+        bnd = bound(3 * 2.0 * n * cap * H * qb.shape[1], blocks.numel() + local.numel() * 8 + qb.numel() * 4,
+                    PEAK_BF16_FLOPS)
+        out[kind] = {"route": route, "max_abs_err": err, "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                     "gather_ms": gather_ms, "copy_ms": copy_ms, "gb": blocks.numel() / 1e9}
+        log(f"[phase9a] K5 over {kind} host-gathered blocks ({B} x {hc} docs x {cap} rows, {blocks.numel() / 1e9:.2f} "
+            f"GB): max|d|={err:.3e}; {ms:.3f} ms [route {route}], bound {bnd[0]:.3f} ms ({bnd[1]}); host gather "
+            f"{gather_ms:.1f} ms (host clock), copy to the card {copy_ms:.1f} ms [{label}]")
+        del blocks, buf
+    return out
+
+
+def phase_ragged(device, workdir: Path, label: str, num_docs=RAGGED_DOCS, rows=RAGGED_ROWS, partitions=RAGGED_K,
+                 funnels=HOST_FUNNELS, seed=0):
+    """Phase 9b then 9a: ``build-index`` (sq, K = ``partitions``, sq_dim 64;
+    and pq4) over a ragged synthetic corpus, ANN search of 144 two-topic
+    queries of 32 rows from query reps with each rerank table (bf16, int8
+    and fp32; the host table with each funnel of ``funnels``) and the packed
+    dedup: recall@100 against the fp32 exact oracle, the batch's time and
+    its launches (K4/K5 once a bucket, or a host chunk, all on route
+    "staged"; K6 and K7 once on "mma"), the stages' times; then phase 9a on
+    the served batch's candidates."""
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.config import ColbertConfig, ModelConfig, TokenizerConfig
+    from colbert_tpu_torch.indexing.storage import IndexStorage
+    from colbert_tpu_torch.models.colbert import ColbertModel
+    from colbert_tpu_torch.ranking import searcher as srch
+    from colbert_tpu_torch.tokenization import ColbertTokenizer
+    from colbert_tpu_torch.tokenization.vocab import build_vocab, write_vocab
+
+    t_all = time.perf_counter()
+    emb, doclens = ragged_topic_embeddings(num_docs, rows, H, seed=seed)
+    storage = IndexStorage(workdir / "ragged")
+    bounds = np.linspace(0, num_docs, 5).astype(int)
+    offs = np.concatenate([[0], np.cumsum(doclens)])
+    for p in range(4):
+        lo, hi = bounds[p], bounds[p + 1]
+        storage.write_part(p, emb[offs[lo] : offs[hi]], doclens[lo:hi].tolist())
+    storage.write_meta({"dim": H, "num_docs": num_docs, "num_embeddings": int(offs[-1]), "multiview": False,
+                        "num_parts": 4, "embedding_dtype": "float16"})
+    del emb
+    vocab = write_vocab(build_vocab(["query"]), workdir / "vocab_ragged.txt")
+    base = ColbertConfig(model=ModelConfig(vocab_size=512, hidden_size=32, num_layers=1, num_heads=2,
+                                           intermediate_size=64, dim=H),
+                         tokenizer=TokenizerConfig(vocab_path=str(vocab)))
+    build = {}
+    cfgs = {}
+    for codec in ("sq", "pq4"):
+        index = workdir / ("ragged" if codec == "sq" else "ragged_pq4")
+        if codec != "sq":
+            share_parts(workdir / "ragged", index)
+        cfgs[codec] = ragged_config(base, index, 0, codec)
+        cfgs[codec].index.partitions = partitions
+        conf = workdir / f"conf_ragged_{codec}.yaml"
+        cfgs[codec].to_yaml(conf)
+        t0 = time.perf_counter()
+        cli.main(["build-index", "--config", str(conf), "--device", str(device)])
+        torch.cuda.synchronize()
+        build[codec] = time.perf_counter() - t0
+    log(f"[phase9b] ragged corpus: {num_docs} docs of {rows[0]}-{rows[1] - 1} rows ({int(offs[-1])} rows x {H}, "
+        f"fp16; topic_embeddings' topics, seed {seed}); build-index sq (K={partitions}, sq_dim {SQ_DIM}) "
+        f"{build['sq']:.1f} s, pq4 (m {PQ4_M}) {build['pq4']:.1f} s")
+
+    Qb = torch.from_numpy(two_topic_queries(B, RAGGED_QV, H, seed=seed)).to(device)
+    qm = torch.ones(B, RAGGED_QV, device=device)
+    variants = [("bf16", "sq", {}), ("int8", "sq", {"rerank_dtype": "int8"}),
+                ("fp32", "sq", {"rerank_dtype": "float32"}), ("packed", "sq", {"dedup_impl": "packed"}),
+                *[(f"host {f}", "sq", {"rerank_table": "host", "host_rerank_candidates": f}) for f in funnels],
+                ("pq4", "pq4", {})]
+    required = {"bf16", "int8", "fp32", "packed", f"host {funnels[-1]}"}
+    oracle, summary, kept, stage = None, {}, {}, {}
+    for name, codec, serve_kw in variants:
+        cfg = ColbertConfig.from_dict(cfgs[codec].to_dict())
+        for k, v in serve_kw.items():
+            setattr(cfg.serve, k, v)
+        t0 = time.perf_counter()
+        s = srch.ColbertSearcher(cfg, ColbertTokenizer(cfg.tokenizer, cfg.multiview),
+                                 ColbertModel(cfg.model, cfg.multiview), IndexStorage(cfg.index.index_path),
+                                 device=device)
+        init_s = time.perf_counter() - t0
+        if oracle is None:
+            t0 = time.perf_counter()
+            oracle = s.exact_topk(Qb, TOPK)[1].cpu().numpy()
+            log(f"[phase9b] the fp32 exact oracle (stored rows, {s.rerank_cap}-row windows, rows past a doc's end "
+                f"zeroed) over {num_docs} docs in {time.perf_counter() - t0:.1f} s")
+        host = s.host_table is not None
+        if not (host and s.host_funnel(TOPK) >= 1024):
+            s.search_reps(Qb, qm)  # warm-up (the widest funnel's batch runs once)
+        torch.cuda.synchronize()
+        before = rerank_launches()
+        t0 = time.perf_counter()
+        ts, tp = s.search_reps(Qb, qm)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = {k: v - before[k] for k, v in rerank_launches().items()}
+        n_k45 = host_chunks(s) if host else (0 if name == "fp32" else len(s.ragged_strides or ()))
+        want = {"K4": n_k45 if name in ("bf16", "packed", "pq4") else 0,
+                "K5": n_k45 if (name == "int8" or host) else 0, "K4/K5 staged route": n_k45,
+                "K4/K5 wgmma route": 0, "K6": int(codec == "sq"), "K7": int(codec == "sq"),
+                "K6 mma route": int(codec == "sq"), "K7 mma route": int(codec == "sq")}
+        if any(got[k] != v for k, v in want.items()):
+            raise AssertionError(f"phase9b {name}: launches {got}, expected {want}")
+        tp = tp.cpu().numpy()
+        if ts.shape != (B, TOPK) or not torch.isfinite(ts).all():
+            raise AssertionError(f"phase9b {name}: fewer than {TOPK} finite results")
+        rec = float(np.mean([len(set(tp[b]) & set(oracle[b])) / TOPK for b in range(B)]))
+        table = ("host int8 %.3f GB" % (s.host_table.rows.numel() / 1e9) if host else
+                 "buckets %s" % (list(s.ragged_strides),) if s.ragged_strides else "ragged fp32")
+        summary[name] = {"recall": rec, "batch_ms": ms, "init_s": init_s, "launches": got}
+        log(f"[phase9b] {name} ({codec}, {table}): recall@{TOPK} vs the fp32 exact oracle {rec:.4f}; batch {ms:.1f} "
+            f"ms from query reps; searcher built in {init_s:.1f} s; launches {got} [{label}]")
+        if name in ("bf16", "int8"):
+            kept[{"bf16": "bfloat16", "int8": "int8"}[name]] = s
+        elif host and s.host_funnel(TOPK) == funnels[0]:
+            kept["host"] = s
+        if name in ("bf16", "packed"):
+            probe = s.probe_fn()
+            pids, scores = srch.probe_pids(Qb, qm, probe, s.pid_by_row)
+            dd = lambda: srch.dedup(pids, scores, q_view=RAGGED_QV, depth=DEPTH, max_cand=MAX_CAND,
+                                    dedup_impl=s.cfg.serve.dedup_impl, num_docs=num_docs)
+            stage[f"dedup {name}"] = time_ms(dd, iters=5)
+            if name == "bf16":
+                stage["probe"] = time_ms(lambda: srch.probe_pids(Qb, qm, probe, s.pid_by_row), iters=5)
+                cand = dd()
+                sc = srch.rerank(cand, Qb, s.emb_table, None, dv=s.rerank_cap)
+                stage["rerank"] = time_ms(lambda: srch.rerank(cand, Qb, s.emb_table, None, dv=s.rerank_cap),
+                                          iters=3, warmup=1)
+                stage["topk"] = time_ms(lambda: srch.select_topk(sc, cand, TOPK), iters=5)
+                del sc
+        if s not in kept.values():
+            s.close()
+            del s
+        torch.cuda.empty_cache()
+    log(f"[phase9b] bf16 batch of {B} x {RAGGED_QV} query reps, ms per stage (CUDA events): "
+        + ", ".join(f"{k} {stage[k]:.3f}" for k in ("probe", "dedup bf16", "rerank", "topk"))
+        + f"; the packed dedup {stage['dedup packed']:.3f} against the exact {stage['dedup bf16']:.3f} "
+        f"(information) [{label}]")
+
+    out = {"summary": summary, "stage_ms": stage, "build_s": build}
+    out["buckets"] = ragged_bucket_kernels(cand, Qb, kept, label)
+    out["host_blocks"] = host_block_kernels(device, kept["host"], Qb, qm, label)
+    for s in kept.values():
+        s.close()
+    low = {k: v["recall"] for k, v in summary.items() if k in required and v["recall"] < RAGGED_RECALL}
+    log(f"[phase9] phases 9a and 9b took {time.perf_counter() - t_all:.1f} s")
+    if low:  # checked last, so that one run reports every path and kernel
+        raise AssertionError(f"phase9b recall@{TOPK} below {RAGGED_RECALL}: {low}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3268,6 +3782,7 @@ def main() -> int:
     t8 = time.perf_counter() - t8
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         serve_launches, _, ann_launches, codec_launches, k7_deep, ctx = phase_slice(device, Path(tmp), label)
+        ragged_cli = ctx["ragged_cli"]
         ce_launches, ce_info = phase_second_stage(device, Path(tmp), label, ctx)
         t0 = time.perf_counter()
         flash_encode = phase_flash_encode(device, Path(tmp), label, ctx)
@@ -3290,6 +3805,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ann_") as tmp:
         ann_kernels, ann_info = phase_ann(device, Path(tmp), label)
         codec_kernels, _ = phase_codecs(device, Path(tmp), label, ann_info)
+        ragged = phase_ragged(device, Path(tmp), label)
 
     num_docs, dv = 20_000, 16
     k12_bound = bound(2.0 * B * M * num_docs * dv * H,
@@ -3381,6 +3897,14 @@ def main() -> int:
                 "schedule_ms": k["schedule_ms"], "staged_design_ms": k["staged_ms"],
                 "low_reuse_ms": lr["ms"], "low_reuse_bound_ms": lr["bound_ms"],
                 "low_reuse_staged_design_ms": lr["staged_ms"], "low_reuse_max_abs_err": lr["max_abs_err"]})
+            rk = ragged["buckets"][fn]
+            kernels[-1]["ragged"] = {  # phase 9a: a ragged corpus's stride buckets, route "staged"
+                "kernel_route": "staged", "launches": ragged_cli["launches"][fn], "strides": rk["strides"],
+                **{key: rk[key] for key in ("ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by", "pair_bound_ms",
+                                            "bucket_ms_sum", "distinct_gb", "pair_gb")},
+                "bucket_ms": [b["ms"] for b in rk["buckets"]]}
+            if fn == "K5":
+                kernels[-1]["host_blocks"] = ragged["host_blocks"]
     for name, fn, src, replaces in (
         ("K8 pq4_list_scan", "K8", "colbert_tpu_torch/csrc/pq4_scan.cu", "colbert_tpu/ops/pq4.py:125"),
         ("K10 sq_window_topk", "K10", "colbert_tpu_torch/csrc/sq_token_scan.cu",

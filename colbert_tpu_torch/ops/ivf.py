@@ -322,6 +322,84 @@ def dedup_pids_by_approx_maxsim(pids: torch.Tensor, token_ids: torch.Tensor, sco
     return _top_per_query(seg_row, seg_pid, seg_score, B, n, max_out)
 
 
+def _segment_sum_scan(val: torch.Tensor, reset: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Along each row of ``val`` (B, n) fp32, the running sum that restarts
+    where ``reset`` (B, n) bool is set: ``jax.lax.associative_scan`` of the
+    segmented add, on its tree (pairs, the scan of the pairs, then the even
+    positions), so every fp32 sum adds the same terms in the same order as
+    the JAX package's dedup."""
+    n = val.shape[1]
+    if n < 2:
+        return val, reset
+
+    def combine(av, ar, bv, br):
+        return torch.where(br, bv, av + bv), ar | br
+
+    odd_v, odd_r = _segment_sum_scan(*combine(val[:, 0:-1:2], reset[:, 0:-1:2], val[:, 1::2], reset[:, 1::2]))
+    k = odd_v.shape[1] - (n % 2 == 0)
+    even_v, even_r = combine(odd_v[:, :k], odd_r[:, :k], val[:, 2::2], reset[:, 2::2])
+    out_v, out_r = torch.empty_like(val), torch.empty_like(reset)
+    out_v[:, :1], out_v[:, 2::2], out_v[:, 1::2] = val[:, :1], even_v, odd_v
+    out_r[:, :1], out_r[:, 2::2], out_r[:, 1::2] = reset[:, :1], even_r, odd_r
+    # JAX interleaves by adding zero-padded halves: every value gains a + 0.0 (-0.0 becomes +0.0)
+    return out_v + 0.0, out_r
+
+
+def dedup_pids_by_approx_maxsim_packed(pids: torch.Tensor, token_ids: torch.Tensor, scores: torch.Tensor,
+                                       num_tokens: int, max_out: int, num_docs: int
+                                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The packed form of :func:`dedup_pids_by_approx_maxsim`
+    (``colbert_tpu/ops/ivf.py:402``): each entry one int32 key, (pid, token)
+    in the high bits and the score quantised per query to ``sbits`` bits in
+    the low bits, one single-operand sort, and each (pid, token) run's
+    maximum its last element.  Only which pids pass matters (an exact rerank
+    follows).  The final budget is an exact top-``max_out`` with the TPU
+    tie rule (:func:`topk_first`): ``approx_max_k`` is exact off the TPU.
+
+    ``pids``/``scores`` (B, n), -1 / -inf invalid; ``token_ids`` (n,).
+    Returns (pids (B, max_out) int32 -1 padded, doc scores fp32 -inf
+    padded).  Raises ``ValueError`` where the key leaves fewer than 6 bits
+    for the score."""
+    B, n = pids.shape
+    kt_bits = max(1, int(np.ceil(np.log2(max(2, num_docs * num_tokens)))))
+    sbits = min(12, 31 - kt_bits)
+    if sbits < 6:
+        raise ValueError("pid*token key too wide to pack; use the exact dedup")
+    levels = (1 << sbits) - 1
+    inf = float("inf")
+    s = scores.float()
+    valid = (pids >= 0) & torch.isfinite(s)
+    lo = torch.where(valid, s, inf).amin(dim=1, keepdim=True)
+    hi = torch.where(valid, s, -inf).amax(dim=1, keepdim=True)
+    lo = torch.where(torch.isfinite(lo), lo, 0.0)
+    hi = torch.where(hi > lo, hi, lo + 1.0)
+    # the JAX package's fp32 arithmetic as XLA runs it: the division by the
+    # constant ``levels`` is a product with its fp32 reciprocal, and
+    # ``lo + x * step`` below one fused multiply-add (exact in fp64, then
+    # rounded once to fp32)
+    step = (hi - lo) * float(np.float32(1.0 / levels))
+    q = torch.clamp(torch.round((s - lo) / step), 0, levels).int()
+    kt = pids.int() * num_tokens + token_ids.int()[None, :]
+    big = torch.iinfo(torch.int32).max
+    sp = torch.sort(torch.where(valid, (kt << sbits) | q, big), dim=1).values
+    rk = torch.where(sp != big, sp >> sbits, -1)
+    last = torch.ones((B, 1), dtype=torch.bool, device=pids.device)
+    run_last = torch.cat([rk[:, 1:] != rk[:, :-1], last], dim=1)
+    run_max = (lo.double() + (sp & levels).double() * step.double()).float()
+    spid = torch.where(rk >= 0, rk // num_tokens, -1)
+    pid_first = torch.cat([last, spid[:, 1:] != spid[:, :-1]], dim=1)
+    doc_sum, _ = _segment_sum_scan(torch.where(run_last & (spid >= 0), run_max, 0.0), pid_first)
+    pid_last = torch.cat([pid_first[:, 1:], last], dim=1)
+    doc_score = torch.where(pid_last & (spid >= 0), doc_sum, -inf)
+    k = min(max_out, n)
+    top_s, top_i = topk_first(doc_score, k)
+    out = torch.where(torch.isfinite(top_s), spid.gather(1, top_i), -1).int()
+    if k < max_out:
+        top_s = torch.nn.functional.pad(top_s, (0, max_out - k), value=-inf)
+        out = torch.nn.functional.pad(out, (0, max_out - k), value=-1)
+    return out, top_s
+
+
 def dedup_pids_by_score(pids: torch.Tensor, scores: torch.Tensor, max_out: int
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Unique pids per query, each with its best codec score, and each

@@ -18,6 +18,12 @@ their ``launches`` counters, and their plain PyTorch versions (``*_ref``)
 for CPU tensors.  Any candidate count works; the JAX kernels need a
 multiple of 128.
 
+A ragged corpus (multiview off: each doc its own count of rows) is served
+over stride buckets (:func:`stride_buckets`, :func:`build_ragged_buckets`,
+the JAX package's ``rerank_pallas.py:185-238``): per-stride zero-padded
+doc-major tables, each reranked by one K4 or K5 launch with ``dv`` = its
+stride (:func:`maxsim_rerank_buckets`).
+
 The source has two routes, chosen by shape in :func:`rerank_plan`:
 "wgmma" for the serving shape (16 rows a doc, 16 views, dim a multiple of
 64): each query's candidates sorted by pid and cut into pid windows
@@ -33,7 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +48,7 @@ from colbert_tpu_torch.ops._build import LaunchCounter
 
 # kernel limits, mirrored by rerank_max_views() (route "staged") and
 # rerank_wgmma_dv/views/max_dim/group() (route "wgmma") in the .cu
-_MAX_VIEWS = 32
+MAX_VIEWS = 32  # query rows route "staged" takes (csrc/rerank.cu MAX_QV)
 _WGMMA_DV = 16
 _WGMMA_VIEWS = 16
 _WGMMA_MAX_DIM = 1024
@@ -58,42 +64,108 @@ _NO_PID = torch.iinfo(torch.int32).max  # the sort key of a -1 candidate: after 
 INT8_K_ORDER = (0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15)
 
 
-def quantize_emb_table(emb, chunk: int = 1 << 18) -> Tuple[np.ndarray, np.ndarray]:
-    """Per-dim symmetric int8 quantization: ``(int8 (N, dim), scale (dim,)
-    fp32)`` with ``emb ~= int8 / scale``, ``scale = 127 / max(amax, 1e-6)``,
-    ``rint`` and a clip to +-127.  The numpy path of the JAX package's
-    ``quantize_emb_table`` (``rerank_pallas.py:241-269``), chunked so a
-    large table never has a second fp32 copy."""
+def quantize_emb_into(emb, out: torch.Tensor, *, device="cpu", chunk: int = 1 << 18) -> torch.Tensor:
+    """Per-dim symmetric int8 quantization of ``emb`` (N, dim) (numpy, any
+    float dtype) into ``out`` (N, dim) int8 on any device, computed on
+    ``device`` chunk by chunk: ``scale = 127 / max(amax, 1e-6)`` in fp32,
+    then ``rint(x * scale)`` clipped to +-127, so ``emb ~= int8 / scale``.
+    Returns ``scale`` (dim,) fp32 on ``device``."""
     n, dim = emb.shape
-    amax = np.zeros(dim, np.float32)
+    rows = lambda lo: torch.from_numpy(np.ascontiguousarray(emb[lo : lo + chunk])).to(device).float()
+    amax = torch.zeros(dim, dtype=torch.float32, device=device)
     for lo in range(0, n, chunk):
-        c = np.asarray(emb[lo : lo + chunk])
-        np.maximum(amax, np.abs(c.astype(np.float32)).max(axis=0), out=amax)
-    scale = (127.0 / np.maximum(amax, 1e-6)).astype(np.float32)
-    out = np.empty((n, dim), np.int8)
+        amax = torch.maximum(amax, rows(lo).abs().amax(dim=0))
+    # tensor / tensor: a Python scalar over a tensor computes reciprocal() * scalar,
+    # which is not the correctly rounded quotient numpy gives
+    scale = torch.full_like(amax, 127.0) / amax.clamp_min(1e-6)
     for lo in range(0, n, chunk):
-        x = np.asarray(emb[lo : lo + chunk]).astype(np.float32) * scale
-        out[lo : lo + chunk] = np.clip(np.rint(x), -127, 127).astype(np.int8)
-    return out, scale
+        out[lo : lo + chunk] = torch.round(rows(lo) * scale).clamp_(-127, 127).to(torch.int8)
+    return scale
+
+
+def quantize_emb_table(emb, chunk: int = 1 << 18) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`quantize_emb_into` on the CPU: ``(int8 (N, dim), scale (dim,)
+    fp32)`` numpy arrays, bit-equal to the numpy path of the JAX package's
+    ``quantize_emb_table`` (``rerank_pallas.py:241-269``)."""
+    out = torch.empty(emb.shape, dtype=torch.int8)
+    scale = quantize_emb_into(emb, out, chunk=chunk)
+    return out.numpy(), scale.numpy()
+
+
+# ---- ragged corpora: stride buckets ----
+
+def stride_buckets(doclens, n_buckets: int = 4, row_multiple: int = 16) -> List[int]:
+    """Bucket strides at the doclen percentiles 25/50/75/100 (the reference's
+    bucket trick, ``colbert_ranker.py:36-41``; ``method="higher"``), each
+    rounded up to ``row_multiple`` rows, deduplicated, ascending: the JAX
+    package's ``stride_buckets`` (``rerank_pallas.py:185``)."""
+    doclens = np.asarray(doclens)
+    qs = np.percentile(doclens, np.linspace(0, 100, n_buckets + 1)[1:], method="higher")
+    out: List[int] = []
+    for s in qs:
+        s = int(-(-int(max(s, 1)) // row_multiple) * row_multiple)
+        if not out or s > out[-1]:
+            out.append(s)
+    return out
+
+
+def build_ragged_buckets(emb, doclens, strides) -> Tuple[List[np.ndarray], np.ndarray, np.ndarray]:
+    """A ragged doc-major table ``emb`` (sum(doclens), dim) scattered into
+    zero-padded doc-major tables, one a stride (``rerank_pallas.py:205``).
+    Returns ``(tables, bucket_of_pid, slot_of_pid)``: doc ``p`` occupies rows
+    ``slot_of_pid[p] * s`` to ``+ doclens[p]`` of ``tables[bucket_of_pid[p]]``
+    (``s`` its stride, the smallest that holds it), zeros after.  A zero row
+    scores 0 against every query row, as a masked row does in the
+    reference's MaxSim, so a bucket needs no doclen mask.  An empty bucket
+    keeps one stride of zeros."""
+    doclens = np.asarray(doclens, np.int64)
+    strides = np.asarray(strides, np.int64)
+    offs = np.concatenate([[0], np.cumsum(doclens)])
+    if doclens.size and int(doclens.max()) > int(strides[-1]):
+        raise ValueError("max doclen exceeds the largest stride")
+    bucket_of = np.searchsorted(strides, doclens, side="left").astype(np.int32)
+    slot_of = np.zeros(len(doclens), np.int32)
+    tables = []
+    for b, s in enumerate(strides.tolist()):
+        pids = np.nonzero(bucket_of == b)[0]
+        slot_of[pids] = np.arange(len(pids), dtype=np.int32)
+        tbl = np.zeros((max(len(pids), 1) * s, emb.shape[1]), emb.dtype)
+        if len(pids):
+            lens = doclens[pids]
+            starts = np.cumsum(lens) - lens
+            within = np.arange(int(lens.sum()), dtype=np.int64) - np.repeat(starts, lens)
+            src = np.repeat(offs[pids], lens) + within
+            dst = np.repeat(np.arange(len(pids), dtype=np.int64) * s, lens) + within
+            tbl[dst] = np.asarray(emb)[src]
+        tables.append(tbl)
+    return tables, bucket_of, slot_of
+
+
+class BucketTables(NamedTuple):
+    """A ragged corpus's rerank table on the device: the stride buckets of
+    :func:`build_ragged_buckets` (all bf16 or all int8)."""
+    tables: Tuple[torch.Tensor, ...]  # (n_b * strides[b], dim) each
+    strides: Tuple[int, ...]
+    bucket_of_pid: torch.Tensor       # (num_docs,) int32
+    slot_of_pid: torch.Tensor         # (num_docs,) int32
 
 
 # ---- plain PyTorch versions ----
 
 def _rerank_ref(cand: torch.Tensor, q: torch.Tensor, table: torch.Tensor, dv: int) -> torch.Tensor:
     """fp32 MaxSim of ``q`` (B, qv, dim) fp32 against each candidate's
-    block of ``table`` (read as fp32), in candidate chunks that bound the
-    gathered transient."""
+    block of ``table`` (read as fp32): the valid (query, candidate) pairs
+    only, in chunks that bound the gathered transient."""
     B, C = cand.shape
     dim = q.shape[-1]
     docs = table[: (table.shape[0] // dv) * dv].view(-1, dv, dim)
     out = torch.full((B, C), float("-inf"), dtype=torch.float32, device=q.device)
-    step = max(1, _REF_BYTES // max(1, B * dv * dim * 4))
-    for lo in range(0, C, step):
-        c = cand[:, lo : lo + step].long()
-        D = docs[c.clamp(min=0)].float()                                   # (B, c, dv, dim)
-        sim = torch.einsum("bqh,bcdh->bcqd", q, D)
-        s = sim.amax(dim=-1).sum(dim=-1)
-        out[:, lo : lo + step] = s.masked_fill(c < 0, float("-inf"))
+    rows, cols = torch.nonzero(cand >= 0, as_tuple=True)
+    step = max(1, _REF_BYTES // ((dv + q.shape[1]) * dim * 4))
+    for lo in range(0, rows.numel(), step):
+        r, c = rows[lo : lo + step], cols[lo : lo + step]
+        D = docs[cand[r, c].long()].float()                                # (pairs, dv, dim)
+        out[r, c] = torch.einsum("nqh,ndh->nqd", q[r], D).amax(dim=-1).sum(dim=-1)
     return out
 
 
@@ -215,7 +287,7 @@ def _kernel_lib() -> ctypes.CDLL:
                       lib.rerank_wgmma_max_dim, lib.rerank_wgmma_group)
             for fn in limits:
                 fn.argtypes, fn.restype = [], ctypes.c_int
-            if tuple(fn() for fn in limits) != (_MAX_VIEWS, _WGMMA_DV, _WGMMA_VIEWS, _WGMMA_MAX_DIM,
+            if tuple(fn() for fn in limits) != (MAX_VIEWS, _WGMMA_DV, _WGMMA_VIEWS, _WGMMA_MAX_DIM,
                                                 _WGMMA_GROUP):
                 raise RuntimeError("csrc/rerank.cu limits disagree with ops/rerank.py")
     return lib
@@ -236,8 +308,8 @@ def _launch(cand: torch.Tensor, Qm: torch.Tensor, table: torch.Tensor, dv: int,
         raise ValueError(f"cand must be ({B}, C) int32, got {tuple(cand.shape)} {cand.dtype}")
     if table.shape[1] != dim or dim % 16 or dim < 16:
         raise ValueError(f"rerank kernel needs a table of width {dim}, a multiple of 16")
-    if not 1 <= qv <= _MAX_VIEWS:
-        raise ValueError(f"rerank kernel takes 1..{_MAX_VIEWS} query views, got {qv}")
+    if not 1 <= qv <= MAX_VIEWS:
+        raise ValueError(f"rerank kernel takes 1..{MAX_VIEWS} query views, got {qv}")
     if not table.is_contiguous() or table.data_ptr() % 16:
         raise ValueError("rerank kernel needs a contiguous, 16-byte aligned table")
     C = cand.shape[1]
@@ -301,6 +373,52 @@ def maxsim_rerank_uniform_int8(cand: torch.Tensor, Qm: torch.Tensor, table: torc
     out = _launch(cand, Qm, table, dv, torch.int8)
     maxsim_rerank_uniform_int8.launches.add()
     return out
+
+
+def _buckets(cand: torch.Tensor, q: torch.Tensor, tables: Sequence[torch.Tensor], strides: Sequence[int],
+             bucket_of_pid: torch.Tensor, slot_of_pid: torch.Tensor, rerank) -> torch.Tensor:
+    """``rerank(cand_b, q, table, dv=stride)`` once a bucket, each
+    candidate given as its slot in its own bucket's call and as -1 in the
+    others'; the scores combine by an elementwise max."""
+    safe = cand.clamp(min=0).long()
+    b_of = torch.where(cand >= 0, bucket_of_pid[safe], -1)
+    s_of = slot_of_pid[safe]
+    scores = torch.full(cand.shape, float("-inf"), dtype=torch.float32, device=cand.device)
+    for b, (table, stride) in enumerate(zip(tables, strides)):
+        scores = torch.maximum(scores, rerank(torch.where(b_of == b, s_of, -1), q, table, dv=stride))
+    return scores
+
+
+def _bucket_query(Qm: torch.Tensor, tables: Sequence[torch.Tensor], inv_scale: Optional[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, bool]:
+    int8 = tables[0].dtype == torch.int8
+    if int8 and inv_scale is None:
+        raise ValueError("int8 bucket tables need their descale inv_scale")
+    return (Qm.float() * inv_scale if int8 else Qm), int8
+
+
+def maxsim_rerank_buckets(cand: torch.Tensor, Qm: torch.Tensor, tables: Sequence[torch.Tensor],
+                          strides: Sequence[int], bucket_of_pid: torch.Tensor, slot_of_pid: torch.Tensor,
+                          inv_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Exact MaxSim (B, C) fp32 of each candidate pid of a ragged corpus
+    over its stride buckets (-1: -inf), the JAX searcher's ragged branch
+    (``colbert_tpu/ranking/searcher.py:257-285``): one K4 launch a bucket
+    over bf16 tables (``Qm`` rounded to bf16), or one K5 launch a bucket over
+    int8 tables (``Qm * inv_scale`` in fp32).  A bucket's launch sees the
+    other buckets' candidates as -1 slots, which move no bytes."""
+    q, int8 = _bucket_query(Qm, tables, inv_scale)
+    return _buckets(cand, q, tables, strides, bucket_of_pid, slot_of_pid,
+                    maxsim_rerank_uniform_int8 if int8 else maxsim_rerank_uniform)
+
+
+def maxsim_rerank_buckets_ref(cand: torch.Tensor, Qm: torch.Tensor, tables: Sequence[torch.Tensor],
+                              strides: Sequence[int], bucket_of_pid: torch.Tensor, slot_of_pid: torch.Tensor,
+                              inv_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of :func:`maxsim_rerank_buckets`: each bucket by its
+    kernel's plain version."""
+    q, int8 = _bucket_query(Qm, tables, inv_scale)
+    return _buckets(cand, q, tables, strides, bucket_of_pid, slot_of_pid,
+                    maxsim_rerank_uniform_int8_ref if int8 else maxsim_rerank_uniform_ref)
 
 
 maxsim_rerank_uniform.launches = LaunchCounter()

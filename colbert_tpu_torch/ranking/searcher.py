@@ -8,24 +8,32 @@ Two serving modes, as ``serve.mode`` selects:
 * ann (``:89-357, 428-571``): query tokens -> BERT + ColBERT head -> the
   codec's IVF probe (sq: K6 slots and K7 hot lists, or K10 per token with
   ``serve.probe_impl="token"``; pq4: K8; pq: an fp32 LUT gather in torch
-  ops) -> CSR row -> pid -> dedup -> exact MaxSim rerank -> top-k, over the
-  IVF index that ``build-index`` writes.  ``serve.rerank_dtype`` picks the
+  ops) -> CSR row -> pid -> dedup (exact; ``serve.dedup_impl="packed"``:
+  one int32 key a slot) -> exact MaxSim rerank -> top-k, over the IVF
+  index that ``build-index`` writes.  ``serve.rerank_dtype`` picks the
   rerank table: "bfloat16" (K4, the fused gather + MaxSim kernel), "int8"
   (K5) or "float32": an fp32 table reranked by a gather and an fp32 einsum
   in torch ops (:func:`rerank_fp32`), as the JAX package reranks an fp32
-  table off the TPU (its XLA branch, ``:310-328``).
+  table off the TPU (its XLA branch, ``:310-328``).  A ragged corpus
+  (multiview off) keeps its bf16 or int8 table as stride buckets, K4 or K5
+  launched once a bucket (``:257-285, 505-550``), and its fp32 table
+  ragged, gathered over ``doc_offsets`` with a doclen mask.
+  ``serve.rerank_table="host"`` keeps an int8 table in host memory: the
+  dedup's first ``host_rerank_candidates`` candidates are gathered on the
+  host, copied to the card and reranked by K5 (``:477-504, 736-878``).
 
-The index and the tables are built once and held on the device; nothing of
-the serve path runs anywhere else.  The JAX package's ``serve.rerank_kernel``
-gate (Pallas kernel or XLA gather for a bf16 table) is a TPU-side choice and
-changes nothing here.  Flat mode serves "float32" from a bf16 table, as the
-JAX flat path does.
+The index and the device tables are built once and held on the device.
+The JAX package's ``serve.rerank_kernel`` gate (Pallas kernel or XLA
+gather) is a TPU-side choice and changes nothing here.  Flat mode serves
+"float32" from a bf16 table, as the JAX flat path does.
 """
 
 from __future__ import annotations
 
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,17 +46,60 @@ from colbert_tpu_torch.ops.flat_scan import (
     build_flat_table, flat_maxsim_scan, flat_scan_topk, flat_topk,
 )
 from colbert_tpu_torch.ops.ivf import (
-    dedup_pids_by_approx_maxsim, dedup_pids_by_score, ivf_probe_adc, ivf_probe_sq, ivf_probe_sq_batched,
+    dedup_pids_by_approx_maxsim, dedup_pids_by_approx_maxsim_packed, dedup_pids_by_score, ivf_probe_adc,
+    ivf_probe_sq, ivf_probe_sq_batched,
 )
 from colbert_tpu_torch.ops.pq4 import ivf_probe_pq4
 from colbert_tpu_torch.ops.rerank import (
-    maxsim_rerank_uniform, maxsim_rerank_uniform_int8, quantize_emb_table,
+    MAX_VIEWS, BucketTables, build_ragged_buckets, maxsim_rerank_buckets, maxsim_rerank_uniform,
+    maxsim_rerank_uniform_int8, quantize_emb_into, stride_buckets,
 )
 from colbert_tpu_torch.tokenization import ColbertTokenizer
 
 ProbeFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 _ORACLE_DOCS = 4096  # docs per step of the exact oracle
+_ORACLE_SIMS = 1 << 28  # fp32 similarities per step of the exact oracle
 _FP32_QUERY_CHUNK = 8  # queries per step of the fp32 rerank (the JAX searcher's query_chunk)
+_HOST_BLOCK_BYTES = 4 << 30  # int8 doc blocks a host-table gather moves to the card at once
+
+
+class RaggedTable(NamedTuple):
+    """A ragged corpus's fp32 rerank table on the device: doc ``p``'s rows
+    are ``rows[doc_offsets[p] : doc_offsets[p] + doclens[p]]``."""
+    rows: torch.Tensor         # (N, dim) fp32
+    doc_offsets: torch.Tensor  # (num_docs,) int64
+    doclens: torch.Tensor      # (num_docs,) int64
+
+
+class HostTable(NamedTuple):
+    """``serve.rerank_table="host"``: the int8 rerank table in host memory
+    (pinned when the searcher serves a card), doc-major for a uniform corpus,
+    CSR for a ragged one."""
+    rows: torch.Tensor                 # (num_docs, cap * dim) uniform, or (N, dim) ragged; int8, CPU
+    doc_offsets: Optional[torch.Tensor]  # (num_docs,) int64 first row of each doc; None uniform
+    doclens: torch.Tensor              # (num_docs,) int64
+    cap: int                           # rows a gathered block: d_view, or the longest doc
+
+    def gather(self, cand: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        """The blocks of ``cand`` (n, hc) int64 (-1: doc 0's) into ``out``
+        (n * hc * cap, dim) int8: ``cap`` rows from each doc's first row
+        (for a ragged doc, rows past its end are the next docs' rows)."""
+        safe = cand.clamp(min=0).reshape(-1)
+        if self.doc_offsets is None:
+            return torch.index_select(self.rows, 0, safe, out=out.view(-1, self.rows.shape[1])).view(out.shape)
+        idx = self.doc_offsets[safe][:, None] + torch.arange(self.cap)
+        return torch.index_select(self.rows, 0, idx.clamp(max=self.rows.shape[0] - 1).view(-1), out=out)
+
+
+class _Docs(NamedTuple):
+    """What the exact oracle scores: doc ``p`` is ``cap`` rows of ``rows``
+    from ``offsets[p]`` (``p * cap`` where ``offsets`` is None), rows past
+    ``doclens[p]`` zeroed, times ``inv`` (int8 tables)."""
+    rows: torch.Tensor
+    cap: int
+    offsets: Optional[torch.Tensor] = None
+    doclens: Optional[torch.Tensor] = None
+    inv: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -58,26 +109,25 @@ class SearchResult:
 
 
 class PendingResult:
-    """``(scores, pids)`` of a dispatched batch, copied to pinned host memory
-    without waiting; iterating it waits for that copy only and yields numpy
-    arrays (the async serving path of :meth:`ColbertSearcher.search_tokens_device`)."""
+    """Device tensors (a batch's ``(scores, pids)``) copied to pinned host
+    memory without waiting; iterating it waits for that copy only and yields
+    numpy arrays (the async serving path of
+    :meth:`ColbertSearcher.search_tokens_device`)."""
 
-    def __init__(self, scores: torch.Tensor, pids: torch.Tensor):
+    def __init__(self, *tensors: torch.Tensor):
         self._event = None
-        if scores.is_cuda:
-            pinned = lambda t: torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self._scores, self._pids = pinned(scores), pinned(pids)
-            self._scores.copy_(scores, non_blocking=True)
-            self._pids.copy_(pids, non_blocking=True)
+        self._host = list(tensors)
+        if tensors[0].is_cuda:
+            self._host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+            for h, t in zip(self._host, tensors):
+                h.copy_(t, non_blocking=True)
             self._event = torch.cuda.Event()
             self._event.record()
-        else:
-            self._scores, self._pids = scores, pids
 
     def __iter__(self):
         if self._event is not None:
             self._event.synchronize()
-        return iter((self._scores.numpy(), self._pids.numpy()))
+        return iter([h.numpy() for h in self._host])
 
 
 def _meta_d_view(meta: dict, cfg: ColbertConfig) -> int:
@@ -107,7 +157,7 @@ def select_topk(scores: torch.Tensor, cand: torch.Tensor, k: int) -> Tuple[torch
 
 def make_probe_fn(codec: str, coarse, quant, codes, offsets, *, nprobe: int, cap: int, depth: int,
                   probe_impl: str = "auto", list_topr: int = 8, hot_cap: int = 64) -> ProbeFn:
-    """The codec's candidate generator for :func:`retrieval_core`
+    """The codec's candidate generator for :meth:`ColbertSearcher.candidates`
     (``colbert_tpu/ranking/searcher.py:89``).  ``quant``: the codebooks
     (pq, pq4) or ``(sq_proj, sq_scales)`` (sq); ``cap``: the longest list.
     pq ignores ``probe_impl``; pq4 keeps ``list_topr`` rows per (token,
@@ -147,33 +197,42 @@ def probe_pids(Qm: torch.Tensor, qm: torch.Tensor, probe_fn: ProbeFn, pid_by_row
 
 
 def dedup(pids: torch.Tensor, scores: torch.Tensor, *, q_view: int, depth: int, max_cand: int,
-          candidate_ranking: str = "approx_maxsim", dedup_impl: str = "auto") -> torch.Tensor:
-    """Each query's ``max_cand`` candidate pids (B, max_cand) int32, -1 padded."""
-    if dedup_impl == "packed":
-        raise NotImplementedError(
-            "serve.dedup_impl='packed' is not ported: ROADMAP Queue 1 step 8 (packed dedup); "
-            "'auto' is the exact form off the TPU, as in the JAX package"
-        )
-    if dedup_impl not in ("auto", "exact"):
+          candidate_ranking: str = "approx_maxsim", dedup_impl: str = "auto",
+          num_docs: Optional[int] = None) -> torch.Tensor:
+    """Each query's ``max_cand`` candidate pids (B, max_cand) int32, -1
+    padded, best first.  ``dedup_impl="packed"`` (approx-MaxSim ranking
+    only) packs each slot into one int32 and needs ``num_docs``; "auto" is
+    the exact form, as in the JAX package off the TPU."""
+    if dedup_impl not in ("auto", "exact", "packed"):
         raise ValueError(f"unknown serve.dedup_impl {dedup_impl!r}")
     if candidate_ranking == "approx_maxsim":
         token_ids = torch.arange(q_view, device=pids.device).repeat_interleave(depth)
-        cand, _ = dedup_pids_by_approx_maxsim(pids, token_ids, scores, q_view, max_cand)
+        if dedup_impl == "packed":
+            if num_docs is None:
+                raise ValueError("the packed dedup needs num_docs")
+            cand, _ = dedup_pids_by_approx_maxsim_packed(pids, token_ids, scores, q_view, max_cand, num_docs)
+        else:
+            cand, _ = dedup_pids_by_approx_maxsim(pids, token_ids, scores, q_view, max_cand)
     else:
         cand, _ = dedup_pids_by_score(pids, scores, max_cand)
     return cand
 
 
-def rerank_fp32(cand: torch.Tensor, Qm: torch.Tensor, table: torch.Tensor, *, dv: int) -> torch.Tensor:
+def rerank_fp32(cand: torch.Tensor, Qm: torch.Tensor, table: torch.Tensor, *, dv: int,
+                ragged: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
     """Exact fp32 MaxSim (B, C) of each candidate over an fp32 table, -inf
-    where ``cand < 0``: the JAX searcher's XLA branch for a uniform corpus
+    where ``cand < 0``: the JAX searcher's XLA branch
     (``colbert_tpu/ranking/searcher.py:310-328``, ``maxsim_qd``) in torch
     ops -- gather the candidates' blocks, einsum, max over rows, sum over
     views -- in its chunks (8 queries, candidate slices halved while a
-    chunk's gather would pass 2^30 two-byte values), with TF32 off."""
+    chunk's gather would pass 2^30 two-byte values), with TF32 off.
+    Uniform: doc ``p`` is rows ``[p*dv, (p+1)*dv)``.  ``ragged`` =
+    ``(doc_offsets, doclens)``: ``dv`` rows from each doc's offset (clipped
+    to the table), those past its doclen zeroed, as JAX's doclen mask."""
     B, C = cand.shape
     dim = table.shape[1]
     docs = table[: (table.shape[0] // dv) * dv].view(-1, dv, dim)
+    rows = torch.arange(dv, device=table.device)
     qc = _FP32_QUERY_CHUNK
     cc = C
     while qc * cc * dv * dim * 2 > (1 << 30) and cc > 256:
@@ -188,18 +247,30 @@ def rerank_fp32(cand: torch.Tensor, Qm: torch.Tensor, table: torch.Tensor, *, dv
             q = Qm[q0 : q0 + qc].float()
             for c0 in range(0, C, cc):
                 c = cand[q0 : q0 + qc, c0 : c0 + cc].long()
-                sim = torch.einsum("bqh,bcdh->bcqd", q, docs[c.clamp(min=0)])
+                safe = c.clamp(min=0)
+                if ragged is None:
+                    D = docs[safe]
+                else:
+                    idx = (ragged[0][safe][..., None] + rows).clamp(max=table.shape[0] - 1)
+                    D = table[idx].masked_fill_((rows >= ragged[1][safe][..., None])[..., None], 0.0)
+                sim = torch.einsum("bqh,bcdh->bcqd", q, D)
                 out[q0 : q0 + qc, c0 : c0 + cc] = sim.amax(dim=-1).sum(dim=-1).masked_fill(c < 0, float("-inf"))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     return out
 
 
-def rerank(cand: torch.Tensor, Qm: torch.Tensor, table: torch.Tensor,
-           inv_scale: Optional[torch.Tensor], *, dv: int) -> torch.Tensor:
-    """Exact MaxSim (B, C) of each candidate, by the table's dtype: K5 over
-    int8 (the descale folded into the fp32 queries), K4 over bf16,
+def rerank(cand: torch.Tensor, Qm: torch.Tensor, table, inv_scale: Optional[torch.Tensor], *, dv: int
+           ) -> torch.Tensor:
+    """Exact MaxSim (B, C) of each candidate, by the table: K4 or K5 a
+    stride bucket (:class:`BucketTables`), the ragged fp32 gather
+    (:class:`RaggedTable`), or by a uniform table's dtype: K5 over int8 (the
+    descale folded into the fp32 queries), K4 over bf16,
     :func:`rerank_fp32` over fp32."""
+    if isinstance(table, BucketTables):
+        return maxsim_rerank_buckets(cand, Qm, *table, inv_scale=inv_scale)
+    if isinstance(table, RaggedTable):
+        return rerank_fp32(cand, Qm, table.rows, dv=dv, ragged=(table.doc_offsets, table.doclens))
     if table.dtype == torch.int8:
         return maxsim_rerank_uniform_int8(cand, Qm.float() * inv_scale, table, dv=dv)
     if table.dtype == torch.float32:
@@ -207,17 +278,51 @@ def rerank(cand: torch.Tensor, Qm: torch.Tensor, table: torch.Tensor,
     return maxsim_rerank_uniform(cand, Qm, table, dv=dv)
 
 
-def retrieval_core(Qm: torch.Tensor, qm: torch.Tensor, probe_fn: ProbeFn, pid_by_row: torch.Tensor,
-                   table: torch.Tensor, inv_scale: Optional[torch.Tensor], *, dv: int, depth: int,
-                   max_cand: int, topk: int, candidate_ranking: str = "approx_maxsim",
-                   dedup_impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Everything after query encode (``colbert_tpu/ranking/searcher.py:126``)
-    for a uniform-doclen corpus: probe -> dedup -> rerank -> top-k.
-    Returns (scores (B, k) fp32, pids (B, k) int32), k = min(topk, max_cand)."""
-    pids, scores = probe_pids(Qm, qm, probe_fn, pid_by_row)
-    cand = dedup(pids, scores, q_view=Qm.shape[1], depth=depth, max_cand=max_cand,
-                 candidate_ranking=candidate_ranking, dedup_impl=dedup_impl)
-    return select_topk(rerank(cand, Qm, table, inv_scale, dv=dv), cand, min(topk, max_cand))
+def host_rerank(cand: torch.Tensor, Qm: torch.Tensor, host: HostTable, inv_scale: torch.Tensor, topk: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The host table's rerank (``colbert_tpu/ranking/searcher.py:736-805``):
+    each query's funnel ``cand`` (B, hc) on the host, sorted by pid (-1
+    first, as JAX's stable argsort), its docs' blocks gathered on the host
+    into pinned memory, copied to ``Qm``'s device without waiting, and
+    scored by K5 as a compact doc-major table (``cand[b, c] -> b*hc + c``)
+    against ``bf16(Qm * inv_scale)``, the JAX package's query operand (its
+    three-term split is then exact).  A ragged doc's rows past its doclen
+    are zeroed on the device first, as JAX masks them.  Queries go in chunks
+    of at most ``_HOST_BLOCK_BYTES`` of blocks, one K5 launch each.  Returns
+    (scores (B, k), pids (B, k)) on the device, k = min(topk, hc)."""
+    dev = Qm.device
+    cand = torch.sort(cand.long(), dim=1).values
+    B, hc = cand.shape
+    cap, dim = host.cap, Qm.shape[-1]
+    q = (Qm.float() * inv_scale).to(torch.bfloat16).float()
+    cand_dev = cand.to(dev, non_blocking=True)
+    scores = torch.empty((B, hc), dtype=torch.float32, device=dev)
+    nq = max(1, min(B, _HOST_BLOCK_BYTES // max(1, hc * cap * dim)))
+    rows = torch.arange(cap, device=dev)
+    for q0 in range(0, B, nq):
+        c = cand[q0 : q0 + nq]
+        n = c.shape[0]
+        buf = torch.empty((n * hc * cap, dim), dtype=torch.int8, pin_memory=dev.type == "cuda")
+        blocks = host.gather(c, buf).to(dev, non_blocking=True)
+        cd = cand_dev[q0 : q0 + nq]
+        if host.doc_offsets is not None:
+            dl = host.doclens[c.clamp(min=0)].to(dev, non_blocking=True)
+            blocks.view(n, hc, cap, dim).masked_fill_((rows >= dl[..., None])[..., None], 0)
+        local = torch.arange(n * hc, dtype=torch.int32, device=dev).view(n, hc)
+        scores[q0 : q0 + nq] = maxsim_rerank_uniform_int8(torch.where(cd >= 0, local, -1), q[q0 : q0 + nq],
+                                                          blocks, dv=cap)
+    return select_topk(scores, cand_dev.int(), min(topk, hc))
+
+
+class _FutureResult:
+    """``(scores, pids)`` numpy arrays of a batch whose host-table rerank runs
+    on the searcher's worker thread; iterating it waits for that thread."""
+
+    def __init__(self, future):
+        self._future = future
+
+    def __iter__(self):
+        return iter(self._future.result())
 
 
 class ColbertSearcher:
@@ -231,11 +336,6 @@ class ColbertSearcher:
     ):
         if cfg.serve.mode not in ("flat", "ann"):
             raise ValueError(f"unknown serve.mode {cfg.serve.mode!r}")
-        if cfg.serve.rerank_table != "hbm":
-            raise NotImplementedError(
-                "serve.rerank_table='host' is not ported: ROADMAP Queue 1 step 8 "
-                "(ANN serve, host-table rerank mode)"
-            )
         if tokenizer.vocab_size > cfg.model.vocab_size:
             # an id past the embedding table is a device-side assert on the card
             raise ValueError(
@@ -246,6 +346,11 @@ class ColbertSearcher:
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.timers = Timers()
+        self.host_table: Optional[HostTable] = None
+        self.ragged_strides: Optional[Tuple[int, ...]] = None
+        self._host_executor: Optional[ThreadPoolExecutor] = None  # the host table's worker, made on first use
+        self._executor_lock = threading.Lock()
+        self._host_lock = threading.Lock()  # one host gather at a time: they share the host's memory bandwidth
 
         meta = storage.read_meta()
         doclens = np.asarray(storage.read_doclens(), np.int32)
@@ -268,6 +373,7 @@ class ColbertSearcher:
         self.flat_dv = dv
         self.emb_table = table.to(self.device)
         self.emb_inv_scale = inv.to(self.device) if inv is not None else None
+        self._oracle = _Docs(self.emb_table, dv, inv=self.emb_inv_scale)
         self.score_dtype = cfg.serve.flat_score_dtype
         if self.score_dtype == "auto":
             # fp32 scores up to 256k docs (tie-exact at negligible memory);
@@ -276,7 +382,9 @@ class ColbertSearcher:
 
     def _init_ann(self, storage: IndexStorage, meta: dict, doclens: np.ndarray, dv: int) -> None:
         """Device-resident IVF state and the rerank table
-        (``colbert_tpu/ranking/searcher.py:428-476, 551-571``)."""
+        (``colbert_tpu/ranking/searcher.py:428-571``): a uniform corpus's
+        doc-major table; a ragged corpus's stride buckets (bf16, int8) or
+        ragged fp32 table; or the int8 host table."""
         s = self.cfg.serve
         dev = self.device
         ivf = storage.read_ivf()
@@ -297,21 +405,74 @@ class ColbertSearcher:
             np.asarray(ivf["emb2pid"], np.int32)[np.asarray(ivf["row_emb"], np.int64)]
         ).to(dev)
         self.rerank_cap = dv
+        self.uniform_doclen = bool(len(doclens) and (doclens == dv).all())
         self.probe_fn()  # refuses an unknown codec or probe before the tables are built
-        if not (len(doclens) and (doclens == dv).all()):
-            raise NotImplementedError(
-                "ANN serving of a ragged corpus (the stride-bucket rerank) is not ported: "
-                "ROADMAP Queue 1 step 8 (ragged stride-bucket rerank)"
-            )
-        emb = storage.load_all_embeddings()[: self.num_docs * self.rerank_cap]
-        if s.rerank_dtype == "int8":
-            q8, scale = quantize_emb_table(emb)
-            self.emb_table = torch.from_numpy(q8).to(dev)
-            self.emb_inv_scale = torch.from_numpy((1.0 / scale).astype(np.float32)).to(dev)
+        host = s.rerank_table == "host"
+        if host or (not self.uniform_doclen and s.rerank_dtype != "float32"):
+            self._refuse_views("the host table" if host else "a ragged corpus's stride buckets")
+        emb = storage.load_all_embeddings()
+        self.emb_inv_scale = None
+        if self.uniform_doclen:
+            emb = emb[: self.num_docs * dv]
+            offsets = None
         else:
-            tdt = torch.float32 if s.rerank_dtype == "float32" else torch.bfloat16
-            self.emb_table = torch.from_numpy(np.ascontiguousarray(emb)).to(dev).to(tdt)
-            self.emb_inv_scale = None
+            offsets = torch.from_numpy(IndexStorage.doc_offsets_from_doclens(doclens.tolist())[:-1])
+        lens_t = torch.from_numpy(doclens.astype(np.int64))
+
+        def int8_rows(out: torch.Tensor) -> torch.Tensor:
+            """``emb`` quantized into ``out`` on the searcher's device; sets the descale."""
+            scale = quantize_emb_into(emb, out, device=dev)
+            self.emb_inv_scale = torch.ones_like(scale) / scale
+            return out
+
+        if host:
+            # the reference's placement (host RAM, colbert_ranker.py:61-73): int8, doc-major or CSR
+            rows = int8_rows(torch.empty(emb.shape, dtype=torch.int8, pin_memory=dev.type == "cuda"))
+            if offsets is None:
+                rows = rows.view(self.num_docs, -1)
+            self.host_table = HostTable(rows, offsets, lens_t, dv)
+            self.emb_table = None
+            self._oracle = _Docs(self.host_table.rows.view(-1, self.dim), dv, offsets, lens_t, self.emb_inv_scale)
+            return
+        if self.uniform_doclen:
+            if s.rerank_dtype == "int8":
+                self.emb_table = int8_rows(torch.empty(emb.shape, dtype=torch.int8, device=dev))
+            else:
+                tdt = torch.float32 if s.rerank_dtype == "float32" else torch.bfloat16
+                self.emb_table = torch.from_numpy(np.ascontiguousarray(emb)).to(dev).to(tdt)
+            self._oracle = _Docs(self.emb_table, dv, inv=self.emb_inv_scale)
+            return
+        if s.rerank_dtype == "float32":
+            # the JAX searcher's XLA branch over a ragged fp32 table
+            self.emb_table = RaggedTable(torch.from_numpy(emb).to(dev).float(), offsets.to(dev), lens_t.to(dev))
+            self._oracle = _Docs(self.emb_table.rows, dv, self.emb_table.doc_offsets, self.emb_table.doclens)
+            return
+        # stride buckets (JAX :505-550): zero-padded per-stride tables, K4/K5 a bucket
+        if s.rerank_dtype == "int8":
+            # JAX's row rule for its lane-packed int8 buckets, so the strides are its strides
+            strides = stride_buckets(doclens, row_multiple=16 if ((self.dim // 128) * 16) % 32 == 0 else 32)
+            raw, b_of, s_of = build_ragged_buckets(int8_rows(torch.empty(emb.shape, dtype=torch.int8)).numpy(),
+                                                   doclens, strides)
+            tables = tuple(torch.from_numpy(t).to(dev) for t in raw)
+        else:
+            strides = stride_buckets(doclens, row_multiple=16)
+            raw, b_of, s_of = build_ragged_buckets(emb, doclens, strides)
+            tables = tuple(torch.from_numpy(t).to(dev).to(torch.bfloat16) for t in raw)
+        self.ragged_strides = tuple(int(x) for x in strides)
+        self.emb_table = BucketTables(tables, self.ragged_strides, torch.from_numpy(b_of).to(dev),
+                                      torch.from_numpy(s_of).to(dev))
+        # the oracle scores the stored embeddings, as the JAX searcher's host copy
+        self._oracle = _Docs(torch.from_numpy(emb), dv, offsets, lens_t)
+
+    def _refuse_views(self, what: str) -> None:
+        mv = self.cfg.multiview
+        qv = mv.q_view if mv.enabled else self.cfg.tokenizer.query_maxlen
+        if qv > MAX_VIEWS:
+            raise NotImplementedError(
+                f"{what} rerank through K4/K5's route \"staged\", which takes at most {MAX_VIEWS} query rows; "
+                f"this config has {qv} (tokenizer.query_maxlen, or multiview.q_view): ROADMAP Queue 2 "
+                f"(K4/K5 route \"wgmma\" at more query rows)"
+            )
 
     # ---- device pipeline ----
 
@@ -348,19 +509,40 @@ class ColbertSearcher:
         )
 
     @torch.inference_mode()
+    def candidates(self, Qm: torch.Tensor, qm: torch.Tensor, nprobe: Optional[int] = None,
+                   depth: Optional[int] = None) -> torch.Tensor:
+        """Probe and dedup: each query's ``min(max_candidates, num_docs)``
+        candidate pids (B, max_cand) int32, -1 padded, best first."""
+        s = self.cfg.serve
+        depth = depth or s.candidate_depth
+        pids, scores = probe_pids(Qm, qm, self.probe_fn(nprobe, depth), self.pid_by_row)
+        return dedup(pids, scores, q_view=Qm.shape[1], depth=depth, max_cand=min(s.max_candidates, self.num_docs),
+                     candidate_ranking=s.candidate_ranking, dedup_impl=s.dedup_impl, num_docs=self.num_docs)
+
+    def host_funnel(self, topk: int) -> int:
+        """Candidates a query the host table reranks (``searcher.py:816``)."""
+        s = self.cfg.serve
+        return max(topk, min(s.host_rerank_candidates, s.max_candidates, self.num_docs))
+
+    @torch.inference_mode()
+    def _host_finish(self, cand: torch.Tensor, Qm: torch.Tensor, topk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        with self._host_lock:
+            return host_rerank(cand, Qm, self.host_table, self.emb_inv_scale, topk)
+
+    @torch.inference_mode()
     def search_reps(self, Qm: torch.Tensor, qm: torch.Tensor, topk: Optional[int] = None,
                     nprobe: Optional[int] = None, depth: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """ANN search from masked query reps ``Qm`` (B, qv, dim) and their
-        active mask ``qm`` (B, qv) on the device -> (scores, pids) tensors."""
-        s = self.cfg.serve
-        depth = depth or s.candidate_depth
-        return retrieval_core(
-            Qm, qm, self.probe_fn(nprobe, depth), self.pid_by_row, self.emb_table,
-            self.emb_inv_scale, dv=self.rerank_cap, depth=depth,
-            max_cand=min(s.max_candidates, self.num_docs), topk=topk or s.topk,
-            candidate_ranking=s.candidate_ranking, dedup_impl=s.dedup_impl,
-        )
+        active mask ``qm`` (B, qv) on the device -> (scores, pids) tensors:
+        probe -> dedup -> exact rerank (:func:`rerank`, or the host table's
+        :func:`host_rerank`) -> top-k (``colbert_tpu/ranking/searcher.py:126``)."""
+        topk = topk or self.cfg.serve.topk
+        cand = self.candidates(Qm, qm, nprobe, depth)
+        if self.host_table is not None:
+            return self._host_finish(cand[:, : self.host_funnel(topk)].cpu(), Qm, topk)
+        scores = rerank(cand, Qm, self.emb_table, self.emb_inv_scale, dv=self.rerank_cap)
+        return select_topk(scores, cand, min(topk, cand.shape[1]))
 
     def _search(self, q_ids, q_attn, q_active, topk: int, nprobe: Optional[int],
                 depth: Optional[int]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -388,29 +570,72 @@ class ColbertSearcher:
         return SearchResult(tp, ts)
 
     def search_tokens_device(self, q_ids, q_attn, q_active, topk: Optional[int] = None,
-                             nprobe: Optional[int] = None, depth: Optional[int] = None
-                             ) -> PendingResult:
+                             nprobe: Optional[int] = None, depth: Optional[int] = None):
         """Dispatch a batch and return a handle that synchronises only when
-        unpacked: submitting the next batch before fetching this one overlaps
-        host work with the device."""
-        ts, tp = self._search(q_ids, q_attn, q_active, topk or self.cfg.serve.topk, nprobe, depth)
-        return PendingResult(ts, tp)
+        unpacked into ``(scores, pids)`` numpy arrays: submitting the next
+        batch before fetching this one overlaps host work with the device.
+        With the host table, this batch's probe and dedup are issued here and
+        its host gather and rerank run on one worker thread
+        (``searcher.py:823-863``), so they overlap the next batch's probe."""
+        topk = topk or self.cfg.serve.topk
+        if self.host_table is None:
+            return PendingResult(*self._search(q_ids, q_attn, q_active, topk, nprobe, depth))
+        with torch.inference_mode():
+            Qm = self.encode_queries(q_ids, q_attn, q_active)
+            qm = torch.as_tensor(q_active).to(self.device, torch.float32)
+            cand = PendingResult(self.candidates(Qm, qm, nprobe, depth)[:, : self.host_funnel(topk)])
+        with self._executor_lock:
+            if self._host_executor is None:
+                self._host_executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="host-rerank")
+            executor = self._host_executor
+
+        def finish():
+            (c,) = cand
+            return tuple(PendingResult(*self._host_finish(torch.from_numpy(c), Qm, topk)))
+
+        return _FutureResult(executor.submit(finish))
+
+    def close(self) -> None:
+        """Shut the host table's worker thread down (waiting for its batches);
+        a later search starts a new one."""
+        with self._executor_lock:
+            executor, self._host_executor = self._host_executor, None
+        if executor is not None:
+            executor.shutdown(wait=True)
+
+    @torch.inference_mode()
+    def _oracle_docs(self, lo: int, hi: int) -> torch.Tensor:
+        """Docs ``[lo, hi)`` as the oracle scores them: (n, cap, dim) fp32 on
+        the device, rows past a ragged doc's doclen zeroed, int8 descaled."""
+        o = self._oracle
+        n, dim = hi - lo, o.rows.shape[1]
+        if o.offsets is None:
+            D = o.rows[lo * o.cap : hi * o.cap].to(self.device).view(n, o.cap, dim).float()
+        else:
+            r = torch.arange(o.cap, device=o.rows.device)
+            idx = (o.offsets[lo:hi, None].to(o.rows.device) + r).clamp(max=o.rows.shape[0] - 1)
+            D = o.rows[idx].to(self.device).float()
+            past = r.to(self.device) >= o.doclens[lo:hi, None].to(self.device)
+            D.masked_fill_(past[..., None], 0.0)
+        return D * o.inv if o.inv is not None else D
 
     @torch.inference_mode()
     def exact_topk(self, Qm: torch.Tensor, topk: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """fp32 MaxSim of masked query reps ``Qm`` (not descaled) against
-        every doc of the served table (int8 dequantized) -> top-k (scores,
-        pids): the recall oracle."""
-        dv = self.flat_dv or self.rerank_cap
-        table = self.emb_table[: self.num_docs * dv]
+        every doc -> top-k (scores, pids): the recall oracle.  It scores the
+        served table (int8 dequantized; the host table on the host), except
+        over stride buckets, where it scores the stored embeddings, as the
+        JAX searcher does; a ragged doc is the longest doc's count of rows
+        from its first, those past its doclen zeroed
+        (``colbert_tpu/ranking/searcher.py:904-947``)."""
         q = Qm.float()
-        scores = torch.empty((q.shape[0], self.num_docs), dtype=torch.float32, device=q.device)
-        for lo in range(0, self.num_docs, _ORACLE_DOCS):
-            D = table[lo * dv : (lo + _ORACLE_DOCS) * dv].float()
-            if self.emb_inv_scale is not None:
-                D = D * self.emb_inv_scale
-            sim = torch.einsum("bqh,ndh->bnqd", q, D.view(-1, dv, D.shape[-1]))
-            scores[:, lo : lo + _ORACLE_DOCS] = sim.amax(dim=-1).sum(dim=-1)
+        B, qv = q.shape[:2]
+        step = max(1, min(_ORACLE_DOCS, _ORACLE_SIMS // max(1, B * qv * self._oracle.cap)))
+        scores = torch.empty((B, self.num_docs), dtype=torch.float32, device=q.device)
+        for lo in range(0, self.num_docs, step):
+            hi = min(lo + step, self.num_docs)
+            sim = torch.einsum("bqh,ndh->bnqd", q, self._oracle_docs(lo, hi))
+            scores[:, lo:hi] = sim.amax(dim=-1).sum(dim=-1)
         return torch.topk(scores, min(topk, self.num_docs), dim=1)
 
     def search_brute_force(self, questions: Sequence[str], topk: int) -> SearchResult:

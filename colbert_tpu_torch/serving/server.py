@@ -182,7 +182,10 @@ class RetrievalServer:
         return t
 
     def stop(self) -> None:
+        """Stop accepting connections and shut the searcher's host-rerank
+        worker down."""
         self._stop.set()
+        self.service.searcher.close()
         if self._listener is not None:
             # closing a listening socket does not wake a thread blocked in
             # accept(): connect once so serve_forever sees the stop flag

@@ -198,32 +198,25 @@ def test_token_probe_matches_the_jax_pallas_path(ann_setup, mesh8, native_off, m
         jax.clear_caches()
 
 
-def test_searcher_refuses_unported_ann_modes(ann_setup, tmp_path):
-    _, pcfg, _, _, model, tok, _, tmp = ann_setup
-    storage = IndexStorage(tmp / "port_idx")
-    cfg = PortConfig.from_dict(pcfg.to_dict())
-    cfg.serve.rerank_table = "host"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ColbertSearcher(cfg, tok, model, storage, device="cpu")
-    cfg = PortConfig.from_dict(pcfg.to_dict())
-    cfg.serve.dedup_impl = "packed"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ColbertSearcher(cfg, tok, model, storage, device="cpu").search(["apple"])
-    # a ragged corpus
-    shutil.copytree(tmp / "port_idx", tmp_path / "ragged")
-    st = IndexStorage(tmp_path / "ragged")
-    meta = st.read_meta()
-    meta.update(multiview=False)
-    st.write_meta(meta)
-    (tmp_path / "ragged" / "parts" / "doclens.0.json").write_text("[1" + ", 16" * 127 + "]")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ColbertSearcher(PortConfig.from_dict(pcfg.to_dict()), tok, model, st, device="cpu")
+def test_host_table_matches_jax_on_the_uniform_index(ann_setup, mesh8, native_off):
+    """``serve.rerank_table="host"``: the int8 host table doc-major (16 rows
+    a doc), the funnel's 64 best candidates gathered and reranked by K5's
+    plain version against JAX's host searcher; the oracles over that table."""
+    cfg = ann_setup[0]
+    host = dataclasses.replace(cfg, serve=dataclasses.replace(cfg.serve, rerank_table="host",
+                                                              host_rerank_candidates=64))
+    js, ps = _searchers((host, *ann_setup[1:]), mesh8, "jax_idx", "bfloat16")
+    assert ps.host_table.doc_offsets is None and tuple(ps.host_table.rows.shape) == js.host_table.shape
+    assert ps.emb_table is None and ps.host_table.rows.dtype == torch.int8
+    _assert_same_results(js.search(QUESTIONS, topk=5), ps.search(QUESTIONS, topk=5), 5)
+    _assert_same_results(js.search_brute_force(QUESTIONS, topk=5), ps.search_brute_force(QUESTIONS, topk=5), 5)
+    ps.close()
 
 
-def _drive_cli(tmp_path, capsys, index_kw, serve_kw):
+def _drive_cli(tmp_path, capsys, index_kw, serve_kw, multiview=True):
     """encode -> build-index -> serve (ann) -> evaluate --remote through the
-    port's CLI on the CPU, at a tiny size; the socket's answers must equal
-    the in-process searcher's."""
+    port's CLI on the CPU, at a tiny size (multiview 4/4, or off: ragged
+    docs); the socket's answers must equal the in-process searcher's."""
     import json
     import socket
 
@@ -247,7 +240,7 @@ def _drive_cli(tmp_path, capsys, index_kw, serve_kw):
     cfg = PortConfig(
         model=PModel(vocab_size=512, hidden_size=32, num_layers=1, num_heads=2, intermediate_size=64,
                      max_position_embeddings=64, dim=64, dtype="float32"),
-        multiview=PMultiview(enabled=True, q_view=4, d_view=4),
+        multiview=PMultiview(enabled=True, q_view=4, d_view=4) if multiview else PMultiview(enabled=False),
         tokenizer=PTok(vocab_path=write_vocab(build_vocab(docs), tmp_path / "vocab.txt"),
                        query_maxlen=16, doc_maxlen=32),
         index=PIndex(index_path=str(tmp_path / "index"), num_parts=2, partitions=8, kmeans_iters=4,
@@ -293,6 +286,7 @@ def _drive_cli(tmp_path, capsys, index_kw, serve_kw):
         local = ColbertSearcher(cfg, ColbertTokenizer(cfg.tokenizer, cfg.multiview), model,
                                 IndexStorage(tmp_path / "index"), device="cpu")
         want = local.search([docs[4], docs[9]], topk=5, nprobe=4, depth=16)
+        local.close()
         assert [[p for p, _, _ in row] for row in got] == want.pids.tolist()
         np.testing.assert_allclose([[s for _, s, _ in row] for row in got], want.scores, rtol=0, atol=1e-6)
         capsys.readouterr()

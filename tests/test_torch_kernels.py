@@ -442,6 +442,88 @@ def test_rerank_never_synchronises(cuda_device):
     torch.testing.assert_close(got8, rr.maxsim_rerank_uniform_int8_ref(cand, Qs, t8, dv=16), rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("num_docs,dv", [(600, 48), (500, 64), (400, 96), (300, 128), (120, 384)])
+def test_rerank_staged_route_at_ragged_strides(cuda_device, num_docs, dv):
+    """K4 and K5 at a ragged corpus's bucket shapes: 32 query rows (the
+    reference's query_maxlen, multiview off) and a stride of dv rows, on
+    route "staged"."""
+    rng = np.random.default_rng(dv)
+    cand = rng.integers(0, num_docs, size=(12, 256)).astype(np.int32)
+    cand[rng.random(cand.shape) < 0.6] = -1  # another bucket's candidates
+    args = _rerank_inputs(cuda_device, dv, num_docs, dv, 768, 12, 32, cand)
+    assert _assert_rerank_kernels_match_plain(*args, dv) == "staged"
+
+
+def _ragged_rows(rng, doclens, dim):
+    emb = rng.normal(size=(int(doclens.sum()), dim)).astype(np.float32)
+    return (emb / np.linalg.norm(emb, axis=1, keepdims=True)).astype(np.float16)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_rerank_buckets_match_plain(cuda_device, dtype):
+    """The bucketed entry over stride buckets of a ragged corpus (doclens
+    40-124): one launch a bucket, each on route "staged", against its plain
+    version, -inf exactly at the -1 candidates."""
+    from colbert_tpu_torch.ops import rerank as rr
+
+    rng = np.random.default_rng(17)
+    doclens = rng.integers(40, 125, size=900)
+    emb = _ragged_rows(rng, doclens, 768)
+    strides = rr.stride_buckets(doclens, row_multiple=16)
+    inv = None
+    if dtype == "int8":
+        emb, scale = rr.quantize_emb_table(emb)
+        inv = torch.from_numpy(1.0 / scale).to(cuda_device)
+    raw, b_of, s_of = rr.build_ragged_buckets(emb, doclens, strides)
+    t = rr.BucketTables(tuple(torch.from_numpy(x).to(cuda_device).to(getattr(torch, dtype)) for x in raw),
+                        tuple(strides), torch.from_numpy(b_of).to(cuda_device), torch.from_numpy(s_of).to(cuda_device))
+    cand = rng.integers(0, len(doclens), size=(16, 512)).astype(np.int32)
+    cand[rng.random(cand.shape) < 0.1] = -1
+    cand = torch.from_numpy(cand).to(cuda_device)
+    Qm = torch.from_numpy(rng.normal(size=(16, 32, 768)).astype(np.float32) / np.sqrt(768)).to(cuda_device)
+    counter = rr.maxsim_rerank_uniform_int8 if dtype == "int8" else rr.maxsim_rerank_uniform
+    before, staged = counter.launches.value, rr.route_launches["staged"].value
+    got = rr.maxsim_rerank_buckets(cand, Qm, *t, inv_scale=inv)
+    torch.cuda.synchronize()
+    assert counter.launches.value - before == len(strides) == rr.route_launches["staged"].value - staged
+    assert torch.equal(torch.isfinite(got), cand >= 0) and torch.isneginf(got[cand < 0]).all()
+    torch.testing.assert_close(got, rr.maxsim_rerank_buckets_ref(cand, Qm, *t, inv_scale=inv), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "ragged"])
+def test_host_rerank_on_the_card(cuda_device, kind):
+    """The host table's rerank: a pid-sorted host gather into pinned memory,
+    copied to the card, K5 over the blocks as a compact doc-major table
+    (route "wgmma" at 16 x 16 rows, "staged" for a ragged corpus's 32 query
+    rows), against the same function on the CPU (K5's plain version)."""
+    from colbert_tpu_torch.ops import rerank as rr
+    from colbert_tpu_torch.ranking.searcher import HostTable, host_rerank
+
+    rng = np.random.default_rng(5)
+    num_docs, qv = 2000, (16 if kind == "uniform" else 32)
+    doclens = np.full(num_docs, 16) if kind == "uniform" else rng.integers(40, 125, size=num_docs)
+    q8, scale = rr.quantize_emb_table(_ragged_rows(rng, doclens, 768))
+    lens = torch.from_numpy(doclens.astype(np.int64))
+    if kind == "uniform":
+        host = HostTable(torch.from_numpy(q8.reshape(num_docs, -1)).pin_memory(), None, lens, 16)
+    else:
+        offs = torch.cumsum(lens, 0) - lens
+        host = HostTable(torch.from_numpy(q8).pin_memory(), offs, lens, int(doclens.max()))
+    cand = torch.from_numpy(np.stack([rng.permutation(num_docs)[:256] for _ in range(24)]).astype(np.int32))
+    cand[rng.random(cand.shape) < 0.05] = -1
+    Qm = torch.from_numpy(rng.normal(size=(24, qv, 768)).astype(np.float32) / np.sqrt(768))
+    inv = torch.from_numpy(1.0 / scale)
+    route = rr.rerank_plan(host.cap, qv, 768)
+    assert route == ("wgmma" if kind == "uniform" else "staged")
+    before, on_route = rr.maxsim_rerank_uniform_int8.launches.value, rr.route_launches[route].value
+    ts, tp = host_rerank(cand, Qm.to(cuda_device), host, inv.to(cuda_device), 100)
+    torch.cuda.synchronize()
+    assert rr.maxsim_rerank_uniform_int8.launches.value == before + 1 == rr.route_launches[route].value - on_route + before
+    ws, wp = host_rerank(cand, Qm, host, inv, 100)
+    torch.testing.assert_close(ts.cpu(), ws, rtol=0, atol=1e-4)
+    assert ((tp.cpu() == wp) | ((ts.cpu() - ws).abs() <= 1e-4)).all()
+
+
 # ---- K6/K7: sq list scans; scores within 1e-5, rows equal except at near ties ----
 
 def _assert_ranked(s_want, r_want, s_got, r_got, tol=1e-5, got_at_want=None):

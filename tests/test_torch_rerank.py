@@ -185,3 +185,19 @@ def test_query_operand_terms_sum_to_the_query():
     torch.testing.assert_close(terms[:, 0] + terms[:, 1] + terms[:, 2], Qm, rtol=2 ** -23, atol=0)
     assert torch.equal(terms[:, 0], Qm.to(torch.bfloat16).float())
     assert torch.equal(prr.query_operand(Qm, int8_table=False), Qm.to(torch.bfloat16))
+
+
+def test_quantize_into_a_device_buffer_equals_the_table(monkeypatch):
+    """``quantize_emb_into`` (the searcher's int8 tables, computed on its
+    device into any buffer) gives ``quantize_emb_table``'s values, and the
+    descale the searcher takes from it equals the JAX package's ``1/scale``."""
+    import colbert_tpu.native.lib as native
+
+    monkeypatch.setattr(native, "_load", lambda: None)
+    rng = np.random.default_rng(4)
+    emb = (rng.normal(size=(300, 64)) * rng.random(64)).astype(np.float16)
+    out = torch.empty(emb.shape, dtype=torch.int8)
+    scale = prr.quantize_emb_into(emb, out, chunk=37)
+    want_q, want_s = jrp.quantize_emb_table(emb)
+    np.testing.assert_array_equal(out.numpy(), want_q)
+    np.testing.assert_array_equal((torch.ones_like(scale) / scale).numpy(), (1.0 / want_s).astype(np.float32))

@@ -129,14 +129,18 @@ def test_socket_round_trip_equals_in_process(slice_setup):
 
 
 def test_searcher_refuses_unported_modes(slice_setup):
-    """The host-RAM rerank table is not ported; ANN mode needs the IVF
-    index that ``build-index`` writes (``tests/test_torch_ann_slice.py``)."""
+    """ANN mode needs the IVF index that ``build-index`` writes
+    (``tests/test_torch_ann_slice.py``).  The host-RAM rerank table is an
+    ANN mode (``tests/test_torch_ragged_ann.py``): flat mode serves its own
+    table whatever ``serve.rerank_table`` says, as the JAX searcher does."""
     import dataclasses
 
     cfg, texts, _, _, jstorage, model, tok, _ = slice_setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ColbertSearcher(dataclasses.replace(cfg, serve=dataclasses.replace(cfg.serve, rerank_table="host")),
-                        tok, model, IndexStorage(jstorage.path), device="cpu")
+    host = ColbertSearcher(dataclasses.replace(cfg, serve=dataclasses.replace(cfg.serve, rerank_table="host")),
+                           tok, model, IndexStorage(jstorage.path), device="cpu")
+    flat = ColbertSearcher(cfg, tok, model, IndexStorage(jstorage.path), device="cpu")
+    assert host.host_table is None
+    np.testing.assert_array_equal(host.search(QUESTIONS, topk=5).scores, flat.search(QUESTIONS, topk=5).scores)
     with pytest.raises(FileNotFoundError):
         ColbertSearcher(dataclasses.replace(cfg, serve=dataclasses.replace(cfg.serve, mode="ann")),
                         tok, model, IndexStorage(jstorage.path), device="cpu")
