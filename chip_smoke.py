@@ -261,6 +261,27 @@ seed:
   ragged corpus's at its default funnel (route "staged"), each against its
   plain version, timed with the host gather and the copy to the card.
 
+* phase 10, several devices (``parallel/``, ``ranking/sharded.py``), on
+  the cards present (four shards on one card when it is alone):
+  (a) after phase 2, on its encoded corpus: ``ShardedColbertSearcher`` in
+  flat mode, 4 shards, phase 2's requests of 144 questions at top-100:
+  every answer checked as phase 2's against the plain version over the
+  single searcher's table (within 1e-4, tie-insensitive), K2 once a shard
+  a batch; the time a batch beside the single searcher's (information);
+  (b) after phase 5b, on its index (the bench generator's corpus: phase
+  5c's random model scores near ties, so recall there means nothing): the
+  sharded sq searcher, 4 shards, one batch of 144 topic queries from their
+  reps: recall@100 against the fp32 oracle (at least 0.98) and the single
+  searcher's pids (at least 0.95), scores the exact MaxSim of their pids
+  and at least the single searcher's (within 1e-4), K6, K7 and K4 once a
+  shard on routes "mma" and "wgmma";
+  (c) after phase 4: the CLI's ``train`` under a launch
+  (``--coordinator 127.0.0.1:<port> --num-processes N --process-id r``,
+  NCCL, N = the cards present) for 3 steps at phase 4's configuration
+  against the same without the flags: N = 1, losses, parameters and AdamW's
+  moments bit-equal and K9 as phase 4's; N >= 2, one process a card
+  against one device at the global batch, the CPU test's limits.
+
 Prints the card's name and power limit, the measurements, one JSON line of
 kernels, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, when CUDA is unavailable or any phase fails.
@@ -700,18 +721,18 @@ def check_flat_answers(requests, answer_sets, searcher, docs):
     return worst, float(np.mean(recall))
 
 
-def phase_slice(device, workdir: Path, label: str, num_docs=20_000, model_kw=None,
-                tok_kw=None, n_requests=3, seed=SEED):
+def encoded_corpus(device, workdir: Path, label: str, num_docs=20_000, model_kw=None, tok_kw=None,
+                   n_requests=3, seed=SEED):
+    """Phase 2's set-up: a synthetic Chinese corpus of ``num_docs`` passages,
+    ``n_requests`` x B questions and 2 x B eval questions, the flat config,
+    a seeded model saved as ``pytorch.bin``, and the corpus encoded through
+    the CLI's ``encode``."""
     import torch
 
     from colbert_tpu_torch import cli
     from colbert_tpu_torch.config import ColbertConfig, IndexConfig, ModelConfig, ServeConfig, TokenizerConfig
-    from colbert_tpu_torch.indexing.storage import IndexStorage
     from colbert_tpu_torch.models.colbert import ColbertModel
     from colbert_tpu_torch.models.convert import reference_state_dict
-    from colbert_tpu_torch.ops import flat_scan as fs
-    from colbert_tpu_torch.ranking.searcher import ColbertSearcher
-    from colbert_tpu_torch.serving.server import RetrievalClient, RetrievalService
     from colbert_tpu_torch.tokenization.vocab import build_vocab, write_vocab
     from colbert_tpu_torch.utils.io import dump_json
 
@@ -750,6 +771,37 @@ def phase_slice(device, workdir: Path, label: str, num_docs=20_000, model_kw=Non
     enc_s = time.perf_counter() - t0
     log(f"[phase2] encode: {num_docs} docs in {enc_s:.2f} s = {num_docs / enc_s:.1f} docs/s "
         f"(doc_maxlen {cfg.tokenizer.doc_maxlen}, host tokenization included) [{label}]")
+    return {"cfg": cfg, "model": model, "docs": docs, "questions": questions, "positives": positives,
+            "corpus_path": corpus_path, "eval_path": eval_path, "common": common, "n_eval": n_eval,
+            "requests": [questions[i * B : (i + 1) * B] for i in range(n_requests)], "enc_s": enc_s}
+
+
+def unfused_searcher(device, cfg, model):
+    """The flat searcher over ``cfg``'s table on the unfused (K2) route, with a copy of ``model``."""
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.config import ColbertConfig
+    from colbert_tpu_torch.indexing.storage import IndexStorage
+    from colbert_tpu_torch.models.colbert import ColbertModel
+    from colbert_tpu_torch.ranking.searcher import ColbertSearcher
+
+    cfg_k2 = ColbertConfig.from_dict(cfg.to_dict())
+    cfg_k2.serve.flat_fused_topk = False
+    oracle_model = ColbertModel(cfg.model, cfg.multiview)
+    oracle_model.load_state_dict(model.state_dict())
+    return ColbertSearcher(cfg_k2, cli._tokenizer(cfg), oracle_model, IndexStorage(cfg.index.index_path),
+                           device=device)
+
+
+def phase_slice(device, workdir: Path, label: str, num_docs=20_000, model_kw=None,
+                tok_kw=None, n_requests=3, seed=SEED):
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.ops import flat_scan as fs
+    from colbert_tpu_torch.serving.server import RetrievalClient, RetrievalService
+
+    corpus = encoded_corpus(device, workdir, label, num_docs, model_kw, tok_kw, n_requests, seed)
+    cfg, docs, questions, positives = corpus["cfg"], corpus["docs"], corpus["questions"], corpus["positives"]
+    corpus_path, eval_path, common, n_eval = (corpus[k] for k in ("corpus_path", "eval_path", "common", "n_eval"))
+    enc_s = corpus["enc_s"]
 
     serve_err = []
 
@@ -765,14 +817,9 @@ def phase_slice(device, workdir: Path, label: str, num_docs=20_000, model_kw=Non
     wait_for_server(cfg, serve_err)
 
     # the oracle side: the same table and model, the unfused (K2) route
-    cfg_k2 = ColbertConfig.from_dict(cfg.to_dict())
-    cfg_k2.serve.flat_fused_topk = False
-    oracle_model = ColbertModel(cfg.model, cfg.multiview)
-    oracle_model.load_state_dict(model.state_dict())
-    k2_searcher = ColbertSearcher(cfg_k2, cli._tokenizer(cfg), oracle_model,
-                                  IndexStorage(cfg.index.index_path), device=device)
-    k2_service = RetrievalService(k2_searcher, docs, cfg_k2)
-    requests = [questions[i * B : (i + 1) * B] for i in range(n_requests)]
+    k2_searcher = unfused_searcher(device, cfg, corpus["model"])
+    k2_service = RetrievalService(k2_searcher, docs, k2_searcher.cfg)
+    requests = corpus["requests"]
     k2_service.retrieve(requests[0][:1], topk=TOPK)  # warm-up outside the counted run
 
     # ---- the counted serving-path run ----
@@ -811,12 +858,13 @@ def phase_slice(device, workdir: Path, label: str, num_docs=20_000, model_kw=Non
         f"random-init views are near ties)")
     if worst > SCORE_ATOL:
         raise AssertionError(f"served scores differ from the plain version by {worst}")
+    sharded_flat = phase_sharded_flat(device, cfg, docs, requests, k2_searcher, label)
     ann_launches, k7_deep = phase_ann_cli(device, workdir, cfg, common, corpus_path, eval_path, docs,
                                           requests, k2_searcher, n_eval, label)
     codec_launches = phase_codecs_cli(device, workdir, cfg, common, corpus_path, eval_path, docs,
                                       requests, k2_searcher, n_eval)
     ragged_cli = phase_ragged_cli(device, workdir, cfg, common, eval_path, docs, requests, n_eval, label)
-    ctx = {"ragged_cli": ragged_cli, "cfg": cfg, "common": common, "corpus_path": corpus_path, "docs": docs,
+    ctx = {"ragged_cli": ragged_cli, "sharded_flat": sharded_flat, "cfg": cfg, "common": common, "corpus_path": corpus_path, "docs": docs,
            "questions": questions,
            "positives": positives, "free": list(range(n_requests * B, len(questions))),
            "encode_docs_s": num_docs / enc_s}
@@ -1160,19 +1208,16 @@ def retrieval_examples(docs, questions, positives, n_neg, rng):
     return out
 
 
-def phase_train(device, workdir: Path, label: str, model_kw=None, tok_kw=None, batch=34,
-                steps=7, n_dev=40, seed=SEED, attention_impl="auto", tag="phase4"):
-    """The CLI's ``train`` (phase 4; with ``attention_impl="flash"``, phase 8b:
-    K11-K13 at the doc pass), its launches, then ``--resume`` from the last
-    checkpoint.  Returns the counted run's launches and its measurements."""
+def train_setup(workdir: Path, model_kw=None, tok_kw=None, batch=34, steps=7, n_dev=40, seed=SEED,
+                attention_impl="auto"):
+    """Phase 4's data and config: ``steps`` x ``batch`` train and ``n_dev``
+    dev examples over synthetic Chinese passages (10 and 8 hard negatives),
+    the vocab, and the config written to ``workdir / "conf.yaml"``."""
     import numpy as np
-    import torch
 
-    from colbert_tpu_torch import cli
     from colbert_tpu_torch.config import ColbertConfig, ModelConfig, TokenizerConfig, TrainConfig
     from colbert_tpu_torch.tokenization.vocab import build_vocab, write_vocab
-    from colbert_tpu_torch.training.checkpoint import CheckpointManager
-    from colbert_tpu_torch.utils.io import dump_json, load_jsonl
+    from colbert_tpu_torch.utils.io import dump_json
 
     rng = np.random.default_rng(seed + 7)
     n_train = steps * batch
@@ -1190,8 +1235,25 @@ def phase_train(device, workdir: Path, label: str, model_kw=None, tok_kw=None, b
         train=TrainConfig(per_device_batch_size=batch, num_epochs=1, evals_per_epoch=2, log_every=1,
                           keep_checkpoints=2, checkpoint_dir=str(workdir / "ckpt"), seed=seed),
     )
+    cfg.to_yaml(workdir / "conf.yaml")
+    return cfg, train_path, dev_path
+
+
+def phase_train(device, workdir: Path, label: str, model_kw=None, tok_kw=None, batch=34,
+                steps=7, n_dev=40, seed=SEED, attention_impl="auto", tag="phase4"):
+    """The CLI's ``train`` (phase 4; with ``attention_impl="flash"``, phase 8b:
+    K11-K13 at the doc pass), its launches, then ``--resume`` from the last
+    checkpoint.  Returns the counted run's launches and its measurements."""
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.training.checkpoint import CheckpointManager
+    from colbert_tpu_torch.utils.io import load_jsonl
+
+    cfg, train_path, dev_path = train_setup(workdir, model_kw, tok_kw, batch, steps, n_dev, seed, attention_impl)
+    n_train = steps * batch
     conf_path = workdir / "conf.yaml"
-    cfg.to_yaml(conf_path)
     c = cfg.model
     log(f"[{tag}] attention {c.attention_impl}; model hidden={c.hidden_size} layers={c.num_layers} "
         f"heads={c.num_heads} ffn={c.intermediate_size} vocab={c.vocab_size} dim={c.dim} {c.dtype}, dropout "
@@ -1487,25 +1549,18 @@ def phase_ann_cli(device, workdir: Path, cfg, common, corpus_path, eval_path, do
     return launches, k7_deep
 
 
-def phase_ann(device, workdir: Path, label: str, num_docs=20_000, n_batches=2, seed=0):
-    """Phase 5a/5b: ``build-index`` over the bench's synthetic corpus at the
-    operating point, recall@100 of ANN search against the fp32 exact
-    oracle, the batch's time per stage, and K4-K7 against their plain
-    versions on that batch's inputs."""
-    import numpy as np
+def bench_index(device, workdir: Path, num_docs=20_000, n_batches=2, seed=0):
+    """Phase 5b's corpus (``bench.py:51-65``'s generator, four fp16 parts),
+    ``n_batches`` x B topic queries, and its sq index at the operating point
+    built through the CLI.  Returns the config, the storage, the doc rows,
+    the queries and the build's seconds."""
     import torch
 
     from colbert_tpu_torch import cli
     from colbert_tpu_torch.config import ColbertConfig, ModelConfig, TokenizerConfig
     from colbert_tpu_torch.indexing.storage import IndexStorage
-    from colbert_tpu_torch.models.colbert import ColbertModel
-    from colbert_tpu_torch.ops import rerank as rr, sq_probe_batched as sp
-    from colbert_tpu_torch.ops.ivf import sq_probe_plan
-    from colbert_tpu_torch.ranking import searcher as srch
-    from colbert_tpu_torch.tokenization import ColbertTokenizer
     from colbert_tpu_torch.tokenization.vocab import build_vocab, write_vocab
 
-    # the corpus of bench.py:51-65 (seed 0), four fp16 parts; queries around the same topics
     docs, queries = topic_embeddings(num_docs, 16, n_batches * B, M, H, seed=seed)
     storage = IndexStorage(workdir / "index")
     per = num_docs // 4
@@ -1514,7 +1569,7 @@ def phase_ann(device, workdir: Path, label: str, num_docs=20_000, n_batches=2, s
         storage.write_part(p, docs[lo * 16 : hi * 16], [16] * (hi - lo))
     storage.write_meta({"dim": H, "num_docs": num_docs, "num_embeddings": num_docs * 16, "multiview": True,
                         "d_view": 16, "num_parts": 4, "embedding_dtype": "float16"})
-    # the model only encodes text; this phase searches from query reps
+    # the model only encodes text; these phases search from query reps
     vocab = write_vocab(build_vocab(["query"]), workdir / "vocab.txt")
     base = ColbertConfig(model=ModelConfig(vocab_size=512, hidden_size=32, num_layers=1, num_heads=2,
                                            intermediate_size=64, dim=H),
@@ -1524,8 +1579,27 @@ def phase_ann(device, workdir: Path, label: str, num_docs=20_000, n_batches=2, s
     cfg.to_yaml(conf)
     t0 = time.perf_counter()
     cli.main(["build-index", "--config", str(conf), "--device", str(device)])
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return cfg, storage, docs, queries, time.perf_counter() - t0
+
+
+def phase_ann(device, workdir: Path, label: str, num_docs=20_000, n_batches=2, seed=0):
+    """Phase 5a/5b: ``build-index`` over the bench's synthetic corpus at the
+    operating point, recall@100 of ANN search against the fp32 exact
+    oracle, the batch's time per stage, and K4-K7 against their plain
+    versions on that batch's inputs."""
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch.config import ColbertConfig
+    from colbert_tpu_torch.models.colbert import ColbertModel
+    from colbert_tpu_torch.ops import rerank as rr, sq_probe_batched as sp
+    from colbert_tpu_torch.ops.ivf import sq_probe_plan
+    from colbert_tpu_torch.ranking import searcher as srch
+    from colbert_tpu_torch.tokenization import ColbertTokenizer
+
+    cfg, storage, docs, queries, build_s = bench_index(device, workdir, num_docs, n_batches, seed)
     searcher = srch.ColbertSearcher(cfg, ColbertTokenizer(cfg.tokenizer, cfg.multiview),
                                     ColbertModel(cfg.model, cfg.multiview), storage, device=device)
     K = int(searcher.coarse.shape[0])
@@ -3746,9 +3820,290 @@ def phase_ragged(device, workdir: Path, label: str, num_docs=RAGGED_DOCS, rows=R
     return out
 
 
+# ---- phase 10: several devices ----
+
+SHARDS = 4  # corpus shards of phase 10a/10b, on the cards present
+
+
+def shard_devices(device, shards=SHARDS):
+    """``shards`` positions over the cards present (several a card when
+    fewer), or ``device`` for each on the CPU."""
+    import torch
+
+    if device.type != "cuda":
+        return [device] * shards
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i % n) for i in range(shards)]
+
+
+def phase_sharded_flat(device, cfg, docs, requests, single, label, shards=SHARDS):
+    """Phase 10a: ``ShardedColbertSearcher`` in flat mode over phase 2's
+    encoded corpus, ``shards`` shards on the cards present, every request
+    of 144 questions at top-100: each answer checked as phase 2's against
+    the plain version's top-100 over the single searcher's table and query
+    encodings (within 1e-4, tie-insensitive), K2 once a shard a batch and
+    no K1; the time a batch beside the single searcher's (K2, unfused), in
+    turns (information)."""
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch.indexing.storage import IndexStorage
+    from colbert_tpu_torch.parallel.mesh import make_mesh
+    from colbert_tpu_torch.ranking.sharded import ShardedColbertSearcher
+
+    start = t0 = time.perf_counter()
+    sharded = ShardedColbertSearcher(single.cfg, single.tok, single.model, IndexStorage(cfg.index.index_path),
+                                     mesh=make_mesh(devices=shard_devices(device, shards)))
+    build_s = time.perf_counter() - t0
+    encs = [single.tok.encode_queries(qs) for qs in requests]
+    run = lambda s, e: s.search_tokens(e.input_ids, e.attention_mask, e.active_mask, topk=TOPK)
+    run(sharded, encs[0])  # warm-up, not counted
+
+    # ---- the counted sharded flat run ----
+    reset_counts()
+    got = [run(sharded, e) for e in encs]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = read_counts()
+    # ----
+
+    want = {"K2": shards * len(requests), "K1": 0}
+    log(f"[phase10a] launches in the sharded flat run: {launches} (expected {want}: K2 once a shard a batch)")
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"sharded flat launches {launches}, expected {want}")
+    answers = [[[(int(p), float(s), docs[int(p)]) for p, s in zip(r.pids[b], r.scores[b])] for b in range(len(qs))]
+               for r, qs in zip(got, requests)]
+    worst, recall = check_flat_answers(requests, [[a] for a in answers], single, docs)
+    ms = {"sharded": [], "single": []}
+    for who in ("sharded", "single", "single", "sharded"):
+        s = sharded if who == "sharded" else single
+        for e in encs:
+            t0 = time.perf_counter()
+            run(s, e)
+            ms[who].append((time.perf_counter() - t0) * 1e3)
+    out = {"launches": launches, "max_abs_err": worst, "shards": shards, "build_s": build_s,
+           "ms": float(np.median(ms["sharded"])), "single_ms": float(np.median(ms["single"])),
+           "s": time.perf_counter() - start}
+    log(f"[phase10a] sharded flat: {shards} shards on {[str(d) for d in sharded.mesh.devices]}, built in "
+        f"{build_s:.1f} s; {len(requests)} requests of {B} questions top-{TOPK}: scores vs the plain version "
+        f"max|d|={worst:.3e} (limit {SCORE_ATOL}), pid recall {recall:.4f} (near ties); a batch "
+        f"{out['ms']:.1f} ms sharded, {out['single_ms']:.1f} ms single (host clock, synchronised, medians in "
+        f"turns, information) [{label}]")
+    if worst > SCORE_ATOL:
+        raise AssertionError(f"sharded flat scores differ from the plain version by {worst}")
+    return out
+
+
+def phase_sharded_ann(device, label, ann_info, shards=SHARDS):
+    """Phase 10b: ``ShardedColbertSearcher`` over phase 5b's sq index (the
+    bench generator's corpus, where recall means something: phase 2's random
+    model scores near ties), ``shards`` shards, one batch of 144 topic
+    queries from their reps: recall@100 against the fp32 exact oracle (at
+    least 0.98, phase 5b's limit) and against the single searcher's pids (at
+    least 0.95: a shard probes its own lists, a superset of the single
+    searcher's candidates), every rank's score at least the single
+    searcher's (within 1e-4) and the exact MaxSim of its pid over the bf16
+    table (within 1e-4); K6, K7 and K4 once a shard, K6/K7 on route "mma",
+    K4 on "wgmma"; the batch's time beside the single searcher's
+    (information).  ``ann_info``: phase 5b's config and query reps."""
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch.indexing.storage import IndexStorage
+    from colbert_tpu_torch.models.colbert import ColbertModel
+    from colbert_tpu_torch.ops.rerank import maxsim_rerank_uniform_ref
+    from colbert_tpu_torch.parallel.mesh import make_mesh
+    from colbert_tpu_torch.ranking.searcher import ColbertSearcher
+    from colbert_tpu_torch.ranking.sharded import ShardedColbertSearcher
+    from colbert_tpu_torch.tokenization import ColbertTokenizer
+
+    start = time.perf_counter()
+    cfg = ann_info["config"]
+    storage = IndexStorage(cfg.index.index_path)
+    tok, model = ColbertTokenizer(cfg.tokenizer, cfg.multiview), ColbertModel(cfg.model, cfg.multiview)
+    single = ColbertSearcher(cfg, tok, model, storage, device=device)
+    t0 = time.perf_counter()
+    sharded = ShardedColbertSearcher(cfg, tok, model, storage, mesh=make_mesh(devices=shard_devices(device, shards)))
+    build_s = time.perf_counter() - t0
+    Qb = ann_info["queries"][:B]
+    qm = torch.ones(B, M, device=device)
+    sharded.search_reps(Qb, qm, TOPK)  # warm-up, not counted
+
+    # ---- the counted sharded ANN run ----
+    reset_counts()
+    ts, tp = sharded.search_reps(Qb, qm, TOPK)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = read_counts()
+    # ----
+
+    want = {"K6": shards, "K7": shards, "K4": shards, "K5": 0, "K6 mma route": shards, "K7 mma route": shards,
+            "K4/K5 wgmma route": shards}
+    log(f"[phase10b] launches in the sharded ANN batch: {launches} (expected {want}: once a shard)")
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"sharded ANN launches {launches}, expected {want}")
+    ws, wp = single.search_reps(Qb, qm, TOPK)
+    exact = maxsim_rerank_uniform_ref(tp, Qb, single.emb_table, dv=16)
+    err = float((ts - exact).abs().max())
+    below = float((ws - ts).max())
+    op = single.exact_topk(Qb, TOPK)[1].cpu().numpy()
+    tp_np, wp_np = tp.cpu().numpy(), wp.cpu().numpy()
+    rec_exact = float(np.mean([len(set(tp_np[b]) & set(op[b])) / TOPK for b in range(B)]))
+    rec_single = float(np.mean([len(set(tp_np[b]) & set(wp_np[b])) / TOPK for b in range(B)]))
+    single_rec = float(np.mean([len(set(wp_np[b]) & set(op[b])) / TOPK for b in range(B)]))
+    ms = {"sharded": [], "single": []}
+    for who in ("sharded", "single", "single", "sharded"):
+        s = sharded if who == "sharded" else single
+        t0 = time.perf_counter()
+        s.search_reps(Qb, qm, TOPK)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        ms[who].append((time.perf_counter() - t0) * 1e3)
+    out = {"launches": launches, "max_abs_err": err, "recall_exact": rec_exact, "recall_single": rec_single,
+           "single_recall_exact": single_rec, "shards": shards, "build_s": build_s,
+           "ms": float(np.mean(ms["sharded"])), "single_ms": float(np.mean(ms["single"])),
+           "s": time.perf_counter() - start}
+    log(f"[phase10b] sharded sq ANN: {shards} shards, shard_index and tables in {build_s:.1f} s; a batch of {B} "
+        f"x {M} query reps: recall@{TOPK} vs the fp32 exact oracle {rec_exact:.4f} (single {single_rec:.4f}), vs "
+        f"the single searcher's pids {rec_single:.4f}; scores vs exact MaxSim of the pids max|d|={err:.3e}, the "
+        f"single searcher's rank scores above the sharded by at most {below:.3e}; a batch {out['ms']:.1f} ms "
+        f"sharded, {out['single_ms']:.1f} ms single (host clock, means in turns, information) [{label}]")
+    if rec_exact < 0.98 or rec_single < 0.95 or err > SCORE_ATOL or below > SCORE_ATOL:
+        raise AssertionError(f"sharded ANN: recall {rec_exact} / {rec_single}, max|d| {err}, below single {below}")
+    return out
+
+
+def phase10_alone(device, label):
+    """Phase 10 with only the set-up it needs (``chip_smoke.py --phase10``,
+    for a machine with several cards): phase 2's encoded corpus, phase 5b's
+    corpus and index, phase 4's data and config."""
+    import torch
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_phase10_") as tmp:
+        tmp = Path(tmp)
+        for d in ("flat", "ann", "train"):
+            (tmp / d).mkdir()
+        corpus = encoded_corpus(device, tmp / "flat", label)
+        flat = phase_sharded_flat(device, corpus["cfg"], corpus["docs"], corpus["requests"],
+                                  unfused_searcher(device, corpus["cfg"], corpus["model"]), label)
+        cfg, _, _, queries, _ = bench_index(device, tmp / "ann", n_batches=1)
+        ann = phase_sharded_ann(device, label, {"config": cfg, "queries": torch.from_numpy(queries).to(device)})
+        tcfg, train_path, _ = train_setup(tmp / "train")
+        launch = phase_launch_train(device, tmp / "train", label, {"cfg": tcfg, "train_path": train_path})
+    return {"sharded_flat": flat, "sharded_ann": ann, "launch_train": launch}
+
+
+def phase_launch_train(device, workdir: Path, label: str, train_ctx, steps=3, processes=None):
+    """Phase 10c: the CLI's ``train`` under a launch (``--coordinator
+    127.0.0.1:<port> --num-processes N --process-id r``, NCCL, N =
+    ``processes``, by default the cards present) for ``steps`` steps at
+    phase 4's configuration, against the same steps without the launch
+    flags.  N = 1 (in this process): every step's loss, the parameters and
+    AdamW's moments after the last step bit-equal (the moments of step 1
+    are the gradients scaled), K9 and no K3 as phase 4's steps.  N >= 2
+    (one process a card, each rank's output in ``workdir``): the CPU test's
+    conditions (the model in fp32, Adam's eps 1e-6), 34 // N examples a
+    rank, the one device at the global batch; the ranks' losses within 1e-6
+    of their size and the parameters within 1e-6 of the one device's."""
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.config import ColbertConfig
+    from colbert_tpu_torch.training.checkpoint import CheckpointManager
+    from colbert_tpu_torch.utils.io import dump_json, load_json, load_jsonl
+
+    start = time.perf_counter()
+    n = processes or (torch.cuda.device_count() if device.type == "cuda" else 1)
+    base = train_ctx["cfg"]
+    b = base.train.per_device_batch_size // n
+    data = workdir / "launch_train.json"
+    dump_json(load_json(train_ctx["train_path"])[: steps * n * b], data)
+
+    def conf(name, batch):
+        c = ColbertConfig.from_dict(base.to_dict())
+        c.train.per_device_batch_size, c.train.evals_per_epoch = batch, 1
+        c.train.checkpoint_dir = str(workdir / name)
+        if n > 1:
+            # the CPU test's conditions: fp32, and Adam's eps at 1e-6, since the
+            # default 1e-8 scales the rounding noise of exactly-zero gradients
+            # (the key biases') up to ~lr a step
+            c.model.dtype, c.train.adam_eps = "float32", 1e-6
+        c.to_yaml(workdir / f"{name}.yaml")
+        return ["train", "--config", str(workdir / f"{name}.yaml"), "--train-data", str(data)]
+
+    t0 = time.perf_counter()
+    cli.main([*conf("one", n * b), "--device", str(device)])
+    one_s = time.perf_counter() - t0
+    port = free_port()
+    launch = ["--coordinator", f"127.0.0.1:{port}", "--num-processes", str(n)]
+    t0 = time.perf_counter()
+    if n == 1:
+        # ---- the counted launched run ----
+        reset_counts()
+        cli.main([*conf("ranks", b), "--device", str(device), *launch, "--process-id", "0"])
+        torch.cuda.synchronize()
+        launches = read_counts()
+        # ----
+    else:
+        args = conf("ranks", b)
+        outs = [open(workdir / f"rank{r}.log", "w") for r in range(n)]
+        procs = [subprocess.Popen([sys.executable, "-m", "colbert_tpu_torch.cli", *args, "--device", device.type,
+                                   *launch, "--process-id", str(r)], cwd=Path(__file__).resolve().parent,
+                                  stdout=out, stderr=subprocess.STDOUT) for r, out in enumerate(outs)]
+        try:
+            for r, proc in enumerate(procs):
+                if proc.wait(timeout=900):
+                    tail = (workdir / f"rank{r}.log").read_text()[-3000:]
+                    raise RuntimeError(f"rank {r} of the launch exited {proc.returncode}:\n{tail}")
+        finally:
+            for proc, out in zip(procs, outs):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                out.close()
+        launches = None
+    ranks_s = time.perf_counter() - t0
+    losses = {k: [r["step_loss"] for r in load_jsonl(workdir / k / "train_log.jsonl") if r["kind"] == "step"]
+              for k in ("one", "ranks")}
+    ckpt = {k: CheckpointManager(str(workdir / k)) for k in ("one", "ranks")}
+    params = {k: torch.load(c.params_path(steps), map_location="cpu", weights_only=True) for k, c in ckpt.items()}
+    moments = {k: c.load_train_state(steps)["optimizer"]["adamw"]["state"] for k, c in ckpt.items()}
+    if any(len(v) != steps or not np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError(f"launched train losses {losses}")
+    diffs = sorted(((float((params["one"][k].float() - v.float()).abs().max()), k) for k, v in params["ranks"].items()),
+                   reverse=True)
+    p_diff = diffs[0][0]
+    m_diff = max(float((moments["one"][i][m] - s[m]).abs().max()) for i, s in moments["ranks"].items()
+                 for m in ("exp_avg", "exp_avg_sq"))
+    out = {"processes": n, "backend": "nccl" if device.type == "cuda" else "gloo", "losses": losses,
+           "max_param_diff": p_diff, "max_moment_diff": m_diff, "one_s": one_s, "ranks_s": ranks_s,
+           "launches": launches, "s": time.perf_counter() - start}
+    log(f"[phase10c] train under a launch of {n} process(es) ({out['backend']}), {steps} steps at phase 4's "
+        f"configuration{' in fp32, adam_eps 1e-6' if n > 1 else ''}, per-device batch {b}: losses {losses['ranks']} vs "
+        f"the one device's {losses['one']}; parameters max|d| {p_diff:.3e} (largest: "
+        f"{', '.join(f'{k} {d:.2e}' for d, k in diffs[:3])}), AdamW moments max|d| {m_diff:.3e}; {ranks_s:.1f} s launched, "
+        f"{one_s:.1f} s without (model init and checkpoints included); launches {launches} [{label}]")
+    if n == 1:
+        per_step_k9 = (1 + 3 * base.model.num_layers) * 2 * 2
+        if losses["ranks"] != losses["one"] or p_diff or m_diff:
+            raise AssertionError("a launch of one process is not bit-equal to no launch")
+        if launches["K9"] != steps * per_step_k9 or launches["K3"]:
+            raise AssertionError(f"launched train launches {launches}, expected K9 {steps * per_step_k9}, no K3")
+        k9_on_packed(launches, "the launched train run")
+    elif not (np.allclose(losses["ranks"], losses["one"], rtol=1e-6, atol=0) and p_diff <= 1e-6):
+        raise AssertionError(f"{n} ranks against one device: losses {losses}, parameters max|d| {p_diff}")
+    return out
+
+
+
 def main() -> int:
     import torch
 
+    ap = argparse.ArgumentParser(description="Smoke run of colbert_tpu_torch on the cards present.")
+    ap.add_argument("--phase10", action="store_true",
+                    help="phase 10 alone (several devices), with the set-up it needs")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -3774,6 +4129,13 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
+    if args.phase10:
+        out = phase10_alone(device, label)
+        log(label)
+        log(json.dumps({"phase10": out}, default=str))
+        log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                               "count": torch.cuda.device_count()}}))
+        return 0
     worst, times, share, routes = phase_kernels(device)
     train_kernels = phase_train_kernels(device)
     t8 = time.perf_counter()
@@ -3782,7 +4144,7 @@ def main() -> int:
     t8 = time.perf_counter() - t8
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         serve_launches, _, ann_launches, codec_launches, k7_deep, ctx = phase_slice(device, Path(tmp), label)
-        ragged_cli = ctx["ragged_cli"]
+        ragged_cli, sharded_flat = ctx["ragged_cli"], ctx["sharded_flat"]
         ce_launches, ce_info = phase_second_stage(device, Path(tmp), label, ctx)
         t0 = time.perf_counter()
         flash_encode = phase_flash_encode(device, Path(tmp), label, ctx)
@@ -3792,6 +4154,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         train_launches, train_info = phase_train(device, Path(tmp), label)
         repeat = phase_repeat(device, label, train_info)
+        launch_train = phase_launch_train(device, Path(tmp), label, train_info)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_flash_train_") as tmp:
         t0 = time.perf_counter()
         flash_launches, flash_train = phase_train(device, Path(tmp), label, steps=5, attention_impl="flash",
@@ -3804,9 +4167,12 @@ def main() -> int:
     log(f"[phase8] the flash path and remat took {t8:.1f} s")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ann_") as tmp:
         ann_kernels, ann_info = phase_ann(device, Path(tmp), label)
+        sharded_ann = phase_sharded_ann(device, label, ann_info)
         codec_kernels, _ = phase_codecs(device, Path(tmp), label, ann_info)
         ragged = phase_ragged(device, Path(tmp), label)
 
+    log(f"[phase10] sharded flat {sharded_flat['s']:.1f} s, sharded ANN {sharded_ann['s']:.1f} s, train under a "
+        f"launch {launch_train['s']:.1f} s: {sharded_flat['s'] + sharded_ann['s'] + launch_train['s']:.1f} s")
     num_docs, dv = 20_000, 16
     k12_bound = bound(2.0 * B * M * num_docs * dv * H,
                       num_docs * dv * H * 2 + B * M * H * 4 + num_docs * B * 4, PEAK_BF16_FLOPS)
@@ -3819,6 +4185,8 @@ def main() -> int:
             "bound_ms": k12_bound[0], "bound_by": k12_bound[1], "library_ms": None,
             "kernel_route": routes[fn], "peak_share": share[fn], "yardstick_cublas_ms": times["cuBLAS"][0],
         })
+    kernels[1]["sharded"] = {key: sharded_flat[key] for key in ("shards", "max_abs_err", "ms", "single_ms")} | {
+        "launches": sharded_flat["launches"]["K2"]}  # phase 10a: K2 once a shard a batch
     kernels[0]["second_stage_launches"] = {"mine": ce_launches["mine"]["K1"],
                                            "evaluate_rerank_ce": ce_launches["rerank"]["K1"]}
     kernels[0].update({"int8_ms": times["K1 int8"][0], "int8_peak_share": share["K1 int8"],
@@ -3835,6 +4203,8 @@ def main() -> int:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
         })
+        if launch_train["launches"] is not None:  # phase 10c: train under a launch of one process
+            kernels[-1]["launch_train_launches"] = launch_train["launches"][fn]
         if fn == "K9":
             ce, ce_hidden = k["ce"], k["ce_hidden"]
             kernels[-1].update({
@@ -3864,6 +4234,7 @@ def main() -> int:
             "launches": ann_launches[fn], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": None,
+            "sharded_launches": sharded_ann["launches"][fn],  # phase 10b: once a shard
         })
         if fn == "K6":
             two = codec_kernels["K6"]

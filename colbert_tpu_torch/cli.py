@@ -28,9 +28,22 @@ also takes a bare BERT and starts the projection head fresh; so does
 without it ``ce_train.init_from_retriever`` grafts the latest retriever
 checkpoint's BERT into the CE.  Overrides: repeated ``--set key=value``
 with dotted keys.  Everything runs on ``--device`` (default ``cuda``; the
-CPU only when asked for).  The multi-host flags (``--coordinator``,
-``--num-processes``, ``--process-id``) are refused: multi-GPU is ROADMAP
-Queue 1 step 10.
+CPU only when asked for).
+
+Several GPUs (the ``mesh`` section: ``data`` positions, -1 for every
+device; ``model`` > 1, tensor parallelism, is refused):
+
+* ``encode`` with ``--device cuda`` splits each batch over ``mesh.data``
+  GPUs of the one process, a model replica each;
+* a launch runs the same command once a GPU, with ``--coordinator
+  host:port`` (rank 0's address), ``--num-processes N`` and a distinct
+  ``--process-id`` (the reference's ``torch.distributed.launch``): rank r
+  takes ``cuda:{r % device_count}`` (NCCL; gloo with ``--device cpu``).
+  ``train`` and ``train-ce`` then run data-parallel over the global batch
+  of ``per_device_batch_size x N``, ``encode`` splits each batch over the
+  ranks, and rank 0 alone writes.  The other subcommands run in one
+  process (``ranking/sharded.py``'s corpus-sharded searcher is a library
+  API, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -142,12 +155,28 @@ def cmd_train_ce(args) -> None:
     trainer.train(train_ds, dev_ds=dev_ds, resume=args.resume)
 
 
+def _mesh(cfg: ColbertConfig, device: str):
+    """The devices ``encode`` splits each batch over: ``mesh.data`` of the
+    visible GPUs for a bare ``cuda``, else ``device`` alone; under a launch,
+    this rank's device (the ranks make the data axis)."""
+    from colbert_tpu_torch.parallel.collectives import launched, world
+    from colbert_tpu_torch.parallel.mesh import make_mesh
+
+    if launched():
+        if cfg.mesh.data not in (-1, world()[1]):
+            raise SystemExit(f"mesh.data={cfg.mesh.data} but the launch has {world()[1]} processes")
+        return make_mesh(-1, cfg.mesh.model, devices=[device])
+    if device == "cuda":
+        return make_mesh(cfg.mesh.data, cfg.mesh.model)
+    return make_mesh(cfg.mesh.data, cfg.mesh.model, devices=[device])
+
+
 def cmd_encode(args) -> None:
     cfg = _load_cfg(args)
     from colbert_tpu_torch.indexing.encoder import CollectionEncoder
 
     model = _model(cfg, args)
-    encoder = CollectionEncoder(cfg, _tokenizer(cfg), model, device=args.device)
+    encoder = CollectionEncoder(cfg, _tokenizer(cfg), model, mesh=_mesh(cfg, args.device))
     encoder.encode_corpus(_load_corpus(args.corpus), cfg.index.index_path)
 
 
@@ -249,6 +278,9 @@ def cmd_mine(args) -> None:
         )
 
 
+_LAUNCHED = ("encode", "train", "train-ce")  # the subcommands a launch of several processes runs
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(prog="colbert_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -259,11 +291,14 @@ def main(argv: Optional[List[str]] = None) -> None:
         p.add_argument("--pretrain", default=None,
                        help="reference-layout pytorch.bin (model.* + linear.*): the retriever's; train-ce's own CE")
         p.add_argument("--checkpoint-step", type=int, default=None)
-        p.add_argument("--device", default="cuda", help="torch device (default cuda)")
-        # the JAX CLI's multi-host launch flags: refused (multi-GPU is ROADMAP step 10)
-        p.add_argument("--coordinator", default=None, help="not ported (multi-host launch)")
-        p.add_argument("--num-processes", type=int, default=None, help="not ported (multi-host launch)")
-        p.add_argument("--process-id", type=int, default=None, help="not ported (multi-host launch)")
+        p.add_argument("--device", default="cuda",
+                       help="torch device (default cuda; encode: mesh.data GPUs, model > 1 refused)")
+        # a launch: the same command once a GPU, each with its --process-id
+        # (the reference's torch.distributed.launch, eval.sh:13)
+        p.add_argument("--coordinator", default=None,
+                       help="host:port of rank 0 (a launch: one process a GPU; NCCL, or gloo with --device cpu)")
+        p.add_argument("--num-processes", type=int, default=None, help="processes of the launch")
+        p.add_argument("--process-id", type=int, default=None, help="this process's rank")
         if corpus:
             p.add_argument("--corpus", required=True)
         if data:
@@ -295,13 +330,24 @@ def main(argv: Optional[List[str]] = None) -> None:
     p.set_defaults(fn=cmd_mine)
 
     args = ap.parse_args(argv)
-    if any(getattr(args, f) is not None for f in ("coordinator", "num_processes", "process_id")):
-        raise SystemExit(
-            f"{args.cmd}: the multi-host flags (--coordinator, --num-processes, --process-id) are not "
-            "yet ported to colbert_tpu_torch (ROADMAP.md Queue 1 step 10: multi-GPU and multi-host); "
-            "use python -m colbert_tpu.cli"
-        )
-    args.fn(args)
+    if getattr(args, "coordinator", None):
+        if args.num_processes is None or args.process_id is None:
+            ap.error("--coordinator requires --num-processes and --process-id")
+        if args.num_processes > 1 and args.cmd not in _LAUNCHED:
+            ap.error(f"{args.cmd} runs in one process; a launch of {args.num_processes} runs "
+                     f"{', '.join(sorted(_LAUNCHED))}")
+        from colbert_tpu_torch.parallel.mesh import init_distributed
+
+        # before any device use: joins the process group and picks this rank's device
+        args.device = str(init_distributed(args.coordinator, args.num_processes, args.process_id,
+                                           device=args.device))
+    try:
+        args.fn(args)
+    finally:
+        if getattr(args, "coordinator", None):
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

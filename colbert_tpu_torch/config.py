@@ -385,9 +385,16 @@ class ServeConfig:
 
 @dataclass
 class MeshConfig:
-    """Device mesh layout.  ``data`` shards the batch/corpus, ``model``
-    shards attention heads + MLP (tensor parallelism).  The reference only
-    has NCCL DDP (``distributed.py``); TP/PP do not exist there."""
+    """Device mesh layout (``parallel/mesh.py::make_mesh``).  ``data``: the
+    positions the batch or the corpus is split over, -1 for every device.
+    In the port, ``encode`` splits each batch over ``data`` GPUs of one
+    process and ``ranking/sharded.py`` keeps a corpus shard on each; a
+    launch (one process a GPU, the CLI's ``--coordinator``) trains
+    data-parallel over its ranks, where ``data`` must be -1 or their
+    number.  ``model`` would shard attention heads and the MLP (tensor
+    parallelism, as the JAX package does); the port refuses ``model > 1``
+    (ROADMAP Queue 1 step 10).  The reference only has NCCL DDP
+    (``distributed.py``); TP/PP do not exist there."""
 
     data: int = -1                    # -1 = all devices
     model: int = 1

@@ -8,9 +8,12 @@
 // regenerated, never stored.
 //
 // Random bits: Philox4x32-10 (Salmon et al., SC'11), keyed by the 64-bit
-// per-call seed, counter = (i mod 2^32, i div 2^32, 0, 0) for the i-th
-// group of 16 elements.  Its four 32-bit output words give the 16 mask
-// bytes, little end first: element 16*i + j takes byte j % 4 of word j / 4.
+// per-call seed, counter = (c mod 2^32, c div 2^32, 0, 0) with c = base + i
+// for the i-th group of 16 elements.  Its four 32-bit output words give the
+// 16 mask bytes, little end first: element 16*i + j takes byte j % 4 of
+// word j / 4.  `base` (route "packed"; 0 for route "simple") is where a
+// call's rows start in a larger tensor: a data-parallel rank draws the
+// masks that one device draws for the same rows of the global batch.
 // ops/dropout.py::hw_dropout_ref computes the same stream with torch
 // integer ops, and both routes agree with it bit for bit.
 //
@@ -242,7 +245,7 @@ constexpr int kChunks = 2;  // 16-byte chunks a lane takes in one pass of the lo
 template <typename T, bool HI, bool STREAM>
 __global__ void __launch_bounds__(kThreads)
 packed_kernel(const T* __restrict__ x, T* __restrict__ y, long long n, const RoundKeys keys, uint32_t bias,
-              uint32_t thr, float scale, int vec_ok) {
+              uint32_t thr, float scale, int vec_ok, unsigned long long base) {
   constexpr int kParts = sizeof(T);       // 16-byte chunks a group of 16 elements
   constexpr int kTile = 32 * kChunks;     // chunks a warp takes in one pass: lane + 32 j
   const typename Pair<T>::type s = Pair<T>::of(scale);
@@ -258,7 +261,7 @@ packed_kernel(const T* __restrict__ x, T* __restrict__ y, long long n, const Rou
     for (int j = 0; j < kChunks; ++j) v[j] = load_in<STREAM>(src + c0 + 32 * j);
 #pragma unroll
     for (int j = 0; j < kChunks; ++j) {
-      const unsigned long long g = (unsigned long long)(c0 + 32 * j) / kParts;
+      const unsigned long long g = base + (unsigned long long)(c0 + 32 * j) / kParts;
       v[j] = apply_chunk<T, HI>(v[j], philox_keyed((uint32_t)g, (uint32_t)(g >> 32), keys), part, bias, s);
     }
 #pragma unroll
@@ -267,7 +270,8 @@ packed_kernel(const T* __restrict__ x, T* __restrict__ y, long long n, const Rou
   // what the tiles leave (fewer than kTile chunks), or every group of an unaligned view
   const long long groups = (n + 15) / 16, stride = (long long)gridDim.x * kThreads;
   for (long long i = tiles * (kTile / kParts) + (long long)blockIdx.x * kThreads + threadIdx.x; i < groups; i += stride)
-    scalar_group(x, y, i * 16, n, philox_keyed((uint32_t)i, (uint32_t)(i >> 32), keys), thr, scale);
+    scalar_group(x, y, i * 16, n, philox_keyed((uint32_t)(base + i), (uint32_t)((base + i) >> 32), keys), thr,
+                 scale);
 }
 
 // an attribute of a card, asked once per device (0 if the query fails)
@@ -302,7 +306,7 @@ cudaError_t failed_query() {
 
 template <typename T, bool HI, bool STREAM>
 cudaError_t launch_packed_as(const void* x, void* y, long long n, const RoundKeys& keys, int thr, float scale,
-                             int vec_ok, int device, cudaStream_t stream) {
+                             int vec_ok, unsigned long long base, int device, cudaStream_t stream) {
   constexpr long long kTileElems = 32 * kChunks * 16 / (long long)sizeof(T);
   const long long tiles = vec_ok ? n / kTileElems : 0;
   const long long rest = (n + 15) / 16 - tiles * kTileElems / 16;  // groups left to the element-by-element path
@@ -317,13 +321,13 @@ cudaError_t launch_packed_as(const void* x, void* y, long long n, const RoundKey
   }
   const uint32_t bias = (0x80u - ((uint32_t)thr & 0x7Fu)) * 0x01010101u;
   packed_kernel<T, HI, STREAM><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), n, keys, bias, (uint32_t)thr, scale, vec_ok);
+      static_cast<const T*>(x), static_cast<T*>(y), n, keys, bias, (uint32_t)thr, scale, vec_ok, base);
   return cudaGetLastError();
 }
 
 template <typename T, bool HI>
 cudaError_t launch_packed(const void* x, void* y, long long n, unsigned long long seed, int thr, float scale,
-                          int vec_ok, int device, cudaStream_t stream) {
+                          int vec_ok, unsigned long long base, int device, cudaStream_t stream) {
   static std::atomic<int> l2_cache[kMaxDevices];
   const int l2 = card_attribute(cudaDevAttrL2CacheSize, device, l2_cache);
   if (l2 <= 0) return failed_query();
@@ -334,8 +338,8 @@ cudaError_t launch_packed(const void* x, void* y, long long n, unsigned long lon
     keys.k1[r] = k1;
   }
   const bool streaming = (long long)sizeof(T) * n > l2;
-  if (streaming) return launch_packed_as<T, HI, true>(x, y, n, keys, thr, scale, vec_ok, device, stream);
-  return launch_packed_as<T, HI, false>(x, y, n, keys, thr, scale, vec_ok, device, stream);
+  if (streaming) return launch_packed_as<T, HI, true>(x, y, n, keys, thr, scale, vec_ok, base, device, stream);
+  return launch_packed_as<T, HI, false>(x, y, n, keys, thr, scale, vec_ok, base, device, stream);
 }
 
 template <typename T>
@@ -352,19 +356,19 @@ cudaError_t launch_simple(const void* x, void* y, long long n, unsigned long lon
 
 template <typename T>
 cudaError_t launch(int route, const void* x, void* y, long long n, unsigned long long seed, int thr, float scale,
-                   int vec_ok, int device, cudaStream_t stream) {
-  if (route == 1) return launch_simple<T>(x, y, n, seed, thr, scale, vec_ok, stream);
-  if (thr >= 128) return launch_packed<T, true>(x, y, n, seed, thr, scale, vec_ok, device, stream);
-  return launch_packed<T, false>(x, y, n, seed, thr, scale, vec_ok, device, stream);
+                   int vec_ok, unsigned long long base, int device, cudaStream_t stream) {
+  if (route == 1) return base ? cudaErrorInvalidValue : launch_simple<T>(x, y, n, seed, thr, scale, vec_ok, stream);
+  if (thr >= 128) return launch_packed<T, true>(x, y, n, seed, thr, scale, vec_ok, base, device, stream);
+  return launch_packed<T, false>(x, y, n, seed, thr, scale, vec_ok, base, device, stream);
 }
 
 cudaError_t dispatch(int dtype, int route, const void* x, void* y, long long n, unsigned long long seed, int thr,
-                     float scale, int device, cudaStream_t stream) {
+                     float scale, unsigned long long base, int device, cudaStream_t stream) {
   const int vec_ok = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
   switch (dtype) {
-    case 0: return launch<float>(route, x, y, n, seed, thr, scale, vec_ok, device, stream);
-    case 1: return launch<__nv_bfloat16>(route, x, y, n, seed, thr, scale, vec_ok, device, stream);
-    case 2: return launch<__half>(route, x, y, n, seed, thr, scale, vec_ok, device, stream);
+    case 0: return launch<float>(route, x, y, n, seed, thr, scale, vec_ok, base, device, stream);
+    case 1: return launch<__nv_bfloat16>(route, x, y, n, seed, thr, scale, vec_ok, base, device, stream);
+    case 2: return launch<__half>(route, x, y, n, seed, thr, scale, vec_ok, base, device, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -372,10 +376,12 @@ cudaError_t dispatch(int dtype, int route, const void* x, void* y, long long n, 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16, 2 float16.  route: 0 "packed", 1 "simple".
+// `base`: the Philox counter of the first group (element 16 * base of a
+// larger tensor whose rows this call holds); route "simple" takes 0 only.
 // `device` is the tensors' card: made current for the launch if it is not,
 // and the caller's restored after.  Returns a cudaError_t (0 on success).
-extern "C" int dropout_launch(const void* x, void* y, long long n, int dtype, unsigned long long seed, int thr,
-                              float scale, int route, int device, void* stream) {
+extern "C" int dropout_launch_at(const void* x, void* y, long long n, int dtype, unsigned long long seed, int thr,
+                                 float scale, int route, int device, void* stream, unsigned long long base) {
   if (n <= 0) return 0;
   if (thr < 1 || thr > 255 || route < 0 || route > 1 || device < 0 || device >= kMaxDevices)
     return (int)cudaErrorInvalidValue;
@@ -383,10 +389,16 @@ extern "C" int dropout_launch(const void* x, void* y, long long n, int dtype, un
   cudaError_t err = cudaGetDevice(&current);
   if (err != cudaSuccess) return (int)err;
   if (current != device && (err = cudaSetDevice(device)) != cudaSuccess) return (int)err;
-  err = dispatch(dtype, route, x, y, n, seed, thr, scale, device, static_cast<cudaStream_t>(stream));
+  err = dispatch(dtype, route, x, y, n, seed, thr, scale, base, device, static_cast<cudaStream_t>(stream));
   if (current != device) {
     const cudaError_t back = cudaSetDevice(current);
     if (err == cudaSuccess) err = back;
   }
   return (int)err;
+}
+
+// dropout_launch_at from counter 0
+extern "C" int dropout_launch(const void* x, void* y, long long n, int dtype, unsigned long long seed, int thr,
+                              float scale, int route, int device, void* stream) {
+  return dropout_launch_at(x, y, n, dtype, seed, thr, scale, route, device, stream, 0ull);
 }

@@ -6,10 +6,19 @@ plus per-doc lengths, in the same layout and ``meta.json`` as the JAX
 encoder (``indexing/storage.py``).  Embeddings are compacted with the
 active mask before storage: multiview docs keep their ``d_view`` vectors,
 other docs only their scored (non-punctuation, non-[SEP]) positions.
+
+Over the mesh's ``data`` axis (JAX ``:60-75``): each batch is padded to a
+multiple of the positions and split into equal contiguous parts, one a
+position, each encoded by the model replica on that position's device;
+the parts are put back in order, so the part files equal one device's.
+Under a launch (``parallel/mesh.py::init_distributed``) the positions are
+the ranks' (one device each): each rank encodes its part, the parts are
+all-gathered, and rank 0 alone writes the parts and ``meta.json``.
 """
 
 from __future__ import annotations
 
+import copy
 import queue as queue_mod
 import threading
 from typing import List, Optional, Sequence, Tuple
@@ -21,6 +30,8 @@ from colbert_tpu_torch.config import ColbertConfig
 from colbert_tpu_torch.utils.logging import Timers, get_logger
 from colbert_tpu_torch.indexing.storage import IndexStorage
 from colbert_tpu_torch.models.colbert import ColbertModel
+from colbert_tpu_torch.parallel.collectives import all_gather_rows, barrier, world
+from colbert_tpu_torch.parallel.mesh import Mesh
 from colbert_tpu_torch.tokenization import ColbertTokenizer
 
 logger = get_logger("encoder")
@@ -28,7 +39,8 @@ logger = get_logger("encoder")
 
 class CollectionEncoder:
     def __init__(self, cfg: ColbertConfig, tokenizer: ColbertTokenizer, model: ColbertModel,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh: Optional[Mesh] = None):
+        """``mesh``: the devices to split each batch over (default: ``device`` alone)."""
         if tokenizer.vocab_size > cfg.model.vocab_size:
             # an id past the embedding table is a device-side assert on the card
             raise ValueError(
@@ -36,8 +48,15 @@ class CollectionEncoder:
             )
         self.cfg = cfg
         self.tok = tokenizer
-        self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None else Mesh((torch.device(device),))
+        self.device = self.mesh.devices[0]
         self.model = model.to(self.device).eval()
+        # one replica a distinct device
+        self.replicas = {self.device: self.model}
+        for dev in self.mesh.devices:
+            if dev not in self.replicas:
+                self.replicas[dev] = copy.deepcopy(self.model).to(dev)
+        self.rank, self.world = world()
         self.timers = Timers()
 
     # ---- device step ----
@@ -46,8 +65,16 @@ class CollectionEncoder:
     def _encode_tokenized(self, ids, attn, active) -> Tuple[np.ndarray, List[int]]:
         """One tokenized batch -> (flat compacted embeddings fp16, doclens)."""
         dev = self.device
-        D = self.model.doc(torch.from_numpy(ids).to(dev), torch.from_numpy(attn).to(dev))
-        D = D.to(torch.float16)                                   # (B, V, dim)
+        n, positions = ids.shape[0], self.mesh.data
+        per = -(-n // (positions * self.world))  # rows a position
+        pad = ((0, per * positions * self.world - n), (0, 0))
+        ids, attn = np.pad(ids, pad), np.pad(attn, pad)
+        parts = []
+        for j, d in enumerate(self.mesh.devices):
+            lo = (self.rank * positions + j) * per
+            parts.append(self.replicas[d].doc(torch.from_numpy(ids[lo : lo + per]).to(d),
+                                              torch.from_numpy(attn[lo : lo + per]).to(d)).to(torch.float16))
+        D = all_gather_rows(torch.cat([x.to(dev) for x in parts]))[:n]  # (B, V, dim)
         if self.cfg.multiview.enabled:
             # static d_view vectors per doc, all active
             return D.reshape(-1, D.shape[-1]).cpu().numpy(), [D.shape[1]] * D.shape[0]
@@ -107,8 +134,9 @@ class CollectionEncoder:
         def flush(part):
             nonlocal embs, doclens
             flat = np.concatenate(embs, axis=0) if embs else np.zeros((0, self.cfg.model.dim), np.float16)
-            storage.write_part(part, flat, doclens)
-            logger.info("part %d: %d docs, %d vectors", part, len(doclens), flat.shape[0])
+            if not self.rank:
+                storage.write_part(part, flat, doclens)
+                logger.info("part %d: %d docs, %d vectors", part, len(doclens), flat.shape[0])
             embs, doclens = [], []
 
         try:
@@ -131,15 +159,17 @@ class CollectionEncoder:
             stop.set()
             t.join()
 
-        storage.write_meta(
-            {
-                "dim": self.cfg.model.dim,
-                "num_docs": n,
-                "num_embeddings": int(np.sum(storage.read_doclens())),
-                "multiview": self.cfg.multiview.enabled,
-                "d_view": self.cfg.multiview.d_view,
-                "num_parts": num_parts,
-                "embedding_dtype": "float16",
-            }
-        )
+        if not self.rank:
+            storage.write_meta(
+                {
+                    "dim": self.cfg.model.dim,
+                    "num_docs": n,
+                    "num_embeddings": int(np.sum(storage.read_doclens())),
+                    "multiview": self.cfg.multiview.enabled,
+                    "d_view": self.cfg.multiview.d_view,
+                    "num_parts": num_parts,
+                    "embedding_dtype": "float16",
+                }
+            )
+        barrier()  # the other ranks return once the files are there
         return storage

@@ -16,7 +16,9 @@ Counterpart of ``colbert_tpu/models/bert.py`` with the same numerics:
   ``dropout_impl`` "byte" and "hw" run the byte-threshold kernel K9
   (``ops/dropout.py``); "exact" is ``F.dropout``.  Each site draws its seed
   from the ``generator`` the caller passes for the pass, a layer's seeds
-  before the layer runs (so a recomputed layer drops the same elements).
+  before the layer runs (so a recomputed layer drops the same elements);
+  a :class:`DropoutRows` generator also offsets K9's counter to the pass's
+  first row in a data-parallel global batch.
 
 Attention, as the JAX package dispatches it (``colbert_tpu/models/bert.py:
 122-135``): ``attention_impl="flash"`` at a sequence length that is a
@@ -37,7 +39,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -65,36 +67,60 @@ def draw_seed(generator: Optional[torch.Generator]) -> int:
     return int(torch.randint(0, 1 << 62, (1,), generator=generator).item())
 
 
+class DropoutRows(NamedTuple):
+    """A pass's dropout stream over rows ``row0 ..`` of a larger batch (a
+    data-parallel rank's slice): ``generator`` draws each site's seed, and
+    each site's K9 counter starts at the element where row ``row0`` starts,
+    so that every rank draws the masks one device draws for the same rows."""
+    generator: Optional[torch.Generator]
+    row0: int
+
+
+Seed = Union[int, Tuple[int, int]]  # a site's seed, or (seed, row0) under DropoutRows
+
+
 class Dropout(nn.Module):
     """Dropout at one site; the identity in ``eval()`` mode or at rate 0.
 
     "byte"/"hw": drop probability ``round(rate * 256) / 256`` by the K9
     kernel, its mask regenerated in the backward pass.  "exact": ``F.dropout``
-    at ``rate``, seeded per call so a step's stream is reproducible.  A call
-    takes the seed :meth:`seed` drew (None: the identity)."""
+    at ``rate``, seeded per call so a step's stream is reproducible (a rank's
+    rows fold ``row0`` into the seed: their masks differ from every other
+    rank's, not equal to one device's).  A call takes the seed :meth:`seed`
+    drew (None: the identity)."""
 
     def __init__(self, rate: float, impl: str):
         super().__init__()
         self.rate = rate
         self.impl = impl
 
-    def seed(self, generator: Optional[torch.Generator]) -> Optional[int]:
-        """This site's seed for one pass, or None where the site is the identity."""
+    def seed(self, generator) -> Optional[Seed]:
+        """This site's seed for one pass, or None where the site is the
+        identity; ``generator`` is a ``torch.Generator`` or :class:`DropoutRows`."""
         if not self.training or self.rate <= 0.0:
             return None
         if self.impl != "exact" and threshold(self.rate) <= 0:
             return None
+        if isinstance(generator, DropoutRows):
+            return draw_seed(generator.generator), generator.row0
         return draw_seed(generator)
 
-    def forward(self, x: torch.Tensor, seed: Optional[int]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seed: Optional[Seed]) -> torch.Tensor:
         if seed is None:
             return x
+        seed, row0 = seed if isinstance(seed, tuple) else (seed, 0)
         if self.impl == "exact":
             devices = [x.device] if x.device.type == "cuda" else []
             with torch.random.fork_rng(devices=devices):
-                torch.manual_seed(seed)
+                torch.manual_seed((seed + row0 * 0x9E3779B97F4A7C15) % (1 << 63))
                 return F.dropout(x, self.rate, training=True)
-        return hw_dropout(x, seed, threshold(self.rate))
+        first = row0 * (x.numel() // x.shape[0])  # the element where this call's rows start
+        if first % 16:
+            raise ValueError(f"dropout rows from {row0} start at element {first} of the batch, not a multiple of "
+                             f"16 (K9's counter group): a data-parallel rank needs rows of {x.shape[1:]} whose "
+                             "slice starts on a group")
+        thr = threshold(self.rate)
+        return hw_dropout(x, seed, thr, first // 16) if first else hw_dropout(x, seed, thr)
 
 
 class Dense(nn.Linear):
@@ -308,7 +334,7 @@ class BertLayer(nn.Module):
         return self._layer(x, bias, seg, seeds)
 
     def _layer(self, x: torch.Tensor, bias: torch.Tensor, seg: torch.Tensor,
-               seeds: Tuple[Optional[int], Optional[int], Optional[int]]) -> torch.Tensor:
+               seeds: Tuple[Optional[Seed], Optional[Seed], Optional[Seed]]) -> torch.Tensor:
         attn = self.attention_dropout(self.attention(x, bias, seg, seeds[0]), seeds[1])
         x = self.attention_layernorm(x + attn, x.dtype)
         y = self.output_dropout(self.output(F.gelu(self.intermediate(x))), seeds[2])

@@ -9,8 +9,10 @@ custom VJP around the Pallas ``_kernel``) and of the byte semantics of
     dx    = where(byte >= thr, dy * scale, 0)      the same bytes, regenerated
 
 The mask bytes come from Philox4x32-10 keyed by a 64-bit per-call seed and
-counted by groups of 16 elements (``csrc/dropout.cu`` documents the
-stream).  The TPU kernel uses the TPU's hardware generator; the streams
+counted by groups of 16 elements from a counter ``base`` (``csrc/dropout.cu``
+documents the stream): a data-parallel rank passes the group where its rows
+start in the global batch, and so draws the masks one device draws for
+them.  The TPU kernel uses the TPU's hardware generator; the streams
 differ and need not agree, the semantics do.  Nothing is saved between the
 passes but the seed.
 
@@ -77,12 +79,12 @@ def philox4x32_10(counter, key):
     return c0, c1, c2, c3
 
 
-def mask_bytes(n: int, seed: int, device=None) -> torch.Tensor:
+def mask_bytes(n: int, seed: int, device=None, base: int = 0) -> torch.Tensor:
     """The kernel's ``n`` mask bytes for ``seed`` (uint8): element ``16*i + j``
-    takes byte ``j % 4`` (low first) of word ``j // 4`` of the ``i``-th
-    Philox output."""
+    takes byte ``j % 4`` (low first) of word ``j // 4`` of the Philox output
+    at counter ``base + i``."""
     groups = -(-n // 16)
-    i = torch.arange(groups, dtype=torch.int64, device=device)
+    i = torch.arange(base, base + groups, dtype=torch.int64, device=device)
     zero = torch.zeros_like(i)
     words = torch.stack(philox4x32_10((i & _MASK32, i >> 32, zero, zero),
                                       (seed & _MASK32, seed >> 32)), dim=1)       # (groups, 4)
@@ -90,9 +92,9 @@ def mask_bytes(n: int, seed: int, device=None) -> torch.Tensor:
     return ((words[:, :, None] >> shifts) & 0xFF).to(torch.uint8).reshape(-1)[:n]
 
 
-def hw_dropout_ref(x: torch.Tensor, seed: int, thr: int) -> torch.Tensor:
+def hw_dropout_ref(x: torch.Tensor, seed: int, thr: int, base: int = 0) -> torch.Tensor:
     """Plain version of the kernel: the same bytes, the same arithmetic."""
-    keep = mask_bytes(x.numel(), seed, x.device).view(x.shape) >= thr
+    keep = mask_bytes(x.numel(), seed, x.device, base).view(x.shape) >= thr
     scale = torch.tensor(keep_scale(thr, x.dtype), dtype=x.dtype, device=x.device)
     return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -112,6 +114,7 @@ ROUTES = ("packed", "simple")
 _ROUTE_CODES = {r: i for i, r in enumerate(ROUTES)}
 _scales = {}  # (thr, dtype) -> keep_scale(thr, dtype)
 _fn = None  # dropout_launch with its argtypes, resolved at first use
+_fn_at = None  # dropout_launch_at (a counter base), resolved at first use
 _lib_lock = threading.Lock()
 
 
@@ -121,10 +124,11 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = load_library("dropout")
     with _lib_lock:
         if lib.dropout_launch.argtypes is None:
-            lib.dropout_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_ulonglong,
-                ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ]
+            args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_ulonglong,
+                    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            lib.dropout_launch_at.argtypes = [*args, ctypes.c_ulonglong]
+            lib.dropout_launch_at.restype = ctypes.c_int
+            lib.dropout_launch.argtypes = args
             lib.dropout_launch.restype = ctypes.c_int
     return lib
 
@@ -137,19 +141,27 @@ def _scale(thr: int, dtype: torch.dtype) -> float:
     return s
 
 
-def _launch(x: torch.Tensor, seed: int, thr: int, route: str = "packed") -> torch.Tensor:
-    global _fn
+def _launch(x: torch.Tensor, seed: int, thr: int, route: str = "packed", base: int = 0) -> torch.Tensor:
+    global _fn, _fn_at
     code = _DTYPES.get(x.dtype)
     if code is None:
         raise ValueError(f"dropout kernel takes float32, bfloat16 or float16, got {x.dtype}")
-    if _fn is None:
-        _fn = _kernel_lib().dropout_launch
+    if base and route != "packed":
+        raise ValueError(f"route {route!r} draws from counter 0 only (base {base})")
     x = x.contiguous()
     y = torch.empty_like(x)
     dev = x.get_device()
     # the C function makes `dev` current for the launch if it is not
-    err = _fn(x.data_ptr(), y.data_ptr(), x.numel(), code, seed, thr, _scale(thr, x.dtype), _ROUTE_CODES[route],
-              dev, torch._C._cuda_getCurrentRawStream(dev))
+    args = (x.data_ptr(), y.data_ptr(), x.numel(), code, seed, thr, _scale(thr, x.dtype), _ROUTE_CODES[route],
+            dev, torch._C._cuda_getCurrentRawStream(dev))
+    if base:
+        if _fn_at is None:
+            _fn_at = _kernel_lib().dropout_launch_at
+        err = _fn_at(*args, base)
+    else:
+        if _fn is None:
+            _fn = _kernel_lib().dropout_launch
+        err = _fn(*args)
     if err != 0:
         raise RuntimeError(f"dropout kernel launch failed: cudaError_t {err}")
     hw_dropout.launches.add()
@@ -157,32 +169,40 @@ def _launch(x: torch.Tensor, seed: int, thr: int, route: str = "packed") -> torc
     return y
 
 
-def _apply(x: torch.Tensor, seed: int, thr: int) -> torch.Tensor:
+def _apply(x: torch.Tensor, seed: int, thr: int, base: int = 0) -> torch.Tensor:
     if x.is_cpu:
-        return hw_dropout_ref(x, seed, thr)
-    return _launch(x, seed, thr)
+        return hw_dropout_ref(x, seed, thr, base)
+    return _launch(x, seed, thr, base=base) if base else _launch(x, seed, thr)
+
+
+def _apply_at(x: torch.Tensor, seed: int, thr: int, base: int) -> torch.Tensor:
+    # at base 0, _apply(x, seed, thr): the timing scripts wrap _apply with three arguments
+    return _apply(x, seed, thr, base) if base else _apply(x, seed, thr)
 
 
 class _HwDropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seed, thr):
-        ctx.seed, ctx.thr = seed, thr
-        return _apply(x, seed, thr)
+    def forward(ctx, x, seed, thr, base):
+        ctx.seed, ctx.thr, ctx.base = seed, thr, base
+        return _apply_at(x, seed, thr, base)
 
     @staticmethod
     def backward(ctx, grad):
         # same mask, same scale: regenerated from the seed, never stored
-        return _apply(grad, ctx.seed, ctx.thr), None, None
+        return _apply_at(grad, ctx.seed, ctx.thr, ctx.base), None, None, None
 
 
-def hw_dropout(x: torch.Tensor, seed: int, thr: int) -> torch.Tensor:
+def hw_dropout(x: torch.Tensor, seed: int, thr: int, base: int = 0) -> torch.Tensor:
     """Dropout with drop probability ``thr / 256``; ``seed`` is an int in
-    [0, 2**64) drawn once per call site.  Differentiable in ``x``."""
+    [0, 2**64) drawn once per call site, ``base`` the Philox counter of the
+    first 16 elements.  Differentiable in ``x``."""
     if not 1 <= thr <= 255:
         raise ValueError(f"dropout threshold must be 1..255 (of 256), got {thr}")
     if not 0 <= seed < 1 << 64:
         raise ValueError(f"dropout seed must fit 64 bits unsigned, got {seed}")
-    return _HwDropout.apply(x, seed, thr)
+    if not 0 <= base < 1 << 64:
+        raise ValueError(f"dropout counter base must fit 64 bits unsigned, got {base}")
+    return _HwDropout.apply(x, seed, thr, base)
 
 
 hw_dropout.launches = LaunchCounter()

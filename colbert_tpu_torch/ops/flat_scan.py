@@ -304,7 +304,7 @@ def _int8_scale(emb, chunk: int) -> torch.Tensor:
 
 
 def build_flat_table(emb, doclens, *, dv: Optional[int] = None, dtype: str = "bfloat16",
-                     rows_blk: Optional[int] = None, chunk: int = 1 << 18
+                     rows_blk: Optional[int] = None, chunk: int = 1 << 18, scale: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor], int]:
     """Host-side doc-major zero-padded table (a CPU tensor) for the scan.
 
@@ -312,8 +312,9 @@ def build_flat_table(emb, doclens, *, dv: Optional[int] = None, dtype: str = "bf
     padded to ``dv = max(doclens)`` rows per doc (zero rows score 0: exact).
     ``dtype``: "bfloat16" (round-to-nearest-even from the stored fp16) or
     "int8" (per-dim ``rint(x * 127/amax)`` clipped to +-127; the descale
-    ``1/scale`` is returned).  The layout, padding and values are bit-equal
-    to ``colbert_tpu.ops.flat_scan.build_flat_table``.
+    ``1/scale`` is returned; ``scale`` given, that per-dim scale instead:
+    one scale over every shard of a sharded table).  The layout, padding and
+    values are bit-equal to ``colbert_tpu.ops.flat_scan.build_flat_table``.
     Returns ``(table (docs_pad*dv, h), inv_scale (h,) or None, dv)``."""
     doclens = np.asarray(doclens, np.int64)
     num_docs = len(doclens)
@@ -325,9 +326,12 @@ def build_flat_table(emb, doclens, *, dv: Optional[int] = None, dtype: str = "bf
     tdt = {"bfloat16": torch.bfloat16, "int8": torch.int8}.get(dtype)
     if tdt is None:
         raise ValueError(f"flat table dtype must be bfloat16 or int8, got {dtype!r}")
-    inv_scale = scale = None
-    if dtype == "int8":
+    inv_scale = None
+    if dtype != "int8":
+        scale = None
+    elif scale is None:
         scale = _int8_scale(emb, chunk)
+    if scale is not None:
         inv_scale = torch.ones_like(scale) / scale
 
     def convert(c) -> torch.Tensor:

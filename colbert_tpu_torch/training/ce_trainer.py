@@ -1,4 +1,4 @@
-"""Cross-encoder reranker trainer and reranking on one device: counterpart of
+"""Cross-encoder reranker trainer (one device, or data-parallel) and reranking: counterpart of
 ``colbert_tpu/training/ce_trainer.py:37-343`` (reference CE flow,
 ``colbert/modeling/ce_model.py:56-101``, ``colbert/training/ce_trainer.py:21-123``).
 
@@ -33,6 +33,13 @@
   reads.
 * ``rerank``: a question's candidates scored in padded batches of 128,
   ordered by ``np.argsort(-scores)`` on the host, as the JAX package does.
+* Data parallelism (JAX ``:41-67, 215-230``), as the retriever trainer's:
+  every rank builds the pairs of the global batch (``per_device_batch_size
+  x world`` questions) and takes its questions of each micro-batch; each
+  question's softmax is its own row, so nothing is gathered: the per-rank
+  mean loss and the rank-averaged gradients are the global batch's.  K9's
+  counters start at the rank's first pair row.  Every rank evaluates the
+  whole dev set; rank 0 alone writes checkpoints and logs.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import numpy as np
 import torch
 
 from colbert_tpu_torch.config import ColbertConfig, TrainConfig
+from colbert_tpu_torch.models.bert import DropoutRows
 from colbert_tpu_torch.models.ce import CrossEncoderModel
 from colbert_tpu_torch.models.convert import reference_state_dict, state_dict_from_reference
 from colbert_tpu_torch.tokenization import ColbertTokenizer
@@ -51,7 +59,8 @@ from colbert_tpu_torch.training.checkpoint import CheckpointManager
 from colbert_tpu_torch.training.dataset import RetrievalDataset
 from colbert_tpu_torch.training.losses import biencoder_nll_loss, kl_loss
 from colbert_tpu_torch.training.train_state import Optimizer
-from colbert_tpu_torch.training.trainer import _merge_params, fold_seed
+from colbert_tpu_torch.parallel.collectives import average_grads, barrier, mean_over_ranks
+from colbert_tpu_torch.training.trainer import _merge_params, data_parallel_world, fold_seed, rank_rows
 from colbert_tpu_torch.utils.io import dump_jsonl
 from colbert_tpu_torch.utils.logging import get_logger
 
@@ -69,6 +78,7 @@ class CETrainer:
         self.cfg = cfg
         self.tok = tokenizer
         self.device = torch.device(device)
+        self.rank, self.world = data_parallel_world(cfg, self.device)
         self.np_rng = np.random.default_rng(cfg.ce_train.seed)
         self._init_state_dict = init_state_dict
         self.model: Optional[CrossEncoderModel] = None
@@ -155,8 +165,10 @@ class CETrainer:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _loss(self, ids, attn, group: int, teacher, generator) -> torch.Tensor:
+        """This rank's mean loss over its questions of one (micro-)batch."""
         c = self.cfg.ce_train
-        scores = self.model(ids, attn, generator=generator).reshape(-1, group) / c.score_temperature
+        row0 = self.rank * ids.shape[0]  # this rank's first pair row in the global (micro-)batch
+        scores = self.model(ids, attn, generator=DropoutRows(generator, row0)).reshape(-1, group) / c.score_temperature
         labels = torch.zeros(scores.shape[0], dtype=torch.long, device=scores.device)
         nll = biencoder_nll_loss(scores, labels)
         if c.distill_weight <= 0:
@@ -169,30 +181,33 @@ class CETrainer:
 
     def compute_grads(self, ids: np.ndarray, attn: np.ndarray, group: int,
                       teacher: Optional[np.ndarray], gstep: int) -> torch.Tensor:
-        """Forward and backward of step ``gstep``: leaves the (micro-batch
-        averaged) gradients in ``.grad`` and returns the loss (a device scalar)."""
+        """Forward and backward of step ``gstep`` over this rank's questions
+        of the global batch (``ids``, ``attn``, ``teacher``): leaves the
+        (micro-batch and rank averaged) gradients in ``.grad`` and returns
+        the global batch's loss (a device scalar)."""
         self.model.train()
         self.optimizer.zero_grad()
         accum = max(1, self.cfg.ce_train.grad_accum_steps)
         n_q = ids.shape[0] // group
         if teacher is None:
             teacher = np.zeros((n_q, group), np.float32)
+        # question-aligned micro-batches: each question's row stays whole
+        ids, attn, teacher = (rank_rows(a, n_q, self.rank, self.world, accum) for a in (ids, attn, teacher))
         ids_t, attn_t, teacher_t = self._tensor(ids), self._tensor(attn), self._tensor(teacher)
         if accum == 1:
             loss = self._loss(ids_t, attn_t, group, teacher_t, self._generator(gstep))
             loss.backward()
-            return loss.detach()
-        # question-aligned micro-batches: each question's row stays whole
-        if n_q % accum:
-            raise ValueError(f"{n_q} questions do not split into grad_accum_steps={accum} equal micro-batches")
-        total = torch.zeros((), device=self.device)
-        for i, (mi, ma, mt) in enumerate(zip(ids_t.chunk(accum), attn_t.chunk(accum), teacher_t.chunk(accum))):
-            loss = self._loss(mi, ma, group, mt, self._generator(gstep, 100 + i))
-            loss.backward()
-            total += loss.detach()
-        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
-        torch._foreach_div_(grads, float(accum))
-        return total / accum
+        else:
+            total = torch.zeros((), device=self.device)
+            for i, (mi, ma, mt) in enumerate(zip(ids_t.chunk(accum), attn_t.chunk(accum), teacher_t.chunk(accum))):
+                loss = self._loss(mi, ma, group, mt, self._generator(gstep, 100 + i))
+                loss.backward()
+                total += loss.detach()
+            grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+            torch._foreach_div_(grads, float(accum))
+            loss = total / accum
+        average_grads(self.optimizer.params)
+        return mean_over_ranks(loss.detach())
 
     def train_step(self, ids, attn, group, teacher, gstep: int) -> torch.Tensor:
         loss = self.compute_grads(ids, attn, group, teacher, gstep)
@@ -216,7 +231,7 @@ class CETrainer:
         """Returns the losses of the steps this call ran."""
         c = self.cfg.ce_train
         epochs = num_epochs if num_epochs is not None else c.num_epochs
-        bs = c.per_device_batch_size
+        bs = c.per_device_batch_size * self.world  # the global batch
         steps_per_epoch = max(1, len(train_ds) // bs)
         self._init_state(steps_per_epoch * epochs)
 
@@ -272,12 +287,17 @@ class CETrainer:
         return losses
 
     def save(self, step: int, metrics: Optional[Dict[str, float]] = None) -> str:
-        return self.ckpt.save(
-            step,
-            reference_state_dict(self.model.state_dict(), self.cfg.ce_model, head_bias=True),
-            {"optimizer": self.optimizer.state_dict(), "step": step},
-            metadata={"metrics": metrics or {}, "config": self.cfg.to_dict()},
-        )
+        """Checkpoint ``step``: written by rank 0, between barriers."""
+        barrier()
+        if not self.rank:
+            self.ckpt.save(
+                step,
+                reference_state_dict(self.model.state_dict(), self.cfg.ce_model, head_bias=True),
+                {"optimizer": self.optimizer.state_dict(), "step": step},
+                metadata={"metrics": metrics or {}, "config": self.cfg.to_dict()},
+            )
+        barrier()
+        return str(self.ckpt.path(step))
 
     def load_params_for_inference(self, step: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """The port state dict of CE checkpoint ``step`` (default: the latest)."""
@@ -297,6 +317,8 @@ class CETrainer:
         self.model = model.to(self.device)
 
     def _dump_log(self) -> None:
+        if self.rank:
+            return
         dump_jsonl(self.log, self.ckpt.dir / "ce_train_log.jsonl")
         dump_jsonl(self.steps, self.ckpt.dir / "ce_train_steps.jsonl")
 

@@ -1,4 +1,4 @@
-"""ColBERT retriever trainer on one device: counterpart of
+"""ColBERT retriever trainer, on one device or data-parallel: counterpart of
 ``colbert_tpu/training/trainer.py`` (``train`` :188-272, the train step
 :122-159, ``evaluate`` :285-313).
 
@@ -18,7 +18,19 @@
   (``ops/maxsim.py::maxsim``), pad queries' doc columns at -inf.
 * Bf16 compute, fp32 parameters and optimizer state (no loss scaling).
 * Evaluation and a checkpoint every ``steps_per_epoch // evals_per_epoch``
-  steps.  Multi-device data parallelism is a later slice (ROADMAP.md).
+  steps.
+* Data parallelism (JAX ``:1-16``; a launch with one process a GPU,
+  ``parallel/mesh.py::init_distributed``): every rank draws the same global
+  batch of ``per_device_batch_size x world`` examples and takes its slice
+  of each global micro-batch; the doc reps are all-gathered by a
+  differentiable gather (``parallel/collectives.py``), so each query is
+  scored against every doc of the global (micro-)batch; each rank's loss
+  is the mean over its own queries and the gradients are averaged over
+  ranks, once, which gives the one-device gradient of the global batch.
+  Dropout counters start at the rank's first global row (K9,
+  ``models/bert.py::DropoutRows``), so W ranks draw one device's masks.
+  Eval gathers the reps and scores the global batch by K3 on every rank.
+  Rank 0 alone writes checkpoints and logs, between barriers.
 """
 
 from __future__ import annotations
@@ -26,15 +38,20 @@ from __future__ import annotations
 import hashlib
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from colbert_tpu_torch.config import ColbertConfig
+from colbert_tpu_torch.models.bert import DropoutRows
 from colbert_tpu_torch.models.colbert import ColbertModel
 from colbert_tpu_torch.models.convert import reference_state_dict, state_dict_from_reference
 from colbert_tpu_torch.ops.maxsim import maxsim, maxsim_ref
+from colbert_tpu_torch.parallel.collectives import (
+    all_gather_rows, average_grads, barrier, gather_rows, mean_over_ranks, world,
+)
+from colbert_tpu_torch.parallel.mesh import make_mesh
 from colbert_tpu_torch.tokenization import ColbertTokenizer
 from colbert_tpu_torch.training.checkpoint import CheckpointManager
 from colbert_tpu_torch.training.dataset import RetrievalDataset, RetrievalSampler, TrainBatch
@@ -70,6 +87,7 @@ class ColbertTrainer:
         self.cfg = cfg
         self.tok = tokenizer
         self.device = torch.device(device)
+        self.rank, self.world = data_parallel_world(cfg, self.device)
         self.model: Optional[ColbertModel] = None
         self.optimizer: Optional[Optimizer] = None
         self._init_state_dict = init_state_dict
@@ -106,38 +124,43 @@ class ColbertTrainer:
     # ---- steps ----
 
     def _loss(self, tensors, generators) -> torch.Tensor:
+        """This rank's mean NLL over its queries of one (micro-)batch, each
+        query scored against every rank's docs."""
         q_ids, q_attn, q_active, d_ids, d_attn, d_active = tensors
         c = self.cfg.train
-        Q = self.model.query(q_ids, q_attn, generator=generators[0])
-        D = self.model.doc(d_ids, d_attn, generator=generators[1])
-        scores = maxsim_ref(Q, D, q_active, d_active) / c.score_temperature
         group = c.train_num_positives + c.train_num_negatives
-        labels = torch.arange(scores.shape[0], device=scores.device) * group
+        q0 = self.rank * q_ids.shape[0]  # this rank's first query in the global (micro-)batch
+        Q = self.model.query(q_ids, q_attn, generator=DropoutRows(generators[0], q0))
+        D = self.model.doc(d_ids, d_attn, generator=DropoutRows(generators[1], q0 * group))
+        scores = maxsim_ref(Q, gather_rows(D), q_active, all_gather_rows(d_active)) / c.score_temperature
+        labels = (q0 + torch.arange(scores.shape[0], device=scores.device)) * group
         return biencoder_nll_loss(scores, labels)
 
     def compute_grads(self, batch: TrainBatch, gstep: int) -> torch.Tensor:
-        """Forward and backward of step ``gstep``: leaves the (micro-batch
-        averaged) gradients in ``.grad`` and returns the loss (a device scalar)."""
+        """Forward and backward of step ``gstep`` over this rank's part of
+        the global ``batch``: leaves the (micro-batch and rank averaged)
+        gradients in ``.grad`` and returns the global batch's loss (a device
+        scalar)."""
         self.model.train()
         self.optimizer.zero_grad()
         accum = max(1, self.cfg.train.grad_accum_steps)
-        tensors = self._tensors(batch)
+        tensors = self._tensors(local_part(batch, self.rank, self.world, accum))
         if accum == 1:
             loss = self._loss(tensors, self._generators(gstep))
             loss.backward()
-            return loss.detach()
-        # group-aligned micro-batches: in-batch negatives stay within each
-        micro = [t.chunk(accum) for t in tensors]
-        if any(len(m) != accum or m[0].shape[0] * accum != t.shape[0] for m, t in zip(micro, tensors)):
-            raise ValueError(f"batch does not split into grad_accum_steps={accum} equal micro-batches")
-        total = torch.zeros((), device=self.device)
-        for i in range(accum):
-            loss = self._loss([m[i] for m in micro], self._generators(gstep, 100 + i))
-            loss.backward()
-            total += loss.detach()
-        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
-        torch._foreach_div_(grads, float(accum))
-        return total / accum
+        else:
+            # group-aligned micro-batches: in-batch negatives stay within each
+            micro = [t.chunk(accum) for t in tensors]
+            total = torch.zeros((), device=self.device)
+            for i in range(accum):
+                loss = self._loss([m[i] for m in micro], self._generators(gstep, 100 + i))
+                loss.backward()
+                total += loss.detach()
+            grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+            torch._foreach_div_(grads, float(accum))
+            loss = total / accum
+        average_grads(self.optimizer.params)
+        return mean_over_ranks(loss.detach())
 
     def train_step(self, batch: TrainBatch, gstep: int) -> torch.Tensor:
         loss = self.compute_grads(batch, gstep)
@@ -146,12 +169,15 @@ class ColbertTrainer:
 
     @torch.no_grad()
     def _eval_step(self, batch: TrainBatch, q_valid: np.ndarray):
+        """Ranks of the global ``batch``'s queries: this rank encodes its
+        part, every rank scores the gathered reps (K3)."""
         c = self.cfg.train
         group = c.eval_num_positives + c.eval_num_negatives
-        q_ids, q_attn, q_active, d_ids, d_attn, d_active = self._tensors(batch)
-        Q = self.model.query(q_ids, q_attn)
-        D = self.model.doc(d_ids, d_attn)
-        scores = maxsim(Q, D, q_active, d_active)
+        q_ids, q_attn, q_active, d_ids, d_attn, d_active = self._tensors(
+            local_part(batch, self.rank, self.world, 1))
+        Q = all_gather_rows(self.model.query(q_ids, q_attn))
+        D = all_gather_rows(self.model.doc(d_ids, d_attn))
+        scores = maxsim(Q, D, all_gather_rows(q_active), all_gather_rows(d_active))
         # pad rows (dev set smaller than the fixed batch): their doc columns
         # must not perturb real queries' rankings
         doc_valid = torch.from_numpy(q_valid).to(self.device).repeat_interleave(group)
@@ -170,7 +196,7 @@ class ColbertTrainer:
     ) -> TrainLog:
         c = self.cfg.train
         epochs = num_epochs if num_epochs is not None else c.num_epochs
-        batch_size = c.per_device_batch_size
+        batch_size = c.per_device_batch_size * self.world  # the global batch
         sampler = RetrievalSampler(train_ds, self.tok, c, batch_size, is_eval=False)
         steps_per_epoch = sampler.steps_per_epoch()
         total_steps = self._total_steps or max(1, steps_per_epoch * epochs)
@@ -218,7 +244,9 @@ class ColbertTrainer:
         return self.log
 
     def _dump_log(self) -> None:
-        """Step and eval metrics as JSONL next to the checkpoints, and the span timers."""
+        """Step and eval metrics as JSONL next to the checkpoints, and the span timers (rank 0)."""
+        if self.rank:
+            return
         rows = [{"kind": "step", **s} for s in self.log.steps] + [
             {"kind": "eval", **e} for e in self.log.evals
         ]
@@ -227,8 +255,8 @@ class ColbertTrainer:
 
     def evaluate(self, dev_ds: RetrievalDataset) -> Dict[str, float]:
         c = self.cfg.train
-        # a fixed batch; the partial final batch is padded and its pad rows masked
-        batch_size = c.per_device_batch_size
+        # a fixed global batch; the partial final batch is padded and its pad rows masked
+        batch_size = c.per_device_batch_size * self.world
         sampler = RetrievalSampler(dev_ds, self.tok, c, batch_size, is_eval=True, drop_last=False)
         group = c.eval_num_positives + c.eval_num_negatives
         self.model.eval()
@@ -266,12 +294,17 @@ class ColbertTrainer:
         return out
 
     def save(self, step: int, metrics: Optional[Dict[str, float]] = None) -> str:
-        return self.ckpt.save(
-            step,
-            reference_state_dict(self.model.state_dict(), self.cfg.model),
-            {"optimizer": self.optimizer.state_dict(), "step": step},
-            metadata={"metrics": metrics or {}, "config": self.cfg.to_dict()},
-        )
+        """Checkpoint ``step``: written by rank 0, between barriers."""
+        barrier()
+        if not self.rank:
+            self.ckpt.save(
+                step,
+                reference_state_dict(self.model.state_dict(), self.cfg.model),
+                {"optimizer": self.optimizer.state_dict(), "step": step},
+                metadata={"metrics": metrics or {}, "config": self.cfg.to_dict()},
+            )
+        barrier()
+        return str(self.ckpt.path(step))
 
     def _load_params(self, step: int) -> None:
         self.model.load_state_dict(state_dict_from_reference(self.ckpt.params_path(step), self.cfg.model))
@@ -282,6 +315,39 @@ class ColbertTrainer:
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.ckpt.dir}")
         return state_dict_from_reference(self.ckpt.params_path(step), self.cfg.model)
+
+
+def data_parallel_world(cfg: ColbertConfig, device: torch.device) -> Tuple[int, int]:
+    """``(rank, world size)`` of a training run: the launch's process group
+    (one process a device), checked against the config's ``mesh``
+    (``model > 1`` refused, ``data`` -1 or the world size)."""
+    rank, size = world()
+    make_mesh(-1, cfg.mesh.model, devices=[device])
+    if cfg.mesh.data not in (-1, size):
+        raise ValueError(
+            f"mesh.data={cfg.mesh.data}, but training runs one process a device and this run has {size}: "
+            "launch one process a GPU with --coordinator/--num-processes/--process-id, or set mesh.data=-1"
+        )
+    return rank, size
+
+
+def rank_rows(a: np.ndarray, n_q: int, rank: int, size: int, accum: int) -> np.ndarray:
+    """Rank ``rank``'s rows of ``a``, whose rows belong to ``n_q`` questions
+    in order (one row each, or a group each): its slice of each of the
+    ``accum`` global micro-batches, concatenated."""
+    if n_q % (accum * size):
+        raise ValueError(f"a batch of {n_q} does not split into grad_accum_steps={accum} equal micro-batches "
+                         f"over {size} ranks")
+    if size == 1 and accum == 1:
+        return a
+    return a.reshape(accum, size, -1, *a.shape[1:])[:, rank].reshape(-1, *a.shape[1:])
+
+
+def local_part(batch: TrainBatch, rank: int, size: int, accum: int) -> TrainBatch:
+    """:func:`rank_rows` of every array of a global batch."""
+    n_q = batch.q_ids.shape[0]
+    return TrainBatch(*(rank_rows(a, n_q, rank, size, accum) for a in (
+        batch.q_ids, batch.q_attn, batch.q_active, batch.d_ids, batch.d_attn, batch.d_active)))
 
 
 def _pad_batch(batch: TrainBatch, batch_size: int, group: int) -> TrainBatch:

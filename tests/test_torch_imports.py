@@ -52,15 +52,21 @@ def test_package_source_never_imports_jax():
 
 
 @pytest.mark.parametrize("cmd", ["train-ce", "mine"])
-def test_cli_names_unported_subcommands(cmd, tmp_path):
-    """``train-ce`` and ``mine`` are ported; what stays refused, with its
-    ROADMAP step, is the JAX CLI's multi-host launch."""
+def test_cli_names_unported_subcommands(cmd, tmp_path, capsys):
+    """``train-ce`` and ``mine`` are ported, and so is the JAX CLI's launch
+    (``--coordinator/--num-processes/--process-id``): its check of the
+    flags holds before any process group, and ``mine`` runs in one process."""
     from colbert_tpu_torch.cli import main
 
     data = ["--train-data", "t.json"] if cmd == "train-ce" else [
         "--corpus", "c.json", "--eval-data", "e.json", "--out", str(tmp_path / "o.json")]
-    with pytest.raises(SystemExit, match="not yet ported .*step 10"):
-        main([cmd, *data, "--coordinator", "localhost:1234", "--num-processes", "2", "--process-id", "0"])
+    with pytest.raises(SystemExit):
+        main([cmd, *data, "--coordinator", "localhost:1234", "--process-id", "0"])
+    assert "--coordinator requires --num-processes and --process-id" in capsys.readouterr().err
+    if cmd == "mine":
+        with pytest.raises(SystemExit):
+            main([cmd, *data, "--coordinator", "localhost:1234", "--num-processes", "2", "--process-id", "0"])
+        assert "mine runs in one process" in capsys.readouterr().err
     assert not (tmp_path / "o.json").exists()
 
 

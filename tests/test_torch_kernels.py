@@ -333,6 +333,30 @@ def test_dropout_launches_per_ce_step(cuda_device, tmp_path, num_layers):
     assert num_layers != 24 or n == 146
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dropout_counter_base(cuda_device, dtype):
+    """Route "packed" from a Philox counter base (a data-parallel rank's rows
+    of a larger batch): forward and backward bit-equal to the plain version
+    at that base, at bases past 2**32 groups and on an unaligned view, and a
+    slice of a tensor drawn from its group equal to the whole's rows; route
+    "simple" refuses a base."""
+    from colbert_tpu_torch.ops import dropout as dr
+
+    x = torch.randn(6, 384, 768, device=cuda_device).to(dtype)
+    for base in (5, (1 << 32) - 1, (1 << 33) + 3):
+        for view in (x, x.view(-1)[3:]):
+            xg = view.detach().requires_grad_(True)
+            y = dr.hw_dropout(xg, 77, 26, base)
+            g = torch.randn_like(y)
+            (dx,) = torch.autograd.grad(y, xg, g)
+            assert dr.same_bits(y, dr.hw_dropout_ref(view, 77, 26, base)), base
+            assert dr.same_bits(dx, dr.hw_dropout_ref(g, 77, 26, base)), base
+    rows = x[2:4]
+    assert dr.same_bits(dr.hw_dropout(rows, 77, 26, 2 * 384 * 768 // 16), dr.hw_dropout(x, 77, 26)[2:4])
+    with pytest.raises(ValueError, match="counter 0 only"):
+        dr._launch(x, 77, 26, route="simple", base=5)
+
+
 @pytest.mark.parametrize("route", ["packed", "simple"])
 def test_dropout_kernel_unaligned_view(cuda_device, route):
     """A view that starts off 16-byte alignment takes the scalar path, and a
@@ -1343,3 +1367,109 @@ def test_flash_launches_per_ce_step(cuda_device, tmp_path):
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
     assert [c.value - b for c, b in zip(counters, before)] == [24, 24, 24, 146, 146]
+
+
+# ---- several devices: the sharded searcher and a one-rank NCCL group ----
+
+def test_sharded_searcher_on_the_card(cuda_device, tmp_path):
+    """``ShardedColbertSearcher`` with four shards on the cards present
+    (several a card when fewer): flat mode equal to the single searcher
+    (within 1e-4, K2 once a shard); sq ANN: every rank's score at least the
+    single searcher's and the exact MaxSim of its pid (within 1e-4; K6, K7,
+    K4 once a shard)."""
+    from colbert_tpu_torch.config import ColbertConfig, IndexConfig, ModelConfig, ServeConfig, TokenizerConfig
+    from colbert_tpu_torch.indexing.builder import IndexBuilder
+    from colbert_tpu_torch.indexing.storage import IndexStorage
+    from colbert_tpu_torch.models.colbert import ColbertModel
+    from colbert_tpu_torch.ops import flat_scan as fsm, rerank as rr, sq_probe_batched as sp
+    from colbert_tpu_torch.parallel.mesh import make_mesh
+    from colbert_tpu_torch.ranking.searcher import ColbertSearcher
+    from colbert_tpu_torch.ranking.sharded import ShardedColbertSearcher
+    from colbert_tpu_torch.tokenization import ColbertTokenizer, build_vocab, write_vocab
+
+    rng = np.random.default_rng(0)
+    n_docs, dim = 501, 128
+    storage = IndexStorage(tmp_path / "idx")
+    emb = rng.normal(size=(n_docs * 16, dim)).astype(np.float32)
+    storage.write_part(0, (emb / np.linalg.norm(emb, axis=1, keepdims=True)).astype(np.float16), [16] * n_docs)
+    storage.write_meta({"dim": dim, "num_docs": n_docs, "num_embeddings": n_docs * 16, "multiview": True,
+                        "d_view": 16, "num_parts": 1, "embedding_dtype": "float16"})
+    vp = write_vocab(build_vocab(["apple river piano"]), tmp_path / "vocab.txt")
+    cfg = ColbertConfig(model=ModelConfig(vocab_size=128, hidden_size=64, num_layers=1, num_heads=2,
+                                          intermediate_size=128, dim=dim),
+                        tokenizer=TokenizerConfig(vocab_path=str(vp)),
+                        index=IndexConfig(index_path=str(tmp_path / "idx"), codec="sq", sq_dim=32, partitions=16),
+                        serve=ServeConfig(mode="flat", topk=10, nprobe=16, candidate_depth=64, max_candidates=n_docs))
+    IndexBuilder(cfg, storage, device=cuda_device).build()
+    tok, model = ColbertTokenizer(cfg.tokenizer, cfg.multiview), ColbertModel(cfg.model, cfg.multiview)
+    n = torch.cuda.device_count()
+    mesh = make_mesh(devices=[torch.device("cuda", i % n) for i in range(4)])
+    Q = torch.from_numpy(rng.normal(size=(8, 16, dim)).astype(np.float32)).to(cuda_device)
+    Q /= Q.norm(dim=-1, keepdim=True)
+    qm = torch.ones(8, 16, device=cuda_device)
+    cfg.serve.flat_fused_topk = False
+    single, sharded = ColbertSearcher(cfg, tok, model, storage, device=cuda_device), \
+        ShardedColbertSearcher(cfg, tok, model, storage, mesh=mesh)
+    before = fsm.flat_maxsim_scan.launches.value
+    ts, tp = sharded.search_reps(Q, qm, 10)
+    torch.cuda.synchronize()
+    assert fsm.flat_maxsim_scan.launches.value - before == 4
+    ws, _ = fsm.flat_topk(fsm.flat_maxsim_scan(Q, single.emb_table, dv=16), n_docs, 10)
+    assert (ts - ws).abs().max() <= 1e-4 and ((tp >= 0) & (tp < n_docs)).all()
+    cfg.serve.mode = "ann"
+    single, sharded = ColbertSearcher(cfg, tok, model, storage, device=cuda_device), \
+        ShardedColbertSearcher(cfg, tok, model, storage, mesh=mesh)
+    counts = [sp.sq_batch_list_scan.launches, sp.sq_hot_list_scan.launches, rr.maxsim_rerank_uniform.launches]
+    before = [c.value for c in counts]
+    ats, atp = sharded.search_reps(Q, qm, 10)
+    torch.cuda.synchronize()
+    assert [c.value - b for c, b in zip(counts, before)] == [4, 4, 4]
+    # a shard probes its own lists: a superset of the single searcher's candidates
+    sts, _ = single.search_reps(Q, qm, 10)
+    assert (ats >= sts - 1e-4).all() and ((atp >= 0) & (atp < n_docs)).all()
+    assert (ats - rr.maxsim_rerank_uniform_ref(atp, Q, single.emb_table, dv=16)).abs().max() <= 1e-4
+
+
+def test_one_rank_nccl_step_bit_equal(cuda_device, tmp_path):
+    """A retriever train step in a process group of one (NCCL: the docs'
+    differentiable gather, the gradients' all-reduce) gives the loss and
+    every gradient of the same step without a group, bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from colbert_tpu_torch.config import ColbertConfig, ModelConfig, TokenizerConfig, TrainConfig
+    from colbert_tpu_torch.ops.dropout import same_bits
+    from colbert_tpu_torch.parallel.mesh import init_distributed
+    from colbert_tpu_torch.tokenization import ColbertTokenizer, build_vocab, write_vocab
+    from colbert_tpu_torch.training import ColbertTrainer, TrainBatch
+
+    vp = write_vocab(build_vocab(["apple river piano ocean"]), tmp_path / "vocab.txt")
+    cfg = ColbertConfig(model=ModelConfig(vocab_size=128, hidden_size=768, num_layers=2, num_heads=12,
+                                          intermediate_size=3072, dim=128),
+                        tokenizer=TokenizerConfig(vocab_path=str(vp)),
+                        train=TrainConfig(per_device_batch_size=8, checkpoint_dir=str(tmp_path / "ckpt")))
+    g = torch.Generator().manual_seed(0)
+    q = torch.randint(1, 128, (8, 32), generator=g).numpy()
+    d = torch.randint(1, 128, (16, 384), generator=g).numpy()
+    batch = TrainBatch(q, np.ones_like(q), np.ones((8, 16), np.float32), d, np.ones_like(d),
+                       np.ones((16, 16), np.float32))
+
+    def step():
+        t = ColbertTrainer(cfg, ColbertTokenizer(cfg.tokenizer, cfg.multiview), device=cuda_device, total_steps=1)
+        t._init_state(1)
+        loss = t.compute_grads(batch, 0)
+        return loss, {k: p.grad.clone() for k, p in t.model.named_parameters()}
+
+    loss0, grads0 = step()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_distributed(f"127.0.0.1:{port}", 1, 0, device="cuda", timeout_s=120)
+    try:
+        assert dist.get_backend() == "nccl"
+        loss1, grads1 = step()
+    finally:
+        dist.destroy_process_group()
+    assert same_bits(loss0, loss1)
+    assert [k for k in grads0 if not same_bits(grads0[k], grads1[k])] == []

@@ -24,6 +24,7 @@
 import dataclasses
 import json
 import shutil
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -499,6 +500,29 @@ def test_cli_trains_then_encodes_and_evaluates_from_checkpoint(tmp_path, capsys)
         main(["encode", "--corpus", str(tmp_path / "corpus.json"), *common, "--checkpoint-step", "9"])
 
 
+class SerialTokenizer:
+    """A JAX ``ColbertTokenizer`` whose calls run one at a time.  Its HF fast
+    tokenizer raises "Already borrowed" when two threads encode at once with
+    different lengths, and the JAX trainer's evaluation tokenizes its dev
+    batches in a producer thread while the train epoch's producer still
+    tokenizes ahead; the JAX sampler's producer then dies without its
+    sentinel and the evaluation waits for ever (a whole run of the suite
+    under xdist then ends at its time limit)."""
+
+    def __init__(self, tok):
+        self._tok, self._lock = tok, threading.Lock()
+
+    def __getattr__(self, name):
+        attr = getattr(self._tok, name)
+        if not callable(attr):
+            return attr
+
+        def call(*args, **kwargs):
+            with self._lock:
+                return attr(*args, **kwargs)
+        return call
+
+
 def test_train_loop_equals_jax_trainer(tmp_path):
     """``train`` end to end against the JAX ``ColbertTrainer.train`` (dropout
     off, the same parameters, two epochs): the losses of every step, the
@@ -521,7 +545,7 @@ def test_train_loop_equals_jax_trainer(tmp_path):
     from colbert_tpu.training import ColbertTrainer as JaxTrainer
     from colbert_tpu_torch.training import ColbertTrainer
 
-    jt = JaxTrainer(jc, JaxTokenizer(jc.tokenizer, jc.multiview), init_params=params,
+    jt = JaxTrainer(jc, SerialTokenizer(JaxTokenizer(jc.tokenizer, jc.multiview)), init_params=params,
                     mesh=make_mesh(data=1, model=1, devices=jax.devices()[:1]))
     want = jt.train(JDataset(exs), dev_ds=JDataset(dev))
     pt = ColbertTrainer(cfg, ColbertTokenizer(cfg.tokenizer, cfg.multiview), device="cpu",
