@@ -282,6 +282,50 @@ seed:
   moments bit-equal and K9 as phase 4's; N >= 2, one process a card
   against one device at the global batch, the CPU test's limits.
 
+* phase 11, flash attention at fp32, the two model options, DPR and real
+  text (~90 s):
+  (a) after phase 8a: route "fp32" of K11, the rows kernel, K12 and K13
+  (fp32 FMAs on the CUDA cores) on fp32 inputs at the retriever's (68, 12,
+  384, 64), the CE's (20, 16) and encode's (384, 12) attention shapes
+  against the fp32 plain versions (TF32 off): o, dq, dk and dv within 1e-5
+  of each head vector's largest magnitude, floored at 1/8 of the tensor's
+  largest (``ops/flash_attention.py::fp32_head_rel``: the summation order
+  and expf's last bit, and the fp32 noise of a ds that cancels), l within
+  1e-6 relative, m 1e-6, di within fp32 rounding of ``flash_di`` and
+  bit-equal to its order in torch, 1 / l bit-equal, two runs bit-equal,
+  the autograd function equal to the launches, every launch on route
+  "fp32"; each kernel timed cold and hot beside its bound (fp32 operations
+  over 67 TFLOP/s, or fp32 bytes; three TF32 products over 495 TFLOP/s as
+  an aside), the plain versions and ``F.scaled_dot_product_attention`` at
+  fp32 with the boolean mask (forward, forward + backward, its backward
+  alone);
+  (b) after phase 4, at its configuration: 3 train steps at
+  ``model.dtype=float32`` with flash against the explicit fp32 path, both
+  dropping the attention output (the site flash takes): each loss within
+  1e-4 of the explicit one's, relative; K11, K12, K13 and the rows kernel
+  12 launches a step, all on route "fp32"; ms a step and peak memory;
+  (c) the same configuration in bf16, 3 steps each: ``model.fused_qkv``
+  (losses within 2e-2 relative of phase 4's, every step-1 gradient within
+  5e-2 in norm but the attention key biases', whose exact value is zero;
+  24 fewer GEMMs in a 12-layer doc forward) and
+  ``model.embedding_impl="onehot"`` (the embeddings' forward bit-equal to
+  the lookup's, so step 1's loss and every gradient but the word table's
+  bit-equal, the word table's within 2^-7 in norm), ms a step and peak
+  memory beside phase 4's configuration's;
+  (d) after phase 2: ``DenseRetriever`` (DPR) with phase 2's model (flash
+  attention: K11 once a layer a doc batch) over its 20,000 passages and
+  3 x 144 questions at top-100: ids equal to an fp64 oracle's over the
+  same pooled vectors but at ties within 1e-6 beyond the fp32 scores' own
+  error (twice their largest error), scores within 1e-5, a passage's own
+  vector 1.0 within 1e-3, ``save_index`` / ``load_index`` the same
+  answers; docs/s and questions/s;
+  (e) real text: ``evaluation/pydocs.py`` over this machine's standard
+  library (180 modules, at most 1,500 docstrings), a ``train_wordpiece``
+  vocab, a BERT-small retriever (hidden 256, 4 layers, dim 128, bf16,
+  multiview off) trained 10 epochs (~320 steps) through the CLI, and dev
+  MRR@10 and recall@100 of ColBERT (flat ``evaluate``) and DPR: finite,
+  MRR above chance.
+
 Prints the card's name and power limit, the measurements, one JSON line of
 kernels, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, when CUDA is unavailable or any phase fails.
@@ -349,7 +393,9 @@ def counters():
             "K11 wgmma route": fa.fwd_route_launches["wgmma"], "K11 simple route": fa.fwd_route_launches["simple"],
             "K12 wgmma route": fa.dkv_route_launches["wgmma"], "K12 simple route": fa.dkv_route_launches["simple"],
             "K13 wgmma route": fa.dq_route_launches["wgmma"], "K13 simple route": fa.dq_route_launches["simple"],
-            "flash rows": fa.rows_launches}
+            "K11 fp32 route": fa.fwd_route_launches["fp32"], "K12 fp32 route": fa.dkv_route_launches["fp32"],
+            "K13 fp32 route": fa.dq_route_launches["fp32"],
+            "flash rows": fa.rows_launches, "flash rows fp32": fa.rows_fp32_launches}
 
 
 def reset_counts() -> None:
@@ -2851,15 +2897,17 @@ def synthetic_doc_lengths(n, seed, workdir: Path):
     return np.asarray(tok.encode_docs(docs).attention_mask).sum(1)
 
 
-def flash_bounds(B, nh, L, hd=64):
-    """(bound ms, by) of K11, K12 and K13 at (B, nh, L, hd) bf16: each input read
-    once, each output written once; K11 4 L^2 hd flops a head, K12 8, K13 6."""
-    t = B * nh * L * hd * 2          # one (B, nh, L, hd) bf16 tensor
+def flash_bounds(B, nh, L, hd=64, elem_bytes=2, peak_flops=PEAK_BF16_FLOPS):
+    """(bound ms, by) of K11, K12 and K13 at (B, nh, L, hd), elements of
+    ``elem_bytes`` (bf16 by default) and operations at ``peak_flops``: each
+    input read once, each output written once; K11 4 L^2 hd flops a head,
+    K12 8, K13 6."""
+    t = B * nh * L * hd * elem_bytes  # one (B, nh, L, hd) tensor
     rows, seg = B * nh * L * 4, 2 * B * L * 4
     per_head = B * nh * L * L * hd
-    return {"K11": bound(4 * per_head, 4 * t + 2 * rows + seg, PEAK_BF16_FLOPS),
-            "K12": bound(8 * per_head, 6 * t + 3 * rows + seg, PEAK_BF16_FLOPS),
-            "K13": bound(6 * per_head, 5 * t + 3 * rows + seg, PEAK_BF16_FLOPS)}
+    return {"K11": bound(4 * per_head, 4 * t + 2 * rows + seg, peak_flops),
+            "K12": bound(8 * per_head, 6 * t + 3 * rows + seg, peak_flops),
+            "K13": bound(6 * per_head, 5 * t + 3 * rows + seg, peak_flops)}
 
 
 def di_within_fp32(got, o, do):
@@ -3171,15 +3219,18 @@ def phase_flash_kernels(device, workdir: Path, label, seed=SEED, shapes=None):
     return out
 
 
-def flash_launches_ok(launches, want, what):
-    """K11-K13's launches as ``want`` says, each all on route "wgmma", and
-    the backward's rows kernel (di, 1 / l) once a K12 launch."""
+def flash_launches_ok(launches, want, what, route="wgmma"):
+    """K11-K13's launches as ``want`` says, each all on ``route`` ("wgmma" for
+    bf16 and fp16, "fp32" for fp32), and the backward's rows kernel (di, 1 /
+    l) once a K12 launch."""
     want = dict(want)
     for kname in ("K11", "K12", "K13"):
         if kname in want:
-            want[f"{kname} wgmma route"], want[f"{kname} simple route"] = want[kname], 0
+            for r in ("wgmma", "simple", "fp32"):
+                want[f"{kname} {r} route"] = want[kname] if r == route else 0
     if "K12" in want:
         want["flash rows"] = want["K12"]
+        want["flash rows fp32"] = want["K12"] if route == "fp32" else 0
     got = {kname: launches[kname] for kname in want}
     if got != want:
         raise AssertionError(f"{what}: flash launches {got}, expected {want}")
@@ -4097,6 +4148,505 @@ def phase_launch_train(device, workdir: Path, label: str, train_ctx, steps=3, pr
 
 
 
+# ---- phase 11: flash at fp32, the two model options, DPR, real text ----
+
+FP32_LOSS_REL = 1e-4   # 11b: a flash fp32 step's loss against the explicit fp32 path's, relative to its size
+OPTION_LOSS_REL = 2e-2  # 11c: a fused_qkv bf16 step's loss against phase 4's configuration's
+OPTION_GRAD_REL = 5e-2  # 11c: a fused_qkv bf16 gradient against phase 4's, |d| / |g| over each tensor
+WORD_GRAD_REL = 2**-7   # 11c: the onehot word gradient against the lookup's, |d| / |g| over the table
+DPR_TIE = 1e-6          # 11d: an id may differ from the fp64 oracle's only at ties this close (beyond fp32's error)
+REAL_TEXT_MODEL = dict(vocab_size=8192, hidden_size=256, num_layers=4, num_heads=4, intermediate_size=1024,
+                       max_position_embeddings=256, dim=128)  # scripts/real_data_e2e.py's BERT-small width
+
+
+def flash_fp32_bounds(B, nh, L, hd=64):
+    """Route "fp32"'s bounds at (B, nh, L, hd) fp32: (ms, by) of K11, K12 and K13
+    (fp32 operations over 67 TFLOP/s or fp32 bytes over 3.35 TB/s) and of the
+    rows kernel (2 L hd flops a head; o and do read, l read, di and 1 / l
+    written); "tf32x3": the products as three TF32 products on the tensor
+    cores (495 TFLOP/s), ms."""
+    out = flash_bounds(B, nh, L, hd, elem_bytes=4, peak_flops=PEAK_FP32_FLOPS)
+    out["rows"] = bound(2 * B * nh * L * hd, 2 * B * nh * L * hd * 4 + 3 * B * nh * L * 4, PEAK_FP32_FLOPS)
+    per_head = B * nh * L * L * hd
+    out["tf32x3"] = {k: 3 * n * per_head / PEAK_TF32_FLOPS * 1e3 for k, n in (("K11", 4), ("K12", 8), ("K13", 6))}
+    return out
+
+
+def flash_fp32_case(device, name, B, nh, lengths, seed, label):
+    """Phase 11a at (B, nh, 384, 64) fp32 in the models' layout: route "fp32"
+    of K11, the rows kernel (di and 1 / l from K11's own o and l), K12 and K13
+    (on the plain forward's l, m and di) against the fp32 plain versions (TF32
+    off): o, dq, dk and dv within ``FP32_HEAD_REL`` (``fp32_head_rel``), l
+    within 1e-6 relative and m within 1e-6; di bit-equal to its order in torch
+    and within fp32 rounding of ``flash_di``, 1 / l bit-equal; two runs
+    bit-equal; the autograd function equal to the launches on its own o, l
+    and m; every launch on route "fp32".  Times: each kernel cold and hot
+    (medians of three in turn), the plain forward and backward, the autograd
+    forward + backward, and ``F.scaled_dot_product_attention`` at fp32 with
+    the boolean segment mask (forward, forward + backward, its backward
+    alone), beside the bounds."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from colbert_tpu_torch.ops import flash_attention as fa
+
+    L = 384
+    g = torch.Generator(device).manual_seed(seed)
+
+    def heads():
+        return torch.randn((B, L, nh, 64), generator=g, device=device, dtype=torch.float32).transpose(1, 2)
+    q, k, v, do = heads(), heads(), heads(), heads()
+    seg = (torch.arange(L, device=device)[None, :] < torch.as_tensor(lengths, device=device)[:, None]).to(torch.int32)
+    args = (q, k, v, seg, seg, FLASH_SCALE)
+    before = read_counts()
+    o, l, m = fa._launch_forward(*args)
+    di, inv_l = fa._launch_rows(o, do, l)
+    ro, rl, rm = fa.flash_forward_ref(*args)
+    rdi = fa.flash_di(ro, do)
+    bargs = (*args, rl, rm, do, rdi)
+    dk, dv = fa._launch_dkv(*bargs)
+    dq = fa._launch_dq(*bargs)
+    want = fa.flash_backward_ref(*bargs)
+    again = (*fa._launch_forward(*args), *fa._launch_dkv(*bargs), fa._launch_dq(*bargs))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*leaves, seg, seg, FLASH_SCALE)
+    out.backward(do)
+    own = (*args, l, m, do, di)
+    own_dk, own_dv = fa._launch_dkv(*own, inv_l=inv_l)
+    own_dq = fa._launch_dq(*own, inv_l=inv_l)
+    torch.cuda.synchronize()
+    after = read_counts()
+    launched = {key: after[key] - before[key] for key in after
+                if key.startswith(("K11 ", "K12 ", "K13 ", "flash rows"))}
+    want_launched = {key: 0 for key in launched} | {"K11 fp32 route": 3, "K12 fp32 route": 4, "K13 fp32 route": 4,
+                                                     "flash rows": 2, "flash rows fp32": 2}
+    stable = all(torch.equal(a, b) for a, b in zip((o, l, m, dk, dv, dq), again))
+    autograd_same = torch.equal(out, o) and all(torch.equal(t.grad, w)
+                                                for t, w in zip(leaves, (own_dq, own_dk, own_dv)))
+    res = {"shape": [B, nh, L, 64], "dtype": "float32", "lengths": [int(np.min(lengths)), int(np.max(lengths))],
+           "bit_stable": stable, "autograd_same": autograd_same, "launched": launched}
+    for what, got, ref in (("o", o, ro), ("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
+        res[what] = {"head_rel": fa.fp32_head_rel(got, ref), "max_abs_err": float((got - ref).abs().max())}
+    res["l_max_rel_err"] = float(((l - rl).abs() / rl).max())
+    res["m_max_abs_err"] = float((m - rm).abs().max())
+    res["di"] = {"fp32_bound_share": di_within_fp32(di, o, do),
+                 "card_order_equal": bool(torch.equal(di, fa.flash_di_card_order(o, do))),
+                 "inv_l_equal": bool(torch.equal(inv_l, torch.ones_like(l) / l))}
+    log(f"[phase11a] {name} ({B}, {nh}, {L}, 64) fp32, lengths {res['lengths'][0]}-{res['lengths'][1]}, route fp32: "
+        f"bit-stable {stable}, autograd function equal {autograd_same}; against the fp32 plain versions "
+        + "; ".join(f"{w} {res[w]['head_rel']:.2e} of its head vector (max|d| {res[w]['max_abs_err']:.3e})"
+                    for w in ("o", "dq", "dk", "dv"))
+        + f"; l rel {res['l_max_rel_err']:.2e}, m {res['m_max_abs_err']:.2e}; di {res['di']['fp32_bound_share']:.3f} "
+        f"of the fp32 rounding bound, bit-equal to its order {res['di']['card_order_equal']}, 1 / l bit-equal "
+        f"{res['di']['inv_l_equal']}; launches {launched}")
+    off = [w for w in ("o", "dq", "dk", "dv") if not res[w]["head_rel"] <= fa.FP32_HEAD_REL]
+    if off or not (stable and autograd_same) or launched != want_launched or not res["l_max_rel_err"] <= 1e-6 \
+            or not res["m_max_abs_err"] <= 1e-6 or not (res["di"]["fp32_bound_share"] <= 1.0
+                                                       and res["di"]["card_order_equal"] and res["di"]["inv_l_equal"]):
+        raise AssertionError(f"route fp32 at {name}: beyond the limits {off}, launches {launched} (expected "
+                             f"{want_launched}): {res}")
+
+    # ---- times: CUDA events, hot (the same inputs) and cold (copies in turn past twice the L2) ----
+    n_copies = max(1, -(-4 * L2_BYTES // (4 * q.numel() * 4)))
+    copies = [tuple(t.clone() for t in (q, k, v, do)) for _ in range(n_copies)]
+    outs = [tuple(t.clone() for t in (o, do)) for _ in range(n_copies)]
+    runs = {"hot": {}, "cold": {}}
+
+    def timed(key, hot_fn, cold_fn, xs):
+        runs["hot"].setdefault(key, []).append(time_ms(hot_fn))
+        runs["cold"].setdefault(key, []).append(time_ms(in_turn(cold_fn, xs), warmup=len(xs) + 2))
+    for _ in range(3):
+        timed("K11", lambda: fa._launch_forward(*args),
+              lambda x, i: fa._launch_forward(x[0], x[1], x[2], seg, seg, FLASH_SCALE), copies)
+        timed("K12", lambda: fa._launch_dkv(*own, inv_l=inv_l),
+              lambda x, i: fa._launch_dkv(x[0], x[1], x[2], seg, seg, FLASH_SCALE, l, m, x[3], di, inv_l=inv_l), copies)
+        timed("K13", lambda: fa._launch_dq(*own, inv_l=inv_l),
+              lambda x, i: fa._launch_dq(x[0], x[1], x[2], seg, seg, FLASH_SCALE, l, m, x[3], di, inv_l=inv_l), copies)
+        timed("rows", lambda: fa._launch_rows(o, do, l), lambda x, i: fa._launch_rows(x[0], x[1], l), outs)
+    hot, cold = ({key: float(np.median(t)) for key, t in runs[kind].items()} for kind in ("hot", "cold"))
+
+    def fwd_bwd(fn):
+        def run():
+            for t in leaves:
+                t.grad = None
+            fn(*leaves).backward(do)
+        return run
+    mask = (seg[:, :, None] == seg[:, None, :])[:, None]  # (B, 1, L, L) segment equality
+    sdpa = lambda a, b, c: F.scaled_dot_product_attention(a, b, c, attn_mask=mask, scale=FLASH_SCALE)
+    with torch.no_grad():
+        t_plain = time_ms(lambda: fa.flash_forward_ref(*args), iters=3, warmup=1)
+        t_plain_bwd = time_ms(lambda: fa.flash_backward_ref(*bargs), iters=3, warmup=1)
+        t_sdpa = time_ms(lambda: sdpa(q, k, v), iters=10, warmup=2)
+    t_flash_fb = time_ms(fwd_bwd(lambda a, b, c: fa.flash_attention(a, b, c, seg, seg, FLASH_SCALE)), iters=10,
+                         warmup=2)
+    t_sdpa_fb = time_ms(fwd_bwd(sdpa), iters=10, warmup=2)
+    t_sdpa_bwd, sdpa_backend, sdpa_tried = sdpa_backward_alone(q, k, v, mask, do)
+    bounds = flash_fp32_bounds(B, nh, L)
+    res.update({"ms": cold, "hot_ms": hot, "bound": bounds, "plain_ms": t_plain, "plain_backward_ms": t_plain_bwd,
+                "flash_fwd_bwd_ms": t_flash_fb, "sdpa_ms": t_sdpa, "sdpa_fwd_bwd_ms": t_sdpa_fb,
+                "sdpa_backward_ms": t_sdpa_bwd, "sdpa_backward_backend": sdpa_backend,
+                "sdpa_backward_tried": sdpa_tried, "cold_copies": n_copies})
+    for kname in ("K11", "K12", "K13", "rows"):
+        tf32 = f"; as three TF32 products {bounds['tf32x3'][kname]:.4f}" if kname in bounds["tf32x3"] else ""
+        log(f"[phase11a] {name} {kname} route fp32: {cold[kname]:.4f} ms cold ({n_copies} input sets in turn), "
+            f"{hot[kname]:.4f} hot; bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]}){tf32} [{label}]")
+    log(f"[phase11a] {name} fp32: plain forward {t_plain:.3f} ms, plain backward {t_plain_bwd:.3f}; the autograd "
+        f"forward + backward (K11, rows, K12, K13) {t_flash_fb:.4f}; F.scaled_dot_product_attention with the segment "
+        f"mask (a yardstick the port never calls): forward {t_sdpa:.4f}, forward + backward {t_sdpa_fb:.4f}, its "
+        f"backward alone {t_sdpa_bwd:.4f} ({sdpa_backend}; tried {sdpa_tried}) [{label}]")
+    return res
+
+
+def phase_flash_fp32(device, workdir: Path, label, seed=SEED, shapes=None):
+    """Phase 11a: route "fp32" at the retriever's doc pass, the CE's pairs and
+    the encode batch, with phase 8a's segment lengths."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, 8])
+    shapes = shapes or {"retriever": (68, 12), "ce": (20, 16), "encode": (384, 12)}
+    lengths = {"retriever": synthetic_doc_lengths(shapes["retriever"][0], seed + 3, workdir),
+               "ce": rng.integers(64, 385, size=shapes["ce"][0]),
+               "encode": synthetic_doc_lengths(shapes["encode"][0], seed, workdir)}
+    t0 = time.perf_counter()
+    out = {name: flash_fp32_case(device, name, *shapes[name], lengths[name], seed + 11 + i, label)
+           for i, name in enumerate(shapes)}
+    log(f"[phase11a] route fp32 checked and timed at {len(shapes)} shapes in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def library_steps(device, train_ctx, steps=3, keep_grads=False, probe=None, **model_kw):
+    """``steps`` steps of the library's trainer (``compute_grads``, then the
+    optimizer) on phase 4's data and configuration with ``model_kw`` set on
+    ``model``, counted and timed: losses, ms a step (the host clock, each step
+    synchronised; the first left out of the mean), peak device memory,
+    launches, with ``keep_grads`` step 1's gradients, and ``probe(model,
+    batch)``'s value on the initial model and step 1's batch."""
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.config import ColbertConfig
+    from colbert_tpu_torch.training import ColbertTrainer, RetrievalDataset
+    from colbert_tpu_torch.training.dataset import RetrievalSampler
+
+    cfg = ColbertConfig.from_dict(train_ctx["cfg"].to_dict())
+    for key, val in model_kw.items():
+        setattr(cfg.model, key, val)
+    tok = cli._tokenizer(cfg)
+    trainer = ColbertTrainer(cfg, tok, device=device)
+    sampler = RetrievalSampler(RetrievalDataset.from_json(train_ctx["train_path"]), tok, cfg.train,
+                               cfg.train.per_device_batch_size, is_eval=False)
+    trainer._init_state(sampler.steps_per_epoch())
+    batches = [b for _, b in zip(range(steps), sampler.epoch(0))]
+    probed = None if probe is None else probe(trainer.model, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    losses, step_ms, grads = [], [], None
+    for gstep, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        losses.append(float(trainer.compute_grads(batch, gstep)))
+        if keep_grads and gstep == 0:
+            grads = {k: p.grad.detach().clone() for k, p in trainer.model.named_parameters() if p.grad is not None}
+        trainer.optimizer.step()
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    del trainer
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": step_ms, "ms_step": float(np.mean(step_ms[1:])), "peak_gb": peak_gb,
+            "launches": launches, "grads": grads, "probed": probed}
+
+
+def phase_flash_fp32_train(device, label, train_ctx, steps=3):
+    """Phase 11b: ``steps`` train steps at phase 4's configuration (BERT-base,
+    batch 34, 12 layers) with ``model.dtype="float32"`` and flash (K11, the
+    rows kernel, K12 and K13 on route "fp32") against the explicit fp32 path,
+    both dropping the attention output (the site flash takes), so the two
+    draw the same masks: each loss within ``FP32_LOSS_REL`` of the explicit
+    path's; K11, K12, K13 and the rows kernel 12 launches a step, all on
+    route "fp32"; ms a step and peak memory of each."""
+    kw = dict(dtype="float32", attention_dropout_site="output")
+    explicit = library_steps(device, train_ctx, steps, attention_impl="auto", **kw)
+    flash = library_steps(device, train_ctx, steps, attention_impl="flash", **kw)
+    layers = train_ctx["cfg"].model.num_layers
+    rel = [abs(a - b) / abs(b) for a, b in zip(flash["losses"], explicit["losses"])]
+    log(f"[phase11b] train at fp32, {steps} steps: flash losses {flash['losses']}, explicit {explicit['losses']} "
+        f"(relative {max(rel):.2e}, limit {FP32_LOSS_REL}); flash {flash['ms_step']:.1f} ms/step, peak "
+        f"{flash['peak_gb']:.2f} GB; explicit {explicit['ms_step']:.1f} ms/step, peak {explicit['peak_gb']:.2f} GB; "
+        f"flash launches {{" + ", ".join(f"{k}: {v}" for k, v in flash["launches"].items()
+                                         if k.startswith(("K11", "K12", "K13", "flash"))) + f"}} [{label}]")
+    flash_launches_ok(flash["launches"], {"K11": layers * steps, "K12": layers * steps, "K13": layers * steps},
+                      "phase 11b's fp32 flash steps", route="fp32")
+    flash_launches_ok(explicit["launches"], {"K11": 0, "K12": 0, "K13": 0}, "phase 11b's explicit fp32 steps")
+    import math
+    if not all(math.isfinite(x) for x in flash["losses"] + explicit["losses"]) or max(rel) > FP32_LOSS_REL:
+        raise AssertionError(f"fp32 flash losses {flash['losses']} against the explicit path's {explicit['losses']}")
+    return {"flash": {k: flash[k] for k in ("losses", "ms_step", "step_ms", "peak_gb", "launches")},
+            "explicit": {k: explicit[k] for k in ("losses", "ms_step", "step_ms", "peak_gb")}, "loss_rel": max(rel)}
+
+
+def doc_forward_probe(model, batch):
+    """One eval-mode doc forward of ``batch``'s docs: the aten ``mm``/``addmm``
+    calls in it (one cuBLAS GEMM each) and the embeddings' output."""
+    import numpy as np
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+            return func(*args, **(kwargs or {}))
+
+    dev = next(model.parameters()).device
+    ids = torch.from_numpy(np.ascontiguousarray(batch.d_ids)).long().to(dev)
+    attn = torch.from_numpy(np.ascontiguousarray(batch.d_attn)).to(dev)
+    model.eval()
+    with torch.no_grad():
+        emb = model.bert.embeddings(ids, torch.zeros_like(ids), torch.bfloat16)
+        with Count() as count:
+            model.doc(ids, attn)
+    return {"gemms": count.n, "embeddings": emb}
+
+
+def phase_model_options(device, label, train_ctx, steps=3):
+    """Phase 11c: ``model.fused_qkv`` and ``model.embedding_impl="onehot"`` at
+    phase 4's configuration (bf16, 12 layers, batch 34), ``steps`` steps each
+    beside the same steps without them (losses bit-equal to phase 4's).
+    fused_qkv: each loss within ``OPTION_LOSS_REL`` of phase 4's, every step-1
+    gradient within ``OPTION_GRAD_REL`` of it (|d| / |g| a tensor; the
+    attention key biases aside: their exact gradient is zero, a softmax
+    ignores a constant added to a row, so both are rounding noise), and 24
+    fewer GEMMs in a doc forward of step 1's docs (2 a layer).  onehot: the
+    embeddings' forward on those docs bit-equal to the lookup's, so step 1's
+    loss and every gradient but the word table's bit-equal, the word table's
+    within
+    ``WORD_GRAD_REL`` in norm (on the card both are fp32 sums of the same
+    bf16 terms, in two orders, each rounded once to bf16: 2^-9 of an entry
+    a rounding; an entry whose sum cancels can be many of its own ulps off,
+    so the largest, in ulps, is information).  ms a step and peak memory of
+    each (information)."""
+    import torch
+
+    base_cfg = train_ctx["cfg"]
+    run = functools.partial(library_steps, device, train_ctx, steps, keep_grads=True, probe=doc_forward_probe)
+    base = run()
+    if base["losses"] != train_ctx["losses"][:steps]:
+        raise AssertionError(f"phase 11c's steps {base['losses']} differ from phase 4's {train_ctx['losses'][:steps]}")
+    fused = run(fused_qkv=True)
+    onehot = run(embedding_impl="onehot")
+    gemms = {"unfused": base["probed"]["gemms"], "fused": fused["probed"]["gemms"]}
+    emb_equal = bool(torch.equal(base["probed"]["embeddings"], onehot["probed"]["embeddings"]))
+    for r in (base, fused, onehot):
+        del r["probed"]
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(torch.finfo(torch.float32).tiny))
+    g0 = base["grads"]
+    fused_rel = {k: rel(fused["grads"][k], g) for k, g in g0.items() if not k.endswith("attention.key.bias")}
+    fused_loss_rel = max(abs(a - b) / abs(b) for a, b in zip(fused["losses"], base["losses"]))
+    word = "bert.embeddings.word_embeddings.weight"
+    differ = sorted(k for k, g in g0.items() if k != word and not torch.equal(onehot["grads"][k], g))
+    a, b = onehot["grads"][word], g0[word]
+    _, e = torch.frexp(torch.maximum(a.abs(), b.abs()).clamp_min(torch.finfo(torch.float32).tiny))
+    word_ulps = float(((a - b).abs() / torch.ldexp(torch.ones_like(a), e - 8)).max())
+    word_rel = rel(a, b)
+
+    worst = max(fused_rel, key=fused_rel.get)
+    log(f"[phase11c] fused_qkv, {steps} steps: losses {fused['losses']} against phase 4's {base['losses']} (relative "
+        f"{fused_loss_rel:.2e}, limit {OPTION_LOSS_REL}); step 1's gradients |d| / |g| at most "
+        f"{fused_rel[worst]:.2e} ({worst}; limit {OPTION_GRAD_REL}); GEMMs (aten mm/addmm) in a doc forward at "
+        f"{base_cfg.model.num_layers} layers: {gemms['unfused']} unfused, {gemms['fused']} fused; "
+        f"{fused['ms_step']:.1f} ms/step (without: {base['ms_step']:.1f}), peak {fused['peak_gb']:.2f} GB "
+        f"(without: {base['peak_gb']:.2f}) [{label}]")
+    log(f"[phase11c] embedding_impl onehot, {steps} steps: embeddings' forward bit-equal to the lookup's {emb_equal}; "
+        f"losses {onehot['losses']} (step 1 bit-equal {onehot['losses'][0] == base['losses'][0]}); gradients other "
+        f"than the word table's not bit-equal: {differ[:8]}; the word table's |d| / |g| {word_rel:.2e} (limit "
+        f"{WORD_GRAD_REL:.2e}), at most {word_ulps:.2f} bf16 ulps of an entry; {onehot['ms_step']:.1f} ms/step "
+        f"(without: {base['ms_step']:.1f}), peak {onehot['peak_gb']:.2f} GB (without: {base['peak_gb']:.2f}; "
+        f"phase 4's run: {train_ctx['peak_gb']:.2f}) [{label}]")
+    if fused_loss_rel > OPTION_LOSS_REL or fused_rel[worst] > OPTION_GRAD_REL or \
+            gemms["unfused"] - gemms["fused"] != 2 * base_cfg.model.num_layers:
+        raise AssertionError(f"fused_qkv: losses {fused['losses']} against {base['losses']}, gradients {fused_rel}, "
+                             f"GEMMs {gemms}")
+    if not emb_equal or onehot["losses"][0] != base["losses"][0] or differ or word_rel > WORD_GRAD_REL:
+        raise AssertionError(f"onehot: embeddings equal {emb_equal}, losses {onehot['losses']} against "
+                             f"{base['losses']}, gradients not bit-equal {differ}, word table {word_rel}")
+    keep = ("losses", "ms_step", "step_ms", "peak_gb")
+    return {"base": {k: base[k] for k in keep}, "fused_qkv": {k: fused[k] for k in keep} | {
+                "loss_rel": fused_loss_rel, "grad_rel_max": fused_rel[worst], "grad_rel_worst": worst, "gemms": gemms},
+            "onehot": {k: onehot[k] for k in keep} | {"embeddings_equal": emb_equal, "word_grad_rel": word_rel,
+                                                       "word_grad_ulps": word_ulps}}
+
+
+def phase_dense(device, workdir: Path, label, ctx, batch=256):
+    """Phase 11d: ``DenseRetriever`` with phase 2's model and
+    ``attention_impl="flash"`` (K11 once a layer a doc batch of 384 tokens;
+    queries at 32 keep the explicit attention) over its 20,000 passages:
+    ``build_index``, then phase 2's 3 x 144 questions at top-100.
+    Each answer's ids equal those of an fp64 numpy oracle over the same
+    pooled vectors, but at ties: the fp64 scores at a position within
+    ``DPR_TIE`` plus twice the largest error of the returned fp32 scores
+    against fp64's (an fp32 score orders two passages only as far as its
+    own error; that error at most 1e-5); a
+    passage's own pooled vector scores 1.0 within 1e-3, as the top score of
+    its own search; ``save_index`` / ``load_index`` give the same answers.
+    Docs/s to build, questions/s to search."""
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.ranking.dense import DenseRetriever
+
+    from colbert_tpu_torch.config import ColbertConfig
+
+    cfg = ColbertConfig.from_dict(ctx["cfg"].to_dict())
+    cfg.model.attention_impl = "flash"
+    model = cli._model(cfg, argparse.Namespace(checkpoint_step=None, pretrain=ctx["common"][3]))
+    r = DenseRetriever(cfg, cli._tokenizer(cfg), model, device=device)
+    docs, questions = ctx["docs"], ctx["questions"][: 3 * B]
+    reset_counts()
+    t0 = time.perf_counter()
+    r.build_index(docs, batch=batch)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    flash_launches_ok(read_counts(), {"K11": cfg.model.num_layers * -(-len(docs) // batch), "K12": 0, "K13": 0},
+                      "DPR's build_index")
+    t0 = time.perf_counter()
+    scores, ids = r.search(questions, topk=TOPK)
+    search_s = time.perf_counter() - t0
+    D = r.index.vectors.double().cpu().numpy()
+    Qv = r._encode(questions, is_query=True).astype(np.float64)
+    S = Qv @ D.T
+    order = np.argsort(-S, axis=1, kind="stable")[:, :TOPK]
+    want_s, got_s = np.take_along_axis(S, order, 1), np.take_along_axis(S, ids, 1)
+    pos_err = float(np.abs(got_s - want_s).max())
+    score_err = float(np.abs(scores - got_s).max())
+    tie = DPR_TIE + 2 * score_err
+    unique = all(len(set(row.tolist())) == TOPK for row in ids)
+    id_diff = int((ids != order).sum())
+    own_s, own_i = r.index.search(r.index.vectors[:100], 1)
+    self_err = float(np.abs((D[:100] * D[:100]).sum(1) - 1.0).max())
+    r.save_index(str(workdir / "dense_index"))
+    r2 = DenseRetriever(cfg, cli._tokenizer(cfg), model, device=device)
+    r2.load_index(str(workdir / "dense_index"))
+    s2, i2 = r2.search(questions[:B], topk=TOPK)
+    round_trip = bool(np.array_equal(i2, ids[:B]) and np.array_equal(s2, scores[:B]))
+    log(f"[phase11d] DenseRetriever over {len(docs)} passages (phase 2's model, {cfg.model.dtype}, attention "
+        f"{cfg.model.attention_impl}, K11 {cfg.model.num_layers * -(-len(docs) // batch)} launches): build "
+        f"{build_s:.2f} s = {len(docs) / build_s:.1f} docs/s; {len(questions)} questions top-{TOPK} in "
+        f"{search_s:.3f} s = {len(questions) / search_s:.1f} questions/s; against the fp64 "
+        f"oracle: scores by position max|d| {pos_err:.2e} (ties within {tie:.2e}), {id_diff} ids at another position "
+        f"(ties), returned scores vs fp64 max|d| {score_err:.2e}, ids unique {unique}; own vectors |1 - |d|^2| "
+        f"{self_err:.2e}, their top score {float(own_s.min()):.6f}-{float(own_s.max()):.6f}; save/load same answers "
+        f"{round_trip} [{label}]")
+    if pos_err > tie or score_err > 1e-5 or not unique or self_err > 1e-3 or \
+            float(np.abs(own_s - 1.0).max()) > 1e-3 or not round_trip:
+        raise AssertionError(f"DPR: position scores {pos_err}, scores {score_err}, unique {unique}, self {self_err}, "
+                             f"own top {own_s.ravel()[:8]}, round trip {round_trip}")
+    return {"docs_s": len(docs) / build_s, "questions_s": len(questions) / search_s, "build_s": build_s,
+            "search_s": search_s, "oracle_pos_err": pos_err, "score_err": score_err, "ids_at_ties": id_diff}
+
+
+def phase_real_text(device, workdir: Path, label, max_modules=180, max_entries=1500, epochs=10, seed=SEED):
+    """Phase 11e, real text: the docstring corpus of this machine's Python
+    (``evaluation/pydocs.py``: the first ``max_modules`` importable standard
+    library modules, at most ``max_entries`` entries; summaries as questions,
+    bodies as passages, same-module hard negatives), a learned WordPiece
+    vocab (``train_wordpiece``), a BERT-small retriever
+    (``scripts/real_data_e2e.py``'s width: hidden 256, 4 layers, dim 128,
+    doc_maxlen 224; bf16; multiview off, a vector a token) trained
+    ``epochs`` epochs through the CLI, the corpus encoded, and dev MRR@10
+    and recall@100 of ColBERT (flat mode over the ragged table,
+    ``evaluate``) and of DPR (``DenseRetriever`` on the same weights).  The
+    numbers name the machine (its Python's docstrings) and vary from process
+    to process (``build_retrieval_dataset`` mines hard negatives in the
+    order of sets of strings, which Python's hash seed sets); the check:
+    finite, and MRR above chance."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.config import (ColbertConfig, IndexConfig, ModelConfig, MultiviewConfig, ServeConfig,
+                                          TokenizerConfig, TrainConfig)
+    from colbert_tpu_torch.evaluation import eval_retrieval
+    from colbert_tpu_torch.evaluation.pydocs import build_retrieval_dataset, collect_docstrings, train_dev_split
+    from colbert_tpu_torch.ranking.dense import DenseRetriever
+    from colbert_tpu_torch.tokenization.vocab import train_wordpiece, write_vocab
+    from colbert_tpu_torch.training.checkpoint import CheckpointManager
+    from colbert_tpu_torch.utils.io import dump_json, load_json, load_jsonl
+
+    t0 = time.perf_counter()
+    entries = collect_docstrings(max_modules=max_modules, max_entries=max_entries)
+    collect_s = time.perf_counter() - t0
+    texts, examples = build_retrieval_dataset(entries, num_negatives=8, seed=seed)
+    train, dev = train_dev_split(examples, dev_frac=0.08, seed=seed)
+    t0 = time.perf_counter()
+    vocab = train_wordpiece(texts + [x["question"] for x in examples], vocab_size=8000, max_merges=3000)
+    vocab_s = time.perf_counter() - t0
+    paths = {name: workdir / f"{name}.json" for name in ("corpus", "train", "dev")}
+    for name, data in (("corpus", texts), ("train", train), ("dev", dev)):
+        dump_json(data, paths[name])
+    cfg = ColbertConfig(
+        model=ModelConfig(**REAL_TEXT_MODEL, dtype="bfloat16"),
+        # a vector a token: it matches words from the first step, where the 8/8 views of
+        # scripts/real_data_e2e.py (marker positions) need thousands of steps to carry any
+        multiview=MultiviewConfig(enabled=False),
+        tokenizer=TokenizerConfig(vocab_path=write_vocab(vocab, workdir / "vocab.txt"), query_maxlen=32,
+                                  doc_maxlen=224),
+        train=TrainConfig(learning_rate=5e-4, per_device_batch_size=32, num_epochs=epochs, evals_per_epoch=1,
+                          score_temperature=0.05, warmup_ratio=0.05, checkpoint_dir=str(workdir / "ckpt"),
+                          keep_checkpoints=1, log_every=50, seed=seed),
+        index=IndexConfig(index_path=str(workdir / "index"), num_parts=1),
+        serve=ServeConfig(mode="flat", topk=TOPK, query_batch_size=128),
+    )
+    conf = workdir / "conf.yaml"
+    cfg.to_yaml(conf)
+    common = ["--config", str(conf), "--device", str(device)]
+    log(f"[phase11e] pydocs: {len(entries)} docstrings from {max_modules} modules in {collect_s:.2f} s; "
+        f"{len(train)} train / {len(dev)} dev questions, {len(texts)} passages; WordPiece vocab {len(vocab)} "
+        f"in {vocab_s:.2f} s")
+    t0 = time.perf_counter()
+    cli.main(["train", "--train-data", str(paths["train"]), *common])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    steps = [row for row in load_jsonl(workdir / "ckpt" / "train_log.jsonl") if row["kind"] == "step"]
+    cli.main(["encode", "--corpus", str(paths["corpus"]), *common])
+    cli.main(["evaluate", "--eval-data", str(paths["dev"]), "--corpus", str(paths["corpus"]), "--topk", str(TOPK),
+              "--out", str(workdir / "metrics.json"), *common])
+    colbert = load_json(workdir / "metrics.json")
+    dense = DenseRetriever(cfg, cli._tokenizer(cfg), cli._model(cfg, argparse.Namespace(checkpoint_step=None,
+                                                                                       pretrain=None)),
+                           device=device)
+    dense.build_index(texts)
+    s, i = dense.search([x["question"] for x in dev], topk=TOPK)
+    dpr = eval_retrieval([{"res": [(int(p), float(v), texts[p]) for p, v in zip(i[j], s[j])],
+                           "positive_ctxs": x["positive_ctxs"]} for j, x in enumerate(dev)], topk=10,
+                         recall_topk=(50, TOPK))
+    chance = sum(1.0 / (r * len(texts)) for r in range(1, 11))
+    losses = [row["loss"] for row in steps]
+    n_steps = CheckpointManager(cfg.train.checkpoint_dir).latest_step()
+    log(f"[phase11e] BERT-small bf16 trained {n_steps} steps in {train_s:.1f} s (loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}); dev ({len(dev)} questions, {len(texts)} passages): ColBERT flat MRR@10 "
+        f"{colbert['mrr@10']:.4f}, recall@100 {colbert['recall@100']:.4f}; DPR MRR@10 {dpr['mrr@10']:.4f}, "
+        f"recall@100 {dpr['recall@100']:.4f}; chance MRR@10 {chance:.4f} (this machine's Python docstrings, "
+        f"{sys.version.split()[0]}) [{label}]")
+    vals = [colbert["mrr@10"], colbert["recall@100"], dpr["mrr@10"], dpr["recall@100"]]
+    if not all(math.isfinite(x) for x in vals + losses) or min(colbert["mrr@10"], dpr["mrr@10"]) <= chance:
+        raise AssertionError(f"real text: ColBERT {colbert}, DPR {dpr}, chance {chance}, losses {losses[-3:]}")
+    return {"entries": len(entries), "train": len(train), "dev": len(dev), "vocab": len(vocab),
+            "steps": n_steps, "train_s": train_s, "colbert": colbert, "dpr": dpr, "chance_mrr": chance,
+            "python": sys.version.split()[0]}
+
+
 def main() -> int:
     import torch
 
@@ -4141,10 +4691,16 @@ def main() -> int:
     t8 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_flash_") as tmp:
         flash_kernels = phase_flash_kernels(device, Path(tmp), label)
-    t8 = time.perf_counter() - t8
+        t8 = time.perf_counter() - t8
+        t11 = time.perf_counter()
+        flash_fp32 = phase_flash_fp32(device, Path(tmp), label)
+        t11 = time.perf_counter() - t11
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         serve_launches, _, ann_launches, codec_launches, k7_deep, ctx = phase_slice(device, Path(tmp), label)
         ragged_cli, sharded_flat = ctx["ragged_cli"], ctx["sharded_flat"]
+        t0 = time.perf_counter()
+        dense = phase_dense(device, Path(tmp), label, ctx)
+        t11 += time.perf_counter() - t0
         ce_launches, ce_info = phase_second_stage(device, Path(tmp), label, ctx)
         t0 = time.perf_counter()
         flash_encode = phase_flash_encode(device, Path(tmp), label, ctx)
@@ -4155,6 +4711,10 @@ def main() -> int:
         train_launches, train_info = phase_train(device, Path(tmp), label)
         repeat = phase_repeat(device, label, train_info)
         launch_train = phase_launch_train(device, Path(tmp), label, train_info)
+        t0 = time.perf_counter()
+        fp32_train = phase_flash_fp32_train(device, label, train_info)
+        options = phase_model_options(device, label, train_info)
+        t11 += time.perf_counter() - t0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_flash_train_") as tmp:
         t0 = time.perf_counter()
         flash_launches, flash_train = phase_train(device, Path(tmp), label, steps=5, attention_impl="flash",
@@ -4170,6 +4730,12 @@ def main() -> int:
         sharded_ann = phase_sharded_ann(device, label, ann_info)
         codec_kernels, _ = phase_codecs(device, Path(tmp), label, ann_info)
         ragged = phase_ragged(device, Path(tmp), label)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_text_") as tmp:
+        t0 = time.perf_counter()
+        real_text = phase_real_text(device, Path(tmp), label)
+        t11 += time.perf_counter() - t0
+    log(f"[phase11] route fp32 (11a) {sum(1 for _ in flash_fp32)} shapes, fp32 train (11b), the model options (11c), "
+        f"DPR (11d) and real text (11e) took {t11:.1f} s")
 
     log(f"[phase10] sharded flat {sharded_flat['s']:.1f} s, sharded ANN {sharded_ann['s']:.1f} s, train under a "
         f"launch {launch_train['s']:.1f} s: {sharded_flat['s'] + sharded_ann['s'] + launch_train['s']:.1f} s")
@@ -4353,11 +4919,42 @@ def main() -> int:
                 "fp32_bound_share_by_shape": {s: r["di"]["fp32_bound_share"] for s, r in flash_kernels.items()},
                 "by_shape": {s: {"ms": flash_kernels[s]["ms"]["rows"], "flash_di_ms": flash_kernels[s]["ms"]["flash_di"]}
                              for s in timed_shapes}}
-    kernels[-3]["flash_train"] = {key: flash_train[key] for key in ("ms_step", "peak_gb", "losses")}
-    kernels[-3]["flash_encode_docs_s"] = flash_encode["docs_s"]
-    kernels[-3]["flash_ce"] = {key: flash_ce[key] for key in ("ms_step", "peak_gb")}
-    kernels[-3]["remat_peak_gb"] = {k: r["peak_gb"] for k, r in remat.items()}
-    kernels[-3]["explicit_repeat"] = {key: repeat[key] for key in ("losses", "parameters", "s")}
+    f32 = flash_fp32["retriever"]
+    for name, kname, line, what in (("K11 flash_attention forward, route fp32", "K11", 758, ("o",)),
+                                    ("K12 flash_attention dK/dV, route fp32", "K12", 1121, ("dk", "dv")),
+                                    ("K13 flash_attention dQ, route fp32", "K13", 1456, ("dq",))):
+        plain, library = ("plain_ms", "sdpa_ms") if kname == "K11" else ("plain_backward_ms", "sdpa_backward_ms")
+        kernels.append({
+            "name": name, "route": "cuda", "source": "colbert_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line} (jax 0.9.0, on fp32 inputs; "
+                        "reached from colbert_tpu/models/bert.py:185-193)",
+            "launches": fp32_train["flash"]["launches"][f"{kname} fp32 route"],
+            "max_abs_err": max(f32[w]["max_abs_err"] for w in what), "ms": f32["ms"][kname],
+            "plain_ms": f32[plain], "bound_ms": f32["bound"][kname][0], "bound_by": f32["bound"][kname][1],
+            "library_ms": f32[library], "kernel_route": "fp32", "dtype": "float32", "shape": f32["shape"],
+            "hot_ms": f32["hot_ms"][kname], "tf32x3_bound_ms": f32["bound"]["tf32x3"][kname],
+            "head_rel_by_shape": {s: max(r[w]["head_rel"] for w in what) for s, r in flash_fp32.items()},
+            "by_shape": {s: {"ms": r["ms"][kname], "hot_ms": r["hot_ms"][kname], "bound_ms": r["bound"][kname][0],
+                             "plain_ms": r[plain], "library_ms": r[library]} for s, r in flash_fp32.items()},
+        })
+        if kname == "K11":
+            kernels[-1].update({"flash_fwd_bwd_ms": f32["flash_fwd_bwd_ms"], "sdpa_fwd_bwd_ms": f32["sdpa_fwd_bwd_ms"]})
+        else:
+            kernels[-1]["library_call"] = f"SDPA backward alone ({f32['sdpa_backward_backend']}), fp32"
+        if kname == "K12":
+            kernels[-1]["di"] = {
+                "launches": fp32_train["flash"]["launches"]["flash rows fp32"], "ms": f32["ms"]["rows"],
+                "hot_ms": f32["hot_ms"]["rows"], "bound_ms": f32["bound"]["rows"][0],
+                "bound_by": f32["bound"]["rows"][1],
+                "by_shape": {s: {"ms": r["ms"]["rows"], "bound_ms": r["bound"]["rows"][0]}
+                             for s, r in flash_fp32.items()}}
+    kernels[-3]["fp32_train"] = fp32_train
+    kernels[-6]["flash_train"] = {key: flash_train[key] for key in ("ms_step", "peak_gb", "losses")}
+    kernels[-6]["flash_encode_docs_s"] = flash_encode["docs_s"]
+    kernels[-6]["flash_ce"] = {key: flash_ce[key] for key in ("ms_step", "peak_gb")}
+    kernels[-6]["remat_peak_gb"] = {k: r["peak_gb"] for k, r in remat.items()}
+    kernels[-6]["explicit_repeat"] = {key: repeat[key] for key in ("losses", "parameters", "s")}
+    log(json.dumps({"phase11": {"model_options": options, "dense": dense, "real_text": real_text, "s": t11}}))
     log(label)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,11 +20,18 @@ Slices ported so far:
   probe;
 * the second stage: hard-negative mining (``evaluation/dureader.py``), the
   cross-encoder reranker (``models/ce.py``) and its trainer
-  (``training/ce_trainer.py``, dropout by the same Philox kernel).
+  (``training/ce_trainer.py``, dropout by the same Philox kernel);
+* flash attention (``csrc/flash_attention.cu``) in bf16, fp16 and fp32,
+  data-parallel training and corpus-sharded serving (``parallel/``,
+  ``ranking/sharded.py``);
+* DPR-style single-vector retrieval (``ranking/dense.py`` over
+  ``indexing/flat.py``), the pooling helpers (``ops/pooling.py``) and the
+  real-text docstring corpus (``evaluation/pydocs.py``) with a learned
+  WordPiece vocab (``tokenization/vocab.py::train_wordpiece``).
 
 The package imports ``torch`` and nothing of ``colbert_tpu``, ``jax`` or
 ``flax``: it carries its own copies of the framework-free modules (config,
-vocab, punctuation, metrics, io, logging).
+vocab, punctuation, metrics, io, logging, pydocs).
 """
 
 from colbert_tpu_torch.version import __version__
@@ -40,6 +47,8 @@ def __getattr__(name):
         "CrossEncoderModel": ("colbert_tpu_torch.models.ce", "CrossEncoderModel"),
         "CollectionEncoder": ("colbert_tpu_torch.indexing.encoder", "CollectionEncoder"),
         "IndexStorage": ("colbert_tpu_torch.indexing.storage", "IndexStorage"),
+        "IndexBuilder": ("colbert_tpu_torch.indexing.builder", "IndexBuilder"),
+        "FlatIndex": ("colbert_tpu_torch.indexing.flat", "FlatIndex"),
         "ColbertSearcher": ("colbert_tpu_torch.ranking.searcher", "ColbertSearcher"),
         "RetrievalService": ("colbert_tpu_torch.serving.server", "RetrievalService"),
         "RetrievalServer": ("colbert_tpu_torch.serving.server", "RetrievalServer"),
@@ -58,7 +67,8 @@ def __getattr__(name):
 
 __all__ = [
     "__version__", "ColbertConfig", "load_config", "ColbertTokenizer",
-    "ColbertModel", "CrossEncoderModel", "CollectionEncoder", "IndexStorage", "ColbertSearcher",
+    "ColbertModel", "CrossEncoderModel", "CollectionEncoder", "IndexBuilder", "IndexStorage", "FlatIndex",
+    "ColbertSearcher",
     "RetrievalService", "RetrievalServer", "RetrievalClient",
     "ColbertTrainer", "RetrievalDataset", "CETrainer",
 ]

@@ -25,6 +25,9 @@
 // Route "wgmma" takes exp(x) as 2^(x log2 e) by the MUFU (ex2.approx, 2 ulps,
 // where the first design's expf has 1), from the same x = s - m.
 //
+// Route "fp32" (fp32 inputs, and only they): fp32 FMAs on the CUDA cores,
+// described with its kernels below (namespace f32).
+//
 // Route "simple" (the first design, on request only): mma.sync m16n8k16
 // (bf16 or fp16, fp32 accumulators) on tiles in
 // shared memory with the 16-byte chunks of each 128-byte row XOR-swizzled by
@@ -1429,6 +1432,379 @@ flash_rows_kernel(const T* __restrict__ O, const T* __restrict__ dO, const float
 
 }  // namespace wg
 
+// ---- route "fp32": K11-K13 and the rows kernel on fp32 inputs ----
+//
+// fp32 q, k, v (model.dtype "float32") take this route, and only they do.
+// Products and sums are fp32 FMAs on the CUDA cores (no TF32), so each
+// value agrees with the fp32 plain version to the summation order; the
+// mask, the online softmax over 128-key blocks, the saved l and m, di and
+// 1 / l are the other routes' (p keeps its fp32: rounding it to the input
+// type changes nothing).  256 threads a block; tiles of 64-float rows in
+// shared memory, padded to 68 floats.  A thread holds 4 rows x 4 (K11's S:
+// 8) columns of each product and reads its operands as float4s: one
+// operand's 4 rows are the same for a half-warp (a broadcast), the other's
+// rows lie 16 apart across it, so the padded rows fall on distinct banks.
+// A product goes back to shared memory, transposed, only as the next
+// product's operand; a half-warp holds whole rows of S, so each row's max
+// and sum finish with 4 shuffles.
+//   K11: 64 query rows a block (grid Lq / 64 x nh x B), 128-key tiles;
+//        S = Q K^T (4 rows x 8 keys a thread), the online softmax, P^T in
+//        the key tile's place, O += P V.
+//   K12: 64 keys a block, 64-query tiles: S^T = K Q^T and dP^T = V dO^T (4
+//        keys x 4 queries a thread), P and dS to shared memory, dV += P^T dO
+//        and dK += dS^T Q; 1 / l from the rows kernel.
+//   K13: 64 query rows a block, 64-key tiles: S = Q K^T and dP = dO V^T, dS^T
+//        in V's place, dQ += dS K; 1 / l likewise.
+// Bounds at the retriever's doc pass (68, 12, 384, 64) fp32: K11's 4 L^2 hd
+// flops a head are 3.08e10, 0.46 ms at 67 TFLOP/s (0.19 ms as three TF32
+// products on the tensor cores), against 321 MB of q, k, v and o (0.096
+// ms): operations; K12's 8 L^2 hd (0.92 ms) and K13's 6 (0.69 ms) likewise.
+
+namespace f32 {
+
+constexpr int LD = HD + 4;  // floats a tile row in shared memory
+constexpr int NT = 256;     // threads a block
+constexpr int R = 64;       // query rows (K11, K13) or keys (K12) a block
+constexpr int KT = 128;     // K11's key tile: the JAX block
+constexpr int BT = 64;      // K12's query tile, K13's key tile
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+
+// Rows [0, N) of 64 floats from `g` (row stride `sl`) into a padded tile.
+template <int N>
+__device__ __forceinline__ void load_rows(float* tile, const float* g, long long sl, int tid) {
+#pragma unroll
+  for (int i = tid; i < N * (HD / 4); i += NT) {
+    const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
+    st4(tile + r * LD + c, ld4(g + r * sl + c));
+  }
+}
+
+__device__ __forceinline__ float half_max(float x) {
+#pragma unroll
+  for (int o = 8; o >= 1; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float half_sum(float x) {
+#pragma unroll
+  for (int o = 8; o >= 1; o >>= 1) x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// acc[a][e] += A[ra + a] . B[rb + 16 e] over the head dim (rows of padded tiles).
+template <int E>
+__device__ __forceinline__ void dots(float (&acc)[4][E], const float* A, int ra, const float* B, int rb) {
+#pragma unroll 4
+  for (int k = 0; k < HD; k += 4) {
+    float4 x[4], y[E];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) x[a] = ld4(A + (ra + a) * LD + k);
+#pragma unroll
+    for (int e = 0; e < E; ++e) y[e] = ld4(B + (rb + 16 * e) * LD + k);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        acc[a][e] = fmaf(x[a].x, y[e].x, acc[a][e]);
+        acc[a][e] = fmaf(x[a].y, y[e].y, acc[a][e]);
+        acc[a][e] = fmaf(x[a].z, y[e].z, acc[a][e]);
+        acc[a][e] = fmaf(x[a].w, y[e].w, acc[a][e]);
+      }
+  }
+}
+
+// out[a][c] += sum over n < N of P[n][ra + a] * V[n][cv + c]: P stored with
+// its summed index as rows (its 4 columns a half-warp's broadcast).
+template <int N>
+__device__ __forceinline__ void pv(float (&out)[4][4], const float* P, int ra, const float* V, int cv) {
+#pragma unroll 4
+  for (int n = 0; n < N; ++n) {
+    const float4 p = ld4(P + n * LD + ra), v = ld4(V + n * LD + cv);
+    const float pa[4] = {p.x, p.y, p.z, p.w}, vc[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) out[a][c] = fmaf(pa[a], vc[c], out[a][c]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&c)[4][N]) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int e = 0; e < N; ++e) c[a][e] = 0.0f;
+}
+
+// Column e of a thread's 4-row tile as one float4.
+template <int N>
+__device__ __forceinline__ float4 column(const float (&c)[4][N], int e) {
+  return make_float4(c[0][e], c[1][e], c[2][e], c[3][e]);
+}
+
+// Rows r0 .. r0 + 3, columns c0 .. c0 + 3 of an output (row stride `sl`).
+__device__ __forceinline__ void store4(float* out, long long sl, const float (&c)[4][4]) {
+#pragma unroll
+  for (int a = 0; a < 4; ++a) st4(out + a * sl, make_float4(c[a][0], c[a][1], c[a][2], c[a][3]));
+}
+
+constexpr int FWD_SMEM = (R + 2 * KT) * LD * 4 + KT * 4;
+
+__global__ void __launch_bounds__(NT)
+flash_fwd_kernel(const float* __restrict__ Q, const float* __restrict__ K, const float* __restrict__ V,
+                 float* __restrict__ O, const int* __restrict__ qseg, const int* __restrict__ kvseg,
+                 float* __restrict__ l_out, float* __restrict__ m_out, View vq, View vk, View vv, View vo, int nh,
+                 int Lq, int Lk, float scale) {
+  extern __shared__ __align__(16) float fsm[];
+  float* sQ = fsm;            // [64][LD]
+  float* sK = sQ + R * LD;    // [128][LD]: the key tile, then P^T
+  float* sV = sK + KT * LD;   // [128][LD]
+  int* sSeg = reinterpret_cast<int*>(sV + KT * LD);  // [128]
+  const int tid = threadIdx.x, rg = tid >> 4, kg = tid & 15;  // rows 4 rg + a; keys kg + 16 e
+  const int q0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
+  const float* Kb = K + b * vk.sb + h * vk.sh;
+  const float* Vb = V + b * vv.sb + h * vv.sh;
+  const int* kvs = kvseg + (long long)b * Lk;
+  const int n_tiles = Lk / KT;
+  int seg[4];
+  float m_run[4], l_run[4], acc[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    seg[a] = qseg[(long long)b * Lq + q0 + 4 * rg + a];
+    m_run[a] = -INFINITY;
+    l_run[a] = 0.0f;
+  }
+  zero(acc);
+  load_rows<R>(sQ, Q + b * vq.sb + h * vq.sh + (long long)q0 * vq.sl, vq.sl, tid);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    load_rows<KT>(sK, Kb + (long long)t * KT * vk.sl, vk.sl, tid);
+    load_rows<KT>(sV, Vb + (long long)t * KT * vv.sl, vv.sl, tid);
+    if (tid < KT) sSeg[tid] = kvs[t * KT + tid];
+    __syncthreads();
+    float s[4][8];
+    zero(s);
+    dots<8>(s, sQ, 4 * rg, sK, kg);
+    float inv[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        s[a][e] = masked(s[a][e], scale, seg[a] == sSeg[kg + 16 * e]);
+        mx = fmaxf(mx, s[a][e]);
+      }
+      const float m_next = fmaxf(m_run[a], half_max(mx));
+      float sum = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        s[a][e] = expf(s[a][e] - m_next);
+        sum += s[a][e];
+      }
+      if (n_tiles == 1) {
+        // the JAX kernel's single-step form: p / l, o = (p / l) . v
+        l_run[a] = half_sum(sum);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s[a][e] = __fdiv_rn(s[a][e], l_run[a]);
+        inv[a] = 1.0f;
+      } else {
+        const float l_corr = __fmul_rn(expf(m_run[a] - m_next), l_run[a]);
+        const float l_next = __fadd_rn(half_sum(sum), l_corr);
+        inv[a] = l_next == 0.0f ? 1.0f : __fdiv_rn(1.0f, l_next);
+        const float keep = __fmul_rn(l_corr, inv[a]);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[a][c] = __fmul_rn(acc[a][c], keep);
+        l_run[a] = l_next;
+      }
+      m_run[a] = m_next;
+    }
+    __syncthreads();  // every thread is done with the key tile: P^T takes its place
+#pragma unroll
+    for (int e = 0; e < 8; ++e) st4(sK + (kg + 16 * e) * LD + 4 * rg, column(s, e));
+    __syncthreads();
+    float o[4][4];
+    zero(o);
+    pv<KT>(o, sK, 4 * rg, sV, 4 * kg);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[a][c] = __fadd_rn(acc[a][c], __fmul_rn(o[a][c], inv[a]));
+    __syncthreads();  // P^T and V read before the next tile's copy
+  }
+
+  store4(O + b * vo.sb + h * vo.sh + (long long)(q0 + 4 * rg) * vo.sl + 4 * kg, vo.sl, acc);
+  if (kg == 0) {
+    const long long i = ((long long)b * nh + h) * Lq + q0 + 4 * rg;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      l_out[i + a] = l_run[a];
+      m_out[i + a] = m_run[a];
+    }
+  }
+}
+
+constexpr int DKV_SMEM = (2 * R + 4 * BT) * LD * 4 + 4 * BT * 4;
+
+__global__ void __launch_bounds__(NT)
+flash_dkv_kernel(const float* __restrict__ Q, const float* __restrict__ K, const float* __restrict__ V,
+                 const int* __restrict__ qseg, const int* __restrict__ kvseg, const float* __restrict__ inv_l,
+                 const float* __restrict__ m_in, const float* __restrict__ dO, const float* __restrict__ di_in,
+                 float* __restrict__ dK, float* __restrict__ dV, View vq, View vk, View vv, View vdo, View vdk,
+                 View vdv, int nh, int Lq, int Lk, float scale) {
+  extern __shared__ __align__(16) float fsm[];
+  float* sK = fsm;            // [64 keys][LD], the block's
+  float* sV = sK + R * LD;
+  float* sQ = sV + R * LD;    // [64 queries][LD], a tile's
+  float* sO = sQ + BT * LD;   // dO
+  float* sP = sO + BT * LD;   // P [query][key]
+  float* sS = sP + BT * LD;   // dS [query][key]
+  float* sM = sS + BT * LD;   // [64] each: m, 1 / l, di, segment ids
+  float* sI = sM + BT;
+  float* sD = sI + BT;
+  int* sSeg = reinterpret_cast<int*>(sD + BT);
+  const int tid = threadIdx.x, kr = tid >> 4, qc = tid & 15;  // keys 4 kr + a; queries qc + 16 e
+  const int k0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
+  const float* Qb = Q + b * vq.sb + h * vq.sh;
+  const float* Ob = dO + b * vdo.sb + h * vdo.sh;
+  const long long bh = ((long long)b * nh + h) * Lq;
+  int kseg[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) kseg[a] = kvseg[(long long)b * Lk + k0 + 4 * kr + a];
+  load_rows<R>(sK, K + b * vk.sb + h * vk.sh + (long long)k0 * vk.sl, vk.sl, tid);
+  load_rows<R>(sV, V + b * vv.sb + h * vv.sh + (long long)k0 * vv.sl, vv.sl, tid);
+  float dk[4][4], dv[4][4];
+  zero(dk);
+  zero(dv);
+  for (int t = 0; t < Lq / BT; ++t) {
+    const long long r0 = (long long)t * BT;
+    load_rows<BT>(sQ, Qb + r0 * vq.sl, vq.sl, tid);
+    load_rows<BT>(sO, Ob + r0 * vdo.sl, vdo.sl, tid);
+    if (tid < BT) {
+      sM[tid] = m_in[bh + r0 + tid];
+      sI[tid] = inv_l[bh + r0 + tid];
+      sD[tid] = di_in[bh + r0 + tid];
+      sSeg[tid] = qseg[(long long)b * Lq + r0 + tid];
+    }
+    __syncthreads();
+    float p[4][4], ds[4][4];  // S^T, then P^T; dP^T, then dS^T
+    zero(p);
+    zero(ds);
+    dots<4>(p, sK, 4 * kr, sQ, qc);
+    dots<4>(ds, sV, 4 * kr, sO, qc);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = qc + 16 * e;
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const float x = masked(p[a][e], scale, kseg[a] == sSeg[qi]);
+        p[a][e] = __fmul_rn(expf(x - sM[qi]), sI[qi]);
+        ds[a][e] = __fmul_rn(__fmul_rn(__fsub_rn(ds[a][e], sD[qi]), p[a][e]), scale);
+      }
+      st4(sP + qi * LD + 4 * kr, column(p, e));
+      st4(sS + qi * LD + 4 * kr, column(ds, e));
+    }
+    __syncthreads();
+    pv<BT>(dv, sP, 4 * kr, sO, 4 * qc);
+    pv<BT>(dk, sS, 4 * kr, sQ, 4 * qc);
+    __syncthreads();  // every tile read before the next one's copy
+  }
+  store4(dK + b * vdk.sb + h * vdk.sh + (long long)(k0 + 4 * kr) * vdk.sl + 4 * qc, vdk.sl, dk);
+  store4(dV + b * vdv.sb + h * vdv.sh + (long long)(k0 + 4 * kr) * vdv.sl + 4 * qc, vdv.sl, dv);
+}
+
+constexpr int DQ_SMEM = (2 * R + 2 * BT) * LD * 4 + BT * 4;
+
+__global__ void __launch_bounds__(NT)
+flash_dq_kernel(const float* __restrict__ Q, const float* __restrict__ K, const float* __restrict__ V,
+                const int* __restrict__ qseg, const int* __restrict__ kvseg, const float* __restrict__ inv_l,
+                const float* __restrict__ m_in, const float* __restrict__ dO, const float* __restrict__ di_in,
+                float* __restrict__ dQ, View vq, View vk, View vv, View vdo, View vdq, int nh, int Lq, int Lk,
+                float scale) {
+  extern __shared__ __align__(16) float fsm[];
+  float* sQ = fsm;            // [64 queries][LD], the block's
+  float* sO = sQ + R * LD;    // dO
+  float* sK = sO + R * LD;    // [64 keys][LD], a tile's
+  float* sV = sK + BT * LD;   // V, then dS^T
+  int* sSeg = reinterpret_cast<int*>(sV + BT * LD);  // [64]
+  const int tid = threadIdx.x, rg = tid >> 4, kg = tid & 15;  // rows 4 rg + a; keys kg + 16 e
+  const int q0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
+  const float* Kb = K + b * vk.sb + h * vk.sh;
+  const float* Vb = V + b * vv.sb + h * vv.sh;
+  const int* kvs = kvseg + (long long)b * Lk;
+  const long long i0 = ((long long)b * nh + h) * Lq + q0 + 4 * rg;
+  int seg[4];
+  float m_row[4], il[4], di[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    seg[a] = qseg[(long long)b * Lq + q0 + 4 * rg + a];
+    m_row[a] = m_in[i0 + a];
+    il[a] = inv_l[i0 + a];
+    di[a] = di_in[i0 + a];
+  }
+  load_rows<R>(sQ, Q + b * vq.sb + h * vq.sh + (long long)q0 * vq.sl, vq.sl, tid);
+  load_rows<R>(sO, dO + b * vdo.sb + h * vdo.sh + (long long)q0 * vdo.sl, vdo.sl, tid);
+  float dq[4][4];
+  zero(dq);
+  for (int t = 0; t < Lk / BT; ++t) {
+    load_rows<BT>(sK, Kb + (long long)t * BT * vk.sl, vk.sl, tid);
+    load_rows<BT>(sV, Vb + (long long)t * BT * vv.sl, vv.sl, tid);
+    if (tid < BT) sSeg[tid] = kvs[t * BT + tid];
+    __syncthreads();
+    float s[4][4], dp[4][4];  // S, then dS; dP
+    zero(s);
+    zero(dp);
+    dots<4>(s, sQ, 4 * rg, sK, kg);
+    dots<4>(dp, sO, 4 * rg, sV, kg);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = masked(s[a][e], scale, seg[a] == sSeg[kg + 16 * e]);
+        const float p = __fmul_rn(expf(x - m_row[a]), il[a]);
+        s[a][e] = __fmul_rn(__fmul_rn(__fsub_rn(dp[a][e], di[a]), p), scale);
+      }
+    __syncthreads();  // every thread is done with V: dS^T takes its place
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st4(sV + (kg + 16 * e) * LD + 4 * rg, column(s, e));
+    __syncthreads();
+    pv<BT>(dq, sV, 4 * rg, sK, 4 * kg);
+    __syncthreads();  // dS^T and K read before the next tile's copy
+  }
+  store4(dQ + b * vdq.sb + h * vdq.sh + (long long)(q0 + 4 * rg) * vdq.sl + 4 * kg, vdq.sl, dq);
+}
+
+// di and 1 / l of fp32 rows: 8 threads a row, each summing the products of
+// its 8 elements in order, then the partial sums pairwise by lane distance 4,
+// 2, 1 (flash_di_card_order's order; here the products round in fp32).
+__global__ void __launch_bounds__(256)
+flash_rows_kernel(const float* __restrict__ O, const float* __restrict__ dO, const float* __restrict__ l, View vo,
+                  View vdo, float* __restrict__ di, float* __restrict__ inv_l, int nh, int L) {
+  const long long i = (long long)blockIdx.x * 32 + threadIdx.x / 8;  // the row: ((b * nh) + h) * L + r
+  const int c = threadIdx.x % 8;
+  const long long bh = i / L;
+  const int r = int(i - bh * L), h = int(bh % nh);
+  const long long b = bh / nh;
+  const float* x = O + b * vo.sb + h * vo.sh + r * vo.sl + c * 8;
+  const float* y = dO + b * vdo.sb + h * vdo.sh + r * vdo.sl + c * 8;
+  const float4 x0 = ld4(x), x1 = ld4(x + 4), y0 = ld4(y), y1 = ld4(y + 4);
+  const float xs[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+  const float ys[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+  float s = 0.0f;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) s = __fadd_rn(s, __fmul_rn(xs[e], ys[e]));
+  s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 4));
+  s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 2));
+  s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 1));
+  if (c == 0) {
+    di[i] = s;
+    inv_l[i] = __fdiv_rn(1.0f, l[i]);
+  }
+}
+
+}  // namespace f32
+
 View view(const long long* s) { return View{s[0], s[1], s[2]}; }
 
 bool aligned(const void* p, const long long* s) {
@@ -1461,7 +1837,7 @@ int on_device(int device, F launch) {
 
 // 0 if the shape is one the kernels take, else cudaErrorInvalidValue.
 int check_shape(int B, int nh, int Lq, int Lk, int dtype, int device) {
-  if (B < 1 || nh < 1 || B > 65535 || nh > 65535 || dtype < 0 || dtype > 1 || device < 0 || device >= kMaxDevices)
+  if (B < 1 || nh < 1 || B > 65535 || nh > 65535 || dtype < 0 || dtype > 2 || device < 0 || device >= kMaxDevices)
     return (int)cudaErrorInvalidValue;
   if (Lq < FWD_TILE || Lk < FWD_TILE || Lq % FWD_TILE || Lk % FWD_TILE) return (int)cudaErrorInvalidValue;
   return 0;
@@ -1640,6 +2016,65 @@ int rows(const void* o, const void* dout, const float* l, float* di, float* inv_
   return (int)cudaGetLastError();
 }
 
+// ---- route "fp32" launches ----
+
+int fwd_fp32(const void* q, const void* k, const void* v, void* o, const int* qseg, const int* kvseg, float* l,
+             float* m, const long long* vq, const long long* vk, const long long* vv, const long long* vo, int B,
+             int nh, int Lq, int Lk, float scale, int device, cudaStream_t stream) {
+  static std::atomic<bool> smem_set[kMaxDevices];
+  const cudaError_t err = allow_smem(f32::flash_fwd_kernel, f32::FWD_SMEM, device, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  f32::flash_fwd_kernel<<<dim3(Lq / f32::R, nh, B), f32::NT, f32::FWD_SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), qseg, kvseg, l, m, view(vq), view(vk), view(vv), view(vo), nh, Lq, Lk, scale);
+  return (int)cudaGetLastError();
+}
+
+int dkv_fp32(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg, const float* inv_l,
+             const float* m, const void* dout, const float* di, void* dk, void* dv, const long long* vq,
+             const long long* vk, const long long* vv, const long long* vdo, const long long* vdk,
+             const long long* vdv, int B, int nh, int Lq, int Lk, float scale, int device, cudaStream_t stream) {
+  static std::atomic<bool> smem_set[kMaxDevices];
+  const cudaError_t err = allow_smem(f32::flash_dkv_kernel, f32::DKV_SMEM, device, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  f32::flash_dkv_kernel<<<dim3(Lk / f32::R, nh, B), f32::NT, f32::DKV_SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), qseg, kvseg, inv_l,
+      m, static_cast<const float*>(dout), di, static_cast<float*>(dk), static_cast<float*>(dv), view(vq), view(vk),
+      view(vv), view(vdo), view(vdk), view(vdv), nh, Lq, Lk, scale);
+  return (int)cudaGetLastError();
+}
+
+int dq_fp32(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg, const float* inv_l,
+            const float* m, const void* dout, const float* di, void* dq_, const long long* vq, const long long* vk,
+            const long long* vv, const long long* vdo, const long long* vdq, int B, int nh, int Lq, int Lk,
+            float scale, int device, cudaStream_t stream) {
+  static std::atomic<bool> smem_set[kMaxDevices];
+  const cudaError_t err = allow_smem(f32::flash_dq_kernel, f32::DQ_SMEM, device, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  f32::flash_dq_kernel<<<dim3(Lq / f32::R, nh, B), f32::NT, f32::DQ_SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), qseg, kvseg, inv_l,
+      m, static_cast<const float*>(dout), di, static_cast<float*>(dq_), view(vq), view(vk), view(vv), view(vdo),
+      view(vdq), nh, Lq, Lk, scale);
+  return (int)cudaGetLastError();
+}
+
+int rows_fp32(const void* o, const void* dout, const float* l, float* di, float* inv_l, const long long* vo,
+              const long long* vdo, int B, int nh, int L, cudaStream_t stream) {
+  const long long n = (long long)B * nh * L;  // a multiple of 128: L is
+  if (n / 32 > INT32_MAX) return (int)cudaErrorInvalidValue;
+  f32::flash_rows_kernel<<<int(n / 32), 256, 0, stream>>>(static_cast<const float*>(o),
+                                                          static_cast<const float*>(dout), l, view(vo), view(vdo),
+                                                          di, inv_l, nh, L);
+  return (int)cudaGetLastError();
+}
+
+// 0 if `route` is one the dtype takes: route 2 ("fp32") for dtype 2 (fp32),
+// routes 0 ("simple") and 1 ("wgmma") for bf16 and fp16.
+int check_route(int dtype, int route) {
+  if (route < 0 || route > 2 || (route == 2) != (dtype == 2)) return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
 }  // namespace
 
 // The head dim the kernels take, for the wrapper's check.
@@ -1649,8 +2084,8 @@ extern "C" int flash_head_dim() { return HD; }
 // (batch, head, row) strides in elements (`vq`..`vo`, three each), unit
 // stride along the head dim, rows 16-byte aligned; segment ids (B, Lq) and
 // (B, Lk) int32, l and m (B, nh, Lq) fp32, all contiguous and 16-byte
-// aligned; Lq and Lk multiples of 128; dtype 0 bf16, 1 fp16; route 1
-// "wgmma", 0 "simple" (the first design).  `device` is the tensors' card:
+// aligned; Lq and Lk multiples of 128; dtype 0 bf16, 1 fp16, 2 fp32; route 1
+// "wgmma", 0 "simple" (the first design) for bf16 and fp16, 2 "fp32" for fp32.  `device` is the tensors' card:
 // made current for the launch if it is not, and the caller's restored after.
 // Returns a cudaError_t (0 on success, cudaErrorInvalidValue for a shape or
 // layout it does not take).
@@ -1659,10 +2094,11 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
                                 const long long* vv, const long long* vo, int B, int nh, int Lq, int Lk,
                                 float scale, int dtype, int route, int device, void* stream) {
   if (int e = check_shape(B, nh, Lq, Lk, dtype, device)) return e;
-  if (!aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) || !aligned(o, vo) || route < 0 || route > 1)
-    return (int)cudaErrorInvalidValue;
+  if (int e = check_route(dtype, route)) return e;
+  if (!aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) || !aligned(o, vo)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
+    if (route == 2) return fwd_fp32(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk, scale, device, s);
     if (route == 0)
       return dtype == 0 ? fwd<__nv_bfloat16>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk, scale,
                                              device, s)
@@ -1681,7 +2117,7 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
 }
 
 // K12: dk and dv (like k and v) from q, k, v, do (like q), m and di (B, nh,
-// Lq) fp32, and l (route "simple") or 1 / l (route "wgmma", from
+// Lq) fp32, and l (route "simple") or 1 / l (routes "wgmma" and "fp32", from
 // flash_bwd_rows_launch) likewise; the one the route does not read may be null.
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg,
                                     const float* l, const float* inv_l, const float* m, const void* dout,
@@ -1690,12 +2126,15 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     const long long* vdv, int B, int nh, int Lq, int Lk, float scale, int dtype,
                                     int route, int device, void* stream) {
   if (int e = check_shape(B, nh, Lq, Lk, dtype, device)) return e;
+  if (int e = check_route(dtype, route)) return e;
   if (!aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) || !aligned(dout, vdo) || !aligned(dk, vdk) ||
-      !aligned(dv, vdv) || route < 0 || route > 1 || (route == 1 && inv_l == nullptr) ||
-      (route == 0 && l == nullptr))
+      !aligned(dv, vdv) || (route != 0 && inv_l == nullptr) || (route == 0 && l == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
+    if (route == 2)
+      return dkv_fp32(q, k, v, qseg, kvseg, inv_l, m, dout, di, dk, dv, vq, vk, vv, vdo, vdk, vdv, B, nh, Lq, Lk,
+                      scale, device, s);
     if (route == 0)
       return dtype == 0 ? dkv<__nv_bfloat16>(q, k, v, qseg, kvseg, l, m, dout, di, dk, dv, vq, vk, vv, vdo, vdk,
                                              vdv, B, nh, Lq, Lk, scale, device, s)
@@ -1718,25 +2157,30 @@ extern "C" int flash_bwd_rows_launch(const void* o, const void* dout, const floa
   if (!aligned(o, vo) || !aligned(dout, vdo)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
+    if (dtype == 2) return rows_fp32(o, dout, l, di, inv_l, vo, vdo, B, nh, L, s);
     return dtype == 0 ? rows<__nv_bfloat16>(o, dout, l, di, inv_l, vo, vdo, B, nh, L, s)
                       : rows<__half>(o, dout, l, di, inv_l, vo, vdo, B, nh, L, s);
   });
 }
 
-// K13: dq (like q) from the same inputs: l (route "simple") or 1 / l (route
-// "wgmma", from flash_bwd_rows_launch), as K12 takes them; the one the route
-// does not read may be null.
+// K13: dq (like q) from the same inputs: l (route "simple") or 1 / l (routes
+// "wgmma" and "fp32", from flash_bwd_rows_launch), as K12 takes them; the one
+// the route does not read may be null.
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg,
                                    const float* l, const float* inv_l, const float* m, const void* dout,
                                    const float* di, void* dq_, const long long* vq, const long long* vk,
                                    const long long* vv, const long long* vdo, const long long* vdq, int B, int nh,
                                    int Lq, int Lk, float scale, int dtype, int route, int device, void* stream) {
   if (int e = check_shape(B, nh, Lq, Lk, dtype, device)) return e;
+  if (int e = check_route(dtype, route)) return e;
   if (!aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) || !aligned(dout, vdo) || !aligned(dq_, vdq) ||
-      route < 0 || route > 1 || (route == 1 && inv_l == nullptr) || (route == 0 && l == nullptr))
+      (route != 0 && inv_l == nullptr) || (route == 0 && l == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
+    if (route == 2)
+      return dq_fp32(q, k, v, qseg, kvseg, inv_l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B, nh, Lq, Lk, scale,
+                     device, s);
     if (route == 0)
       return dtype == 0 ? dq<__nv_bfloat16>(q, k, v, qseg, kvseg, l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B, nh,
                                             Lq, Lk, scale, device, s)

@@ -6,6 +6,7 @@ from colbert_tpu_torch.evaluation.dureader import (
     gen_iter_train_dev,
     gen_dev_for_ce_test,
 )
+from colbert_tpu_torch.evaluation.pydocs import DocEntry, build_retrieval_dataset, collect_docstrings, train_dev_split
 
 __all__ = [
     "eval_retrieval",
@@ -16,4 +17,8 @@ __all__ = [
     "gen_distill_data",
     "gen_iter_train_dev",
     "gen_dev_for_ce_test",
+    "DocEntry",
+    "collect_docstrings",
+    "build_retrieval_dataset",
+    "train_dev_split",
 ]

@@ -8,6 +8,10 @@ Counterpart of ``colbert_tpu/models/bert.py`` with the same numerics:
   the reference default) or in the compute dtype (``"compute"``); the
   additive mask bias is ``-1e9``;
 * GELU is exact (erf);
+* ``fused_qkv`` runs q, k and v as one (H, 3H) product of the three
+  projections' weights concatenated at call time (the parameters and the
+  state dict stay as they are); ``embedding_impl="onehot"`` takes the word
+  lookup as a one-hot product, forward and backward;
 * LayerNorm follows flax: statistics in fp32 with the fast variance
   ``E[x^2] - E[x]^2`` clipped at 0, output in the compute dtype;
 * dropout at the embeddings, the attention probabilities (or the attention
@@ -220,9 +224,20 @@ def lookup(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return _Lookup.apply(ids, weight)
 
 
+def onehot_lookup(ids: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``model.embedding_impl="onehot"`` (``colbert_tpu/models/bert.py:107-111``):
+    the rows of ``weight`` (V, H) at ``ids`` as the product of the one-hot
+    ``(..., V)`` in ``weight``'s dtype with the table, so its backward is a
+    GEMM too (the table's gradient ``one_hot^T @ grad`` in that dtype).  Each
+    output is one product by 1 plus zeros: the lookup's values, bit for bit."""
+    one_hot = torch.zeros((*ids.shape, weight.shape[0]), dtype=weight.dtype, device=weight.device)
+    return torch.matmul(one_hot.scatter_(-1, ids[..., None], 1.0), weight)
+
+
 class BertEmbeddings(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        self.onehot = cfg.embedding_impl == "onehot"
         self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, cfg.hidden_size)
@@ -231,8 +246,9 @@ class BertEmbeddings(nn.Module):
 
     def forward(self, input_ids, token_type_ids, dtype: torch.dtype, generator=None) -> torch.Tensor:
         positions = torch.arange(input_ids.shape[1], device=input_ids.device)[None, :]
+        word = onehot_lookup if self.onehot else lookup
         x = (
-            lookup(input_ids, self.word_embeddings.weight.to(dtype))
+            word(input_ids, self.word_embeddings.weight.to(dtype))
             + F.embedding(positions, self.position_embeddings.weight.to(dtype))  # each row once: no repeats to sum
             + lookup(token_type_ids, self.token_type_embeddings.weight.to(dtype))
         )
@@ -262,7 +278,10 @@ class BertSelfAttention(nn.Module):
         nh = self.num_heads
         hd = h // nh
         split = lambda t: t.view(B, L, nh, hd).transpose(1, 2)      # (B, nh, L, hd)
-        q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
+        if self.cfg.fused_qkv:
+            q, k, v = (split(t) for t in self._qkv(x).split(h, dim=-1))
+        else:
+            q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
         if use_flash(self.cfg, L):
             # the kernel has no probabilities to drop: the JAX package drops
             # the attention output at the same rate
@@ -277,6 +296,15 @@ class BertSelfAttention(nn.Module):
         if self.dropout_site == "output":
             ctx = self.dropout(ctx, seed)
         return self.out(ctx)
+
+    def _qkv(self, x: torch.Tensor) -> torch.Tensor:
+        """``model.fused_qkv`` (``colbert_tpu/models/bert.py:162-176``): the
+        three projections as one (H, 3H) product, their weights and biases
+        concatenated at call time (the parameters stay three ``Dense``), (B,
+        L, 3H): q, then k, then v."""
+        w = torch.cat([self.query.weight, self.key.weight, self.value.weight]).to(x.dtype)
+        b = torch.cat([self.query.bias, self.key.bias, self.value.bias]).to(x.dtype)
+        return F.linear(x, w, b)
 
     def _explicit(self, q, k, v, bias: torch.Tensor, seed: Optional[int]) -> torch.Tensor:
         """softmax(q k^T / sqrt(hd) + bias) v, (B, nh, L, hd), and the probabilities' dropout."""

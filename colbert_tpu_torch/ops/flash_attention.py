@@ -33,14 +33,17 @@ running ``m`` and ``l``); for CUDA tensors the kernels of
 ``csrc/flash_attention.cu``: forward K11; backward the rows kernel (di read
 once from o and do in their dtype, summed in fp32 in
 :func:`flash_di_card_order`'s order, and 1 / l), then K12, then K13 (no
-atomics, so every run gives the same bits).  K11, K12 and K13 have two
-routes (:data:`ROUTES`): "wgmma", the default for every input they take, and
-the first design, "simple", only when a caller asks for it; K12 and K13 on
-route "wgmma" read the rows kernel's 1 / l.  Each launch is counted in its
+atomics, so every run gives the same bits).  On bf16 and fp16 inputs K11,
+K12 and K13 have two routes (:data:`ROUTES`): "wgmma", the default, and the
+first design, "simple", only when a caller asks for it; fp32 inputs take
+route "fp32" (:data:`FP32_ROUTE`: fp32 FMAs on the CUDA cores, the rows
+kernel too), and only they do.  K12 and K13 on routes "wgmma" and "fp32"
+read the rows kernel's 1 / l.  Each launch is counted in its
 ``LaunchCounter`` (:data:`fwd_launches`, :data:`dkv_launches`,
-:data:`dq_launches`, :data:`rows_launches`, and by route
+:data:`dq_launches`, :data:`rows_launches`, by route
 :data:`fwd_route_launches`, :data:`dkv_route_launches`,
-:data:`dq_route_launches`); a shape or dtype they do not take raises
+:data:`dq_route_launches`, and the rows kernel's fp32 launches
+:data:`rows_fp32_launches`); a shape they do not take raises
 ``NotImplementedError`` (:func:`kernel_refusal`), and a failed launch raises.
 Outputs and gradients are (B, nh, L, hd) views of (B, L, nh, hd) buffers,
 the layout the model's heads come from, so its reshapes copy nothing.
@@ -59,7 +62,7 @@ from colbert_tpu_torch.ops._build import LaunchCounter
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)  # the JAX kernel's DEFAULT_MASK_VALUE
 BLOCK = 128  # the JAX kernels' key (and query) block; L must be a multiple of it on the card
 HEAD_DIM = 64  # the one head dim the kernels take; mirrored by flash_head_dim() in the .cu
-_DTYPES = {torch.bfloat16: 0, torch.float16: 1}
+_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
 # ---- plain PyTorch versions (the JAX kernels' order) ----
@@ -108,7 +111,8 @@ def flash_di_card_order(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """:func:`flash_di` in the order the card's rows kernel sums it: each
     16-byte chunk (8 elements) of a row in order from 0, then the 8 chunk sums
     pairwise at distance 4, 2, 1 (its lanes' shuffles).  The products of two
-    bf16 or fp16 values are exact in fp32, so only the order rounds."""
+    bf16 or fp16 values are exact in fp32, so only the order rounds; fp32
+    products round once each, here as on the card."""
     x = (o.float() * do.float()).unflatten(-1, (-1, 8))
     c = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
     for e in range(8):
@@ -161,23 +165,47 @@ def close_in_head_ulps(got: torch.Tensor, want: torch.Tensor) -> Tuple[float, fl
             float(err.max()))
 
 
+#: route "fp32" against the fp32 plain version: the largest error relative
+#: to each head vector's magnitude (:func:`fp32_head_rel`)
+FP32_HEAD_REL = 1e-5
+
+
+def fp32_head_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """How route "fp32" is held to the fp32 plain version: the largest error
+    over its head vector's largest magnitude, floored at 2^-3 of the
+    tensor's largest entry.  fp32 FMAs differ from the plain version only in
+    summation order and expf's last bit (~1e-6 of a row), but a query whose
+    segment holds few keys has ds = (dp - di) p from two fp32 sums of the
+    same 64 products, which cancel to fp32 noise (~eps |do| |v|) in either
+    order: the floor allows that noise, FP32_HEAD_REL / 8 of the tensor's
+    largest entry, and no more."""
+    a, b = got.float(), want.float()
+    if a.shape != b.shape:
+        raise ValueError(f"shapes {tuple(a.shape)} and {tuple(b.shape)} differ")
+    mag = torch.maximum(a.abs(), b.abs())
+    row = mag.amax(-1, keepdim=True).clamp_min(2.0**-3 * float(mag.max()))
+    return float(((a - b).abs() / row).max())
+
+
 # ---- the CUDA kernels ----
 
 _lib_lock = threading.Lock()
 _VIEW = ctypes.c_longlong * 3
 _resolved = None  # (forward, dK/dV, dQ, rows) C functions, see _fns
-#: K11's, K12's and K13's routes: "wgmma" (every shape the kernels take) and
-#: the first design, "simple", on request only
+#: K11's, K12's and K13's routes on bf16 and fp16: "wgmma" (every shape the
+#: kernels take) and the first design, "simple", on request only
 ROUTES = ("wgmma", "simple")
-_ROUTE_CODES = {"simple": 0, "wgmma": 1}
+#: the route of fp32 inputs (K11-K13 and the rows kernel)
+FP32_ROUTE = "fp32"
+_ROUTE_CODES = {"simple": 0, "wgmma": 1, FP32_ROUTE: 2}
 
 
 def kernel_refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Optional[str]:
-    """Why the kernels do not take these CUDA inputs, or None: they take bf16
-    or fp16, head dim 64, any B and nh, and q and kv lengths that are
-    multiples of 128 (the JAX kernel's block)."""
+    """Why the kernels do not take these CUDA inputs, or None: they take bf16,
+    fp16 or fp32 (one dtype for all three), head dim 64, any B and nh, and q
+    and kv lengths that are multiples of 128 (the JAX kernel's block)."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        return f"dtypes {q.dtype}, {k.dtype}, {v.dtype} (the kernels take bf16 or fp16)"
+        return f"dtypes {q.dtype}, {k.dtype}, {v.dtype} (the kernels take bf16, fp16 or fp32)"
     if q.shape[-1] != HEAD_DIM or k.shape[-1] != HEAD_DIM or v.shape[-1] != HEAD_DIM:
         return f"head dim {q.shape[-1]} (the kernels take {HEAD_DIM})"
     if q.shape[2] % BLOCK or k.shape[2] % BLOCK or q.shape[2] == 0 or k.shape[2] == 0:
@@ -253,6 +281,19 @@ def _segments(q_seg: torch.Tensor, kv_seg: torch.Tensor, device) -> Tuple[torch.
     return one(q_seg), one(kv_seg)
 
 
+def kernel_route(dtype: torch.dtype, route: Optional[str] = None) -> str:
+    """The route K11-K13 take for ``dtype``: ``route`` (bf16 and fp16:
+    "wgmma" if None, or "simple"; fp32: "fp32" only), else ValueError."""
+    if dtype == torch.float32:
+        if route not in (None, FP32_ROUTE):
+            raise ValueError(f"fp32 inputs take route {FP32_ROUTE!r} only, not {route!r}")
+        return FP32_ROUTE
+    route = route or "wgmma"
+    if route not in ROUTES:
+        raise ValueError(f"{dtype} inputs take the routes {ROUTES}, not {route!r}")
+    return route
+
+
 def _device_stream(t: torch.Tensor) -> Tuple[int, int]:
     """``t``'s card and its current stream, raw: the C entry makes the card
     current for the launch only if it is not."""
@@ -260,9 +301,11 @@ def _device_stream(t: torch.Tensor) -> Tuple[int, int]:
     return dev, torch._C._cuda_getCurrentRawStream(dev)
 
 
-def _launch_forward(q, k, v, q_seg, kv_seg, sm_scale: float, route: str = "wgmma"):
-    """K11: (o, l, m), o a (B, nh, Lq, hd) view of a (B, Lq, nh, hd) buffer."""
+def _launch_forward(q, k, v, q_seg, kv_seg, sm_scale: float, route: Optional[str] = None):
+    """K11: (o, l, m), o a (B, nh, Lq, hd) view of a (B, Lq, nh, hd) buffer;
+    ``route`` as :func:`kernel_route` takes it."""
     launch = _fns()[0]
+    route = kernel_route(q.dtype, route)
     q, k, v = (_kernel_input(t) for t in (q, k, v))
     q_seg, kv_seg = _segments(q_seg, kv_seg, q.device)
     B, nh, Lq, hd = q.shape
@@ -304,23 +347,26 @@ def _launch_rows(o, do, l):
                  B, nh, L, _DTYPES[o.dtype], *_device_stream(o))
     _check(err, "di", o)
     rows_launches.add()
+    if o.dtype == torch.float32:
+        rows_fp32_launches.add()
     return di, inv_l
 
 
 def _route_inv_l(route: str, l: torch.Tensor, inv_l: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """What K12's and K13's route "wgmma" reads in place of l: ``inv_l`` (1 / l,
-    as :func:`_launch_rows` gives it; None: ``1 / l`` here); None for route
-    "simple", which reads l."""
-    if route != "wgmma":
+    """What K12's and K13's routes "wgmma" and "fp32" read in place of l:
+    ``inv_l`` (1 / l, as :func:`_launch_rows` gives it; None: ``1 / l`` here);
+    None for route "simple", which reads l."""
+    if route == "simple":
         return None
     return _rows_input(torch.ones_like(l) / l if inv_l is None else inv_l)
 
 
-def _launch_dkv(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di, route: str = "wgmma",
+def _launch_dkv(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di, route: Optional[str] = None,
                 inv_l: Optional[torch.Tensor] = None):
     """K12: (dk, dv), (B, nh, Lk, hd) views of (B, Lk, nh, hd) buffers.
-    Route "wgmma" reads 1 / l (:func:`_route_inv_l`)."""
+    Routes "wgmma" and "fp32" read 1 / l (:func:`_route_inv_l`)."""
     launch = _fns()[1]
+    route = kernel_route(q.dtype, route)
     q, k, v, q_seg, kv_seg, l, m, do, di = _backward_inputs(q, k, v, q_seg, kv_seg, l, m, do, di)
     inv_l = _route_inv_l(route, l, inv_l)
     B, nh, Lq, hd = q.shape
@@ -336,11 +382,12 @@ def _launch_dkv(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di, route: st
     return dk, dv
 
 
-def _launch_dq(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di, route: str = "wgmma",
+def _launch_dq(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di, route: Optional[str] = None,
                inv_l: Optional[torch.Tensor] = None):
-    """K13: dq, a (B, nh, Lq, hd) view of a (B, Lq, nh, hd) buffer.  Route
-    "wgmma" reads 1 / l (:func:`_route_inv_l`), as K12's does."""
+    """K13: dq, a (B, nh, Lq, hd) view of a (B, Lq, nh, hd) buffer.  Routes
+    "wgmma" and "fp32" read 1 / l (:func:`_route_inv_l`), as K12's do."""
     launch = _fns()[2]
+    route = kernel_route(q.dtype, route)
     q, k, v, q_seg, kv_seg, l, m, do, di = _backward_inputs(q, k, v, q_seg, kv_seg, l, m, do, di)
     inv_l = _route_inv_l(route, l, inv_l)
     B, nh, Lq, hd = q.shape
@@ -416,9 +463,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_segment
 fwd_launches = LaunchCounter()
 dkv_launches = LaunchCounter()
 dq_launches = LaunchCounter()
-#: K11's, K12's and K13's launches by route
-fwd_route_launches = {r: LaunchCounter() for r in ROUTES}
-dkv_route_launches = {r: LaunchCounter() for r in ROUTES}
-dq_route_launches = {r: LaunchCounter() for r in ROUTES}
-#: launches of the backward's rows kernel (di and 1 / l)
+#: K11's, K12's and K13's launches by route (:data:`ROUTES` and :data:`FP32_ROUTE`)
+fwd_route_launches = {r: LaunchCounter() for r in (*ROUTES, FP32_ROUTE)}
+dkv_route_launches = {r: LaunchCounter() for r in (*ROUTES, FP32_ROUTE)}
+dq_route_launches = {r: LaunchCounter() for r in (*ROUTES, FP32_ROUTE)}
+#: launches of the backward's rows kernel (di and 1 / l), all, and those on fp32 inputs
 rows_launches = LaunchCounter()
+rows_fp32_launches = LaunchCounter()

@@ -184,14 +184,15 @@ def test_autograd_function_is_the_plain_pair():
 
 @pytest.mark.parametrize("shape,dtype,why", [
     ((2, 12, 384, 32), torch.bfloat16, "head dim 32"),
-    ((2, 12, 384, 64), torch.float32, "torch.float32"),
+    ((2, 12, 384, 64), torch.float64, "torch.float64"),
     ((2, 12, 200, 64), torch.bfloat16, "lengths 200"),
+    ((2, 12, 384, 64), torch.float32, None),
     ((2, 12, 384, 64), torch.bfloat16, None),
     ((3, 16, 128, 64), torch.float16, None),
 ])
 def test_kernel_refusal_rule(shape, dtype, why):
-    """What the kernels refuse on a CUDA tensor (bf16 or fp16, hd 64, L a
-    multiple of 128), read from the wrapper's rule; the CPU runs any of them."""
+    """What the kernels refuse on a CUDA tensor (bf16, fp16 or fp32, hd 64, L
+    a multiple of 128), read from the wrapper's rule; the CPU runs any of them."""
     q = torch.zeros(shape, dtype=dtype)
     got = fa.kernel_refusal(q, q, q)
     assert (got is None) if why is None else (why in got)

@@ -83,17 +83,24 @@ def _lanes_numpy(o, do):
 ])
 def test_every_shape_the_kernels_take_goes_to_wgmma(shape, dtype):
     """Route "wgmma" for every input the kernels take, bf16 and fp16 alike:
-    the launches' default, K11's, K12's and K13's; "simple" only on request.
-    What they refuse, both routes refuse: ``kernel_refusal`` runs before any
-    launch (``tests/test_torch_flash_attention.py::test_kernel_refusal_rule``)."""
+    the launches' default (no route given), K11's, K12's and K13's; "simple"
+    only on request; route "fp32" for fp32 inputs alone, and no other route
+    for them.  What they refuse, every route refuses: ``kernel_refusal`` runs
+    before any launch (``tests/test_torch_flash_attention.py::test_kernel_refusal_rule``)."""
     q = torch.zeros(shape, dtype=dtype)
     assert fa.kernel_refusal(q, q, q) is None
     for launch in (fa._launch_forward, fa._launch_dkv, fa._launch_dq):
-        assert inspect.signature(launch).parameters["route"].default == "wgmma"
+        assert inspect.signature(launch).parameters["route"].default is None
     for launch in (fa._launch_dkv, fa._launch_dq):
         assert inspect.signature(launch).parameters["inv_l"].default is None
-    assert fa.ROUTES == ("wgmma", "simple")
-    assert set(fa.fwd_route_launches) == set(fa.dkv_route_launches) == set(fa.dq_route_launches) == set(fa.ROUTES)
+    assert fa.kernel_route(dtype) == "wgmma" and fa.kernel_route(dtype, "simple") == "simple"
+    assert fa.kernel_route(torch.float32) == fa.kernel_route(torch.float32, "fp32") == "fp32"
+    for bad_dtype, bad_route in ((dtype, "fp32"), (torch.float32, "wgmma"), (torch.float32, "simple")):
+        with pytest.raises(ValueError, match="route"):
+            fa.kernel_route(bad_dtype, bad_route)
+    assert fa.ROUTES == ("wgmma", "simple") and fa.FP32_ROUTE == "fp32"
+    assert set(fa.fwd_route_launches) == set(fa.dkv_route_launches) == set(fa.dq_route_launches) == {
+        *fa.ROUTES, fa.FP32_ROUTE}
 
 
 def test_card_path_wires_di_and_inv_l(monkeypatch):
@@ -136,18 +143,20 @@ def test_card_path_wires_di_and_inv_l(monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-@pytest.mark.parametrize("route", ["wgmma", "simple"])
+@pytest.mark.parametrize("route", ["wgmma", "simple", "fp32"])
 @pytest.mark.parametrize("given_inv_l", [True, False])
 def test_dq_launch_arguments_by_route(monkeypatch, route, given_inv_l):
     """``_launch_dq`` hands the C entry point what K13's route reads, as
-    ``_launch_dkv`` hands K12's: route code 1 with 1 / l (the caller's, or
-    ``1 / l`` computed when none is given) and route code 0 with l and a null
-    1 / l; q's (batch, head, row) strides in the models' layout; dq a
-    heads-major view; one launch counted in all and one by route.  The C
-    entry point is stood in (it exists only where nvcc built it)."""
+    ``_launch_dkv`` hands K12's: route codes 1 ("wgmma", bf16) and 2 ("fp32",
+    fp32 inputs, dtype code 2) with 1 / l (the caller's, or ``1 / l``
+    computed when none is given) and route code 0 with l and a null 1 / l;
+    q's (batch, head, row) strides in the models' layout; dq a heads-major
+    view; one launch counted in all and one by route.  The C entry point is
+    stood in (it exists only where nvcc built it)."""
     B, nh, L = 2, 3, 256
     g = torch.Generator().manual_seed(3)
-    q, k, v, do = (torch.randn((B, L, nh, 64), generator=g).bfloat16().transpose(1, 2) for _ in range(4))
+    dtype = torch.float32 if route == "fp32" else torch.bfloat16
+    q, k, v, do = (torch.randn((B, L, nh, 64), generator=g).to(dtype).transpose(1, 2) for _ in range(4))
     seg = torch.ones((B, L), dtype=torch.int32)
     l = torch.rand((B, nh, L), generator=g) + 1
     m, di = torch.randn((B, nh, L), generator=g), torch.randn((B, nh, L), generator=g)
@@ -164,7 +173,7 @@ def test_dq_launch_arguments_by_route(monkeypatch, route, given_inv_l):
     dq = fa._launch_dq(q, k, v, seg, seg, SCALE, l, m, do, di, route=route,
                        inv_l=inv_l if given_inv_l else None)
     a = got["args"]
-    assert len(a) == 25 and a[21] == 0 and a[22] == {"simple": 0, "wgmma": 1}[route]
+    assert len(a) == 25 and a[21] == int(route == "fp32") * 2 and a[22] == {"simple": 0, "wgmma": 1, "fp32": 2}[route]
     assert a[5] == l.data_ptr() and a[7] == m.data_ptr() and a[9] == di.data_ptr() and a[10] == dq.data_ptr()
     if route == "simple":
         assert a[6] is None
@@ -177,7 +186,7 @@ def test_dq_launch_arguments_by_route(monkeypatch, route, given_inv_l):
     assert dq.shape == q.shape and dq.transpose(1, 2).is_contiguous()
     assert fa.dq_launches.value == before[0] + 1
     assert {r: c.value - before[1][r] for r, c in fa.dq_route_launches.items()} == {
-        r: int(r == route) for r in fa.ROUTES}
+        r: int(r == route) for r in (*fa.ROUTES, fa.FP32_ROUTE)}
 
 
 def test_cpu_path_keeps_flash_di():
@@ -188,8 +197,8 @@ def test_cpu_path_keeps_flash_di():
     s = torch.from_numpy(seg)
     o, l, m = fa.flash_forward_ref(qt, kt, vt, s, s, SCALE)
     do = torch.from_numpy(w).bfloat16()
-    counters = [fa.rows_launches, *fa.fwd_route_launches.values(), *fa.dkv_route_launches.values(),
-                *fa.dq_route_launches.values()]
+    counters = [fa.rows_launches, fa.rows_fp32_launches, *fa.fwd_route_launches.values(),
+                *fa.dkv_route_launches.values(), *fa.dq_route_launches.values()]
     before = [c.value for c in counters]
     got = fa.flash_backward(qt, kt, vt, s, s, SCALE, o, l, m, do)
     want = fa.flash_backward_ref(qt, kt, vt, s, s, SCALE, l, m, do, fa.flash_di(o, do))
@@ -199,7 +208,7 @@ def test_cpu_path_keeps_flash_di():
 
 # ---- the rows kernel's di order ----
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
 def test_card_order_is_the_kernels_lanes(dtype):
     """``flash_di_card_order`` is bit-equal to the kernel's lanes emulated one by one."""
     rng = np.random.default_rng(7)

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the flat scan (K1, K2), all-pairs MaxSim (K3, both routes), dropout (K9, both routes), flash
-attention (K11 forward, K12 dK/dV and K13 dQ on both routes, the backward's rows kernel, and their
-launches a train and a CE step), the embeddings' backward (the same bits every run, the
+attention (K11 forward, K12 dK/dV and K13 dQ on both bf16 routes and on route "fp32", the
+backward's rows kernel, and their launches a train and a CE step), the embeddings' backward (the same bits every run, the
 process-wide deterministic-algorithms flag untouched), the rerank
 (K4 bf16, K5 int8, on both routes, its pid-window schedule's edges and its
 freedom from host synchronisation), the sq list scans (K6 slots and K7 hot
@@ -1187,7 +1187,8 @@ def test_flash_kernels_match_plain(cuda_device, B, nh, L, dtype, layout, route):
     assert torch.equal(leaves[1].grad, dkf) and torch.equal(leaves[2].grad, dvf)
 
 
-@pytest.mark.parametrize("B,nh,L,dtype", [(68, 12, 384, torch.bfloat16), (5, 4, 256, torch.float16)])
+@pytest.mark.parametrize("B,nh,L,dtype", [(68, 12, 384, torch.bfloat16), (5, 4, 256, torch.float16),
+                                         (68, 12, 384, torch.float32)])
 def test_flash_rows_kernel(cuda_device, B, nh, L, dtype):
     """The backward's rows kernel: di bit-equal to its order emulated in
     torch and within fp32 rounding of ``flash_di`` (2 * 64 * 2^-24 * sum |o *
@@ -1199,14 +1200,99 @@ def test_flash_rows_kernel(cuda_device, B, nh, L, dtype):
     o, do = (torch.randn((B, L, nh, 64), generator=g, device=cuda_device).to(dtype).transpose(1, 2)
              for _ in range(2))
     l = torch.rand((B, nh, L), generator=g, device=cuda_device) * 100 + 1
-    before = fa.rows_launches.value
+    before = fa.rows_launches.value, fa.rows_fp32_launches.value
     di, inv_l = fa._launch_rows(o, do, l)
     torch.cuda.synchronize()
-    assert fa.rows_launches.value == before + 1
+    assert (fa.rows_launches.value, fa.rows_fp32_launches.value) == (before[0] + 1,
+                                                                       before[1] + int(dtype == torch.float32))
     assert torch.equal(di, fa.flash_di_card_order(o, do))
     bound = 2 * 64 * 2.0**-24 * (o.float() * do.float()).abs().sum(-1)
     assert bool(((di - fa.flash_di(o, do)).abs() <= bound).all())
     assert torch.equal(inv_l, torch.ones_like(l) / l)
+
+
+# the retriever's doc pass in the models' layout, one JAX block (L 128), and a
+# short contiguous case whose third query segment no key has
+@pytest.mark.parametrize("B,nh,L,layout", [(68, 12, 384, "heads"), (3, 2, 128, "contiguous"),
+                                           (4, 3, 256, "unseen")])
+def test_flash_fp32_route_matches_plain(cuda_device, B, nh, L, layout):
+    """Route "fp32" of K11, K12 and K13 and the rows kernel on fp32 inputs
+    against the fp32 plain versions (TF32 off) within fa.FP32_HEAD_REL of each
+    head vector (fp32 FMAs: only the summation order and expf's last bit
+    differ), l within 1e-6 relative, m within 1e-6; two runs bit-equal; each
+    launch counted on route "fp32" and on no other."""
+    from colbert_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(cuda_device).manual_seed(B * L + nh + 1)
+
+    def t():
+        if layout in ("heads", "unseen"):
+            return torch.randn((B, L, nh, 64), generator=g, device=cuda_device).transpose(1, 2)
+        return torch.randn((B, nh, L, 64), generator=g, device=cuda_device)
+    q, k, v, do = t(), t(), t(), t()
+    lengths = torch.randint(1, L + 1, (B,), generator=g, device=cuda_device)
+    lengths[0] = L
+    seg = (torch.arange(L, device=cuda_device)[None, :] < lengths[:, None]).to(torch.int32)
+    q_seg = seg
+    if layout == "unseen":
+        q_seg = torch.where(torch.arange(L, device=cuda_device)[None, :] % 3 == 1, 2, seg).to(torch.int32)
+    args = (q, k, v, q_seg, seg, 0.125)
+    counters = {"fwd": fa.fwd_route_launches, "dkv": fa.dkv_route_launches, "dq": fa.dq_route_launches}
+    before = {n: {r: c.value for r, c in d.items()} for n, d in counters.items()}
+    o, l, m = fa._launch_forward(*args)
+    ro, rl, rm = fa.flash_forward_ref(*args)
+    di, inv_l = fa._launch_rows(o, do, l)
+    rdi = fa.flash_di(ro, do)
+    bargs = (*args, rl, rm, do, rdi)
+    dk, dv = fa._launch_dkv(*bargs)
+    dq = fa._launch_dq(*bargs)
+    want = fa.flash_backward_ref(*bargs)
+    torch.cuda.synchronize()
+    assert o.dtype == dq.dtype == dk.dtype == dv.dtype == torch.float32
+    for what, got, ref in (("o", o, ro), ("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
+        assert fa.fp32_head_rel(got, ref) <= fa.FP32_HEAD_REL, what
+    torch.testing.assert_close(l, rl, rtol=1e-6, atol=0)
+    torch.testing.assert_close(m, rm, rtol=0, atol=1e-6)
+    assert torch.equal(di, fa.flash_di_card_order(o, do)) and torch.equal(inv_l, torch.ones_like(l) / l)
+    assert all(torch.equal(a, b) for a, b in zip((o, l, m, dk, dv, dq), (*fa._launch_forward(*args),
+                                                                         *fa._launch_dkv(*bargs), fa._launch_dq(*bargs))))
+    torch.cuda.synchronize()
+    for n, d in counters.items():
+        assert {r: c.value - before[n][r] for r, c in d.items()} == {"wgmma": 0, "simple": 0, "fp32": 2}, n
+
+
+@pytest.mark.parametrize("L", [128, 384])
+def test_flash_fp32_autograd_never_reaches_the_plain_version(cuda_device, monkeypatch, L):
+    """The autograd function on fp32 CUDA tensors runs route "fp32" (K11, the
+    rows kernel, K12, K13), never the plain versions (patched to raise here),
+    and its gradients agree with the plain autograd pair's within
+    fa.FP32_HEAD_REL of each head vector."""
+    from colbert_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(cuda_device).manual_seed(L)
+    B, nh = 6, 4
+    q, k, v, do = (torch.randn((B, L, nh, 64), generator=g, device=cuda_device).transpose(1, 2) for _ in range(4))
+    seg = (torch.arange(L, device=cuda_device)[None, :] < torch.tensor([L, 1, 70, 100, L - 1, 129 % L + 1],
+                                                                          device=cuda_device)[:, None]).int()
+    ro, rl, rm = fa.flash_forward_ref(q, k, v, seg, seg, 0.125)
+    want = fa.flash_backward_ref(q, k, v, seg, seg, 0.125, rl, rm, do, fa.flash_di(ro, do))
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain version ran on the card")
+    for name in ("flash_forward_ref", "flash_backward_ref", "flash_di"):
+        monkeypatch.setattr(fa, name, refuse)
+    before = (fa.fwd_route_launches["fp32"].value, fa.dkv_route_launches["fp32"].value,
+              fa.dq_route_launches["fp32"].value, fa.rows_fp32_launches.value)
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, seg, seg, 0.125)
+    out.backward(do)
+    torch.cuda.synchronize()
+    after = (fa.fwd_route_launches["fp32"].value, fa.dkv_route_launches["fp32"].value,
+             fa.dq_route_launches["fp32"].value, fa.rows_fp32_launches.value)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
+    assert fa.fp32_head_rel(out.detach(), ro) <= fa.FP32_HEAD_REL
+    for leaf, w in zip(leaves, want):
+        assert fa.fp32_head_rel(leaf.grad, w) <= fa.FP32_HEAD_REL
 
 
 def test_flash_refuses_what_it_does_not_take(cuda_device):
@@ -1214,7 +1300,8 @@ def test_flash_refuses_what_it_does_not_take(cuda_device):
     from colbert_tpu_torch.ops import flash_attention as fa
 
     seg = torch.ones((2, 384), dtype=torch.int32, device=cuda_device)
-    for shape, dtype in (((2, 2, 384, 32), torch.bfloat16), ((2, 2, 384, 64), torch.float32)):
+    for shape, dtype in (((2, 2, 384, 32), torch.bfloat16), ((2, 2, 384, 32), torch.float32),
+                         ((2, 2, 384, 64), torch.float64)):
         x = torch.zeros(shape, dtype=dtype, device=cuda_device)
         with pytest.raises(NotImplementedError, match="step 12"):
             fa.flash_attention(x, x, x, seg, seg, 0.125)

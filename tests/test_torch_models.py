@@ -244,3 +244,160 @@ def test_lookup_backward_leaves_the_deterministic_flag_alone(monkeypatch):
     up = torch.randn((72, 8), generator=g)
     for rows in (2, 300):
         bert.lookup_backward(ids.reshape(-1) % rows, up, rows)
+
+
+# ---- model.fused_qkv and model.embedding_impl="onehot" ----
+
+def _doc_loss_grads(params, cfg, ids, attn, w):
+    """Flax: the doc output and the gradient tree of sum(doc * w)."""
+    fm = FlaxColbert(cfg, MV)
+
+    def loss(p):
+        d = fm.apply({"params": p}, jnp.asarray(ids), jnp.asarray(attn), method=fm.doc)
+        return (d * jnp.asarray(w)).sum(), d
+    (_, out), grads = jax.value_and_grad(loss, has_aux=True)(params)
+    return np.asarray(out), grads
+
+
+def _port_doc_grads(params, cfg, ids, attn, w, **kw):
+    m = _port(params, cfg)
+    out = m.doc(torch.from_numpy(ids), torch.from_numpy(attn))
+    (out * torch.from_numpy(w)).sum().backward()
+    return m, out.detach().numpy()
+
+
+def _grads_within(model, want, cfg, rel=1e-4):
+    """Each port gradient within ``rel`` of its tensor's largest entry of the
+    flax gradient (converted as parameters are); the key biases, whose exact
+    gradient is zero, within ``rel / 10`` of the largest gradient."""
+    sd = state_dict_from_jax_params(want, cfg)
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    assert grads.keys() == sd.keys()
+    top = max(float(g.abs().max()) for g in sd.values())
+    for k, g in grads.items():
+        limit = rel / 10 * top if k.endswith("attention.key.bias") else rel * float(sd[k].abs().max())
+        assert g is not None and float((g - sd[k]).abs().max()) <= limit, k
+
+
+def test_fused_qkv_matches_flax_fused_qkv(flax_params):
+    """fp32, ``fused_qkv=True`` on both sides: the doc output within 1e-4 of
+    flax's and every gradient within 1e-4 of its tensor's largest entry;
+    the parameters and state dict those of the unfused model (checkpoints
+    and ``models/convert.py`` unchanged)."""
+    cfg = dataclasses.replace(CFG, fused_qkv=True)
+    ids, attn = _inputs(21, 3, 24)
+    w = np.random.default_rng(22).normal(size=(3, 8, 32)).astype(np.float32)
+    want, want_grads = _doc_loss_grads(flax_params, cfg, ids, attn, w)
+    m, got = _port_doc_grads(flax_params, cfg, ids, attn, w)
+    assert np.abs(got - want).max() < 1e-4
+    _grads_within(m, want_grads, cfg)
+    plain = ColbertModel(CFG, MV).state_dict()
+    assert {k: v.shape for k, v in m.state_dict().items()} == {k: v.shape for k, v in plain.items()}
+    assert reference_state_dict(m.state_dict(), cfg).keys() == reference_state_dict(plain, CFG).keys()
+
+
+def test_fused_qkv_is_one_product(flax_params):
+    """With the option on, a layer's q, k and v come from one (H, 3H) GEMM
+    (two fewer GEMMs a layer than without), split as flax splits it: q then
+    k then v.  bf16 outputs against flax's fused model at the bf16 limit
+    (per-token cosine > 0.99)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+            return func(*args, **(kwargs or {}))
+
+    ids, attn = _inputs(23, 2, 24)
+    counts = {}
+    for fused in (False, True):
+        m = _port(flax_params, dataclasses.replace(CFG, fused_qkv=fused))
+        with torch.no_grad(), Count() as c:
+            m.doc(torch.from_numpy(ids), torch.from_numpy(attn))
+        counts[fused] = c.n
+    assert counts[False] - counts[True] == 2 * CFG.num_layers
+    cfg = dataclasses.replace(CFG, dtype="bfloat16", fused_qkv=True)
+    fm = FlaxColbert(cfg, MV)
+    want = np.asarray(fm.apply({"params": flax_params}, jnp.asarray(ids), jnp.asarray(attn), method=fm.doc))
+    with torch.no_grad():
+        got = _port(flax_params, cfg).doc(torch.from_numpy(ids), torch.from_numpy(attn)).numpy()
+    cos = (got * want).sum(-1) / (np.linalg.norm(got, axis=-1) * np.linalg.norm(want, axis=-1))
+    assert cos.min() > 0.99
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_onehot_embeddings_forward_is_the_lookup(flax_params, dtype):
+    """``embedding_impl="onehot"``: the embeddings' output and the model's
+    doc output bit-equal to ``"take"``'s in the port (each output one
+    product by 1 plus zeros)."""
+    ids, attn = _inputs(24, 3, 24)
+    name = {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+    take = _port(flax_params, dataclasses.replace(CFG, dtype=name))
+    onehot = _port(flax_params, dataclasses.replace(CFG, dtype=name, embedding_impl="onehot"))
+    i, a = torch.from_numpy(ids).long(), torch.from_numpy(attn)
+    with torch.no_grad():
+        e_take = take.bert.embeddings(i, torch.zeros_like(i), dtype)
+        e_onehot = onehot.bert.embeddings(i, torch.zeros_like(i), dtype)
+        assert e_take.dtype == dtype and torch.equal(e_take, e_onehot)
+        assert torch.equal(take.doc(i, a), onehot.doc(i, a))
+
+
+def test_onehot_word_gradient_matches_flax_onehot(flax_params):
+    """fp32: every gradient of the model with ``embedding_impl="onehot"``
+    against flax's with the same option (1e-4 of each tensor's largest)."""
+    cfg = dataclasses.replace(CFG, embedding_impl="onehot")
+    ids, attn = _inputs(25, 3, 24)
+    w = np.random.default_rng(26).normal(size=(3, 8, 32)).astype(np.float32)
+    want, want_grads = _doc_loss_grads(flax_params, cfg, ids, attn, w)
+    m, got = _port_doc_grads(flax_params, cfg, ids, attn, w)
+    assert np.abs(got - want).max() < 1e-4
+    _grads_within(m, want_grads, cfg)
+
+
+def test_onehot_word_gradient_rounds_as_jax():
+    """bf16: the word table's gradient is the one-hot product in bf16, then
+    a cast to fp32, as JAX's ``(one_hot(ids) @ table.astype(bf16))`` gives it
+    (``jax.vjp`` with the same bf16 cotangent): within one bf16 ulp of JAX's,
+    ids repeated ~7 times each."""
+    from colbert_tpu_torch.models.bert import onehot_lookup
+
+    rng = np.random.default_rng(27)
+    ids = rng.integers(0, 20, (6, 24)).astype(np.int32)
+    table = rng.normal(0, 0.02, (20, 16)).astype(np.float32)
+    up = rng.normal(0, 1, (6, 24, 16)).astype(np.float32)
+
+    def jax_fn(t):
+        return jax.nn.one_hot(jnp.asarray(ids), 20, dtype=jnp.bfloat16) @ t.astype(jnp.bfloat16)
+    out_j, vjp = jax.vjp(jax_fn, jnp.asarray(table))
+    (want,) = vjp(jnp.asarray(up).astype(jnp.bfloat16))
+    w = torch.from_numpy(table).requires_grad_()
+    out = onehot_lookup(torch.from_numpy(ids).long(), w.to(torch.bfloat16))
+    out.backward(torch.from_numpy(up).bfloat16())
+    assert torch.equal(out.float(), torch.from_numpy(np.array(out_j.astype(jnp.float32))))
+    want = np.asarray(want)
+    got = w.grad.numpy()
+    assert w.grad.dtype == torch.float32 and got.shape == want.shape
+    assert np.array_equal(got, got.astype(jnp.bfloat16).astype(np.float32))  # rounded to bf16 once
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 1e-30))) - 7)
+    assert (np.abs(got - want) <= ulp).all()
+
+
+@pytest.mark.parametrize("remat", ["full", "dots", "attn"])
+def test_fused_qkv_and_onehot_under_remat(flax_params, remat):
+    """Both options on: every remat policy gives the loss and gradients of
+    the same step without remat, bit for bit (CPU)."""
+    ids, attn = _inputs(28, 3, 24)
+    w = torch.from_numpy(np.random.default_rng(29).normal(size=(3, 8, 32)).astype(np.float32))
+    runs = []
+    for policy in ("none", remat):
+        cfg = dataclasses.replace(CFG, fused_qkv=True, embedding_impl="onehot", remat=policy)
+        m = _port(flax_params, cfg)
+        loss = (m.doc(torch.from_numpy(ids), torch.from_numpy(attn)) * w).sum()
+        loss.backward()
+        runs.append((loss.detach(), {k: p.grad for k, p in m.named_parameters()}))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in runs[0][1])
