@@ -284,26 +284,30 @@ seed:
 
 * phase 11, flash attention at fp32, the two model options, DPR and real
   text (~90 s):
-  (a) after phase 8a: route "fp32" of K11, the rows kernel, K12 and K13
-  (fp32 FMAs on the CUDA cores) on fp32 inputs at the retriever's (68, 12,
-  384, 64), the CE's (20, 16) and encode's (384, 12) attention shapes
-  against the fp32 plain versions (TF32 off): o, dq, dk and dv within 1e-5
-  of each head vector's largest magnitude, floored at 1/8 of the tensor's
-  largest (``ops/flash_attention.py::fp32_head_rel``: the summation order
-  and expf's last bit, and the fp32 noise of a ds that cancels), l within
-  1e-6 relative, m 1e-6, di within fp32 rounding of ``flash_di`` and
-  bit-equal to its order in torch, 1 / l bit-equal, two runs bit-equal,
-  the autograd function equal to the launches, every launch on route
-  "fp32"; each kernel timed cold and hot beside its bound (fp32 operations
-  over 67 TFLOP/s, or fp32 bytes; three TF32 products over 495 TFLOP/s as
-  an aside), the plain versions and ``F.scaled_dot_product_attention`` at
-  fp32 with the boolean mask (forward, forward + backward, its backward
-  alone);
+  (a) after phase 8a: route "fp32" of K11 and the rows kernel (fp32 FMAs
+  on the CUDA cores), and route "tf32" of K12 and K13 (three TF32 products
+  on wgmma), on fp32 inputs at the retriever's (68, 12, 384, 64), the CE's
+  (20, 16) and encode's (384, 12) attention shapes against the fp32 plain
+  versions (TF32 off): o, dq, dk and dv within 1e-5 of each head vector's
+  largest magnitude, floored at 1/8 of the tensor's largest
+  (``ops/flash_attention.py::fp32_head_rel``: the summation order, exp's
+  last bits and the TF32 split's ~2^-21, and the fp32 noise of a ds that
+  cancels), l within 1e-6 relative, m 1e-6, di within fp32 rounding of
+  ``flash_di`` and bit-equal to its order in torch, 1 / l bit-equal, two
+  runs bit-equal, the autograd function equal to the launches, every
+  launch on the route asked for; at the CE's shape a NaN planted in q and
+  one in do leave dq, dk and dv NaN where the plain version's are and
+  nowhere else; each kernel timed cold and hot beside its bounds (fp32
+  operations over 67 TFLOP/s, or fp32 bytes; three TF32 products over 495
+  TFLOP/s), rows + K12 + K13, the plain versions and
+  ``F.scaled_dot_product_attention`` at fp32 with the boolean mask
+  (forward, forward + backward, its backward alone);
   (b) after phase 4, at its configuration: 3 train steps at
   ``model.dtype=float32`` with flash against the explicit fp32 path, both
   dropping the attention output (the site flash takes): each loss within
   1e-4 of the explicit one's, relative; K11, K12, K13 and the rows kernel
-  12 launches a step, all on route "fp32"; ms a step and peak memory;
+  12 launches a step, K11 and the rows kernel on route "fp32", K12 and K13
+  on "tf32"; ms a step and peak memory;
   (c) the same configuration in bf16, 3 steps each: ``model.fused_qkv``
   (losses within 2e-2 relative of phase 4's, every step-1 gradient within
   5e-2 in norm but the attention key biases', whose exact value is zero;
@@ -393,8 +397,8 @@ def counters():
             "K11 wgmma route": fa.fwd_route_launches["wgmma"], "K11 simple route": fa.fwd_route_launches["simple"],
             "K12 wgmma route": fa.dkv_route_launches["wgmma"], "K12 simple route": fa.dkv_route_launches["simple"],
             "K13 wgmma route": fa.dq_route_launches["wgmma"], "K13 simple route": fa.dq_route_launches["simple"],
-            "K11 fp32 route": fa.fwd_route_launches["fp32"], "K12 fp32 route": fa.dkv_route_launches["fp32"],
-            "K13 fp32 route": fa.dq_route_launches["fp32"],
+            "K11 fp32 route": fa.fwd_route_launches["fp32"],
+            "K12 tf32 route": fa.dkv_route_launches["tf32"], "K13 tf32 route": fa.dq_route_launches["tf32"],
             "flash rows": fa.rows_launches, "flash rows fp32": fa.rows_fp32_launches}
 
 
@@ -3221,13 +3225,15 @@ def phase_flash_kernels(device, workdir: Path, label, seed=SEED, shapes=None):
 
 def flash_launches_ok(launches, want, what, route="wgmma"):
     """K11-K13's launches as ``want`` says, each all on ``route`` ("wgmma" for
-    bf16 and fp16, "fp32" for fp32), and the backward's rows kernel (di, 1 /
-    l) once a K12 launch."""
+    bf16 and fp16, "fp32" for fp32; K12 and K13 at fp32 on "tf32"), and the
+    backward's rows kernel (di, 1 / l) once a K12 launch."""
     want = dict(want)
-    for kname in ("K11", "K12", "K13"):
+    backward = {"fp32": "tf32"}.get(route, route)
+    for kname, routes in (("K11", ("wgmma", "simple", "fp32")), ("K12", ("wgmma", "simple", "tf32")),
+                          ("K13", ("wgmma", "simple", "tf32"))):
         if kname in want:
-            for r in ("wgmma", "simple", "fp32"):
-                want[f"{kname} {r} route"] = want[kname] if r == route else 0
+            for r in routes:
+                want[f"{kname} {r} route"] = want[kname] if r == (route if kname == "K11" else backward) else 0
     if "K12" in want:
         want["flash rows"] = want["K12"]
         want["flash rows fp32"] = want["K12"] if route == "fp32" else 0
@@ -4160,31 +4166,34 @@ REAL_TEXT_MODEL = dict(vocab_size=8192, hidden_size=256, num_layers=4, num_heads
 
 
 def flash_fp32_bounds(B, nh, L, hd=64):
-    """Route "fp32"'s bounds at (B, nh, L, hd) fp32: (ms, by) of K11, K12 and K13
-    (fp32 operations over 67 TFLOP/s or fp32 bytes over 3.35 TB/s) and of the
-    rows kernel (2 L hd flops a head; o and do read, l read, di and 1 / l
-    written); "tf32x3": the products as three TF32 products on the tensor
-    cores (495 TFLOP/s), ms."""
+    """The bounds at (B, nh, L, hd) fp32: (ms, by) of K11, K12 and K13 as fp32
+    FMAs (fp32 operations over 67 TFLOP/s or fp32 bytes over 3.35 TB/s; K11's
+    route "fp32") and of the rows kernel (2 L hd flops a head; o and do read, l
+    read, di and 1 / l written); "tf32x3": the products as three TF32
+    products on the tensor cores (495 TFLOP/s, route "tf32"), (ms, by)."""
     out = flash_bounds(B, nh, L, hd, elem_bytes=4, peak_flops=PEAK_FP32_FLOPS)
     out["rows"] = bound(2 * B * nh * L * hd, 2 * B * nh * L * hd * 4 + 3 * B * nh * L * 4, PEAK_FP32_FLOPS)
     per_head = B * nh * L * L * hd
-    out["tf32x3"] = {k: 3 * n * per_head / PEAK_TF32_FLOPS * 1e3 for k, n in (("K11", 4), ("K12", 8), ("K13", 6))}
+    t, rows, seg = B * nh * L * hd * 4, B * nh * L * 4, 2 * B * L * 4  # flash_bounds' bytes at fp32
+    nbytes = {"K11": 4 * t + 2 * rows + seg, "K12": 6 * t + 3 * rows + seg, "K13": 5 * t + 3 * rows + seg}
+    out["tf32x3"] = {k: bound(3 * n * per_head, nbytes[k], PEAK_TF32_FLOPS) for k, n in (("K11", 4), ("K12", 8),
+                                                                                        ("K13", 6))}
     return out
 
 
 def flash_fp32_case(device, name, B, nh, lengths, seed, label):
     """Phase 11a at (B, nh, 384, 64) fp32 in the models' layout: route "fp32"
-    of K11, the rows kernel (di and 1 / l from K11's own o and l), K12 and K13
-    (on the plain forward's l, m and di) against the fp32 plain versions (TF32
-    off): o, dq, dk and dv within ``FP32_HEAD_REL`` (``fp32_head_rel``), l
-    within 1e-6 relative and m within 1e-6; di bit-equal to its order in torch
-    and within fp32 rounding of ``flash_di``, 1 / l bit-equal; two runs
-    bit-equal; the autograd function equal to the launches on its own o, l
-    and m; every launch on route "fp32".  Times: each kernel cold and hot
-    (medians of three in turn), the plain forward and backward, the autograd
-    forward + backward, and ``F.scaled_dot_product_attention`` at fp32 with
-    the boolean segment mask (forward, forward + backward, its backward
-    alone), beside the bounds."""
+    of K11 and the rows kernel (di and 1 / l from K11's own o and l), route
+    "tf32" of K12 and K13 (on the plain forward's l, m and di) against the
+    fp32 plain versions (TF32 off): o, dq, dk and dv within ``FP32_HEAD_REL``
+    (``fp32_head_rel``), l within 1e-6 relative and m within 1e-6; di
+    bit-equal to its order in torch and within fp32 rounding of
+    ``flash_di``, 1 / l bit-equal; two runs bit-equal; the autograd function
+    equal to the launches on its own o, l and m; every launch on the route
+    asked for.  Times: each kernel cold and hot (medians of three in turn), the plain forward and backward, the autograd forward +
+    backward, and ``F.scaled_dot_product_attention`` at fp32 with the
+    boolean segment mask (forward, forward + backward, its backward alone),
+    beside the bounds (fp32 FMAs; three TF32 products)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -4219,32 +4228,34 @@ def flash_fp32_case(device, name, B, nh, lengths, seed, label):
     after = read_counts()
     launched = {key: after[key] - before[key] for key in after
                 if key.startswith(("K11 ", "K12 ", "K13 ", "flash rows"))}
-    want_launched = {key: 0 for key in launched} | {"K11 fp32 route": 3, "K12 fp32 route": 4, "K13 fp32 route": 4,
+    want_launched = {key: 0 for key in launched} | {"K11 fp32 route": 3, "K12 tf32 route": 4, "K13 tf32 route": 4,
                                                      "flash rows": 2, "flash rows fp32": 2}
     stable = all(torch.equal(a, b) for a, b in zip((o, l, m, dk, dv, dq), again))
     autograd_same = torch.equal(out, o) and all(torch.equal(t.grad, w)
                                                 for t, w in zip(leaves, (own_dq, own_dk, own_dv)))
     res = {"shape": [B, nh, L, 64], "dtype": "float32", "lengths": [int(np.min(lengths)), int(np.max(lengths))],
            "bit_stable": stable, "autograd_same": autograd_same, "launched": launched}
-    for what, got, ref in (("o", o, ro), ("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
+    checked = (("o", o, ro), ("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2]))
+    for what, got, ref in checked:
         res[what] = {"head_rel": fa.fp32_head_rel(got, ref), "max_abs_err": float((got - ref).abs().max())}
     res["l_max_rel_err"] = float(((l - rl).abs() / rl).max())
     res["m_max_abs_err"] = float((m - rm).abs().max())
     res["di"] = {"fp32_bound_share": di_within_fp32(di, o, do),
                  "card_order_equal": bool(torch.equal(di, fa.flash_di_card_order(o, do))),
                  "inv_l_equal": bool(torch.equal(inv_l, torch.ones_like(l) / l))}
-    log(f"[phase11a] {name} ({B}, {nh}, {L}, 64) fp32, lengths {res['lengths'][0]}-{res['lengths'][1]}, route fp32: "
-        f"bit-stable {stable}, autograd function equal {autograd_same}; against the fp32 plain versions "
+    log(f"[phase11a] {name} ({B}, {nh}, {L}, 64) fp32, lengths {res['lengths'][0]}-{res['lengths'][1]}, K11 route "
+        f"fp32, K12/K13 route tf32: bit-stable {stable}, autograd function equal "
+        f"{autograd_same}; against the fp32 plain versions "
         + "; ".join(f"{w} {res[w]['head_rel']:.2e} of its head vector (max|d| {res[w]['max_abs_err']:.3e})"
-                    for w in ("o", "dq", "dk", "dv"))
+                    for w, _, _ in checked)
         + f"; l rel {res['l_max_rel_err']:.2e}, m {res['m_max_abs_err']:.2e}; di {res['di']['fp32_bound_share']:.3f} "
         f"of the fp32 rounding bound, bit-equal to its order {res['di']['card_order_equal']}, 1 / l bit-equal "
         f"{res['di']['inv_l_equal']}; launches {launched}")
-    off = [w for w in ("o", "dq", "dk", "dv") if not res[w]["head_rel"] <= fa.FP32_HEAD_REL]
+    off = [w for w, _, _ in checked if not res[w]["head_rel"] <= fa.FP32_HEAD_REL]
     if off or not (stable and autograd_same) or launched != want_launched or not res["l_max_rel_err"] <= 1e-6 \
             or not res["m_max_abs_err"] <= 1e-6 or not (res["di"]["fp32_bound_share"] <= 1.0
                                                        and res["di"]["card_order_equal"] and res["di"]["inv_l_equal"]):
-        raise AssertionError(f"route fp32 at {name}: beyond the limits {off}, launches {launched} (expected "
+        raise AssertionError(f"flash at fp32 at {name}: beyond the limits {off}, launches {launched} (expected "
                              f"{want_launched}): {res}")
 
     # ---- times: CUDA events, hot (the same inputs) and cold (copies in turn past twice the L2) ----
@@ -4283,24 +4294,71 @@ def flash_fp32_case(device, name, B, nh, lengths, seed, label):
     t_sdpa_fb = time_ms(fwd_bwd(sdpa), iters=10, warmup=2)
     t_sdpa_bwd, sdpa_backend, sdpa_tried = sdpa_backward_alone(q, k, v, mask, do)
     bounds = flash_fp32_bounds(B, nh, L)
+    backward = cold["rows"] + cold["K12"] + cold["K13"]
     res.update({"ms": cold, "hot_ms": hot, "bound": bounds, "plain_ms": t_plain, "plain_backward_ms": t_plain_bwd,
                 "flash_fwd_bwd_ms": t_flash_fb, "sdpa_ms": t_sdpa, "sdpa_fwd_bwd_ms": t_sdpa_fb,
                 "sdpa_backward_ms": t_sdpa_bwd, "sdpa_backward_backend": sdpa_backend,
-                "sdpa_backward_tried": sdpa_tried, "cold_copies": n_copies})
+                "sdpa_backward_tried": sdpa_tried, "cold_copies": n_copies, "rows_k12_k13_ms": backward,
+                "tf32x3_bound_share": {kn: bounds["tf32x3"][kn][0] / cold[kn] for kn in ("K12", "K13")}})
     for kname in ("K11", "K12", "K13", "rows"):
-        tf32 = f"; as three TF32 products {bounds['tf32x3'][kname]:.4f}" if kname in bounds["tf32x3"] else ""
-        log(f"[phase11a] {name} {kname} route fp32: {cold[kname]:.4f} ms cold ({n_copies} input sets in turn), "
-            f"{hot[kname]:.4f} hot; bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]}){tf32} [{label}]")
-    log(f"[phase11a] {name} fp32: plain forward {t_plain:.3f} ms, plain backward {t_plain_bwd:.3f}; the autograd "
-        f"forward + backward (K11, rows, K12, K13) {t_flash_fb:.4f}; F.scaled_dot_product_attention with the segment "
-        f"mask (a yardstick the port never calls): forward {t_sdpa:.4f}, forward + backward {t_sdpa_fb:.4f}, its "
-        f"backward alone {t_sdpa_bwd:.4f} ({sdpa_backend}; tried {sdpa_tried}) [{label}]")
+        route = "fp32" if kname in ("K11", "rows") else "tf32"
+        tf32 = "" if kname == "rows" else (f"; as three TF32 products {bounds['tf32x3'][kname][0]:.4f} "
+                                           f"({100 * bounds['tf32x3'][kname][0] / cold[kname]:.1f}% of it)")
+        log(f"[phase11a] {name} {kname} route {route}: {cold[kname]:.4f} ms cold ({n_copies} input sets in turn), "
+            f"{hot[kname]:.4f} hot; bound as fp32 FMAs {bounds[kname][0]:.4f} ms ({bounds[kname][1]}){tf32} "
+            f"[{label}]")
+    log(f"[phase11a] {name} fp32: rows + K12 + K13 (route tf32) {backward:.4f} ms against SDPA's backward alone {t_sdpa_bwd:.4f} ({sdpa_backend}; tried "
+        f"{sdpa_tried}); plain forward {t_plain:.3f} ms, plain backward {t_plain_bwd:.3f}; the autograd forward + "
+        f"backward (K11, rows, K12, K13) {t_flash_fb:.4f}; F.scaled_dot_product_attention with the segment mask (a "
+        f"yardstick the port never calls): forward {t_sdpa:.4f}, forward + backward {t_sdpa_fb:.4f} [{label}]")
+    return res
+
+
+def flash_tf32_nan_check(device, name, B, nh, lengths, seed):
+    """K12 and K13 on route "tf32" at (B, nh, 384, 64) fp32 with a NaN planted
+    in q (0xFFFFFFFF; batch 1, head 0) and one in do (0x7FFFFFFF; the last
+    batch, the last head): dq,
+    dk and dv NaN exactly where ``flash_backward_ref``'s are on the same
+    inputs (its l, m and di), some but not all of each, and the rest within
+    ``FP32_HEAD_REL``."""
+    import torch
+
+    from colbert_tpu_torch.ops import flash_attention as fa
+
+    L = 384
+    g = torch.Generator(device).manual_seed(seed)
+    q, k, v, do = (torch.randn((B, L, nh, 64), generator=g, device=device).transpose(1, 2) for _ in range(4))
+    q.view(torch.int32)[1, 0, 5, 17] = -1  # NaN 0xFFFFFFFF and the canonical 0x7FFFFFFF: as integers
+    do.view(torch.int32)[B - 1, nh - 1, int(lengths[B - 1]) - 1, 40] = 0x7FFFFFFF  # they round to +0.0, -0.0
+    seg = (torch.arange(L, device=device)[None, :] < torch.as_tensor(lengths, device=device)[:, None]).to(torch.int32)
+    args = (q, k, v, seg, seg, FLASH_SCALE)
+    ro, rl, rm = fa.flash_forward_ref(*args)
+    bargs = (*args, rl, rm, do, fa.flash_di(ro, do))
+    want = fa.flash_backward_ref(*bargs)
+    dk, dv = fa._launch_dkv(*bargs)
+    got = (fa._launch_dq(*bargs), dk, dv)
+    torch.cuda.synchronize()
+    res = {}
+    for what, a, b in zip(("dq", "dk", "dv"), got, want):
+        nan = torch.isnan(b)
+        res[what] = {"ref_nan": int(nan.sum()), "nan": int(torch.isnan(a).sum()),
+                     "same_nan": bool(torch.equal(torch.isnan(a), nan)),
+                     "head_rel": fa.fp32_head_rel(a.masked_fill(nan, 0.0), b.masked_fill(nan, 0.0))}
+    log(f"[phase11a] {name} ({B}, {nh}, {L}, 64) fp32, a NaN in q and one in do, K12/K13 route tf32: " + "; ".join(
+        f"{w} {r['nan']} NaN (plain {r['ref_nan']}), same places {r['same_nan']}, the rest {r['head_rel']:.2e} of "
+        f"its head vector" for w, r in res.items()))
+    bad = [w for w, r in res.items() if not (r["same_nan"] and 0 < r["ref_nan"] < want[0].numel()
+                                             and r["head_rel"] <= fa.FP32_HEAD_REL)]
+    if bad:
+        raise AssertionError(f"route tf32 with NaN inputs at {name}: {bad} disagree with the plain version: {res}")
     return res
 
 
 def phase_flash_fp32(device, workdir: Path, label, seed=SEED, shapes=None):
-    """Phase 11a: route "fp32" at the retriever's doc pass, the CE's pairs and
-    the encode batch, with phase 8a's segment lengths."""
+    """Phase 11a: flash at fp32 (K11 and the rows kernel on route "fp32", K12
+    and K13 on route "tf32") at the retriever's doc pass, the CE's pairs and
+    the encode batch, with phase 8a's segment lengths; the NaN check at the
+    CE's shape."""
     import numpy as np
 
     rng = np.random.default_rng([seed, 8])
@@ -4311,7 +4369,9 @@ def phase_flash_fp32(device, workdir: Path, label, seed=SEED, shapes=None):
     t0 = time.perf_counter()
     out = {name: flash_fp32_case(device, name, *shapes[name], lengths[name], seed + 11 + i, label)
            for i, name in enumerate(shapes)}
-    log(f"[phase11a] route fp32 checked and timed at {len(shapes)} shapes in {time.perf_counter() - t0:.1f} s")
+    if "ce" in shapes:
+        out["ce"]["nan_check"] = flash_tf32_nan_check(device, "ce", *shapes["ce"], lengths["ce"], seed + 19)
+    log(f"[phase11a] flash at fp32 checked and timed at {len(shapes)} shapes in {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -4362,12 +4422,13 @@ def library_steps(device, train_ctx, steps=3, keep_grads=False, probe=None, **mo
 
 def phase_flash_fp32_train(device, label, train_ctx, steps=3):
     """Phase 11b: ``steps`` train steps at phase 4's configuration (BERT-base,
-    batch 34, 12 layers) with ``model.dtype="float32"`` and flash (K11, the
-    rows kernel, K12 and K13 on route "fp32") against the explicit fp32 path,
-    both dropping the attention output (the site flash takes), so the two
-    draw the same masks: each loss within ``FP32_LOSS_REL`` of the explicit
-    path's; K11, K12, K13 and the rows kernel 12 launches a step, all on
-    route "fp32"; ms a step and peak memory of each."""
+    batch 34, 12 layers) with ``model.dtype="float32"`` and flash (K11 and the
+    rows kernel on route "fp32", K12 and K13 on route "tf32") against the
+    explicit fp32 path, both dropping the attention output (the site flash
+    takes), so the two draw the same masks: each loss within
+    ``FP32_LOSS_REL`` of the explicit path's; K11, K12, K13 and the rows
+    kernel 12 launches a step, all on those routes; ms a step and peak
+    memory of each."""
     kw = dict(dtype="float32", attention_dropout_site="output")
     explicit = library_steps(device, train_ctx, steps, attention_impl="auto", **kw)
     flash = library_steps(device, train_ctx, steps, attention_impl="flash", **kw)
@@ -4734,8 +4795,8 @@ def main() -> int:
         t0 = time.perf_counter()
         real_text = phase_real_text(device, Path(tmp), label)
         t11 += time.perf_counter() - t0
-    log(f"[phase11] route fp32 (11a) {sum(1 for _ in flash_fp32)} shapes, fp32 train (11b), the model options (11c), "
-        f"DPR (11d) and real text (11e) took {t11:.1f} s")
+    log(f"[phase11] flash at fp32 (11a) {sum(1 for _ in flash_fp32)} shapes, fp32 train (11b), the model options "
+        f"(11c), DPR (11d) and real text (11e) took {t11:.1f} s")
 
     log(f"[phase10] sharded flat {sharded_flat['s']:.1f} s, sharded ANN {sharded_ann['s']:.1f} s, train under a "
         f"launch {launch_train['s']:.1f} s: {sharded_flat['s'] + sharded_ann['s'] + launch_train['s']:.1f} s")
@@ -4921,26 +4982,33 @@ def main() -> int:
                              for s in timed_shapes}}
     f32 = flash_fp32["retriever"]
     for name, kname, line, what in (("K11 flash_attention forward, route fp32", "K11", 758, ("o",)),
-                                    ("K12 flash_attention dK/dV, route fp32", "K12", 1121, ("dk", "dv")),
-                                    ("K13 flash_attention dQ, route fp32", "K13", 1456, ("dq",))):
+                                    ("K12 flash_attention dK/dV at fp32, route tf32", "K12", 1121, ("dk", "dv")),
+                                    ("K13 flash_attention dQ at fp32, route tf32", "K13", 1456, ("dq",))):
         plain, library = ("plain_ms", "sdpa_ms") if kname == "K11" else ("plain_backward_ms", "sdpa_backward_ms")
+        route = "fp32" if kname == "K11" else "tf32"
+        # route "fp32"'s bound is its fp32 FMAs'; route "tf32"'s its three TF32 products'
+        kb = (lambda r: r["bound"][kname]) if kname == "K11" else (lambda r: r["bound"]["tf32x3"][kname])
         kernels.append({
             "name": name, "route": "cuda", "source": "colbert_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line} (jax 0.9.0, on fp32 inputs; "
                         "reached from colbert_tpu/models/bert.py:185-193)",
-            "launches": fp32_train["flash"]["launches"][f"{kname} fp32 route"],
+            "launches": fp32_train["flash"]["launches"][f"{kname} {route} route"],
             "max_abs_err": max(f32[w]["max_abs_err"] for w in what), "ms": f32["ms"][kname],
-            "plain_ms": f32[plain], "bound_ms": f32["bound"][kname][0], "bound_by": f32["bound"][kname][1],
-            "library_ms": f32[library], "kernel_route": "fp32", "dtype": "float32", "shape": f32["shape"],
-            "hot_ms": f32["hot_ms"][kname], "tf32x3_bound_ms": f32["bound"]["tf32x3"][kname],
+            "plain_ms": f32[plain], "bound_ms": kb(f32)[0], "bound_by": kb(f32)[1],
+            "library_ms": f32[library], "kernel_route": route, "dtype": "float32", "shape": f32["shape"],
+            "hot_ms": f32["hot_ms"][kname], "fma_bound_ms": f32["bound"][kname][0],
+            "tf32x3_bound_ms": f32["bound"]["tf32x3"][kname][0],
             "head_rel_by_shape": {s: max(r[w]["head_rel"] for w in what) for s, r in flash_fp32.items()},
-            "by_shape": {s: {"ms": r["ms"][kname], "hot_ms": r["hot_ms"][kname], "bound_ms": r["bound"][kname][0],
+            "by_shape": {s: {"ms": r["ms"][kname], "hot_ms": r["hot_ms"][kname], "bound_ms": kb(r)[0],
                              "plain_ms": r[plain], "library_ms": r[library]} for s, r in flash_fp32.items()},
         })
         if kname == "K11":
             kernels[-1].update({"flash_fwd_bwd_ms": f32["flash_fwd_bwd_ms"], "sdpa_fwd_bwd_ms": f32["sdpa_fwd_bwd_ms"]})
         else:
-            kernels[-1]["library_call"] = f"SDPA backward alone ({f32['sdpa_backward_backend']}), fp32"
+            kernels[-1].update({
+                "library_call": f"SDPA backward alone ({f32['sdpa_backward_backend']}), fp32",
+                "tf32x3_bound_share": f32["tf32x3_bound_share"][kname],
+                "rows_k12_k13_ms_by_shape": {s: r["rows_k12_k13_ms"] for s, r in flash_fp32.items()}})
         if kname == "K12":
             kernels[-1]["di"] = {
                 "launches": fp32_train["flash"]["launches"]["flash rows fp32"], "ms": f32["ms"]["rows"],

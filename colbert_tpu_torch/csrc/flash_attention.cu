@@ -25,8 +25,33 @@
 // Route "wgmma" takes exp(x) as 2^(x log2 e) by the MUFU (ex2.approx, 2 ulps,
 // where the first design's expf has 1), from the same x = s - m.
 //
-// Route "fp32" (fp32 inputs, and only they): fp32 FMAs on the CUDA cores,
-// described with its kernels below (namespace f32).
+// Route "fp32" (K11 and the rows kernel on fp32 inputs, and only they):
+// fp32 FMAs on the CUDA cores, described with its kernels below (namespace
+// f32).
+//
+// Route "tf32" (K12 and K13 on fp32 inputs, and only they): each fp32
+// product as three TF32 products (hi hi + hi lo + lo hi, hi = tf32(x), lo =
+// tf32(x - hi), rounded as cvt.rna rounds) on wgmma m64nNk8 .tf32, fp32
+// accumulators; the rest of the arithmetic the plain version's but for the
+// exponential, route "wgmma"'s ex2.approx.  Persistent blocks of 384 threads: a
+// producer warpgroup (one thread feeding a TMA ring on mbarriers, its other
+// three warps splitting each landed fp32 tile in place into hi and a lo twin)
+// and two consumer warpgroups, one the S side (S, p), one the dP side (dP,
+// ds), P crossing between them through shared memory.  .tf32 has no
+// transpose bit, so every shared-memory operand is K-major: the head-dim
+// products read the split TMA tiles as B; the row products give transposed
+// outputs (dV^T = dO^T P, dK^T = Q^T dS, dQ^T = K^T dS^T) whose B is the P^T
+// or dS tile the kernel writes, split, and whose A is read transposed from
+// the split tiles into registers (the one transpose); outputs leave by 4-byte
+// stores of whole 32-byte sectors.  Where each operand lives:
+//   K12 (64 keys a block, 32-query stages, 4 deep): K, V -> A registers
+//        (split there) once a tile; Q, dO -> split B tiles (S^T, dP^T) and
+//        transposed A (dK^T, dV^T); P^T, dS^T -> B tiles (64 x 32, hi, lo).
+//   K13 (64 query rows a block, 64-key stages, 2 deep): Q, dO -> A registers
+//        once a tile; K, V -> split B tiles (S, dP), K also transposed A
+//        (dQ^T); dS -> B tile (64 x 64, hi, lo), each warpgroup's dQ^T over
+//        32 of the rows.
+// Details and bounds with its kernels below (namespace tf).
 //
 // Route "simple" (the first design, on request only): mma.sync m16n8k16
 // (bf16 or fp16, fp32 accumulators) on tiles in
@@ -85,7 +110,10 @@
 // "wgmma" re-reads them once for every 192 (K12, K13: 128) rows, feeds the tensor
 // cores from shared memory without ldmatrix, and stores whole rows; what
 // stays is the exponentials' and the mask's issue slots and, in K12, the
-// dK/dV stores (PERF.md §6).
+// dK/dV stores (PERF.md §6).  At fp32 (same shape, 495 TFLOP/s TF32): route
+// "tf32"'s three TF32 products in K12 0.373 ms and in K13 0.280 ms, above
+// fp32's bytes (K12 0.144 ms); as fp32 FMAs on the CUDA cores (67 TFLOP/s)
+// they would take 0.92 and 0.69 ms.
 
 #include <algorithm>
 #include <atomic>
@@ -1432,41 +1460,35 @@ flash_rows_kernel(const T* __restrict__ O, const T* __restrict__ dO, const float
 
 }  // namespace wg
 
-// ---- route "fp32": K11-K13 and the rows kernel on fp32 inputs ----
+// ---- route "fp32": K11 and the rows kernel on fp32 inputs ----
 //
-// fp32 q, k, v (model.dtype "float32") take this route, and only they do.
+// fp32 q, k, v (model.dtype "float32") take this route in K11 and the rows
+// kernel, and only they do (K12 and K13 take route "tf32", below).
 // Products and sums are fp32 FMAs on the CUDA cores (no TF32), so each
 // value agrees with the fp32 plain version to the summation order; the
 // mask, the online softmax over 128-key blocks, the saved l and m, di and
 // 1 / l are the other routes' (p keeps its fp32: rounding it to the input
 // type changes nothing).  256 threads a block; tiles of 64-float rows in
-// shared memory, padded to 68 floats.  A thread holds 4 rows x 4 (K11's S:
-// 8) columns of each product and reads its operands as float4s: one
-// operand's 4 rows are the same for a half-warp (a broadcast), the other's
-// rows lie 16 apart across it, so the padded rows fall on distinct banks.
-// A product goes back to shared memory, transposed, only as the next
-// product's operand; a half-warp holds whole rows of S, so each row's max
-// and sum finish with 4 shuffles.
+// shared memory, padded to 68 floats.  A thread holds 4 rows x 8 columns
+// of S and 4 x 4 of O and reads its operands as float4s: one operand's 4
+// rows are the same for a half-warp (a broadcast), the other's rows lie 16
+// apart across it, so the padded rows fall on distinct banks.  P goes back
+// to shared memory, transposed, as the next product's operand; a half-warp
+// holds whole rows of S, so each row's max and sum finish with 4 shuffles.
 //   K11: 64 query rows a block (grid Lq / 64 x nh x B), 128-key tiles;
-//        S = Q K^T (4 rows x 8 keys a thread), the online softmax, P^T in
-//        the key tile's place, O += P V.
-//   K12: 64 keys a block, 64-query tiles: S^T = K Q^T and dP^T = V dO^T (4
-//        keys x 4 queries a thread), P and dS to shared memory, dV += P^T dO
-//        and dK += dS^T Q; 1 / l from the rows kernel.
-//   K13: 64 query rows a block, 64-key tiles: S = Q K^T and dP = dO V^T, dS^T
-//        in V's place, dQ += dS K; 1 / l likewise.
+//        S = Q K^T, the online softmax, P^T in the key tile's place, O +=
+//        P V.
 // Bounds at the retriever's doc pass (68, 12, 384, 64) fp32: K11's 4 L^2 hd
 // flops a head are 3.08e10, 0.46 ms at 67 TFLOP/s (0.19 ms as three TF32
 // products on the tensor cores), against 321 MB of q, k, v and o (0.096
-// ms): operations; K12's 8 L^2 hd (0.92 ms) and K13's 6 (0.69 ms) likewise.
+// ms): operations.
 
 namespace f32 {
 
 constexpr int LD = HD + 4;  // floats a tile row in shared memory
 constexpr int NT = 256;     // threads a block
-constexpr int R = 64;       // query rows (K11, K13) or keys (K12) a block
-constexpr int KT = 128;     // K11's key tile: the JAX block
-constexpr int BT = 64;      // K12's query tile, K13's key tile
+constexpr int R = 64;       // query rows a block
+constexpr int KT = 128;     // the key tile: the JAX block
 
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 __device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
@@ -1645,136 +1667,6 @@ flash_fwd_kernel(const float* __restrict__ Q, const float* __restrict__ K, const
   }
 }
 
-constexpr int DKV_SMEM = (2 * R + 4 * BT) * LD * 4 + 4 * BT * 4;
-
-__global__ void __launch_bounds__(NT)
-flash_dkv_kernel(const float* __restrict__ Q, const float* __restrict__ K, const float* __restrict__ V,
-                 const int* __restrict__ qseg, const int* __restrict__ kvseg, const float* __restrict__ inv_l,
-                 const float* __restrict__ m_in, const float* __restrict__ dO, const float* __restrict__ di_in,
-                 float* __restrict__ dK, float* __restrict__ dV, View vq, View vk, View vv, View vdo, View vdk,
-                 View vdv, int nh, int Lq, int Lk, float scale) {
-  extern __shared__ __align__(16) float fsm[];
-  float* sK = fsm;            // [64 keys][LD], the block's
-  float* sV = sK + R * LD;
-  float* sQ = sV + R * LD;    // [64 queries][LD], a tile's
-  float* sO = sQ + BT * LD;   // dO
-  float* sP = sO + BT * LD;   // P [query][key]
-  float* sS = sP + BT * LD;   // dS [query][key]
-  float* sM = sS + BT * LD;   // [64] each: m, 1 / l, di, segment ids
-  float* sI = sM + BT;
-  float* sD = sI + BT;
-  int* sSeg = reinterpret_cast<int*>(sD + BT);
-  const int tid = threadIdx.x, kr = tid >> 4, qc = tid & 15;  // keys 4 kr + a; queries qc + 16 e
-  const int k0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
-  const float* Qb = Q + b * vq.sb + h * vq.sh;
-  const float* Ob = dO + b * vdo.sb + h * vdo.sh;
-  const long long bh = ((long long)b * nh + h) * Lq;
-  int kseg[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) kseg[a] = kvseg[(long long)b * Lk + k0 + 4 * kr + a];
-  load_rows<R>(sK, K + b * vk.sb + h * vk.sh + (long long)k0 * vk.sl, vk.sl, tid);
-  load_rows<R>(sV, V + b * vv.sb + h * vv.sh + (long long)k0 * vv.sl, vv.sl, tid);
-  float dk[4][4], dv[4][4];
-  zero(dk);
-  zero(dv);
-  for (int t = 0; t < Lq / BT; ++t) {
-    const long long r0 = (long long)t * BT;
-    load_rows<BT>(sQ, Qb + r0 * vq.sl, vq.sl, tid);
-    load_rows<BT>(sO, Ob + r0 * vdo.sl, vdo.sl, tid);
-    if (tid < BT) {
-      sM[tid] = m_in[bh + r0 + tid];
-      sI[tid] = inv_l[bh + r0 + tid];
-      sD[tid] = di_in[bh + r0 + tid];
-      sSeg[tid] = qseg[(long long)b * Lq + r0 + tid];
-    }
-    __syncthreads();
-    float p[4][4], ds[4][4];  // S^T, then P^T; dP^T, then dS^T
-    zero(p);
-    zero(ds);
-    dots<4>(p, sK, 4 * kr, sQ, qc);
-    dots<4>(ds, sV, 4 * kr, sO, qc);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int qi = qc + 16 * e;
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float x = masked(p[a][e], scale, kseg[a] == sSeg[qi]);
-        p[a][e] = __fmul_rn(expf(x - sM[qi]), sI[qi]);
-        ds[a][e] = __fmul_rn(__fmul_rn(__fsub_rn(ds[a][e], sD[qi]), p[a][e]), scale);
-      }
-      st4(sP + qi * LD + 4 * kr, column(p, e));
-      st4(sS + qi * LD + 4 * kr, column(ds, e));
-    }
-    __syncthreads();
-    pv<BT>(dv, sP, 4 * kr, sO, 4 * qc);
-    pv<BT>(dk, sS, 4 * kr, sQ, 4 * qc);
-    __syncthreads();  // every tile read before the next one's copy
-  }
-  store4(dK + b * vdk.sb + h * vdk.sh + (long long)(k0 + 4 * kr) * vdk.sl + 4 * qc, vdk.sl, dk);
-  store4(dV + b * vdv.sb + h * vdv.sh + (long long)(k0 + 4 * kr) * vdv.sl + 4 * qc, vdv.sl, dv);
-}
-
-constexpr int DQ_SMEM = (2 * R + 2 * BT) * LD * 4 + BT * 4;
-
-__global__ void __launch_bounds__(NT)
-flash_dq_kernel(const float* __restrict__ Q, const float* __restrict__ K, const float* __restrict__ V,
-                const int* __restrict__ qseg, const int* __restrict__ kvseg, const float* __restrict__ inv_l,
-                const float* __restrict__ m_in, const float* __restrict__ dO, const float* __restrict__ di_in,
-                float* __restrict__ dQ, View vq, View vk, View vv, View vdo, View vdq, int nh, int Lq, int Lk,
-                float scale) {
-  extern __shared__ __align__(16) float fsm[];
-  float* sQ = fsm;            // [64 queries][LD], the block's
-  float* sO = sQ + R * LD;    // dO
-  float* sK = sO + R * LD;    // [64 keys][LD], a tile's
-  float* sV = sK + BT * LD;   // V, then dS^T
-  int* sSeg = reinterpret_cast<int*>(sV + BT * LD);  // [64]
-  const int tid = threadIdx.x, rg = tid >> 4, kg = tid & 15;  // rows 4 rg + a; keys kg + 16 e
-  const int q0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
-  const float* Kb = K + b * vk.sb + h * vk.sh;
-  const float* Vb = V + b * vv.sb + h * vv.sh;
-  const int* kvs = kvseg + (long long)b * Lk;
-  const long long i0 = ((long long)b * nh + h) * Lq + q0 + 4 * rg;
-  int seg[4];
-  float m_row[4], il[4], di[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    seg[a] = qseg[(long long)b * Lq + q0 + 4 * rg + a];
-    m_row[a] = m_in[i0 + a];
-    il[a] = inv_l[i0 + a];
-    di[a] = di_in[i0 + a];
-  }
-  load_rows<R>(sQ, Q + b * vq.sb + h * vq.sh + (long long)q0 * vq.sl, vq.sl, tid);
-  load_rows<R>(sO, dO + b * vdo.sb + h * vdo.sh + (long long)q0 * vdo.sl, vdo.sl, tid);
-  float dq[4][4];
-  zero(dq);
-  for (int t = 0; t < Lk / BT; ++t) {
-    load_rows<BT>(sK, Kb + (long long)t * BT * vk.sl, vk.sl, tid);
-    load_rows<BT>(sV, Vb + (long long)t * BT * vv.sl, vv.sl, tid);
-    if (tid < BT) sSeg[tid] = kvs[t * BT + tid];
-    __syncthreads();
-    float s[4][4], dp[4][4];  // S, then dS; dP
-    zero(s);
-    zero(dp);
-    dots<4>(s, sQ, 4 * rg, sK, kg);
-    dots<4>(dp, sO, 4 * rg, sV, kg);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = masked(s[a][e], scale, seg[a] == sSeg[kg + 16 * e]);
-        const float p = __fmul_rn(expf(x - m_row[a]), il[a]);
-        s[a][e] = __fmul_rn(__fmul_rn(__fsub_rn(dp[a][e], di[a]), p), scale);
-      }
-    __syncthreads();  // every thread is done with V: dS^T takes its place
-#pragma unroll
-    for (int e = 0; e < 4; ++e) st4(sV + (kg + 16 * e) * LD + 4 * rg, column(s, e));
-    __syncthreads();
-    pv<BT>(dq, sV, 4 * rg, sK, 4 * kg);
-    __syncthreads();  // dS^T and K read before the next tile's copy
-  }
-  store4(dQ + b * vdq.sb + h * vdq.sh + (long long)(q0 + 4 * rg) * vdq.sl + 4 * kg, vdq.sl, dq);
-}
-
 // di and 1 / l of fp32 rows: 8 threads a row, each summing the products of
 // its 8 elements in order, then the partial sums pairwise by lane distance 4,
 // 2, 1 (flash_di_card_order's order; here the products round in fp32).
@@ -1804,6 +1696,694 @@ flash_rows_kernel(const float* __restrict__ O, const float* __restrict__ dO, con
 }
 
 }  // namespace f32
+
+// ---- route "tf32": K12 and K13 on fp32 inputs, three TF32 products on wgmma ----
+//
+// Each fp32 product A . B is hi(A) hi(B) + hi(A) lo(B) + lo(A) hi(B), hi =
+// tf32(x) and lo = tf32(x - hi) rounded to nearest, ties away (maxsim.cu's
+// split; cvt.rna's bits for finite x, by integer operations, and a NaN lo
+// for a NaN x: split), on wgmma m64nNk8 .tf32 with fp32 accumulators; the
+// arithmetic around the products is the plain version's (the mask, p =
+// exp(s - m) * (1 / l), ds = (dp - di) p scale) but for exp, route
+// "wgmma"'s ex2.approx of (s - m) log2(e) (2 ulps; expf cost 1-4% more
+// time, ~4e-7 of a head vector apart: PERF.md §6).  Layout: a tile of fp32
+// rows of 64 is two halves (columns 0-31, 32-63) of 128-byte rows with the
+// 128-byte swizzle, one TMA box
+// each; wgmma's .tf32 operands in shared memory are K-major only (no
+// transpose bit), so:
+//   * the products over the head dim (S^T = K Q^T, dP^T = V dO^T in K12; S
+//     = Q K^T, dP = dO V^T in K13) read the TMA tile as B as it lands, after
+//     the producer warpgroup's three spare warps split it in place (hi over
+//     the raw words, lo into a twin tile at the same offsets);
+//   * the products over the rows give transposed outputs, dV^T = dO^T P and
+//     dK^T = Q^T dS (K12), dQ^T = K^T dS^T (K13): B is the P^T or dS tile
+//     the kernel writes itself, K-major, split as it is written; A (dO^T,
+//     Q^T, K^T) is read from the split tiles into registers by 4-byte loads,
+//     the transpose happening there; the accumulators, whose rows are the
+//     head dim, leave by 4-byte stores that fill whole 32-byte sectors
+//     (8 head-dim values of one row).
+// Row k of such a product (a query, or a key) sits at position 8 (k / 8) +
+// (k % 8) / 2 + 4 (k % 2) of its 8-group in the written tile, so that a
+// thread's A registers of one k-step (columns t and t + 4 of the m64nNk8
+// tf32 A fragment) read rows 2t and 2t + 1: with the swizzle, a warp's
+// 4-byte loads then hit 32 distinct banks.  Each product sums its three
+// terms small first (hi lo, lo hi, then hi hi): the tensor cores truncate
+// each k-step's sum, so the large terms come last; the outputs sum each
+// stage in a fresh accumulator added to the running sum with round-to-
+// nearest (K3's lesson: one accumulator over 144 truncating k-steps drifts
+// by ~1e-5).  Two consumer warpgroups share the work of a block unequally
+// in kind but equally in products: warpgroup 0 holds the S side (K or Q in
+// A registers, p), warpgroup 1 the dP side (V or dO, ds); P crosses from
+// one to the other through shared memory, thread for thread (both hold the
+// same accumulator layout), behind named barrier 1.
+//   K12: 64 keys a block; K and V A fragments (split in registers) once a
+//        tile; 32-query stages of Q, dO (split tiles), m, 1 / l, di and
+//        segment ids, DKV_STAGES deep.  Warpgroup 0: S^T (m64n32k8), P^T
+//        into its B tile and P for warpgroup 1, dV^T += dO^T P (m64n64k8);
+//        warpgroup 1: dP^T, dS^T into its B tile, dK^T += Q^T dS.
+//   K13: 64 query rows a block; Q and dO A fragments once a tile; 64-key
+//        stages of K, V (split) and key segment ids, DQ_STAGES deep.
+//        Warpgroup 0: S (m64n64k8), P for warpgroup 1; warpgroup 1: dP, dS
+//        into the B tile (named barrier 2); then each warpgroup dQ^T +=
+//        K^T dS^T for 32 of the 64 query rows (m64n32k8).
+// Bounds at the retriever's doc pass (68, 12, 384, 64): K12's 8 L^2 hd
+// flops a head as three TF32 products, 1.85e11 at 495 TFLOP/s, 0.373 ms;
+// K13's 6, 0.280 ms; the bytes (fp32 q, k, v, do, dk, dv: 0.144 ms) below
+// both.  What the design spends beside the products: the split (K12 a
+// stage reads 16 KB and writes 32 KB of shared memory, K13 32 and 64), the
+// B operands' reads (a m64nNk8 tf32 wgmma reads 32 N bytes for 1,024 N
+// flops: half the shared-memory rate at the tensor cores' peak), and the
+// transposed A loads.  Measured (PERF.md §6): the products alone run at
+// about the bound, the rest alone takes longer than they do and overlaps
+// them little; the consumers are bound by instruction issue, which is why
+// the split rounds by integer operations and not by cvt.rna's longer
+// sequence.  A pipelined schedule (the next stage's head-dim product issued
+// before this stage's product over rows, p under the latter; P and dS
+// double-buffered, K13 at 32-key stages) ran 0-11% slower.
+
+namespace tf {
+
+using hopper::mbar_arrive;
+using hopper::mbar_expect_tx;
+using hopper::mbar_init;
+using hopper::mbar_wait;
+using hopper::smem_u32;
+using hopper::sw128_desc;
+using wg::fence_a;
+using wg::fence_acc;
+
+constexpr int RB = 64;         // keys a K12 block, query rows a K13 block
+constexpr int QT = 32;         // queries a K12 stage
+constexpr int KT = 64;         // keys a K13 stage
+constexpr int DKV_STAGES = 4;  // Q/dO stages in flight in K12
+constexpr int DQ_STAGES = 2;   // K/V stages in flight in K13
+constexpr int SPLIT_THREADS = 96;  // the producer warpgroup's warps 1-3
+
+// Byte offset of (row, col) in an R-row tile of fp32 rows of 64: two halves
+// of R 128-byte rows, 16-byte chunks XOR-swizzled by the row.
+template <int R>
+__device__ __forceinline__ uint32_t at(int row, int col) {
+  return (col >> 5) * (R * 128) + row * 128 + ((((col >> 2) ^ row) & 7) << 4) + ((col & 3) << 2);
+}
+
+// Where row k of a product over rows sits in its 8-group (see above).
+__device__ __forceinline__ int pos(int k) { return (k & ~7) + ((k & 7) >> 1) + ((k & 1) << 2); }
+
+// tf32(x), rounded to nearest with ties away from zero: cvt.rna.tf32.f32's
+// bits for finite x, by two integer operations (half a tf32 ulp added to the
+// magnitude, the 13 low bits cleared).  A NaN's mantissa may carry into its
+// sign (0x7FFFFFFF gives -0.0): split keeps lo a NaN.
+__device__ __forceinline__ uint32_t to_tf32(float x) { return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u; }
+
+// x = hi + lo to ~2^-22: hi = tf32(x), lo = tf32(x - hi) (x - hi is exact).
+// For a NaN x, x - hi is the canonical NaN 0x7FFFFFFF whatever hi is; as a
+// signed word it is clamped to 0x7FFFEFFF (above every other non-negative
+// word), which rounds to a NaN lo: each product lo enters, and its output,
+// is NaN as the plain version's is.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(__int_as_float(min(__float_as_int(__fsub_rn(x, __uint_as_float(hi))), 0x7FFFEFFF)));
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Columns c0 .. c0 + 31 of rows row .. row + box - 1 of head h, batch b (a
+// 4-D map of make_rows_map) into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_half(uint32_t dst, const CUtensorMap* map, bool heads_inner, int c0, int h,
+                                         int row, int b, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(heads_inner ? h : row),
+        "r"(heads_inner ? row : h), "r"(b), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// An R-row tile (both halves) of rows row .. row + R - 1.
+template <int R>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, bool heads_inner, int h, int row,
+                                         int b, uint64_t* bar) {
+  tma_half(dst, map, heads_inner, 0, h, row, b, bar);
+  tma_half(dst + R * 128, map, heads_inner, 32, h, row, b, bar);
+}
+
+// B descriptor of k-step kk (8 columns) of a K-major R-row tile of 64
+// columns, from the tile's own (sw128_desc of its first half): the second
+// half R * 128 bytes on, a k-step 32 bytes (the address field counts 16).
+template <int R>
+__device__ __forceinline__ uint64_t desc64(uint64_t tile, int kk) {
+  return tile + (kk >> 2) * (R * 128 / 16) + 2 * (kk & 3);
+}
+
+// `bytes` of raw fp32 words at `raw` (16-byte aligned) split: hi over the
+// words, lo at raw + `lo_off`; the split warps' share, then made visible to
+// the tensor cores.
+__device__ __forceinline__ void split_tiles(unsigned char* raw, uint32_t bytes, uint32_t lo_off, int si) {
+  for (uint32_t i = si * 16; i < bytes; i += SPLIT_THREADS * 16) {
+    const float4 x = *reinterpret_cast<const float4*>(raw + i);
+    uint4 hi, lo;
+    split(x.x, hi.x, lo.x);
+    split(x.y, hi.y, lo.y);
+    split(x.z, hi.z, lo.z);
+    split(x.w, hi.w, lo.w);
+    *reinterpret_cast<uint4*>(raw + i) = hi;
+    *reinterpret_cast<uint4*>(raw + lo_off + i) = lo;
+  }
+  fence_proxy_async();
+}
+
+// A fragments (hi, lo) of a warp's 16 rows r0 .. r0 + 15 over all 64 columns
+// of a raw R-row tile, split in registers: k-step kk, registers (row, col)
+// (g, 8kk + t), (g + 8, 8kk + t), (g, 8kk + t + 4), (g + 8, 8kk + t + 4).
+template <int R>
+__device__ __forceinline__ void rows_a(uint32_t (&hi)[8][4], uint32_t (&lo)[8][4], const unsigned char* tile, int r0,
+                                       int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split(*reinterpret_cast<const float*>(tile + at<R>(r0 + g + 8 * (r & 1), 8 * kk + t + 4 * (r >> 1))),
+            hi[kk][r], lo[kk][r]);
+}
+
+// A fragments of the transposed operand of a product over rows: the head-dim
+// rows h0 .. h0 + 15 (M) by rows 0 .. 8 KS - 1 of an R-row split tile (K, at
+// pos(k)), from its hi and lo twins.  The offsets of k-step 0 (cols_offsets)
+// are the thread's own; k-step kk reads 8 kk rows further (the swizzle takes
+// the row modulo 8).
+template <int R>
+__device__ __forceinline__ void cols_offsets(uint32_t (&off)[4], int h0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) off[r] = at<R>(2 * t + (r >> 1), h0 + g + 8 * (r & 1));
+}
+
+template <int KS>
+__device__ __forceinline__ void cols_a(uint32_t (&hi)[KS][4], uint32_t (&lo)[KS][4], const unsigned char* tile_hi,
+                                       const unsigned char* tile_lo, const uint32_t (&off)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      hi[kk][r] = *reinterpret_cast<const uint32_t*>(tile_hi + off[r] + kk * 8 * 128);
+      lo[kk][r] = *reinterpret_cast<const uint32_t*>(tile_lo + off[r] + kk * 8 * 128);
+    }
+}
+
+// An accumulator (rows r0 + g, r0 + g + 8; columns 8j + 2t, + 1) into the
+// K-major B tiles of a product over its columns (one 128-byte swizzle half of
+// 32 columns per 32-column group), hi and lo, each column at pos().
+template <int R, int N>
+__device__ __forceinline__ void acc_to_b(unsigned char* tile_hi, unsigned char* tile_lo, const float (&c)[N][4],
+                                         int r0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t off = at<R>(r0 + g + 8 * (e >> 1), pos(8 * j + 2 * t + (e & 1)));
+      uint32_t hi, lo;
+      split(c[j][e], hi, lo);
+      *reinterpret_cast<uint32_t*>(tile_hi + off) = hi;
+      *reinterpret_cast<uint32_t*>(tile_lo + off) = lo;
+    }
+}
+
+// An accumulator as a thread-major block of float4s: float4 j of thread w at
+// j * 128 + w, read back by the other warpgroup's thread of the same index.
+template <int N>
+__device__ __forceinline__ void to_thread(float* buf, const float (&c)[N][4], int wtid) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    reinterpret_cast<float4*>(buf)[j * 128 + wtid] = make_float4(c[j][0], c[j][1], c[j][2], c[j][3]);
+}
+
+// d (+)= A[64 x 8] . B[N x 8]^T, tf32 A from registers, B K-major in shared
+// memory (128-byte swizzle; no transpose for .tf32); scale_d = 0 overwrites d.
+__device__ __forceinline__ void mma_n64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "
+      "%23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]),
+        "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]),
+        "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]),
+        "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void mma_n32(float (&d)[4][4], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]),
+        "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]),
+        "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void mma(float (&d)[N][4], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  if constexpr (N == 8)
+    mma_n64(d, a, db, scale_d);
+  else
+    mma_n32(d, a, db, scale_d);
+}
+
+// Issues d = A . B over KS k-steps as three TF32 products, the small terms
+// first, and commits them as one group; desc(kk) and desc_lo(kk) are B's hi
+// and lo descriptors of k-step kk.  The caller waits (wgmma_wait<0>) and
+// then calls done() on what the group used, before touching it; registers
+// the group does not use stay free meanwhile.
+template <int N, int KS, typename D, typename DL>
+__device__ __forceinline__ void issue3(float (&d)[N][4], uint32_t (&ah)[KS][4], uint32_t (&al)[KS][4], D desc,
+                                       DL desc_lo) {
+  fence_acc(d);
+  fence_a(ah);
+  fence_a(al);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) mma<N>(d, ah[kk], desc_lo(kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) mma<N>(d, al[kk], desc(kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) mma<N>(d, ah[kk], desc(kk), 1);
+  hopper::wgmma_commit();
+}
+
+template <int N, int KS>
+__device__ __forceinline__ void done(float (&d)[N][4], uint32_t (&ah)[KS][4], uint32_t (&al)[KS][4]) {
+  fence_acc(d);
+  fence_a(ah);
+  fence_a(al);
+}
+
+template <int N>
+__device__ __forceinline__ void add_rn(float (&acc)[N][4], const float (&part)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = __fadd_rn(acc[j][e], part[j][e]);
+}
+
+// A transposed accumulator (rows: the head dim h0 + g, + 8; columns: rows
+// 8j + 2t, + 1 of the output from `row0`) to its (row, head dim) places.
+template <int N>
+__device__ __forceinline__ void store_t(float* out, long long sl, const float (&c)[N][4], int h0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[(long long)(8 * j + 2 * t + (e & 1)) * sl + h0 + g + 8 * (e >> 1)] = c[j][e];
+}
+
+// ---- K12, route "tf32" ----
+
+struct Dkv {
+  static constexpr uint32_t KV_TILE = 2 * RB * 128;  // a block's K (or V) rows: 16 KB
+  static constexpr uint32_t Q_TILE = 2 * QT * 128;   // a stage's Q (or dO) rows: 8 KB
+  static constexpr uint32_t HI = 2 * Q_TILE;         // Q, dO (hi after the split)
+  static constexpr uint32_t ROWS = 4 * QT * 4;       // m, 1 / l, di, segment ids
+  static constexpr uint32_t STAGE = 2 * HI + 1024;   // hi, lo, rows
+  static constexpr uint32_t PT = RB * 128;           // P^T or dS^T: 64 keys x 32 queries
+  static constexpr uint32_t PEX = RB * QT * 4;       // P for warpgroup 1, thread-major
+  static constexpr uint32_t smem = 1024 + 2 * KV_TILE + DKV_STAGES * STAGE + 4 * PT + 2 * PEX;
+};
+static_assert(Dkv::smem <= 232448 - 1024, "K12's route tf32 must fit a block's shared memory");
+
+__global__ void __launch_bounds__(384, 1)
+flash_dkv_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+                            int heads_inner, const int* __restrict__ qseg, const int* __restrict__ kvseg,
+                            const float* __restrict__ inv_l, const float* __restrict__ m_in,
+                            const float* __restrict__ di_in, float* __restrict__ dK, float* __restrict__ dV,
+                            View vdk, View vdv, int nh, int Lq, int Lk, int n_tiles, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[DKV_STAGES], ready[DKV_STAGES], empty[DKV_STAGES], kv_full, kv_empty;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t skv = (raw + 1023u) & ~1023u;                // K, V: 64 rows each
+  const uint32_t sst = skv + 2 * Dkv::KV_TILE;                // [stage][hi: Q, dO][lo: Q, dO][rows]
+  const uint32_t spt = sst + DKV_STAGES * Dkv::STAGE;         // P^T hi, lo; dS^T hi, lo
+  const uint32_t spex = spt + 4 * Dkv::PT;                    // [2][P]
+  unsigned char* const base = smem_raw + (skv - raw);         // generic pointer of skv
+  const int n_kb = Lk / RB, n_qt = Lq / QT;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < DKV_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], SPLIT_THREADS);
+      mbar_init(&empty[s], 2 * 4);
+    }
+    mbar_init(&kv_full, 1);
+    mbar_init(&kv_empty, 2 * 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- producer: thread 256 keeps K, V and the Q/dO ring full; warps 9-11 split each stage ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");  // its TMA loop and the split
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0, kv_phase = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        const int kb = t % n_kb, h = (t / n_kb) % nh, b = t / (n_kb * nh);
+        const long long rows0 = ((long long)b * nh + h) * Lq;
+        mbar_wait(&kv_empty, kv_phase ^ 1);
+        kv_phase ^= 1;
+        mbar_expect_tx(&kv_full, 2 * Dkv::KV_TILE);
+        tma_tile<RB>(skv, &map_k, heads_inner & 2, h, kb * RB, b, &kv_full);
+        tma_tile<RB>(skv + Dkv::KV_TILE, &map_v, heads_inner & 4, h, kb * RB, b, &kv_full);
+        for (int qt = 0; qt < n_qt; ++qt) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], Dkv::HI + Dkv::ROWS);
+          const uint32_t st = sst + stage * Dkv::STAGE, rt = st + 2 * Dkv::HI;
+          tma_tile<QT>(st, &map_q, heads_inner & 1, h, qt * QT, b, &full[stage]);
+          tma_tile<QT>(st + Dkv::Q_TILE, &map_do, heads_inner & 8, h, qt * QT, b, &full[stage]);
+          wg::bulk_load(rt, m_in + rows0 + qt * QT, QT * 4, &full[stage]);
+          wg::bulk_load(rt + QT * 4, inv_l + rows0 + qt * QT, QT * 4, &full[stage]);
+          wg::bulk_load(rt + 2 * QT * 4, di_in + rows0 + qt * QT, QT * 4, &full[stage]);
+          wg::bulk_load(rt + 3 * QT * 4, qseg + (long long)b * Lq + qt * QT, QT * 4, &full[stage]);
+          if (++stage == DKV_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    } else if (threadIdx.x >= 288) {
+      const int si = threadIdx.x - 288;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x)
+        for (int qt = 0; qt < n_qt; ++qt) {
+          mbar_wait(&full[stage], phase);
+          split_tiles(base + (sst - skv) + stage * Dkv::STAGE, Dkv::HI, Dkv::HI, si);
+          mbar_arrive(&ready[stage]);
+          if (++stage == DKV_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup 0 the S side (S^T, P^T, dV^T), warpgroup 1 the dP side (dP^T, dS^T, dK^T) ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+  const int wgi = threadIdx.x / 128, wtid = threadIdx.x % 128, warp = wtid / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int key = warp * 16 + g;  // this thread's keys: key and key + 8 of the block
+  unsigned char* const pt_hi = base + (spt - skv) + wgi * 2 * Dkv::PT;  // P^T (wg 0) or dS^T (wg 1)
+  unsigned char* const pt_lo = pt_hi + Dkv::PT;
+  const uint32_t pt_hi_s = spt + wgi * 2 * Dkv::PT, pt_lo_s = pt_hi_s + Dkv::PT;
+  float* const pex = reinterpret_cast<float*>(base + (spex - skv));
+  uint32_t a_off[4];  // this thread's offsets in the stage's tiles for the transposed A (cols_a)
+  cols_offsets<QT>(a_off, warp * 16, lane);
+  int stage = 0, pb = 0;
+  uint32_t phase = 0, kv_phase = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int kb = t % n_kb, h = (t / n_kb) % nh, b = t / (n_kb * nh);
+    const int k0 = kb * RB;
+    const int kseg0 = kvseg[(long long)b * Lk + k0 + key], kseg1 = kvseg[(long long)b * Lk + k0 + key + 8];
+    uint32_t fh[8][4], fl[8][4];  // K (wg 0) or V (wg 1): this warp's 16 keys over the head dim
+    mbar_wait(&kv_full, kv_phase);
+    kv_phase ^= 1;
+    rows_a<RB>(fh, fl, base + wgi * Dkv::KV_TILE, warp * 16, lane);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&kv_empty);  // this warp is done with the K and V buffer
+    float acc[8][4], part[8][4], s[4][4];  // dV^T or dK^T (head dim x keys); a stage's share; S^T or dP^T
+    uint32_t ah[4][4], al[4][4];           // dO^T (wg 0) or Q^T (wg 1) of a stage
+    zero(acc);
+    zero(part);
+    zero(s);
+    for (int qt = 0; qt < n_qt; ++qt) {
+      mbar_wait(&full[stage], phase);   // the rows' TMA bytes
+      mbar_wait(&ready[stage], phase);  // the split
+      const uint32_t st = sst + stage * Dkv::STAGE;
+      unsigned char* const stp = base + (st - skv);
+      const float* const rows = reinterpret_cast<const float*>(stp + 2 * Dkv::HI);  // m, 1 / l, di, seg
+      // S^T = K Q^T (wg 0) or dP^T = V dO^T (wg 1): B is the stage's Q or dO tile; under it, the
+      // transposed A of dV^T += dO^T P (wg 0) or dK^T += Q^T dS (wg 1) from the stage's other tile
+      const uint64_t d_hi = sw128_desc(st + wgi * Dkv::Q_TILE), d_lo = d_hi + Dkv::HI / 16;
+      issue3(s, fh, fl, [&](int kk) { return desc64<QT>(d_hi, kk); }, [&](int kk) { return desc64<QT>(d_lo, kk); });
+      const unsigned char* const a_hi = stp + (1 - wgi) * Dkv::Q_TILE;
+      cols_a(ah, al, a_hi, a_hi + Dkv::HI, a_off);
+      hopper::wgmma_wait<0>();
+      done(s, fh, fl);
+      float* const pbuf = pex + pb * (RB * QT);
+      if (wgi == 0) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int qi = 8 * j + 2 * t4;
+          const float2 mm = *reinterpret_cast<const float2*>(rows + qi);
+          const float2 il = *reinterpret_cast<const float2*>(rows + QT + qi);
+          const int2 sg = *reinterpret_cast<const int2*>(rows + 3 * QT + qi);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool odd = e & 1;
+            const float x = masked(s[j][e], scale, (e < 2 ? kseg0 : kseg1) == (odd ? sg.y : sg.x));
+            s[j][e] = __fmul_rn(wg::exp_p(x - (odd ? mm.y : mm.x)), odd ? il.y : il.x);
+          }
+        }
+        acc_to_b<RB>(pt_hi, pt_lo, s, warp * 16, lane);
+        to_thread(pbuf, s, wtid);
+        fence_proxy_async();
+        named_sync(1, 256);  // P ready for warpgroup 1; P^T for this warpgroup's tensor cores
+      } else {
+        named_sync(1, 256);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 dd = *reinterpret_cast<const float2*>(rows + 2 * QT + 8 * j + 2 * t4);
+          const float4 p = reinterpret_cast<const float4*>(pbuf)[j * 128 + wtid];  // to_thread's order
+          const float pj[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = __fmul_rn(__fmul_rn(__fsub_rn(s[j][e], (e & 1) ? dd.y : dd.x), pj[e]), scale);
+        }
+        acc_to_b<RB>(pt_hi, pt_lo, s, warp * 16, lane);
+        fence_proxy_async();
+        named_sync(2, 128);  // dS^T written by the whole warpgroup
+      }
+      // dV^T += dO^T P (wg 0) or dK^T += Q^T dS (wg 1)
+      const uint64_t p_hi = sw128_desc(pt_hi_s), p_lo = sw128_desc(pt_lo_s);
+      issue3(part, ah, al, [&](int kk) { return p_hi + 2 * kk; }, [&](int kk) { return p_lo + 2 * kk; });
+      hopper::wgmma_wait<0>();
+      done(part, ah, al);
+      add_rn(acc, part);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);  // this warp is done with the stage
+      pb ^= 1;
+      if (++stage == DKV_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    if (wgi == 0)
+      store_t(dV + b * vdv.sb + h * vdv.sh + (long long)k0 * vdv.sl, vdv.sl, acc, warp * 16, lane);
+    else
+      store_t(dK + b * vdk.sb + h * vdk.sh + (long long)k0 * vdk.sl, vdk.sl, acc, warp * 16, lane);
+  }
+}
+
+// ---- K13, route "tf32" ----
+
+struct Dq {
+  static constexpr uint32_t Q_TILE = 2 * RB * 128;   // a block's Q (or dO) rows: 16 KB
+  static constexpr uint32_t ROWS = 4 * RB * 4;       // m, 1 / l, di, segment ids
+  static constexpr uint32_t KV_TILE = 2 * KT * 128;  // a stage's K (or V) rows: 16 KB
+  static constexpr uint32_t HI = 2 * KV_TILE;        // K, V (hi after the split)
+  static constexpr uint32_t STAGE = 2 * HI + 1024;   // hi, lo, key segment ids
+  static constexpr uint32_t DS = 2 * RB * 128;       // dS hi (or lo): 64 query rows x 64 keys
+  static constexpr uint32_t PEX = RB * KT * 4;       // P for warpgroup 1, thread-major
+  static constexpr uint32_t smem = 1024 + 2 * Q_TILE + 1024 + DQ_STAGES * STAGE + 2 * DS + PEX;
+};
+static_assert(Dq::smem <= 232448 - 1024, "K13's route tf32 must fit a block's shared memory");
+
+__global__ void __launch_bounds__(384, 1)
+flash_dq_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                           const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+                           int heads_inner, const int* __restrict__ qseg, const int* __restrict__ kvseg,
+                           const float* __restrict__ inv_l, const float* __restrict__ m_in,
+                           const float* __restrict__ di_in, float* __restrict__ dQ, View vdq, int nh, int Lq, int Lk,
+                           int n_tiles, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[DQ_STAGES], ready[DQ_STAGES], empty[DQ_STAGES], q_full, q_empty;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sq = (raw + 1023u) & ~1023u;         // Q, dO: 64 rows each
+  const uint32_t srows = sq + 2 * Dq::Q_TILE;          // m, 1 / l, di, segment ids of the 64 rows
+  const uint32_t sst = srows + 1024;                   // [stage][hi: K, V][lo: K, V][key segment ids]
+  const uint32_t sds = sst + DQ_STAGES * Dq::STAGE;    // dS hi, lo
+  const uint32_t spex = sds + 2 * Dq::DS;              // P
+  unsigned char* const base = smem_raw + (sq - raw);
+  const int n_qb = Lq / RB, n_kt = Lk / KT;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], SPLIT_THREADS);
+      mbar_init(&empty[s], 2 * 4);
+    }
+    mbar_init(&q_full, 1);
+    mbar_init(&q_empty, 2 * 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- producer: thread 256 keeps Q, dO, their rows and the K/V ring full; warps 9-11 split each stage ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");  // its TMA loop and the split
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0, q_phase = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        const int qb = t % n_qb, h = (t / n_qb) % nh, b = t / (n_qb * nh);
+        const long long rows0 = ((long long)b * nh + h) * Lq + qb * RB;
+        mbar_wait(&q_empty, q_phase ^ 1);
+        q_phase ^= 1;
+        mbar_expect_tx(&q_full, 2 * Dq::Q_TILE + Dq::ROWS);
+        tma_tile<RB>(sq, &map_q, heads_inner & 1, h, qb * RB, b, &q_full);
+        tma_tile<RB>(sq + Dq::Q_TILE, &map_do, heads_inner & 8, h, qb * RB, b, &q_full);
+        wg::bulk_load(srows, m_in + rows0, RB * 4, &q_full);
+        wg::bulk_load(srows + RB * 4, inv_l + rows0, RB * 4, &q_full);
+        wg::bulk_load(srows + 2 * RB * 4, di_in + rows0, RB * 4, &q_full);
+        wg::bulk_load(srows + 3 * RB * 4, qseg + (long long)b * Lq + qb * RB, RB * 4, &q_full);
+        for (int kt = 0; kt < n_kt; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], Dq::HI + KT * 4);
+          const uint32_t st = sst + stage * Dq::STAGE;
+          tma_tile<KT>(st, &map_k, heads_inner & 2, h, kt * KT, b, &full[stage]);
+          tma_tile<KT>(st + Dq::KV_TILE, &map_v, heads_inner & 4, h, kt * KT, b, &full[stage]);
+          wg::bulk_load(st + 2 * Dq::HI, kvseg + (long long)b * Lk + kt * KT, KT * 4, &full[stage]);
+          if (++stage == DQ_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    } else if (threadIdx.x >= 288) {
+      const int si = threadIdx.x - 288;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x)
+        for (int kt = 0; kt < n_kt; ++kt) {
+          mbar_wait(&full[stage], phase);
+          split_tiles(base + (sst - sq) + stage * Dq::STAGE, Dq::HI, Dq::HI, si);
+          mbar_arrive(&ready[stage]);
+          if (++stage == DQ_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup 0 the S side (S, P), warpgroup 1 the dP side (dP, dS); dQ^T halved between them ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+  const int wgi = threadIdx.x / 128, wtid = threadIdx.x % 128, warp = wtid / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row = warp * 16 + g;  // this thread's query rows: row and row + 8 of the block
+  const float* const rows = reinterpret_cast<const float*>(base + (srows - sq));
+  unsigned char* const ds_hi = base + (sds - sq);
+  unsigned char* const ds_lo = ds_hi + Dq::DS;
+  float* const pex = reinterpret_cast<float*>(base + (spex - sq));
+  uint32_t a_off[4];  // this thread's offsets in the stage's K tile for the transposed A (cols_a)
+  cols_offsets<KT>(a_off, warp * 16, lane);
+  int stage = 0;
+  uint32_t phase = 0, q_phase = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int qb = t % n_qb, h = (t / n_qb) % nh, b = t / (n_qb * nh);
+    uint32_t fh[8][4], fl[8][4];  // Q (wg 0) or dO (wg 1): this warp's 16 rows over the head dim
+    mbar_wait(&q_full, q_phase);
+    q_phase ^= 1;
+    rows_a<RB>(fh, fl, base + wgi * Dq::Q_TILE, warp * 16, lane);
+    float m_row[2], il[2], di[2];
+    int seg[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m_row[r] = rows[row + 8 * r];
+      il[r] = rows[RB + row + 8 * r];
+      di[r] = rows[2 * RB + row + 8 * r];
+      seg[r] = reinterpret_cast<const int*>(rows)[3 * RB + row + 8 * r];
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&q_empty);  // this warp is done with the Q, dO and rows buffer
+    float acc[4][4], part[4][4], s[8][4];  // dQ^T (head dim x 32 query rows); a stage's share; S or dP
+    uint32_t ah[8][4], al[8][4];           // K^T of a stage
+    zero(acc);
+    zero(part);
+    zero(s);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      mbar_wait(&full[stage], phase);   // the key segment ids' TMA bytes
+      mbar_wait(&ready[stage], phase);  // the split
+      const uint32_t st = sst + stage * Dq::STAGE;
+      unsigned char* const stp = base + (st - sq);
+      // S = Q K^T (wg 0) or dP = dO V^T (wg 1): B is the stage's K or V tile; under it, the transposed A
+      // of dQ^T += K^T dS^T from the stage's K tile
+      const uint64_t d_hi = sw128_desc(st + wgi * Dq::KV_TILE), d_lo = d_hi + Dq::HI / 16;
+      issue3(s, fh, fl, [&](int kk) { return desc64<KT>(d_hi, kk); }, [&](int kk) { return desc64<KT>(d_lo, kk); });
+      cols_a(ah, al, stp, stp + Dq::HI, a_off);
+      hopper::wgmma_wait<0>();
+      done(s, fh, fl);
+      if (wgi == 0) {
+        const int* const kseg = reinterpret_cast<const int*>(stp + 2 * Dq::HI);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int2 ks = *reinterpret_cast<const int2*>(kseg + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const float x = masked(s[j][e], scale, seg[r] == ((e & 1) ? ks.y : ks.x));
+            s[j][e] = __fmul_rn(wg::exp_p(x - m_row[r]), il[r]);
+          }
+        }
+        to_thread(pex, s, wtid);
+        named_sync(1, 256);  // P ready for warpgroup 1
+      } else {
+        named_sync(1, 256);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 p = reinterpret_cast<const float4*>(pex)[j * 128 + wtid];  // to_thread's order
+          const float pj[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = __fmul_rn(__fmul_rn(__fsub_rn(s[j][e], di[e >> 1]), pj[e]), scale);
+        }
+        acc_to_b<RB>(ds_hi, ds_lo, s, warp * 16, lane);
+        fence_proxy_async();
+      }
+      named_sync(2, 256);  // dS written (and P read)
+      // dQ^T += K^T dS^T over this warpgroup's 32 query rows
+      const uint64_t dd_hi = sw128_desc(sds + wgi * 32 * 128), dd_lo = dd_hi + Dq::DS / 16;
+      issue3(part, ah, al, [&](int kk) { return desc64<RB>(dd_hi, kk); }, [&](int kk) { return desc64<RB>(dd_lo, kk); });
+      hopper::wgmma_wait<0>();
+      done(part, ah, al);
+      add_rn(acc, part);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);  // this warp is done with the stage
+      if (++stage == DQ_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    store_t(dQ + b * vdq.sb + h * vdq.sh + (long long)(qb * RB + wgi * 32) * vdq.sl, vdq.sl, acc, warp * 16, lane);
+  }
+}
+
+}  // namespace tf
 
 View view(const long long* s) { return View{s[0], s[1], s[2]}; }
 
@@ -1888,7 +2468,8 @@ int dq(const void* q, const void* k, const void* v, const int* qseg, const int* 
 
 
 // A (B, nh, L, 64) view with (batch, head, row) strides `s` in elements as a
-// 4-D tensor map cut into boxes of 64 x `box_rows` rows with the 128-byte
+// 4-D tensor map cut into boxes of one 128-byte row (64 bf16 or fp16, 32
+// fp32: an fp32 row is two boxes) x `box_rows` rows with the 128-byte
 // swizzle.  Its dims run (64, nh, L, B) when a head's rows lie further apart
 // than its heads do (the models' layout: heads-major views of (B, L, nh, 64)),
 // else (64, L, nh, B); `heads_inner` says which.  A dim of extent 1 takes the
@@ -1904,12 +2485,16 @@ bool make_rows_map(CUtensorMap* map, const void* ptr, int dtype, int B, int nh, 
   if (B == 1) sb = big;
   const bool hi = sh < sl;
   *heads_inner = hi;
+  const int eb = dtype == 2 ? 4 : 2;  // bytes an element
   const cuuint64_t dims[4] = {cuuint64_t(HD), cuuint64_t(hi ? nh : L), cuuint64_t(hi ? L : nh), cuuint64_t(B)};
-  const cuuint64_t strides[3] = {cuuint64_t(2 * (hi ? sh : sl)), cuuint64_t(2 * (hi ? sl : sh)), cuuint64_t(2 * sb)};
-  const cuuint32_t box[4] = {cuuint32_t(HD), hi ? 1u : box_rows, hi ? box_rows : 1u, 1u};
+  const cuuint64_t strides[3] = {cuuint64_t(eb * (hi ? sh : sl)), cuuint64_t(eb * (hi ? sl : sh)),
+                                 cuuint64_t(eb * sb)};
+  const cuuint32_t box[4] = {cuuint32_t(128 / eb), hi ? 1u : box_rows, hi ? box_rows : 1u, 1u};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return enc(map, dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 4,
-             const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const CUtensorMapDataType type = dtype == 0   ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                   : dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  return enc(map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -2030,34 +2615,6 @@ int fwd_fp32(const void* q, const void* k, const void* v, void* o, const int* qs
   return (int)cudaGetLastError();
 }
 
-int dkv_fp32(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg, const float* inv_l,
-             const float* m, const void* dout, const float* di, void* dk, void* dv, const long long* vq,
-             const long long* vk, const long long* vv, const long long* vdo, const long long* vdk,
-             const long long* vdv, int B, int nh, int Lq, int Lk, float scale, int device, cudaStream_t stream) {
-  static std::atomic<bool> smem_set[kMaxDevices];
-  const cudaError_t err = allow_smem(f32::flash_dkv_kernel, f32::DKV_SMEM, device, smem_set);
-  if (err != cudaSuccess) return (int)err;
-  f32::flash_dkv_kernel<<<dim3(Lk / f32::R, nh, B), f32::NT, f32::DKV_SMEM, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), qseg, kvseg, inv_l,
-      m, static_cast<const float*>(dout), di, static_cast<float*>(dk), static_cast<float*>(dv), view(vq), view(vk),
-      view(vv), view(vdo), view(vdk), view(vdv), nh, Lq, Lk, scale);
-  return (int)cudaGetLastError();
-}
-
-int dq_fp32(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg, const float* inv_l,
-            const float* m, const void* dout, const float* di, void* dq_, const long long* vq, const long long* vk,
-            const long long* vv, const long long* vdo, const long long* vdq, int B, int nh, int Lq, int Lk,
-            float scale, int device, cudaStream_t stream) {
-  static std::atomic<bool> smem_set[kMaxDevices];
-  const cudaError_t err = allow_smem(f32::flash_dq_kernel, f32::DQ_SMEM, device, smem_set);
-  if (err != cudaSuccess) return (int)err;
-  f32::flash_dq_kernel<<<dim3(Lq / f32::R, nh, B), f32::NT, f32::DQ_SMEM, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), qseg, kvseg, inv_l,
-      m, static_cast<const float*>(dout), di, static_cast<float*>(dq_), view(vq), view(vk), view(vv), view(vdo),
-      view(vdq), nh, Lq, Lk, scale);
-  return (int)cudaGetLastError();
-}
-
 int rows_fp32(const void* o, const void* dout, const float* l, float* di, float* inv_l, const long long* vo,
               const long long* vdo, int B, int nh, int L, cudaStream_t stream) {
   const long long n = (long long)B * nh * L;  // a multiple of 128: L is
@@ -2068,11 +2625,62 @@ int rows_fp32(const void* o, const void* dout, const float* l, float* di, float*
   return (int)cudaGetLastError();
 }
 
-// 0 if `route` is one the dtype takes: route 2 ("fp32") for dtype 2 (fp32),
-// routes 0 ("simple") and 1 ("wgmma") for bf16 and fp16.
-int check_route(int dtype, int route) {
-  if (route < 0 || route > 2 || (route == 2) != (dtype == 2)) return (int)cudaErrorInvalidValue;
-  return 0;
+// ---- route "tf32" launches (K12, K13) ----
+
+int dkv_tf32(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg, const float* inv_l,
+             const float* m, const void* dout, const float* di, void* dk, void* dv, const long long* vq,
+             const long long* vk, const long long* vv, const long long* vdo, const long long* vdk,
+             const long long* vdv, int B, int nh, int Lq, int Lk, float scale, int device, cudaStream_t stream) {
+  static std::atomic<bool> smem_set[kMaxDevices];
+  CUtensorMap mq, mk, mv, mo;
+  bool hq, hk, hv, ho;
+  if (!make_rows_map(&mq, q, 2, B, nh, Lq, vq, tf::QT, &hq) || !make_rows_map(&mk, k, 2, B, nh, Lk, vk, tf::RB, &hk) ||
+      !make_rows_map(&mv, v, 2, B, nh, Lk, vv, tf::RB, &hv) ||
+      !make_rows_map(&mo, dout, 2, B, nh, Lq, vdo, tf::QT, &ho))
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  if (int e = sm_count(device, &sms)) return e;
+  const cudaError_t err = allow_smem(tf::flash_dkv_tf32_wgmma_kernel, (int)tf::Dkv::smem, device, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)(Lk / tf::RB) * nh * B;
+  if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const int grid = int(tiles < sms ? tiles : sms);
+  tf::flash_dkv_tf32_wgmma_kernel<<<grid, 384, tf::Dkv::smem, stream>>>(
+      mq, mk, mv, mo, int(hq) | int(hk) << 1 | int(hv) << 2 | int(ho) << 3, qseg, kvseg, inv_l, m, di,
+      static_cast<float*>(dk), static_cast<float*>(dv), view(vdk), view(vdv), nh, Lq, Lk, int(tiles), scale);
+  return (int)cudaGetLastError();
+}
+
+int dq_tf32(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg, const float* inv_l,
+            const float* m, const void* dout, const float* di, void* dq_, const long long* vq, const long long* vk,
+            const long long* vv, const long long* vdo, const long long* vdq, int B, int nh, int Lq, int Lk,
+            float scale, int device, cudaStream_t stream) {
+  static std::atomic<bool> smem_set[kMaxDevices];
+  CUtensorMap mq, mk, mv, mo;
+  bool hq, hk, hv, ho;
+  if (!make_rows_map(&mq, q, 2, B, nh, Lq, vq, tf::RB, &hq) || !make_rows_map(&mk, k, 2, B, nh, Lk, vk, tf::KT, &hk) ||
+      !make_rows_map(&mv, v, 2, B, nh, Lk, vv, tf::KT, &hv) ||
+      !make_rows_map(&mo, dout, 2, B, nh, Lq, vdo, tf::RB, &ho))
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  if (int e = sm_count(device, &sms)) return e;
+  const cudaError_t err = allow_smem(tf::flash_dq_tf32_wgmma_kernel, (int)tf::Dq::smem, device, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)(Lq / tf::RB) * nh * B;
+  if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const int grid = int(tiles < sms ? tiles : sms);
+  tf::flash_dq_tf32_wgmma_kernel<<<grid, 384, tf::Dq::smem, stream>>>(
+      mq, mk, mv, mo, int(hq) | int(hk) << 1 | int(hv) << 2 | int(ho) << 3, qseg, kvseg, inv_l, m, di,
+      static_cast<float*>(dq_), view(vdq), nh, Lq, Lk, int(tiles), scale);
+  return (int)cudaGetLastError();
+}
+
+// 0 if `route` is one the dtype takes: routes 0 ("simple") and 1 ("wgmma")
+// for bf16 and fp16; for fp32, route 2 ("fp32") in the forward (K11) and
+// route 3 ("tf32") in the backward (K12, K13).
+int check_route(int dtype, int route, bool backward) {
+  const bool ok = dtype == 2 ? route == (backward ? 3 : 2) : (route == 0 || route == 1);
+  return ok ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -2094,7 +2702,7 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
                                 const long long* vv, const long long* vo, int B, int nh, int Lq, int Lk,
                                 float scale, int dtype, int route, int device, void* stream) {
   if (int e = check_shape(B, nh, Lq, Lk, dtype, device)) return e;
-  if (int e = check_route(dtype, route)) return e;
+  if (int e = check_route(dtype, route, false)) return e;
   if (!aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) || !aligned(o, vo)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
@@ -2117,8 +2725,10 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
 }
 
 // K12: dk and dv (like k and v) from q, k, v, do (like q), m and di (B, nh,
-// Lq) fp32, and l (route "simple") or 1 / l (routes "wgmma" and "fp32", from
-// flash_bwd_rows_launch) likewise; the one the route does not read may be null.
+// Lq) fp32, and l (route "simple") or 1 / l (routes "wgmma" and "tf32",
+// from flash_bwd_rows_launch) likewise; the one the route does not read may
+// be null.  Route 3 "tf32" (three TF32 products on wgmma) for fp32, 1
+// "wgmma" or 0 "simple" for bf16 and fp16.
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg,
                                     const float* l, const float* inv_l, const float* m, const void* dout,
                                     const float* di, void* dk, void* dv, const long long* vq, const long long* vk,
@@ -2126,14 +2736,14 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     const long long* vdv, int B, int nh, int Lq, int Lk, float scale, int dtype,
                                     int route, int device, void* stream) {
   if (int e = check_shape(B, nh, Lq, Lk, dtype, device)) return e;
-  if (int e = check_route(dtype, route)) return e;
+  if (int e = check_route(dtype, route, true)) return e;
   if (!aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) || !aligned(dout, vdo) || !aligned(dk, vdk) ||
       !aligned(dv, vdv) || (route != 0 && inv_l == nullptr) || (route == 0 && l == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
-    if (route == 2)
-      return dkv_fp32(q, k, v, qseg, kvseg, inv_l, m, dout, di, dk, dv, vq, vk, vv, vdo, vdk, vdv, B, nh, Lq, Lk,
+    if (route == 3)
+      return dkv_tf32(q, k, v, qseg, kvseg, inv_l, m, dout, di, dk, dv, vq, vk, vv, vdo, vdk, vdv, B, nh, Lq, Lk,
                       scale, device, s);
     if (route == 0)
       return dtype == 0 ? dkv<__nv_bfloat16>(q, k, v, qseg, kvseg, l, m, dout, di, dk, dv, vq, vk, vv, vdo, vdk,
@@ -2164,22 +2774,22 @@ extern "C" int flash_bwd_rows_launch(const void* o, const void* dout, const floa
 }
 
 // K13: dq (like q) from the same inputs: l (route "simple") or 1 / l (routes
-// "wgmma" and "fp32", from flash_bwd_rows_launch), as K12 takes them; the one
-// the route does not read may be null.
+// "wgmma" and "tf32", from flash_bwd_rows_launch), as K12 takes them;
+// the one the route does not read may be null; routes as K12's.
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg,
                                    const float* l, const float* inv_l, const float* m, const void* dout,
                                    const float* di, void* dq_, const long long* vq, const long long* vk,
                                    const long long* vv, const long long* vdo, const long long* vdq, int B, int nh,
                                    int Lq, int Lk, float scale, int dtype, int route, int device, void* stream) {
   if (int e = check_shape(B, nh, Lq, Lk, dtype, device)) return e;
-  if (int e = check_route(dtype, route)) return e;
+  if (int e = check_route(dtype, route, true)) return e;
   if (!aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) || !aligned(dout, vdo) || !aligned(dq_, vdq) ||
       (route != 0 && inv_l == nullptr) || (route == 0 && l == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
-    if (route == 2)
-      return dq_fp32(q, k, v, qseg, kvseg, inv_l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B, nh, Lq, Lk, scale,
+    if (route == 3)
+      return dq_tf32(q, k, v, qseg, kvseg, inv_l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B, nh, Lq, Lk, scale,
                      device, s);
     if (route == 0)
       return dtype == 0 ? dq<__nv_bfloat16>(q, k, v, qseg, kvseg, l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B, nh,

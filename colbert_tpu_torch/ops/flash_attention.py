@@ -36,9 +36,11 @@ once from o and do in their dtype, summed in fp32 in
 atomics, so every run gives the same bits).  On bf16 and fp16 inputs K11,
 K12 and K13 have two routes (:data:`ROUTES`): "wgmma", the default, and the
 first design, "simple", only when a caller asks for it; fp32 inputs take
-route "fp32" (:data:`FP32_ROUTE`: fp32 FMAs on the CUDA cores, the rows
-kernel too), and only they do.  K12 and K13 on routes "wgmma" and "fp32"
-read the rows kernel's 1 / l.  Each launch is counted in its
+route "fp32" (:data:`FP32_ROUTE`: fp32 FMAs on the CUDA cores) in K11 and
+the rows kernel, and route "tf32" (:data:`TF32_ROUTE`: each product as
+three TF32 products on the tensor cores) in K12 and K13, and only they do.
+K12 and K13 on routes "wgmma" and "tf32" read the rows kernel's 1 / l.
+Each launch is counted in its
 ``LaunchCounter`` (:data:`fwd_launches`, :data:`dkv_launches`,
 :data:`dq_launches`, :data:`rows_launches`, by route
 :data:`fwd_route_launches`, :data:`dkv_route_launches`,
@@ -165,20 +167,22 @@ def close_in_head_ulps(got: torch.Tensor, want: torch.Tensor) -> Tuple[float, fl
             float(err.max()))
 
 
-#: route "fp32" against the fp32 plain version: the largest error relative
-#: to each head vector's magnitude (:func:`fp32_head_rel`)
+#: routes "fp32" (K11) and "tf32" (K12, K13) against the fp32 plain
+#: version: the largest error relative to each head vector's magnitude
+#: (:func:`fp32_head_rel`)
 FP32_HEAD_REL = 1e-5
 
 
 def fp32_head_rel(got: torch.Tensor, want: torch.Tensor) -> float:
-    """How route "fp32" is held to the fp32 plain version: the largest error
-    over its head vector's largest magnitude, floored at 2^-3 of the
-    tensor's largest entry.  fp32 FMAs differ from the plain version only in
-    summation order and expf's last bit (~1e-6 of a row), but a query whose
-    segment holds few keys has ds = (dp - di) p from two fp32 sums of the
-    same 64 products, which cancel to fp32 noise (~eps |do| |v|) in either
-    order: the floor allows that noise, FP32_HEAD_REL / 8 of the tensor's
-    largest entry, and no more."""
+    """How routes "fp32" and "tf32" are held to the fp32 plain version: the
+    largest error over its head vector's largest magnitude, floored at 2^-3
+    of the tensor's largest entry.  fp32 FMAs differ from the plain version
+    only in summation order and expf's last bit (~1e-6 of a row), three TF32
+    products by the dropped lo * lo and lo's rounding besides (~2^-21 of a
+    product), but a query whose segment holds few keys has ds = (dp - di) p
+    from two fp32 sums of the same 64 products, which cancel to fp32 noise
+    (~eps |do| |v|) in either order: the floor allows that noise,
+    FP32_HEAD_REL / 8 of the tensor's largest entry, and no more."""
     a, b = got.float(), want.float()
     if a.shape != b.shape:
         raise ValueError(f"shapes {tuple(a.shape)} and {tuple(b.shape)} differ")
@@ -195,9 +199,11 @@ _resolved = None  # (forward, dK/dV, dQ, rows) C functions, see _fns
 #: K11's, K12's and K13's routes on bf16 and fp16: "wgmma" (every shape the
 #: kernels take) and the first design, "simple", on request only
 ROUTES = ("wgmma", "simple")
-#: the route of fp32 inputs (K11-K13 and the rows kernel)
+#: the route of fp32 inputs in K11 and the rows kernel
 FP32_ROUTE = "fp32"
-_ROUTE_CODES = {"simple": 0, "wgmma": 1, FP32_ROUTE: 2}
+#: K12's and K13's route for fp32 inputs: three TF32 products on wgmma
+TF32_ROUTE = "tf32"
+_ROUTE_CODES = {"simple": 0, "wgmma": 1, FP32_ROUTE: 2, TF32_ROUTE: 3}
 
 
 def kernel_refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Optional[str]:
@@ -281,13 +287,15 @@ def _segments(q_seg: torch.Tensor, kv_seg: torch.Tensor, device) -> Tuple[torch.
     return one(q_seg), one(kv_seg)
 
 
-def kernel_route(dtype: torch.dtype, route: Optional[str] = None) -> str:
-    """The route K11-K13 take for ``dtype``: ``route`` (bf16 and fp16:
-    "wgmma" if None, or "simple"; fp32: "fp32" only), else ValueError."""
+def kernel_route(dtype: torch.dtype, route: Optional[str] = None, backward: bool = False) -> str:
+    """The route K11 (``backward`` False) or K12 and K13 (True) take for
+    ``dtype``: ``route`` (bf16 and fp16: "wgmma" if None, or "simple"; fp32:
+    K11 "fp32" only, K12 and K13 "tf32" only), else ValueError."""
     if dtype == torch.float32:
-        if route not in (None, FP32_ROUTE):
-            raise ValueError(f"fp32 inputs take route {FP32_ROUTE!r} only, not {route!r}")
-        return FP32_ROUTE
+        want, what = (TF32_ROUTE, "backward") if backward else (FP32_ROUTE, "forward")
+        if route not in (None, want):
+            raise ValueError(f"fp32 inputs take the {what} route {want!r} only, not {route!r}")
+        return want
     route = route or "wgmma"
     if route not in ROUTES:
         raise ValueError(f"{dtype} inputs take the routes {ROUTES}, not {route!r}")
@@ -353,7 +361,7 @@ def _launch_rows(o, do, l):
 
 
 def _route_inv_l(route: str, l: torch.Tensor, inv_l: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """What K12's and K13's routes "wgmma" and "fp32" read in place of l:
+    """What K12's and K13's routes "wgmma" and "tf32" read in place of l:
     ``inv_l`` (1 / l, as :func:`_launch_rows` gives it; None: ``1 / l`` here);
     None for route "simple", which reads l."""
     if route == "simple":
@@ -364,9 +372,10 @@ def _route_inv_l(route: str, l: torch.Tensor, inv_l: Optional[torch.Tensor]) -> 
 def _launch_dkv(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di, route: Optional[str] = None,
                 inv_l: Optional[torch.Tensor] = None):
     """K12: (dk, dv), (B, nh, Lk, hd) views of (B, Lk, nh, hd) buffers.
-    Routes "wgmma" and "fp32" read 1 / l (:func:`_route_inv_l`)."""
+    ``route`` as :func:`kernel_route` takes it for the backward; routes
+    "wgmma" and "tf32" read 1 / l (:func:`_route_inv_l`)."""
     launch = _fns()[1]
-    route = kernel_route(q.dtype, route)
+    route = kernel_route(q.dtype, route, backward=True)
     q, k, v, q_seg, kv_seg, l, m, do, di = _backward_inputs(q, k, v, q_seg, kv_seg, l, m, do, di)
     inv_l = _route_inv_l(route, l, inv_l)
     B, nh, Lq, hd = q.shape
@@ -384,10 +393,10 @@ def _launch_dkv(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di, route: Op
 
 def _launch_dq(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di, route: Optional[str] = None,
                inv_l: Optional[torch.Tensor] = None):
-    """K13: dq, a (B, nh, Lq, hd) view of a (B, Lq, nh, hd) buffer.  Routes
-    "wgmma" and "fp32" read 1 / l (:func:`_route_inv_l`), as K12's do."""
+    """K13: dq, a (B, nh, Lq, hd) view of a (B, Lq, nh, hd) buffer; routes
+    as K12's, those but "simple" reading 1 / l (:func:`_route_inv_l`)."""
     launch = _fns()[2]
-    route = kernel_route(q.dtype, route)
+    route = kernel_route(q.dtype, route, backward=True)
     q, k, v, q_seg, kv_seg, l, m, do, di = _backward_inputs(q, k, v, q_seg, kv_seg, l, m, do, di)
     inv_l = _route_inv_l(route, l, inv_l)
     B, nh, Lq, hd = q.shape
@@ -463,10 +472,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_segment
 fwd_launches = LaunchCounter()
 dkv_launches = LaunchCounter()
 dq_launches = LaunchCounter()
-#: K11's, K12's and K13's launches by route (:data:`ROUTES` and :data:`FP32_ROUTE`)
+#: K11's launches by route (:data:`ROUTES`, :data:`FP32_ROUTE`), K12's and
+#: K13's (:data:`ROUTES`, :data:`TF32_ROUTE`)
 fwd_route_launches = {r: LaunchCounter() for r in (*ROUTES, FP32_ROUTE)}
-dkv_route_launches = {r: LaunchCounter() for r in (*ROUTES, FP32_ROUTE)}
-dq_route_launches = {r: LaunchCounter() for r in (*ROUTES, FP32_ROUTE)}
+dkv_route_launches = {r: LaunchCounter() for r in (*ROUTES, TF32_ROUTE)}
+dq_route_launches = {r: LaunchCounter() for r in (*ROUTES, TF32_ROUTE)}
 #: launches of the backward's rows kernel (di and 1 / l), all, and those on fp32 inputs
 rows_launches = LaunchCounter()
 rows_fp32_launches = LaunchCounter()

@@ -8,6 +8,7 @@ NVIDIA GPU, alone: ``chip_smoke.py``'s phase 8a without the rest of the script.
     python3 scripts/flash_variants.py --variant expf   # then phase 8a on a variant of the source
     python3 scripts/flash_variants.py --quick --probe k12_no_elementwise   # then times alone, no checks
     python3 scripts/flash_variants.py --quick --probe dq_stages4   # K13's ring
+    python3 scripts/flash_variants.py --quick --probe tf32_expf   # route "tf32" (fp32 K12, K13)
     python3 scripts/flash_variants.py --quick --stress 50   # the wrapper's path 50 times over garbage, bit-equal?
     python3 scripts/flash_variants.py --quick --train 4     # phase 8b, then phase 8e 4 times
     python3 scripts/flash_variants.py --quick --embedding 20 --trace 6 --lookup   # the embeddings' backward
@@ -40,7 +41,12 @@ retriever's shape, cold, in turns with the source as it is, and not
 checked: the ``k12_no_*`` variants take from K12 its elementwise work, its
 products, its dK/dV stores or its row inputs' loads, giving wrong numbers
 by design to split its time; ``stages4`` halves K12's ring and
-``dq_stages4`` K13's (8 64-key tiles).  With
+``dq_stages4`` K13's (8 64-key tiles).  The ``tf32_*`` variants are of
+route "tf32" (K12 and K13 on fp32 inputs), probed on fp32 inputs with
+their outputs held to the source's (``tf32_expf``: the exponential by
+expf; ``tf32_no_nan_clamp``: the split without its NaN clamp;
+``tf32_no_products`` and ``tf32_products_only`` take the products away or
+keep them alone, wrong numbers by design).  With
 ``--stress N``, the wrapper's forward and backward (K11, the rows kernel,
 K12, K13) at the retriever's and the CE's shapes N times, each after the
 allocator's blocks were filled with NaN, every output held bit-equal to the
@@ -129,6 +135,20 @@ K12_ROW_LOADS = """          bulk_load(rt, m_in + rows0 + qt * QT, QT * 4, &full
           bulk_load(rt + 2 * QT * 4, di_in + rows0 + qt * QT, QT * 4, &full[stage]);
           bulk_load(rt + 3 * QT * 4, qseg + (long long)b * Lq + qt * QT, QT * 4, &full[stage]);
 """
+# route "tf32"'s lines that its variants change
+TF32_EXP_K12 = "s[j][e] = __fmul_rn(wg::exp_p(x - (odd ? mm.y : mm.x)), odd ? il.y : il.x);"
+TF32_EXP_K13 = "s[j][e] = __fmul_rn(wg::exp_p(x - m_row[r]), il[r]);"
+TF32_SPLIT_K12 = "split_tiles(base + (sst - skv) + stage * Dkv::STAGE, Dkv::HI, Dkv::HI, si);"
+TF32_SPLIT_K13 = "split_tiles(base + (sst - sq) + stage * Dq::STAGE, Dq::HI, Dq::HI, si);"
+
+TF32_COLS_LOADS = ("      hi[kk][r] = *reinterpret_cast<const uint32_t*>(tile_hi + off[r] + kk * 8 * 128);\n"
+                   "      lo[kk][r] = *reinterpret_cast<const uint32_t*>(tile_lo + off[r] + kk * 8 * 128);")
+TF32_B_STORES = ("      *reinterpret_cast<uint32_t*>(tile_hi + off) = hi;\n"
+                 "      *reinterpret_cast<uint32_t*>(tile_lo + off) = lo;")
+TF32_TO_THREAD = "reinterpret_cast<float4*>(buf)[j * 128 + wtid] = make_float4(c[j][0], c[j][1], c[j][2], c[j][3]);"
+TF32_LO = "  lo = to_tf32(__int_as_float(min(__float_as_int(__fsub_rn(x, __uint_as_float(hi))), 0x7FFFEFFF)));"
+TF32_P_READS = ("const float4 p = reinterpret_cast<const float4*>(pbuf)[j * 128 + wtid];",
+                "const float4 p = reinterpret_cast<const float4*>(pex)[j * 128 + wtid];")
 #: name: (what it changes, [(a line of csrc/flash_attention.cu, found once, and what replaces it)])
 VARIANTS = {
     "rows128": ("K11 in 128-row blocks at every length",
@@ -146,6 +166,24 @@ VARIANTS = {
     "k12_no_row_loads": ("K12 without its row inputs' loads (wrong dK/dV)",
                          [("2 * QT_BYTES + DKV_ROWS_BYTES);", "2 * QT_BYTES);"), (K12_ROW_LOADS, "")]),
     "dq_stages4": ("K13's ring 4 key tiles deep", [("constexpr int DQ_STAGES = 8;", "constexpr int DQ_STAGES = 4;")]),
+    # route "tf32" (K12, K13 at fp32), probed at fp32; all but tf32_expf give wrong numbers by design
+    "tf32_expf": ("route \"tf32\"'s exponential by expf, in place of ex2.approx of x * log2(e)",
+                  [(TF32_EXP_K12, TF32_EXP_K12.replace("wg::exp_p(", "expf(")),
+                   (TF32_EXP_K13, TF32_EXP_K13.replace("wg::exp_p(", "expf("))]),
+    "tf32_no_nan_clamp": ("route \"tf32\"'s split without the clamp that keeps lo a NaN (NaN inputs then give "
+                          "finite gradients; the same bits for finite inputs)",
+                          [(TF32_LO, "  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));")]),
+    "tf32_no_products": ("route \"tf32\" without its wgmma products",
+                         [(f"for (int kk = 0; kk < KS; ++kk) mma<N>(d, {a}", f"for (int kk = 0; kk < 0; ++kk) mma<N>(d, {a}")
+                          for a in ("ah[kk], desc_lo(kk), kk);", "al[kk], desc(kk), 1);", "ah[kk], desc(kk), 1);")]),
+    "tf32_products_only": ("route \"tf32\" with its products, barriers and ring alone: no split, exponential, "
+                           "transposed loads or stores of P and dS",
+                           [(TF32_SPLIT_K12, ""), (TF32_SPLIT_K13, ""),
+                            (TF32_EXP_K12, TF32_EXP_K12.replace("wg::exp_p(", "(")),
+                            (TF32_EXP_K13, TF32_EXP_K13.replace("wg::exp_p(", "(")),
+                            (TF32_COLS_LOADS, "      hi[kk][r] = off[r];\n      lo[kk][r] = off[r];"),
+                            (TF32_B_STORES, ""), (TF32_TO_THREAD, "(void)buf;"),
+                            *[(a, "const float4 p = make_float4(0.f, 0.f, 0.f, 0.f);") for a in TF32_P_READS]]),
 }
 
 
@@ -231,8 +269,20 @@ def block_heights(device, label, shapes) -> None:
 
 
 def probe_times(device, label, names) -> None:
-    """K11, K12 and K13 route "wgmma" of the source as it is and of each
-    variant, cold at the retriever's shape, in turns (forward order, then reverse)."""
+    """K11, K12 and K13 of the source as it is and of each variant, cold at
+    the retriever's shape, in turns (forward order, then reverse): route
+    "wgmma" on bf16 inputs, and, for the variants of route "tf32"
+    (``tf32_*``), on fp32 inputs with segment lengths from 64 to 384, each
+    variant's dk, dv and dq held to the source's (``fp32_head_rel``)."""
+    import torch
+
+    for fp32 in (False, True):
+        chosen = [name for name in names if name.startswith("tf32_") == fp32]
+        if chosen:
+            _probe(device, label, chosen, torch.float32 if fp32 else torch.bfloat16)
+
+
+def _probe(device, label, names, dtype) -> None:
     import torch
 
     from colbert_tpu_torch.ops import flash_attention as fa
@@ -242,11 +292,16 @@ def probe_times(device, label, names) -> None:
         fns[name] = variant_fns(name)
     B, nh, L = 68, 12, 384
     g = torch.Generator(device).manual_seed(0)
-    heads = lambda: torch.randn((B, L, nh, 64), generator=g, device=device).to(torch.bfloat16).transpose(1, 2)
-    seg = torch.ones((B, L), dtype=torch.int32, device=device)
+    heads = lambda: torch.randn((B, L, nh, 64), generator=g, device=device).to(dtype).transpose(1, 2)
+    if dtype == torch.float32:
+        seg = (torch.arange(L, device=device)[None, :] < torch.randint(64, L + 1, (B, 1), generator=g,
+                                                                        device=device)).to(torch.int32)
+    else:
+        seg = torch.ones((B, L), dtype=torch.int32, device=device)
     copies = [(heads(), heads(), heads(), heads()) for _ in range(2)]
     o, l, m = fa._launch_forward(*copies[0][:3], seg, seg, chip_smoke.FLASH_SCALE)
     di, inv_l = fa._launch_rows(o, copies[0][3], l)
+    own = (*copies[0][:3], seg, seg, chip_smoke.FLASH_SCALE, l, m, copies[0][3], di)
     got = {name: {"K11": [], "K12": [], "K13": []} for name in fns}
     for name in [*fns, *reversed(fns)]:
         fa._resolved = fns[name]
@@ -258,10 +313,18 @@ def probe_times(device, label, names) -> None:
         got[name]["K11"].append(chip_smoke.time_ms(k11, warmup=4))
         got[name]["K12"].append(chip_smoke.time_ms(k12, warmup=4))
         got[name]["K13"].append(chip_smoke.time_ms(k13, warmup=4))
+    rel = {}
+    if dtype == torch.float32:
+        out = {}
+        for name, fn in fns.items():
+            fa._resolved = fn
+            out[name] = (*fa._launch_dkv(*own, inv_l=inv_l), fa._launch_dq(*own, inv_l=inv_l))
+        rel = {name: "; head_rel against the source " + str({w: fa.fp32_head_rel(a, b) for w, a, b in zip(
+            ("dk", "dv", "dq"), out[name], out["default"])}) for name in fns}
     fa._resolved = fns["default"]
     for name, t in got.items():
         chip_smoke.log(f"[probe] {name}: K11 {t['K11']} ms, K12 {t['K12']} ms, K13 {t['K13']} ms cold at ({B}, {nh}, "
-                       f"{L}, 64) [{label}]")
+                       f"{L}, 64) {str(dtype).removeprefix('torch.')}{rel.get(name, '')} [{label}]")
 
 
 def stress(device, label, n) -> None:

@@ -84,23 +84,52 @@ def _lanes_numpy(o, do):
 def test_every_shape_the_kernels_take_goes_to_wgmma(shape, dtype):
     """Route "wgmma" for every input the kernels take, bf16 and fp16 alike:
     the launches' default (no route given), K11's, K12's and K13's; "simple"
-    only on request; route "fp32" for fp32 inputs alone, and no other route
-    for them.  What they refuse, every route refuses: ``kernel_refusal`` runs
-    before any launch (``tests/test_torch_flash_attention.py::test_kernel_refusal_rule``)."""
+    only on request; route "fp32" (K11) and "tf32" (K12, K13) for fp32
+    inputs alone, and no other route for them.  What they refuse, every route refuses:
+    ``kernel_refusal`` runs before any launch
+    (``tests/test_torch_flash_attention.py::test_kernel_refusal_rule``)."""
     q = torch.zeros(shape, dtype=dtype)
     assert fa.kernel_refusal(q, q, q) is None
     for launch in (fa._launch_forward, fa._launch_dkv, fa._launch_dq):
         assert inspect.signature(launch).parameters["route"].default is None
     for launch in (fa._launch_dkv, fa._launch_dq):
         assert inspect.signature(launch).parameters["inv_l"].default is None
-    assert fa.kernel_route(dtype) == "wgmma" and fa.kernel_route(dtype, "simple") == "simple"
+    for backward in (False, True):
+        assert fa.kernel_route(dtype, backward=backward) == "wgmma"
+        assert fa.kernel_route(dtype, "simple", backward=backward) == "simple"
     assert fa.kernel_route(torch.float32) == fa.kernel_route(torch.float32, "fp32") == "fp32"
-    for bad_dtype, bad_route in ((dtype, "fp32"), (torch.float32, "wgmma"), (torch.float32, "simple")):
+    for bad_dtype, bad_route in ((dtype, "fp32"), (dtype, "tf32"), (torch.float32, "wgmma"),
+                                 (torch.float32, "simple"), (torch.float32, "tf32")):
         with pytest.raises(ValueError, match="route"):
             fa.kernel_route(bad_dtype, bad_route)
-    assert fa.ROUTES == ("wgmma", "simple") and fa.FP32_ROUTE == "fp32"
-    assert set(fa.fwd_route_launches) == set(fa.dkv_route_launches) == set(fa.dq_route_launches) == {
-        *fa.ROUTES, fa.FP32_ROUTE}
+    assert fa.ROUTES == ("wgmma", "simple") and fa.FP32_ROUTE == "fp32" and fa.TF32_ROUTE == "tf32"
+    assert set(fa.fwd_route_launches) == {*fa.ROUTES, fa.FP32_ROUTE}
+    assert set(fa.dkv_route_launches) == set(fa.dq_route_launches) == {*fa.ROUTES, fa.TF32_ROUTE}
+
+
+@pytest.mark.parametrize("dtype,route,backward,want", [
+    (torch.float32, None, True, "tf32"),     # the fp32 backward: "tf32" only
+    (torch.float32, "tf32", True, "tf32"),
+    (torch.float32, "fp32", True, None),
+    (torch.float32, None, False, "fp32"),    # the fp32 forward: "fp32" only
+    (torch.float32, "fp32", False, "fp32"),
+    (torch.float32, "tf32", False, None),
+    (torch.float32, "wgmma", True, None),
+    (torch.float32, "simple", True, None),
+    (torch.bfloat16, "tf32", True, None),    # bf16 and fp16 never take "tf32" or "fp32"
+    (torch.float16, "tf32", True, None),
+    (torch.bfloat16, "fp32", True, None),
+    (torch.float16, None, True, "wgmma"),
+])
+def test_fp32_backward_route_rule(dtype, route, backward, want):
+    """K12 and K13 (``backward``) give fp32 inputs route "tf32" only, K11
+    "fp32" only; bf16 and fp16 take neither; any other pairing raises
+    ValueError, before any launch."""
+    if want is None:
+        with pytest.raises(ValueError, match="route"):
+            fa.kernel_route(dtype, route, backward=backward)
+    else:
+        assert fa.kernel_route(dtype, route, backward=backward) == want
 
 
 def test_card_path_wires_di_and_inv_l(monkeypatch):
@@ -143,19 +172,20 @@ def test_card_path_wires_di_and_inv_l(monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
-@pytest.mark.parametrize("route", ["wgmma", "simple", "fp32"])
+@pytest.mark.parametrize("route", ["wgmma", "simple", "tf32"])
 @pytest.mark.parametrize("given_inv_l", [True, False])
 def test_dq_launch_arguments_by_route(monkeypatch, route, given_inv_l):
     """``_launch_dq`` hands the C entry point what K13's route reads, as
-    ``_launch_dkv`` hands K12's: route codes 1 ("wgmma", bf16) and 2 ("fp32",
-    fp32 inputs, dtype code 2) with 1 / l (the caller's, or ``1 / l``
-    computed when none is given) and route code 0 with l and a null 1 / l;
+    ``_launch_dkv`` hands K12's: route codes 1 ("wgmma", bf16) and 3
+    ("tf32", fp32 inputs, dtype code 2) with 1 / l (the caller's, or ``1 /
+    l`` computed when none is given) and route code 0 with l and a null 1 /
+    l;
     q's (batch, head, row) strides in the models' layout; dq a heads-major
     view; one launch counted in all and one by route.  The C entry point is
     stood in (it exists only where nvcc built it)."""
     B, nh, L = 2, 3, 256
     g = torch.Generator().manual_seed(3)
-    dtype = torch.float32 if route == "fp32" else torch.bfloat16
+    dtype = torch.float32 if route == "tf32" else torch.bfloat16
     q, k, v, do = (torch.randn((B, L, nh, 64), generator=g).to(dtype).transpose(1, 2) for _ in range(4))
     seg = torch.ones((B, L), dtype=torch.int32)
     l = torch.rand((B, nh, L), generator=g) + 1
@@ -173,7 +203,8 @@ def test_dq_launch_arguments_by_route(monkeypatch, route, given_inv_l):
     dq = fa._launch_dq(q, k, v, seg, seg, SCALE, l, m, do, di, route=route,
                        inv_l=inv_l if given_inv_l else None)
     a = got["args"]
-    assert len(a) == 25 and a[21] == int(route == "fp32") * 2 and a[22] == {"simple": 0, "wgmma": 1, "fp32": 2}[route]
+    codes = {"simple": 0, "wgmma": 1, "tf32": 3}
+    assert len(a) == 25 and a[21] == int(dtype == torch.float32) * 2 and a[22] == codes[route]
     assert a[5] == l.data_ptr() and a[7] == m.data_ptr() and a[9] == di.data_ptr() and a[10] == dq.data_ptr()
     if route == "simple":
         assert a[6] is None
@@ -186,7 +217,68 @@ def test_dq_launch_arguments_by_route(monkeypatch, route, given_inv_l):
     assert dq.shape == q.shape and dq.transpose(1, 2).is_contiguous()
     assert fa.dq_launches.value == before[0] + 1
     assert {r: c.value - before[1][r] for r, c in fa.dq_route_launches.items()} == {
-        r: int(r == route) for r in (*fa.ROUTES, fa.FP32_ROUTE)}
+        r: int(r == route) for r in (*fa.ROUTES, fa.TF32_ROUTE)}
+
+
+@pytest.mark.parametrize("route,want_code", [(None, 3), ("tf32", 3), ("fp32", None)])
+def test_fp32_dkv_launch_arguments_by_route(monkeypatch, route, want_code):
+    """``_launch_dkv`` on fp32 inputs: route code 3 ("tf32", also when none
+    is given), dtype code 2, the rows kernel's 1 / l passed on; dk and dv
+    heads-major views; one launch counted in all and one on "tf32".  Route
+    "fp32" (K11's) raises ValueError before any launch or count.  The C
+    entry point is stood in."""
+    B, nh, L = 2, 3, 256
+    g = torch.Generator().manual_seed(4)
+    q, k, v, do = (torch.randn((B, L, nh, 64), generator=g).transpose(1, 2) for _ in range(4))
+    seg = torch.ones((B, L), dtype=torch.int32)
+    l = torch.rand((B, nh, L), generator=g) + 1
+    m, di = torch.randn((B, nh, L), generator=g), torch.randn((B, nh, L), generator=g)
+    inv_l = torch.ones_like(l) / l
+    got = {}
+
+    def launch(*a):
+        got["args"] = a
+        return 0
+
+    monkeypatch.setattr(fa, "_fns", lambda: (None, launch, None, None))
+    monkeypatch.setattr(fa, "_device_stream", lambda t: (0, 0))
+    before = (fa.dkv_launches.value, {r: c.value for r, c in fa.dkv_route_launches.items()})
+    if want_code is None:
+        with pytest.raises(ValueError, match="route"):
+            fa._launch_dkv(q, k, v, seg, seg, SCALE, l, m, do, di, route=route, inv_l=inv_l)
+        assert not got and fa.dkv_launches.value == before[0]
+        assert {r: c.value for r, c in fa.dkv_route_launches.items()} == before[1]
+        return
+    dk, dv = fa._launch_dkv(q, k, v, seg, seg, SCALE, l, m, do, di, route=route, inv_l=inv_l)
+    a = got["args"]
+    assert len(a) == 27 and a[18:23] == (B, nh, L, L, SCALE) and a[23] == 2 and a[24] == want_code
+    assert a[5] == l.data_ptr() and a[6] == inv_l.data_ptr() and a[10] == dk.data_ptr() and a[11] == dv.data_ptr()
+    assert dk.shape == dv.shape == k.shape and dk.transpose(1, 2).is_contiguous() and dv.transpose(1, 2).is_contiguous()
+    assert fa.dkv_launches.value == before[0] + 1
+    assert {r: c.value - before[1][r] for r, c in fa.dkv_route_launches.items()} == {
+        r: int(r == "tf32") for r in fa.dkv_route_launches}
+
+
+@pytest.mark.parametrize("given_inv_l", [True, False])
+def test_fp32_dq_refuses_the_forward_route(monkeypatch, given_inv_l):
+    """``_launch_dq`` on fp32 inputs with route "fp32" (K11's) raises
+    ValueError before it reaches the C entry point or counts a launch,
+    whether or not 1 / l is given: K13 takes fp32 on route "tf32" only."""
+    B, nh, L = 2, 3, 256
+    g = torch.Generator().manual_seed(5)
+    q, k, v, do = (torch.randn((B, L, nh, 64), generator=g).transpose(1, 2) for _ in range(4))
+    seg = torch.ones((B, L), dtype=torch.int32)
+    l = torch.rand((B, nh, L), generator=g) + 1
+    m, di = torch.randn((B, nh, L), generator=g), torch.randn((B, nh, L), generator=g)
+    called = []
+    monkeypatch.setattr(fa, "_fns", lambda: (None, None, lambda *a: called.append(a) or 0, None))
+    monkeypatch.setattr(fa, "_device_stream", lambda t: (0, 0))
+    before = (fa.dq_launches.value, {r: c.value for r, c in fa.dq_route_launches.items()})
+    with pytest.raises(ValueError, match="route"):
+        fa._launch_dq(q, k, v, seg, seg, SCALE, l, m, do, di, route="fp32",
+                      inv_l=torch.ones_like(l) / l if given_inv_l else None)
+    assert not called and fa.dq_launches.value == before[0]
+    assert {r: c.value for r, c in fa.dq_route_launches.items()} == before[1]
 
 
 def test_cpu_path_keeps_flash_di():

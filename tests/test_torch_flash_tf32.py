@@ -1,0 +1,170 @@
+"""The method of route "tf32" of the flash backward (K12 and K13 on fp32
+inputs), checked on the CPU: is three TF32 products a product accurate
+enough for the fp32 backward?  A plain version of the backward with each
+fp32 product as three TF32 products (``tests/test_torch_maxsim.py::tf32x3``,
+the split of ``ops/maxsim.py::tf32_split``), at the kernels' blocks (K12's
+64 keys over 32-query stages, K13's 64 rows over 64-key stages, each
+stage's product over rows in a fresh sum added to the running one; the
+transposed outputs dV^T = dO^T P, dK^T = Q^T dS, dQ^T = K^T dS^T; P and dS
+split as they are written), is held to the JAX Pallas flash backward (the
+TPU kernels run as with ``interpret=True``) and to ``flash_backward_ref``.
+
+It is not an emulation of the kernels: it takes torch.exp where they take
+ex2.approx, sums each product in fp32 where the tensor cores truncate each
+k-step's sum, and keeps the rows' order where the kernels permute it (pos()
+in the .cu).  The kernels themselves are held to the plain version on the
+card (``tests/test_torch_kernels.py``).
+
+Limits: against JAX's gradients 1e-5 of each tensor's largest entry, as
+``tests/test_torch_flash_attention.py::test_plain_backward_matches_jax_grad``
+holds the fp32 plain version; against the plain version ``fa.FP32_HEAD_REL``
+of each head vector (``fa.fp32_head_rel``), the card's limit.  One TF32
+product (hi . hi alone) misses that limit: the check has teeth.
+"""
+
+import contextlib
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax._src import config as jax_config
+from jax.experimental.pallas.ops.tpu.flash_attention import SegmentIds
+from jax.experimental.pallas.ops.tpu.flash_attention import flash_attention as jax_flash
+
+from colbert_tpu_torch.ops import flash_attention as fa
+from tests.test_torch_maxsim import tf32x3
+
+torch.set_num_threads(2)
+# the first CPU exp after JAX can be off (tests/test_torch_flash_attention.py): made first here
+torch.exp(torch.zeros(8))
+torch.exp(torch.zeros(1 << 16))
+
+SCALE = 0.125
+KEYS_K12, QUERIES_K12 = 64, 32  # K12's block of keys and stage of queries
+ROWS_K13, KEYS_K13 = 64, 64     # K13's block of query rows and stage of keys
+
+
+@contextlib.contextmanager
+def interpret_pallas():
+    """Every ``pallas_call`` under it runs as with ``interpret=True``
+    (as ``tests/test_torch_flash_attention.py`` runs the JAX kernels)."""
+    prev = jax_config.pallas_tpu_interpret_mode_context_manager.swap_local(True)
+    try:
+        yield
+    finally:
+        jax_config.pallas_tpu_interpret_mode_context_manager.set_local(prev)
+
+
+def prod3(a: torch.Tensor, b: torch.Tensor, terms: int = 3) -> torch.Tensor:
+    """``a @ b`` as three TF32 products (``terms=1``: hi . hi alone)."""
+    return tf32x3("...ij,...jk->...ik", a, b, terms)
+
+
+def tf32x3_backward(q, k, v, q_seg, kv_seg, scale, l, m, do, di, terms=3):
+    """(dq, dk, dv) fp32 by three TF32 products a product at the kernels'
+    blocks (see the module docstring); ``terms=1`` keeps hi . hi alone."""
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    Lq, Lk = q.shape[2], k.shape[2]
+    inv_l = torch.ones_like(l) / l
+    T = lambda t: t.transpose(-1, -2)
+
+    def p_of(s, qs, ks, rows_are_keys):
+        if rows_are_keys:  # s is S^T: (keys, queries)
+            visible = kv_seg[:, None, ks, None] == q_seg[:, None, None, qs]
+            mm, il = m[:, :, None, qs], inv_l[:, :, None, qs]
+        else:
+            visible = q_seg[:, None, qs, None] == kv_seg[:, None, None, ks]
+            mm, il = m[:, :, qs, None], inv_l[:, :, qs, None]
+        return torch.exp(s * scale + torch.where(visible, 0.0, fa.MASK_VALUE) - mm) * il
+
+    dk, dv, dq = torch.zeros_like(k), torch.zeros_like(v), torch.zeros_like(q)
+    for k0 in range(0, Lk, KEYS_K12):  # K12
+        ks = slice(k0, k0 + KEYS_K12)
+        acc_dv = torch.zeros(q.shape[:2] + (q.shape[3], KEYS_K12))
+        acc_dk = torch.zeros_like(acc_dv)
+        for q0 in range(0, Lq, QUERIES_K12):
+            qs = slice(q0, q0 + QUERIES_K12)
+            p = p_of(prod3(k[:, :, ks], T(q[:, :, qs]), terms), qs, ks, True)
+            ds = (prod3(v[:, :, ks], T(do[:, :, qs]), terms) - di[:, :, None, qs]) * p * scale
+            acc_dv = acc_dv + prod3(T(do[:, :, qs]), T(p), terms)
+            acc_dk = acc_dk + prod3(T(q[:, :, qs]), T(ds), terms)
+        dv[:, :, ks], dk[:, :, ks] = T(acc_dv), T(acc_dk)
+    for q0 in range(0, Lq, ROWS_K13):  # K13
+        qs = slice(q0, q0 + ROWS_K13)
+        acc = torch.zeros(q.shape[:2] + (q.shape[3], ROWS_K13))
+        for k0 in range(0, Lk, KEYS_K13):
+            ks = slice(k0, k0 + KEYS_K13)
+            p = p_of(prod3(q[:, :, qs], T(k[:, :, ks]), terms), qs, ks, False)
+            ds = (prod3(do[:, :, qs], T(v[:, :, ks]), terms) - di[:, :, qs, None]) * p * scale
+            acc = acc + prod3(T(k[:, :, ks]), T(ds), terms)
+        dq[:, :, qs] = T(acc)
+    return dq, dk, dv
+
+
+def _inputs(seed, L, pad, B=2, nh=2, hd=64):
+    """q, k, v, the cotangent w (fp32, numpy) and segment ids: batch row 0
+    padded at ``pad`` (None: no padding), row 1 at L // 2 + 1."""
+    rng = np.random.default_rng(seed)
+    q, k, v, w = (rng.normal(0, 1, (B, nh, L, hd)).astype(np.float32) for _ in range(4))
+    seg = np.ones((B, L), np.int32)
+    if pad is not None:
+        seg[0, pad:] = 0
+    seg[1, L // 2 + 1:] = 0
+    return q, k, v, w, seg
+
+
+def _torch_backward(q, k, v, w, seg, **kw):
+    qt, kt, vt, do = (torch.from_numpy(x) for x in (q, k, v, w))
+    s = torch.from_numpy(seg)
+    o, l, m = fa.flash_forward_ref(qt, kt, vt, s, s, SCALE)
+    args = (qt, kt, vt, s, s, SCALE, l, m, do, fa.flash_di(o, do))
+    return tf32x3_backward(*args, **kw), fa.flash_backward_ref(*args)
+
+
+@pytest.mark.parametrize("L,pad", [(128, 100), (256, 129), (384, 200), (384, None)])
+def test_tf32_emulation_matches_jax_grad(L, pad):
+    """Three TF32 products a product against JAX's Pallas flash backward at
+    fp32 (jax.grad through the interpreted kernels), every position
+    compared."""
+    q, k, v, w, seg = _inputs(13 * L + (pad or 0), L, pad)
+    sj = jnp.asarray(seg)
+
+    def f(q, k, v):
+        o = jax_flash(q, k, v, segment_ids=SegmentIds(sj, sj), sm_scale=SCALE)
+        return jnp.sum(o.astype(jnp.float32) * jnp.asarray(w))
+
+    with interpret_pallas():
+        want = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    got, _ = _torch_backward(q, k, v, w, seg)
+    for name, g, wj in zip(("dq", "dk", "dv"), got, want):
+        wt = torch.from_numpy(np.array(wj))
+        assert g.dtype == torch.float32 and g.shape == wt.shape
+        assert float((g - wt).abs().max()) <= 1e-5 * float(wt.abs().max()), name
+
+
+@pytest.mark.parametrize("L,pad", [(128, 100), (256, 129), (384, 200), (384, 257)])
+def test_tf32_emulation_within_the_card_limit(L, pad):
+    """Three TF32 products a product against the fp32 plain version within
+    ``fa.FP32_HEAD_REL`` of each head vector, the limit the card's kernels
+    are held to; hi . hi alone misses it by far (TF32's 11 bits: ~1e-3)."""
+    q, k, v, w, seg = _inputs(17 * L + pad, L, pad)
+    got, want = _torch_backward(q, k, v, w, seg)
+    one, _ = _torch_backward(q, k, v, w, seg, terms=1)
+    for name, g, o, r in zip(("dq", "dk", "dv"), got, one, want):
+        assert fa.fp32_head_rel(g, r) <= fa.FP32_HEAD_REL, name
+        assert fa.fp32_head_rel(o, r) > 10 * fa.FP32_HEAD_REL, name
+
+
+def test_tf32_emulation_blocks_cover_the_kernels_shapes():
+    """The plain version's blocks are the kernels' (``csrc/flash_attention.cu``,
+    namespace tf): K12 64 keys and 32-query stages, K13 64 rows and 64-key
+    stages; every length the kernels take (a multiple of 128) is whole
+    blocks and stages of both."""
+    text = (Path(fa.__file__).resolve().parents[1] / "csrc" / "flash_attention.cu").read_text()
+    for line in ("constexpr int RB = 64;", "constexpr int QT = 32;", "constexpr int KT = 64;"):
+        assert line in text, line
+    for L in (128, 256, 384, 512):
+        assert L % KEYS_K12 == L % QUERIES_K12 == L % ROWS_K13 == L % KEYS_K13 == 0

@@ -1216,11 +1216,13 @@ def test_flash_rows_kernel(cuda_device, B, nh, L, dtype):
 @pytest.mark.parametrize("B,nh,L,layout", [(68, 12, 384, "heads"), (3, 2, 128, "contiguous"),
                                            (4, 3, 256, "unseen")])
 def test_flash_fp32_route_matches_plain(cuda_device, B, nh, L, layout):
-    """Route "fp32" of K11, K12 and K13 and the rows kernel on fp32 inputs
-    against the fp32 plain versions (TF32 off) within fa.FP32_HEAD_REL of each
-    head vector (fp32 FMAs: only the summation order and expf's last bit
-    differ), l within 1e-6 relative, m within 1e-6; two runs bit-equal; each
-    launch counted on route "fp32" and on no other."""
+    """Route "fp32" of K11 and the rows kernel and route "tf32" of K12 and
+    K13 (three TF32 products on wgmma) on fp32 inputs against the fp32 plain
+    versions (TF32 off) within fa.FP32_HEAD_REL of each head vector (fp32
+    FMAs: only the summation order and expf's last bit differ; three TF32
+    products ~2^-21 of a product besides), l within 1e-6 relative, m within
+    1e-6; two runs bit-equal; each launch counted on the route taken and on
+    no other."""
     from colbert_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(cuda_device).manual_seed(B * L + nh + 1)
@@ -1244,29 +1246,63 @@ def test_flash_fp32_route_matches_plain(cuda_device, B, nh, L, layout):
     di, inv_l = fa._launch_rows(o, do, l)
     rdi = fa.flash_di(ro, do)
     bargs = (*args, rl, rm, do, rdi)
-    dk, dv = fa._launch_dkv(*bargs)
-    dq = fa._launch_dq(*bargs)
     want = fa.flash_backward_ref(*bargs)
     torch.cuda.synchronize()
-    assert o.dtype == dq.dtype == dk.dtype == dv.dtype == torch.float32
-    for what, got, ref in (("o", o, ro), ("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
-        assert fa.fp32_head_rel(got, ref) <= fa.FP32_HEAD_REL, what
+    assert o.dtype == torch.float32
+    assert fa.fp32_head_rel(o, ro) <= fa.FP32_HEAD_REL
     torch.testing.assert_close(l, rl, rtol=1e-6, atol=0)
     torch.testing.assert_close(m, rm, rtol=0, atol=1e-6)
     assert torch.equal(di, fa.flash_di_card_order(o, do)) and torch.equal(inv_l, torch.ones_like(l) / l)
-    assert all(torch.equal(a, b) for a, b in zip((o, l, m, dk, dv, dq), (*fa._launch_forward(*args),
-                                                                         *fa._launch_dkv(*bargs), fa._launch_dq(*bargs))))
+    assert all(torch.equal(a, b) for a, b in zip((o, l, m), fa._launch_forward(*args)))
+    dk, dv = fa._launch_dkv(*bargs)
+    dq = fa._launch_dq(*bargs)
     torch.cuda.synchronize()
-    for n, d in counters.items():
-        assert {r: c.value - before[n][r] for r, c in d.items()} == {"wgmma": 0, "simple": 0, "fp32": 2}, n
+    assert dq.dtype == dk.dtype == dv.dtype == torch.float32
+    for what, got, ref in (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
+        assert fa.fp32_head_rel(got, ref) <= fa.FP32_HEAD_REL, what
+    assert all(torch.equal(a, b) for a, b in zip((dk, dv, dq), (*fa._launch_dkv(*bargs), fa._launch_dq(*bargs))))
+    torch.cuda.synchronize()
+    assert {r: c.value - before["fwd"][r] for r, c in counters["fwd"].items()} == {"wgmma": 0, "simple": 0, "fp32": 2}
+    for n in ("dkv", "dq"):
+        assert {r: c.value - before[n][r] for r, c in counters[n].items()} == {"wgmma": 0, "simple": 0, "tf32": 2}, n
+
+
+@pytest.mark.parametrize("B,nh,L", [(3, 2, 128), (4, 3, 384)])
+def test_flash_tf32_route_keeps_nan(cuda_device, B, nh, L):
+    """K12 and K13 on route "tf32" carry a NaN in q (0xFFFFFFFF) and one in do
+    (0x7FFFFFFF, the card's canonical NaN) where the fp32 plain version
+    carries them: the NaN positions of dq, dk and dv equal
+    flash_backward_ref's on the same inputs (its l, m and di), and every other
+    entry is within fa.FP32_HEAD_REL of it."""
+    from colbert_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(cuda_device).manual_seed(B * L + nh)
+    q, k, v, do = (torch.randn((B, L, nh, 64), generator=g, device=cuda_device).transpose(1, 2) for _ in range(4))
+    q.view(torch.int32)[1, 0, 5, 17] = -1                    # 0xFFFFFFFF: rounds to +0.0 as an integer
+    do.view(torch.int32)[2, nh - 1, L - 7, 40] = 0x7FFFFFFF  # the canonical NaN: rounds to -0.0
+    seg = (torch.arange(L, device=cuda_device)[None, :] < torch.tensor([L, L - 9, 70, 100][:B],
+                                                                          device=cuda_device)[:, None]).int()
+    args = (q, k, v, seg, seg, 0.125)
+    ro, rl, rm = fa.flash_forward_ref(*args)
+    bargs = (*args, rl, rm, do, fa.flash_di(ro, do))
+    want = fa.flash_backward_ref(*bargs)
+    dk, dv = fa._launch_dkv(*bargs)
+    got = (fa._launch_dq(*bargs), dk, dv)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("dq", "dk", "dv"), got, want):
+        nan = torch.isnan(b)
+        assert bool(nan.any()) and not bool(nan.all()), what
+        assert torch.equal(torch.isnan(a), nan), what
+        assert fa.fp32_head_rel(a.masked_fill(nan, 0.0), b.masked_fill(nan, 0.0)) <= fa.FP32_HEAD_REL, what
 
 
 @pytest.mark.parametrize("L", [128, 384])
 def test_flash_fp32_autograd_never_reaches_the_plain_version(cuda_device, monkeypatch, L):
-    """The autograd function on fp32 CUDA tensors runs route "fp32" (K11, the
-    rows kernel, K12, K13), never the plain versions (patched to raise here),
-    and its gradients agree with the plain autograd pair's within
-    fa.FP32_HEAD_REL of each head vector."""
+    """The autograd function on fp32 CUDA tensors runs route "fp32" for K11
+    and the rows kernel and route "tf32" for K12 and K13, never the plain
+    versions (patched to raise here), and its gradients
+    agree with the plain autograd pair's within fa.FP32_HEAD_REL of each head
+    vector."""
     from colbert_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(cuda_device).manual_seed(L)
@@ -1281,15 +1317,14 @@ def test_flash_fp32_autograd_never_reaches_the_plain_version(cuda_device, monkey
         raise AssertionError("the plain version ran on the card")
     for name in ("flash_forward_ref", "flash_backward_ref", "flash_di"):
         monkeypatch.setattr(fa, name, refuse)
-    before = (fa.fwd_route_launches["fp32"].value, fa.dkv_route_launches["fp32"].value,
-              fa.dq_route_launches["fp32"].value, fa.rows_fp32_launches.value)
+    counters = (fa.fwd_route_launches["fp32"], fa.dkv_route_launches["tf32"], fa.dq_route_launches["tf32"],
+                fa.rows_fp32_launches)
+    before = [c.value for c in counters]
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
     out = fa.flash_attention(*leaves, seg, seg, 0.125)
     out.backward(do)
     torch.cuda.synchronize()
-    after = (fa.fwd_route_launches["fp32"].value, fa.dkv_route_launches["fp32"].value,
-             fa.dq_route_launches["fp32"].value, fa.rows_fp32_launches.value)
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1]
+    assert [c.value - b for c, b in zip(counters, before)] == [1, 1, 1, 1]
     assert fa.fp32_head_rel(out.detach(), ro) <= fa.FP32_HEAD_REL
     for leaf, w in zip(leaves, want):
         assert fa.fp32_head_rel(leaf.grad, w) <= fa.FP32_HEAD_REL

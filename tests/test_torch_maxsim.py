@@ -60,15 +60,21 @@ def test_maxsim_matches_pallas_interpret(nq, m, nd, n, h):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
 
 
+def tf32x3(spec, a, b, terms=3):
+    """``einsum(spec, a, b)`` as three TF32 products: ``a`` and ``b`` split
+    into TF32 (hi, lo) as the kernels split them (``ms.tf32_split``), hi.hi
+    + hi.lo + lo.hi, each product exact in fp32, sums in fp32; ``terms=1``
+    keeps hi.hi alone."""
+    (ah, al), (bh, bl) = ms.tf32_split(a), ms.tf32_split(b)
+    return sum(torch.einsum(spec, x, y) for x, y in ((ah, bh), (ah, bl), (al, bh))[:terms])
+
+
 def maxsim_tf32x3(Q, D, q_mask, d_mask):
-    """Route "tf32"'s arithmetic in plain torch: the masked inputs split
-    into TF32 (hi, lo) as the kernel splits them, hi.hi + hi.lo + lo.hi
-    (each product exact in fp32, sums in fp32), max over doc rows, sum over
-    query rows."""
+    """Route "tf32"'s arithmetic in plain torch: the masked inputs' products
+    as three TF32 products (``tf32x3``), max over doc rows, sum over query
+    rows."""
     Q, D = ms._apply_masks(Q, D, q_mask, d_mask)
-    (qh, ql), (dh, dl) = ms.tf32_split(Q), ms.tf32_split(D)
-    sim = sum(torch.einsum("qmh,dnh->qdmn", a, b) for a, b in ((qh, dh), (qh, dl), (ql, dh)))
-    return sim.amax(dim=-1).sum(dim=-1)
+    return tf32x3("qmh,dnh->qdmn", Q, D).amax(dim=-1).sum(dim=-1)
 
 
 @pytest.mark.parametrize("nq,m,nd,n,h", CASES)
