@@ -25,25 +25,33 @@
 // Route "wgmma" takes exp(x) as 2^(x log2 e) by the MUFU (ex2.approx, 2 ulps,
 // where the first design's expf has 1), from the same x = s - m.
 //
-// Route "fp32" (K11 and the rows kernel on fp32 inputs, and only they):
-// fp32 FMAs on the CUDA cores, described with its kernels below (namespace
+// Route "fp32" (the rows kernel on fp32 inputs, and only it): fp32
+// arithmetic on the CUDA cores, described with its kernel below (namespace
 // f32).
 //
-// Route "tf32" (K12 and K13 on fp32 inputs, and only they): each fp32
+// Route "tf32" (K11, K12 and K13 on fp32 inputs, and only they): each fp32
 // product as three TF32 products (hi hi + hi lo + lo hi, hi = tf32(x), lo =
 // tf32(x - hi), rounded as cvt.rna rounds) on wgmma m64nNk8 .tf32, fp32
 // accumulators; the rest of the arithmetic the plain version's but for the
-// exponential, route "wgmma"'s ex2.approx.  Persistent blocks of 384 threads: a
+// exponential, route "wgmma"'s ex2.approx, and K11's online softmax, which
+// steps over 64-key stages (the same m; l and o to fp32 rounding).
+// Persistent blocks of 384 threads: a
 // producer warpgroup (one thread feeding a TMA ring on mbarriers, its other
 // three warps splitting each landed fp32 tile in place into hi and a lo twin)
-// and two consumer warpgroups, one the S side (S, p), one the dP side (dP,
-// ds), P crossing between them through shared memory.  .tf32 has no
+// and two consumer warpgroups.  .tf32 has no
 // transpose bit, so every shared-memory operand is K-major: the head-dim
-// products read the split TMA tiles as B; the row products give transposed
+// products read the split TMA tiles as B; K11's O = P V reads V^T, which the
+// split warps write transposed; the backward's row products give transposed
 // outputs (dV^T = dO^T P, dK^T = Q^T dS, dQ^T = K^T dS^T) whose B is the P^T
 // or dS tile the kernel writes, split, and whose A is read transposed from
 // the split tiles into registers (the one transpose); outputs leave by 4-byte
-// stores of whole 32-byte sectors.  Where each operand lives:
+// stores of whole 32-byte sectors.  In K12 and K13 one consumer warpgroup is
+// the S side (S, p) and the other the dP side (dP, ds), P crossing between
+// them through shared memory.  Where each operand lives:
+//   K11 (128 query rows a block, one consumer warpgroup's 64 each; 64-key
+//        stages, 2 deep): Q -> A registers (split there) once a tile; K ->
+//        split B tile (S = Q K^T); V -> V^T split B tile (O = P V); P ->
+//        A registers straight from S's accumulators.
 //   K12 (64 keys a block, 32-query stages, 4 deep): K, V -> A registers
 //        (split there) once a tile; Q, dO -> split B tiles (S^T, dP^T) and
 //        transposed A (dK^T, dV^T); P^T, dS^T -> B tiles (64 x 32, hi, lo).
@@ -111,9 +119,9 @@
 // cores from shared memory without ldmatrix, and stores whole rows; what
 // stays is the exponentials' and the mask's issue slots and, in K12, the
 // dK/dV stores (PERF.md §6).  At fp32 (same shape, 495 TFLOP/s TF32): route
-// "tf32"'s three TF32 products in K12 0.373 ms and in K13 0.280 ms, above
-// fp32's bytes (K12 0.144 ms); as fp32 FMAs on the CUDA cores (67 TFLOP/s)
-// they would take 0.92 and 0.69 ms.
+// "tf32"'s three TF32 products in K11 0.187 ms, in K12 0.373 ms and in K13
+// 0.280 ms, above fp32's bytes (K11 0.096 ms, K12 0.144 ms); as fp32 FMAs on
+// the CUDA cores (67 TFLOP/s) they would take 0.46, 0.92 and 0.69 ms.
 
 #include <algorithm>
 #include <atomic>
@@ -1460,212 +1468,15 @@ flash_rows_kernel(const T* __restrict__ O, const T* __restrict__ dO, const float
 
 }  // namespace wg
 
-// ---- route "fp32": K11 and the rows kernel on fp32 inputs ----
+// ---- route "fp32": the rows kernel on fp32 inputs ----
 //
-// fp32 q, k, v (model.dtype "float32") take this route in K11 and the rows
-// kernel, and only they do (K12 and K13 take route "tf32", below).
-// Products and sums are fp32 FMAs on the CUDA cores (no TF32), so each
-// value agrees with the fp32 plain version to the summation order; the
-// mask, the online softmax over 128-key blocks, the saved l and m, di and
-// 1 / l are the other routes' (p keeps its fp32: rounding it to the input
-// type changes nothing).  256 threads a block; tiles of 64-float rows in
-// shared memory, padded to 68 floats.  A thread holds 4 rows x 8 columns
-// of S and 4 x 4 of O and reads its operands as float4s: one operand's 4
-// rows are the same for a half-warp (a broadcast), the other's rows lie 16
-// apart across it, so the padded rows fall on distinct banks.  P goes back
-// to shared memory, transposed, as the next product's operand; a half-warp
-// holds whole rows of S, so each row's max and sum finish with 4 shuffles.
-//   K11: 64 query rows a block (grid Lq / 64 x nh x B), 128-key tiles;
-//        S = Q K^T, the online softmax, P^T in the key tile's place, O +=
-//        P V.
-// Bounds at the retriever's doc pass (68, 12, 384, 64) fp32: K11's 4 L^2 hd
-// flops a head are 3.08e10, 0.46 ms at 67 TFLOP/s (0.19 ms as three TF32
-// products on the tensor cores), against 321 MB of q, k, v and o (0.096
-// ms): operations.
+// fp32 o and do (model.dtype "float32") take this route in the rows kernel
+// (K11, K12 and K13 take route "tf32", below): di from fp32 products and
+// sums on the CUDA cores, 1 / l once a row.
 
 namespace f32 {
 
-constexpr int LD = HD + 4;  // floats a tile row in shared memory
-constexpr int NT = 256;     // threads a block
-constexpr int R = 64;       // query rows a block
-constexpr int KT = 128;     // the key tile: the JAX block
-
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
-
-// Rows [0, N) of 64 floats from `g` (row stride `sl`) into a padded tile.
-template <int N>
-__device__ __forceinline__ void load_rows(float* tile, const float* g, long long sl, int tid) {
-#pragma unroll
-  for (int i = tid; i < N * (HD / 4); i += NT) {
-    const int r = i / (HD / 4), c = (i % (HD / 4)) * 4;
-    st4(tile + r * LD + c, ld4(g + r * sl + c));
-  }
-}
-
-__device__ __forceinline__ float half_max(float x) {
-#pragma unroll
-  for (int o = 8; o >= 1; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float half_sum(float x) {
-#pragma unroll
-  for (int o = 8; o >= 1; o >>= 1) x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// acc[a][e] += A[ra + a] . B[rb + 16 e] over the head dim (rows of padded tiles).
-template <int E>
-__device__ __forceinline__ void dots(float (&acc)[4][E], const float* A, int ra, const float* B, int rb) {
-#pragma unroll 4
-  for (int k = 0; k < HD; k += 4) {
-    float4 x[4], y[E];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) x[a] = ld4(A + (ra + a) * LD + k);
-#pragma unroll
-    for (int e = 0; e < E; ++e) y[e] = ld4(B + (rb + 16 * e) * LD + k);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        acc[a][e] = fmaf(x[a].x, y[e].x, acc[a][e]);
-        acc[a][e] = fmaf(x[a].y, y[e].y, acc[a][e]);
-        acc[a][e] = fmaf(x[a].z, y[e].z, acc[a][e]);
-        acc[a][e] = fmaf(x[a].w, y[e].w, acc[a][e]);
-      }
-  }
-}
-
-// out[a][c] += sum over n < N of P[n][ra + a] * V[n][cv + c]: P stored with
-// its summed index as rows (its 4 columns a half-warp's broadcast).
-template <int N>
-__device__ __forceinline__ void pv(float (&out)[4][4], const float* P, int ra, const float* V, int cv) {
-#pragma unroll 4
-  for (int n = 0; n < N; ++n) {
-    const float4 p = ld4(P + n * LD + ra), v = ld4(V + n * LD + cv);
-    const float pa[4] = {p.x, p.y, p.z, p.w}, vc[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) out[a][c] = fmaf(pa[a], vc[c], out[a][c]);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&c)[4][N]) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int e = 0; e < N; ++e) c[a][e] = 0.0f;
-}
-
-// Column e of a thread's 4-row tile as one float4.
-template <int N>
-__device__ __forceinline__ float4 column(const float (&c)[4][N], int e) {
-  return make_float4(c[0][e], c[1][e], c[2][e], c[3][e]);
-}
-
-// Rows r0 .. r0 + 3, columns c0 .. c0 + 3 of an output (row stride `sl`).
-__device__ __forceinline__ void store4(float* out, long long sl, const float (&c)[4][4]) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a) st4(out + a * sl, make_float4(c[a][0], c[a][1], c[a][2], c[a][3]));
-}
-
-constexpr int FWD_SMEM = (R + 2 * KT) * LD * 4 + KT * 4;
-
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const float* __restrict__ Q, const float* __restrict__ K, const float* __restrict__ V,
-                 float* __restrict__ O, const int* __restrict__ qseg, const int* __restrict__ kvseg,
-                 float* __restrict__ l_out, float* __restrict__ m_out, View vq, View vk, View vv, View vo, int nh,
-                 int Lq, int Lk, float scale) {
-  extern __shared__ __align__(16) float fsm[];
-  float* sQ = fsm;            // [64][LD]
-  float* sK = sQ + R * LD;    // [128][LD]: the key tile, then P^T
-  float* sV = sK + KT * LD;   // [128][LD]
-  int* sSeg = reinterpret_cast<int*>(sV + KT * LD);  // [128]
-  const int tid = threadIdx.x, rg = tid >> 4, kg = tid & 15;  // rows 4 rg + a; keys kg + 16 e
-  const int q0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
-  const float* Kb = K + b * vk.sb + h * vk.sh;
-  const float* Vb = V + b * vv.sb + h * vv.sh;
-  const int* kvs = kvseg + (long long)b * Lk;
-  const int n_tiles = Lk / KT;
-  int seg[4];
-  float m_run[4], l_run[4], acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    seg[a] = qseg[(long long)b * Lq + q0 + 4 * rg + a];
-    m_run[a] = -INFINITY;
-    l_run[a] = 0.0f;
-  }
-  zero(acc);
-  load_rows<R>(sQ, Q + b * vq.sb + h * vq.sh + (long long)q0 * vq.sl, vq.sl, tid);
-
-  for (int t = 0; t < n_tiles; ++t) {
-    load_rows<KT>(sK, Kb + (long long)t * KT * vk.sl, vk.sl, tid);
-    load_rows<KT>(sV, Vb + (long long)t * KT * vv.sl, vv.sl, tid);
-    if (tid < KT) sSeg[tid] = kvs[t * KT + tid];
-    __syncthreads();
-    float s[4][8];
-    zero(s);
-    dots<8>(s, sQ, 4 * rg, sK, kg);
-    float inv[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        s[a][e] = masked(s[a][e], scale, seg[a] == sSeg[kg + 16 * e]);
-        mx = fmaxf(mx, s[a][e]);
-      }
-      const float m_next = fmaxf(m_run[a], half_max(mx));
-      float sum = 0.0f;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        s[a][e] = expf(s[a][e] - m_next);
-        sum += s[a][e];
-      }
-      if (n_tiles == 1) {
-        // the JAX kernel's single-step form: p / l, o = (p / l) . v
-        l_run[a] = half_sum(sum);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) s[a][e] = __fdiv_rn(s[a][e], l_run[a]);
-        inv[a] = 1.0f;
-      } else {
-        const float l_corr = __fmul_rn(expf(m_run[a] - m_next), l_run[a]);
-        const float l_next = __fadd_rn(half_sum(sum), l_corr);
-        inv[a] = l_next == 0.0f ? 1.0f : __fdiv_rn(1.0f, l_next);
-        const float keep = __fmul_rn(l_corr, inv[a]);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] = __fmul_rn(acc[a][c], keep);
-        l_run[a] = l_next;
-      }
-      m_run[a] = m_next;
-    }
-    __syncthreads();  // every thread is done with the key tile: P^T takes its place
-#pragma unroll
-    for (int e = 0; e < 8; ++e) st4(sK + (kg + 16 * e) * LD + 4 * rg, column(s, e));
-    __syncthreads();
-    float o[4][4];
-    zero(o);
-    pv<KT>(o, sK, 4 * rg, sV, 4 * kg);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][c] = __fadd_rn(acc[a][c], __fmul_rn(o[a][c], inv[a]));
-    __syncthreads();  // P^T and V read before the next tile's copy
-  }
-
-  store4(O + b * vo.sb + h * vo.sh + (long long)(q0 + 4 * rg) * vo.sl + 4 * kg, vo.sl, acc);
-  if (kg == 0) {
-    const long long i = ((long long)b * nh + h) * Lq + q0 + 4 * rg;
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      l_out[i + a] = l_run[a];
-      m_out[i + a] = m_run[a];
-    }
-  }
-}
 
 // di and 1 / l of fp32 rows: 8 threads a row, each summing the products of
 // its 8 elements in order, then the partial sums pairwise by lane distance 4,
@@ -1697,7 +1508,7 @@ flash_rows_kernel(const float* __restrict__ O, const float* __restrict__ dO, con
 
 }  // namespace f32
 
-// ---- route "tf32": K12 and K13 on fp32 inputs, three TF32 products on wgmma ----
+// ---- route "tf32": K11, K12 and K13 on fp32 inputs, three TF32 products on wgmma ----
 //
 // Each fp32 product A . B is hi(A) hi(B) + hi(A) lo(B) + lo(A) hi(B), hi =
 // tf32(x) and lo = tf32(x - hi) rounded to nearest, ties away (maxsim.cu's
@@ -1731,7 +1542,8 @@ flash_rows_kernel(const float* __restrict__ O, const float* __restrict__ dO, con
 // each k-step's sum, so the large terms come last; the outputs sum each
 // stage in a fresh accumulator added to the running sum with round-to-
 // nearest (K3's lesson: one accumulator over 144 truncating k-steps drifts
-// by ~1e-5).  Two consumer warpgroups share the work of a block unequally
+// by ~1e-5).  K11 is described with its kernel, after K13's.  In K12 and
+// K13 two consumer warpgroups share the work of a block unequally
 // in kind but equally in products: warpgroup 0 holds the S side (K or Q in
 // A registers, p), warpgroup 1 the dP side (V or dO, ds); P crosses from
 // one to the other through shared memory, thread for thread (both hold the
@@ -1777,6 +1589,7 @@ constexpr int QT = 32;         // queries a K12 stage
 constexpr int KT = 64;         // keys a K13 stage
 constexpr int DKV_STAGES = 4;  // Q/dO stages in flight in K12
 constexpr int DQ_STAGES = 2;   // K/V stages in flight in K13
+constexpr int FWD_STAGES = 2;  // K/V stages in flight in K11
 constexpr int SPLIT_THREADS = 96;  // the producer warpgroup's warps 1-3
 
 // Byte offset of (row, col) in an R-row tile of fp32 rows of 64: two halves
@@ -2383,6 +2196,262 @@ flash_dq_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __gr
   }
 }
 
+// ---- K11, route "tf32" ----
+//
+// A block is two consumer warpgroups of 64 query rows (128, the JAX query
+// block) and the producer warpgroup, persistent over (query block, head,
+// batch) tiles, a head's query blocks adjacent.  The producer's thread 256
+// loads the block's Q rows once a tile and 64-key stages of K, V and the key
+// segment ids into a ring of FWD_STAGES; its warps 9-11 split each stage: K
+// in place (hi) with its lo twin, the B operand of S = Q K^T; V transposed
+// into V^T hi and lo tiles (split_t), the B operand of O = P V, with each
+// key at pos(key) of its 8-group, so that S's accumulator registers, once
+// exponentiated and split, are P's A fragments of the same k-step with no
+// shuffle.  A consumer takes its Q rows into A fragments once a tile (split
+// in registers) and then, a stage at a time: S = Q K^T (three TF32
+// products, 24 m64n64k8 wgmmas), the mask and the online softmax over the
+// stage's 64 keys in fp32 registers (a NaN-keeping max, ex2.approx), O's
+// running sum rescaled, P split into hi and lo A fragments, P V into S's
+// registers (a fresh accumulator, 24 wgmmas), added to O times 1 / l.  O
+// leaves by 8-byte stores of whole 32-byte sectors, l and m from the
+// accumulator rows' first lane.  No branch splits a commit from its wait;
+// the two consumer warpgroups share nothing but the ring: turns for them at
+// the tensor cores (named barriers, one's softmax under the other's
+// products) measured no faster (PERF.md §6).
+//
+// Bounds at the retriever's doc pass (68, 12, 384, 64): 4 L^2 hd flops a
+// head as three TF32 products, 9.2e10 at 495 TFLOP/s, 0.187 ms, against q,
+// k, v and o's 321 MB (0.096 ms).  A stage's shared-memory traffic a block:
+// the split reads 32 KB and writes 64 KB; the products read 192 KB of B
+// (K and V^T: lo once and hi twice for each warpgroup) against 3,072 cycles
+// of tensor-core time (48 m64n64k8 TF32 wgmmas a warpgroup).
+
+struct Fwd {
+  static constexpr int ROWS_BLK = 2 * RB;                // query rows a block
+  static constexpr uint32_t Q_TILE = 2 * ROWS_BLK * 128;  // the block's Q rows: 32 KB
+  static constexpr uint32_t KV_TILE = 2 * KT * 128;       // a stage's K (or V, or V^T) rows: 16 KB
+  // [K hi (the raw tile split in place), K lo, V raw, V^T hi, V^T lo, key segment ids]
+  static constexpr uint32_t K_LO = KV_TILE, V_RAW = 2 * KV_TILE, VT_HI = 3 * KV_TILE, VT_LO = 4 * KV_TILE,
+                            SEG = 5 * KV_TILE;
+  static constexpr uint32_t STAGE = 5 * KV_TILE + 1024;
+  static constexpr uint32_t smem = 1024 + Q_TILE + FWD_STAGES * STAGE;
+};
+static_assert(Fwd::smem <= 232448 - 1024, "K11's route tf32 must fit a block's shared memory");
+
+// max(a, b), NaN if either is: the plain version's amax and maximum keep a
+// NaN logit, fmaxf drops it.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float y;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(y) : "f"(a), "f"(b));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max_nan(float x) {
+  x = max_nan(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return max_nan(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// A raw 64-row tile of fp32 rows (one a key) split into the K-major B tiles
+// of its transpose, hi and lo: row h (the head dim) holds the 64 keys, key k
+// at column pos(k).  A warp takes 16 keys x two 16-byte chunks of one half a
+// turn: its reads (8 keys a quarter-warp) and its 4-byte writes (8 swizzled
+// chunks x 4 words) each hit distinct banks.
+__device__ __forceinline__ void split_t(const unsigned char* raw, unsigned char* t_hi, unsigned char* t_lo, int si) {
+  const int lane = si & 31;
+  for (int turn = si >> 5; turn < 32; turn += SPLIT_THREADS / 32) {
+    const int key = (turn & 3) * 16 + (lane & 15), half = (turn >> 2) & 1, cg = 2 * (turn >> 3) + (lane >> 4);
+    const float4 x = *reinterpret_cast<const float4*>(raw + half * (KT * 128) + key * 128 + (((cg ^ key) & 7) << 4));
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+    const int h0 = half * 32 + 4 * cg, col = pos(key);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t hi, lo;
+      split(xs[i], hi, lo);
+      const uint32_t off = at<RB>(h0 + i, col);
+      *reinterpret_cast<uint32_t*>(t_hi + off) = hi;
+      *reinterpret_cast<uint32_t*>(t_lo + off) = lo;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(384, 1)
+flash_fwd_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v, int heads_inner, float* __restrict__ O,
+                            View vo, const int* __restrict__ qseg, const int* __restrict__ kvseg,
+                            float* __restrict__ l_out, float* __restrict__ m_out, int nh, int Lq, int Lk,
+                            int n_tiles, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[FWD_STAGES], ready[FWD_STAGES], empty[FWD_STAGES], q_full, q_empty;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sq = (raw + 1023u) & ~1023u;  // Q: 128 rows
+  const uint32_t sst = sq + Fwd::Q_TILE;        // [stage][Fwd's tiles]
+  unsigned char* const base = smem_raw + (sq - raw);
+  const int n_qb = Lq / Fwd::ROWS_BLK, n_kt = Lk / KT;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < FWD_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], SPLIT_THREADS);
+      mbar_init(&empty[s], 2 * 4);
+    }
+    mbar_init(&q_full, 1);
+    mbar_init(&q_empty, 2 * 4);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- producer: thread 256 keeps Q and the K/V ring full; warps 9-11 split each stage ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");  // its TMA loop and the split
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0, q_phase = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+        const int qb = t % n_qb, h = (t / n_qb) % nh, b = t / (n_qb * nh);
+        mbar_wait(&q_empty, q_phase ^ 1);
+        q_phase ^= 1;
+        mbar_expect_tx(&q_full, Fwd::Q_TILE);
+        tma_tile<Fwd::ROWS_BLK>(sq, &map_q, heads_inner & 1, h, qb * Fwd::ROWS_BLK, b, &q_full);
+        for (int kt = 0; kt < n_kt; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], 2 * Fwd::KV_TILE + KT * 4);
+          const uint32_t st = sst + stage * Fwd::STAGE;
+          tma_tile<KT>(st, &map_k, heads_inner & 2, h, kt * KT, b, &full[stage]);
+          tma_tile<KT>(st + Fwd::V_RAW, &map_v, heads_inner & 4, h, kt * KT, b, &full[stage]);
+          wg::bulk_load(st + Fwd::SEG, kvseg + (long long)b * Lk + kt * KT, KT * 4, &full[stage]);
+          if (++stage == FWD_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    } else if (threadIdx.x >= 288) {
+      const int si = threadIdx.x - 288;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x)
+        for (int kt = 0; kt < n_kt; ++kt) {
+          mbar_wait(&full[stage], phase);
+          unsigned char* const stp = base + Fwd::Q_TILE + stage * Fwd::STAGE;
+          split_t(stp + Fwd::V_RAW, stp + Fwd::VT_HI, stp + Fwd::VT_LO, si);
+          split_tiles(stp, Fwd::KV_TILE, Fwd::K_LO, si);  // K, then the fence for both
+          mbar_arrive(&ready[stage]);
+          if (++stage == FWD_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 query rows each ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+  const int wgi = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = wgi * 64 + warp * 16;  // this warp's first row of the block: the thread's rows r0 + g and + 8
+  int stage = 0;
+  uint32_t phase = 0, q_phase = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int qb = t % n_qb, h = (t / n_qb) % nh, b = t / (n_qb * nh);
+    const int row = qb * Fwd::ROWS_BLK + r0 + g;  // the thread's first query row
+    const int seg0 = qseg[(long long)b * Lq + row], seg1 = qseg[(long long)b * Lq + row + 8];
+    uint32_t fh[8][4], fl[8][4];  // this warp's 16 Q rows over the head dim
+    mbar_wait(&q_full, q_phase);
+    q_phase ^= 1;
+    rows_a<Fwd::ROWS_BLK>(fh, fl, base, r0, lane);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&q_empty);  // this warp is done with the Q buffer
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
+    float acc[8][4], s[8][4];  // O (rows x head dim); S, then the stage's P V
+    zero(acc);
+    zero(s);
+    for (int kt = 0; kt < n_kt; ++kt) {
+      mbar_wait(&full[stage], phase);   // the key segment ids' TMA bytes
+      mbar_wait(&ready[stage], phase);  // the split
+      const uint32_t st = sst + stage * Fwd::STAGE;
+      const int* const kseg = reinterpret_cast<const int*>(base + (st - sq) + Fwd::SEG);
+      // S = Q K^T: B the stage's split K tile
+      const uint64_t dk = sw128_desc(st), dk_lo = dk + Fwd::K_LO / 16;
+      issue3(s, fh, fl, [&](int kk) { return desc64<KT>(dk, kk); }, [&](int kk) { return desc64<KT>(dk_lo, kk); });
+      hopper::wgmma_wait<0>();
+      done(s, fh, fl);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int2 ks = *reinterpret_cast<const int2*>(kseg + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = masked(s[j][e], scale, (e < 2 ? seg0 : seg1) == ((e & 1) ? ks.y : ks.x));
+          mx[e >> 1] = max_nan(mx[e >> 1], s[j][e]);
+        }
+      }
+      float m_next[2], sum[2] = {0.0f, 0.0f}, inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) m_next[r] = max_nan(m_run[r], quad_max_nan(mx[r]));
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = wg::exp_p(s[j][e] - m_next[e >> 1]);
+          sum[e >> 1] += s[j][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float l_corr = __fmul_rn(wg::exp_p(m_run[r] - m_next[r]), l_run[r]);
+        const float l_next = __fadd_rn(quad_sum(sum[r]), l_corr);
+        inv[r] = l_next == 0.0f ? 1.0f : __fdiv_rn(1.0f, l_next);
+        const float keep = __fmul_rn(l_corr, inv[r]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          acc[j][2 * r] = __fmul_rn(acc[j][2 * r], keep);
+          acc[j][2 * r + 1] = __fmul_rn(acc[j][2 * r + 1], keep);
+        }
+        l_run[r] = l_next;
+        m_run[r] = m_next[r];
+      }
+      // P's A fragments: accumulator columns 8kk + 2t and + 1 are A columns t and t + 4 (V^T's pos())
+      uint32_t ph[8][4], pl[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        split(s[kk][0], ph[kk][0], pl[kk][0]);
+        split(s[kk][2], ph[kk][1], pl[kk][1]);
+        split(s[kk][1], ph[kk][2], pl[kk][2]);
+        split(s[kk][3], ph[kk][3], pl[kk][3]);
+      }
+      // P V into S's registers: B the stage's split V^T tile
+      const uint64_t dv = sw128_desc(st + Fwd::VT_HI), dv_lo = dv + (Fwd::VT_LO - Fwd::VT_HI) / 16;
+      issue3(s, ph, pl, [&](int kk) { return desc64<RB>(dv, kk); }, [&](int kk) { return desc64<RB>(dv_lo, kk); });
+      hopper::wgmma_wait<0>();
+      done(s, ph, pl);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);  // this warp is done with the stage
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = __fadd_rn(acc[j][e], __fmul_rn(s[j][e], inv[e >> 1]));
+      if (++stage == FWD_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    float* const out = O + b * vo.sb + h * vo.sh + (long long)row * vo.sl;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<float2*>(out + 8 * j + 2 * t4) = make_float2(acc[j][0], acc[j][1]);
+      *reinterpret_cast<float2*>(out + 8 * vo.sl + 8 * j + 2 * t4) = make_float2(acc[j][2], acc[j][3]);
+    }
+    if (t4 == 0) {
+      const long long i = ((long long)b * nh + h) * Lq + row;
+      l_out[i] = l_run[0];
+      l_out[i + 8] = l_run[1];
+      m_out[i] = m_run[0];
+      m_out[i + 8] = m_run[1];
+    }
+  }
+}
+
 }  // namespace tf
 
 View view(const long long* s) { return View{s[0], s[1], s[2]}; }
@@ -2601,19 +2670,7 @@ int rows(const void* o, const void* dout, const float* l, float* di, float* inv_
   return (int)cudaGetLastError();
 }
 
-// ---- route "fp32" launches ----
-
-int fwd_fp32(const void* q, const void* k, const void* v, void* o, const int* qseg, const int* kvseg, float* l,
-             float* m, const long long* vq, const long long* vk, const long long* vv, const long long* vo, int B,
-             int nh, int Lq, int Lk, float scale, int device, cudaStream_t stream) {
-  static std::atomic<bool> smem_set[kMaxDevices];
-  const cudaError_t err = allow_smem(f32::flash_fwd_kernel, f32::FWD_SMEM, device, smem_set);
-  if (err != cudaSuccess) return (int)err;
-  f32::flash_fwd_kernel<<<dim3(Lq / f32::R, nh, B), f32::NT, f32::FWD_SMEM, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), qseg, kvseg, l, m, view(vq), view(vk), view(vv), view(vo), nh, Lq, Lk, scale);
-  return (int)cudaGetLastError();
-}
+// ---- route "fp32" launches (the rows kernel) ----
 
 int rows_fp32(const void* o, const void* dout, const float* l, float* di, float* inv_l, const long long* vo,
               const long long* vdo, int B, int nh, int L, cudaStream_t stream) {
@@ -2625,7 +2682,30 @@ int rows_fp32(const void* o, const void* dout, const float* l, float* di, float*
   return (int)cudaGetLastError();
 }
 
-// ---- route "tf32" launches (K12, K13) ----
+// ---- route "tf32" launches (K11, K12, K13) ----
+
+int fwd_tf32(const void* q, const void* k, const void* v, void* o, const int* qseg, const int* kvseg, float* l,
+             float* m, const long long* vq, const long long* vk, const long long* vv, const long long* vo, int B,
+             int nh, int Lq, int Lk, float scale, int device, cudaStream_t stream) {
+  static std::atomic<bool> smem_set[kMaxDevices];
+  CUtensorMap mq, mk, mv;
+  bool hq, hk, hv;
+  if (!make_rows_map(&mq, q, 2, B, nh, Lq, vq, tf::Fwd::ROWS_BLK, &hq) ||
+      !make_rows_map(&mk, k, 2, B, nh, Lk, vk, tf::KT, &hk) || !make_rows_map(&mv, v, 2, B, nh, Lk, vv, tf::KT, &hv))
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  if (int e = sm_count(device, &sms)) return e;
+  const cudaError_t err = allow_smem(tf::flash_fwd_tf32_wgmma_kernel, (int)tf::Fwd::smem, device, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const long long tiles = (long long)(Lq / tf::Fwd::ROWS_BLK) * nh * B;
+  if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const int grid = int(tiles < sms ? tiles : sms);
+  tf::flash_fwd_tf32_wgmma_kernel<<<grid, 384, tf::Fwd::smem, stream>>>(
+      mq, mk, mv, int(hq) | int(hk) << 1 | int(hv) << 2, static_cast<float*>(o), view(vo), qseg, kvseg, l, m, nh,
+      Lq, Lk, int(tiles), scale);
+  return (int)cudaGetLastError();
+}
+
 
 int dkv_tf32(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg, const float* inv_l,
              const float* m, const void* dout, const float* di, void* dk, void* dv, const long long* vq,
@@ -2676,10 +2756,9 @@ int dq_tf32(const void* q, const void* k, const void* v, const int* qseg, const 
 }
 
 // 0 if `route` is one the dtype takes: routes 0 ("simple") and 1 ("wgmma")
-// for bf16 and fp16; for fp32, route 2 ("fp32") in the forward (K11) and
-// route 3 ("tf32") in the backward (K12, K13).
-int check_route(int dtype, int route, bool backward) {
-  const bool ok = dtype == 2 ? route == (backward ? 3 : 2) : (route == 0 || route == 1);
+// for bf16 and fp16; route 3 ("tf32") for fp32, in K11, K12 and K13 alike.
+int check_route(int dtype, int route) {
+  const bool ok = dtype == 2 ? route == 3 : (route == 0 || route == 1);
   return ok ? 0 : (int)cudaErrorInvalidValue;
 }
 
@@ -2693,7 +2772,7 @@ extern "C" int flash_head_dim() { return HD; }
 // stride along the head dim, rows 16-byte aligned; segment ids (B, Lq) and
 // (B, Lk) int32, l and m (B, nh, Lq) fp32, all contiguous and 16-byte
 // aligned; Lq and Lk multiples of 128; dtype 0 bf16, 1 fp16, 2 fp32; route 1
-// "wgmma", 0 "simple" (the first design) for bf16 and fp16, 2 "fp32" for fp32.  `device` is the tensors' card:
+// "wgmma", 0 "simple" (the first design) for bf16 and fp16, 3 "tf32" for fp32.  `device` is the tensors' card:
 // made current for the launch if it is not, and the caller's restored after.
 // Returns a cudaError_t (0 on success, cudaErrorInvalidValue for a shape or
 // layout it does not take).
@@ -2702,11 +2781,11 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
                                 const long long* vv, const long long* vo, int B, int nh, int Lq, int Lk,
                                 float scale, int dtype, int route, int device, void* stream) {
   if (int e = check_shape(B, nh, Lq, Lk, dtype, device)) return e;
-  if (int e = check_route(dtype, route, false)) return e;
+  if (int e = check_route(dtype, route)) return e;
   if (!aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) || !aligned(o, vo)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
-    if (route == 2) return fwd_fp32(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk, scale, device, s);
+    if (route == 3) return fwd_tf32(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk, scale, device, s);
     if (route == 0)
       return dtype == 0 ? fwd<__nv_bfloat16>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk, scale,
                                              device, s)
@@ -2736,7 +2815,7 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     const long long* vdv, int B, int nh, int Lq, int Lk, float scale, int dtype,
                                     int route, int device, void* stream) {
   if (int e = check_shape(B, nh, Lq, Lk, dtype, device)) return e;
-  if (int e = check_route(dtype, route, true)) return e;
+  if (int e = check_route(dtype, route)) return e;
   if (!aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) || !aligned(dout, vdo) || !aligned(dk, vdk) ||
       !aligned(dv, vdv) || (route != 0 && inv_l == nullptr) || (route == 0 && l == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -2782,7 +2861,7 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, 
                                    const long long* vv, const long long* vdo, const long long* vdq, int B, int nh,
                                    int Lq, int Lk, float scale, int dtype, int route, int device, void* stream) {
   if (int e = check_shape(B, nh, Lq, Lk, dtype, device)) return e;
-  if (int e = check_route(dtype, route, true)) return e;
+  if (int e = check_route(dtype, route)) return e;
   if (!aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) || !aligned(dout, vdo) || !aligned(dq_, vdq) ||
       (route != 0 && inv_l == nullptr) || (route == 0 && l == nullptr))
     return (int)cudaErrorInvalidValue;

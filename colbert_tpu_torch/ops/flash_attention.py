@@ -36,11 +36,10 @@ once from o and do in their dtype, summed in fp32 in
 atomics, so every run gives the same bits).  On bf16 and fp16 inputs K11,
 K12 and K13 have two routes (:data:`ROUTES`): "wgmma", the default, and the
 first design, "simple", only when a caller asks for it; fp32 inputs take
-route "fp32" (:data:`FP32_ROUTE`: fp32 FMAs on the CUDA cores) in K11 and
-the rows kernel, and route "tf32" (:data:`TF32_ROUTE`: each product as
-three TF32 products on the tensor cores) in K12 and K13, and only they do.
-K12 and K13 on routes "wgmma" and "tf32" read the rows kernel's 1 / l.
-Each launch is counted in its
+route "tf32" (:data:`TF32_ROUTE`: each product as three TF32 products on
+the tensor cores) in K11, K12 and K13, and only it; the rows kernel reads
+fp32 o and do in fp32 on the CUDA cores.  K12 and K13 on routes "wgmma"
+and "tf32" read the rows kernel's 1 / l.  Each launch is counted in its
 ``LaunchCounter`` (:data:`fwd_launches`, :data:`dkv_launches`,
 :data:`dq_launches`, :data:`rows_launches`, by route
 :data:`fwd_route_launches`, :data:`dkv_route_launches`,
@@ -167,19 +166,19 @@ def close_in_head_ulps(got: torch.Tensor, want: torch.Tensor) -> Tuple[float, fl
             float(err.max()))
 
 
-#: routes "fp32" (K11) and "tf32" (K12, K13) against the fp32 plain
-#: version: the largest error relative to each head vector's magnitude
+#: route "tf32" (K11, K12, K13) against the fp32 plain version: the
+#: largest error relative to each head vector's magnitude
 #: (:func:`fp32_head_rel`)
 FP32_HEAD_REL = 1e-5
 
 
 def fp32_head_rel(got: torch.Tensor, want: torch.Tensor) -> float:
-    """How routes "fp32" and "tf32" are held to the fp32 plain version: the
-    largest error over its head vector's largest magnitude, floored at 2^-3
-    of the tensor's largest entry.  fp32 FMAs differ from the plain version
-    only in summation order and expf's last bit (~1e-6 of a row), three TF32
-    products by the dropped lo * lo and lo's rounding besides (~2^-21 of a
-    product), but a query whose segment holds few keys has ds = (dp - di) p
+    """How route "tf32" is held to the fp32 plain version: the largest
+    error over its head vector's largest magnitude, floored at 2^-3 of the
+    tensor's largest entry.  Three TF32 products differ from the plain
+    version in summation order, the exponential's last bits, the dropped lo
+    * lo and lo's rounding (~2^-21 of a product), but a query whose segment
+    holds few keys has ds = (dp - di) p
     from two fp32 sums of the same 64 products, which cancel to fp32 noise
     (~eps |do| |v|) in either order: the floor allows that noise,
     FP32_HEAD_REL / 8 of the tensor's largest entry, and no more."""
@@ -199,11 +198,9 @@ _resolved = None  # (forward, dK/dV, dQ, rows) C functions, see _fns
 #: K11's, K12's and K13's routes on bf16 and fp16: "wgmma" (every shape the
 #: kernels take) and the first design, "simple", on request only
 ROUTES = ("wgmma", "simple")
-#: the route of fp32 inputs in K11 and the rows kernel
-FP32_ROUTE = "fp32"
-#: K12's and K13's route for fp32 inputs: three TF32 products on wgmma
+#: K11's, K12's and K13's route for fp32 inputs: three TF32 products on wgmma
 TF32_ROUTE = "tf32"
-_ROUTE_CODES = {"simple": 0, "wgmma": 1, FP32_ROUTE: 2, TF32_ROUTE: 3}
+_ROUTE_CODES = {"simple": 0, "wgmma": 1, TF32_ROUTE: 3}
 
 
 def kernel_refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Optional[str]:
@@ -290,12 +287,12 @@ def _segments(q_seg: torch.Tensor, kv_seg: torch.Tensor, device) -> Tuple[torch.
 def kernel_route(dtype: torch.dtype, route: Optional[str] = None, backward: bool = False) -> str:
     """The route K11 (``backward`` False) or K12 and K13 (True) take for
     ``dtype``: ``route`` (bf16 and fp16: "wgmma" if None, or "simple"; fp32:
-    K11 "fp32" only, K12 and K13 "tf32" only), else ValueError."""
+    "tf32" only, forward and backward), else ValueError."""
     if dtype == torch.float32:
-        want, what = (TF32_ROUTE, "backward") if backward else (FP32_ROUTE, "forward")
-        if route not in (None, want):
-            raise ValueError(f"fp32 inputs take the {what} route {want!r} only, not {route!r}")
-        return want
+        if route not in (None, TF32_ROUTE):
+            what = "backward" if backward else "forward"
+            raise ValueError(f"fp32 inputs take the {what} route {TF32_ROUTE!r} only, not {route!r}")
+        return TF32_ROUTE
     route = route or "wgmma"
     if route not in ROUTES:
         raise ValueError(f"{dtype} inputs take the routes {ROUTES}, not {route!r}")
@@ -472,9 +469,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_segment
 fwd_launches = LaunchCounter()
 dkv_launches = LaunchCounter()
 dq_launches = LaunchCounter()
-#: K11's launches by route (:data:`ROUTES`, :data:`FP32_ROUTE`), K12's and
-#: K13's (:data:`ROUTES`, :data:`TF32_ROUTE`)
-fwd_route_launches = {r: LaunchCounter() for r in (*ROUTES, FP32_ROUTE)}
+#: K11's, K12's and K13's launches by route (:data:`ROUTES`, :data:`TF32_ROUTE`)
+fwd_route_launches = {r: LaunchCounter() for r in (*ROUTES, TF32_ROUTE)}
 dkv_route_launches = {r: LaunchCounter() for r in (*ROUTES, TF32_ROUTE)}
 dq_route_launches = {r: LaunchCounter() for r in (*ROUTES, TF32_ROUTE)}
 #: launches of the backward's rows kernel (di and 1 / l), all, and those on fp32 inputs

@@ -33,6 +33,12 @@ come from device memory about once a batch, one TMA box a doc a stage,
 wgmma with each warp's doc in registers and the MaxSim there too; "staged" (the first, wmma kernel, one warp per candidate) for
 every other shape.  Each counts its launches in :data:`route_launches`.
 :func:`rerank_windowed_ref` walks the same items in plain torch.
+
+A launch takes at most :data:`MAX_VIEWS` query rows; past that (and past 16
+rows on the "wgmma" route's shape) the rows go in chunks, one launch each,
+and the chunks' scores add up in fp32 (:func:`row_chunk`,
+:func:`sum_row_chunks`): MaxSim sums over query rows, so that is exact but
+for the order of the fp32 sum.  The JAX kernels take any count of rows.
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ import torch
 
 from colbert_tpu_torch.ops._build import LaunchCounter
 
-# kernel limits, mirrored by rerank_max_views() (route "staged") and
+# kernel limits (a launch's), mirrored by rerank_max_views() (route "staged") and
 # rerank_wgmma_dv/views/max_dim/group() (route "wgmma") in the .cu
 MAX_VIEWS = 32  # query rows route "staged" takes (csrc/rerank.cu MAX_QV)
 _WGMMA_DV = 16
@@ -191,6 +197,35 @@ def rerank_plan(dv: int, qv: int, dim: int) -> str:
     return "wgmma" if wgmma else "staged"
 
 
+def row_chunk(dv: int, qv: int, dim: int) -> int:
+    """Query rows a launch takes for ``qv`` rows: all of them up to 16, or
+    up to :data:`MAX_VIEWS` off the "wgmma" route's shape (one launch, routed
+    by :func:`rerank_plan`); past that, 16 where ``dv`` and ``dim`` are the
+    "wgmma" route's (each chunk a 16-view "wgmma" launch, the last padded
+    with zero rows), else :data:`MAX_VIEWS` (route "staged")."""
+    if rerank_plan(dv, _WGMMA_VIEWS, dim) == "wgmma" and qv > _WGMMA_VIEWS:
+        return _WGMMA_VIEWS
+    return min(qv, MAX_VIEWS)
+
+
+def sum_row_chunks(Qm: torch.Tensor, chunk: int, score, pad: bool = False) -> torch.Tensor:
+    """``score(Qm[:, lo:lo + chunk])`` over the chunks of ``Qm``'s rows (B,
+    qv, dim), summed in fp32: MaxSim's sum over query rows, taken a chunk at
+    a time (-inf stays -inf).  ``pad``: the last chunk filled to ``chunk``
+    rows with zero rows, which add 0 to every score."""
+    qv = Qm.shape[1]
+    if qv <= chunk:
+        return score(Qm)
+    out = None
+    for lo in range(0, qv, chunk):
+        q = Qm[:, lo : lo + chunk]
+        if pad and q.shape[1] < chunk:
+            q = torch.cat([q, q.new_zeros((q.shape[0], chunk - q.shape[1], q.shape[2]))], dim=1)
+        part = score(q)
+        out = part if out is None else out + part
+    return out
+
+
 def window_docs(num_docs: int, C: int, doc_bytes: int) -> int:
     """Docs a pid window of the "wgmma" route: about two windows of doc
     blocks (``doc_bytes`` each) in half the L2, so a window's blocks stay
@@ -294,10 +329,13 @@ def _kernel_lib() -> ctypes.CDLL:
 
 
 def _launch(cand: torch.Tensor, Qm: torch.Tensor, table: torch.Tensor, dv: int,
-            table_dtype: torch.dtype, route: Optional[str] = None) -> torch.Tensor:
-    """One kernel launch on the route :func:`rerank_plan` picks; ``route``
-    "staged" forces the first design on any shape (``chip_smoke.py`` times
-    it beside the "wgmma" route)."""
+            table_dtype: torch.dtype, counter: LaunchCounter, route: Optional[str] = None) -> torch.Tensor:
+    """The kernel over ``Qm``'s rows in chunks of :func:`row_chunk`, one
+    launch a chunk on the route :func:`rerank_plan` picks for it, each
+    counted in ``counter`` and in :data:`route_launches`; the chunks' scores
+    summed (:func:`sum_row_chunks`).  ``route`` "staged" forces the first
+    design on any shape (``chip_smoke.py`` times it beside the "wgmma"
+    route)."""
     dev = table.device
     if not (cand.is_cuda and Qm.is_cuda and cand.device == Qm.device == dev):
         raise ValueError("rerank kernel needs cand, Qm and table on one CUDA device")
@@ -308,44 +346,49 @@ def _launch(cand: torch.Tensor, Qm: torch.Tensor, table: torch.Tensor, dv: int,
         raise ValueError(f"cand must be ({B}, C) int32, got {tuple(cand.shape)} {cand.dtype}")
     if table.shape[1] != dim or dim % 16 or dim < 16:
         raise ValueError(f"rerank kernel needs a table of width {dim}, a multiple of 16")
-    if not 1 <= qv <= MAX_VIEWS:
-        raise ValueError(f"rerank kernel takes 1..{MAX_VIEWS} query views, got {qv}")
     if not table.is_contiguous() or table.data_ptr() % 16:
         raise ValueError("rerank kernel needs a contiguous, 16-byte aligned table")
     C = cand.shape[1]
-    plan = rerank_plan(dv, qv, dim)
+    chunk = min(qv, MAX_VIEWS) if route == "staged" else row_chunk(dv, qv, dim)
+    plan = rerank_plan(dv, chunk, dim)
     route = route or plan
     if route not in _ROUTES or (route == "wgmma" and plan != "wgmma"):
         raise ValueError(f"rerank route {route!r} does not take dv {dv}, {qv} views, dim {dim}")
-    if B == 0 or C == 0:
-        return torch.empty((B, C), dtype=torch.float32, device=dev)
+    if B == 0 or C == 0 or qv == 0:  # nothing to launch: a sum over no query rows is 0
+        return torch.where(cand >= 0, 0.0, float("-inf")).float()
     lib = _kernel_lib()
     int8 = table_dtype == torch.int8
     stream = torch.cuda.current_stream(dev).cuda_stream
     cand = cand.contiguous()
-    if route == "wgmma":
-        num_docs = table.shape[0] // dv
+    num_docs = table.shape[0] // dv
+    if route == "wgmma":  # the pid-window schedule depends on cand alone: once a call
         window = window_docs(num_docs, C, dv * dim * table.element_size())
         spid, perm, wstart = rerank_schedule(cand, num_docs, window)
-        q = query_operand(Qm, int8)
-        if q.data_ptr() % 16:  # the tensor map needs a 16-byte aligned base
-            q = q.clone()
-        out = torch.full((B, C), float("-inf"), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            err = lib.rerank_wgmma_launch(q.data_ptr(), table.data_ptr(), int(int8), spid.data_ptr(),
-                                          perm.data_ptr(), wstart.data_ptr(), out.data_ptr(), B, C, dim,
-                                          num_docs, wstart.shape[1] - 1, stream)
-    else:
-        q = Qm.float().contiguous()
-        out = torch.empty((B, C), dtype=torch.float32, device=dev)
-        with torch.cuda.device(dev):
-            err = lib.rerank_launch(cand.data_ptr(), q.data_ptr(), table.data_ptr(), int(int8),
-                                    out.data_ptr(), B, C, qv, dim, dv, stream)
-    if err != 0:
-        raise RuntimeError(f"rerank kernel launch failed ({route} route): cudaError_t {err} "
-                           f"(Q {tuple(Qm.shape)}, table {tuple(table.shape)}, dv {dv})")
-    route_launches[route].add()
-    return out
+
+    def one(q_rows: torch.Tensor) -> torch.Tensor:
+        if route == "wgmma":
+            q = query_operand(q_rows, int8)
+            if q.data_ptr() % 16:  # the tensor map needs a 16-byte aligned base
+                q = q.clone()
+            out = torch.full((B, C), float("-inf"), dtype=torch.float32, device=dev)
+            with torch.cuda.device(dev):
+                err = lib.rerank_wgmma_launch(q.data_ptr(), table.data_ptr(), int(int8), spid.data_ptr(),
+                                              perm.data_ptr(), wstart.data_ptr(), out.data_ptr(), B, C, dim,
+                                              num_docs, wstart.shape[1] - 1, stream)
+        else:
+            q = q_rows.float().contiguous()
+            out = torch.empty((B, C), dtype=torch.float32, device=dev)
+            with torch.cuda.device(dev):
+                err = lib.rerank_launch(cand.data_ptr(), q.data_ptr(), table.data_ptr(), int(int8),
+                                        out.data_ptr(), B, C, q.shape[1], dim, dv, stream)
+        if err != 0:
+            raise RuntimeError(f"rerank kernel launch failed ({route} route): cudaError_t {err} "
+                               f"(Q {tuple(q_rows.shape)}, table {tuple(table.shape)}, dv {dv})")
+        counter.add()
+        route_launches[route].add()
+        return out
+
+    return sum_row_chunks(Qm, chunk, one, pad=route == "wgmma")
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -356,12 +399,11 @@ def maxsim_rerank_uniform(cand: torch.Tensor, Qm: torch.Tensor, table: torch.Ten
                           *, dv: int) -> torch.Tensor:
     """K4: exact MaxSim (B, C) fp32 of each candidate pid (-1: -inf, no
     bytes read) against ``Qm`` (B, qv, dim) rounded to bf16, over a bf16
-    table (num_docs * dv, dim)."""
+    table (num_docs * dv, dim); any ``qv``, past one launch's rows a launch
+    a chunk of rows (:func:`row_chunk`)."""
     if _on_cpu(cand, Qm, table):
         return maxsim_rerank_uniform_ref(cand, Qm, table, dv=dv)
-    out = _launch(cand, Qm, table, dv, torch.bfloat16)
-    maxsim_rerank_uniform.launches.add()
-    return out
+    return _launch(cand, Qm, table, dv, torch.bfloat16, maxsim_rerank_uniform.launches)
 
 
 def maxsim_rerank_uniform_int8(cand: torch.Tensor, Qm: torch.Tensor, table: torch.Tensor,
@@ -370,9 +412,7 @@ def maxsim_rerank_uniform_int8(cand: torch.Tensor, Qm: torch.Tensor, table: torc
     and carries the descale ``1/scale``."""
     if _on_cpu(cand, Qm, table):
         return maxsim_rerank_uniform_int8_ref(cand, Qm, table, dv=dv)
-    out = _launch(cand, Qm, table, dv, torch.int8)
-    maxsim_rerank_uniform_int8.launches.add()
-    return out
+    return _launch(cand, Qm, table, dv, torch.int8, maxsim_rerank_uniform_int8.launches)
 
 
 def _buckets(cand: torch.Tensor, q: torch.Tensor, tables: Sequence[torch.Tensor], strides: Sequence[int],

@@ -51,7 +51,7 @@ from colbert_tpu_torch.ops.ivf import (
 )
 from colbert_tpu_torch.ops.pq4 import ivf_probe_pq4
 from colbert_tpu_torch.ops.rerank import (
-    MAX_VIEWS, BucketTables, build_ragged_buckets, maxsim_rerank_buckets, maxsim_rerank_uniform,
+    BucketTables, build_ragged_buckets, maxsim_rerank_buckets, maxsim_rerank_uniform,
     maxsim_rerank_uniform_int8, quantize_emb_into, stride_buckets,
 )
 from colbert_tpu_torch.tokenization import ColbertTokenizer
@@ -408,8 +408,6 @@ class ColbertSearcher:
         self.uniform_doclen = bool(len(doclens) and (doclens == dv).all())
         self.probe_fn()  # refuses an unknown codec or probe before the tables are built
         host = s.rerank_table == "host"
-        if host or (not self.uniform_doclen and s.rerank_dtype != "float32"):
-            self._refuse_views("the host table" if host else "a ragged corpus's stride buckets")
         emb = storage.load_all_embeddings()
         self.emb_inv_scale = None
         if self.uniform_doclen:
@@ -463,16 +461,6 @@ class ColbertSearcher:
                                       torch.from_numpy(s_of).to(dev))
         # the oracle scores the stored embeddings, as the JAX searcher's host copy
         self._oracle = _Docs(torch.from_numpy(emb), dv, offsets, lens_t)
-
-    def _refuse_views(self, what: str) -> None:
-        mv = self.cfg.multiview
-        qv = mv.q_view if mv.enabled else self.cfg.tokenizer.query_maxlen
-        if qv > MAX_VIEWS:
-            raise NotImplementedError(
-                f"{what} rerank through K4/K5's route \"staged\", which takes at most {MAX_VIEWS} query rows; "
-                f"this config has {qv} (tokenizer.query_maxlen, or multiview.q_view): ROADMAP Queue 2 "
-                f"(K4/K5 route \"wgmma\" at more query rows)"
-            )
 
     # ---- device pipeline ----
 

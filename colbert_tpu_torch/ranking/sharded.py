@@ -35,7 +35,7 @@ from colbert_tpu_torch.indexing.storage import IndexStorage
 from colbert_tpu_torch.models.colbert import ColbertModel
 from colbert_tpu_torch.ops.flat_scan import _int8_scale, build_flat_table, flat_maxsim_scan, flat_topk
 from colbert_tpu_torch.ops.ivf import sort_by_list
-from colbert_tpu_torch.ops.rerank import MAX_VIEWS, BucketTables, build_ragged_buckets, quantize_emb_into, stride_buckets
+from colbert_tpu_torch.ops.rerank import BucketTables, build_ragged_buckets, quantize_emb_into, stride_buckets
 from colbert_tpu_torch.ops.topk import pad_shard_topk, topk_merge_gathered
 from colbert_tpu_torch.parallel.mesh import Mesh, local_shard_bounds, make_mesh
 from colbert_tpu_torch.ranking.searcher import (
@@ -193,12 +193,6 @@ class ShardedColbertSearcher:
             int8_rows = int8_rows.view(S, max_embs, dim)
         strides = None
         if not self.uniform_doclen and s.rerank_dtype != "float32":
-            mv = self.cfg.multiview
-            qv = mv.q_view if mv.enabled else self.cfg.tokenizer.query_maxlen
-            if qv > MAX_VIEWS:
-                raise NotImplementedError(
-                    f"a ragged corpus's stride buckets rerank through K4's route \"staged\", which takes at most "
-                    f"{MAX_VIEWS} query rows; this config has {qv}: ROADMAP Queue 2")
             strides = stride_buckets(doclens, row_multiple=16)
         shards = []
         for i, dev in enumerate(self.mesh.devices):

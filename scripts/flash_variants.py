@@ -8,7 +8,7 @@ NVIDIA GPU, alone: ``chip_smoke.py``'s phase 8a without the rest of the script.
     python3 scripts/flash_variants.py --variant expf   # then phase 8a on a variant of the source
     python3 scripts/flash_variants.py --quick --probe k12_no_elementwise   # then times alone, no checks
     python3 scripts/flash_variants.py --quick --probe dq_stages4   # K13's ring
-    python3 scripts/flash_variants.py --quick --probe tf32_expf   # route "tf32" (fp32 K12, K13)
+    python3 scripts/flash_variants.py --quick --probe tf32_expf   # route "tf32" (fp32 K11, K12, K13)
     python3 scripts/flash_variants.py --quick --stress 50   # the wrapper's path 50 times over garbage, bit-equal?
     python3 scripts/flash_variants.py --quick --train 4     # phase 8b, then phase 8e 4 times
     python3 scripts/flash_variants.py --quick --embedding 20 --trace 6 --lookup   # the embeddings' backward
@@ -42,7 +42,7 @@ checked: the ``k12_no_*`` variants take from K12 its elementwise work, its
 products, its dK/dV stores or its row inputs' loads, giving wrong numbers
 by design to split its time; ``stages4`` halves K12's ring and
 ``dq_stages4`` K13's (8 64-key tiles).  The ``tf32_*`` variants are of
-route "tf32" (K12 and K13 on fp32 inputs), probed on fp32 inputs with
+route "tf32" (K11, K12 and K13 on fp32 inputs), probed on fp32 inputs with
 their outputs held to the source's (``tf32_expf``: the exponential by
 expf; ``tf32_no_nan_clamp``: the split without its NaN clamp;
 ``tf32_no_products`` and ``tf32_products_only`` take the products away or
@@ -140,6 +140,14 @@ TF32_EXP_K12 = "s[j][e] = __fmul_rn(wg::exp_p(x - (odd ? mm.y : mm.x)), odd ? il
 TF32_EXP_K13 = "s[j][e] = __fmul_rn(wg::exp_p(x - m_row[r]), il[r]);"
 TF32_SPLIT_K12 = "split_tiles(base + (sst - skv) + stage * Dkv::STAGE, Dkv::HI, Dkv::HI, si);"
 TF32_SPLIT_K13 = "split_tiles(base + (sst - sq) + stage * Dq::STAGE, Dq::HI, Dq::HI, si);"
+TF32_SPLIT_K11 = ("          split_t(stp + Fwd::V_RAW, stp + Fwd::VT_HI, stp + Fwd::VT_LO, si);\n"
+                  "          split_tiles(stp, Fwd::KV_TILE, Fwd::K_LO, si);  // K, then the fence for both\n")
+TF32_EXP_K11 = "s[j][e] = wg::exp_p(s[j][e] - m_next[e >> 1]);"
+TF32_P_SPLIT_K11 = """        split(s[kk][0], ph[kk][0], pl[kk][0]);
+        split(s[kk][2], ph[kk][1], pl[kk][1]);
+        split(s[kk][1], ph[kk][2], pl[kk][2]);
+        split(s[kk][3], ph[kk][3], pl[kk][3]);
+"""
 
 TF32_COLS_LOADS = ("      hi[kk][r] = *reinterpret_cast<const uint32_t*>(tile_hi + off[r] + kk * 8 * 128);\n"
                    "      lo[kk][r] = *reinterpret_cast<const uint32_t*>(tile_lo + off[r] + kk * 8 * 128);")
@@ -166,19 +174,32 @@ VARIANTS = {
     "k12_no_row_loads": ("K12 without its row inputs' loads (wrong dK/dV)",
                          [("2 * QT_BYTES + DKV_ROWS_BYTES);", "2 * QT_BYTES);"), (K12_ROW_LOADS, "")]),
     "dq_stages4": ("K13's ring 4 key tiles deep", [("constexpr int DQ_STAGES = 8;", "constexpr int DQ_STAGES = 4;")]),
-    # route "tf32" (K12, K13 at fp32), probed at fp32; all but tf32_expf give wrong numbers by design
+    # route "tf32" (K11, K12, K13 at fp32), probed at fp32; all but tf32_expf give wrong numbers by design
     "tf32_expf": ("route \"tf32\"'s exponential by expf, in place of ex2.approx of x * log2(e)",
                   [(TF32_EXP_K12, TF32_EXP_K12.replace("wg::exp_p(", "expf(")),
-                   (TF32_EXP_K13, TF32_EXP_K13.replace("wg::exp_p(", "expf("))]),
+                   (TF32_EXP_K13, TF32_EXP_K13.replace("wg::exp_p(", "expf(")),
+                   (TF32_EXP_K11, TF32_EXP_K11.replace("wg::exp_p(", "expf("))]),
     "tf32_no_nan_clamp": ("route \"tf32\"'s split without the clamp that keeps lo a NaN (NaN inputs then give "
                           "finite gradients; the same bits for finite inputs)",
                           [(TF32_LO, "  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));")]),
+    "tf32_fwd_no_kv_loads": ("K11's route \"tf32\" without its K and V loads (wrong o)",
+                             [("          mbar_expect_tx(&full[stage], 2 * Fwd::KV_TILE + KT * 4);\n"
+                               "          const uint32_t st = sst + stage * Fwd::STAGE;\n"
+                               "          tma_tile<KT>(st, &map_k, heads_inner & 2, h, kt * KT, b, &full[stage]);\n"
+                               "          tma_tile<KT>(st + Fwd::V_RAW, &map_v, heads_inner & 4, h, kt * KT, b, &full[stage]);\n",
+                               "          mbar_expect_tx(&full[stage], KT * 4);\n"
+                               "          const uint32_t st = sst + stage * Fwd::STAGE;\n")]),
+    "tf32_fwd_no_split": ("K11's route \"tf32\" without its split of K and V (wrong o)",
+                          [(TF32_SPLIT_K11, "          fence_proxy_async();\n")]),
     "tf32_no_products": ("route \"tf32\" without its wgmma products",
                          [(f"for (int kk = 0; kk < KS; ++kk) mma<N>(d, {a}", f"for (int kk = 0; kk < 0; ++kk) mma<N>(d, {a}")
                           for a in ("ah[kk], desc_lo(kk), kk);", "al[kk], desc(kk), 1);", "ah[kk], desc(kk), 1);")]),
     "tf32_products_only": ("route \"tf32\" with its products, barriers and ring alone: no split, exponential, "
                            "transposed loads or stores of P and dS",
-                           [(TF32_SPLIT_K12, ""), (TF32_SPLIT_K13, ""),
+                           [(TF32_SPLIT_K12, ""), (TF32_SPLIT_K13, ""), (TF32_SPLIT_K11, "          fence_proxy_async();\n"),
+                            (TF32_EXP_K11, TF32_EXP_K11.replace("wg::exp_p(", "(")),
+                            (TF32_P_SPLIT_K11, "        ph[kk][0] = ph[kk][1] = ph[kk][2] = ph[kk][3] = __float_as_uint(s[kk][0]);\n"
+                                               "        pl[kk][0] = pl[kk][1] = pl[kk][2] = pl[kk][3] = 0u;\n"),
                             (TF32_EXP_K12, TF32_EXP_K12.replace("wg::exp_p(", "(")),
                             (TF32_EXP_K13, TF32_EXP_K13.replace("wg::exp_p(", "(")),
                             (TF32_COLS_LOADS, "      hi[kk][r] = off[r];\n      lo[kk][r] = off[r];"),

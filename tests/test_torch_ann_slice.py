@@ -135,6 +135,30 @@ def test_searchers_agree_on_the_jax_index(ann_setup, mesh8, native_off, rerank_d
     _assert_same_results(js.search_brute_force(QUESTIONS, topk=5), ps.search_brute_force(QUESTIONS, topk=5), 5)
 
 
+@pytest.mark.parametrize("rerank_dtype", ["bfloat16", "int8"])
+def test_searchers_agree_at_48_query_views(ann_setup, mesh8, native_off, rerank_dtype):
+    """Multiview at q_view 48 (query_maxlen 56) over the same index: more
+    query rows than one K4/K5 launch takes (16 on route "wgmma", 32 on
+    "staged"), so the port reranks them in chunks of rows; its top-5 equals
+    the JAX searcher's, whose kernels take any count of rows."""
+    cfg, _, _, params, model, _, _, tmp = ann_setup
+    jcfg = dataclasses.replace(
+        cfg, multiview=dataclasses.replace(cfg.multiview, q_view=48),
+        tokenizer=dataclasses.replace(cfg.tokenizer, query_maxlen=56),
+        serve=dataclasses.replace(cfg.serve, rerank_dtype=rerank_dtype))
+    pcfg = PortConfig.from_dict(jcfg.to_dict())
+    js = JaxSearcher(jcfg, JaxTokenizer(jcfg.tokenizer, jcfg.multiview), params, JaxStorage(tmp / "jax_idx"),
+                     mesh=mesh8)
+    model48 = ColbertModel(pcfg.model, pcfg.multiview)  # the same weights, 48 query views
+    model48.load_state_dict(model.state_dict())
+    ps = ColbertSearcher(pcfg, ColbertTokenizer(pcfg.tokenizer, pcfg.multiview), model48,
+                         IndexStorage(tmp / "jax_idx"), device="cpu")
+    assert ps.emb_table.dtype == getattr(torch, rerank_dtype) and ps.rerank_cap == 16
+    enc = ps.tok.encode_queries(QUESTIONS)
+    assert ps.encode_queries(enc.input_ids, enc.attention_mask, enc.active_mask).shape == (len(QUESTIONS), 48, 256)
+    _assert_same_results(js.search(QUESTIONS, topk=5), ps.search(QUESTIONS, topk=5), 5)
+
+
 def test_jax_searcher_serves_the_port_index(ann_setup, mesh8, native_off):
     js, ps = _searchers(ann_setup, mesh8, "port_idx", "bfloat16")
     _assert_same_results(js.search(QUESTIONS, topk=5), ps.search(QUESTIONS, topk=5), 5)

@@ -84,8 +84,8 @@ def _lanes_numpy(o, do):
 def test_every_shape_the_kernels_take_goes_to_wgmma(shape, dtype):
     """Route "wgmma" for every input the kernels take, bf16 and fp16 alike:
     the launches' default (no route given), K11's, K12's and K13's; "simple"
-    only on request; route "fp32" (K11) and "tf32" (K12, K13) for fp32
-    inputs alone, and no other route for them.  What they refuse, every route refuses:
+    only on request; route "tf32" (K11, K12, K13) for fp32 inputs alone,
+    and no other route for them.  What they refuse, every route refuses:
     ``kernel_refusal`` runs before any launch
     (``tests/test_torch_flash_attention.py::test_kernel_refusal_rule``)."""
     q = torch.zeros(shape, dtype=dtype)
@@ -97,13 +97,13 @@ def test_every_shape_the_kernels_take_goes_to_wgmma(shape, dtype):
     for backward in (False, True):
         assert fa.kernel_route(dtype, backward=backward) == "wgmma"
         assert fa.kernel_route(dtype, "simple", backward=backward) == "simple"
-    assert fa.kernel_route(torch.float32) == fa.kernel_route(torch.float32, "fp32") == "fp32"
+    assert fa.kernel_route(torch.float32) == fa.kernel_route(torch.float32, "tf32") == "tf32"
     for bad_dtype, bad_route in ((dtype, "fp32"), (dtype, "tf32"), (torch.float32, "wgmma"),
-                                 (torch.float32, "simple"), (torch.float32, "tf32")):
+                                 (torch.float32, "simple"), (torch.float32, "fp32")):
         with pytest.raises(ValueError, match="route"):
             fa.kernel_route(bad_dtype, bad_route)
-    assert fa.ROUTES == ("wgmma", "simple") and fa.FP32_ROUTE == "fp32" and fa.TF32_ROUTE == "tf32"
-    assert set(fa.fwd_route_launches) == {*fa.ROUTES, fa.FP32_ROUTE}
+    assert fa.ROUTES == ("wgmma", "simple") and fa.TF32_ROUTE == "tf32" and not hasattr(fa, "FP32_ROUTE")
+    assert set(fa.fwd_route_launches) == {*fa.ROUTES, fa.TF32_ROUTE}
     assert set(fa.dkv_route_launches) == set(fa.dq_route_launches) == {*fa.ROUTES, fa.TF32_ROUTE}
 
 
@@ -111,9 +111,9 @@ def test_every_shape_the_kernels_take_goes_to_wgmma(shape, dtype):
     (torch.float32, None, True, "tf32"),     # the fp32 backward: "tf32" only
     (torch.float32, "tf32", True, "tf32"),
     (torch.float32, "fp32", True, None),
-    (torch.float32, None, False, "fp32"),    # the fp32 forward: "fp32" only
-    (torch.float32, "fp32", False, "fp32"),
-    (torch.float32, "tf32", False, None),
+    (torch.float32, None, False, "tf32"),    # the fp32 forward: "tf32" only
+    (torch.float32, "fp32", False, None),    # "fp32" is no kernel's route
+    (torch.float32, "tf32", False, "tf32"),
     (torch.float32, "wgmma", True, None),
     (torch.float32, "simple", True, None),
     (torch.bfloat16, "tf32", True, None),    # bf16 and fp16 never take "tf32" or "fp32"
@@ -122,9 +122,9 @@ def test_every_shape_the_kernels_take_goes_to_wgmma(shape, dtype):
     (torch.float16, None, True, "wgmma"),
 ])
 def test_fp32_backward_route_rule(dtype, route, backward, want):
-    """K12 and K13 (``backward``) give fp32 inputs route "tf32" only, K11
-    "fp32" only; bf16 and fp16 take neither; any other pairing raises
-    ValueError, before any launch."""
+    """K11, K12 and K13 (``backward`` either way) give fp32 inputs route
+    "tf32" only; bf16 and fp16 never take it; any other pairing, route
+    "fp32" among them, raises ValueError, before any launch."""
     if want is None:
         with pytest.raises(ValueError, match="route"):
             fa.kernel_route(dtype, route, backward=backward)
@@ -225,8 +225,8 @@ def test_fp32_dkv_launch_arguments_by_route(monkeypatch, route, want_code):
     """``_launch_dkv`` on fp32 inputs: route code 3 ("tf32", also when none
     is given), dtype code 2, the rows kernel's 1 / l passed on; dk and dv
     heads-major views; one launch counted in all and one on "tf32".  Route
-    "fp32" (K11's) raises ValueError before any launch or count.  The C
-    entry point is stood in."""
+    "fp32" (no kernel's route: the rows kernel's alone) raises ValueError
+    before any launch or count.  The C entry point is stood in."""
     B, nh, L = 2, 3, 256
     g = torch.Generator().manual_seed(4)
     q, k, v, do = (torch.randn((B, L, nh, 64), generator=g).transpose(1, 2) for _ in range(4))
@@ -259,11 +259,49 @@ def test_fp32_dkv_launch_arguments_by_route(monkeypatch, route, want_code):
         r: int(r == "tf32") for r in fa.dkv_route_launches}
 
 
+@pytest.mark.parametrize("route,want_code", [(None, 3), ("tf32", 3), ("fp32", None)])
+def test_fp32_forward_launch_arguments_by_route(monkeypatch, route, want_code):
+    """``_launch_forward`` on fp32 inputs: route code 3 ("tf32", also when
+    none is given), dtype code 2; o a heads-major view, l and m (B, nh, L)
+    fp32; one launch counted in all and one on "tf32".  Route "fp32" raises
+    ValueError before any launch or count.  The C entry point is stood in."""
+    B, nh, L = 2, 3, 256
+    g = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn((B, L, nh, 64), generator=g).transpose(1, 2) for _ in range(3))
+    seg = torch.ones((B, L), dtype=torch.int32)
+    got = {}
+
+    def launch(*a):
+        got["args"] = a
+        return 0
+
+    monkeypatch.setattr(fa, "_fns", lambda: (launch, None, None, None))
+    monkeypatch.setattr(fa, "_device_stream", lambda t: (0, 0))
+    before = (fa.fwd_launches.value, {r: c.value for r, c in fa.fwd_route_launches.items()})
+    if want_code is None:
+        with pytest.raises(ValueError, match="route"):
+            fa._launch_forward(q, k, v, seg, seg, SCALE, route=route)
+        assert not got and fa.fwd_launches.value == before[0]
+        assert {r: c.value for r, c in fa.fwd_route_launches.items()} == before[1]
+        return
+    o, l, m = fa._launch_forward(q, k, v, seg, seg, SCALE, route=route)
+    a = got["args"]
+    assert len(a) == 21 and a[12:17] == (B, nh, L, L, SCALE) and a[17] == 2 and a[18] == want_code
+    assert a[3] == o.data_ptr() and a[6] == l.data_ptr() and a[7] == m.data_ptr()
+    assert list(a[8]) == [L * nh * 64, 64, nh * 64] and list(a[11]) == list(a[8])  # q's and o's strides
+    assert o.shape == q.shape and o.dtype == torch.float32 and o.transpose(1, 2).is_contiguous()
+    assert l.shape == m.shape == (B, nh, L) and l.dtype == m.dtype == torch.float32
+    assert fa.fwd_launches.value == before[0] + 1
+    assert {r: c.value - before[1][r] for r, c in fa.fwd_route_launches.items()} == {
+        r: int(r == "tf32") for r in fa.fwd_route_launches}
+
+
 @pytest.mark.parametrize("given_inv_l", [True, False])
 def test_fp32_dq_refuses_the_forward_route(monkeypatch, given_inv_l):
-    """``_launch_dq`` on fp32 inputs with route "fp32" (K11's) raises
-    ValueError before it reaches the C entry point or counts a launch,
-    whether or not 1 / l is given: K13 takes fp32 on route "tf32" only."""
+    """``_launch_dq`` on fp32 inputs with route "fp32" (no kernel's route)
+    raises ValueError before it reaches the C entry point or counts a
+    launch, whether or not 1 / l is given: K13 takes fp32 on route "tf32"
+    only."""
     B, nh, L = 2, 3, 256
     g = torch.Generator().manual_seed(5)
     q, k, v, do = (torch.randn((B, L, nh, 64), generator=g).transpose(1, 2) for _ in range(4))

@@ -1,6 +1,14 @@
-"""The method of route "tf32" of the flash backward (K12 and K13 on fp32
+"""The method of route "tf32" of flash attention (K11, K12 and K13 on fp32
 inputs), checked on the CPU: is three TF32 products a product accurate
-enough for the fp32 backward?  A plain version of the backward with each
+enough at fp32?
+
+The forward: a plain version with each fp32 product as three TF32 products
+at K11's blocks (64-key stages, its online softmax stepping over each
+stage: the same m as the JAX kernel's 128-key blocks, l and o to fp32
+rounding), held to the JAX Pallas forward (run as with ``interpret=True``,
+its residuals l and m too) and to ``flash_forward_ref``.
+
+The backward: a plain version with each
 fp32 product as three TF32 products (``tests/test_torch_maxsim.py::tf32x3``,
 the split of ``ops/maxsim.py::tf32_split``), at the kernels' blocks (K12's
 64 keys over 32-query stages, K13's 64 rows over 64-key stages, each
@@ -43,6 +51,7 @@ torch.exp(torch.zeros(8))
 torch.exp(torch.zeros(1 << 16))
 
 SCALE = 0.125
+KEYS_K11 = 64                   # K11's stage of keys
 KEYS_K12, QUERIES_K12 = 64, 32  # K12's block of keys and stage of queries
 ROWS_K13, KEYS_K13 = 64, 64     # K13's block of query rows and stage of keys
 
@@ -61,6 +70,30 @@ def interpret_pallas():
 def prod3(a: torch.Tensor, b: torch.Tensor, terms: int = 3) -> torch.Tensor:
     """``a @ b`` as three TF32 products (``terms=1``: hi . hi alone)."""
     return tf32x3("...ij,...jk->...ik", a, b, terms)
+
+
+def tf32x3_forward(q, k, v, q_seg, kv_seg, scale, terms=3):
+    """(o, l, m) fp32 by three TF32 products a product at K11's 64-key
+    stages: S = Q K^T, the mask, the online softmax over the stage (m_next,
+    p = exp(s - m_next), l_corr, l_next, 1 / l_next), O rescaled and P V
+    added times 1 / l_next; ``terms=1`` keeps hi . hi alone."""
+    q, k, v = (t.float() for t in (q, k, v))
+    B, nh, Lq, _ = q.shape
+    m = torch.full((B, nh, Lq), float("-inf"))
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, nh, Lq, v.shape[-1]))
+    for k0 in range(0, k.shape[2], KEYS_K11):
+        ks = slice(k0, k0 + KEYS_K11)
+        visible = q_seg[:, None, :, None] == kv_seg[:, None, None, ks]
+        s = prod3(q, k[:, :, ks].transpose(-1, -2), terms) * scale + torch.where(visible, 0.0, fa.MASK_VALUE)
+        m_next = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_next[..., None])
+        l_corr = torch.exp(m - m_next) * l
+        l_next = p.sum(-1) + l_corr
+        inv = torch.where(l_next == 0.0, 1.0, torch.ones_like(l_next) / l_next)
+        acc = acc * (l_corr * inv)[..., None] + prod3(p, v[:, :, ks], terms) * inv[..., None]
+        m, l = m_next, l_next
+    return acc, l, m
 
 
 def tf32x3_backward(q, k, v, q_seg, kv_seg, scale, l, m, do, di, terms=3):
@@ -124,6 +157,49 @@ def _torch_backward(q, k, v, w, seg, **kw):
     return tf32x3_backward(*args, **kw), fa.flash_backward_ref(*args)
 
 
+def _jax_forward(q, k, v, seg):
+    """The JAX Pallas forward's (o, l, m), interpreted, at its default blocks (128)."""
+    from jax.experimental.pallas.ops.tpu.flash_attention import _flash_attention_impl
+
+    sj = jnp.asarray(seg)
+    with interpret_pallas():
+        out = _flash_attention_impl(*(jnp.asarray(x) for x in (q, k, v)), None, SegmentIds(sj, sj), True, False,
+                                    SCALE, 1, 128, 128, 128, False)
+    return [torch.from_numpy(np.array(x)) for x in out]
+
+
+@pytest.mark.parametrize("L,pad", [(128, 100), (256, 129), (384, 200), (384, None)])
+def test_tf32_forward_emulation_matches_jax_and_the_plain_version(L, pad):
+    """K11's three TF32 products a product at its 64-key stages against the
+    JAX Pallas forward at fp32 and against ``flash_forward_ref``: o within
+    ``fa.FP32_HEAD_REL`` of each head vector (the card's limit), l and m
+    within it too, relative (m's floored at 1): three TF32 products move a
+    logit by ~2^-21 of its terms, so m and l move by that much, where fp32
+    FMAs kept them within 1e-6."""
+    q, k, v, _, seg = _inputs(19 * L + (pad or 0), L, pad)
+    s = torch.from_numpy(seg)
+    o, l, m = tf32x3_forward(*(torch.from_numpy(x) for x in (q, k, v)), s, s, SCALE)
+    for name, want in (("jax", _jax_forward(q, k, v, seg)),
+                       ("plain", fa.flash_forward_ref(*(torch.from_numpy(x) for x in (q, k, v)), s, s, SCALE))):
+        wo, wl, wm = want
+        assert o.shape == wo.shape and l.shape == wl.shape == m.shape == wm.shape, name
+        assert fa.fp32_head_rel(o, wo) <= fa.FP32_HEAD_REL, name
+        assert float(((l - wl).abs() / wl).max()) <= fa.FP32_HEAD_REL, name
+        assert float(((m - wm).abs() / wm.abs().clamp_min(1.0)).max()) <= fa.FP32_HEAD_REL, name
+
+
+@pytest.mark.parametrize("L,pad", [(128, 100), (384, 257)])
+def test_tf32_forward_one_product_misses_the_card_limit(L, pad):
+    """hi . hi alone (one TF32 product) misses ``fa.FP32_HEAD_REL`` on o by
+    far, so the forward's check has teeth; three products meet it."""
+    q, k, v, _, seg = _inputs(23 * L + pad, L, pad)
+    s = torch.from_numpy(seg)
+    args = (*(torch.from_numpy(x) for x in (q, k, v)), s, s, SCALE)
+    want = fa.flash_forward_ref(*args)[0]
+    assert fa.fp32_head_rel(tf32x3_forward(*args)[0], want) <= fa.FP32_HEAD_REL
+    assert fa.fp32_head_rel(tf32x3_forward(*args, terms=1)[0], want) > 10 * fa.FP32_HEAD_REL
+
+
 @pytest.mark.parametrize("L,pad", [(128, 100), (256, 129), (384, 200), (384, None)])
 def test_tf32_emulation_matches_jax_grad(L, pad):
     """Three TF32 products a product against JAX's Pallas flash backward at
@@ -159,12 +235,14 @@ def test_tf32_emulation_within_the_card_limit(L, pad):
 
 
 def test_tf32_emulation_blocks_cover_the_kernels_shapes():
-    """The plain version's blocks are the kernels' (``csrc/flash_attention.cu``,
-    namespace tf): K12 64 keys and 32-query stages, K13 64 rows and 64-key
-    stages; every length the kernels take (a multiple of 128) is whole
-    blocks and stages of both."""
+    """The plain versions' blocks are the kernels' (``csrc/flash_attention.cu``,
+    namespace tf): K11 64-key stages (its 128-row blocks hold whole rows),
+    K12 64 keys and 32-query stages, K13 64 rows and 64-key stages; every
+    length the kernels take (a multiple of 128) is whole blocks and stages
+    of all three."""
     text = (Path(fa.__file__).resolve().parents[1] / "csrc" / "flash_attention.cu").read_text()
-    for line in ("constexpr int RB = 64;", "constexpr int QT = 32;", "constexpr int KT = 64;"):
+    for line in ("constexpr int RB = 64;", "constexpr int QT = 32;", "constexpr int KT = 64;",
+                 "static constexpr int ROWS_BLK = 2 * RB;"):
         assert line in text, line
     for L in (128, 256, 384, 512):
-        assert L % KEYS_K12 == L % QUERIES_K12 == L % ROWS_K13 == L % KEYS_K13 == 0
+        assert L % KEYS_K11 == L % KEYS_K12 == L % QUERIES_K12 == L % ROWS_K13 == L % KEYS_K13 == L % 128 == 0

@@ -115,12 +115,19 @@ def ragged_setup(tmp_path_factory, mesh8, native_off):
     return cfg, jtok, params, model, tok, tmp
 
 
-def _searchers(ragged_setup, mesh8, index, **serve_kw):
-    """The JAX and the port searcher over ``index`` with ``serve_kw``."""
+def _searchers(ragged_setup, mesh8, index, query_maxlen=None, **serve_kw):
+    """The JAX and the port searcher over ``index`` with ``serve_kw`` (and
+    ``query_maxlen`` query rows, each package's tokenizer made anew)."""
     cfg, jtok, params, model, tok, tmp = ragged_setup
     jcfg = dataclasses.replace(cfg, serve=dataclasses.replace(cfg.serve, **serve_kw))
+    if query_maxlen is not None:
+        jcfg = dataclasses.replace(jcfg, tokenizer=dataclasses.replace(cfg.tokenizer, query_maxlen=query_maxlen))
+        jtok = JaxTokenizer(jcfg.tokenizer, jcfg.multiview)
+    pcfg = PortConfig.from_dict(jcfg.to_dict())
+    if query_maxlen is not None:
+        tok = ColbertTokenizer(pcfg.tokenizer, pcfg.multiview)
     js = JaxSearcher(jcfg, jtok, params, JaxStorage(tmp / index), mesh=mesh8)
-    ps = ColbertSearcher(PortConfig.from_dict(jcfg.to_dict()), tok, model, IndexStorage(tmp / index), device="cpu")
+    ps = ColbertSearcher(pcfg, tok, model, IndexStorage(tmp / index), device="cpu")
     return js, ps
 
 
@@ -244,17 +251,23 @@ def test_packed_dedup_serves_as_jax(ragged_setup, mesh8, native_off):
     _assert_same_results(js.search(QUESTIONS, topk=5), ps.search(QUESTIONS, topk=5))
 
 
-def test_ragged_or_host_shapes_past_the_staged_route_are_refused(ragged_setup):
-    """33 query rows: more than K4/K5's route "staged" takes."""
-    cfg, _, _, model, _, tmp = ragged_setup
-    for serve_kw in (dict(rerank_dtype="bfloat16"), dict(rerank_dtype="int8"), dict(rerank_table="host")):
-        pcfg = PortConfig.from_dict(cfg.to_dict())
-        pcfg.tokenizer.query_maxlen = 33
-        for k, v in serve_kw.items():
-            setattr(pcfg.serve, k, v)
-        with pytest.raises(NotImplementedError, match=r"at most 32 query rows.*ROADMAP Queue 2"):
-            ColbertSearcher(pcfg, ColbertTokenizer(pcfg.tokenizer, pcfg.multiview), model,
-                            IndexStorage(tmp / "port_sq"), device="cpu")
+@pytest.mark.parametrize("serve_kw", [dict(rerank_dtype="bfloat16"), dict(rerank_dtype="int8"),
+                                      dict(rerank_table="host")], ids=["bf16", "int8", "host"])
+@pytest.mark.parametrize("query_rows", [33, 48])
+def test_ragged_or_host_shapes_past_the_staged_route_are_refused(ragged_setup, mesh8, native_off, query_rows,
+                                                                 serve_kw):
+    """More query rows than one launch of K4/K5's route "staged" takes (32)
+    are served, not refused: the stride buckets (bf16, int8) and the host
+    table rerank the rows in chunks (``ops/rerank.py::sum_row_chunks``), and
+    the top-5 equals the JAX searcher's, whose kernels take any count of rows."""
+    js, ps = _searchers(ragged_setup, mesh8, "jax_sq", query_maxlen=query_rows, **serve_kw)
+    assert ps.tok.cfg.query_maxlen == js.tok.cfg.query_maxlen == query_rows > prr.MAX_VIEWS
+    assert (ps.host_table is not None) == (serve_kw.get("rerank_table") == "host")
+    if ps.host_table is None:
+        assert isinstance(ps.emb_table, BucketTables)
+    enc = ps.tok.encode_queries(QUESTIONS)
+    assert enc.input_ids.shape == (len(QUESTIONS), query_rows)
+    _assert_same_results(js.search(QUESTIONS, topk=5), ps.search(QUESTIONS, topk=5))
 
 
 # ---- the host-RAM rerank table ----

@@ -162,6 +162,62 @@ def test_rerank_plan_routes(dv, qv, dim, route):
     assert prr.rerank_plan(dv, qv, dim) == route
 
 
+@pytest.mark.parametrize("dv,qv,dim,chunk", [
+    (16, 16, 768, 16), (16, 8, 768, 8),         # one launch, as rerank_plan routes it
+    (16, 17, 768, 16), (16, 48, 768, 16),       # the "wgmma" shape past 16 rows: 16-row chunks
+    (16, 32, 80, 32), (37, 32, 128, 32),        # "staged" up to 32 rows: one launch
+    (37, 33, 128, 32), (16, 64, 2048, 32),      # past 32 rows: 32-row chunks
+])
+def test_row_chunk_sizes(dv, qv, dim, chunk):
+    assert prr.row_chunk(dv, qv, dim) == chunk
+    assert prr.rerank_plan(dv, chunk, dim) == ("wgmma" if (dv, chunk, dim) in ((16, 16, 768),) else "staged")
+
+
+@pytest.mark.parametrize("table_dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("qv", [17, 33, 48, 64])
+@pytest.mark.parametrize("dv,dim", [(16, 256), (32, 128)])  # (dim / 128) * dv = 32: the JAX int8 table's packing
+def test_row_chunks_sum_to_the_unchunked_plain_version(qv, table_dtype, dv, dim):
+    """``sum_row_chunks`` with K4's or K5's plain version as the scorer, in
+    :func:`row_chunk`'s chunks (16 rows, the last padded with zero rows, on
+    the "wgmma" shape; 32 elsewhere), against the plain version over all
+    the rows and against the TPU kernel in interpret mode, within 1e-4;
+    -inf exactly at the -1 candidates.  17 rows off the "wgmma" shape are
+    one launch, one chunk."""
+    B, C, num_docs = 3, 90, 60
+    emb, Qm, cand = _case(qv * dv, num_docs, dv, dim, B, qv, C)
+    chunk = prr.row_chunk(dv, qv, dim)
+    assert chunk == (16 if dv == 16 else min(qv, 32))
+    if table_dtype == "int8":
+        q8, scale = prr.quantize_emb_table(emb)
+        table, Qm = torch.from_numpy(q8), Qm * (1.0 / scale).astype(np.float32)
+        ref = prr.maxsim_rerank_uniform_int8_ref
+        want = np.asarray(jrp.maxsim_rerank_uniform_packed(
+            jnp.asarray(_pad128(cand)), jnp.asarray(Qm), jnp.asarray(jrp.pack_int8_table(q8, dv)),
+            dv=dv, nk=dim // 128, interpret=True))[:, :C]
+    else:
+        table, ref = torch.from_numpy(emb).to(torch.bfloat16), prr.maxsim_rerank_uniform_ref
+        want = np.asarray(jrp.maxsim_rerank_uniform(
+            jnp.asarray(_pad128(cand)), jnp.asarray(Qm), jnp.asarray(emb.astype(np.float32), jnp.bfloat16),
+            dv=dv, interpret=True))[:, :C]
+    c, q = torch.from_numpy(cand), torch.from_numpy(Qm)
+    widths = []
+
+    def score(rows):
+        widths.append(rows.shape[1])
+        return ref(c, rows, table, dv=dv)
+    got = prr.sum_row_chunks(q, chunk, score, pad=dv == 16)
+    if dv == 16:
+        assert widths == [16] * -(-qv // 16)
+    else:
+        assert sum(widths) == qv and widths[:-1] == [32] * (len(widths) - 1)
+    plain = ref(c, q, table, dv=dv).numpy()
+    got = got.numpy()
+    live = cand >= 0
+    assert (~live).any() and np.isneginf(got[~live]).all() and np.isfinite(got[live]).all()
+    np.testing.assert_allclose(got[live], plain[live], rtol=0, atol=TOL)
+    np.testing.assert_allclose(got[live], want[live], rtol=0, atol=TOL)
+
+
 def test_window_sizes():
     """About two windows of doc blocks in half the 50 MB L2 at the 20k-doc
     serving point (bf16 24 KB a doc, int8 12 KB); at 200k docs no more than

@@ -187,12 +187,12 @@ def _assert_attains(single, got):
     assert (got.pids >= 0).all() and (np.diff(got.scores, axis=1) <= 0).all()
 
 
-def _assert_same_results(want, got, k):
+def _assert_same_results(want, got, k, tol=TOL):
     assert got.pids.shape == want.pids.shape == (len(QUESTIONS), k)
     fin = np.isfinite(want.scores)
     np.testing.assert_array_equal(np.isfinite(got.scores), fin)
-    np.testing.assert_allclose(got.scores[fin], want.scores[fin], rtol=0, atol=TOL)
-    tie = np.abs(got.scores - want.scores) <= TOL
+    np.testing.assert_allclose(got.scores[fin], want.scores[fin], rtol=0, atol=tol)
+    tie = np.abs(got.scores - want.scores) <= tol
     assert ((got.pids == want.pids) | tie).all()
     assert (got.pids[fin] >= 0).all()
 
@@ -229,6 +229,39 @@ def test_sharded_ragged_agrees_with_single(sharded_setup, ragged_index, rerank_d
     single = ColbertSearcher(pcfg, tok, model, IndexStorage(tmp / "idx"), device="cpu")
     assert not ps.uniform_doclen
     _assert_attains(single.search(QUESTIONS, topk=5), ps.search(QUESTIONS, topk=5))
+
+
+@pytest.mark.parametrize("which", ["uniform", "ragged"])
+def test_sharded_searchers_serve_48_query_rows(sharded_setup, ragged_index, mesh8, native_off, which):
+    """48 query rows, more than one K4 launch takes: multiview at q_view 48
+    (query_maxlen 56) against JAX's sharded searcher, and a ragged corpus's
+    stride buckets with query_maxlen 48 against the unsharded searcher.  A
+    score sums 48 views here, 4 in the other tests: against JAX it is held
+    within 1e-4 per 16 views (the encoders agree to ~1e-6 of each view's
+    score, ~0.6, and the sum of 48 rounds ~29.5 at an ulp of 1.9e-6)."""
+    from colbert_tpu.ranking.sharded import ShardedColbertSearcher as JaxSharded
+
+    cfg, jtok, params, model, _, tmp = sharded_setup
+    if which == "uniform":
+        cfg = dataclasses.replace(cfg, multiview=dataclasses.replace(cfg.multiview, q_view=48),
+                                  tokenizer=dataclasses.replace(cfg.tokenizer, query_maxlen=56))
+    else:
+        cfg, tmp = ragged_index
+        cfg = dataclasses.replace(cfg, tokenizer=dataclasses.replace(cfg.tokenizer, query_maxlen=48))
+    pcfg = PortConfig.from_dict(cfg.to_dict())
+    tok = ColbertTokenizer(pcfg.tokenizer, pcfg.multiview)
+    state, model = model.state_dict(), ColbertModel(pcfg.model, pcfg.multiview)  # the same weights, 48 query rows
+    model.load_state_dict(state)
+    ps = _port_sharded(cfg, model, tok, tmp / "idx")
+    got = ps.search(QUESTIONS, topk=5)
+    assert tok.encode_queries(QUESTIONS).input_ids.shape == (len(QUESTIONS), cfg.tokenizer.query_maxlen)
+    if which == "uniform":
+        js = JaxSharded(cfg, JaxTokenizer(cfg.tokenizer, cfg.multiview), params, JaxStorage(tmp / "idx"), mesh=mesh8)
+        _assert_same_results(js.search(QUESTIONS, topk=5), got, 5, tol=TOL * 48 / 16)
+    else:
+        assert not ps.uniform_doclen
+        single = ColbertSearcher(pcfg, tok, model, IndexStorage(tmp / "idx"), device="cpu")
+        _assert_attains(single.search(QUESTIONS, topk=5), got)
 
 
 @pytest.mark.parametrize("change, error", [
