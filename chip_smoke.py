@@ -239,7 +239,7 @@ seed:
   the served table within 1e-4 (the host table: its int8 blocks against
   ``bf16(Qm * inv_scale)``); K4 (bf16) or K5 (int8) must launch once a
   bucket a batch and K5 once a host-table batch, every launch on route
-  "staged", K6 and K7 once a batch on route "mma";
+  "wgmma_rows", K6 and K7 once a batch on route "mma";
   (b) after phase 6: a synthetic ragged corpus, 10,000 docs of 40-124
   rows drawn around ``topic_embeddings``' topics (~0.82 M rows),
   ``build-index`` with sq (K = 4,096, sq_dim 64) and pq4; one batch of 144
@@ -253,19 +253,23 @@ seed:
   4 GB of blocks), and the bf16 batch's time per stage with the packed
   against the exact dedup (information);
   (a) on that batch's candidates (144 x 4,096): K4 over the bf16 and K5
-  over the int8 stride buckets on route "staged", each bucket's launch and
-  the bucketed entry against their plain versions (within 1e-4, -inf
-  exactly at the -1 candidates), each timed (CUDA events; the pair blocks
-  pass the L2 many times over: cold) beside the byte bound of the distinct
-  doc blocks, that of the pair blocks route "staged" reads, and the
-  operation bound (bf16; three terms for K5); and K5 over host-gathered
-  blocks, a uniform host table (16 rows, 16 views: route "wgmma") and the
-  ragged corpus's at its default funnel (route "staged"), each against its
-  plain version, timed with the host gather and the copy to the card;
+  over the int8 stride buckets on route "wgmma_rows", each bucket's launch
+  and the bucketed entry against their plain versions (within 1e-4, -inf
+  exactly at the -1 candidates), the first design (route "staged",
+  forced) on the same inputs too, the two timed in turns (wgmma_rows,
+  staged, staged, wgmma_rows; CUDA events; the pair blocks pass the L2 many
+  times over: cold) beside the byte bound of the distinct doc blocks, that
+  of the pair blocks, the operation bound (bf16; three terms for K5) and
+  the bytes route "wgmma_rows" is reckoned to stream from L2 (the pair
+  blocks and a query operand an item), failing where "wgmma_rows" is not
+  the faster; and K5 over host-gathered blocks, a uniform host table (16
+  rows, 16 views: route "wgmma") and the ragged corpus's at its default
+  funnel (124 rows: route "wgmma_rows"), each and route "staged" against
+  the plain version, timed in turns, with the host gather and the copy;
   (d) between (b) and (a): 144 two-topic queries of 48 rows, more than one
   K4/K5 launch takes, through the bf16 and int8 stride buckets and the
   host table (funnel 256) of (b), a launch a bucket (or a host chunk) and
-  a 32-row chunk on route "staged", and through phase 5b's uniform index
+  a 32-row chunk on route "wgmma_rows", and through phase 5b's uniform index
   as a q_view-48 batch, a launch a 16-row chunk on route "wgmma": every
   score the exact MaxSim of its pid over the served table within 1e-4,
   recall@100 against the fp32 exact oracle (at least 0.98 but the 256
@@ -397,6 +401,7 @@ def counters():
             "K11": fa.fwd_launches, "K12": fa.dkv_launches, "K13": fa.dq_launches,
             "K1/K2 wgmma route": fs.route_launches["wgmma"], "K1/K2 staged route": fs.route_launches["staged"],
             "K4/K5 wgmma route": rr.route_launches["wgmma"], "K4/K5 staged route": rr.route_launches["staged"],
+            "K4/K5 wgmma_rows route": rr.route_launches["wgmma_rows"],
             "K6 mma route": sp.route_launches["mma"], "K6 staged route": sp.route_launches["staged"],
             "K7 mma route": sp.hot_route_launches["mma"], "K7 staged route": sp.hot_route_launches["staged"],
             "K8 onehot route": pq4.route_launches["onehot"], "K8 lookup route": pq4.route_launches["lookup"],
@@ -1585,6 +1590,7 @@ def phase_ann_cli(device, workdir: Path, cfg, common, corpus_path, eval_path, do
         f"--remote batches on the bf16 table, {eval_batches} local evaluate batches and one "
         f"service batch on the int8 table)")
     want["K4/K5 wgmma route"], want["K4/K5 staged route"] = want["K4"] + want["K5"], 0
+    want["K4/K5 wgmma_rows route"] = 0
     want["K6 mma route"], want["K6 staged route"] = want["K6"], 0
     want["K7 mma route"], want["K7 staged route"] = want["K7"], 0
     if any(launches[k] != v for k, v in want.items()):
@@ -2130,7 +2136,7 @@ def phase_rerank(device, cand, Qb, table, docs, label, seed=SEED):
     return out
 
 
-WIDE_ROWS = (48, 64)  # query rows past one K4/K5 launch's (16 on route "wgmma", 32 on "staged")
+WIDE_ROWS = (48, 64)  # query rows past one K4/K5 launch's (16 on route "wgmma", 32 on "wgmma_rows")
 
 
 def wide_query_rerank(name, fn, ref, cand, q, table, terms, label):
@@ -2287,7 +2293,7 @@ def phase_codecs_cli(device, workdir: Path, cfg, common, corpus_path, eval_path,
     eval_batches = -(-n_eval // B)
     want = {"K8": 2 + eval_batches, "K10": 1, "K10 fused route": 1, "K10 staged route": 0,
             "K4": 3 + eval_batches, "K5": 0, "K6": 0, "K7": 0,
-            "K4/K5 wgmma route": 3 + eval_batches, "K4/K5 staged route": 0,
+            "K4/K5 wgmma route": 3 + eval_batches, "K4/K5 staged route": 0, "K4/K5 wgmma_rows route": 0,
             "K6 mma route": 0, "K6 staged route": 0, "K7 mma route": 0, "K7 staged route": 0,
             "K8 onehot route": 2 + eval_batches, "K8 lookup route": 0}
     log(f"[phase6c] launches in the pq4 / token-probe serving-path run: {launches} (expected {want}: "
@@ -3545,9 +3551,9 @@ def phase_ragged_cli(device, workdir: Path, cfg, common, eval_path, docs, reques
     buckets) over the socket, two requests; one request each through an
     int8, a host-table and a packed-dedup service; ``evaluate --remote``.
     The launch counts of that run: K4/K5 once a bucket a batch (the host
-    table: K5 once a batch), all on route "staged", K6 and K7 once a batch
-    on "mma"; every answer's scores the exact MaxSim of its pids over the
-    served table."""
+    table: K5 once a batch), all on route "wgmma_rows", K6 and K7 once a
+    batch on "mma"; every answer's scores the exact MaxSim of its pids over
+    the served table."""
     import numpy as np
     import torch
 
@@ -3628,7 +3634,8 @@ def phase_ragged_cli(device, workdir: Path, cfg, common, eval_path, docs, reques
     bf16_batches = 2 + eval_batches + 1  # the socket's, evaluate --remote's, the packed service's
     batches = bf16_batches + 2
     want = {"K4": nb * bf16_batches, "K5": nb + host_k5, "K6": batches, "K7": batches,
-            "K4/K5 staged route": nb * (bf16_batches + 1) + host_k5, "K4/K5 wgmma route": 0,
+            "K4/K5 wgmma_rows route": nb * (bf16_batches + 1) + host_k5, "K4/K5 wgmma route": 0,
+            "K4/K5 staged route": 0,
             "K6 mma route": batches, "K6 staged route": 0, "K7 mma route": batches, "K7 staged route": 0}
     log(f"[phase9c] launches in the ragged serving-path run: {rerank_launches()} (expected {want}: {nb} buckets; "
         f"{bf16_batches} bf16-bucket batches (2 socket requests, {eval_batches} evaluate --remote, 1 packed), one "
@@ -3651,16 +3658,54 @@ def phase_ragged_cli(device, workdir: Path, cfg, common, eval_path, docs, reques
             "max_abs_err": worst, "encode_s": enc_s, "build_s": build_s}
 
 
-def ragged_bucket_kernels(cand, Qb, searchers, label):
-    """Phase 9a: K4 (bf16 buckets) and K5 (int8 buckets) on route "staged"
-    at the ragged shape, each bucket's launch and the bucketed entry against
-    their plain versions (within ``SCORE_ATOL``, -inf exactly at the -1
-    candidates), timed (CUDA events; the pair blocks pass the L2 many times
-    over, so every launch reads cold), beside both byte bounds (distinct doc
-    blocks; the pair blocks route "staged" reads) and the operation bound."""
+def rows_l2_gb(cand, q_rows, table, dv, int8):
+    """The bytes route "wgmma_rows" streams from L2 into the SMs for one
+    call, reckoned from its work list: every pair's block (its 16-row tiles,
+    rows past dv zero-filled by TMA and not read) and one query operand an
+    item (32 rows, or K5's three terms of them)."""
     import torch
 
     from colbert_tpu_torch.ops import rerank as rr
+
+    dim, num_docs = table.shape[1], table.shape[0] // dv
+    window = rr.window_docs(num_docs, cand.shape[1], dv * dim * table.element_size())
+    items = rr.rerank_items(rr.rerank_schedule(cand, num_docs, window)[2], cand.shape[1], rr._ROWS_PART[int8])
+    n_items = int((items[:, 0] >= 0).sum())
+    chunks = -(-q_rows // rr.MAX_VIEWS)
+    q_bytes = dim * rr.MAX_VIEWS * (3 if int8 else 1) * 2
+    pair = int((cand >= 0).sum()) * dv * dim * table.element_size()
+    return chunks * (pair + n_items * q_bytes) / 1e9, n_items
+
+
+def timed_in_turns(new, old, iters=3):
+    """``new`` and ``old`` timed in turns (new, old, old, new; CUDA events);
+    the mean of each one's two turns, and the four turns."""
+    turns = [time_ms(f, iters=iters, warmup=1) for f in (new, old, old, new)]
+    return (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2, turns
+
+
+def ragged_bucket_kernels(cand, Qb, searchers, label):
+    """Phase 9a: K4 (bf16 buckets) and K5 (int8 buckets) on route
+    "wgmma_rows" at the ragged shape, each bucket's launch and the bucketed
+    entry against their plain versions (within ``SCORE_ATOL``, -inf exactly
+    at the -1 candidates), and the first design (route "staged", forced) on
+    the same inputs against them too; the two routes timed in turns
+    (wgmma_rows, staged, staged, wgmma_rows; CUDA events; the pair blocks
+    pass the L2 many times over, so every launch reads cold), beside both
+    byte bounds (distinct doc blocks; the pair blocks "staged" reads), the
+    operation bound and the L2 bytes route "wgmma_rows" is reckoned to
+    stream (:func:`rows_l2_gb`)."""
+    import torch
+
+    from colbert_tpu_torch.ops import rerank as rr
+
+    def check(what, got, want, live):
+        if not torch.equal(torch.isfinite(got), live) or not torch.isneginf(got[~live]).all():
+            raise AssertionError(f"{what}: -inf pattern differs from the -1 candidates")
+        err = float((got[live] - want[live]).abs().max()) if live.any() else 0.0
+        if not err <= SCORE_ATOL:
+            raise AssertionError(f"{what} differs from its plain version by {err}")
+        return err
 
     out = {}
     for name, s, fn, ref, terms in (("K4", searchers["bfloat16"], rr.maxsim_rerank_uniform,
@@ -3668,79 +3713,93 @@ def ragged_bucket_kernels(cand, Qb, searchers, label):
                                     ("K5", searchers["int8"], rr.maxsim_rerank_uniform_int8,
                                      rr.maxsim_rerank_uniform_int8_ref, 3)):
         t = s.emb_table
-        q = Qb.float() * s.emb_inv_scale if name == "K5" else Qb
+        q, int8 = rr._bucket_query(Qb, t.tables, s.emb_inv_scale)
+        dtype = t.tables[0].dtype
+        staged = lambda c, qq, table, dv: rr._launch(c, qq, table, dv, dtype, fn.launches, route="staged")
         safe = cand.clamp(min=0).long()
         b_of = torch.where(cand >= 0, t.bucket_of_pid[safe], -1)
         s_of = t.slot_of_pid[safe]
         qv, dim, elt = Qb.shape[1], Qb.shape[2], t.tables[0].element_size()
-        buckets, tot = [], {"distinct_gb": 0.0, "pair_gb": 0.0, "flops": 0.0}
+        buckets, tot = [], {"distinct_gb": 0.0, "pair_gb": 0.0, "flops": 0.0, "l2_gb": 0.0}
         for b, (table, stride) in enumerate(zip(t.tables, t.strides)):
             cb = torch.where(b_of == b, s_of, -1)
-            before = rr.route_launches["staged"].value
+            before = {k: c.value for k, c in rr.route_launches.items()}
             got, want = fn(cb, q, table, dv=stride), ref(cb, q, table, dv=stride)
             torch.cuda.synchronize()
-            if rr.route_launches["staged"].value != before + 1:
-                raise AssertionError(f"{name} bucket {stride}: not one launch on route staged")
+            launched = {k: c.value - before[k] for k, c in rr.route_launches.items()}
+            if launched != {k: int(k == "wgmma_rows") for k in launched}:
+                raise AssertionError(f"{name} bucket {stride}: launches {launched}, not one on route wgmma_rows")
             live = cb >= 0
-            if not torch.equal(torch.isfinite(got), live) or not torch.isneginf(got[~live]).all():
-                raise AssertionError(f"{name} bucket {stride}: -inf pattern differs from the -1 candidates")
-            err = float((got[live] - want[live]).abs().max()) if live.any() else 0.0
-            if not err <= SCORE_ATOL:
-                raise AssertionError(f"{name} bucket {stride} differs from its plain version by {err}")
+            err = check(f"{name} bucket {stride}", got, want, live)
+            err_staged = check(f"{name} bucket {stride}, route staged", staged(cb, q, table, stride), want, live)
             nv, n_unique = int(live.sum()), int(torch.unique(cb[live]).numel())
             block = stride * dim * elt
+            l2_gb, n_items = rows_l2_gb(cb, qv, table, stride, int8)
+            ms, staged_ms, turns = timed_in_turns(lambda: fn(cb, q, table, dv=stride),
+                                                  lambda: staged(cb, q, table, stride))
             r = {"stride": stride, "valid": nv, "distinct_docs": n_unique, "max_abs_err": err,
-                 "ms": time_ms(lambda: fn(cb, q, table, dv=stride), iters=3, warmup=1),
-                 "distinct_gb": n_unique * block / 1e9, "pair_gb": nv * block / 1e9,
-                 "flops": terms * 2.0 * nv * stride * dim * qv}
+                 "staged_max_abs_err": err_staged, "ms": ms, "staged_ms": staged_ms, "turns_ms": turns,
+                 "distinct_gb": n_unique * block / 1e9, "pair_gb": nv * block / 1e9, "l2_gb": l2_gb,
+                 "items": n_items, "flops": terms * 2.0 * nv * stride * dim * qv}
             io = cb.numel() * 8 + q.numel() * 4
             r["bound_ms"], r["bound_by"] = bound(r["flops"], n_unique * block + io, PEAK_BF16_FLOPS)
             r["pair_bound_ms"] = (nv * block + io) / PEAK_HBM_BYTES * 1e3
             for k in tot:
                 tot[k] += r[k]
             log(f"[phase9a] {name} bucket stride {stride}: {nv} pairs ({n_unique} distinct docs) x {qv} query rows x "
-                f"{dim}: max|d|={err:.3e}; {r['ms']:.3f} ms [route staged]; bounds: distinct docs "
-                f"{r['distinct_gb']:.3f} GB {r['bound_ms']:.3f} ms ({r['bound_by']}), pair blocks {r['pair_gb']:.2f} "
-                f"GB {r['pair_bound_ms']:.3f} ms, operations {r['flops'] / PEAK_BF16_FLOPS * 1e3:.3f} ms [{label}]")
+                f"{dim}: max|d|={err:.3e} (staged {err_staged:.3e}); route wgmma_rows {ms:.3f} ms, route staged "
+                f"{staged_ms:.3f} ms ({staged_ms / ms:.2f}x; turns {' / '.join(f'{x:.3f}' for x in turns)}); bounds: "
+                f"distinct docs {r['distinct_gb']:.3f} GB {r['bound_ms']:.3f} ms ({r['bound_by']}), pair blocks "
+                f"{r['pair_gb']:.2f} GB {r['pair_bound_ms']:.3f} ms, operations "
+                f"{r['flops'] / PEAK_BF16_FLOPS * 1e3:.3f} ms; wgmma_rows streams {l2_gb:.2f} GB from L2 "
+                f"({n_items} items; {l2_gb / ms:.2f} TB/s) [{label}]")
             buckets.append(r)
         before = {k: c.value for k, c in rr.route_launches.items()}
         got = rr.maxsim_rerank_buckets(cand, Qb, *t, inv_scale=s.emb_inv_scale)
         torch.cuda.synchronize()
-        if rr.route_launches["staged"].value - before["staged"] != len(t.tables) or \
-                rr.route_launches["wgmma"].value != before["wgmma"]:
-            raise AssertionError(f"{name} bucketed entry: not one staged launch a bucket")
+        launched = {k: c.value - before[k] for k, c in rr.route_launches.items()}
+        if launched != {k: len(t.tables) * (k == "wgmma_rows") for k in launched}:
+            raise AssertionError(f"{name} bucketed entry: launches {launched}, not one on wgmma_rows a bucket")
         t0 = time.perf_counter()
         want = rr.maxsim_rerank_buckets_ref(cand, Qb, *t, inv_scale=s.emb_inv_scale)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         live = cand >= 0
-        if not torch.equal(torch.isfinite(got), live) or not torch.isneginf(got[~live]).all():
-            raise AssertionError(f"{name} bucketed entry: -inf pattern differs from the -1 candidates")
-        err = float((got[live] - want[live]).abs().max())
-        if not err <= SCORE_ATOL:
-            raise AssertionError(f"{name} bucketed entry differs from its plain version by {err}")
+        bucketed_staged = lambda: rr._buckets(cand, q, t.tables, t.strides, t.bucket_of_pid, t.slot_of_pid, staged)
+        err = check(f"{name} bucketed entry", got, want, live)
+        err_staged = check(f"{name} bucketed entry, route staged", bucketed_staged(), want, live)
+        ms, staged_ms, turns = timed_in_turns(
+            lambda: rr.maxsim_rerank_buckets(cand, Qb, *t, inv_scale=s.emb_inv_scale), bucketed_staged)
         io = cand.numel() * 8 + Qb.numel() * 4
-        res = {"max_abs_err": err, "plain_ms": plain_ms, "buckets": buckets, "strides": list(t.strides),
-               "ms": time_ms(lambda: rr.maxsim_rerank_buckets(cand, Qb, *t, inv_scale=s.emb_inv_scale),
-                             iters=3, warmup=1),
+        res = {"max_abs_err": err, "staged_max_abs_err": err_staged, "plain_ms": plain_ms, "buckets": buckets,
+               "strides": list(t.strides), "ms": ms, "staged_ms": staged_ms, "turns_ms": turns,
                "bucket_ms_sum": sum(r["ms"] for r in buckets), "distinct_gb": tot["distinct_gb"],
-               "pair_gb": tot["pair_gb"], "pair_bound_ms": (tot["pair_gb"] * 1e9 + io) / PEAK_HBM_BYTES * 1e3}
+               "pair_gb": tot["pair_gb"], "l2_gb": tot["l2_gb"], "items": sum(r["items"] for r in buckets),
+               "pair_bound_ms": (tot["pair_gb"] * 1e9 + io) / PEAK_HBM_BYTES * 1e3,
+               "ops_ms": tot["flops"] / PEAK_BF16_FLOPS * 1e3}
         res["bound_ms"], res["bound_by"] = bound(tot["flops"], tot["distinct_gb"] * 1e9 + io, PEAK_BF16_FLOPS)
         log(f"[phase9a] {name} bucketed entry: {B} x {cand.shape[1]} candidates over {len(buckets)} buckets "
-            f"{list(t.strides)}: max|d|={err:.3e} (limit {SCORE_ATOL}); {res['ms']:.3f} ms (buckets alone "
-            f"{res['bucket_ms_sum']:.3f}), plain {plain_ms:.1f} ms; bounds: distinct docs {res['distinct_gb']:.3f} GB "
-            f"{res['bound_ms']:.3f} ms ({res['bound_by']}), pair blocks {res['pair_gb']:.2f} GB "
-            f"{res['pair_bound_ms']:.3f} ms, operations {tot['flops'] / PEAK_BF16_FLOPS * 1e3:.3f} ms; no single "
-            f"PyTorch call computes it [{label}]")
+            f"{list(t.strides)}: max|d|={err:.3e} (staged {err_staged:.3e}; limit {SCORE_ATOL}); route wgmma_rows "
+            f"{ms:.3f} ms (buckets alone {res['bucket_ms_sum']:.3f}), route staged {staged_ms:.3f} ms "
+            f"({staged_ms / ms:.2f}x; turns {' / '.join(f'{x:.3f}' for x in turns)}), plain {plain_ms:.1f} ms; "
+            f"bounds: distinct docs {res['distinct_gb']:.3f} GB {res['bound_ms']:.3f} ms ({res['bound_by']}), pair "
+            f"blocks {res['pair_gb']:.2f} GB {res['pair_bound_ms']:.3f} ms, operations {res['ops_ms']:.3f} ms; "
+            f"wgmma_rows streams {res['l2_gb']:.2f} GB from L2 ({res['items']} items); no single PyTorch call "
+            f"computes it [{label}]")
+        if not ms < staged_ms or any(not r["ms"] < r["staged_ms"] for r in buckets):
+            raise AssertionError(f"{name}: route wgmma_rows is not faster than route staged on every bucket and "
+                                 f"the bucketed entry")
         out[name] = res
     return out
 
 
 def host_block_kernels(device, host_searcher, Qb, qm, label, num_docs=HOST_UNIFORM_DOCS, seed=SEED):
-    """Phase 9a: K5 over host-gathered block sets, timed: a uniform host
-    table (16 rows a doc, 16 query views: route "wgmma") and the ragged
-    corpus's host table at its default funnel (route "staged"); each launch
-    against its plain version, and the host gather's and the copy's time."""
+    """Phase 9a: K5 over host-gathered block sets: a uniform host table (16
+    rows a doc, 16 query views: route "wgmma") and the ragged corpus's host
+    table at its default funnel (its cap, 124 rows, at 32 views: route
+    "wgmma_rows"); each launch, and the first design (route "staged",
+    forced) on the same blocks, against the plain version; the two timed in
+    turns beside the bound, and the host gather's and the copy's time."""
     import torch
 
     from colbert_tpu_torch.ops import rerank as rr
@@ -3773,18 +3832,31 @@ def host_block_kernels(device, host_searcher, Qb, qm, label, num_docs=HOST_UNIFO
         local = torch.where(cand.to(device) >= 0, local, -1)
         qb = q.to(torch.bfloat16).float()
         route = rr.rerank_plan(cap, qb.shape[1], H)
+        before = rr.route_launches[route].value
         got = rr.maxsim_rerank_uniform_int8(local, qb, blocks, dv=cap)
-        err = float((got - rr.maxsim_rerank_uniform_int8_ref(local, qb, blocks, dv=cap)).abs().max())
-        if not err <= SCORE_ATOL:
-            raise AssertionError(f"K5 over {kind} host blocks differs from its plain version by {err}")
-        ms = time_ms(lambda: rr.maxsim_rerank_uniform_int8(local, qb, blocks, dv=cap), iters=3, warmup=1)
+        torch.cuda.synchronize()
+        if rr.route_launches[route].value != before + 1:
+            raise AssertionError(f"K5 over {kind} host blocks: not one launch on route {route}")
+        staged = lambda: rr._launch(local, qb, blocks, cap, torch.int8, rr.maxsim_rerank_uniform_int8.launches,
+                                    route="staged")
+        want = rr.maxsim_rerank_uniform_int8_ref(local, qb, blocks, dv=cap)
+        err, err_staged = float((got - want).abs().max()), float((staged() - want).abs().max())
+        if not (err <= SCORE_ATOL and err_staged <= SCORE_ATOL):
+            raise AssertionError(f"K5 over {kind} host blocks differs from its plain version by {err} "
+                                 f"(staged {err_staged})")
+        ms, staged_ms, turns = timed_in_turns(lambda: rr.maxsim_rerank_uniform_int8(local, qb, blocks, dv=cap), staged)
         bnd = bound(3 * 2.0 * n * cap * H * qb.shape[1], blocks.numel() + local.numel() * 8 + qb.numel() * 4,
                     PEAK_BF16_FLOPS)
-        out[kind] = {"route": route, "max_abs_err": err, "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+        out[kind] = {"route": route, "max_abs_err": err, "staged_max_abs_err": err_staged, "ms": ms,
+                     "staged_ms": staged_ms, "turns_ms": turns, "bound_ms": bnd[0], "bound_by": bnd[1],
                      "gather_ms": gather_ms, "copy_ms": copy_ms, "gb": blocks.numel() / 1e9}
         log(f"[phase9a] K5 over {kind} host-gathered blocks ({B} x {hc} docs x {cap} rows, {blocks.numel() / 1e9:.2f} "
-            f"GB): max|d|={err:.3e}; {ms:.3f} ms [route {route}], bound {bnd[0]:.3f} ms ({bnd[1]}); host gather "
-            f"{gather_ms:.1f} ms (host clock), copy to the card {copy_ms:.1f} ms [{label}]")
+            f"GB): max|d|={err:.3e} (staged {err_staged:.3e}); route {route} {ms:.3f} ms, route staged "
+            f"{staged_ms:.3f} ms ({staged_ms / ms:.2f}x; turns {' / '.join(f'{x:.3f}' for x in turns)}), bound "
+            f"{bnd[0]:.3f} ms ({bnd[1]}); host gather {gather_ms:.1f} ms (host clock), copy to the card "
+            f"{copy_ms:.1f} ms [{label}]")
+        if kind == "ragged" and not ms < staged_ms:
+            raise AssertionError(f"K5 over ragged host blocks: route {route} is not faster than route staged")
         del blocks, buf
     return out
 
@@ -3793,7 +3865,7 @@ def wide_query_search(device, kept, uniform_cfg, label, seed=0, qv=48):
     """Phase 9d: one batch of 144 two-topic queries of ``qv`` (48) rows from
     query reps, more than one K4/K5 launch takes, through the ragged
     index's bf16 and int8 stride buckets and its host table (funnel 256), a
-    launch a bucket (or a host chunk) and a 32-row chunk on route "staged",
+    launch a bucket (or a host chunk) and a 32-row chunk on route "wgmma_rows",
     and through phase 5b's uniform index (multiview, 16 rows a doc, bf16
     table) as a q_view-48 batch, a launch a 16-row chunk on route "wgmma":
     the launches counted, every score the exact MaxSim of its pid over the
@@ -3814,12 +3886,13 @@ def wide_query_search(device, kept, uniform_cfg, label, seed=0, qv=48):
     uniform = srch.ColbertSearcher(uniform_cfg, ColbertTokenizer(uniform_cfg.tokenizer, uniform_cfg.multiview),
                                    ColbertModel(uniform_cfg.model, uniform_cfg.multiview),
                                    IndexStorage(uniform_cfg.index.index_path), device=device)
-    staged = -(-qv // rr.MAX_VIEWS)
-    cases = {"ragged bf16": (kept["bfloat16"], "K4", staged * len(kept["bfloat16"].ragged_strides), "staged",
+    rows = -(-qv // rr.MAX_VIEWS)  # 32-row chunks
+    cases = {"ragged bf16": (kept["bfloat16"], "K4", rows * len(kept["bfloat16"].ragged_strides), "wgmma_rows",
                              bucket_exact(kept["bfloat16"])),
-             "ragged int8": (kept["int8"], "K5", staged * len(kept["int8"].ragged_strides), "staged",
+             "ragged int8": (kept["int8"], "K5", rows * len(kept["int8"].ragged_strides), "wgmma_rows",
                              bucket_exact(kept["int8"])),
-             "ragged host": (kept["host"], "K5", staged * host_chunks(kept["host"]), "staged", host_exact(kept["host"])),
+             "ragged host": (kept["host"], "K5", rows * host_chunks(kept["host"]), "wgmma_rows",
+                             host_exact(kept["host"])),
              "uniform bf16, q_view 48": (uniform, "K4", -(-qv // 16), "wgmma",
                                          lambda pids, q: rr.maxsim_rerank_uniform_ref(pids, q, uniform.emb_table, dv=16))}
     out, low = {}, {}
@@ -3832,8 +3905,9 @@ def wide_query_search(device, kept, uniform_cfg, label, seed=0, qv=48):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         got = {k: v - before[k] for k, v in rerank_launches().items()}
-        want = {"K4": n * (kern == "K4"), "K5": n * (kern == "K5"), "K4/K5 staged route": n * (route == "staged"),
-                "K4/K5 wgmma route": n * (route == "wgmma"), "K6": 1, "K7": 1, "K6 mma route": 1, "K7 mma route": 1}
+        want = {"K4": n * (kern == "K4"), "K5": n * (kern == "K5"), "K4/K5 staged route": 0,
+                "K4/K5 wgmma_rows route": n * (route == "wgmma_rows"), "K4/K5 wgmma route": n * (route == "wgmma"),
+                "K6": 1, "K7": 1, "K6 mma route": 1, "K7 mma route": 1}
         if any(got[k] != v for k, v in want.items()):
             raise AssertionError(f"phase9d {name}: launches {got}, expected {want}")
         if ts.shape != (B, TOPK) or not torch.isfinite(ts).all():
@@ -3880,7 +3954,7 @@ def phase_ragged(device, workdir: Path, label: str, num_docs=RAGGED_DOCS, rows=R
     and fp32; the host table with each funnel of ``funnels``) and the packed
     dedup: recall@100 against the fp32 exact oracle, the batch's time and
     its launches (K4/K5 once a bucket, or a host chunk, all on route
-    "staged"; K6 and K7 once on "mma"), the stages' times; then phase 9d
+    "wgmma_rows"; K6 and K7 once on "mma"), the stages' times; then phase 9d
     (48 query rows over the ragged tables and ``uniform_cfg``'s index) and
     phase 9a on the served batch's candidates."""
     import numpy as np
@@ -3961,8 +4035,8 @@ def phase_ragged(device, workdir: Path, label: str, num_docs=RAGGED_DOCS, rows=R
         got = {k: v - before[k] for k, v in rerank_launches().items()}
         n_k45 = host_chunks(s) if host else (0 if name == "fp32" else len(s.ragged_strides or ()))
         want = {"K4": n_k45 if name in ("bf16", "packed", "pq4") else 0,
-                "K5": n_k45 if (name == "int8" or host) else 0, "K4/K5 staged route": n_k45,
-                "K4/K5 wgmma route": 0, "K6": int(codec == "sq"), "K7": int(codec == "sq"),
+                "K5": n_k45 if (name == "int8" or host) else 0, "K4/K5 wgmma_rows route": n_k45,
+                "K4/K5 staged route": 0, "K4/K5 wgmma route": 0, "K6": int(codec == "sq"), "K7": int(codec == "sq"),
                 "K6 mma route": int(codec == "sq"), "K7 mma route": int(codec == "sq")}
         if any(got[k] != v for k, v in want.items()):
             raise AssertionError(f"phase9b {name}: launches {got}, expected {want}")
@@ -4133,7 +4207,7 @@ def phase_sharded_ann(device, label, ann_info, shards=SHARDS):
     # ----
 
     want = {"K6": shards, "K7": shards, "K4": shards, "K5": 0, "K6 mma route": shards, "K7 mma route": shards,
-            "K4/K5 wgmma route": shards}
+            "K4/K5 wgmma route": shards, "K4/K5 wgmma_rows route": 0, "K4/K5 staged route": 0}
     log(f"[phase10b] launches in the sharded ANN batch: {launches} (expected {want}: once a shard)")
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"sharded ANN launches {launches}, expected {want}")
@@ -4166,6 +4240,18 @@ def phase_sharded_ann(device, label, ann_info, shards=SHARDS):
     if rec_exact < 0.98 or rec_single < 0.95 or err > SCORE_ATOL or below > SCORE_ATOL:
         raise AssertionError(f"sharded ANN: recall {rec_exact} / {rec_single}, max|d| {err}, below single {below}")
     return out
+
+
+def phase9_alone(device, label):
+    """Phases 9b, 9d and 9a with only the set-up they need (``chip_smoke.py
+    --phase9``): phase 5b's corpus and uniform index (9d's q_view-48 batch)
+    and the synthetic ragged corpus; 9c, which serves phase 2's encoded
+    corpus, runs only in the whole script."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_phase9_") as tmp:
+        tmp = Path(tmp)
+        (tmp / "ann").mkdir()
+        cfg, *_ = bench_index(device, tmp / "ann", n_batches=1)
+        return phase_ragged(device, tmp, label, uniform_cfg=cfg)
 
 
 def phase10_alone(device, label):
@@ -4858,6 +4944,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of colbert_tpu_torch on the cards present.")
     ap.add_argument("--phase10", action="store_true",
                     help="phase 10 alone (several devices), with the set-up it needs")
+    ap.add_argument("--phase9", action="store_true",
+                    help="phases 9b, 9d and 9a alone (ragged corpora, the host table), with the set-up they need")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -4884,10 +4972,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    if args.phase10:
-        out = phase10_alone(device, label)
+    if args.phase10 or args.phase9:
+        out = {"phase10": phase10_alone(device, label)} if args.phase10 else {"phase9": phase9_alone(device, label)}
         log(label)
-        log(json.dumps({"phase10": out}, default=str))
+        log(json.dumps(out, default=str))
         log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                "count": torch.cuda.device_count()}}))
         return 0
@@ -5041,14 +5129,23 @@ def main() -> int:
                 "low_reuse_staged_design_ms": lr["staged_ms"], "low_reuse_max_abs_err": lr["max_abs_err"],
                 "wide_query_rows": k["wide"],  # phase 5a: 48 and 64 query rows, a launch a 16-row chunk
                 "wide_query_search": {n: r for n, r in ragged["wide"].items() if r["launches"][fn]}})  # phase 9d
-            rk = ragged["buckets"][fn]
-            kernels[-1]["ragged"] = {  # phase 9a: a ragged corpus's stride buckets, route "staged"
-                "kernel_route": "staged", "launches": ragged_cli["launches"][fn], "strides": rk["strides"],
-                **{key: rk[key] for key in ("ms", "plain_ms", "max_abs_err", "bound_ms", "bound_by", "pair_bound_ms",
-                                            "bucket_ms_sum", "distinct_gb", "pair_gb")},
-                "bucket_ms": [b["ms"] for b in rk["buckets"]]}
-            if fn == "K5":
-                kernels[-1]["host_blocks"] = ragged["host_blocks"]
+    for name, fn, line in (("K4 maxsim_rerank_buckets (ragged stride buckets)", "K4", 26),
+                           ("K5 maxsim_rerank_buckets (ragged int8 stride buckets, host blocks)", "K5", 65)):
+        rk = ragged["buckets"][fn]  # phase 9a; launches: phase 9c's served ragged run, all on "wgmma_rows"
+        kernels.append({
+            "name": name, "route": "cuda", "source": "colbert_tpu_torch/csrc/rerank.cu",
+            "replaces": f"colbert_tpu/ops/rerank_pallas.py:{line}", "launches": ragged_cli["launches"][fn],
+            "max_abs_err": rk["max_abs_err"], "ms": rk["ms"], "plain_ms": rk["plain_ms"], "bound_ms": rk["bound_ms"],
+            "bound_by": rk["bound_by"], "library_ms": None, "kernel_route": "wgmma_rows",
+            "route_launches": {r: ragged_cli["launches"][f"K4/K5 {r} route"] for r in ("wgmma_rows", "staged")},
+            "staged_design_ms": rk["staged_ms"], "staged_max_abs_err": rk["staged_max_abs_err"],
+            "turns_ms": rk["turns_ms"], "strides": rk["strides"],
+            **{key: rk[key] for key in ("pair_bound_ms", "ops_ms", "bucket_ms_sum", "distinct_gb", "pair_gb",
+                                        "l2_gb", "items")},
+            "bucket_ms": [b["ms"] for b in rk["buckets"]], "bucket_staged_ms": [b["staged_ms"] for b in rk["buckets"]],
+            "bucket_l2_gb": [b["l2_gb"] for b in rk["buckets"]]})
+        if fn == "K5":
+            kernels[-1]["host_blocks"] = ragged["host_blocks"]
     for name, fn, src, replaces in (
         ("K8 pq4_list_scan", "K8", "colbert_tpu_torch/csrc/pq4_scan.cu", "colbert_tpu/ops/pq4.py:125"),
         ("K10 sq_window_topk", "K10", "colbert_tpu_torch/csrc/sq_token_scan.cu",

@@ -67,10 +67,45 @@
 //   lane 0 writes out[b, perm[b, j]].  Each pair is written once, no
 //   atomics; the wrapper fills out with -inf, which -1 pairs keep.
 //
-// Route "staged" (every other shape: dv != 16, qv != 16, other dims): the
-// first design, one warp per candidate at a time, 16 doc rows x 128 dims
-// staged synchronously in shared memory, bf16 16x16x16 wmma, every pair's
-// block read from device memory.  ops/rerank.py::rerank_plan picks the route.
+// Route "wgmma_rows" (any other dv >= 1, up to 32 query rows, dim as
+// "wgmma": a ragged corpus's stride buckets, dv 16-384, and the host
+// table's blocks, dv = the longest doc), "wgmma" generalised:
+// * What bounds it: at phase 9a's ragged batch (144 queries x 4,096
+//   candidates over 10,000 docs of 40-124 rows, four buckets) a doc is a
+//   candidate of ~59 queries: 1.45 GB of distinct bf16 blocks (0.43 ms from
+//   device memory) against 71.1 GB of pair blocks, and 2.3 ms of bf16
+//   operations (6.9 for K5's three terms).  So the stream of pair blocks
+//   from L2 into the SMs bounds K4, the operations K5; the host table's
+//   blocks (each pair its own doc) are read once from device memory.
+// * Query-stationary, as "wgmma": the same pid windows (sized by the doc's
+//   bytes), and each (window, query) run cut into parts of at most 64 docs
+//   (K4; 32 for K5) by the wrapper (ops/rerank.py::rerank_items, on the device): a
+//   work list with no empty item, window-major, that balances the
+//   persistent grid when runs are long (the host table's 256 docs a query)
+//   and spends nothing on another bucket's -1 candidates.
+// * The query sits in shared memory as the wgmma B operand, 32 rows (fewer
+//   are zero rows, which add 0): n = 32 for bf16(Q), n = 96 for K5's three
+//   bf16 terms; one or two query buffers and a 1-4 stage ring, as many as
+//   fit beside it (K5 at dim 768: its 144 KB query and two 32 KB stages).
+// * A doc a consumer warp, its 16-row tiles in turn: a stage is one tile
+//   of each of 8 docs, one TMA box a doc (16 rows x 3 chunks bf16, x 2
+//   int8) from a 4-D tensor map (128-byte column chunk, row of the doc, doc,
+//   chunk index), so the rows of a last tile past dv come in as zeros, never
+//   as the next doc's rows; the epilogue leaves them out of the max, so a
+//   doc's score is the max over its dv rows, as in the plain version.
+// * A fragments in registers as "wgmma" (ldmatrix; int8 widened exactly),
+//   wgmma m64n32k16 / m64n96k16 with no branch between them (the query
+//   padded with zeros to whole stages), and after each tile the max over its rows
+//   folded into 8 running maxima a thread; after the last tile the max over
+//   the warp's rows (lane bits 2-4) and the sum over the 32 views (bits
+//   0-1); lane 0 writes out[b, perm[b, j]] once, no atomics.
+//
+// Route "staged" (every other shape: dims that are not whole 64-dim chunks
+// or past 1,024; and on request, as the first design): the first design,
+// one warp per candidate at a time, 16 doc rows x 128 dims staged
+// synchronously in shared memory, bf16 16x16x16 wmma, every pair's block
+// read from device memory; a launch covers every candidate of the call,
+// -1s included.  ops/rerank.py::rerank_plan picks the route.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -566,6 +601,360 @@ cudaError_t launch_wgmma(const void* q, const void* table, const int* spid, cons
   return cudaGetLastError();
 }
 
+// ---- route "wgmma_rows": any rows a doc, up to 32 query rows ----
+
+namespace wr {
+
+using namespace hopper;
+using wg::CHUNK;
+using wg::CONS;
+using wg::GD;
+using wg::PROD;
+using wg::ROW;
+using wg::THREADS;
+
+constexpr int QV = 32;          // query rows a launch (fewer: zero rows, which add 0)
+constexpr int MAX_STAGES = 4;
+constexpr int MAX_QBUF = 2;
+constexpr size_t SMEM = 232448 - 1024 - 256;  // a block's shared memory less the alignment and the barriers
+
+// As wg::Cfg, at 32 views: the B operand is bf16(Q) (n = 32) or K5's three
+// terms (n = 96); a box is 16 rows of one doc x `chunks` 128-byte chunks.
+// PART: docs an item at most (the wrapper cuts each (window, query) run into
+// parts).  K4, bound by the box stream (no faster without its products),
+// took 12.264 ms on phase 9a's shapes with parts of 64, 15.445 with 32 (each
+// item switch a query load and a drained ring), 12.331 with 128; K5, bound
+// by its products, 19.468 with 32 and 21.011 with 64, and its host blocks
+// balance worse over the SMs with 64 (1.914 against 1.754 ms).
+// SPLIT: wgmma groups a stage, a group's products running while the next
+// part's A fragments load.  K4's buckets took 12.264 ms with two, 12.637
+// with one; K5's 18.367 with one, 19.468 with two, bound by its products
+// (9.057 without them; scripts/rerank_rows_variants.py, NVIDIA H100 80GB
+// HBM3, 700.00 W).
+template <bool I8> struct Cfg {
+  static constexpr int PART = I8 ? 32 : 64;
+  static constexpr int SPLIT = I8 ? 1 : 2;
+  static constexpr int NQ = I8 ? 3 * QV : QV;
+  static constexpr int chunks = I8 ? 2 : 3;
+  static constexpr int ks = chunks * ROW / (I8 ? 1 : 2);
+  static constexpr int steps = ks / 16;
+  static constexpr uint32_t box = chunks * CHUNK;
+  static constexpr uint32_t stage = GD * box;
+  static constexpr uint32_t q_chunk = NQ * 128;
+};
+static_assert(Cfg<true>::q_chunk % 1024 == 0 && Cfg<false>::q_chunk % 1024 == 0,
+              "128-byte swizzle atoms are 1024-byte aligned");
+static_assert(Cfg<true>::steps % Cfg<true>::SPLIT == 0 && Cfg<false>::steps % Cfg<false>::SPLIT == 0,
+              "a stage's k-steps split evenly");
+// The query's 64-dim chunks in shared memory: whole stages of dims, those
+// past dim zero-filled by TMA, so a last partial stage's products add 0 and
+// no k-step needs a branch (a branch there made ptxas fence every wgmma:
+// K5's buckets 20.937 ms with it against 19.468 without, in turns).
+template <bool I8>
+__host__ __device__ constexpr int q_chunks(int dim) {
+  return (dim + Cfg<I8>::ks - 1) / Cfg<I8>::ks * (Cfg<I8>::ks / 64);
+}
+static_assert(size_t(q_chunks<true>(wg::MAX_DIM)) * Cfg<true>::q_chunk + Cfg<true>::stage <= SMEM &&
+              size_t(q_chunks<false>(wg::MAX_DIM)) * Cfg<false>::q_chunk + Cfg<false>::stage <= SMEM,
+              "one query and one stage must fit a block's shared memory at the widest dim");
+
+// The ring's depth and the query buffers for `dim`: two query buffers where
+// three stages still fit beside them, else one; as many stages as fit, up
+// to MAX_STAGES.  K5 at dim 768 holds its 144 KB query and two stages.
+struct Plan {
+  uint32_t qsize;
+  int qbuf, stages;
+};
+template <bool I8>
+Plan plan(int dim) {
+  using K = Cfg<I8>;
+  Plan p;
+  p.qsize = uint32_t(q_chunks<I8>(dim)) * K::q_chunk;
+  p.qbuf = size_t(MAX_QBUF) * p.qsize + 3 * size_t(K::stage) <= SMEM ? MAX_QBUF : 1;
+  const size_t left = SMEM - size_t(p.qbuf) * p.qsize;
+  p.stages = int(left / K::stage < size_t(MAX_STAGES) ? left / K::stage : MAX_STAGES);
+  return p;
+}
+
+// One box of a 4-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// d (+)= A[64 x 16] . B[32 x 16]^T, A from registers, B K-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (+)= A[64 x 16] . B[96 x 16]^T.
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// Folds one 16-row tile of this warp's doc into the running maxima `mx`: a
+// thread holds rows `row` and `row` + 8 at view columns 8j + 2*(lane%4) + {0,
+// 1} (j = 0..3) in d[4j + {0, 1}] and d[4j + {2, 3}]; for K5 (R = 48) term t
+// of view column c is column c + 32t, so d[4(j + 4t) + e] are added first.
+// Rows at or past dv (the zeros TMA fills in past a doc's end) take no part.
+template <int R>
+__device__ __forceinline__ void tile_max(const float (&d)[R], float (&mx)[8], int row, int dv) {
+  constexpr int TERMS = R / 16;
+  const float ninf = __int_as_float(0xff800000);
+  const bool v0 = row < dv, v1 = row + 8 < dv;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float x = d[4 * j + e], y = d[4 * j + 2 + e];
+#pragma unroll
+      for (int t = 1; t < TERMS; ++t) {
+        x += d[4 * (j + 4 * t) + e];
+        y += d[4 * (j + 4 * t) + 2 + e];
+      }
+      mx[2 * j + e] = fmaxf(mx[2 * j + e], fmaxf(v0 ? x : ninf, v1 ? y : ninf));
+    }
+  }
+}
+
+// The doc score in every lane: the max over the doc's rows (the thread's two
+// rows are in mx; the rest over lane bits 2-4), summed over the 32 views (8
+// in the thread, the rest over lane bits 0-1).
+__device__ __forceinline__ float doc_score(const float (&mx)[8]) {
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float x = mx[i];
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+    s += x;
+  }
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  return s;
+}
+
+}  // namespace wr
+
+template <bool I8>
+__global__ void __launch_bounds__(wr::THREADS, 1)
+rerank_rows_kernel(const __grid_constant__ CUtensorMap tmap_table,  // 4-D over the table, box 16 rows x chunks
+                   const __grid_constant__ CUtensorMap tmap_q,      // (B*NQ, dim) bf16, box 64 x NQ
+                   const int* __restrict__ spid,      // (B, C) pids sorted ascending, -1 last
+                   const int64_t* __restrict__ perm,  // (B, C) column of each sorted pid
+                   const int* __restrict__ items,     // (n_items, 3): query, first, end; query -1 past the last
+                   float* __restrict__ out,           // (B, C), filled with -inf
+                   int C, int n_items, int dim, int dv, int stages, int qbuf) {
+  using namespace wr;
+  using K = Cfg<I8>;
+  constexpr int N = K::NQ;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[MAX_STAGES], empty[MAX_STAGES], qfull[MAX_QBUF], qempty[MAX_QBUF];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the ring, then the query buffers
+  const uint32_t qbase = base + uint32_t(stages) * K::stage;
+  const int nq = q_chunks<I8>(dim);           // 64-dim chunks of the query (past dim: zero fill)
+  const int nks = (dim + K::ks - 1) / K::ks;  // stages a row tile (a last partial one: zero fill)
+  const int tiles = (dv + 15) / 16;           // 16-row tiles a doc (the last: zero fill past dv)
+  const uint32_t qsize = uint32_t(nq) * K::q_chunk;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], PROD);
+      mbar_init(&empty[s], CONS * 4);
+    }
+    for (int s = 0; s < qbuf; ++s) {
+      mbar_init(&qfull[s], 1);
+      mbar_init(&qempty[s], CONS * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == CONS) {
+    // ---- producers: each item's query (the first thread), then its docs' boxes, (row tile,
+    // 128-byte chunks) a stage, doc d by thread d % PROD ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int pi = (threadIdx.x - CONS * 128) / 32;
+    if (threadIdx.x % 32 == 0 && pi < PROD) {
+      int stage = 0, it = 0;
+      uint32_t phase = 0;
+      for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+        const int b = items[3 * i], lo = items[3 * i + 1], hi = items[3 * i + 2];
+        if (b < 0) break;  // the items past the last are all -1
+        const int qb = it % qbuf;
+        const uint32_t qph = (it / qbuf) & 1;
+        ++it;
+        if (pi == 0) {
+          mbar_wait(&qempty[qb], qph ^ 1);
+          mbar_expect_tx(&qfull[qb], qsize);
+          for (int c = 0; c < nq; ++c)
+            tma_load(qbase + qb * qsize + c * K::q_chunk, &tmap_q, c * 64, b * N, &qfull[qb]);
+        }
+        const int* row = spid + int64_t(b) * C;
+        for (int g0 = lo; g0 < hi; g0 += GD) {
+          const int nd = min(GD, hi - g0);
+          int pid[GD];
+#pragma unroll
+          for (int d = 0; d < GD; ++d) pid[d] = d < nd ? row[g0 + d] : 0;
+          for (int t = 0; t < tiles; ++t) {
+            for (int kb = 0; kb < nks; ++kb) {
+              mbar_wait(&empty[stage], phase ^ 1);
+              const uint32_t st = base + stage * K::stage;
+              mbar_expect_tx(&full[stage], ((nd - pi + PROD - 1) / PROD) * K::box);
+#pragma unroll
+              for (int d = 0; d < GD; ++d)
+                if (d < nd && d % PROD == pi)
+                  tma_load_4d(st + d * K::box, &tmap_table, 0, t * 16, pid[d], kb * K::chunks, &full[stage]);
+              if (++stage == stages) {
+                stage = 0;
+                phase ^= 1;
+              }
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: a doc a warp of every group, its row tiles in turn, the max over
+    // rows carried in registers, the MaxSim epilogue, the write ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    float d[N / 2];
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) d[i] = 0.0f;
+    int stage = 0, it = 0;
+    uint32_t phase = 0;
+    for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+      const int b = items[3 * i], lo = items[3 * i + 1], hi = items[3 * i + 2];
+      if (b < 0) break;
+      const int qb = it % qbuf;
+      const uint32_t qph = (it / qbuf) & 1;
+      ++it;
+      mbar_wait(&qfull[qb], qph);
+      const uint32_t q0 = qbase + qb * qsize;
+      const int64_t row0 = int64_t(b) * C;
+      for (int g0 = lo; g0 < hi; g0 += GD) {
+        float mx[8];
+#pragma unroll
+        for (int v = 0; v < 8; ++v) mx[v] = __int_as_float(0xff800000);
+        for (int t = 0; t < tiles; ++t) {
+          for (int kb = 0; kb < nks; ++kb) {
+            mbar_wait(&full[stage], phase);
+            // this warp's doc tile into registers in K::SPLIT parts, each part's products issued
+            // as one group while the next part loads; then the stage is free
+            uint32_t a[K::steps][4];
+            const uint32_t doc = base + stage * K::stage + (wgi * 4 + warp) * K::box;
+            fence_acc(d);
+#pragma unroll
+            for (int h = 0; h < K::SPLIT; ++h) {
+              constexpr int per = K::steps / K::SPLIT;
+#pragma unroll
+              for (int st = h * per; st < (h + 1) * per; ++st) wg::load_a<I8>(a[st], doc, st, lane);
+              if (h == K::SPLIT - 1) {
+                __syncwarp();
+                if (lane == 0) mbar_arrive(&empty[stage]);
+              }
+              wgmma_fence();
+#pragma unroll
+              for (int st = h * per; st < (h + 1) * per; ++st) {
+                const int k = kb * K::ks + st * 16;  // past dim the query's chunks are zeros
+                wgmma_rs(d, a[st], sw128_desc(q0 + (k / 64) * K::q_chunk + ((k % 64) / 16) * 32), k != 0);
+              }
+              wgmma_commit();
+            }
+            fence_acc(d);
+            wgmma_wait<0>();  // the registers of a[] are read
+            fence_acc(d);
+            if (++stage == stages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+          tile_max(d, mx, t * 16 + lane / 4, dv);
+        }
+        const float s = doc_score(mx);
+        const int j = g0 + wgi * 4 + warp;  // this warp's doc in the sorted row
+        if (lane == 0 && j < hi) out[row0 + perm[row0 + j]] = s;
+      }
+      if (lane == 0) mbar_arrive(&qempty[qb]);  // every product on this query is done
+    }
+  }
+}
+
+// The table as a 4-D map for one box a doc's 16-row tile a stage: dims
+// (128-byte column chunk, row of the doc, doc, chunk index), box (128 bytes,
+// 16 rows, 1 doc, chunks), 128-byte swizzle.  Rows past dv and column chunks
+// past dim are out of bounds, so TMA fills them with zeros: a doc's last tile
+// never reads the next doc's rows.
+template <bool I8>
+bool make_rows_map(CUtensorMap* map, const void* table, int num_docs, int dv, int dim) {
+  hopper::EncodeTiledFn enc = hopper::encode_tiled();
+  if (enc == nullptr) return false;
+  constexpr int esz = I8 ? 1 : 2, inner = wg::ROW / esz;
+  const cuuint64_t dims[4] = {cuuint64_t(dim < inner ? dim : inner), cuuint64_t(dv), cuuint64_t(num_docs),
+                              cuuint64_t((dim + inner - 1) / inner)};
+  const cuuint64_t strides[3] = {cuuint64_t(dim) * esz, cuuint64_t(dv) * dim * esz, cuuint64_t(wg::ROW)};
+  const cuuint32_t box[4] = {uint32_t(inner), 16u, 1u, uint32_t(wr::Cfg<I8>::chunks)};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, I8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+             const_cast<void*>(table), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool I8>
+cudaError_t launch_rows(const void* q, const void* table, const int* spid, const int64_t* perm, const int* items,
+                        float* out, int B, int C, int dim, int dv, int num_docs, int n_items, cudaStream_t stream) {
+  using K = wr::Cfg<I8>;
+  const wr::Plan p = wr::plan<I8>(dim);
+  CUtensorMap map_table, map_q;
+  if (p.stages < 1 || !make_rows_map<I8>(&map_table, table, num_docs, dv, dim) ||
+      !hopper::make_map(&map_q, q, false, uint64_t(B) * K::NQ, dim, K::NQ))
+    return cudaErrorInvalidValue;
+  const size_t smem = 1024 + size_t(p.stages) * K::stage + size_t(p.qbuf) * p.qsize;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(rerank_rows_kernel<I8>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const int grid = n_items < sms ? n_items : sms;
+  rerank_rows_kernel<I8><<<grid, wr::THREADS, smem, stream>>>(map_table, map_q, spid, perm, items, out, C,
+                                                                n_items, dim, dv, p.stages, p.qbuf);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -576,6 +965,10 @@ int rerank_wgmma_dv() { return wg::DV; }             // route "wgmma": rows a do
 int rerank_wgmma_views() { return wg::QV; }          // route "wgmma": views a query
 int rerank_wgmma_max_dim() { return wg::MAX_DIM; }   // route "wgmma": largest dim (a multiple of 64)
 int rerank_wgmma_group() { return wg::GD; }          // route "wgmma": docs a stage
+int rerank_rows_views() { return wr::QV; }           // route "wgmma_rows": query rows a launch
+int rerank_rows_part(int table_int8) {               // route "wgmma_rows": docs an item at most
+  return table_int8 ? wr::Cfg<true>::PART : wr::Cfg<false>::PART;
+}
 
 // Route "staged".  Returns a cudaError_t: 0 when the launch was accepted.
 int rerank_launch(const void* cand, const void* q, const void* table, int table_int8,
@@ -610,6 +1003,28 @@ int rerank_wgmma_launch(const void* q, const void* table, int table_int8, const 
   cudaError_t err = table_int8
       ? launch_wgmma<true>(q, table, sp, pm, ws, o, B, C, dim, num_docs, n_win, s)
       : launch_wgmma<false>(q, table, sp, pm, ws, o, B, C, dim, num_docs, n_win, s);
+  return int(err);
+}
+
+// Route "wgmma_rows".  q: the bf16 B operand, (B*32, dim) for a bf16 table or
+// (B*96, dim) for int8; spid/perm: the sorted candidates of the pid-window
+// schedule, items (n_items, 3) int32 its (query, first, end) parts
+// (ops/rerank.py::rerank_items); out (B, C) filled with -inf; a doc is dv
+// rows.  Returns a cudaError_t: 0 when the launch was accepted.
+int rerank_rows_launch(const void* q, const void* table, int table_int8, const void* spid, const void* perm,
+                       const void* items, void* out, int B, int C, int dim, int dv, int num_docs, int n_items,
+                       void* stream) {
+  if (B < 1 || C < 1 || dim < 64 || dim > wg::MAX_DIM || dim % 64 != 0 || dv < 1 || num_docs < 1 ||
+      n_items < 1 || (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(table)) % 16)
+    return int(cudaErrorInvalidValue);
+  const int* sp = static_cast<const int*>(spid);
+  const int64_t* pm = static_cast<const int64_t*>(perm);
+  const int* it = static_cast<const int*>(items);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = table_int8
+      ? launch_rows<true>(q, table, sp, pm, it, o, B, C, dim, dv, num_docs, n_items, s)
+      : launch_rows<false>(q, table, sp, pm, it, o, B, C, dim, dv, num_docs, n_items, s);
   return int(err);
 }
 

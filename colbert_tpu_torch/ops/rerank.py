@@ -24,15 +24,22 @@ the JAX package's ``rerank_pallas.py:185-238``): per-stride zero-padded
 doc-major tables, each reranked by one K4 or K5 launch with ``dv`` = its
 stride (:func:`maxsim_rerank_buckets`).
 
-The source has two routes, chosen by shape in :func:`rerank_plan`:
-"wgmma" for the serving shape (16 rows a doc, 16 views, dim a multiple of
-64): each query's candidates sorted by pid and cut into pid windows
-(:func:`rerank_schedule`, on the device without a host sync), a persistent
-grid over the (window, query) items window-major, so a window's doc blocks
-come from device memory about once a batch, one TMA box a doc a stage,
-wgmma with each warp's doc in registers and the MaxSim there too; "staged" (the first, wmma kernel, one warp per candidate) for
-every other shape.  Each counts its launches in :data:`route_launches`.
-:func:`rerank_windowed_ref` walks the same items in plain torch.
+The source has three routes, chosen by shape in :func:`rerank_plan`:
+"wgmma" for the uniform serving shape (16 rows a doc, 16 views, dim a
+multiple of 64): each query's candidates sorted by pid and cut into pid
+windows (:func:`rerank_schedule`, on the device without a host sync), a
+persistent grid over the (window, query) items window-major, so a window's
+doc blocks come from device memory about once a batch, one TMA box a doc a
+stage, wgmma with each warp's doc in registers and the MaxSim there too;
+"wgmma_rows" for any other count of rows a doc (the ragged stride buckets,
+the host table's blocks) at up to 32 views: the same pid windows, each
+(window, query) run cut into parts of at most 64 docs (32 for K5's int8
+table; :func:`rerank_items`, also on the device), a doc's 16-row tiles
+walked in turn with the max over rows carried in registers, wgmma n = 32
+(n = 96 for K5's three terms); "staged" (the first, wmma kernel, one warp per
+candidate) for every other shape.  Each counts its launches in
+:data:`route_launches`.  :func:`rerank_windowed_ref` and
+:func:`rerank_rows_ref` walk the two wgmma routes' items in plain torch.
 
 A launch takes at most :data:`MAX_VIEWS` query rows; past that (and past 16
 rows on the "wgmma" route's shape) the rows go in chunks, one launch each,
@@ -52,14 +59,16 @@ import torch
 
 from colbert_tpu_torch.ops._build import LaunchCounter
 
-# kernel limits (a launch's), mirrored by rerank_max_views() (route "staged") and
-# rerank_wgmma_dv/views/max_dim/group() (route "wgmma") in the .cu
-MAX_VIEWS = 32  # query rows route "staged" takes (csrc/rerank.cu MAX_QV)
+# kernel limits (a launch's), mirrored by rerank_max_views() (route "staged"),
+# rerank_wgmma_dv/views/max_dim/group() (route "wgmma") and
+# rerank_rows_views/part() (route "wgmma_rows") in the .cu
+MAX_VIEWS = 32  # query rows routes "staged" and "wgmma_rows" take (csrc/rerank.cu MAX_QV, wr::QV)
 _WGMMA_DV = 16
 _WGMMA_VIEWS = 16
-_WGMMA_MAX_DIM = 1024
-_WGMMA_GROUP = 8  # docs a stage: one a consumer warp
-_ROUTES = ("staged", "wgmma")
+_WGMMA_MAX_DIM = 1024  # both wgmma routes
+_WGMMA_GROUP = 8  # docs a stage: one a consumer warp (both wgmma routes)
+_ROWS_PART = {False: 64, True: 32}  # docs a "wgmma_rows" item at most: bf16 (K4), int8 (K5) tables
+_ROUTES = ("staged", "wgmma", "wgmma_rows")
 _REF_BYTES = 1 << 30  # gathered fp32 doc rows per plain-version step
 _WINDOW_BYTES = 12 << 20  # doc blocks a pid window: two windows in half the card's 50 MB L2
 _MIN_ITEM_CANDS = 32  # fewest candidates an item should average (windows per query <= C / 32)
@@ -189,12 +198,16 @@ def maxsim_rerank_uniform_int8_ref(cand: torch.Tensor, Qm: torch.Tensor, table: 
 
 def rerank_plan(dv: int, qv: int, dim: int) -> str:
     """The kernel route for ``dv`` rows a doc, ``qv`` query views and width
-    ``dim``: "wgmma" where a warp's 16 accumulator rows are one doc, the 16
-    views one wgmma n = 16 operand and ``dim`` whole 128-byte bf16 column
-    chunks (a multiple of 64, up to 1,024), else "staged".  Both take bf16
-    and int8 tables."""
-    wgmma = (dv, qv) == (_WGMMA_DV, _WGMMA_VIEWS) and dim % 64 == 0 and 64 <= dim <= _WGMMA_MAX_DIM
-    return "wgmma" if wgmma else "staged"
+    ``dim``, where ``dim`` is whole 128-byte bf16 column chunks (a multiple
+    of 64, up to 1,024): "wgmma" where a warp's 16 accumulator rows are one
+    doc and the 16 views one wgmma n = 16 operand; "wgmma_rows" for any
+    other ``dv`` >= 1 at up to 32 views (a doc's 16-row tiles in turn,
+    n = 32); else "staged".  All take bf16 and int8 tables."""
+    if not (dim % 64 == 0 and 64 <= dim <= _WGMMA_MAX_DIM and dv >= 1):
+        return "staged"
+    if (dv, qv) == (_WGMMA_DV, _WGMMA_VIEWS):
+        return "wgmma"
+    return "wgmma_rows" if qv <= MAX_VIEWS else "staged"
 
 
 def row_chunk(dv: int, qv: int, dim: int) -> int:
@@ -202,7 +215,8 @@ def row_chunk(dv: int, qv: int, dim: int) -> int:
     up to :data:`MAX_VIEWS` off the "wgmma" route's shape (one launch, routed
     by :func:`rerank_plan`); past that, 16 where ``dv`` and ``dim`` are the
     "wgmma" route's (each chunk a 16-view "wgmma" launch, the last padded
-    with zero rows), else :data:`MAX_VIEWS` (route "staged")."""
+    with zero rows), else :data:`MAX_VIEWS` (routes "wgmma_rows", whose
+    launch pads a short chunk with zero rows, and "staged")."""
     if rerank_plan(dv, _WGMMA_VIEWS, dim) == "wgmma" and qv > _WGMMA_VIEWS:
         return _WGMMA_VIEWS
     return min(qv, MAX_VIEWS)
@@ -279,6 +293,59 @@ def rerank_windowed_ref(cand: torch.Tensor, q: torch.Tensor, table: torch.Tensor
     return out
 
 
+def rerank_items(wstart: torch.Tensor, C: int, part: int) -> torch.Tensor:
+    """The "wgmma_rows" route's work list, on ``wstart``'s device with no
+    host synchronisation: each (window, query) run of :func:`rerank_schedule`
+    cut into parts of at most ``part`` docs, window-major (so the blocks in
+    flight share a window's docs in the L2), as an (n_items, 3) int32 tensor
+    of (query, first, end) sorted indices.  ``n_items`` is fixed by the
+    shapes, ``B * C // part`` plus the count of runs (at least the parts
+    there are); the rows past the last part hold query -1, and no part is
+    empty, so a bucket's launch spends nothing on another bucket's -1s."""
+    B, n1 = wstart.shape
+    runs = B * (n1 - 1)
+    lo = wstart[:, :-1].t().reshape(-1).long()   # run w * B + b: window w, query b
+    hi = wstart[:, 1:].t().reshape(-1).long()
+    parts = (hi - lo + part - 1) // part
+    ends = parts.cumsum(0)
+    k = torch.arange(B * C // part + min(runs, B * C), device=wstart.device)
+    run = torch.searchsorted(ends, k, right=True)
+    live = run < runs
+    run = run.clamp(max=runs - 1)
+    first = lo[run] + (k - ends[run] + parts[run]) * part
+    return torch.stack([torch.where(live, run % B, -1), first, torch.minimum(first + part, hi[run])], 1).int()
+
+
+def rerank_rows_ref(cand: torch.Tensor, q: torch.Tensor, table: torch.Tensor, dv: int, window: int,
+                    part: Optional[int] = None) -> torch.Tensor:
+    """Plain walk over the "wgmma_rows" route's items: in list order, each
+    item's docs in groups of 8, each doc's rows in 16-row tiles with the
+    max over rows carried from tile to tile (rows past ``dv`` in the last
+    tile are zeros and take no part), fp32 MaxSim of ``q`` (B, qv, dim;
+    rounded by the caller as the kernel's operand) summed over its rows,
+    each score written to its original column (-inf where nothing is).  For
+    holding the work list to :func:`_rerank_ref`; ``part`` defaults to the
+    kernel's for the table's type."""
+    B, C = cand.shape
+    num_docs = table.shape[0] // dv
+    spid, perm, wstart = rerank_schedule(cand, num_docs, window)
+    docs = table[: num_docs * dv].view(num_docs, dv, -1)
+    out = torch.full((B, C), float("-inf"), dtype=torch.float32, device=q.device)
+    part = part or _ROWS_PART[table.dtype == torch.int8]
+    for b, lo, hi in rerank_items(wstart, C, part).tolist():
+        if b < 0:
+            break
+        for g0 in range(lo, hi, _WGMMA_GROUP):
+            g = slice(g0, min(g0 + _WGMMA_GROUP, hi))
+            D = docs[spid[b, g].long()].float()                          # (group, dv, dim)
+            mx = torch.full((D.shape[0], q.shape[1]), float("-inf"), device=q.device)
+            for t0 in range(0, dv, 16):
+                tile = torch.einsum("qh,gdh->gqd", q[b].float(), D[:, t0 : t0 + 16])
+                mx = torch.maximum(mx, tile.amax(-1))
+            out[b, perm[b, g]] = mx.sum(-1)
+    return out
+
+
 def query_operand(Qm: torch.Tensor, int8_table: bool) -> torch.Tensor:
     """The "wgmma" route's bf16 B operand: ``bf16(Qm)`` (B, qv, dim) for a
     bf16 table; for int8, ``Qm``'s three bf16 terms side by side (B, 3*qv,
@@ -318,12 +385,19 @@ def _kernel_lib() -> ctypes.CDLL:
                 + [ctypes.c_void_p]
             )
             lib.rerank_wgmma_launch.restype = ctypes.c_int
+            lib.rerank_rows_launch.argtypes = (
+                [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                + [ctypes.c_void_p]
+            )
+            lib.rerank_rows_launch.restype = ctypes.c_int
             limits = (lib.rerank_max_views, lib.rerank_wgmma_dv, lib.rerank_wgmma_views,
-                      lib.rerank_wgmma_max_dim, lib.rerank_wgmma_group)
+                      lib.rerank_wgmma_max_dim, lib.rerank_wgmma_group, lib.rerank_rows_views)
             for fn in limits:
                 fn.argtypes, fn.restype = [], ctypes.c_int
-            if tuple(fn() for fn in limits) != (MAX_VIEWS, _WGMMA_DV, _WGMMA_VIEWS, _WGMMA_MAX_DIM,
-                                                _WGMMA_GROUP):
+            lib.rerank_rows_part.argtypes, lib.rerank_rows_part.restype = [ctypes.c_int], ctypes.c_int
+            if tuple(fn() for fn in limits) + (lib.rerank_rows_part(0), lib.rerank_rows_part(1)) != (
+                    MAX_VIEWS, _WGMMA_DV, _WGMMA_VIEWS, _WGMMA_MAX_DIM, _WGMMA_GROUP, MAX_VIEWS,
+                    _ROWS_PART[False], _ROWS_PART[True]):
                 raise RuntimeError("csrc/rerank.cu limits disagree with ops/rerank.py")
     return lib
 
@@ -334,8 +408,8 @@ def _launch(cand: torch.Tensor, Qm: torch.Tensor, table: torch.Tensor, dv: int,
     launch a chunk on the route :func:`rerank_plan` picks for it, each
     counted in ``counter`` and in :data:`route_launches`; the chunks' scores
     summed (:func:`sum_row_chunks`).  ``route`` "staged" forces the first
-    design on any shape (``chip_smoke.py`` times it beside the "wgmma"
-    route)."""
+    design on any shape (``chip_smoke.py`` times it beside the wgmma
+    routes)."""
     dev = table.device
     if not (cand.is_cuda and Qm.is_cuda and cand.device == Qm.device == dev):
         raise ValueError("rerank kernel needs cand, Qm and table on one CUDA device")
@@ -352,7 +426,7 @@ def _launch(cand: torch.Tensor, Qm: torch.Tensor, table: torch.Tensor, dv: int,
     chunk = min(qv, MAX_VIEWS) if route == "staged" else row_chunk(dv, qv, dim)
     plan = rerank_plan(dv, chunk, dim)
     route = route or plan
-    if route not in _ROUTES or (route == "wgmma" and plan != "wgmma"):
+    if route not in ("staged", plan):
         raise ValueError(f"rerank route {route!r} does not take dv {dv}, {qv} views, dim {dim}")
     if B == 0 or C == 0 or qv == 0:  # nothing to launch: a sum over no query rows is 0
         return torch.where(cand >= 0, 0.0, float("-inf")).float()
@@ -361,26 +435,35 @@ def _launch(cand: torch.Tensor, Qm: torch.Tensor, table: torch.Tensor, dv: int,
     stream = torch.cuda.current_stream(dev).cuda_stream
     cand = cand.contiguous()
     num_docs = table.shape[0] // dv
-    if route == "wgmma":  # the pid-window schedule depends on cand alone: once a call
+    if route != "staged":  # the pid-window schedule depends on cand alone: once a call
         window = window_docs(num_docs, C, dv * dim * table.element_size())
         spid, perm, wstart = rerank_schedule(cand, num_docs, window)
+        if route == "wgmma_rows":
+            items = rerank_items(wstart, C, _ROWS_PART[int8])
 
     def one(q_rows: torch.Tensor) -> torch.Tensor:
-        if route == "wgmma":
-            q = query_operand(q_rows, int8)
-            if q.data_ptr() % 16:  # the tensor map needs a 16-byte aligned base
-                q = q.clone()
-            out = torch.full((B, C), float("-inf"), dtype=torch.float32, device=dev)
-            with torch.cuda.device(dev):
-                err = lib.rerank_wgmma_launch(q.data_ptr(), table.data_ptr(), int(int8), spid.data_ptr(),
-                                              perm.data_ptr(), wstart.data_ptr(), out.data_ptr(), B, C, dim,
-                                              num_docs, wstart.shape[1] - 1, stream)
-        else:
+        if route == "staged":
             q = q_rows.float().contiguous()
             out = torch.empty((B, C), dtype=torch.float32, device=dev)
             with torch.cuda.device(dev):
                 err = lib.rerank_launch(cand.data_ptr(), q.data_ptr(), table.data_ptr(), int(int8),
                                         out.data_ptr(), B, C, q.shape[1], dim, dv, stream)
+        else:
+            if route == "wgmma_rows" and q_rows.shape[1] < MAX_VIEWS:  # zero rows add 0 to every score
+                q_rows = torch.cat([q_rows, q_rows.new_zeros((B, MAX_VIEWS - q_rows.shape[1], dim))], dim=1)
+            q = query_operand(q_rows, int8)
+            if q.data_ptr() % 16:  # the tensor map needs a 16-byte aligned base
+                q = q.clone()
+            out = torch.full((B, C), float("-inf"), dtype=torch.float32, device=dev)
+            with torch.cuda.device(dev):
+                if route == "wgmma":
+                    err = lib.rerank_wgmma_launch(q.data_ptr(), table.data_ptr(), int(int8), spid.data_ptr(),
+                                                  perm.data_ptr(), wstart.data_ptr(), out.data_ptr(), B, C, dim,
+                                                  num_docs, wstart.shape[1] - 1, stream)
+                else:
+                    err = lib.rerank_rows_launch(q.data_ptr(), table.data_ptr(), int(int8), spid.data_ptr(),
+                                                 perm.data_ptr(), items.data_ptr(), out.data_ptr(), B, C, dim, dv,
+                                                 num_docs, items.shape[0], stream)
         if err != 0:
             raise RuntimeError(f"rerank kernel launch failed ({route} route): cudaError_t {err} "
                                f"(Q {tuple(q_rows.shape)}, table {tuple(table.shape)}, dv {dv})")

@@ -3,9 +3,9 @@ the flat scan (K1, K2), all-pairs MaxSim (K3, both routes), dropout (K9, both ro
 attention (K11 forward, K12 dK/dV and K13 dQ on both bf16 routes and on route "tf32", the
 backward's rows kernel, and their launches a train and a CE step), the embeddings' backward (the same bits every run, the
 process-wide deterministic-algorithms flag untouched), the rerank
-(K4 bf16, K5 int8, on both routes, past one launch's query rows in chunks, its pid-window schedule's
-edges and its freedom from host synchronisation), the sq list scans (K6 slots and K7 hot
-lists, each on both routes; K6's work list's edges, K7's member-token
+(K4 bf16, K5 int8, on its three routes, at a ragged corpus's strides and a host table's rows, past one
+launch's query rows in chunks, its pid-window schedule's edges and its freedom from host synchronisation),
+the sq list scans (K6 slots and K7 hot lists, each on both routes; K6's work list's edges, K7's member-token
 slots, and the probe's freedom from host synchronisation), the pq4 list scan (K8 on both routes, its work list and its
 freedom from host synchronisation) and the token-major sq window scan (K10).
 
@@ -396,19 +396,28 @@ def _rerank_inputs(device, seed, num_docs, dv, dim, B, qv, cand):
             torch.from_numpy(q8).to(device), Q * torch.from_numpy(1.0 / scale).to(device))
 
 
-def _assert_rerank_kernels_match_plain(cand, Q, table, t8, Qs, dv):
-    """K4 and K5 against their plain versions, each launched once on the
-    route :func:`rerank_plan` names and no other."""
+def _assert_rerank_kernels_match_plain(cand, Q, table, t8, Qs, dv, route=None):
+    """K4 and K5 against their plain versions, each launched a chunk of
+    query rows (:func:`row_chunk`; once up to 32 rows) on the route
+    :func:`rerank_plan` names, or on ``route`` when one is forced, and on no
+    other; -inf exactly at the -1 candidates.  Returns the route."""
     from colbert_tpu_torch.ops import rerank as rr
 
-    route = rr.rerank_plan(dv, Q.shape[1], Q.shape[2])
+    qv, dim = Q.shape[1], Q.shape[2]
+    if route is None:
+        n, route = _launches_a_call(qv, dv, dim)
+        k4 = lambda c, q, t: rr.maxsim_rerank_uniform(c, q, t, dv=dv)
+        k5 = lambda c, q, t: rr.maxsim_rerank_uniform_int8(c, q, t, dv=dv)
+    else:
+        n = -(-qv // rr.MAX_VIEWS)
+        k4 = lambda c, q, t: rr._launch(c, q, t, dv, torch.bfloat16, rr.maxsim_rerank_uniform.launches, route=route)
+        k5 = lambda c, q, t: rr._launch(c, q, t, dv, torch.int8, rr.maxsim_rerank_uniform_int8.launches, route=route)
     before = {k: c.value for k, c in rr.route_launches.items()}
-    k4, k5 = rr.maxsim_rerank_uniform.launches.value, rr.maxsim_rerank_uniform_int8.launches.value
-    got = rr.maxsim_rerank_uniform(cand, Q, table, dv=dv)
-    got8 = rr.maxsim_rerank_uniform_int8(cand, Qs, t8, dv=dv)
+    n4, n5 = rr.maxsim_rerank_uniform.launches.value, rr.maxsim_rerank_uniform_int8.launches.value
+    got, got8 = k4(cand, Q, table), k5(cand, Qs, t8)
     torch.cuda.synchronize()
-    assert (rr.maxsim_rerank_uniform.launches.value, rr.maxsim_rerank_uniform_int8.launches.value) == (k4 + 1, k5 + 1)
-    assert {k: c.value - before[k] for k, c in rr.route_launches.items()} == {k: 2 * (k == route) for k in before}
+    assert (rr.maxsim_rerank_uniform.launches.value, rr.maxsim_rerank_uniform_int8.launches.value) == (n4 + n, n5 + n)
+    assert {k: c.value - before[k] for k, c in rr.route_launches.items()} == {k: 2 * n * (k == route) for k in before}
     for g, want in ((got, rr.maxsim_rerank_uniform_ref(cand, Q, table, dv=dv)),
                     (got8, rr.maxsim_rerank_uniform_int8_ref(cand, Qs, t8, dv=dv))):
         assert g.shape == cand.shape and g.dtype == torch.float32
@@ -420,7 +429,9 @@ def _assert_rerank_kernels_match_plain(cand, Q, table, t8, Qs, dv):
 @pytest.mark.parametrize("num_docs,dv,dim,B,qv,C,route", [
     (3000, 16, 768, 144, 16, 4096, "wgmma"),  # the serving point's shapes, fewer docs
     (700, 16, 128, 9, 16, 300, "wgmma"),      # two 64-dim stages
-    (500, 37, 128, 5, 32, 130, "staged"),     # three 16-row doc tiles, two 16-row query tiles
+    (500, 37, 128, 5, 32, 130, "wgmma_rows"),  # three 16-row doc tiles, the last 5 rows of 16
+    (90, 5, 64, 3, 3, 77, "wgmma_rows"),      # one short tile, 3 query rows padded to 32
+    (400, 16, 768, 6, 8, 50, "wgmma_rows"),   # the uniform rows at 8 views
     (90, 5, 32, 3, 3, 77, "staged"),          # short everything, C not a multiple of the block's 64
     (400, 16, 80, 6, 16, 50, "staged"),       # dim not whole 64-dim stages
 ])
@@ -449,50 +460,62 @@ def test_rerank_zero_query_rows(cuda_device):
         assert torch.equal(g, torch.where(cand >= 0, 0.0, float("-inf")))
 
 
+@pytest.mark.parametrize("dv,qv,route", [(16, 16, "wgmma"), (37, 32, "wgmma_rows")])
 @pytest.mark.parametrize("kind", EDGES)
-def test_rerank_schedule_edges_on_the_card(cuda_device, kind):
-    """The "wgmma" route at the serving shape (16 rows, 16 views, 768 dims)
-    on the schedule's edges: duplicate pids in a row, a row of -1s, one doc
-    named by every query, every pair a distinct doc, C = 77, empty windows."""
+def test_rerank_schedule_edges_on_the_card(cuda_device, kind, dv, qv, route):
+    """Both wgmma routes, "wgmma" at the serving shape (16 rows, 16 views,
+    768 dims) and "wgmma_rows" at 37 rows and 32 views, on the schedule's
+    edges: duplicate pids in a row, a row of -1s, one doc named by every
+    query, every pair a distinct doc, C = 77, empty windows."""
     B, C = 24, (77 if kind == "C = 77" else 300)
     num_docs = B * C + 5 if kind == "all distinct" else 2500
     cand = edge_cand(kind, np.random.default_rng(EDGES.index(kind)), num_docs, B, C)
-    args = _rerank_inputs(cuda_device, EDGES.index(kind), num_docs, 16, 768, B, 16, cand)
-    assert _assert_rerank_kernels_match_plain(*args, 16) == "wgmma"
+    args = _rerank_inputs(cuda_device, EDGES.index(kind), num_docs, dv, 768, B, qv, cand)
+    assert _assert_rerank_kernels_match_plain(*args, dv) == route
 
 
-def test_rerank_never_synchronises(cuda_device):
-    """K4 and K5 on route "wgmma", schedule included, with torch's sync debug
-    mode raising on any host synchronisation."""
+@pytest.mark.parametrize("dv,qv,route", [(16, 16, "wgmma"), (124, 32, "wgmma_rows")])
+def test_rerank_never_synchronises(cuda_device, dv, qv, route):
+    """K4 and K5 on both wgmma routes, the schedule (and the "wgmma_rows"
+    work list) included, with torch's sync debug mode raising on any host
+    synchronisation."""
     from colbert_tpu_torch.ops import rerank as rr
 
     rng = np.random.default_rng(7)
     cand = rng.integers(-1, 2000, size=(32, 512)).astype(np.int32)
-    cand, Q, table, t8, Qs = _rerank_inputs(cuda_device, 7, 2000, 16, 768, 32, 16, cand)
-    rr.maxsim_rerank_uniform(cand, Q, table, dv=16)  # the library is built and loaded outside the check
+    cand, Q, table, t8, Qs = _rerank_inputs(cuda_device, 7, 2000, dv, 768, 32, qv, cand)
+    assert rr.rerank_plan(dv, qv, 768) == route
+    rr.maxsim_rerank_uniform(cand, Q, table, dv=dv)  # the library is built and loaded outside the check
     torch.cuda.synchronize()
-    before = rr.route_launches["wgmma"].value
+    before = rr.route_launches[route].value
     torch.cuda.set_sync_debug_mode("error")
     try:
-        got = rr.maxsim_rerank_uniform(cand, Q, table, dv=16)
-        got8 = rr.maxsim_rerank_uniform_int8(cand, Qs, t8, dv=16)
+        got = rr.maxsim_rerank_uniform(cand, Q, table, dv=dv)
+        got8 = rr.maxsim_rerank_uniform_int8(cand, Qs, t8, dv=dv)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert rr.route_launches["wgmma"].value == before + 2
-    torch.testing.assert_close(got, rr.maxsim_rerank_uniform_ref(cand, Q, table, dv=16), rtol=0, atol=1e-4)
-    torch.testing.assert_close(got8, rr.maxsim_rerank_uniform_int8_ref(cand, Qs, t8, dv=16), rtol=0, atol=1e-4)
+    assert rr.route_launches[route].value == before + 2
+    torch.testing.assert_close(got, rr.maxsim_rerank_uniform_ref(cand, Q, table, dv=dv), rtol=0, atol=1e-4)
+    torch.testing.assert_close(got8, rr.maxsim_rerank_uniform_int8_ref(cand, Qs, t8, dv=dv), rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("num_docs,dv", [(600, 48), (500, 64), (400, 96), (300, 128), (120, 384)])
-def test_rerank_staged_route_at_ragged_strides(cuda_device, num_docs, dv):
-    """K4 and K5 at a ragged corpus's bucket shapes: 32 query rows (the
-    reference's query_maxlen, multiview off) and a stride of dv rows, on
-    route "staged"."""
-    rng = np.random.default_rng(dv)
+@pytest.mark.parametrize("qv", [32, 48])
+@pytest.mark.parametrize("num_docs,dv,route", [
+    (600, 48, None), (500, 64, None), (400, 96, None), (350, 112, None), (300, 128, None), (120, 384, None),
+    (300, 124, None),       # a host table's cap: the longest doc, not a multiple of 16
+    (300, 124, "staged"),   # the first design, forced
+])
+def test_rerank_staged_route_at_ragged_strides(cuda_device, num_docs, dv, route, qv):
+    """K4 and K5 at a ragged corpus's bucket shapes, a stride of dv rows (and
+    a host table's 124) at 32 query rows (the reference's query_maxlen,
+    multiview off) and 48 (two launches): route "wgmma_rows", and the first
+    design, route "staged", where forced."""
+    rng = np.random.default_rng(dv + qv)
     cand = rng.integers(0, num_docs, size=(12, 256)).astype(np.int32)
     cand[rng.random(cand.shape) < 0.6] = -1  # another bucket's candidates
-    args = _rerank_inputs(cuda_device, dv, num_docs, dv, 768, 12, 32, cand)
-    assert _assert_rerank_kernels_match_plain(*args, dv) == "staged"
+    cand[3] = -1                             # a query with none
+    args = _rerank_inputs(cuda_device, dv, num_docs, dv, 768, 12, qv, cand)
+    assert _assert_rerank_kernels_match_plain(*args, dv, route=route) == (route or "wgmma_rows")
 
 
 def _ragged_rows(rng, doclens, dim):
@@ -510,9 +533,9 @@ def _launches_a_call(qv, dv, dim):
 
 def _assert_buckets_match_plain(device, dtype, qv):
     """The bucketed entry over stride buckets of a ragged corpus (doclens
-    40-124) at ``qv`` query rows: one launch a bucket and a chunk of rows,
-    each on route "staged", against its plain version, -inf exactly at the
-    -1 candidates."""
+    40-124) at ``qv`` query rows: one launch a bucket and a 32-row chunk,
+    each on route "wgmma_rows", against its plain version, -inf exactly at
+    the -1 candidates."""
     from colbert_tpu_torch.ops import rerank as rr
 
     rng = np.random.default_rng(17)
@@ -531,37 +554,40 @@ def _assert_buckets_match_plain(device, dtype, qv):
     cand = torch.from_numpy(cand).to(device)
     Qm = torch.from_numpy(rng.normal(size=(16, qv, 768)).astype(np.float32) / np.sqrt(768)).to(device)
     counter = rr.maxsim_rerank_uniform_int8 if dtype == "int8" else rr.maxsim_rerank_uniform
-    before, staged = counter.launches.value, rr.route_launches["staged"].value
+    before = {k: c.value for k, c in rr.route_launches.items()}
+    n = counter.launches.value
     got = rr.maxsim_rerank_buckets(cand, Qm, *t, inv_scale=inv)
     torch.cuda.synchronize()
-    chunks = -(-qv // rr.MAX_VIEWS)
-    assert counter.launches.value - before == chunks * len(strides) == rr.route_launches["staged"].value - staged
+    launched = -(-qv // rr.MAX_VIEWS) * len(strides)
+    assert counter.launches.value - n == launched
+    assert {k: c.value - before[k] for k, c in rr.route_launches.items()} == {
+        k: launched * (k == "wgmma_rows") for k in before}
     assert torch.equal(torch.isfinite(got), cand >= 0) and torch.isneginf(got[cand < 0]).all()
     torch.testing.assert_close(got, rr.maxsim_rerank_buckets_ref(cand, Qm, *t, inv_scale=inv), rtol=0, atol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
 def test_rerank_buckets_match_plain(cuda_device, dtype):
-    """The bucketed entry at 32 query rows: one launch a bucket, route "staged"."""
+    """The bucketed entry at 32 query rows: one launch a bucket, route "wgmma_rows"."""
     _assert_buckets_match_plain(cuda_device, dtype, 32)
 
 
 @pytest.mark.parametrize("qv", [48, 64])
 @pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
 def test_rerank_buckets_past_one_launchs_rows(cuda_device, dtype, qv):
-    """The bucketed entry at 48 and 64 query rows: two 32-row launches a bucket, route "staged"."""
+    """The bucketed entry at 48 and 64 query rows: two 32-row launches a bucket, route "wgmma_rows"."""
     _assert_buckets_match_plain(cuda_device, dtype, qv)
 
 
 @pytest.mark.parametrize("qv", [48, 64])
 @pytest.mark.parametrize("num_docs,dv,dim,B,C", [
     (3000, 16, 768, 144, 4096),  # the serving point's shapes: 16-row chunks on route "wgmma"
-    (500, 37, 128, 5, 130),      # 32-row chunks on route "staged"
+    (500, 37, 128, 5, 130),      # 32-row chunks on route "wgmma_rows"
 ])
 def test_rerank_kernels_past_one_launchs_rows(cuda_device, qv, num_docs, dv, dim, B, C):
     """K4 and K5 at 48 and 64 query rows on a uniform table: a launch a
     chunk of rows (16 at dv 16 on "wgmma", the schedule built once a call;
-    32 elsewhere on "staged"), the chunks' scores summed, against the plain
+    32 elsewhere on "wgmma_rows"), the chunks' scores summed, against the plain
     versions over all the rows within 1e-4, -inf exactly at the -1
     candidates."""
     from colbert_tpu_torch.ops import rerank as rr
@@ -571,7 +597,7 @@ def test_rerank_kernels_past_one_launchs_rows(cuda_device, qv, num_docs, dv, dim
     cand[rng.random((B, C)) < 0.2] = -1
     cand, Q, table, t8, Qs = _rerank_inputs(cuda_device, num_docs + qv, num_docs, dv, dim, B, qv, cand)
     n, route = _launches_a_call(qv, dv, dim)
-    assert (n, route) == ((qv // 16, "wgmma") if dv == 16 else (2, "staged"))
+    assert (n, route) == ((qv // 16, "wgmma") if dv == 16 else (2, "wgmma_rows"))
     before = {k: c.value for k, c in rr.route_launches.items()}
     k4, k5 = rr.maxsim_rerank_uniform.launches.value, rr.maxsim_rerank_uniform_int8.launches.value
     got = rr.maxsim_rerank_uniform(cand, Q, table, dv=dv)
@@ -622,16 +648,17 @@ def _assert_host_rerank(device, kind, qv):
 @pytest.mark.parametrize("kind", ["uniform", "ragged"])
 def test_host_rerank_on_the_card(cuda_device, kind):
     """The host table's rerank, one K5 launch: route "wgmma" at 16 x 16
-    rows, "staged" for a ragged corpus's 32 query rows."""
+    rows, "wgmma_rows" for a ragged corpus's 32 query rows over its cap (124
+    rows here)."""
     qv = 16 if kind == "uniform" else 32
-    assert _assert_host_rerank(cuda_device, kind, qv) == (1, "wgmma" if kind == "uniform" else "staged")
+    assert _assert_host_rerank(cuda_device, kind, qv) == (1, "wgmma" if kind == "uniform" else "wgmma_rows")
 
 
 @pytest.mark.parametrize("kind,qv,want", [("uniform", 48, (3, "wgmma")), ("uniform", 64, (4, "wgmma")),
-                                          ("ragged", 48, (2, "staged")), ("ragged", 64, (2, "staged"))])
+                                          ("ragged", 48, (2, "wgmma_rows")), ("ragged", 64, (2, "wgmma_rows"))])
 def test_host_rerank_past_one_launchs_rows(cuda_device, kind, qv, want):
     """The host table's rerank at 48 and 64 query rows: K5 a chunk of rows,
-    16-row chunks on "wgmma" over a uniform table, 32-row on "staged" over a
+    16-row chunks on "wgmma" over a uniform table, 32-row on "wgmma_rows" over a
     ragged one."""
     assert _assert_host_rerank(cuda_device, kind, qv) == want
 

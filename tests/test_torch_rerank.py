@@ -46,6 +46,8 @@ def _pad128(cand):
     (60, 16, 128, 3, 8, 200),
     (40, 8, 64, 2, 4, 128),
     (30, 5, 32, 4, 3, 77),
+    (40, 112, 128, 3, 32, 130),  # a ragged corpus's bucket: stride 112 rows, 32 query rows
+    (30, 20, 128, 2, 32, 100),   # rows a doc not a multiple of 16 (route "wgmma_rows"'s zero-filled tile)
 ])
 def test_k4_plain_matches_jax_kernel(num_docs, dv, dim, B, qv, C):
     emb, Qm, cand = _case(num_docs + C, num_docs, dv, dim, B, qv, C)
@@ -64,6 +66,8 @@ def test_k4_plain_matches_jax_kernel(num_docs, dv, dim, B, qv, C):
 @pytest.mark.parametrize("num_docs,dv,dim,B,qv,C", [
     (50, 16, 256, 3, 8, 150),   # (dim/128)*dv = 32: the JAX int8 table's packing
     (40, 32, 128, 2, 4, 128),
+    (30, 64, 128, 2, 32, 130),  # a ragged corpus's int8 bucket: stride 64 rows, 32 query rows
+    (20, 40, 512, 2, 32, 100),  # rows a doc not a multiple of 16; (dim/128)*dv = 160, as the packing needs
 ])
 def test_k5_plain_matches_jax_kernel(num_docs, dv, dim, B, qv, C):
     emb, Qm, cand = _case(num_docs * 3 + C, num_docs, dv, dim, B, qv, C)
@@ -133,6 +137,76 @@ def test_windowed_walk_matches_plain_and_jax_kernel(kind, table_dtype):
     np.testing.assert_allclose(got[live], want[live], rtol=0, atol=TOL)
 
 
+@pytest.mark.parametrize("table_dtype,dv,dim", [
+    ("bfloat16", 20, 128),   # rows a doc not a multiple of 16: two tiles, the last 4 rows of 16
+    ("int8", 24, 512),       # the same for K5, in a shape the JAX int8 table's packing takes
+])
+@pytest.mark.parametrize("kind", EDGES)
+def test_rows_walk_matches_plain_and_jax_kernel(kind, table_dtype, dv, dim):
+    """The "wgmma_rows" route's work list walked in plain torch (windows of
+    7 docs, parts of at most 3 docs, groups of 8, 16-row tiles with the max
+    carried between them) at 32 query rows against ``_rerank_ref`` and the
+    TPU kernel in interpret mode, within 1e-4; -inf exactly at the -1
+    candidates, a query with none included ("all -1 row")."""
+    B, C, qv = 3, (77 if kind == "C = 77" else 40), 32
+    num_docs = B * C + 3 if kind == "all distinct" else 40
+    rng = np.random.default_rng(EDGES.index(kind) + dv)
+    emb, Qm, _ = _case(EDGES.index(kind) + 200, num_docs, dv, dim, B, qv, C)
+    cand = edge_cand(kind, rng, num_docs, B, C)
+    assert prr.rerank_plan(dv, qv, dim) == "wgmma_rows"
+    if table_dtype == "int8":
+        q8, scale = prr.quantize_emb_table(emb)
+        Qm = Qm * (1.0 / scale).astype(np.float32)
+        table, q = torch.from_numpy(q8), torch.from_numpy(Qm)
+        want = np.asarray(jrp.maxsim_rerank_uniform_packed(
+            jnp.asarray(_pad128(cand)), jnp.asarray(Qm), jnp.asarray(jrp.pack_int8_table(q8, dv)),
+            dv=dv, nk=dim // 128, interpret=True))[:, :C]
+    else:
+        table = torch.from_numpy(emb).to(torch.bfloat16)
+        q = torch.from_numpy(Qm).to(torch.bfloat16).float()   # the kernel's bf16 operand
+        want = np.asarray(jrp.maxsim_rerank_uniform(
+            jnp.asarray(_pad128(cand)), jnp.asarray(Qm), jnp.asarray(emb.astype(np.float32), jnp.bfloat16),
+            dv=dv, interpret=True))[:, :C]
+    c = torch.from_numpy(cand)
+    got = prr.rerank_rows_ref(c, q, table, dv, window=7, part=3).numpy()
+    plain = prr._rerank_ref(c, q, table, dv).numpy()
+    live = cand >= 0
+    np.testing.assert_array_equal(np.isfinite(got), live)
+    assert np.isneginf(got[~live]).all() and np.isneginf(want[~live]).all()
+    np.testing.assert_allclose(got[live], plain[live], rtol=0, atol=TOL)
+    np.testing.assert_allclose(got[live], want[live], rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("part", [1, 3, 32])
+def test_rows_items_cover_each_candidate_once(part):
+    """The "wgmma_rows" work list: every real candidate's sorted index in
+    exactly one item, of its own query and inside one (window, query) run;
+    no item empty or longer than ``part``; window-major; the rows past the
+    last item all -1; its length fixed by the shapes."""
+    rng = np.random.default_rng(part)
+    B, C, num_docs, window = 5, 33, 60, 8
+    cand = edge_cand("duplicate pids", rng, num_docs, B, C)
+    cand[2] = -1
+    spid, perm, wstart = prr.rerank_schedule(torch.from_numpy(cand), num_docs, window)
+    items = prr.rerank_items(wstart, C, part)
+    n_win = wstart.shape[1] - 1
+    assert items.dtype == torch.int32 and items.shape == (B * C // part + min(n_win * B, B * C), 3)
+    live = int((items[:, 0] >= 0).sum())
+    assert (items[live:, 0] == -1).all() and (items[:live, 0] >= 0).all()
+    seen = np.zeros((B, C), np.int64)
+    last = (-1, -1)
+    for b, lo, hi in items[:live].tolist():
+        assert 0 < hi - lo <= part
+        w = int(spid[b, lo]) // window
+        assert w == int(spid[b, hi - 1]) // window and int(wstart[b, w]) <= lo and hi <= int(wstart[b, w + 1])
+        assert (w, b) >= last  # window-major, then query
+        last = (w, b)
+        seen[b, lo:hi] += 1
+    for b in range(B):
+        n = int((cand[b] >= 0).sum())
+        assert (seen[b, :n] == 1).all() and (seen[b, n:] == 0).all()
+
+
 def test_schedule_covers_each_candidate_once():
     """Every real candidate lies in exactly one item, in the window of its
     pid; -1s in none; ``perm`` is a permutation of each row."""
@@ -151,26 +225,33 @@ def test_schedule_covers_each_candidate_once():
 
 
 @pytest.mark.parametrize("dv,qv,dim,route", [
-    (16, 16, 768, "wgmma"),    # the serving point (and the first card case)
-    (37, 32, 128, "staged"),   # the card cases of test_torch_kernels.py
-    (5, 3, 32, "staged"),
-    (16, 16, 80, "staged"),    # dim not whole 64-dim stages
-    (16, 16, 2048, "staged"),  # dim past the route's shared-memory budget
-    (16, 32, 768, "staged"),
+    (16, 16, 768, "wgmma"),        # the serving point (and the first card case)
+    (37, 32, 128, "wgmma_rows"),   # the card cases of test_torch_kernels.py
+    (5, 3, 32, "staged"),          # dim 32: not a whole 64-dim chunk
+    (5, 3, 64, "wgmma_rows"),
+    (16, 16, 80, "staged"),        # dim not whole 64-dim stages
+    (16, 16, 2048, "staged"),      # dim past the wgmma routes' shared-memory budget
+    (16, 32, 768, "wgmma_rows"),
+    (16, 8, 768, "wgmma_rows"),
+    (64, 32, 768, "wgmma_rows"),   # ragged stride buckets
+    (384, 32, 768, "wgmma_rows"),  # doc_maxlen 384's largest bucket
+    (124, 32, 768, "wgmma_rows"),  # a host table's cap: the longest doc
+    (124, 33, 768, "staged"),      # past one launch's rows (row_chunk cuts them first)
 ])
 def test_rerank_plan_routes(dv, qv, dim, route):
     assert prr.rerank_plan(dv, qv, dim) == route
 
 
-@pytest.mark.parametrize("dv,qv,dim,chunk", [
-    (16, 16, 768, 16), (16, 8, 768, 8),         # one launch, as rerank_plan routes it
-    (16, 17, 768, 16), (16, 48, 768, 16),       # the "wgmma" shape past 16 rows: 16-row chunks
-    (16, 32, 80, 32), (37, 32, 128, 32),        # "staged" up to 32 rows: one launch
-    (37, 33, 128, 32), (16, 64, 2048, 32),      # past 32 rows: 32-row chunks
+@pytest.mark.parametrize("dv,qv,dim,chunk,route", [
+    (16, 16, 768, 16, "wgmma"), (16, 8, 768, 8, "wgmma_rows"),     # one launch, as rerank_plan routes it
+    (16, 17, 768, 16, "wgmma"), (16, 48, 768, 16, "wgmma"),        # the "wgmma" shape past 16 rows: 16-row chunks
+    (16, 32, 80, 32, "staged"), (37, 32, 128, 32, "wgmma_rows"),   # up to 32 rows: one launch
+    (37, 33, 128, 32, "wgmma_rows"), (16, 64, 2048, 32, "staged"),  # past 32 rows: 32-row chunks
+    (124, 48, 768, 32, "wgmma_rows"),                              # a host table's cap at 48 rows
 ])
-def test_row_chunk_sizes(dv, qv, dim, chunk):
+def test_row_chunk_sizes(dv, qv, dim, chunk, route):
     assert prr.row_chunk(dv, qv, dim) == chunk
-    assert prr.rerank_plan(dv, chunk, dim) == ("wgmma" if (dv, chunk, dim) in ((16, 16, 768),) else "staged")
+    assert prr.rerank_plan(dv, chunk, dim) == route
 
 
 @pytest.mark.parametrize("table_dtype", ["bfloat16", "int8"])
