@@ -207,7 +207,14 @@ seed:
   ``F.scaled_dot_product_attention`` with the boolean segment mask (a
   yardstick the port never calls; also its backward alone, dq, dk and dv
   from one call, on the fastest of the cuDNN and memory-efficient
-  backends, named);
+  backends, named); then at head dims 32 ((68, 12, 384, 32), the
+  MiniLM-L12-H384 width's doc pass) and 128 ((68, 8, 384, 128)), bf16 and
+  fp16 on route "wgmma" (route "simple" stays at 64): the wrapper's forward
+  and backward and the autograd function against the plain path, under the
+  same limits, twice (bit-equal), di and 1 / l as above, every launch at
+  that head dim; K11, K12, K13 and the rows kernel timed cold (bf16)
+  beside their bounds, the plain versions and SDPA (forward; backward
+  alone);
   (b) after phase 4: ``train`` with flash at phase 4's configuration, 5
   steps, evaluations at steps 2 and 4, then ``--resume`` from step 4: the
   resumed loss bit-equal, K11 12 launches a step and 12 a layer per eval
@@ -315,7 +322,8 @@ seed:
   or fp32 bytes; three TF32 products over 495 TFLOP/s, and the share of
   that bound), rows + K12 + K13, the plain versions and
   ``F.scaled_dot_product_attention`` at fp32 with the boolean mask
-  (forward, forward + backward, its backward alone), in the same run;
+  (forward, forward + backward, its backward alone), in the same run; the
+  same at head dims 32 ((68, 12, 384, 32)) and 128 ((68, 8, 384, 128));
   (b) after phase 4, at its configuration: 3 train steps at
   ``model.dtype=float32`` with flash against the explicit fp32 path, both
   dropping the attention output (the site flash takes): each loss within
@@ -343,6 +351,18 @@ seed:
   multiview off) trained 10 epochs (~320 steps) through the CLI, and dev
   MRR@10 and recall@100 of ColBERT (flat ``evaluate``) and DPR: finite,
   MRR above chance.
+
+* phase 12, a retriever at microsoft/Multilingual-MiniLM-L12-H384's widths
+  (hidden 384, 12 layers, 12 heads of head dim 32, intermediate 1536, vocab
+  250,037; bf16, ``attention_impl="flash"``, seeded weights), after phase
+  8: ``train`` at batch 34 on phase 4's data (9 steps at learning rate
+  1e-4, evaluations and checkpoints, ``--resume`` bit-equal), the loss
+  finite and falling; ``encode`` of a 20,000-passage corpus as phase 2's;
+  flat ``serve`` of 3 requests of 144 questions, each answer checked as
+  phase 2's against the plain version over the same table; every K11,
+  K12 and K13 launch on route "wgmma" at head dim 32 (counted by head dim);
+  ms/step, docs/s and peak memory.  ``--phase12`` runs it, with phase 8a's
+  and 11a's head-dim cases, alone.
 
 Prints the card's name and power limit, the measurements, one JSON line of
 kernels, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -414,7 +434,10 @@ def counters():
             "K13 wgmma route": fa.dq_route_launches["wgmma"], "K13 simple route": fa.dq_route_launches["simple"],
             "K11 tf32 route": fa.fwd_route_launches["tf32"],
             "K12 tf32 route": fa.dkv_route_launches["tf32"], "K13 tf32 route": fa.dq_route_launches["tf32"],
-            "flash rows": fa.rows_launches, "flash rows fp32": fa.rows_fp32_launches}
+            "flash rows": fa.rows_launches, "flash rows fp32": fa.rows_fp32_launches,
+            **{f"{kname} hd{hd}": c[hd] for kname, c in (("K11", fa.fwd_head_dim_launches),
+                                                          ("K12", fa.dkv_head_dim_launches),
+                                                          ("K13", fa.dq_head_dim_launches)) for hd in fa.HEAD_DIMS}}
 
 
 def reset_counts() -> None:
@@ -787,7 +810,7 @@ def check_flat_answers(requests, answer_sets, searcher, docs):
 
 
 def encoded_corpus(device, workdir: Path, label: str, num_docs=20_000, model_kw=None, tok_kw=None,
-                   n_requests=3, seed=SEED):
+                   n_requests=3, seed=SEED, tag="phase2"):
     """Phase 2's set-up: a synthetic Chinese corpus of ``num_docs`` passages,
     ``n_requests`` x B questions and 2 x B eval questions, the flat config,
     a seeded model saved as ``pytorch.bin``, and the corpus encoded through
@@ -824,7 +847,7 @@ def encoded_corpus(device, workdir: Path, label: str, num_docs=20_000, model_kw=
     model.init_weights(torch.Generator().manual_seed(seed))
     bin_path = workdir / "pytorch.bin"
     torch.save(reference_state_dict(model.state_dict(), cfg.model), bin_path)
-    log(f"[phase2] model hidden={cfg.model.hidden_size} layers={cfg.model.num_layers} "
+    log(f"[{tag}] model hidden={cfg.model.hidden_size} layers={cfg.model.num_layers} "
         f"heads={cfg.model.num_heads} ffn={cfg.model.intermediate_size} vocab={cfg.model.vocab_size} "
         f"dim={cfg.model.dim} {cfg.model.dtype}; vocab file {len(open(vocab_path, encoding='utf-8').read().split())} tokens")
     common = ["--config", str(conf_path), "--pretrain", str(bin_path), "--device", str(device)]
@@ -834,7 +857,7 @@ def encoded_corpus(device, workdir: Path, label: str, num_docs=20_000, model_kw=
     if device.type == "cuda":
         torch.cuda.synchronize()
     enc_s = time.perf_counter() - t0
-    log(f"[phase2] encode: {num_docs} docs in {enc_s:.2f} s = {num_docs / enc_s:.1f} docs/s "
+    log(f"[{tag}] encode: {num_docs} docs in {enc_s:.2f} s = {num_docs / enc_s:.1f} docs/s "
         f"(doc_maxlen {cfg.tokenizer.doc_maxlen}, host tokenization included) [{label}]")
     return {"cfg": cfg, "model": model, "docs": docs, "questions": questions, "positives": positives,
             "corpus_path": corpus_path, "eval_path": eval_path, "common": common, "n_eval": n_eval,
@@ -1274,10 +1297,11 @@ def retrieval_examples(docs, questions, positives, n_neg, rng):
 
 
 def train_setup(workdir: Path, model_kw=None, tok_kw=None, batch=34, steps=7, n_dev=40, seed=SEED,
-                attention_impl="auto"):
+                attention_impl="auto", train_kw=None):
     """Phase 4's data and config: ``steps`` x ``batch`` train and ``n_dev``
     dev examples over synthetic Chinese passages (10 and 8 hard negatives),
-    the vocab, and the config written to ``workdir / "conf.yaml"``."""
+    the vocab, and the config written to ``workdir / "conf.yaml"``
+    (``train_kw`` over the train section's fields)."""
     import numpy as np
 
     from colbert_tpu_torch.config import ColbertConfig, ModelConfig, TokenizerConfig, TrainConfig
@@ -1298,14 +1322,14 @@ def train_setup(workdir: Path, model_kw=None, tok_kw=None, batch=34, steps=7, n_
         model=model_cfg,
         tokenizer=TokenizerConfig(vocab_path=str(vocab_path), **(tok_kw or {})),
         train=TrainConfig(per_device_batch_size=batch, num_epochs=1, evals_per_epoch=2, log_every=1,
-                          keep_checkpoints=2, checkpoint_dir=str(workdir / "ckpt"), seed=seed),
+                          keep_checkpoints=2, checkpoint_dir=str(workdir / "ckpt"), seed=seed, **(train_kw or {})),
     )
     cfg.to_yaml(workdir / "conf.yaml")
     return cfg, train_path, dev_path
 
 
 def phase_train(device, workdir: Path, label: str, model_kw=None, tok_kw=None, batch=34,
-                steps=7, n_dev=40, seed=SEED, attention_impl="auto", tag="phase4"):
+                steps=7, n_dev=40, seed=SEED, attention_impl="auto", tag="phase4", train_kw=None):
     """The CLI's ``train`` (phase 4; with ``attention_impl="flash"``, phase 8b:
     K11-K13 at the doc pass), its launches, then ``--resume`` from the last
     checkpoint.  Returns the counted run's launches and its measurements."""
@@ -1316,7 +1340,8 @@ def phase_train(device, workdir: Path, label: str, model_kw=None, tok_kw=None, b
     from colbert_tpu_torch.training.checkpoint import CheckpointManager
     from colbert_tpu_torch.utils.io import load_jsonl
 
-    cfg, train_path, dev_path = train_setup(workdir, model_kw, tok_kw, batch, steps, n_dev, seed, attention_impl)
+    cfg, train_path, dev_path = train_setup(workdir, model_kw, tok_kw, batch, steps, n_dev, seed, attention_impl,
+                                            train_kw)
     n_train = steps * batch
     conf_path = workdir / "conf.yaml"
     c = cfg.model
@@ -1324,7 +1349,8 @@ def phase_train(device, workdir: Path, label: str, model_kw=None, tok_kw=None, b
         f"heads={c.num_heads} ffn={c.intermediate_size} vocab={c.vocab_size} dim={c.dim} {c.dtype}, dropout "
         f"{c.hidden_dropout}/{c.attention_dropout} ({c.dropout_impl}), multiview "
         f"{cfg.multiview.q_view}/{cfg.multiview.d_view}, query_maxlen {cfg.tokenizer.query_maxlen}, "
-        f"doc_maxlen {cfg.tokenizer.doc_maxlen}, batch {batch}; {n_train} train and {n_dev} dev examples")
+        f"doc_maxlen {cfg.tokenizer.doc_maxlen}, batch {batch}, learning rate {cfg.train.learning_rate}; {n_train} "
+        f"train and {n_dev} dev examples")
     common = ["--config", str(conf_path), "--train-data", str(train_path), "--dev-data", str(dev_path),
               "--device", str(device)]
     per_step_k9 = (1 + 3 * c.num_layers) * 2 * 2
@@ -2988,7 +3014,7 @@ def di_within_fp32(got, o, do):
     return float(((got - fa.flash_di(o, do)).abs() / limit.clamp_min(torch.finfo(torch.float32).tiny)).max())
 
 
-def sdpa_backward_alone(q, k, v, mask, do):
+def sdpa_backward_alone(q, k, v, mask, do, scale=FLASH_SCALE):
     """SDPA's backward alone (dq, dk and dv from one call), the yardstick of
     K12 + K13 with the rows kernel: for each of the backends that take a
     boolean mask, its forward once and its backward timed on that graph; the
@@ -3002,7 +3028,7 @@ def sdpa_backward_alone(q, k, v, mask, do):
     for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION):
         try:
             with sdpa_kernel([backend]):
-                out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=FLASH_SCALE)
+                out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=scale)
             tried[backend.name] = time_ms(lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
                                           iters=10, warmup=2)
         except RuntimeError as e:
@@ -3074,23 +3100,28 @@ def flash_route_parts(args, o, l, m, do, paths, fwd_bwd):
     return out
 
 
-def flash_case(device, name, B, nh, lengths, seed, timed, label):
-    """The path the model runs at (B, nh, 384, 64) bf16 in its layout (heads-major
-    views of (B, L, nh, hd)): the public wrapper's forward (K11), then its
-    backward (the rows kernel's di and 1 / l from K11's own o and l, K12 and
-    K13 on K11's own l and m), and the autograd function over them, against
-    the plain forward and backward run the same way; twice (bit-equal).  Then
-    K11, K12 and K13 on each route ("wgmma", the wrapper's; "simple", the
-    first design) against the plain versions (K12 and K13 on the plain
-    forward's l, m and di), each twice (bit-equal), and the card's di against ``flash_di``
-    (within fp32 rounding) and its order emulated in torch (bit-equal).  With
-    ``timed``, each kernel's time on each route cold and hot beside its
-    bound; the rows kernel beside ``flash_di``; the plain versions, the port's
-    explicit attention, ``F.scaled_dot_product_attention`` (forward, forward
-    + backward, and its backward alone) and, by route, the forward, the
-    backward, di and the forward + backward through an autograd function
-    (route "simple": :func:`first_design_flash`) on the host clock, on the
-    card alone and as issued (:func:`flash_route_parts`)."""
+def flash_case(device, name, B, nh, lengths, seed, timed, label, hd=64):
+    """The path the model runs at (B, nh, 384, hd) in its layout (heads-major
+    views of (B, L, nh, hd)), bf16, then fp16: the public wrapper's forward
+    (K11), then its backward (the rows kernel's di and 1 / l from K11's own
+    o and l, K12 and K13 on K11's own l and m), and the autograd function
+    over them, against the plain forward and backward run the same way;
+    twice (bit-equal); every launch on route "wgmma" at ``hd``.  Then K11,
+    K12 and K13 on each route ("wgmma", the wrapper's; "simple", the first
+    design, at head dim 64 alone) against the plain versions (K12 and K13 on
+    the plain forward's l, m and di), each twice (bit-equal), and the card's
+    di against ``flash_di`` (within fp32 rounding) and its order emulated in
+    torch (bit-equal), 1 / l bit-equal to the division.  The bf16 results
+    stand at the top of the returned dict, fp16's under "float16".  With
+    ``timed`` (bf16), each kernel's time on each route cold and hot beside
+    its bound at ``hd``; the rows kernel beside ``flash_di``; the plain
+    versions, the flash forward through the autograd function and
+    ``F.scaled_dot_product_attention`` (forward, and its backward alone);
+    at head dim 64 also the port's explicit attention, SDPA's forward +
+    backward and, by route, the forward, the backward, di and the forward +
+    backward through an autograd function (route "simple":
+    :func:`first_design_flash`) on the host clock, on the card alone and as
+    issued (:func:`flash_route_parts`)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -3099,87 +3130,101 @@ def flash_case(device, name, B, nh, lengths, seed, timed, label):
     from colbert_tpu_torch.models.bert import BertSelfAttention, draw_seed
     from colbert_tpu_torch.ops import flash_attention as fa
 
-    L = 384
+    L, scale = 384, hd ** -0.5
+    routes = fa.ROUTES if hd == fa.SIMPLE_HEAD_DIM else ("wgmma",)
     g = torch.Generator(device).manual_seed(seed)
-
-    def heads():
-        x = torch.randn((B, L, nh, 64), generator=g, device=device, dtype=torch.float32).to(torch.bfloat16)
-        return x.transpose(1, 2)
-    q, k, v, do = heads(), heads(), heads(), heads()
     seg = (torch.arange(L, device=device)[None, :] < torch.as_tensor(lengths, device=device)[:, None]).to(torch.int32)
-    args = (q, k, v, seg, seg, FLASH_SCALE)
-    o, l, m = fa.flash_forward(*args)
-    dq, dk, dv = fa.flash_backward(*args, o, l, m, do)
-    o2, l2, m2 = fa.flash_forward(*args)
-    dq2, dk2, dv2 = fa.flash_backward(*args, o2, l2, m2, do)
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    out = fa.flash_attention(*leaves, seg, seg, FLASH_SCALE)
-    out.backward(do)
-    ro, rl, rm = fa.flash_forward_ref(*args)
-    rdi = fa.flash_di(ro, do)
-    want = fa.flash_backward_ref(*args, rl, rm, do, rdi)
-    torch.cuda.synchronize()
-    stable = all(torch.equal(a, b) for a, b in ((o, o2), (l, l2), (m, m2), (dq, dq2), (dk, dk2), (dv, dv2)))
-    autograd_same = torch.equal(out, o) and all(torch.equal(t.grad, g) for t, g in zip(leaves, (dq, dk, dv)))
-    res = {"shape": [B, nh, L, 64], "lengths": [int(np.min(lengths)), int(np.max(lengths))], "bit_stable": stable,
-           "autograd_same": autograd_same}
-    for what, got, ref in (("o", o, ro), ("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
-        res[what] = dict(zip(("head_ulps", "element_share", "max_abs_err"), fa.close_in_head_ulps(got, ref)))
-    res["l_max_rel_err"] = float(((l - rl).abs() / rl).max())
-    res["m_max_abs_err"] = float((m - rm).abs().max())
-    log(f"[phase8a] {name} ({B}, {nh}, {L}, 64) bf16, lengths {res['lengths'][0]}-{res['lengths'][1]}: bit-stable "
-        f"{stable}, autograd function equal {autograd_same}; wrapper path against the plain path: "
-        + "; ".join(f"{w} {res[w]['head_ulps']:.2f} ulps of its head vector, "
-                    f"{res[w]['element_share']:.2e} of elements past 2 own ulps, max|d| "
-                    f"{res[w]['max_abs_err']:.3e}" for w in ("o", "dq", "dk", "dv"))
-        + f"; l rel {res['l_max_rel_err']:.2e}, m {res['m_max_abs_err']:.2e}")
-    bad = [w for w in ("o", "dq", "dk", "dv") if res[w]["head_ulps"] > FLASH_HEAD_ULPS
-           or res[w]["element_share"] > FLASH_ELEMENT_SHARE]
-    if not (stable and autograd_same) or bad or not (torch.isfinite(o.float()).all()
-                                                     and torch.isfinite(dq.float()).all()):
-        raise AssertionError(f"K11-K13 at {name}: bit-stable {stable}, autograd function equal {autograd_same}, "
-                             f"beyond the limits: {bad} ({res})")
+    res = {"shape": [B, nh, L, hd], "lengths": [int(np.min(lengths)), int(np.max(lengths))]}
+    for dtype in (torch.bfloat16, torch.float16):
+        dt = str(dtype).removeprefix("torch.")
 
-    # ---- each route of K11, K12 and K13 against the plain versions, twice ----
-    bargs = (*args, rl, rm, do, rdi)
-    res["routes"] = {}
-    for route in fa.ROUTES:
-        ro1, ro2 = fa._launch_forward(*args, route=route), fa._launch_forward(*args, route=route)
-        rk1, rk2 = fa._launch_dkv(*bargs, route=route), fa._launch_dkv(*bargs, route=route)
-        rq1, rq2 = fa._launch_dq(*bargs, route=route), fa._launch_dq(*bargs, route=route)
+        def heads():
+            return torch.randn((B, L, nh, hd), generator=g, device=device).to(dtype).transpose(1, 2)
+        q, k, v, do = heads(), heads(), heads(), heads()
+        args = (q, k, v, seg, seg, scale)
+        before = read_counts()
+        o, l, m = fa.flash_forward(*args)
+        dq, dk, dv = fa.flash_backward(*args, o, l, m, do)
+        o2, l2, m2 = fa.flash_forward(*args)
+        dq2, dk2, dv2 = fa.flash_backward(*args, o2, l2, m2, do)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = fa.flash_attention(*leaves, seg, seg, scale)
+        out.backward(do)
         torch.cuda.synchronize()
-        r = {"bit_stable": all(torch.equal(a, b) for a, b in zip((*ro1, *rk1, rq1), (*ro2, *rk2, rq2)))}
-        for what, got, ref in (("o", ro1[0], ro), ("dk", rk1[0], want[1]), ("dv", rk1[1], want[2]),
-                               ("dq", rq1, want[0])):
+        after = read_counts()
+        flash_launches_ok({key: after[key] - before[key] for key in after}, {"K11": 3, "K12": 3, "K13": 3},
+                          f"phase 8a at {name}, {dt}", head_dim=hd)
+        ro, rl, rm = fa.flash_forward_ref(*args)
+        rdi = fa.flash_di(ro, do)
+        want = fa.flash_backward_ref(*args, rl, rm, do, rdi)
+        torch.cuda.synchronize()
+        stable = all(torch.equal(a, b) for a, b in ((o, o2), (l, l2), (m, m2), (dq, dq2), (dk, dk2), (dv, dv2)))
+        autograd_same = torch.equal(out, o) and all(torch.equal(t.grad, x) for t, x in zip(leaves, (dq, dk, dv)))
+        r = {"bit_stable": stable, "autograd_same": autograd_same}
+        for what, got, ref in (("o", o, ro), ("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
             r[what] = dict(zip(("head_ulps", "element_share", "max_abs_err"), fa.close_in_head_ulps(got, ref)))
-        r["l_max_rel_err"] = float(((ro1[1] - rl).abs() / rl).max())
-        r["m_max_abs_err"] = float((ro1[2] - rm).abs().max())
-        res["routes"][route] = r
-        log(f"[phase8a] {name} route {route}: K11, K12, K13 bit-stable {r['bit_stable']}; against the plain "
-            "versions " + "; ".join(f"{w} {r[w]['head_ulps']:.2f} ulps of its head vector, {r[w]['element_share']:.2e} "
-                                    f"past 2 own ulps, max|d| {r[w]['max_abs_err']:.3e}" for w in ("o", "dk", "dv", "dq"))
+        r["l_max_rel_err"] = float(((l - rl).abs() / rl).max())
+        r["m_max_abs_err"] = float((m - rm).abs().max())
+        log(f"[phase8a] {name} ({B}, {nh}, {L}, {hd}) {dt}, lengths {res['lengths'][0]}-{res['lengths'][1]}: "
+            f"bit-stable {stable}, autograd function equal {autograd_same}; wrapper path against the plain path: "
+            + "; ".join(f"{w} {r[w]['head_ulps']:.2f} ulps of its head vector, "
+                        f"{r[w]['element_share']:.2e} of elements past 2 own ulps, max|d| "
+                        f"{r[w]['max_abs_err']:.3e}" for w in ("o", "dq", "dk", "dv"))
             + f"; l rel {r['l_max_rel_err']:.2e}, m {r['m_max_abs_err']:.2e}")
-        off = [w for w in ("o", "dk", "dv", "dq") if r[w]["head_ulps"] > FLASH_HEAD_ULPS
+        bad = [w for w in ("o", "dq", "dk", "dv") if r[w]["head_ulps"] > FLASH_HEAD_ULPS
                or r[w]["element_share"] > FLASH_ELEMENT_SHARE]
-        if off or not r["bit_stable"] or r["l_max_rel_err"] > 1e-5 or r["m_max_abs_err"] > 1e-5:
-            raise AssertionError(f"K11-K13 route {route} at {name}: beyond the limits {off} ({r})")
+        if not (stable and autograd_same) or bad or not (torch.isfinite(o.float()).all()
+                                                         and torch.isfinite(dq.float()).all()):
+            raise AssertionError(f"K11-K13 at {name} ({dt}): bit-stable {stable}, autograd function equal "
+                                 f"{autograd_same}, beyond the limits: {bad} ({r})")
 
-    # ---- the card's di and 1 / l ----
-    di_card, inv_l = fa._launch_rows(o, do, l)
-    torch.cuda.synchronize()
-    res["di"] = {"fp32_bound_share": di_within_fp32(di_card, o, do),
-                 "card_order_equal": bool(torch.equal(di_card, fa.flash_di_card_order(o, do))),
-                 "inv_l_equal": bool(torch.equal(inv_l, torch.ones_like(l) / l)),
-                 "max_abs_err": float((di_card - fa.flash_di(o, do)).abs().max())}
-    log(f"[phase8a] {name} the card's di: {res['di']['fp32_bound_share']:.3f} of the fp32 rounding bound from "
-        f"flash_di (max|d| {res['di']['max_abs_err']:.3e}), bit-equal to its order in torch "
-        f"{res['di']['card_order_equal']}; 1 / l bit-equal {res['di']['inv_l_equal']}")
-    if not (res["di"]["fp32_bound_share"] <= 1.0 and res["di"]["card_order_equal"] and res["di"]["inv_l_equal"]):
-        raise AssertionError(f"the rows kernel at {name}: {res['di']}")
+        # ---- each route of K11, K12 and K13 against the plain versions, twice ----
+        bargs = (*args, rl, rm, do, rdi)
+        r["routes"] = {}
+        for route in routes:
+            ro1, ro2 = fa._launch_forward(*args, route=route), fa._launch_forward(*args, route=route)
+            rk1, rk2 = fa._launch_dkv(*bargs, route=route), fa._launch_dkv(*bargs, route=route)
+            rq1, rq2 = fa._launch_dq(*bargs, route=route), fa._launch_dq(*bargs, route=route)
+            torch.cuda.synchronize()
+            rr = {"bit_stable": all(torch.equal(a, b) for a, b in zip((*ro1, *rk1, rq1), (*ro2, *rk2, rq2)))}
+            for what, got, ref in (("o", ro1[0], ro), ("dk", rk1[0], want[1]), ("dv", rk1[1], want[2]),
+                                   ("dq", rq1, want[0])):
+                rr[what] = dict(zip(("head_ulps", "element_share", "max_abs_err"), fa.close_in_head_ulps(got, ref)))
+            rr["l_max_rel_err"] = float(((ro1[1] - rl).abs() / rl).max())
+            rr["m_max_abs_err"] = float((ro1[2] - rm).abs().max())
+            r["routes"][route] = rr
+            log(f"[phase8a] {name} {dt} route {route}: K11, K12, K13 bit-stable {rr['bit_stable']}; against the "
+                "plain versions " + "; ".join(f"{w} {rr[w]['head_ulps']:.2f} ulps of its head vector, "
+                                              f"{rr[w]['element_share']:.2e} past 2 own ulps, max|d| "
+                                              f"{rr[w]['max_abs_err']:.3e}" for w in ("o", "dk", "dv", "dq"))
+                + f"; l rel {rr['l_max_rel_err']:.2e}, m {rr['m_max_abs_err']:.2e}")
+            off = [w for w in ("o", "dk", "dv", "dq") if rr[w]["head_ulps"] > FLASH_HEAD_ULPS
+                   or rr[w]["element_share"] > FLASH_ELEMENT_SHARE]
+            if off or not rr["bit_stable"] or rr["l_max_rel_err"] > 1e-5 or rr["m_max_abs_err"] > 1e-5:
+                raise AssertionError(f"K11-K13 route {route} at {name} ({dt}): beyond the limits {off} ({rr})")
+
+        # ---- the card's di and 1 / l ----
+        di_card, inv_l = fa._launch_rows(o, do, l)
+        torch.cuda.synchronize()
+        r["di"] = {"fp32_bound_share": di_within_fp32(di_card, o, do),
+                   "card_order_equal": bool(torch.equal(di_card, fa.flash_di_card_order(o, do))),
+                   "inv_l_equal": bool(torch.equal(inv_l, torch.ones_like(l) / l)),
+                   "max_abs_err": float((di_card - fa.flash_di(o, do)).abs().max())}
+        log(f"[phase8a] {name} {dt} the card's di: {r['di']['fp32_bound_share']:.3f} of the fp32 rounding bound "
+            f"from flash_di (max|d| {r['di']['max_abs_err']:.3e}), bit-equal to its order in torch "
+            f"{r['di']['card_order_equal']}; 1 / l bit-equal {r['di']['inv_l_equal']}")
+        if not (r["di"]["fp32_bound_share"] <= 1.0 and r["di"]["card_order_equal"] and r["di"]["inv_l_equal"]):
+            raise AssertionError(f"the rows kernel at {name} ({dt}): {r['di']}")
+        if dtype == torch.bfloat16:
+            res.update(r)
+            kept = (q, k, v, do, args, leaves, o, l, m, ro, rl, rm, di_card, inv_l)
+        else:
+            res[dt] = r
     if not timed:
         return res
 
-    # ---- times: CUDA events, hot (the same inputs) and cold (copies in turn past twice the L2) ----
+    # ---- times (bf16): CUDA events, hot (the same inputs) and cold (copies in turn past twice the L2) ----
+    q, k, v, do, args, leaves, o, l, m, ro, rl, rm, di_card, inv_l = kept
     bargs = (*args, l, m, do, di_card)
     set_bytes = 4 * q.numel() * 2
     n_copies = max(1, -(-4 * L2_BYTES // set_bytes))
@@ -3192,19 +3237,49 @@ def flash_case(device, name, B, nh, lengths, seed, timed, label):
         # every input set's outputs allocated before the clock starts
         runs["cold"].setdefault(key, []).append(time_ms(in_turn(cold_fn, xs), warmup=len(xs) + 2))
     for _ in range(3):
-        for route in fa.ROUTES:
+        for route in routes:
             tag = "" if route == "wgmma" else " simple"
             timed("K11" + tag, lambda: fa._launch_forward(*args, route=route),
-                  lambda x, i: fa._launch_forward(x[0], x[1], x[2], seg, seg, FLASH_SCALE, route=route), copies)
+                  lambda x, i: fa._launch_forward(x[0], x[1], x[2], seg, seg, scale, route=route), copies)
             timed("K12" + tag, lambda: fa._launch_dkv(*bargs, route=route, inv_l=inv_l),
-                  lambda x, i: fa._launch_dkv(x[0], x[1], x[2], seg, seg, FLASH_SCALE, l, m, x[3], di_card,
+                  lambda x, i: fa._launch_dkv(x[0], x[1], x[2], seg, seg, scale, l, m, x[3], di_card,
                                               route=route, inv_l=inv_l), copies)
             timed("K13" + tag, lambda: fa._launch_dq(*bargs, route=route, inv_l=inv_l),
-                  lambda x, i: fa._launch_dq(x[0], x[1], x[2], seg, seg, FLASH_SCALE, l, m, x[3], di_card,
+                  lambda x, i: fa._launch_dq(x[0], x[1], x[2], seg, seg, scale, l, m, x[3], di_card,
                                              route=route, inv_l=inv_l), copies)
         timed("rows", lambda: fa._launch_rows(o, do, l), lambda x, i: fa._launch_rows(x[0], x[1], l), outs)
         timed("flash_di", lambda: fa.flash_di(o, do), lambda x, i: fa.flash_di(x[0], x[1]), outs)
     hot, cold = ({k: float(np.median(v)) for k, v in runs[kind].items()} for kind in ("hot", "cold"))
+
+    flash = lambda a, b, c: fa.flash_attention(a, b, c, seg, seg, scale)
+    mask = (seg[:, :, None] == seg[:, None, :])[:, None]          # (B, 1, L, L) segment equality
+    sdpa = lambda a, b, c: F.scaled_dot_product_attention(a, b, c, attn_mask=mask, scale=scale)
+    with torch.no_grad():
+        t_plain = time_ms(lambda: fa.flash_forward_ref(*args), iters=5, warmup=1)
+        t_plain_bwd = time_ms(lambda: fa.flash_backward_ref(*args, rl, rm, do, fa.flash_di(ro, do)), iters=3,
+                              warmup=1)
+        t_flash = time_ms(lambda: flash(q, k, v))
+        t_sdpa = time_ms(lambda: sdpa(q, k, v))
+    t_sdpa_bwd, sdpa_backend, sdpa_tried = sdpa_backward_alone(q, k, v, mask, do, scale=scale)
+    bounds = flash_bounds(B, nh, L, hd)
+    bounds["rows"] = bound(0, 2 * B * nh * L * hd * 2 + 3 * B * nh * L * 4, PEAK_BF16_FLOPS)
+    res.update({"ms": cold, "hot_ms": hot, "bound": bounds, "plain_ms": t_plain, "plain_backward_ms": t_plain_bwd,
+                "flash_ms": t_flash, "sdpa_ms": t_sdpa, "sdpa_backward_ms": t_sdpa_bwd,
+                "sdpa_backward_backend": sdpa_backend, "sdpa_backward_tried": sdpa_tried, "cold_copies": n_copies,
+                "cold_runs_ms": runs["cold"], "rows_k12_k13_ms": cold["rows"] + cold["K12"] + cold["K13"]})
+    for kname in ("K11", "K12", "K13", "rows"):
+        simple = (f"; route simple {cold[kname + ' simple']:.4f} cold, {hot[kname + ' simple']:.4f} hot"
+                  if kname + " simple" in cold else "")
+        log(f"[phase8a] {name} {kname} at head dim {hd}: {cold[kname]:.4f} ms cold ({n_copies} input sets in turn), "
+            f"{hot[kname]:.4f} hot{simple}; bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]}) [{label}]")
+    log(f"[phase8a] {name} di and 1 / l: rows kernel {cold['rows']:.4f} ms cold, {hot['rows']:.4f} hot; flash_di "
+        f"(fp32 copies) {cold['flash_di']:.4f} cold, {hot['flash_di']:.4f} hot [{label}]")
+    log(f"[phase8a] {name} head dim {hd}: K11 {cold['K11']:.4f} ms against SDPA's forward {t_sdpa:.4f}; rows + K12 "
+        f"+ K13 {res['rows_k12_k13_ms']:.4f} against SDPA's backward alone {t_sdpa_bwd:.4f} ({sdpa_backend}; tried "
+        f"{sdpa_tried}); flash forward (K11 through the autograd function) {t_flash:.4f}; plain forward "
+        f"{t_plain:.3f}, plain backward {t_plain_bwd:.3f} [{label}]")
+    if hd != fa.SIMPLE_HEAD_DIM:
+        return res
 
     def fwd_bwd(fn):
         def run():
@@ -3212,52 +3287,29 @@ def flash_case(device, name, B, nh, lengths, seed, timed, label):
                 t.grad = None
             fn(*leaves).backward(do)
         return run
-    flash = lambda a, b, c: fa.flash_attention(a, b, c, seg, seg, FLASH_SCALE)
-    mask = (seg[:, :, None] == seg[:, None, :])[:, None]          # (B, 1, L, L) segment equality
-    sdpa = lambda a, b, c: F.scaled_dot_product_attention(a, b, c, attn_mask=mask, scale=FLASH_SCALE)
-    att = BertSelfAttention(ModelConfig(hidden_size=64 * nh, num_heads=nh, attention_dropout=0.1)).to(device).train()
+    att = BertSelfAttention(ModelConfig(hidden_size=hd * nh, num_heads=nh, attention_dropout=0.1)).to(device).train()
     bias = ((1.0 - seg[:, None, None, :].float()) * -1e9)
     seed64 = draw_seed(torch.Generator().manual_seed(seed))
     explicit = lambda a, b, c: att._explicit(a, b, c, bias, seed64)   # fp32 logits, softmax, K9, P.V
     with torch.no_grad():
-        t_plain = time_ms(lambda: fa.flash_forward_ref(*args), iters=5, warmup=1)
-        t_plain_bwd = time_ms(lambda: fa.flash_backward_ref(*args, rl, rm, do, fa.flash_di(ro, do)), iters=3,
-                              warmup=1)
-        t_flash = time_ms(lambda: flash(q, k, v))
-        t_sdpa = time_ms(lambda: sdpa(q, k, v))
         t_explicit = time_ms(lambda: explicit(q, k, v), iters=5, warmup=1)
     first = first_design_flash(seg)
     parts = flash_route_parts(args, o, l, m, do, {"wgmma": flash, "simple": first}, fwd_bwd)
     t_flash_fb, t_flash_fb_simple = (parts["issued"]["fwd_bwd"][r] for r in ("wgmma", "simple"))
     t_sdpa_fb = time_ms(fwd_bwd(sdpa), iters=10, warmup=2)
-    t_sdpa_bwd, sdpa_backend, sdpa_tried = sdpa_backward_alone(q, k, v, mask, do)
     t_explicit_fb = time_ms(fwd_bwd(explicit), iters=5, warmup=1)
-    bounds = flash_bounds(B, nh, L)
-    res.update({"ms": cold, "hot_ms": hot, "bound": bounds, "plain_ms": t_plain, "plain_backward_ms": t_plain_bwd,
-                "flash_ms": t_flash, "flash_fwd_bwd_ms": t_flash_fb, "flash_fwd_bwd_simple_ms": t_flash_fb_simple,
-                "route_parts_ms": parts,
-                "sdpa_ms": t_sdpa, "sdpa_fwd_bwd_ms": t_sdpa_fb, "sdpa_backward_ms": t_sdpa_bwd,
-                "sdpa_backward_backend": sdpa_backend, "sdpa_backward_tried": sdpa_tried,
-                "explicit_ms": t_explicit, "explicit_fwd_bwd_ms": t_explicit_fb, "cold_copies": n_copies,
-                "cold_runs_ms": runs["cold"]})
-    for kname in ("K11", "K12", "K13"):
-        simple = (f"; route simple {cold[kname + ' simple']:.4f} cold, {hot[kname + ' simple']:.4f} hot"
-                  if kname + " simple" in cold else "")
-        log(f"[phase8a] {name} {kname}: {cold[kname]:.4f} ms cold ({n_copies} input sets in turn), "
-            f"{hot[kname]:.4f} hot{simple}; bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]}) [{label}]")
-    log(f"[phase8a] {name} di and 1 / l: rows kernel {cold['rows']:.4f} ms cold, {hot['rows']:.4f} hot; flash_di "
-        f"(fp32 copies) {cold['flash_di']:.4f} cold, {hot['flash_di']:.4f} hot [{label}]")
+    res.update({"flash_fwd_bwd_ms": t_flash_fb, "flash_fwd_bwd_simple_ms": t_flash_fb_simple,
+                "route_parts_ms": parts, "sdpa_fwd_bwd_ms": t_sdpa_fb, "explicit_ms": t_explicit,
+                "explicit_fwd_bwd_ms": t_explicit_fb})
     for clock, what in (("host", "on the host clock a call, the card kept busy"), ("card", "on the card alone, hot"),
                         ("issued", "as issued, host gaps included")):
         log(f"[phase8a] {name} by route, {what}: " + "; ".join(
             f"{p} wgmma {parts[clock][p]['wgmma']:.4f} ms, simple {parts[clock][p]['simple']:.4f}"
             for p in ("forward", "backward", "di", "fwd_bwd")) + f" [{label}]")
-    log(f"[phase8a] {name} forward: flash (K11 through the autograd function) {t_flash:.4f} ms, plain version "
-        f"{t_plain:.3f}, the port's explicit attention (fp32 logits, softmax, K9 at the probabilities, P.V) "
-        f"{t_explicit:.3f}, F.scaled_dot_product_attention with the segment mask {t_sdpa:.4f} (a yardstick the "
-        f"port never calls); forward + backward: flash {t_flash_fb:.4f} (the first design's path, route simple "
-        f"and flash_di: {t_flash_fb_simple:.4f}), explicit {t_explicit_fb:.3f}, SDPA {t_sdpa_fb:.4f}; SDPA's backward alone "
-        f"{t_sdpa_bwd:.4f} ({sdpa_backend}; tried {sdpa_tried}); plain backward {t_plain_bwd:.3f} [{label}]")
+    log(f"[phase8a] {name} forward: the port's explicit attention (fp32 logits, softmax, K9 at the probabilities, "
+        f"P.V) {t_explicit:.3f} ms, SDPA with the segment mask {t_sdpa:.4f} (a yardstick the port never calls); "
+        f"forward + backward: flash {t_flash_fb:.4f} (the first design's path, route simple and flash_di: "
+        f"{t_flash_fb_simple:.4f}), explicit {t_explicit_fb:.3f}, SDPA {t_sdpa_fb:.4f} [{label}]")
     return res
 
 
@@ -3284,15 +3336,33 @@ def phase_flash_kernels(device, workdir: Path, label, seed=SEED, shapes=None):
     return out
 
 
-def flash_launches_ok(launches, want, what, route="wgmma"):
+def phase_flash_head_dims(device, workdir: Path, label, seed=SEED):
+    """Phase 8a at the head dims but 64: 32 at the MiniLM-L12-H384-width
+    retriever's doc pass (68, 12, 384, 32) and 128 at (68, 8, 384, 128), the
+    retriever's segment lengths."""
+    lengths = synthetic_doc_lengths(68, seed + 3, workdir)
+    t0 = time.perf_counter()
+    out = {hd: flash_case(device, f"hd{hd}", 68, nh, lengths, seed + 29 + hd, True, label, hd=hd)
+           for hd, nh in ((32, 12), (128, 8))}
+    log(f"[phase8a] K11-K13 at head dims 32 and 128 checked and timed in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def flash_launches_ok(launches, want, what, route="wgmma", head_dim=None):
     """K11-K13's launches as ``want`` says, each all on ``route`` ("wgmma" for
-    bf16 and fp16, "tf32" for fp32), and the backward's rows kernel (di, 1 /
-    l) once a K12 launch, on its fp32 route for fp32."""
+    bf16 and fp16, "tf32" for fp32) and, with ``head_dim``, all at that head
+    dim, and the backward's rows kernel (di, 1 / l) once a K12 launch, on its
+    fp32 route for fp32."""
+    from colbert_tpu_torch.ops import flash_attention as fa
+
     want = dict(want)
     for kname in ("K11", "K12", "K13"):
         if kname in want:
             for r in ("wgmma", "simple", "tf32"):
                 want[f"{kname} {r} route"] = want[kname] if r == route else 0
+            if head_dim is not None:
+                for hd in fa.HEAD_DIMS:
+                    want[f"{kname} hd{hd}"] = want[kname] if hd == head_dim else 0
     if "K12" in want:
         want["flash rows"] = want["K12"]
         want["flash rows fp32"] = want["K12"] if route == "tf32" else 0
@@ -4405,8 +4475,8 @@ def flash_fp32_bounds(B, nh, L, hd=64):
     return out
 
 
-def flash_fp32_case(device, name, B, nh, lengths, seed, label):
-    """Phase 11a at (B, nh, 384, 64) fp32 in the models' layout: route
+def flash_fp32_case(device, name, B, nh, lengths, seed, label, hd=64):
+    """Phase 11a at (B, nh, 384, hd) fp32 in the models' layout: route
     "tf32" of K11 and the rows kernel's fp32 route (di and 1 / l from K11's
     own o and l), route "tf32" of K12 and K13 (on the plain forward's l, m
     and di) against the fp32 plain versions (TF32 off): o, dq, dk and dv
@@ -4426,14 +4496,14 @@ def flash_fp32_case(device, name, B, nh, lengths, seed, label):
 
     from colbert_tpu_torch.ops import flash_attention as fa
 
-    L = 384
+    L, scale = 384, hd ** -0.5
     g = torch.Generator(device).manual_seed(seed)
 
     def heads():
-        return torch.randn((B, L, nh, 64), generator=g, device=device, dtype=torch.float32).transpose(1, 2)
+        return torch.randn((B, L, nh, hd), generator=g, device=device, dtype=torch.float32).transpose(1, 2)
     q, k, v, do = heads(), heads(), heads(), heads()
     seg = (torch.arange(L, device=device)[None, :] < torch.as_tensor(lengths, device=device)[:, None]).to(torch.int32)
-    args = (q, k, v, seg, seg, FLASH_SCALE)
+    args = (q, k, v, seg, seg, scale)
     before = read_counts()
     o, l, m = fa._launch_forward(*args)
     di, inv_l = fa._launch_rows(o, do, l)
@@ -4445,7 +4515,7 @@ def flash_fp32_case(device, name, B, nh, lengths, seed, label):
     want = fa.flash_backward_ref(*bargs)
     again = (*fa._launch_forward(*args), *fa._launch_dkv(*bargs), fa._launch_dq(*bargs))
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    out = fa.flash_attention(*leaves, seg, seg, FLASH_SCALE)
+    out = fa.flash_attention(*leaves, seg, seg, scale)
     out.backward(do)
     own = (*args, l, m, do, di)
     own_dk, own_dv = fa._launch_dkv(*own, inv_l=inv_l)
@@ -4455,11 +4525,12 @@ def flash_fp32_case(device, name, B, nh, lengths, seed, label):
     launched = {key: after[key] - before[key] for key in after
                 if key.startswith(("K11 ", "K12 ", "K13 ", "flash rows"))}
     want_launched = {key: 0 for key in launched} | {"K11 tf32 route": 3, "K12 tf32 route": 4, "K13 tf32 route": 4,
-                                                     "flash rows": 2, "flash rows fp32": 2}
+                                                     "flash rows": 2, "flash rows fp32": 2, f"K11 hd{hd}": 3,
+                                                     f"K12 hd{hd}": 4, f"K13 hd{hd}": 4}
     stable = all(torch.equal(a, b) for a, b in zip((o, l, m, dk, dv, dq), again))
     autograd_same = torch.equal(out, o) and all(torch.equal(t.grad, w)
                                                 for t, w in zip(leaves, (own_dq, own_dk, own_dv)))
-    res = {"shape": [B, nh, L, 64], "dtype": "float32", "lengths": [int(np.min(lengths)), int(np.max(lengths))],
+    res = {"shape": [B, nh, L, hd], "dtype": "float32", "lengths": [int(np.min(lengths)), int(np.max(lengths))],
            "bit_stable": stable, "autograd_same": autograd_same, "launched": launched}
     checked = (("o", o, ro), ("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2]))
     for what, got, ref in checked:
@@ -4469,7 +4540,7 @@ def flash_fp32_case(device, name, B, nh, lengths, seed, label):
     res["di"] = {"fp32_bound_share": di_within_fp32(di, o, do),
                  "card_order_equal": bool(torch.equal(di, fa.flash_di_card_order(o, do))),
                  "inv_l_equal": bool(torch.equal(inv_l, torch.ones_like(l) / l))}
-    log(f"[phase11a] {name} ({B}, {nh}, {L}, 64) fp32, lengths {res['lengths'][0]}-{res['lengths'][1]}, K11, K12 "
+    log(f"[phase11a] {name} ({B}, {nh}, {L}, {hd}) fp32, lengths {res['lengths'][0]}-{res['lengths'][1]}, K11, K12 "
         f"and K13 route tf32: bit-stable {stable}, autograd function equal "
         f"{autograd_same}; against the fp32 plain versions "
         + "; ".join(f"{w} {res[w]['head_rel']:.2e} of its head vector (max|d| {res[w]['max_abs_err']:.3e})"
@@ -4496,11 +4567,11 @@ def flash_fp32_case(device, name, B, nh, lengths, seed, label):
         runs["cold"].setdefault(key, []).append(time_ms(in_turn(cold_fn, xs), warmup=len(xs) + 2))
     for _ in range(3):
         timed("K11", lambda: fa._launch_forward(*args),
-              lambda x, i: fa._launch_forward(x[0], x[1], x[2], seg, seg, FLASH_SCALE), copies)
+              lambda x, i: fa._launch_forward(x[0], x[1], x[2], seg, seg, scale), copies)
         timed("K12", lambda: fa._launch_dkv(*own, inv_l=inv_l),
-              lambda x, i: fa._launch_dkv(x[0], x[1], x[2], seg, seg, FLASH_SCALE, l, m, x[3], di, inv_l=inv_l), copies)
+              lambda x, i: fa._launch_dkv(x[0], x[1], x[2], seg, seg, scale, l, m, x[3], di, inv_l=inv_l), copies)
         timed("K13", lambda: fa._launch_dq(*own, inv_l=inv_l),
-              lambda x, i: fa._launch_dq(x[0], x[1], x[2], seg, seg, FLASH_SCALE, l, m, x[3], di, inv_l=inv_l), copies)
+              lambda x, i: fa._launch_dq(x[0], x[1], x[2], seg, seg, scale, l, m, x[3], di, inv_l=inv_l), copies)
         timed("rows", lambda: fa._launch_rows(o, do, l), lambda x, i: fa._launch_rows(x[0], x[1], l), outs)
     hot, cold = ({key: float(np.median(t)) for key, t in runs[kind].items()} for kind in ("hot", "cold"))
 
@@ -4511,16 +4582,16 @@ def flash_fp32_case(device, name, B, nh, lengths, seed, label):
             fn(*leaves).backward(do)
         return run
     mask = (seg[:, :, None] == seg[:, None, :])[:, None]  # (B, 1, L, L) segment equality
-    sdpa = lambda a, b, c: F.scaled_dot_product_attention(a, b, c, attn_mask=mask, scale=FLASH_SCALE)
+    sdpa = lambda a, b, c: F.scaled_dot_product_attention(a, b, c, attn_mask=mask, scale=scale)
     with torch.no_grad():
         t_plain = time_ms(lambda: fa.flash_forward_ref(*args), iters=3, warmup=1)
         t_plain_bwd = time_ms(lambda: fa.flash_backward_ref(*bargs), iters=3, warmup=1)
         t_sdpa = time_ms(lambda: sdpa(q, k, v), iters=10, warmup=2)
-    t_flash_fb = time_ms(fwd_bwd(lambda a, b, c: fa.flash_attention(a, b, c, seg, seg, FLASH_SCALE)), iters=10,
+    t_flash_fb = time_ms(fwd_bwd(lambda a, b, c: fa.flash_attention(a, b, c, seg, seg, scale)), iters=10,
                          warmup=2)
     t_sdpa_fb = time_ms(fwd_bwd(sdpa), iters=10, warmup=2)
-    t_sdpa_bwd, sdpa_backend, sdpa_tried = sdpa_backward_alone(q, k, v, mask, do)
-    bounds = flash_fp32_bounds(B, nh, L)
+    t_sdpa_bwd, sdpa_backend, sdpa_tried = sdpa_backward_alone(q, k, v, mask, do, scale=scale)
+    bounds = flash_fp32_bounds(B, nh, L, hd)
     backward = cold["rows"] + cold["K12"] + cold["K13"]
     res.update({"ms": cold, "hot_ms": hot, "bound": bounds, "plain_ms": t_plain, "plain_backward_ms": t_plain_bwd,
                 "flash_fwd_bwd_ms": t_flash_fb, "sdpa_ms": t_sdpa, "sdpa_fwd_bwd_ms": t_sdpa_fb,
@@ -4602,6 +4673,18 @@ def phase_flash_fp32(device, workdir: Path, label, seed=SEED, shapes=None):
     if "ce" in shapes:
         out["ce"]["nan_check"] = flash_tf32_nan_check(device, "ce", *shapes["ce"], lengths["ce"], seed + 19)
     log(f"[phase11a] flash at fp32 checked and timed at {len(shapes)} shapes in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_flash_fp32_head_dims(device, workdir: Path, label, seed=SEED):
+    """Phase 11a at the head dims but 64: route "tf32" at 32 (the
+    MiniLM-L12-H384-width retriever's doc pass, (68, 12, 384, 32)) and at 128
+    ((68, 8, 384, 128)), the retriever's segment lengths."""
+    lengths = synthetic_doc_lengths(68, seed + 3, workdir)
+    t0 = time.perf_counter()
+    out = {hd: flash_fp32_case(device, f"hd{hd}", 68, nh, lengths, seed + 31 + hd, label, hd=hd)
+           for hd, nh in ((32, 12), (128, 8))}
+    log(f"[phase11a] flash at fp32 at head dims 32 and 128 checked and timed in {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -4938,6 +5021,113 @@ def phase_real_text(device, workdir: Path, label, max_modules=180, max_entries=1
             "python": sys.version.split()[0]}
 
 
+# ---- phase 12: a MiniLM-L12-H384-width retriever on flash at head dim 32 ----
+
+# microsoft/Multilingual-MiniLM-L12-H384's published config.json (the widths of
+# sentence-transformers/paraphrase-multilingual-MiniLM-L12-v2, a multilingual
+# retriever for Chinese among others): BertModel, post-LayerNorm, GELU;
+# hidden 384, 12 layers, 12 heads (head dim 32), intermediate 1536, 512
+# positions, type vocab 2, vocab 250,037, LayerNorm eps 1e-12.  The weights
+# are a seeded init; the tokenizer is the repo's WordPiece, whose ids use the
+# first rows of the vocab; the ColBERT projection keeps the hidden width.
+MINILM_MODEL = dict(vocab_size=250037, hidden_size=384, num_layers=12, num_heads=12, intermediate_size=1536,
+                    max_position_embeddings=512, type_vocab_size=2, layer_norm_eps=1e-12, dim=384)
+
+
+MINILM_LR = 1e-4  # phase 12's learning rate: at the default 3e-5, 5 steps moved its loss by less than the batches' spread
+
+
+def phase_minilm(device, workdir: Path, label, steps=9):
+    """Phase 12: the MiniLM-L12-H384-width retriever (``MINILM_MODEL``, bf16,
+    ``attention_impl="flash"``) through the entry points: the CLI's
+    ``train`` at batch 34 (phase 4's data, learning rate ``MINILM_LR``;
+    ``steps`` steps, evaluations, checkpoints and the resume, as phase 8b),
+    the loss finite and falling (the last three steps' mean under the first
+    three's, and the last step's under the first's);
+    ``encode`` of phase 2's 20,000-passage corpus; ``serve`` (flat) answering
+    phase 2's requests, checked as phase 2 checks them.  Every K11, K12 and
+    K13 launch is on route "wgmma" at head dim 32.  Logs ms/step, docs/s and
+    peak device memory."""
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.indexing.storage import IndexStorage
+    from colbert_tpu_torch.ranking.searcher import ColbertSearcher
+    from colbert_tpu_torch.serving.server import RetrievalClient
+
+    t_all = time.perf_counter()
+    flash = {**MINILM_MODEL, "attention_impl": "flash"}
+    hd = flash["hidden_size"] // flash["num_heads"]
+    (workdir / "train").mkdir()
+    (workdir / "serve").mkdir()
+    launches, train = phase_train(device, workdir / "train", label, model_kw=MINILM_MODEL, steps=steps,
+                                  attention_impl="flash", tag="phase12", train_kw={"learning_rate": MINILM_LR})
+    layers, n_dev, batch = flash["num_layers"], 40, 34
+    evals = len([s for s in range(1, steps + 1) if s % (steps // 2) == 0])
+    flash_launches_ok(launches, {"K11": layers * (steps + evals * -(-n_dev // batch)), "K12": layers * steps,
+                                 "K13": layers * steps}, "phase 12's train", head_dim=hd)
+    losses = train["losses"]
+    if not (sum(losses[-3:]) < sum(losses[:3]) and losses[-1] < losses[0]):
+        raise AssertionError(f"phase 12's train loss did not fall: {losses}")
+
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    corpus = encoded_corpus(device, workdir / "serve", label, model_kw=flash, tag="phase12")
+    torch.cuda.synchronize()
+    encoded = read_counts()
+    enc_peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    cfg, docs, n = corpus["cfg"], corpus["docs"], len(corpus["docs"])
+    parts, per = cfg.index.num_parts, cfg.index.encode_batch_size
+    batches = sum(-(-((p + 1) * n // parts - p * n // parts) // per) for p in range(parts))
+    flash_launches_ok(encoded, {"K11": layers * batches, "K12": 0, "K13": 0}, "phase 12's encode", head_dim=hd)
+    docs_s = n / corpus["enc_s"]
+
+    serve_err = []
+
+    def serve():
+        try:
+            cli.main(["serve", "--corpus", str(corpus["corpus_path"]), *corpus["common"]])
+        except BaseException as e:  # noqa: BLE001 -- reported by the main thread
+            serve_err.append(e)
+    server = threading.Thread(target=serve, daemon=True, name="serve-minilm")
+    server.start()
+    wait_for_server(cfg, serve_err)
+    client = RetrievalClient(cfg.serve.host, cfg.serve.port, cfg.serve.authkey.encode())
+    reset_counts()
+    answers, lat = [], []
+    for qs in corpus["requests"]:
+        t0 = time.perf_counter()
+        answers.append(client.retrieve(qs, topk=TOPK))
+        lat.append(time.perf_counter() - t0)
+    served = read_counts()
+    client.shutdown()
+    server.join(timeout=60)
+    if server.is_alive() or serve_err:
+        raise RuntimeError(f"server did not stop cleanly: {serve_err}")
+    searcher = ColbertSearcher(cfg, cli._tokenizer(cfg), corpus["model"], IndexStorage(cfg.index.index_path),
+                               device=device)
+    worst, recall = check_flat_answers(corpus["requests"], [[a] for a in answers], searcher, docs)
+    if worst > SCORE_ATOL or served["K1"] != len(corpus["requests"]):
+        raise AssertionError(f"phase 12's serve: scores off by {worst}, K1 launches {served['K1']}")
+    out = {"model": dict(MINILM_MODEL), "head_dim": hd, "train": {
+               "ms_step": train["ms_step"], "losses": losses, "peak_gb": train["peak_gb"],
+               "launches": {k: n for k, n in launches.items()
+                            if k in ("K11", "K12", "K13", "K9", "K3", "flash rows") or " hd" in k}},
+           "encode": {"docs_s": docs_s, "docs": n, "peak_gb": enc_peak_gb,
+                      "launches": {k: encoded[k] for k in ("K11", "K12", "K13")}},
+           "serve": {"request_ms": [1e3 * x for x in lat], "max_abs_err": worst, "recall": recall,
+                     "launches": served["K1"]},
+           "s": time.perf_counter() - t_all}
+    log(f"[phase12] MiniLM-L12-H384 width (hidden 384, 12 layers, 12 heads of {hd}), bf16, flash: train "
+        f"{train['ms_step']:.1f} ms/step at batch 34, losses {[round(x, 4) for x in losses]}, peak "
+        f"{train['peak_gb']:.2f} GB; encode {n} docs at {docs_s:.1f} docs/s, peak {enc_peak_gb:.2f} GB; serve "
+        f"{len(lat)} requests of {B} questions top-{TOPK} in {[round(1e3 * x, 1) for x in lat]} ms, scores vs the "
+        f"plain version max|d| {worst:.3e} (limit {SCORE_ATOL}), pid recall {recall:.4f} (information); launches "
+        f"train {out['train']['launches']}, encode {out['encode']['launches']}, serve K1 {served['K1']}; "
+        f"{out['s']:.1f} s [{label}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4946,6 +5136,8 @@ def main() -> int:
                     help="phase 10 alone (several devices), with the set-up it needs")
     ap.add_argument("--phase9", action="store_true",
                     help="phases 9b, 9d and 9a alone (ragged corpora, the host table), with the set-up they need")
+    ap.add_argument("--phase12", action="store_true",
+                    help="phase 12 and phases 8a and 11a at head dims 32 and 128 alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -4972,8 +5164,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    if args.phase10 or args.phase9:
-        out = {"phase10": phase10_alone(device, label)} if args.phase10 else {"phase9": phase9_alone(device, label)}
+    if args.phase10 or args.phase9 or args.phase12:
+        if args.phase12:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_minilm_") as tmp:
+                out = {"phase8a_head_dims": phase_flash_head_dims(device, Path(tmp), label),
+                       "phase11a_head_dims": phase_flash_fp32_head_dims(device, Path(tmp), label),
+                       "phase12": phase_minilm(device, Path(tmp), label)}
+        else:
+            out = {"phase10": phase10_alone(device, label)} if args.phase10 else {"phase9": phase9_alone(device, label)}
         log(label)
         log(json.dumps(out, default=str))
         log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4984,9 +5182,11 @@ def main() -> int:
     t8 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_flash_") as tmp:
         flash_kernels = phase_flash_kernels(device, Path(tmp), label)
+        flash_hd = phase_flash_head_dims(device, Path(tmp), label)
         t8 = time.perf_counter() - t8
         t11 = time.perf_counter()
         flash_fp32 = phase_flash_fp32(device, Path(tmp), label)
+        flash_fp32_hd = phase_flash_fp32_head_dims(device, Path(tmp), label)
         t11 = time.perf_counter() - t11
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         serve_launches, _, ann_launches, codec_launches, k7_deep, ctx = phase_slice(device, Path(tmp), label)
@@ -5018,6 +5218,8 @@ def main() -> int:
         remat = phase_remat(device, label, flash_train)
         t8 += time.perf_counter() - t0
     log(f"[phase8] the flash path and remat took {t8:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_minilm_") as tmp:
+        minilm = phase_minilm(device, Path(tmp), label)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ann_") as tmp:
         ann_kernels, ann_info = phase_ann(device, Path(tmp), label)
         sharded_ann = phase_sharded_ann(device, label, ann_info)
@@ -5218,8 +5420,7 @@ def main() -> int:
             kernels[-1]["di"] = {
                 "launches": flash_launches["flash rows"], "ms": fk["ms"]["rows"], "hot_ms": fk["hot_ms"]["rows"],
                 "flash_di_ms": fk["ms"]["flash_di"], "flash_di_hot_ms": fk["hot_ms"]["flash_di"],
-                "bound_ms": bound(0, 2 * fk["shape"][0] * fk["shape"][1] * 384 * 64 * 2
-                                  + 3 * fk["shape"][0] * fk["shape"][1] * 384 * 4, PEAK_BF16_FLOPS)[0],
+                "bound_ms": fk["bound"]["rows"][0],
                 "fp32_bound_share_by_shape": {s: r["di"]["fp32_bound_share"] for s, r in flash_kernels.items()},
                 "by_shape": {s: {"ms": flash_kernels[s]["ms"]["rows"], "flash_di_ms": flash_kernels[s]["ms"]["flash_di"]}
                              for s in timed_shapes}}
@@ -5260,12 +5461,53 @@ def main() -> int:
                 "bound_by": f32["bound"]["rows"][1],
                 "by_shape": {s: {"ms": r["ms"]["rows"], "bound_ms": r["bound"]["rows"][0]}
                              for s, r in flash_fp32.items()}}
+        kernels[-1]["by_head_dim"] = {str(hd): {
+            "shape": r["shape"], "ms": r["ms"][kname], "hot_ms": r["hot_ms"][kname], "bound_ms": kb(r)[0],
+            "bound_by": kb(r)[1], "plain_ms": r[plain], "library_ms": r[library],
+            "head_rel": max(r[w]["head_rel"] for w in what), "max_abs_err": max(r[w]["max_abs_err"] for w in what),
+            "launches": fp32_train["flash"]["launches"][f"{kname} hd{hd}"]}
+            | ({"rows_ms": r["ms"]["rows"], "rows_bound_ms": r["bound"]["rows"][0]} if kname == "K12" else {})
+            for hd, r in flash_fp32_hd.items()}
     kernels[-3]["fp32_train"] = fp32_train
     kernels[-6]["flash_train"] = {key: flash_train[key] for key in ("ms_step", "peak_gb", "losses")}
     kernels[-6]["flash_encode_docs_s"] = flash_encode["docs_s"]
     kernels[-6]["flash_ce"] = {key: flash_ce[key] for key in ("ms_step", "peak_gb")}
     kernels[-6]["remat_peak_gb"] = {k: r["peak_gb"] for k, r in remat.items()}
     kernels[-6]["explicit_repeat"] = {key: repeat[key] for key in ("losses", "parameters", "s")}
+    # K11-K13 by head dim, route "wgmma": 32 on phase 12's path (its train run's launches; its encode's
+    # beside), 128 in phase 8a only (no configuration the port ships has head dim 128: its train run counts 0)
+    bf16_flash = kernels[-6:-3]
+    for i, (kname, line, what) in enumerate((("K11", 758, ("o",)), ("K12", 1121, ("dk", "dv")),
+                                             ("K13", 1456, ("dq",)))):
+        plain, library = ("plain_ms", "sdpa_ms") if kname == "K11" else ("plain_backward_ms", "sdpa_backward_ms")
+        by_hd = {str(hd): {
+            "shape": r["shape"], "ms": r["ms"][kname], "bound_ms": r["bound"][kname][0],
+            "bound_by": r["bound"][kname][1], "plain_ms": r[plain], "library_ms": r[library],
+            "max_abs_err": max(x[w]["max_abs_err"] for w in what for x in (r, r["float16"])),
+            "head_ulps": {dt: max(x[w]["head_ulps"] for w in what) for dt, x in (("bfloat16", r),
+                                                                                  ("float16", r["float16"]))},
+            "launches": minilm["train"]["launches"][f"{kname} hd{hd}"]}
+            | ({"rows_ms": r["ms"]["rows"], "rows_bound_ms": r["bound"]["rows"][0]} if kname == "K12" else {})
+            for hd, r in flash_hd.items()}
+        bf16_flash[i]["by_head_dim"] = by_hd
+        r = flash_hd[32]
+        kernels.append({
+            "name": f"{bf16_flash[i]['name']}, head dim 32", "route": "cuda",
+            "source": "colbert_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line} (jax 0.9.0, head dim 32; "
+                        "reached from colbert_tpu/models/bert.py:185-193)",
+            "launches": by_hd["32"]["launches"], "max_abs_err": by_hd["32"]["max_abs_err"],
+            "ms": r["ms"][kname], "plain_ms": r[plain], "bound_ms": r["bound"][kname][0],
+            "bound_by": r["bound"][kname][1], "library_ms": r[library], "kernel_route": "wgmma", "head_dim": 32,
+            "shape": r["shape"], "head_ulps": by_hd["32"]["head_ulps"],
+            "encode_launches": minilm["encode"]["launches"][kname],
+            "library_call": "SDPA forward, boolean mask" if kname == "K11" else
+                            f"SDPA backward alone ({r['sdpa_backward_backend']})"})
+        if kname == "K12":
+            kernels[-1]["di"] = {"launches": minilm["train"]["launches"]["flash rows"], "ms": r["ms"]["rows"],
+                                 "bound_ms": r["bound"]["rows"][0], "bound_by": r["bound"]["rows"][1]}
+        if kname == "K11":
+            kernels[-1]["minilm"] = minilm
     log(json.dumps({"phase11": {"model_options": options, "dense": dense, "real_text": real_text, "s": t11}}))
     log(label)
     log(json.dumps({"kernels": kernels}))

@@ -61,7 +61,7 @@
 //        32 of the rows.
 // Details and bounds with its kernels below (namespace tf).
 //
-// Route "simple" (the first design, on request only): mma.sync m16n8k16
+// Route "simple" (the first design, on request only, head dim 64 alone): mma.sync m16n8k16
 // (bf16 or fp16, fp32 accumulators) on tiles in
 // shared memory with the 16-byte chunks of each 128-byte row XOR-swizzled by
 // the row (ldmatrix without bank conflicts), filled by cp.async two tiles
@@ -79,33 +79,40 @@
 //        walks the keys in 64-key tiles: S = Q K^T, dP = dO V^T, dQ += dS K.
 // di = rowsum(o * do) comes from the caller (outside the JAX kernels too).
 //
-// Route "wgmma" (every shape the kernels take): persistent blocks of
+// Route "wgmma" (every shape the kernels take), templated on the head dim
+// (32, 64 and 128; namespace wg's Tile says how a tile of each lies in
+// shared memory): persistent blocks of
 // consumer warpgroups and one producer warpgroup whose one thread feeds a
 // ring of tiles by TMA (4-D tensor maps over the heads-major views,
-// 128-byte swizzle) on mbarriers; setmaxnreg moves the producer's registers
+// 128-byte swizzle, 64-byte at head dim 32) on mbarriers; setmaxnreg moves the producer's registers
 // to the consumers; the products are wgmma with the B operand in shared
 // memory (K-major, or MN-major with the transpose bit for P V, P^T dO,
 // dS^T Q and dS K) and the A operand in registers; outputs leave through a
 // warp's 2 KB of shared memory as whole 128-byte rows.
 //   K11: 192 query rows a block where they tile Lq (three consumer
-//        warpgroups), else 128; Q loaded once a tile into A fragments; K, V
-//        and key segment ids 128 keys a stage, three stages.
+//        warpgroups; head dims 32 and 64), else 128; Q loaded once a tile
+//        into A fragments; K, V and key segment ids 128 keys a stage, three
+//        stages (four at hd 32, two at 128).
 //   K12: 128 keys a block (two consumer warpgroups), K and V in A fragments
-//        once a tile; Q, dO and the rows' m, 1 / l, di and segment ids 64
-//        queries a stage, eight stages; dV's and dK's products left running
-//        under the next stage's S^T and dP^T.
+//        once a tile (at hd 128 read from shared memory by each product);
+//        Q, dO and the rows' m, 1 / l, di and segment ids 64 queries a
+//        stage, eight stages (32 queries, six, at hd 128); dV's and dK's
+//        products left running under the next stage's S^T and dP^T.
 //   K13: 128 query rows a block (two consumer warpgroups); Q and dO in A
 //        fragments and the rows' m, 1 / l, di and segment ids in registers
 //        once a tile; K, V and key segment ids 64 keys a stage, eight
-//        stages; dQ's product left running under the next stage's S and dP.
+//        stages (32 keys, six, at hd 128); dQ's product left running under
+//        the next stage's S and dP.
 // The rows kernel (flash_bwd_rows_launch) gives route "wgmma" its inputs
 // once a row: di from o and do read once in their type, and 1 / l.
 // The backward is the JAX split: dK/dV over key blocks, dQ over query
 // blocks, each sum in one block's registers, no atomics, so two runs give
 // the same bits.  Layouts: each of q, k, v, o, do, dq, dk, dv is (B, nh, L,
-// 64) with its own (batch, head, row) strides in elements and unit stride
-// along the head dim, rows 16-byte aligned; segment ids (B, L) int32 and l,
-// m, di (B, nh, L) fp32 contiguous and 16-byte aligned.
+// hd), hd 32, 64 or 128 (the JAX kernel's other head dims, 80, 96, 256 and
+// those not a multiple of 16, are refused), with its own (batch, head, row)
+// strides in elements and unit stride along the head dim, rows 16-byte
+// aligned; segment ids (B, L) int32 and l, m, di (B, nh, L) fp32 contiguous
+// and 16-byte aligned.
 //
 // Bounds on the card (989 TFLOP/s bf16, 3.35 TB/s), at the retriever's doc
 // pass (68, 12, 384, 64) bf16: K11 reads q, k, v and writes o, 160 MB, 0.048
@@ -125,6 +132,7 @@
 
 #include <algorithm>
 #include <atomic>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -136,7 +144,7 @@
 
 namespace {
 
-constexpr int HD = 64;            // head dim
+constexpr int HD = 64;            // route "simple"'s one head dim
 constexpr int THREADS = 128;      // four warps of 16 rows
 constexpr int ROWS = 64;          // rows a block owns (queries in K11/K13, keys in K12)
 constexpr int FWD_TILE = 128;     // keys a K11 tile: the JAX kernel's block
@@ -647,28 +655,47 @@ using hopper::mbar_expect_tx;
 using hopper::mbar_init;
 using hopper::mbar_wait;
 using hopper::smem_u32;
-using hopper::sw128_desc;
 
-constexpr int KT = 128;                       // keys a K11 tile (the JAX block) and keys a K12 block
-constexpr int QT = 64;                        // queries a K12 tile
-constexpr int FWD_STAGES = 3;                 // K/V tiles in flight in K11
-constexpr int DKV_STAGES = 8;                 // Q/dO tiles in flight in K12
-constexpr int DQ_KT = 64;                     // keys a K13 tile
-constexpr int DQ_STAGES = 8;                  // K/V tiles in flight in K13
-constexpr uint32_t ROW = HD * 2;         // a row of 64 elements: one 128-byte swizzle row
-constexpr uint32_t WG_ROWS = 64 * ROW;   // a warpgroup's 64 rows
-constexpr uint32_t KV_BYTES = KT * ROW;  // a 128-row tile
-constexpr uint32_t QT_BYTES = QT * ROW;  // a 64-row tile
-constexpr uint32_t DQ_KV_BYTES = DQ_KT * ROW;  // a K13 key tile
-static_assert(WG_ROWS % 1024 == 0 && KV_BYTES % 1024 == 0 && QT_BYTES % 1024 == 0 && DQ_KV_BYTES % 1024 == 0,
-              "128-byte swizzle atoms are 1024-byte aligned");
+constexpr int KT = 128;  // keys a K11 tile (the JAX block) and keys a K12 block
 
-// A tile read as an MN-major B (V in O += P V, dO in dV += P^T dO, Q in dK
-// += dS^T Q: rows of 64 elements along N, one row a K index, 128-byte
-// swizzle) takes sw128_desc too: there SBO is the distance between 8-row
-// groups along K (1024 bytes) and LBO, the distance between 64-wide atoms
-// along N, is never used at N = 64.  The instruction's transpose bit tells
-// the two layouts apart; a k-step of 16 rows is 2048 bytes.
+// A tile of R rows of HD 2-byte elements as the tensor maps write it and
+// wgmma and ldmatrix read it.  A row is cut into atoms of SPAN bytes, one
+// swizzle row each: 128 bytes (64 elements) at head dims 64 and 128, 64 bytes
+// (the whole row) at 32; the tile is its atoms' R-row columns one after the
+// other (at 128 two, each a TMA box), and the 16-byte chunks of an atom row
+// are XOR-swizzled by the row as TMA's 128- or 64-byte swizzle places them
+// (address bits 4-6 by bits 7-9; bits 4-5 by bits 7-8).  8-row groups are
+// 8 SPAN bytes apart (the descriptors' SBO), so one descriptor form serves
+// K-major operands (a k-step of 16 elements 32 bytes on, the next atom R
+// SPAN bytes on) and MN-major ones (V, dO, Q, K as B with the transpose
+// bit: rows along K, a k-step 16 rows on; one wgmma an atom of N).
+template <int HD> struct Tile {
+  static_assert(HD == 32 || HD == 64 || HD == 128, "head dims 32, 64 and 128");
+  static constexpr uint32_t ROW = HD * 2;                // bytes a row
+  static constexpr uint32_t SPAN = HD == 32 ? 64 : 128;  // bytes an atom row: the swizzle span
+  static constexpr int ATOMS = ROW / SPAN;               // 2 at head dim 128, else 1
+  static constexpr int COLS = SPAN / 2;                  // elements an atom row: a TMA box's inner extent, a wgmma's N
+  static constexpr int CHUNKS = SPAN / 16;               // 16-byte chunks an atom row
+  static constexpr int KSTEPS = SPAN / 32;               // k-steps of 16 elements an atom row
+  static constexpr uint32_t MN_STEP = SPAN;              // 16 rows, in descriptor units (16 bytes)
+
+  // byte offset of 16-byte chunk c (0 .. HD / 8 - 1) of row r
+  static __device__ __forceinline__ uint32_t off(int R, int r, int c) {
+    const int key = SPAN == 128 ? (r & 7) : ((r >> 1) & 3);
+    return (c / CHUNKS) * R * SPAN + r * SPAN + (((c % CHUNKS) ^ key) << 4);
+  }
+  // wgmma shared-memory descriptor of the atom at `addr` (1024-byte aligned): SBO 8 SPAN, LBO unused
+  static __device__ __forceinline__ uint64_t desc(uint32_t addr) {
+    return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t((8 * SPAN) >> 4) << 32) |
+           (uint64_t(SPAN == 128 ? 1 : 2) << 62);
+  }
+  // k-step kk of a K-major R-row tile, added to its descriptor
+  static __device__ __forceinline__ uint32_t kstep(int R, int kk) {
+    return (kk / KSTEPS) * (R * SPAN / 16) + 2 * (kk % KSTEPS);
+  }
+  // atom a of an R-row tile, added to its descriptor
+  static __device__ __forceinline__ uint32_t atom(int R, int a) { return a * (R * SPAN / 16); }
+};
 
 // masked() as a select: s * scale, or MASK_VALUE where the key is not
 // visible.  The same bits: |s * scale| is far below half an ulp of
@@ -689,23 +716,26 @@ __device__ __forceinline__ float exp_p(float x) {
 }
 
 // One box of a 4-D tensor map (make_rows_map) into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, int c1, int c2, int c3,
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2, int c3,
                                           uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
       : "memory");
 }
 
-// Rows row .. row + box - 1 of head h, batch b: the map's dims are (64, nh, L, B)
-// when `heads_inner`, else (64, L, nh, B).
-__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, bool heads_inner, int h, int row,
-                                          int b, uint64_t* bar) {
-  if (heads_inner)
-    tma_load4(dst, map, h, row, b, bar);
-  else
-    tma_load4(dst, map, row, h, b, bar);
+// Rows row .. row + R - 1 of head h, batch b into an R-row tile, a box an
+// atom: the map's dims are (HD, nh, L, B) when `heads_inner`, else (HD, L, nh, B).
+template <int HD>
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, bool heads_inner, int R, int h,
+                                          int row, int b, uint64_t* bar) {
+#pragma unroll
+  for (int a = 0; a < Tile<HD>::ATOMS; ++a)
+    if (heads_inner)
+      tma_load4(dst + a * R * Tile<HD>::SPAN, map, a * Tile<HD>::COLS, h, row, b, bar);
+    else
+      tma_load4(dst + a * R * Tile<HD>::SPAN, map, a * Tile<HD>::COLS, row, h, b, bar);
 }
 
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) from global into
@@ -713,6 +743,14 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, 
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint64_t* bar) {
   asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
                ::"r"(dst), "l"(src), "r"(bytes), "r"(smem_u32(bar)) : "memory");
+}
+
+// The A fragment (16 rows from row0, k-step ks of 16) of an R-row tile at `tile`.
+template <int HD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const unsigned char* tile, int R, int row0, int ks,
+                                       int lane) {
+  const int row = row0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  ldsm_x4(a, smem_u32(tile + Tile<HD>::off(R, row, ks * 2 + (lane >> 4))));
 }
 
 // Keeps the compiler from moving reads or writes of a wgmma's accumulators
@@ -735,145 +773,176 @@ __device__ __forceinline__ void fence_a(uint32_t (&a)[N][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e]));
 }
 
-// d (+)= A[64 x 16] . B[16 x 64]: A from registers (the m16n8k16 A layout,
-// each warp its 16 rows), B MN-major in shared memory (rows of 64 along N,
-// 128-byte swizzle; the transpose bit set); scale_d = 0 overwrites d.
-#define WGMMA_RS64T_ASM(TY) \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), \
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), \
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), \
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]) \
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
-template <typename T> __device__ __forceinline__ void wgmma_rs64t(float (&d)[8][4], const uint32_t (&a)[4], uint64_t db, int scale_d);
-template <> __device__ __forceinline__ void wgmma_rs64t<__nv_bfloat16>(float (&d)[8][4], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  WGMMA_RS64T_ASM("bf16");
-}
-template <> __device__ __forceinline__ void wgmma_rs64t<__half>(float (&d)[8][4], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  WGMMA_RS64T_ASM("f16");
+// Accumulator j's registers as its own array of 8-column groups: columns
+// 8 j .. of the product's N, the accumulator of one wgmma of N 8 n.
+template <int n, int N>
+__device__ __forceinline__ float (&cols(float (&d)[N][4], int j))[n][4] {
+  return *reinterpret_cast<float(*)[n][4]>(&d[j]);
 }
 
-// d (+)= A[64 x 16] . B[128 x 16]^T: A from registers, B K-major in shared
-// memory (128-byte swizzle); scale_d = 0 overwrites d.
-#define WGMMA_RS128_ASM(TY) \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, " \
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n" \
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), \
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), \
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), \
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), \
-        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), \
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), \
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), \
-        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]) \
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
-template <typename T> __device__ __forceinline__ void wgmma_rs128(float (&d)[16][4], const uint32_t (&a)[4], uint64_t db, int scale_d);
-template <> __device__ __forceinline__ void wgmma_rs128<__nv_bfloat16>(float (&d)[16][4], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  WGMMA_RS128_ASM("bf16");
-}
-template <> __device__ __forceinline__ void wgmma_rs128<__half>(float (&d)[16][4], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  WGMMA_RS128_ASM("f16");
+#define WG_ACC16                                                                                                   \
+  "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]),         \
+      "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]),     \
+      "+f"(d[3][2]), "+f"(d[3][3])
+#define WG_ACC32                                                                                                   \
+  WG_ACC16, "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]),              \
+      "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]),     \
+      "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+#define WG_ACC64                                                                                                   \
+  WG_ACC32, "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]),              \
+      "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),               \
+      "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]),             \
+      "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),             \
+      "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]),             \
+      "+f"(d[15][2]), "+f"(d[15][3])
+#define WG_REG16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define WG_REG32                                                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "    \
+  "%23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_REG64                                                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, "    \
+  "%23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, " \
+  "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d (+)= A[64 x 16] . B: A from registers (the m16n8k16 A layout, each warp
+// its 16 rows); B in shared memory, K-major (B[N x 16]^T) or, with the
+// transpose bit, MN-major (B[16 x N]); scale_d = 0 overwrites d.
+#define WGMMA_RS_ASM(NS, TY, TRANS, REGS, A, D, S, ...)                                                          \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " S ", 0;\n"                                                     \
+               "wgmma.mma_async.sync.aligned.m64n" NS "k16.f32." TY "." TY " " REGS ", " A ", " D ", p, 1, 1, "  \
+               TRANS ";\n}\n"                                                                                     \
+               : __VA_ARGS__                                                                                      \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+#define WGMMA_RS_TYPES(NS, TRANS, REGS, A, D, S, ...)                   \
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)                   \
+    WGMMA_RS_ASM(NS, "bf16", TRANS, REGS, A, D, S, __VA_ARGS__);         \
+  else                                                                   \
+    WGMMA_RS_ASM(NS, "f16", TRANS, REGS, A, D, S, __VA_ARGS__)
+
+template <typename T, int N, int TRANS>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma N 32, 64 or 128");
+  if constexpr (N == 128 && TRANS) {
+    WGMMA_RS_TYPES("128", "1", WG_REG64, "{%64, %65, %66, %67}", "%68", "%69", WG_ACC64);
+  } else if constexpr (N == 128) {
+    WGMMA_RS_TYPES("128", "0", WG_REG64, "{%64, %65, %66, %67}", "%68", "%69", WG_ACC64);
+  } else if constexpr (N == 64 && TRANS) {
+    WGMMA_RS_TYPES("64", "1", WG_REG32, "{%32, %33, %34, %35}", "%36", "%37", WG_ACC32);
+  } else if constexpr (N == 64) {
+    WGMMA_RS_TYPES("64", "0", WG_REG32, "{%32, %33, %34, %35}", "%36", "%37", WG_ACC32);
+  } else if constexpr (TRANS) {
+    WGMMA_RS_TYPES("32", "1", WG_REG16, "{%16, %17, %18, %19}", "%20", "%21", WG_ACC16);
+  } else {
+    WGMMA_RS_TYPES("32", "0", WG_REG16, "{%16, %17, %18, %19}", "%20", "%21", WG_ACC16);
+  }
 }
 
-// d (+)= A[64 x 16] . B[64 x 16]^T: A from registers, B K-major in shared
-// memory (128-byte swizzle); scale_d = 0 overwrites d.
-#define WGMMA_RS64_ASM(TY) \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, " \
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n" \
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), \
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), \
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), \
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]) \
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
-template <typename T> __device__ __forceinline__ void wgmma_rs64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t db, int scale_d);
-template <> __device__ __forceinline__ void wgmma_rs64<__nv_bfloat16>(float (&d)[8][4], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  WGMMA_RS64_ASM("bf16");
-}
-template <> __device__ __forceinline__ void wgmma_rs64<__half>(float (&d)[8][4], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  WGMMA_RS64_ASM("f16");
-}
+// d (+)= A[64 x 16] . B[32 x 16]^T, A and B K-major in shared memory (K12 at
+// head dim 128, whose K and V rows do not fit its registers); scale_d = 0
+// overwrites d.
+#define WGMMA_SS32_ASM(TY)                                                                                       \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                                                       \
+               "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " WG_REG16 ", %16, %17, p, 1, 1, 0, 0;\n}\n" \
+               : WG_ACC16                                                                                         \
+               : "l"(da), "l"(db), "r"(scale_d))
 
+template <typename T>
+__device__ __forceinline__ void wgmma_ss32(float (&d)[4][4], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    WGMMA_SS32_ASM("bf16");
+  else
+    WGMMA_SS32_ASM("f16");
+}
 
 // ---- K11, route "wgmma" ----
 //
 // A block is NWG consumer warpgroups of 64 query rows (NWG = 3 where Lq is a
-// multiple of 192, else 2) and one producer warpgroup, persistent over
-// (query block, head, batch) tiles, the query blocks of a head adjacent.  The
-// producer's one thread loads the block's Q tile once a tile and keeps 128-key
-// K and V tiles with their segment ids in a ring of FWD_STAGES on mbarriers.
-// Each consumer takes its Q rows into A fragments (freeing the Q buffer for
-// the next tile), then per key tile: S = Q K^T by wgmma m64n128k16 (K from
-// shared memory), the mask and the online softmax on the accumulators, P
-// rounded into A fragments, P V by wgmma m64n64k16 (V as an MN-major B), and
-// the JAX combination; o leaves through shared memory, l and m from registers.
+// multiple of 192 and the head dim at most 64, else 2) and one producer
+// warpgroup, persistent over (query block, head, batch) tiles, the query
+// blocks of a head adjacent.  The producer's one thread loads the block's Q
+// tile once a tile and keeps 128-key K and V tiles with their segment ids in
+// a ring of STAGES on mbarriers.  Each consumer takes its Q rows into A
+// fragments (freeing the Q buffer for the next tile), then per key tile: S =
+// Q K^T by wgmma m64n128k16 (K from shared memory, hd / 16 k-steps), the mask
+// and the online softmax on the accumulators, P rounded into A fragments, P V
+// by wgmma m64nNk16 (V as an MN-major B, one wgmma an atom: N = hd at 32 and
+// 64, two of 64 at 128), and the JAX combination; o leaves through shared
+// memory, l and m from registers.  At head dim 128 a thread holds O and P V
+// (64 fp32 registers each) beside S: three consumer warpgroups' 160
+// registers cannot, so its blocks are 128 rows.
 
 // acc += pv / l_next: the JAX combination's second half (acc * (l_corr / l_next) came before P V).
-__device__ __forceinline__ void add_pv(float (&acc)[HD / 8][4], const float (&pv)[HD / 8][4], const float (&inv)[2]) {
+template <int N>
+__device__ __forceinline__ void add_pv(float (&acc)[N][4], const float (&pv)[N][4], const float (&inv)[2]) {
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j)
+  for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = __fadd_rn(acc[j][e], __fmul_rn(pv[j][e], inv[e >> 1]));
 }
 
 // A warp's 16 accumulator rows (rows g and g + 8 of lane g * 4 + q, as
 // store_rows has them) rounded to T at `out` (row stride `sl`) through the
-// warp's 2 KB of shared memory `stage`: each 128-byte row leaves as 8 lanes'
-// 16-byte stores, whole 32-byte sectors (store_rows' 4-byte stores leave
-// half sectors, 8 rows an instruction).  The 16-byte chunks of a staged row
-// are XOR-swizzled by the row, so neither side has bank conflicts.
-template <typename T>
+// warp's 32 hd bytes of shared memory `stage`: each row leaves as hd / 8
+// lanes' 16-byte stores, whole 32-byte sectors (store_rows' 4-byte stores
+// leave half sectors, 8 rows an instruction).  The 16-byte chunks of a
+// staged row are XOR-swizzled by the row, so neither side has bank conflicts.
+template <typename T, int HD>
 __device__ __forceinline__ void store_rows_staged(T* out, long long sl, const float (&c)[HD / 8][4], uint32_t* stage,
                                                   int lane) {
+  constexpr int CH = HD / 8, W = HD / 2;  // 16-byte chunks and 4-byte words a row
   const int g = lane >> 2, q = lane & 3;
   __syncwarp();  // the last call's reads are done
 #pragma unroll
-  for (int j = 0; j < HD / 8; ++j) {
-    stage[g * 32 + ((j ^ g) << 2) + q] = Type<T>::pack(c[j][0], c[j][1]);
-    stage[(g + 8) * 32 + ((j ^ g) << 2) + q] = Type<T>::pack(c[j][2], c[j][3]);
+  for (int j = 0; j < CH; ++j) {
+    stage[g * W + ((j ^ (g & (CH - 1))) << 2) + q] = Type<T>::pack(c[j][0], c[j][1]);
+    stage[(g + 8) * W + ((j ^ (g & (CH - 1))) << 2) + q] = Type<T>::pack(c[j][2], c[j][3]);
   }
   __syncwarp();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int chunk = lane + 32 * i, r = chunk >> 3, ch = chunk & 7;
+  for (int i = 0; i < CH / 2; ++i) {
+    const int chunk = lane + 32 * i, r = chunk / CH, ch = chunk % CH;
     *reinterpret_cast<uint4*>(out + r * sl + ch * 8) =
-        *reinterpret_cast<const uint4*>(stage + r * 32 + ((ch ^ (r & 7)) << 2));
+        *reinterpret_cast<const uint4*>(stage + r * W + ((ch ^ (r & 7 & (CH - 1))) << 2));
   }
 }
 
-template <int NWG> struct Fwd {
+template <int HD, int NWG> struct Fwd {
+  using L = Tile<HD>;
   static constexpr int ROWS_BLK = NWG * 64;
-  static constexpr uint32_t smem = 1024 + NWG * WG_ROWS + FWD_STAGES * (2 * KV_BYTES + KT * 4) + NWG * 4 * 2048;
+  static constexpr int STAGES = HD == 128 ? 2 : HD == 64 ? 3 : 4;  // K/V tiles in flight
+  static constexpr uint32_t Q_BYTES = ROWS_BLK * L::ROW;
+  static constexpr uint32_t KV_BYTES = KT * L::ROW;  // a 128-row tile
+  static constexpr uint32_t OUT = 16 * L::ROW;       // a warp's output rows
+  static constexpr uint32_t smem = 1024 + Q_BYTES + STAGES * (2 * KV_BYTES + KT * 4) + NWG * 4 * OUT;
 };
-static_assert(Fwd<3>::smem <= 232448 - 128, "K11's ring must fit a block's shared memory");
+static_assert(Fwd<32, 3>::smem <= 232448 - 128 && Fwd<64, 3>::smem <= 232448 - 128 &&
+                  Fwd<128, 2>::smem <= 232448 - 128,
+              "K11's ring must fit a block's shared memory");
 
-template <typename T, int NWG>
+template <typename T, int HD, int NWG>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                        const __grid_constant__ CUtensorMap map_v, int heads_inner, T* __restrict__ O, View vo,
                        const int* __restrict__ qseg, const int* __restrict__ kvseg, float* __restrict__ l_out,
                        float* __restrict__ m_out, int nh, int Lq, int Lk, int n_tiles, float scale) {
-  constexpr int ROWS_BLK = Fwd<NWG>::ROWS_BLK;
+  using C = Fwd<HD, NWG>;
+  using L = Tile<HD>;
+  constexpr int ROWS_BLK = C::ROWS_BLK, STAGES = C::STAGES, NA = L::COLS;  // NA: P V's N a wgmma
+  static_assert(HD <= 64 || NWG == 2, "at head dim 128 a consumer needs setmaxnreg's 232 registers");
   extern __shared__ unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t full[FWD_STAGES], empty[FWD_STAGES], q_full, q_empty;
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], q_full, q_empty;
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sq = (raw + 1023u) & ~1023u;               // Q: NWG x 64 rows
-  const uint32_t skv = sq + NWG * WG_ROWS;                  // [stage][K, V]
-  const uint32_t sseg = skv + FWD_STAGES * 2 * KV_BYTES;    // [stage][128] key segment ids
+  const uint32_t skv = sq + C::Q_BYTES;                     // [stage][K, V]
+  const uint32_t sseg = skv + STAGES * 2 * C::KV_BYTES;     // [stage][128] key segment ids
   const int* const seg_base = reinterpret_cast<const int*>(smem_raw + (sseg - raw));
-  // [warp][2 KB] for the output rows
-  uint32_t* const out_stage = reinterpret_cast<uint32_t*>(smem_raw + (sseg + FWD_STAGES * KT * 4 - raw));
+  // [warp][16 rows] for the output rows
+  uint32_t* const out_stage = reinterpret_cast<uint32_t*>(smem_raw + (sseg + STAGES * KT * 4 - raw));
   const int n_qb = Lq / ROWS_BLK, n_kt = Lk / KT;
 
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < FWD_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);          // the producer's expect_tx
       mbar_init(&empty[s], NWG * 4);   // every consumer warp
     }
@@ -896,16 +965,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
         const int qb = t % n_qb, h = (t / n_qb) % nh, b = t / (n_qb * nh);
         mbar_wait(&q_empty, q_phase ^ 1);
         q_phase ^= 1;
-        mbar_expect_tx(&q_full, NWG * WG_ROWS);
-        load_rows(sq, &map_q, heads_inner & 1, h, qb * ROWS_BLK, b, &q_full);
+        mbar_expect_tx(&q_full, C::Q_BYTES);
+        load_rows<HD>(sq, &map_q, heads_inner & 1, ROWS_BLK, h, qb * ROWS_BLK, b, &q_full);
         for (int kt = 0; kt < n_kt; ++kt) {
           mbar_wait(&empty[stage], phase ^ 1);
-          mbar_expect_tx(&full[stage], 2 * KV_BYTES + KT * 4);
-          const uint32_t st = skv + stage * 2 * KV_BYTES;
-          load_rows(st, &map_k, heads_inner & 2, h, kt * KT, b, &full[stage]);
-          load_rows(st + KV_BYTES, &map_v, heads_inner & 4, h, kt * KT, b, &full[stage]);
+          mbar_expect_tx(&full[stage], 2 * C::KV_BYTES + KT * 4);
+          const uint32_t st = skv + stage * 2 * C::KV_BYTES;
+          load_rows<HD>(st, &map_k, heads_inner & 2, KT, h, kt * KT, b, &full[stage]);
+          load_rows<HD>(st + C::KV_BYTES, &map_v, heads_inner & 4, KT, h, kt * KT, b, &full[stage]);
           bulk_load(sseg + stage * KT * 4, kvseg + (long long)b * Lk + kt * KT, KT * 4, &full[stage]);
-          if (++stage == FWD_STAGES) {
+          if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
           }
@@ -920,7 +989,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
       asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     const int wgi = threadIdx.x / 128, lane = threadIdx.x % 32, qd = lane & 3;
     const int row = wgi * 64 + (threadIdx.x % 128) / 32 * 16 + (lane >> 2);  // rows row and row + 8 of the block
-    const T* const q_rows = reinterpret_cast<const T*>(smem_raw + (sq - raw)) + wgi * 64 * HD;  // its Q rows
+    const unsigned char* const q_tile = smem_raw + (sq - raw);
     int stage = 0;
     uint32_t phase = 0, q_phase = 0;
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
@@ -938,18 +1007,19 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
       zero(s);
       zero(pv);
 #pragma unroll
-      for (int ks = 0; ks < HD / 16; ++ks) load_a(qf[ks], q_rows, (threadIdx.x % 128) / 32 * 16, ks, lane);
+      for (int ks = 0; ks < HD / 16; ++ks)
+        load_a<HD>(qf[ks], q_tile + wgi * 64 * L::SPAN, ROWS_BLK, (threadIdx.x % 128) / 32 * 16, ks, lane);
       if (lane == 0) mbar_arrive(&q_empty);  // this warp is done with the Q tile
       for (int kt = 0; kt < n_kt; ++kt) {
         mbar_wait(&full[stage], phase);
-        const uint32_t ka = skv + stage * 2 * KV_BYTES, va = ka + KV_BYTES;
+        const uint32_t ka = skv + stage * 2 * C::KV_BYTES, va = ka + C::KV_BYTES;
         const int* st = seg_base + stage * KT;
 
         fence_acc(s);
         fence_a(qf);
         hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) wgmma_rs128<T>(s, qf[kk], sw128_desc(ka) + 2 * kk, kk);
+        for (int kk = 0; kk < HD / 16; ++kk) wgmma_rs<T, KT, 0>(s, qf[kk], L::desc(ka) + L::kstep(KT, kk), kk);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         fence_acc(s);
@@ -1011,21 +1081,25 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
         fence_a(pa);
         hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < KT / 16; ++kk) wgmma_rs64t<T>(pv, pa[kk], sw128_desc(va) + 128 * kk, kk);
+        for (int a = 0; a < L::ATOMS; ++a)
+#pragma unroll
+          for (int kk = 0; kk < KT / 16; ++kk)
+            wgmma_rs<T, NA, 1>(cols<NA / 8>(pv, a * NA / 8), pa[kk], L::desc(va) + L::atom(KT, a) + L::MN_STEP * kk,
+                               kk);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         fence_acc(pv);
         fence_a(pa);
         if (lane == 0) mbar_arrive(&empty[stage]);  // this warp is done with K and V
         add_pv(acc, pv, inv);
-        if (++stage == FWD_STAGES) {
+        if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
         }
       }
       const int row0 = row - (lane >> 2);  // this warp's first row
-      store_rows_staged<T>(O + b * vo.sb + h * vo.sh + (long long)(q0 + row0) * vo.sl, vo.sl, acc,
-                           out_stage + threadIdx.x / 32 * 512, lane);
+      store_rows_staged<T, HD>(O + b * vo.sb + h * vo.sh + (long long)(q0 + row0) * vo.sl, vo.sl, acc,
+                               out_stage + threadIdx.x / 32 * (C::OUT / 4), lane);
       if (qd == 0) {
         const long long i = ((long long)b * nh + h) * Lq + q0 + row;
         l_out[i] = l_run[0];
@@ -1042,21 +1116,35 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
 // A block is two consumer warpgroups of 64 keys (128, one JAX key block) and
 // one producer warpgroup, persistent over (key block, head, batch) tiles.
 // The producer's one thread loads each tile's K and V rows and keeps
-// 64-query Q and dO tiles with m, 1 / l, di and the query segment ids in a
-// ring of DKV_STAGES.  Each consumer takes its K and V rows into registers
-// as A fragments (freeing their buffer for the next tile at once), then for
-// each query tile: S^T = K Q^T and dP^T = V dO^T by wgmma m64n64k16 (Q and
-// dO as K-major B), committed apart; p from S^T while dP^T runs, then dV +=
-// P^T dO (P^T in registers, dO as MN-major B) issued; ds from dP^T while dV
-// runs, then dK += dS^T Q issued, and left running under the next tile's
-// S^T and dP^T.  dK and dV stay in registers over the queries (no atomics)
-// and leave through shared memory as whole rows.
+// QT-query Q and dO tiles with m, 1 / l, di and the query segment ids in a
+// ring of STAGES.  Each consumer takes its K and V rows into registers as A
+// fragments (freeing their buffer for the next tile at once), then for each
+// query tile: S^T = K Q^T and dP^T = V dO^T by wgmma m64nQTk16 (Q and dO as
+// K-major B), committed apart; p from S^T while dP^T runs, then dV += P^T dO
+// (P^T in registers, dO as MN-major B, a wgmma an atom of the head dim)
+// issued; ds from dP^T while dV runs, then dK += dS^T Q issued, and left
+// running under the next tile's S^T and dP^T.  dK and dV stay in registers
+// over the queries (no atomics) and leave through shared memory as whole
+// rows.  At head dim 128, dK and dV alone take 128 fp32 registers a thread:
+// K and V stay in shared memory for the tile as wgmma's A operand (the
+// buffer freed at the tile's end), and the query tiles are 32 rows (S^T and
+// dP^T 16 registers each), 6 deep.
 
-constexpr uint32_t DKV_ROWS_BYTES = 4 * QT * 4;   // a tile's m, 1 / l, di, segment ids
-constexpr uint32_t DKV_SMEM = 1024 + 2 * KV_BYTES + DKV_STAGES * (2 * QT_BYTES + DKV_ROWS_BYTES) + 8 * 2048;
-static_assert(DKV_SMEM <= 232448 - 128, "K12's ring must fit a block's shared memory");
+template <int HD> struct Dkv {
+  using L = Tile<HD>;
+  static constexpr int QT = HD == 128 ? 32 : 64;       // queries a tile
+  static constexpr int STAGES = HD == 128 ? 6 : 8;     // Q/dO tiles in flight
+  static constexpr bool SS = HD == 128;                // K and V read from shared memory by each product
+  static constexpr uint32_t KV_BYTES = KT * L::ROW;
+  static constexpr uint32_t QT_BYTES = QT * L::ROW;
+  static constexpr uint32_t ROWS_BYTES = 4 * QT * 4;   // a tile's m, 1 / l, di, segment ids
+  static constexpr uint32_t OUT = 16 * L::ROW;
+  static constexpr uint32_t smem = 1024 + 2 * KV_BYTES + STAGES * (2 * QT_BYTES + ROWS_BYTES) + 8 * OUT;
+};
+static_assert(Dkv<32>::smem <= 232448 - 128 && Dkv<64>::smem <= 232448 - 128 && Dkv<128>::smem <= 232448 - 128,
+              "K12's ring must fit a block's shared memory");
 
-template <typename T>
+template <typename T, int HD>
 __global__ void __launch_bounds__(384, 1)
 flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                        const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
@@ -1064,19 +1152,22 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
                        const float* __restrict__ inv_l, const float* __restrict__ m_in,
                        const float* __restrict__ di_in, T* __restrict__ dK, T* __restrict__ dV, View vdk, View vdv,
                        int nh, int Lq, int Lk, int n_tiles, float scale) {
+  using C = Dkv<HD>;
+  using L = Tile<HD>;
+  constexpr int QT = C::QT, STAGES = C::STAGES, NA = L::COLS, KF = C::SS ? 1 : HD / 16;
   extern __shared__ unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t full[DKV_STAGES], empty[DKV_STAGES], kv_full, kv_empty;
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], kv_full, kv_empty;
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t skv = (raw + 1023u) & ~1023u;                 // K, V: 128 rows each
-  const uint32_t sqo = skv + 2 * KV_BYTES;                     // [stage][Q, dO]
-  const uint32_t srows = sqo + DKV_STAGES * 2 * QT_BYTES;      // [stage][m, 1 / l, di, seg][64]
+  const uint32_t sqo = skv + 2 * C::KV_BYTES;                  // [stage][Q, dO]
+  const uint32_t srows = sqo + STAGES * 2 * C::QT_BYTES;       // [stage][m, 1 / l, di, seg][QT]
   const float* const rows_base = reinterpret_cast<const float*>(smem_raw + (srows - raw));
-  uint32_t* const out_stage = reinterpret_cast<uint32_t*>(smem_raw + (srows + DKV_STAGES * DKV_ROWS_BYTES - raw));
+  uint32_t* const out_stage = reinterpret_cast<uint32_t*>(smem_raw + (srows + STAGES * C::ROWS_BYTES - raw));
   const int n_kb = Lk / KT, n_qt = Lq / QT;
 
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < DKV_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 2 * 4);
     }
@@ -1097,20 +1188,20 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
         const long long rows0 = ((long long)b * nh + h) * Lq;
         mbar_wait(&kv_empty, kv_phase ^ 1);
         kv_phase ^= 1;
-        mbar_expect_tx(&kv_full, 2 * KV_BYTES);
-        load_rows(skv, &map_k, heads_inner & 2, h, kb * KT, b, &kv_full);
-        load_rows(skv + KV_BYTES, &map_v, heads_inner & 4, h, kb * KT, b, &kv_full);
+        mbar_expect_tx(&kv_full, 2 * C::KV_BYTES);
+        load_rows<HD>(skv, &map_k, heads_inner & 2, KT, h, kb * KT, b, &kv_full);
+        load_rows<HD>(skv + C::KV_BYTES, &map_v, heads_inner & 4, KT, h, kb * KT, b, &kv_full);
         for (int qt = 0; qt < n_qt; ++qt) {
           mbar_wait(&empty[stage], phase ^ 1);
-          mbar_expect_tx(&full[stage], 2 * QT_BYTES + DKV_ROWS_BYTES);
-          const uint32_t st = sqo + stage * 2 * QT_BYTES, rt = srows + stage * DKV_ROWS_BYTES;
-          load_rows(st, &map_q, heads_inner & 1, h, qt * QT, b, &full[stage]);
-          load_rows(st + QT_BYTES, &map_do, heads_inner & 8, h, qt * QT, b, &full[stage]);
+          mbar_expect_tx(&full[stage], 2 * C::QT_BYTES + C::ROWS_BYTES);
+          const uint32_t st = sqo + stage * 2 * C::QT_BYTES, rt = srows + stage * C::ROWS_BYTES;
+          load_rows<HD>(st, &map_q, heads_inner & 1, QT, h, qt * QT, b, &full[stage]);
+          load_rows<HD>(st + C::QT_BYTES, &map_do, heads_inner & 8, QT, h, qt * QT, b, &full[stage]);
           bulk_load(rt, m_in + rows0 + qt * QT, QT * 4, &full[stage]);
           bulk_load(rt + QT * 4, inv_l + rows0 + qt * QT, QT * 4, &full[stage]);
           bulk_load(rt + 2 * QT * 4, di_in + rows0 + qt * QT, QT * 4, &full[stage]);
           bulk_load(rt + 3 * QT * 4, qseg + (long long)b * Lq + qt * QT, QT * 4, &full[stage]);
-          if (++stage == DKV_STAGES) {
+          if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
           }
@@ -1122,8 +1213,9 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     const int wgi = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32, qd = lane & 3;
     const int key = wgi * 64 + warp * 16 + (lane >> 2);  // keys key and key + 8 of the block
-    const T* const k_rows = reinterpret_cast<const T*>(smem_raw + (skv - raw)) + wgi * 64 * HD;  // its K rows
-    const T* const v_rows = k_rows + KT * HD;                                                       // its V rows
+    const unsigned char* const kv_tile = smem_raw + (skv - raw);
+    // its K and V rows as wgmma's A operand in shared memory (C::SS): descriptors of k-step 0
+    const uint64_t k_desc = L::desc(skv) + wgi * (64 * L::SPAN / 16), v_desc = k_desc + C::KV_BYTES / 16;
     int stage = 0;
     uint32_t phase = 0, kv_phase = 0;
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
@@ -1131,26 +1223,28 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
       const int k0 = kb * KT;
       const int kseg0 = kvseg[(long long)b * Lk + k0 + key], kseg1 = kvseg[(long long)b * Lk + k0 + key + 8];
       float dk[HD / 8][4], dv[HD / 8][4], p[QT / 8][4], ds[QT / 8][4];  // p: S^T, then P^T; ds: dP^T, then dS^T
-      uint32_t kf[HD / 16][4], vf[HD / 16][4], ap[QT / 16][4] = {}, as[QT / 16][4] = {};
+      uint32_t kf[KF][4], vf[KF][4], ap[QT / 16][4] = {}, as[QT / 16][4] = {};
       zero(dk);
       zero(dv);
       zero(p);
       zero(ds);
       mbar_wait(&kv_full, kv_phase);
       kv_phase ^= 1;
+      if constexpr (!C::SS) {
 #pragma unroll
-      for (int ks = 0; ks < HD / 16; ++ks) {
-        load_a(kf[ks], k_rows, warp * 16, ks, lane);
-        load_a(vf[ks], v_rows, warp * 16, ks, lane);
+        for (int ks = 0; ks < HD / 16; ++ks) {
+          load_a<HD>(kf[ks], kv_tile + wgi * 64 * L::SPAN, KT, warp * 16, ks, lane);
+          load_a<HD>(vf[ks], kv_tile + C::KV_BYTES + wgi * 64 * L::SPAN, KT, warp * 16, ks, lane);
+        }
+        if (lane == 0) mbar_arrive(&kv_empty);  // this warp is done with the K and V buffer
       }
-      if (lane == 0) mbar_arrive(&kv_empty);  // this warp is done with the K and V buffer
       int prev = -1;
       for (int qt = 0; qt < n_qt; ++qt) {
         mbar_wait(&full[stage], phase);
-        const uint32_t qa = sqo + stage * 2 * QT_BYTES, oa = qa + QT_BYTES;
-        // B operands' descriptors; a k-step advances one by 32 bytes (K-major, + 2) or 16 rows (MN-major, + 128)
-        const uint64_t dq = sw128_desc(qa), dout = sw128_desc(oa);
-        const float* mt = rows_base + stage * (DKV_ROWS_BYTES / 4);
+        const uint32_t qa = sqo + stage * 2 * C::QT_BYTES, oa = qa + C::QT_BYTES;
+        // B operands' descriptors; a k-step advances one by 32 bytes (K-major) or 16 rows (MN-major)
+        const uint64_t dq = L::desc(qa), dout = L::desc(oa);
+        const float* mt = rows_base + stage * (C::ROWS_BYTES / 4);
         const float* it = mt + QT;
         const float* dt = mt + 2 * QT;
         const int* segt = reinterpret_cast<const int*>(mt + 3 * QT);
@@ -1160,11 +1254,20 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
         fence_a(kf);
         fence_a(vf);
         hopper::wgmma_fence();
+        if constexpr (C::SS) {
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) wgmma_rs64<T>(p, kf[kk], dq + 2 * kk, kk);
-        hopper::wgmma_commit();
+          for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss32<T>(p, k_desc + L::kstep(KT, kk), dq + L::kstep(QT, kk), kk);
+          hopper::wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) wgmma_rs64<T>(ds, vf[kk], dout + 2 * kk, kk);
+          for (int kk = 0; kk < HD / 16; ++kk)
+            wgmma_ss32<T>(ds, v_desc + L::kstep(KT, kk), dout + L::kstep(QT, kk), kk);
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk) wgmma_rs<T, QT, 0>(p, kf[kk], dq + L::kstep(QT, kk), kk);
+          hopper::wgmma_commit();
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk) wgmma_rs<T, QT, 0>(ds, vf[kk], dout + L::kstep(QT, kk), kk);
+        }
         hopper::wgmma_commit();
         hopper::wgmma_wait<1>();  // S^T, and the last tile's dV and dK
         fence_acc(p);
@@ -1192,7 +1295,10 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
         fence_a(ap);
         hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < QT / 16; ++kk) wgmma_rs64t<T>(dv, ap[kk], dout + 128 * kk, 1);
+        for (int a = 0; a < L::ATOMS; ++a)
+#pragma unroll
+          for (int kk = 0; kk < QT / 16; ++kk)
+            wgmma_rs<T, NA, 1>(cols<NA / 8>(dv, a * NA / 8), ap[kk], dout + L::atom(QT, a) + L::MN_STEP * kk, 1);
         hopper::wgmma_commit();
         hopper::wgmma_wait<1>();  // dP^T
         fence_acc(ds);
@@ -1211,10 +1317,13 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
         fence_a(as);
         hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < QT / 16; ++kk) wgmma_rs64t<T>(dk, as[kk], dq + 128 * kk, 1);
+        for (int a = 0; a < L::ATOMS; ++a)
+#pragma unroll
+          for (int kk = 0; kk < QT / 16; ++kk)
+            wgmma_rs<T, NA, 1>(cols<NA / 8>(dk, a * NA / 8), as[kk], dq + L::atom(QT, a) + L::MN_STEP * kk, 1);
         hopper::wgmma_commit();
         prev = stage;
-        if (++stage == DKV_STAGES) {
+        if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
         }
@@ -1224,11 +1333,14 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
       fence_acc(dv);
       fence_a(ap);
       fence_a(as);
-      if (lane == 0) mbar_arrive(&empty[prev]);
+      if (lane == 0) {
+        mbar_arrive(&empty[prev]);
+        if constexpr (C::SS) mbar_arrive(&kv_empty);  // this warp's products are done with K and V
+      }
       const int key0 = k0 + key - (lane >> 2);  // this warp's first key
-      uint32_t* const own = out_stage + threadIdx.x / 32 * 512;
-      store_rows_staged<T>(dK + b * vdk.sb + h * vdk.sh + (long long)key0 * vdk.sl, vdk.sl, dk, own, lane);
-      store_rows_staged<T>(dV + b * vdv.sb + h * vdv.sh + (long long)key0 * vdv.sl, vdv.sl, dv, own, lane);
+      uint32_t* const own = out_stage + threadIdx.x / 32 * (C::OUT / 4);
+      store_rows_staged<T, HD>(dK + b * vdk.sb + h * vdk.sh + (long long)key0 * vdk.sl, vdk.sl, dk, own, lane);
+      store_rows_staged<T, HD>(dV + b * vdv.sb + h * vdv.sh + (long long)key0 * vdv.sl, vdv.sl, dv, own, lane);
     }
   }
 }
@@ -1240,56 +1352,66 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
 // blocks of a head adjacent (so its K and V are read from device memory
 // once and then from L2).  The
 // producer's one thread loads each tile's Q and dO rows with their m, 1 / l
-// (from the rows kernel), di and segment ids once, and keeps 64-key K and V
-// tiles with their segment ids in a ring of DQ_STAGES.  Each consumer takes
+// (from the rows kernel), di and segment ids once, and keeps KT-key K and V
+// tiles with their segment ids in a ring of STAGES.  Each consumer takes
 // its Q and dO rows into A fragments and its rows' m, 1 / l, di and segment
 // ids into registers (freeing the tile's buffer for the next tile at once),
-// then per key tile: S = Q K^T and dP = dO V^T by wgmma m64n64k16 (K and V
+// then per key tile: S = Q K^T and dP = dO V^T by wgmma m64nKTk16 (K and V
 // as K-major B), committed apart; p from S while dP runs; ds from dP and p,
 // rounded into A fragments; dQ += dS K (K as MN-major B, the transpose bit
-// set) issued and left running under the next tile's S and dP.  dQ stays in
+// set, a wgmma an atom of the head dim) issued and left running under the
+// next tile's S and dP.  dQ stays in
 // registers over the keys (no atomics) and leaves through shared memory as
-// whole rows.  Key tiles of 64, not the JAX block's 128: at 128 keys S and
-// dP hold 128 fp32 accumulators a thread and dS 32 A registers, with dQ and
-// the Q and dO fragments 224 live, past the 232 setmaxnreg leaves a consumer
-// once addresses and loop state are counted.  Two consumer warpgroups, not
-// K11's three (192 rows where they tile Lq): at three, setmaxnreg leaves 160
-// registers, ptxas serialised the wgmmas for want of them, and the kernel
-// ran 6% slower (PERF.md §6).
+// whole rows.  Key tiles of 64 (32 at head dim 128), not the JAX block's
+// 128: at 128 keys S and dP hold 128 fp32 accumulators a thread and dS 32 A
+// registers, with dQ and the Q and dO fragments 224 live at head dim 64,
+// past the 232 setmaxnreg leaves a consumer once addresses and loop state
+// are counted; at head dim 128 dQ and the fragments alone take 128.  Two
+// consumer warpgroups, not K11's three (192 rows where they tile Lq): at
+// three, setmaxnreg leaves 160 registers, ptxas serialised the wgmmas for
+// want of them, and the kernel ran 6% slower (PERF.md §6).
 
-struct Dq {
+template <int HD> struct Dq {
+  using L = Tile<HD>;
   static constexpr int NWG = 2;                             // consumer warpgroups
   static constexpr int ROWS_BLK = NWG * 64;
+  static constexpr int KT = HD == 128 ? 32 : 64;            // keys a tile
+  static constexpr int STAGES = HD == 128 ? 6 : 8;          // K/V tiles in flight
+  static constexpr uint32_t Q_BYTES = ROWS_BLK * L::ROW;
+  static constexpr uint32_t KV_BYTES = KT * L::ROW;
   static constexpr uint32_t ROWS_BYTES = 4 * ROWS_BLK * 4;  // a tile's m, 1 / l, di, segment ids
-  static constexpr uint32_t smem = 1024 + 2 * NWG * WG_ROWS + DQ_STAGES * (2 * DQ_KV_BYTES + DQ_KT * 4) +
-                                   ROWS_BYTES + NWG * 4 * 2048;
+  static constexpr uint32_t OUT = 16 * L::ROW;
+  static constexpr uint32_t smem = 1024 + 2 * Q_BYTES + STAGES * (2 * KV_BYTES + KT * 4) + ROWS_BYTES + NWG * 4 * OUT;
 };
-static_assert(Dq::smem <= 232448 - 128, "K13's ring must fit a block's shared memory");
+static_assert(Dq<32>::smem <= 232448 - 128 && Dq<64>::smem <= 232448 - 128 && Dq<128>::smem <= 232448 - 128,
+              "K13's ring must fit a block's shared memory");
 
-template <typename T>
-__global__ void __launch_bounds__((Dq::NWG + 1) * 128, 1)
+template <typename T, int HD>
+__global__ void __launch_bounds__((Dq<HD>::NWG + 1) * 128, 1)
 flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
                       int heads_inner, const int* __restrict__ qseg, const int* __restrict__ kvseg,
                       const float* __restrict__ inv_l, const float* __restrict__ m_in,
                       const float* __restrict__ di_in, T* __restrict__ dQ, View vdq, int nh, int Lq, int Lk,
                       int n_tiles, float scale) {
-  constexpr int NWG = Dq::NWG, ROWS_BLK = Dq::ROWS_BLK;
+  using C = Dq<HD>;
+  using L = Tile<HD>;
+  constexpr int NWG = C::NWG, ROWS_BLK = C::ROWS_BLK, KT = C::KT, STAGES = C::STAGES, NA = L::COLS;
   extern __shared__ unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t full[DQ_STAGES], empty[DQ_STAGES], q_full, q_empty;
+  __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], q_full, q_empty;
   const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t sq = (raw + 1023u) & ~1023u;                      // Q, then dO: NWG x 64 rows each
-  const uint32_t skv = sq + 2 * NWG * WG_ROWS;                     // [stage][K, V]
-  const uint32_t sseg = skv + DQ_STAGES * 2 * DQ_KV_BYTES;         // [stage][64] key segment ids
-  const uint32_t srows = sseg + DQ_STAGES * DQ_KT * 4;             // [m, 1 / l, di, seg][ROWS_BLK]
+  const uint32_t sq = (raw + 1023u) & ~1023u;                  // Q, then dO: NWG x 64 rows each
+  const uint32_t skv = sq + 2 * C::Q_BYTES;                    // [stage][K, V]
+  const uint32_t sseg = skv + STAGES * 2 * C::KV_BYTES;        // [stage][KT] key segment ids
+  const uint32_t srows = sseg + STAGES * KT * 4;               // [m, 1 / l, di, seg][ROWS_BLK]
   const int* const seg_base = reinterpret_cast<const int*>(smem_raw + (sseg - raw));
   const float* const rows_base = reinterpret_cast<const float*>(smem_raw + (srows - raw));
-  uint32_t* const out_stage = reinterpret_cast<uint32_t*>(smem_raw + (srows + Dq::ROWS_BYTES - raw));
-  const int n_qb = Lq / ROWS_BLK, n_kt = Lk / DQ_KT;
+  uint32_t* const out_stage = reinterpret_cast<uint32_t*>(smem_raw + (srows + C::ROWS_BYTES - raw));
+  const int n_qb = Lq / ROWS_BLK, n_kt = Lk / KT;
 
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < DQ_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], NWG * 4);
     }
@@ -1310,21 +1432,21 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_co
         const long long rows0 = ((long long)b * nh + h) * Lq + qb * ROWS_BLK;
         mbar_wait(&q_empty, q_phase ^ 1);
         q_phase ^= 1;
-        mbar_expect_tx(&q_full, 2 * NWG * WG_ROWS + Dq::ROWS_BYTES);
-        load_rows(sq, &map_q, heads_inner & 1, h, qb * ROWS_BLK, b, &q_full);
-        load_rows(sq + NWG * WG_ROWS, &map_do, heads_inner & 8, h, qb * ROWS_BLK, b, &q_full);
+        mbar_expect_tx(&q_full, 2 * C::Q_BYTES + C::ROWS_BYTES);
+        load_rows<HD>(sq, &map_q, heads_inner & 1, ROWS_BLK, h, qb * ROWS_BLK, b, &q_full);
+        load_rows<HD>(sq + C::Q_BYTES, &map_do, heads_inner & 8, ROWS_BLK, h, qb * ROWS_BLK, b, &q_full);
         bulk_load(srows, m_in + rows0, ROWS_BLK * 4, &q_full);
         bulk_load(srows + ROWS_BLK * 4, inv_l + rows0, ROWS_BLK * 4, &q_full);
         bulk_load(srows + 2 * ROWS_BLK * 4, di_in + rows0, ROWS_BLK * 4, &q_full);
         bulk_load(srows + 3 * ROWS_BLK * 4, qseg + (long long)b * Lq + qb * ROWS_BLK, ROWS_BLK * 4, &q_full);
         for (int kt = 0; kt < n_kt; ++kt) {
           mbar_wait(&empty[stage], phase ^ 1);
-          mbar_expect_tx(&full[stage], 2 * DQ_KV_BYTES + DQ_KT * 4);
-          const uint32_t st = skv + stage * 2 * DQ_KV_BYTES;
-          load_rows(st, &map_k, heads_inner & 2, h, kt * DQ_KT, b, &full[stage]);
-          load_rows(st + DQ_KV_BYTES, &map_v, heads_inner & 4, h, kt * DQ_KT, b, &full[stage]);
-          bulk_load(sseg + stage * DQ_KT * 4, kvseg + (long long)b * Lk + kt * DQ_KT, DQ_KT * 4, &full[stage]);
-          if (++stage == DQ_STAGES) {
+          mbar_expect_tx(&full[stage], 2 * C::KV_BYTES + KT * 4);
+          const uint32_t st = skv + stage * 2 * C::KV_BYTES;
+          load_rows<HD>(st, &map_k, heads_inner & 2, KT, h, kt * KT, b, &full[stage]);
+          load_rows<HD>(st + C::KV_BYTES, &map_v, heads_inner & 4, KT, h, kt * KT, b, &full[stage]);
+          bulk_load(sseg + stage * KT * 4, kvseg + (long long)b * Lk + kt * KT, KT * 4, &full[stage]);
+          if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
           }
@@ -1336,14 +1458,13 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_co
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     const int wgi = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32, qd = lane & 3;
     const int row = wgi * 64 + warp * 16 + (lane >> 2);  // rows row and row + 8 of the block
-    const T* const q_rows = reinterpret_cast<const T*>(smem_raw + (sq - raw)) + wgi * 64 * HD;  // its Q rows
-    const T* const o_rows = q_rows + NWG * 64 * HD;                                               // its dO rows
+    const unsigned char* const q_tile = smem_raw + (sq - raw);
     int stage = 0;
     uint32_t phase = 0, q_phase = 0;
     for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
       const int qb = t % n_qb, h = (t / n_qb) % nh, b = t / (n_qb * nh);
-      float dq[HD / 8][4], s[DQ_KT / 8][4], dp[DQ_KT / 8][4];  // s: S, then P; dp: dP, then dS
-      uint32_t qf[HD / 16][4], of[HD / 16][4], as[DQ_KT / 16][4] = {};
+      float dq[HD / 8][4], s[KT / 8][4], dp[KT / 8][4];  // s: S, then P; dp: dP, then dS
+      uint32_t qf[HD / 16][4], of[HD / 16][4], as[KT / 16][4] = {};
       zero(dq);
       zero(s);
       zero(dp);
@@ -1351,8 +1472,8 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_co
       q_phase ^= 1;
 #pragma unroll
       for (int ks = 0; ks < HD / 16; ++ks) {
-        load_a(qf[ks], q_rows, warp * 16, ks, lane);
-        load_a(of[ks], o_rows, warp * 16, ks, lane);
+        load_a<HD>(qf[ks], q_tile + wgi * 64 * L::SPAN, ROWS_BLK, warp * 16, ks, lane);
+        load_a<HD>(of[ks], q_tile + C::Q_BYTES + wgi * 64 * L::SPAN, ROWS_BLK, warp * 16, ks, lane);
       }
       float m_row[2], il[2], di[2];
       int seg[2];
@@ -1368,10 +1489,10 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_co
       int prev = -1;
       for (int kt = 0; kt < n_kt; ++kt) {
         mbar_wait(&full[stage], phase);
-        const uint32_t ka = skv + stage * 2 * DQ_KV_BYTES;
-        // B operands' descriptors; a k-step advances one by 32 bytes (K-major, + 2) or 16 rows (MN-major, + 128)
-        const uint64_t kdesc = sw128_desc(ka), vdesc = sw128_desc(ka + DQ_KV_BYTES);
-        const int* st = seg_base + stage * DQ_KT;
+        const uint32_t ka = skv + stage * 2 * C::KV_BYTES;
+        // B operands' descriptors; a k-step advances one by 32 bytes (K-major) or 16 rows (MN-major)
+        const uint64_t kdesc = L::desc(ka), vdesc = L::desc(ka + C::KV_BYTES);
+        const int* st = seg_base + stage * KT;
 
         fence_acc(s);
         fence_acc(dp);
@@ -1379,10 +1500,10 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_co
         fence_a(of);
         hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) wgmma_rs64<T>(s, qf[kk], kdesc + 2 * kk, kk);
+        for (int kk = 0; kk < HD / 16; ++kk) wgmma_rs<T, KT, 0>(s, qf[kk], kdesc + L::kstep(KT, kk), kk);
         hopper::wgmma_commit();
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) wgmma_rs64<T>(dp, of[kk], vdesc + 2 * kk, kk);
+        for (int kk = 0; kk < HD / 16; ++kk) wgmma_rs<T, KT, 0>(dp, of[kk], vdesc + L::kstep(KT, kk), kk);
         hopper::wgmma_commit();
         hopper::wgmma_wait<1>();  // S, and the last tile's dQ
         fence_acc(s);
@@ -1391,7 +1512,7 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_co
         if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);  // this warp is done with the last tile
 
 #pragma unroll
-        for (int j = 0; j < DQ_KT / 8; ++j) {
+        for (int j = 0; j < KT / 8; ++j) {
           const int2 ks = *reinterpret_cast<const int2*>(st + j * 8 + 2 * qd);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
@@ -1405,19 +1526,22 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_co
         fence_a(qf);
         fence_a(of);
 #pragma unroll
-        for (int j = 0; j < DQ_KT / 8; ++j)
+        for (int j = 0; j < KT / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             dp[j][e] = __fmul_rn(__fmul_rn(__fsub_rn(dp[j][e], di[e >> 1]), s[j][e]), scale);
 #pragma unroll
-        for (int kk = 0; kk < DQ_KT / 16; ++kk) acc_to_a<T>(as[kk], dp, kk);
+        for (int kk = 0; kk < KT / 16; ++kk) acc_to_a<T>(as[kk], dp, kk);
         fence_a(as);
         hopper::wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < DQ_KT / 16; ++kk) wgmma_rs64t<T>(dq, as[kk], kdesc + 128 * kk, 1);
+        for (int a = 0; a < L::ATOMS; ++a)
+#pragma unroll
+          for (int kk = 0; kk < KT / 16; ++kk)
+            wgmma_rs<T, NA, 1>(cols<NA / 8>(dq, a * NA / 8), as[kk], kdesc + L::atom(KT, a) + L::MN_STEP * kk, 1);
         hopper::wgmma_commit();
         prev = stage;
-        if (++stage == DQ_STAGES) {
+        if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
         }
@@ -1427,8 +1551,8 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_co
       fence_a(as);
       if (lane == 0) mbar_arrive(&empty[prev]);
       const int row0 = qb * ROWS_BLK + row - (lane >> 2);  // this warp's first row
-      store_rows_staged<T>(dQ + b * vdq.sb + h * vdq.sh + (long long)row0 * vdq.sl, vdq.sl, dq,
-                           out_stage + threadIdx.x / 32 * 512, lane);
+      store_rows_staged<T, HD>(dQ + b * vdq.sb + h * vdq.sh + (long long)row0 * vdq.sl, vdq.sl, dq,
+                               out_stage + threadIdx.x / 32 * (C::OUT / 4), lane);
     }
   }
 }
@@ -1436,17 +1560,18 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_co
 // ---- the backward's per-row inputs: di and 1 / l ----
 //
 // di = sum(o * do) over the head dim in fp32, read once in the input type:
-// 8 threads a row, each summing the products of its 8 elements in order,
-// then the 8 partial sums pairwise by lane distance 4, 2, 1
+// hd / 8 threads a row, each summing the products of its 8 elements in
+// order, then the hd / 8 partial sums pairwise by lane distance hd / 16, ..., 2, 1
 // (ops/flash_attention.py::flash_di_card_order is this order in torch);
 // 1 / l rounded once a row, for K12's p = exp(s - m) * (1 / l).
 
-template <typename T>
+template <typename T, int HD>
 __global__ void __launch_bounds__(256)
 flash_rows_kernel(const T* __restrict__ O, const T* __restrict__ dO, const float* __restrict__ l, View vo,
                   View vdo, float* __restrict__ di, float* __restrict__ inv_l, int nh, int L) {
-  const long long i = (long long)blockIdx.x * 32 + threadIdx.x / 8;  // the row: ((b * nh) + h) * L + r
-  const int c = threadIdx.x % 8;
+  constexpr int LANES = HD / 8;  // threads a row
+  const long long i = (long long)blockIdx.x * (256 / LANES) + threadIdx.x / LANES;  // the row: ((b * nh) + h) * L + r
+  const int c = threadIdx.x % LANES;
   const long long bh = i / L;
   const int r = int(i - bh * L), h = int(bh % nh);
   const long long b = bh / nh;
@@ -1457,9 +1582,8 @@ flash_rows_kernel(const T* __restrict__ O, const T* __restrict__ dO, const float
   float s = 0.0f;
 #pragma unroll
   for (int e = 0; e < 8; ++e) s = __fadd_rn(s, __fmul_rn(Type<T>::f(x[e]), Type<T>::f(y[e])));
-  s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 4));
-  s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 2));
-  s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 1));
+#pragma unroll
+  for (int d = LANES / 2; d >= 1; d /= 2) s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, d));
   if (c == 0) {
     di[i] = s;
     inv_l[i] = __fdiv_rn(1.0f, l[i]);
@@ -1478,14 +1602,16 @@ namespace f32 {
 
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 
-// di and 1 / l of fp32 rows: 8 threads a row, each summing the products of
-// its 8 elements in order, then the partial sums pairwise by lane distance 4,
-// 2, 1 (flash_di_card_order's order; here the products round in fp32).
+// di and 1 / l of fp32 rows: hd / 8 threads a row, each summing the products
+// of its 8 elements in order, then the partial sums pairwise by lane distance
+// hd / 16, ..., 2, 1 (flash_di_card_order's order; here the products round in fp32).
+template <int HD>
 __global__ void __launch_bounds__(256)
 flash_rows_kernel(const float* __restrict__ O, const float* __restrict__ dO, const float* __restrict__ l, View vo,
                   View vdo, float* __restrict__ di, float* __restrict__ inv_l, int nh, int L) {
-  const long long i = (long long)blockIdx.x * 32 + threadIdx.x / 8;  // the row: ((b * nh) + h) * L + r
-  const int c = threadIdx.x % 8;
+  constexpr int LANES = HD / 8;
+  const long long i = (long long)blockIdx.x * (256 / LANES) + threadIdx.x / LANES;  // the row: ((b * nh) + h) * L + r
+  const int c = threadIdx.x % LANES;
   const long long bh = i / L;
   const int r = int(i - bh * L), h = int(bh % nh);
   const long long b = bh / nh;
@@ -1497,9 +1623,8 @@ flash_rows_kernel(const float* __restrict__ O, const float* __restrict__ dO, con
   float s = 0.0f;
 #pragma unroll
   for (int e = 0; e < 8; ++e) s = __fadd_rn(s, __fmul_rn(xs[e], ys[e]));
-  s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 4));
-  s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 2));
-  s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 1));
+#pragma unroll
+  for (int d = LANES / 2; d >= 1; d /= 2) s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, d));
   if (c == 0) {
     di[i] = s;
     inv_l[i] = __fdiv_rn(1.0f, l[i]);
@@ -1507,7 +1632,6 @@ flash_rows_kernel(const float* __restrict__ O, const float* __restrict__ dO, con
 }
 
 }  // namespace f32
-
 // ---- route "tf32": K11, K12 and K13 on fp32 inputs, three TF32 products on wgmma ----
 //
 // Each fp32 product A . B is hi(A) hi(B) + hi(A) lo(B) + lo(A) hi(B), hi =
@@ -1518,8 +1642,8 @@ flash_rows_kernel(const float* __restrict__ O, const float* __restrict__ dO, con
 // exp(s - m) * (1 / l), ds = (dp - di) p scale) but for exp, route
 // "wgmma"'s ex2.approx of (s - m) log2(e) (2 ulps; expf cost 1-4% more
 // time, ~4e-7 of a head vector apart: PERF.md §6).  Layout: a tile of fp32
-// rows of 64 is two halves (columns 0-31, 32-63) of 128-byte rows with the
-// 128-byte swizzle, one TMA box
+// rows of hd is hd / 32 atoms (columns 0-31, 32-63, ...) of 128-byte rows
+// with the 128-byte swizzle, one TMA box
 // each; wgmma's .tf32 operands in shared memory are K-major only (no
 // transpose bit), so:
 //   * the products over the head dim (S^T = K Q^T, dP^T = V dO^T in K12; S
@@ -1532,7 +1656,9 @@ flash_rows_kernel(const float* __restrict__ O, const float* __restrict__ dO, con
 //     Q^T, K^T) is read from the split tiles into registers by 4-byte loads,
 //     the transpose happening there; the accumulators, whose rows are the
 //     head dim, leave by 4-byte stores that fill whole 32-byte sectors
-//     (8 head-dim values of one row).
+//     (8 head-dim values of one row).  Their M is the head dim: at 32 the
+//     wgmma's 64 rows are half zeros (warps 2 and 3 load no A, store
+//     nothing), at 128 two wgmmas of 64 one after the other.
 // Row k of such a product (a query, or a key) sits at position 8 (k / 8) +
 // (k % 8) / 2 + 4 (k % 2) of its 8-group in the written tile, so that a
 // thread's A registers of one k-step (columns t and t + 4 of the m64nNk8
@@ -1558,6 +1684,13 @@ flash_rows_kernel(const float* __restrict__ O, const float* __restrict__ dO, con
 //        Warpgroup 0: S (m64n64k8), P for warpgroup 1; warpgroup 1: dP, dS
 //        into the B tile (named barrier 2); then each warpgroup dQ^T +=
 //        K^T dS^T for 32 of the 64 query rows (m64n32k8).
+// At head dim 128 the A operand held over the head dim (K11's Q, K12's K
+// and V, K13's Q and dO: 128 registers, hi and lo) does not fit beside the
+// accumulators: the raw tile stays in shared memory for the tile and each
+// stage splits it into registers a 32-column atom at a time, each atom's
+// three products (hi lo, lo hi, hi hi) before the next atom's; K11's and
+// K13's stages are 32 keys and K12's ring one stage deep, for shared memory
+// (Hd below).
 // Bounds at the retriever's doc pass (68, 12, 384, 64): K12's 8 L^2 hd
 // flops a head as three TF32 products, 1.85e11 at 495 TFLOP/s, 0.373 ms;
 // K13's 6, 0.280 ms; the bytes (fp32 q, k, v, do, dk, dv: 0.144 ms) below
@@ -1592,8 +1725,21 @@ constexpr int DQ_STAGES = 2;   // K/V stages in flight in K13
 constexpr int FWD_STAGES = 2;  // K/V stages in flight in K11
 constexpr int SPLIT_THREADS = 96;  // the producer warpgroup's warps 1-3
 
-// Byte offset of (row, col) in an R-row tile of fp32 rows of 64: two halves
-// of R 128-byte rows, 16-byte chunks XOR-swizzled by the row.
+// What the head dim changes: the A operand held over the head dim (split
+// once a tile, HELD, or an atom at a time each stage), the keys of a K11 and
+// a K13 stage, K12's ring, and the head dim's 64-row halves (the M of the
+// products over rows).
+template <int HD> struct Hd {
+  static_assert(HD == 32 || HD == 64 || HD == 128, "head dims 32, 64 and 128");
+  static constexpr bool HELD = HD <= 64;
+  static constexpr int AK = HELD ? HD / 8 : 4;          // k-steps of A fragments in registers at once
+  static constexpr int KEYS = HD == 128 ? 32 : KT;      // keys a K11 and a K13 stage
+  static constexpr int DKV_DEPTH = HD == 128 ? 1 : DKV_STAGES;
+  static constexpr int MH = HD == 128 ? 2 : 1;          // 64-row halves of the head dim
+};
+
+// Byte offset of (row, col) in an R-row tile of fp32 rows: atoms of 32
+// columns, each R 128-byte rows, 16-byte chunks XOR-swizzled by the row.
 template <int R>
 __device__ __forceinline__ uint32_t at(int row, int col) {
   return (col >> 5) * (R * 128) + row * 128 + ((((col >> 2) ^ row) & 7) << 4) + ((col & 3) << 2);
@@ -1638,17 +1784,17 @@ __device__ __forceinline__ void tma_half(uint32_t dst, const CUtensorMap* map, b
       : "memory");
 }
 
-// An R-row tile (both halves) of rows row .. row + R - 1.
-template <int R>
+// An R-row tile (every atom) of rows row .. row + R - 1.
+template <int R, int HD>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, bool heads_inner, int h, int row,
                                          int b, uint64_t* bar) {
-  tma_half(dst, map, heads_inner, 0, h, row, b, bar);
-  tma_half(dst + R * 128, map, heads_inner, 32, h, row, b, bar);
+#pragma unroll
+  for (int a = 0; a < HD / 32; ++a) tma_half(dst + a * R * 128, map, heads_inner, 32 * a, h, row, b, bar);
 }
 
-// B descriptor of k-step kk (8 columns) of a K-major R-row tile of 64
-// columns, from the tile's own (sw128_desc of its first half): the second
-// half R * 128 bytes on, a k-step 32 bytes (the address field counts 16).
+// B descriptor of k-step kk (8 columns) of a K-major R-row tile, from the
+// tile's own (sw128_desc of its first atom): the next atom R * 128 bytes
+// on, a k-step 32 bytes (the address field counts 16).
 template <int R>
 __device__ __forceinline__ uint64_t desc64(uint64_t tile, int kk) {
   return tile + (kk >> 2) * (R * 128 / 16) + 2 * (kk & 3);
@@ -1671,18 +1817,19 @@ __device__ __forceinline__ void split_tiles(unsigned char* raw, uint32_t bytes, 
   fence_proxy_async();
 }
 
-// A fragments (hi, lo) of a warp's 16 rows r0 .. r0 + 15 over all 64 columns
-// of a raw R-row tile, split in registers: k-step kk, registers (row, col)
-// (g, 8kk + t), (g + 8, 8kk + t), (g, 8kk + t + 4), (g + 8, 8kk + t + 4).
-template <int R>
-__device__ __forceinline__ void rows_a(uint32_t (&hi)[8][4], uint32_t (&lo)[8][4], const unsigned char* tile, int r0,
-                                       int lane) {
+// A fragments (hi, lo) of a warp's 16 rows r0 .. r0 + 15 over KS k-steps
+// from column c0 of a raw R-row tile, split in registers: k-step kk,
+// registers (row, col) (g, c0 + 8kk + t), (g + 8, ...), (g, c0 + 8kk + t +
+// 4), (g + 8, ...).
+template <int R, int KS>
+__device__ __forceinline__ void rows_a(uint32_t (&hi)[KS][4], uint32_t (&lo)[KS][4], const unsigned char* tile,
+                                       int r0, int lane, int c0 = 0) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      split(*reinterpret_cast<const float*>(tile + at<R>(r0 + g + 8 * (r & 1), 8 * kk + t + 4 * (r >> 1))),
+      split(*reinterpret_cast<const float*>(tile + at<R>(r0 + g + 8 * (r & 1), c0 + 8 * kk + t + 4 * (r >> 1))),
             hi[kk][r], lo[kk][r]);
 }
 
@@ -1710,9 +1857,24 @@ __device__ __forceinline__ void cols_a(uint32_t (&hi)[KS][4], uint32_t (&lo)[KS]
     }
 }
 
+// cols_a for the head-dim rows from h0 of a head dim of HD, zeros past it
+// (the padding of M at head dim 32).
+template <int HD, int KS>
+__device__ __forceinline__ void cols_a_hd(uint32_t (&hi)[KS][4], uint32_t (&lo)[KS][4], const unsigned char* tile_hi,
+                                          const unsigned char* tile_lo, const uint32_t (&off)[4], int h0) {
+  if (h0 < HD) {
+    cols_a(hi, lo, tile_hi, tile_lo, off);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) hi[kk][r] = lo[kk][r] = 0u;
+  }
+}
+
 // An accumulator (rows r0 + g, r0 + g + 8; columns 8j + 2t, + 1) into the
-// K-major B tiles of a product over its columns (one 128-byte swizzle half of
-// 32 columns per 32-column group), hi and lo, each column at pos().
+// K-major B tiles of a product over its columns (one 128-byte swizzle atom
+// of 32 columns per 32-column group), hi and lo, each column at pos().
 template <int R, int N>
 __device__ __forceinline__ void acc_to_b(unsigned char* tile_hi, unsigned char* tile_lo, const float (&c)[N][4],
                                          int r0, int lane) {
@@ -1768,6 +1930,7 @@ __device__ __forceinline__ void mma_n32(float (&d)[4][4], const uint32_t (&a)[4]
 
 template <int N>
 __device__ __forceinline__ void mma(float (&d)[N][4], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  static_assert(N == 8 || N == 4, "wgmma .tf32 N 64 or 32 here");
   if constexpr (N == 8)
     mma_n64(d, a, db, scale_d);
   else
@@ -1776,18 +1939,19 @@ __device__ __forceinline__ void mma(float (&d)[N][4], const uint32_t (&a)[4], ui
 
 // Issues d = A . B over KS k-steps as three TF32 products, the small terms
 // first, and commits them as one group; desc(kk) and desc_lo(kk) are B's hi
-// and lo descriptors of k-step kk.  The caller waits (wgmma_wait<0>) and
+// and lo descriptors of k-step kk; `fresh`: the first k-step overwrites d
+// (else every one adds to it).  The caller waits (wgmma_wait<0>) and
 // then calls done() on what the group used, before touching it; registers
 // the group does not use stay free meanwhile.
 template <int N, int KS, typename D, typename DL>
 __device__ __forceinline__ void issue3(float (&d)[N][4], uint32_t (&ah)[KS][4], uint32_t (&al)[KS][4], D desc,
-                                       DL desc_lo) {
+                                       DL desc_lo, bool fresh = true) {
   fence_acc(d);
   fence_a(ah);
   fence_a(al);
   hopper::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) mma<N>(d, ah[kk], desc_lo(kk), kk);
+  for (int kk = 0; kk < KS; ++kk) mma<N>(d, ah[kk], desc_lo(kk), kk > 0 || !fresh);
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) mma<N>(d, al[kk], desc(kk), 1);
 #pragma unroll
@@ -1810,6 +1974,46 @@ __device__ __forceinline__ void add_rn(float (&acc)[N][4], const float (&part)[N
     for (int e = 0; e < 4; ++e) acc[j][e] = __fadd_rn(acc[j][e], part[j][e]);
 }
 
+// d = A . B over the head dim, A the warp's 16 rows from r0 of the raw
+// R-row tile `a_tile` an atom at a time (HD 128: split into fh and fl each
+// time, the atom's products waited for before the next atom's split), B the
+// K-major split tile whose k-step kk desc(kk) and desc_lo(kk) give.  The
+// small terms (hi lo, lo hi) of every atom sum in d and the large (hi hi) in
+// a second accumulator, added to d once with round-to-nearest: in one
+// accumulator, atom by atom, the small terms of atoms 1-3 land on the large
+// sum of the atoms before them and lose the tensor cores' truncation of
+// each k-step to it (on an H100, dq at (68, 8, 384, 128) fp32 then came to
+// 1.06e-5 of its head vector against the plain version, past
+// FP32_HEAD_REL; with the second accumulator 4.9e-6).  Waits for the
+// products.
+template <int R, int HD, int N, typename D, typename DL>
+__device__ __forceinline__ void by_atoms(float (&d)[N][4], uint32_t (&fh)[4][4], uint32_t (&fl)[4][4],
+                                         const unsigned char* a_tile, int r0, int lane, D desc, DL desc_lo) {
+  float big[N][4];
+#pragma unroll
+  for (int a = 0; a < HD / 32; ++a) {
+    rows_a<R, 4>(fh, fl, a_tile, r0, lane, 32 * a);
+    fence_acc(d);
+    fence_acc(big);
+    fence_a(fh);
+    fence_a(fl);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma<N>(d, fh[kk], desc_lo(4 * a + kk), kk > 0 || a > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma<N>(d, fl[kk], desc(4 * a + kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma<N>(big, fh[kk], desc(4 * a + kk), kk > 0 || a > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    fence_acc(d);
+    fence_acc(big);
+    fence_a(fh);
+    fence_a(fl);
+  }
+  add_rn(d, big);
+}
+
 // A transposed accumulator (rows: the head dim h0 + g, + 8; columns: rows
 // 8j + 2t, + 1 of the output from `row0`) to its (row, head dim) places.
 template <int N>
@@ -1823,18 +2027,21 @@ __device__ __forceinline__ void store_t(float* out, long long sl, const float (&
 
 // ---- K12, route "tf32" ----
 
-struct Dkv {
-  static constexpr uint32_t KV_TILE = 2 * RB * 128;  // a block's K (or V) rows: 16 KB
-  static constexpr uint32_t Q_TILE = 2 * QT * 128;   // a stage's Q (or dO) rows: 8 KB
+template <int HD> struct Dkv {
+  static constexpr int STAGES = Hd<HD>::DKV_DEPTH;
+  static constexpr uint32_t KV_TILE = RB * HD * 4;   // a block's K (or V) rows: 16 KB at hd 64
+  static constexpr uint32_t Q_TILE = QT * HD * 4;    // a stage's Q (or dO) rows: 8 KB at hd 64
   static constexpr uint32_t HI = 2 * Q_TILE;         // Q, dO (hi after the split)
   static constexpr uint32_t ROWS = 4 * QT * 4;       // m, 1 / l, di, segment ids
   static constexpr uint32_t STAGE = 2 * HI + 1024;   // hi, lo, rows
   static constexpr uint32_t PT = RB * 128;           // P^T or dS^T: 64 keys x 32 queries
   static constexpr uint32_t PEX = RB * QT * 4;       // P for warpgroup 1, thread-major
-  static constexpr uint32_t smem = 1024 + 2 * KV_TILE + DKV_STAGES * STAGE + 4 * PT + 2 * PEX;
+  static constexpr uint32_t smem = 1024 + 2 * KV_TILE + STAGES * STAGE + 4 * PT + 2 * PEX;
 };
-static_assert(Dkv::smem <= 232448 - 1024, "K12's route tf32 must fit a block's shared memory");
+static_assert(Dkv<32>::smem <= 232448 - 1024 && Dkv<64>::smem <= 232448 - 1024 && Dkv<128>::smem <= 232448 - 1024,
+              "K12's route tf32 must fit a block's shared memory");
 
+template <int HD>
 __global__ void __launch_bounds__(384, 1)
 flash_dkv_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                             const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
@@ -1842,19 +2049,22 @@ flash_dkv_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
                             const float* __restrict__ inv_l, const float* __restrict__ m_in,
                             const float* __restrict__ di_in, float* __restrict__ dK, float* __restrict__ dV,
                             View vdk, View vdv, int nh, int Lq, int Lk, int n_tiles, float scale) {
+  using C = Dkv<HD>;
+  using H = Hd<HD>;
+  constexpr int STAGES = C::STAGES;
   extern __shared__ unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t full[DKV_STAGES], ready[DKV_STAGES], empty[DKV_STAGES], kv_full, kv_empty;
+  __shared__ __align__(8) uint64_t full[STAGES], ready[STAGES], empty[STAGES], kv_full, kv_empty;
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t skv = (raw + 1023u) & ~1023u;                // K, V: 64 rows each
-  const uint32_t sst = skv + 2 * Dkv::KV_TILE;                // [stage][hi: Q, dO][lo: Q, dO][rows]
-  const uint32_t spt = sst + DKV_STAGES * Dkv::STAGE;         // P^T hi, lo; dS^T hi, lo
-  const uint32_t spex = spt + 4 * Dkv::PT;                    // [2][P]
+  const uint32_t sst = skv + 2 * C::KV_TILE;                  // [stage][hi: Q, dO][lo: Q, dO][rows]
+  const uint32_t spt = sst + STAGES * C::STAGE;               // P^T hi, lo; dS^T hi, lo
+  const uint32_t spex = spt + 4 * C::PT;                      // [2][P]
   unsigned char* const base = smem_raw + (skv - raw);         // generic pointer of skv
   const int n_kb = Lk / RB, n_qt = Lq / QT;
 
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < DKV_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&ready[s], SPLIT_THREADS);
       mbar_init(&empty[s], 2 * 4);
@@ -1876,20 +2086,20 @@ flash_dkv_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
         const long long rows0 = ((long long)b * nh + h) * Lq;
         mbar_wait(&kv_empty, kv_phase ^ 1);
         kv_phase ^= 1;
-        mbar_expect_tx(&kv_full, 2 * Dkv::KV_TILE);
-        tma_tile<RB>(skv, &map_k, heads_inner & 2, h, kb * RB, b, &kv_full);
-        tma_tile<RB>(skv + Dkv::KV_TILE, &map_v, heads_inner & 4, h, kb * RB, b, &kv_full);
+        mbar_expect_tx(&kv_full, 2 * C::KV_TILE);
+        tma_tile<RB, HD>(skv, &map_k, heads_inner & 2, h, kb * RB, b, &kv_full);
+        tma_tile<RB, HD>(skv + C::KV_TILE, &map_v, heads_inner & 4, h, kb * RB, b, &kv_full);
         for (int qt = 0; qt < n_qt; ++qt) {
           mbar_wait(&empty[stage], phase ^ 1);
-          mbar_expect_tx(&full[stage], Dkv::HI + Dkv::ROWS);
-          const uint32_t st = sst + stage * Dkv::STAGE, rt = st + 2 * Dkv::HI;
-          tma_tile<QT>(st, &map_q, heads_inner & 1, h, qt * QT, b, &full[stage]);
-          tma_tile<QT>(st + Dkv::Q_TILE, &map_do, heads_inner & 8, h, qt * QT, b, &full[stage]);
+          mbar_expect_tx(&full[stage], C::HI + C::ROWS);
+          const uint32_t st = sst + stage * C::STAGE, rt = st + 2 * C::HI;
+          tma_tile<QT, HD>(st, &map_q, heads_inner & 1, h, qt * QT, b, &full[stage]);
+          tma_tile<QT, HD>(st + C::Q_TILE, &map_do, heads_inner & 8, h, qt * QT, b, &full[stage]);
           wg::bulk_load(rt, m_in + rows0 + qt * QT, QT * 4, &full[stage]);
           wg::bulk_load(rt + QT * 4, inv_l + rows0 + qt * QT, QT * 4, &full[stage]);
           wg::bulk_load(rt + 2 * QT * 4, di_in + rows0 + qt * QT, QT * 4, &full[stage]);
           wg::bulk_load(rt + 3 * QT * 4, qseg + (long long)b * Lq + qt * QT, QT * 4, &full[stage]);
-          if (++stage == DKV_STAGES) {
+          if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
           }
@@ -1902,9 +2112,9 @@ flash_dkv_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x)
         for (int qt = 0; qt < n_qt; ++qt) {
           mbar_wait(&full[stage], phase);
-          split_tiles(base + (sst - skv) + stage * Dkv::STAGE, Dkv::HI, Dkv::HI, si);
+          split_tiles(base + (sst - skv) + stage * C::STAGE, C::HI, C::HI, si);
           mbar_arrive(&ready[stage]);
-          if (++stage == DKV_STAGES) {
+          if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
           }
@@ -1918,25 +2128,30 @@ flash_dkv_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
   const int wgi = threadIdx.x / 128, wtid = threadIdx.x % 128, warp = wtid / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t4 = lane & 3;
   const int key = warp * 16 + g;  // this thread's keys: key and key + 8 of the block
-  unsigned char* const pt_hi = base + (spt - skv) + wgi * 2 * Dkv::PT;  // P^T (wg 0) or dS^T (wg 1)
-  unsigned char* const pt_lo = pt_hi + Dkv::PT;
-  const uint32_t pt_hi_s = spt + wgi * 2 * Dkv::PT, pt_lo_s = pt_hi_s + Dkv::PT;
+  unsigned char* const pt_hi = base + (spt - skv) + wgi * 2 * C::PT;  // P^T (wg 0) or dS^T (wg 1)
+  unsigned char* const pt_lo = pt_hi + C::PT;
+  const uint32_t pt_hi_s = spt + wgi * 2 * C::PT, pt_lo_s = pt_hi_s + C::PT;
   float* const pex = reinterpret_cast<float*>(base + (spex - skv));
-  uint32_t a_off[4];  // this thread's offsets in the stage's tiles for the transposed A (cols_a)
-  cols_offsets<QT>(a_off, warp * 16, lane);
+  const unsigned char* const kv_rows = base + wgi * C::KV_TILE;  // K (wg 0) or V (wg 1), raw
+  uint32_t a_off[H::MH][4];  // this thread's offsets in the stage's tiles for the transposed A (cols_a), by half
+#pragma unroll
+  for (int mh = 0; mh < H::MH; ++mh) cols_offsets<QT>(a_off[mh], mh * 64 + warp * 16, lane);
   int stage = 0, pb = 0;
   uint32_t phase = 0, kv_phase = 0;
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const int kb = t % n_kb, h = (t / n_kb) % nh, b = t / (n_kb * nh);
     const int k0 = kb * RB;
     const int kseg0 = kvseg[(long long)b * Lk + k0 + key], kseg1 = kvseg[(long long)b * Lk + k0 + key + 8];
-    uint32_t fh[8][4], fl[8][4];  // K (wg 0) or V (wg 1): this warp's 16 keys over the head dim
+    uint32_t fh[H::AK][4], fl[H::AK][4];  // K (wg 0) or V (wg 1): this warp's 16 keys over the head dim (an atom)
     mbar_wait(&kv_full, kv_phase);
     kv_phase ^= 1;
-    rows_a<RB>(fh, fl, base + wgi * Dkv::KV_TILE, warp * 16, lane);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&kv_empty);  // this warp is done with the K and V buffer
-    float acc[8][4], part[8][4], s[4][4];  // dV^T or dK^T (head dim x keys); a stage's share; S^T or dP^T
+    if constexpr (H::HELD) {
+      rows_a<RB, H::AK>(fh, fl, kv_rows, warp * 16, lane);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&kv_empty);  // this warp is done with the K and V buffer
+    }
+    // dV^T or dK^T (head dim x keys, by 64-row half); a stage's share; S^T or dP^T
+    float acc[8 * H::MH][4], part[8][4], s[4][4];
     uint32_t ah[4][4], al[4][4];           // dO^T (wg 0) or Q^T (wg 1) of a stage
     zero(acc);
     zero(part);
@@ -1944,17 +2159,24 @@ flash_dkv_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
     for (int qt = 0; qt < n_qt; ++qt) {
       mbar_wait(&full[stage], phase);   // the rows' TMA bytes
       mbar_wait(&ready[stage], phase);  // the split
-      const uint32_t st = sst + stage * Dkv::STAGE;
+      const uint32_t st = sst + stage * C::STAGE;
       unsigned char* const stp = base + (st - skv);
-      const float* const rows = reinterpret_cast<const float*>(stp + 2 * Dkv::HI);  // m, 1 / l, di, seg
+      const float* const rows = reinterpret_cast<const float*>(stp + 2 * C::HI);  // m, 1 / l, di, seg
       // S^T = K Q^T (wg 0) or dP^T = V dO^T (wg 1): B is the stage's Q or dO tile; under it, the
       // transposed A of dV^T += dO^T P (wg 0) or dK^T += Q^T dS (wg 1) from the stage's other tile
-      const uint64_t d_hi = sw128_desc(st + wgi * Dkv::Q_TILE), d_lo = d_hi + Dkv::HI / 16;
-      issue3(s, fh, fl, [&](int kk) { return desc64<QT>(d_hi, kk); }, [&](int kk) { return desc64<QT>(d_lo, kk); });
-      const unsigned char* const a_hi = stp + (1 - wgi) * Dkv::Q_TILE;
-      cols_a(ah, al, a_hi, a_hi + Dkv::HI, a_off);
-      hopper::wgmma_wait<0>();
-      done(s, fh, fl);
+      const uint64_t d_hi = sw128_desc(st + wgi * C::Q_TILE), d_lo = d_hi + C::HI / 16;
+      const unsigned char* const a_hi = stp + (1 - wgi) * C::Q_TILE;
+      auto desc = [&](int kk) { return desc64<QT>(d_hi, kk); };
+      auto desc_lo = [&](int kk) { return desc64<QT>(d_lo, kk); };
+      if constexpr (H::HELD) {
+        issue3(s, fh, fl, desc, desc_lo);
+        cols_a_hd<HD>(ah, al, a_hi, a_hi + C::HI, a_off[0], warp * 16);
+        hopper::wgmma_wait<0>();
+        done(s, fh, fl);
+      } else {
+        by_atoms<RB, HD>(s, fh, fl, kv_rows, warp * 16, lane, desc, desc_lo);
+        cols_a_hd<HD>(ah, al, a_hi, a_hi + C::HI, a_off[0], warp * 16);
+      }
       float* const pbuf = pex + pb * (RB * QT);
       if (wgi == 0) {
 #pragma unroll
@@ -1989,41 +2211,54 @@ flash_dkv_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
         fence_proxy_async();
         named_sync(2, 128);  // dS^T written by the whole warpgroup
       }
-      // dV^T += dO^T P (wg 0) or dK^T += Q^T dS (wg 1)
+      // dV^T += dO^T P (wg 0) or dK^T += Q^T dS (wg 1), a 64-row half of the head dim at a time
       const uint64_t p_hi = sw128_desc(pt_hi_s), p_lo = sw128_desc(pt_lo_s);
-      issue3(part, ah, al, [&](int kk) { return p_hi + 2 * kk; }, [&](int kk) { return p_lo + 2 * kk; });
-      hopper::wgmma_wait<0>();
-      done(part, ah, al);
-      add_rn(acc, part);
+#pragma unroll
+      for (int mh = 0; mh < H::MH; ++mh) {
+        if (mh > 0) cols_a_hd<HD>(ah, al, a_hi, a_hi + C::HI, a_off[mh], mh * 64 + warp * 16);
+        issue3(part, ah, al, [&](int kk) { return p_hi + 2 * kk; }, [&](int kk) { return p_lo + 2 * kk; });
+        hopper::wgmma_wait<0>();
+        done(part, ah, al);
+        add_rn(wg::cols<8>(acc, 8 * mh), part);
+      }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[stage]);  // this warp is done with the stage
       pb ^= 1;
-      if (++stage == DKV_STAGES) {
+      if (++stage == STAGES) {
         stage = 0;
         phase ^= 1;
       }
     }
-    if (wgi == 0)
-      store_t(dV + b * vdv.sb + h * vdv.sh + (long long)k0 * vdv.sl, vdv.sl, acc, warp * 16, lane);
-    else
-      store_t(dK + b * vdk.sb + h * vdk.sh + (long long)k0 * vdk.sl, vdk.sl, acc, warp * 16, lane);
+    if constexpr (!H::HELD) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&kv_empty);  // this warp is done with the K and V buffer
+    }
+    float* const out = wgi == 0 ? dV + b * vdv.sb + h * vdv.sh + (long long)k0 * vdv.sl
+                                : dK + b * vdk.sb + h * vdk.sh + (long long)k0 * vdk.sl;
+    const long long sl = wgi == 0 ? vdv.sl : vdk.sl;
+#pragma unroll
+    for (int mh = 0; mh < H::MH; ++mh)
+      if (mh * 64 + warp * 16 < HD) store_t(out, sl, wg::cols<8>(acc, 8 * mh), mh * 64 + warp * 16, lane);
   }
 }
 
 // ---- K13, route "tf32" ----
 
-struct Dq {
-  static constexpr uint32_t Q_TILE = 2 * RB * 128;   // a block's Q (or dO) rows: 16 KB
+template <int HD> struct Dq {
+  static constexpr int KEYS = Hd<HD>::KEYS;
+  static constexpr uint32_t Q_TILE = RB * HD * 4;    // a block's Q (or dO) rows: 16 KB at hd 64
   static constexpr uint32_t ROWS = 4 * RB * 4;       // m, 1 / l, di, segment ids
-  static constexpr uint32_t KV_TILE = 2 * KT * 128;  // a stage's K (or V) rows: 16 KB
+  static constexpr uint32_t KV_TILE = KEYS * HD * 4; // a stage's K (or V) rows: 16 KB at hd 64
   static constexpr uint32_t HI = 2 * KV_TILE;        // K, V (hi after the split)
   static constexpr uint32_t STAGE = 2 * HI + 1024;   // hi, lo, key segment ids
-  static constexpr uint32_t DS = 2 * RB * 128;       // dS hi (or lo): 64 query rows x 64 keys
-  static constexpr uint32_t PEX = RB * KT * 4;       // P for warpgroup 1, thread-major
+  static constexpr uint32_t DS = RB * KEYS * 4;      // dS hi (or lo): 64 query rows x the stage's keys
+  static constexpr uint32_t PEX = RB * KEYS * 4;     // P for warpgroup 1, thread-major
   static constexpr uint32_t smem = 1024 + 2 * Q_TILE + 1024 + DQ_STAGES * STAGE + 2 * DS + PEX;
 };
-static_assert(Dq::smem <= 232448 - 1024, "K13's route tf32 must fit a block's shared memory");
+static_assert(Dq<32>::smem <= 232448 - 1024 && Dq<64>::smem <= 232448 - 1024 && Dq<128>::smem <= 232448 - 1024,
+              "K13's route tf32 must fit a block's shared memory");
 
+template <int HD>
 __global__ void __launch_bounds__(384, 1)
 flash_dq_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                            const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
@@ -2031,16 +2266,19 @@ flash_dq_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __gr
                            const float* __restrict__ inv_l, const float* __restrict__ m_in,
                            const float* __restrict__ di_in, float* __restrict__ dQ, View vdq, int nh, int Lq, int Lk,
                            int n_tiles, float scale) {
+  using C = Dq<HD>;
+  using H = Hd<HD>;
+  constexpr int KEYS = C::KEYS;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[DQ_STAGES], ready[DQ_STAGES], empty[DQ_STAGES], q_full, q_empty;
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sq = (raw + 1023u) & ~1023u;         // Q, dO: 64 rows each
-  const uint32_t srows = sq + 2 * Dq::Q_TILE;          // m, 1 / l, di, segment ids of the 64 rows
-  const uint32_t sst = srows + 1024;                   // [stage][hi: K, V][lo: K, V][key segment ids]
-  const uint32_t sds = sst + DQ_STAGES * Dq::STAGE;    // dS hi, lo
-  const uint32_t spex = sds + 2 * Dq::DS;              // P
+  const uint32_t srows = sq + 2 * C::Q_TILE;          // m, 1 / l, di, segment ids of the 64 rows
+  const uint32_t sst = srows + 1024;                  // [stage][hi: K, V][lo: K, V][key segment ids]
+  const uint32_t sds = sst + DQ_STAGES * C::STAGE;    // dS hi, lo
+  const uint32_t spex = sds + 2 * C::DS;              // P
   unsigned char* const base = smem_raw + (sq - raw);
-  const int n_qb = Lq / RB, n_kt = Lk / KT;
+  const int n_qb = Lq / RB, n_kt = Lk / KEYS;
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -2066,20 +2304,20 @@ flash_dq_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __gr
         const long long rows0 = ((long long)b * nh + h) * Lq + qb * RB;
         mbar_wait(&q_empty, q_phase ^ 1);
         q_phase ^= 1;
-        mbar_expect_tx(&q_full, 2 * Dq::Q_TILE + Dq::ROWS);
-        tma_tile<RB>(sq, &map_q, heads_inner & 1, h, qb * RB, b, &q_full);
-        tma_tile<RB>(sq + Dq::Q_TILE, &map_do, heads_inner & 8, h, qb * RB, b, &q_full);
+        mbar_expect_tx(&q_full, 2 * C::Q_TILE + C::ROWS);
+        tma_tile<RB, HD>(sq, &map_q, heads_inner & 1, h, qb * RB, b, &q_full);
+        tma_tile<RB, HD>(sq + C::Q_TILE, &map_do, heads_inner & 8, h, qb * RB, b, &q_full);
         wg::bulk_load(srows, m_in + rows0, RB * 4, &q_full);
         wg::bulk_load(srows + RB * 4, inv_l + rows0, RB * 4, &q_full);
         wg::bulk_load(srows + 2 * RB * 4, di_in + rows0, RB * 4, &q_full);
         wg::bulk_load(srows + 3 * RB * 4, qseg + (long long)b * Lq + qb * RB, RB * 4, &q_full);
         for (int kt = 0; kt < n_kt; ++kt) {
           mbar_wait(&empty[stage], phase ^ 1);
-          mbar_expect_tx(&full[stage], Dq::HI + KT * 4);
-          const uint32_t st = sst + stage * Dq::STAGE;
-          tma_tile<KT>(st, &map_k, heads_inner & 2, h, kt * KT, b, &full[stage]);
-          tma_tile<KT>(st + Dq::KV_TILE, &map_v, heads_inner & 4, h, kt * KT, b, &full[stage]);
-          wg::bulk_load(st + 2 * Dq::HI, kvseg + (long long)b * Lk + kt * KT, KT * 4, &full[stage]);
+          mbar_expect_tx(&full[stage], C::HI + KEYS * 4);
+          const uint32_t st = sst + stage * C::STAGE;
+          tma_tile<KEYS, HD>(st, &map_k, heads_inner & 2, h, kt * KEYS, b, &full[stage]);
+          tma_tile<KEYS, HD>(st + C::KV_TILE, &map_v, heads_inner & 4, h, kt * KEYS, b, &full[stage]);
+          wg::bulk_load(st + 2 * C::HI, kvseg + (long long)b * Lk + kt * KEYS, KEYS * 4, &full[stage]);
           if (++stage == DQ_STAGES) {
             stage = 0;
             phase ^= 1;
@@ -2093,7 +2331,7 @@ flash_dq_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __gr
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x)
         for (int kt = 0; kt < n_kt; ++kt) {
           mbar_wait(&full[stage], phase);
-          split_tiles(base + (sst - sq) + stage * Dq::STAGE, Dq::HI, Dq::HI, si);
+          split_tiles(base + (sst - sq) + stage * C::STAGE, C::HI, C::HI, si);
           mbar_arrive(&ready[stage]);
           if (++stage == DQ_STAGES) {
             stage = 0;
@@ -2111,18 +2349,20 @@ flash_dq_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __gr
   const int row = warp * 16 + g;  // this thread's query rows: row and row + 8 of the block
   const float* const rows = reinterpret_cast<const float*>(base + (srows - sq));
   unsigned char* const ds_hi = base + (sds - sq);
-  unsigned char* const ds_lo = ds_hi + Dq::DS;
+  unsigned char* const ds_lo = ds_hi + C::DS;
   float* const pex = reinterpret_cast<float*>(base + (spex - sq));
-  uint32_t a_off[4];  // this thread's offsets in the stage's K tile for the transposed A (cols_a)
-  cols_offsets<KT>(a_off, warp * 16, lane);
+  const unsigned char* const q_rows = base + wgi * C::Q_TILE;  // Q (wg 0) or dO (wg 1), raw
+  uint32_t a_off[H::MH][4];  // this thread's offsets in the stage's K tile for the transposed A (cols_a), by half
+#pragma unroll
+  for (int mh = 0; mh < H::MH; ++mh) cols_offsets<KEYS>(a_off[mh], mh * 64 + warp * 16, lane);
   int stage = 0;
   uint32_t phase = 0, q_phase = 0;
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const int qb = t % n_qb, h = (t / n_qb) % nh, b = t / (n_qb * nh);
-    uint32_t fh[8][4], fl[8][4];  // Q (wg 0) or dO (wg 1): this warp's 16 rows over the head dim
+    uint32_t fh[H::AK][4], fl[H::AK][4];  // Q (wg 0) or dO (wg 1): this warp's 16 rows over the head dim (an atom)
     mbar_wait(&q_full, q_phase);
     q_phase ^= 1;
-    rows_a<RB>(fh, fl, base + wgi * Dq::Q_TILE, warp * 16, lane);
+    if constexpr (H::HELD) rows_a<RB, H::AK>(fh, fl, q_rows, warp * 16, lane);
     float m_row[2], il[2], di[2];
     int seg[2];
 #pragma unroll
@@ -2132,29 +2372,39 @@ flash_dq_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __gr
       di[r] = rows[2 * RB + row + 8 * r];
       seg[r] = reinterpret_cast<const int*>(rows)[3 * RB + row + 8 * r];
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&q_empty);  // this warp is done with the Q, dO and rows buffer
-    float acc[4][4], part[4][4], s[8][4];  // dQ^T (head dim x 32 query rows); a stage's share; S or dP
-    uint32_t ah[8][4], al[8][4];           // K^T of a stage
+    if constexpr (H::HELD) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&q_empty);  // this warp is done with the Q, dO and rows buffer
+    }
+    // dQ^T (head dim x 32 query rows, by 64-row half); a stage's share; S or dP
+    float acc[4 * H::MH][4], part[4][4], s[KEYS / 8][4];
+    uint32_t ah[KEYS / 8][4], al[KEYS / 8][4];  // K^T of a stage
     zero(acc);
     zero(part);
     zero(s);
     for (int kt = 0; kt < n_kt; ++kt) {
       mbar_wait(&full[stage], phase);   // the key segment ids' TMA bytes
       mbar_wait(&ready[stage], phase);  // the split
-      const uint32_t st = sst + stage * Dq::STAGE;
+      const uint32_t st = sst + stage * C::STAGE;
       unsigned char* const stp = base + (st - sq);
       // S = Q K^T (wg 0) or dP = dO V^T (wg 1): B is the stage's K or V tile; under it, the transposed A
       // of dQ^T += K^T dS^T from the stage's K tile
-      const uint64_t d_hi = sw128_desc(st + wgi * Dq::KV_TILE), d_lo = d_hi + Dq::HI / 16;
-      issue3(s, fh, fl, [&](int kk) { return desc64<KT>(d_hi, kk); }, [&](int kk) { return desc64<KT>(d_lo, kk); });
-      cols_a(ah, al, stp, stp + Dq::HI, a_off);
-      hopper::wgmma_wait<0>();
-      done(s, fh, fl);
+      const uint64_t d_hi = sw128_desc(st + wgi * C::KV_TILE), d_lo = d_hi + C::HI / 16;
+      auto desc = [&](int kk) { return desc64<KEYS>(d_hi, kk); };
+      auto desc_lo = [&](int kk) { return desc64<KEYS>(d_lo, kk); };
+      if constexpr (H::HELD) {
+        issue3(s, fh, fl, desc, desc_lo);
+        cols_a_hd<HD>(ah, al, stp, stp + C::HI, a_off[0], warp * 16);
+        hopper::wgmma_wait<0>();
+        done(s, fh, fl);
+      } else {
+        by_atoms<RB, HD>(s, fh, fl, q_rows, warp * 16, lane, desc, desc_lo);
+        cols_a_hd<HD>(ah, al, stp, stp + C::HI, a_off[0], warp * 16);
+      }
       if (wgi == 0) {
-        const int* const kseg = reinterpret_cast<const int*>(stp + 2 * Dq::HI);
+        const int* const kseg = reinterpret_cast<const int*>(stp + 2 * C::HI);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < KEYS / 8; ++j) {
           const int2 ks = *reinterpret_cast<const int2*>(kseg + 8 * j + 2 * t4);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
@@ -2168,7 +2418,7 @@ flash_dq_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __gr
       } else {
         named_sync(1, 256);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < KEYS / 8; ++j) {
           const float4 p = reinterpret_cast<const float4*>(pex)[j * 128 + wtid];  // to_thread's order
           const float pj[4] = {p.x, p.y, p.z, p.w};
 #pragma unroll
@@ -2179,12 +2429,17 @@ flash_dq_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __gr
         fence_proxy_async();
       }
       named_sync(2, 256);  // dS written (and P read)
-      // dQ^T += K^T dS^T over this warpgroup's 32 query rows
-      const uint64_t dd_hi = sw128_desc(sds + wgi * 32 * 128), dd_lo = dd_hi + Dq::DS / 16;
-      issue3(part, ah, al, [&](int kk) { return desc64<RB>(dd_hi, kk); }, [&](int kk) { return desc64<RB>(dd_lo, kk); });
-      hopper::wgmma_wait<0>();
-      done(part, ah, al);
-      add_rn(acc, part);
+      // dQ^T += K^T dS^T over this warpgroup's 32 query rows, a 64-row half of the head dim at a time
+      const uint64_t dd_hi = sw128_desc(sds + wgi * 32 * 128), dd_lo = dd_hi + C::DS / 16;
+#pragma unroll
+      for (int mh = 0; mh < H::MH; ++mh) {
+        if (mh > 0) cols_a_hd<HD>(ah, al, stp, stp + C::HI, a_off[mh], mh * 64 + warp * 16);
+        issue3(part, ah, al, [&](int kk) { return desc64<RB>(dd_hi, kk); },
+               [&](int kk) { return desc64<RB>(dd_lo, kk); });
+        hopper::wgmma_wait<0>();
+        done(part, ah, al);
+        add_rn(wg::cols<4>(acc, 4 * mh), part);
+      }
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[stage]);  // this warp is done with the stage
       if (++stage == DQ_STAGES) {
@@ -2192,7 +2447,14 @@ flash_dq_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __gr
         phase ^= 1;
       }
     }
-    store_t(dQ + b * vdq.sb + h * vdq.sh + (long long)(qb * RB + wgi * 32) * vdq.sl, vdq.sl, acc, warp * 16, lane);
+    if constexpr (!H::HELD) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&q_empty);  // this warp is done with the Q, dO and rows buffer
+    }
+    float* const out = dQ + b * vdq.sb + h * vdq.sh + (long long)(qb * RB + wgi * 32) * vdq.sl;
+#pragma unroll
+    for (int mh = 0; mh < H::MH; ++mh)
+      if (mh * 64 + warp * 16 < HD) store_t(out, vdq.sl, wg::cols<4>(acc, 4 * mh), mh * 64 + warp * 16, lane);
   }
 }
 
@@ -2201,20 +2463,21 @@ flash_dq_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __gr
 // A block is two consumer warpgroups of 64 query rows (128, the JAX query
 // block) and the producer warpgroup, persistent over (query block, head,
 // batch) tiles, a head's query blocks adjacent.  The producer's thread 256
-// loads the block's Q rows once a tile and 64-key stages of K, V and the key
-// segment ids into a ring of FWD_STAGES; its warps 9-11 split each stage: K
-// in place (hi) with its lo twin, the B operand of S = Q K^T; V transposed
-// into V^T hi and lo tiles (split_t), the B operand of O = P V, with each
-// key at pos(key) of its 8-group, so that S's accumulator registers, once
-// exponentiated and split, are P's A fragments of the same k-step with no
-// shuffle.  A consumer takes its Q rows into A fragments once a tile (split
-// in registers) and then, a stage at a time: S = Q K^T (three TF32
-// products, 24 m64n64k8 wgmmas), the mask and the online softmax over the
-// stage's 64 keys in fp32 registers (a NaN-keeping max, ex2.approx), O's
-// running sum rescaled, P split into hi and lo A fragments, P V into S's
-// registers (a fresh accumulator, 24 wgmmas), added to O times 1 / l.  O
-// leaves by 8-byte stores of whole 32-byte sectors, l and m from the
-// accumulator rows' first lane.  No branch splits a commit from its wait;
+// loads the block's Q rows once a tile and KEYS-key stages of K, V and the
+// key segment ids into a ring of FWD_STAGES; its warps 9-11 split each
+// stage: K in place (hi) with its lo twin, the B operand of S = Q K^T; V
+// transposed into V^T hi and lo tiles (split_t), the B operand of O = P V,
+// with each key at pos(key) of its 8-group, so that S's accumulator
+// registers, once exponentiated and split, are P's A fragments of the same
+// k-step with no shuffle.  A consumer takes its Q rows into A fragments
+// once a tile (split in registers; at head dim 128 an atom at a time each
+// stage) and then, a stage at a time: S = Q K^T (three TF32 products, 24
+// m64n64k8 wgmmas at hd 64), the mask and the online softmax over the
+// stage's keys in fp32 registers (a NaN-keeping max, ex2.approx), O's
+// running sum rescaled, P split into hi and lo A fragments, P V (a fresh
+// accumulator; m64nNk8 with N the head dim, two of 64 at 128), added to O
+// times 1 / l.  O leaves by 8-byte stores of whole 32-byte sectors, l and m
+// from the accumulator rows' first lane.  No branch splits a commit from its wait;
 // the two consumer warpgroups share nothing but the ring: turns for them at
 // the tensor cores (named barriers, one's softmax under the other's
 // products) measured no faster (PERF.md §6).
@@ -2226,17 +2489,25 @@ flash_dq_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __gr
 // (K and V^T: lo once and hi twice for each warpgroup) against 3,072 cycles
 // of tensor-core time (48 m64n64k8 TF32 wgmmas a warpgroup).
 
-struct Fwd {
+template <int HD> struct Fwd {
   static constexpr int ROWS_BLK = 2 * RB;                // query rows a block
-  static constexpr uint32_t Q_TILE = 2 * ROWS_BLK * 128;  // the block's Q rows: 32 KB
-  static constexpr uint32_t KV_TILE = 2 * KT * 128;       // a stage's K (or V, or V^T) rows: 16 KB
-  // [K hi (the raw tile split in place), K lo, V raw, V^T hi, V^T lo, key segment ids]
-  static constexpr uint32_t K_LO = KV_TILE, V_RAW = 2 * KV_TILE, VT_HI = 3 * KV_TILE, VT_LO = 4 * KV_TILE,
-                            SEG = 5 * KV_TILE;
-  static constexpr uint32_t STAGE = 5 * KV_TILE + 1024;
-  static constexpr uint32_t smem = 1024 + Q_TILE + FWD_STAGES * STAGE;
+  static constexpr int KEYS = Hd<HD>::KEYS;              // keys a stage
+  static constexpr uint32_t Q_TILE = ROWS_BLK * HD * 4;  // the block's Q rows: 32 KB at hd 64
+  static constexpr uint32_t KV_TILE = KEYS * HD * 4;     // a stage's K (or V, or V^T) rows: 16 KB at hd 64
+  // [K hi (the raw tile split in place), K lo, V raw, V^T hi, V^T lo, key segment ids]; at hd 128 the stages'
+  // segment ids after the stages, where a stage's 1 KB of them would not fit
+  static constexpr uint32_t K_LO = KV_TILE, V_RAW = 2 * KV_TILE, VT_HI = 3 * KV_TILE, VT_LO = 4 * KV_TILE;
+  static constexpr bool SEG_IN = HD <= 64;
+  static constexpr uint32_t STAGE = 5 * KV_TILE + (SEG_IN ? 1024 : 0);
+  static constexpr uint32_t SEG = Q_TILE + FWD_STAGES * STAGE;
+  static constexpr uint32_t smem = 1024 + SEG + (SEG_IN ? 0 : FWD_STAGES * KEYS * 4);
+  // stage s's key segment ids, bytes past the Q tile's start
+  static __device__ __forceinline__ uint32_t seg(int s) {
+    return SEG_IN ? Q_TILE + s * STAGE + 5 * KV_TILE : SEG + s * KEYS * 4;
+  }
 };
-static_assert(Fwd::smem <= 232448 - 1024, "K11's route tf32 must fit a block's shared memory");
+static_assert(Fwd<32>::smem <= 232448 - 1024 && Fwd<64>::smem <= 232448 - 1024 && Fwd<128>::smem <= 232448 - 1024,
+              "K11's route tf32 must fit a block's shared memory");
 
 // max(a, b), NaN if either is: the plain version's amax and maximum keep a
 // NaN logit, fmaxf drops it.
@@ -2251,42 +2522,49 @@ __device__ __forceinline__ float quad_max_nan(float x) {
   return max_nan(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-// A raw 64-row tile of fp32 rows (one a key) split into the K-major B tiles
-// of its transpose, hi and lo: row h (the head dim) holds the 64 keys, key k
-// at column pos(k).  A warp takes 16 keys x two 16-byte chunks of one half a
-// turn: its reads (8 keys a quarter-warp) and its 4-byte writes (8 swizzled
-// chunks x 4 words) each hit distinct banks.
+// A raw KEYS-row tile of fp32 rows of HD (one a key) split into the K-major
+// B tiles of its transpose, hi and lo: row h (the head dim) holds the keys,
+// key k at column pos(k).  A warp takes 16 keys x two 16-byte chunks of one
+// atom a turn: its reads (8 keys a quarter-warp) and its 4-byte writes (8
+// swizzled chunks x 4 words) each hit distinct banks.
+template <int KEYS, int HD>
 __device__ __forceinline__ void split_t(const unsigned char* raw, unsigned char* t_hi, unsigned char* t_lo, int si) {
+  constexpr int KG = KEYS / 16, NQ = HD / 32;  // 16-key groups; atoms of a raw row
   const int lane = si & 31;
-  for (int turn = si >> 5; turn < 32; turn += SPLIT_THREADS / 32) {
-    const int key = (turn & 3) * 16 + (lane & 15), half = (turn >> 2) & 1, cg = 2 * (turn >> 3) + (lane >> 4);
-    const float4 x = *reinterpret_cast<const float4*>(raw + half * (KT * 128) + key * 128 + (((cg ^ key) & 7) << 4));
+  for (int turn = si >> 5; turn < KG * NQ * 4; turn += SPLIT_THREADS / 32) {
+    const unsigned u = turn, rest = u / KG;
+    const int key = (u % KG) * 16 + (lane & 15), half = rest % NQ, cg = 2 * (rest / NQ) + (lane >> 4);
+    const float4 x = *reinterpret_cast<const float4*>(raw + half * (KEYS * 128) + key * 128 + (((cg ^ key) & 7) << 4));
     const float xs[4] = {x.x, x.y, x.z, x.w};
     const int h0 = half * 32 + 4 * cg, col = pos(key);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       uint32_t hi, lo;
       split(xs[i], hi, lo);
-      const uint32_t off = at<RB>(h0 + i, col);
+      const uint32_t off = at<HD>(h0 + i, col);
       *reinterpret_cast<uint32_t*>(t_hi + off) = hi;
       *reinterpret_cast<uint32_t*>(t_lo + off) = lo;
     }
   }
 }
 
+template <int HD>
 __global__ void __launch_bounds__(384, 1)
 flash_fwd_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                             const __grid_constant__ CUtensorMap map_v, int heads_inner, float* __restrict__ O,
                             View vo, const int* __restrict__ qseg, const int* __restrict__ kvseg,
                             float* __restrict__ l_out, float* __restrict__ m_out, int nh, int Lq, int Lk,
                             int n_tiles, float scale) {
+  using C = Fwd<HD>;
+  using H = Hd<HD>;
+  constexpr int KEYS = C::KEYS, NV = HD == 32 ? 4 : 8;  // NV: P V's N a wgmma, in 8-column groups
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[FWD_STAGES], ready[FWD_STAGES], empty[FWD_STAGES], q_full, q_empty;
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sq = (raw + 1023u) & ~1023u;  // Q: 128 rows
-  const uint32_t sst = sq + Fwd::Q_TILE;        // [stage][Fwd's tiles]
+  const uint32_t sst = sq + C::Q_TILE;          // [stage][C's tiles]
   unsigned char* const base = smem_raw + (sq - raw);
-  const int n_qb = Lq / Fwd::ROWS_BLK, n_kt = Lk / KT;
+  const int n_qb = Lq / C::ROWS_BLK, n_kt = Lk / KEYS;
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -2311,15 +2589,15 @@ flash_fwd_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
         const int qb = t % n_qb, h = (t / n_qb) % nh, b = t / (n_qb * nh);
         mbar_wait(&q_empty, q_phase ^ 1);
         q_phase ^= 1;
-        mbar_expect_tx(&q_full, Fwd::Q_TILE);
-        tma_tile<Fwd::ROWS_BLK>(sq, &map_q, heads_inner & 1, h, qb * Fwd::ROWS_BLK, b, &q_full);
+        mbar_expect_tx(&q_full, C::Q_TILE);
+        tma_tile<C::ROWS_BLK, HD>(sq, &map_q, heads_inner & 1, h, qb * C::ROWS_BLK, b, &q_full);
         for (int kt = 0; kt < n_kt; ++kt) {
           mbar_wait(&empty[stage], phase ^ 1);
-          mbar_expect_tx(&full[stage], 2 * Fwd::KV_TILE + KT * 4);
-          const uint32_t st = sst + stage * Fwd::STAGE;
-          tma_tile<KT>(st, &map_k, heads_inner & 2, h, kt * KT, b, &full[stage]);
-          tma_tile<KT>(st + Fwd::V_RAW, &map_v, heads_inner & 4, h, kt * KT, b, &full[stage]);
-          wg::bulk_load(st + Fwd::SEG, kvseg + (long long)b * Lk + kt * KT, KT * 4, &full[stage]);
+          mbar_expect_tx(&full[stage], 2 * C::KV_TILE + KEYS * 4);
+          const uint32_t st = sst + stage * C::STAGE;
+          tma_tile<KEYS, HD>(st, &map_k, heads_inner & 2, h, kt * KEYS, b, &full[stage]);
+          tma_tile<KEYS, HD>(st + C::V_RAW, &map_v, heads_inner & 4, h, kt * KEYS, b, &full[stage]);
+          wg::bulk_load(sq + C::seg(stage), kvseg + (long long)b * Lk + kt * KEYS, KEYS * 4, &full[stage]);
           if (++stage == FWD_STAGES) {
             stage = 0;
             phase ^= 1;
@@ -2333,9 +2611,9 @@ flash_fwd_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x)
         for (int kt = 0; kt < n_kt; ++kt) {
           mbar_wait(&full[stage], phase);
-          unsigned char* const stp = base + Fwd::Q_TILE + stage * Fwd::STAGE;
-          split_t(stp + Fwd::V_RAW, stp + Fwd::VT_HI, stp + Fwd::VT_LO, si);
-          split_tiles(stp, Fwd::KV_TILE, Fwd::K_LO, si);  // K, then the fence for both
+          unsigned char* const stp = base + C::Q_TILE + stage * C::STAGE;
+          split_t<KEYS, HD>(stp + C::V_RAW, stp + C::VT_HI, stp + C::VT_LO, si);
+          split_tiles(stp, C::KV_TILE, C::K_LO, si);  // K, then the fence for both
           mbar_arrive(&ready[stage]);
           if (++stage == FWD_STAGES) {
             stage = 0;
@@ -2355,31 +2633,40 @@ flash_fwd_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
   uint32_t phase = 0, q_phase = 0;
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const int qb = t % n_qb, h = (t / n_qb) % nh, b = t / (n_qb * nh);
-    const int row = qb * Fwd::ROWS_BLK + r0 + g;  // the thread's first query row
+    const int row = qb * C::ROWS_BLK + r0 + g;  // the thread's first query row
     const int seg0 = qseg[(long long)b * Lq + row], seg1 = qseg[(long long)b * Lq + row + 8];
-    uint32_t fh[8][4], fl[8][4];  // this warp's 16 Q rows over the head dim
+    uint32_t fh[H::AK][4], fl[H::AK][4];  // this warp's 16 Q rows over the head dim (an atom)
     mbar_wait(&q_full, q_phase);
     q_phase ^= 1;
-    rows_a<Fwd::ROWS_BLK>(fh, fl, base, r0, lane);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&q_empty);  // this warp is done with the Q buffer
+    if constexpr (H::HELD) {
+      rows_a<C::ROWS_BLK, H::AK>(fh, fl, base, r0, lane);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&q_empty);  // this warp is done with the Q buffer
+    }
     float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
-    float acc[8][4], s[8][4];  // O (rows x head dim); S, then the stage's P V
+    float acc[HD / 8][4], s[KEYS / 8][4], pv[HD / 8][4];  // O (rows x head dim); S, then P; the stage's P V
     zero(acc);
     zero(s);
+    zero(pv);
     for (int kt = 0; kt < n_kt; ++kt) {
       mbar_wait(&full[stage], phase);   // the key segment ids' TMA bytes
       mbar_wait(&ready[stage], phase);  // the split
-      const uint32_t st = sst + stage * Fwd::STAGE;
-      const int* const kseg = reinterpret_cast<const int*>(base + (st - sq) + Fwd::SEG);
+      const uint32_t st = sst + stage * C::STAGE;
+      const int* const kseg = reinterpret_cast<const int*>(base + C::seg(stage));
       // S = Q K^T: B the stage's split K tile
-      const uint64_t dk = sw128_desc(st), dk_lo = dk + Fwd::K_LO / 16;
-      issue3(s, fh, fl, [&](int kk) { return desc64<KT>(dk, kk); }, [&](int kk) { return desc64<KT>(dk_lo, kk); });
-      hopper::wgmma_wait<0>();
-      done(s, fh, fl);
+      const uint64_t dk = sw128_desc(st), dk_lo = dk + C::K_LO / 16;
+      auto desc = [&](int kk) { return desc64<KEYS>(dk, kk); };
+      auto desc_lo = [&](int kk) { return desc64<KEYS>(dk_lo, kk); };
+      if constexpr (H::HELD) {
+        issue3(s, fh, fl, desc, desc_lo);
+        hopper::wgmma_wait<0>();
+        done(s, fh, fl);
+      } else {
+        by_atoms<C::ROWS_BLK, HD>(s, fh, fl, base, r0, lane, desc, desc_lo);
+      }
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < KEYS / 8; ++j) {
         const int2 ks = *reinterpret_cast<const int2*>(kseg + 8 * j + 2 * t4);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -2391,7 +2678,7 @@ flash_fwd_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
 #pragma unroll
       for (int r = 0; r < 2; ++r) m_next[r] = max_nan(m_run[r], quad_max_nan(mx[r]));
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < KEYS / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           s[j][e] = wg::exp_p(s[j][e] - m_next[e >> 1]);
@@ -2404,7 +2691,7 @@ flash_fwd_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
         inv[r] = l_next == 0.0f ? 1.0f : __fdiv_rn(1.0f, l_next);
         const float keep = __fmul_rn(l_corr, inv[r]);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < HD / 8; ++j) {
           acc[j][2 * r] = __fmul_rn(acc[j][2 * r], keep);
           acc[j][2 * r + 1] = __fmul_rn(acc[j][2 * r + 1], keep);
         }
@@ -2412,33 +2699,42 @@ flash_fwd_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
         m_run[r] = m_next[r];
       }
       // P's A fragments: accumulator columns 8kk + 2t and + 1 are A columns t and t + 4 (V^T's pos())
-      uint32_t ph[8][4], pl[8][4];
+      uint32_t ph[KEYS / 8][4], pl[KEYS / 8][4];
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < KEYS / 8; ++kk) {
         split(s[kk][0], ph[kk][0], pl[kk][0]);
         split(s[kk][2], ph[kk][1], pl[kk][1]);
         split(s[kk][1], ph[kk][2], pl[kk][2]);
         split(s[kk][3], ph[kk][3], pl[kk][3]);
       }
-      // P V into S's registers: B the stage's split V^T tile
-      const uint64_t dv = sw128_desc(st + Fwd::VT_HI), dv_lo = dv + (Fwd::VT_LO - Fwd::VT_HI) / 16;
-      issue3(s, ph, pl, [&](int kk) { return desc64<RB>(dv, kk); }, [&](int kk) { return desc64<RB>(dv_lo, kk); });
+      // P V: B the stage's split V^T tile, a wgmma a 64-row half of the head dim at 128
+      const uint64_t dv = sw128_desc(st + C::VT_HI), dv_lo = dv + (C::VT_LO - C::VT_HI) / 16;
+#pragma unroll
+      for (int n = 0; n < HD / (8 * NV); ++n) {
+        const uint64_t dn = dv + n * (64 * 128 / 16), dn_lo = dv_lo + n * (64 * 128 / 16);
+        issue3(wg::cols<NV>(pv, n * NV), ph, pl, [&](int kk) { return desc64<HD>(dn, kk); },
+               [&](int kk) { return desc64<HD>(dn_lo, kk); });
+      }
       hopper::wgmma_wait<0>();
-      done(s, ph, pl);
+      done(pv, ph, pl);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[stage]);  // this warp is done with the stage
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = __fadd_rn(acc[j][e], __fmul_rn(s[j][e], inv[e >> 1]));
+        for (int e = 0; e < 4; ++e) acc[j][e] = __fadd_rn(acc[j][e], __fmul_rn(pv[j][e], inv[e >> 1]));
       if (++stage == FWD_STAGES) {
         stage = 0;
         phase ^= 1;
       }
     }
+    if constexpr (!H::HELD) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&q_empty);  // this warp is done with the Q buffer
+    }
     float* const out = O + b * vo.sb + h * vo.sh + (long long)row * vo.sl;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < HD / 8; ++j) {
       *reinterpret_cast<float2*>(out + 8 * j + 2 * t4) = make_float2(acc[j][0], acc[j][1]);
       *reinterpret_cast<float2*>(out + 8 * vo.sl + 8 * j + 2 * t4) = make_float2(acc[j][2], acc[j][3]);
     }
@@ -2453,7 +2749,6 @@ flash_fwd_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
 }
 
 }  // namespace tf
-
 View view(const long long* s) { return View{s[0], s[1], s[2]}; }
 
 bool aligned(const void* p, const long long* s) {
@@ -2484,12 +2779,27 @@ int on_device(int device, F launch) {
   return e;
 }
 
+// The head dims routes "wgmma", "tf32" and "fp32" take; route "simple" takes HD alone.
+constexpr int kHeadDims[] = {32, 64, 128};
+
 // 0 if the shape is one the kernels take, else cudaErrorInvalidValue.
-int check_shape(int B, int nh, int Lq, int Lk, int dtype, int device) {
+int check_shape(int B, int nh, int Lq, int Lk, int hd, int dtype, int device) {
   if (B < 1 || nh < 1 || B > 65535 || nh > 65535 || dtype < 0 || dtype > 2 || device < 0 || device >= kMaxDevices)
     return (int)cudaErrorInvalidValue;
+  if (hd != 32 && hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
   if (Lq < FWD_TILE || Lk < FWD_TILE || Lq % FWD_TILE || Lk % FWD_TILE) return (int)cudaErrorInvalidValue;
   return 0;
+}
+
+// `f` with the head dim as a template argument: f(std::integral_constant<int, hd>())
+template <typename F>
+int by_head_dim(int hd, F f) {
+  switch (hd) {
+    case 32: return f(std::integral_constant<int, 32>());
+    case 64: return f(std::integral_constant<int, 64>());
+    case 128: return f(std::integral_constant<int, 128>());
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -2536,35 +2846,37 @@ int dq(const void* q, const void* k, const void* v, const int* qseg, const int* 
 }
 
 
-// A (B, nh, L, 64) view with (batch, head, row) strides `s` in elements as a
-// 4-D tensor map cut into boxes of one 128-byte row (64 bf16 or fp16, 32
-// fp32: an fp32 row is two boxes) x `box_rows` rows with the 128-byte
-// swizzle.  Its dims run (64, nh, L, B) when a head's rows lie further apart
-// than its heads do (the models' layout: heads-major views of (B, L, nh, 64)),
-// else (64, L, nh, B); `heads_inner` says which.  A dim of extent 1 takes the
-// largest stride, so that it sorts outside.
-bool make_rows_map(CUtensorMap* map, const void* ptr, int dtype, int B, int nh, int L, const long long* s,
+// A (B, nh, L, hd) view with (batch, head, row) strides `s` in elements as a
+// 4-D tensor map cut into boxes of one swizzle row (bf16 or fp16: 64
+// elements, 128 bytes, or at hd 32 the row's 32, 64 bytes; fp32: 32, 128
+// bytes) x `box_rows` rows with the 128-byte (64-byte) swizzle; a row is hd
+// / (the box's elements) boxes.  Its dims run (hd, nh, L, B) when a head's
+// rows lie further apart than its heads do (the models' layout: heads-major
+// views of (B, L, nh, hd)), else (hd, L, nh, B); `heads_inner` says which.
+// A dim of extent 1 takes the largest stride, so that it sorts outside.
+bool make_rows_map(CUtensorMap* map, const void* ptr, int dtype, int B, int nh, int L, int hd, const long long* s,
                    uint32_t box_rows, bool* heads_inner) {
   hopper::EncodeTiledFn enc = hopper::encode_tiled();
   if (enc == nullptr) return false;
   long long sb = s[0], sh = s[1];
   const long long sl = s[2];
-  const long long big = std::max(std::max(sb, sh), std::max(sl, (long long)HD));
+  const long long big = std::max(std::max(sb, sh), std::max(sl, (long long)hd));
   if (nh == 1) sh = big;
   if (B == 1) sb = big;
   const bool hi = sh < sl;
   *heads_inner = hi;
-  const int eb = dtype == 2 ? 4 : 2;  // bytes an element
-  const cuuint64_t dims[4] = {cuuint64_t(HD), cuuint64_t(hi ? nh : L), cuuint64_t(hi ? L : nh), cuuint64_t(B)};
+  const int eb = dtype == 2 ? 4 : 2;                         // bytes an element
+  const uint32_t span = (dtype != 2 && hd == 32) ? 64 : 128;  // bytes a box row: wg::Tile<hd>::SPAN, or fp32's 128
+  const cuuint64_t dims[4] = {cuuint64_t(hd), cuuint64_t(hi ? nh : L), cuuint64_t(hi ? L : nh), cuuint64_t(B)};
   const cuuint64_t strides[3] = {cuuint64_t(eb * (hi ? sh : sl)), cuuint64_t(eb * (hi ? sl : sh)),
                                  cuuint64_t(eb * sb)};
-  const cuuint32_t box[4] = {cuuint32_t(128 / eb), hi ? 1u : box_rows, hi ? box_rows : 1u, 1u};
+  const cuuint32_t box[4] = {cuuint32_t(span / eb), hi ? 1u : box_rows, hi ? box_rows : 1u, 1u};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUtensorMapDataType type = dtype == 0   ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                    : dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   return enc(map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             span == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -2581,225 +2893,246 @@ int sm_count(int device, int* n) {
   return 0;
 }
 
-template <typename T, int NWG>
+// A persistent grid: the SMs, or fewer tiles; 0 past INT32_MAX tiles.
+int persistent_grid(long long tiles, int device, int* grid) {
+  int sms = 0;
+  if (int e = sm_count(device, &sms)) return e;
+  if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
+  *grid = int(tiles < sms ? tiles : sms);
+  return 0;
+}
+
+template <typename T, int HD, int NWG>
 int fwd_wgmma(const void* q, const void* k, const void* v, void* o, const int* qseg, const int* kvseg, float* l,
               float* m, const long long* vq, const long long* vk, const long long* vv, const long long* vo, int B,
               int nh, int Lq, int Lk, float scale, int dtype, int device, cudaStream_t stream) {
+  using C = wg::Fwd<HD, NWG>;
   static std::atomic<bool> smem_set[kMaxDevices];
-  constexpr uint32_t smem = wg::Fwd<NWG>::smem;
   CUtensorMap mq, mk, mv;
   bool hq, hk, hv;
-  if (!make_rows_map(&mq, q, dtype, B, nh, Lq, vq, wg::Fwd<NWG>::ROWS_BLK, &hq) ||
-      !make_rows_map(&mk, k, dtype, B, nh, Lk, vk, wg::KT, &hk) ||
-      !make_rows_map(&mv, v, dtype, B, nh, Lk, vv, wg::KT, &hv))
+  if (!make_rows_map(&mq, q, dtype, B, nh, Lq, HD, vq, C::ROWS_BLK, &hq) ||
+      !make_rows_map(&mk, k, dtype, B, nh, Lk, HD, vk, wg::KT, &hk) ||
+      !make_rows_map(&mv, v, dtype, B, nh, Lk, HD, vv, wg::KT, &hv))
     return (int)cudaErrorInvalidValue;
-  int sms = 0;
-  if (int e = sm_count(device, &sms)) return e;
-  const cudaError_t err = allow_smem(wg::flash_fwd_wgmma_kernel<T, NWG>, (int)smem, device, smem_set);
+  const long long tiles = (long long)(Lq / C::ROWS_BLK) * nh * B;
+  int grid = 0;
+  if (int e = persistent_grid(tiles, device, &grid)) return e;
+  const cudaError_t err = allow_smem(wg::flash_fwd_wgmma_kernel<T, HD, NWG>, (int)C::smem, device, smem_set);
   if (err != cudaSuccess) return (int)err;
-  const long long tiles = (long long)(Lq / wg::Fwd<NWG>::ROWS_BLK) * nh * B;
-  if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
-  const int grid = int(tiles < sms ? tiles : sms);
-  wg::flash_fwd_wgmma_kernel<T, NWG><<<grid, (NWG + 1) * 128, smem, stream>>>(
+  wg::flash_fwd_wgmma_kernel<T, HD, NWG><<<grid, (NWG + 1) * 128, C::smem, stream>>>(
       mq, mk, mv, int(hq) | int(hk) << 1 | int(hv) << 2, static_cast<T*>(o), view(vo), qseg, kvseg, l, m, nh, Lq,
       Lk, int(tiles), scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int HD>
 int dkv_wgmma(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg, const float* inv_l,
               const float* m, const void* dout, const float* di, void* dk, void* dv, const long long* vq,
               const long long* vk, const long long* vv, const long long* vdo, const long long* vdk,
               const long long* vdv, int B, int nh, int Lq, int Lk, float scale, int dtype, int device,
               cudaStream_t stream) {
+  using C = wg::Dkv<HD>;
   static std::atomic<bool> smem_set[kMaxDevices];
   CUtensorMap mq, mk, mv, mo;
   bool hq, hk, hv, ho;
-  if (!make_rows_map(&mq, q, dtype, B, nh, Lq, vq, wg::QT, &hq) ||
-      !make_rows_map(&mk, k, dtype, B, nh, Lk, vk, wg::KT, &hk) ||
-      !make_rows_map(&mv, v, dtype, B, nh, Lk, vv, wg::KT, &hv) ||
-      !make_rows_map(&mo, dout, dtype, B, nh, Lq, vdo, wg::QT, &ho))
+  if (!make_rows_map(&mq, q, dtype, B, nh, Lq, HD, vq, C::QT, &hq) ||
+      !make_rows_map(&mk, k, dtype, B, nh, Lk, HD, vk, wg::KT, &hk) ||
+      !make_rows_map(&mv, v, dtype, B, nh, Lk, HD, vv, wg::KT, &hv) ||
+      !make_rows_map(&mo, dout, dtype, B, nh, Lq, HD, vdo, C::QT, &ho))
     return (int)cudaErrorInvalidValue;
-  int sms = 0;
-  if (int e = sm_count(device, &sms)) return e;
-  const cudaError_t err = allow_smem(wg::flash_dkv_wgmma_kernel<T>, (int)wg::DKV_SMEM, device, smem_set);
-  if (err != cudaSuccess) return (int)err;
   const long long tiles = (long long)(Lk / wg::KT) * nh * B;
-  if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
-  const int grid = int(tiles < sms ? tiles : sms);
-  wg::flash_dkv_wgmma_kernel<T><<<grid, 384, wg::DKV_SMEM, stream>>>(
+  int grid = 0;
+  if (int e = persistent_grid(tiles, device, &grid)) return e;
+  const cudaError_t err = allow_smem(wg::flash_dkv_wgmma_kernel<T, HD>, (int)C::smem, device, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  wg::flash_dkv_wgmma_kernel<T, HD><<<grid, 384, C::smem, stream>>>(
       mq, mk, mv, mo, int(hq) | int(hk) << 1 | int(hv) << 2 | int(ho) << 3, qseg, kvseg, inv_l, m, di,
       static_cast<T*>(dk), static_cast<T*>(dv), view(vdk), view(vdv), nh, Lq, Lk, int(tiles), scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int HD>
 int dq_wgmma(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg, const float* inv_l,
              const float* m, const void* dout, const float* di, void* dq_, const long long* vq, const long long* vk,
              const long long* vv, const long long* vdo, const long long* vdq, int B, int nh, int Lq, int Lk,
              float scale, int dtype, int device, cudaStream_t stream) {
+  using C = wg::Dq<HD>;
   static std::atomic<bool> smem_set[kMaxDevices];
-  constexpr int rows_blk = wg::Dq::ROWS_BLK;
   CUtensorMap mq, mk, mv, mo;
   bool hq, hk, hv, ho;
-  if (!make_rows_map(&mq, q, dtype, B, nh, Lq, vq, rows_blk, &hq) ||
-      !make_rows_map(&mk, k, dtype, B, nh, Lk, vk, wg::DQ_KT, &hk) ||
-      !make_rows_map(&mv, v, dtype, B, nh, Lk, vv, wg::DQ_KT, &hv) ||
-      !make_rows_map(&mo, dout, dtype, B, nh, Lq, vdo, rows_blk, &ho))
+  if (!make_rows_map(&mq, q, dtype, B, nh, Lq, HD, vq, C::ROWS_BLK, &hq) ||
+      !make_rows_map(&mk, k, dtype, B, nh, Lk, HD, vk, C::KT, &hk) ||
+      !make_rows_map(&mv, v, dtype, B, nh, Lk, HD, vv, C::KT, &hv) ||
+      !make_rows_map(&mo, dout, dtype, B, nh, Lq, HD, vdo, C::ROWS_BLK, &ho))
     return (int)cudaErrorInvalidValue;
-  int sms = 0;
-  if (int e = sm_count(device, &sms)) return e;
-  const cudaError_t err = allow_smem(wg::flash_dq_wgmma_kernel<T>, (int)wg::Dq::smem, device, smem_set);
+  const long long tiles = (long long)(Lq / C::ROWS_BLK) * nh * B;
+  int grid = 0;
+  if (int e = persistent_grid(tiles, device, &grid)) return e;
+  const cudaError_t err = allow_smem(wg::flash_dq_wgmma_kernel<T, HD>, (int)C::smem, device, smem_set);
   if (err != cudaSuccess) return (int)err;
-  const long long tiles = (long long)(Lq / rows_blk) * nh * B;
-  if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
-  const int grid = int(tiles < sms ? tiles : sms);
-  wg::flash_dq_wgmma_kernel<T><<<grid, (wg::Dq::NWG + 1) * 128, wg::Dq::smem, stream>>>(
+  wg::flash_dq_wgmma_kernel<T, HD><<<grid, (C::NWG + 1) * 128, C::smem, stream>>>(
       mq, mk, mv, mo, int(hq) | int(hk) << 1 | int(hv) << 2 | int(ho) << 3, qseg, kvseg, inv_l, m, di,
       static_cast<T*>(dq_), view(vdq), nh, Lq, Lk, int(tiles), scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int HD>
 int rows(const void* o, const void* dout, const float* l, float* di, float* inv_l, const long long* vo,
          const long long* vdo, int B, int nh, int L, cudaStream_t stream) {
   const long long n = (long long)B * nh * L;  // a multiple of 128: L is
-  if (n / 32 > INT32_MAX) return (int)cudaErrorInvalidValue;
-  wg::flash_rows_kernel<T><<<int(n / 32), 256, 0, stream>>>(static_cast<const T*>(o), static_cast<const T*>(dout),
-                                                             l, view(vo), view(vdo), di, inv_l, nh, L);
+  constexpr int per_block = 256 / (HD / 8);   // rows a block
+  if (n / per_block > INT32_MAX) return (int)cudaErrorInvalidValue;
+  wg::flash_rows_kernel<T, HD><<<int(n / per_block), 256, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), l, view(vo), view(vdo), di, inv_l, nh, L);
   return (int)cudaGetLastError();
 }
 
 // ---- route "fp32" launches (the rows kernel) ----
 
+template <int HD>
 int rows_fp32(const void* o, const void* dout, const float* l, float* di, float* inv_l, const long long* vo,
               const long long* vdo, int B, int nh, int L, cudaStream_t stream) {
   const long long n = (long long)B * nh * L;  // a multiple of 128: L is
-  if (n / 32 > INT32_MAX) return (int)cudaErrorInvalidValue;
-  f32::flash_rows_kernel<<<int(n / 32), 256, 0, stream>>>(static_cast<const float*>(o),
-                                                          static_cast<const float*>(dout), l, view(vo), view(vdo),
-                                                          di, inv_l, nh, L);
+  constexpr int per_block = 256 / (HD / 8);
+  if (n / per_block > INT32_MAX) return (int)cudaErrorInvalidValue;
+  f32::flash_rows_kernel<HD><<<int(n / per_block), 256, 0, stream>>>(
+      static_cast<const float*>(o), static_cast<const float*>(dout), l, view(vo), view(vdo), di, inv_l, nh, L);
   return (int)cudaGetLastError();
 }
 
 // ---- route "tf32" launches (K11, K12, K13) ----
 
+template <int HD>
 int fwd_tf32(const void* q, const void* k, const void* v, void* o, const int* qseg, const int* kvseg, float* l,
              float* m, const long long* vq, const long long* vk, const long long* vv, const long long* vo, int B,
              int nh, int Lq, int Lk, float scale, int device, cudaStream_t stream) {
+  using C = tf::Fwd<HD>;
   static std::atomic<bool> smem_set[kMaxDevices];
   CUtensorMap mq, mk, mv;
   bool hq, hk, hv;
-  if (!make_rows_map(&mq, q, 2, B, nh, Lq, vq, tf::Fwd::ROWS_BLK, &hq) ||
-      !make_rows_map(&mk, k, 2, B, nh, Lk, vk, tf::KT, &hk) || !make_rows_map(&mv, v, 2, B, nh, Lk, vv, tf::KT, &hv))
+  if (!make_rows_map(&mq, q, 2, B, nh, Lq, HD, vq, C::ROWS_BLK, &hq) ||
+      !make_rows_map(&mk, k, 2, B, nh, Lk, HD, vk, C::KEYS, &hk) ||
+      !make_rows_map(&mv, v, 2, B, nh, Lk, HD, vv, C::KEYS, &hv))
     return (int)cudaErrorInvalidValue;
-  int sms = 0;
-  if (int e = sm_count(device, &sms)) return e;
-  const cudaError_t err = allow_smem(tf::flash_fwd_tf32_wgmma_kernel, (int)tf::Fwd::smem, device, smem_set);
+  const long long tiles = (long long)(Lq / C::ROWS_BLK) * nh * B;
+  int grid = 0;
+  if (int e = persistent_grid(tiles, device, &grid)) return e;
+  const cudaError_t err = allow_smem(tf::flash_fwd_tf32_wgmma_kernel<HD>, (int)C::smem, device, smem_set);
   if (err != cudaSuccess) return (int)err;
-  const long long tiles = (long long)(Lq / tf::Fwd::ROWS_BLK) * nh * B;
-  if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
-  const int grid = int(tiles < sms ? tiles : sms);
-  tf::flash_fwd_tf32_wgmma_kernel<<<grid, 384, tf::Fwd::smem, stream>>>(
+  tf::flash_fwd_tf32_wgmma_kernel<HD><<<grid, 384, C::smem, stream>>>(
       mq, mk, mv, int(hq) | int(hk) << 1 | int(hv) << 2, static_cast<float*>(o), view(vo), qseg, kvseg, l, m, nh,
       Lq, Lk, int(tiles), scale);
   return (int)cudaGetLastError();
 }
 
-
+template <int HD>
 int dkv_tf32(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg, const float* inv_l,
              const float* m, const void* dout, const float* di, void* dk, void* dv, const long long* vq,
              const long long* vk, const long long* vv, const long long* vdo, const long long* vdk,
              const long long* vdv, int B, int nh, int Lq, int Lk, float scale, int device, cudaStream_t stream) {
+  using C = tf::Dkv<HD>;
   static std::atomic<bool> smem_set[kMaxDevices];
   CUtensorMap mq, mk, mv, mo;
   bool hq, hk, hv, ho;
-  if (!make_rows_map(&mq, q, 2, B, nh, Lq, vq, tf::QT, &hq) || !make_rows_map(&mk, k, 2, B, nh, Lk, vk, tf::RB, &hk) ||
-      !make_rows_map(&mv, v, 2, B, nh, Lk, vv, tf::RB, &hv) ||
-      !make_rows_map(&mo, dout, 2, B, nh, Lq, vdo, tf::QT, &ho))
+  if (!make_rows_map(&mq, q, 2, B, nh, Lq, HD, vq, tf::QT, &hq) ||
+      !make_rows_map(&mk, k, 2, B, nh, Lk, HD, vk, tf::RB, &hk) ||
+      !make_rows_map(&mv, v, 2, B, nh, Lk, HD, vv, tf::RB, &hv) ||
+      !make_rows_map(&mo, dout, 2, B, nh, Lq, HD, vdo, tf::QT, &ho))
     return (int)cudaErrorInvalidValue;
-  int sms = 0;
-  if (int e = sm_count(device, &sms)) return e;
-  const cudaError_t err = allow_smem(tf::flash_dkv_tf32_wgmma_kernel, (int)tf::Dkv::smem, device, smem_set);
-  if (err != cudaSuccess) return (int)err;
   const long long tiles = (long long)(Lk / tf::RB) * nh * B;
-  if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
-  const int grid = int(tiles < sms ? tiles : sms);
-  tf::flash_dkv_tf32_wgmma_kernel<<<grid, 384, tf::Dkv::smem, stream>>>(
+  int grid = 0;
+  if (int e = persistent_grid(tiles, device, &grid)) return e;
+  const cudaError_t err = allow_smem(tf::flash_dkv_tf32_wgmma_kernel<HD>, (int)C::smem, device, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  tf::flash_dkv_tf32_wgmma_kernel<HD><<<grid, 384, C::smem, stream>>>(
       mq, mk, mv, mo, int(hq) | int(hk) << 1 | int(hv) << 2 | int(ho) << 3, qseg, kvseg, inv_l, m, di,
       static_cast<float*>(dk), static_cast<float*>(dv), view(vdk), view(vdv), nh, Lq, Lk, int(tiles), scale);
   return (int)cudaGetLastError();
 }
 
+template <int HD>
 int dq_tf32(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg, const float* inv_l,
             const float* m, const void* dout, const float* di, void* dq_, const long long* vq, const long long* vk,
             const long long* vv, const long long* vdo, const long long* vdq, int B, int nh, int Lq, int Lk,
             float scale, int device, cudaStream_t stream) {
+  using C = tf::Dq<HD>;
   static std::atomic<bool> smem_set[kMaxDevices];
   CUtensorMap mq, mk, mv, mo;
   bool hq, hk, hv, ho;
-  if (!make_rows_map(&mq, q, 2, B, nh, Lq, vq, tf::RB, &hq) || !make_rows_map(&mk, k, 2, B, nh, Lk, vk, tf::KT, &hk) ||
-      !make_rows_map(&mv, v, 2, B, nh, Lk, vv, tf::KT, &hv) ||
-      !make_rows_map(&mo, dout, 2, B, nh, Lq, vdo, tf::RB, &ho))
+  if (!make_rows_map(&mq, q, 2, B, nh, Lq, HD, vq, tf::RB, &hq) ||
+      !make_rows_map(&mk, k, 2, B, nh, Lk, HD, vk, C::KEYS, &hk) ||
+      !make_rows_map(&mv, v, 2, B, nh, Lk, HD, vv, C::KEYS, &hv) ||
+      !make_rows_map(&mo, dout, 2, B, nh, Lq, HD, vdo, tf::RB, &ho))
     return (int)cudaErrorInvalidValue;
-  int sms = 0;
-  if (int e = sm_count(device, &sms)) return e;
-  const cudaError_t err = allow_smem(tf::flash_dq_tf32_wgmma_kernel, (int)tf::Dq::smem, device, smem_set);
-  if (err != cudaSuccess) return (int)err;
   const long long tiles = (long long)(Lq / tf::RB) * nh * B;
-  if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
-  const int grid = int(tiles < sms ? tiles : sms);
-  tf::flash_dq_tf32_wgmma_kernel<<<grid, 384, tf::Dq::smem, stream>>>(
+  int grid = 0;
+  if (int e = persistent_grid(tiles, device, &grid)) return e;
+  const cudaError_t err = allow_smem(tf::flash_dq_tf32_wgmma_kernel<HD>, (int)C::smem, device, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  tf::flash_dq_tf32_wgmma_kernel<HD><<<grid, 384, C::smem, stream>>>(
       mq, mk, mv, mo, int(hq) | int(hk) << 1 | int(hv) << 2 | int(ho) << 3, qseg, kvseg, inv_l, m, di,
       static_cast<float*>(dq_), view(vdq), nh, Lq, Lk, int(tiles), scale);
   return (int)cudaGetLastError();
 }
 
-// 0 if `route` is one the dtype takes: routes 0 ("simple") and 1 ("wgmma")
-// for bf16 and fp16; route 3 ("tf32") for fp32, in K11, K12 and K13 alike.
-int check_route(int dtype, int route) {
-  const bool ok = dtype == 2 ? route == 3 : (route == 0 || route == 1);
+// 0 if `route` is one the dtype and head dim take: routes 0 ("simple", head
+// dim HD only) and 1 ("wgmma") for bf16 and fp16; route 3 ("tf32") for
+// fp32, in K11, K12 and K13 alike.
+int check_route(int dtype, int route, int hd) {
+  const bool ok = dtype == 2 ? route == 3 : (route == 1 || (route == 0 && hd == HD));
   return ok ? 0 : (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// The head dim the kernels take, for the wrapper's check.
-extern "C" int flash_head_dim() { return HD; }
+// The head dims the kernels take (routes "wgmma", "tf32" and the rows
+// kernel; route "simple" 64 alone), for the wrapper's check: up to `n` of
+// them into `out`; returns their count.
+extern "C" int flash_head_dims(int* out, int n) {
+  const int count = int(sizeof(kHeadDims) / sizeof(kHeadDims[0]));
+  for (int i = 0; i < count && i < n; ++i) out[i] = kHeadDims[i];
+  return count;
+}
 
-// K11.  q (B, nh, Lq, 64), k and v (B, nh, Lk, 64), o like q, each with its
+// K11.  q (B, nh, Lq, hd), k and v (B, nh, Lk, hd), o like q, each with its
 // (batch, head, row) strides in elements (`vq`..`vo`, three each), unit
 // stride along the head dim, rows 16-byte aligned; segment ids (B, Lq) and
 // (B, Lk) int32, l and m (B, nh, Lq) fp32, all contiguous and 16-byte
-// aligned; Lq and Lk multiples of 128; dtype 0 bf16, 1 fp16, 2 fp32; route 1
-// "wgmma", 0 "simple" (the first design) for bf16 and fp16, 3 "tf32" for fp32.  `device` is the tensors' card:
+// aligned; Lq and Lk multiples of 128; hd 32, 64 or 128; dtype 0 bf16, 1
+// fp16, 2 fp32; route 1 "wgmma", 0 "simple" (the first design, hd 64 only)
+// for bf16 and fp16, 3 "tf32" for fp32.  `device` is the tensors' card:
 // made current for the launch if it is not, and the caller's restored after.
 // Returns a cudaError_t (0 on success, cudaErrorInvalidValue for a shape or
 // layout it does not take).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o, const int* qseg,
                                 const int* kvseg, float* l, float* m, const long long* vq, const long long* vk,
-                                const long long* vv, const long long* vo, int B, int nh, int Lq, int Lk,
+                                const long long* vv, const long long* vo, int B, int nh, int Lq, int Lk, int hd,
                                 float scale, int dtype, int route, int device, void* stream) {
-  if (int e = check_shape(B, nh, Lq, Lk, dtype, device)) return e;
-  if (int e = check_route(dtype, route)) return e;
+  if (int e = check_shape(B, nh, Lq, Lk, hd, dtype, device)) return e;
+  if (int e = check_route(dtype, route, hd)) return e;
   if (!aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) || !aligned(o, vo)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
-    if (route == 3) return fwd_tf32(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk, scale, device, s);
     if (route == 0)
       return dtype == 0 ? fwd<__nv_bfloat16>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk, scale,
                                              device, s)
                         : fwd<__half>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk, scale, device, s);
-    // 192-row blocks where they tile Lq, else 128
-    if (Lq % wg::Fwd<3>::ROWS_BLK == 0)
-      return dtype == 0 ? fwd_wgmma<__nv_bfloat16, 3>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk,
-                                                      scale, dtype, device, s)
-                        : fwd_wgmma<__half, 3>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk, scale,
-                                               dtype, device, s);
-    return dtype == 0 ? fwd_wgmma<__nv_bfloat16, 2>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk,
-                                                    scale, dtype, device, s)
-                      : fwd_wgmma<__half, 2>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk, scale,
-                                             dtype, device, s);
+    return by_head_dim(hd, [&](auto h) {
+      constexpr int D = decltype(h)::value;
+      if (route == 3) return fwd_tf32<D>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk, scale, device, s);
+      // 192-row blocks where they tile Lq and the head dim leaves three consumer warpgroups their registers, else 128
+      if constexpr (D <= 64) {
+        if (Lq % wg::Fwd<D, 3>::ROWS_BLK == 0)
+          return dtype == 0 ? fwd_wgmma<__nv_bfloat16, D, 3>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh,
+                                                             Lq, Lk, scale, dtype, device, s)
+                            : fwd_wgmma<__half, D, 3>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk,
+                                                      scale, dtype, device, s);
+      }
+      return dtype == 0 ? fwd_wgmma<__nv_bfloat16, D, 2>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq,
+                                                         Lk, scale, dtype, device, s)
+                        : fwd_wgmma<__half, D, 2>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk,
+                                                  scale, dtype, device, s);
+    });
   });
 }
 
@@ -2807,48 +3140,54 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
 // Lq) fp32, and l (route "simple") or 1 / l (routes "wgmma" and "tf32",
 // from flash_bwd_rows_launch) likewise; the one the route does not read may
 // be null.  Route 3 "tf32" (three TF32 products on wgmma) for fp32, 1
-// "wgmma" or 0 "simple" for bf16 and fp16.
+// "wgmma" or 0 "simple" (hd 64 only) for bf16 and fp16.
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg,
                                     const float* l, const float* inv_l, const float* m, const void* dout,
                                     const float* di, void* dk, void* dv, const long long* vq, const long long* vk,
                                     const long long* vv, const long long* vdo, const long long* vdk,
-                                    const long long* vdv, int B, int nh, int Lq, int Lk, float scale, int dtype,
-                                    int route, int device, void* stream) {
-  if (int e = check_shape(B, nh, Lq, Lk, dtype, device)) return e;
-  if (int e = check_route(dtype, route)) return e;
+                                    const long long* vdv, int B, int nh, int Lq, int Lk, int hd, float scale,
+                                    int dtype, int route, int device, void* stream) {
+  if (int e = check_shape(B, nh, Lq, Lk, hd, dtype, device)) return e;
+  if (int e = check_route(dtype, route, hd)) return e;
   if (!aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) || !aligned(dout, vdo) || !aligned(dk, vdk) ||
       !aligned(dv, vdv) || (route != 0 && inv_l == nullptr) || (route == 0 && l == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
-    if (route == 3)
-      return dkv_tf32(q, k, v, qseg, kvseg, inv_l, m, dout, di, dk, dv, vq, vk, vv, vdo, vdk, vdv, B, nh, Lq, Lk,
-                      scale, device, s);
     if (route == 0)
       return dtype == 0 ? dkv<__nv_bfloat16>(q, k, v, qseg, kvseg, l, m, dout, di, dk, dv, vq, vk, vv, vdo, vdk,
                                              vdv, B, nh, Lq, Lk, scale, device, s)
                         : dkv<__half>(q, k, v, qseg, kvseg, l, m, dout, di, dk, dv, vq, vk, vv, vdo, vdk, vdv, B,
                                       nh, Lq, Lk, scale, device, s);
-    return dtype == 0 ? dkv_wgmma<__nv_bfloat16>(q, k, v, qseg, kvseg, inv_l, m, dout, di, dk, dv, vq, vk, vv, vdo,
-                                                 vdk, vdv, B, nh, Lq, Lk, scale, dtype, device, s)
-                      : dkv_wgmma<__half>(q, k, v, qseg, kvseg, inv_l, m, dout, di, dk, dv, vq, vk, vv, vdo, vdk,
-                                          vdv, B, nh, Lq, Lk, scale, dtype, device, s);
+    return by_head_dim(hd, [&](auto h) {
+      constexpr int D = decltype(h)::value;
+      if (route == 3)
+        return dkv_tf32<D>(q, k, v, qseg, kvseg, inv_l, m, dout, di, dk, dv, vq, vk, vv, vdo, vdk, vdv, B, nh, Lq,
+                           Lk, scale, device, s);
+      return dtype == 0 ? dkv_wgmma<__nv_bfloat16, D>(q, k, v, qseg, kvseg, inv_l, m, dout, di, dk, dv, vq, vk, vv,
+                                                      vdo, vdk, vdv, B, nh, Lq, Lk, scale, dtype, device, s)
+                        : dkv_wgmma<__half, D>(q, k, v, qseg, kvseg, inv_l, m, dout, di, dk, dv, vq, vk, vv, vdo, vdk,
+                                               vdv, B, nh, Lq, Lk, scale, dtype, device, s);
+    });
   });
 }
 
 // The backward's per-row inputs on the card: di = sum(o * do) over the head
-// dim and 1 / l, (B, nh, L) fp32 contiguous, from o and do (B, nh, L, 64)
+// dim and 1 / l, (B, nh, L) fp32 contiguous, from o and do (B, nh, L, hd)
 // views as K11 takes them and l (B, nh, L) fp32 contiguous.
 extern "C" int flash_bwd_rows_launch(const void* o, const void* dout, const float* l, float* di, float* inv_l,
-                                     const long long* vo, const long long* vdo, int B, int nh, int L, int dtype,
-                                     int device, void* stream) {
-  if (int e = check_shape(B, nh, L, L, dtype, device)) return e;
+                                     const long long* vo, const long long* vdo, int B, int nh, int L, int hd,
+                                     int dtype, int device, void* stream) {
+  if (int e = check_shape(B, nh, L, L, hd, dtype, device)) return e;
   if (!aligned(o, vo) || !aligned(dout, vdo)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
-    if (dtype == 2) return rows_fp32(o, dout, l, di, inv_l, vo, vdo, B, nh, L, s);
-    return dtype == 0 ? rows<__nv_bfloat16>(o, dout, l, di, inv_l, vo, vdo, B, nh, L, s)
-                      : rows<__half>(o, dout, l, di, inv_l, vo, vdo, B, nh, L, s);
+    return by_head_dim(hd, [&](auto h) {
+      constexpr int D = decltype(h)::value;
+      if (dtype == 2) return rows_fp32<D>(o, dout, l, di, inv_l, vo, vdo, B, nh, L, s);
+      return dtype == 0 ? rows<__nv_bfloat16, D>(o, dout, l, di, inv_l, vo, vdo, B, nh, L, s)
+                        : rows<__half, D>(o, dout, l, di, inv_l, vo, vdo, B, nh, L, s);
+    });
   });
 }
 
@@ -2859,25 +3198,29 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, 
                                    const float* l, const float* inv_l, const float* m, const void* dout,
                                    const float* di, void* dq_, const long long* vq, const long long* vk,
                                    const long long* vv, const long long* vdo, const long long* vdq, int B, int nh,
-                                   int Lq, int Lk, float scale, int dtype, int route, int device, void* stream) {
-  if (int e = check_shape(B, nh, Lq, Lk, dtype, device)) return e;
-  if (int e = check_route(dtype, route)) return e;
+                                   int Lq, int Lk, int hd, float scale, int dtype, int route, int device,
+                                   void* stream) {
+  if (int e = check_shape(B, nh, Lq, Lk, hd, dtype, device)) return e;
+  if (int e = check_route(dtype, route, hd)) return e;
   if (!aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) || !aligned(dout, vdo) || !aligned(dq_, vdq) ||
       (route != 0 && inv_l == nullptr) || (route == 0 && l == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
-    if (route == 3)
-      return dq_tf32(q, k, v, qseg, kvseg, inv_l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B, nh, Lq, Lk, scale,
-                     device, s);
     if (route == 0)
       return dtype == 0 ? dq<__nv_bfloat16>(q, k, v, qseg, kvseg, l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B, nh,
                                             Lq, Lk, scale, device, s)
                         : dq<__half>(q, k, v, qseg, kvseg, l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B, nh, Lq, Lk,
                                      scale, device, s);
-    return dtype == 0 ? dq_wgmma<__nv_bfloat16>(q, k, v, qseg, kvseg, inv_l, m, dout, di, dq_, vq, vk, vv, vdo, vdq,
-                                                B, nh, Lq, Lk, scale, dtype, device, s)
-                      : dq_wgmma<__half>(q, k, v, qseg, kvseg, inv_l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B, nh, Lq,
-                                         Lk, scale, dtype, device, s);
+    return by_head_dim(hd, [&](auto h) {
+      constexpr int D = decltype(h)::value;
+      if (route == 3)
+        return dq_tf32<D>(q, k, v, qseg, kvseg, inv_l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B, nh, Lq, Lk, scale,
+                          device, s);
+      return dtype == 0 ? dq_wgmma<__nv_bfloat16, D>(q, k, v, qseg, kvseg, inv_l, m, dout, di, dq_, vq, vk, vv, vdo,
+                                                     vdq, B, nh, Lq, Lk, scale, dtype, device, s)
+                        : dq_wgmma<__half, D>(q, k, v, qseg, kvseg, inv_l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B,
+                                              nh, Lq, Lk, scale, dtype, device, s);
+    });
   });
 }

@@ -43,9 +43,12 @@ and "tf32" read the rows kernel's 1 / l.  Each launch is counted in its
 ``LaunchCounter`` (:data:`fwd_launches`, :data:`dkv_launches`,
 :data:`dq_launches`, :data:`rows_launches`, by route
 :data:`fwd_route_launches`, :data:`dkv_route_launches`,
-:data:`dq_route_launches`, and the rows kernel's fp32 launches
-:data:`rows_fp32_launches`); a shape they do not take raises
+:data:`dq_route_launches`, by head dim :data:`fwd_head_dim_launches`,
+:data:`dkv_head_dim_launches`, :data:`dq_head_dim_launches`, and the rows
+kernel's fp32 launches :data:`rows_fp32_launches`); a shape they do not take raises
 ``NotImplementedError`` (:func:`kernel_refusal`), and a failed launch raises.
+The kernels take head dims 32, 64 and 128 (:data:`HEAD_DIMS`, each a
+template instantiation in the .cu); route "simple" takes 64 alone.
 Outputs and gradients are (B, nh, L, hd) views of (B, L, nh, hd) buffers,
 the layout the model's heads come from, so its reshapes copy nothing.
 """
@@ -62,7 +65,8 @@ from colbert_tpu_torch.ops._build import LaunchCounter
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)  # the JAX kernel's DEFAULT_MASK_VALUE
 BLOCK = 128  # the JAX kernels' key (and query) block; L must be a multiple of it on the card
-HEAD_DIM = 64  # the one head dim the kernels take; mirrored by flash_head_dim() in the .cu
+HEAD_DIMS = (32, 64, 128)  # the head dims the kernels take; mirrored by flash_head_dims() in the .cu
+SIMPLE_HEAD_DIM = 64  # route "simple"'s one head dim
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
@@ -110,17 +114,19 @@ def flash_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 def flash_di_card_order(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """:func:`flash_di` in the order the card's rows kernel sums it: each
-    16-byte chunk (8 elements) of a row in order from 0, then the 8 chunk sums
-    pairwise at distance 4, 2, 1 (its lanes' shuffles).  The products of two
-    bf16 or fp16 values are exact in fp32, so only the order rounds; fp32
-    products round once each, here as on the card."""
+    8-element chunk of a row (a lane's) in order from 0, then the hd / 8
+    chunk sums pairwise at distance hd / 16, ..., 2, 1 (its lanes'
+    shuffles).  The products of two bf16 or fp16 values are exact in fp32,
+    so only the order rounds; fp32 products round once each, here as on the
+    card."""
     x = (o.float() * do.float()).unflatten(-1, (-1, 8))
     c = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
     for e in range(8):
         c = c + x[..., e]
-    a = c[..., :4] + c[..., 4:]
-    b = a[..., :2] + a[..., 2:]
-    return b[..., 0] + b[..., 1]
+    while c.shape[-1] > 1:
+        half = c.shape[-1] // 2
+        c = c[..., :half] + c[..., half:]
+    return c[..., 0]
 
 
 def flash_backward_ref(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di):
@@ -205,12 +211,15 @@ _ROUTE_CODES = {"simple": 0, "wgmma": 1, TF32_ROUTE: 3}
 
 def kernel_refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Optional[str]:
     """Why the kernels do not take these CUDA inputs, or None: they take bf16,
-    fp16 or fp32 (one dtype for all three), head dim 64, any B and nh, and q
-    and kv lengths that are multiples of 128 (the JAX kernel's block)."""
+    fp16 or fp32 (one dtype for all three), head dims 32, 64 and 128 (one for
+    all three), any B and nh, and q and kv lengths that are multiples of 128
+    (the JAX kernel's block)."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         return f"dtypes {q.dtype}, {k.dtype}, {v.dtype} (the kernels take bf16, fp16 or fp32)"
-    if q.shape[-1] != HEAD_DIM or k.shape[-1] != HEAD_DIM or v.shape[-1] != HEAD_DIM:
-        return f"head dim {q.shape[-1]} (the kernels take {HEAD_DIM})"
+    hd = q.shape[-1]
+    if hd not in HEAD_DIMS or k.shape[-1] != hd or v.shape[-1] != hd:
+        return (f"head dim {hd} (k {k.shape[-1]}, v {v.shape[-1]}; the kernels take "
+                f"{', '.join(map(str, HEAD_DIMS))})")
     if q.shape[2] % BLOCK or k.shape[2] % BLOCK or q.shape[2] == 0 or k.shape[2] == 0:
         return f"lengths {q.shape[2]}, {k.shape[2]} (the kernels take multiples of {BLOCK})"
     return None
@@ -226,18 +235,23 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
-def bind(lib: ctypes.CDLL) -> None:
-    """Set the C entry points' argtypes on a library built from ``csrc/flash_attention.cu``."""
+def bind(lib: ctypes.CDLL, expect: Optional[Tuple[int, ...]] = HEAD_DIMS) -> None:
+    """Set the C entry points' argtypes on a library built from
+    ``csrc/flash_attention.cu``; RuntimeError unless it takes the head dims
+    ``expect`` (None: any)."""
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_head_dim.argtypes, lib.flash_head_dim.restype = [], i
-    if lib.flash_head_dim() != HEAD_DIM:
-        raise RuntimeError("csrc/flash_attention.cu disagrees with ops/flash_attention.py")
-    tail = [i, i, i, i, f, i, i, ptr]  # B, nh, Lq, Lk, sm_scale, dtype, device, stream
-    routed = tail[:6] + [i] + tail[6:]  # ..., dtype, route, device, stream
+    lib.flash_head_dims.argtypes, lib.flash_head_dims.restype = [ctypes.POINTER(ctypes.c_int), i], i
+    dims = (ctypes.c_int * 8)()
+    n = lib.flash_head_dims(dims, len(dims))
+    if expect is not None and tuple(dims[:n]) != expect:
+        raise RuntimeError(f"csrc/flash_attention.cu takes head dims {tuple(dims[:n])}, "
+                           f"ops/flash_attention.py expects {expect}")
+    tail = [i, i, i, i, i, f, i, i, ptr]  # B, nh, Lq, Lk, hd, sm_scale, dtype, device, stream
+    routed = tail[:7] + [i] + tail[7:]  # ..., dtype, route, device, stream
     lib.flash_fwd_launch.argtypes = [ptr] * 8 + [_VIEW] * 4 + routed
     lib.flash_bwd_dkv_launch.argtypes = [ptr] * 12 + [_VIEW] * 6 + routed
     lib.flash_bwd_dq_launch.argtypes = [ptr] * 11 + [_VIEW] * 5 + routed
-    lib.flash_bwd_rows_launch.argtypes = [ptr] * 5 + [_VIEW] * 2 + [i, i, i, i, i, ptr]
+    lib.flash_bwd_rows_launch.argtypes = [ptr] * 5 + [_VIEW] * 2 + [i, i, i, i, i, i, ptr]
     for fn in (lib.flash_fwd_launch, lib.flash_bwd_dkv_launch, lib.flash_bwd_dq_launch, lib.flash_bwd_rows_launch):
         fn.restype = i
 
@@ -287,7 +301,8 @@ def _segments(q_seg: torch.Tensor, kv_seg: torch.Tensor, device) -> Tuple[torch.
 def kernel_route(dtype: torch.dtype, route: Optional[str] = None, backward: bool = False) -> str:
     """The route K11 (``backward`` False) or K12 and K13 (True) take for
     ``dtype``: ``route`` (bf16 and fp16: "wgmma" if None, or "simple"; fp32:
-    "tf32" only, forward and backward), else ValueError."""
+    "tf32" only, forward and backward), else ValueError.  Route "simple"
+    takes head dim 64 alone (:func:`_route`)."""
     if dtype == torch.float32:
         if route not in (None, TF32_ROUTE):
             what = "backward" if backward else "forward"
@@ -296,6 +311,16 @@ def kernel_route(dtype: torch.dtype, route: Optional[str] = None, backward: bool
     route = route or "wgmma"
     if route not in ROUTES:
         raise ValueError(f"{dtype} inputs take the routes {ROUTES}, not {route!r}")
+    return route
+
+
+def _route(q: torch.Tensor, route: Optional[str], backward: bool = False) -> str:
+    """:func:`kernel_route` for q's dtype; NotImplementedError for route
+    "simple" at a head dim but 64, which only routes "wgmma" and "tf32" take."""
+    route = kernel_route(q.dtype, route, backward)
+    if route == "simple" and q.shape[-1] != SIMPLE_HEAD_DIM:
+        raise NotImplementedError(f"flash attention route 'simple' takes head dim {SIMPLE_HEAD_DIM} only, not "
+                                  f"{q.shape[-1]} (routes 'wgmma' and 'tf32' take {HEAD_DIMS})")
     return route
 
 
@@ -310,7 +335,7 @@ def _launch_forward(q, k, v, q_seg, kv_seg, sm_scale: float, route: Optional[str
     """K11: (o, l, m), o a (B, nh, Lq, hd) view of a (B, Lq, nh, hd) buffer;
     ``route`` as :func:`kernel_route` takes it."""
     launch = _fns()[0]
-    route = kernel_route(q.dtype, route)
+    route = _route(q, route)
     q, k, v = (_kernel_input(t) for t in (q, k, v))
     q_seg, kv_seg = _segments(q_seg, kv_seg, q.device)
     B, nh, Lq, hd = q.shape
@@ -319,11 +344,12 @@ def _launch_forward(q, k, v, q_seg, kv_seg, sm_scale: float, route: Optional[str
     l = torch.empty((B, nh, Lq), dtype=torch.float32, device=q.device)
     m = torch.empty_like(l)
     err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(),
-                 l.data_ptr(), m.data_ptr(), _view(q), _view(k), _view(v), _view(o), B, nh, Lq, Lk, sm_scale,
+                 l.data_ptr(), m.data_ptr(), _view(q), _view(k), _view(v), _view(o), B, nh, Lq, Lk, hd, sm_scale,
                  _DTYPES[q.dtype], _ROUTE_CODES[route], *_device_stream(q))
     _check(err, "forward", q)
     fwd_launches.add()
     fwd_route_launches[route].add()
+    fwd_head_dim_launches[hd].add()
     return o, l, m
 
 
@@ -346,10 +372,10 @@ def _launch_rows(o, do, l):
     launch = _fns()[3]
     o, do = _kernel_input(o), _kernel_input(do)
     l = _rows_input(l)
-    B, nh, L, _ = o.shape
+    B, nh, L, hd = o.shape
     di, inv_l = torch.empty_like(l), torch.empty_like(l)
     err = launch(o.data_ptr(), do.data_ptr(), l.data_ptr(), di.data_ptr(), inv_l.data_ptr(), _view(o), _view(do),
-                 B, nh, L, _DTYPES[o.dtype], *_device_stream(o))
+                 B, nh, L, hd, _DTYPES[o.dtype], *_device_stream(o))
     _check(err, "di", o)
     rows_launches.add()
     if o.dtype == torch.float32:
@@ -372,7 +398,7 @@ def _launch_dkv(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di, route: Op
     ``route`` as :func:`kernel_route` takes it for the backward; routes
     "wgmma" and "tf32" read 1 / l (:func:`_route_inv_l`)."""
     launch = _fns()[1]
-    route = kernel_route(q.dtype, route, backward=True)
+    route = _route(q, route, backward=True)
     q, k, v, q_seg, kv_seg, l, m, do, di = _backward_inputs(q, k, v, q_seg, kv_seg, l, m, do, di)
     inv_l = _route_inv_l(route, l, inv_l)
     B, nh, Lq, hd = q.shape
@@ -381,10 +407,11 @@ def _launch_dkv(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di, route: Op
     err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(), l.data_ptr(),
                  None if inv_l is None else inv_l.data_ptr(), m.data_ptr(), do.data_ptr(), di.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), _view(q), _view(k), _view(v), _view(do), _view(dk), _view(dv), B, nh,
-                 Lq, Lk, sm_scale, _DTYPES[q.dtype], _ROUTE_CODES[route], *_device_stream(q))
+                 Lq, Lk, hd, sm_scale, _DTYPES[q.dtype], _ROUTE_CODES[route], *_device_stream(q))
     _check(err, "dK/dV", q)
     dkv_launches.add()
     dkv_route_launches[route].add()
+    dkv_head_dim_launches[hd].add()
     return dk, dv
 
 
@@ -393,7 +420,7 @@ def _launch_dq(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di, route: Opt
     """K13: dq, a (B, nh, Lq, hd) view of a (B, Lq, nh, hd) buffer; routes
     as K12's, those but "simple" reading 1 / l (:func:`_route_inv_l`)."""
     launch = _fns()[2]
-    route = kernel_route(q.dtype, route, backward=True)
+    route = _route(q, route, backward=True)
     q, k, v, q_seg, kv_seg, l, m, do, di = _backward_inputs(q, k, v, q_seg, kv_seg, l, m, do, di)
     inv_l = _route_inv_l(route, l, inv_l)
     B, nh, Lq, hd = q.shape
@@ -401,11 +428,12 @@ def _launch_dq(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di, route: Opt
     dq = _heads_major(B, nh, Lq, hd, q)
     err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(), kv_seg.data_ptr(), l.data_ptr(),
                  None if inv_l is None else inv_l.data_ptr(), m.data_ptr(), do.data_ptr(), di.data_ptr(),
-                 dq.data_ptr(), _view(q), _view(k), _view(v), _view(do), _view(dq), B, nh, Lq, Lk, sm_scale,
+                 dq.data_ptr(), _view(q), _view(k), _view(v), _view(do), _view(dq), B, nh, Lq, Lk, hd, sm_scale,
                  _DTYPES[q.dtype], _ROUTE_CODES[route], *_device_stream(q))
     _check(err, "dQ", q)
     dq_launches.add()
     dq_route_launches[route].add()
+    dq_head_dim_launches[hd].add()
     return dq
 
 
@@ -473,6 +501,10 @@ dq_launches = LaunchCounter()
 fwd_route_launches = {r: LaunchCounter() for r in (*ROUTES, TF32_ROUTE)}
 dkv_route_launches = {r: LaunchCounter() for r in (*ROUTES, TF32_ROUTE)}
 dq_route_launches = {r: LaunchCounter() for r in (*ROUTES, TF32_ROUTE)}
+#: K11's, K12's and K13's launches by head dim (:data:`HEAD_DIMS`)
+fwd_head_dim_launches = {hd: LaunchCounter() for hd in HEAD_DIMS}
+dkv_head_dim_launches = {hd: LaunchCounter() for hd in HEAD_DIMS}
+dq_head_dim_launches = {hd: LaunchCounter() for hd in HEAD_DIMS}
 #: launches of the backward's rows kernel (di and 1 / l), all, and those on fp32 inputs
 rows_launches = LaunchCounter()
 rows_fp32_launches = LaunchCounter()

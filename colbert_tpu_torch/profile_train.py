@@ -1,6 +1,6 @@
 """Where a training step's time goes on the card: a torch.profiler breakdown.
 
-    python -m colbert_tpu_torch.profile_train
+    python -m colbert_tpu_torch.profile_train [--set KEY=VALUE ...]
 
 Builds the retriever at BERT-base width from a seeded random init (the
 ``chip_smoke.py`` training configuration: hidden 768, 12 layers, bf16,
@@ -13,12 +13,16 @@ then profiles 5 more.  Prints the card's name and power limit, the wall-clock
 ms per step without and under the profiler (its host overhead inflates
 the latter), the device time per step by kernel family, the busy share
 of the unprofiled step, the top kernels, and one JSON line with the same
-numbers.
+numbers.  ``--set`` overrides fields of the model's configuration, e.g.
+``--set hidden_size=384 intermediate_size=1536 vocab_size=250037
+dim=384 attention_impl=flash`` for ``chip_smoke.py`` phase 12's
+MiniLM-L12-H384 width on the flash path.
 Needs a CUDA card; exits 1 without one.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import re
 import subprocess
@@ -27,6 +31,7 @@ import time
 from collections import defaultdict
 
 FAMILIES = (  # first match wins
+    ("K11-K13 flash attention and its rows kernel (ours)", r"flash_"),
     ("K9 dropout (ours)", r"dropout_kernel"),
     ("K3 maxsim (ours)", r"maxsim_kernel"),
     ("GEMM (cuBLAS)", r"gemm|xmma|cutlass|nvjet|Kernel2|cublas"),
@@ -48,10 +53,26 @@ def family(name: str) -> str:
 WARMUP, STEPS = 3, 5
 
 
-def main() -> int:
+def model_overrides(pairs, model) -> dict:
+    """``KEY=VALUE`` strings as values of ``model``'s fields, each of its field's type."""
+    out = {}
+    for pair in pairs:
+        key, _, text = pair.partition("=")
+        if not hasattr(model, key):
+            raise SystemExit(f"profile_train: the model's configuration has no field {key!r}")
+        cur = getattr(model, key)
+        out[key] = text.lower() in ("1", "true") if isinstance(cur, bool) else type(cur)(text)
+    return out
+
+
+def main(argv=None) -> int:
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--set", nargs="+", default=[], metavar="KEY=VALUE", help="fields of the model's configuration")
+    args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("profile_train: needs a CUDA card", file=sys.stderr)
@@ -63,6 +84,8 @@ def main() -> int:
                            capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     print(label, flush=True)
     cfg = ColbertConfig()
+    for key, val in model_overrides(args.set, cfg.model).items():
+        setattr(cfg.model, key, val)
     trainer = ColbertTrainer(cfg, None, device="cuda")
     trainer._init_state(total_steps=1000)
     rng = np.random.default_rng(cfg.train.seed)
@@ -111,7 +134,9 @@ def main() -> int:
     for name, (us, _) in kernels.items():
         fams[family(name)] += us / 1e3 / STEPS
     launches = sum(v[1] for v in kernels.values()) / STEPS
-    print(f"train step, BERT-base batch {B} ({B} x {Lq} + {B * group} x {Ld} tokens): "
+    m = cfg.model
+    print(f"train step, hidden {m.hidden_size}, {m.num_layers} layers, {m.num_heads} heads, attention "
+          f"{m.attention_impl}, batch {B} ({B} x {Lq} + {B * group} x {Ld} tokens): "
           f"{unprofiled_ms:.1f} ms/step wall over {STEPS} steps without the profiler (the host "
           f"issued each step's work in {issue_ms:.1f} ms), {ms_step:.1f} under it; "
           f"{dev_ms:.1f} ms/step of kernels in {launches:.0f} launches "
@@ -121,7 +146,7 @@ def main() -> int:
     print("top kernels (ms/step, launches/step):")
     for name, (us, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {us / 1e3 / STEPS:8.2f}  {n / STEPS:6.1f}  {name[:110]}")
-    print(json.dumps({"card": label, "ms_step": unprofiled_ms, "issue_ms_step": issue_ms, "profiled_ms_step": ms_step,
+    print(json.dumps({"card": label, "model": model_overrides(args.set, cfg.model), "ms_step": unprofiled_ms, "issue_ms_step": issue_ms, "profiled_ms_step": ms_step,
                       "device_ms_step": dev_ms, "launches_step": launches, "families_ms_step": dict(fams)}))
     return 0
 

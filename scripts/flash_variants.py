@@ -127,8 +127,8 @@ EX2 = """  float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(__fmul_rn(x, 1.4426950408889634f)));
   return y;
 """
-K12_STORES = """      store_rows_staged<T>(dK + b * vdk.sb + h * vdk.sh + (long long)key0 * vdk.sl, vdk.sl, dk, own, lane);
-      store_rows_staged<T>(dV + b * vdv.sb + h * vdv.sh + (long long)key0 * vdv.sl, vdv.sl, dv, own, lane);
+K12_STORES = """      store_rows_staged<T, HD>(dK + b * vdk.sb + h * vdk.sh + (long long)key0 * vdk.sl, vdk.sl, dk, own, lane);
+      store_rows_staged<T, HD>(dV + b * vdv.sb + h * vdv.sh + (long long)key0 * vdv.sl, vdv.sl, dv, own, lane);
 """
 K12_ROW_LOADS = """          bulk_load(rt, m_in + rows0 + qt * QT, QT * 4, &full[stage]);
           bulk_load(rt + QT * 4, inv_l + rows0 + qt * QT, QT * 4, &full[stage]);
@@ -138,10 +138,10 @@ K12_ROW_LOADS = """          bulk_load(rt, m_in + rows0 + qt * QT, QT * 4, &full
 # route "tf32"'s lines that its variants change
 TF32_EXP_K12 = "s[j][e] = __fmul_rn(wg::exp_p(x - (odd ? mm.y : mm.x)), odd ? il.y : il.x);"
 TF32_EXP_K13 = "s[j][e] = __fmul_rn(wg::exp_p(x - m_row[r]), il[r]);"
-TF32_SPLIT_K12 = "split_tiles(base + (sst - skv) + stage * Dkv::STAGE, Dkv::HI, Dkv::HI, si);"
-TF32_SPLIT_K13 = "split_tiles(base + (sst - sq) + stage * Dq::STAGE, Dq::HI, Dq::HI, si);"
-TF32_SPLIT_K11 = ("          split_t(stp + Fwd::V_RAW, stp + Fwd::VT_HI, stp + Fwd::VT_LO, si);\n"
-                  "          split_tiles(stp, Fwd::KV_TILE, Fwd::K_LO, si);  // K, then the fence for both\n")
+TF32_SPLIT_K12 = "split_tiles(base + (sst - skv) + stage * C::STAGE, C::HI, C::HI, si);"
+TF32_SPLIT_K13 = "split_tiles(base + (sst - sq) + stage * C::STAGE, C::HI, C::HI, si);"
+TF32_SPLIT_K11 = ("          split_t<KEYS, HD>(stp + C::V_RAW, stp + C::VT_HI, stp + C::VT_LO, si);\n"
+                  "          split_tiles(stp, C::KV_TILE, C::K_LO, si);  // K, then the fence for both\n")
 TF32_EXP_K11 = "s[j][e] = wg::exp_p(s[j][e] - m_next[e >> 1]);"
 TF32_P_SPLIT_K11 = """        split(s[kk][0], ph[kk][0], pl[kk][0]);
         split(s[kk][2], ph[kk][1], pl[kk][1]);
@@ -160,20 +160,25 @@ TF32_P_READS = ("const float4 p = reinterpret_cast<const float4*>(pbuf)[j * 128 
 #: name: (what it changes, [(a line of csrc/flash_attention.cu, found once, and what replaces it)])
 VARIANTS = {
     "rows128": ("K11 in 128-row blocks at every length",
-                [("if (Lq % wg::Fwd<3>::ROWS_BLK == 0)", "if (false)")]),
+                [("if (Lq % wg::Fwd<D, 3>::ROWS_BLK == 0)", "if (false)")]),
     "expf": ("the \"wgmma\" routes' exponential by expf", [(EX2, "  return expf(x);\n")]),
-    "stages4": ("K12's ring 4 tiles deep", [("constexpr int DKV_STAGES = 8;", "constexpr int DKV_STAGES = 4;")]),
+    "stages4": ("K12's ring 4 tiles deep (head dims 32 and 64)",
+                [("static constexpr int STAGES = HD == 128 ? 6 : 8;     // Q/dO tiles in flight",
+                  "static constexpr int STAGES = HD == 128 ? 6 : 4;     // Q/dO tiles in flight")]),
     "k12_no_elementwise": ("K12 without its elementwise work (wrong dK/dV)",
                            [("j < QT / 8; ++j) {\n          const int qi", "j < 0; ++j) {\n          const int qi"),
                             ("j < QT / 8; ++j) {\n          const float2 dd", "j < 0; ++j) {\n          const float2 dd")]),
     "k12_no_products": ("K12 without its products (wrong dK/dV)",
-                        [(f"kk < {n}; ++kk) wgmma_rs64{t}<T>({a}", f"kk < 0; ++kk) wgmma_rs64{t}<T>({a}")
-                         for n, t, a in (("HD / 16", "", "p,"), ("HD / 16", "", "ds,"), ("QT / 16", "t", "dv,"),
-                                         ("QT / 16", "t", "dk,"))]),
+                        [(f"kk < {n}; ++kk) wgmma_rs<T, {w}>({a}", f"kk < 0; ++kk) wgmma_rs<T, {w}>({a}")
+                         for n, w, a in (("HD / 16", "QT, 0", "p,"), ("HD / 16", "QT, 0", "ds,"))]
+                        + [(f"kk < QT / 16; ++kk)\n            wgmma_rs<T, NA, 1>(cols<NA / 8>({a}",
+                            f"kk < 0; ++kk)\n            wgmma_rs<T, NA, 1>(cols<NA / 8>({a}") for a in ("dv,", "dk,")]),
     "k12_no_stores": ("K12 without its dK/dV stores (no output)", [(K12_STORES, "")]),
     "k12_no_row_loads": ("K12 without its row inputs' loads (wrong dK/dV)",
-                         [("2 * QT_BYTES + DKV_ROWS_BYTES);", "2 * QT_BYTES);"), (K12_ROW_LOADS, "")]),
-    "dq_stages4": ("K13's ring 4 key tiles deep", [("constexpr int DQ_STAGES = 8;", "constexpr int DQ_STAGES = 4;")]),
+                         [("2 * C::QT_BYTES + C::ROWS_BYTES);", "2 * C::QT_BYTES);"), (K12_ROW_LOADS, "")]),
+    "dq_stages4": ("K13's ring 4 key tiles deep (head dims 32 and 64)",
+                   [("static constexpr int STAGES = HD == 128 ? 6 : 8;          // K/V tiles in flight",
+                     "static constexpr int STAGES = HD == 128 ? 6 : 4;          // K/V tiles in flight")]),
     # route "tf32" (K11, K12, K13 at fp32), probed at fp32; all but tf32_expf give wrong numbers by design
     "tf32_expf": ("route \"tf32\"'s exponential by expf, in place of ex2.approx of x * log2(e)",
                   [(TF32_EXP_K12, TF32_EXP_K12.replace("wg::exp_p(", "expf(")),
@@ -183,17 +188,18 @@ VARIANTS = {
                           "finite gradients; the same bits for finite inputs)",
                           [(TF32_LO, "  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));")]),
     "tf32_fwd_no_kv_loads": ("K11's route \"tf32\" without its K and V loads (wrong o)",
-                             [("          mbar_expect_tx(&full[stage], 2 * Fwd::KV_TILE + KT * 4);\n"
-                               "          const uint32_t st = sst + stage * Fwd::STAGE;\n"
-                               "          tma_tile<KT>(st, &map_k, heads_inner & 2, h, kt * KT, b, &full[stage]);\n"
-                               "          tma_tile<KT>(st + Fwd::V_RAW, &map_v, heads_inner & 4, h, kt * KT, b, &full[stage]);\n",
-                               "          mbar_expect_tx(&full[stage], KT * 4);\n"
-                               "          const uint32_t st = sst + stage * Fwd::STAGE;\n")]),
+                             [("          mbar_expect_tx(&full[stage], 2 * C::KV_TILE + KEYS * 4);\n"
+                               "          const uint32_t st = sst + stage * C::STAGE;\n"
+                               "          tma_tile<KEYS, HD>(st, &map_k, heads_inner & 2, h, kt * KEYS, b, &full[stage]);\n"
+                               "          tma_tile<KEYS, HD>(st + C::V_RAW, &map_v, heads_inner & 4, h, kt * KEYS, b, &full[stage]);\n",
+                               "          mbar_expect_tx(&full[stage], KEYS * 4);\n"
+                               "          const uint32_t st = sst + stage * C::STAGE;\n")]),
     "tf32_fwd_no_split": ("K11's route \"tf32\" without its split of K and V (wrong o)",
                           [(TF32_SPLIT_K11, "          fence_proxy_async();\n")]),
     "tf32_no_products": ("route \"tf32\" without its wgmma products",
                          [(f"for (int kk = 0; kk < KS; ++kk) mma<N>(d, {a}", f"for (int kk = 0; kk < 0; ++kk) mma<N>(d, {a}")
-                          for a in ("ah[kk], desc_lo(kk), kk);", "al[kk], desc(kk), 1);", "ah[kk], desc(kk), 1);")]),
+                          for a in ("ah[kk], desc_lo(kk), kk > 0 || !fresh);", "al[kk], desc(kk), 1);",
+                                    "ah[kk], desc(kk), 1);")]),
     "tf32_products_only": ("route \"tf32\" with its products, barriers and ring alone: no split, exponential, "
                            "transposed loads or stores of P and dS",
                            [(TF32_SPLIT_K12, ""), (TF32_SPLIT_K13, ""), (TF32_SPLIT_K11, "          fence_proxy_async();\n"),

@@ -120,17 +120,15 @@ def _torch(dtype, *xs):
 CASES = [(128, 100), (128, None), (256, 129), (256, 200), (384, 200), (384, 257), (384, None)]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("L,pad", CASES)
-def test_plain_forward_matches_jax_kernel(L, pad, dtype):
-    q, k, v, _, seg = _inputs(L + (pad or 0), L, pad, dtype)
+def _plain_forward_matches_jax_kernel(L, pad, dtype, hd=64):
+    q, k, v, _, seg = _inputs(L + (pad or 0) + (hd != 64) * hd, L, pad, dtype, hd=hd)
     with interpret_pallas():
         want = jax_flash(*_jax(dtype, q, k, v), segment_ids=SegmentIds(jnp.asarray(seg), jnp.asarray(seg)),
                          sm_scale=SCALE)
     want = torch.from_numpy(np.asarray(want.astype(jnp.float32)))
     s = torch.from_numpy(seg)
     got = fa.flash_forward_ref(*_torch(dtype, q, k, v), s, s, SCALE)[0]
-    assert got.dtype == getattr(torch, dtype) and got.shape == (2, 2, L, 64)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (2, 2, L, hd)
     if dtype == "float32":
         assert float((got - want).abs().max()) <= 1e-5
     else:
@@ -138,9 +136,21 @@ def test_plain_forward_matches_jax_kernel(L, pad, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L,pad", CASES)
+def test_plain_forward_matches_jax_kernel(L, pad, dtype):
+    _plain_forward_matches_jax_kernel(L, pad, dtype)
+
+
+# the other head dims the kernels take: 32 (MiniLM-L12-H384's) and 128 (the JAX kernel's multiples of 128)
+@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("L,pad", [(128, 100), (256, 129), (384, 200), (384, None)])
-def test_plain_backward_matches_jax_grad(L, pad, dtype):
-    q, k, v, w, seg = _inputs(7 * L + (pad or 0), L, pad, dtype)
+def test_plain_forward_matches_jax_kernel_at_head_dims(L, pad, dtype, hd):
+    _plain_forward_matches_jax_kernel(L, pad, dtype, hd)
+
+
+def _plain_backward_matches_jax_grad(L, pad, dtype, hd=64):
+    q, k, v, w, seg = _inputs(7 * L + (pad or 0) + (hd != 64) * hd, L, pad, dtype, hd=hd)
     sj = jnp.asarray(seg)
 
     def f(q, k, v):
@@ -163,6 +173,19 @@ def test_plain_backward_matches_jax_grad(L, pad, dtype):
             assert_bf16_close(g, wt, name)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L,pad", [(128, 100), (256, 129), (384, 200), (384, None)])
+def test_plain_backward_matches_jax_grad(L, pad, dtype):
+    _plain_backward_matches_jax_grad(L, pad, dtype)
+
+
+@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L,pad", [(128, 100), (384, 200)])
+def test_plain_backward_matches_jax_grad_at_head_dims(L, pad, dtype, hd):
+    _plain_backward_matches_jax_grad(L, pad, dtype, hd)
+
+
 def test_autograd_function_is_the_plain_pair():
     """On CPU tensors the autograd function runs the plain forward and
     backward (same bits), and no kernel launch is counted."""
@@ -183,7 +206,11 @@ def test_autograd_function_is_the_plain_pair():
 
 
 @pytest.mark.parametrize("shape,dtype,why", [
-    ((2, 12, 384, 32), torch.bfloat16, "head dim 32"),
+    ((2, 12, 384, 32), torch.bfloat16, None),
+    ((2, 12, 384, 80), torch.bfloat16, "head dim 80"),
+    ((2, 4, 256, 256), torch.float32, "head dim 256"),
+    ((2, 12, 384, 26), torch.float16, "head dim 26"),
+    ((2, 8, 384, 128), torch.bfloat16, None),
     ((2, 12, 384, 64), torch.float64, "torch.float64"),
     ((2, 12, 200, 64), torch.bfloat16, "lengths 200"),
     ((2, 12, 384, 64), torch.float32, None),
@@ -191,8 +218,9 @@ def test_autograd_function_is_the_plain_pair():
     ((3, 16, 128, 64), torch.float16, None),
 ])
 def test_kernel_refusal_rule(shape, dtype, why):
-    """What the kernels refuse on a CUDA tensor (bf16, fp16 or fp32, hd 64, L
-    a multiple of 128), read from the wrapper's rule; the CPU runs any of them."""
+    """What the kernels refuse on a CUDA tensor (bf16, fp16 or fp32, hd 32,
+    64 or 128, L a multiple of 128), read from the wrapper's rule; the CPU
+    runs any of them."""
     q = torch.zeros(shape, dtype=dtype)
     got = fa.kernel_refusal(q, q, q)
     assert (got is None) if why is None else (why in got)
@@ -232,10 +260,16 @@ def _ids(seed, B, L):
     return ids, attn
 
 
-def _jax_params():
+# widths whose head dim is 32 (four heads of 128) and 128 (two of 256), beside SMALL's 64
+HEAD_DIM_WIDTHS = {32: dict(hidden_size=128, num_heads=4), 128: dict(hidden_size=256, num_heads=2,
+                                                                       intermediate_size=512)}
+
+
+def _jax_params(**kw):
     """Retriever parameters from the flax init (through the explicit path:
-    the tree is the same), with non-trivial biases and LayerNorm parameters."""
-    model = FlaxColbert(jcfg.ModelConfig(**{**SMALL, "attention_impl": "auto"}), jcfg.MultiviewConfig(**MV))
+    the tree is the same), with non-trivial biases and LayerNorm parameters;
+    ``kw`` over SMALL's widths."""
+    model = FlaxColbert(jcfg.ModelConfig(**{**SMALL, **kw, "attention_impl": "auto"}), jcfg.MultiviewConfig(**MV))
     z = jnp.zeros((1, QUERY_L), jnp.int32)
     params = model.init(jax.random.PRNGKey(5), z, jnp.ones_like(z), z, jnp.ones_like(z))["params"]
     rng = np.random.default_rng(11)
@@ -257,17 +291,15 @@ def _port_colbert(params, **kw):
     return m
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_colbert_with_flash_matches_jax(dtype):
-    """Docs at 128 take flash on both sides, queries at 32 the explicit path."""
-    params = _jax_params()
+def _colbert_with_flash_matches_jax(dtype, **widths):
+    params = _jax_params(**widths)
     dids, dattn = _ids(1, 2, DOC_L)
     qids, qattn = _ids(2, 2, QUERY_L)
-    jm = _jax_colbert(dtype=dtype)
+    jm = _jax_colbert(dtype=dtype, **widths)
     with jax_flash_on_cpu():
         want = [np.asarray(jm.apply({"params": params}, i, a, method=side))
                 for i, a, side in ((dids, dattn, jm.doc), (qids, qattn, jm.query))]
-    port = _port_colbert(params, dtype=dtype).eval()
+    port = _port_colbert(params, dtype=dtype, **widths).eval()
     with torch.no_grad():
         got = [port.doc(torch.from_numpy(dids), torch.from_numpy(dattn)).numpy(),
                port.query(torch.from_numpy(qids), torch.from_numpy(qattn)).numpy()]
@@ -278,6 +310,20 @@ def test_colbert_with_flash_matches_jax(dtype):
         else:
             cos = (g * w).sum(-1) / (np.linalg.norm(g, axis=-1) * np.linalg.norm(w, axis=-1))
             assert cos.min() > 0.99
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_colbert_with_flash_matches_jax(dtype):
+    """Docs at 128 take flash on both sides, queries at 32 the explicit path."""
+    _colbert_with_flash_matches_jax(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [32, 128])
+def test_colbert_with_flash_matches_jax_at_head_dims(hd, dtype):
+    """As test_colbert_with_flash_matches_jax at head dims 32 (hidden 128, 4
+    heads) and 128 (hidden 256, 2 heads)."""
+    _colbert_with_flash_matches_jax(dtype, **HEAD_DIM_WIDTHS[hd])
 
 
 @pytest.mark.parametrize("dtype,atol", [("float32", 1e-5), ("bfloat16", 1e-2)])
@@ -315,13 +361,11 @@ def _grads_match(model, want):
         assert float((g - sd[k]).abs().max()) <= limit, k
 
 
-def test_train_step_gradients_with_flash_match_jax():
-    """One deterministic step (dropout 0) through flash docs and explicit
-    queries: every parameter's gradient against ``jax.grad``."""
-    params = _jax_params()
+def _train_step_gradients_with_flash_match_jax(**widths):
+    params = _jax_params(**widths)
     dids, dattn = _ids(1, 2, DOC_L)
     qids, qattn = _ids(2, 2, QUERY_L)
-    jm = _jax_colbert()
+    jm = _jax_colbert(**widths)
 
     def loss(p):
         d = jm.apply({"params": p}, dids, dattn, method=jm.doc)
@@ -330,11 +374,23 @@ def test_train_step_gradients_with_flash_match_jax():
 
     with jax_flash_on_cpu():
         want = jax.grad(loss)(params)
-    m = _port_colbert(params).train()
+    m = _port_colbert(params, **widths).train()
     d = m.doc(torch.from_numpy(dids), torch.from_numpy(dattn))
     q = m.query(torch.from_numpy(qids), torch.from_numpy(qattn))
     (torch.einsum("qmh,dnh->qdmn", q, d).amax(-1).sum() + (d * d[:, :1]).sum()).backward()
     _grads_match(m, want)
+
+
+def test_train_step_gradients_with_flash_match_jax():
+    """One deterministic step (dropout 0) through flash docs and explicit
+    queries: every parameter's gradient against ``jax.grad``."""
+    _train_step_gradients_with_flash_match_jax()
+
+
+@pytest.mark.parametrize("hd", [32, 128])
+def test_train_step_gradients_with_flash_match_jax_at_head_dims(hd):
+    """As test_train_step_gradients_with_flash_match_jax at head dims 32 and 128."""
+    _train_step_gradients_with_flash_match_jax(**HEAD_DIM_WIDTHS[hd])
 
 
 def test_remat_attn_matches_jax_remat_attn():

@@ -58,16 +58,19 @@ def _fp32_bound(o, do):
 
 
 def _lanes_numpy(o, do):
-    """The rows kernel's order, lane by lane in numpy float32: 8 lanes a row,
-    lane c summing the products of elements 8c .. 8c + 7 from 0, then
-    s += shfl_xor(s, 4), 2, 1 (every lane ends with lane 0's value)."""
+    """The rows kernel's order, lane by lane in numpy float32: hd / 8 lanes a
+    row, lane c summing the products of elements 8c .. 8c + 7 from 0, then
+    s += shfl_xor(s, hd / 16), ..., 2, 1 (every lane ends with lane 0's value)."""
     x = o.float().numpy().astype(np.float32) * do.float().numpy().astype(np.float32)
-    lanes = np.zeros(x.shape[:-1] + (8,), np.float32)
-    for c in range(8):
+    n = x.shape[-1] // 8
+    lanes = np.zeros(x.shape[:-1] + (n,), np.float32)
+    for c in range(n):
         for e in range(8):
             lanes[..., c] = lanes[..., c] + x[..., 8 * c + e]
-    for d in (4, 2, 1):
-        lanes = lanes + lanes[..., [c ^ d for c in range(8)]]
+    d = n // 2
+    while d >= 1:
+        lanes = lanes + lanes[..., [c ^ d for c in range(n)]]
+        d //= 2
     return torch.from_numpy(lanes[..., 0].copy())
 
 
@@ -80,6 +83,10 @@ def _lanes_numpy(o, do):
     ((3, 2, 128, 64), torch.bfloat16),     # one JAX block: 128-row K11 blocks
     ((5, 4, 256, 64), torch.float16),
     ((2, 3, 640, 64), torch.bfloat16),     # a multiple of 128, not of 192
+    ((68, 12, 384, 32), torch.bfloat16),   # the MiniLM-L12-H384-width retriever's doc pass
+    ((3, 4, 256, 32), torch.float16),
+    ((68, 8, 384, 128), torch.bfloat16),   # head dim 128
+    ((2, 2, 128, 128), torch.float16),
 ])
 def test_every_shape_the_kernels_take_goes_to_wgmma(shape, dtype):
     """Route "wgmma" for every input the kernels take, bf16 and fp16 alike:
@@ -204,7 +211,7 @@ def test_dq_launch_arguments_by_route(monkeypatch, route, given_inv_l):
                        inv_l=inv_l if given_inv_l else None)
     a = got["args"]
     codes = {"simple": 0, "wgmma": 1, "tf32": 3}
-    assert len(a) == 25 and a[21] == int(dtype == torch.float32) * 2 and a[22] == codes[route]
+    assert len(a) == 26 and a[22] == int(dtype == torch.float32) * 2 and a[23] == codes[route]
     assert a[5] == l.data_ptr() and a[7] == m.data_ptr() and a[9] == di.data_ptr() and a[10] == dq.data_ptr()
     if route == "simple":
         assert a[6] is None
@@ -213,7 +220,7 @@ def test_dq_launch_arguments_by_route(monkeypatch, route, given_inv_l):
     else:
         assert a[6] not in (None, l.data_ptr(), inv_l.data_ptr())
     assert list(a[11]) == [L * nh * 64, 64, nh * 64] and list(a[15]) == list(a[11])  # q's and dq's strides
-    assert a[16:20] == (B, nh, L, L) and a[20] == SCALE
+    assert a[16:21] == (B, nh, L, L, 64) and a[21] == SCALE
     assert dq.shape == q.shape and dq.transpose(1, 2).is_contiguous()
     assert fa.dq_launches.value == before[0] + 1
     assert {r: c.value - before[1][r] for r, c in fa.dq_route_launches.items()} == {
@@ -251,7 +258,7 @@ def test_fp32_dkv_launch_arguments_by_route(monkeypatch, route, want_code):
         return
     dk, dv = fa._launch_dkv(q, k, v, seg, seg, SCALE, l, m, do, di, route=route, inv_l=inv_l)
     a = got["args"]
-    assert len(a) == 27 and a[18:23] == (B, nh, L, L, SCALE) and a[23] == 2 and a[24] == want_code
+    assert len(a) == 28 and a[18:24] == (B, nh, L, L, 64, SCALE) and a[24] == 2 and a[25] == want_code
     assert a[5] == l.data_ptr() and a[6] == inv_l.data_ptr() and a[10] == dk.data_ptr() and a[11] == dv.data_ptr()
     assert dk.shape == dv.shape == k.shape and dk.transpose(1, 2).is_contiguous() and dv.transpose(1, 2).is_contiguous()
     assert fa.dkv_launches.value == before[0] + 1
@@ -286,7 +293,7 @@ def test_fp32_forward_launch_arguments_by_route(monkeypatch, route, want_code):
         return
     o, l, m = fa._launch_forward(q, k, v, seg, seg, SCALE, route=route)
     a = got["args"]
-    assert len(a) == 21 and a[12:17] == (B, nh, L, L, SCALE) and a[17] == 2 and a[18] == want_code
+    assert len(a) == 22 and a[12:18] == (B, nh, L, L, 64, SCALE) and a[18] == 2 and a[19] == want_code
     assert a[3] == o.data_ptr() and a[6] == l.data_ptr() and a[7] == m.data_ptr()
     assert list(a[8]) == [L * nh * 64, 64, nh * 64] and list(a[11]) == list(a[8])  # q's and o's strides
     assert o.shape == q.shape and o.dtype == torch.float32 and o.transpose(1, 2).is_contiguous()
@@ -294,6 +301,63 @@ def test_fp32_forward_launch_arguments_by_route(monkeypatch, route, want_code):
     assert fa.fwd_launches.value == before[0] + 1
     assert {r: c.value - before[1][r] for r, c in fa.fwd_route_launches.items()} == {
         r: int(r == "tf32") for r in fa.fwd_route_launches}
+
+
+@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_launches_pass_the_head_dim(monkeypatch, dtype, hd):
+    """At head dims 32 and 128 each launch hands its C entry point the head
+    dim (after the lengths) and q's strides in the models' layout, on the
+    default route ("wgmma" for bf16, "tf32" for fp32); the rows kernel too.
+    The C entry points are stood in."""
+    B, nh, L = 2, 3, 256
+    g = torch.Generator().manual_seed(hd)
+    q, k, v, do = (torch.randn((B, L, nh, hd), generator=g).to(dtype).transpose(1, 2) for _ in range(4))
+    seg = torch.ones((B, L), dtype=torch.int32)
+    l = torch.rand((B, nh, L), generator=g) + 1
+    m, di = torch.randn((B, nh, L), generator=g), torch.randn((B, nh, L), generator=g)
+    got = {}
+
+    def stand_in(name):
+        def launch(*a):
+            got[name] = a
+            return 0
+        return launch
+
+    monkeypatch.setattr(fa, "_fns", lambda: tuple(stand_in(n) for n in ("fwd", "dkv", "dq", "rows")))
+    monkeypatch.setattr(fa, "_device_stream", lambda t: (0, 0))
+    code = 3 if dtype == torch.float32 else 1
+    fa._launch_forward(q, k, v, seg, seg, SCALE)
+    fa._launch_dkv(q, k, v, seg, seg, SCALE, l, m, do, di)
+    fa._launch_dq(q, k, v, seg, seg, SCALE, l, m, do, di)
+    fa._launch_rows(q, do, l)
+    assert got["fwd"][12:19] == (B, nh, L, L, hd, SCALE, int(dtype == torch.float32) * 2) and got["fwd"][19] == code
+    assert got["dkv"][18:24] == (B, nh, L, L, hd, SCALE) and got["dkv"][25] == code
+    assert got["dq"][16:22] == (B, nh, L, L, hd, SCALE) and got["dq"][23] == code
+    assert got["rows"][7:11] == (B, nh, L, hd)
+    assert list(got["fwd"][8]) == [L * nh * hd, hd, nh * hd]
+
+
+@pytest.mark.parametrize("hd", [32, 128])
+def test_simple_route_takes_head_dim_64_only(monkeypatch, hd):
+    """Route "simple" (the first design) stays at head dim 64: at 32 and 128
+    each of its launches raises NotImplementedError naming the route, before
+    the C entry point or any count."""
+    B, nh, L = 2, 2, 128
+    q = torch.zeros((B, nh, L, hd), dtype=torch.bfloat16)
+    seg = torch.ones((B, L), dtype=torch.int32)
+    rows = torch.ones((B, nh, L))
+    called = []
+    monkeypatch.setattr(fa, "_fns", lambda: tuple(lambda *a: called.append(a) or 0 for _ in range(4)))
+    monkeypatch.setattr(fa, "_device_stream", lambda t: (0, 0))
+    counters = [fa.fwd_launches, fa.dkv_launches, fa.dq_launches, *fa.fwd_route_launches.values()]
+    before = [c.value for c in counters]
+    with pytest.raises(NotImplementedError, match="route 'simple'"):
+        fa._launch_forward(q, q, q, seg, seg, SCALE, route="simple")
+    for launch in (fa._launch_dkv, fa._launch_dq):
+        with pytest.raises(NotImplementedError, match="route 'simple'"):
+            launch(q, q, q, seg, seg, SCALE, rows, rows, q, rows, route="simple")
+    assert not called and [c.value for c in counters] == before
 
 
 @pytest.mark.parametrize("given_inv_l", [True, False])
@@ -338,11 +402,13 @@ def test_cpu_path_keeps_flash_di():
 
 # ---- the rows kernel's di order ----
 
+@pytest.mark.parametrize("hd", [32, 64, 128])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
-def test_card_order_is_the_kernels_lanes(dtype):
-    """``flash_di_card_order`` is bit-equal to the kernel's lanes emulated one by one."""
-    rng = np.random.default_rng(7)
-    o, do = (torch.from_numpy(rng.normal(0, 3, (3, 2, 128, 64)).astype(np.float32)).to(getattr(torch, dtype))
+def test_card_order_is_the_kernels_lanes(dtype, hd):
+    """``flash_di_card_order`` is bit-equal to the kernel's lanes emulated one
+    by one, at each head dim the kernels take (hd / 8 lanes a row)."""
+    rng = np.random.default_rng(7 + hd)
+    o, do = (torch.from_numpy(rng.normal(0, 3, (3, 2, 128, hd)).astype(np.float32)).to(getattr(torch, dtype))
              for _ in range(2))
     assert torch.equal(fa.flash_di_card_order(o, do), _lanes_numpy(o, do))
 

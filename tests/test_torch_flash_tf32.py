@@ -54,6 +54,7 @@ SCALE = 0.125
 KEYS_K11 = 64                   # K11's stage of keys
 KEYS_K12, QUERIES_K12 = 64, 32  # K12's block of keys and stage of queries
 ROWS_K13, KEYS_K13 = 64, 64     # K13's block of query rows and stage of keys
+STAGE_KEYS = {32: 64, 64: 64, 128: 32}  # K11's and K13's stage of keys by head dim (tf::Hd<HD>::KEYS)
 
 
 @contextlib.contextmanager
@@ -72,18 +73,19 @@ def prod3(a: torch.Tensor, b: torch.Tensor, terms: int = 3) -> torch.Tensor:
     return tf32x3("...ij,...jk->...ik", a, b, terms)
 
 
-def tf32x3_forward(q, k, v, q_seg, kv_seg, scale, terms=3):
-    """(o, l, m) fp32 by three TF32 products a product at K11's 64-key
-    stages: S = Q K^T, the mask, the online softmax over the stage (m_next,
-    p = exp(s - m_next), l_corr, l_next, 1 / l_next), O rescaled and P V
-    added times 1 / l_next; ``terms=1`` keeps hi . hi alone."""
+def tf32x3_forward(q, k, v, q_seg, kv_seg, scale, terms=3, keys=KEYS_K11):
+    """(o, l, m) fp32 by three TF32 products a product at K11's ``keys``-key
+    stages (64; 32 at head dim 128): S = Q K^T, the mask, the online softmax
+    over the stage (m_next, p = exp(s - m_next), l_corr, l_next, 1 /
+    l_next), O rescaled and P V added times 1 / l_next; ``terms=1`` keeps hi
+    . hi alone."""
     q, k, v = (t.float() for t in (q, k, v))
     B, nh, Lq, _ = q.shape
     m = torch.full((B, nh, Lq), float("-inf"))
     l = torch.zeros_like(m)
     acc = torch.zeros((B, nh, Lq, v.shape[-1]))
-    for k0 in range(0, k.shape[2], KEYS_K11):
-        ks = slice(k0, k0 + KEYS_K11)
+    for k0 in range(0, k.shape[2], keys):
+        ks = slice(k0, k0 + keys)
         visible = q_seg[:, None, :, None] == kv_seg[:, None, None, ks]
         s = prod3(q, k[:, :, ks].transpose(-1, -2), terms) * scale + torch.where(visible, 0.0, fa.MASK_VALUE)
         m_next = torch.maximum(m, s.amax(-1))
@@ -96,9 +98,10 @@ def tf32x3_forward(q, k, v, q_seg, kv_seg, scale, terms=3):
     return acc, l, m
 
 
-def tf32x3_backward(q, k, v, q_seg, kv_seg, scale, l, m, do, di, terms=3):
+def tf32x3_backward(q, k, v, q_seg, kv_seg, scale, l, m, do, di, terms=3, keys_k13=KEYS_K13):
     """(dq, dk, dv) fp32 by three TF32 products a product at the kernels'
-    blocks (see the module docstring); ``terms=1`` keeps hi . hi alone."""
+    blocks (see the module docstring; K13's stage ``keys_k13`` keys, 32 at
+    head dim 128); ``terms=1`` keeps hi . hi alone."""
     q, k, v, do = (t.float() for t in (q, k, v, do))
     Lq, Lk = q.shape[2], k.shape[2]
     inv_l = torch.ones_like(l) / l
@@ -128,8 +131,8 @@ def tf32x3_backward(q, k, v, q_seg, kv_seg, scale, l, m, do, di, terms=3):
     for q0 in range(0, Lq, ROWS_K13):  # K13
         qs = slice(q0, q0 + ROWS_K13)
         acc = torch.zeros(q.shape[:2] + (q.shape[3], ROWS_K13))
-        for k0 in range(0, Lk, KEYS_K13):
-            ks = slice(k0, k0 + KEYS_K13)
+        for k0 in range(0, Lk, keys_k13):
+            ks = slice(k0, k0 + keys_k13)
             p = p_of(prod3(q[:, :, qs], T(k[:, :, ks]), terms), qs, ks, False)
             ds = (prod3(do[:, :, qs], T(v[:, :, ks]), terms) - di[:, :, qs, None]) * p * scale
             acc = acc + prod3(T(k[:, :, ks]), T(ds), terms)
@@ -168,17 +171,10 @@ def _jax_forward(q, k, v, seg):
     return [torch.from_numpy(np.array(x)) for x in out]
 
 
-@pytest.mark.parametrize("L,pad", [(128, 100), (256, 129), (384, 200), (384, None)])
-def test_tf32_forward_emulation_matches_jax_and_the_plain_version(L, pad):
-    """K11's three TF32 products a product at its 64-key stages against the
-    JAX Pallas forward at fp32 and against ``flash_forward_ref``: o within
-    ``fa.FP32_HEAD_REL`` of each head vector (the card's limit), l and m
-    within it too, relative (m's floored at 1): three TF32 products move a
-    logit by ~2^-21 of its terms, so m and l move by that much, where fp32
-    FMAs kept them within 1e-6."""
-    q, k, v, _, seg = _inputs(19 * L + (pad or 0), L, pad)
+def _tf32_forward_emulation_matches_jax_and_the_plain_version(L, pad, hd=64):
+    q, k, v, _, seg = _inputs(19 * L + (pad or 0) + (hd != 64) * hd, L, pad, hd=hd)
     s = torch.from_numpy(seg)
-    o, l, m = tf32x3_forward(*(torch.from_numpy(x) for x in (q, k, v)), s, s, SCALE)
+    o, l, m = tf32x3_forward(*(torch.from_numpy(x) for x in (q, k, v)), s, s, SCALE, keys=STAGE_KEYS[hd])
     for name, want in (("jax", _jax_forward(q, k, v, seg)),
                        ("plain", fa.flash_forward_ref(*(torch.from_numpy(x) for x in (q, k, v)), s, s, SCALE))):
         wo, wl, wm = want
@@ -188,24 +184,49 @@ def test_tf32_forward_emulation_matches_jax_and_the_plain_version(L, pad):
         assert float(((m - wm).abs() / wm.abs().clamp_min(1.0)).max()) <= fa.FP32_HEAD_REL, name
 
 
+@pytest.mark.parametrize("L,pad", [(128, 100), (256, 129), (384, 200), (384, None)])
+def test_tf32_forward_emulation_matches_jax_and_the_plain_version(L, pad):
+    """K11's three TF32 products a product at its 64-key stages against the
+    JAX Pallas forward at fp32 and against ``flash_forward_ref``: o within
+    ``fa.FP32_HEAD_REL`` of each head vector (the card's limit), l and m
+    within it too, relative (m's floored at 1): three TF32 products move a
+    logit by ~2^-21 of its terms, so m and l move by that much, where fp32
+    FMAs kept them within 1e-6."""
+    _tf32_forward_emulation_matches_jax_and_the_plain_version(L, pad)
+
+
+@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("L,pad", [(128, 100), (384, 200), (384, None)])
+def test_tf32_forward_emulation_matches_jax_and_the_plain_version_at_head_dims(L, pad, hd):
+    """As above at head dims 32 (64-key stages) and 128 (32-key stages)."""
+    _tf32_forward_emulation_matches_jax_and_the_plain_version(L, pad, hd)
+
+
+def _tf32_forward_one_product_misses_the_card_limit(L, pad, hd=64):
+    q, k, v, _, seg = _inputs(23 * L + pad + (hd != 64) * hd, L, pad, hd=hd)
+    s = torch.from_numpy(seg)
+    args = (*(torch.from_numpy(x) for x in (q, k, v)), s, s, SCALE)
+    want = fa.flash_forward_ref(*args)[0]
+    keys = STAGE_KEYS[hd]
+    assert fa.fp32_head_rel(tf32x3_forward(*args, keys=keys)[0], want) <= fa.FP32_HEAD_REL
+    assert fa.fp32_head_rel(tf32x3_forward(*args, terms=1, keys=keys)[0], want) > 10 * fa.FP32_HEAD_REL
+
+
 @pytest.mark.parametrize("L,pad", [(128, 100), (384, 257)])
 def test_tf32_forward_one_product_misses_the_card_limit(L, pad):
     """hi . hi alone (one TF32 product) misses ``fa.FP32_HEAD_REL`` on o by
     far, so the forward's check has teeth; three products meet it."""
-    q, k, v, _, seg = _inputs(23 * L + pad, L, pad)
-    s = torch.from_numpy(seg)
-    args = (*(torch.from_numpy(x) for x in (q, k, v)), s, s, SCALE)
-    want = fa.flash_forward_ref(*args)[0]
-    assert fa.fp32_head_rel(tf32x3_forward(*args)[0], want) <= fa.FP32_HEAD_REL
-    assert fa.fp32_head_rel(tf32x3_forward(*args, terms=1)[0], want) > 10 * fa.FP32_HEAD_REL
+    _tf32_forward_one_product_misses_the_card_limit(L, pad)
 
 
-@pytest.mark.parametrize("L,pad", [(128, 100), (256, 129), (384, 200), (384, None)])
-def test_tf32_emulation_matches_jax_grad(L, pad):
-    """Three TF32 products a product against JAX's Pallas flash backward at
-    fp32 (jax.grad through the interpreted kernels), every position
-    compared."""
-    q, k, v, w, seg = _inputs(13 * L + (pad or 0), L, pad)
+@pytest.mark.parametrize("hd", [32, 128])
+def test_tf32_forward_one_product_misses_the_card_limit_at_head_dims(hd):
+    """As above at head dims 32 and 128."""
+    _tf32_forward_one_product_misses_the_card_limit(384, 257, hd)
+
+
+def _tf32_emulation_matches_jax_grad(L, pad, hd=64):
+    q, k, v, w, seg = _inputs(13 * L + (pad or 0) + (hd != 64) * hd, L, pad, hd=hd)
     sj = jnp.asarray(seg)
 
     def f(q, k, v):
@@ -214,11 +235,35 @@ def test_tf32_emulation_matches_jax_grad(L, pad):
 
     with interpret_pallas():
         want = jax.grad(f, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
-    got, _ = _torch_backward(q, k, v, w, seg)
+    got, _ = _torch_backward(q, k, v, w, seg, keys_k13=STAGE_KEYS[hd])
     for name, g, wj in zip(("dq", "dk", "dv"), got, want):
         wt = torch.from_numpy(np.array(wj))
         assert g.dtype == torch.float32 and g.shape == wt.shape
         assert float((g - wt).abs().max()) <= 1e-5 * float(wt.abs().max()), name
+
+
+@pytest.mark.parametrize("L,pad", [(128, 100), (256, 129), (384, 200), (384, None)])
+def test_tf32_emulation_matches_jax_grad(L, pad):
+    """Three TF32 products a product against JAX's Pallas flash backward at
+    fp32 (jax.grad through the interpreted kernels), every position
+    compared."""
+    _tf32_emulation_matches_jax_grad(L, pad)
+
+
+@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("L,pad", [(128, 100), (384, 200)])
+def test_tf32_emulation_matches_jax_grad_at_head_dims(L, pad, hd):
+    """As above at head dims 32 and 128 (K13's 32-key stages at 128)."""
+    _tf32_emulation_matches_jax_grad(L, pad, hd)
+
+
+def _tf32_emulation_within_the_card_limit(L, pad, hd=64):
+    q, k, v, w, seg = _inputs(17 * L + pad + (hd != 64) * hd, L, pad, hd=hd)
+    got, want = _torch_backward(q, k, v, w, seg, keys_k13=STAGE_KEYS[hd])
+    one, _ = _torch_backward(q, k, v, w, seg, terms=1, keys_k13=STAGE_KEYS[hd])
+    for name, g, o, r in zip(("dq", "dk", "dv"), got, one, want):
+        assert fa.fp32_head_rel(g, r) <= fa.FP32_HEAD_REL, name
+        assert fa.fp32_head_rel(o, r) > 10 * fa.FP32_HEAD_REL, name
 
 
 @pytest.mark.parametrize("L,pad", [(128, 100), (256, 129), (384, 200), (384, 257)])
@@ -226,12 +271,14 @@ def test_tf32_emulation_within_the_card_limit(L, pad):
     """Three TF32 products a product against the fp32 plain version within
     ``fa.FP32_HEAD_REL`` of each head vector, the limit the card's kernels
     are held to; hi . hi alone misses it by far (TF32's 11 bits: ~1e-3)."""
-    q, k, v, w, seg = _inputs(17 * L + pad, L, pad)
-    got, want = _torch_backward(q, k, v, w, seg)
-    one, _ = _torch_backward(q, k, v, w, seg, terms=1)
-    for name, g, o, r in zip(("dq", "dk", "dv"), got, one, want):
-        assert fa.fp32_head_rel(g, r) <= fa.FP32_HEAD_REL, name
-        assert fa.fp32_head_rel(o, r) > 10 * fa.FP32_HEAD_REL, name
+    _tf32_emulation_within_the_card_limit(L, pad)
+
+
+@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("L,pad", [(256, 129), (384, 257)])
+def test_tf32_emulation_within_the_card_limit_at_head_dims(L, pad, hd):
+    """As above at head dims 32 and 128."""
+    _tf32_emulation_within_the_card_limit(L, pad, hd)
 
 
 def test_tf32_emulation_blocks_cover_the_kernels_shapes():
@@ -246,3 +293,13 @@ def test_tf32_emulation_blocks_cover_the_kernels_shapes():
         assert line in text, line
     for L in (128, 256, 384, 512):
         assert L % KEYS_K11 == L % KEYS_K12 == L % QUERIES_K12 == L % ROWS_K13 == L % KEYS_K13 == L % 128 == 0
+
+
+def test_tf32_emulation_stages_by_head_dim():
+    """The emulation's stage of keys by head dim (K11's and K13's) is the
+    kernels' (``tf::Hd<HD>::KEYS`` in the .cu: 32 at head dim 128, for
+    shared memory), and each divides every length the kernels take."""
+    text = (Path(fa.__file__).resolve().parents[1] / "csrc" / "flash_attention.cu").read_text()
+    assert "static constexpr int KEYS = HD == 128 ? 32 : KT;" in text
+    assert STAGE_KEYS == {hd: 32 if hd == 128 else KEYS_K11 for hd in fa.HEAD_DIMS}
+    assert all(128 % keys == 0 for keys in STAGE_KEYS.values())

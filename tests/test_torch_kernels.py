@@ -1240,6 +1240,7 @@ def test_token_probe_never_synchronises(cuda_device):
 # small contiguous cases at L 128 (the JAX kernel's single block) and 256, fp16;
 # "unseen": the models' layout with query segment ids that no key has (those
 # rows attend to no key: the JAX result, a mean over the masked keys)
+@pytest.mark.parametrize("hd", [32, 64, 128])
 @pytest.mark.parametrize("route", ["wgmma", "simple"])
 @pytest.mark.parametrize("B,nh,L,dtype,layout", [
     (68, 12, 384, torch.bfloat16, "heads"),
@@ -1249,21 +1250,23 @@ def test_token_probe_never_synchronises(cuda_device):
     (5, 4, 256, torch.float16, "contiguous"),
     (6, 4, 384, torch.bfloat16, "unseen"),
 ])
-def test_flash_kernels_match_plain(cuda_device, B, nh, L, dtype, layout, route):
-    """K11, K12 and K13 on ``route`` against the plain versions on the
-    same inputs (the backward on the plain forward's l, m and di), within 2
-    bf16 ulps of each element's head vector and at most 1e-3 of the elements
-    past 2 ulps of their own magnitude; two runs bit-equal; on the route the
-    wrapper takes, the autograd function equal to the launches (its backward
-    on the rows kernel's di and 1 / l, which K12 and K13 both read)."""
+def test_flash_kernels_match_plain(cuda_device, B, nh, L, dtype, layout, route, hd):
+    """K11, K12 and K13 on ``route`` at head dim ``hd`` against the plain
+    versions on the same inputs (the backward on the plain forward's l, m
+    and di), within 2 bf16 ulps of each element's head vector and at most
+    1e-3 of the elements past 2 ulps of their own magnitude; two runs
+    bit-equal; on the route the wrapper takes, the autograd function equal
+    to the launches (its backward on the rows kernel's di and 1 / l, which
+    K12 and K13 both read).  Route "simple" takes head dim 64 alone: at 32
+    and 128 its launches raise NotImplementedError."""
     from colbert_tpu_torch.ops import flash_attention as fa
 
-    g = torch.Generator(cuda_device).manual_seed(B * L + nh)
+    g = torch.Generator(cuda_device).manual_seed(B * L + nh + (hd != 64) * hd)
 
     def t():
         if layout in ("heads", "unseen"):
-            return torch.randn((B, L, nh, 64), generator=g, device=cuda_device).to(dtype).transpose(1, 2)
-        return torch.randn((B, nh, L, 64), generator=g, device=cuda_device).to(dtype)
+            return torch.randn((B, L, nh, hd), generator=g, device=cuda_device).to(dtype).transpose(1, 2)
+        return torch.randn((B, nh, L, hd), generator=g, device=cuda_device).to(dtype)
     q, k, v, do = t(), t(), t(), t()
     lengths = torch.randint(1, L + 1, (B,), generator=g, device=cuda_device)
     lengths[0] = L
@@ -1271,7 +1274,11 @@ def test_flash_kernels_match_plain(cuda_device, B, nh, L, dtype, layout, route):
     q_seg, kv_seg = seg, seg
     if layout == "unseen":  # every third query of each row in segment 2, which no key has
         q_seg = torch.where(torch.arange(L, device=cuda_device)[None, :] % 3 == 1, 2, seg).to(torch.int32)
-    args = (q, k, v, q_seg, kv_seg, 0.125)
+    args = (q, k, v, q_seg, kv_seg, hd ** -0.5)
+    if route == "simple" and hd != fa.SIMPLE_HEAD_DIM:
+        with pytest.raises(NotImplementedError, match="route 'simple'"):
+            fa._launch_forward(*args, route=route)
+        return
     o, l, m = fa._launch_forward(*args, route=route)
     ro, rl, rm = fa.flash_forward_ref(*args)
     di = fa.flash_di(ro, do)
@@ -1292,27 +1299,28 @@ def test_flash_kernels_match_plain(cuda_device, B, nh, L, dtype, layout, route):
     if route != "wgmma":  # the autograd function runs the default route
         return
     leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-    out = fa.flash_attention(*leaves, q_seg, kv_seg, 0.125)
+    out = fa.flash_attention(*leaves, q_seg, kv_seg, hd ** -0.5)
     out.backward(do)
     di_card, inv_l = fa._launch_rows(o, do, l)
-    own = (q, k, v, q_seg, kv_seg, 0.125, l, m, do, di_card)
+    own = (q, k, v, q_seg, kv_seg, hd ** -0.5, l, m, do, di_card)
     dkf, dvf = fa._launch_dkv(*own, inv_l=inv_l)
     assert torch.equal(out, o)
     assert torch.equal(leaves[0].grad, fa._launch_dq(*own, inv_l=inv_l))
     assert torch.equal(leaves[1].grad, dkf) and torch.equal(leaves[2].grad, dvf)
 
 
+@pytest.mark.parametrize("hd", [32, 64, 128])
 @pytest.mark.parametrize("B,nh,L,dtype", [(68, 12, 384, torch.bfloat16), (5, 4, 256, torch.float16),
                                          (68, 12, 384, torch.float32)])
-def test_flash_rows_kernel(cuda_device, B, nh, L, dtype):
-    """The backward's rows kernel: di bit-equal to its order emulated in
-    torch and within fp32 rounding of ``flash_di`` (2 * 64 * 2^-24 * sum |o *
-    do| a row), 1 / l bit-equal to the division in torch; read in the models'
-    layout."""
+def test_flash_rows_kernel(cuda_device, B, nh, L, dtype, hd):
+    """The backward's rows kernel at head dim ``hd`` (hd / 8 lanes a row):
+    di bit-equal to its order emulated in torch and within fp32 rounding of
+    ``flash_di`` (2 * hd * 2^-24 * sum |o * do| a row), 1 / l bit-equal to
+    the division in torch; read in the models' layout."""
     from colbert_tpu_torch.ops import flash_attention as fa
 
-    g = torch.Generator(cuda_device).manual_seed(L + B)
-    o, do = (torch.randn((B, L, nh, 64), generator=g, device=cuda_device).to(dtype).transpose(1, 2)
+    g = torch.Generator(cuda_device).manual_seed(L + B + (hd != 64) * hd)
+    o, do = (torch.randn((B, L, nh, hd), generator=g, device=cuda_device).to(dtype).transpose(1, 2)
              for _ in range(2))
     l = torch.rand((B, nh, L), generator=g, device=cuda_device) * 100 + 1
     before = fa.rows_launches.value, fa.rows_fp32_launches.value
@@ -1321,30 +1329,31 @@ def test_flash_rows_kernel(cuda_device, B, nh, L, dtype):
     assert (fa.rows_launches.value, fa.rows_fp32_launches.value) == (before[0] + 1,
                                                                        before[1] + int(dtype == torch.float32))
     assert torch.equal(di, fa.flash_di_card_order(o, do))
-    bound = 2 * 64 * 2.0**-24 * (o.float() * do.float()).abs().sum(-1)
+    bound = 2 * hd * 2.0**-24 * (o.float() * do.float()).abs().sum(-1)
     assert bool(((di - fa.flash_di(o, do)).abs() <= bound).all())
     assert torch.equal(inv_l, torch.ones_like(l) / l)
 
 
 # the retriever's doc pass in the models' layout, one JAX block (L 128), and a
 # short contiguous case whose third query segment no key has
+@pytest.mark.parametrize("hd", [32, 64, 128])
 @pytest.mark.parametrize("B,nh,L,layout", [(68, 12, 384, "heads"), (3, 2, 128, "contiguous"),
                                            (4, 3, 256, "unseen")])
-def test_flash_fp32_route_matches_plain(cuda_device, B, nh, L, layout):
+def test_flash_fp32_route_matches_plain(cuda_device, B, nh, L, layout, hd):
     """Route "tf32" of K11, K12 and K13 (three TF32 products on wgmma) and
     the rows kernel on fp32 inputs against the fp32 plain versions (TF32
     off) within fa.FP32_HEAD_REL of each head vector (the summation order,
     the exponential's last bits and ~2^-21 of a product differ), l and m
     within it too, relative (m's floored at 1); two runs bit-equal; each
-    launch counted on the route taken and on no other."""
+    launch counted on the route taken and on no other; at head dim ``hd``."""
     from colbert_tpu_torch.ops import flash_attention as fa
 
-    g = torch.Generator(cuda_device).manual_seed(B * L + nh + 1)
+    g = torch.Generator(cuda_device).manual_seed(B * L + nh + 1 + (hd != 64) * hd)
 
     def t():
         if layout in ("heads", "unseen"):
-            return torch.randn((B, L, nh, 64), generator=g, device=cuda_device).transpose(1, 2)
-        return torch.randn((B, nh, L, 64), generator=g, device=cuda_device)
+            return torch.randn((B, L, nh, hd), generator=g, device=cuda_device).transpose(1, 2)
+        return torch.randn((B, nh, L, hd), generator=g, device=cuda_device)
     q, k, v, do = t(), t(), t(), t()
     lengths = torch.randint(1, L + 1, (B,), generator=g, device=cuda_device)
     lengths[0] = L
@@ -1352,7 +1361,7 @@ def test_flash_fp32_route_matches_plain(cuda_device, B, nh, L, layout):
     q_seg = seg
     if layout == "unseen":
         q_seg = torch.where(torch.arange(L, device=cuda_device)[None, :] % 3 == 1, 2, seg).to(torch.int32)
-    args = (q, k, v, q_seg, seg, 0.125)
+    args = (q, k, v, q_seg, seg, hd ** -0.5)
     counters = {"fwd": fa.fwd_route_launches, "dkv": fa.dkv_route_launches, "dq": fa.dq_route_launches}
     before = {n: {r: c.value for r, c in d.items()} for n, d in counters.items()}
     o, l, m = fa._launch_forward(*args)
@@ -1456,12 +1465,14 @@ def test_flash_fp32_autograd_never_reaches_the_plain_version(cuda_device, monkey
 
 
 def test_flash_refuses_what_it_does_not_take(cuda_device):
-    """On a CUDA tensor the wrapper launches or raises, never the plain version."""
+    """On a CUDA tensor the wrapper launches or raises, never the plain
+    version: head dims but 32, 64 and 128 (80, 256, TinyBERT's 26), fp64 and
+    lengths not a multiple of 128 raise, citing step 12."""
     from colbert_tpu_torch.ops import flash_attention as fa
 
     seg = torch.ones((2, 384), dtype=torch.int32, device=cuda_device)
-    for shape, dtype in (((2, 2, 384, 32), torch.bfloat16), ((2, 2, 384, 32), torch.float32),
-                         ((2, 2, 384, 64), torch.float64)):
+    for shape, dtype in (((2, 2, 384, 80), torch.bfloat16), ((2, 2, 384, 256), torch.float32),
+                         ((2, 2, 384, 26), torch.float16), ((2, 2, 384, 64), torch.float64)):
         x = torch.zeros(shape, dtype=dtype, device=cuda_device)
         with pytest.raises(NotImplementedError, match="step 12"):
             fa.flash_attention(x, x, x, seg, seg, 0.125)
