@@ -364,6 +364,30 @@ seed:
   ms/step, docs/s and peak memory.  ``--phase12`` runs it, with phase 8a's
   and 11a's head-dim cases, alone.
 
+* phase 13, tensor parallelism (``mesh.model = 2``, ``models/sharding.py``;
+  on two cards where the machine has them, else ``cuda:0`` listed twice
+  holds both positions), after phase 11: (a) K9 on a position's slices
+  (route "packed", strided counters): the retriever's probabilities (68,
+  6, 384, 384) of (68, 12, 384, 384) and the flash output's columns (68,
+  384, 384) of (68, 384, 768), bf16, at positions 0 and 1, from row 0 and
+  from a data-parallel rank's row 34, forward and backward bit-equal to the
+  plain version, each timed cold on the card alone in turns with the
+  contiguous launch of the same bytes, beside its byte bound, the plain
+  version and ``F.dropout``; (b) 3 train steps at phase 4's configuration
+  (BERT-base, batch 34, bf16, flash, dropout on) at model 2 against model 1
+  from the same init and generators: every dropout mask bit-equal (drawn
+  by the kernel; a position's slices put together), the losses within 2e-2
+  and the parameters within 7 x 3 x lr (bf16 partial products summed after
+  the product, so activations round otherwise; Adam moves an element about
+  lr a step whatever its gradient), three runs at model 2 bit-equal, K11-K13
+  once a layer a position a step and K9's launches (strided ones at the
+  attention sites) as counted; (c) ``encode`` of 4,000 passages through the
+  CLI at ``--set mesh.model=2`` and flat serving of 144 questions at
+  model 2: reps within 2^-4 of model 1's, the same top-10 pids but at
+  ties within twice the largest score change the reps make; (d) one CE
+  step at model 2 against model 1 (loss within 2e-2).  ``--phase13`` runs
+  it alone.
+
 Prints the card's name and power limit, the measurements, one JSON line of
 kernels, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, when CUDA is unavailable or any phase fails.
@@ -429,6 +453,7 @@ def counters():
             "K10 fused route": sq_probe.route_launches["fused"],
             "K10 staged route": sq_probe.route_launches["staged"],
             "K9 packed route": dr.route_launches["packed"], "K9 simple route": dr.route_launches["simple"],
+            "K9 slice": dr.slice_launches,
             "K11 wgmma route": fa.fwd_route_launches["wgmma"], "K11 simple route": fa.fwd_route_launches["simple"],
             "K12 wgmma route": fa.dkv_route_launches["wgmma"], "K12 simple route": fa.dkv_route_launches["simple"],
             "K13 wgmma route": fa.dq_route_launches["wgmma"], "K13 simple route": fa.dq_route_launches["simple"],
@@ -1030,7 +1055,8 @@ def k9_mix(dtype, thr=K9_THR):
     from colbert_tpu_torch.ops import dropout as dr
 
     name = {torch.float32: "If", torch.bfloat16: "I13__nv_bfloat16", torch.float16: "I6__half"}[dtype]
-    return sass_loop_mix(dr._kernel_lib()._name, ("packed_kernel", f"{name}Lb{int(thr >= 128)}ELb0E"),
+    # template arguments <T, HI, STREAM = false, SLICED = false>: the contiguous kernel
+    return sass_loop_mix(dr._kernel_lib()._name, ("packed_kernel", f"{name}Lb{int(thr >= 128)}ELb0ELb0E"),
                          16 // torch.empty((), dtype=dtype).element_size())
 
 
@@ -2868,9 +2894,9 @@ def phase_second_stage(device, workdir: Path, label: str, ctx: dict, model_kw=No
     k9_host_s = []
     apply = dr._apply
 
-    def timed_apply(x, seed, thr):
+    def timed_apply(x, seed, thr, *where):
         t = time.perf_counter()
-        out = apply(x, seed, thr)
+        out = apply(x, seed, thr, *where)
         k9_host_s.append(time.perf_counter() - t)
         return out
 
@@ -4344,7 +4370,7 @@ def phase10_alone(device, label):
     return {"sharded_flat": flat, "sharded_ann": ann, "launch_train": launch}
 
 
-def phase_launch_train(device, workdir: Path, label: str, train_ctx, steps=3, processes=None):
+def phase_launch_train(device, workdir: Path, label: str, train_ctx, steps=3, processes=None, model=1):
     """Phase 10c: the CLI's ``train`` under a launch (``--coordinator
     127.0.0.1:<port> --num-processes N --process-id r``, NCCL, N =
     ``processes``, by default the cards present) for ``steps`` steps at
@@ -4355,7 +4381,11 @@ def phase_launch_train(device, workdir: Path, label: str, train_ctx, steps=3, pr
     (one process a card, each rank's output in ``workdir``): the CPU test's
     conditions (the model in fp32, Adam's eps 1e-6), 34 // N examples a
     rank, the one device at the global batch; the ranks' losses within 1e-6
-    of their size and the parameters within 1e-6 of the one device's."""
+    of their size and the parameters within 1e-6 of the one device's.  With
+    ``model`` > 1 each rank holds ``model`` cards (``mesh.model``, tensor
+    parallelism; N by default the cards present over ``model``: phase 13 on
+    four cards runs data 2 x model 2), and the limit is ``TP_LAUNCH_TOL``
+    (the forward's sums run in another order)."""
     import numpy as np
     import torch
 
@@ -4365,15 +4395,16 @@ def phase_launch_train(device, workdir: Path, label: str, train_ctx, steps=3, pr
     from colbert_tpu_torch.utils.io import dump_json, load_json, load_jsonl
 
     start = time.perf_counter()
-    n = processes or (torch.cuda.device_count() if device.type == "cuda" else 1)
+    n = processes or (torch.cuda.device_count() // model if device.type == "cuda" else 1)
     base = train_ctx["cfg"]
     b = base.train.per_device_batch_size // n
     data = workdir / "launch_train.json"
     dump_json(load_json(train_ctx["train_path"])[: steps * n * b], data)
 
-    def conf(name, batch):
+    def conf(name, batch, mesh_model=1):
         c = ColbertConfig.from_dict(base.to_dict())
         c.train.per_device_batch_size, c.train.evals_per_epoch = batch, 1
+        c.mesh.model = mesh_model
         c.train.checkpoint_dir = str(workdir / name)
         if n > 1:
             # the CPU test's conditions: fp32, and Adam's eps at 1e-6, since the
@@ -4397,7 +4428,7 @@ def phase_launch_train(device, workdir: Path, label: str, train_ctx, steps=3, pr
         launches = read_counts()
         # ----
     else:
-        args = conf("ranks", b)
+        args = conf("ranks", b, model)
         outs = [open(workdir / f"rank{r}.log", "w") for r in range(n)]
         procs = [subprocess.Popen([sys.executable, "-m", "colbert_tpu_torch.cli", *args, "--device", device.type,
                                    *launch, "--process-id", str(r)], cwd=Path(__file__).resolve().parent,
@@ -4427,10 +4458,11 @@ def phase_launch_train(device, workdir: Path, label: str, train_ctx, steps=3, pr
     p_diff = diffs[0][0]
     m_diff = max(float((moments["one"][i][m] - s[m]).abs().max()) for i, s in moments["ranks"].items()
                  for m in ("exp_avg", "exp_avg_sq"))
-    out = {"processes": n, "backend": "nccl" if device.type == "cuda" else "gloo", "losses": losses,
+    out = {"processes": n, "model": model, "backend": "nccl" if device.type == "cuda" else "gloo", "losses": losses,
            "max_param_diff": p_diff, "max_moment_diff": m_diff, "one_s": one_s, "ranks_s": ranks_s,
            "launches": launches, "s": time.perf_counter() - start}
-    log(f"[phase10c] train under a launch of {n} process(es) ({out['backend']}), {steps} steps at phase 4's "
+    log(f"[phase10c] train under a launch of {n} process(es) ({out['backend']}, mesh.model={model} a rank), "
+        f"{steps} steps at phase 4's "
         f"configuration{' in fp32, adam_eps 1e-6' if n > 1 else ''}, per-device batch {b}: losses {losses['ranks']} vs "
         f"the one device's {losses['one']}; parameters max|d| {p_diff:.3e} (largest: "
         f"{', '.join(f'{k} {d:.2e}' for d, k in diffs[:3])}), AdamW moments max|d| {m_diff:.3e}; {ranks_s:.1f} s launched, "
@@ -4442,8 +4474,11 @@ def phase_launch_train(device, workdir: Path, label: str, train_ctx, steps=3, pr
         if launches["K9"] != steps * per_step_k9 or launches["K3"]:
             raise AssertionError(f"launched train launches {launches}, expected K9 {steps * per_step_k9}, no K3")
         k9_on_packed(launches, "the launched train run")
-    elif not (np.allclose(losses["ranks"], losses["one"], rtol=1e-6, atol=0) and p_diff <= 1e-6):
-        raise AssertionError(f"{n} ranks against one device: losses {losses}, parameters max|d| {p_diff}")
+    else:
+        tol = 1e-6 if model == 1 else TP_LAUNCH_TOL
+        if not (np.allclose(losses["ranks"], losses["one"], rtol=tol, atol=0) and p_diff <= tol):
+            raise AssertionError(f"{n} ranks of model {model} against one device: losses {losses}, parameters "
+                                 f"max|d| {p_diff}")
     return out
 
 
@@ -5128,6 +5163,518 @@ def phase_minilm(device, workdir: Path, label, steps=9):
     return out
 
 
+# ---- phase 13: tensor parallelism (mesh.model = 2) ----
+
+TP_MODEL = 2          # positions of phase 13's model group
+TP_DOCS = 4_000       # 13c's corpus
+TP_TOPK = 10          # 13c's answers compared
+TP_LOSS_REL = OPTION_LOSS_REL  # 13b/13d: a bf16 loss at model 2 against model 1, relative to its size
+TP_FP32_TOL = 1e-5    # 13b in fp32, model 2 against model 1 (the CPU test's TOL_TP): losses relative to their size,
+                      # each step-1 gradient element within this of the largest, parameters absolute
+TP_REP_ERR = 2**-4    # 13c: a unit rep (query or doc view) at model 2 within this of model 1's, in norm: a head
+                      # or a mask out of place moves one by O(1); bf16 sums taken in another order moved them by
+                      # up to 1.41e-2 at BERT-base depth (NVIDIA H100 80GB HBM3, 700.00 W)
+TP_LAUNCH_TOL = TP_FP32_TOL  # phase 13's launch at data x model (four cards), fp32: losses relative, parameters absolute
+
+
+def tp_group(device, model=TP_MODEL):
+    """Phase 13's model group: the first ``model`` cards, or ``device``
+    listed ``model`` times where there are fewer (one card holds both
+    positions)."""
+    import torch
+
+    if device.type == "cuda" and torch.cuda.device_count() >= model:
+        return [torch.device("cuda", i) for i in range(model)]
+    return [device] * model
+
+
+def counts_ok(launches, want, what):
+    """The counters named in ``want`` at those values."""
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def phase_tp_k9(device, label, m=TP_MODEL, seed=SEED, row0=34, shape=K9_SHAPE, hidden=768):
+    """Phase 13a: K9 on a tensor-parallel position's slice (route "packed",
+    strided counters): the retriever's probabilities at position p of m, (68,
+    12 / m, 384, 384) of (68, 12, 384, 384), and the flash output's columns,
+    (68, 384, 768 / m) of (68, 384, 768), bf16, for p = 0 .. m - 1, also from
+    a data-parallel rank's ``row0``: forward and backward bit-equal to the
+    plain version (``hw_dropout_ref`` with the same slice).  Each slice is
+    timed on the card alone, cold (``in_turn`` over copies past twice the
+    L2), in turns with the contiguous launch of the same bytes; beside the
+    bound (the bytes read and written at the HBM rate), the plain version and
+    ``F.dropout`` of the same tensor."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from colbert_tpu_torch.ops import dropout as dr
+
+    B, nh, L = shape[:3]
+    h = hidden
+    gen = torch.Generator(device=device).manual_seed(seed)
+    seed64 = int(torch.randint(0, 1 << 62, (1,), generator=torch.Generator().manual_seed(seed + 13)))
+    l2 = torch.cuda.get_device_properties(device).L2_cache_size
+    out = {}
+    for kind, full, dim in (("probabilities", (B, nh, L, L), 1), ("columns", (B, L, h), 2)):
+        part = list(full)
+        part[dim] //= m
+        inner, per_row = math.prod(part[dim:]), math.prod(full[1:])
+        slices = []
+        before = dr.slice_launches.value
+        for p in range(m):
+            for r0 in (0, row0):
+                args = ((r0 * per_row + p * inner) // 16, inner // 16, m * inner // 16)
+                x = torch.randn(part, device=device, dtype=torch.bfloat16, generator=gen)
+                xg = x.detach().requires_grad_(True)
+                y = dr.hw_dropout(xg, seed64, K9_THR, *args)
+                g = torch.randn(part, device=device, dtype=torch.bfloat16, generator=gen)
+                (dx,) = torch.autograd.grad(y, xg, g)
+                for what, got, want in (("forward", y, dr.hw_dropout_ref(x, seed64, K9_THR, *args)),
+                                        ("backward", dx, dr.hw_dropout_ref(g, seed64, K9_THR, *args))):
+                    if not dr.same_bits(got, want):
+                        raise AssertionError(f"K9 on a {kind} slice {part} (position {p}, row0 {r0}), {what}: "
+                                             f"{int((got.view(-1) != want.view(-1)).sum())} elements differ from "
+                                             "the plain version")
+                slices.append({"p": p, "row0": r0, "base": args[0]})
+        counts_ok({"K9 slice": dr.slice_launches.value - before}, {"K9 slice": 4 * m}, f"K9 on {kind} slices")
+        args = (p * inner // 16, inner // 16, m * inner // 16)  # the last position's slice, from row 0
+        xs = [x] + [x.clone() for _ in range(-(-2 * l2 // (x.numel() * x.element_size())))]
+        calls = {"strided": lambda t, i: dr.hw_dropout(t, seed64, K9_THR, *args),
+                 "contiguous": lambda t, i: dr.hw_dropout(t, seed64, K9_THR, args[0])}
+        turns = [(r, device_ms(in_turn(calls[r], xs))) for r in ("strided", "contiguous", "contiguous", "strided")]
+        nbytes = 2.0 * x.numel() * x.element_size()
+        res = {"full_shape": list(full), "shape": part, "slices": slices, "max_abs_err": 0.0,
+               "ms": sum(t for r, t in turns if r == "strided") / 2,
+               "contiguous_ms": sum(t for r, t in turns if r == "contiguous") / 2,
+               "library_ms": device_ms(in_turn(lambda t, i: F.dropout(t, K9_THR / 256, True), xs)),
+               "plain_ms": time_ms(lambda: dr.hw_dropout_ref(x, seed64, K9_THR, *args), iters=3, warmup=1),
+               "bound_ms": nbytes / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes", "cold_buffers": len(xs)}
+        out[kind] = res
+        log(f"[phase13a] K9 on a position's {kind} slice {tuple(part)} of {full} bf16 (route packed, strided "
+            f"counters, {m} positions x row0 0 and {row0}): forward and backward bit-equal to the plain version; "
+            f"on the card alone, cold over {len(xs)} copies: strided {res['ms']:.4f} ms, the contiguous launch of "
+            f"the same bytes {res['contiguous_ms']:.4f} ms, F.dropout {res['library_ms']:.4f} ms; bound "
+            f"{res['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB at {PEAK_HBM_BYTES / 1e12:.2f} TB/s); plain "
+            f"{res['plain_ms']:.2f} ms [{label}]")
+        del xs, x, xg, y, g, dx
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_mask_log(masks, m):
+    """A stand-in for ``models.bert.hw_dropout`` that records each forward
+    call's keep mask, drawn by the kernel itself (the same call on ones),
+    and calls the kernel."""
+    import torch
+
+    from colbert_tpu_torch.ops import dropout as dr
+
+    def logged(x, seed, thr, base=0, inner=0, stride=0):
+        with torch.no_grad():
+            masks.append((dr.hw_dropout(torch.ones_like(x), seed, thr, base, inner, stride) != 0, inner))
+        return dr.hw_dropout(x, seed, thr, base, inner, stride)
+    return logged
+
+
+def _tp_whole_masks(masks, m):
+    """The recorded masks with each site's m position slices put together
+    along the split dim (1 of the probabilities, 2 of the attention output)."""
+    import torch
+
+    out, i = [], 0
+    while i < len(masks):
+        keep, inner = masks[i]
+        if not inner:
+            out.append(keep)
+            i += 1
+            continue
+        out.append(torch.cat([k.to(keep.device) for k, _ in masks[i : i + m]], dim=1 if keep.dim() == 4 else 2))
+        i += m
+    return out
+
+
+def _tp_compare(full, sharded, model_cfg):
+    """``{full name: (max |d|, |d| / |full|)}`` between a model-1 tensor dict
+    and a model-m one (shards named ``name.p``) on the shards' devices."""
+    import torch
+
+    from colbert_tpu_torch.models.convert import flax_paths
+    from colbert_tpu_torch.models.sharding import full_name, split_dim
+
+    paths = flax_paths(model_cfg)
+    acc = {}
+    for name, t in sharded.items():
+        f = full_name(name, paths)
+        want = full[f]
+        if f != name:
+            dim, p = split_dim(paths[f], want.dim()), int(name[len(f) + 1 :])
+            want = want.narrow(dim, p * t.shape[dim], t.shape[dim])
+        d = (t.float() - want.to(t.device).float())
+        mx, sq, ref = acc.get(f, (0.0, 0.0, 0.0))
+        acc[f] = (max(mx, float(d.abs().max())), sq + float(d.square().sum()), ref + float(want.float().square().sum()))
+    rel = lambda sq, ref: (sq / ref) ** 0.5 if ref else (0.0 if not sq else float("inf"))
+    return {f: (mx, rel(sq, ref)) for f, (mx, sq, ref) in acc.items()}
+
+
+def tp_steps(device, cfg, train_path, group, steps, record=False):
+    """``steps`` steps of the library's trainer at phase 4's data on the
+    model group ``group`` (``mesh.model = len(group)``), counted and timed:
+    losses, ms a step, launches, step 1's gradients and the parameters after
+    the last step (by parameter, on their devices), and with ``record`` every
+    forward dropout call's keep mask (``_tp_whole_masks``)."""
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.config import ColbertConfig
+    from colbert_tpu_torch.models import bert
+    from colbert_tpu_torch.parallel.mesh import Mesh
+    from colbert_tpu_torch.training import ColbertTrainer, RetrievalDataset
+    from colbert_tpu_torch.training.dataset import RetrievalSampler
+
+    m = len(group)
+    c = ColbertConfig.from_dict(cfg.to_dict())
+    c.mesh.model = m
+    tok = cli._tokenizer(c)
+    trainer = ColbertTrainer(c, tok, device=group[0], mesh=Mesh.of(group, m))
+    sampler = RetrievalSampler(RetrievalDataset.from_json(train_path), tok, c.train, c.train.per_device_batch_size,
+                               is_eval=False)
+    trainer._init_state(sampler.steps_per_epoch())
+    batches = [b for _, b in zip(range(steps), sampler.epoch(0))]
+    masks, original = [], bert.hw_dropout
+    if record:
+        bert.hw_dropout = _tp_mask_log(masks, m)
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        losses, step_ms, grads = [], [], None
+        for gstep, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            losses.append(float(trainer.compute_grads(batch, gstep)))
+            if gstep == 0:
+                grads = {k: p.grad.detach().clone() for k, p in trainer.model.named_parameters()}
+            trainer.optimizer.step()
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        launches = read_counts()
+    finally:
+        bert.hw_dropout = original
+    params = {k: p.detach().clone() for k, p in trainer.model.named_parameters()}
+    del trainer
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": step_ms, "ms_step": float(np.mean(step_ms[1:])), "launches": launches,
+            "grads": grads, "params": params, "masks": _tp_whole_masks(masks, m) if record else None}
+
+
+def tp_fp32_compare(device, cfg, train_path, group, steps):
+    """13b's check of the model-axis backward (the broadcasts' and reduces'
+    backward, the gradients on each position's device, the clip over
+    devices): ``steps`` steps at ``mesh.model = 1`` and at ``len(group)``
+    from the same init, in fp32 with Adam's eps at 1e-6 (phase 10c's
+    conditions for several ranks: at the default 1e-8 Adam scales the
+    rounding noise of the key biases' gradient, which is zero but for
+    rounding, up to ~lr an element a step).  The sums differ only in order,
+    so the limits are the CPU test's: each loss within ``TP_FP32_TOL`` of
+    its size, each step-1 gradient element within ``TP_FP32_TOL`` of the
+    largest, each parameter after the last step within ``TP_FP32_TOL``.
+    Returns the readings and ``ok``; beside them each tensor's |d| / |g|
+    (the key biases apart), as information."""
+    import math
+
+    from colbert_tpu_torch.config import ColbertConfig
+
+    c = ColbertConfig.from_dict(cfg.to_dict())
+    c.model.dtype, c.train.adam_eps = "float32", 1e-6
+    one = tp_steps(device, c, train_path, [device], steps)
+    two = tp_steps(device, c, train_path, group, steps)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(two["losses"], one["losses"]))
+    grads = _tp_compare(one["grads"], two["grads"], c.model)
+    largest = max(float(g.abs().max()) for g in one["grads"].values())
+    grad_diff = max(grads.items(), key=lambda kv: kv[1][0])
+    grad_rel = max(((rel, f) for f, (_, rel) in grads.items() if not f.endswith("attention.key.bias")))
+    params = _tp_compare(one["params"], two["params"], c.model)
+    param_diff = max(params.items(), key=lambda kv: kv[1][0])
+    out = {"losses": two["losses"], "model1_losses": one["losses"], "loss_rel": loss_rel,
+           "grad_max_diff": grad_diff[1][0], "grad_max_at": grad_diff[0], "grad_largest": largest,
+           "grad_ratio": grad_diff[1][0] / largest, "grad_rel": grad_rel[0], "grad_rel_at": grad_rel[1],
+           "param_max_diff": param_diff[1][0], "param_max_at": param_diff[0],
+           "ms_step": two["ms_step"], "model1_ms_step": one["ms_step"]}
+    out["ok"] = (all(math.isfinite(x) for x in two["losses"] + one["losses"]) and loss_rel <= TP_FP32_TOL
+                 and out["grad_ratio"] <= TP_FP32_TOL and out["param_max_diff"] <= TP_FP32_TOL)
+    return out
+
+
+def phase_tp_train(device, workdir: Path, label, model_kw=None, batch=34, steps=3, repeats=3):
+    """Phase 13b: ``steps`` train steps at phase 4's configuration (BERT-base,
+    batch 34, bf16, ``attention_impl="flash"``, dropout "byte" on) at
+    ``mesh.model = 2`` (``tp_group``) against ``mesh.model = 1`` from the same
+    init and generators: every dropout site's mask bit-equal (drawn by the
+    kernel; a position's slices put together), each loss within
+    ``TP_LOSS_REL`` of model 1's; model 2's ``repeats`` runs bit-equal
+    (losses, step-1 gradients, parameters); K11, K12 and K13 once a layer a
+    position a step (the doc pass at 12 / 2 heads), all on route "wgmma";
+    K9's strided launches counted.  ms a step at each model from runs that
+    do not record masks (model 1 in a run of its own).  The backward is held
+    in fp32 (``tp_fp32_compare``), where the sums differ in order only: in
+    bf16 the two models' activations round apart from the first layer on,
+    so their gradients and Adam's steps are shown, not held."""
+    import math
+
+    cfg, train_path, _ = train_setup(workdir, model_kw=model_kw, batch=batch, steps=steps, n_dev=4,
+                                     attention_impl="flash")
+    group = tp_group(device)
+    m, layers = len(group), cfg.model.num_layers
+    one = tp_steps(device, cfg, train_path, [device], steps, record=True)
+    one_ms = tp_steps(device, cfg, train_path, [device], steps)["ms_step"]
+    runs = [tp_steps(device, cfg, train_path, group, steps, record=r == 0) for r in range(repeats)]
+    two = runs[0]
+    if len(one["masks"]) != len(two["masks"]) or not all(
+            a.shape == b.shape and bool((a == b.to(a.device)).all()) for a, b in zip(one["masks"], two["masks"])):
+        bad = [i for i, (a, b) in enumerate(zip(one["masks"], two["masks"]))
+               if a.shape != b.shape or not bool((a == b.to(a.device)).all())]
+        raise AssertionError(f"model {m} dropout masks differ from model 1's: {len(two['masks'])} vs "
+                             f"{len(one['masks'])} sites, differing {bad[:10]}")
+    n_masks = len(one["masks"])
+    del one["masks"], two["masks"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(two["losses"], one["losses"]))
+    bf16_grad_rel = max(rel for f, (_, rel) in _tp_compare(one["grads"], two["grads"], cfg.model).items()
+                        if not f.endswith("attention.key.bias"))
+    bf16_param_diff = max(mx for mx, _ in _tp_compare(one["params"], two["params"], cfg.model).values())
+    repeat_equal = all(r["losses"] == two["losses"] and all(
+        torch_equal(r[k][n], two[k][n]) for k in ("grads", "params") for n in two[k]) for r in runs[1:])
+    counted = runs[1]["launches"] if repeats > 1 else two["launches"]
+    one_losses = one["losses"]
+    ms_step = sum(r["ms_step"] for r in runs[1:]) / (repeats - 1) if repeats > 1 else two["ms_step"]
+    del one, runs
+    fp32 = tp_fp32_compare(device, cfg, train_path, group, steps)
+    # what a reduce moves: each other position's (rows, L, H) bf16 partial product, to the first position;
+    # two a layer (attention out, MLP output) a pass, and the broadcasts' backward as many the other way
+    group_n = cfg.train.train_num_positives + cfg.train.train_num_negatives
+    elem = 2 if cfg.model.dtype != "float32" else 4
+    reduce_mb = {"doc": batch * group_n * cfg.tokenizer.doc_maxlen * cfg.model.hidden_size * elem * (m - 1) / 1e6,
+                 "query": batch * cfg.tokenizer.query_maxlen * cfg.model.hidden_size * elem * (m - 1) / 1e6}
+    reduce_mb["step_forward"] = 2 * layers * (reduce_mb["doc"] + reduce_mb["query"])
+    lr = cfg.train.learning_rate
+    log(f"[phase13b] train at mesh.model={m} on {[str(d) for d in group]}, {steps} steps at phase 4's configuration "
+        f"with flash, dropout on: {n_masks} dropout masks bit-equal to model 1's; losses {two['losses']} vs model "
+        f"1's {one_losses} (relative {loss_rel:.2e}, "
+        f"limit {TP_LOSS_REL}); bf16, shown: step-1 gradients |d|/|g| at most {bf16_grad_rel:.2e}, parameters "
+        f"max|d| {bf16_param_diff:.3e} = {bf16_param_diff / lr:.2f} lr; {repeats} runs at model {m} bit-equal: "
+        f"{repeat_equal}; {ms_step:.1f} ms/step at model {m}, {one_ms:.1f} at model 1 (runs without the mask "
+        f"record); launches at model {m}: K9 {counted['K9']} ({counted['K9 slice']} on strided counters), K11 "
+        f"{counted['K11']}, K12 {counted['K12']}, K13 {counted['K13']}; a reduce moves {reduce_mb['doc']:.1f} MB at "
+        f"the doc pass, {reduce_mb['query']:.2f} MB at the query pass, {reduce_mb['step_forward']:.0f} MB a step's "
+        f"forward ({'across cards' if group[0] != group[-1] else 'on one card: read in place'}) [{label}]")
+    log(f"[phase13b] fp32 (adam_eps 1e-6), model {m} against model 1: losses {fp32['losses']} vs "
+        f"{fp32['model1_losses']} (relative {fp32['loss_rel']:.2e}); step-1 gradients max|d| "
+        f"{fp32['grad_max_diff']:.3e} ({fp32['grad_max_at']}) = {fp32['grad_ratio']:.2e} of the largest element "
+        f"{fp32['grad_largest']:.3e}, |d|/|g| at most {fp32['grad_rel']:.2e} ({fp32['grad_rel_at']}); parameters "
+        f"max|d| {fp32['param_max_diff']:.3e} ({fp32['param_max_at']}); limits {TP_FP32_TOL} each; "
+        f"{fp32['ms_step']:.1f} ms/step at model {m}, {fp32['model1_ms_step']:.1f} at model 1 [{label}]")
+    if not all(math.isfinite(x) for x in two["losses"]) or loss_rel > TP_LOSS_REL:
+        raise AssertionError(f"model {m} losses {two['losses']} against model 1's (relative {loss_rel})")
+    if not fp32["ok"]:
+        raise AssertionError(f"model {m} in fp32 against model 1 off the limit {TP_FP32_TOL}: {fp32}")
+    if not repeat_equal:
+        raise AssertionError(f"{repeats} runs at model {m} are not bit-equal")
+    flash_launches_ok(counted, {"K11": steps * layers * m, "K12": steps * layers * m, "K13": steps * layers * m},
+                      f"phase 13b's steps at model {m}", head_dim=cfg.model.hidden_size // cfg.model.num_heads)
+    # a step: a position's attention site in each layer of both passes, forward and backward
+    counts_ok(counted, {"K9": steps * 2 * 2 * (1 + (2 + m) * layers), "K9 slice": steps * 2 * 2 * m * layers,
+                        "K9 packed route": steps * 2 * 2 * (1 + (2 + m) * layers), "K9 simple route": 0},
+              f"phase 13b's steps at model {m}")
+    return {"group": [str(d) for d in group], "losses": two["losses"], "model1_losses": one_losses,
+            "loss_rel": loss_rel, "bf16_grad_rel": bf16_grad_rel, "bf16_param_max_diff": bf16_param_diff, "fp32": fp32,
+            "masks": n_masks, "repeat_equal": repeat_equal, "ms_step": ms_step, "model1_ms_step": one_ms,
+            "launches": counted, "reduce_mb": reduce_mb, "cfg": cfg, "train_path": train_path}
+
+
+def torch_equal(a, b) -> bool:
+    from colbert_tpu_torch.ops.dropout import same_bits
+
+    return a.shape == b.shape and same_bits(a, b)
+
+
+def phase_tp_serve(device, workdir: Path, label, num_docs=TP_DOCS, model_kw=None):
+    """Phase 13c: ``encode`` of a ``num_docs``-passage corpus (phase 2's
+    generator) and flat serving of 144 questions at ``mesh.model = 2``
+    through the CLI's ``encode`` (``--set mesh.model=2``: a named card holds
+    both positions) and the library's ``ColbertSearcher``, against the same
+    at ``mesh.model = 1``: every unit rep (the parts' doc views, the query
+    views) within ``TP_REP_ERR`` in norm of model 1's; ``e``, the largest
+    change of a (question, pid) score between the two (over every pair both
+    top-1,000s hold), within 16 views x (the largest query view error + the
+    largest doc view error), what those errors allow a MaxSim sum; the same
+    top-10 pids at every rank but where model 1 scores the two pids within
+    ``2 e`` of each other (a tie the change can reorder); each top-10 score
+    within ``e`` of model 1's of the same rank.  K11 once a layer a position
+    a batch in the encode, K1 once a request."""
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.config import ColbertConfig
+    from colbert_tpu_torch.indexing.storage import IndexStorage
+    from colbert_tpu_torch.models.colbert import ColbertModel
+    from colbert_tpu_torch.ranking.searcher import ColbertSearcher
+
+    group = tp_group(device)
+    m = len(group)
+    ctx = encoded_corpus(device, workdir, label, num_docs=num_docs, model_kw={"attention_impl": "flash",
+                                                                              **(model_kw or {})},
+                         n_requests=1, tag="phase13c")
+    cfg, common = ctx["cfg"], ctx["common"]
+    tp_index = workdir / "index_tp"
+    dev_arg = "cuda" if group[0] != group[-1] else str(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    cli.main(["encode", "--corpus", str(ctx["corpus_path"]), "--config", common[1], "--pretrain", common[3],
+              "--device", dev_arg, "--set", f"mesh.model={m}", "--set", "mesh.data=1",
+              "--set", f"index.index_path={tp_index}"])
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    enc_launches = read_counts()
+    one_parts, tp_parts = IndexStorage(cfg.index.index_path), IndexStorage(str(tp_index))
+    d1 = torch.from_numpy(one_parts.load_all_embeddings().astype(np.float32))
+    d2 = torch.from_numpy(tp_parts.load_all_embeddings().astype(np.float32))
+    if d1.shape != d2.shape or one_parts.read_doclens() != tp_parts.read_doclens():
+        raise AssertionError(f"model {m} parts {tuple(d2.shape)} against model 1's {tuple(d1.shape)}")
+    d_err = float((d1 - d2).norm(dim=-1).max())
+
+    def searcher(dev, mm, path):
+        cc = ColbertConfig.from_dict(cfg.to_dict())
+        cc.mesh.model, cc.index.index_path, cc.serve.topk = mm, str(path), TP_TOPK
+        model = ColbertModel(cc.model, cc.multiview)
+        model.load_state_dict(ctx["model"].state_dict())
+        return ColbertSearcher(cc, cli._tokenizer(cc), model, IndexStorage(str(path)), device=dev)
+
+    one = searcher(device, 1, cfg.index.index_path)
+    two = searcher(dev_arg, m, tp_index)
+    if tuple(two.model.model_group) != tuple(group):
+        raise AssertionError(f"the model-{m} searcher's model group {two.model.model_group}, expected {group}")
+    questions = ctx["requests"][0]
+    enc = two.tok.encode_queries(questions)
+    q1 = one.encode_queries(enc.input_ids, enc.attention_mask, enc.active_mask)
+    q2 = two.encode_queries(enc.input_ids, enc.attention_mask, enc.active_mask)
+    q_err = float((q1 - q2).norm(dim=-1).max())
+    reset_counts()
+    got = two.search(questions, topk=TP_TOPK)
+    torch.cuda.synchronize()
+    serve_launches = read_counts()
+    want = one.search(questions, topk=TP_TOPK)
+    bound = 16 * (q_err + d_err)
+    # every pair both deep lists hold: the largest score change e, and model 1's scores of model 2's pids
+    deep = min(num_docs, 1000)
+    s1, s2 = (r.search(questions, topk=deep) for r in (one, two))
+    at1 = [dict(zip(s1.pids[i].tolist(), s1.scores[i].tolist())) for i in range(len(questions))]
+    at2 = [dict(zip(s2.pids[i].tolist(), s2.scores[i].tolist())) for i in range(len(questions))]
+    e = max(abs(a[p] - b[p]) for a, b in zip(at1, at2) for p in a.keys() & b.keys())
+    s_diff = float(np.abs(got.scores - want.scores).max())
+    swapped = [(i, r) for i in range(len(questions)) for r in range(TP_TOPK) if got.pids[i, r] != want.pids[i, r]]
+    untied = [(i, r) for i, r in swapped
+              if abs(at1[i].get(int(got.pids[i, r]), -np.inf) - float(want.scores[i, r])) > 2 * e]
+    log(f"[phase13c] encode of {num_docs} docs at mesh.model={m} ({dev_arg}) in {enc_s:.2f} s "
+        f"(model 1: {ctx['enc_s']:.2f} s); doc views within {d_err:.2e} of model 1's, query views within {q_err:.2e} "
+        f"(limit {TP_REP_ERR:.2e}); a score changes by at most e = {e:.2e} (the reps allow {bound:.2e}); top-"
+        f"{TP_TOPK} of {len(questions)} questions: scores within {s_diff:.2e} of model 1's, {len(swapped)} of "
+        f"{got.pids.size} pids differ, all at ties within 2e: {not untied}; "
+        f"launches: encode K11 {enc_launches['K11']} (hd64 {enc_launches['K11 hd64']}), K9 {enc_launches['K9']}, "
+        f"serve K1 {serve_launches['K1']} [{label}]")
+    if d_err > TP_REP_ERR or q_err > TP_REP_ERR or e > bound or s_diff > e or untied:
+        raise AssertionError(f"model {m} serving off model 1's: rep errors {d_err}, {q_err}; score change {e} "
+                             f"(bound {bound}); rank score diff {s_diff}; untied pid swaps {untied[:5]}")
+    n, parts = num_docs, cfg.index.num_parts
+    batches = sum(-(-((p + 1) * n // parts - p * n // parts) // cfg.index.encode_batch_size) for p in range(parts))
+    flash_launches_ok(enc_launches, {"K11": batches * cfg.model.num_layers * m, "K12": 0, "K13": 0},
+                      "phase 13c's encode", head_dim=cfg.model.hidden_size // cfg.model.num_heads)
+    counts_ok(enc_launches, {"K9": 0}, "phase 13c's encode")
+    counts_ok(serve_launches, {"K1": 1}, "phase 13c's request")
+    return {"docs": num_docs, "encode_s": enc_s, "model1_encode_s": ctx["enc_s"], "doc_rep_err": d_err,
+            "query_rep_err": q_err, "score_max_diff": s_diff, "score_change": e, "score_bound": bound,
+            "pids_differ": len(swapped),
+            "encode_launches": enc_launches, "serve_launches": serve_launches}
+
+
+def phase_tp_ce(device, workdir: Path, label, train_ctx, n_questions=4):
+    """Phase 13d: one CE step (BERT-base CE at phase 4's width, pairs of 1 +
+    ``neg_num`` passages at ``ce_maxlen`` 384, flash, dropout on) at
+    ``mesh.model = 2`` against ``mesh.model = 1`` from the same init: the
+    loss finite and within ``TP_LOSS_REL`` of model 1's; K11, K12 and K13
+    once a layer a position, K9 on strided counters."""
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.config import CETrainConfig, ColbertConfig
+    from colbert_tpu_torch.parallel.mesh import Mesh
+    from colbert_tpu_torch.training import CETrainer
+    from colbert_tpu_torch.utils.io import load_json
+
+    group = tp_group(device)
+    m = len(group)
+    c = ColbertConfig.from_dict(train_ctx["cfg"].to_dict())
+    c.ce_model = ColbertConfig.from_dict(c.to_dict()).model
+    c.ce_train = CETrainConfig(per_device_batch_size=n_questions, neg_num=4, seed=SEED,
+                               checkpoint_dir=str(workdir / "ce_tp"))
+    examples = load_json(train_ctx["train_path"])[:n_questions]
+    out = {}
+    for mm, g in ((1, [device]), (m, group)):
+        cc = ColbertConfig.from_dict(c.to_dict())
+        cc.mesh.model = mm
+        t = CETrainer(cc, cli._tokenizer(cc), device=g[0], mesh=Mesh.of(g, mm))
+        t._init_state(1)
+        t.np_rng = np.random.default_rng((SEED, 0))
+        ids, attn, group_n, teacher = t._build_pairs(examples, "train")
+        reset_counts()
+        loss = float(t.train_step(ids, attn, group_n, teacher, 0))
+        torch.cuda.synchronize()
+        out[mm] = {"loss": loss, "launches": read_counts(), "pairs": list(ids.shape)}
+        del t
+        torch.cuda.empty_cache()
+    rel = abs(out[m]["loss"] - out[1]["loss"]) / abs(out[1]["loss"])
+    launches, layers = out[m]["launches"], c.ce_model.num_layers
+    log(f"[phase13d] one CE step at mesh.model={m}, pairs {out[m]['pairs']}: loss {out[m]['loss']:.6f} vs model 1's "
+        f"{out[1]['loss']:.6f} (relative {rel:.2e}, limit {TP_LOSS_REL}); launches K11 {launches['K11']}, K12 "
+        f"{launches['K12']}, K13 {launches['K13']}, K9 {launches['K9']} ({launches['K9 slice']} strided) [{label}]")
+    import math
+    if not math.isfinite(out[m]["loss"]) or rel > TP_LOSS_REL:
+        raise AssertionError(f"CE loss at model {m} {out[m]['loss']} against model 1's {out[1]['loss']}")
+    flash_launches_ok(launches, {"K11": layers * m, "K12": layers * m, "K13": layers * m}, "phase 13d's CE step")
+    counts_ok(launches, {"K9": 2 * (1 + (2 + m) * layers), "K9 slice": 2 * m * layers}, "phase 13d's CE step")
+    return {"loss": out[m]["loss"], "model1_loss": out[1]["loss"], "loss_rel": rel, "launches": launches,
+            "pairs": out[m]["pairs"]}
+
+
+def phase_tp(device, label):
+    """Phase 13: tensor parallelism (``mesh.model = 2``) on the cards present
+    (one card holds both positions): 13a K9 on a position's slices, 13b train,
+    13c encode and flat serve, 13d a CE step; with four cards or more, 13e:
+    the CLI's ``train`` under a launch of data (cards / 2) x model 2
+    (``phase_launch_train``)."""
+    import torch
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        tmp = Path(tmp)
+        for d in ("train", "serve", "launch"):
+            (tmp / d).mkdir()
+        k9 = phase_tp_k9(device, label)
+        train = phase_tp_train(device, tmp / "train", label)
+        serve = phase_tp_serve(device, tmp / "serve", label)
+        ce = phase_tp_ce(device, tmp / "train", label, train)
+        launch = None
+        if device.type == "cuda" and torch.cuda.device_count() >= 2 * TP_MODEL:
+            launch = phase_launch_train(device, tmp / "launch", label, train, model=TP_MODEL)
+    train = {k: v for k, v in train.items() if k not in ("cfg", "train_path")}
+    s = time.perf_counter() - t0
+    log(f"[phase13] tensor parallelism took {s:.1f} s [{label}]")
+    return {"k9": k9, "train": train, "serve": serve, "ce": ce, "launch": launch, "s": s}
+
+
 def main() -> int:
     import torch
 
@@ -5138,6 +5685,9 @@ def main() -> int:
                     help="phases 9b, 9d and 9a alone (ragged corpora, the host table), with the set-up they need")
     ap.add_argument("--phase12", action="store_true",
                     help="phase 12 and phases 8a and 11a at head dims 32 and 128 alone")
+    ap.add_argument("--phase13", action="store_true",
+                    help="phase 13 (tensor parallelism, mesh.model = 2: on two cards where there are, else one "
+                         "card holds both positions) alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -5164,8 +5714,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    if args.phase10 or args.phase9 or args.phase12:
-        if args.phase12:
+    if args.phase10 or args.phase9 or args.phase12 or args.phase13:
+        if args.phase13:
+            out = {"phase13": phase_tp(device, label)}
+        elif args.phase12:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_minilm_") as tmp:
                 out = {"phase8a_head_dims": phase_flash_head_dims(device, Path(tmp), label),
                        "phase11a_head_dims": phase_flash_fp32_head_dims(device, Path(tmp), label),
@@ -5231,6 +5783,7 @@ def main() -> int:
         t11 += time.perf_counter() - t0
     log(f"[phase11] flash at fp32 (11a) {sum(1 for _ in flash_fp32)} shapes, fp32 train (11b), the model options "
         f"(11c), DPR (11d) and real text (11e) took {t11:.1f} s")
+    tp = phase_tp(device, label)
 
     log(f"[phase10] sharded flat {sharded_flat['s']:.1f} s, sharded ANN {sharded_ann['s']:.1f} s, train under a "
         f"launch {launch_train['s']:.1f} s: {sharded_flat['s'] + sharded_ann['s'] + launch_train['s']:.1f} s")
@@ -5508,7 +6061,21 @@ def main() -> int:
                                  "bound_ms": r["bound"]["rows"][0], "bound_by": r["bound"]["rows"][1]}
         if kname == "K11":
             kernels[-1]["minilm"] = minilm
+    # phase 13 (mesh.model = 2): K9 on a position's slices; the train steps', the encode's and the request's
+    # launches at 12 / 2 heads a position
+    by_name = {k["name"]: k for k in kernels}
+    by_name["K9 hw_dropout"]["tensor_parallel"] = {
+        "slices": tp["k9"], "train_launches": tp["train"]["launches"]["K9"],
+        "train_slice_launches": tp["train"]["launches"]["K9 slice"], "ce_launches": tp["ce"]["launches"]["K9"],
+        "ce_slice_launches": tp["ce"]["launches"]["K9 slice"]}
+    for kname, name in (("K11", "K11 flash_attention forward"), ("K12", "K12 flash_attention dK/dV"),
+                        ("K13", "K13 flash_attention dQ")):
+        by_name[name]["tensor_parallel_launches"] = {"train": tp["train"]["launches"][kname],
+                                                     "ce": tp["ce"]["launches"][kname]} | (
+            {"encode": tp["serve"]["encode_launches"][kname]} if kname == "K11" else {})
+    by_name["K1 flat_scan_fused"]["tensor_parallel_launches"] = tp["serve"]["serve_launches"]["K1"]
     log(json.dumps({"phase11": {"model_options": options, "dense": dense, "real_text": real_text, "s": t11}}))
+    log(json.dumps({"phase13": {k: v for k, v in tp.items() if k != "k9"}}, default=str))
     log(label)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,14 +31,19 @@ with dotted keys.  Everything runs on ``--device`` (default ``cuda``; the
 CPU only when asked for).
 
 Several GPUs (the ``mesh`` section: ``data`` positions, -1 for every
-device; ``model`` > 1, tensor parallelism, is refused):
+device, each of ``model`` positions):
 
+* ``mesh.model`` > 1 (tensor parallelism, ``models/sharding.py``) shards
+  the retriever or the CE of every subcommand over ``model`` positions of
+  one process: a bare ``--device cuda`` takes that many GPUs, a named
+  device (``--device cpu``, ``--device cuda:0``) holds every position;
 * ``encode`` with ``--device cuda`` splits each batch over ``mesh.data``
-  GPUs of the one process, a model replica each;
+  GPUs (model groups) of the one process, a model replica each;
 * a launch runs the same command once a GPU, with ``--coordinator
   host:port`` (rank 0's address), ``--num-processes N`` and a distinct
   ``--process-id`` (the reference's ``torch.distributed.launch``): rank r
-  takes ``cuda:{r % device_count}`` (NCCL; gloo with ``--device cpu``).
+  takes ``mesh.model`` GPUs from ``cuda:{r * model % device_count}`` (NCCL;
+  gloo with ``--device cpu``), so the launch runs ``data x model`` GPUs.
   ``train`` and ``train-ce`` then run data-parallel over the global batch
   of ``per_device_batch_size x N``, ``encode`` splits each batch over the
   ranks, and rank 0 alone writes.  The other subcommands run in one
@@ -108,6 +113,25 @@ def _retriever_state_dict(cfg: ColbertConfig, checkpoint_step: Optional[int], pr
     return state_dict_from_reference(ckpt.params_path(step), cfg.model)
 
 
+def _mesh(cfg: ColbertConfig, args, data: int = 1):
+    """The mesh a subcommand runs on (``parallel/mesh.py``): under a launch,
+    this rank's data position (its ``mesh.model`` GPUs from the one it was
+    given, or the CPU); else ``data`` positions (``encode``: ``mesh.data``)
+    of ``mesh.model`` from ``--device`` (``device_mesh``)."""
+    from colbert_tpu_torch.parallel.collectives import launched, world
+    from colbert_tpu_torch.parallel.mesh import device_mesh, make_mesh
+
+    model = cfg.mesh.model
+    if launched():
+        if cfg.mesh.data not in (-1, world()[1]):
+            raise SystemExit(f"mesh.data={cfg.mesh.data} but the launch has {world()[1]} processes")
+        import torch
+
+        dev = torch.device(args.device)
+        return make_mesh(1, model) if dev.type == "cuda" else device_mesh(dev, 1, model)
+    return device_mesh(args.device, data, model)
+
+
 def _model(cfg: ColbertConfig, args):
     from colbert_tpu_torch.models.colbert import ColbertModel
 
@@ -122,7 +146,7 @@ def cmd_train(args) -> None:
     from colbert_tpu_torch.training import ColbertTrainer, RetrievalDataset
 
     init = state_dict_from_reference(args.pretrain, cfg.model, require_head=False) if args.pretrain else None
-    trainer = ColbertTrainer(cfg, _tokenizer(cfg), device=args.device, init_state_dict=init)
+    trainer = ColbertTrainer(cfg, _tokenizer(cfg), device=args.device, init_state_dict=init, mesh=_mesh(cfg, args))
     train_ds = RetrievalDataset.from_json(args.train_data)
     dev_ds = RetrievalDataset.from_json(args.dev_data) if args.dev_data else None
     trainer.train(train_ds, dev_ds=dev_ds, resume=args.resume)
@@ -149,26 +173,10 @@ def cmd_train_ce(args) -> None:
     from colbert_tpu_torch.training import CETrainer, RetrievalDataset
 
     trainer = CETrainer(cfg, _tokenizer(cfg), device=args.device,
-                        init_state_dict=_ce_init_state_dict(cfg, args.pretrain))
+                        init_state_dict=_ce_init_state_dict(cfg, args.pretrain), mesh=_mesh(cfg, args))
     train_ds = RetrievalDataset.from_json(args.train_data)
     dev_ds = RetrievalDataset.from_json(args.dev_data) if args.dev_data else None
     trainer.train(train_ds, dev_ds=dev_ds, resume=args.resume)
-
-
-def _mesh(cfg: ColbertConfig, device: str):
-    """The devices ``encode`` splits each batch over: ``mesh.data`` of the
-    visible GPUs for a bare ``cuda``, else ``device`` alone; under a launch,
-    this rank's device (the ranks make the data axis)."""
-    from colbert_tpu_torch.parallel.collectives import launched, world
-    from colbert_tpu_torch.parallel.mesh import make_mesh
-
-    if launched():
-        if cfg.mesh.data not in (-1, world()[1]):
-            raise SystemExit(f"mesh.data={cfg.mesh.data} but the launch has {world()[1]} processes")
-        return make_mesh(-1, cfg.mesh.model, devices=[device])
-    if device == "cuda":
-        return make_mesh(cfg.mesh.data, cfg.mesh.model)
-    return make_mesh(cfg.mesh.data, cfg.mesh.model, devices=[device])
 
 
 def cmd_encode(args) -> None:
@@ -176,7 +184,7 @@ def cmd_encode(args) -> None:
     from colbert_tpu_torch.indexing.encoder import CollectionEncoder
 
     model = _model(cfg, args)
-    encoder = CollectionEncoder(cfg, _tokenizer(cfg), model, mesh=_mesh(cfg, args.device))
+    encoder = CollectionEncoder(cfg, _tokenizer(cfg), model, mesh=_mesh(cfg, args, data=cfg.mesh.data))
     encoder.encode_corpus(_load_corpus(args.corpus), cfg.index.index_path)
 
 
@@ -292,7 +300,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                        help="reference-layout pytorch.bin (model.* + linear.*): the retriever's; train-ce's own CE")
         p.add_argument("--checkpoint-step", type=int, default=None)
         p.add_argument("--device", default="cuda",
-                       help="torch device (default cuda; encode: mesh.data GPUs, model > 1 refused)")
+                       help="torch device (default cuda: mesh.model GPUs a model group, encode mesh.data groups; "
+                            "a named device, e.g. cpu or cuda:0, holds every position)")
         # a launch: the same command once a GPU, each with its --process-id
         # (the reference's torch.distributed.launch, eval.sh:13)
         p.add_argument("--coordinator", default=None,
@@ -340,7 +349,7 @@ def main(argv: Optional[List[str]] = None) -> None:
 
         # before any device use: joins the process group and picks this rank's device
         args.device = str(init_distributed(args.coordinator, args.num_processes, args.process_id,
-                                           device=args.device))
+                                           device=args.device, model=_load_cfg(args).mesh.model))
     try:
         args.fn(args)
     finally:

@@ -391,9 +391,10 @@ class MeshConfig:
     process and ``ranking/sharded.py`` keeps a corpus shard on each; a
     launch (one process a GPU, the CLI's ``--coordinator``) trains
     data-parallel over its ranks, where ``data`` must be -1 or their
-    number.  ``model`` would shard attention heads and the MLP (tensor
-    parallelism, as the JAX package does); the port refuses ``model > 1``
-    (ROADMAP Queue 1 step 10).  The reference only has NCCL DDP
+    number.  ``model`` shards attention heads and the MLP (tensor
+    parallelism, as the JAX package does): in the port each data position
+    holds ``model`` positions of one process (``models/sharding.py``), and
+    a launch's rank takes ``model`` GPUs.  The reference only has NCCL DDP
     (``distributed.py``); TP/PP do not exist there."""
 
     data: int = -1                    # -1 = all devices

@@ -14,6 +14,12 @@
 // word j / 4.  `base` (route "packed"; 0 for route "simple") is where a
 // call's rows start in a larger tensor: a data-parallel rank draws the
 // masks that one device draws for the same rows of the global batch.
+// A call may also hold a slice of a larger tensor's rows (route "packed";
+// a tensor-parallel position's heads or columns): its groups come in runs
+// of `inner`, run r starting at full group r * stride, so that group g of
+// the call draws counter base + (g div inner) * stride + (g mod inner) and
+// the position drops what one device drops there.  Contiguous calls
+// (stride == inner) take the kernels without that mapping.
 // ops/dropout.py::hw_dropout_ref computes the same stream with torch
 // integer ops, and both routes agree with it bit for bit.
 //
@@ -242,10 +248,26 @@ __device__ __forceinline__ void store_out(uint4* p, uint4 v) {
 
 constexpr int kChunks = 2;  // 16-byte chunks a lane takes in one pass of the loop
 
-template <typename T, bool HI, bool STREAM>
+// A call's groups as a slice of a larger tensor: runs of `inner` groups, run
+// r starting at full group r * (inner + skip).  g div inner is one
+// multiply-high and a shift (the round-up method of Granlund and Montgomery,
+// as CUTLASS's FastDivmod): mul = ceil(2^(31 + l) / inner), shr = l - 1 with
+// l = ceil(log2 inner), exact for g < 2^31 (ops/dropout.py::divisor_magic
+// computes the pair and the host checks the bound).
+struct Slice {
+  unsigned long long skip;  // stride - inner, in groups
+  uint32_t inner, mul, shr;
+};
+
+__device__ __forceinline__ unsigned long long full_group(unsigned long long g, const Slice& s) {
+  const uint32_t q = s.inner == 1 ? (uint32_t)g : __umulhi((uint32_t)g, s.mul) >> s.shr;
+  return g + (unsigned long long)q * s.skip;
+}
+
+template <typename T, bool HI, bool STREAM, bool SLICED>
 __global__ void __launch_bounds__(kThreads)
 packed_kernel(const T* __restrict__ x, T* __restrict__ y, long long n, const RoundKeys keys, uint32_t bias,
-              uint32_t thr, float scale, int vec_ok, unsigned long long base) {
+              uint32_t thr, float scale, int vec_ok, unsigned long long base, const Slice slice) {
   constexpr int kParts = sizeof(T);       // 16-byte chunks a group of 16 elements
   constexpr int kTile = 32 * kChunks;     // chunks a warp takes in one pass: lane + 32 j
   const typename Pair<T>::type s = Pair<T>::of(scale);
@@ -261,7 +283,9 @@ packed_kernel(const T* __restrict__ x, T* __restrict__ y, long long n, const Rou
     for (int j = 0; j < kChunks; ++j) v[j] = load_in<STREAM>(src + c0 + 32 * j);
 #pragma unroll
     for (int j = 0; j < kChunks; ++j) {
-      const unsigned long long g = base + (unsigned long long)(c0 + 32 * j) / kParts;
+      unsigned long long g = (unsigned long long)(c0 + 32 * j) / kParts;
+      if constexpr (SLICED) g = full_group(g, slice);
+      g += base;
       v[j] = apply_chunk<T, HI>(v[j], philox_keyed((uint32_t)g, (uint32_t)(g >> 32), keys), part, bias, s);
     }
 #pragma unroll
@@ -269,9 +293,13 @@ packed_kernel(const T* __restrict__ x, T* __restrict__ y, long long n, const Rou
   }
   // what the tiles leave (fewer than kTile chunks), or every group of an unaligned view
   const long long groups = (n + 15) / 16, stride = (long long)gridDim.x * kThreads;
-  for (long long i = tiles * (kTile / kParts) + (long long)blockIdx.x * kThreads + threadIdx.x; i < groups; i += stride)
-    scalar_group(x, y, i * 16, n, philox_keyed((uint32_t)(base + i), (uint32_t)((base + i) >> 32), keys), thr,
-                 scale);
+  for (long long i = tiles * (kTile / kParts) + (long long)blockIdx.x * kThreads + threadIdx.x; i < groups;
+       i += stride) {
+    unsigned long long gi = (unsigned long long)i;
+    if constexpr (SLICED) gi = full_group(gi, slice);
+    gi += base;
+    scalar_group(x, y, i * 16, n, philox_keyed((uint32_t)gi, (uint32_t)(gi >> 32), keys), thr, scale);
+  }
 }
 
 // an attribute of a card, asked once per device (0 if the query fails)
@@ -304,9 +332,10 @@ cudaError_t failed_query() {
   return err != cudaSuccess ? err : cudaErrorInvalidConfiguration;
 }
 
-template <typename T, bool HI, bool STREAM>
+template <typename T, bool HI, bool STREAM, bool SLICED>
 cudaError_t launch_packed_as(const void* x, void* y, long long n, const RoundKeys& keys, int thr, float scale,
-                             int vec_ok, unsigned long long base, int device, cudaStream_t stream) {
+                             int vec_ok, unsigned long long base, const Slice& slice, int device,
+                             cudaStream_t stream) {
   constexpr long long kTileElems = 32 * kChunks * 16 / (long long)sizeof(T);
   const long long tiles = vec_ok ? n / kTileElems : 0;
   const long long rest = (n + 15) / 16 - tiles * kTileElems / 16;  // groups left to the element-by-element path
@@ -315,19 +344,20 @@ cudaError_t launch_packed_as(const void* x, void* y, long long n, const RoundKey
   long long blocks = blocks_tiles > blocks_rest ? blocks_tiles : blocks_rest;
   if (!STREAM) {
     static std::atomic<int> cache[kMaxDevices];
-    const int cap = resident_blocks(packed_kernel<T, HI, STREAM>, device, cache);
+    const int cap = resident_blocks(packed_kernel<T, HI, STREAM, SLICED>, device, cache);
     if (cap <= 0) return failed_query();
     if (blocks > cap) blocks = cap;
   }
   const uint32_t bias = (0x80u - ((uint32_t)thr & 0x7Fu)) * 0x01010101u;
-  packed_kernel<T, HI, STREAM><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), n, keys, bias, (uint32_t)thr, scale, vec_ok, base);
+  packed_kernel<T, HI, STREAM, SLICED><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), n, keys, bias, (uint32_t)thr, scale, vec_ok, base, slice);
   return cudaGetLastError();
 }
 
 template <typename T, bool HI>
 cudaError_t launch_packed(const void* x, void* y, long long n, unsigned long long seed, int thr, float scale,
-                          int vec_ok, unsigned long long base, int device, cudaStream_t stream) {
+                          int vec_ok, unsigned long long base, const Slice& slice, int device,
+                          cudaStream_t stream) {
   static std::atomic<int> l2_cache[kMaxDevices];
   const int l2 = card_attribute(cudaDevAttrL2CacheSize, device, l2_cache);
   if (l2 <= 0) return failed_query();
@@ -338,8 +368,14 @@ cudaError_t launch_packed(const void* x, void* y, long long n, unsigned long lon
     keys.k1[r] = k1;
   }
   const bool streaming = (long long)sizeof(T) * n > l2;
-  if (streaming) return launch_packed_as<T, HI, true>(x, y, n, keys, thr, scale, vec_ok, base, device, stream);
-  return launch_packed_as<T, HI, false>(x, y, n, keys, thr, scale, vec_ok, base, device, stream);
+  if (slice.skip) {
+    if (streaming)
+      return launch_packed_as<T, HI, true, true>(x, y, n, keys, thr, scale, vec_ok, base, slice, device, stream);
+    return launch_packed_as<T, HI, false, true>(x, y, n, keys, thr, scale, vec_ok, base, slice, device, stream);
+  }
+  if (streaming)
+    return launch_packed_as<T, HI, true, false>(x, y, n, keys, thr, scale, vec_ok, base, slice, device, stream);
+  return launch_packed_as<T, HI, false, false>(x, y, n, keys, thr, scale, vec_ok, base, slice, device, stream);
 }
 
 template <typename T>
@@ -356,19 +392,20 @@ cudaError_t launch_simple(const void* x, void* y, long long n, unsigned long lon
 
 template <typename T>
 cudaError_t launch(int route, const void* x, void* y, long long n, unsigned long long seed, int thr, float scale,
-                   int vec_ok, unsigned long long base, int device, cudaStream_t stream) {
-  if (route == 1) return base ? cudaErrorInvalidValue : launch_simple<T>(x, y, n, seed, thr, scale, vec_ok, stream);
-  if (thr >= 128) return launch_packed<T, true>(x, y, n, seed, thr, scale, vec_ok, base, device, stream);
-  return launch_packed<T, false>(x, y, n, seed, thr, scale, vec_ok, base, device, stream);
+                   int vec_ok, unsigned long long base, const Slice& slice, int device, cudaStream_t stream) {
+  if (route == 1)
+    return base || slice.skip ? cudaErrorInvalidValue : launch_simple<T>(x, y, n, seed, thr, scale, vec_ok, stream);
+  if (thr >= 128) return launch_packed<T, true>(x, y, n, seed, thr, scale, vec_ok, base, slice, device, stream);
+  return launch_packed<T, false>(x, y, n, seed, thr, scale, vec_ok, base, slice, device, stream);
 }
 
 cudaError_t dispatch(int dtype, int route, const void* x, void* y, long long n, unsigned long long seed, int thr,
-                     float scale, unsigned long long base, int device, cudaStream_t stream) {
+                     float scale, unsigned long long base, const Slice& slice, int device, cudaStream_t stream) {
   const int vec_ok = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
   switch (dtype) {
-    case 0: return launch<float>(route, x, y, n, seed, thr, scale, vec_ok, base, device, stream);
-    case 1: return launch<__nv_bfloat16>(route, x, y, n, seed, thr, scale, vec_ok, base, device, stream);
-    case 2: return launch<__half>(route, x, y, n, seed, thr, scale, vec_ok, base, device, stream);
+    case 0: return launch<float>(route, x, y, n, seed, thr, scale, vec_ok, base, slice, device, stream);
+    case 1: return launch<__nv_bfloat16>(route, x, y, n, seed, thr, scale, vec_ok, base, slice, device, stream);
+    case 2: return launch<__half>(route, x, y, n, seed, thr, scale, vec_ok, base, slice, device, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -378,18 +415,29 @@ cudaError_t dispatch(int dtype, int route, const void* x, void* y, long long n, 
 // dtype: 0 float32, 1 bfloat16, 2 float16.  route: 0 "packed", 1 "simple".
 // `base`: the Philox counter of the first group (element 16 * base of a
 // larger tensor whose rows this call holds); route "simple" takes 0 only.
+// `inner`, `stride`, `mul`, `shr`: the call holds runs of `inner` groups,
+// run r from group base + r * stride (0, 0, 0, 0: contiguous; route
+// "packed" only; see Slice, the call's groups below 2^31).
 // `device` is the tensors' card: made current for the launch if it is not,
 // and the caller's restored after.  Returns a cudaError_t (0 on success).
-extern "C" int dropout_launch_at(const void* x, void* y, long long n, int dtype, unsigned long long seed, int thr,
-                                 float scale, int route, int device, void* stream, unsigned long long base) {
+extern "C" int dropout_launch_slice(const void* x, void* y, long long n, int dtype, unsigned long long seed,
+                                    int thr, float scale, int route, int device, void* stream,
+                                    unsigned long long base, unsigned long long inner, unsigned long long stride,
+                                    unsigned int mul, unsigned int shr) {
   if (n <= 0) return 0;
   if (thr < 1 || thr > 255 || route < 0 || route > 1 || device < 0 || device >= kMaxDevices)
     return (int)cudaErrorInvalidValue;
+  Slice slice{0ull, 1u, 0u, 0u};
+  if (stride != inner) {
+    if (inner == 0 || stride < inner || inner >= (1ull << 31) || (n + 15) / 16 >= (1ll << 31))
+      return (int)cudaErrorInvalidValue;
+    slice = Slice{stride - inner, (uint32_t)inner, mul, shr};
+  }
   int current = -1;
   cudaError_t err = cudaGetDevice(&current);
   if (err != cudaSuccess) return (int)err;
   if (current != device && (err = cudaSetDevice(device)) != cudaSuccess) return (int)err;
-  err = dispatch(dtype, route, x, y, n, seed, thr, scale, base, device, static_cast<cudaStream_t>(stream));
+  err = dispatch(dtype, route, x, y, n, seed, thr, scale, base, slice, device, static_cast<cudaStream_t>(stream));
   if (current != device) {
     const cudaError_t back = cudaSetDevice(current);
     if (err == cudaSuccess) err = back;
@@ -397,8 +445,8 @@ extern "C" int dropout_launch_at(const void* x, void* y, long long n, int dtype,
   return (int)err;
 }
 
-// dropout_launch_at from counter 0
+// dropout_launch_slice of a contiguous call from counter 0
 extern "C" int dropout_launch(const void* x, void* y, long long n, int dtype, unsigned long long seed, int thr,
                               float scale, int route, int device, void* stream) {
-  return dropout_launch_at(x, y, n, dtype, seed, thr, scale, route, device, stream, 0ull);
+  return dropout_launch_slice(x, y, n, dtype, seed, thr, scale, route, device, stream, 0ull, 0ull, 0ull, 0u, 0u);
 }

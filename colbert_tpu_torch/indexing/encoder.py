@@ -11,8 +11,11 @@ Over the mesh's ``data`` axis (JAX ``:60-75``): each batch is padded to a
 multiple of the positions and split into equal contiguous parts, one a
 position, each encoded by the model replica on that position's device;
 the parts are put back in order, so the part files equal one device's.
-Under a launch (``parallel/mesh.py::init_distributed``) the positions are
-the ranks' (one device each): each rank encodes its part, the parts are
+Each data position holds a model group (``mesh.model`` positions): its
+replica is sharded over them (``models/sharding.py::place``), the reps come
+back to the group's first device.  Under a launch
+(``parallel/mesh.py::init_distributed``) the positions are the ranks'
+(one model group each): each rank encodes its part, the parts are
 all-gathered, and rank 0 alone writes the parts and ``meta.json``.
 """
 
@@ -30,6 +33,7 @@ from colbert_tpu_torch.config import ColbertConfig
 from colbert_tpu_torch.utils.logging import Timers, get_logger
 from colbert_tpu_torch.indexing.storage import IndexStorage
 from colbert_tpu_torch.models.colbert import ColbertModel
+from colbert_tpu_torch.models.sharding import place
 from colbert_tpu_torch.parallel.collectives import all_gather_rows, barrier, world
 from colbert_tpu_torch.parallel.mesh import Mesh
 from colbert_tpu_torch.tokenization import ColbertTokenizer
@@ -40,7 +44,8 @@ logger = get_logger("encoder")
 class CollectionEncoder:
     def __init__(self, cfg: ColbertConfig, tokenizer: ColbertTokenizer, model: ColbertModel,
                  device: str | torch.device = "cuda", mesh: Optional[Mesh] = None):
-        """``mesh``: the devices to split each batch over (default: ``device`` alone)."""
+        """``mesh``: the data positions to split each batch over, each with
+        its model group (default: ``device`` alone)."""
         if tokenizer.vocab_size > cfg.model.vocab_size:
             # an id past the embedding table is a device-side assert on the card
             raise ValueError(
@@ -48,14 +53,14 @@ class CollectionEncoder:
             )
         self.cfg = cfg
         self.tok = tokenizer
-        self.mesh = mesh if mesh is not None else Mesh((torch.device(device),))
+        self.mesh = mesh if mesh is not None else Mesh.of([device])
         self.device = self.mesh.devices[0]
-        self.model = model.to(self.device).eval()
-        # one replica a distinct device
-        self.replicas = {self.device: self.model}
-        for dev in self.mesh.devices:
-            if dev not in self.replicas:
-                self.replicas[dev] = copy.deepcopy(self.model).to(dev)
+        self.model = place(model, self.mesh.grid[0]).eval()
+        # one replica a distinct model group
+        self.replicas = {self.mesh.grid[0]: self.model}
+        for group in self.mesh.grid:
+            if group not in self.replicas:
+                self.replicas[group] = place(copy.deepcopy(self.model), group)
         self.rank, self.world = world()
         self.timers = Timers()
 
@@ -70,10 +75,10 @@ class CollectionEncoder:
         pad = ((0, per * positions * self.world - n), (0, 0))
         ids, attn = np.pad(ids, pad), np.pad(attn, pad)
         parts = []
-        for j, d in enumerate(self.mesh.devices):
-            lo = (self.rank * positions + j) * per
-            parts.append(self.replicas[d].doc(torch.from_numpy(ids[lo : lo + per]).to(d),
-                                              torch.from_numpy(attn[lo : lo + per]).to(d)).to(torch.float16))
+        for j, group in enumerate(self.mesh.grid):
+            lo, d = (self.rank * positions + j) * per, group[0]
+            parts.append(self.replicas[group].doc(torch.from_numpy(ids[lo : lo + per]).to(d),
+                                                  torch.from_numpy(attn[lo : lo + per]).to(d)).to(torch.float16))
         D = all_gather_rows(torch.cat([x.to(dev) for x in parts]))[:n]  # (B, V, dim)
         if self.cfg.multiview.enabled:
             # static d_view vectors per doc, all active

@@ -24,6 +24,19 @@ Counterpart of ``colbert_tpu/models/bert.py`` with the same numerics:
   a :class:`DropoutRows` generator also offsets K9's counter to the pass's
   first row in a data-parallel global batch.
 
+Tensor parallelism (``mesh.model > 1``, ``models/sharding.py``): the
+Megatron split of each layer over a model group of positions.  ``query``,
+``key``, ``value`` and ``intermediate`` are :class:`ColumnParallel` (each
+position holds its rows of the (out, in) weight and takes its slice of the
+bias), ``out`` and ``output`` :class:`RowParallel` (each position holds its
+columns; the partial products are summed in position order on the first
+position, the bias added once after the sum).  A position computes
+``num_heads / model`` heads (flash or explicit, under remat as at model
+1); the attention's K9 sites draw, for the position's heads or columns,
+the counters one device draws for them (:class:`Dropout`).  Embeddings,
+LayerNorms, the sites after ``out`` and ``output`` and the heads stay on
+the first position.
+
 Attention, as the JAX package dispatches it (``colbert_tpu/models/bert.py:
 122-135``): ``attention_impl="flash"`` at a sequence length that is a
 multiple of 128 (docs and CE pairs at 384) runs the flash-attention
@@ -43,7 +56,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -54,6 +67,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint, create_selecti
 from colbert_tpu_torch.config import ModelConfig
 from colbert_tpu_torch.ops.dropout import hw_dropout, threshold
 from colbert_tpu_torch.ops.flash_attention import flash_attention
+from colbert_tpu_torch.parallel.collectives import broadcast, reduce
 
 
 def compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -89,9 +103,13 @@ class Dropout(nn.Module):
     "byte"/"hw": drop probability ``round(rate * 256) / 256`` by the K9
     kernel, its mask regenerated in the backward pass.  "exact": ``F.dropout``
     at ``rate``, seeded per call so a step's stream is reproducible (a rank's
-    rows fold ``row0`` into the seed: their masks differ from every other
-    rank's, not equal to one device's).  A call takes the seed :meth:`seed`
-    drew (None: the identity)."""
+    rows fold ``row0`` into the seed and a tensor-parallel position its index:
+    their masks differ from every other rank's and position's, not equal to
+    one device's).  A call takes the seed :meth:`seed` drew (None: the
+    identity), and at a tensor-parallel site its ``part`` ``(p, m, dim)``:
+    the tensor is position p's of m equal slices of dim ``dim`` (its heads
+    of the probabilities, its columns of the attention output), so K9 draws
+    the counters of those elements of the whole tensor."""
 
     def __init__(self, rate: float, impl: str):
         super().__init__()
@@ -109,21 +127,30 @@ class Dropout(nn.Module):
             return draw_seed(generator.generator), generator.row0
         return draw_seed(generator)
 
-    def forward(self, x: torch.Tensor, seed: Optional[Seed]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seed: Optional[Seed],
+                part: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
         if seed is None:
             return x
         seed, row0 = seed if isinstance(seed, tuple) else (seed, 0)
+        p, m, dim = part if part is not None else (0, 1, 0)
         if self.impl == "exact":
             devices = [x.device] if x.device.type == "cuda" else []
             with torch.random.fork_rng(devices=devices):
-                torch.manual_seed((seed + row0 * 0x9E3779B97F4A7C15) % (1 << 63))
+                torch.manual_seed((seed + row0 * 0x9E3779B97F4A7C15 + p * 0xBF58476D1CE4E5B9) % (1 << 63))
                 return F.dropout(x, self.rate, training=True)
-        first = row0 * (x.numel() // x.shape[0])  # the element where this call's rows start
+        first = row0 * (x.numel() // x.shape[0]) * m  # the element of the whole tensor where this call's rows start
         if first % 16:
             raise ValueError(f"dropout rows from {row0} start at element {first} of the batch, not a multiple of "
                              f"16 (K9's counter group): a data-parallel rank needs rows of {x.shape[1:]} whose "
                              "slice starts on a group")
         thr = threshold(self.rate)
+        if m > 1:
+            inner = math.prod(x.shape[dim:])  # elements a run: the position's part of one row of dims < dim
+            if inner % 16:
+                raise ValueError(f"a tensor-parallel position's dropout slice of {inner} elements a run "
+                                 f"({tuple(x.shape)}, dim {dim} split {m} ways) is no whole number of K9's "
+                                 "16-element counter groups")
+            return hw_dropout(x, seed, thr, (first + p * inner) // 16, inner // 16, m * inner // 16)
         return hw_dropout(x, seed, thr, first // 16) if first else hw_dropout(x, seed, thr)
 
 
@@ -133,6 +160,62 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), b)
+
+
+class ColumnParallel(nn.Module):
+    """A :class:`Dense` split by output features over a model group
+    (Megatron's column-parallel linear): ``weight[p]``, rows ``[p * out/m,
+    (p + 1) * out/m)`` of the (out, in) weight, on position p's device; the
+    bias, replicated, on the first position, each position taking its slice."""
+
+    def __init__(self, dense: nn.Linear, group: Sequence[torch.device]):
+        super().__init__()
+        self.group = tuple(group)
+        self.per = dense.out_features // len(self.group)
+        self.weight = nn.ParameterList(
+            nn.Parameter(w.detach().to(d).clone(memory_format=torch.contiguous_format))
+            for w, d in zip(dense.weight.split(self.per, 0), self.group))
+        self.bias = nn.Parameter(dense.bias.detach().to(self.group[0]).clone())
+
+    def part(self, p: int, dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Position ``p``'s (weight, bias) in ``dtype`` on its device."""
+        b = self.bias[p * self.per : (p + 1) * self.per].to(self.group[p], dtype)
+        return self.weight[p].to(dtype), b
+
+    def forward(self, x: torch.Tensor, p: int) -> torch.Tensor:
+        """Position ``p``'s output features of ``x`` (on its device)."""
+        return F.linear(x, *self.part(p, x.dtype))
+
+
+class RowParallel(nn.Module):
+    """A :class:`Dense` split by input features over a model group
+    (Megatron's row-parallel linear): ``weight[p]``, columns ``[p * in/m, (p
+    + 1) * in/m)`` of the (out, in) weight, on position p's device; the
+    bias, replicated, on the first position, added once to the sum of the
+    positions' partial products."""
+
+    def __init__(self, dense: nn.Linear, group: Sequence[torch.device]):
+        super().__init__()
+        self.group = tuple(group)
+        per = dense.in_features // len(self.group)
+        self.weight = nn.ParameterList(
+            nn.Parameter(w.detach().to(d).clone(memory_format=torch.contiguous_format))
+            for w, d in zip(dense.weight.split(per, 1), self.group))
+        self.bias = nn.Parameter(dense.bias.detach().to(self.group[0]).clone())
+
+    def partial(self, x: torch.Tensor, p: int) -> torch.Tensor:
+        """Position ``p``'s partial product (no bias)."""
+        return F.linear(x, self.weight[p].to(x.dtype))
+
+    def combine(self, parts: Sequence[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+        """The partial products summed (fp32, position order, on the first
+        position) plus the bias, rounded once to ``dtype``."""
+        return (reduce(parts) + self.bias.to(dtype).float()).to(dtype)
+
+
+def _group(layer: nn.Module) -> Optional[Tuple[torch.device, ...]]:
+    """The model group of a tensor-parallel layer, None for a plain one."""
+    return layer.group if isinstance(layer, RowParallel) else None
 
 
 class LayerNorm(nn.Module):
@@ -273,40 +356,66 @@ class BertSelfAttention(nn.Module):
                 seed: Optional[int] = None) -> torch.Tensor:
         """``bias`` (B, 1, 1, L) fp32 drives the explicit path, ``seg`` (B, L)
         int32 (the attention mask) the flash path; ``seed`` is the attention
-        dropout's (:meth:`Dropout.seed`)."""
+        dropout's (:meth:`Dropout.seed`).  Under tensor parallelism each
+        position computes its heads' context and its partial ``out`` product."""
+        group = _group(self.out)
+        if group is None:
+            return self.out(self._context(x, bias, seg, seed))
+        parts = []
+        for p, (xp, dev) in enumerate(zip(broadcast(x, group), group)):
+            ctx = self._context(xp, bias.to(dev), None if seg is None else seg.to(dev), seed, p)
+            parts.append(self.out.partial(ctx, p))
+        return self.out.combine(parts, x.dtype)
+
+    def _context(self, x: torch.Tensor, bias: torch.Tensor, seg: Optional[torch.Tensor], seed: Optional[int],
+                 p: Optional[int] = None) -> torch.Tensor:
+        """The attention context (B, L, nh / m * hd) of the heads of position
+        ``p`` of the model group (all heads for None), before ``out``."""
         B, L, h = x.shape
-        nh = self.num_heads
-        hd = h // nh
+        m = 1 if p is None else len(self.out.group)
+        nh = self.num_heads // m
+        hd = h // self.num_heads
+        hp = nh * hd
         split = lambda t: t.view(B, L, nh, hd).transpose(1, 2)      # (B, nh, L, hd)
+        proj = (lambda layer: layer(x)) if p is None else (lambda layer: layer(x, p))
         if self.cfg.fused_qkv:
-            q, k, v = (split(t) for t in self._qkv(x).split(h, dim=-1))
+            q, k, v = (split(t) for t in self._qkv(x, p).split(hp, dim=-1))
         else:
-            q, k, v = split(self.query(x)), split(self.key(x)), split(self.value(x))
+            q, k, v = split(proj(self.query)), split(proj(self.key)), split(proj(self.value))
+        columns = None if p is None else (p, m, 2)  # the position's columns of the (B, L, h) context
         if use_flash(self.cfg, L):
             # the kernel has no probabilities to drop: the JAX package drops
             # the attention output at the same rate
-            ctx = flash_attention(q, k, v, seg, seg, 1.0 / math.sqrt(hd)).transpose(1, 2).reshape(B, L, h)
-            return self.out(self.dropout(ctx, seed))
+            ctx = flash_attention(q, k, v, seg, seg, 1.0 / math.sqrt(hd)).transpose(1, 2).reshape(B, L, hp)
+            return self.dropout(ctx, seed, columns)
+        heads = None if p is None else (p, m, 1)  # the position's heads of the (B, nh, L, L) probabilities
         if self.cfg.remat == "attn" and torch.is_grad_enabled():
             # the (B, nh, L, L) logits and probabilities are recomputed in the backward pass
-            ctx = checkpoint(self._explicit, q, k, v, bias, seed, use_reentrant=False, preserve_rng_state=False)
+            ctx = checkpoint(self._explicit, q, k, v, bias, seed, heads, use_reentrant=False,
+                             preserve_rng_state=False)
         else:
-            ctx = self._explicit(q, k, v, bias, seed)
-        ctx = ctx.transpose(1, 2).reshape(B, L, h)
+            ctx = self._explicit(q, k, v, bias, seed, heads)
+        ctx = ctx.transpose(1, 2).reshape(B, L, hp)
         if self.dropout_site == "output":
-            ctx = self.dropout(ctx, seed)
-        return self.out(ctx)
+            ctx = self.dropout(ctx, seed, columns)
+        return ctx
 
-    def _qkv(self, x: torch.Tensor) -> torch.Tensor:
+    def _qkv(self, x: torch.Tensor, p: Optional[int] = None) -> torch.Tensor:
         """``model.fused_qkv`` (``colbert_tpu/models/bert.py:162-176``): the
         three projections as one (H, 3H) product, their weights and biases
         concatenated at call time (the parameters stay three ``Dense``), (B,
-        L, 3H): q, then k, then v."""
-        w = torch.cat([self.query.weight, self.key.weight, self.value.weight]).to(x.dtype)
-        b = torch.cat([self.query.bias, self.key.bias, self.value.bias]).to(x.dtype)
+        L, 3H): q, then k, then v.  At position ``p`` of a model group, its
+        own q, k and v slices concatenated: (B, L, 3H / m)."""
+        if p is None:
+            w = torch.cat([self.query.weight, self.key.weight, self.value.weight]).to(x.dtype)
+            b = torch.cat([self.query.bias, self.key.bias, self.value.bias]).to(x.dtype)
+        else:
+            (wq, bq), (wk, bk), (wv, bv) = (t.part(p, x.dtype) for t in (self.query, self.key, self.value))
+            w, b = torch.cat([wq, wk, wv]), torch.cat([bq, bk, bv])
         return F.linear(x, w, b)
 
-    def _explicit(self, q, k, v, bias: torch.Tensor, seed: Optional[int]) -> torch.Tensor:
+    def _explicit(self, q, k, v, bias: torch.Tensor, seed: Optional[int],
+                  heads: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
         """softmax(q k^T / sqrt(hd) + bias) v, (B, nh, L, hd), and the probabilities' dropout."""
         hd = q.shape[-1]
         if self.softmax_fp32:
@@ -324,7 +433,7 @@ class BertSelfAttention(nn.Module):
             e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
             probs = e / e.sum(dim=-1, keepdim=True)
         if self.dropout_site == "probs":
-            probs = self.dropout(probs, seed)
+            probs = self.dropout(probs, seed, heads)
         return torch.matmul(probs, v)
 
 
@@ -365,8 +474,18 @@ class BertLayer(nn.Module):
                seeds: Tuple[Optional[Seed], Optional[Seed], Optional[Seed]]) -> torch.Tensor:
         attn = self.attention_dropout(self.attention(x, bias, seg, seeds[0]), seeds[1])
         x = self.attention_layernorm(x + attn, x.dtype)
-        y = self.output_dropout(self.output(F.gelu(self.intermediate(x))), seeds[2])
+        y = self.output_dropout(self._mlp(x), seeds[2])
         return self.output_layernorm(x + y, x.dtype)
+
+    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
+        """``output(gelu(intermediate(x)))``; under tensor parallelism each
+        position takes its intermediate features and its partial product."""
+        group = _group(self.output)
+        if group is None:
+            return self.output(F.gelu(self.intermediate(x)))
+        parts = [self.output.partial(F.gelu(self.intermediate(xp, p)), p)
+                 for p, xp in enumerate(broadcast(x, group))]
+        return self.output.combine(parts, x.dtype)
 
 
 class BertEncoder(nn.Module):

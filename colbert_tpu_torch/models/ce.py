@@ -18,9 +18,10 @@ from torch import nn
 
 from colbert_tpu_torch.config import ModelConfig
 from colbert_tpu_torch.models.bert import BertEncoder, Dense
+from colbert_tpu_torch.models.sharding import FullStateDict
 
 
-class CrossEncoderModel(nn.Module):
+class CrossEncoderModel(FullStateDict, nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg

@@ -16,9 +16,10 @@ from torch import nn
 
 from colbert_tpu_torch.config import ModelConfig, MultiviewConfig
 from colbert_tpu_torch.models.bert import BertEncoder, Dense
+from colbert_tpu_torch.models.sharding import FullStateDict
 
 
-class ColbertModel(nn.Module):
+class ColbertModel(FullStateDict, nn.Module):
     def __init__(self, cfg: ModelConfig, multiview: MultiviewConfig):
         super().__init__()
         self.cfg = cfg

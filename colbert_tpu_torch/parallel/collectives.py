@@ -1,7 +1,9 @@
-"""The collectives of data-parallel training, over the process group that
+"""The collectives of the mesh's two axes.
+
+The ``data`` axis: data-parallel training, over the process group that
 ``parallel/mesh.py::init_distributed`` joins (NCCL on the card, gloo on
-CPU processes).  Without a process group every function is the identity
-of one rank.
+CPU processes).  Without a process group each of these functions is the
+identity of one rank.
 
 * :func:`gather_rows`: all ranks' rows, rank-major, differentiable.  Its
   backward sums the gradient over ranks (an all-reduce of the whole
@@ -11,7 +13,18 @@ of one rank.
   out so that NCCL and gloo take the same path.
 * :func:`average_grads`: the gradients summed over ranks and divided by the
   world size, once: with each rank's loss a mean over its own queries, the
-  average is the gradient of the global batch's mean loss.
+  average is the gradient of the global batch's mean loss.  A rank's
+  gradients on several devices (its tensor-parallel shards) are reduced
+  from one buffer on its first device.
+
+The ``model`` axis: Megatron's two operators over one process's model
+group (``models/sharding.py``), as autograd functions.  Their sums run in
+position order on the first position's device, the same order every run:
+
+* :func:`broadcast`: a copy of a tensor to each position; its backward
+  sums the positions' gradients;
+* :func:`reduce`: the sum of the positions' partial outputs; its backward
+  copies the gradient back to each position.
 """
 
 from __future__ import annotations
@@ -78,14 +91,20 @@ def gather_rows(x: torch.Tensor) -> torch.Tensor:
 
 def average_grads(params: Sequence[torch.nn.Parameter]) -> None:
     """Sum each parameter's ``.grad`` over ranks (one all-reduce of a flat
-    buffer) and divide by the world size."""
+    buffer on the first gradient's device) and divide by the world size."""
     if not launched():
         return
     grads: List[torch.Tensor] = [p.grad for p in params if p.grad is not None]
-    flat = torch.cat([g.reshape(-1) for g in grads])
+    home = grads[0].device
+    flat = torch.cat([g.reshape(-1).to(home) for g in grads])
     dist.all_reduce(flat)
     flat /= dist.get_world_size()
-    torch._foreach_copy_(grads, [v.view_as(g) for v, g in zip(flat.split([g.numel() for g in grads]), grads)])
+    parts = [v.view_as(g) for v, g in zip(flat.split([g.numel() for g in grads]), grads)]
+    if all(g.device == home for g in grads):
+        torch._foreach_copy_(grads, parts)
+    else:
+        for g, v in zip(grads, parts):
+            g.copy_(v)
 
 
 def mean_over_ranks(x: torch.Tensor) -> torch.Tensor:
@@ -95,3 +114,52 @@ def mean_over_ranks(x: torch.Tensor) -> torch.Tensor:
     y = x.detach().clone()
     dist.all_reduce(y)
     return y / dist.get_world_size()
+
+
+# ---- the model axis ----
+
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, devices):
+        ctx.device, ctx.dtype = x.device, x.dtype
+        return tuple(x.view_as(x) if d == x.device else x.to(d) for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # summed in fp32 in position order, rounded once
+        acc = None
+        for g in grads:
+            if g is None:
+                continue
+            g = g.to(ctx.device, torch.float32)
+            acc = g.clone() if acc is None else acc.add_(g)
+        return (None if acc is None else acc.to(ctx.dtype)), None
+
+
+def broadcast(x: torch.Tensor, devices: Sequence[torch.device]) -> Tuple[torch.Tensor, ...]:
+    """``x`` on each of ``devices`` (a view where it already lies there),
+    differentiable: the gradient of ``x`` is the sum of the copies'
+    gradients, in fp32 in position order on ``x``'s device."""
+    return _Broadcast.apply(x, tuple(devices))
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *parts):
+        ctx.places = [(p.device, p.dtype) for p in parts]
+        home = parts[0].device
+        acc = torch.empty(parts[0].shape, dtype=torch.float32, device=home).copy_(parts[0])
+        for p in parts[1:]:
+            acc.add_(p.to(home, torch.float32))
+        return acc
+
+    @staticmethod
+    def backward(ctx, grad):
+        return tuple(grad.to(d, t) for d, t in ctx.places)
+
+
+def reduce(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The fp32 sum of ``parts`` (one a position, same shape), added in
+    position order on the first one's device; differentiable: each part's
+    gradient is the sum's, in the part's dtype on its device."""
+    return _Reduce.apply(*parts)

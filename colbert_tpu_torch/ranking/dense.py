@@ -11,7 +11,9 @@ Like :class:`~colbert_tpu_torch.ranking.searcher.ColbertSearcher` it takes
 a ``ColbertModel`` and a device (the card unless the caller asks for the
 CPU).  Texts are encoded in chunks of ``batch`` (256) with no padding: the
 JAX package pads a chunk to a multiple of its mesh's data axis, which is 1
-here; ``mesh.model > 1`` is refused, as everywhere in the port.
+here.  At ``mesh.model > 1`` the model is sharded over a model group
+(``models/sharding.py::place``), as the JAX package shards its parameters
+(``:30-32``), and the pooled vectors come back to the group's first device.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from colbert_tpu_torch.config import ColbertConfig
 from colbert_tpu_torch.indexing.flat import FlatIndex
 from colbert_tpu_torch.models.colbert import ColbertModel
 from colbert_tpu_torch.ops.pooling import avg_pool_by_mask
-from colbert_tpu_torch.parallel.mesh import TENSOR_PARALLEL
+from colbert_tpu_torch.models.sharding import place
+from colbert_tpu_torch.parallel.mesh import device_mesh
 from colbert_tpu_torch.tokenization import ColbertTokenizer
 
 
@@ -39,8 +42,6 @@ def pool(t: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
 class DenseRetriever:
     def __init__(self, cfg: ColbertConfig, tokenizer: ColbertTokenizer, model: ColbertModel,
                  device: str | torch.device = "cuda"):
-        if cfg.mesh.model > 1:
-            raise NotImplementedError(TENSOR_PARALLEL)
         if tokenizer.vocab_size > cfg.model.vocab_size:
             # an id past the embedding table is a device-side assert on the card
             raise ValueError(
@@ -48,8 +49,9 @@ class DenseRetriever:
             )
         self.cfg = cfg
         self.tok = tokenizer
-        self.device = torch.device(device)
-        self.model = model.to(self.device).eval()
+        mesh = device_mesh(device, 1, cfg.mesh.model)
+        self.device = mesh.devices[0]
+        self.model = place(model, mesh.grid[0]).eval()
         self.index: Optional[FlatIndex] = None
 
     @torch.inference_mode()

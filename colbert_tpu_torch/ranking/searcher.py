@@ -42,6 +42,7 @@ from colbert_tpu_torch.config import ColbertConfig
 from colbert_tpu_torch.utils.logging import Timers
 from colbert_tpu_torch.indexing.storage import IndexStorage
 from colbert_tpu_torch.models.colbert import ColbertModel
+from colbert_tpu_torch.models.sharding import place
 from colbert_tpu_torch.ops.flat_scan import (
     build_flat_table, flat_maxsim_scan, flat_scan_topk, flat_topk,
 )
@@ -54,6 +55,7 @@ from colbert_tpu_torch.ops.rerank import (
     BucketTables, build_ragged_buckets, maxsim_rerank_buckets, maxsim_rerank_uniform,
     maxsim_rerank_uniform_int8, quantize_emb_into, stride_buckets,
 )
+from colbert_tpu_torch.parallel.mesh import device_mesh
 from colbert_tpu_torch.tokenization import ColbertTokenizer
 
 ProbeFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
@@ -334,6 +336,8 @@ class ColbertSearcher:
         storage: IndexStorage,
         device: str | torch.device = "cuda",
     ):
+        """The queries are encoded by ``device`` at ``mesh.model`` positions
+        (``parallel/mesh.py::device_mesh``); the index lives on the first."""
         if cfg.serve.mode not in ("flat", "ann"):
             raise ValueError(f"unknown serve.mode {cfg.serve.mode!r}")
         if tokenizer.vocab_size > cfg.model.vocab_size:
@@ -343,8 +347,9 @@ class ColbertSearcher:
             )
         self.cfg = cfg
         self.tok = tokenizer
-        self.device = torch.device(device)
-        self.model = model.to(self.device).eval()
+        mesh = device_mesh(device, 1, cfg.mesh.model)
+        self.device = mesh.devices[0]
+        self.model = place(model, mesh.grid[0]).eval()
         self.timers = Timers()
         self.host_table: Optional[HostTable] = None
         self.ragged_strides: Optional[Tuple[int, ...]] = None

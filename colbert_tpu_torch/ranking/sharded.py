@@ -20,7 +20,9 @@ An int8 table (flat or ann) is quantized with ONE per-dim scale over the
 whole corpus, so that scores compare across shards.  The pq4 codec is
 refused, with the JAX package's reason, and so are the host table and a
 ragged int8 table (the JAX sharded searcher has neither).  Queries are
-encoded on the first device and copied to each shard's.
+encoded by the first data position's model group (sharded over it at
+``mesh.model > 1``, as the JAX searcher's parameters are) and copied to each
+shard's device.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 from colbert_tpu_torch.config import ColbertConfig
 from colbert_tpu_torch.indexing.storage import IndexStorage
 from colbert_tpu_torch.models.colbert import ColbertModel
+from colbert_tpu_torch.models.sharding import place
 from colbert_tpu_torch.ops.flat_scan import _int8_scale, build_flat_table, flat_maxsim_scan, flat_topk
 from colbert_tpu_torch.ops.ivf import sort_by_list
 from colbert_tpu_torch.ops.rerank import BucketTables, build_ragged_buckets, quantize_emb_into, stride_buckets
@@ -131,7 +134,7 @@ class ShardedColbertSearcher:
         self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh.data, cfg.mesh.model)
         self.n_shards = self.mesh.data
         self.device = self.mesh.devices[0]
-        self.model = model.to(self.device).eval()
+        self.model = place(model, self.mesh.grid[0]).eval()
         self.timers = Timers()
         meta = storage.read_meta()
         doclens = np.asarray(storage.read_doclens(), np.int64)

@@ -40,6 +40,9 @@
   mean loss and the rank-averaged gradients are the global batch's.  K9's
   counters start at the rank's first pair row.  Every rank evaluates the
   whole dev set; rank 0 alone writes checkpoints and logs.
+* Tensor parallelism (``mesh.model > 1``, JAX ``:46-67``), as the
+  retriever trainer's: the CE sharded over the rank's model group, its
+  logits back on the first device, checkpoints in the full layout.
 """
 
 from __future__ import annotations
@@ -54,6 +57,8 @@ from colbert_tpu_torch.config import ColbertConfig, TrainConfig
 from colbert_tpu_torch.models.bert import DropoutRows
 from colbert_tpu_torch.models.ce import CrossEncoderModel
 from colbert_tpu_torch.models.convert import reference_state_dict, state_dict_from_reference
+from colbert_tpu_torch.models.sharding import place
+from colbert_tpu_torch.parallel.mesh import Mesh, device_mesh
 from colbert_tpu_torch.tokenization import ColbertTokenizer
 from colbert_tpu_torch.training.checkpoint import CheckpointManager
 from colbert_tpu_torch.training.dataset import RetrievalDataset
@@ -74,11 +79,15 @@ class CETrainer:
         tokenizer: ColbertTokenizer,
         device: str | torch.device = "cuda",
         init_state_dict: Optional[Mapping[str, torch.Tensor]] = None,
+        mesh: Optional[Mesh] = None,
     ):
+        """``mesh``: this process's data position and its model group
+        (default: ``device`` at ``mesh.model`` positions)."""
         self.cfg = cfg
         self.tok = tokenizer
-        self.device = torch.device(device)
-        self.rank, self.world = data_parallel_world(cfg, self.device)
+        self.mesh = mesh if mesh is not None else device_mesh(device, 1, cfg.mesh.model)
+        self.device = self.mesh.devices[0]
+        self.rank, self.world = data_parallel_world(cfg, self.mesh)
         self.np_rng = np.random.default_rng(cfg.ce_train.seed)
         self._init_state_dict = init_state_dict
         self.model: Optional[CrossEncoderModel] = None
@@ -97,7 +106,7 @@ class CETrainer:
             # a converted checkpoint or a grafted retriever BERT: what it
             # lacks (the head) keeps the fresh init
             model.load_state_dict(_merge_params(model.state_dict(), self._init_state_dict))
-        self.model = model.to(self.device)
+        self.model = place(model, self.mesh.grid[0])
         tc = TrainConfig(learning_rate=c.learning_rate, weight_decay=c.weight_decay,
                          max_grad_norm=c.max_grad_norm)
         self.optimizer = Optimizer(self.model, tc, self.cfg.ce_model, total_steps)
@@ -314,7 +323,7 @@ class CETrainer:
         with torch.device("meta"):
             model = CrossEncoderModel(self.cfg.ce_model)
         model.load_state_dict(params, assign=True)
-        self.model = model.to(self.device)
+        self.model = place(model, self.mesh.grid[0])
 
     def _dump_log(self) -> None:
         if self.rank:

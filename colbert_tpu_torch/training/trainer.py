@@ -31,6 +31,12 @@
   ``models/bert.py::DropoutRows``), so W ranks draw one device's masks.
   Eval gathers the reps and scores the global batch by K3 on every rank.
   Rank 0 alone writes checkpoints and logs, between barriers.
+* Tensor parallelism (``mesh.model > 1``, JAX ``:64-97``): each rank's
+  model is sharded over its model group (``models/sharding.py::place``),
+  the passes run over its positions and the reps come back to its first
+  device; the optimizer updates the shards and the replicated parameters,
+  and checkpoints hold the gathered full parameters and moments, the same
+  files at every ``mesh.model``.
 """
 
 from __future__ import annotations
@@ -47,11 +53,12 @@ from colbert_tpu_torch.config import ColbertConfig
 from colbert_tpu_torch.models.bert import DropoutRows
 from colbert_tpu_torch.models.colbert import ColbertModel
 from colbert_tpu_torch.models.convert import reference_state_dict, state_dict_from_reference
+from colbert_tpu_torch.models.sharding import place
 from colbert_tpu_torch.ops.maxsim import maxsim, maxsim_ref
 from colbert_tpu_torch.parallel.collectives import (
     all_gather_rows, average_grads, barrier, gather_rows, mean_over_ranks, world,
 )
-from colbert_tpu_torch.parallel.mesh import make_mesh
+from colbert_tpu_torch.parallel.mesh import Mesh, device_mesh
 from colbert_tpu_torch.tokenization import ColbertTokenizer
 from colbert_tpu_torch.training.checkpoint import CheckpointManager
 from colbert_tpu_torch.training.dataset import RetrievalDataset, RetrievalSampler, TrainBatch
@@ -83,11 +90,16 @@ class ColbertTrainer:
         device: str | torch.device = "cuda",
         init_state_dict: Optional[Mapping[str, torch.Tensor]] = None,
         total_steps: Optional[int] = None,
+        mesh: Optional[Mesh] = None,
     ):
+        """``mesh``: this process's data position and its model group
+        (default: ``device`` at ``mesh.model`` positions,
+        ``parallel/mesh.py::device_mesh``)."""
         self.cfg = cfg
         self.tok = tokenizer
-        self.device = torch.device(device)
-        self.rank, self.world = data_parallel_world(cfg, self.device)
+        self.mesh = mesh if mesh is not None else device_mesh(device, 1, cfg.mesh.model)
+        self.device = self.mesh.devices[0]
+        self.rank, self.world = data_parallel_world(cfg, self.mesh)
         self.model: Optional[ColbertModel] = None
         self.optimizer: Optional[Optimizer] = None
         self._init_state_dict = init_state_dict
@@ -107,7 +119,7 @@ class ColbertTrainer:
             # fill in what a converted checkpoint lacks (the projection head
             # of a bare pretrained BERT) from the fresh init
             model.load_state_dict(_merge_params(model.state_dict(), self._init_state_dict))
-        self.model = model.to(self.device)
+        self.model = place(model, self.mesh.grid[0])
         self.optimizer = Optimizer(self.model, self.cfg.train, self.cfg.model, total_steps)
 
     def _tensors(self, batch: TrainBatch):
@@ -317,16 +329,20 @@ class ColbertTrainer:
         return state_dict_from_reference(self.ckpt.params_path(step), self.cfg.model)
 
 
-def data_parallel_world(cfg: ColbertConfig, device: torch.device) -> Tuple[int, int]:
+def data_parallel_world(cfg: ColbertConfig, mesh: Mesh) -> Tuple[int, int]:
     """``(rank, world size)`` of a training run: the launch's process group
-    (one process a device), checked against the config's ``mesh``
-    (``model > 1`` refused, ``data`` -1 or the world size)."""
+    (one process a data position), checked against the config's ``mesh``
+    (``data`` -1 or the world size) and the process's own ``mesh`` (one
+    data position of ``mesh.model`` positions)."""
     rank, size = world()
-    make_mesh(-1, cfg.mesh.model, devices=[device])
+    if mesh.data != 1 or mesh.model != cfg.mesh.model:
+        raise ValueError(f"a trainer runs one data position of mesh.model={cfg.mesh.model} positions, "
+                         f"got a {mesh.data}x{mesh.model} mesh")
     if cfg.mesh.data not in (-1, size):
         raise ValueError(
             f"mesh.data={cfg.mesh.data}, but training runs one process a device and this run has {size}: "
-            "launch one process a GPU with --coordinator/--num-processes/--process-id, or set mesh.data=-1"
+            "launch one process a GPU (or a model group of GPUs) with --coordinator/--num-processes/--process-id, "
+            "or set mesh.data=-1"
         )
     return rank, size
 

@@ -67,9 +67,9 @@ def main() -> int:
     calls = []
     apply = dr._apply
 
-    def timed_apply(x, seed, thr):
+    def timed_apply(x, seed, thr, *where):
         t0 = time.perf_counter()
-        out = apply(x, seed, thr)
+        out = apply(x, seed, thr, *where)
         calls.append(time.perf_counter() - t0)
         return out
 

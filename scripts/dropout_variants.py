@@ -323,8 +323,8 @@ def device_split():
             print(f"  {name}: {t:.4f} ms ({times[name][0]:.4f} / {times[name][1]:.4f}), byte bound at {bound / t:.1%}")
         del x, y, runs
     for name, so, parts, per_vec in (
-            ("packed", dr._kernel_lib()._name, ("packed_kernel", "I13__nv_bfloat16Lb0ELb0E"), 8),
-            ("packed, streaming way", dr._kernel_lib()._name, ("packed_kernel", "I13__nv_bfloat16Lb0ELb1E"), 8),
+            ("packed", dr._kernel_lib()._name, ("packed_kernel", "I13__nv_bfloat16Lb0ELb0ELb0E"), 8),
+            ("packed, streaming way", dr._kernel_lib()._name, ("packed_kernel", "I13__nv_bfloat16Lb0ELb1ELb0E"), 8),
             ("simple, vector path alone", libs["simple, vector path alone"][0], ("simple_kernel", "I13__nv_bfloat16"), 8)):
         mix = sass_loop_mix(so, parts, per_vec)
         print(f"SASS, route {name} (bf16, thr < 128): {mix['loop_instructions']} instructions in its loop for "

@@ -23,7 +23,8 @@ evaluation (K3 over the gathered reps), and one CE step (also at
 ``RUN_TIMEOUT_S`` for its processes, whose process group fails every
 collective after ``DIST_TIMEOUT_S``.  Also: a launch of one process
 (``--num-processes 1``, in this process) is bit-equal to no launch; the
-CLI's checks of the flags and of ``mesh``; K9's counter base (a rank's
+CLI's checks of the flags and of ``mesh``; the CLI's ``train`` at
+``mesh.model=2`` (tensor parallelism) against ``mesh.model=1``; K9's counter base (a rank's
 rows draw the one-device masks); the corpus encoder over three positions
 of one process and over two ranks writes the one-device part files.
 """
@@ -52,6 +53,7 @@ DIST_TIMEOUT_S = 60
 RUN_TIMEOUT_S = 240
 TOL_PORT = 1e-6  # losses: relative; parameters: absolute
 TOL_JAX_LOSS, TOL_JAX_PARAM = 1e-5, 1e-6
+TOL_TP = 1e-5  # tensor-parallel against one position: losses relative, parameters absolute
 
 
 def free_port() -> int:
@@ -285,7 +287,6 @@ def test_cli_runs_other_subcommands_in_one_process(capsys):
 
 
 @pytest.mark.parametrize("overrides, error, match", [
-    (["mesh.model=2"], NotImplementedError, "step 10, its tensor-parallel item"),
     (["mesh.data=2"], ValueError, "mesh.data=2, but training runs one process a device and this run has 1"),
 ])
 def test_cli_train_checks_the_mesh(tmp_path, overrides, error, match):
@@ -298,6 +299,30 @@ def test_cli_train_checks_the_mesh(tmp_path, overrides, error, match):
         main(["train", "--config", str(tmp_path / "c.yaml"), "--train-data", str(data), "--pretrain", str(weights),
               "--device", "cpu", *sets])
     assert not (tmp_path / "two" / "checkpoint-2").exists()
+
+
+def test_cli_train_at_model_2_equals_model_1(tmp_path):
+    """``train --device cpu --set mesh.model=2``: two tensor-parallel
+    positions of one process, dropout on (K9's plain version draws each
+    position's slice of the one-device masks), against the same command at
+    ``mesh.model=1``: each step's loss within ``TOL_PORT`` of its size and
+    every parameter of the checkpoint, which has the ``model = 1`` layout,
+    within ``TOL_TP`` (the row-parallel products are two half sums added
+    after, not one sum: the forward's order of sums changes, and the scores
+    are divided by the temperature, 0.05)."""
+    from colbert_tpu_torch.cli import main
+
+    _, one, _, weights, data, _ = _retriever_setup(tmp_path, dropout=True, jax_init=False)
+    one.to_yaml(tmp_path / "c.yaml")
+    dirs = {m: tmp_path / f"model{m}" for m in (1, 2)}
+    for m, d in dirs.items():
+        main(["train", "--config", str(tmp_path / "c.yaml"), "--train-data", str(data), "--pretrain", str(weights),
+              "--device", "cpu", "--set", f"mesh.model={m}", "--set", f"train.checkpoint_dir={d}"])
+    losses = {m: _step_losses(d) for m, d in dirs.items()}
+    assert len(losses[2]) == 2
+    np.testing.assert_allclose(losses[2], losses[1], rtol=TOL_TP, atol=0)
+    _assert_params_close(_ckpt_params(dirs[2] / "checkpoint-2" / "pytorch.bin", one.model),
+                         _ckpt_params(dirs[1] / "checkpoint-2" / "pytorch.bin", one.model), TOL_TP, "at model 2")
 
 
 # ---- K9's counter base; the corpus encoder over positions and ranks ----
@@ -324,10 +349,10 @@ def test_dropout_rows_draw_the_one_device_masks(monkeypatch):
         site(torch.randn(2, 3, 5), site.seed(DropoutRows(gen(), 1)))
 
     args = []
-    monkeypatch.setattr(dr, "_fn_at", lambda *a: args.append(a) or 0)
+    monkeypatch.setattr(dr, "_fn", lambda *a: args.append(a) or 0)
     monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda dev: 1234, raising=False)
     dr._launch(torch.ones(40, dtype=torch.bfloat16), 99, 26, base=7)
-    assert args[0][2:] == (40, 1, 99, 26, dr.keep_scale(26, torch.bfloat16), 0, -1, 1234, 7)
+    assert args[0][2:] == (40, 1, 99, 26, dr.keep_scale(26, torch.bfloat16), 0, -1, 1234, 7, 0, 0, 0, 0)
     with pytest.raises(ValueError, match="counter 0 only"):
         dr._launch(torch.ones(40, dtype=torch.bfloat16), 99, 26, route="simple", base=7)
 

@@ -168,7 +168,7 @@ def test_top_level_api_exports_flat_index_and_builder():
 
 # ---- the dense retriever ----
 
-def _configs(tmp_path, multiview: bool):
+def _configs(tmp_path, multiview: bool, model: int = 1):
     from colbert_tpu.config import ColbertConfig as JaxConfig
     from colbert_tpu_torch.config import ColbertConfig
     from colbert_tpu_torch.tokenization.vocab import build_vocab, write_vocab
@@ -179,11 +179,11 @@ def _configs(tmp_path, multiview: bool):
                        max_position_embeddings=64, dim=16, dtype="float32"),
          "multiview": dict(enabled=multiview, q_view=4, d_view=8),
          "tokenizer": dict(vocab_path=str(vp), query_maxlen=12, doc_maxlen=24),
-         "index": dict(pq_m=4), "mesh": dict(data=1, model=1)}
+         "index": dict(pq_m=4), "mesh": dict(data=1, model=model)}
     return JaxConfig.from_dict(d), ColbertConfig.from_dict(d), texts
 
 
-def _retrievers(tmp_path, multiview: bool):
+def _retrievers(tmp_path, multiview: bool, model: int = 1):
     from colbert_tpu.models import ColbertModel as FlaxColbert
     from colbert_tpu.parallel import make_mesh
     from colbert_tpu.ranking.dense import DenseRetriever as JaxDense
@@ -193,7 +193,7 @@ def _retrievers(tmp_path, multiview: bool):
     from colbert_tpu_torch.ranking.dense import DenseRetriever
     from colbert_tpu_torch.tokenization import ColbertTokenizer
 
-    jcfg, cfg, texts = _configs(tmp_path, multiview)
+    jcfg, cfg, texts = _configs(tmp_path, multiview, model)
     ids = jnp.zeros((1, 12), jnp.int32)
     params = FlaxColbert(jcfg.model, jcfg.multiview).init(
         jax.random.PRNGKey(4), ids, jnp.ones_like(ids), jnp.zeros((1, 24), jnp.int32),
@@ -201,7 +201,7 @@ def _retrievers(tmp_path, multiview: bool):
     rng = np.random.default_rng(12)  # non-trivial biases and LayerNorms
     params = jax.tree_util.tree_map(lambda a: np.asarray(a) + rng.normal(0, 0.05, a.shape).astype(np.float32), params)
     jr = JaxDense(jcfg, JaxTokenizer(jcfg.tokenizer, jcfg.multiview), params,
-                  mesh=make_mesh(1, 1, devices=jax.devices()[:1]))
+                  mesh=make_mesh(1, model, devices=jax.devices()[:model]))
     model = ColbertModel(cfg.model, cfg.multiview)
     model.load_state_dict(state_dict_from_jax_params(params, cfg.model))
     tr = DenseRetriever(cfg, ColbertTokenizer(cfg.tokenizer, cfg.multiview), model, device="cpu")
@@ -242,9 +242,33 @@ def test_dense_retriever_matches_jax(tmp_path, multiview):
     np.testing.assert_array_equal(gi2[clear], wi2[clear])
 
 
+def test_dense_retriever_at_model_2(tmp_path):
+    """``mesh.model=2``: the port's retriever sharded over two CPU positions
+    against its ``model = 1`` retriever (vectors within 1e-6, the same top-k)
+    and JAX's at mesh data 1 x model 2 (vectors and scores within 2e-5, the
+    top-k ids equal away from near ties)."""
+    jr, tr, texts = _retrievers(tmp_path, True, model=2)
+    assert tr.model.model_group == (torch.device("cpu"),) * 2
+    _, one, _ = _retrievers(tmp_path, True)
+    questions = ["apple fruit", "ocean wave", texts[3][:20]]
+    for is_query, batch_texts in ((False, texts), (True, questions)):
+        got = tr._encode(batch_texts, is_query=is_query, batch=16)
+        np.testing.assert_allclose(got, one._encode(batch_texts, is_query=is_query, batch=16), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got, jr._encode(batch_texts, is_query=is_query, batch=16), rtol=0, atol=2e-5)
+    for r in (jr, tr, one):
+        r.build_index(texts, batch=16)
+    (ws, wi), (gs, gi), (os_, oi) = jr.search(questions, topk=7), tr.search(questions, topk=7), one.search(questions, 7)
+    np.testing.assert_allclose(gs, ws, rtol=0, atol=2e-5)
+    np.testing.assert_array_equal(gi, oi)
+    gaps = np.diff(ws, axis=1)
+    clear = np.concatenate([np.abs(gaps) > 4e-5, np.ones((len(questions), 1), bool)], axis=1) & \
+        np.concatenate([np.ones((len(questions), 1), bool), np.abs(gaps) > 4e-5], axis=1)
+    np.testing.assert_array_equal(gi[clear], wi[clear])
+
+
 def test_dense_retriever_refusals(tmp_path):
-    """Search before an index is a RuntimeError, as in JAX; ``mesh.model > 1``
-    and a tokenizer larger than the model are refused."""
+    """Search before an index is a RuntimeError, as in JAX; a tokenizer
+    larger than the model is refused."""
     from colbert_tpu_torch.models.colbert import ColbertModel
     from colbert_tpu_torch.ranking.dense import DenseRetriever
     from colbert_tpu_torch.tokenization import ColbertTokenizer
@@ -255,9 +279,6 @@ def test_dense_retriever_refusals(tmp_path):
     with pytest.raises(RuntimeError, match="build_index"):
         r.search(["apple"])
     assert r._encode([], is_query=True).shape == (0, 16)
-    tp = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh, model=2))
-    with pytest.raises(NotImplementedError, match="mesh.model"):
-        DenseRetriever(tp, tok, ColbertModel(cfg.model, cfg.multiview), device="cpu")
     small = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, vocab_size=50))
     with pytest.raises(ValueError, match="vocab"):
         DenseRetriever(small, tok, ColbertModel(small.model, cfg.multiview), device="cpu")

@@ -155,7 +155,7 @@ def test_every_site_runs_the_kernel_forward_and_backward(monkeypatch, site):
     ``chip_smoke.py`` holds the card's launches to."""
     calls = []
     orig = dr._apply
-    monkeypatch.setattr(dr, "_apply", lambda x, s, t: calls.append(tuple(x.shape)) or orig(x, s, t))
+    monkeypatch.setattr(dr, "_apply", lambda x, s, t, *a: calls.append(tuple(x.shape)) or orig(x, s, t, *a))
     model = _model(dataclasses.replace(CFG, attention_dropout_site=site)).train()
     ids, attn = _batch()
     model.query(ids, attn, generator=torch.Generator().manual_seed(0)).sum().backward()
@@ -341,7 +341,7 @@ def test_high_seed_reaches_the_launch_unchanged(monkeypatch):
     tensor off the CPU) and the C function's argument as the same int."""
     seed = (1 << 64) - 3
     seen = []
-    monkeypatch.setattr(dr, "_launch", lambda x, s, t: seen.append((s, t)) or torch.empty_like(x))
+    monkeypatch.setattr(dr, "_launch", lambda x, s, t, **kw: seen.append((s, t)) or torch.empty_like(x))
     dr.hw_dropout(torch.empty(4, 5, device="meta"), seed, 26)
     dr.hw_dropout(torch.empty(4, 5, device="meta", requires_grad=True), 1 << 63, 26)
     assert seen == [(seed, 26), ((1 << 63), 26)]
@@ -355,5 +355,6 @@ def test_high_seed_reaches_the_launch_unchanged(monkeypatch):
     y = dr._launch(x, seed, 200, route="simple")
     assert y.shape == x.shape and y.dtype == x.dtype and y.data_ptr() != x.data_ptr()
     (a,) = args
-    assert a[2:] == (40, 1, seed, 200, dr.keep_scale(200, torch.bfloat16), dr.ROUTES.index("simple"), -1, 1234)
+    assert a[2:] == (40, 1, seed, 200, dr.keep_scale(200, torch.bfloat16), dr.ROUTES.index("simple"), -1, 1234,
+                     0, 0, 0, 0, 0)
     assert dr.route_launches["simple"].value == before + 1

@@ -357,6 +357,94 @@ def test_dropout_counter_base(cuda_device, dtype):
         dr._launch(x, 77, 26, route="simple", base=5)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("thr", [26, 200])
+def test_dropout_slice_counters(cuda_device, dtype, thr):
+    """Route "packed" on a tensor-parallel position's slice (strided
+    counters: runs of ``inner`` groups ``stride`` apart): forward and backward
+    bit-equal to the plain version with the same slice, and equal to that
+    slice of the whole tensor's dropout, for heads of (B, nh, L, L) and
+    columns of (B, L, h) at every position of 2 and 4, from row 0 and a
+    data-parallel rank's row (a run of one group too, a slice past the L2's
+    size, a tail off the tiles, an unaligned view); route "simple" refuses a
+    slice."""
+    import math
+
+    from colbert_tpu_torch.ops import dropout as dr
+
+    cases = [((3, 4, 20, 20), 1), ((2, 6, 64, 64), 1), ((3, 20, 64), 2), ((5, 7, 32), 2), ((68, 12, 384, 384), 1)]
+    for full, dim in cases:
+        if dtype != torch.bfloat16 and full[0] == 68:
+            continue
+        x = torch.randn(full, device=cuda_device).to(dtype)
+        for m in (2, 4):
+            if full[dim] % m:
+                continue
+            per = full[dim] // m
+            for row0 in (0, 3):
+                for p in range(m):
+                    part = x.narrow(dim, p * per, per).contiguous()
+                    inner = math.prod(part.shape[dim:])
+                    if inner % 16:
+                        continue
+                    args = ((row0 * x[0].numel() + p * inner) // 16, inner // 16, m * inner // 16)
+                    xg = part.detach().requires_grad_(True)
+                    y = dr.hw_dropout(xg, 5, thr, *args)
+                    g = torch.randn_like(y)
+                    (dx,) = torch.autograd.grad(y, xg, g)
+                    assert dr.same_bits(y, dr.hw_dropout_ref(part, 5, thr, *args)), (full, m, p, row0)
+                    assert dr.same_bits(dx, dr.hw_dropout_ref(g, 5, thr, *args)), (full, m, p, row0)
+                    want = dr.hw_dropout(x, 5, thr, row0 * x[0].numel() // 16) if row0 else dr.hw_dropout(x, 5, thr)
+                    assert dr.same_bits(y, want.narrow(dim, p * per, per).contiguous()), (full, m, p, row0)
+    flat = torch.randn(4 * 48 + 1, device=cuda_device).to(dtype)
+    view = flat[1:]
+    assert dr.same_bits(dr.hw_dropout(view, 9, thr, 7, 3, 6), dr.hw_dropout_ref(view, 9, thr, 7, 3, 6))
+    with pytest.raises(ValueError, match="counter 0 only"):
+        dr._launch(x, 5, thr, route="simple", inner=1, stride=2)
+
+
+def test_tensor_parallel_step_on_the_card(cuda_device, tmp_path):
+    """A retriever train step at ``mesh.model=2`` with both positions on the
+    card (dropout "byte" on, flash at the doc pass): K9 on strided counters
+    at the attention sites, K11-K13 once a layer a position, the loss within
+    2e-2 of the step at ``mesh.model=1`` (bf16 partial products summed after),
+    and the same step at model 2 bit-equal over two runs."""
+    from colbert_tpu_torch.config import ColbertConfig, ModelConfig, TokenizerConfig, TrainConfig
+    from colbert_tpu_torch.ops import dropout as dr, flash_attention as fa
+    from colbert_tpu_torch.parallel.mesh import Mesh
+    from colbert_tpu_torch.training import ColbertTrainer, TrainBatch
+
+    cfg = ColbertConfig(
+        model=ModelConfig(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4, intermediate_size=512,
+                          dim=128, attention_impl="flash"),
+        tokenizer=TokenizerConfig(query_maxlen=32, doc_maxlen=128),
+        train=TrainConfig(per_device_batch_size=4, checkpoint_dir=str(tmp_path / "ckpt")))
+    rng = np.random.default_rng(3)
+    group = cfg.train.train_num_positives + cfg.train.train_num_negatives
+    ids = lambda n, L: rng.integers(1, 512, size=(n, L)).astype(np.int32)
+    batch = TrainBatch(ids(4, 32), np.ones((4, 32), np.int32), np.ones((4, 16), np.int32),
+                       ids(4 * group, 128), np.ones((4 * group, 128), np.int32), np.ones((4 * group, 16), np.int32))
+
+    def step(m):
+        c = ColbertConfig.from_dict(cfg.to_dict())
+        c.mesh.model = m
+        t = ColbertTrainer(c, None, device=cuda_device, mesh=Mesh.of([cuda_device] * m, m), total_steps=2)
+        t._init_state(2)
+        before = dr.slice_launches.value, fa.fwd_launches.value
+        loss = float(t.compute_grads(batch, 0))
+        torch.cuda.synchronize()
+        grads = {n: p.grad.clone() for n, p in t.model.named_parameters()}
+        return loss, grads, dr.slice_launches.value - before[0], fa.fwd_launches.value - before[1]
+
+    l1, _, s1, f1 = step(1)
+    l2, g2, s2, f2 = step(2)
+    l2b, g2b, _, _ = step(2)
+    assert (s1, f1) == (0, 2) and f2 == 2 * 2
+    assert s2 == 2 * 2 * 2 * 2  # 2 passes x 2 layers x 2 positions x (forward + backward)
+    assert abs(l2 - l1) <= 2e-2 * abs(l1)
+    assert l2 == l2b and all(dr.same_bits(g2[n], g2b[n]) for n in g2)
+
+
 @pytest.mark.parametrize("route", ["packed", "simple"])
 def test_dropout_kernel_unaligned_view(cuda_device, route):
     """A view that starts off 16-byte alignment takes the scalar path, and a

@@ -20,8 +20,10 @@ against the JAX package, on the CPU.
   within 1e-4; ANN probes each shard's lists (a superset of the unsharded
   candidates), so its k-th score is at least the unsharded searcher's,
   within 1e-4 (the JAX test holds them within 2e-2);
-* the refusals: pq4, the host table, ``mesh.model > 1``; the serving
-  service over the sharded searcher.
+* a 4 x 2 mesh (``mesh.model=2``, tensor parallelism) against JAX's on
+  ``mesh8`` and the port's 4 x 1;
+* the refusals: pq4, the host table; the serving service over the sharded
+  searcher.
 """
 
 import dataclasses
@@ -280,9 +282,27 @@ def test_sharded_refusals(sharded_setup, change, error):
         cfg = _serve(cfg, **change["serve"])
     with pytest.raises(ValueError, match=error):
         _port_sharded(cfg, model, tok, path)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        ShardedColbertSearcher(PortConfig.from_dict(_serve(cfg, mode="flat").to_dict()), tok, model,
-                               IndexStorage(tmp / "idx"), mesh=make_mesh(2, 2, devices=["cpu"] * 2))
+
+
+def test_sharded_searcher_at_model_2(sharded_setup, mesh8, native_off):
+    """A 4 x 2 mesh (``mesh.model=2``: each shard's queries encoded by a model
+    group of two CPU positions) against JAX's sharded searcher on ``mesh8``
+    (data 4 x model 2) and the port's 4 x 1 mesh, flat mode: the same
+    results within ``TOL``."""
+    import copy
+
+    from colbert_tpu.ranking.sharded import ShardedColbertSearcher as JaxSharded
+
+    cfg, jtok, params, model, tok, tmp = sharded_setup
+    cfg = _serve(cfg, mode="flat")
+    pcfg = PortConfig.from_dict(cfg.to_dict())
+    tp = ShardedColbertSearcher(pcfg, tok, copy.deepcopy(model), IndexStorage(tmp / "idx"),
+                                mesh=make_mesh(SHARDS, 2, devices=["cpu"] * (2 * SHARDS)))
+    assert tp.n_shards == SHARDS and tp.model.model_group == (torch.device("cpu"),) * 2
+    got = tp.search(QUESTIONS, topk=5)
+    _assert_same_results(JaxSharded(cfg, jtok, params, JaxStorage(tmp / "idx"), mesh=mesh8).search(QUESTIONS, topk=5),
+                         got, 5)
+    _assert_same_results(_port_sharded(cfg, copy.deepcopy(model), tok, tmp / "idx").search(QUESTIONS, topk=5), got, 5)
 
 
 def test_sharded_searcher_behind_the_service(sharded_setup):
