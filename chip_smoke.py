@@ -388,8 +388,25 @@ seed:
   step at model 2 against model 1 (loss within 2e-2).  ``--phase13`` runs
   it alone.
 
+* phase 14, the host runtime (``csrc/native.cpp``, built with g++; host
+  clock, medians of 5 unless said): (a) after phase 2, on its flat service
+  in process: the batches of a 144-question request and of a 1,024-question
+  request (phase 2's questions cycled) at top-100 through
+  ``serialize_batch`` + ``wrap`` against ``serialize_batch_ref`` + ``wrap``,
+  bytes equal; one 144-question request split into tokenize, encode, K1
+  scan + top-k, the copy to the host and the serializer, and whole; (b)
+  after phase 5b: ``balanced_assign`` (8 nearest-centroid candidates, cap
+  1.2x the mean list) and ``ivf_pack`` against their plain versions (medians
+  of 3) on phase 5b's rows and lists, the pack also equal to the stored
+  index; then at 3.2 M rows (200,000 docs x 16) over 16,384 lists, skewed
+  topics, int8 codes of width 64 (the plain assignment timed once);
+  outputs equal; (c) ``build_flat_table`` once at phase 1's 200,000 docs x
+  16 rows x 768, bf16 and int8, from fp16 on the host.  Phases 2, 5c, 6c
+  and 9c require ``pickle_triples`` once a batch served over the socket.
+  ``--phase14`` runs it alone with the set-up it needs.
+
 Prints the card's name and power limit, the measurements, one JSON line of
-kernels, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
+the host runtime's times, one JSON line of kernels, and last ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, when CUDA is unavailable or any phase fails.
 """
 
@@ -436,8 +453,11 @@ PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3
 def counters():
     from colbert_tpu_torch.ops import dropout as dr, flash_attention as fa, flat_scan as fs, maxsim as ms
     from colbert_tpu_torch.ops import pq4, rerank as rr, sq_probe, sq_probe_batched as sp
+    from colbert_tpu_torch import native
 
-    return {"K1": fs.flat_scan_fused.launches, "K2": fs.flat_maxsim_scan.launches,
+    return {"pickle_triples": native.pickle_triples.calls, "ivf_pack": native.ivf_pack.calls,
+            "balanced_assign": native.balanced_assign.calls,
+            "K1": fs.flat_scan_fused.launches, "K2": fs.flat_maxsim_scan.launches,
             "K3": ms.maxsim.launches, "K9": dr.hw_dropout.launches,
             "K4": rr.maxsim_rerank_uniform.launches, "K5": rr.maxsim_rerank_uniform_int8.launches,
             "K6": sp.sq_batch_list_scan.launches, "K7": sp.sq_hot_list_scan.launches,
@@ -472,6 +492,16 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {k: c.value for k, c in counters().items()}
+
+
+def serialized_on_cpp(tag, launches, socket_batches) -> None:
+    """Every batch served over the socket in a counted run went through the
+    C++ serializer (``native.pickle_triples``), once a batch."""
+    log(f"[{tag}] pickle_triples calls in the serving-path run: {launches['pickle_triples']} "
+        f"(expected {socket_batches}: one a batch served over the socket)")
+    if launches["pickle_triples"] != socket_batches:
+        raise AssertionError(f"{tag}: pickle_triples ran {launches['pickle_triples']} times for "
+                             f"{socket_batches} batches served over the socket")
 
 
 def bound(flops: float, nbytes: float, peak_flops: float):
@@ -959,6 +989,7 @@ def phase_slice(device, workdir: Path, label: str, num_docs=20_000, model_kw=Non
         f"K2 expected {n_requests})")
     if launches["K1"] != served_batches or launches["K2"] != n_requests:
         raise AssertionError(f"kernel launches {launches} do not match the served batches")
+    serialized_on_cpp("phase2", launches, served_batches)
     want_route = fs.flat_scan_plan(k2_searcher.flat_dv, M)
     if launches[f"K1/K2 {want_route} route"] != served_batches + n_requests or \
             launches["K1/K2 staged route" if want_route == "wgmma" else "K1/K2 wgmma route"]:
@@ -1647,6 +1678,7 @@ def phase_ann_cli(device, workdir: Path, cfg, common, corpus_path, eval_path, do
     want["K7 mma route"], want["K7 staged route"] = want["K7"], 0
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"ANN kernel launches {launches} do not match the served batches {want}")
+    serialized_on_cpp("phase5c", launches, len(requests) + eval_batches)
     # K7 on the deep request's plan: the one served shape with real hot lists
     k7_deep = k7_both_routes("phase5c", f"request 0 at nprobe {deep}", plan.hot_ids, plan.hot_members,
                              ivf["offsets"], ivf["codes"], plan.qs, label)
@@ -2353,6 +2385,7 @@ def phase_codecs_cli(device, workdir: Path, cfg, common, corpus_path, eval_path,
         f"token-probe batch on the sq index)")
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"kernel launches {launches} do not match the served batches {want}")
+    serialized_on_cpp("phase6c", launches, 2 + eval_batches)
     worst = {
         "pq4": max(check_answers("pq4", qs, ans, flat_searcher, docs, device)
                    for qs, ans in zip(requests, answers)),
@@ -3738,6 +3771,7 @@ def phase_ragged_cli(device, workdir: Path, cfg, common, eval_path, docs, reques
         f"int8-bucket batch, one host-table batch of {host_k5} K5 launch(es))")
     if any(launches[k] != v for k, v in want.items()):
         raise AssertionError(f"ragged ANN launches {launches} do not match the served batches {want}")
+    serialized_on_cpp("phase9c", launches, 2 + eval_batches)
     ref = services["packed"].searcher  # bf16 buckets of the served index, the server's tables
     worst = {"bf16": max(check_answers("ragged bf16", qs, ans, ref, rdocs, device, bucket_exact(ref))
                          for qs, ans in zip(requests, answers["bf16"]))}
@@ -5675,6 +5709,236 @@ def phase_tp(device, label):
     return {"k9": k9, "train": train, "serve": serve, "ce": ce, "launch": launch, "s": s}
 
 
+# ---- phase 14: the host runtime (csrc/native.cpp) against its plain versions ----
+
+ASSIGN_CANDIDATES, ASSIGN_FACTOR = 8, 1.2  # balanced_assign's candidates a row and cap over the mean list
+BIG_DOCS = 200_000                         # phase 1's second flat operating point: 3.2 M rows at 16 a doc
+
+
+def host_median(fn, reps=5):
+    """Median host-clock ms of ``reps`` calls of ``fn`` (which returns its
+    result, kept from the last call)."""
+    runs, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return sorted(runs)[reps // 2], out
+
+
+def host_cpu() -> dict:
+    import os
+
+    import torch
+
+    return {"cpu_count": os.cpu_count(), "torch_threads": torch.get_num_threads()}
+
+
+def phase_host_serialize(device, label, ctx):
+    """Phase 14a: the serializer on phase 2's served results (a 144- and a
+    1,024-question request through the flat service in process), the C++
+    against the plain version, bytes equal; and one request's split."""
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.ops.flat_scan import flat_scan_topk
+    from colbert_tpu_torch.serving.serializer import TripleSerializer
+
+    cfg, docs, questions = ctx["cfg"], ctx["docs"], ctx["questions"]
+    common = ctx["common"]
+    ns = argparse.Namespace(pretrain=common[common.index("--pretrain") + 1], checkpoint_step=None,
+                            device=str(device), corpus=str(ctx["corpus_path"]))
+    service = cli.make_service(cfg, ns)
+    searcher = service.searcher
+    t0 = time.perf_counter()
+    ser = TripleSerializer(docs)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    out = {"serializer_build_ms": build_ms, "fragments_mb": ser.blob.nbytes / 1e6}
+    service.retrieve(questions[:1], topk=TOPK)  # warm-up
+    for name, n in (("request_144", B), ("request_1024", 1024)):
+        qs = [questions[i % len(questions)] for i in range(n)]
+        batches = []
+        service._retrieve_batches(qs, TOPK, None, None,
+                                  lambda pids, scores, n_real: batches.append((pids[:n_real].copy(),
+                                                                               scores[:n_real].copy())))
+        cpp_ms, got = host_median(lambda: ser.wrap([ser.serialize_batch(p, s) for p, s in batches]))
+        ref_ms, want = host_median(lambda: ser.wrap([ser.serialize_batch_ref(p, s) for p, s in batches]))
+        if bytes(got) != bytes(want):
+            raise AssertionError(f"phase14a {name}: the C++ payload differs from the plain version's")
+        dtypes = sorted({str(s.dtype) for _, s in batches})
+        out[name] = {"questions": n, "batches": len(batches), "payload_mb": got.nbytes / 1e6,
+                     "score_dtypes": dtypes, "cpp_ms": cpp_ms, "plain_ms": ref_ms}
+        log(f"[phase14a] serialize + wrap, {n} questions x top-{TOPK} ({len(batches)} batches, "
+            f"{got.nbytes / 1e6:.2f} MB, scores {dtypes}): C++ {cpp_ms:.3f} ms, plain {ref_ms:.3f} ms "
+            f"({ref_ms / cpp_ms:.1f}x), bytes equal [{label}; host {host_cpu()}]")
+
+    # one 144-question request of phase 2, split as PERF.md section 5 splits it
+    qs = questions[:B]
+    tok = searcher.tok
+
+    def encode():
+        with torch.inference_mode():
+            Qm = searcher.encode_queries(enc.input_ids, enc.attention_mask, enc.active_mask)
+        torch.cuda.synchronize()
+        return Qm
+
+    def scan():
+        with torch.inference_mode():
+            r = flat_scan_topk(Qm, searcher.emb_table, dv=searcher.flat_dv, num_docs=searcher.num_docs,
+                               topk=TOPK, score_dtype=searcher.score_dtype)
+        torch.cuda.synchronize()
+        return r
+
+    split = {}
+    split["tokenize_ms"], enc = host_median(lambda: tok.encode_queries(qs))
+    split["encode_ms"], Qm = host_median(encode)
+    split["scan_topk_ms"], (ts, tp) = host_median(scan)
+    split["to_host_ms"], (s_h, p_h) = host_median(lambda: (ts.cpu().numpy(), tp.cpu().numpy()))
+    split["serialize_ms"], _ = host_median(lambda: ser.wrap([ser.serialize_batch(p_h, s_h)]))
+    split["serialize_plain_ms"], _ = host_median(lambda: ser.wrap([ser.serialize_batch_ref(p_h, s_h)]))
+    split["request_ms"], _ = host_median(lambda: service.retrieve_pickled(qs, topk=TOPK))
+    out["split_144"] = split
+    log(f"[phase14a] one {B}-question flat request in process, ms: "
+        + ", ".join(f"{k[:-3]} {v:.3f}" for k, v in split.items()) + f" [{label}]")
+    searcher.close()
+    return out
+
+
+def _assign_and_pack(tag, cand, codes, K, label, plain_reps):
+    """balanced_assign and ivf_pack against their plain versions on one input."""
+    import numpy as np
+
+    from colbert_tpu_torch.ops import ivf
+
+    n = cand.shape[0]
+    cap = max(1, int(np.ceil(n / K * ASSIGN_FACTOR)))
+    cpp_ms, got = host_median(lambda: ivf.balanced_assign(cand, K, cap))
+    ref_ms, want = host_median(lambda: ivf.balanced_assign_ref(cand, K, cap), reps=plain_reps)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{tag}: balanced_assign differs from its plain version")
+    pack_ms, packed = host_median(lambda: ivf.ivf_pack(got, codes, K))
+    pack_ref_ms, packed_ref = host_median(lambda: ivf.ivf_pack_ref(got, codes, K), reps=3)
+    if not all(np.array_equal(a, b) and a.dtype == b.dtype for a, b in zip(packed, packed_ref)):
+        raise AssertionError(f"{tag}: ivf_pack differs from its plain version")
+    first = np.bincount(cand[:, 0], minlength=K)
+    lens = np.diff(packed[1])
+    out = {"rows": n, "lists": K, "candidates": cand.shape[1], "cap": cap, "code_width": codes.shape[1],
+           "code_dtype": str(codes.dtype), "spilled_from_first": int((got != cand[:, 0]).sum()),
+           "first_choice_max_list": int(first.max()), "max_list": int(lens.max()),
+           "balanced_assign_ms": cpp_ms, "balanced_assign_plain_ms": ref_ms,
+           "balanced_assign_plain_reps": plain_reps, "ivf_pack_ms": pack_ms, "ivf_pack_plain_ms": pack_ref_ms}
+    log(f"[{tag}] {n} rows, {K} lists, cap {cap}: balanced_assign C++ {cpp_ms:.3f} ms, plain {ref_ms:.1f} ms "
+        f"(median of {plain_reps}); ivf_pack ({codes.shape[1]} x {codes.dtype}) C++ {pack_ms:.3f} ms, plain "
+        f"{pack_ref_ms:.3f} ms; outputs equal; {out['spilled_from_first']} rows off their first candidate, "
+        f"list max {int(first.max())} -> {int(lens.max())} [{label}]")
+    return out
+
+
+def skewed_candidates(device, n, K, dim, kc, seed, chunk=1 << 18):
+    """(n, kc) nearest-centroid candidates of rows drawn around K random unit
+    centroids, topic ``floor(K u^1.3)`` for uniform u: the first list holds
+    ~K^0.23 times the mean (9.4x at 16,384 lists), so the first lists
+    overflow a cap near the mean and their rows spill down their candidates."""
+    import torch
+
+    g = torch.Generator(device).manual_seed(seed)
+    cent = torch.randn((K, dim), generator=g, device=device)
+    cent = (cent / cent.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    out = torch.empty((n, kc), dtype=torch.int32, device=device)
+    for lo in range(0, n, chunk):
+        m = min(chunk, n - lo)
+        topic = (torch.rand(m, generator=g, device=device) ** 1.3 * K).long().clamp_max(K - 1)
+        x = cent[topic].float() + torch.randn((m, dim), generator=g, device=device) / dim ** 0.5
+        out[lo : lo + m] = torch.topk(x.to(torch.bfloat16) @ cent.T, kc, dim=1).indices.int()
+    return out.cpu().numpy()
+
+
+def phase_host_build(device, label, cfg, seed=SEED):
+    """Phase 14b: balanced_assign and ivf_pack on phase 5b's rows and lists
+    (the pack also equal to the index phase 5b's build wrote) and at 3.2 M
+    rows, each against its plain version."""
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch.indexing.builder import auto_partitions
+    from colbert_tpu_torch.indexing.storage import IndexStorage
+    from colbert_tpu_torch.ops import ivf
+    from colbert_tpu_torch.ops.kmeans import nearest_centroids
+
+    storage = IndexStorage(cfg.index.index_path)
+    stored = storage.read_ivf()
+    K = stored["coarse_centroids"].shape[0]
+    perm = stored["row_emb"].astype(np.int64)
+    n = perm.shape[0]
+    # the build's inputs, in row order: each row's list and code
+    assign = np.empty(n, np.int32)
+    assign[perm] = np.repeat(np.arange(K, dtype=np.int32), np.diff(stored["offsets"]))
+    codes = np.empty_like(stored["codes"])
+    codes[perm] = stored["codes"]
+    cent = torch.from_numpy(stored["coarse_centroids"]).to(device)
+    cand = np.concatenate([
+        nearest_centroids(torch.from_numpy(np.asarray(storage.read_part(p))).to(device), cent,
+                          ASSIGN_CANDIDATES).cpu().numpy() for p in storage.part_ids()])
+    out = {}
+    out["phase5b"] = _assign_and_pack("phase14b", cand, codes, K, label, plain_reps=3)
+    repacked = ivf.ivf_pack(assign, codes, K)
+    for got, name in zip(repacked, ("row_emb", "offsets", "codes")):
+        if not np.array_equal(got, stored[name]) or got.dtype != stored[name].dtype:
+            raise AssertionError(f"phase14b: ivf_pack of phase 5b's lists differs from its stored {name}")
+    log(f"[phase14b] ivf_pack of phase 5b's rows by their stored lists is bit-equal to the stored index")
+
+    n_big = BIG_DOCS * 16
+    K_big = auto_partitions(n_big)
+    t0 = time.perf_counter()
+    cand_big = skewed_candidates(device, n_big, K_big, H, ASSIGN_CANDIDATES, seed)
+    g = torch.Generator(device).manual_seed(seed + 1)
+    codes_big = torch.randint(-127, 128, (n_big, SQ_DIM), generator=g, device=device,
+                              dtype=torch.int8).cpu().numpy()
+    log(f"[phase14b] {n_big} rows' candidates and codes drawn on the card in {time.perf_counter() - t0:.1f} s")
+    out["rows_3_2m"] = _assign_and_pack("phase14b", cand_big, codes_big, K_big, label, plain_reps=1)
+    return out
+
+
+def phase_host_flat_table(device, label, seed=SEED):
+    """Phase 14c: ``build_flat_table`` once at 200,000 docs x 16 rows x 768
+    from fp16 on the host, bf16 and int8 (torch's CPU conversions: the port
+    has no counterpart of the JAX package's fp16 helpers)."""
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch.ops import flat_scan as fs
+
+    rows = BIG_DOCS * 16
+    emb = unit_rows_bf16(rows, H, device, seed).to(torch.float16).cpu().numpy()
+    doclens = np.full(BIG_DOCS, 16)
+    out = {"docs": BIG_DOCS, "rows": rows, "dim": H, "fp16_gb": emb.nbytes / 1e9, **host_cpu()}
+    for dtype in ("bfloat16", "int8"):
+        t0 = time.perf_counter()
+        table, inv, _ = fs.build_flat_table(emb, doclens, dtype=dtype)
+        out[f"{dtype}_s"] = time.perf_counter() - t0
+        if table.shape[0] < rows or (dtype == "int8") != (inv is not None):
+            raise AssertionError(f"phase14c: a {dtype} table of shape {tuple(table.shape)}")
+        del table
+    log(f"[phase14c] build_flat_table at {BIG_DOCS} docs x 16 x {H} from fp16 ({out['fp16_gb']:.2f} GB): "
+        f"bf16 {out['bfloat16_s']:.2f} s, int8 {out['int8_s']:.2f} s (torch CPU, {out['torch_threads']} "
+        f"threads of {out['cpu_count']} cores) [{label}]")
+    return out
+
+
+def phase14_alone(device, label):
+    """Phase 14 with the set-up it needs: phase 2's encoded corpus and flat
+    index, phase 5b's sq index."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_host_") as tmp:
+        ctx = encoded_corpus(device, Path(tmp), label)
+        out = {"serialize": phase_host_serialize(device, label, ctx)}
+        (Path(tmp) / "bench").mkdir()
+        cfg = bench_index(device, Path(tmp) / "bench", n_batches=1)[0]
+        out["build"] = phase_host_build(device, label, cfg)
+    out["flat_table"] = phase_host_flat_table(device, label)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5688,6 +5952,8 @@ def main() -> int:
     ap.add_argument("--phase13", action="store_true",
                     help="phase 13 (tensor parallelism, mesh.model = 2: on two cards where there are, else one "
                          "card holds both positions) alone")
+    ap.add_argument("--phase14", action="store_true",
+                    help="phase 14 (the host runtime against its plain versions) alone, with the set-up it needs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -5714,8 +5980,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    if args.phase10 or args.phase9 or args.phase12 or args.phase13:
-        if args.phase13:
+    if args.phase10 or args.phase9 or args.phase12 or args.phase13 or args.phase14:
+        if args.phase14:
+            out = {"host_runtime": phase14_alone(device, label)}
+        elif args.phase13:
             out = {"phase13": phase_tp(device, label)}
         elif args.phase12:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_minilm_") as tmp:
@@ -5743,6 +6011,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         serve_launches, _, ann_launches, codec_launches, k7_deep, ctx = phase_slice(device, Path(tmp), label)
         ragged_cli, sharded_flat = ctx["ragged_cli"], ctx["sharded_flat"]
+        t14 = time.perf_counter()
+        host_runtime = {"serialize": phase_host_serialize(device, label, ctx)}
+        t14 = time.perf_counter() - t14
         t0 = time.perf_counter()
         dense = phase_dense(device, Path(tmp), label, ctx)
         t11 += time.perf_counter() - t0
@@ -5774,6 +6045,9 @@ def main() -> int:
         minilm = phase_minilm(device, Path(tmp), label)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ann_") as tmp:
         ann_kernels, ann_info = phase_ann(device, Path(tmp), label)
+        t0 = time.perf_counter()
+        host_runtime["build"] = phase_host_build(device, label, ann_info["config"])
+        t14 += time.perf_counter() - t0
         sharded_ann = phase_sharded_ann(device, label, ann_info)
         codec_kernels, _ = phase_codecs(device, Path(tmp), label, ann_info)
         ragged = phase_ragged(device, Path(tmp), label, uniform_cfg=ann_info["config"])
@@ -5784,6 +6058,10 @@ def main() -> int:
     log(f"[phase11] flash at fp32 (11a) {sum(1 for _ in flash_fp32)} shapes, fp32 train (11b), the model options "
         f"(11c), DPR (11d) and real text (11e) took {t11:.1f} s")
     tp = phase_tp(device, label)
+    t0 = time.perf_counter()
+    host_runtime["flat_table"] = phase_host_flat_table(device, label)
+    host_runtime["s"] = t14 + time.perf_counter() - t0
+    log(f"[phase14] the host runtime's comparisons took {host_runtime['s']:.1f} s")
 
     log(f"[phase10] sharded flat {sharded_flat['s']:.1f} s, sharded ANN {sharded_ann['s']:.1f} s, train under a "
         f"launch {launch_train['s']:.1f} s: {sharded_flat['s'] + sharded_ann['s'] + launch_train['s']:.1f} s")
@@ -6076,6 +6354,7 @@ def main() -> int:
     by_name["K1 flat_scan_fused"]["tensor_parallel_launches"] = tp["serve"]["serve_launches"]["K1"]
     log(json.dumps({"phase11": {"model_options": options, "dense": dense, "real_text": real_text, "s": t11}}))
     log(json.dumps({"phase13": {k: v for k, v in tp.items() if k != "k9"}}, default=str))
+    log(json.dumps({"host_runtime": host_runtime}))
     log(label)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

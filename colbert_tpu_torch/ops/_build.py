@@ -1,11 +1,13 @@
-"""Build and load the port's CUDA kernels: nvcc -> shared library -> ctypes.
+"""Build and load the port's native code: nvcc or g++ -> shared library -> ctypes.
 
 Each ``csrc/<name>.cu`` compiles, with a plain C interface, into
 ``colbert_tpu_torch/_build/<name>-<hash>.so`` at first use.  The hash covers
 the sources' contents and the flags, never their modification times: a
 checkout sets mtimes arbitrarily, so an mtime rule can load a stale library.
 :func:`load_libraries` starts one nvcc per missing library, all at once.
-A failed build raises with nvcc's stderr.
+The host runtime, ``csrc/<name>.cpp``, builds the same way with g++
+(:func:`load_host_library`); its hash also covers the compiler's version.
+A failed build raises with the compiler's stderr.
 """
 
 from __future__ import annotations
@@ -27,8 +29,14 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
+#: g++ flags of the host runtime: a baseline ISA, so that the library runs on
+#: any x86-64 host (these loops are bound by memcpy, not by vector width)
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_host_lock = threading.Lock()
+_host_libs: Dict[Path, ctypes.CDLL] = {}
 #: ptxas report (registers, shared memory, spills) of each library built here
 build_logs: Dict[str, str] = {}
 
@@ -107,3 +115,40 @@ def load_libraries(*names: str) -> List[ctypes.CDLL]:
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its content hash has no library yet, then load it."""
     return load_libraries(name)[0]
+
+
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: the port's host runtime (csrc/*.cpp) builds with g++")
+    return found
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cpp`` with g++ if its content hash (the source,
+    the flags and the compiler's version line) has no library yet, then load
+    it.  Processes and threads may build at once: each writes its own
+    temporary file and renames it into place."""
+    gxx = _gxx()
+    version = subprocess.run([gxx, "--version"], capture_output=True, text=True)
+    if version.returncode != 0:
+        raise RuntimeError(f"{gxx} --version failed with code {version.returncode}:\n{version.stderr}")
+    src = CSRC / f"{name}.cpp"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(GXX_FLAGS).encode())
+    h.update((version.stdout.splitlines() or [""])[0].encode())
+    so = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    with _host_lock:
+        lib = _host_libs.get(so)
+        if lib is not None:
+            return lib
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+            proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp), str(src)], capture_output=True, text=True)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"g++ failed with code {proc.returncode} building {src.name}:\n{proc.stderr}")
+            os.replace(tmp, so)  # atomic: a concurrent process sees all or nothing
+        lib = _host_libs[so] = ctypes.CDLL(str(so))
+        return lib

@@ -1,7 +1,8 @@
 """IVF layout, the sq and pq probes and the candidate dedups.
 
-Counterpart of ``colbert_tpu/ops/ivf.py`` (and the numpy paths of
-``colbert_tpu/native/lib.py``'s ``ivf_pack`` / ``balanced_assign``).
+Counterpart of ``colbert_tpu/ops/ivf.py``; the index build's CSR pack and
+balanced assignment run in the port's C++ host runtime
+(``colbert_tpu_torch/native``), with numpy/Python plain versions beside them.
 Embeddings are stored flat, sorted by IVF list (CSR):
 
     codes_sorted : (N, width)  codes  rows grouped by list
@@ -22,6 +23,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from colbert_tpu_torch import native
 from colbert_tpu_torch.ops.pq import adc_lut
 from colbert_tpu_torch.ops.sq import sq_query
 from colbert_tpu_torch.ops.sq_probe import _window_topk, sq_window_topk, topk_first  # noqa: F401 (re-exported)
@@ -47,7 +49,19 @@ def sort_by_list(assignments: np.ndarray, num_lists: int) -> Tuple[np.ndarray, n
 
 def ivf_pack(assignments: np.ndarray, codes: np.ndarray, num_lists: int
              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(perm (N,) int32, offsets (K+1,) int32, codes sorted by list)."""
+    """(perm (N,) int32, offsets (K+1,) int32, codes sorted by list): the C++
+    counting sort.  ``codes`` of any one-byte dtype (sq's int8, pq's and
+    pq4's uint8) pass through as bytes and come back in their own dtype."""
+    codes = np.ascontiguousarray(codes)
+    if codes.dtype.itemsize != 1:
+        raise ValueError(f"codes must have a one-byte dtype, got {codes.dtype}")
+    perm, offsets, packed = native.ivf_pack(assignments, codes.view(np.uint8), num_lists)
+    return perm, offsets, packed.view(codes.dtype)
+
+
+def ivf_pack_ref(assignments: np.ndarray, codes: np.ndarray, num_lists: int
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """:func:`ivf_pack` by a stable argsort and a gather."""
     perm, offsets = sort_by_list(np.ascontiguousarray(assignments, np.int32), num_lists)
     return perm.astype(np.int32), offsets, np.ascontiguousarray(codes)[perm]
 
@@ -56,7 +70,13 @@ def balanced_assign(candidates: np.ndarray, num_lists: int, cap: int) -> np.ndar
     """Capacity-constrained assignment from per-point nearest-centroid
     candidates (N, kc), best first: each point, in order, takes its first
     candidate with fewer than ``cap`` rows; a point with none spills, after
-    the pass, to the least-filled list (the earliest on a tie)."""
+    the pass, to the least-filled list (the earliest on a tie).  The C++
+    loop; :func:`balanced_assign_ref` is the plain version."""
+    return native.balanced_assign(candidates, num_lists, cap)
+
+
+def balanced_assign_ref(candidates: np.ndarray, num_lists: int, cap: int) -> np.ndarray:
+    """:func:`balanced_assign` in Python."""
     candidates = np.ascontiguousarray(candidates, np.int32)
     n = candidates.shape[0]
     out = np.empty(n, np.int32)

@@ -96,14 +96,15 @@ class RetrievalService:
         return out
 
     def retrieve_pickled(self, questions: Sequence[str], topk: Optional[int] = None,
-                         depth: Optional[int] = None, nprobe: Optional[int] = None) -> bytes:
+                         depth: Optional[int] = None, nprobe: Optional[int] = None) -> np.ndarray:
         """Same result as :meth:`retrieve`, already serialized as the pickle
-        payload ``conn.recv()`` expects."""
+        payload ``conn.recv()`` expects (a uint8 array: a bytes-like that
+        ``conn.send_bytes`` takes as it is)."""
         with self._ser_lock:
             if self._serializer is None:
                 self._serializer = TripleSerializer(self.corpus)
         ser = self._serializer
-        chunks: List[bytes] = []
+        chunks: List[np.ndarray] = []
         self._retrieve_batches(
             questions, topk, depth, nprobe,
             lambda pids, scores, n_real: chunks.append(
