@@ -207,12 +207,14 @@ seed:
   ``F.scaled_dot_product_attention`` with the boolean segment mask (a
   yardstick the port never calls; also its backward alone, dq, dk and dv
   from one call, on the fastest of the cuDNN and memory-efficient
-  backends, named); then at head dims 32 ((68, 12, 384, 32), the
-  MiniLM-L12-H384 width's doc pass) and 128 ((68, 8, 384, 128)), bf16 and
-  fp16 on route "wgmma" (route "simple" stays at 64): the wrapper's forward
-  and backward and the autograd function against the plain path, under the
-  same limits, twice (bit-equal), di and 1 / l as above, every launch at
-  that head dim; K11, K12, K13 and the rows kernel timed cold (bf16)
+  backends, named); then at head dims 32 and 26 ((68, 12, 384, hd), the
+  MiniLM-L12-H384 and TinyBERT-4L-zh widths' doc passes), 80, 96 and 128
+  ((68, 8, 384, hd); 26, 80 and 96 on the 32 and 128 templates, 26 read
+  by the kernels' own copies), bf16 and fp16 on route "wgmma" (route
+  "simple" stays at 64): the wrapper's forward and backward and the
+  autograd function against the plain path, under the same limits, twice
+  (bit-equal), di and 1 / l as above, every launch at that head dim and
+  on its template; K11, K12, K13 and the rows kernel timed cold (bf16)
   beside their bounds, the plain versions and SDPA (forward; backward
   alone);
   (b) after phase 4: ``train`` with flash at phase 4's configuration, 5
@@ -323,7 +325,7 @@ seed:
   that bound), rows + K12 + K13, the plain versions and
   ``F.scaled_dot_product_attention`` at fp32 with the boolean mask
   (forward, forward + backward, its backward alone), in the same run; the
-  same at head dims 32 ((68, 12, 384, 32)) and 128 ((68, 8, 384, 128));
+  same at phase 8a's head dims 32, 26, 80, 96 and 128;
   (b) after phase 4, at its configuration: 3 train steps at
   ``model.dtype=float32`` with flash against the explicit fp32 path, both
   dropping the attention output (the site flash takes): each loss within
@@ -387,6 +389,15 @@ seed:
   ties within twice the largest score change the reps make; (d) one CE
   step at model 2 against model 1 (loss within 2e-2).  ``--phase13`` runs
   it alone.
+
+* phase 15, phase 12's path at huawei-noah/TinyBERT_4L_zh's widths
+  (hidden 312, 4 layers, 12 heads of head dim 26, intermediate 1200,
+  vocab 21,128, ColBERT dim 128; bf16, flash, seeded weights), after phase
+  12: ``train`` (9 steps at batch 34, learning rate 1e-4, resumed), the
+  loss finite and falling, ``encode`` of phase 2's 20,000 passages, flat
+  ``serve`` of phase 2's requests checked as phase 2's; every K11, K12 and
+  K13 launch on route "wgmma" at head dim 26 and on the 32 template.
+  ``--phase12`` runs it too.
 
 * phase 14, the host runtime (``csrc/native.cpp``, built with g++; host
   clock, medians of 5 unless said): (a) after phase 2, on its flat service
@@ -482,7 +493,10 @@ def counters():
             "flash rows": fa.rows_launches, "flash rows fp32": fa.rows_fp32_launches,
             **{f"{kname} hd{hd}": c[hd] for kname, c in (("K11", fa.fwd_head_dim_launches),
                                                           ("K12", fa.dkv_head_dim_launches),
-                                                          ("K13", fa.dq_head_dim_launches)) for hd in fa.HEAD_DIMS}}
+                                                          ("K13", fa.dq_head_dim_launches)) for hd in FLASH_HEAD_DIMS},
+            **{f"{kname} template{t}": c[t] for kname, c in (("K11", fa.fwd_template_launches),
+                                                              ("K12", fa.dkv_template_launches),
+                                                              ("K13", fa.dq_template_launches)) for t in fa.HEAD_DIMS}}
 
 
 def reset_counts() -> None:
@@ -3027,6 +3041,7 @@ def phase_second_stage(device, workdir: Path, label: str, ctx: dict, model_kw=No
 # ---- phase 8: the flash-attention path (K11-K13) and remat ----
 
 FLASH_SCALE = 0.125               # 1 / sqrt(64): the models' head dim
+FLASH_HEAD_DIMS = (26, 32, 64, 80, 96, 128)  # head dims counted by name: the script's cases (templates: fa.HEAD_DIMS)
 FLASH_HEAD_ULPS = 2               # bf16 ulps of an element's head vector (its row of 64)
 FLASH_ELEMENT_SHARE = 1e-3        # elements allowed beyond 2 ulps of their own magnitude
 L2_BYTES = 50 * 2**20             # the card's L2
@@ -3076,15 +3091,19 @@ def di_within_fp32(got, o, do):
 def sdpa_backward_alone(q, k, v, mask, do, scale=FLASH_SCALE):
     """SDPA's backward alone (dq, dk and dv from one call), the yardstick of
     K12 + K13 with the rows kernel: for each of the backends that take a
-    boolean mask, its forward once and its backward timed on that graph; the
-    fastest as (ms, backend name), with every backend's time or why it did not run."""
+    boolean mask (cuDNN, memory-efficient; the math backend where neither
+    takes the shape), its forward once and its backward timed on that graph;
+    the fastest as (ms, backend name), with every backend's time or why it
+    did not run."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     tried = {}
-    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION):
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        if backend == SDPBackend.MATH and any(isinstance(t, float) for t in tried.values()):
+            break  # the explicit product, only where neither fused backend takes the shape (hd 26)
         try:
             with sdpa_kernel([backend]):
                 out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=scale)
@@ -3395,23 +3414,32 @@ def phase_flash_kernels(device, workdir: Path, label, seed=SEED, shapes=None):
     return out
 
 
-def phase_flash_head_dims(device, workdir: Path, label, seed=SEED):
-    """Phase 8a at the head dims but 64: 32 at the MiniLM-L12-H384-width
-    retriever's doc pass (68, 12, 384, 32) and 128 at (68, 8, 384, 128), the
-    retriever's segment lengths."""
+# phase 8a's and 11a's head dims but 64, each with its heads: 32 and 26 at the
+# MiniLM-L12-H384- and TinyBERT-4L-zh-width retrievers' doc passes (12
+# heads), 80, 96 and 128 at 8 heads (on the 128 template; 80 and 96 read by
+# the tensor maps, 26 by the kernels' own copies)
+FLASH_CASES = ((32, 12), (26, 12), (80, 8), (96, 8), (128, 8))
+
+
+def phase_flash_head_dims(device, workdir: Path, label, seed=SEED, cases=FLASH_CASES):
+    """Phase 8a at the head dims but 64 (``cases``: (head dim, heads)) at
+    (68, nh, 384, hd), the retriever's segment lengths."""
     lengths = synthetic_doc_lengths(68, seed + 3, workdir)
     t0 = time.perf_counter()
     out = {hd: flash_case(device, f"hd{hd}", 68, nh, lengths, seed + 29 + hd, True, label, hd=hd)
-           for hd, nh in ((32, 12), (128, 8))}
-    log(f"[phase8a] K11-K13 at head dims 32 and 128 checked and timed in {time.perf_counter() - t0:.1f} s")
+           for hd, nh in cases}
+    log(f"[phase8a] K11-K13 at head dims {[hd for hd, _ in cases]} checked and timed in "
+        f"{time.perf_counter() - t0:.1f} s")
     return out
 
 
 def flash_launches_ok(launches, want, what, route="wgmma", head_dim=None):
     """K11-K13's launches as ``want`` says, each all on ``route`` ("wgmma" for
     bf16 and fp16, "tf32" for fp32) and, with ``head_dim``, all at that head
-    dim, and the backward's rows kernel (di, 1 / l) once a K12 launch, on its
-    fp32 route for fp32."""
+    dim (none at the other head dims counted by name) and on its template
+    (none on the others: so none at an uncounted head dim either), and the
+    backward's rows kernel (di, 1 / l) once a K12 launch, on its fp32 route
+    for fp32."""
     from colbert_tpu_torch.ops import flash_attention as fa
 
     want = dict(want)
@@ -3420,8 +3448,10 @@ def flash_launches_ok(launches, want, what, route="wgmma", head_dim=None):
             for r in ("wgmma", "simple", "tf32"):
                 want[f"{kname} {r} route"] = want[kname] if r == route else 0
             if head_dim is not None:
-                for hd in fa.HEAD_DIMS:
+                for hd in FLASH_HEAD_DIMS:
                     want[f"{kname} hd{hd}"] = want[kname] if hd == head_dim else 0
+                for t in fa.HEAD_DIMS:
+                    want[f"{kname} template{t}"] = want[kname] if t == fa.template_head_dim(head_dim) else 0
     if "K12" in want:
         want["flash rows"] = want["K12"]
         want["flash rows fp32"] = want["K12"] if route == "tf32" else 0
@@ -4593,9 +4623,11 @@ def flash_fp32_case(device, name, B, nh, lengths, seed, label, hd=64):
     after = read_counts()
     launched = {key: after[key] - before[key] for key in after
                 if key.startswith(("K11 ", "K12 ", "K13 ", "flash rows"))}
+    tpl = fa.template_head_dim(hd)
     want_launched = {key: 0 for key in launched} | {"K11 tf32 route": 3, "K12 tf32 route": 4, "K13 tf32 route": 4,
                                                      "flash rows": 2, "flash rows fp32": 2, f"K11 hd{hd}": 3,
-                                                     f"K12 hd{hd}": 4, f"K13 hd{hd}": 4}
+                                                     f"K12 hd{hd}": 4, f"K13 hd{hd}": 4, f"K11 template{tpl}": 3,
+                                                     f"K12 template{tpl}": 4, f"K13 template{tpl}": 4}
     stable = all(torch.equal(a, b) for a, b in zip((o, l, m, dk, dv, dq), again))
     autograd_same = torch.equal(out, o) and all(torch.equal(t.grad, w)
                                                 for t, w in zip(leaves, (own_dq, own_dk, own_dv)))
@@ -4745,15 +4777,15 @@ def phase_flash_fp32(device, workdir: Path, label, seed=SEED, shapes=None):
     return out
 
 
-def phase_flash_fp32_head_dims(device, workdir: Path, label, seed=SEED):
-    """Phase 11a at the head dims but 64: route "tf32" at 32 (the
-    MiniLM-L12-H384-width retriever's doc pass, (68, 12, 384, 32)) and at 128
-    ((68, 8, 384, 128)), the retriever's segment lengths."""
+def phase_flash_fp32_head_dims(device, workdir: Path, label, seed=SEED, cases=FLASH_CASES):
+    """Phase 11a at the head dims but 64 (``cases``, as phase 8a's): route
+    "tf32" at (68, nh, 384, hd), the retriever's segment lengths."""
     lengths = synthetic_doc_lengths(68, seed + 3, workdir)
     t0 = time.perf_counter()
     out = {hd: flash_fp32_case(device, f"hd{hd}", 68, nh, lengths, seed + 31 + hd, label, hd=hd)
-           for hd, nh in ((32, 12), (128, 8))}
-    log(f"[phase11a] flash at fp32 at head dims 32 and 128 checked and timed in {time.perf_counter() - t0:.1f} s")
+           for hd, nh in cases}
+    log(f"[phase11a] flash at fp32 at head dims {[hd for hd, _ in cases]} checked and timed in "
+        f"{time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -5106,17 +5138,43 @@ MINILM_MODEL = dict(vocab_size=250037, hidden_size=384, num_layers=12, num_heads
 MINILM_LR = 1e-4  # phase 12's learning rate: at the default 3e-5, 5 steps moved its loss by less than the batches' spread
 
 
+# ---- phase 15: a TinyBERT-4L-zh-width retriever on flash at head dim 26 ----
+
+# huawei-noah/TinyBERT_4L_zh's published config.json: BertModel, hidden 312,
+# 4 layers, 12 heads (head dim 26: not a multiple of 8, a head's bf16 row 52
+# bytes, so the flash kernels copy its rows themselves), intermediate 1200,
+# 512 positions, type vocab 2, vocab 21,128 (configs/dureader.yaml's
+# chinese-bert-wwm-ext vocab).  Weights a seeded init, as phase 12's; the
+# ColBERT projection is ColBERT's default 128 (the flat scan takes a dim that
+# is a multiple of 16, which 312 is not).
+TINYBERT_MODEL = dict(vocab_size=21128, hidden_size=312, num_layers=4, num_heads=12, intermediate_size=1200,
+                      max_position_embeddings=512, type_vocab_size=2, layer_norm_eps=1e-12, dim=128)
+TINYBERT_LR = 1e-4  # phase 15's learning rate, phase 12's
+
+
 def phase_minilm(device, workdir: Path, label, steps=9):
-    """Phase 12: the MiniLM-L12-H384-width retriever (``MINILM_MODEL``, bf16,
+    """Phase 12: :func:`phase_retriever` at the MiniLM-L12-H384 widths (head dim 32)."""
+    return phase_retriever(device, workdir, label, MINILM_MODEL, MINILM_LR, "phase12", "MiniLM-L12-H384",
+                           steps=steps)
+
+
+def phase_tinybert(device, workdir: Path, label, steps=9):
+    """Phase 15: :func:`phase_retriever` at the TinyBERT-4L-zh widths (head dim 26)."""
+    return phase_retriever(device, workdir, label, TINYBERT_MODEL, TINYBERT_LR, "phase15", "TinyBERT-4L-zh",
+                           steps=steps)
+
+
+def phase_retriever(device, workdir: Path, label, model, lr, tag, what, steps=9, num_docs=20_000):
+    """A retriever at a published model's widths (``model``, bf16,
     ``attention_impl="flash"``) through the entry points: the CLI's
-    ``train`` at batch 34 (phase 4's data, learning rate ``MINILM_LR``;
+    ``train`` at batch 34 (phase 4's data, learning rate ``lr``;
     ``steps`` steps, evaluations, checkpoints and the resume, as phase 8b),
     the loss finite and falling (the last three steps' mean under the first
     three's, and the last step's under the first's);
-    ``encode`` of phase 2's 20,000-passage corpus; ``serve`` (flat) answering
+    ``encode`` of phase 2's corpus (``num_docs`` passages); ``serve`` (flat) answering
     phase 2's requests, checked as phase 2 checks them.  Every K11, K12 and
-    K13 launch is on route "wgmma" at head dim 32.  Logs ms/step, docs/s and
-    peak device memory."""
+    K13 launch is on route "wgmma" at the model's head dim (and its
+    template).  Logs ms/step, docs/s and peak device memory under ``tag``."""
     import torch
 
     from colbert_tpu_torch import cli
@@ -5125,30 +5183,30 @@ def phase_minilm(device, workdir: Path, label, steps=9):
     from colbert_tpu_torch.serving.server import RetrievalClient
 
     t_all = time.perf_counter()
-    flash = {**MINILM_MODEL, "attention_impl": "flash"}
+    flash = {**model, "attention_impl": "flash"}
     hd = flash["hidden_size"] // flash["num_heads"]
-    (workdir / "train").mkdir()
+    (workdir / "train").mkdir(parents=True)
     (workdir / "serve").mkdir()
-    launches, train = phase_train(device, workdir / "train", label, model_kw=MINILM_MODEL, steps=steps,
-                                  attention_impl="flash", tag="phase12", train_kw={"learning_rate": MINILM_LR})
+    launches, train = phase_train(device, workdir / "train", label, model_kw=model, steps=steps,
+                                  attention_impl="flash", tag=tag, train_kw={"learning_rate": lr})
     layers, n_dev, batch = flash["num_layers"], 40, 34
     evals = len([s for s in range(1, steps + 1) if s % (steps // 2) == 0])
     flash_launches_ok(launches, {"K11": layers * (steps + evals * -(-n_dev // batch)), "K12": layers * steps,
-                                 "K13": layers * steps}, "phase 12's train", head_dim=hd)
+                                 "K13": layers * steps}, f"{tag}'s train", head_dim=hd)
     losses = train["losses"]
     if not (sum(losses[-3:]) < sum(losses[:3]) and losses[-1] < losses[0]):
-        raise AssertionError(f"phase 12's train loss did not fall: {losses}")
+        raise AssertionError(f"{tag}'s train loss did not fall: {losses}")
 
     torch.cuda.reset_peak_memory_stats(device)
     reset_counts()
-    corpus = encoded_corpus(device, workdir / "serve", label, model_kw=flash, tag="phase12")
+    corpus = encoded_corpus(device, workdir / "serve", label, num_docs=num_docs, model_kw=flash, tag=tag)
     torch.cuda.synchronize()
     encoded = read_counts()
     enc_peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     cfg, docs, n = corpus["cfg"], corpus["docs"], len(corpus["docs"])
     parts, per = cfg.index.num_parts, cfg.index.encode_batch_size
     batches = sum(-(-((p + 1) * n // parts - p * n // parts) // per) for p in range(parts))
-    flash_launches_ok(encoded, {"K11": layers * batches, "K12": 0, "K13": 0}, "phase 12's encode", head_dim=hd)
+    flash_launches_ok(encoded, {"K11": layers * batches, "K12": 0, "K13": 0}, f"{tag}'s encode", head_dim=hd)
     docs_s = n / corpus["enc_s"]
 
     serve_err = []
@@ -5158,7 +5216,7 @@ def phase_minilm(device, workdir: Path, label, steps=9):
             cli.main(["serve", "--corpus", str(corpus["corpus_path"]), *corpus["common"]])
         except BaseException as e:  # noqa: BLE001 -- reported by the main thread
             serve_err.append(e)
-    server = threading.Thread(target=serve, daemon=True, name="serve-minilm")
+    server = threading.Thread(target=serve, daemon=True, name=f"serve-{tag}")
     server.start()
     wait_for_server(cfg, serve_err)
     client = RetrievalClient(cfg.serve.host, cfg.serve.port, cfg.serve.authkey.encode())
@@ -5177,17 +5235,19 @@ def phase_minilm(device, workdir: Path, label, steps=9):
                                device=device)
     worst, recall = check_flat_answers(corpus["requests"], [[a] for a in answers], searcher, docs)
     if worst > SCORE_ATOL or served["K1"] != len(corpus["requests"]):
-        raise AssertionError(f"phase 12's serve: scores off by {worst}, K1 launches {served['K1']}")
-    out = {"model": dict(MINILM_MODEL), "head_dim": hd, "train": {
+        raise AssertionError(f"{tag}'s serve: scores off by {worst}, K1 launches {served['K1']}")
+    out = {"model": dict(model), "head_dim": hd, "train": {
                "ms_step": train["ms_step"], "losses": losses, "peak_gb": train["peak_gb"],
                "launches": {k: n for k, n in launches.items()
-                            if k in ("K11", "K12", "K13", "K9", "K3", "flash rows") or " hd" in k}},
+                            if k in ("K11", "K12", "K13", "K9", "K3", "flash rows") or " hd" in k
+                            or " template" in k}},
            "encode": {"docs_s": docs_s, "docs": n, "peak_gb": enc_peak_gb,
                       "launches": {k: encoded[k] for k in ("K11", "K12", "K13")}},
            "serve": {"request_ms": [1e3 * x for x in lat], "max_abs_err": worst, "recall": recall,
                      "launches": served["K1"]},
            "s": time.perf_counter() - t_all}
-    log(f"[phase12] MiniLM-L12-H384 width (hidden 384, 12 layers, 12 heads of {hd}), bf16, flash: train "
+    log(f"[{tag}] {what} width (hidden {model['hidden_size']}, {layers} layers, {model['num_heads']} heads of "
+        f"{hd}), bf16, flash: train "
         f"{train['ms_step']:.1f} ms/step at batch 34, losses {[round(x, 4) for x in losses]}, peak "
         f"{train['peak_gb']:.2f} GB; encode {n} docs at {docs_s:.1f} docs/s, peak {enc_peak_gb:.2f} GB; serve "
         f"{len(lat)} requests of {B} questions top-{TOPK} in {[round(1e3 * x, 1) for x in lat]} ms, scores vs the "
@@ -5948,7 +6008,7 @@ def main() -> int:
     ap.add_argument("--phase9", action="store_true",
                     help="phases 9b, 9d and 9a alone (ragged corpora, the host table), with the set-up they need")
     ap.add_argument("--phase12", action="store_true",
-                    help="phase 12 and phases 8a and 11a at head dims 32 and 128 alone")
+                    help="phases 12 and 15 and phases 8a and 11a at the head dims but 64 alone")
     ap.add_argument("--phase13", action="store_true",
                     help="phase 13 (tensor parallelism, mesh.model = 2: on two cards where there are, else one "
                          "card holds both positions) alone")
@@ -5989,7 +6049,8 @@ def main() -> int:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_minilm_") as tmp:
                 out = {"phase8a_head_dims": phase_flash_head_dims(device, Path(tmp), label),
                        "phase11a_head_dims": phase_flash_fp32_head_dims(device, Path(tmp), label),
-                       "phase12": phase_minilm(device, Path(tmp), label)}
+                       "phase12": phase_minilm(device, Path(tmp) / "minilm", label),
+                       "phase15": phase_tinybert(device, Path(tmp) / "tinybert", label)}
         else:
             out = {"phase10": phase10_alone(device, label)} if args.phase10 else {"phase9": phase9_alone(device, label)}
         log(label)
@@ -6043,6 +6104,8 @@ def main() -> int:
     log(f"[phase8] the flash path and remat took {t8:.1f} s")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_minilm_") as tmp:
         minilm = phase_minilm(device, Path(tmp), label)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tinybert_") as tmp:
+        tinybert = phase_tinybert(device, Path(tmp), label)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ann_") as tmp:
         ann_kernels, ann_info = phase_ann(device, Path(tmp), label)
         t0 = time.perf_counter()
@@ -6305,8 +6368,10 @@ def main() -> int:
     kernels[-6]["flash_ce"] = {key: flash_ce[key] for key in ("ms_step", "peak_gb")}
     kernels[-6]["remat_peak_gb"] = {k: r["peak_gb"] for k, r in remat.items()}
     kernels[-6]["explicit_repeat"] = {key: repeat[key] for key in ("losses", "parameters", "s")}
-    # K11-K13 by head dim, route "wgmma": 32 on phase 12's path (its train run's launches; its encode's
-    # beside), 128 in phase 8a only (no configuration the port ships has head dim 128: its train run counts 0)
+    # K11-K13 by head dim, route "wgmma": 32 on phase 12's path and 26 on phase 15's (each its train run's
+    # launches; its encode's beside), 80, 96 and 128 in phase 8a only (no configuration the port ships has
+    # them: phase 12's train run counts 0 there)
+    paths = {32: ("MiniLM-L12-H384", minilm), 26: ("TinyBERT-4L-zh", tinybert)}
     bf16_flash = kernels[-6:-3]
     for i, (kname, line, what) in enumerate((("K11", 758, ("o",)), ("K12", 1121, ("dk", "dv")),
                                              ("K13", 1456, ("dq",)))):
@@ -6317,28 +6382,31 @@ def main() -> int:
             "max_abs_err": max(x[w]["max_abs_err"] for w in what for x in (r, r["float16"])),
             "head_ulps": {dt: max(x[w]["head_ulps"] for w in what) for dt, x in (("bfloat16", r),
                                                                                   ("float16", r["float16"]))},
-            "launches": minilm["train"]["launches"][f"{kname} hd{hd}"]}
+            "launches": paths.get(hd, paths[32])[1]["train"]["launches"][f"{kname} hd{hd}"],
+            "template": fa.template_head_dim(hd)}
             | ({"rows_ms": r["ms"]["rows"], "rows_bound_ms": r["bound"]["rows"][0]} if kname == "K12" else {})
             for hd, r in flash_hd.items()}
         bf16_flash[i]["by_head_dim"] = by_hd
-        r = flash_hd[32]
-        kernels.append({
-            "name": f"{bf16_flash[i]['name']}, head dim 32", "route": "cuda",
-            "source": "colbert_tpu_torch/csrc/flash_attention.cu",
-            "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line} (jax 0.9.0, head dim 32; "
-                        "reached from colbert_tpu/models/bert.py:185-193)",
-            "launches": by_hd["32"]["launches"], "max_abs_err": by_hd["32"]["max_abs_err"],
-            "ms": r["ms"][kname], "plain_ms": r[plain], "bound_ms": r["bound"][kname][0],
-            "bound_by": r["bound"][kname][1], "library_ms": r[library], "kernel_route": "wgmma", "head_dim": 32,
-            "shape": r["shape"], "head_ulps": by_hd["32"]["head_ulps"],
-            "encode_launches": minilm["encode"]["launches"][kname],
-            "library_call": "SDPA forward, boolean mask" if kname == "K11" else
-                            f"SDPA backward alone ({r['sdpa_backward_backend']})"})
-        if kname == "K12":
-            kernels[-1]["di"] = {"launches": minilm["train"]["launches"]["flash rows"], "ms": r["ms"]["rows"],
-                                 "bound_ms": r["bound"]["rows"][0], "bound_by": r["bound"]["rows"][1]}
-        if kname == "K11":
-            kernels[-1]["minilm"] = minilm
+        for hd, (model_name, path) in paths.items():
+            r = flash_hd[hd]
+            kernels.append({
+                "name": f"{bf16_flash[i]['name']}, head dim {hd}", "route": "cuda",
+                "source": "colbert_tpu_torch/csrc/flash_attention.cu",
+                "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line} (jax 0.9.0, head dim {hd}; "
+                            "reached from colbert_tpu/models/bert.py:185-193)",
+                "launches": by_hd[str(hd)]["launches"], "max_abs_err": by_hd[str(hd)]["max_abs_err"],
+                "ms": r["ms"][kname], "plain_ms": r[plain], "bound_ms": r["bound"][kname][0],
+                "bound_by": r["bound"][kname][1], "library_ms": r[library], "kernel_route": "wgmma",
+                "head_dim": hd, "template": fa.template_head_dim(hd), "shape": r["shape"],
+                "head_ulps": by_hd[str(hd)]["head_ulps"], "model": model_name,
+                "encode_launches": path["encode"]["launches"][kname],
+                "library_call": "SDPA forward, boolean mask" if kname == "K11" else
+                                f"SDPA backward alone ({r['sdpa_backward_backend']})"})
+            if kname == "K12":
+                kernels[-1]["di"] = {"launches": path["train"]["launches"]["flash rows"], "ms": r["ms"]["rows"],
+                                     "bound_ms": r["bound"]["rows"][0], "bound_by": r["bound"]["rows"][1]}
+            if kname == "K11":
+                kernels[-1]["retriever"] = path
     # phase 13 (mesh.model = 2): K9 on a position's slices; the train steps', the encode's and the request's
     # launches at 12 / 2 heads a position
     by_name = {k["name"]: k for k in kernels}

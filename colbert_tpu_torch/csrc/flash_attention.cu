@@ -80,12 +80,15 @@
 // di = rowsum(o * do) comes from the caller (outside the JAX kernels too).
 //
 // Route "wgmma" (every shape the kernels take), templated on the head dim
-// (32, 64 and 128; namespace wg's Tile says how a tile of each lies in
-// shared memory): persistent blocks of
+// (templates 32, 64 and 128, a head dim 1-128 running on the least that
+// holds it, "head dims below a template's" below; namespace wg's Tile says
+// how a tile of each lies in shared memory): persistent blocks of
 // consumer warpgroups and one producer warpgroup whose one thread feeds a
 // ring of tiles by TMA (4-D tensor maps over the heads-major views,
-// 128-byte swizzle, 64-byte at head dim 32) on mbarriers; setmaxnreg moves the producer's registers
-// to the consumers; the products are wgmma with the B operand in shared
+// 128-byte swizzle, 64-byte at head dim 32) on mbarriers (or the four
+// warps' copies where no map can describe the rows); setmaxnreg moves the
+// producer's registers to the
+// consumers; the products are wgmma with the B operand in shared
 // memory (K-major, or MN-major with the transpose bit for P V, P^T dO,
 // dS^T Q and dS K) and the A operand in registers; outputs leave through a
 // warp's 2 KB of shared memory as whole 128-byte rows.
@@ -108,11 +111,10 @@
 // The backward is the JAX split: dK/dV over key blocks, dQ over query
 // blocks, each sum in one block's registers, no atomics, so two runs give
 // the same bits.  Layouts: each of q, k, v, o, do, dq, dk, dv is (B, nh, L,
-// hd), hd 32, 64 or 128 (the JAX kernel's other head dims, 80, 96, 256 and
-// those not a multiple of 16, are refused), with its own (batch, head, row)
-// strides in elements and unit stride along the head dim, rows 16-byte
-// aligned; segment ids (B, L) int32 and l, m, di (B, nh, L) fp32 contiguous
-// and 16-byte aligned.
+// hd), hd 1-128 (the JAX kernel's multiples of 128 above 128 are refused),
+// with its own (batch, head, row) strides in elements and unit stride along
+// the head dim; segment ids (B, L) int32 and l, m, di (B, nh, L) fp32
+// contiguous and 16-byte aligned.
 //
 // Bounds on the card (989 TFLOP/s bf16, 3.35 TB/s), at the retriever's doc
 // pass (68, 12, 384, 64) bf16: K11 reads q, k, v and writes o, 160 MB, 0.048
@@ -128,11 +130,18 @@
 // dK/dV stores (PERF.md §6).  At fp32 (same shape, 495 TFLOP/s TF32): route
 // "tf32"'s three TF32 products in K11 0.187 ms, in K12 0.373 ms and in K13
 // 0.280 ms, above fp32's bytes (K11 0.096 ms, K12 0.144 ms); as fp32 FMAs on
-// the CUDA cores (67 TFLOP/s) they would take 0.46, 0.92 and 0.69 ms.
+// the CUDA cores (67 TFLOP/s) they would take 0.46, 0.92 and 0.69 ms.  At
+// TinyBERT-4L-zh's doc pass (68, 12, 384, 26) bf16, K11's q, k, v and o are
+// 65 MB (0.019 ms) against 1.25e10 flops at the true head dim (0.013 ms):
+// bytes; on the 32 template the products and the exponentials are hd 32's,
+// and the producer's copies (4-byte cp.async: a head's row is 52 bytes) take
+// the tensor maps' place.
 
 #include <algorithm>
 #include <atomic>
+#include <initializer_list>
 #include <type_traits>
+#include <utility>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -646,6 +655,149 @@ flash_dq_kernel(const T* __restrict__ Q, const T* __restrict__ K, const T* __res
   store_rows(dQ + b * vdq.sb + h * vdq.sh + (long long)(q0 + row) * vdq.sl, vdq.sl, dq, lane);
 }
 
+// ---- head dims below a template's: the inputs as routes "wgmma" and "tf32" read them ----
+//
+// A head dim d that is not a template's (32, 64, 128) runs on the least
+// template that holds it; its tiles' columns d .. HD - 1 are zeros in shared
+// memory, so the products over the head dim (S = Q K^T, dP = dO V^T) sum d
+// terms and the products over rows give zeros there, and nothing past column
+// d is stored.  Where each input's address and (batch, head, row) strides
+// are 16-byte aligned, the tensor maps describe a head's d columns and TMA's
+// out-of-bounds fill writes the zeros (hd 80 and 96 in bf16, any multiple of
+// 4 in fp32; route "wgmma" also asks d a multiple of 8 and the outputs'
+// rows 16-byte aligned, so that its stores are whole 16-byte chunks).
+// Elsewhere (hd 26 in bf16: a head's row is 52 bytes) no map can describe a
+// head: the producer's warps copy the rows themselves, with cp.async of the
+// widest piece every row's alignment allows (4 bytes at hd 26 bf16,
+// zero-filled past d) or, at 2-byte alignment (an odd d in bf16 or fp16),
+// 2-byte loads and stores, then wait for their own copies, make them
+// visible to the tensor cores (fence.proxy.async) and arrive on the stage's
+// barrier.  A map whose box reads into the next head would need the pad
+// columns zeroed before any product: a NaN there times a zero of the other
+// operand is NaN.  Each kernel has two instantiations: COPIES false, the
+// tensor maps fed by the producer's one thread (or at hd 128 on route
+// "tf32", warp 8's lane 0: produce()), and COPIES true, the producer's
+// warps copying (produce()).  Both store the columns below d alone (whole
+// rows at d = HD).
+struct Heads {
+  const unsigned char* p[4];  // q, k, v, do (heads_inner's bit order); unused entries null
+  View v[4];                  // their (batch, head, row) strides in elements
+  int d;                      // the head dim: the columns read and stored
+  int w;                      // bytes a copy where the producer's warps copy the rows (2, 4, 8, 16); 0: the maps
+};
+
+template <int W>
+__device__ __forceinline__ void copy_piece(uint32_t dst, const unsigned char* src, int n) {
+  if constexpr (W == 2) {
+    const unsigned short x = n ? *reinterpret_cast<const unsigned short*>(src) : (unsigned short)0;
+    asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst), "h"(x) : "memory");
+  } else if constexpr (W == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src), "n"(W), "r"(n) : "memory");
+  }
+}
+
+// Rows row .. row + R - 1 of input i (bytes eb an element) at head h, batch
+// b into a tile at `dst` of rows CH 16-byte chunks wide, by warp `part` of
+// PARTS: a warp's pass covers 32 / CH rows, the warps' passes interleaved; a
+// lane keeps one chunk column c of its pass's rows (CH divides 32), copied
+// as 16 / W pieces of W bytes, the bytes past the head dim's zeros; chunk c
+// of row r lands at dst + off(r, c).  Few registers: the producer's are
+// capped by setmaxnreg.
+template <int W, int CH, int PARTS, typename OFF>
+__device__ __forceinline__ void copy_rows_w(uint32_t dst, const Heads& hs, int i, int eb, int R, int h, int row,
+                                            int b, int lane, int part, OFF off) {
+  constexpr int RS = 32 / CH;  // rows a pass of the warp
+  const View& v = hs.v[i];
+  const int c = lane % CH, r0 = part * RS + lane / CH;
+  const int nb = min(max(hs.d * eb - 16 * c, 0), 16);  // this lane's bytes of a row
+  const long long step = PARTS * RS * v.sl * eb;
+  const unsigned char* g = hs.p[i] + (b * v.sb + h * v.sh + (long long)(row + r0) * v.sl) * eb + 16 * c;
+#pragma unroll 1
+  for (int r = r0; r < R; r += PARTS * RS, g += step) {
+    const uint32_t s = dst + off(r, c);
+#pragma unroll
+    for (int p = 0; p < 16; p += W) {
+      const int n = min(max(nb - p, 0), W);
+      copy_piece<W>(s + p, n ? g + p : g, n);
+    }
+  }
+}
+
+template <int CH, int PARTS, typename OFF>
+__device__ __forceinline__ void copy_rows(uint32_t dst, const Heads& hs, int i, int eb, int R, int h, int row, int b,
+                                          int lane, int part, OFF off) {
+  static_assert(CH >= 1 && CH <= 32 && 32 % CH == 0, "a row's 16-byte chunks divide a warp");
+  switch (hs.w) {
+    case 2: copy_rows_w<2, CH, PARTS>(dst, hs, i, eb, R, h, row, b, lane, part, off); break;
+    case 4: copy_rows_w<4, CH, PARTS>(dst, hs, i, eb, R, h, row, b, lane, part, off); break;
+    case 8: copy_rows_w<8, CH, PARTS>(dst, hs, i, eb, R, h, row, b, lane, part, off); break;
+    default: copy_rows_w<16, CH, PARTS>(dst, hs, i, eb, R, h, row, b, lane, part, off); break;
+  }
+}
+
+// A lane's copies complete and made visible to the tensor cores, then its arrival on `bar`.
+__device__ __forceinline__ void copies_done(uint64_t* bar) {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  hopper::mbar_arrive(bar);
+}
+
+// The producer's jobs, warp w of NW, in the block's order: job j is its
+// tile ti = j / (1 + ring) (t = blockIdx.x + ti * gridDim.x) and, in it,
+// the buffer filled once a tile (k = 0: `once(t)`, after `once_empty` frees
+// it, by every warp, each its share of the rows) or ring stage k - 1
+// (`stage(t, k - 1, s)` into ring slot s, after empty[s] frees it, by warp
+// s % NW alone).  A warp thus waits on each barrier it waits on phase after
+// phase, never skipping one: a parity wait tells apart only phases one
+// apart, so a warp two phases ahead of a barrier would pass it early.  A
+// warp's jobs run in the block's order, so the earliest unfilled job's warps
+// are never held by a later one.  Each job's buffer, slot and phase follow
+// from j alone, so a warp keeps no state from job to job: the producer's
+// registers are capped by setmaxnreg (a tile and a stage count carried
+// instead spilled in route "tf32"'s 40).
+template <int STAGES, int NW, typename ONCE, typename STAGE>
+__device__ __forceinline__ void produce(int w, int n_tiles, int ring, uint64_t* once_empty, uint64_t* empty,
+                                        ONCE once, STAGE stage) {
+  for (int j = 0;; ++j) {
+    const int ti = j / (1 + ring), k = j - ti * (1 + ring);
+    const int t = blockIdx.x + ti * gridDim.x;
+    if (t >= n_tiles) return;
+    if (k == 0) {
+      hopper::mbar_wait(once_empty, (ti & 1) ^ 1);
+      once(t);
+    } else {
+      const int n = ti * ring + k - 1, s = n % STAGES;
+      if (s % NW == w) {
+        hopper::mbar_wait(&empty[s], ((n / STAGES) & 1) ^ 1);
+        stage(t, k - 1, s);
+      }
+    }
+  }
+}
+
+// The first n (1 .. 8) 2-byte elements of a 16-byte chunk to `dst`, by the
+// widest stores its alignment allows.
+__device__ __forceinline__ void store_part(void* dst, uint4 v, int n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(dst);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  if (n == 8 && (a & 15) == 0) {
+    *reinterpret_cast<uint4*>(dst) = v;
+  } else if ((a & 3) == 0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (2 * j + 1 < n) reinterpret_cast<uint32_t*>(dst)[j] = w[j];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (n == 2 * j + 1) reinterpret_cast<unsigned short*>(dst)[2 * j] = (unsigned short)(w[j] & 0xFFFFu);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (e < n) reinterpret_cast<unsigned short*>(dst)[e] = (unsigned short)(w[e >> 1] >> (16 * (e & 1)));
+  }
+}
+
 // ---- route "wgmma": K11-K13 fed by TMA, warp-specialised wgmma ----
 
 namespace wg {
@@ -670,7 +822,7 @@ constexpr int KT = 128;  // keys a K11 tile (the JAX block) and keys a K12 block
 // SPAN bytes on) and MN-major ones (V, dO, Q, K as B with the transpose
 // bit: rows along K, a k-step 16 rows on; one wgmma an atom of N).
 template <int HD> struct Tile {
-  static_assert(HD == 32 || HD == 64 || HD == 128, "head dims 32, 64 and 128");
+  static_assert(HD == 32 || HD == 64 || HD == 128, "templates 32, 64 and 128: a head dim runs on the least above it");
   static constexpr uint32_t ROW = HD * 2;                // bytes a row
   static constexpr uint32_t SPAN = HD == 32 ? 64 : 128;  // bytes an atom row: the swizzle span
   static constexpr int ATOMS = ROW / SPAN;               // 2 at head dim 128, else 1
@@ -736,6 +888,14 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, 
       tma_load4(dst + a * R * Tile<HD>::SPAN, map, a * Tile<HD>::COLS, h, row, b, bar);
     else
       tma_load4(dst + a * R * Tile<HD>::SPAN, map, a * Tile<HD>::COLS, row, h, b, bar);
+}
+
+// load_rows by the copies of producer warp `part` of PARTS (Heads::w > 0): input i of `hs`.
+template <int HD, int PARTS = 1>
+__device__ __forceinline__ void copy_tile(uint32_t dst, const Heads& hs, int i, int R, int h, int row, int b,
+                                          int lane, int part = 0) {
+  copy_rows<HD / 8, PARTS>(dst, hs, i, 2, R, h, row, b, lane, part,
+                           [R](int r, int c) { return Tile<HD>::off(R, r, c); });
 }
 
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) from global into
@@ -886,9 +1046,13 @@ __device__ __forceinline__ void add_pv(float (&acc)[N][4], const float (&pv)[N][
 // lanes' 16-byte stores, whole 32-byte sectors (store_rows' 4-byte stores
 // leave half sectors, 8 rows an instruction).  The 16-byte chunks of a
 // staged row are XOR-swizzled by the row, so neither side has bank conflicts.
-template <typename T, int HD>
+// The chunks below d alone: whole where d is a multiple of 8 and the rows
+// are 16-byte aligned (the tensor maps' launches), else (PART, the copies')
+// each chunk's columns below d, stored as wide as their address allows
+// (store_part).
+template <typename T, int HD, bool PART>
 __device__ __forceinline__ void store_rows_staged(T* out, long long sl, const float (&c)[HD / 8][4], uint32_t* stage,
-                                                  int lane) {
+                                                  int lane, int d) {
   constexpr int CH = HD / 8, W = HD / 2;  // 16-byte chunks and 4-byte words a row
   const int g = lane >> 2, q = lane & 3;
   __syncwarp();  // the last call's reads are done
@@ -898,11 +1062,21 @@ __device__ __forceinline__ void store_rows_staged(T* out, long long sl, const fl
     stage[(g + 8) * W + ((j ^ (g & (CH - 1))) << 2) + q] = Type<T>::pack(c[j][2], c[j][3]);
   }
   __syncwarp();
+  if constexpr (!PART) {
 #pragma unroll
-  for (int i = 0; i < CH / 2; ++i) {
-    const int chunk = lane + 32 * i, r = chunk / CH, ch = chunk % CH;
-    *reinterpret_cast<uint4*>(out + r * sl + ch * 8) =
-        *reinterpret_cast<const uint4*>(stage + r * W + ((ch ^ (r & 7 & (CH - 1))) << 2));
+    for (int i = 0; i < CH / 2; ++i) {
+      const int chunk = lane + 32 * i, r = chunk / CH, ch = chunk % CH;
+      if (ch * 8 < d)
+        *reinterpret_cast<uint4*>(out + r * sl + ch * 8) =
+            *reinterpret_cast<const uint4*>(stage + r * W + ((ch ^ (r & 7 & (CH - 1))) << 2));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < CH / 2; ++i) {
+      const int chunk = lane + 32 * i, r = chunk / CH, ch = chunk % CH;
+      const uint4 v = *reinterpret_cast<const uint4*>(stage + r * W + ((ch ^ (r & 7 & (CH - 1))) << 2));
+      if (ch * 8 < d) store_part(out + r * sl + ch * 8, v, min(8, d - ch * 8));
+    }
   }
 }
 
@@ -919,12 +1093,13 @@ static_assert(Fwd<32, 3>::smem <= 232448 - 128 && Fwd<64, 3>::smem <= 232448 - 1
                   Fwd<128, 2>::smem <= 232448 - 128,
               "K11's ring must fit a block's shared memory");
 
-template <typename T, int HD, int NWG>
+template <typename T, int HD, int NWG, bool COPIES>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                        const __grid_constant__ CUtensorMap map_v, int heads_inner, T* __restrict__ O, View vo,
                        const int* __restrict__ qseg, const int* __restrict__ kvseg, float* __restrict__ l_out,
-                       float* __restrict__ m_out, int nh, int Lq, int Lk, int n_tiles, float scale) {
+                       float* __restrict__ m_out, int nh, int Lq, int Lk, int n_tiles, float scale,
+                       const __grid_constant__ Heads hs) {
   using C = Fwd<HD, NWG>;
   using L = Tile<HD>;
   constexpr int ROWS_BLK = C::ROWS_BLK, STAGES = C::STAGES, NA = L::COLS;  // NA: P V's N a wgmma
@@ -941,24 +1116,29 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
   const int n_qb = Lq / ROWS_BLK, n_kt = Lk / KT;
 
   if (threadIdx.x == 0) {
+    // the producer's expect_tx; with copies also the lanes of the slot's warp, or of all four for Q
+    constexpr uint32_t fills = COPIES ? 33 : 1, q_fills = COPIES ? 129 : 1;
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);          // the producer's expect_tx
+      mbar_init(&full[s], fills);
       mbar_init(&empty[s], NWG * 4);   // every consumer warp
     }
-    mbar_init(&q_full, 1);
+    mbar_init(&q_full, q_fills);
     mbar_init(&q_empty, NWG * 4);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x >= NWG * 128) {
-    // ---- producer: one thread keeps Q and the K/V ring full, tile after tile ----
-    if constexpr (NWG == 3)
+    // ---- producer: keeps Q and the K/V ring full, tile after tile: one thread's TMA loop, or with copies
+    // (Heads::w) the four warps' jobs ----
+    if constexpr (NWG == 3 && COPIES)  // the copies' loop: 32 registers, the consumers' 160 all that is left
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n" ::: "memory");
+    else if constexpr (NWG == 3)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     else
       asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (threadIdx.x == NWG * 128) {
+    if (!COPIES && threadIdx.x == NWG * 128) {
       int stage = 0;
       uint32_t phase = 0, q_phase = 0;
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
@@ -980,6 +1160,27 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
           }
         }
       }
+    } else if (COPIES) {
+      const int pw = threadIdx.x / 32 - NWG * 4, lane = threadIdx.x % 32;
+      produce<STAGES, 4>(
+          pw, n_tiles, n_kt, &q_empty, empty,
+          [&](int t) {  // the Q tile, a quarter of its rows a warp
+            const int qb = t % n_qb, h = (t / n_qb) % nh, b = t / (n_qb * nh);
+            if (pw == 0 && lane == 0) mbar_arrive(&q_full);
+            copy_tile<HD, 4>(sq, hs, 0, ROWS_BLK, h, qb * ROWS_BLK, b, lane, pw);
+            copies_done(&q_full);
+          },
+          [&](int t, int kt, int stage) {  // a K/V stage and its key segment ids
+            const int h = (t / n_qb) % nh, b = t / (n_qb * nh);
+            const uint32_t st = skv + stage * 2 * C::KV_BYTES;
+            if (lane == 0) {
+              mbar_expect_tx(&full[stage], KT * 4);
+              bulk_load(sseg + stage * KT * 4, kvseg + (long long)b * Lk + kt * KT, KT * 4, &full[stage]);
+            }
+            copy_tile<HD>(st, hs, 1, KT, h, kt * KT, b, lane);
+            copy_tile<HD>(st + C::KV_BYTES, hs, 2, KT, h, kt * KT, b, lane);
+            copies_done(&full[stage]);
+          });
     }
   } else {
     // ---- consumers: 64 query rows each ----
@@ -1098,8 +1299,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
         }
       }
       const int row0 = row - (lane >> 2);  // this warp's first row
-      store_rows_staged<T, HD>(O + b * vo.sb + h * vo.sh + (long long)(q0 + row0) * vo.sl, vo.sl, acc,
-                               out_stage + threadIdx.x / 32 * (C::OUT / 4), lane);
+      store_rows_staged<T, HD, COPIES>(O + b * vo.sb + h * vo.sh + (long long)(q0 + row0) * vo.sl, vo.sl, acc,
+                                       out_stage + threadIdx.x / 32 * (C::OUT / 4), lane, hs.d);
       if (qd == 0) {
         const long long i = ((long long)b * nh + h) * Lq + q0 + row;
         l_out[i] = l_run[0];
@@ -1144,14 +1345,14 @@ template <int HD> struct Dkv {
 static_assert(Dkv<32>::smem <= 232448 - 128 && Dkv<64>::smem <= 232448 - 128 && Dkv<128>::smem <= 232448 - 128,
               "K12's ring must fit a block's shared memory");
 
-template <typename T, int HD>
+template <typename T, int HD, bool COPIES>
 __global__ void __launch_bounds__(384, 1)
 flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                        const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
                        int heads_inner, const int* __restrict__ qseg, const int* __restrict__ kvseg,
                        const float* __restrict__ inv_l, const float* __restrict__ m_in,
                        const float* __restrict__ di_in, T* __restrict__ dK, T* __restrict__ dV, View vdk, View vdv,
-                       int nh, int Lq, int Lk, int n_tiles, float scale) {
+                       int nh, int Lq, int Lk, int n_tiles, float scale, const __grid_constant__ Heads hs) {
   using C = Dkv<HD>;
   using L = Tile<HD>;
   constexpr int QT = C::QT, STAGES = C::STAGES, NA = L::COLS, KF = C::SS ? 1 : HD / 16;
@@ -1166,21 +1367,24 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
   const int n_kb = Lk / KT, n_qt = Lq / QT;
 
   if (threadIdx.x == 0) {
+    // the producer's expect_tx; with copies also the lanes of the slot's warp, or of all four for K and V
+    constexpr uint32_t fills = COPIES ? 33 : 1, kv_fills = COPIES ? 129 : 1;
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], fills);
       mbar_init(&empty[s], 2 * 4);
     }
-    mbar_init(&kv_full, 1);
+    mbar_init(&kv_full, kv_fills);
     mbar_init(&kv_empty, 2 * 4);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x >= 256) {
-    // ---- producer ----
+    // ---- producer: keeps K, V and the Q/dO ring full: one thread's TMA loop, or with copies (Heads::w) the
+    // four warps' jobs ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (threadIdx.x == 256) {
+    if (!COPIES && threadIdx.x == 256) {
       int stage = 0;
       uint32_t phase = 0, kv_phase = 0;
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
@@ -1207,6 +1411,32 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
           }
         }
       }
+    } else if (COPIES) {
+      const int pw = threadIdx.x / 32 - 8, lane = threadIdx.x % 32;
+      produce<STAGES, 4>(
+          pw, n_tiles, n_qt, &kv_empty, empty,
+          [&](int t) {  // the block's K and V, a quarter of their rows a warp
+            const int kb = t % n_kb, h = (t / n_kb) % nh, b = t / (n_kb * nh);
+            if (pw == 0 && lane == 0) mbar_arrive(&kv_full);
+            copy_tile<HD, 4>(skv, hs, 1, KT, h, kb * KT, b, lane, pw);
+            copy_tile<HD, 4>(skv + C::KV_BYTES, hs, 2, KT, h, kb * KT, b, lane, pw);
+            copies_done(&kv_full);
+          },
+          [&](int t, int qt, int stage) {  // a Q/dO stage and its rows' m, 1 / l, di and segment ids
+            const int h = (t / n_kb) % nh, b = t / (n_kb * nh);
+            const long long rows0 = ((long long)b * nh + h) * Lq;
+            const uint32_t st = sqo + stage * 2 * C::QT_BYTES, rt = srows + stage * C::ROWS_BYTES;
+            if (lane == 0) {
+              mbar_expect_tx(&full[stage], C::ROWS_BYTES);
+              bulk_load(rt, m_in + rows0 + qt * QT, QT * 4, &full[stage]);
+              bulk_load(rt + QT * 4, inv_l + rows0 + qt * QT, QT * 4, &full[stage]);
+              bulk_load(rt + 2 * QT * 4, di_in + rows0 + qt * QT, QT * 4, &full[stage]);
+              bulk_load(rt + 3 * QT * 4, qseg + (long long)b * Lq + qt * QT, QT * 4, &full[stage]);
+            }
+            copy_tile<HD>(st, hs, 0, QT, h, qt * QT, b, lane);
+            copy_tile<HD>(st + C::QT_BYTES, hs, 3, QT, h, qt * QT, b, lane);
+            copies_done(&full[stage]);
+          });
     }
   } else {
     // ---- consumers: 64 keys each ----
@@ -1339,8 +1569,10 @@ flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_c
       }
       const int key0 = k0 + key - (lane >> 2);  // this warp's first key
       uint32_t* const own = out_stage + threadIdx.x / 32 * (C::OUT / 4);
-      store_rows_staged<T, HD>(dK + b * vdk.sb + h * vdk.sh + (long long)key0 * vdk.sl, vdk.sl, dk, own, lane);
-      store_rows_staged<T, HD>(dV + b * vdv.sb + h * vdv.sh + (long long)key0 * vdv.sl, vdv.sl, dv, own, lane);
+      store_rows_staged<T, HD, COPIES>(dK + b * vdk.sb + h * vdk.sh + (long long)key0 * vdk.sl, vdk.sl, dk, own,
+                                       lane, hs.d);
+      store_rows_staged<T, HD, COPIES>(dV + b * vdv.sb + h * vdv.sh + (long long)key0 * vdv.sl, vdv.sl, dv, own,
+                                       lane, hs.d);
     }
   }
 }
@@ -1386,14 +1618,14 @@ template <int HD> struct Dq {
 static_assert(Dq<32>::smem <= 232448 - 128 && Dq<64>::smem <= 232448 - 128 && Dq<128>::smem <= 232448 - 128,
               "K13's ring must fit a block's shared memory");
 
-template <typename T, int HD>
+template <typename T, int HD, bool COPIES>
 __global__ void __launch_bounds__((Dq<HD>::NWG + 1) * 128, 1)
 flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
                       int heads_inner, const int* __restrict__ qseg, const int* __restrict__ kvseg,
                       const float* __restrict__ inv_l, const float* __restrict__ m_in,
                       const float* __restrict__ di_in, T* __restrict__ dQ, View vdq, int nh, int Lq, int Lk,
-                      int n_tiles, float scale) {
+                      int n_tiles, float scale, const __grid_constant__ Heads hs) {
   using C = Dq<HD>;
   using L = Tile<HD>;
   constexpr int NWG = C::NWG, ROWS_BLK = C::ROWS_BLK, KT = C::KT, STAGES = C::STAGES, NA = L::COLS;
@@ -1410,21 +1642,24 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_co
   const int n_qb = Lq / ROWS_BLK, n_kt = Lk / KT;
 
   if (threadIdx.x == 0) {
+    // the producer's expect_tx; with copies also the lanes of the slot's warp, or of all four for Q and dO
+    constexpr uint32_t fills = COPIES ? 33 : 1, q_fills = COPIES ? 129 : 1;
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], fills);
       mbar_init(&empty[s], NWG * 4);
     }
-    mbar_init(&q_full, 1);
+    mbar_init(&q_full, q_fills);
     mbar_init(&q_empty, NWG * 4);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x >= NWG * 128) {
-    // ---- producer: one thread keeps Q, dO and their rows and the K/V ring full, tile after tile ----
+    // ---- producer: keeps Q, dO, their rows and the K/V ring full: one thread's TMA loop, or with copies
+    // (Heads::w) the four warps' jobs ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (threadIdx.x == NWG * 128) {
+    if (!COPIES && threadIdx.x == NWG * 128) {
       int stage = 0;
       uint32_t phase = 0, q_phase = 0;
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
@@ -1452,6 +1687,35 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_co
           }
         }
       }
+    } else if (COPIES) {
+      const int pw = threadIdx.x / 32 - NWG * 4, lane = threadIdx.x % 32;
+      produce<STAGES, 4>(
+          pw, n_tiles, n_kt, &q_empty, empty,
+          [&](int t) {  // the block's Q and dO, a quarter of their rows a warp, and their m, 1 / l, di, segment ids
+            const int qb = t % n_qb, h = (t / n_qb) % nh, b = t / (n_qb * nh);
+            const long long rows0 = ((long long)b * nh + h) * Lq + qb * ROWS_BLK;
+            if (pw == 0 && lane == 0) {
+              mbar_expect_tx(&q_full, C::ROWS_BYTES);
+              bulk_load(srows, m_in + rows0, ROWS_BLK * 4, &q_full);
+              bulk_load(srows + ROWS_BLK * 4, inv_l + rows0, ROWS_BLK * 4, &q_full);
+              bulk_load(srows + 2 * ROWS_BLK * 4, di_in + rows0, ROWS_BLK * 4, &q_full);
+              bulk_load(srows + 3 * ROWS_BLK * 4, qseg + (long long)b * Lq + qb * ROWS_BLK, ROWS_BLK * 4, &q_full);
+            }
+            copy_tile<HD, 4>(sq, hs, 0, ROWS_BLK, h, qb * ROWS_BLK, b, lane, pw);
+            copy_tile<HD, 4>(sq + C::Q_BYTES, hs, 3, ROWS_BLK, h, qb * ROWS_BLK, b, lane, pw);
+            copies_done(&q_full);
+          },
+          [&](int t, int kt, int stage) {  // a K/V stage and its key segment ids
+            const int h = (t / n_qb) % nh, b = t / (n_qb * nh);
+            const uint32_t st = skv + stage * 2 * C::KV_BYTES;
+            if (lane == 0) {
+              mbar_expect_tx(&full[stage], KT * 4);
+              bulk_load(sseg + stage * KT * 4, kvseg + (long long)b * Lk + kt * KT, KT * 4, &full[stage]);
+            }
+            copy_tile<HD>(st, hs, 1, KT, h, kt * KT, b, lane);
+            copy_tile<HD>(st + C::KV_BYTES, hs, 2, KT, h, kt * KT, b, lane);
+            copies_done(&full[stage]);
+          });
     }
   } else {
     // ---- consumers: 64 query rows each ----
@@ -1551,8 +1815,8 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_co
       fence_a(as);
       if (lane == 0) mbar_arrive(&empty[prev]);
       const int row0 = qb * ROWS_BLK + row - (lane >> 2);  // this warp's first row
-      store_rows_staged<T, HD>(dQ + b * vdq.sb + h * vdq.sh + (long long)row0 * vdq.sl, vdq.sl, dq,
-                               out_stage + threadIdx.x / 32 * (C::OUT / 4), lane);
+      store_rows_staged<T, HD, COPIES>(dQ + b * vdq.sb + h * vdq.sh + (long long)row0 * vdq.sl, vdq.sl, dq,
+                                       out_stage + threadIdx.x / 32 * (C::OUT / 4), lane, hs.d);
     }
   }
 }
@@ -1563,25 +1827,37 @@ flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_co
 // hd / 8 threads a row, each summing the products of its 8 elements in
 // order, then the hd / 8 partial sums pairwise by lane distance hd / 16, ..., 2, 1
 // (ops/flash_attention.py::flash_di_card_order is this order in torch);
-// 1 / l rounded once a row, for K12's p = exp(s - m) * (1 / l).
+// 1 / l rounded once a row, for K12's p = exp(s - m) * (1 / l).  A head dim
+// d below the template HD sums the products of columns d .. HD - 1 as zeros
+// (loaded element by element, as are rows not 16-byte aligned: `vec` 0).
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(256)
 flash_rows_kernel(const T* __restrict__ O, const T* __restrict__ dO, const float* __restrict__ l, View vo,
-                  View vdo, float* __restrict__ di, float* __restrict__ inv_l, int nh, int L) {
+                  View vdo, float* __restrict__ di, float* __restrict__ inv_l, int nh, int L, int d, int vec) {
   constexpr int LANES = HD / 8;  // threads a row
   const long long i = (long long)blockIdx.x * (256 / LANES) + threadIdx.x / LANES;  // the row: ((b * nh) + h) * L + r
   const int c = threadIdx.x % LANES;
   const long long bh = i / L;
   const int r = int(i - bh * L), h = int(bh % nh);
   const long long b = bh / nh;
-  const uint4 a = *reinterpret_cast<const uint4*>(O + b * vo.sb + h * vo.sh + r * vo.sl + c * 8);
-  const uint4 g = *reinterpret_cast<const uint4*>(dO + b * vdo.sb + h * vdo.sh + r * vdo.sl + c * 8);
-  const T* x = reinterpret_cast<const T*>(&a);
-  const T* y = reinterpret_cast<const T*>(&g);
+  const T* const po = O + b * vo.sb + h * vo.sh + r * vo.sl + c * 8;
+  const T* const pd = dO + b * vdo.sb + h * vdo.sh + r * vdo.sl + c * 8;
   float s = 0.0f;
+  if (vec) {
+    const uint4 a = *reinterpret_cast<const uint4*>(po);
+    const uint4 g = *reinterpret_cast<const uint4*>(pd);
+    const T* x = reinterpret_cast<const T*>(&a);
+    const T* y = reinterpret_cast<const T*>(&g);
 #pragma unroll
-  for (int e = 0; e < 8; ++e) s = __fadd_rn(s, __fmul_rn(Type<T>::f(x[e]), Type<T>::f(y[e])));
+    for (int e = 0; e < 8; ++e) s = __fadd_rn(s, __fmul_rn(Type<T>::f(x[e]), Type<T>::f(y[e])));
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const bool in = c * 8 + e < d;
+      s = __fadd_rn(s, __fmul_rn(in ? Type<T>::f(po[e]) : 0.0f, in ? Type<T>::f(pd[e]) : 0.0f));
+    }
+  }
 #pragma unroll
   for (int d = LANES / 2; d >= 1; d /= 2) s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, d));
   if (c == 0) {
@@ -1608,7 +1884,7 @@ __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast
 template <int HD>
 __global__ void __launch_bounds__(256)
 flash_rows_kernel(const float* __restrict__ O, const float* __restrict__ dO, const float* __restrict__ l, View vo,
-                  View vdo, float* __restrict__ di, float* __restrict__ inv_l, int nh, int L) {
+                  View vdo, float* __restrict__ di, float* __restrict__ inv_l, int nh, int L, int d, int vec) {
   constexpr int LANES = HD / 8;
   const long long i = (long long)blockIdx.x * (256 / LANES) + threadIdx.x / LANES;  // the row: ((b * nh) + h) * L + r
   const int c = threadIdx.x % LANES;
@@ -1617,9 +1893,19 @@ flash_rows_kernel(const float* __restrict__ O, const float* __restrict__ dO, con
   const long long b = bh / nh;
   const float* x = O + b * vo.sb + h * vo.sh + r * vo.sl + c * 8;
   const float* y = dO + b * vdo.sb + h * vdo.sh + r * vdo.sl + c * 8;
-  const float4 x0 = ld4(x), x1 = ld4(x + 4), y0 = ld4(y), y1 = ld4(y + 4);
-  const float xs[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-  const float ys[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+  float xs[8], ys[8];
+  if (vec) {
+    const float4 x0 = ld4(x), x1 = ld4(x + 4), y0 = ld4(y), y1 = ld4(y + 4);
+    xs[0] = x0.x, xs[1] = x0.y, xs[2] = x0.z, xs[3] = x0.w, xs[4] = x1.x, xs[5] = x1.y, xs[6] = x1.z, xs[7] = x1.w;
+    ys[0] = y0.x, ys[1] = y0.y, ys[2] = y0.z, ys[3] = y0.w, ys[4] = y1.x, ys[5] = y1.y, ys[6] = y1.z, ys[7] = y1.w;
+  } else {  // below the template, or rows not 16-byte aligned: element by element, zeros past d
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const bool in = c * 8 + e < d;
+      xs[e] = in ? x[e] : 0.0f;
+      ys[e] = in ? y[e] : 0.0f;
+    }
+  }
   float s = 0.0f;
 #pragma unroll
   for (int e = 0; e < 8; ++e) s = __fadd_rn(s, __fmul_rn(xs[e], ys[e]));
@@ -1790,6 +2076,12 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, b
                                          int b, uint64_t* bar) {
 #pragma unroll
   for (int a = 0; a < HD / 32; ++a) tma_half(dst + a * R * 128, map, heads_inner, 32 * a, h, row, b, bar);
+}
+
+// tma_tile by the copies of the producer's warp 8 (Heads::w > 0): input i of `hs`.
+template <int R, int HD>
+__device__ __forceinline__ void copy_tile(uint32_t dst, const Heads& hs, int i, int h, int row, int b, int lane) {
+  copy_rows<HD / 4, 1>(dst, hs, i, 4, R, h, row, b, lane, 0, [](int r, int c) { return at<R>(r, 4 * c); });
 }
 
 // B descriptor of k-step kk (8 columns) of a K-major R-row tile, from the
@@ -2015,14 +2307,16 @@ __device__ __forceinline__ void by_atoms(float (&d)[N][4], uint32_t (&fh)[4][4],
 }
 
 // A transposed accumulator (rows: the head dim h0 + g, + 8; columns: rows
-// 8j + 2t, + 1 of the output from `row0`) to its (row, head dim) places.
+// 8j + 2t, + 1 of the output from `row0`) to its (row, head dim) places
+// below the head dim d.
 template <int N>
-__device__ __forceinline__ void store_t(float* out, long long sl, const float (&c)[N][4], int h0, int lane) {
+__device__ __forceinline__ void store_t(float* out, long long sl, const float (&c)[N][4], int h0, int lane, int d) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int j = 0; j < N; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) out[(long long)(8 * j + 2 * t + (e & 1)) * sl + h0 + g + 8 * (e >> 1)] = c[j][e];
+    for (int e = 0; e < 4; ++e)
+      if (h0 + g + 8 * (e >> 1) < d) out[(long long)(8 * j + 2 * t + (e & 1)) * sl + h0 + g + 8 * (e >> 1)] = c[j][e];
 }
 
 // ---- K12, route "tf32" ----
@@ -2041,14 +2335,15 @@ template <int HD> struct Dkv {
 static_assert(Dkv<32>::smem <= 232448 - 1024 && Dkv<64>::smem <= 232448 - 1024 && Dkv<128>::smem <= 232448 - 1024,
               "K12's route tf32 must fit a block's shared memory");
 
-template <int HD>
+template <int HD, bool COPIES>
 __global__ void __launch_bounds__(384, 1)
 flash_dkv_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                             const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
                             int heads_inner, const int* __restrict__ qseg, const int* __restrict__ kvseg,
                             const float* __restrict__ inv_l, const float* __restrict__ m_in,
                             const float* __restrict__ di_in, float* __restrict__ dK, float* __restrict__ dV,
-                            View vdk, View vdv, int nh, int Lq, int Lk, int n_tiles, float scale) {
+                            View vdk, View vdv, int nh, int Lq, int Lk, int n_tiles, float scale,
+                            const __grid_constant__ Heads hs) {
   using C = Dkv<HD>;
   using H = Hd<HD>;
   constexpr int STAGES = C::STAGES;
@@ -2063,22 +2358,30 @@ flash_dkv_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
   const int n_kb = Lk / RB, n_qt = Lq / QT;
 
   if (threadIdx.x == 0) {
+    constexpr uint32_t fills = COPIES ? 33 : 1;  // the producer's expect_tx; with copies (Heads) also warp 8's lanes
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], fills);
       mbar_init(&ready[s], SPLIT_THREADS);
       mbar_init(&empty[s], 2 * 4);
     }
-    mbar_init(&kv_full, 1);
+    mbar_init(&kv_full, fills);
     mbar_init(&kv_empty, 2 * 4);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x >= 256) {
-    // ---- producer: thread 256 keeps K, V and the Q/dO ring full; warps 9-11 split each stage ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");  // its TMA loop and the split
-    if (threadIdx.x == 256) {
+    // ---- producer: thread 256's TMA loop (below hd 128) or warp 8's jobs (produce: its lane 0 issuing TMA at
+    // hd 128, or with copies the whole warp) keep K, V and the Q/dO ring full; warps 9-11 split.  At hd 128 the
+    // consumers take 232 registers (at 224 they spilled) and the producer's 40 hold warp 8's jobs, where the
+    // one thread's loop spilled ----
+    constexpr bool LOOP = !COPIES && HD != 128;
+    if constexpr (HD == 128)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    else
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    if (LOOP && threadIdx.x == 256) {
       int stage = 0;
       uint32_t phase = 0, kv_phase = 0;
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
@@ -2105,6 +2408,44 @@ flash_dkv_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
           }
         }
       }
+    } else if (!LOOP && threadIdx.x < 288) {
+      // ---- or warp 8: its lane 0 issuing TMA (hd 128), or with copies the whole warp ----
+      const int lane = threadIdx.x - 256;
+      produce<STAGES, 1>(
+          0, n_tiles, n_qt, &kv_empty, empty,
+          [&](int t) {  // the block's K and V
+            const int kb = t % n_kb, h = (t / n_kb) % nh, b = t / (n_kb * nh);
+            if (lane == 0) mbar_expect_tx(&kv_full, COPIES ? 0 : 2 * C::KV_TILE);
+            if constexpr (COPIES) {
+              copy_tile<RB, HD>(skv, hs, 1, h, kb * RB, b, lane);
+              copy_tile<RB, HD>(skv + C::KV_TILE, hs, 2, h, kb * RB, b, lane);
+              copies_done(&kv_full);
+            } else if (lane == 0) {
+              tma_tile<RB, HD>(skv, &map_k, heads_inner & 2, h, kb * RB, b, &kv_full);
+              tma_tile<RB, HD>(skv + C::KV_TILE, &map_v, heads_inner & 4, h, kb * RB, b, &kv_full);
+            }
+          },
+          [&](int t, int qt, int stage) {  // a Q/dO stage and its rows' m, 1 / l, di and segment ids
+            const int h = (t / n_kb) % nh, b = t / (n_kb * nh);
+            const long long rows0 = ((long long)b * nh + h) * Lq;
+            const uint32_t st = sst + stage * C::STAGE, rt = st + 2 * C::HI;
+            if (lane == 0) {
+              mbar_expect_tx(&full[stage], (COPIES ? 0 : C::HI) + C::ROWS);
+              if constexpr (!COPIES) {
+                tma_tile<QT, HD>(st, &map_q, heads_inner & 1, h, qt * QT, b, &full[stage]);
+                tma_tile<QT, HD>(st + C::Q_TILE, &map_do, heads_inner & 8, h, qt * QT, b, &full[stage]);
+              }
+              wg::bulk_load(rt, m_in + rows0 + qt * QT, QT * 4, &full[stage]);
+              wg::bulk_load(rt + QT * 4, inv_l + rows0 + qt * QT, QT * 4, &full[stage]);
+              wg::bulk_load(rt + 2 * QT * 4, di_in + rows0 + qt * QT, QT * 4, &full[stage]);
+              wg::bulk_load(rt + 3 * QT * 4, qseg + (long long)b * Lq + qt * QT, QT * 4, &full[stage]);
+            }
+            if constexpr (COPIES) {
+              copy_tile<QT, HD>(st, hs, 0, h, qt * QT, b, lane);
+              copy_tile<QT, HD>(st + C::Q_TILE, hs, 3, h, qt * QT, b, lane);
+              copies_done(&full[stage]);
+            }
+          });
     } else if (threadIdx.x >= 288) {
       const int si = threadIdx.x - 288;
       int stage = 0;
@@ -2124,7 +2465,10 @@ flash_dkv_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
   }
 
   // ---- consumers: warpgroup 0 the S side (S^T, P^T, dV^T), warpgroup 1 the dP side (dP^T, dS^T, dK^T) ----
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+  if constexpr (HD == 128)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  else
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
   const int wgi = threadIdx.x / 128, wtid = threadIdx.x % 128, warp = wtid / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t4 = lane & 3;
   const int key = warp * 16 + g;  // this thread's keys: key and key + 8 of the block
@@ -2238,7 +2582,8 @@ flash_dkv_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
     const long long sl = wgi == 0 ? vdv.sl : vdk.sl;
 #pragma unroll
     for (int mh = 0; mh < H::MH; ++mh)
-      if (mh * 64 + warp * 16 < HD) store_t(out, sl, wg::cols<8>(acc, 8 * mh), mh * 64 + warp * 16, lane);
+      if (mh * 64 + warp * 16 < HD)
+        store_t(out, sl, wg::cols<8>(acc, 8 * mh), mh * 64 + warp * 16, lane, hs.d);
   }
 }
 
@@ -2258,14 +2603,14 @@ template <int HD> struct Dq {
 static_assert(Dq<32>::smem <= 232448 - 1024 && Dq<64>::smem <= 232448 - 1024 && Dq<128>::smem <= 232448 - 1024,
               "K13's route tf32 must fit a block's shared memory");
 
-template <int HD>
+template <int HD, bool COPIES>
 __global__ void __launch_bounds__(384, 1)
 flash_dq_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                            const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
                            int heads_inner, const int* __restrict__ qseg, const int* __restrict__ kvseg,
                            const float* __restrict__ inv_l, const float* __restrict__ m_in,
                            const float* __restrict__ di_in, float* __restrict__ dQ, View vdq, int nh, int Lq, int Lk,
-                           int n_tiles, float scale) {
+                           int n_tiles, float scale, const __grid_constant__ Heads hs) {
   using C = Dq<HD>;
   using H = Hd<HD>;
   constexpr int KEYS = C::KEYS;
@@ -2281,22 +2626,24 @@ flash_dq_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __gr
   const int n_qb = Lq / RB, n_kt = Lk / KEYS;
 
   if (threadIdx.x == 0) {
+    constexpr uint32_t fills = COPIES ? 33 : 1;  // the producer's expect_tx; with copies (Heads) also warp 8's lanes
 #pragma unroll
     for (int s = 0; s < DQ_STAGES; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], fills);
       mbar_init(&ready[s], SPLIT_THREADS);
       mbar_init(&empty[s], 2 * 4);
     }
-    mbar_init(&q_full, 1);
+    mbar_init(&q_full, fills);
     mbar_init(&q_empty, 2 * 4);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x >= 256) {
-    // ---- producer: thread 256 keeps Q, dO, their rows and the K/V ring full; warps 9-11 split each stage ----
+    // ---- producer: thread 256's TMA loop, or with copies (Heads) warp 8's jobs, keep Q, dO, their rows and the
+    // K/V ring full; warps 9-11 split each stage ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");  // its TMA loop and the split
-    if (threadIdx.x == 256) {
+    if (!COPIES && threadIdx.x == 256) {
       int stage = 0;
       uint32_t phase = 0, q_phase = 0;
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
@@ -2324,6 +2671,36 @@ flash_dq_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __gr
           }
         }
       }
+    } else if (COPIES && threadIdx.x < 288) {
+      // ---- or warp 8's copies ----
+      const int lane = threadIdx.x - 256;
+      produce<DQ_STAGES, 1>(
+          0, n_tiles, n_kt, &q_empty, empty,
+          [&](int t) {  // the block's Q and dO and their rows' m, 1 / l, di and segment ids
+            const int qb = t % n_qb, h = (t / n_qb) % nh, b = t / (n_qb * nh);
+            const long long rows0 = ((long long)b * nh + h) * Lq + qb * RB;
+            if (lane == 0) {
+              mbar_expect_tx(&q_full, C::ROWS);
+              wg::bulk_load(srows, m_in + rows0, RB * 4, &q_full);
+              wg::bulk_load(srows + RB * 4, inv_l + rows0, RB * 4, &q_full);
+              wg::bulk_load(srows + 2 * RB * 4, di_in + rows0, RB * 4, &q_full);
+              wg::bulk_load(srows + 3 * RB * 4, qseg + (long long)b * Lq + qb * RB, RB * 4, &q_full);
+            }
+            copy_tile<RB, HD>(sq, hs, 0, h, qb * RB, b, lane);
+            copy_tile<RB, HD>(sq + C::Q_TILE, hs, 3, h, qb * RB, b, lane);
+            copies_done(&q_full);
+          },
+          [&](int t, int kt, int stage) {  // a K/V stage and its key segment ids
+            const int h = (t / n_qb) % nh, b = t / (n_qb * nh);
+            const uint32_t st = sst + stage * C::STAGE;
+            if (lane == 0) {
+              mbar_expect_tx(&full[stage], KEYS * 4);
+              wg::bulk_load(st + 2 * C::HI, kvseg + (long long)b * Lk + kt * KEYS, KEYS * 4, &full[stage]);
+            }
+            copy_tile<KEYS, HD>(st, hs, 1, h, kt * KEYS, b, lane);
+            copy_tile<KEYS, HD>(st + C::KV_TILE, hs, 2, h, kt * KEYS, b, lane);
+            copies_done(&full[stage]);
+          });
     } else if (threadIdx.x >= 288) {
       const int si = threadIdx.x - 288;
       int stage = 0;
@@ -2454,7 +2831,8 @@ flash_dq_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __gr
     float* const out = dQ + b * vdq.sb + h * vdq.sh + (long long)(qb * RB + wgi * 32) * vdq.sl;
 #pragma unroll
     for (int mh = 0; mh < H::MH; ++mh)
-      if (mh * 64 + warp * 16 < HD) store_t(out, vdq.sl, wg::cols<4>(acc, 4 * mh), mh * 64 + warp * 16, lane);
+      if (mh * 64 + warp * 16 < HD)
+        store_t(out, vdq.sl, wg::cols<4>(acc, 4 * mh), mh * 64 + warp * 16, lane, hs.d);
   }
 }
 
@@ -2548,13 +2926,13 @@ __device__ __forceinline__ void split_t(const unsigned char* raw, unsigned char*
   }
 }
 
-template <int HD>
+template <int HD, bool COPIES>
 __global__ void __launch_bounds__(384, 1)
 flash_fwd_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
                             const __grid_constant__ CUtensorMap map_v, int heads_inner, float* __restrict__ O,
                             View vo, const int* __restrict__ qseg, const int* __restrict__ kvseg,
                             float* __restrict__ l_out, float* __restrict__ m_out, int nh, int Lq, int Lk,
-                            int n_tiles, float scale) {
+                            int n_tiles, float scale, const __grid_constant__ Heads hs) {
   using C = Fwd<HD>;
   using H = Hd<HD>;
   constexpr int KEYS = C::KEYS, NV = HD == 32 ? 4 : 8;  // NV: P V's N a wgmma, in 8-column groups
@@ -2567,22 +2945,30 @@ flash_fwd_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
   const int n_qb = Lq / C::ROWS_BLK, n_kt = Lk / KEYS;
 
   if (threadIdx.x == 0) {
+    constexpr uint32_t fills = COPIES ? 33 : 1;  // the producer's expect_tx; with copies (Heads) also warp 8's lanes
 #pragma unroll
     for (int s = 0; s < FWD_STAGES; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], fills);
       mbar_init(&ready[s], SPLIT_THREADS);
       mbar_init(&empty[s], 2 * 4);
     }
-    mbar_init(&q_full, 1);
+    mbar_init(&q_full, fills);
     mbar_init(&q_empty, 2 * 4);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x >= 256) {
-    // ---- producer: thread 256 keeps Q and the K/V ring full; warps 9-11 split each stage ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");  // its TMA loop and the split
-    if (threadIdx.x == 256) {
+    // ---- producer: thread 256's TMA loop (below hd 128) or warp 8's jobs (produce: its lane 0 issuing TMA at
+    // hd 128, or with copies the whole warp) keep Q and the K/V ring full; warps 9-11 split.  At hd 128 the
+    // consumers take 232 registers (at 224 they spilled) and the producer's 40 hold warp 8's jobs, where the
+    // one thread's loop spilled ----
+    constexpr bool LOOP = !COPIES && HD != 128;
+    if constexpr (HD == 128)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    else
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    if (LOOP && threadIdx.x == 256) {
       int stage = 0;
       uint32_t phase = 0, q_phase = 0;
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
@@ -2604,6 +2990,38 @@ flash_fwd_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
           }
         }
       }
+    } else if (!LOOP && threadIdx.x < 288) {
+      // ---- or warp 8: its lane 0 issuing TMA (hd 128), or with copies the whole warp ----
+      const int lane = threadIdx.x - 256;
+      produce<FWD_STAGES, 1>(
+          0, n_tiles, n_kt, &q_empty, empty,
+          [&](int t) {  // the block's Q
+            const int qb = t % n_qb, h = (t / n_qb) % nh, b = t / (n_qb * nh);
+            if (lane == 0) mbar_expect_tx(&q_full, COPIES ? 0 : C::Q_TILE);
+            if constexpr (COPIES) {
+              copy_tile<C::ROWS_BLK, HD>(sq, hs, 0, h, qb * C::ROWS_BLK, b, lane);
+              copies_done(&q_full);
+            } else if (lane == 0) {
+              tma_tile<C::ROWS_BLK, HD>(sq, &map_q, heads_inner & 1, h, qb * C::ROWS_BLK, b, &q_full);
+            }
+          },
+          [&](int t, int kt, int stage) {  // a K/V stage and its key segment ids
+            const int h = (t / n_qb) % nh, b = t / (n_qb * nh);
+            const uint32_t st = sst + stage * C::STAGE;
+            if (lane == 0) {
+              mbar_expect_tx(&full[stage], (COPIES ? 0 : 2 * C::KV_TILE) + KEYS * 4);
+              if constexpr (!COPIES) {
+                tma_tile<KEYS, HD>(st, &map_k, heads_inner & 2, h, kt * KEYS, b, &full[stage]);
+                tma_tile<KEYS, HD>(st + C::V_RAW, &map_v, heads_inner & 4, h, kt * KEYS, b, &full[stage]);
+              }
+              wg::bulk_load(sq + C::seg(stage), kvseg + (long long)b * Lk + kt * KEYS, KEYS * 4, &full[stage]);
+            }
+            if constexpr (COPIES) {
+              copy_tile<KEYS, HD>(st, hs, 1, h, kt * KEYS, b, lane);
+              copy_tile<KEYS, HD>(st + C::V_RAW, hs, 2, h, kt * KEYS, b, lane);
+              copies_done(&full[stage]);
+            }
+          });
     } else if (threadIdx.x >= 288) {
       const int si = threadIdx.x - 288;
       int stage = 0;
@@ -2625,7 +3043,10 @@ flash_fwd_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
   }
 
   // ---- consumers: 64 query rows each ----
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+  if constexpr (HD == 128)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  else
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
   const int wgi = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t4 = lane & 3;
   const int r0 = wgi * 64 + warp * 16;  // this warp's first row of the block: the thread's rows r0 + g and + 8
@@ -2733,10 +3154,18 @@ flash_fwd_tf32_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __g
       if (lane == 0) mbar_arrive(&q_empty);  // this warp is done with the Q buffer
     }
     float* const out = O + b * vo.sb + h * vo.sh + (long long)row * vo.sl;
+    if (hs.d == HD) {
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      *reinterpret_cast<float2*>(out + 8 * j + 2 * t4) = make_float2(acc[j][0], acc[j][1]);
-      *reinterpret_cast<float2*>(out + 8 * vo.sl + 8 * j + 2 * t4) = make_float2(acc[j][2], acc[j][3]);
+      for (int j = 0; j < HD / 8; ++j) {
+        *reinterpret_cast<float2*>(out + 8 * j + 2 * t4) = make_float2(acc[j][0], acc[j][1]);
+        *reinterpret_cast<float2*>(out + 8 * vo.sl + 8 * j + 2 * t4) = make_float2(acc[j][2], acc[j][3]);
+      }
+    } else {  // below the template: the columns below d, 4 bytes a store
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * j + 2 * t4 + (e & 1) < hs.d) out[8 * vo.sl * (e >> 1) + 8 * j + 2 * t4 + (e & 1)] = acc[j][e];
     }
     if (t4 == 0) {
       const long long i = ((long long)b * nh + h) * Lq + row;
@@ -2753,6 +3182,48 @@ View view(const long long* s) { return View{s[0], s[1], s[2]}; }
 
 bool aligned(const void* p, const long long* s) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s[0] % 8 == 0 && s[1] % 8 == 0 && s[2] % 8 == 0;
+}
+
+// The template a head dim runs on (routes "wgmma", "tf32" and the rows
+// kernel): the least of 32, 64 and 128 that holds it; 0 below 1 and past 128
+// (the JAX kernel's multiples of 128 above it wait for ROADMAP Queue 1 step 12).
+int head_dim_template(int hd) { return hd < 1 || hd > 128 ? 0 : hd <= 32 ? 32 : hd <= 64 ? 64 : 128; }
+
+// How routes "wgmma" and "tf32" read the `n` inputs of `ptrs` (q, k, v, do)
+// with (batch, head, row) strides `views`, head dim d, eb bytes an element:
+// by the tensor maps (w 0) where every address and every stride in bytes (of
+// a dim longer than 1) is a multiple of 16 and `maps` holds, else by the
+// producer's copies of the largest power of two that divides them all (16
+// where `maps` alone fails).
+Heads heads_of(const void* const* ptrs, const long long* const* views, int n, int d, int eb, int B, int nh,
+               bool maps = true) {
+  Heads hs{};
+  uint64_t bits = 16;
+  for (int i = 0; i < n; ++i) {
+    hs.p[i] = static_cast<const unsigned char*>(ptrs[i]);
+    hs.v[i] = view(views[i]);
+    bits |= uint64_t(reinterpret_cast<uintptr_t>(ptrs[i])) | uint64_t(views[i][2] * eb);
+    if (B > 1) bits |= uint64_t(views[i][0] * eb);
+    if (nh > 1) bits |= uint64_t(views[i][1] * eb);
+  }
+  const int w = int(bits & (~bits + 1));  // the lowest bit set
+  hs.d = d;
+  hs.w = w == 16 ? (maps ? 0 : 16) : w;
+  return hs;
+}
+
+// Route "wgmma"'s tensor-map launches store whole 16-byte chunks of the
+// outputs: d a multiple of 8 and each output's rows 16-byte aligned.
+bool whole_chunks(int d, std::initializer_list<std::pair<const void*, const long long*>> outs) {
+  for (const auto& x : outs)
+    if (!aligned(x.first, x.second)) return false;
+  return d % 8 == 0;
+}
+
+// An output the kernels may store: rows 16-byte aligned at the template's
+// own head dim (whole-row stores), any element-aligned layout below it.
+bool out_ok(const void* p, const long long* s, int hd, int eb) {
+  return hd == head_dim_template(hd) ? aligned(p, s) : reinterpret_cast<uintptr_t>(p) % eb == 0;
 }
 
 // `kernel`'s dynamic shared memory raised to `bytes`, once per device
@@ -2779,22 +3250,21 @@ int on_device(int device, F launch) {
   return e;
 }
 
-// The head dims routes "wgmma", "tf32" and "fp32" take; route "simple" takes HD alone.
-constexpr int kHeadDims[] = {32, 64, 128};
-
-// 0 if the shape is one the kernels take, else cudaErrorInvalidValue.
+// 0 if the shape is one the kernels take (routes "wgmma", "tf32", the rows
+// kernel: head dims 1-128; route "simple": HD alone, check_route), else
+// cudaErrorInvalidValue.
 int check_shape(int B, int nh, int Lq, int Lk, int hd, int dtype, int device) {
   if (B < 1 || nh < 1 || B > 65535 || nh > 65535 || dtype < 0 || dtype > 2 || device < 0 || device >= kMaxDevices)
     return (int)cudaErrorInvalidValue;
-  if (hd != 32 && hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
+  if (head_dim_template(hd) == 0) return (int)cudaErrorInvalidValue;
   if (Lq < FWD_TILE || Lk < FWD_TILE || Lq % FWD_TILE || Lk % FWD_TILE) return (int)cudaErrorInvalidValue;
   return 0;
 }
 
-// `f` with the head dim as a template argument: f(std::integral_constant<int, hd>())
+// `f` with the template the head dim runs on as a template argument: f(std::integral_constant<int, 32>()) ...
 template <typename F>
 int by_head_dim(int hd, F f) {
-  switch (hd) {
+  switch (head_dim_template(hd)) {
     case 32: return f(std::integral_constant<int, 32>());
     case 64: return f(std::integral_constant<int, 64>());
     case 128: return f(std::integral_constant<int, 128>());
@@ -2847,15 +3317,16 @@ int dq(const void* q, const void* k, const void* v, const int* qseg, const int* 
 
 
 // A (B, nh, L, hd) view with (batch, head, row) strides `s` in elements as a
-// 4-D tensor map cut into boxes of one swizzle row (bf16 or fp16: 64
-// elements, 128 bytes, or at hd 32 the row's 32, 64 bytes; fp32: 32, 128
-// bytes) x `box_rows` rows with the 128-byte (64-byte) swizzle; a row is hd
-// / (the box's elements) boxes.  Its dims run (hd, nh, L, B) when a head's
+// 4-D tensor map cut into boxes of one swizzle row of the template `tile_hd`
+// (bf16 or fp16: 64 elements, 128 bytes, or at template 32 the row's 32, 64
+// bytes; fp32: 32, 128 bytes) x `box_rows` rows with the 128-byte (64-byte)
+// swizzle; a row is tile_hd / (the box's elements) boxes, the columns from hd
+// on zeros (out of bounds).  Its dims run (hd, nh, L, B) when a head's
 // rows lie further apart than its heads do (the models' layout: heads-major
 // views of (B, L, nh, hd)), else (hd, L, nh, B); `heads_inner` says which.
 // A dim of extent 1 takes the largest stride, so that it sorts outside.
-bool make_rows_map(CUtensorMap* map, const void* ptr, int dtype, int B, int nh, int L, int hd, const long long* s,
-                   uint32_t box_rows, bool* heads_inner) {
+bool make_rows_map(CUtensorMap* map, const void* ptr, int dtype, int B, int nh, int L, int hd, int tile_hd,
+                   const long long* s, uint32_t box_rows, bool* heads_inner) {
   hopper::EncodeTiledFn enc = hopper::encode_tiled();
   if (enc == nullptr) return false;
   long long sb = s[0], sh = s[1];
@@ -2866,7 +3337,7 @@ bool make_rows_map(CUtensorMap* map, const void* ptr, int dtype, int B, int nh, 
   const bool hi = sh < sl;
   *heads_inner = hi;
   const int eb = dtype == 2 ? 4 : 2;                         // bytes an element
-  const uint32_t span = (dtype != 2 && hd == 32) ? 64 : 128;  // bytes a box row: wg::Tile<hd>::SPAN, or fp32's 128
+  const uint32_t span = (dtype != 2 && tile_hd == 32) ? 64 : 128;  // bytes a box row: wg::Tile::SPAN, or fp32's 128
   const cuuint64_t dims[4] = {cuuint64_t(hd), cuuint64_t(hi ? nh : L), cuuint64_t(hi ? L : nh), cuuint64_t(B)};
   const cuuint64_t strides[3] = {cuuint64_t(eb * (hi ? sh : sl)), cuuint64_t(eb * (hi ? sl : sh)),
                                  cuuint64_t(eb * sb)};
@@ -2905,85 +3376,113 @@ int persistent_grid(long long tiles, int device, int* grid) {
 template <typename T, int HD, int NWG>
 int fwd_wgmma(const void* q, const void* k, const void* v, void* o, const int* qseg, const int* kvseg, float* l,
               float* m, const long long* vq, const long long* vk, const long long* vv, const long long* vo, int B,
-              int nh, int Lq, int Lk, float scale, int dtype, int device, cudaStream_t stream) {
+              int nh, int Lq, int Lk, int hd, float scale, int dtype, int device, cudaStream_t stream) {
   using C = wg::Fwd<HD, NWG>;
-  static std::atomic<bool> smem_set[kMaxDevices];
-  CUtensorMap mq, mk, mv;
-  bool hq, hk, hv;
-  if (!make_rows_map(&mq, q, dtype, B, nh, Lq, HD, vq, C::ROWS_BLK, &hq) ||
-      !make_rows_map(&mk, k, dtype, B, nh, Lk, HD, vk, wg::KT, &hk) ||
-      !make_rows_map(&mv, v, dtype, B, nh, Lk, HD, vv, wg::KT, &hv))
+  static std::atomic<bool> smem_set[2][kMaxDevices];  // by instantiation: COPIES false, true
+  const void* ptrs[] = {q, k, v};
+  const long long* views[] = {vq, vk, vv};
+  const Heads hs = heads_of(ptrs, views, 3, hd, 2, B, nh, whole_chunks(hd, {{o, vo}}));
+  CUtensorMap mq{}, mk{}, mv{};
+  bool hq = false, hk = false, hv = false;
+  if (hs.w == 0 && (!make_rows_map(&mq, q, dtype, B, nh, Lq, hd, HD, vq, C::ROWS_BLK, &hq) ||
+                    !make_rows_map(&mk, k, dtype, B, nh, Lk, hd, HD, vk, wg::KT, &hk) ||
+                    !make_rows_map(&mv, v, dtype, B, nh, Lk, hd, HD, vv, wg::KT, &hv)))
     return (int)cudaErrorInvalidValue;
   const long long tiles = (long long)(Lq / C::ROWS_BLK) * nh * B;
   int grid = 0;
   if (int e = persistent_grid(tiles, device, &grid)) return e;
-  const cudaError_t err = allow_smem(wg::flash_fwd_wgmma_kernel<T, HD, NWG>, (int)C::smem, device, smem_set);
-  if (err != cudaSuccess) return (int)err;
-  wg::flash_fwd_wgmma_kernel<T, HD, NWG><<<grid, (NWG + 1) * 128, C::smem, stream>>>(
-      mq, mk, mv, int(hq) | int(hk) << 1 | int(hv) << 2, static_cast<T*>(o), view(vo), qseg, kvseg, l, m, nh, Lq,
-      Lk, int(tiles), scale);
-  return (int)cudaGetLastError();
+  auto launch = [&](auto kernel, std::atomic<bool>* done) {
+    const cudaError_t err = allow_smem(kernel, (int)C::smem, device, done);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, (NWG + 1) * 128, C::smem, stream>>>(
+        mq, mk, mv, int(hq) | int(hk) << 1 | int(hv) << 2, static_cast<T*>(o), view(vo), qseg, kvseg, l, m, nh, Lq, Lk,
+        int(tiles), scale, hs);
+    return (int)cudaGetLastError();
+  };
+  return hs.w ? launch(wg::flash_fwd_wgmma_kernel<T, HD, NWG, true>, smem_set[1])
+                : launch(wg::flash_fwd_wgmma_kernel<T, HD, NWG, false>, smem_set[0]);
 }
 
 template <typename T, int HD>
 int dkv_wgmma(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg, const float* inv_l,
               const float* m, const void* dout, const float* di, void* dk, void* dv, const long long* vq,
               const long long* vk, const long long* vv, const long long* vdo, const long long* vdk,
-              const long long* vdv, int B, int nh, int Lq, int Lk, float scale, int dtype, int device,
+              const long long* vdv, int B, int nh, int Lq, int Lk, int hd, float scale, int dtype, int device,
               cudaStream_t stream) {
   using C = wg::Dkv<HD>;
-  static std::atomic<bool> smem_set[kMaxDevices];
-  CUtensorMap mq, mk, mv, mo;
-  bool hq, hk, hv, ho;
-  if (!make_rows_map(&mq, q, dtype, B, nh, Lq, HD, vq, C::QT, &hq) ||
-      !make_rows_map(&mk, k, dtype, B, nh, Lk, HD, vk, wg::KT, &hk) ||
-      !make_rows_map(&mv, v, dtype, B, nh, Lk, HD, vv, wg::KT, &hv) ||
-      !make_rows_map(&mo, dout, dtype, B, nh, Lq, HD, vdo, C::QT, &ho))
+  static std::atomic<bool> smem_set[2][kMaxDevices];  // by instantiation: COPIES false, true
+  const void* ptrs[] = {q, k, v, dout};
+  const long long* views[] = {vq, vk, vv, vdo};
+  const Heads hs = heads_of(ptrs, views, 4, hd, 2, B, nh, whole_chunks(hd, {{dk, vdk}, {dv, vdv}}));
+  CUtensorMap mq{}, mk{}, mv{}, mo{};
+  bool hq = false, hk = false, hv = false, ho = false;
+  if (hs.w == 0 && (!make_rows_map(&mq, q, dtype, B, nh, Lq, hd, HD, vq, C::QT, &hq) ||
+                    !make_rows_map(&mk, k, dtype, B, nh, Lk, hd, HD, vk, wg::KT, &hk) ||
+                    !make_rows_map(&mv, v, dtype, B, nh, Lk, hd, HD, vv, wg::KT, &hv) ||
+                    !make_rows_map(&mo, dout, dtype, B, nh, Lq, hd, HD, vdo, C::QT, &ho)))
     return (int)cudaErrorInvalidValue;
   const long long tiles = (long long)(Lk / wg::KT) * nh * B;
   int grid = 0;
   if (int e = persistent_grid(tiles, device, &grid)) return e;
-  const cudaError_t err = allow_smem(wg::flash_dkv_wgmma_kernel<T, HD>, (int)C::smem, device, smem_set);
-  if (err != cudaSuccess) return (int)err;
-  wg::flash_dkv_wgmma_kernel<T, HD><<<grid, 384, C::smem, stream>>>(
-      mq, mk, mv, mo, int(hq) | int(hk) << 1 | int(hv) << 2 | int(ho) << 3, qseg, kvseg, inv_l, m, di,
-      static_cast<T*>(dk), static_cast<T*>(dv), view(vdk), view(vdv), nh, Lq, Lk, int(tiles), scale);
-  return (int)cudaGetLastError();
+  auto launch = [&](auto kernel, std::atomic<bool>* done) {
+    const cudaError_t err = allow_smem(kernel, (int)C::smem, device, done);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, 384, C::smem, stream>>>(
+        mq, mk, mv, mo, int(hq) | int(hk) << 1 | int(hv) << 2 | int(ho) << 3, qseg, kvseg, inv_l, m, di,
+        static_cast<T*>(dk), static_cast<T*>(dv), view(vdk), view(vdv), nh, Lq, Lk, int(tiles), scale, hs);
+    return (int)cudaGetLastError();
+  };
+  return hs.w ? launch(wg::flash_dkv_wgmma_kernel<T, HD, true>, smem_set[1])
+                : launch(wg::flash_dkv_wgmma_kernel<T, HD, false>, smem_set[0]);
 }
 
 template <typename T, int HD>
 int dq_wgmma(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg, const float* inv_l,
              const float* m, const void* dout, const float* di, void* dq_, const long long* vq, const long long* vk,
-             const long long* vv, const long long* vdo, const long long* vdq, int B, int nh, int Lq, int Lk,
+             const long long* vv, const long long* vdo, const long long* vdq, int B, int nh, int Lq, int Lk, int hd,
              float scale, int dtype, int device, cudaStream_t stream) {
   using C = wg::Dq<HD>;
-  static std::atomic<bool> smem_set[kMaxDevices];
-  CUtensorMap mq, mk, mv, mo;
-  bool hq, hk, hv, ho;
-  if (!make_rows_map(&mq, q, dtype, B, nh, Lq, HD, vq, C::ROWS_BLK, &hq) ||
-      !make_rows_map(&mk, k, dtype, B, nh, Lk, HD, vk, C::KT, &hk) ||
-      !make_rows_map(&mv, v, dtype, B, nh, Lk, HD, vv, C::KT, &hv) ||
-      !make_rows_map(&mo, dout, dtype, B, nh, Lq, HD, vdo, C::ROWS_BLK, &ho))
+  static std::atomic<bool> smem_set[2][kMaxDevices];  // by instantiation: COPIES false, true
+  const void* ptrs[] = {q, k, v, dout};
+  const long long* views[] = {vq, vk, vv, vdo};
+  const Heads hs = heads_of(ptrs, views, 4, hd, 2, B, nh, whole_chunks(hd, {{dq_, vdq}}));
+  CUtensorMap mq{}, mk{}, mv{}, mo{};
+  bool hq = false, hk = false, hv = false, ho = false;
+  if (hs.w == 0 && (!make_rows_map(&mq, q, dtype, B, nh, Lq, hd, HD, vq, C::ROWS_BLK, &hq) ||
+                    !make_rows_map(&mk, k, dtype, B, nh, Lk, hd, HD, vk, C::KT, &hk) ||
+                    !make_rows_map(&mv, v, dtype, B, nh, Lk, hd, HD, vv, C::KT, &hv) ||
+                    !make_rows_map(&mo, dout, dtype, B, nh, Lq, hd, HD, vdo, C::ROWS_BLK, &ho)))
     return (int)cudaErrorInvalidValue;
   const long long tiles = (long long)(Lq / C::ROWS_BLK) * nh * B;
   int grid = 0;
   if (int e = persistent_grid(tiles, device, &grid)) return e;
-  const cudaError_t err = allow_smem(wg::flash_dq_wgmma_kernel<T, HD>, (int)C::smem, device, smem_set);
-  if (err != cudaSuccess) return (int)err;
-  wg::flash_dq_wgmma_kernel<T, HD><<<grid, (C::NWG + 1) * 128, C::smem, stream>>>(
-      mq, mk, mv, mo, int(hq) | int(hk) << 1 | int(hv) << 2 | int(ho) << 3, qseg, kvseg, inv_l, m, di,
-      static_cast<T*>(dq_), view(vdq), nh, Lq, Lk, int(tiles), scale);
-  return (int)cudaGetLastError();
+  auto launch = [&](auto kernel, std::atomic<bool>* done) {
+    const cudaError_t err = allow_smem(kernel, (int)C::smem, device, done);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, (C::NWG + 1) * 128, C::smem, stream>>>(
+        mq, mk, mv, mo, int(hq) | int(hk) << 1 | int(hv) << 2 | int(ho) << 3, qseg, kvseg, inv_l, m, di,
+        static_cast<T*>(dq_), view(vdq), nh, Lq, Lk, int(tiles), scale, hs);
+    return (int)cudaGetLastError();
+  };
+  return hs.w ? launch(wg::flash_dq_wgmma_kernel<T, HD, true>, smem_set[1])
+                : launch(wg::flash_dq_wgmma_kernel<T, HD, false>, smem_set[0]);
+}
+
+// Rows read by 16-byte loads (`vec`) at the template's own head dim where o's
+// and do's rows are 16-byte aligned; else element by element.
+int rows_vec(const void* o, const void* dout, const long long* vo, const long long* vdo, int hd) {
+  return hd == head_dim_template(hd) && aligned(o, vo) && aligned(dout, vdo);
 }
 
 template <typename T, int HD>
 int rows(const void* o, const void* dout, const float* l, float* di, float* inv_l, const long long* vo,
-         const long long* vdo, int B, int nh, int L, cudaStream_t stream) {
+         const long long* vdo, int B, int nh, int L, int hd, cudaStream_t stream) {
   const long long n = (long long)B * nh * L;  // a multiple of 128: L is
   constexpr int per_block = 256 / (HD / 8);   // rows a block
   if (n / per_block > INT32_MAX) return (int)cudaErrorInvalidValue;
   wg::flash_rows_kernel<T, HD><<<int(n / per_block), 256, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), l, view(vo), view(vdo), di, inv_l, nh, L);
+      static_cast<const T*>(o), static_cast<const T*>(dout), l, view(vo), view(vdo), di, inv_l, nh, L, hd,
+      rows_vec(o, dout, vo, vdo, hd));
   return (int)cudaGetLastError();
 }
 
@@ -2991,12 +3490,13 @@ int rows(const void* o, const void* dout, const float* l, float* di, float* inv_
 
 template <int HD>
 int rows_fp32(const void* o, const void* dout, const float* l, float* di, float* inv_l, const long long* vo,
-              const long long* vdo, int B, int nh, int L, cudaStream_t stream) {
+              const long long* vdo, int B, int nh, int L, int hd, cudaStream_t stream) {
   const long long n = (long long)B * nh * L;  // a multiple of 128: L is
   constexpr int per_block = 256 / (HD / 8);
   if (n / per_block > INT32_MAX) return (int)cudaErrorInvalidValue;
   f32::flash_rows_kernel<HD><<<int(n / per_block), 256, 0, stream>>>(
-      static_cast<const float*>(o), static_cast<const float*>(dout), l, view(vo), view(vdo), di, inv_l, nh, L);
+      static_cast<const float*>(o), static_cast<const float*>(dout), l, view(vo), view(vdo), di, inv_l, nh, L, hd,
+      rows_vec(o, dout, vo, vdo, hd));
   return (int)cudaGetLastError();
 }
 
@@ -3005,74 +3505,96 @@ int rows_fp32(const void* o, const void* dout, const float* l, float* di, float*
 template <int HD>
 int fwd_tf32(const void* q, const void* k, const void* v, void* o, const int* qseg, const int* kvseg, float* l,
              float* m, const long long* vq, const long long* vk, const long long* vv, const long long* vo, int B,
-             int nh, int Lq, int Lk, float scale, int device, cudaStream_t stream) {
+             int nh, int Lq, int Lk, int hd, float scale, int device, cudaStream_t stream) {
   using C = tf::Fwd<HD>;
-  static std::atomic<bool> smem_set[kMaxDevices];
-  CUtensorMap mq, mk, mv;
-  bool hq, hk, hv;
-  if (!make_rows_map(&mq, q, 2, B, nh, Lq, HD, vq, C::ROWS_BLK, &hq) ||
-      !make_rows_map(&mk, k, 2, B, nh, Lk, HD, vk, C::KEYS, &hk) ||
-      !make_rows_map(&mv, v, 2, B, nh, Lk, HD, vv, C::KEYS, &hv))
+  static std::atomic<bool> smem_set[2][kMaxDevices];  // by instantiation: COPIES false, true
+  const void* ptrs[] = {q, k, v};
+  const long long* views[] = {vq, vk, vv};
+  const Heads hs = heads_of(ptrs, views, 3, hd, 4, B, nh);
+  CUtensorMap mq{}, mk{}, mv{};
+  bool hq = false, hk = false, hv = false;
+  if (hs.w == 0 && (!make_rows_map(&mq, q, 2, B, nh, Lq, hd, HD, vq, C::ROWS_BLK, &hq) ||
+                    !make_rows_map(&mk, k, 2, B, nh, Lk, hd, HD, vk, C::KEYS, &hk) ||
+                    !make_rows_map(&mv, v, 2, B, nh, Lk, hd, HD, vv, C::KEYS, &hv)))
     return (int)cudaErrorInvalidValue;
   const long long tiles = (long long)(Lq / C::ROWS_BLK) * nh * B;
   int grid = 0;
   if (int e = persistent_grid(tiles, device, &grid)) return e;
-  const cudaError_t err = allow_smem(tf::flash_fwd_tf32_wgmma_kernel<HD>, (int)C::smem, device, smem_set);
-  if (err != cudaSuccess) return (int)err;
-  tf::flash_fwd_tf32_wgmma_kernel<HD><<<grid, 384, C::smem, stream>>>(
-      mq, mk, mv, int(hq) | int(hk) << 1 | int(hv) << 2, static_cast<float*>(o), view(vo), qseg, kvseg, l, m, nh,
-      Lq, Lk, int(tiles), scale);
-  return (int)cudaGetLastError();
+  auto launch = [&](auto kernel, std::atomic<bool>* done) {
+    const cudaError_t err = allow_smem(kernel, (int)C::smem, device, done);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, 384, C::smem, stream>>>(
+        mq, mk, mv, int(hq) | int(hk) << 1 | int(hv) << 2, static_cast<float*>(o), view(vo), qseg, kvseg, l, m, nh, Lq,
+        Lk, int(tiles), scale, hs);
+    return (int)cudaGetLastError();
+  };
+  return hs.w ? launch(tf::flash_fwd_tf32_wgmma_kernel<HD, true>, smem_set[1])
+                : launch(tf::flash_fwd_tf32_wgmma_kernel<HD, false>, smem_set[0]);
 }
 
 template <int HD>
 int dkv_tf32(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg, const float* inv_l,
              const float* m, const void* dout, const float* di, void* dk, void* dv, const long long* vq,
              const long long* vk, const long long* vv, const long long* vdo, const long long* vdk,
-             const long long* vdv, int B, int nh, int Lq, int Lk, float scale, int device, cudaStream_t stream) {
+             const long long* vdv, int B, int nh, int Lq, int Lk, int hd, float scale, int device,
+             cudaStream_t stream) {
   using C = tf::Dkv<HD>;
-  static std::atomic<bool> smem_set[kMaxDevices];
-  CUtensorMap mq, mk, mv, mo;
-  bool hq, hk, hv, ho;
-  if (!make_rows_map(&mq, q, 2, B, nh, Lq, HD, vq, tf::QT, &hq) ||
-      !make_rows_map(&mk, k, 2, B, nh, Lk, HD, vk, tf::RB, &hk) ||
-      !make_rows_map(&mv, v, 2, B, nh, Lk, HD, vv, tf::RB, &hv) ||
-      !make_rows_map(&mo, dout, 2, B, nh, Lq, HD, vdo, tf::QT, &ho))
+  static std::atomic<bool> smem_set[2][kMaxDevices];  // by instantiation: COPIES false, true
+  const void* ptrs[] = {q, k, v, dout};
+  const long long* views[] = {vq, vk, vv, vdo};
+  const Heads hs = heads_of(ptrs, views, 4, hd, 4, B, nh);
+  CUtensorMap mq{}, mk{}, mv{}, mo{};
+  bool hq = false, hk = false, hv = false, ho = false;
+  if (hs.w == 0 && (!make_rows_map(&mq, q, 2, B, nh, Lq, hd, HD, vq, tf::QT, &hq) ||
+                    !make_rows_map(&mk, k, 2, B, nh, Lk, hd, HD, vk, tf::RB, &hk) ||
+                    !make_rows_map(&mv, v, 2, B, nh, Lk, hd, HD, vv, tf::RB, &hv) ||
+                    !make_rows_map(&mo, dout, 2, B, nh, Lq, hd, HD, vdo, tf::QT, &ho)))
     return (int)cudaErrorInvalidValue;
   const long long tiles = (long long)(Lk / tf::RB) * nh * B;
   int grid = 0;
   if (int e = persistent_grid(tiles, device, &grid)) return e;
-  const cudaError_t err = allow_smem(tf::flash_dkv_tf32_wgmma_kernel<HD>, (int)C::smem, device, smem_set);
-  if (err != cudaSuccess) return (int)err;
-  tf::flash_dkv_tf32_wgmma_kernel<HD><<<grid, 384, C::smem, stream>>>(
-      mq, mk, mv, mo, int(hq) | int(hk) << 1 | int(hv) << 2 | int(ho) << 3, qseg, kvseg, inv_l, m, di,
-      static_cast<float*>(dk), static_cast<float*>(dv), view(vdk), view(vdv), nh, Lq, Lk, int(tiles), scale);
-  return (int)cudaGetLastError();
+  auto launch = [&](auto kernel, std::atomic<bool>* done) {
+    const cudaError_t err = allow_smem(kernel, (int)C::smem, device, done);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, 384, C::smem, stream>>>(
+        mq, mk, mv, mo, int(hq) | int(hk) << 1 | int(hv) << 2 | int(ho) << 3, qseg, kvseg, inv_l, m, di,
+        static_cast<float*>(dk), static_cast<float*>(dv), view(vdk), view(vdv), nh, Lq, Lk, int(tiles), scale, hs);
+    return (int)cudaGetLastError();
+  };
+  return hs.w ? launch(tf::flash_dkv_tf32_wgmma_kernel<HD, true>, smem_set[1])
+                : launch(tf::flash_dkv_tf32_wgmma_kernel<HD, false>, smem_set[0]);
 }
 
 template <int HD>
 int dq_tf32(const void* q, const void* k, const void* v, const int* qseg, const int* kvseg, const float* inv_l,
             const float* m, const void* dout, const float* di, void* dq_, const long long* vq, const long long* vk,
-            const long long* vv, const long long* vdo, const long long* vdq, int B, int nh, int Lq, int Lk,
+            const long long* vv, const long long* vdo, const long long* vdq, int B, int nh, int Lq, int Lk, int hd,
             float scale, int device, cudaStream_t stream) {
   using C = tf::Dq<HD>;
-  static std::atomic<bool> smem_set[kMaxDevices];
-  CUtensorMap mq, mk, mv, mo;
-  bool hq, hk, hv, ho;
-  if (!make_rows_map(&mq, q, 2, B, nh, Lq, HD, vq, tf::RB, &hq) ||
-      !make_rows_map(&mk, k, 2, B, nh, Lk, HD, vk, C::KEYS, &hk) ||
-      !make_rows_map(&mv, v, 2, B, nh, Lk, HD, vv, C::KEYS, &hv) ||
-      !make_rows_map(&mo, dout, 2, B, nh, Lq, HD, vdo, tf::RB, &ho))
+  static std::atomic<bool> smem_set[2][kMaxDevices];  // by instantiation: COPIES false, true
+  const void* ptrs[] = {q, k, v, dout};
+  const long long* views[] = {vq, vk, vv, vdo};
+  const Heads hs = heads_of(ptrs, views, 4, hd, 4, B, nh);
+  CUtensorMap mq{}, mk{}, mv{}, mo{};
+  bool hq = false, hk = false, hv = false, ho = false;
+  if (hs.w == 0 && (!make_rows_map(&mq, q, 2, B, nh, Lq, hd, HD, vq, tf::RB, &hq) ||
+                    !make_rows_map(&mk, k, 2, B, nh, Lk, hd, HD, vk, C::KEYS, &hk) ||
+                    !make_rows_map(&mv, v, 2, B, nh, Lk, hd, HD, vv, C::KEYS, &hv) ||
+                    !make_rows_map(&mo, dout, 2, B, nh, Lq, hd, HD, vdo, tf::RB, &ho)))
     return (int)cudaErrorInvalidValue;
   const long long tiles = (long long)(Lq / tf::RB) * nh * B;
   int grid = 0;
   if (int e = persistent_grid(tiles, device, &grid)) return e;
-  const cudaError_t err = allow_smem(tf::flash_dq_tf32_wgmma_kernel<HD>, (int)C::smem, device, smem_set);
-  if (err != cudaSuccess) return (int)err;
-  tf::flash_dq_tf32_wgmma_kernel<HD><<<grid, 384, C::smem, stream>>>(
-      mq, mk, mv, mo, int(hq) | int(hk) << 1 | int(hv) << 2 | int(ho) << 3, qseg, kvseg, inv_l, m, di,
-      static_cast<float*>(dq_), view(vdq), nh, Lq, Lk, int(tiles), scale);
-  return (int)cudaGetLastError();
+  auto launch = [&](auto kernel, std::atomic<bool>* done) {
+    const cudaError_t err = allow_smem(kernel, (int)C::smem, device, done);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, 384, C::smem, stream>>>(
+        mq, mk, mv, mo, int(hq) | int(hk) << 1 | int(hv) << 2 | int(ho) << 3, qseg, kvseg, inv_l, m, di,
+        static_cast<float*>(dq_), view(vdq), nh, Lq, Lk, int(tiles), scale, hs);
+    return (int)cudaGetLastError();
+  };
+  return hs.w ? launch(tf::flash_dq_tf32_wgmma_kernel<HD, true>, smem_set[1])
+                : launch(tf::flash_dq_tf32_wgmma_kernel<HD, false>, smem_set[0]);
 }
 
 // 0 if `route` is one the dtype and head dim take: routes 0 ("simple", head
@@ -3083,34 +3605,41 @@ int check_route(int dtype, int route, int hd) {
   return ok ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// The inputs a launch takes: route "simple" 16-byte aligned rows (its
+// cp.async copies whole chunks); the others any element-aligned layout
+// (heads_of picks how they are read).
+bool inputs_ok(int route, int dtype, std::initializer_list<std::pair<const void*, const long long*>> xs) {
+  for (const auto& x : xs)
+    if (route == 0 ? !aligned(x.first, x.second) : reinterpret_cast<uintptr_t>(x.first) % (dtype == 2 ? 4 : 2) != 0)
+      return false;
+  return true;
+}
+
 }  // namespace
 
-// The head dims the kernels take (routes "wgmma", "tf32" and the rows
-// kernel; route "simple" 64 alone), for the wrapper's check: up to `n` of
-// them into `out`; returns their count.
-extern "C" int flash_head_dims(int* out, int n) {
-  const int count = int(sizeof(kHeadDims) / sizeof(kHeadDims[0]));
-  for (int i = 0; i < count && i < n; ++i) out[i] = kHeadDims[i];
-  return count;
-}
+// The template a head dim runs on, for the wrapper's check of its own rule
+// (ops/flash_attention.py::template_head_dim): the least of 32, 64 and 128
+// that holds hd, or 0 where the kernels refuse hd (below 1, past 128).
+extern "C" int flash_head_dim_template(int hd) { return head_dim_template(hd); }
 
 // K11.  q (B, nh, Lq, hd), k and v (B, nh, Lk, hd), o like q, each with its
 // (batch, head, row) strides in elements (`vq`..`vo`, three each), unit
-// stride along the head dim, rows 16-byte aligned; segment ids (B, Lq) and
-// (B, Lk) int32, l and m (B, nh, Lq) fp32, all contiguous and 16-byte
-// aligned; Lq and Lk multiples of 128; hd 32, 64 or 128; dtype 0 bf16, 1
-// fp16, 2 fp32; route 1 "wgmma", 0 "simple" (the first design, hd 64 only)
-// for bf16 and fp16, 3 "tf32" for fp32.  `device` is the tensors' card:
-// made current for the launch if it is not, and the caller's restored after.
-// Returns a cudaError_t (0 on success, cudaErrorInvalidValue for a shape or
-// layout it does not take).
+// stride along the head dim; o's rows 16-byte aligned at hd 32, 64 and 128;
+// segment ids (B, Lq) and (B, Lk) int32, l and m (B, nh, Lq) fp32, all
+// contiguous and 16-byte aligned; Lq and Lk multiples of 128; hd 1-128;
+// dtype 0 bf16, 1 fp16, 2 fp32; route 1 "wgmma", 0 "simple" (the first
+// design, hd 64 only, rows 16-byte aligned) for bf16 and fp16, 3 "tf32" for
+// fp32.  `device` is the tensors' card: made current for the launch if it is
+// not, and the caller's restored after.  Returns a cudaError_t (0 on success,
+// cudaErrorInvalidValue for a shape or layout it does not take).
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, void* o, const int* qseg,
                                 const int* kvseg, float* l, float* m, const long long* vq, const long long* vk,
                                 const long long* vv, const long long* vo, int B, int nh, int Lq, int Lk, int hd,
                                 float scale, int dtype, int route, int device, void* stream) {
   if (int e = check_shape(B, nh, Lq, Lk, hd, dtype, device)) return e;
   if (int e = check_route(dtype, route, hd)) return e;
-  if (!aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) || !aligned(o, vo)) return (int)cudaErrorInvalidValue;
+  if (!inputs_ok(route, dtype, {{q, vq}, {k, vk}, {v, vv}}) || !out_ok(o, vo, hd, dtype == 2 ? 4 : 2))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
     if (route == 0)
@@ -3119,19 +3648,20 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, voi
                         : fwd<__half>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk, scale, device, s);
     return by_head_dim(hd, [&](auto h) {
       constexpr int D = decltype(h)::value;
-      if (route == 3) return fwd_tf32<D>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk, scale, device, s);
+      if (route == 3)
+        return fwd_tf32<D>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk, hd, scale, device, s);
       // 192-row blocks where they tile Lq and the head dim leaves three consumer warpgroups their registers, else 128
       if constexpr (D <= 64) {
         if (Lq % wg::Fwd<D, 3>::ROWS_BLK == 0)
           return dtype == 0 ? fwd_wgmma<__nv_bfloat16, D, 3>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh,
-                                                             Lq, Lk, scale, dtype, device, s)
+                                                             Lq, Lk, hd, scale, dtype, device, s)
                             : fwd_wgmma<__half, D, 3>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk,
-                                                      scale, dtype, device, s);
+                                                      hd, scale, dtype, device, s);
       }
       return dtype == 0 ? fwd_wgmma<__nv_bfloat16, D, 2>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq,
-                                                         Lk, scale, dtype, device, s)
+                                                         Lk, hd, scale, dtype, device, s)
                         : fwd_wgmma<__half, D, 2>(q, k, v, o, qseg, kvseg, l, m, vq, vk, vv, vo, B, nh, Lq, Lk,
-                                                  scale, dtype, device, s);
+                                                  hd, scale, dtype, device, s);
     });
   });
 }
@@ -3149,8 +3679,9 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                                     int dtype, int route, int device, void* stream) {
   if (int e = check_shape(B, nh, Lq, Lk, hd, dtype, device)) return e;
   if (int e = check_route(dtype, route, hd)) return e;
-  if (!aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) || !aligned(dout, vdo) || !aligned(dk, vdk) ||
-      !aligned(dv, vdv) || (route != 0 && inv_l == nullptr) || (route == 0 && l == nullptr))
+  const int eb = dtype == 2 ? 4 : 2;
+  if (!inputs_ok(route, dtype, {{q, vq}, {k, vk}, {v, vv}, {dout, vdo}}) || !out_ok(dk, vdk, hd, eb) ||
+      !out_ok(dv, vdv, hd, eb) || (route != 0 && inv_l == nullptr) || (route == 0 && l == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
@@ -3163,11 +3694,11 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
       constexpr int D = decltype(h)::value;
       if (route == 3)
         return dkv_tf32<D>(q, k, v, qseg, kvseg, inv_l, m, dout, di, dk, dv, vq, vk, vv, vdo, vdk, vdv, B, nh, Lq,
-                           Lk, scale, device, s);
+                           Lk, hd, scale, device, s);
       return dtype == 0 ? dkv_wgmma<__nv_bfloat16, D>(q, k, v, qseg, kvseg, inv_l, m, dout, di, dk, dv, vq, vk, vv,
-                                                      vdo, vdk, vdv, B, nh, Lq, Lk, scale, dtype, device, s)
+                                                      vdo, vdk, vdv, B, nh, Lq, Lk, hd, scale, dtype, device, s)
                         : dkv_wgmma<__half, D>(q, k, v, qseg, kvseg, inv_l, m, dout, di, dk, dv, vq, vk, vv, vdo, vdk,
-                                               vdv, B, nh, Lq, Lk, scale, dtype, device, s);
+                                               vdv, B, nh, Lq, Lk, hd, scale, dtype, device, s);
     });
   });
 }
@@ -3179,14 +3710,14 @@ extern "C" int flash_bwd_rows_launch(const void* o, const void* dout, const floa
                                      const long long* vo, const long long* vdo, int B, int nh, int L, int hd,
                                      int dtype, int device, void* stream) {
   if (int e = check_shape(B, nh, L, L, hd, dtype, device)) return e;
-  if (!aligned(o, vo) || !aligned(dout, vdo)) return (int)cudaErrorInvalidValue;
+  if (!inputs_ok(1, dtype, {{o, vo}, {dout, vdo}})) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
     return by_head_dim(hd, [&](auto h) {
       constexpr int D = decltype(h)::value;
-      if (dtype == 2) return rows_fp32<D>(o, dout, l, di, inv_l, vo, vdo, B, nh, L, s);
-      return dtype == 0 ? rows<__nv_bfloat16, D>(o, dout, l, di, inv_l, vo, vdo, B, nh, L, s)
-                        : rows<__half, D>(o, dout, l, di, inv_l, vo, vdo, B, nh, L, s);
+      if (dtype == 2) return rows_fp32<D>(o, dout, l, di, inv_l, vo, vdo, B, nh, L, hd, s);
+      return dtype == 0 ? rows<__nv_bfloat16, D>(o, dout, l, di, inv_l, vo, vdo, B, nh, L, hd, s)
+                        : rows<__half, D>(o, dout, l, di, inv_l, vo, vdo, B, nh, L, hd, s);
     });
   });
 }
@@ -3202,7 +3733,7 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, 
                                    void* stream) {
   if (int e = check_shape(B, nh, Lq, Lk, hd, dtype, device)) return e;
   if (int e = check_route(dtype, route, hd)) return e;
-  if (!aligned(q, vq) || !aligned(k, vk) || !aligned(v, vv) || !aligned(dout, vdo) || !aligned(dq_, vdq) ||
+  if (!inputs_ok(route, dtype, {{q, vq}, {k, vk}, {v, vv}, {dout, vdo}}) || !out_ok(dq_, vdq, hd, dtype == 2 ? 4 : 2) ||
       (route != 0 && inv_l == nullptr) || (route == 0 && l == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -3215,12 +3746,12 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v, 
     return by_head_dim(hd, [&](auto h) {
       constexpr int D = decltype(h)::value;
       if (route == 3)
-        return dq_tf32<D>(q, k, v, qseg, kvseg, inv_l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B, nh, Lq, Lk, scale,
-                          device, s);
+        return dq_tf32<D>(q, k, v, qseg, kvseg, inv_l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B, nh, Lq, Lk, hd,
+                          scale, device, s);
       return dtype == 0 ? dq_wgmma<__nv_bfloat16, D>(q, k, v, qseg, kvseg, inv_l, m, dout, di, dq_, vq, vk, vv, vdo,
-                                                     vdq, B, nh, Lq, Lk, scale, dtype, device, s)
+                                                     vdq, B, nh, Lq, Lk, hd, scale, dtype, device, s)
                         : dq_wgmma<__half, D>(q, k, v, qseg, kvseg, inv_l, m, dout, di, dq_, vq, vk, vv, vdo, vdq, B,
-                                              nh, Lq, Lk, scale, dtype, device, s);
+                                              nh, Lq, Lk, hd, scale, dtype, device, s);
     });
   });
 }

@@ -47,8 +47,16 @@ and "tf32" read the rows kernel's 1 / l.  Each launch is counted in its
 :data:`dkv_head_dim_launches`, :data:`dq_head_dim_launches`, and the rows
 kernel's fp32 launches :data:`rows_fp32_launches`); a shape they do not take raises
 ``NotImplementedError`` (:func:`kernel_refusal`), and a failed launch raises.
-The kernels take head dims 32, 64 and 128 (:data:`HEAD_DIMS`, each a
-template instantiation in the .cu); route "simple" takes 64 alone.
+The kernels take every head dim from 1 to 128 (:data:`MAX_HEAD_DIM`): each
+runs on the least of the templates :data:`HEAD_DIMS` (32, 64, 128, each an
+instantiation in the .cu) that holds it (:func:`template_head_dim`), the
+columns past it zeros in shared memory alone; launches are counted by both
+(:data:`fwd_head_dim_launches`, :data:`fwd_template_launches`, ...).  The
+multiples of 128 above 128, which the JAX kernel also takes, are refused.
+Route "simple" takes 64 alone.  Inputs are read in their own layout (unit
+stride along the head dim): where a head's rows are 16-byte aligned the
+kernels' tensor maps load them, elsewhere (hd 26 in bf16) the kernels'
+producer warps copy them; no padded copy is made outside the kernels.
 Outputs and gradients are (B, nh, L, hd) views of (B, L, nh, hd) buffers,
 the layout the model's heads come from, so its reshapes copy nothing.
 """
@@ -65,7 +73,8 @@ from colbert_tpu_torch.ops._build import LaunchCounter
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)  # the JAX kernel's DEFAULT_MASK_VALUE
 BLOCK = 128  # the JAX kernels' key (and query) block; L must be a multiple of it on the card
-HEAD_DIMS = (32, 64, 128)  # the head dims the kernels take; mirrored by flash_head_dims() in the .cu
+HEAD_DIMS = (32, 64, 128)  # the kernels' templates: a head dim runs on the least that holds it
+MAX_HEAD_DIM = HEAD_DIMS[-1]  # the kernels take head dims 1 .. 128; the .cu's flash_head_dim_template() agrees
 SIMPLE_HEAD_DIM = 64  # route "simple"'s one head dim
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
@@ -114,12 +123,16 @@ def flash_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 def flash_di_card_order(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """:func:`flash_di` in the order the card's rows kernel sums it: each
-    8-element chunk of a row (a lane's) in order from 0, then the hd / 8
-    chunk sums pairwise at distance hd / 16, ..., 2, 1 (its lanes'
-    shuffles).  The products of two bf16 or fp16 values are exact in fp32,
-    so only the order rounds; fp32 products round once each, here as on the
-    card."""
-    x = (o.float() * do.float()).unflatten(-1, (-1, 8))
+    8-element chunk of a row (a lane's) in order from 0, then the t / 8
+    chunk sums pairwise at distance t / 16, ..., 2, 1 (its lanes'
+    shuffles), t the head dim's template (:func:`template_head_dim`; the
+    products past the head dim are zeros).  The products of two bf16 or
+    fp16 values are exact in fp32, so only the order rounds; fp32 products
+    round once each, here as on the card."""
+    hd = o.shape[-1]
+    x = o.float() * do.float()
+    t = template_head_dim(hd) or hd
+    x = torch.nn.functional.pad(x, (0, t - hd)).unflatten(-1, (-1, 8))
     c = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
     for e in range(8):
         c = c + x[..., e]
@@ -209,17 +222,23 @@ TF32_ROUTE = "tf32"
 _ROUTE_CODES = {"simple": 0, "wgmma": 1, TF32_ROUTE: 3}
 
 
+def template_head_dim(hd: int) -> Optional[int]:
+    """The template (:data:`HEAD_DIMS`) head dim ``hd`` runs on: the least
+    that holds it; None below 1 and past :data:`MAX_HEAD_DIM`."""
+    return next((t for t in HEAD_DIMS if hd <= t), None) if hd >= 1 else None
+
+
 def kernel_refusal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Optional[str]:
     """Why the kernels do not take these CUDA inputs, or None: they take bf16,
-    fp16 or fp32 (one dtype for all three), head dims 32, 64 and 128 (one for
-    all three), any B and nh, and q and kv lengths that are multiples of 128
-    (the JAX kernel's block)."""
+    fp16 or fp32 (one dtype for all three), head dims 1 to 128 (one for all
+    three; the JAX kernel's multiples of 128 above it are refused), any B
+    and nh, and q and kv lengths that are multiples of 128 (the JAX kernel's
+    block)."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         return f"dtypes {q.dtype}, {k.dtype}, {v.dtype} (the kernels take bf16, fp16 or fp32)"
     hd = q.shape[-1]
-    if hd not in HEAD_DIMS or k.shape[-1] != hd or v.shape[-1] != hd:
-        return (f"head dim {hd} (k {k.shape[-1]}, v {v.shape[-1]}; the kernels take "
-                f"{', '.join(map(str, HEAD_DIMS))})")
+    if template_head_dim(hd) is None or k.shape[-1] != hd or v.shape[-1] != hd:
+        return (f"head dim {hd} (k {k.shape[-1]}, v {v.shape[-1]}; the kernels take 1 to {MAX_HEAD_DIM})")
     if q.shape[2] % BLOCK or k.shape[2] % BLOCK or q.shape[2] == 0 or k.shape[2] == 0:
         return f"lengths {q.shape[2]}, {k.shape[2]} (the kernels take multiples of {BLOCK})"
     return None
@@ -235,17 +254,20 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
-def bind(lib: ctypes.CDLL, expect: Optional[Tuple[int, ...]] = HEAD_DIMS) -> None:
+def bind(lib: ctypes.CDLL, check: bool = True) -> None:
     """Set the C entry points' argtypes on a library built from
-    ``csrc/flash_attention.cu``; RuntimeError unless it takes the head dims
-    ``expect`` (None: any)."""
+    ``csrc/flash_attention.cu``; with ``check``, RuntimeError unless its rule
+    for the head dims (``flash_head_dim_template``: the template each runs
+    on, 0 for one it refuses) is :func:`template_head_dim`'s at every head
+    dim from 0 to 2 * :data:`MAX_HEAD_DIM` + 1."""
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_head_dims.argtypes, lib.flash_head_dims.restype = [ctypes.POINTER(ctypes.c_int), i], i
-    dims = (ctypes.c_int * 8)()
-    n = lib.flash_head_dims(dims, len(dims))
-    if expect is not None and tuple(dims[:n]) != expect:
-        raise RuntimeError(f"csrc/flash_attention.cu takes head dims {tuple(dims[:n])}, "
-                           f"ops/flash_attention.py expects {expect}")
+    if check:
+        rule = lib.flash_head_dim_template
+        rule.argtypes, rule.restype = [i], i
+        off = {hd: rule(hd) for hd in range(2 * MAX_HEAD_DIM + 2) if rule(hd) != (template_head_dim(hd) or 0)}
+        if off:
+            raise RuntimeError(f"csrc/flash_attention.cu runs head dims on other templates than "
+                               f"ops/flash_attention.py's rule: {off}")
     tail = [i, i, i, i, i, f, i, i, ptr]  # B, nh, Lq, Lk, hd, sm_scale, dtype, device, stream
     routed = tail[:7] + [i] + tail[7:]  # ..., dtype, route, device, stream
     lib.flash_fwd_launch.argtypes = [ptr] * 8 + [_VIEW] * 4 + routed
@@ -271,11 +293,14 @@ def _view(t: torch.Tensor):
     return _VIEW(t.stride(0), t.stride(1), t.stride(2))
 
 
-def _kernel_input(t: torch.Tensor) -> torch.Tensor:
-    """``t`` as the kernels read it: unit stride along the head dim, 16-byte
-    rows (strides multiples of 8 elements), 16-byte aligned; else a copy."""
-    ok = (t.stride(3) == 1 and t.data_ptr() % 16 == 0
-          and all(s % 8 == 0 for s in t.stride()[:3]))
+def _kernel_input(t: torch.Tensor, route: str = "wgmma") -> torch.Tensor:
+    """``t`` as the kernels read it: unit stride along the head dim, any
+    other strides (routes "wgmma" and "tf32" and the rows kernel read a
+    head's rows with tensor maps where they are 16-byte aligned, else by
+    their own copies); route "simple" also 16-byte rows (strides multiples
+    of 8 elements), 16-byte aligned; else a contiguous copy."""
+    ok = t.stride(3) == 1 and (route != "simple" or (t.data_ptr() % 16 == 0
+                                                     and all(s % 8 == 0 for s in t.stride()[:3])))
     return t if ok else t.contiguous()
 
 
@@ -320,7 +345,7 @@ def _route(q: torch.Tensor, route: Optional[str], backward: bool = False) -> str
     route = kernel_route(q.dtype, route, backward)
     if route == "simple" and q.shape[-1] != SIMPLE_HEAD_DIM:
         raise NotImplementedError(f"flash attention route 'simple' takes head dim {SIMPLE_HEAD_DIM} only, not "
-                                  f"{q.shape[-1]} (routes 'wgmma' and 'tf32' take {HEAD_DIMS})")
+                                  f"{q.shape[-1]} (routes 'wgmma' and 'tf32' take 1 to {MAX_HEAD_DIM})")
     return route
 
 
@@ -336,7 +361,7 @@ def _launch_forward(q, k, v, q_seg, kv_seg, sm_scale: float, route: Optional[str
     ``route`` as :func:`kernel_route` takes it."""
     launch = _fns()[0]
     route = _route(q, route)
-    q, k, v = (_kernel_input(t) for t in (q, k, v))
+    q, k, v = (_kernel_input(t, route) for t in (q, k, v))
     q_seg, kv_seg = _segments(q_seg, kv_seg, q.device)
     B, nh, Lq, hd = q.shape
     Lk = k.shape[2]
@@ -350,6 +375,7 @@ def _launch_forward(q, k, v, q_seg, kv_seg, sm_scale: float, route: Optional[str
     fwd_launches.add()
     fwd_route_launches[route].add()
     fwd_head_dim_launches[hd].add()
+    fwd_template_launches[template_head_dim(hd)].add()
     return o, l, m
 
 
@@ -359,8 +385,8 @@ def _rows_input(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _backward_inputs(q, k, v, q_seg, kv_seg, l, m, do, di):
-    q, k, v, do = (_kernel_input(t) for t in (q, k, v, do))
+def _backward_inputs(q, k, v, q_seg, kv_seg, l, m, do, di, route):
+    q, k, v, do = (_kernel_input(t, route) for t in (q, k, v, do))
     q_seg, kv_seg = _segments(q_seg, kv_seg, q.device)
     l, m, di = (_rows_input(t) for t in (l, m, di))
     return q, k, v, q_seg, kv_seg, l, m, do, di
@@ -399,7 +425,7 @@ def _launch_dkv(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di, route: Op
     "wgmma" and "tf32" read 1 / l (:func:`_route_inv_l`)."""
     launch = _fns()[1]
     route = _route(q, route, backward=True)
-    q, k, v, q_seg, kv_seg, l, m, do, di = _backward_inputs(q, k, v, q_seg, kv_seg, l, m, do, di)
+    q, k, v, q_seg, kv_seg, l, m, do, di = _backward_inputs(q, k, v, q_seg, kv_seg, l, m, do, di, route)
     inv_l = _route_inv_l(route, l, inv_l)
     B, nh, Lq, hd = q.shape
     Lk = k.shape[2]
@@ -412,6 +438,7 @@ def _launch_dkv(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di, route: Op
     dkv_launches.add()
     dkv_route_launches[route].add()
     dkv_head_dim_launches[hd].add()
+    dkv_template_launches[template_head_dim(hd)].add()
     return dk, dv
 
 
@@ -421,7 +448,7 @@ def _launch_dq(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di, route: Opt
     as K12's, those but "simple" reading 1 / l (:func:`_route_inv_l`)."""
     launch = _fns()[2]
     route = _route(q, route, backward=True)
-    q, k, v, q_seg, kv_seg, l, m, do, di = _backward_inputs(q, k, v, q_seg, kv_seg, l, m, do, di)
+    q, k, v, q_seg, kv_seg, l, m, do, di = _backward_inputs(q, k, v, q_seg, kv_seg, l, m, do, di, route)
     inv_l = _route_inv_l(route, l, inv_l)
     B, nh, Lq, hd = q.shape
     Lk = k.shape[2]
@@ -434,6 +461,7 @@ def _launch_dq(q, k, v, q_seg, kv_seg, sm_scale: float, l, m, do, di, route: Opt
     dq_launches.add()
     dq_route_launches[route].add()
     dq_head_dim_launches[hd].add()
+    dq_template_launches[template_head_dim(hd)].add()
     return dq
 
 
@@ -501,10 +529,14 @@ dq_launches = LaunchCounter()
 fwd_route_launches = {r: LaunchCounter() for r in (*ROUTES, TF32_ROUTE)}
 dkv_route_launches = {r: LaunchCounter() for r in (*ROUTES, TF32_ROUTE)}
 dq_route_launches = {r: LaunchCounter() for r in (*ROUTES, TF32_ROUTE)}
-#: K11's, K12's and K13's launches by head dim (:data:`HEAD_DIMS`)
-fwd_head_dim_launches = {hd: LaunchCounter() for hd in HEAD_DIMS}
-dkv_head_dim_launches = {hd: LaunchCounter() for hd in HEAD_DIMS}
-dq_head_dim_launches = {hd: LaunchCounter() for hd in HEAD_DIMS}
+#: K11's, K12's and K13's launches by the caller's head dim (1 .. :data:`MAX_HEAD_DIM`)
+fwd_head_dim_launches = {hd: LaunchCounter() for hd in range(1, MAX_HEAD_DIM + 1)}
+dkv_head_dim_launches = {hd: LaunchCounter() for hd in range(1, MAX_HEAD_DIM + 1)}
+dq_head_dim_launches = {hd: LaunchCounter() for hd in range(1, MAX_HEAD_DIM + 1)}
+#: K11's, K12's and K13's launches by the template they ran on (:data:`HEAD_DIMS`)
+fwd_template_launches = {t: LaunchCounter() for t in HEAD_DIMS}
+dkv_template_launches = {t: LaunchCounter() for t in HEAD_DIMS}
+dq_template_launches = {t: LaunchCounter() for t in HEAD_DIMS}
 #: launches of the backward's rows kernel (di and 1 / l), all, and those on fp32 inputs
 rows_launches = LaunchCounter()
 rows_fp32_launches = LaunchCounter()

@@ -3,14 +3,16 @@
 Builds ``colbert_tpu_torch/csrc/flash_attention.cu`` and the
 ``colbert_tpu_torch/csrc`` of another checkout under DIR (with that
 checkout's C interface: the one that passes the head dim, if its library
-exports ``flash_head_dims``, else the older one that passes none and takes
-64 alone), then:
+exports ``flash_head_dims`` or ``flash_head_dim_template``, else the older
+one that passes none and takes 64 alone), then:
 
 * at head dim 64, every output of the two builds (o, l, m, di, 1 / l, dk,
   dv, dq) bit-equal, bf16, fp16 and fp32, at two shapes in the models'
   layout with ragged segments and query segments no key has;
 * with ``--time``, K11, the rows kernel, K12 and K13 of both builds at the
-  retriever's doc pass (68, 12, 384, 64), bf16 and fp32, timed cold as
+  retriever's doc pass (68, 12, 384, 64) and, where the other build takes
+  head dims, at (68, 8, 384, 128) (``--dims``: at the head dims given, 12
+  heads up to 64 and 8 above, as phase 8a has them), bf16 and fp32, timed cold as
   ``chip_smoke.py`` times them (CUDA events, input copies in turn past
   twice the L2), the builds in turns (this, the parent, the parent, this)
   four times, the medians of each build's eight runs kept;
@@ -22,7 +24,7 @@ exports ``flash_head_dims``, else the older one that passes none and takes
 Writes ``chiprun_out/flash_parent.json``; exits 1 if any output differs.
 
     git archive HEAD colbert_tpu_torch/csrc | tar -x -C .runs/parent
-    python3 scripts/flash_parent.py .runs/parent [--time] [--sass]
+    python3 scripts/flash_parent.py .runs/parent [--time [--dims 26,80,96,128]] [--sass]
 """
 
 from __future__ import annotations
@@ -50,16 +52,17 @@ def demangled(names) -> dict:
 
 def parent_fns(csrc: Path, so: Path):
     """The parent checkout's four C entry points, built from ``csrc`` into
-    ``so``, as functions of this checkout's argument lists."""
+    ``so``, as functions of this checkout's argument lists, and whether its
+    interface passes the head dim (else it takes 64 alone)."""
     from colbert_tpu_torch.ops import _build, flash_attention as fa
 
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, f"-I{csrc}", "-o", str(so), str(csrc / "flash_attention.cu")],
                    check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(so))
     fns = (lib.flash_fwd_launch, lib.flash_bwd_dkv_launch, lib.flash_bwd_dq_launch, lib.flash_bwd_rows_launch)
-    if hasattr(lib, "flash_head_dims"):  # the interface that passes the head dim, as this checkout's
-        fa.bind(lib, expect=None)
-        return fns
+    if hasattr(lib, "flash_head_dims") or hasattr(lib, "flash_head_dim_template"):  # it passes the head dim
+        fa.bind(lib, check=False)
+        return fns, True
     # the interface before it: no head dim after the lengths, and 64 alone
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     view = ctypes.c_longlong * 3
@@ -75,14 +78,14 @@ def parent_fns(csrc: Path, so: Path):
     def dropping(fn, at):
         return lambda *a: fn(*a[:at], *a[at + 1:])
     # the head dim's place in this checkout's lists: after Lk (K11: 16, K12: 22, K13: 20), after L (rows: 10)
-    return tuple(dropping(fn, at) for fn, at in zip(fns, (16, 22, 20, 10)))
+    return tuple(dropping(fn, at) for fn, at in zip(fns, (16, 22, 20, 10))), False
 
 
-def inputs(device, dtype, B, nh, L, seed, unseen=False):
+def inputs(device, dtype, B, nh, L, seed, unseen=False, hd=64):
     import torch
 
     g = torch.Generator(device).manual_seed(seed)
-    heads = lambda: torch.randn((B, L, nh, 64), generator=g, device=device).to(dtype).transpose(1, 2)
+    heads = lambda: torch.randn((B, L, nh, hd), generator=g, device=device).to(dtype).transpose(1, 2)
     q, k, v, do = heads(), heads(), heads(), heads()
     lengths = torch.randint(1, L + 1, (B,), generator=g, device=device)
     lengths[0] = L
@@ -124,15 +127,16 @@ def parent_same(device, fns_new, fns_old, dtype, B, nh, L, seed) -> dict:
     return {"shape": [B, nh, L, 64], "dtype": str(dtype).split(".")[-1], "equal": equal, "ok": all(equal.values())}
 
 
-def time_against_parent(device, fns_new, fns_old, dtype, rounds=4) -> dict:
-    """Cold ms of K11, the rows kernel, K12 and K13 at (68, 12, 384, 64) for
+def time_against_parent(device, fns_new, fns_old, dtype, rounds=4, hd=64) -> dict:
+    """Cold ms of K11, the rows kernel, K12 and K13 at (68, nh, 384, hd) for
     each build, in turns; the medians of each build's ``2 * rounds`` runs."""
     import numpy as np
 
     import chip_smoke
     from colbert_tpu_torch.ops import flash_attention as fa
 
-    args, do = inputs(device, dtype, 68, 12, 384, seed=68 * 384)
+    nh = 12 if hd <= 64 else 8  # phase 8a's shapes: (68, 12, 384, 26 / 32 / 64), (68, 8, 384, 80 / 96 / 128)
+    args, do = inputs(device, dtype, 68, nh, 384, seed=68 * 384, hd=hd)
     q, k, v, q_seg, seg, scale = args
     fa._resolved = fns_new
     o, l, m, di, inv_l = run_kernels(args, do)
@@ -152,7 +156,7 @@ def time_against_parent(device, fns_new, fns_old, dtype, rounds=4) -> dict:
             for key, (fn, xs) in parts.items():
                 runs[which][key].append(chip_smoke.time_ms(chip_smoke.in_turn(fn, xs), warmup=len(xs) + 2))
     fa._resolved = fns_new
-    return {"dtype": str(dtype).split(".")[-1], "shape": [68, 12, 384, 64], "cold_copies": n, "runs": runs,
+    return {"dtype": str(dtype).split(".")[-1], "shape": [68, nh, 384, hd], "cold_copies": n, "runs": runs,
             "ms": {which: {key: float(np.median(ts)) for key, ts in r.items()} for which, r in runs.items()}}
 
 
@@ -176,6 +180,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parent", type=Path, help="a checkout whose colbert_tpu_torch/csrc to hold head dim 64 to")
     ap.add_argument("--time", action="store_true", help="time head dim 64 against the parent")
+    ap.add_argument("--dims", default=None,
+                    help="with --time, the head dims to time, comma-separated (default 64, and 128 where the "
+                         "other build takes head dims)")
     ap.add_argument("--sass", action="store_true", help="the head-dim-64 kernels' SASS of both builds")
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -195,7 +202,7 @@ def main() -> int:
     build = ROOT / ".runs" / "flash_parent"
     build.mkdir(parents=True, exist_ok=True)
     so_old = build / "parent_flash_attention.so"
-    fns_old = parent_fns(a.parent / "colbert_tpu_torch" / "csrc", so_old)
+    fns_old, takes_hd = parent_fns(a.parent / "colbert_tpu_torch" / "csrc", so_old)
     print(f"[build] both builds in {time.perf_counter() - t0:.1f} s", flush=True)
     out = {"card": label, "parent": []}
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
@@ -220,8 +227,11 @@ def main() -> int:
             for k, v in out["sass"][which].items():
                 print(f"[sass] {which} {k}: {json.dumps(v)}", flush=True)
     if a.time:
-        out["times"] = [time_against_parent(device, fns_new, fns_old, dtype)
-                        for dtype in (torch.bfloat16, torch.float32)]
+        dims = (64, 128) if takes_hd else (64,)  # an older parent takes 64 alone
+        if a.dims:
+            dims = tuple(int(d) for d in a.dims.split(","))
+        out["times"] = [time_against_parent(device, fns_new, fns_old, dtype, hd=hd)
+                        for hd in dims for dtype in (torch.bfloat16, torch.float32)]
         for r in out["times"]:
             print(f"[time] {r['dtype']} {r['shape']} cold ms, medians: {json.dumps(r['ms'])} [{label}]", flush=True)
     ok = all(r["ok"] for r in out["parent"])

@@ -127,8 +127,10 @@ EX2 = """  float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(__fmul_rn(x, 1.4426950408889634f)));
   return y;
 """
-K12_STORES = """      store_rows_staged<T, HD>(dK + b * vdk.sb + h * vdk.sh + (long long)key0 * vdk.sl, vdk.sl, dk, own, lane);
-      store_rows_staged<T, HD>(dV + b * vdv.sb + h * vdv.sh + (long long)key0 * vdv.sl, vdv.sl, dv, own, lane);
+K12_STORES = """      store_rows_staged<T, HD, COPIES>(dK + b * vdk.sb + h * vdk.sh + (long long)key0 * vdk.sl, vdk.sl, dk, own,
+                                       lane, hs.d);
+      store_rows_staged<T, HD, COPIES>(dV + b * vdv.sb + h * vdv.sh + (long long)key0 * vdv.sl, vdv.sl, dv, own,
+                                       lane, hs.d);
 """
 K12_ROW_LOADS = """          bulk_load(rt, m_in + rows0 + qt * QT, QT * 4, &full[stage]);
           bulk_load(rt + QT * 4, inv_l + rows0 + qt * QT, QT * 4, &full[stage]);

@@ -141,8 +141,9 @@ def test_plain_forward_matches_jax_kernel(L, pad, dtype):
     _plain_forward_matches_jax_kernel(L, pad, dtype)
 
 
-# the other head dims the kernels take: 32 (MiniLM-L12-H384's) and 128 (the JAX kernel's multiples of 128)
-@pytest.mark.parametrize("hd", [32, 128])
+# the other head dims the kernels take: 32 (MiniLM-L12-H384's), 128 (the JAX kernel's multiples of 128),
+# 26 (TinyBERT-4L-zh's: on the 32 template, not a multiple of 8) and 96 (on the 128 template)
+@pytest.mark.parametrize("hd", [32, 128, 26, 96])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("L,pad", [(128, 100), (256, 129), (384, 200), (384, None)])
 def test_plain_forward_matches_jax_kernel_at_head_dims(L, pad, dtype, hd):
@@ -179,7 +180,7 @@ def test_plain_backward_matches_jax_grad(L, pad, dtype):
     _plain_backward_matches_jax_grad(L, pad, dtype)
 
 
-@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("hd", [32, 128, 26, 96])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("L,pad", [(128, 100), (384, 200)])
 def test_plain_backward_matches_jax_grad_at_head_dims(L, pad, dtype, hd):
@@ -207,20 +208,25 @@ def test_autograd_function_is_the_plain_pair():
 
 @pytest.mark.parametrize("shape,dtype,why", [
     ((2, 12, 384, 32), torch.bfloat16, None),
-    ((2, 12, 384, 80), torch.bfloat16, "head dim 80"),
+    ((2, 12, 384, 80), torch.bfloat16, None),
     ((2, 4, 256, 256), torch.float32, "head dim 256"),
-    ((2, 12, 384, 26), torch.float16, "head dim 26"),
+    ((2, 12, 384, 26), torch.float16, None),
     ((2, 8, 384, 128), torch.bfloat16, None),
     ((2, 12, 384, 64), torch.float64, "torch.float64"),
     ((2, 12, 200, 64), torch.bfloat16, "lengths 200"),
     ((2, 12, 384, 64), torch.float32, None),
     ((2, 12, 384, 64), torch.bfloat16, None),
     ((3, 16, 128, 64), torch.float16, None),
+    ((2, 2, 128, 130), torch.bfloat16, "head dim 130"),
+    ((2, 2, 128, 192), torch.float32, "head dim 192"),
+    ((2, 12, 384, 26), torch.bfloat16, None),
+    ((2, 4, 256, 1), torch.float32, None),
 ])
 def test_kernel_refusal_rule(shape, dtype, why):
-    """What the kernels refuse on a CUDA tensor (bf16, fp16 or fp32, hd 32,
-    64 or 128, L a multiple of 128), read from the wrapper's rule; the CPU
-    runs any of them."""
+    """What the kernels refuse on a CUDA tensor (bf16, fp16 or fp32, hd 1 to
+    128, L a multiple of 128; the JAX kernel's 256 and the head dims it
+    refuses too, 130 and 192, refused), read from the wrapper's rule; the
+    CPU runs any of them."""
     q = torch.zeros(shape, dtype=dtype)
     got = fa.kernel_refusal(q, q, q)
     assert (got is None) if why is None else (why in got)
@@ -260,9 +266,11 @@ def _ids(seed, B, L):
     return ids, attn
 
 
-# widths whose head dim is 32 (four heads of 128) and 128 (two of 256), beside SMALL's 64
-HEAD_DIM_WIDTHS = {32: dict(hidden_size=128, num_heads=4), 128: dict(hidden_size=256, num_heads=2,
-                                                                       intermediate_size=512)}
+# widths whose head dim is 32 (four heads of 128), 128 (two of 256) and 26 (TinyBERT-4L-zh's twelve heads
+# of 312, its intermediate 1200; two of its four layers and SMALL's vocab), beside SMALL's 64
+HEAD_DIM_WIDTHS = {32: dict(hidden_size=128, num_heads=4),
+                   128: dict(hidden_size=256, num_heads=2, intermediate_size=512),
+                   26: dict(hidden_size=312, num_heads=12, intermediate_size=1200)}
 
 
 def _jax_params(**kw):
@@ -319,10 +327,12 @@ def test_colbert_with_flash_matches_jax(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("hd", [32, 128, 26])
 def test_colbert_with_flash_matches_jax_at_head_dims(hd, dtype):
     """As test_colbert_with_flash_matches_jax at head dims 32 (hidden 128, 4
-    heads) and 128 (hidden 256, 2 heads)."""
+    heads), 128 (hidden 256, 2 heads) and 26 (hidden 312, 12 heads: the
+    weights carried across by ``state_dict_from_jax_params`` at those
+    widths)."""
     _colbert_with_flash_matches_jax(dtype, **HEAD_DIM_WIDTHS[hd])
 
 
@@ -387,9 +397,9 @@ def test_train_step_gradients_with_flash_match_jax():
     _train_step_gradients_with_flash_match_jax()
 
 
-@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("hd", [32, 128, 26])
 def test_train_step_gradients_with_flash_match_jax_at_head_dims(hd):
-    """As test_train_step_gradients_with_flash_match_jax at head dims 32 and 128."""
+    """As test_train_step_gradients_with_flash_match_jax at head dims 32, 128 and 26."""
     _train_step_gradients_with_flash_match_jax(**HEAD_DIM_WIDTHS[hd])
 
 

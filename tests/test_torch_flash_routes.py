@@ -13,6 +13,7 @@ JAX's di; bit-equal to an independent numpy emulation of the kernel's lanes.
 
 import contextlib
 import inspect
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -303,13 +304,14 @@ def test_fp32_forward_launch_arguments_by_route(monkeypatch, route, want_code):
         r: int(r == "tf32") for r in fa.fwd_route_launches}
 
 
-@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("hd", [32, 128, 26, 80])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_launches_pass_the_head_dim(monkeypatch, dtype, hd):
-    """At head dims 32 and 128 each launch hands its C entry point the head
-    dim (after the lengths) and q's strides in the models' layout, on the
-    default route ("wgmma" for bf16, "tf32" for fp32); the rows kernel too.
-    The C entry points are stood in."""
+    """At head dims 32, 128, 26 and 80 each launch hands its C entry point the
+    head dim (after the lengths) and q itself, no copy, with its strides in
+    the models' layout, on the default route ("wgmma" for bf16, "tf32" for
+    fp32); the rows kernel too; each launch is counted at the head dim and
+    at the template it runs on.  The C entry points are stood in."""
     B, nh, L = 2, 3, 256
     g = torch.Generator().manual_seed(hd)
     q, k, v, do = (torch.randn((B, L, nh, hd), generator=g).to(dtype).transpose(1, 2) for _ in range(4))
@@ -327,10 +329,19 @@ def test_launches_pass_the_head_dim(monkeypatch, dtype, hd):
     monkeypatch.setattr(fa, "_fns", lambda: tuple(stand_in(n) for n in ("fwd", "dkv", "dq", "rows")))
     monkeypatch.setattr(fa, "_device_stream", lambda t: (0, 0))
     code = 3 if dtype == torch.float32 else 1
+    counted = [c[key] for c, key in ((fa.fwd_head_dim_launches, hd), (fa.dkv_head_dim_launches, hd),
+                                     (fa.dq_head_dim_launches, hd),
+                                     (fa.fwd_template_launches, fa.template_head_dim(hd)),
+                                     (fa.dkv_template_launches, fa.template_head_dim(hd)),
+                                     (fa.dq_template_launches, fa.template_head_dim(hd)))]
+    before = [c.value for c in counted]
     fa._launch_forward(q, k, v, seg, seg, SCALE)
     fa._launch_dkv(q, k, v, seg, seg, SCALE, l, m, do, di)
     fa._launch_dq(q, k, v, seg, seg, SCALE, l, m, do, di)
     fa._launch_rows(q, do, l)
+    assert [c.value - b for c, b in zip(counted, before)] == [1] * 6
+    assert got["fwd"][:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert got["dkv"][8] == got["dq"][8] == do.data_ptr()
     assert got["fwd"][12:19] == (B, nh, L, L, hd, SCALE, int(dtype == torch.float32) * 2) and got["fwd"][19] == code
     assert got["dkv"][18:24] == (B, nh, L, L, hd, SCALE) and got["dkv"][25] == code
     assert got["dq"][16:22] == (B, nh, L, L, hd, SCALE) and got["dq"][23] == code
@@ -433,3 +444,38 @@ def test_card_order_di_matches_flash_di_and_jax(L, pad, dtype):
     assert got.dtype == torch.float32 and got.shape == (2, 2, L)
     assert bool(((got - fa.flash_di(ot, dot)).abs() <= bound).all())
     assert bool(((got - di_jax).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("hd", [26, 25, 8, 100, 127])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_card_order_below_a_template_is_the_padded_lanes(dtype, hd):
+    """Below a template the rows kernel's lanes cover the template's columns,
+    those past the head dim zeros: ``flash_di_card_order`` at hd is the
+    lanes' order on o and do padded with zeros to the template (the padding
+    lives in this check alone)."""
+    rng = np.random.default_rng(11 + hd)
+    o, do = (torch.from_numpy(rng.normal(0, 3, (2, 3, 128, hd)).astype(np.float32)).to(getattr(torch, dtype))
+             for _ in range(2))
+    t = fa.template_head_dim(hd)
+    pad = lambda x: torch.nn.functional.pad(x, (0, t - hd))
+    assert torch.equal(fa.flash_di_card_order(o, do), _lanes_numpy(pad(o), pad(do)))
+    assert bool(((fa.flash_di_card_order(o, do) - fa.flash_di(o, do)).abs() <= _fp32_bound(o, do)).all())
+
+
+def test_template_rule_and_the_libraries_handshake():
+    """Head dims 1-32 run on the 32 template, 33-64 on 64, 65-128 on 128;
+    0, 129, 130, 192 and 256 on none.  ``bind`` takes a library whose
+    ``flash_head_dim_template`` gives the same rule and refuses one that
+    differs at any head dim (here 26 on the 64 template)."""
+    assert [fa.template_head_dim(hd) for hd in (1, 26, 32, 33, 64, 65, 80, 96, 127, 128)] == [
+        32, 32, 32, 64, 64, 128, 128, 128, 128, 128]
+    assert all(fa.template_head_dim(hd) is None for hd in (0, 129, 130, 192, 256))
+
+    def lib(rule):
+        entries = ("flash_fwd_launch", "flash_bwd_dkv_launch", "flash_bwd_dq_launch", "flash_bwd_rows_launch")
+        return types.SimpleNamespace(flash_head_dim_template=lambda hd: rule(hd),
+                                     **{name: (lambda *a: 0) for name in entries})
+
+    fa.bind(lib(lambda hd: fa.template_head_dim(hd) or 0))
+    with pytest.raises(RuntimeError, match="26"):
+        fa.bind(lib(lambda hd: 64 if hd == 26 else fa.template_head_dim(hd) or 0))

@@ -1554,19 +1554,180 @@ def test_flash_fp32_autograd_never_reaches_the_plain_version(cuda_device, monkey
 
 def test_flash_refuses_what_it_does_not_take(cuda_device):
     """On a CUDA tensor the wrapper launches or raises, never the plain
-    version: head dims but 32, 64 and 128 (80, 256, TinyBERT's 26), fp64 and
-    lengths not a multiple of 128 raise, citing step 12."""
+    version: head dims past 128 (256, 130), fp64 and lengths not a multiple
+    of 128 raise, citing step 12; head dims 80 and TinyBERT's 26 launch K11
+    (counted at their head dims)."""
     from colbert_tpu_torch.ops import flash_attention as fa
 
     seg = torch.ones((2, 384), dtype=torch.int32, device=cuda_device)
-    for shape, dtype in (((2, 2, 384, 80), torch.bfloat16), ((2, 2, 384, 256), torch.float32),
-                         ((2, 2, 384, 26), torch.float16), ((2, 2, 384, 64), torch.float64)):
+    for shape, dtype in (((2, 2, 384, 130), torch.bfloat16), ((2, 2, 384, 256), torch.float32),
+                         ((2, 2, 384, 64), torch.float64)):
         x = torch.zeros(shape, dtype=dtype, device=cuda_device)
         with pytest.raises(NotImplementedError, match="step 12"):
             fa.flash_attention(x, x, x, seg, seg, 0.125)
+    for shape, dtype in (((2, 2, 384, 80), torch.bfloat16), ((2, 2, 384, 26), torch.float16)):
+        x = torch.zeros(shape, dtype=dtype, device=cuda_device)
+        before = fa.fwd_head_dim_launches[shape[-1]].value
+        assert fa.flash_attention(x, x, x, seg, seg, 0.125).shape == shape
+        torch.cuda.synchronize()
+        assert fa.fwd_head_dim_launches[shape[-1]].value == before + 1
     x = torch.zeros((2, 2, 200, 64), dtype=torch.bfloat16, device=cuda_device)
     with pytest.raises(NotImplementedError, match="step 12"):
         fa.flash_attention(x, x, x, seg[:, :200], seg[:, :200], 0.125)
+
+
+# head dims below a template: on the 32 template 8 (16-byte rows in bf16: the tensor maps), 25 (2-byte rows
+# in bf16: 2-byte copies), 26 (TinyBERT-4L-zh's: 4-byte copies in bf16, 8 in fp32); on 64 40 (the maps);
+# on 128 80 and 96 (the maps), 100 (8-byte copies in bf16) and 127
+@pytest.mark.parametrize("hd", [8, 25, 26, 40, 80, 96, 100, 127])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", ["heads", "contiguous"])
+def test_flash_head_dims_below_the_templates(cuda_device, layout, dtype, hd):
+    """K11, the rows kernel, K12 and K13 (routes "wgmma" and "tf32") at a head
+    dim that is not a template's, in the models' layout and contiguous,
+    against the plain versions: o, dq, dk, dv within 2 bf16 ulps of each
+    head vector and 1e-3 of the elements past 2 own ulps (bf16) or
+    fa.FP32_HEAD_REL (fp32), l and m as test_flash_kernels_match_plain holds
+    them; di bit-equal to its order in torch and 1 / l to the division; the
+    autograd function equal to the launches; two runs bit-equal; each launch
+    counted at the head dim and its template."""
+    from colbert_tpu_torch.ops import flash_attention as fa
+
+    B, nh, L = 3, 3, 256
+    g = torch.Generator(cuda_device).manual_seed(hd * 7 + (dtype == torch.float32) + 2 * (layout == "heads"))
+
+    def t():
+        if layout == "heads":
+            return torch.randn((B, L, nh, hd), generator=g, device=cuda_device).to(dtype).transpose(1, 2)
+        return torch.randn((B, nh, L, hd), generator=g, device=cuda_device).to(dtype)
+    q, k, v, do = t(), t(), t(), t()
+    seg = (torch.arange(L, device=cuda_device)[None, :] < torch.tensor([L, 129, 70], device=cuda_device)[:, None]).int()
+    args = (q, k, v, seg, seg, hd ** -0.5)
+    counted = [fa.fwd_head_dim_launches[hd], fa.dkv_head_dim_launches[hd], fa.dq_head_dim_launches[hd],
+               fa.fwd_template_launches[fa.template_head_dim(hd)], fa.dkv_template_launches[fa.template_head_dim(hd)],
+               fa.dq_template_launches[fa.template_head_dim(hd)]]
+    before = [c.value for c in counted]
+    o, l, m = fa._launch_forward(*args)
+    di, inv_l = fa._launch_rows(o, do, l)
+    ro, rl, rm = fa.flash_forward_ref(*args)
+    bargs = (*args, rl, rm, do, fa.flash_di(ro, do))
+    dk, dv = fa._launch_dkv(*bargs)
+    dq = fa._launch_dq(*bargs)
+    want = fa.flash_backward_ref(*bargs)
+    torch.cuda.synchronize()
+    assert [c.value - b for c, b in zip(counted, before)] == [1, 1, 1, 1, 1, 1]
+    for what, got, ref in (("o", o, ro), ("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
+        assert got.shape == ref.shape and got.dtype == dtype, what
+        if dtype == torch.float32:
+            assert fa.fp32_head_rel(got, ref) <= fa.FP32_HEAD_REL, what
+        else:
+            head_ulps, share, _ = fa.close_in_head_ulps(got, ref)
+            assert head_ulps <= 2 and share <= 1e-3, (what, head_ulps, share)
+    if dtype == torch.float32:
+        assert float(((l - rl).abs() / rl).max()) <= fa.FP32_HEAD_REL
+        assert float(((m - rm).abs() / rm.abs().clamp_min(1.0)).max()) <= fa.FP32_HEAD_REL
+    else:
+        torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
+        torch.testing.assert_close(m, rm, rtol=0, atol=1e-5)
+    assert torch.equal(di, fa.flash_di_card_order(o, do)) and torch.equal(inv_l, torch.ones_like(l) / l)
+    assert all(torch.equal(a, b) for a, b in zip((o, l, m, dk, dv, dq),
+                                                 (*fa._launch_forward(*args), *fa._launch_dkv(*bargs),
+                                                  fa._launch_dq(*bargs))))
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, seg, seg, hd ** -0.5)
+    out.backward(do)
+    own = (*args, l, m, do, di)
+    dkf, dvf = fa._launch_dkv(*own, inv_l=inv_l)
+    assert torch.equal(out, o) and torch.equal(leaves[0].grad, fa._launch_dq(*own, inv_l=inv_l))
+    assert torch.equal(leaves[1].grad, dkf) and torch.equal(leaves[2].grad, dvf)
+
+
+# more tiles than the card has SMs, so that a persistent block fills each ring slot and its once-a-tile
+# buffer again and again: hd 26 at L 128 (K11 two jobs a tile) and 256 (bf16 4-byte copies by the producer's
+# four warps, fp32 8-byte copies by warp 8), hd 100 at L 384 (bf16 8-byte copies on the 128 template, K11's
+# ring two deep; fp32 the tensor maps by warp 8), hd 80 at L 384 (the tensor maps below the template)
+@pytest.mark.parametrize("shape", [(68, 12, 128, 26), (68, 12, 256, 26), (68, 8, 384, 100), (68, 8, 384, 80)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_blocks_that_run_many_tiles(cuda_device, dtype, shape):
+    """K11, K12 and K13 at head dims below a template, in the models'
+    layout with ragged segments, where each persistent block runs many
+    tiles: o, dq, dk and dv against the plain versions within the limits of
+    test_flash_head_dims_below_the_templates, l and m as it holds them, and
+    two runs bit-equal."""
+    from colbert_tpu_torch.ops import flash_attention as fa
+
+    B, nh, L, hd = shape
+    g = torch.Generator(cuda_device).manual_seed(L * hd + (dtype == torch.float32))
+    q, k, v, do = (torch.randn((B, L, nh, hd), generator=g, device=cuda_device).to(dtype).transpose(1, 2)
+                   for _ in range(4))
+    lengths = torch.randint(1, L + 1, (B,), generator=g, device=cuda_device)
+    lengths[0] = L
+    seg = (torch.arange(L, device=cuda_device)[None, :] < lengths[:, None]).int()
+    args = (q, k, v, seg, seg, hd ** -0.5)
+    o, l, m = fa._launch_forward(*args)
+    di, inv_l = fa._launch_rows(o, do, l)
+    ro, rl, rm = fa.flash_forward_ref(*args)
+    bargs = (*args, rl, rm, do, fa.flash_di(ro, do))
+    dk, dv = fa._launch_dkv(*bargs)
+    dq = fa._launch_dq(*bargs)
+    want = fa.flash_backward_ref(*bargs)
+    torch.cuda.synchronize()
+    for what, got, ref in (("o", o, ro), ("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
+        assert got.shape == ref.shape and got.dtype == dtype, what
+        if dtype == torch.float32:
+            assert fa.fp32_head_rel(got, ref) <= fa.FP32_HEAD_REL, what
+        else:
+            head_ulps, share, _ = fa.close_in_head_ulps(got, ref)
+            assert head_ulps <= 2 and share <= 1e-3, (what, head_ulps, share)
+    if dtype == torch.float32:
+        assert float(((l - rl).abs() / rl).max()) <= fa.FP32_HEAD_REL
+        assert float(((m - rm).abs() / rm.abs().clamp_min(1.0)).max()) <= fa.FP32_HEAD_REL
+    else:
+        torch.testing.assert_close(l, rl, rtol=1e-5, atol=0)
+        torch.testing.assert_close(m, rm, rtol=0, atol=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip((o, l, m, dk, dv, dq),
+                                                 (*fa._launch_forward(*args), *fa._launch_dkv(*bargs),
+                                                  fa._launch_dq(*bargs))))
+
+
+@pytest.mark.parametrize("hd", [26, 80, 64])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_head_keeps_its_neighbours_non_finite(cuda_device, dtype, hd):
+    """A NaN or inf in one head's q, k or v, at its first and last columns
+    (next to its neighbours' in the models' layout), leaves every other
+    head's o, dq, dk and dv as the plain version's (finite, within the
+    limits of test_flash_head_dims_below_the_templates): no kernel reads a
+    neighbour's columns into a product over the head dim."""
+    from colbert_tpu_torch.ops import flash_attention as fa
+
+    B, nh, L = 2, 4, 256
+    g = torch.Generator(cuda_device).manual_seed(hd + 5)
+    q, k, v, do = (torch.randn((B, L, nh, hd), generator=g, device=cuda_device).to(dtype).transpose(1, 2)
+                   for _ in range(4))
+    bad = 1  # the head that holds the non-finite values; heads 0, 2 and 3 are its neighbours and the rest
+    q[0, bad, 5, 0] = float("nan")
+    k[1, bad, 17, hd - 1] = float("inf")
+    v[0, bad, 40, hd - 1] = float("nan")
+    k[0, bad, 3, 0] = -float("inf")
+    seg = (torch.arange(L, device=cuda_device)[None, :] < torch.tensor([L, 200], device=cuda_device)[:, None]).int()
+    args = (q, k, v, seg, seg, hd ** -0.5)
+    o, l, m = fa._launch_forward(*args)
+    di, inv_l = fa._launch_rows(o, do, l)
+    dk, dv = fa._launch_dkv(*args, l, m, do, di, inv_l=inv_l)
+    dq = fa._launch_dq(*args, l, m, do, di, inv_l=inv_l)
+    ro, rl, rm = fa.flash_forward_ref(*args)
+    want = fa.flash_backward_ref(*args, rl, rm, do, fa.flash_di(ro, do))
+    torch.cuda.synchronize()
+    others = [h for h in range(nh) if h != bad]
+    assert not bool(torch.isfinite(o[:, bad].float()).all())  # the planted values do reach their own head
+    for what, got, ref in (("o", o, ro), ("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
+        a, b = got[:, others], ref[:, others]
+        assert bool(torch.isfinite(a.float()).all()) and bool(torch.isfinite(b.float()).all()), what
+        if dtype == torch.float32:
+            assert fa.fp32_head_rel(a, b) <= fa.FP32_HEAD_REL, what
+        else:
+            head_ulps, share, _ = fa.close_in_head_ulps(a, b)
+            assert head_ulps <= 2 and share <= 1e-3, (what, head_ulps, share)
 
 
 @pytest.mark.parametrize("num_layers,remat", [(2, "none"), (2, "full"), (12, "none")])
