@@ -27,6 +27,14 @@ seed:
   difference can flip the rounding), or within the fp32 limit near zero,
   where the fp32 summation-order error (~3e-5 at these widths) exceeds a
   bf16 ulp.
+* phase 1b: K1 and K2 at ColBERT dims that are not multiples of 16 (the
+  TPU kernels take any dim), at phase 1's shape on route "wgmma": bf16 at
+  312 (TinyBERT-4L-zh's dim = hidden: a 624-byte row, the tensor map) and
+  100 (a 200-byte row, which no tensor map describes: the producers'
+  copies), int8 at 312 (a 312-byte row: the copies); each against its plain
+  version under phase 1's limits, timed as phase 1 times them beside the
+  bound, the plain version and, for bf16, the cuBLAS yardstick; then K1, K2
+  and K4 at dim 128 on route "wgmma" against their plain versions.
 * phase 2: the CLI's ``encode`` over a 20,000-doc synthetic Chinese corpus,
   ``serve`` in a background thread, three requests of 144 questions at
   top-100 through ``RetrievalClient``, ``evaluate --remote``, and the same
@@ -392,12 +400,23 @@ seed:
 
 * phase 15, phase 12's path at huawei-noah/TinyBERT_4L_zh's widths
   (hidden 312, 4 layers, 12 heads of head dim 26, intermediate 1200,
-  vocab 21,128, ColBERT dim 128; bf16, flash, seeded weights), after phase
-  12: ``train`` (9 steps at batch 34, learning rate 1e-4, resumed), the
+  vocab 21,128, ColBERT dim 312 = hidden, as the repo's operating point;
+  bf16, flash, seeded weights), after phase 12: ``train`` (9 steps at batch
+  34, learning rate 1e-4, resumed; K3's eval at h 312 on route "tf32"), the
   loss finite and falling, ``encode`` of phase 2's 20,000 passages, flat
-  ``serve`` of phase 2's requests checked as phase 2's; every K11, K12 and
-  K13 launch on route "wgmma" at head dim 26 and on the 32 template.
-  ``--phase12`` runs it too.
+  ``serve`` of phase 2's requests checked as phase 2's (K1 on route
+  "wgmma" at h 312), one request of them in process over an int8 flat
+  table (K1, the table copied by the producers) and through the unfused
+  route (K2), each checked the same way; then ``build-index`` with the sq
+  codec (sq_dim 64, phase 5's operating point) and ``serve`` with
+  ``serve.mode=ann`` and the bf16 rerank table over the socket, the same
+  requests: every answer's scores the exact MaxSim of its pids within 1e-4,
+  K6 and K7 once a request on route "mma", K4 once a request on route
+  "wgmma" at dim 312 (the producers' copies); K4 alone on request 0's
+  144 x 4,096 candidates against its plain version, timed beside its
+  bound.  Every K11, K12 and K13 launch on route "wgmma" at head dim 26
+  and on the 32 template.  ``--phase12`` runs it too; ``--phase15`` runs
+  phases 1b and 15 alone.
 
 * phase 14, the host runtime (``csrc/native.cpp``, built with g++; host
   clock, medians of 5 unless said): (a) after phase 2, on its flat service
@@ -813,6 +832,111 @@ def phase_kernels(device, num_docs=20_000, ragged_docs=1_001, big_docs=200_000, 
     return worst, times, share, routes
 
 
+# ---- phase 1b: K1/K2 and K4 at ColBERT dims that are not multiples of 16 ----
+
+ODD_DIMS = (312, 100)  # TinyBERT-4L-zh's hidden (dim = hidden) and a bf16 row no tensor map describes
+
+
+def phase_kernel_dims(device, num_docs=20_000, seed=SEED):
+    """K1 (fp32 stored scores) and K2 at phase 1's shape (144 queries x 16
+    views, ``num_docs`` docs x 16 rows) at the hidden dims of ``ODD_DIMS``:
+    bf16 tables at 312 (a 624-byte row: the tensor map) and 100 (200 bytes:
+    the producers' copies), an int8 table at 312 (312 bytes: the copies),
+    each against its plain version (phase 1's limits) on route "wgmma",
+    timed as phase 1 times them (CUDA events, 20 launches after 3), beside
+    the bound (bf16 operations over 989 TFLOP/s or the bytes over 3.35 TB/s;
+    the int8 table's products run in bf16 too), the plain version and, for
+    bf16, phase 1's cuBLAS yardstick (product + amax + sum).  Then K1/K2 and
+    K4 at dim 128 on route "wgmma", against their plain versions: no other
+    phase drives that width through the wgmma routes now that phase 15
+    serves at 312.  Returns the timings by name."""
+    import numpy as np
+    import torch
+
+    from colbert_tpu_torch.ops import flat_scan as fs, rerank as rr
+
+    out = {}
+
+    def check(name, got, want, atol):
+        got, want = got.float(), want.float()
+        if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
+            raise AssertionError(f"[phase1b] {name}: -inf pattern differs from the plain version")
+        fin = torch.isfinite(want)
+        err = float((got[fin] - want[fin]).abs().max())
+        lim = atol if not torch.is_tensor(atol) else atol[fin]
+        if bool(((got[fin] - want[fin]).abs() > lim).any()):
+            raise AssertionError(f"[phase1b] {name}: max|d| {err:.3e} beyond the limit")
+        return err
+
+    def on_route(name, route, fn):
+        before = {k: c.value for k, c in route_counters().items()}
+        res = fn()
+        torch.cuda.synchronize()
+        got = {k: c.value - before[k] for k, c in route_counters().items()}
+        if got != {k: int(k == route) for k in got}:
+            raise AssertionError(f"[phase1b] {name}: route launches {got}, expected one on {route}")
+        return res
+
+    def route_counters():
+        return {**{f"flat {k}": c for k, c in fs.route_launches.items()},
+                **{f"rerank {k}": c for k, c in rr.route_launches.items()}}
+
+    for h, dtype in ((312, "bfloat16"), (312, "int8"), (100, "bfloat16"), (128, "bfloat16")):
+        docs, queries = topic_embeddings(num_docs if h != 128 else 2_000, 16, B, M, h, seed=seed + h)
+        n = len(docs) // 16
+        table, inv, dv = fs.build_flat_table(docs, np.full(n, 16), dtype=dtype)
+        table = table.to(device)
+        Qm = torch.from_numpy(queries).to(device)
+        if inv is not None:
+            Qm = Qm * inv.to(device)
+        tag = f"h {h} {dtype}"
+        k2 = on_route(f"K2 {tag}", "flat wgmma", lambda: fs.flat_maxsim_scan(Qm, table, dv=dv))
+        k2_ref = fs.flat_maxsim_scan_ref(Qm, table, dv=dv)
+        e2 = check(f"K2 {tag}", k2, k2_ref, SCORE_ATOL)
+        s, g = on_route(f"K1 {tag}", "flat wgmma",
+                        lambda: fs.flat_scan_fused(Qm, table, dv=dv, num_docs=n, score_dtype="float32"))
+        rs, rg = fs.flat_scan_fused_ref(Qm, table, dv=dv, num_docs=n, score_dtype="float32")
+        e1 = max(check(f"K1 {tag} stored fp32", s, rs, SCORE_ATOL), check(f"K1 {tag} group max", g, rg, SCORE_ATOL))
+        s, g = fs.flat_scan_fused(Qm, table, dv=dv, num_docs=n, score_dtype="bfloat16")
+        rs, rg = fs.flat_scan_fused_ref(Qm, table, dv=dv, num_docs=n, score_dtype="bfloat16")
+        e1_bf16 = check(f"K1 {tag} stored bf16 (1 ulp, >= 1e-4)", s, rs, bf16_limit(s, rs))
+        del k2, k2_ref, s, g, rs, rg
+        copies = (h * table.element_size()) % 16 != 0
+        log(f"[phase1b] K1/K2 {tag} ({n} docs x 16 rows, B={B}): max|d| K2 {e2:.3e}, K1 {e1:.3e} (limit "
+            f"{SCORE_ATOL}), K1's bf16 stored scores {e1_bf16:.3e} (1 ulp) [route wgmma, table by "
+            f"{'copies' if copies else 'tensor map'}]")
+        if h == 128:  # K4 at dim 128 on route "wgmma" over this table, random candidates
+            cand = torch.randint(-1, n, (B, 512), dtype=torch.int32, device=device,
+                                 generator=torch.Generator(device).manual_seed(seed))
+            got = on_route("K4 dim 128", "rerank wgmma", lambda: rr.maxsim_rerank_uniform(cand, Qm, table, dv=16))
+            e4 = check("K4 dim 128", got, rr.maxsim_rerank_uniform_ref(cand, Qm, table, dv=16), SCORE_ATOL)
+            log(f"[phase1b] K4 dim 128: {B} x 512 candidates over {n} docs x 16 rows: max|d| {e4:.3e} "
+                f"(limit {SCORE_ATOL}) [route wgmma]")
+            continue
+        flops = 2.0 * B * M * n * 16 * h
+        nbytes = table.numel() * table.element_size() + Qm.numel() * 4 + n * B * 4
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        r = {"h": h, "dtype": dtype, "docs": n, "table_by": "copies" if copies else "tensor map",
+             "K1_max_abs_err": e1, "K1_bf16_max_abs_err": e1_bf16, "K2_max_abs_err": e2, "bound_ms": b_ms,
+             "bound_by": b_by,
+             "K1_ms": time_ms(lambda: fs.flat_scan_fused(Qm, table, dv=dv, num_docs=n, score_dtype="float32")),
+             "K2_ms": time_ms(lambda: fs.flat_maxsim_scan(Qm, table, dv=dv)),
+             "K1_plain_ms": time_ms(lambda: fs.flat_scan_fused_ref(Qm, table, dv=dv, num_docs=n,
+                                                                   score_dtype="float32"), iters=5),
+             "K2_plain_ms": time_ms(lambda: fs.flat_maxsim_scan_ref(Qm, table, dv=dv), iters=5),
+             "cublas_ms": None}
+        if dtype == "bfloat16":  # phase 1's yardstick, never called by the port
+            qb = Qm.reshape(B * M, h).to(torch.bfloat16)
+            r["cublas_ms"] = time_ms(lambda: (table @ qb.T).view(-1, dv, B, M).amax(dim=1).float().sum(dim=-1))
+        log(f"[phase1b] {tag}: K1 {r['K1_ms']:.3f} ms, K2 {r['K2_ms']:.3f} ms = "
+            f"{100 * b_ms / r['K1_ms']:.1f}% / {100 * b_ms / r['K2_ms']:.1f}% of the bound {b_ms:.4f} ms ({b_by}: "
+            f"{flops:.3e} FLOP); plain K1 {r['K1_plain_ms']:.3f} ms, K2 {r['K2_plain_ms']:.3f} ms"
+            + (f"; cuBLAS product + amax + sum {r['cublas_ms']:.3f} ms" if r["cublas_ms"] is not None else ""))
+        out[tag] = r
+        del table, Qm
+    return out
+
+
 # ---- phase 2: the slice through the CLI ----
 
 def free_port() -> int:
@@ -879,11 +1003,11 @@ def check_flat_answers(requests, answer_sets, searcher, docs):
 
 
 def encoded_corpus(device, workdir: Path, label: str, num_docs=20_000, model_kw=None, tok_kw=None,
-                   n_requests=3, seed=SEED, tag="phase2"):
+                   n_requests=3, seed=SEED, tag="phase2", index_kw=None):
     """Phase 2's set-up: a synthetic Chinese corpus of ``num_docs`` passages,
-    ``n_requests`` x B questions and 2 x B eval questions, the flat config,
-    a seeded model saved as ``pytorch.bin``, and the corpus encoded through
-    the CLI's ``encode``."""
+    ``n_requests`` x B questions and 2 x B eval questions, the flat config
+    (``index_kw`` over the index section's fields), a seeded model saved as
+    ``pytorch.bin``, and the corpus encoded through the CLI's ``encode``."""
     import torch
 
     from colbert_tpu_torch import cli
@@ -907,7 +1031,7 @@ def encoded_corpus(device, workdir: Path, label: str, num_docs=20_000, model_kw=
     cfg = ColbertConfig(
         model=model_cfg,
         tokenizer=TokenizerConfig(vocab_path=str(vocab_path), **(tok_kw or {})),
-        index=IndexConfig(index_path=str(workdir / "index"), num_parts=4),
+        index=IndexConfig(index_path=str(workdir / "index"), num_parts=4, **(index_kw or {})),
         serve=ServeConfig(mode="flat", topk=TOPK, query_batch_size=B, port=free_port()),
     )
     conf_path = workdir / "conf.yaml"
@@ -1368,14 +1492,15 @@ def retrieval_examples(docs, questions, positives, n_neg, rng):
 
 
 def train_setup(workdir: Path, model_kw=None, tok_kw=None, batch=34, steps=7, n_dev=40, seed=SEED,
-                attention_impl="auto", train_kw=None):
+                attention_impl="auto", train_kw=None, index_kw=None):
     """Phase 4's data and config: ``steps`` x ``batch`` train and ``n_dev``
     dev examples over synthetic Chinese passages (10 and 8 hard negatives),
     the vocab, and the config written to ``workdir / "conf.yaml"``
-    (``train_kw`` over the train section's fields)."""
+    (``train_kw`` over the train section's fields, ``index_kw`` over the
+    index section's)."""
     import numpy as np
 
-    from colbert_tpu_torch.config import ColbertConfig, ModelConfig, TokenizerConfig, TrainConfig
+    from colbert_tpu_torch.config import ColbertConfig, IndexConfig, ModelConfig, TokenizerConfig, TrainConfig
     from colbert_tpu_torch.tokenization.vocab import build_vocab, write_vocab
     from colbert_tpu_torch.utils.io import dump_json
 
@@ -1394,13 +1519,14 @@ def train_setup(workdir: Path, model_kw=None, tok_kw=None, batch=34, steps=7, n_
         tokenizer=TokenizerConfig(vocab_path=str(vocab_path), **(tok_kw or {})),
         train=TrainConfig(per_device_batch_size=batch, num_epochs=1, evals_per_epoch=2, log_every=1,
                           keep_checkpoints=2, checkpoint_dir=str(workdir / "ckpt"), seed=seed, **(train_kw or {})),
+        index=IndexConfig(**(index_kw or {})),
     )
     cfg.to_yaml(workdir / "conf.yaml")
     return cfg, train_path, dev_path
 
 
 def phase_train(device, workdir: Path, label: str, model_kw=None, tok_kw=None, batch=34,
-                steps=7, n_dev=40, seed=SEED, attention_impl="auto", tag="phase4", train_kw=None):
+                steps=7, n_dev=40, seed=SEED, attention_impl="auto", tag="phase4", train_kw=None, index_kw=None):
     """The CLI's ``train`` (phase 4; with ``attention_impl="flash"``, phase 8b:
     K11-K13 at the doc pass), its launches, then ``--resume`` from the last
     checkpoint.  Returns the counted run's launches and its measurements."""
@@ -1412,7 +1538,7 @@ def phase_train(device, workdir: Path, label: str, model_kw=None, tok_kw=None, b
     from colbert_tpu_torch.utils.io import load_jsonl
 
     cfg, train_path, dev_path = train_setup(workdir, model_kw, tok_kw, batch, steps, n_dev, seed, attention_impl,
-                                            train_kw)
+                                            train_kw, index_kw)
     n_train = steps * batch
     conf_path = workdir / "conf.yaml"
     c = cfg.model
@@ -5145,11 +5271,16 @@ MINILM_LR = 1e-4  # phase 12's learning rate: at the default 3e-5, 5 steps moved
 # bytes, so the flash kernels copy its rows themselves), intermediate 1200,
 # 512 positions, type vocab 2, vocab 21,128 (configs/dureader.yaml's
 # chinese-bert-wwm-ext vocab).  Weights a seeded init, as phase 12's; the
-# ColBERT projection is ColBERT's default 128 (the flat scan takes a dim that
-# is a multiple of 16, which 312 is not).
+# ColBERT projection keeps the hidden width, as the repo's operating point
+# does (configs/dureader.yaml: dim = hidden_size): dim 312, not a multiple of
+# 16 (a bf16 row of 624 bytes, an int8 row of 312).
 TINYBERT_MODEL = dict(vocab_size=21128, hidden_size=312, num_layers=4, num_heads=12, intermediate_size=1200,
-                      max_position_embeddings=512, type_vocab_size=2, layer_norm_eps=1e-12, dim=128)
+                      max_position_embeddings=512, type_vocab_size=2, layer_norm_eps=1e-12, dim=312)
 TINYBERT_LR = 1e-4  # phase 15's learning rate, phase 12's
+# phase 15's index section: the default codec, pq, needs its 64 sub-quantizers
+# to divide the dim, which 312 does not (both packages refuse it); phase 15's
+# ANN service runs the sq codec
+TINYBERT_INDEX = dict(codec="sq")
 
 
 def phase_minilm(device, workdir: Path, label, steps=9):
@@ -5159,12 +5290,153 @@ def phase_minilm(device, workdir: Path, label, steps=9):
 
 
 def phase_tinybert(device, workdir: Path, label, steps=9):
-    """Phase 15: :func:`phase_retriever` at the TinyBERT-4L-zh widths (head dim 26)."""
+    """Phase 15: :func:`phase_retriever` at the TinyBERT-4L-zh widths (head
+    dim 26, ColBERT dim 312), with its int8 flat pass, unfused flat pass and
+    sq ANN service."""
     return phase_retriever(device, workdir, label, TINYBERT_MODEL, TINYBERT_LR, "phase15", "TinyBERT-4L-zh",
-                           steps=steps)
+                           steps=steps, more=True, index_kw=TINYBERT_INDEX)
 
 
-def phase_retriever(device, workdir: Path, label, model, lr, tag, what, steps=9, num_docs=20_000):
+def retriever_flat_variants(device, corpus, tag):
+    """Phase 15's flat passes beside its served ones, each over the served
+    corpus and model in process: one request (144 questions) over an int8
+    table (K1 on route "wgmma", the table copied by the producers: a
+    312-byte row) and one through the unfused route (K2 on route "wgmma"),
+    each answer checked as phase 2's against the plain version over the same
+    table.  Returns the launches and the largest differences."""
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.config import ColbertConfig
+    from colbert_tpu_torch.indexing.storage import IndexStorage
+    from colbert_tpu_torch.ranking.searcher import ColbertSearcher
+    from colbert_tpu_torch.serving.server import RetrievalService
+
+    cfg, docs, qs = corpus["cfg"], corpus["docs"], corpus["requests"][0]
+    cfg8 = ColbertConfig.from_dict(cfg.to_dict())
+    cfg8.serve.rerank_dtype = "int8"
+    s8 = ColbertSearcher(cfg8, cli._tokenizer(cfg8), corpus["model"], IndexStorage(cfg.index.index_path),
+                         device=device)
+    k2_searcher = unfused_searcher(device, cfg, corpus["model"])
+    out = {}
+    for name, searcher, kernel in (("int8", s8, "K1"), ("unfused", k2_searcher, "K2")):
+        service = RetrievalService(searcher, docs, searcher.cfg)
+        reset_counts()
+        ans = service.retrieve(qs, topk=TOPK)
+        launched = read_counts()
+        want = {"K1": int(kernel == "K1"), "K2": int(kernel == "K2"), "K1/K2 wgmma route": 1, "K1/K2 staged route": 0}
+        if any(launched[k] != v for k, v in want.items()):
+            raise AssertionError(f"{tag}'s {name} flat pass: launches {launched}, expected {want}")
+        worst, _ = check_flat_answers([qs], [[ans]], searcher, docs)
+        if worst > SCORE_ATOL:
+            raise AssertionError(f"{tag}'s {name} flat pass: scores off by {worst}")
+        out[name] = {"launches": launched[kernel], "max_abs_err": worst, "table": str(searcher.emb_table.dtype)}
+    return out
+
+
+def retriever_ann(device, workdir: Path, corpus, flat_searcher, tag, label):
+    """Phase 15's ANN service over its own corpus: ``build-index`` with the
+    sq codec at phase 5's operating point (sq_dim 64), ``serve`` with
+    ``serve.mode=ann`` and the bf16 rerank table over the socket, the
+    corpus's requests (144 questions each, top-100): every answer 100 valid,
+    descending triples whose scores equal the exact MaxSim of the returned
+    pids over the served table within 1e-4; K6 and K7 once a request on
+    route "mma", K4 once a request on route "wgmma" (at the corpus's dim, by
+    the producers' copies where it is not whole 64-dim chunks).  Then K4
+    alone on request 0's candidates (the serving batch, 144 x 4,096) against
+    its plain version, timed as phase 5a times it, beside its bound."""
+    import torch
+
+    from colbert_tpu_torch import cli
+    from colbert_tpu_torch.indexing.storage import IndexStorage
+    from colbert_tpu_torch.ops import rerank as rr
+    from colbert_tpu_torch.ranking.searcher import ColbertSearcher
+    from colbert_tpu_torch.serving.server import RetrievalClient
+
+    cfg, docs, requests = corpus["cfg"], corpus["docs"], corpus["requests"]
+    acfg = ann_config(cfg, cfg.index.index_path, free_port())
+    conf = workdir / "conf_ann.yaml"
+    acfg.to_yaml(conf)
+    args = ["--config", str(conf), *corpus["common"][2:]]
+    t0 = time.perf_counter()
+    cli.main(["build-index", *args])
+    build_s = time.perf_counter() - t0
+    serve_err = []
+
+    def serve():
+        try:
+            cli.main(["serve", "--corpus", str(corpus["corpus_path"]), *args])
+        except BaseException as e:  # noqa: BLE001 -- reported by the main thread
+            serve_err.append(e)
+    server = threading.Thread(target=serve, daemon=True, name=f"serve-ann-{tag}")
+    server.start()
+    wait_for_server(acfg, serve_err)
+    client = RetrievalClient(acfg.serve.host, acfg.serve.port, acfg.serve.authkey.encode())
+    client.retrieve(requests[0][:1], topk=TOPK)  # warm-up, not counted
+    reset_counts()
+    answers, lat = [], []
+    for qs in requests:
+        t0 = time.perf_counter()
+        answers.append(client.retrieve(qs, topk=TOPK))
+        lat.append(time.perf_counter() - t0)
+    launches = read_counts()
+    client.shutdown()
+    server.join(timeout=60)
+    if server.is_alive() or serve_err:
+        raise RuntimeError(f"{tag}'s ann server did not stop cleanly: {serve_err}")
+    n = len(requests)
+    want = {"K4": n, "K5": 0, "K6": n, "K7": n, "K1": 0, "K4/K5 wgmma route": n, "K4/K5 staged route": 0,
+            "K4/K5 wgmma_rows route": 0, "K6 mma route": n, "K6 staged route": 0, "K7 mma route": n,
+            "K7 staged route": 0}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"{tag}'s ANN launches {launches} do not match the served batches {want}")
+    serialized_on_cpp(tag, launches, n)
+    worst = max(check_answers(f"{tag} ANN bf16", qs, ans, flat_searcher, docs, device)
+                for qs, ans in zip(requests, answers))
+    if worst > SCORE_ATOL:
+        raise AssertionError(f"{tag}'s served ANN scores differ from exact MaxSim by {worst}")
+
+    # K4 alone on request 0's candidates: the serving batch at this dim
+    searcher = ColbertSearcher(acfg, cli._tokenizer(acfg), corpus["model"], IndexStorage(acfg.index.index_path),
+                               device=device)
+    enc = searcher.tok.encode_queries(requests[0])
+    Qm = searcher.encode_queries(enc.input_ids, enc.attention_mask, enc.active_mask)
+    qm = torch.as_tensor(enc.active_mask).to(device, torch.float32)
+    cand = searcher.candidates(Qm, qm)
+    table, dim = searcher.emb_table, searcher.dim
+    route = rr.rerank_plan(16, Qm.shape[1], dim)
+    before = rr.route_launches[route].value
+    got, ref = rr.maxsim_rerank_uniform(cand, Qm, table, dv=16), rr.maxsim_rerank_uniform_ref(cand, Qm, table, dv=16)
+    torch.cuda.synchronize()
+    live = cand >= 0
+    if route != "wgmma" or rr.route_launches[route].value != before + 1:
+        raise AssertionError(f"{tag}: K4 at dim {dim} not one launch on route wgmma ({route})")
+    if not torch.equal(torch.isfinite(got), live) or not torch.isneginf(got[~live]).all():
+        raise AssertionError(f"{tag}: K4 at dim {dim}: -inf pattern differs from the -1 candidates")
+    err = float((got[live] - ref[live]).abs().max())
+    if not err <= SCORE_ATOL:
+        raise AssertionError(f"{tag}: K4 at dim {dim} differs from its plain version by {err}")
+    nv, n_unique = int(live.sum()), int(torch.unique(cand[live]).numel())
+    doc_bytes = 16 * dim * 2
+    k4 = {"dim": dim, "candidates": list(cand.shape), "valid": nv, "distinct_docs": n_unique, "max_abs_err": err,
+          "ms": time_ms(lambda: rr.maxsim_rerank_uniform(cand, Qm, table, dv=16)),
+          "plain_ms": time_ms(lambda: rr.maxsim_rerank_uniform_ref(cand, Qm, table, dv=16), iters=2, warmup=1),
+          "table_by": "copies" if dim % 64 else "tensor map"}
+    k4["bound_ms"], k4["bound_by"] = bound(2.0 * nv * 16 * dim * Qm.shape[1],
+                                           n_unique * doc_bytes + 2 * cand.numel() * 4 + Qm.numel() * 4,
+                                           PEAK_BF16_FLOPS)
+    out = {"build_s": build_s, "request_ms": [1e3 * x for x in lat], "max_abs_err": worst,
+           "launches": {k: launches[k] for k in ("K4", "K6", "K7", "K4/K5 wgmma route")}, "k4": k4}
+    log(f"[{tag}] ANN (sq, sq_dim {SQ_DIM}, bf16 rerank table at dim {dim}): build-index {build_s:.1f} s; {n} "
+        f"requests of {B} questions top-{TOPK} in {[round(1e3 * x, 1) for x in lat]} ms over the socket, scores vs "
+        f"the exact MaxSim of the returned pids max|d| {worst:.3e} (limit {SCORE_ATOL}); launches K4 {launches['K4']} "
+        f"(route wgmma), K6 {launches['K6']}, K7 {launches['K7']}; K4 alone on request 0's {B} x {cand.shape[1]} "
+        f"candidates ({nv} valid, {n_unique} distinct docs): max|d| {err:.3e}, {k4['ms']:.3f} ms, plain "
+        f"{k4['plain_ms']:.3f} ms, bound {k4['bound_ms']:.4f} ms ({k4['bound_by']}), the table by "
+        f"{k4['table_by']} [{label}]")
+    return out
+
+
+def phase_retriever(device, workdir: Path, label, model, lr, tag, what, steps=9, num_docs=20_000, more=False,
+                    index_kw=None):
     """A retriever at a published model's widths (``model``, bf16,
     ``attention_impl="flash"``) through the entry points: the CLI's
     ``train`` at batch 34 (phase 4's data, learning rate ``lr``;
@@ -5172,9 +5444,11 @@ def phase_retriever(device, workdir: Path, label, model, lr, tag, what, steps=9,
     the loss finite and falling (the last three steps' mean under the first
     three's, and the last step's under the first's);
     ``encode`` of phase 2's corpus (``num_docs`` passages); ``serve`` (flat) answering
-    phase 2's requests, checked as phase 2 checks them.  Every K11, K12 and
-    K13 launch is on route "wgmma" at the model's head dim (and its
-    template).  Logs ms/step, docs/s and peak device memory under ``tag``."""
+    phase 2's requests, checked as phase 2 checks them, every K1 launch on
+    route "wgmma".  Every K11, K12 and K13 launch is on route "wgmma" at the
+    model's head dim (and its template).  ``more``: also
+    :func:`retriever_flat_variants` and :func:`retriever_ann`.  Logs
+    ms/step, docs/s and peak device memory under ``tag``."""
     import torch
 
     from colbert_tpu_torch import cli
@@ -5188,7 +5462,7 @@ def phase_retriever(device, workdir: Path, label, model, lr, tag, what, steps=9,
     (workdir / "train").mkdir(parents=True)
     (workdir / "serve").mkdir()
     launches, train = phase_train(device, workdir / "train", label, model_kw=model, steps=steps,
-                                  attention_impl="flash", tag=tag, train_kw={"learning_rate": lr})
+                                  attention_impl="flash", tag=tag, train_kw={"learning_rate": lr}, index_kw=index_kw)
     layers, n_dev, batch = flash["num_layers"], 40, 34
     evals = len([s for s in range(1, steps + 1) if s % (steps // 2) == 0])
     flash_launches_ok(launches, {"K11": layers * (steps + evals * -(-n_dev // batch)), "K12": layers * steps,
@@ -5199,7 +5473,8 @@ def phase_retriever(device, workdir: Path, label, model, lr, tag, what, steps=9,
 
     torch.cuda.reset_peak_memory_stats(device)
     reset_counts()
-    corpus = encoded_corpus(device, workdir / "serve", label, num_docs=num_docs, model_kw=flash, tag=tag)
+    corpus = encoded_corpus(device, workdir / "serve", label, num_docs=num_docs, model_kw=flash, tag=tag,
+                            index_kw=index_kw)
     torch.cuda.synchronize()
     encoded = read_counts()
     enc_peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
@@ -5234,8 +5509,9 @@ def phase_retriever(device, workdir: Path, label, model, lr, tag, what, steps=9,
     searcher = ColbertSearcher(cfg, cli._tokenizer(cfg), corpus["model"], IndexStorage(cfg.index.index_path),
                                device=device)
     worst, recall = check_flat_answers(corpus["requests"], [[a] for a in answers], searcher, docs)
-    if worst > SCORE_ATOL or served["K1"] != len(corpus["requests"]):
-        raise AssertionError(f"{tag}'s serve: scores off by {worst}, K1 launches {served['K1']}")
+    if worst > SCORE_ATOL or served["K1"] != len(corpus["requests"]) or \
+            served["K1/K2 wgmma route"] != served["K1"] or served["K1/K2 staged route"]:
+        raise AssertionError(f"{tag}'s serve: scores off by {worst}, launches {served}")
     out = {"model": dict(model), "head_dim": hd, "train": {
                "ms_step": train["ms_step"], "losses": losses, "peak_gb": train["peak_gb"],
                "launches": {k: n for k, n in launches.items()
@@ -5244,16 +5520,20 @@ def phase_retriever(device, workdir: Path, label, model, lr, tag, what, steps=9,
            "encode": {"docs_s": docs_s, "docs": n, "peak_gb": enc_peak_gb,
                       "launches": {k: encoded[k] for k in ("K11", "K12", "K13")}},
            "serve": {"request_ms": [1e3 * x for x in lat], "max_abs_err": worst, "recall": recall,
-                     "launches": served["K1"]},
-           "s": time.perf_counter() - t_all}
+                     "launches": served["K1"], "dim": model["dim"]}}
+    if more:
+        out["flat_variants"] = retriever_flat_variants(device, corpus, tag)
+        out["ann"] = retriever_ann(device, workdir / "serve", corpus, searcher, tag, label)
+    out["s"] = time.perf_counter() - t_all
     log(f"[{tag}] {what} width (hidden {model['hidden_size']}, {layers} layers, {model['num_heads']} heads of "
         f"{hd}), bf16, flash: train "
         f"{train['ms_step']:.1f} ms/step at batch 34, losses {[round(x, 4) for x in losses]}, peak "
         f"{train['peak_gb']:.2f} GB; encode {n} docs at {docs_s:.1f} docs/s, peak {enc_peak_gb:.2f} GB; serve "
         f"{len(lat)} requests of {B} questions top-{TOPK} in {[round(1e3 * x, 1) for x in lat]} ms, scores vs the "
         f"plain version max|d| {worst:.3e} (limit {SCORE_ATOL}), pid recall {recall:.4f} (information); launches "
-        f"train {out['train']['launches']}, encode {out['encode']['launches']}, serve K1 {served['K1']}; "
-        f"{out['s']:.1f} s [{label}]")
+        f"train {out['train']['launches']}, encode {out['encode']['launches']}, serve K1 {served['K1']} (route "
+        f"wgmma, ColBERT dim {model['dim']})"
+        + (f"; flat int8 / unfused passes {out['flat_variants']}" if more else "") + f"; {out['s']:.1f} s [{label}]")
     return out
 
 
@@ -6014,6 +6294,9 @@ def main() -> int:
                          "card holds both positions) alone")
     ap.add_argument("--phase14", action="store_true",
                     help="phase 14 (the host runtime against its plain versions) alone, with the set-up it needs")
+    ap.add_argument("--phase15", action="store_true",
+                    help="phases 1b and 15 (K1/K2 and K4 at ColBERT dims that are not multiples of 16, the "
+                         "TinyBERT-4L-zh-width retriever at dim 312) alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -6040,8 +6323,11 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    if args.phase10 or args.phase9 or args.phase12 or args.phase13 or args.phase14:
-        if args.phase14:
+    if args.phase10 or args.phase9 or args.phase12 or args.phase13 or args.phase14 or args.phase15:
+        if args.phase15:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_tinybert_") as tmp:
+                out = {"phase1b": phase_kernel_dims(device), "phase15": phase_tinybert(device, Path(tmp), label)}
+        elif args.phase14:
             out = {"host_runtime": phase14_alone(device, label)}
         elif args.phase13:
             out = {"phase13": phase_tp(device, label)}
@@ -6059,6 +6345,7 @@ def main() -> int:
                                                "count": torch.cuda.device_count()}}))
         return 0
     worst, times, share, routes = phase_kernels(device)
+    dims = phase_kernel_dims(device)
     train_kernels = phase_train_kernels(device)
     t8 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_flash_") as tmp:
@@ -6420,6 +6707,28 @@ def main() -> int:
                                                      "ce": tp["ce"]["launches"][kname]} | (
             {"encode": tp["serve"]["encode_launches"][kname]} if kname == "K11" else {})
     by_name["K1 flat_scan_fused"]["tensor_parallel_launches"] = tp["serve"]["serve_launches"]["K1"]
+    # phase 1b's timings at ColBERT dims that are not multiples of 16; launches: phase 15's served and flat
+    # passes at dim 312 (h 100 is no configuration's: 0)
+    fv = tinybert["flat_variants"]
+    paths_312 = {("K1", "bfloat16"): tinybert["serve"]["launches"], ("K2", "bfloat16"): fv["unfused"]["launches"],
+                 ("K1", "int8"): fv["int8"]["launches"]}
+    for r in dims.values():
+        for kname, name, line in (("K1", "K1 flat_scan_fused", 157), ("K2", "K2 flat_maxsim_scan", 59)):
+            kernels.append({
+                "name": f"{name}, h {r['h']} {r['dtype']}", "route": "cuda",
+                "source": "colbert_tpu_torch/csrc/flat_scan.cu", "replaces": f"colbert_tpu/ops/flat_scan.py:{line}",
+                "launches": paths_312.get((kname, r["dtype"]), 0) if r["h"] == 312 else 0,
+                "max_abs_err": r[f"{kname}_max_abs_err"], "ms": r[f"{kname}_ms"], "plain_ms": r[f"{kname}_plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None, "kernel_route": "wgmma",
+                "table_by": r["table_by"], "yardstick_cublas_ms": r["cublas_ms"], "docs": r["docs"]})
+    k4 = tinybert["ann"]["k4"]
+    kernels.append({
+        "name": f"K4 maxsim_rerank_uniform, dim {k4['dim']}", "route": "cuda",
+        "source": "colbert_tpu_torch/csrc/rerank.cu", "replaces": "colbert_tpu/ops/rerank_pallas.py:26",
+        "launches": tinybert["ann"]["launches"]["K4"], "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"], "library_ms": None,
+        "kernel_route": "wgmma", "table_by": k4["table_by"],
+        **{key: k4[key] for key in ("candidates", "valid", "distinct_docs")}})
     log(json.dumps({"phase11": {"model_options": options, "dense": dense, "real_text": real_text, "s": t11}}))
     log(json.dumps({"phase13": {k: v for k, v in tp.items() if k != "k9"}}, default=str))
     log(json.dumps({"host_runtime": host_runtime}))

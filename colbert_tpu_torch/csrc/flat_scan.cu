@@ -7,7 +7,7 @@
 //
 // What it computes, for queries Qm (B, m, h) rounded to bf16 by the caller
 // and a doc-major table (docs_pad * dv, h) in bf16 or int8 (int8 rows enter
-// the product as exact integers):
+// the product as exact integers), at any h >= 1:
 //   S[row, tok] = table[row] . q[tok]           fp32 accumulation
 //   M[doc, tok] = max over the doc's dv rows     (zero rows score 0: no -inf)
 //   score[doc, b] = sum over query b's m views of M[doc, b*m + v]
@@ -25,13 +25,24 @@
 // Route "wgmma" (dv = 16 rows a doc, m = 16 views a query: the multiview
 // main path), one persistent block per SM:
 // * TMA into a 4-stage ring.  Two 2-D tensor maps, over the table
-//   (docs_pad*dv, h) and the bf16 queries (B*m, h), cut 64-dim (128-byte)
+//   (docs_pad*dv, h) and the bf16 queries (B*m, hq; hq = h rounded up to a
+//   multiple of 64 by the wrapper, zeros past h), cut 64-dim (128-byte)
 //   boxes with the 128-byte swizzle: a 128-row table tile and a 256-token
 //   (16-query) query tile a stage.  Out-of-bounds boxes fill with zeros, so
 //   the last row tile, the last query tile and an h that is not a multiple
 //   of 64 need no code.  One producer thread keeps the ring full on
 //   mbarriers; loads overlap the products and the epilogue of the last tile
 //   (the staged route loads synchronously, then waits at a barrier).
+// * A table whose rows no tensor map describes (a pitch, h bytes for int8
+//   or 2h for bf16, that is not a multiple of 16: int8 at h 312, bf16 at h
+//   100) is copied by the producer's whole warpgroup instead: each thread
+//   cp.asyncs its share of the tile in the widest pieces the rows'
+//   alignment allows (1-byte loads and stores for an odd int8 pitch),
+//   columns past h and rows past the table written as zeros, so that no
+//   NaN of a neighbouring row meets a zero query column; two stages stay in
+//   flight, each made visible to the tensor cores (fence.proxy.async) and
+//   handed over on its barrier once it has landed (hopper.cuh::copy_tile).
+//   The query tile still comes by TMA.
 // * Two consumer warpgroups, each a 64-row slice x the 256 tokens, issue
 //   wgmma m64n256k16 from shared memory with 128 fp32 accumulators a thread
 //   (the staged route uses 16x16x16 wmma, mma.sync, on 64x128 tiles);
@@ -60,7 +71,9 @@
 // Route "staged" (any other dv or m <= 128: ragged corpora padded to their
 // longest doc, m = 32): the first design, one block per (64-doc group,
 // 128-token tile), bf16 wmma fragments on synchronously staged 64-row tiles,
-// the accumulator tile folded into a running max in shared memory.
+// the accumulator tile folded into a running max in shared memory.  Its last
+// 64-dim chunk is padded with zeros to whole 16-dim steps; rows that are not
+// 16-byte aligned are read element by element.
 // ops/flat_scan.py::flat_scan_plan picks the route by shape.
 
 #include <cuda_bf16.h>
@@ -108,6 +121,11 @@ template <> struct TableLoad<__nv_bfloat16> {
   __device__ static void zero(__nv_bfloat16* dst) {
     *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
   }
+  // the first n (1..VEC) elements, one at a time (any alignment), zeros after
+  __device__ static void load_part(const __nv_bfloat16* src, __nv_bfloat16* dst, int n) {
+    zero(dst);
+    for (int i = 0; i < n; ++i) dst[i] = src[i];
+  }
 };
 
 template <> struct TableLoad<int8_t> {
@@ -125,15 +143,19 @@ template <> struct TableLoad<int8_t> {
     reinterpret_cast<uint4*>(dst)[0] = make_uint4(0, 0, 0, 0);
     reinterpret_cast<uint4*>(dst)[1] = make_uint4(0, 0, 0, 0);
   }
+  __device__ static void load_part(const int8_t* src, __nv_bfloat16* dst, int n) {
+    zero(dst);
+    for (int i = 0; i < n; ++i) dst[i] = __float2bfloat16_rn(float(src[i]));
+  }
 };
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flat_scan_kernel(const __nv_bfloat16* __restrict__ q,  // (B*m, h) bf16
+flat_scan_kernel(const __nv_bfloat16* __restrict__ q,  // (B*m, hq) bf16, zeros past h
                  const T* __restrict__ table,           // (docs_pad*dv, h)
                  void* __restrict__ scores,             // (docs_pad, B) fp32 or bf16
                  float* __restrict__ gmax,              // (n_groups, B), fused modes
-                 int B, int m, int h, int dv, int docs_pad, int num_docs,
+                 int B, int m, int h, int hq, int dv, int docs_pad, int num_docs,
                  int group, int mode) {
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -161,6 +183,7 @@ flat_scan_kernel(const __nv_bfloat16* __restrict__ q,  // (B*m, h) bf16
   for (int i = tid; i < ndocs * N_TILE; i += THREADS) Rm[i] = neg_inf();
 
   constexpr int VA = TableLoad<T>::VEC;
+  const bool aligned = h % VA == 0;  // every row 16-byte aligned (the base is)
   for (int rt = 0; rt < nrows; rt += M_TILE) {
     const int mrows = min(M_TILE, nrows - rt);
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
@@ -170,25 +193,29 @@ flat_scan_kernel(const __nv_bfloat16* __restrict__ q,  // (B*m, h) bf16
       for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
     for (int k0 = 0; k0 < h; k0 += K_CHUNK) {
-      const int kc = min(K_CHUNK, h - k0);  // a multiple of 16
-      const int a_vecs = kc / VA;
+      const int kc = min(K_CHUNK, h - k0);
+      const int kp = (kc + 15) & ~15;  // whole 16-dim steps: columns kc .. kp - 1 are zeros
+      const int a_vecs = kp / VA;
       for (int i = tid; i < M_TILE * a_vecs; i += THREADS) {
         const int r = i / a_vecs, c = (i % a_vecs) * VA;
         __nv_bfloat16* dst = As + r * LDA + c;
-        if (r < mrows)
-          TableLoad<T>::load(table + (row0 + rt + r) * h + k0 + c, dst);
-        else
+        const T* src = table + (row0 + rt + r) * h + k0 + c;
+        if (r >= mrows || c >= kc)
           TableLoad<T>::zero(dst);
+        else if (aligned)  // then kc is a multiple of VA
+          TableLoad<T>::load(src, dst);
+        else
+          TableLoad<T>::load_part(src, dst, min(VA, kc - c));
       }
-      const int b_vecs = kc / 8;
+      const int b_vecs = kp / 8;  // hq is a multiple of 64: whole vectors, zeros past h
       for (int i = tid; i < N_TILE * b_vecs; i += THREADS) {
         const int n = i / b_vecs, c = (i % b_vecs) * 8;
         uint4 v = make_uint4(0, 0, 0, 0);
-        if (n < ntok) v = __ldg(reinterpret_cast<const uint4*>(q + (tok0 + n) * h + k0 + c));
+        if (n < ntok) v = __ldg(reinterpret_cast<const uint4*>(q + (tok0 + n) * hq + k0 + c));
         *reinterpret_cast<uint4*>(Bs + n * LDB + c) = v;
       }
       __syncthreads();
-      for (int kk = 0; kk < kc; kk += 16) {
+      for (int kk = 0; kk < kp; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
         wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b[2];
 #pragma unroll
@@ -262,7 +289,7 @@ flat_scan_kernel(const __nv_bfloat16* __restrict__ q,  // (B*m, h) bf16
 
 template <typename T>
 cudaError_t launch(const void* q, const void* table, void* scores, void* gmax,
-                   int B, int m, int h, int dv, int docs_pad, int num_docs,
+                   int B, int m, int h, int hq, int dv, int docs_pad, int num_docs,
                    int group, int mode, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flat_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
@@ -271,7 +298,7 @@ cudaError_t launch(const void* q, const void* table, void* scores, void* gmax,
   dim3 grid((docs_pad + group - 1) / group, (B + qpt - 1) / qpt);
   flat_scan_kernel<T><<<grid, THREADS, SMEM_BYTES, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(table), scores,
-      static_cast<float*>(gmax), B, m, h, dv, docs_pad, num_docs, group, mode);
+      static_cast<float*>(gmax), B, m, h, hq, dv, docs_pad, num_docs, group, mode);
   return cudaGetLastError();
 }
 
@@ -294,6 +321,8 @@ constexpr int THREADS = 384;       // warpgroups 0, 1 consume; warpgroup 2 produ
 constexpr uint32_t A_BYTES = ROWS * KS * 2;   // bf16 table tile (the wgmma A operand)
 constexpr uint32_t B_BYTES = TOKS * KS * 2;   // bf16 query tile (the wgmma B operand)
 constexpr uint32_t A8_BYTES = ROWS * KS;      // raw int8 table tile, widened into A
+constexpr int COPIERS = 128;       // the producer warpgroup, where it copies the table tile itself
+constexpr int LAG = 2;             // stages a copying thread keeps in flight (< STAGES)
 
 template <bool I8> struct Stage {
   static constexpr uint32_t bytes = A_BYTES + B_BYTES + (I8 ? A8_BYTES : 0);
@@ -353,13 +382,16 @@ __device__ __forceinline__ void atomic_max_float(float* p, float v) {
 
 }  // namespace wg
 
-template <bool I8>
+// COPIES: the table tiles come by the producer warpgroup's own copies of
+// `table` (rows of h elements, pieces of w bytes), not by tmap_table.
+template <bool I8, bool COPIES>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 flat_scan_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_table,  // (docs_pad*16, h) box 64 x 128
-                       const __grid_constant__ CUtensorMap tmap_q,      // (B*16, h) bf16, box 64 x 256
+                       const __grid_constant__ CUtensorMap tmap_q,      // (B*16, hq) bf16, box 64 x 256
+                       const unsigned char* __restrict__ table,         // (docs_pad*16, h): COPIES
                        void* __restrict__ scores,                       // (docs_pad, B) fp32 or bf16
                        float* __restrict__ gmax,                        // (n_groups, B), at -inf
-                       int B, int docs_pad, int num_docs, int group, int mode,
+                       int B, int h, int w, int docs_pad, int num_docs, int group, int mode,
                        int n_qtiles, int n_tiles, int nk) {
   using namespace wg;
   constexpr uint32_t SB = Stage<I8>::bytes;
@@ -372,7 +404,7 @@ flat_scan_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_table,  // (docs
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);                 // the producer's expect_tx
+      mbar_init(&full[s], COPIES ? 1 + COPIERS : 1);  // the expect_tx (+ each copier's hand-off)
       mbar_init(&empty[s], 2 * 4);            // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -381,25 +413,44 @@ flat_scan_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_table,  // (docs
 
   const int wgi = threadIdx.x / 128;
   if (wgi == 2) {
-    // ---- producer: one thread keeps the ring full, tile after tile ----
+    // ---- producer: one thread keeps the ring full, tile after tile (with
+    // COPIES the warpgroup copies each table tile, the thread loads its query tile) ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (threadIdx.x == 256) {
-      int stage = 0;
+    const int pt = threadIdx.x - 256;
+    if (COPIES || pt == 0) {
+      constexpr int ESZ = I8 ? 1 : 2;
+      const long long pitch = (long long)h * ESZ, n_rows = (long long)docs_pad * DV;
+      int stage = 0, pending = 0, oldest = 0;  // the ring slot; stages not yet handed over (COPIES)
       uint32_t phase = 0;
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
         const int row0 = (t / n_qtiles) * ROWS, tok0 = (t % n_qtiles) * TOKS;
         for (int kb = 0; kb < nk; ++kb) {
           mbar_wait(&empty[stage], phase ^ 1);
           const uint32_t st = base + stage * SB;
-          mbar_expect_tx(&full[stage], Stage<I8>::tx);
-          tma_load(I8 ? st + A_BYTES + B_BYTES : st, &tmap_table, kb * KS, row0, &full[stage]);
-          tma_load(st + A_BYTES, &tmap_q, kb * KS, tok0, &full[stage]);
+          if (pt == 0) {
+            mbar_expect_tx(&full[stage], COPIES ? B_BYTES : Stage<I8>::tx);
+            if (!COPIES) tma_load(I8 ? st + A_BYTES + B_BYTES : st, &tmap_table, kb * KS, row0, &full[stage]);
+            tma_load(st + A_BYTES, &tmap_q, kb * KS, tok0, &full[stage]);
+          }
+          if constexpr (COPIES) {
+            const int valid = int(min(n_rows - row0, (long long)ROWS));
+            const int nb = min(h - kb * KS, KS) * ESZ;
+            const unsigned char* src = table + row0 * pitch + kb * KS * ESZ;
+            if constexpr (I8)  // the raw tile, as TMA lands it: 64-byte rows, no swizzle
+              copy_tile<ROWS, KS / 16>(w, st + A_BYTES + B_BYTES, src, pitch, valid, nb, pt, COPIERS,
+                                       [](int r, int u) { return uint32_t(r * KS + u * 16); });
+            else  // the swizzled bf16 A tile: 16-byte unit u of row r at (u ^ r % 8) in its 128-byte row
+              copy_tile<ROWS, KS / 8>(w, st, src, pitch, valid, nb, pt, COPIERS,
+                                      [](int r, int u) { return uint32_t(r * 128 + ((u ^ (r & 7)) * 16)); });
+            copies_issued<LAG>(pending, oldest, full, STAGES);
+          }
           if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
           }
         }
       }
+      if constexpr (COPIES) copies_drained(pending, oldest, full, STAGES);
     }
   } else {
     // ---- consumers: 64 table rows x 256 tokens each, then the MaxSim epilogue ----
@@ -503,13 +554,15 @@ flat_scan_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_table,  // (docs
   }
 }
 
-template <bool I8>
-cudaError_t launch_wgmma(const void* q, const void* table, void* scores, void* gmax, int B, int h,
+// The table by tensor map where its rows' pitch is a multiple of 16 bytes,
+// else by the producer's copies.
+template <bool I8, bool COPIES>
+cudaError_t launch_wgmma(const void* q, const void* table, void* scores, void* gmax, int B, int h, int hq,
                          int docs_pad, int num_docs, int group, int mode, cudaStream_t stream) {
   using namespace wg;
-  CUtensorMap map_table, map_q;
-  if (!make_map(&map_table, table, I8, uint64_t(docs_pad) * DV, h, ROWS) ||
-      !make_map(&map_q, q, false, uint64_t(B) * M, h, TOKS))
+  CUtensorMap map_table = {}, map_q;
+  if ((!COPIES && !make_map(&map_table, table, I8, uint64_t(docs_pad) * DV, h, ROWS)) ||
+      !make_map(&map_q, q, false, uint64_t(B) * M, hq, TOKS))
     return cudaErrorInvalidValue;
   const int n_qtiles = (B + QPT - 1) / QPT;
   const int64_t n_tiles = (int64_t(docs_pad) + DOCS - 1) / DOCS * n_qtiles;
@@ -518,13 +571,14 @@ cudaError_t launch_wgmma(const void* q, const void* table, void* scores, void* g
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flat_scan_wgmma_kernel<I8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(flat_scan_wgmma_kernel<I8, COPIES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                int(Stage<I8>::smem));
   if (err != cudaSuccess) return err;
   const int grid = int(n_tiles < sms ? n_tiles : sms);
-  flat_scan_wgmma_kernel<I8><<<grid, wg::THREADS, Stage<I8>::smem, stream>>>(
-      map_table, map_q, scores, static_cast<float*>(gmax), B, docs_pad, num_docs, group, mode,
-      n_qtiles, int(n_tiles), (h + KS - 1) / KS);
+  flat_scan_wgmma_kernel<I8, COPIES><<<grid, wg::THREADS, Stage<I8>::smem, stream>>>(
+      map_table, map_q, static_cast<const unsigned char*>(table), scores, static_cast<float*>(gmax), B, h,
+      copy_width((long long)h * (I8 ? 1 : 2)), docs_pad, num_docs, group, mode, n_qtiles, int(n_tiles),
+      (h + KS - 1) / KS);
   return cudaGetLastError();
 }
 
@@ -538,13 +592,16 @@ int flat_scan_max_group() { return MAX_GROUP; } // route "staged": docs a block
 int flat_scan_wgmma_dv() { return wg::DV; }     // route "wgmma": rows a doc
 int flat_scan_wgmma_m() { return wg::M; }       // route "wgmma": views a query
 
-// route 0 = "staged", 1 = "wgmma".  Returns a cudaError_t: 0 when the launch
-// was accepted.  The "wgmma" route needs gmax filled with -inf (modes 1, 2)
-// and 16-byte aligned q and table.
+// route 0 = "staged", 1 = "wgmma".  q: (B*m, hq) bf16, hq = h rounded up to
+// a multiple of 64, zeros past h; any h >= 1.  Returns a cudaError_t: 0 when
+// the launch was accepted.  The "wgmma" route needs gmax filled with -inf
+// (modes 1, 2); both need 16-byte aligned q and table.
 int flat_scan_launch(const void* q, const void* table, int table_int8, void* scores,
                      void* gmax, int B, int m, int h, int dv, int docs_pad,
                      int num_docs, int group, int mode, int route, void* stream) {
-  if (B < 1 || m < 1 || m > N_TILE || h < 16 || h % 16 != 0 || dv < 1 ||
+  const int hq = (h + 63) / 64 * 64;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(table)) % 16) return int(cudaErrorInvalidValue);
+  if (B < 1 || m < 1 || m > N_TILE || h < 1 || dv < 1 ||
       docs_pad < 1 || group < 1 || group > MAX_GROUP || mode < 0 || mode > 2 ||
       int64_t(group) * dv > INT32_MAX || (mode != SCORES_F32 && gmax == nullptr) ||
       route < 0 || route > 1)
@@ -552,16 +609,19 @@ int flat_scan_launch(const void* q, const void* table, int table_int8, void* sco
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (route == 1) {
-    if (dv != wg::DV || m != wg::M || (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(table)) % 16)
-      return int(cudaErrorInvalidValue);
-    err = table_int8
-        ? launch_wgmma<true>(q, table, scores, gmax, B, h, docs_pad, num_docs, group, mode, s)
-        : launch_wgmma<false>(q, table, scores, gmax, B, h, docs_pad, num_docs, group, mode, s);
+    if (dv != wg::DV || m != wg::M) return int(cudaErrorInvalidValue);
+    const bool mapped = (table_int8 ? h : 2 * h) % 16 == 0;  // a row pitch a tensor map can describe
+    if (table_int8)
+      err = mapped ? launch_wgmma<true, false>(q, table, scores, gmax, B, h, hq, docs_pad, num_docs, group, mode, s)
+                   : launch_wgmma<true, true>(q, table, scores, gmax, B, h, hq, docs_pad, num_docs, group, mode, s);
+    else
+      err = mapped ? launch_wgmma<false, false>(q, table, scores, gmax, B, h, hq, docs_pad, num_docs, group, mode, s)
+                   : launch_wgmma<false, true>(q, table, scores, gmax, B, h, hq, docs_pad, num_docs, group, mode, s);
   } else {
     if ((B + N_TILE / m - 1) / (N_TILE / m) > 65535) return int(cudaErrorInvalidValue);
     err = table_int8
-        ? launch<int8_t>(q, table, scores, gmax, B, m, h, dv, docs_pad, num_docs, group, mode, s)
-        : launch<__nv_bfloat16>(q, table, scores, gmax, B, m, h, dv, docs_pad, num_docs, group, mode, s);
+        ? launch<int8_t>(q, table, scores, gmax, B, m, h, hq, dv, docs_pad, num_docs, group, mode, s)
+        : launch<__nv_bfloat16>(q, table, scores, gmax, B, m, h, hq, dv, docs_pad, num_docs, group, mode, s);
   }
   return int(err);
 }

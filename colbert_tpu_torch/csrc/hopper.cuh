@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the kernel routes of csrc/flat_scan.cu,
 // csrc/rerank.cu and csrc/sq_probe.cu: mbarriers, 2-D tensor-map TMA loads,
-// wgmma shared-memory descriptors and fences, 16-byte cp.async copies, the
+// wgmma shared-memory descriptors and fences, 16-byte cp.async copies, a
+// producer's own tile copies where no tensor map describes a tile, the
 // m16n8k16 bf16 mma.sync, the exact int8 -> bf16 widening of a word, and the
 // host-side tensor-map encoder.
 #pragma once
@@ -83,6 +84,105 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int sr
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- a producer's own copies, where no tensor map describes a tile: rows
+// whose pitch is not a multiple of 16 bytes, or a last column chunk that a
+// map's box would read past its row (into the next row, and past the table
+// at its last row) ----
+
+// The widest piece (16, 8, 4, 2 or 1 bytes) to which every row of
+// `row_bytes` bytes from a 16-byte aligned base is aligned.
+__host__ __device__ inline int copy_width(long long row_bytes) {
+  int w = 16;
+  while (w > 1 && row_bytes % w) w >>= 1;
+  return w;
+}
+
+// A piece of W bytes at shared `dst`: its first n (0..W) bytes from global
+// `src`, the rest zero.  cp.async (zero-filled past n) for W >= 4; a load and
+// a store below, where cp.async has no size.  n = 0 reads nothing.
+template <int W>
+__device__ __forceinline__ void copy_piece(uint32_t dst, const unsigned char* src, int n) {
+  if constexpr (W == 1) {
+    const unsigned short x = n ? *src : (unsigned short)0;
+    asm volatile("st.shared.u8 [%0], %1;\n" ::"r"(dst), "h"(x) : "memory");
+  } else if constexpr (W == 2) {
+    const unsigned short x = n ? *reinterpret_cast<const unsigned short*>(src) : (unsigned short)0;
+    asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst), "h"(x) : "memory");
+  } else if constexpr (W == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src), "n"(W), "r"(n) : "memory");
+  }
+}
+
+// Rows 0..ROWS-1 of a tile, UNITS 16-byte units each, by thread t of nt:
+// row r's data are the first `nb` bytes at src + r * pitch (none for r >=
+// valid_rows), unit u lands at dst + off(r, u), every byte past the data is
+// zero.  Issues the copies in pieces of W bytes; the caller commits, waits
+// and fences.  `src` itself must be readable (a row and column the tile
+// starts at): a unit with nothing to read passes it and reads nothing.
+template <int W, int ROWS, int UNITS, typename OFF>
+__device__ __forceinline__ void copy_tile_w(uint32_t dst, const unsigned char* src, long long pitch,
+                                            int valid_rows, int nb, int t, int nt, OFF off) {
+#pragma unroll 1
+  for (int i = t; i < ROWS * UNITS; i += nt) {
+    const int r = i / UNITS, u = i % UNITS;
+    const int b = r < valid_rows ? min(max(nb - 16 * u, 0), 16) : 0;
+    const unsigned char* s = b ? src + r * pitch + 16 * u : src;
+    const uint32_t d = dst + off(r, u);
+#pragma unroll
+    for (int p = 0; p < 16; p += W) {
+      const int n = min(max(b - p, 0), W);
+      copy_piece<W>(d + p, n ? s + p : src, n);
+    }
+  }
+}
+
+// copy_tile_w at the piece width `w` (copy_width of the rows' pitch).
+template <int ROWS, int UNITS, typename OFF>
+__device__ __forceinline__ void copy_tile(int w, uint32_t dst, const unsigned char* src, long long pitch,
+                                          int valid_rows, int nb, int t, int nt, OFF off) {
+  switch (w) {
+    case 16: copy_tile_w<16, ROWS, UNITS>(dst, src, pitch, valid_rows, nb, t, nt, off); break;
+    case 8: copy_tile_w<8, ROWS, UNITS>(dst, src, pitch, valid_rows, nb, t, nt, off); break;
+    case 4: copy_tile_w<4, ROWS, UNITS>(dst, src, pitch, valid_rows, nb, t, nt, off); break;
+    case 2: copy_tile_w<2, ROWS, UNITS>(dst, src, pitch, valid_rows, nb, t, nt, off); break;
+    default: copy_tile_w<1, ROWS, UNITS>(dst, src, pitch, valid_rows, nb, t, nt, off); break;
+  }
+}
+
+// A copying thread's hand-off of its stages of a ring of `stages`: after
+// issuing the copies of a stage, commit them; once more than LAG stages are
+// pending, wait for the oldest, make it visible to the tensor cores
+// (fence.proxy.async: wgmma reads shared memory through the async proxy)
+// and arrive on its barrier.  `pending` counts the stages issued and not yet
+// handed over, `oldest` is the ring slot of the first of them.  LAG stages
+// stay in flight, so the copies overlap the products; LAG must stay below
+// the ring's depth, or the thread would wait for a stage it holds itself.
+// Before a wait on another barrier that the consumers release only after
+// the pending stages, drain.
+template <int LAG>
+__device__ __forceinline__ void copies_issued(int& pending, int& oldest, uint64_t* full, int stages) {
+  cp_async_commit();
+  if (++pending > LAG) {
+    cp_async_wait<LAG>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_arrive(&full[oldest]);
+    if (++oldest == stages) oldest = 0;
+    --pending;
+  }
+}
+
+// The hand-off of every pending stage.
+__device__ __forceinline__ void copies_drained(int& pending, int& oldest, uint64_t* full, int stages) {
+  cp_async_wait<0>();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  for (; pending > 0; --pending) {
+    mbar_arrive(&full[oldest]);
+    if (++oldest == stages) oldest = 0;
+  }
 }
 
 // d += a * b for one m16n8k16 tile, bf16 operands, fp32 accumulation.  With

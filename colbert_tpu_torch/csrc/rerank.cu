@@ -28,8 +28,9 @@
 // bound it: the distinct docs from device memory once, and the pair blocks
 // streamed from L2 into the SMs.
 //
-// Route "wgmma" (dv = 16 rows a doc, qv = 16 views, dim a multiple of 64: the
-// serving shape), query-stationary blocks over pid-windowed candidates:
+// Route "wgmma" (dv = 16 rows a doc, qv = 16 views: the serving shape; any
+// dim up to 1,024 over a bf16 table, a multiple of 64 over int8),
+// query-stationary blocks over pid-windowed candidates:
 // * The wrapper (ops/rerank.py) sorts each query's candidates by pid (-1
 //   last, the permutation kept), cuts the pid space into windows of W docs
 //   and finds each query's first sorted candidate in each window: all on the
@@ -42,7 +43,8 @@
 // * The item's query sits in shared memory as the wgmma B operand (n = 16:
 //   bf16(Q); n = 48 for K5: its three bf16 terms side by side), loaded once
 //   an item by TMA (two buffers for K4, so the next item's query loads while
-//   this one's docs stream).
+//   this one's docs stream); the wrapper pads its dims with zeros to whole
+//   64-dim chunks.
 // * The item's candidates stream in groups of 8 docs through a ring of
 //   stages fed by TMA from a 3-D tensor map over the table (128-byte column
 //   chunk x row x chunk index, the chunk index outermost): one box a doc a
@@ -52,6 +54,15 @@
 //   with one 16 x 64 box a doc a 64-dim stage K4 took 1.8-2.3 ms, with these
 //   1.4 (NVIDIA H100 80GB HBM3, 700.00 W).  Four producer threads, one a
 //   warp, issue the boxes.
+// * A bf16 dim that is not whole 64-dim chunks (312: 4 chunks and 56 dims)
+//   has a last chunk the map cannot describe: its box would read the next
+//   row's first dims (past the table at its last row), and a NaN there times
+//   a zero query dim is NaN.  There the four producer warps copy the boxes
+//   themselves (hopper.cuh::copy_tile), doc d by warp d % 4, in cp.async
+//   pieces as wide as the rows' alignment allows, into the same swizzled
+//   chunk-major layout, with zeros past dim; two stages stay in flight, and
+//   each item's are handed over before the next item's wait on its query
+//   buffer.
 // * A doc a consumer warp: with m64 a warp owns 16 accumulator rows, so each
 //   warp loads its own doc's A fragments from its box into registers
 //   (ldmatrix on the swizzled bf16 rows; for int8, 32-bit loads widened
@@ -69,7 +80,8 @@
 //
 // Route "wgmma_rows" (any other dv >= 1, up to 32 query rows, dim as
 // "wgmma": a ragged corpus's stride buckets, dv 16-384, and the host
-// table's blocks, dv = the longest doc), "wgmma" generalised:
+// table's blocks, dv = the longest doc), "wgmma" generalised (the same
+// copies where a bf16 dim is not whole chunks, rows past dv zeros):
 // * What bounds it: at phase 9a's ragged batch (144 queries x 4,096
 //   candidates over 10,000 docs of 40-124 rows, four buckets) a doc is a
 //   candidate of ~59 queries: 1.45 GB of distinct bf16 blocks (0.43 ms from
@@ -100,12 +112,14 @@
 //   the warp's rows (lane bits 2-4) and the sum over the 32 views (bits
 //   0-1); lane 0 writes out[b, perm[b, j]] once, no atomics.
 //
-// Route "staged" (every other shape: dims that are not whole 64-dim chunks
-// or past 1,024; and on request, as the first design): the first design,
-// one warp per candidate at a time, 16 doc rows x 128 dims staged
-// synchronously in shared memory, bf16 16x16x16 wmma, every pair's block
-// read from device memory; a launch covers every candidate of the call,
-// -1s included.  ops/rerank.py::rerank_plan picks the route.
+// Route "staged" (every other shape: dims past 1,024, int8 dims that are
+// not whole 64-dim chunks, more than 32 query rows; and on request, as the
+// first design): the first design, one warp per candidate at a time, 16 doc
+// rows x 128 dims staged synchronously in shared memory (the last step's
+// dims past dim zeros; rows that are not 16-byte aligned read element by
+// element), bf16 16x16x16 wmma, every pair's block read from device memory;
+// a launch covers every candidate of the call, -1s included.
+// ops/rerank.py::rerank_plan picks the route.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -141,6 +155,11 @@ template <> struct Rows<__nv_bfloat16> {
   __device__ static void zero(__nv_bfloat16* dst) {
     *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
   }
+  // the first n (1..VEC) elements, one at a time (any alignment), zeros after
+  __device__ static void load_part(const __nv_bfloat16* src, __nv_bfloat16* dst, int n) {
+    zero(dst);
+    for (int i = 0; i < n; ++i) dst[i] = src[i];
+  }
 };
 
 template <> struct Rows<int8_t> {
@@ -159,12 +178,18 @@ template <> struct Rows<int8_t> {
     reinterpret_cast<uint4*>(dst)[0] = make_uint4(0, 0, 0, 0);
     reinterpret_cast<uint4*>(dst)[1] = make_uint4(0, 0, 0, 0);
   }
+  __device__ static void load_part(const int8_t* src, __nv_bfloat16* dst, int n) {
+    zero(dst);
+    for (int i = 0; i < n; ++i) dst[i] = __float2bfloat16_rn(float(src[i]));
+  }
 };
 
 __host__ __device__ constexpr size_t align128(size_t x) { return (x + 127) / 128 * 128; }
 
+// The staged query's bf16 terms: rows of the dim rounded up to whole 16-dim
+// steps (zeros past dim) and 16 more, the fragments' pitch.
 __host__ __device__ inline size_t q_bytes(int terms, int qv, int dim) {
-  return align128(size_t(terms) * ((qv + 15) / 16 * 16) * (dim + 16) * 2);
+  return align128(size_t(terms) * ((qv + 15) / 16 * 16) * ((dim + 15) / 16 * 16 + 16) * 2);
 }
 
 constexpr size_t D_BYTES = size_t(WARPS) * 16 * LDD * 2;
@@ -180,7 +205,9 @@ rerank_kernel(const int* __restrict__ cand, const float* __restrict__ Q,
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int qv_pad = (qv + 15) / 16 * 16;
-  const int ldq = dim + 16;
+  const int dim_p = (dim + 15) / 16 * 16;  // whole 16-dim steps: the columns past dim are zeros
+  const int ldq = dim_p + 16;
+  const bool aligned = dim % VEC == 0;     // every doc row 16-byte aligned (the table is)
   const size_t qb = q_bytes(TERMS, qv, dim);
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* Ds = reinterpret_cast<__nv_bfloat16*>(smem + qb) + warp * 16 * LDD;
@@ -188,9 +215,9 @@ rerank_kernel(const int* __restrict__ cand, const float* __restrict__ Q,
   const int b = blockIdx.y;
 
   // the block's query, split into TERMS bf16 parts (term t: rows t*qv_pad..)
-  for (int i = tid; i < qv_pad * dim; i += THREADS) {
-    const int row = i / dim, k = i % dim;
-    float x = row < qv ? Q[(int64_t(b) * qv + row) * dim + k] : 0.0f;
+  for (int i = tid; i < qv_pad * dim_p; i += THREADS) {
+    const int row = i / dim_p, k = i % dim_p;
+    float x = row < qv && k < dim ? Q[(int64_t(b) * qv + row) * dim + k] : 0.0f;
 #pragma unroll
     for (int t = 0; t < TERMS; ++t) {
       const __nv_bfloat16 h = __float2bfloat16_rn(x);
@@ -216,19 +243,23 @@ rerank_kernel(const int* __restrict__ cand, const float* __restrict__ Q,
 #pragma unroll
       for (int qt = 0; qt < Q_TILES; ++qt) wmma::fill_fragment(acc[qt], 0.0f);
       for (int k0 = 0; k0 < dim; k0 += KC) {
-        const int kc = min(KC, dim - k0);  // a multiple of 16
-        const int vecs = kc / VEC;
+        const int kc = min(KC, dim - k0);
+        const int kp = (kc + 15) / 16 * 16;  // whole 16-dim steps: columns kc .. kp - 1 are zeros
+        const int vecs = kp / VEC;
         __syncwarp();  // the previous tile is consumed
         for (int i = lane; i < 16 * vecs; i += 32) {
           const int rr = i / vecs, cc = (i % vecs) * VEC;
           __nv_bfloat16* dst = Ds + rr * LDD + cc;
-          if (d0 + rr < dv)
-            Rows<T>::load(doc + int64_t(d0 + rr) * dim + k0 + cc, dst);
-          else
+          const T* src = doc + int64_t(d0 + rr) * dim + k0 + cc;
+          if (d0 + rr >= dv || cc >= kc)
             Rows<T>::zero(dst);
+          else if (aligned)  // then kc is a multiple of VEC
+            Rows<T>::load(src, dst);
+          else
+            Rows<T>::load_part(src, dst, min(VEC, kc - cc));
         }
         __syncwarp();
-        for (int kk = 0; kk < kc; kk += 16) {
+        for (int kk = 0; kk < kp; kk += 16) {
           wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
           wmma::load_matrix_sync(fb, Ds + kk, LDD);
 #pragma unroll
@@ -289,6 +320,23 @@ constexpr int THREADS = 128 * (CONS + 1);  // warpgroups 0..CONS-1 consume; the 
 constexpr int MAX_DIM = 1024;
 constexpr int ROW = 128;        // bytes a box row: one 128-byte swizzle row
 constexpr uint32_t CHUNK = DV * ROW;  // a doc's 16 rows of one 128-byte column chunk
+constexpr int LAG = 2;          // ring stages a copying producer keeps in flight (< the ring's depth)
+
+// A doc's box of a stage (16 rows x `chunks` 128-byte column chunks,
+// chunk-major, each chunk 16 rows of 128 swizzled bytes) copied by a
+// producer warp itself, where no tensor map describes the bf16 rows (a dim
+// that is not whole 64-dim chunks): rows of `dim` elements at `src` (the
+// doc's row of the tile, the stage's first column), `valid` of them (rows
+// past are zeros), the columns past dim zeros, 16-byte unit u of row r in
+// chunk u / 8 at (u % 8) ^ (r % 8), as TMA's 128-byte swizzle lands it.
+template <int CHUNKS>
+__device__ __forceinline__ void copy_box(int w, uint32_t dst, const unsigned char* src, int dim, int col0,
+                                         int valid, int lane) {
+  const int nb = min(dim - col0, CHUNKS * 64) * 2;
+  copy_tile<16, CHUNKS * 8>(w, dst, src, (long long)dim * 2, valid, nb, lane, 32, [](int r, int u) {
+    return uint32_t((u / 8) * CHUNK + r * ROW + (((u % 8) ^ (r & 7)) * 16));
+  });
+}
 
 // A doc's TMA box a stage is 16 rows x `chunks` 128-byte column chunks (3-D:
 // chunk-major, each chunk 16 swizzled rows): 192 dims of bf16, 256 of int8.
@@ -421,32 +469,36 @@ __device__ __forceinline__ float doc_score(const float (&d)[R]) {
 
 }  // namespace wg
 
-template <bool I8>
+// COPIES (bf16 only): the doc boxes come by the producer warps' own copies
+// of `table` (rows of dim elements, pieces of w bytes), not by tmap_table.
+template <bool I8, bool COPIES>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 rerank_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_table,  // 3-D over the table, box 16 rows x chunks
-                    const __grid_constant__ CUtensorMap tmap_q,      // (B*NQ, dim) bf16, box 64 x NQ
+                    const __grid_constant__ CUtensorMap tmap_q,      // (B*NQ, qdim) bf16, box 64 x NQ
+                    const unsigned char* __restrict__ table,  // (num_docs * 16, dim): COPIES
                     const int* __restrict__ spid,      // (B, C) pids sorted ascending, -1 last
                     const int64_t* __restrict__ perm,  // (B, C) column of each sorted pid
                     const int* __restrict__ wstart,    // (B, n_win + 1) first sorted index of each window
                     float* __restrict__ out,           // (B, C), filled with -inf
-                    int B, int C, int n_win, int dim) {
+                    int B, int C, int n_win, int dim, int w) {
   using namespace wg;
   using K = Cfg<I8>;
   constexpr int N = K::NQ, STAGES = K::stages;
+  static_assert(!(I8 && COPIES), "an int8 table comes by its tensor map");
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[STAGES], empty[STAGES], qfull[K::QBUF], qempty[K::QBUF];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // the ring, then the query buffers
   const uint32_t qbase = base + K::ring;
-  const int nq = dim / 64;                        // 64-dim chunks of the query
+  const int nq = (dim + 63) / 64;                 // 64-dim chunks of the query (zeros past dim)
   const int nks = (dim + K::ks - 1) / K::ks;      // stages a group (a last partial one: zero fill)
   const uint32_t qsize = uint32_t(nq) * K::q_chunk;  // one query's B operand
 
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], PROD);       // each producer thread's expect_tx
-      mbar_init(&empty[s], CONS * 4);  // one arrival per consumer warp
+      mbar_init(&full[s], COPIES ? PROD * 32 : PROD);  // each producer thread's expect_tx (each copier's hand-off)
+      mbar_init(&empty[s], CONS * 4);                  // one arrival per consumer warp
     }
 #pragma unroll
     for (int s = 0; s < K::QBUF; ++s) {
@@ -461,21 +513,22 @@ rerank_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_table,  // 3-D over
   const int wgi = threadIdx.x / 128;
   if (wgi == CONS) {
     // ---- producers: PROD threads load each item's docs (doc d by thread d % PROD: one
-    // thread's TMA issue alone holds the stream back), the first also its query ----
+    // thread's TMA issue alone holds the stream back), the first also its query; with
+    // COPIES doc d's box is copied by producer warp d % PROD ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    const int pi = (threadIdx.x - CONS * 128) / 32;
-    if (threadIdx.x % 32 == 0 && pi < PROD) {
-      int stage = 0, it = 0;
+    const int pi = (threadIdx.x - CONS * 128) / 32, lane = threadIdx.x % 32;
+    if (pi < PROD && (COPIES || lane == 0)) {
+      int stage = 0, it = 0, pending = 0, oldest = 0;  // the ring slot, items; stages not handed over (COPIES)
       uint32_t phase = 0;
       for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
-        const int w = i / B, b = i % B;
-        const int* ws = wstart + int64_t(b) * (n_win + 1) + w;
+        const int wi = i / B, b = i % B;
+        const int* ws = wstart + int64_t(b) * (n_win + 1) + wi;
         const int lo = ws[0], hi = ws[1];
         if (lo >= hi) continue;
         const int qb = it % K::QBUF;
         const uint32_t qph = (it / K::QBUF) & 1;
         ++it;
-        if (pi == 0) {
+        if (pi == 0 && lane == 0) {
           mbar_wait(&qempty[qb], qph ^ 1);
           mbar_expect_tx(&qfull[qb], qsize);
           for (int c = 0; c < nq; ++c)
@@ -490,17 +543,28 @@ rerank_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_table,  // 3-D over
           for (int kb = 0; kb < nks; ++kb) {
             mbar_wait(&empty[stage], phase ^ 1);
             const uint32_t st = base + stage * K::stage;
-            mbar_expect_tx(&full[stage], ((nd - pi + PROD - 1) / PROD) * K::box);
+            if constexpr (COPIES) {
 #pragma unroll
-            for (int d = 0; d < GD; ++d)
-              if (d < nd && d % PROD == pi)
-                tma_load_3d(st + d * K::box, &tmap_table, 0, pid[d] * DV, kb * K::chunks, &full[stage]);
+              for (int d = 0; d < GD; ++d)
+                if (d < nd && d % PROD == pi)
+                  copy_box<K::chunks>(w, st + d * K::box, table + (int64_t(pid[d]) * DV * dim + kb * K::ks) * 2,
+                                      dim, kb * K::ks, DV, lane);
+              copies_issued<LAG>(pending, oldest, full, STAGES);
+            } else {
+              mbar_expect_tx(&full[stage], ((nd - pi + PROD - 1) / PROD) * K::box);
+#pragma unroll
+              for (int d = 0; d < GD; ++d)
+                if (d < nd && d % PROD == pi)
+                  tma_load_3d(st + d * K::box, &tmap_table, 0, pid[d] * DV, kb * K::chunks, &full[stage]);
+            }
             if (++stage == STAGES) {
               stage = 0;
               phase ^= 1;
             }
           }
         }
+        // the item's stages all handed over before the next item's wait on its query buffer
+        if constexpr (COPIES) copies_drained(pending, oldest, full, STAGES);
       }
     }
   } else {
@@ -513,8 +577,8 @@ rerank_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_table,  // 3-D over
     int stage = 0, it = 0;
     uint32_t phase = 0;
     for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
-      const int w = i / B, b = i % B;
-      const int* ws = wstart + int64_t(b) * (n_win + 1) + w;
+      const int wi = i / B, b = i % B;
+      const int* ws = wstart + int64_t(b) * (n_win + 1) + wi;
       const int lo = ws[0], hi = ws[1];
       if (lo >= hi) continue;
       const int qb = it % K::QBUF;
@@ -577,27 +641,33 @@ bool make_table_map(CUtensorMap* map, const void* table, int num_docs, int dim) 
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool I8>
+// The table by its 3-D tensor map where dim is whole 64-dim chunks, else by
+// the producers' copies (bf16 only); q is (B * NQ, qdim), qdim = dim rounded
+// up to a multiple of 64, zeros past dim.
+template <bool I8, bool COPIES>
 cudaError_t launch_wgmma(const void* q, const void* table, const int* spid, const int64_t* perm,
                          const int* wstart, float* out, int B, int C, int dim, int num_docs, int n_win,
                          cudaStream_t stream) {
   using K = wg::Cfg<I8>;
-  CUtensorMap map_table, map_q;
-  if (!make_table_map<I8>(&map_table, table, num_docs, dim) ||
-      !hopper::make_map(&map_q, q, false, uint64_t(B) * K::NQ, dim, K::NQ))
+  const int nq = (dim + 63) / 64;
+  CUtensorMap map_table = {}, map_q;
+  if ((!COPIES && !make_table_map<I8>(&map_table, table, num_docs, dim)) ||
+      !hopper::make_map(&map_q, q, false, uint64_t(B) * K::NQ, uint64_t(nq) * 64, K::NQ))
     return cudaErrorInvalidValue;
   const int64_t n_items = int64_t(n_win) * B;
   if (n_items > INT32_MAX) return cudaErrorInvalidValue;
-  const size_t smem = K::smem(dim / 64);
+  const size_t smem = K::smem(nq);
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(rerank_wgmma_kernel<I8>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    err = cudaFuncSetAttribute(rerank_wgmma_kernel<I8, COPIES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(smem));
   if (err != cudaSuccess) return err;
   const int grid = int(n_items < sms ? n_items : sms);
-  rerank_wgmma_kernel<I8><<<grid, wg::THREADS, smem, stream>>>(map_table, map_q, spid, perm, wstart, out,
-                                                                 B, C, n_win, dim);
+  rerank_wgmma_kernel<I8, COPIES><<<grid, wg::THREADS, smem, stream>>>(
+      map_table, map_q, static_cast<const unsigned char*>(table), spid, perm, wstart, out, B, C, n_win, dim,
+      hopper::copy_width((long long)dim * 2));
   return cudaGetLastError();
 }
 
@@ -766,18 +836,22 @@ __device__ __forceinline__ float doc_score(const float (&mx)[8]) {
 
 }  // namespace wr
 
-template <bool I8>
+// COPIES (bf16 only): the doc tiles come by the producer warps' own copies
+// of `table` (rows of dim elements, pieces of w bytes), not by tmap_table.
+template <bool I8, bool COPIES>
 __global__ void __launch_bounds__(wr::THREADS, 1)
 rerank_rows_kernel(const __grid_constant__ CUtensorMap tmap_table,  // 4-D over the table, box 16 rows x chunks
-                   const __grid_constant__ CUtensorMap tmap_q,      // (B*NQ, dim) bf16, box 64 x NQ
+                   const __grid_constant__ CUtensorMap tmap_q,      // (B*NQ, qdim) bf16, box 64 x NQ
+                   const unsigned char* __restrict__ table,  // (num_docs * dv, dim): COPIES
                    const int* __restrict__ spid,      // (B, C) pids sorted ascending, -1 last
                    const int64_t* __restrict__ perm,  // (B, C) column of each sorted pid
                    const int* __restrict__ items,     // (n_items, 3): query, first, end; query -1 past the last
                    float* __restrict__ out,           // (B, C), filled with -inf
-                   int C, int n_items, int dim, int dv, int stages, int qbuf) {
+                   int C, int n_items, int dim, int dv, int stages, int qbuf, int w) {
   using namespace wr;
   using K = Cfg<I8>;
   constexpr int N = K::NQ;
+  static_assert(!(I8 && COPIES), "an int8 table comes by its tensor map");
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[MAX_STAGES], empty[MAX_STAGES], qfull[MAX_QBUF], qempty[MAX_QBUF];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the ring, then the query buffers
@@ -789,7 +863,7 @@ rerank_rows_kernel(const __grid_constant__ CUtensorMap tmap_table,  // 4-D over 
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < stages; ++s) {
-      mbar_init(&full[s], PROD);
+      mbar_init(&full[s], COPIES ? PROD * 32 : PROD);
       mbar_init(&empty[s], CONS * 4);
     }
     for (int s = 0; s < qbuf; ++s) {
@@ -803,11 +877,11 @@ rerank_rows_kernel(const __grid_constant__ CUtensorMap tmap_table,  // 4-D over 
   const int wgi = threadIdx.x / 128;
   if (wgi == CONS) {
     // ---- producers: each item's query (the first thread), then its docs' boxes, (row tile,
-    // 128-byte chunks) a stage, doc d by thread d % PROD ----
+    // 128-byte chunks) a stage, doc d by thread d % PROD (with COPIES, by warp d % PROD) ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    const int pi = (threadIdx.x - CONS * 128) / 32;
-    if (threadIdx.x % 32 == 0 && pi < PROD) {
-      int stage = 0, it = 0;
+    const int pi = (threadIdx.x - CONS * 128) / 32, lane = threadIdx.x % 32;
+    if (pi < PROD && (COPIES || lane == 0)) {
+      int stage = 0, it = 0, pending = 0, oldest = 0;  // the ring slot, items; stages not handed over (COPIES)
       uint32_t phase = 0;
       for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
         const int b = items[3 * i], lo = items[3 * i + 1], hi = items[3 * i + 2];
@@ -815,7 +889,7 @@ rerank_rows_kernel(const __grid_constant__ CUtensorMap tmap_table,  // 4-D over 
         const int qb = it % qbuf;
         const uint32_t qph = (it / qbuf) & 1;
         ++it;
-        if (pi == 0) {
+        if (pi == 0 && lane == 0) {
           mbar_wait(&qempty[qb], qph ^ 1);
           mbar_expect_tx(&qfull[qb], qsize);
           for (int c = 0; c < nq; ++c)
@@ -831,11 +905,21 @@ rerank_rows_kernel(const __grid_constant__ CUtensorMap tmap_table,  // 4-D over 
             for (int kb = 0; kb < nks; ++kb) {
               mbar_wait(&empty[stage], phase ^ 1);
               const uint32_t st = base + stage * K::stage;
-              mbar_expect_tx(&full[stage], ((nd - pi + PROD - 1) / PROD) * K::box);
+              if constexpr (COPIES) {
 #pragma unroll
-              for (int d = 0; d < GD; ++d)
-                if (d < nd && d % PROD == pi)
-                  tma_load_4d(st + d * K::box, &tmap_table, 0, t * 16, pid[d], kb * K::chunks, &full[stage]);
+                for (int d = 0; d < GD; ++d)
+                  if (d < nd && d % PROD == pi)
+                    wg::copy_box<K::chunks>(w, st + d * K::box,
+                                            table + ((int64_t(pid[d]) * dv + t * 16) * dim + kb * K::ks) * 2, dim,
+                                            kb * K::ks, min(16, dv - t * 16), lane);
+                copies_issued<wg::LAG>(pending, oldest, full, stages);
+              } else {
+                mbar_expect_tx(&full[stage], ((nd - pi + PROD - 1) / PROD) * K::box);
+#pragma unroll
+                for (int d = 0; d < GD; ++d)
+                  if (d < nd && d % PROD == pi)
+                    tma_load_4d(st + d * K::box, &tmap_table, 0, t * 16, pid[d], kb * K::chunks, &full[stage]);
+              }
               if (++stage == stages) {
                 stage = 0;
                 phase ^= 1;
@@ -843,6 +927,8 @@ rerank_rows_kernel(const __grid_constant__ CUtensorMap tmap_table,  // 4-D over 
             }
           }
         }
+        // the item's stages all handed over before the next item's wait on its query buffer
+        if constexpr (COPIES) copies_drained(pending, oldest, full, stages);
       }
     }
   } else {
@@ -933,25 +1019,31 @@ bool make_rows_map(CUtensorMap* map, const void* table, int num_docs, int dv, in
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool I8>
+// The table by its 4-D tensor map where dim is whole 64-dim chunks, else by
+// the producers' copies (bf16 only); q is (B * NQ, qdim), qdim = dim rounded
+// up to a multiple of 64, zeros past dim.
+template <bool I8, bool COPIES>
 cudaError_t launch_rows(const void* q, const void* table, const int* spid, const int64_t* perm, const int* items,
                         float* out, int B, int C, int dim, int dv, int num_docs, int n_items, cudaStream_t stream) {
   using K = wr::Cfg<I8>;
   const wr::Plan p = wr::plan<I8>(dim);
-  CUtensorMap map_table, map_q;
-  if (p.stages < 1 || !make_rows_map<I8>(&map_table, table, num_docs, dv, dim) ||
-      !hopper::make_map(&map_q, q, false, uint64_t(B) * K::NQ, dim, K::NQ))
+  CUtensorMap map_table = {}, map_q;
+  if (p.stages < 1 || (COPIES && p.stages <= wg::LAG) ||
+      (!COPIES && !make_rows_map<I8>(&map_table, table, num_docs, dv, dim)) ||
+      !hopper::make_map(&map_q, q, false, uint64_t(B) * K::NQ, uint64_t(dim + 63) / 64 * 64, K::NQ))
     return cudaErrorInvalidValue;
   const size_t smem = 1024 + size_t(p.stages) * K::stage + size_t(p.qbuf) * p.qsize;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(rerank_rows_kernel<I8>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    err = cudaFuncSetAttribute(rerank_rows_kernel<I8, COPIES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               int(smem));
   if (err != cudaSuccess) return err;
   const int grid = n_items < sms ? n_items : sms;
-  rerank_rows_kernel<I8><<<grid, wr::THREADS, smem, stream>>>(map_table, map_q, spid, perm, items, out, C,
-                                                                n_items, dim, dv, p.stages, p.qbuf);
+  rerank_rows_kernel<I8, COPIES><<<grid, wr::THREADS, smem, stream>>>(
+      map_table, map_q, static_cast<const unsigned char*>(table), spid, perm, items, out, C, n_items, dim, dv,
+      p.stages, p.qbuf, hopper::copy_width((long long)dim * 2));
   return cudaGetLastError();
 }
 
@@ -963,17 +1055,20 @@ extern "C" {
 int rerank_max_views() { return MAX_QV; }            // route "staged": query rows
 int rerank_wgmma_dv() { return wg::DV; }             // route "wgmma": rows a doc
 int rerank_wgmma_views() { return wg::QV; }          // route "wgmma": views a query
-int rerank_wgmma_max_dim() { return wg::MAX_DIM; }   // route "wgmma": largest dim (a multiple of 64)
+int rerank_wgmma_max_dim() { return wg::MAX_DIM; }   // both wgmma routes: largest dim
 int rerank_wgmma_group() { return wg::GD; }          // route "wgmma": docs a stage
 int rerank_rows_views() { return wr::QV; }           // route "wgmma_rows": query rows a launch
 int rerank_rows_part(int table_int8) {               // route "wgmma_rows": docs an item at most
   return table_int8 ? wr::Cfg<true>::PART : wr::Cfg<false>::PART;
 }
 
-// Route "staged".  Returns a cudaError_t: 0 when the launch was accepted.
+// Route "staged": any dim >= 1 over a bf16 table, a multiple of 16 over int8
+// (K5's; the JAX package reaches K5 at multiples of 128 only); a 16-byte
+// aligned table.  Returns a cudaError_t: 0 when the launch was accepted.
 int rerank_launch(const void* cand, const void* q, const void* table, int table_int8,
                   void* out, int B, int C, int qv, int dim, int dv, void* stream) {
-  if (B < 1 || B > 65535 || C < 1 || qv < 1 || qv > MAX_QV || dim < 16 || dim % 16 != 0 || dv < 1)
+  if (B < 1 || B > 65535 || C < 1 || qv < 1 || qv > MAX_QV || dim < 1 || dv < 1 ||
+      (table_int8 && dim % 16 != 0) || reinterpret_cast<uintptr_t>(table) % 16)
     return int(cudaErrorInvalidValue);
   const int* c = static_cast<const int*>(cand);
   const float* qq = static_cast<const float*>(q);
@@ -985,14 +1080,17 @@ int rerank_launch(const void* cand, const void* q, const void* table, int table_
   return int(err);
 }
 
-// Route "wgmma".  q: the bf16 B operand, (B*16, dim) for a bf16 table or
-// (B*48, dim) (three terms a query) for int8; spid/perm/wstart: the pid-window
-// schedule (ops/rerank.py::rerank_schedule); out (B, C) filled with -inf.
-// Returns a cudaError_t: 0 when the launch was accepted.
+// Route "wgmma".  q: the bf16 B operand, (B*16, qdim) for a bf16 table or
+// (B*48, qdim) (three terms a query) for int8, qdim = dim rounded up to a
+// multiple of 64, zeros past dim; spid/perm/wstart: the pid-window schedule
+// (ops/rerank.py::rerank_schedule); out (B, C) filled with -inf.  Any dim up
+// to MAX_DIM over a bf16 table (by the producers' copies where dim is not
+// whole 64-dim chunks), a multiple of 64 over int8.  Returns a cudaError_t:
+// 0 when the launch was accepted.
 int rerank_wgmma_launch(const void* q, const void* table, int table_int8, const void* spid,
                         const void* perm, const void* wstart, void* out, int B, int C, int dim,
                         int num_docs, int n_win, void* stream) {
-  if (B < 1 || C < 1 || dim < 64 || dim > wg::MAX_DIM || dim % 64 != 0 || num_docs < 1 ||
+  if (B < 1 || C < 1 || dim < 1 || dim > wg::MAX_DIM || (table_int8 && dim % 64 != 0) || num_docs < 1 ||
       n_win < 1 || (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(table)) % 16)
     return int(cudaErrorInvalidValue);
   const int* sp = static_cast<const int*>(spid);
@@ -1000,31 +1098,32 @@ int rerank_wgmma_launch(const void* q, const void* table, int table_int8, const 
   const int* ws = static_cast<const int*>(wstart);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = table_int8
-      ? launch_wgmma<true>(q, table, sp, pm, ws, o, B, C, dim, num_docs, n_win, s)
-      : launch_wgmma<false>(q, table, sp, pm, ws, o, B, C, dim, num_docs, n_win, s);
+  cudaError_t err = table_int8 ? launch_wgmma<true, false>(q, table, sp, pm, ws, o, B, C, dim, num_docs, n_win, s)
+                    : dim % 64 ? launch_wgmma<false, true>(q, table, sp, pm, ws, o, B, C, dim, num_docs, n_win, s)
+                               : launch_wgmma<false, false>(q, table, sp, pm, ws, o, B, C, dim, num_docs, n_win, s);
   return int(err);
 }
 
-// Route "wgmma_rows".  q: the bf16 B operand, (B*32, dim) for a bf16 table or
-// (B*96, dim) for int8; spid/perm: the sorted candidates of the pid-window
-// schedule, items (n_items, 3) int32 its (query, first, end) parts
-// (ops/rerank.py::rerank_items); out (B, C) filled with -inf; a doc is dv
-// rows.  Returns a cudaError_t: 0 when the launch was accepted.
+// Route "wgmma_rows".  q: the bf16 B operand, (B*32, qdim) for a bf16 table
+// or (B*96, qdim) for int8, qdim as route "wgmma"'s; spid/perm: the sorted
+// candidates of the pid-window schedule, items (n_items, 3) int32 its
+// (query, first, end) parts (ops/rerank.py::rerank_items); out (B, C) filled
+// with -inf; a doc is dv rows; dims as route "wgmma".  Returns a
+// cudaError_t: 0 when the launch was accepted.
 int rerank_rows_launch(const void* q, const void* table, int table_int8, const void* spid, const void* perm,
                        const void* items, void* out, int B, int C, int dim, int dv, int num_docs, int n_items,
                        void* stream) {
-  if (B < 1 || C < 1 || dim < 64 || dim > wg::MAX_DIM || dim % 64 != 0 || dv < 1 || num_docs < 1 ||
-      n_items < 1 || (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(table)) % 16)
+  if (B < 1 || C < 1 || dim < 1 || dim > wg::MAX_DIM || (table_int8 && dim % 64 != 0) || dv < 1 ||
+      num_docs < 1 || n_items < 1 || (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(table)) % 16)
     return int(cudaErrorInvalidValue);
   const int* sp = static_cast<const int*>(spid);
   const int64_t* pm = static_cast<const int64_t*>(perm);
   const int* it = static_cast<const int*>(items);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = table_int8
-      ? launch_rows<true>(q, table, sp, pm, it, o, B, C, dim, dv, num_docs, n_items, s)
-      : launch_rows<false>(q, table, sp, pm, it, o, B, C, dim, dv, num_docs, n_items, s);
+  cudaError_t err = table_int8 ? launch_rows<true, false>(q, table, sp, pm, it, o, B, C, dim, dv, num_docs, n_items, s)
+                    : dim % 64 ? launch_rows<false, true>(q, table, sp, pm, it, o, B, C, dim, dv, num_docs, n_items, s)
+                               : launch_rows<false, false>(q, table, sp, pm, it, o, B, C, dim, dv, num_docs, n_items, s);
   return int(err);
 }
 

@@ -22,6 +22,11 @@ The source has two routes, chosen by shape in :func:`flat_scan_plan`:
 "wgmma" (TMA ring, wgmma, MaxSim in registers) for 16 rows a doc and 16
 views a query, the multiview main path; "staged" (the first, wmma kernel)
 for every other shape.  Each counts its launches in :data:`route_launches`.
+Both take any hidden dim ``h >= 1``, as the TPU kernels do: the queries go
+to the kernel zero-padded to whole 64-dim chunks (:func:`query_operand`),
+and a table whose row pitch is not a multiple of 16 bytes (int8 at h 312,
+bf16 at h 100), which no tensor map describes, is copied into the "wgmma"
+route's ring by its producer warps.
 
 Each wrapper runs its plain PyTorch version (``*_ref``) only for tensors on
 the CPU; for CUDA tensors it launches the kernel or raises, and counts the
@@ -76,7 +81,7 @@ def flat_scan_plan(dv: int, m: int) -> str:
     """The kernel route for a table of ``dv`` rows a doc and queries of ``m``
     views: "wgmma" where a warp's 16 accumulator rows are one doc and a
     256-token tile is 16 whole queries, else "staged".  Both take bf16 and
-    int8 tables and any hidden dim the input check accepts."""
+    int8 tables and any hidden dim."""
     return "wgmma" if (dv, m) == (_WGMMA_DV, _WGMMA_M) else "staged"
 
 
@@ -117,14 +122,27 @@ def _check_kernel_inputs(Qm: torch.Tensor, table: torch.Tensor, dv: int) -> None
         raise ValueError(f"table {tuple(table.shape)} does not match query dim {h}")
     if not table.is_contiguous() or table.data_ptr() % 16:
         raise ValueError("flat scan kernel needs a contiguous, 16-byte aligned table")
-    if h % 16 or h < 16:
-        raise ValueError(f"flat scan kernel needs a hidden dim that is a multiple of 16, got {h}")
+    if h < 1:
+        raise ValueError(f"flat scan kernel needs a hidden dim of at least 1, got {h}")
     if not 1 <= m <= _MAX_TOKENS:
         raise ValueError(f"flat scan kernel takes 1..{_MAX_TOKENS} views per query, got {m}")
     if dv < 1 or table.shape[0] % dv or table.shape[0] == 0:
         raise ValueError(f"table rows {table.shape[0]} are not whole docs of dv={dv}")
     if B < 1:
         raise ValueError("flat scan kernel needs at least one query")
+
+
+def query_operand(Qm: torch.Tensor) -> torch.Tensor:
+    """The kernel's query operand: ``Qm`` (B, m, h) as bf16 rows (B*m, hq),
+    ``hq`` = h rounded up to a multiple of 64 (the kernel's 64-dim chunks),
+    zeros past h, 16-byte aligned (the kernel reads whole 16-byte vectors
+    and the "wgmma" route's tensor map needs an aligned base)."""
+    B, m, h = Qm.shape
+    q = Qm.reshape(B * m, h).to(torch.bfloat16)
+    if h % 64:
+        return torch.nn.functional.pad(q, (0, -h % 64))
+    q = q.contiguous()
+    return q.clone() if q.data_ptr() % 16 else q
 
 
 def _launch(Qm: torch.Tensor, table: torch.Tensor, dv: int, num_docs: int,
@@ -137,9 +155,7 @@ def _launch(Qm: torch.Tensor, table: torch.Tensor, dv: int, num_docs: int,
     B, m, h = Qm.shape
     dev = table.device
     route = flat_scan_plan(dv, m)
-    q = Qm.reshape(B * m, h).to(torch.bfloat16).contiguous()
-    if q.data_ptr() % 16:  # the kernel reads queries 16 bytes at a time
-        q = q.clone()
+    q = query_operand(Qm)
     docs_pad = table.shape[0] // dv
     group = group_docs(dv)
     if score_dtype is None:

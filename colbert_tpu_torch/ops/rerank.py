@@ -25,8 +25,9 @@ doc-major tables, each reranked by one K4 or K5 launch with ``dv`` = its
 stride (:func:`maxsim_rerank_buckets`).
 
 The source has three routes, chosen by shape in :func:`rerank_plan`:
-"wgmma" for the uniform serving shape (16 rows a doc, 16 views, dim a
-multiple of 64): each query's candidates sorted by pid and cut into pid
+"wgmma" for the uniform serving shape (16 rows a doc, 16 views; any dim up
+to 1,024 over a bf16 table, whole 64-dim chunks over int8): each query's
+candidates sorted by pid and cut into pid
 windows (:func:`rerank_schedule`, on the device without a host sync), a
 persistent grid over the (window, query) items window-major, so a window's
 doc blocks come from device memory about once a batch, one TMA box a doc a
@@ -37,7 +38,10 @@ the host table's blocks) at up to 32 views: the same pid windows, each
 table; :func:`rerank_items`, also on the device), a doc's 16-row tiles
 walked in turn with the max over rows carried in registers, wgmma n = 32
 (n = 96 for K5's three terms); "staged" (the first, wmma kernel, one warp per
-candidate) for every other shape.  Each counts its launches in
+candidate) for every other shape, at any bf16 dim (K5's int8 at multiples
+of 16: the JAX package reaches K5 at multiples of 128 only).  A bf16 dim
+that is not whole 64-dim chunks reaches the wgmma routes' ring by their
+producers' own copies, no tensor map.  Each counts its launches in
 :data:`route_launches`.  :func:`rerank_windowed_ref` and
 :func:`rerank_rows_ref` walk the two wgmma routes' items in plain torch.
 
@@ -77,6 +81,18 @@ _NO_PID = torch.iinfo(torch.int32).max  # the sort key of a -1 candidate: after 
 #: fragment: a thread widens bytes 4q..4q+3 of its rows into fragment columns
 #: 2q, 2q+1 and 2q+8, 2q+9 (csrc/rerank.cu::load_a)
 INT8_K_ORDER = (0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15)
+
+
+def check_int8_table_dim(dim: int) -> None:
+    """Refuses a uniform corpus's int8 rerank table at a width K5 does not
+    take on the card (a multiple of 16), when the searcher is built rather
+    than at its first batch, on the CPU as on the card.  The JAX searchers
+    refuse every width that is not a multiple of 128 (their lane-packed
+    table, ``colbert_tpu/ops/rerank_pallas.py:116-117``), so at these widths
+    the two packages agree."""
+    if dim % 16:
+        raise ValueError(f"rerank_dtype=int8 needs a dim that is a multiple of 16 (the int8 rerank kernel's; "
+                         f"the JAX package's lane-packed table needs a multiple of 128), got {dim}")
 
 
 def quantize_emb_into(emb, out: torch.Tensor, *, device="cpu", chunk: int = 1 << 18) -> torch.Tensor:
@@ -196,28 +212,28 @@ def maxsim_rerank_uniform_int8_ref(cand: torch.Tensor, Qm: torch.Tensor, table: 
     return _rerank_ref(cand, Qm.float(), table, dv)
 
 
-def rerank_plan(dv: int, qv: int, dim: int) -> str:
+def rerank_plan(dv: int, qv: int, dim: int, int8: bool = False) -> str:
     """The kernel route for ``dv`` rows a doc, ``qv`` query views and width
-    ``dim``, where ``dim`` is whole 128-byte bf16 column chunks (a multiple
-    of 64, up to 1,024): "wgmma" where a warp's 16 accumulator rows are one
-    doc and the 16 views one wgmma n = 16 operand; "wgmma_rows" for any
-    other ``dv`` >= 1 at up to 32 views (a doc's 16-row tiles in turn,
-    n = 32); else "staged".  All take bf16 and int8 tables."""
-    if not (dim % 64 == 0 and 64 <= dim <= _WGMMA_MAX_DIM and dv >= 1):
+    ``dim`` up to 1,024 (any, over a bf16 table; whole 64-dim chunks over
+    ``int8``): "wgmma" where a warp's 16 accumulator rows are one doc and
+    the 16 views one wgmma n = 16 operand; "wgmma_rows" for any other
+    ``dv`` >= 1 at up to 32 views (a doc's 16-row tiles in turn, n = 32);
+    else "staged"."""
+    if not (1 <= dim <= _WGMMA_MAX_DIM and dv >= 1) or (int8 and dim % 64):
         return "staged"
     if (dv, qv) == (_WGMMA_DV, _WGMMA_VIEWS):
         return "wgmma"
     return "wgmma_rows" if qv <= MAX_VIEWS else "staged"
 
 
-def row_chunk(dv: int, qv: int, dim: int) -> int:
+def row_chunk(dv: int, qv: int, dim: int, int8: bool = False) -> int:
     """Query rows a launch takes for ``qv`` rows: all of them up to 16, or
     up to :data:`MAX_VIEWS` off the "wgmma" route's shape (one launch, routed
     by :func:`rerank_plan`); past that, 16 where ``dv`` and ``dim`` are the
     "wgmma" route's (each chunk a 16-view "wgmma" launch, the last padded
     with zero rows), else :data:`MAX_VIEWS` (routes "wgmma_rows", whose
     launch pads a short chunk with zero rows, and "staged")."""
-    if rerank_plan(dv, _WGMMA_VIEWS, dim) == "wgmma" and qv > _WGMMA_VIEWS:
+    if rerank_plan(dv, _WGMMA_VIEWS, dim, int8) == "wgmma" and qv > _WGMMA_VIEWS:
         return _WGMMA_VIEWS
     return min(qv, MAX_VIEWS)
 
@@ -347,13 +363,16 @@ def rerank_rows_ref(cand: torch.Tensor, q: torch.Tensor, table: torch.Tensor, dv
 
 
 def query_operand(Qm: torch.Tensor, int8_table: bool) -> torch.Tensor:
-    """The "wgmma" route's bf16 B operand: ``bf16(Qm)`` (B, qv, dim) for a
-    bf16 table; for int8, ``Qm``'s three bf16 terms side by side (B, 3*qv,
-    dim), whose sum is ``Qm`` to fp32 precision (each remainder is exact in
-    fp32), with each 16-dim block's dims in :data:`INT8_K_ORDER`: the order
-    in which the kernel widens a thread's int8 words into its A fragment."""
+    """The wgmma routes' bf16 B operand: ``bf16(Qm)`` (B, qv, dim) for a
+    bf16 table, its dims padded with zeros to whole 64-dim chunks (the
+    kernels' query tensor map); for int8 (dim whole chunks), ``Qm``'s three
+    bf16 terms side by side (B, 3*qv, dim), whose sum is ``Qm`` to fp32
+    precision (each remainder is exact in fp32), with each 16-dim block's
+    dims in :data:`INT8_K_ORDER`: the order in which the kernel widens a
+    thread's int8 words into its A fragment."""
     if not int8_table:
-        return Qm.to(torch.bfloat16).contiguous()
+        q = Qm.to(torch.bfloat16)
+        return torch.nn.functional.pad(q, (0, -q.shape[-1] % 64)) if q.shape[-1] % 64 else q.contiguous()
     q = Qm.float()
     t0 = q.to(torch.bfloat16)
     r = q - t0.float()
@@ -418,20 +437,22 @@ def _launch(cand: torch.Tensor, Qm: torch.Tensor, table: torch.Tensor, dv: int,
     B, qv, dim = Qm.shape
     if cand.dim() != 2 or cand.shape[0] != B or cand.dtype != torch.int32:
         raise ValueError(f"cand must be ({B}, C) int32, got {tuple(cand.shape)} {cand.dtype}")
-    if table.shape[1] != dim or dim % 16 or dim < 16:
-        raise ValueError(f"rerank kernel needs a table of width {dim}, a multiple of 16")
+    int8 = table_dtype == torch.int8
+    if table.shape[1] != dim or dim < 1:
+        raise ValueError(f"rerank kernel needs a table of width {dim}, got {tuple(table.shape)}")
+    if int8 and dim % 16:
+        raise ValueError(f"rerank kernel over an int8 table needs a width that is a multiple of 16, got {dim}")
     if not table.is_contiguous() or table.data_ptr() % 16:
         raise ValueError("rerank kernel needs a contiguous, 16-byte aligned table")
     C = cand.shape[1]
-    chunk = min(qv, MAX_VIEWS) if route == "staged" else row_chunk(dv, qv, dim)
-    plan = rerank_plan(dv, chunk, dim)
+    chunk = min(qv, MAX_VIEWS) if route == "staged" else row_chunk(dv, qv, dim, int8)
+    plan = rerank_plan(dv, chunk, dim, int8)
     route = route or plan
     if route not in ("staged", plan):
         raise ValueError(f"rerank route {route!r} does not take dv {dv}, {qv} views, dim {dim}")
     if B == 0 or C == 0 or qv == 0:  # nothing to launch: a sum over no query rows is 0
         return torch.where(cand >= 0, 0.0, float("-inf")).float()
     lib = _kernel_lib()
-    int8 = table_dtype == torch.int8
     stream = torch.cuda.current_stream(dev).cuda_stream
     cand = cand.contiguous()
     num_docs = table.shape[0] // dv
@@ -451,7 +472,7 @@ def _launch(cand: torch.Tensor, Qm: torch.Tensor, table: torch.Tensor, dv: int,
         else:
             if route == "wgmma_rows" and q_rows.shape[1] < MAX_VIEWS:  # zero rows add 0 to every score
                 q_rows = torch.cat([q_rows, q_rows.new_zeros((B, MAX_VIEWS - q_rows.shape[1], dim))], dim=1)
-            q = query_operand(q_rows, int8)
+            q = query_operand(q_rows, int8)  # dims padded to whole 64-dim chunks
             if q.data_ptr() % 16:  # the tensor map needs a 16-byte aligned base
                 q = q.clone()
             out = torch.full((B, C), float("-inf"), dtype=torch.float32, device=dev)

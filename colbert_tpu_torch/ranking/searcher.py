@@ -52,7 +52,7 @@ from colbert_tpu_torch.ops.ivf import (
 )
 from colbert_tpu_torch.ops.pq4 import ivf_probe_pq4
 from colbert_tpu_torch.ops.rerank import (
-    BucketTables, build_ragged_buckets, maxsim_rerank_buckets, maxsim_rerank_uniform,
+    BucketTables, build_ragged_buckets, check_int8_table_dim, maxsim_rerank_buckets, maxsim_rerank_uniform,
     maxsim_rerank_uniform_int8, quantize_emb_into, stride_buckets,
 )
 from colbert_tpu_torch.parallel.mesh import device_mesh
@@ -439,6 +439,7 @@ class ColbertSearcher:
             return
         if self.uniform_doclen:
             if s.rerank_dtype == "int8":
+                check_int8_table_dim(self.dim)
                 self.emb_table = int8_rows(torch.empty(emb.shape, dtype=torch.int8, device=dev))
             else:
                 tdt = torch.float32 if s.rerank_dtype == "float32" else torch.bfloat16

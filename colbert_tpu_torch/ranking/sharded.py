@@ -38,7 +38,9 @@ from colbert_tpu_torch.models.colbert import ColbertModel
 from colbert_tpu_torch.models.sharding import place
 from colbert_tpu_torch.ops.flat_scan import _int8_scale, build_flat_table, flat_maxsim_scan, flat_topk
 from colbert_tpu_torch.ops.ivf import sort_by_list
-from colbert_tpu_torch.ops.rerank import BucketTables, build_ragged_buckets, quantize_emb_into, stride_buckets
+from colbert_tpu_torch.ops.rerank import (
+    BucketTables, build_ragged_buckets, check_int8_table_dim, quantize_emb_into, stride_buckets,
+)
 from colbert_tpu_torch.ops.topk import pad_shard_topk, topk_merge_gathered
 from colbert_tpu_torch.parallel.mesh import Mesh, local_shard_bounds, make_mesh
 from colbert_tpu_torch.ranking.searcher import (
@@ -182,6 +184,8 @@ class ShardedColbertSearcher:
             raise ValueError("serve.rerank_table='host' is single-device only; shard a device table instead")
         if self.int8 and not self.uniform_doclen:
             raise ValueError("rerank_dtype=int8 requires a uniform-doclen (multiview) corpus")
+        if self.int8:
+            check_int8_table_dim(int(meta["dim"]))
         sh = shard_index(storage, self.n_shards)
         S, max_embs, dim = sh["emb_table"].shape
         lens = sh["offsets"][:, 1:] - sh["offsets"][:, :-1]

@@ -1,23 +1,27 @@
 #!/usr/bin/env python3
 """Time variants of the rerank's "wgmma" route (K4/K5) on one NVIDIA GPU.
 
-    python3 scripts/rerank_variants.py
+    python3 scripts/rerank_variants.py [--dim 312]
 
 Builds ``colbert_tpu_torch/csrc/rerank.cu`` as it is and with one constant or
 line changed (one nvcc each, in parallel, into ``.runs/rerank_variants/``),
 and times each kernel's wrapper path (schedule, query operand, launch) with
 CUDA events on random inputs of the serving shape: 144 queries x 4,096
 candidates (2,615 distinct pids a query, the rest -1) over 20,000 docs x 16
-rows x 768 (bf16 unit rows; int8 uniform in +-127), and the same candidates
-spread over 200,000 docs (p -> 10p + b mod 10) with the windows the port
-picks and with 512-doc windows.  Variants:
+rows x 768 (``--dim``; bf16 unit rows; int8 uniform in +-127, at a dim of
+whole 64-dim chunks alone), and the same candidates spread over 200,000
+docs (p -> 10p + b mod 10) with the windows the port picks and with
+512-doc windows.  Variants:
 
 * design: the source as it is;
 * one producer: one thread issues every TMA box (PROD = 1);
 * 64-dim boxes: one 128-byte column chunk a box (3x the boxes for bf16,
   2x for int8, the same bytes);
 * hot docs, no products: every group loads docs 0..7 (always in L2) and
-  issues no wgmma -- what the box stream alone costs (its scores are wrong).
+  issues no wgmma -- what the box stream alone costs (its scores are wrong);
+* producer copies: the bf16 doc boxes copied by the producer warps at
+  every dim (cp.async, as at a dim that is not whole 64-dim chunks, where
+  no tensor map describes the last chunk), not by the 3-D tensor map.
 
 Prints the card's name and power limit and one line per variant and case:
 milliseconds, and the largest difference from the plain version (which
@@ -42,8 +46,9 @@ VARIANTS = {
     "64-dim boxes": [("static constexpr int chunks = I8 ? 2 : 3;", "static constexpr int chunks = 1;"),
                      ("static constexpr int stages = I8 ? 4 : 3;", "static constexpr int stages = 8;")],
     "hot docs, no products": [(HOT, "pid[d] = d;"), (MMA, "              ;")],
+    "producer copies": [(": dim % 64 ? launch_wgmma<false, true>", ": dim > 0 ? launch_wgmma<false, true>")],
 }
-B, C, N, H = 144, 4096, 20_000, 768
+B, C, N = 144, 4096, 20_000
 
 
 def build(out: Path):
@@ -76,11 +81,16 @@ def build(out: Path):
 
 
 def main() -> int:
+    import argparse
+
     import numpy as np
     import torch
 
     from colbert_tpu_torch.ops import rerank as rr
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dim", type=int, default=768, help="the table's width (default 768, the serving point's)")
+    H = ap.parse_args().dim
     if not torch.cuda.is_available():
         print("rerank_variants: needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -136,7 +146,7 @@ def main() -> int:
     for case, c, n in (("20k docs", cand, N), ("200k docs", cand_low, 10 * N)):
         t16, t8 = tables(n)
         for kname, tab, q, ref in (("K4", t16, Q, rr.maxsim_rerank_uniform_ref),
-                                   ("K5", t8, Q / 127.0, rr.maxsim_rerank_uniform_int8_ref)):
+                                   ("K5", t8, Q / 127.0, rr.maxsim_rerank_uniform_int8_ref))[: 1 + (H % 64 == 0)]:
             want = ref(c, q, tab, dv=16)
             live = c >= 0
             port_window = rr.window_docs(n, C, 16 * H * tab.element_size())

@@ -59,20 +59,38 @@ def test_build_flat_table_bit_equal(dtype, uniform):
         np.testing.assert_array_equal(tinv.numpy(), jinv)
 
 
-@pytest.mark.parametrize("uniform", [True, False])
-def test_flat_maxsim_scan_matches_jax(uniform):
-    emb, doclens = _corpus(1, 37, 128, uniform)
+# hidden dims that are not a multiple of 16 (the TPU kernels take any h; the
+# TinyBERT-4L-zh width's dim = hidden is 312): cases beside the 128 and 64
+# ones, which keep their ids
+ODD_H = (24, 100, 312)
+
+
+def _cases(base, extra):
+    """``base`` cases with their old ids, then ``extra`` ones named by their values."""
+    return [pytest.param(*c, id=i) for c, i in base] + [pytest.param(*c, id="-".join(map(str, c))) for c in extra]
+
+
+@pytest.mark.parametrize("uniform,h,dtype", _cases(
+    [((True, 128, "bfloat16"), "True"), ((False, 128, "bfloat16"), "False")],
+    [(u, h, dt) for h in ODD_H for dt in ("bfloat16", "int8") for u in (True, False)]))
+def test_flat_maxsim_scan_matches_jax(uniform, h, dtype):
+    """K2 over a bf16 or int8 table (int8: the descale folded into the queries)."""
+    emb, doclens = _corpus(1, 37, h, uniform)
     rng = np.random.default_rng(2)
     B, m = 5, 4
-    Qm = rng.normal(size=(B, m, 128)).astype(np.float32)
+    Qm = rng.normal(size=(B, m, h)).astype(np.float32)
     Qm[1, 2:] = 0.0
-    jt, _, dv = jfs.build_flat_table(emb, doclens, dtype="bfloat16")
-    tt, _, _ = tfs.build_flat_table(emb, doclens, dtype="bfloat16")
+    jt, jinv, dv = jfs.build_flat_table(emb, doclens, dtype=dtype)
+    tt, _, _ = tfs.build_flat_table(emb, doclens, dtype=dtype)
+    if jinv is not None:
+        Qm = Qm * jinv
     got = tfs.flat_maxsim_scan(torch.from_numpy(Qm), tt, dv=dv).numpy()
 
-    rb = jfs.pick_rows_block(dv, 2, target_rows=64)
+    rb = jfs.pick_rows_block(dv, jt.dtype.itemsize, target_rows=64)
     want = np.asarray(jfs.flat_maxsim_scan(jnp.asarray(Qm), jnp.asarray(jt), dv=dv, rows_blk=rb))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    if dtype == "int8":
+        return
     # the XLA reference scans an fp32 copy of the table with bf16-rounded queries
     Qb = Qm.astype(ml_dtypes.bfloat16).astype(np.float32)
     xla = np.asarray(jfs.flat_maxsim_scan_xla(jnp.asarray(Qb), jnp.asarray(jt.astype(np.float32)), dv=dv))
@@ -92,17 +110,23 @@ def test_flat_maxsim_scan_int8_matches_jax():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("score_dtype", ["float32", "bfloat16"])
-def test_flat_scan_topk_matches_jax(score_dtype):
+@pytest.mark.parametrize("score_dtype,h,dtype", _cases(
+    [(("float32", 64, "bfloat16"), "float32"), (("bfloat16", 64, "bfloat16"), "bfloat16")],
+    [(s, h, dt) for h in ODD_H for dt in ("bfloat16", "int8") for s in ("float32", "bfloat16")]))
+def test_flat_scan_topk_matches_jax(score_dtype, h, dtype):
+    """K1 and the exact stage-2 top-k over a bf16 or int8 table."""
     # 45 docs at dv=4: the port's group is 64 docs and the JAX rows block 16
     # docs, so num_docs ends inside a group on both sides
     rng = np.random.default_rng(5)
-    num_docs, dv, h, B, m, k = 45, 4, 64, 6, 4, 10
+    num_docs, dv, B, m, k = 45, 4, 6, 4, 10
     emb = rng.normal(size=(num_docs * dv, h)).astype(np.float16)
     doclens = np.full(num_docs, dv)
     Qm = rng.normal(size=(B, m, h)).astype(np.float32)
-    jt, _, _ = jfs.build_flat_table(emb, doclens, dtype="bfloat16", rows_blk=64)
-    tt, _, _ = tfs.build_flat_table(emb, doclens, dtype="bfloat16", rows_blk=64)
+    rows_blk = 64 if dtype == "bfloat16" else 128  # the int8 table's rows block: whole 32-row sublane tiles
+    jt, jinv, _ = jfs.build_flat_table(emb, doclens, dtype=dtype, rows_blk=rows_blk)
+    tt, _, _ = tfs.build_flat_table(emb, doclens, dtype=dtype, rows_blk=rows_blk)
+    if jinv is not None:
+        Qm = Qm * jinv  # the searcher folds the per-dim descale into the queries
     # pad docs beyond num_docs must never be returned even with large scores
     assert tt.shape[0] // dv > num_docs
 
@@ -110,7 +134,7 @@ def test_flat_scan_topk_matches_jax(score_dtype):
                                 topk=k, score_dtype=score_dtype)
     ts, tp = ts.numpy(), tp.numpy()
     js, jp = jfs.flat_scan_topk(jnp.asarray(Qm), jnp.asarray(jt), dv=dv, num_docs=num_docs,
-                                topk=k, rows_blk=64, score_dtype=score_dtype)
+                                topk=k, rows_blk=rows_blk, score_dtype=score_dtype)
     js, jp = np.asarray(js), np.asarray(jp)
 
     tol = 1e-5 * np.maximum(1.0, np.abs(js))

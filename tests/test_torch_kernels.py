@@ -78,6 +78,17 @@ CASES = [
     (40, 384, 128, 5, 16, "bfloat16"),
     (150, 5, 128, 7, 32, "bfloat16"),
 ]
+# Hidden dims that are not a multiple of 16 (the TPU kernels take any h), both
+# routes and table types.  Route "wgmma": bf16 rows its tensor map describes
+# (h 8, 24, 312: a pitch of 16, 48 and 624 bytes; the box's columns past h
+# zero-filled) and rows it does not, copied by the producer warps (bf16 h 33,
+# 100 and 1,030: 66, 200 and 2,060 bytes; every int8 h here, 33 and 1,030 in
+# 1- and 2-byte pieces).  Route "staged": its last 64-dim chunk padded to
+# whole 16-dim steps, unaligned rows read element by element.
+CASES += [(n, 16, h, 20, 16, dtype) for n, h in ((600, 8), (500, 24), (300, 33), (700, 100), (900, 312), (200, 1030))
+          for dtype in ("bfloat16", "int8")]
+CASES += [(150, 5, h, 7, 32, dtype) for h in (24, 100, 312) for dtype in ("bfloat16", "int8")]
+CASES += [(100, 37, 1030, 5, 16, "bfloat16")]
 
 
 def _assert_kernels_match_plain(Qm, table, dv, num_docs):
@@ -160,12 +171,47 @@ def test_queries_off_16_byte_alignment(cuda_device):
 
 
 def test_kernel_rejects_unsupported_shapes(cuda_device):
-    table = torch.zeros(64, 24, dtype=torch.bfloat16, device=cuda_device)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        fs.flat_maxsim_scan(torch.zeros(2, 4, 24, device=cuda_device), table, dv=4)
+    """A table type the kernels do not take raises; a hidden dim of 24 (once
+    refused, not a multiple of 16) is taken and matches the plain version."""
+    table, Qm, dv = _case(cuda_device, 16, 4, 24, 2, 4, "bfloat16", seed=24)
+    torch.testing.assert_close(fs.flat_maxsim_scan(Qm, table, dv=dv), fs.flat_maxsim_scan_ref(Qm, table, dv=dv),
+                               rtol=0, atol=1e-4)
     table = torch.zeros(64, 32, dtype=torch.float32, device=cuda_device)
     with pytest.raises(ValueError, match="bf16 or int8"):
         fs.flat_maxsim_scan(torch.zeros(2, 4, 32, device=cuda_device), table, dv=4)
+
+
+@pytest.mark.parametrize("at_end", [False, True])
+@pytest.mark.parametrize("h", [24, 100, 312])
+@pytest.mark.parametrize("dv,m", [(16, 16), (5, 32)])
+def test_scan_reads_no_column_past_h(cuda_device, dv, m, h, at_end):
+    """K2 on both routes over a bf16 table of 300 docs (no pad doc: its last
+    row is a real doc's) inside a larger allocation of NaN rows: at its
+    start, the rows after the table NaN, or at its end, the table's last row
+    the allocation's last; and NaN in the first element of one doc's first
+    row.  A row read past its h columns would take in the next row's NaN,
+    and a tile past the table's last row the NaN after it or bytes past the
+    allocation; the kernels' max over a doc's rows passes over a NaN row, so
+    that doc's score would change.  Every doc but the NaN one matches the
+    plain version.  h 24 and 312 come by the tensor map, h 100 by the
+    producers' copies (route "wgmma")."""
+    rng = np.random.default_rng(h + m)
+    n = 300 * dv
+    buf = torch.full((n + 64, h), float("nan"), dtype=torch.bfloat16, device=cuda_device)
+    table = buf[64:] if at_end else buf[:n]
+    table.copy_(torch.from_numpy(rng.normal(size=(n, h)).astype(np.float32) / np.sqrt(h)))
+    bad = 7  # the doc whose first element is NaN: the row before it is doc 6's last
+    table[bad * dv, 0] = float("nan")
+    Qm = torch.from_numpy(rng.normal(size=(20, m, h)).astype(np.float32) / np.sqrt(h)).to(cuda_device)
+    before = {k: c.value for k, c in fs.route_launches.items()}
+    got = fs.flat_maxsim_scan(Qm, table, dv=dv)
+    torch.cuda.synchronize()
+    route = fs.flat_scan_plan(dv, m)
+    assert {k: c.value - before[k] for k, c in fs.route_launches.items()} == {k: int(k == route) for k in before}
+    want = fs.flat_maxsim_scan_ref(Qm, table, dv=dv)
+    keep = torch.arange(got.shape[0], device=cuda_device) != bad
+    assert torch.isfinite(got[keep]).all()
+    torch.testing.assert_close(got[keep], want[keep], rtol=0, atol=1e-4)
 
 
 # ---- K3: all-pairs MaxSim (fp32), limit 1e-4: fp32 products, only the summation order differs ----
@@ -487,31 +533,35 @@ def _rerank_inputs(device, seed, num_docs, dv, dim, B, qv, cand):
 def _assert_rerank_kernels_match_plain(cand, Q, table, t8, Qs, dv, route=None):
     """K4 and K5 against their plain versions, each launched a chunk of
     query rows (:func:`row_chunk`; once up to 32 rows) on the route
-    :func:`rerank_plan` names, or on ``route`` when one is forced, and on no
-    other; -inf exactly at the -1 candidates.  Returns the route."""
+    :func:`rerank_plan` names for its table, or on ``route`` when one is
+    forced, and on no other; -inf exactly at the -1 candidates.  Returns
+    the route, or K4's and K5's where they differ (a dim that is not whole
+    64-dim chunks: K4's wgmma routes take it, K5 goes "staged")."""
     from colbert_tpu_torch.ops import rerank as rr
 
     qv, dim = Q.shape[1], Q.shape[2]
     if route is None:
-        n, route = _launches_a_call(qv, dv, dim)
+        (n4, r4), (n5, r5) = _launches_a_call(qv, dv, dim), _launches_a_call(qv, dv, dim, int8=True)
         k4 = lambda c, q, t: rr.maxsim_rerank_uniform(c, q, t, dv=dv)
         k5 = lambda c, q, t: rr.maxsim_rerank_uniform_int8(c, q, t, dv=dv)
     else:
-        n = -(-qv // rr.MAX_VIEWS)
+        n4 = n5 = -(-qv // rr.MAX_VIEWS)
+        r4 = r5 = route
         k4 = lambda c, q, t: rr._launch(c, q, t, dv, torch.bfloat16, rr.maxsim_rerank_uniform.launches, route=route)
         k5 = lambda c, q, t: rr._launch(c, q, t, dv, torch.int8, rr.maxsim_rerank_uniform_int8.launches, route=route)
     before = {k: c.value for k, c in rr.route_launches.items()}
-    n4, n5 = rr.maxsim_rerank_uniform.launches.value, rr.maxsim_rerank_uniform_int8.launches.value
+    c4, c5 = rr.maxsim_rerank_uniform.launches.value, rr.maxsim_rerank_uniform_int8.launches.value
     got, got8 = k4(cand, Q, table), k5(cand, Qs, t8)
     torch.cuda.synchronize()
-    assert (rr.maxsim_rerank_uniform.launches.value, rr.maxsim_rerank_uniform_int8.launches.value) == (n4 + n, n5 + n)
-    assert {k: c.value - before[k] for k, c in rr.route_launches.items()} == {k: 2 * n * (k == route) for k in before}
+    assert (rr.maxsim_rerank_uniform.launches.value, rr.maxsim_rerank_uniform_int8.launches.value) == (c4 + n4, c5 + n5)
+    assert {k: c.value - before[k] for k, c in rr.route_launches.items()} == {
+        k: n4 * (k == r4) + n5 * (k == r5) for k in before}
     for g, want in ((got, rr.maxsim_rerank_uniform_ref(cand, Q, table, dv=dv)),
                     (got8, rr.maxsim_rerank_uniform_int8_ref(cand, Qs, t8, dv=dv))):
         assert g.shape == cand.shape and g.dtype == torch.float32
         assert torch.equal(torch.isfinite(g), cand >= 0) and torch.isneginf(g[cand < 0]).all()
         torch.testing.assert_close(g, want, rtol=0, atol=1e-4)
-    return route
+    return r4 if r4 == r5 else (r4, r5)
 
 
 @pytest.mark.parametrize("num_docs,dv,dim,B,qv,C,route", [
@@ -520,8 +570,8 @@ def _assert_rerank_kernels_match_plain(cand, Q, table, t8, Qs, dv, route=None):
     (500, 37, 128, 5, 32, 130, "wgmma_rows"),  # three 16-row doc tiles, the last 5 rows of 16
     (90, 5, 64, 3, 3, 77, "wgmma_rows"),      # one short tile, 3 query rows padded to 32
     (400, 16, 768, 6, 8, 50, "wgmma_rows"),   # the uniform rows at 8 views
-    (90, 5, 32, 3, 3, 77, "staged"),          # short everything, C not a multiple of the block's 64
-    (400, 16, 80, 6, 16, 50, "staged"),       # dim not whole 64-dim stages
+    (90, 5, 32, 3, 3, 77, ("wgmma_rows", "staged")),  # short everything, C not a multiple of 64
+    (400, 16, 80, 6, 16, 50, ("wgmma", "staged")),    # dim not whole 64-dim chunks: K4 by copies, K5 staged
 ])
 def test_rerank_kernels_match_plain(cuda_device, num_docs, dv, dim, B, qv, C, route):
     rng = np.random.default_rng(num_docs + C)
@@ -529,6 +579,46 @@ def test_rerank_kernels_match_plain(cuda_device, num_docs, dv, dim, B, qv, C, ro
     cand[rng.random((B, C)) < 0.2] = -1
     args = _rerank_inputs(cuda_device, num_docs + C, num_docs, dv, dim, B, qv, cand)
     assert _assert_rerank_kernels_match_plain(*args, dv) == route
+
+
+@pytest.mark.parametrize("at_end", [False, True])
+@pytest.mark.parametrize("dim", [8, 24, 100, 312, 1030])
+@pytest.mark.parametrize("dv,qv", [(16, 16), (37, 32), (16, 8)])
+def test_rerank_k4_at_any_dim(cuda_device, dv, qv, dim, at_end):
+    """K4 at dims that are not whole 64-dim chunks (the TPU kernel takes any
+    dim): route "wgmma" (16 x 16) or "wgmma_rows" (37 rows, 32 views; 16 rows,
+    8 views) up to 1,024, by the producers' copies, and "staged" at 1,030;
+    each against the plain version.  The table lies in an allocation of NaN
+    rows, at its start (the rows after the table NaN) or at its end (the
+    table's last row the allocation's last), and the docs that are no
+    candidate hold NaN (the candidates are the even pids and the last doc):
+    a box read past its row's dim columns, or past the
+    table's last row, takes in NaN or bytes past the allocation, and the
+    kernels' max over a doc's rows passes over a NaN row, so the doc's score
+    would change."""
+    from colbert_tpu_torch.ops import rerank as rr
+
+    rng = np.random.default_rng(dim + dv)
+    num_docs, B, C = 400, 9, 300
+    emb = rng.normal(size=(num_docs * dv, dim)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    buf = torch.full(((num_docs + 4) * dv, dim), float("nan"), dtype=torch.bfloat16, device=cuda_device)
+    table = buf[4 * dv :] if at_end else buf[: num_docs * dv]
+    table.copy_(torch.from_numpy(emb))
+    table.view(num_docs, dv, dim)[1:-1:2] = float("nan")
+    cand = 2 * rng.integers(0, num_docs // 2, size=(B, C)).astype(np.int32)
+    cand[:, :4] = num_docs - 1  # the last doc: past its last row, NaN or the allocation's end
+    cand[rng.random((B, C)) < 0.2] = -1
+    cand = torch.from_numpy(cand).to(cuda_device)
+    Q = torch.from_numpy(rng.normal(size=(B, qv, dim)).astype(np.float32) / np.sqrt(dim)).to(cuda_device)
+    route = rr.rerank_plan(dv, qv, dim)
+    assert route == ("staged" if dim > 1024 else "wgmma" if (dv, qv) == (16, 16) else "wgmma_rows")
+    before = {k: c.value for k, c in rr.route_launches.items()}
+    got = rr.maxsim_rerank_uniform(cand, Q, table, dv=dv)
+    torch.cuda.synchronize()
+    assert {k: c.value - before[k] for k, c in rr.route_launches.items()} == {k: int(k == route) for k in before}
+    assert torch.equal(torch.isfinite(got), cand >= 0) and torch.isneginf(got[cand < 0]).all()
+    torch.testing.assert_close(got, rr.maxsim_rerank_uniform_ref(cand, Q, table, dv=dv), rtol=0, atol=1e-4)
 
 
 def test_rerank_zero_query_rows(cuda_device):
@@ -611,12 +701,12 @@ def _ragged_rows(rng, doclens, dim):
     return (emb / np.linalg.norm(emb, axis=1, keepdims=True)).astype(np.float16)
 
 
-def _launches_a_call(qv, dv, dim):
-    """(launches, route) of one K4 or K5 call at ``qv`` query rows: one a chunk of rows."""
+def _launches_a_call(qv, dv, dim, int8=False):
+    """(launches, route) of one K4 (K5: ``int8``) call at ``qv`` query rows: one a chunk of rows."""
     from colbert_tpu_torch.ops import rerank as rr
 
-    chunk = rr.row_chunk(dv, qv, dim)
-    return -(-qv // chunk), rr.rerank_plan(dv, chunk, dim)
+    chunk = rr.row_chunk(dv, qv, dim, int8)
+    return -(-qv // chunk), rr.rerank_plan(dv, chunk, dim, int8)
 
 
 def _assert_buckets_match_plain(device, dtype, qv):
@@ -722,7 +812,7 @@ def _assert_host_rerank(device, kind, qv):
     cand[rng.random(cand.shape) < 0.05] = -1
     Qm = torch.from_numpy(rng.normal(size=(24, qv, 768)).astype(np.float32) / np.sqrt(768))
     inv = torch.from_numpy(1.0 / scale)
-    n, route = _launches_a_call(qv, host.cap, 768)
+    n, route = _launches_a_call(qv, host.cap, 768, int8=True)
     before, on_route = rr.maxsim_rerank_uniform_int8.launches.value, rr.route_launches[route].value
     ts, tp = host_rerank(cand, Qm.to(device), host, inv.to(device), 100)
     torch.cuda.synchronize()

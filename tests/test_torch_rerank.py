@@ -48,6 +48,12 @@ def _pad128(cand):
     (30, 5, 32, 4, 3, 77),
     (40, 112, 128, 3, 32, 130),  # a ragged corpus's bucket: stride 112 rows, 32 query rows
     (30, 20, 128, 2, 32, 100),   # rows a doc not a multiple of 16 (route "wgmma_rows"'s zero-filled tile)
+    # dims that are not whole 64-dim chunks, nor multiples of 16 (the TPU kernel takes any dim; the
+    # TinyBERT-4L-zh width's dim = hidden is 312): routes "wgmma" (16 x 16) and "wgmma_rows" on the card
+    (50, 16, 24, 3, 16, 150),
+    (50, 16, 100, 3, 16, 150),
+    (60, 16, 312, 3, 16, 200),
+    (30, 20, 312, 2, 32, 100),
 ])
 def test_k4_plain_matches_jax_kernel(num_docs, dv, dim, B, qv, C):
     emb, Qm, cand = _case(num_docs + C, num_docs, dv, dim, B, qv, C)
@@ -224,34 +230,54 @@ def test_schedule_covers_each_candidate_once():
             assert ((items >= 8 * w) & (items < 8 * (w + 1))).all()
 
 
-@pytest.mark.parametrize("dv,qv,dim,route", [
-    (16, 16, 768, "wgmma"),        # the serving point (and the first card case)
-    (37, 32, 128, "wgmma_rows"),   # the card cases of test_torch_kernels.py
-    (5, 3, 32, "staged"),          # dim 32: not a whole 64-dim chunk
-    (5, 3, 64, "wgmma_rows"),
-    (16, 16, 80, "staged"),        # dim not whole 64-dim stages
-    (16, 16, 2048, "staged"),      # dim past the wgmma routes' shared-memory budget
-    (16, 32, 768, "wgmma_rows"),
-    (16, 8, 768, "wgmma_rows"),
-    (64, 32, 768, "wgmma_rows"),   # ragged stride buckets
-    (384, 32, 768, "wgmma_rows"),  # doc_maxlen 384's largest bucket
-    (124, 32, 768, "wgmma_rows"),  # a host table's cap: the longest doc
-    (124, 33, 768, "staged"),      # past one launch's rows (row_chunk cuts them first)
-])
-def test_rerank_plan_routes(dv, qv, dim, route):
-    assert prr.rerank_plan(dv, qv, dim) == route
+def _plan_cases(cases):
+    """(dv, qv, dim, int8, route) cases; a bf16 one keeps the id of its values
+    without ``int8``, an int8 one adds "int8", but where marked as an old
+    case whose check the int8 table keeps."""
+    out = []
+    for (dv, qv, dim, int8, route, *old) in cases:
+        name = f"{dv}-{qv}-{dim}-{route}" if not int8 or old else f"{dv}-{qv}-{dim}-int8-{route}"
+        out.append(pytest.param(dv, qv, dim, int8, route, id=name))
+    return out
 
 
-@pytest.mark.parametrize("dv,qv,dim,chunk,route", [
+@pytest.mark.parametrize("dv,qv,dim,int8,route", _plan_cases([
+    (16, 16, 768, False, "wgmma"),        # the serving point (and the first card case)
+    (37, 32, 128, False, "wgmma_rows"),   # the card cases of test_torch_kernels.py
+    (5, 3, 32, True, "staged", "old"),    # int8 dim 32: not a whole 64-dim chunk
+    (5, 3, 32, False, "wgmma_rows"),      # bf16: any dim, by the producers' copies
+    (5, 3, 64, False, "wgmma_rows"),
+    (16, 16, 80, True, "staged", "old"),  # int8 dim not whole 64-dim stages
+    (16, 16, 80, False, "wgmma"),
+    (16, 16, 312, False, "wgmma"),        # the TinyBERT-4L-zh width's dim = hidden at the serving shape
+    (20, 16, 312, False, "wgmma_rows"),
+    (16, 16, 312, True, "staged"),
+    (16, 16, 1024, False, "wgmma"),       # the wgmma routes' widest
+    (16, 16, 1030, False, "staged"),      # past it
+    (16, 16, 2048, False, "staged"),      # dim past the wgmma routes' shared-memory budget
+    (16, 32, 768, False, "wgmma_rows"),
+    (16, 8, 768, False, "wgmma_rows"),
+    (64, 32, 768, False, "wgmma_rows"),   # ragged stride buckets
+    (384, 32, 768, False, "wgmma_rows"),  # doc_maxlen 384's largest bucket
+    (124, 32, 768, False, "wgmma_rows"),  # a host table's cap: the longest doc
+    (124, 33, 768, False, "staged"),      # past one launch's rows (row_chunk cuts them first)
+    (16, 16, 768, True, "wgmma"),
+]))
+def test_rerank_plan_routes(dv, qv, dim, int8, route):
+    assert prr.rerank_plan(dv, qv, dim, int8) == route
+
+
+@pytest.mark.parametrize("dv,qv,dim,chunk,route,int8", [pytest.param(*c, False, id="-".join(map(str, c))) for c in (
     (16, 16, 768, 16, "wgmma"), (16, 8, 768, 8, "wgmma_rows"),     # one launch, as rerank_plan routes it
     (16, 17, 768, 16, "wgmma"), (16, 48, 768, 16, "wgmma"),        # the "wgmma" shape past 16 rows: 16-row chunks
-    (16, 32, 80, 32, "staged"), (37, 32, 128, 32, "wgmma_rows"),   # up to 32 rows: one launch
+    (37, 32, 128, 32, "wgmma_rows"),                               # up to 32 rows: one launch
     (37, 33, 128, 32, "wgmma_rows"), (16, 64, 2048, 32, "staged"),  # past 32 rows: 32-row chunks
     (124, 48, 768, 32, "wgmma_rows"),                              # a host table's cap at 48 rows
-])
-def test_row_chunk_sizes(dv, qv, dim, chunk, route):
-    assert prr.row_chunk(dv, qv, dim) == chunk
-    assert prr.rerank_plan(dv, chunk, dim) == route
+    (16, 48, 312, 16, "wgmma"), (16, 48, 1030, 32, "staged"),      # bf16 dims that are not whole chunks
+)] + [pytest.param(16, 32, 80, 32, "staged", True, id="16-32-80-32-staged")])  # int8 at dim 80: K5's "staged"
+def test_row_chunk_sizes(dv, qv, dim, chunk, route, int8):
+    assert prr.row_chunk(dv, qv, dim, int8) == chunk
+    assert prr.rerank_plan(dv, chunk, dim, int8) == route
 
 
 @pytest.mark.parametrize("table_dtype", ["bfloat16", "int8"])
